@@ -56,6 +56,10 @@ def pytest_configure(config):
         "is part of the default gate")
     config.addinivalue_line(
         "markers",
+        "cuda: needs a CUDA card (the PyTorch port on the card, "
+        "tests/test_torch_cuda.py); skips without one")
+    config.addinivalue_line(
+        "markers",
         "slow: long-running acceptance runs EXCLUDED from tier-1's "
         "`-m 'not slow'` gate (e.g. the ISSUE-17 "
         "`tune resnet50 --budget 20` step-time-reduction pin)")
