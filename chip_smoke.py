@@ -23,10 +23,22 @@ Phases (each one fails the run with a non-zero exit):
    12 flash-attention and 25 layer-norm launches per dispatched forward.
    One forward with the kernels is held against the same forward on the
    plain versions.
+4. Train ResNet-50 (full width, 1000 classes, 3x224x224, random weights
+   from a seed) through ``ComputationGraph.fit`` in the bf16 / NHWC /
+   fused-epilogue configuration, B=64: one warm step, then 5 timed steps
+   on the same batch. Every loss must be finite, the last below the
+   first, and the counters must read 33 ``scale_shift_act`` launches per
+   step and no plain call.
+5. ResNet-50 ``output()`` (33 launches) held against the same forward on
+   the plain ``scale_shift_act``.
 
-Tolerances: fp32 ``rtol=atol=2e-5`` (as ``tests/test_pallas.py``); bf16
-``rtol=atol=2e-2`` (a few bf16 ulps: both sides round the same fp32
-value, summed in another order); lse 1e-5 absolute in fp32.
+Tolerances: layer norm and flash fp32 ``rtol=atol=2e-5`` (as
+``tests/test_pallas.py``), bf16 ``rtol=atol=2e-2`` (a few bf16 ulps: both
+sides round the same fp32 value, summed in another order), lse 1e-5
+absolute in fp32. ``scale_shift_act``: fp32 1e-6 relative, bf16 1 ulp
+(kernel and plain both round the exact ``x*scale+shift`` once to fp32,
+then once to bf16, so they agree to the bit but for double-rounding
+ties), a NaN in must come out NaN.
 
 Output: progress lines, then a JSON line ``{"kernels": [...]}``, the
 ``nvidia-smi`` name/power-limit line, and as the last line
@@ -49,6 +61,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 BF16_FLOPS = 989e12            # dense bf16 tensor-core peak
 FP32_FLOPS = 67e12             # fp32 outside the tensor cores
 TIMED_RUNS = 30
+RESNET_BATCH = 64
+RESNET_STEPS = 5
 
 
 def fail(msg: str) -> None:
@@ -83,6 +97,8 @@ def main() -> None:
     sys.path.insert(0, root)
     import torch.nn.functional as F
 
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.models import zoo
     from deeplearning4j_tpu_torch.models.transformer import (
         TransformerConfig, TransformerLM)
     from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
@@ -209,10 +225,95 @@ def main() -> None:
     fa_bytes = 4 * B * T * H * D * 2 + B * H * T * 4
     fa_ops = 4 * B * H * T * T * D
     fa.update(bound(fa_bytes, fa_ops, BF16_FLOPS))
-    for kr in (ln, fa):
+
+    # scale_shift_act at ResNet-50's epilogue shapes at B=64 (stem, then
+    # the fused BNs of stages 0-3), a ragged row count, and C % 8 != 0
+    def check_ssa(name, got, want, dtype):
+        nan_w, nan_g = torch.isnan(want), torch.isnan(got)
+        if not torch.equal(nan_w, nan_g):
+            fail(f"{name}: NaN positions differ ({int(nan_w.sum())} want, "
+                 f"{int(nan_g.sum())} got)")
+        g = got.float().masked_fill(nan_w, 0.0)
+        w = want.float().masked_fill(nan_w, 0.0)
+        if not torch.equal(torch.isinf(g), torch.isinf(w)):
+            fail(f"{name}: inf positions differ")
+        fin = torch.isfinite(w)
+        err = (g - w).abs().masked_fill(~fin, 0.0)
+        if dtype == torch.float32:
+            allowed = 1e-6 * w.abs()
+        else:          # one bf16 ulp: 2^(exponent - 7); exact at zero
+            allowed = torch.ldexp(torch.ones_like(w),
+                                  torch.frexp(w)[1] - 8).masked_fill(w == 0, 0)
+        bad = err > allowed
+        if bool(bad.any()):
+            fail(f"{name}: {int(bad.sum())} element(s) beyond the bound, "
+                 f"max |err| {err.max().item():.3g}")
+        return float(err.max().item())
+
+    ssa_shapes = [(64 * 112 * 112, 64), (64 * 56 * 56, 64), (64 * 28 * 28, 128),
+                  (64 * 14 * 14, 256), (64 * 7 * 7, 512), (1001, 72),
+                  (997, 33)]
+    for rows, c in ssa_shapes:
+        for dt in (torch.float32, torch.bfloat16):
+            x = rand(rows, c, dtype=dt, scale=2.0)
+            sc, sh = rand(c, dtype=dt, scale=0.5, shift=1.0), rand(c, dtype=dt)
+            for alpha in (0.0, 0.01):
+                y = ck.scale_shift_act_fwd(x, sc, sh, alpha)
+                torch.cuda.synchronize()
+                e = check_ssa(f"scale_shift_act [{rows},{c}] {dt} "
+                              f"alpha={alpha}", y,
+                              ck.scale_shift_act_plain(x, sc, sh, alpha), dt)
+                log(f"scale_shift_act [{rows}, {c}] {str(dt)[6:]} "
+                    f"alpha={alpha}: max|err| {e:.3g}")
+            del x
+    for dt in (torch.float32, torch.bfloat16):
+        x = rand(4096, 64, dtype=dt)
+        x[::97, ::5] = float("nan")
+        x[1::89, 3] = float("inf")
+        x[2::89, 7] = -float("inf")
+        sc, sh = rand(64, dtype=dt), rand(64, dtype=dt)
+        for alpha in (0.0, 0.01):
+            y = ck.scale_shift_act_fwd(x, sc, sh, alpha)
+            torch.cuda.synchronize()
+            if not bool(torch.isnan(y[::97, ::5]).all()):
+                fail(f"scale_shift_act {dt} alpha={alpha}: a NaN input did "
+                     "not come out NaN")
+            check_ssa(f"scale_shift_act NaN/inf input {dt} alpha={alpha}", y,
+                      ck.scale_shift_act_plain(x, sc, sh, alpha), dt)
+        log(f"scale_shift_act {str(dt)[6:]}: NaN in -> NaN out at alpha 0 "
+            "and 0.01, inf as the plain version")
+
+    # timing at the stem epilogue, the largest of the fit step's 33
+    rows, c = 64 * 112 * 112, 64
+    x = rand(rows, c, dtype=torch.bfloat16, scale=2.0)
+    sc = rand(c, dtype=torch.bfloat16, scale=0.5, shift=1.0)
+    sh = rand(c, dtype=torch.bfloat16)
+    ssa_err = check_ssa("scale_shift_act main shape",
+                        ck.scale_shift_act_fwd(x, sc, sh, 0.0),
+                        ck.scale_shift_act_plain(x, sc, sh, 0.0),
+                        torch.bfloat16)
+    ssa = {
+        "name": "scale_shift_act", "route": "cuda",
+        "source": "deeplearning4j_tpu_torch/ops/csrc/scale_shift_act.cu",
+        "replaces": "deeplearning4j_tpu/ops/pallas_kernels.py:203",
+        "shape": f"x [{rows}, {c}] bfloat16, relu (ResNet-50 stem, B=64)",
+        "max_abs_err": ssa_err,
+        "ms": time_ms(lambda: ck.scale_shift_act_fwd(x, sc, sh, 0.0)),
+        "plain_ms": time_ms(lambda: ck.scale_shift_act_plain(x, sc, sh, 0.0)),
+        # no single PyTorch call computes it: two calls, the port never
+        # makes them
+        "library_ms": time_ms(lambda: torch.relu_(torch.addcmul(sh, x, sc))),
+    }
+    # an fp32 FMA per element on the CUDA cores
+    ssa.update(bound(2 * rows * c * 2 + 2 * c * 2, 2 * rows * c,
+                     FP32_FLOPS))
+    del x
+    for kr in (ln, fa, ssa):
         log(f"{kr['name']} at {kr['shape']}: kernel {kr['ms']:.4f} ms, "
             f"plain {kr['plain_ms']:.4f} ms, library {kr['library_ms']:.4f} "
             f"ms, bound {kr['bound_ms']:.4f} ms ({kr['bound_by']}) [{smi}]")
+    log("scale_shift_act library = torch.relu_(torch.addcmul(shift, x, "
+        "scale)): two calls")
     del flush
 
     # ------------------------------------------------- 3. serve BERT-base
@@ -271,8 +372,8 @@ def main() -> None:
         fail("a request was not resolved exactly once")
     if server.counts["completed"] != 64:
         fail(f"expected 64 completed requests, counts {dict(server.counts)}")
-    if launches != {"flash_attention": 12 * n_fwd, "layer_norm": 25 * n_fwd} \
-            or any(plain.values()):
+    if launches != {"flash_attention": 12 * n_fwd, "layer_norm": 25 * n_fwd,
+                    "scale_shift_act": 0} or any(plain.values()):
         fail(f"launch counts {launches} (plain {plain}) over {n_fwd} "
              "forwards: want 12 flash_attention and 25 layer_norm each")
     log(f"served 64 requests in {n_fwd} forwards; launches {launches}")
@@ -322,13 +423,98 @@ def main() -> None:
         fail("kernel and plain forwards disagree beyond the bf16 bound "
              "(max 5%, mean 0.2% of max|logit|)")
 
+    del server, lm, kern, plain_logits
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ 4. ResNet-50 fit
+    ck.install_platform_overrides()
+    t0 = time.perf_counter()
+    net = zoo.ResNet50(num_classes=1000).init()
+    net.setPrecisionPolicy("bf16")
+    net.setComputeLayout("NHWC")
+    net.setEpilogueFusion(True)
+    log(f"ResNet-50: {net.numParams()} parameters, bf16 policy, NHWC, fused "
+        f"epilogues, built in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(0)
+    xr = torch.from_numpy(rng.standard_normal(
+        (RESNET_BATCH, 3, 224, 224), dtype=np.float32)).to(dev)
+    yr = torch.from_numpy(np.eye(1000, dtype=np.float32)[
+        rng.integers(0, 1000, RESNET_BATCH)]).to(dev)
+    ds = DataSet(xr, yr)
+    t0 = time.perf_counter()
+    net.fit(ds)
+    losses = [net.score()]
+    log(f"warm step: loss {losses[0]:.5f} in {time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_counts()
+    step_ms = []
+    for _ in range(RESNET_STEPS):
+        t0 = time.perf_counter()
+        net.fit(ds)
+        losses.append(net.score())       # a float: waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    fit_launches = dict(ck.LAUNCHES)
+    fit_plain = dict(ck.PLAIN_CALLS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(np.isfinite(losses)):
+        fail(f"ResNet-50 losses not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"ResNet-50 loss did not fall: {losses}")
+    if fit_launches["scale_shift_act"] != 33 * RESNET_STEPS \
+            or any(fit_plain.values()):
+        fail(f"ResNet-50 fit launch counts {fit_launches} (plain "
+             f"{fit_plain}) over {RESNET_STEPS} steps: want 33 "
+             "scale_shift_act launches per step and no plain call")
+    med = float(np.median(step_ms))
+    log(f"ResNet-50 fit B={RESNET_BATCH}: losses "
+        f"{', '.join(f'{v:.5f}' for v in losses)}; step ms median {med:.2f} "
+        f"(min {min(step_ms):.2f}, max {max(step_ms):.2f}), "
+        f"{RESNET_BATCH / (med / 1e3):.1f} images/s, peak {peak_gb:.2f} GB, "
+        f"launches {fit_launches} [{smi}]")
+
+    # ----------------------------------- 5. ResNet-50 output against plain
+    ck.reset_counts()
+    probs = net.output(xr)
+    out_launches = ck.LAUNCHES["scale_shift_act"]
+
+    def ssa_plain(x, scale, shift, *, alpha=0.0, axis=1):
+        if axis % x.dim() != x.dim() - 1 or not x.is_contiguous():
+            fail("a fused epilogue reached the plain version off the gate")
+        c = x.shape[-1]
+        return ck.scale_shift_act_plain(x.view(-1, c), scale.to(x.dtype),
+                                        shift.to(x.dtype), alpha).view(x.shape)
+
+    registry.register_platform_override("scale_shift_act", ssa_plain)
+    probs_plain = net.output(xr)
+    ck.install_platform_overrides()
+    if out_launches != 33:
+        fail(f"ResNet-50 output ran {out_launches} scale_shift_act launches, "
+             "want 33")
+    if probs.shape != (RESNET_BATCH, 1000) or \
+            not bool(torch.isfinite(probs).all()) or \
+            float((probs.sum(-1) - 1).abs().max()) > 1e-3:
+        fail(f"ResNet-50 output not finite softmax rows of shape "
+             f"{tuple(probs.shape)}")
+    dp = (probs - probs_plain).abs()
+    pmax = float(probs_plain.max())
+    log(f"ResNet-50 output kernel vs plain: max|diff| {float(dp.max()):.4g}, "
+        f"mean|diff| {float(dp.mean()):.4g}, max p {pmax:.4g}; argmax agree "
+        f"{float((probs.argmax(-1) == probs_plain.argmax(-1)).float().mean()):.4f}")
+    # bound: kernel and plain agree to the bit but for rare double-rounding
+    # ties; a tie moves one bf16 activation by an ulp, and ~50 layers may
+    # carry that on, as in phase 3
+    if float(dp.max()) > 0.05 * pmax or float(dp.mean()) > 2e-3 * pmax:
+        fail("kernel and plain ResNet-50 forwards disagree beyond the bound "
+             "(max 5%, mean 0.2% of max p)")
+
     ln["launches"] = launches["layer_norm"]
     fa["launches"] = launches["flash_attention"]
+    ssa["launches"] = fit_launches["scale_shift_act"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{k: kr[k] for k in keys}
-                                  for kr in (ln, fa)]}))
+                                  for kr in (ln, fa, ssa)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

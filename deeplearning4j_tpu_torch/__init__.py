@@ -2,18 +2,23 @@
 
 The JAX package beside it is the reference this package is held
 against; this one imports ``torch``, numpy and the standard library
-only. Its first slice is the serving path: a pre-LN BERT-base
-(``models.transformer``) behind the continuous-batching
-``serving.ModelServer``, with hand-written CUDA kernels for flash
-attention and layer norm (``ops.cuda_kernels``) installed as platform
-overrides over the generic ops (``ops.registry``).
+only. Two paths run: serving a pre-LN BERT-base (``models.transformer``)
+behind the continuous-batching ``serving.ModelServer``, and training
+ResNet-50 (``models.zoo``) through ``nn.graph.ComputationGraph``, with
+hand-written CUDA kernels for flash attention, layer norm and the fused
+conv epilogue (``ops.cuda_kernels``) installed as platform overrides
+over the generic ops (``ops.registry``).
 
 Layout (module and public names follow the JAX package):
 
-- ``ops``       — op registry, generic layer norm / attention, and the
-                  CUDA kernels with their plain PyTorch twins
-- ``models``    — the transformer (``TransformerConfig``, ``forward``,
-                  ``encode``, ``TransformerLM``, ``params_from_jax``)
+- ``ops``       — op registry, the generic ops (normalization,
+                  attention, convolution/pooling, activations, losses),
+                  and the CUDA kernels with their plain PyTorch twins
+- ``nn``        — ``NeuralNetConfiguration``/``InputType``, the layers,
+                  ``ComputationGraph`` and ``PrecisionPolicy``
+- ``train``     — the updaters (``Sgd``, ``Adam``) and schedules
+- ``data``      — ``DataSet``
+- ``models``    — the transformer and the model zoo (``ResNet50``)
 - ``serving``   — ``ModelServer``, ``ServingRequest``, ``CircuitBreaker``
                   and the structured serving errors
 - ``profiler``  — the Counter/Gauge/Histogram metrics registry

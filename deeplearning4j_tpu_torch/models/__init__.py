@@ -1,1 +1,2 @@
-"""Models: the transformer (``models.transformer``)."""
+"""Models: the transformer (``models.transformer``) and the model zoo
+(``models.zoo``: ``ResNet50``)."""

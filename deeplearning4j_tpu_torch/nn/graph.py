@@ -1,0 +1,583 @@
+"""ComputationGraph — DAG networks with graph vertices (the slice's
+subset of ``deeplearning4j_tpu/nn/graph.py``).
+
+The JAX package traces the whole step into one compiled program; the
+port runs it eagerly: ``fit`` is one forward, ``torch.autograd.grad`` of
+the loss, gradient normalization and the updater in place on the fp32
+master params. The forward (``_forward``) follows the JAX one node for
+node, including the NHWC compute layout, the fused BN + activation
+epilogue with its conv-bias fold, the re-biased copy of a folded conv
+that has other consumers, and the fp32/bf16 alignment at vertices.
+
+Not ported yet (ROADMAP.md): megasteps (``steps_per_dispatch`` > 1),
+dynamic loss scaling, augmentation, sharding, resilience, listeners,
+the compile cache, the sanitizer, save/load and ``evaluate``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from deeplearning4j_tpu_torch.data.dataset import DataSet
+from deeplearning4j_tpu_torch.device import resolve_device
+from deeplearning4j_tpu_torch.nn import layers as L
+from deeplearning4j_tpu_torch.nn.config import InputType, NeuralNetConfiguration
+from deeplearning4j_tpu_torch.train import updaters as upd
+
+
+class GraphVertex:
+    """Non-layer DAG node (ref: org.deeplearning4j.nn.conf.graph.*Vertex)."""
+
+    def apply(self, *inputs):
+        raise NotImplementedError
+
+    def output_type(self, *input_types: InputType) -> InputType:
+        return input_types[0]
+
+
+class MergeVertex(GraphVertex):
+    """Concat along the channel/feature axis (ref: MergeVertex)."""
+
+    def apply(self, *inputs):
+        axis = 1 if inputs[0].dim() >= 3 else -1
+        return torch.cat(inputs, dim=axis)
+
+    def output_type(self, *its: InputType) -> InputType:
+        it = its[0]
+        if it.kind == "cnn":
+            return InputType.convolutional(it.height, it.width,
+                                           sum(i.channels for i in its))
+        return InputType.feedForward(sum(i.arrayElementsPerExample()
+                                         for i in its))
+
+
+class ElementWiseVertex(GraphVertex):
+    """Add/Product/Subtract/Average/Max of same-shape inputs
+    (ref: ElementWiseVertex). The ResNet residual add."""
+
+    def __init__(self, op: str = "Add"):
+        self.op = op.lower()
+
+    def apply(self, *inputs):
+        if self.op == "add":
+            out = inputs[0]
+            for i in inputs[1:]:
+                out = out + i
+            return out
+        if self.op == "product":
+            out = inputs[0]
+            for i in inputs[1:]:
+                out = out * i
+            return out
+        if self.op == "subtract":
+            return inputs[0] - inputs[1]
+        if self.op == "average":
+            return sum(inputs) / len(inputs)
+        if self.op == "max":
+            out = inputs[0]
+            for i in inputs[1:]:
+                out = torch.maximum(out, i)
+            return out
+        raise ValueError(self.op)
+
+
+class _GraphNode:
+    def __init__(self, name: str, kind: str, obj, inputs: List[str]):
+        self.name = name
+        self.kind = kind      # 'layer' | 'vertex'
+        self.obj = obj
+        self.inputs = inputs
+
+
+class GraphBuilder:
+    """ref: ComputationGraphConfiguration.GraphBuilder."""
+
+    def __init__(self, base: NeuralNetConfiguration):
+        self.base = base
+        self.nodes: List[_GraphNode] = []
+        self.graph_inputs: List[str] = []
+        self.graph_outputs: List[str] = []
+        self.input_types: Dict[str, InputType] = {}
+
+    def addInputs(self, *names):
+        self.graph_inputs.extend(names)
+        return self
+
+    def setInputTypes(self, *types):
+        for name, t in zip(self.graph_inputs, types):
+            self.input_types[name] = t
+        return self
+
+    def addLayer(self, name: str, layer, *inputs):
+        layer.name = name
+        self.nodes.append(_GraphNode(name, "layer", layer, list(inputs)))
+        return self
+
+    def addVertex(self, name: str, vertex: GraphVertex, *inputs):
+        self.nodes.append(_GraphNode(name, "vertex", vertex, list(inputs)))
+        return self
+
+    def setOutputs(self, *names):
+        self.graph_outputs = list(names)
+        return self
+
+    def build(self) -> "ComputationGraphConfiguration":
+        return ComputationGraphConfiguration(self)
+
+
+class ComputationGraphConfiguration:
+    """ref: org.deeplearning4j.nn.conf.ComputationGraphConfiguration.
+    Input preprocessors are not ported: a layer whose input kind differs
+    from what flows in raises at build time."""
+
+    def __init__(self, builder: GraphBuilder):
+        self.base = builder.base
+        self.nodes = builder.nodes
+        self.graph_inputs = builder.graph_inputs
+        self.graph_outputs = builder.graph_outputs
+        self.input_types = builder.input_types
+        self.node_by_name = {n.name: n for n in self.nodes}
+        self._toposort()
+        if self.input_types:
+            self._propagate_types()
+
+    def _toposort(self):
+        order, seen = [], set(self.graph_inputs)
+        remaining = list(self.nodes)
+        while remaining:
+            progressed = False
+            for n in list(remaining):
+                if all(i in seen for i in n.inputs):
+                    order.append(n)
+                    seen.add(n.name)
+                    remaining.remove(n)
+                    progressed = True
+            if not progressed:
+                missing = {i for n in remaining for i in n.inputs
+                           if i not in seen}
+                raise ValueError(f"graph has unresolved inputs/cycle: "
+                                 f"{missing}")
+        self.topo = order
+
+    def _propagate_types(self):
+        types: Dict[str, InputType] = dict(self.input_types)
+        for node in self.topo:
+            in_types = [types[i] for i in node.inputs]
+            if node.kind == "layer":
+                layer = node.obj
+                need = layer.input_kind
+                if need is not None and in_types[0].kind != need:
+                    raise NotImplementedError(
+                        f"layer '{node.name}' takes {need} input but gets "
+                        f"{in_types[0].kind}: input preprocessors are not "
+                        "ported yet")
+                layer.set_defaults(self.base)
+                layer.infer_nin(in_types[0])
+                types[node.name] = layer.output_type(in_types[0])
+            else:
+                types[node.name] = node.obj.output_type(*in_types)
+        self.types = types
+
+
+class ComputationGraph:
+    """DAG network (ref: org.deeplearning4j.nn.graph.ComputationGraph)."""
+
+    def __init__(self, conf: ComputationGraphConfiguration):
+        self.conf = conf
+        self._params: Dict[str, Dict[str, torch.Tensor]] = {}
+        self._states: Dict[str, Dict[str, torch.Tensor]] = {}
+        self._opt_state = None
+        self._iteration = 0
+        self._epoch = 0
+        self._score = float("nan")
+        self._device: Optional[torch.device] = None
+        self._precision = None  # PrecisionPolicy (see setPrecisionPolicy)
+        self._initialized = False
+        self._compute_layout = "NCHW"
+        self._fuse_epilogues = False
+        self._epilogue_plan = None
+        self._epilogue_shared = None
+        fmt = getattr(conf.base, "compute_layout", None)
+        if fmt and fmt != "NCHW":
+            self.setComputeLayout(fmt)
+
+    def init(self, seed: int = None, device=None) -> "ComputationGraph":
+        """Initialize params (from a seeded ``torch.Generator``; the
+        draws differ from the JAX package's, see :meth:`params_from_jax`)
+        and layer states on ``device``: the card unless the caller names
+        another; without a card and without ``device`` this raises."""
+        self._device = resolve_device(device)
+        seed = self.conf.base.seed if seed is None else seed
+        gen = torch.Generator().manual_seed(int(seed))
+        self._params, self._states = {}, {}
+        for node in self.conf.topo:
+            if node.kind == "layer":
+                p, s = node.obj.initialize(gen)
+                self._params[node.name] = {
+                    k: v.to(self._device).requires_grad_(True)
+                    for k, v in p.items()}
+                self._states[node.name] = {k: v.to(self._device)
+                                           for k, v in s.items()}
+        self._opt_state = None
+        self._iteration = 0
+        self._initialized = True
+        return self
+
+    def params_from_jax(self, params, states, device=None
+                        ) -> "ComputationGraph":
+        """Carry the JAX package's ``{node: {"W", "b", "gamma", "beta"}}``
+        params and ``{node: {"mean", "var"}}`` states over (each leaf
+        through ``np.asarray``, as fp32) into this graph on ``device``.
+        The updater state and the iteration count start afresh."""
+        self._device = resolve_device(device)
+
+        def conv(a):
+            return torch.from_numpy(np.array(np.asarray(a), np.float32)
+                                    ).to(self._device)
+
+        self._params = {n: {k: conv(v).requires_grad_(True)
+                            for k, v in p.items()}
+                        for n, p in params.items()}
+        self._states = {n: {k: conv(v) for k, v in s.items()}
+                        for n, s in states.items()}
+        self._opt_state = None
+        self._iteration = 0
+        self._initialized = True
+        return self
+
+    # --------------------------------------------------------------- forward
+    def _compute_dtype(self):
+        """The compute dtype: the attached PrecisionPolicy's, else the
+        config's dataType."""
+        if self._precision is not None:
+            return self._precision.compute_torch()
+        return L.compute_dtype_of(self.conf.base.dtype)
+
+    def _forward(self, params, states, inputs: Dict[str, Any], train):
+        cdt = self._compute_dtype()
+        nhwc = self._compute_layout == "NHWC"
+        plan = self._ensure_epilogue_plan() if self._fuse_epilogues else {}
+        fused_act = {act: bn for bn, (act, _c, _a) in plan.items()}
+        fused_conv = {c for _a, c, _al in plan.values() if c}
+        shared = self._epilogue_shared if self._fuse_epilogues else set()
+        env = dict(inputs)
+        fmt = {k: False for k in env}        # node name -> output is NHWC
+        pending_bias: Dict[str, Any] = {}    # fused conv name -> cast bias
+        # shared folded convs: env[] holds the BIAS-LESS output (what the
+        # fused BN wants); every other consumer reads this re-biased copy
+        biased: Dict[str, Any] = {}
+
+        def read(name, consumer=None):
+            if name in biased:
+                if consumer is not None and consumer in plan \
+                        and plan[consumer][1] == name:
+                    return env[name]     # the anchor BN folds the bias
+                return biased[name]
+            return env[name]
+
+        new_states = {}
+        for node in self.conf.topo:
+            if node.name in fused_act:
+                # folded into its BN's scale_shift_act epilogue
+                env[node.name] = env[fused_act[node.name]]
+                fmt[node.name] = fmt[fused_act[node.name]]
+                new_states[node.name] = states[node.name]
+                continue
+            if node.kind == "layer":
+                x = read(node.inputs[0], node.name)
+                x, cur_nhwc = L.layout_step(node.obj, x, fmt[node.inputs[0]],
+                                            nhwc)
+                p = params[node.name]
+                if cdt is not None:
+                    p, x = L.policy_cast(node.obj, p, x, cdt)
+                if node.name in plan:          # BN anchoring a fusion
+                    _act, conv_name, alpha = plan[node.name]
+                    out, ns = L.fused_bn_act(
+                        node.obj, p, states[node.name], x, train, alpha,
+                        bias=pending_bias.pop(conv_name, None))
+                elif node.name in fused_conv:  # bias folds into the BN
+                    out, ns = node.obj.apply(p, states[node.name], x, train,
+                                             skip_bias=True)
+                    pending_bias[node.name] = p.get("b")
+                    if node.name in shared:
+                        biased[node.name] = L.conv_bias_add(
+                            node.obj, out, p.get("b"))
+                else:
+                    out, ns = node.obj.apply(p, states[node.name], x, train)
+                new_states[node.name] = ns
+                fmt[node.name] = cur_nhwc and out.dim() == 4
+            else:
+                xs = [read(i) for i in node.inputs]
+                in_fmts = [fmt[i] for i in node.inputs]
+                if isinstance(node.obj, ElementWiseVertex) \
+                        and any(in_fmts) and all(in_fmts):
+                    out_nhwc = True                # elementwise: keep NHWC
+                else:
+                    xs = [L.to_nchw(a) if f else a
+                          for a, f in zip(xs, in_fmts)]
+                    out_nhwc = False
+                if cdt is not None and len(xs) > 1 \
+                        and any(a.dtype == torch.bfloat16 for a in xs):
+                    # align mixed fp32/bf16 inputs (a BN branch meeting a
+                    # conv branch)
+                    xs = [a.to(torch.bfloat16) if a.dtype == torch.float32
+                          else a for a in xs]
+                out = node.obj.apply(*xs)
+                fmt[node.name] = out_nhwc and out.dim() == 4
+            env[node.name] = out
+        return [L.to_nchw(read(o)) if fmt.get(o) else read(o)
+                for o in self.conf.graph_outputs], new_states
+
+    def _as_input_dict(self, inputs) -> Dict[str, torch.Tensor]:
+        if not isinstance(inputs, (list, tuple)):
+            inputs = [inputs]
+        return {name: self._to_device(a)
+                for name, a in zip(self.conf.graph_inputs, inputs)}
+
+    def _to_device(self, a) -> torch.Tensor:
+        if not isinstance(a, torch.Tensor):
+            a = torch.from_numpy(np.asarray(a))
+        return a.to(self._device)
+
+    def output(self, *inputs, train: bool = False):
+        """ref: ComputationGraph.output — the output tensor(s), on the
+        graph's device (a list if the graph has several outputs)."""
+        self._require_init()
+        ins = self._as_input_dict(inputs[0] if len(inputs) == 1
+                                  else list(inputs))
+        with torch.no_grad():
+            outs, _ = self._forward(self._params, self._states, ins, train)
+        return outs[0] if len(outs) == 1 else outs
+
+    # ------------------------------------------------------------------ loss
+    def _output_layers(self):
+        outs = []
+        for name in self.conf.graph_outputs:
+            node = self.conf.node_by_name[name]
+            if node.kind != "layer" or \
+                    not isinstance(node.obj, L.BaseOutputLayer):
+                raise ValueError(f"graph output '{name}' must be an output "
+                                 "layer")
+            outs.append(node.obj)
+        return outs
+
+    def _loss_and_reg(self, params, states, ins, labels: List, train,
+                      lmasks: Optional[List]):
+        outs, new_states = self._forward(params, states, ins, train)
+        loss = 0.0
+        for i, (ol, out) in enumerate(zip(self._output_layers(), outs)):
+            lm = lmasks[i] if lmasks is not None else None
+            loss = loss + ol.compute_loss(labels[i], out, mask=lm)
+        reg = 0.0
+        for node in self.conf.topo:
+            if node.kind != "layer":
+                continue
+            l1 = node.obj.l1 or 0.0
+            l2 = node.obj.l2 or 0.0
+            if l1 == 0.0 and l2 == 0.0:
+                continue
+            for pname, w in (params.get(node.name) or {}).items():
+                if not pname.startswith(("W", "RW")):
+                    continue
+                if l2:
+                    reg = reg + 0.5 * l2 * torch.sum(w.square())
+                if l1:
+                    reg = reg + l1 * torch.sum(w.abs())
+        return loss + reg, new_states
+
+    # ------------------------------------------------------------------- fit
+    def _ensure_opt_state(self):
+        if self._opt_state is None:
+            updater = self.conf.base.updater
+            self._opt_state = {
+                n: {k: updater.init_state(v.detach()) for k, v in p.items()}
+                for n, p in self._params.items()}
+
+    def fit(self, data, labels=None, epochs: int = 1):
+        """Train on a DataSet, a list of DataSets, or (features, labels)
+        arrays: one update step per batch, ``epochs`` times."""
+        if not self._initialized:
+            self.init()
+        self._ensure_opt_state()
+        if isinstance(data, DataSet):
+            batches = [data]
+        elif isinstance(data, (list, tuple)) and data \
+                and isinstance(data[0], DataSet):
+            batches = list(data)
+        else:
+            batches = [DataSet(data, labels)]
+        for _ in range(epochs):
+            for ds in batches:
+                self._fit_one(ds)
+            self._epoch += 1
+        return self
+
+    def _fit_one(self, ds: DataSet):
+        ins = {self.conf.graph_inputs[0]: self._to_device(ds.features)}
+        labels = [self._to_device(ds.labels)]
+        lmasks = [self._to_device(ds.labels_mask)] \
+            if ds.labels_mask is not None else None
+        pol = self._precision
+        loss_scale = pol.loss_scale if pol is not None else None
+        loss, new_states = self._loss_and_reg(self._params, self._states, ins,
+                                              labels, True, lmasks)
+        names = [(n, k) for n, p in self._params.items() for k in p]
+        leaves = [self._params[n][k] for n, k in names]
+        scaled = loss * loss_scale if loss_scale else loss
+        # a folded conv bias takes no part in the train-mode loss (it
+        # cancels against the batch mean): its gradient is zero
+        grads = torch.autograd.grad(scaled, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
+        if loss_scale:
+            inv = 1.0 / loss_scale
+            grads = [g * inv for g in grads]
+        self._process_and_apply_grads(names, leaves, grads)
+        self._states = new_states
+        # kept on the device; score() converts lazily
+        self._score = loss.detach()
+        self._iteration += 1
+
+    def _process_and_apply_grads(self, names, leaves, grads):
+        """Gradient normalization, then the updater per leaf; the fp32
+        master params are updated in place (``p -= update``)."""
+        base = self.conf.base
+        updater = base.updater
+        if base.grad_norm == "clip_value":
+            grads = upd.clip_by_value(grads, base.grad_norm_threshold)
+        elif base.grad_norm == "clip_l2":
+            grads = upd.clip_by_norm(grads, base.grad_norm_threshold)
+        elif base.grad_norm == "clip_global":
+            grads = upd.clip_by_global_norm(grads, base.grad_norm_threshold)
+        elif base.grad_norm == "renorm":
+            grads = upd.renormalize_l2(grads)
+        t = self._iteration
+        lr = updater.lr_at(t)
+        with torch.no_grad():
+            for (n, k), p, g in zip(names, leaves, grads):
+                u, s2 = updater.apply(g, self._opt_state[n][k], lr, t)
+                p.sub_(u)
+                self._opt_state[n][k] = s2
+
+    # --------------------------------------------------------- configuration
+    def setComputeLayout(self, fmt: str) -> "ComputationGraph":
+        """NHWC compute layout for the conv stacks: channels-minor conv/
+        pool/BN between layout-aware layers (the ResNet residual add stays
+        NHWC), public NCHW API unchanged."""
+        if fmt not in ("NCHW", "NHWC"):
+            raise ValueError(f"compute layout must be 'NCHW' or 'NHWC', "
+                             f"got {fmt!r}")
+        self._compute_layout = fmt
+        self.conf.base.compute_layout = fmt
+        L.stamp_layout([n.obj for n in self.conf.topo if n.kind == "layer"],
+                       fmt)
+        return self
+
+    def setEpilogueFusion(self, enabled: bool = True) -> "ComputationGraph":
+        """Fuse conv-bias + BN + relu/leaky blocks into one
+        ``scale_shift_act`` dispatch. A fusion anchors at a
+        BatchNormalization node whose ONLY consumer is a relu/leaky
+        ActivationLayer node; a conv feeding it folds its bias (other
+        consumers of that conv read a bit-identical re-biased copy)."""
+        enabled = bool(enabled)
+        if enabled != self._fuse_epilogues:
+            self._epilogue_plan = None
+            self._epilogue_shared = None
+        self._fuse_epilogues = enabled
+        return self
+
+    def _ensure_epilogue_plan(self):
+        """``{bn_node: (act_node, folded_conv_node | None, alpha)}``, built
+        once from the graph topology, with ``self._epilogue_shared``: the
+        folded convs whose output has consumers besides the anchoring BN."""
+        if self._epilogue_plan is not None \
+                and self._epilogue_shared is not None:
+            return self._epilogue_plan
+        conf = self.conf
+        consumers: Dict[str, List[str]] = {}
+        for node in conf.topo:
+            for inp in node.inputs:
+                consumers.setdefault(inp, []).append(node.name)
+        for out in conf.graph_outputs:
+            consumers.setdefault(out, []).append("__output__")
+        plan: Dict[str, tuple] = {}
+        folded: set = set()          # convs already claimed by an earlier BN
+        shared: set = set()          # folded convs with extra consumers
+        by_name = conf.node_by_name
+        for node in conf.topo:
+            if node.kind != "layer" or not L.fusable_bn(node.obj):
+                continue
+            cons = consumers.get(node.name, [])
+            if len(cons) != 1 or cons[0] == "__output__":
+                continue
+            act_node = by_name[cons[0]]
+            if act_node.kind != "layer" or len(act_node.inputs) != 1:
+                continue
+            alpha = L.activation_alpha(act_node.obj)
+            if alpha is None:
+                continue
+            conv_name = None
+            src = by_name.get(node.inputs[0]) if node.inputs else None
+            # a conv folds into at most one BN (first in topo order); any
+            # other consumer reads the re-biased copy
+            if (src is not None and src.kind == "layer"
+                    and L.fusable_conv(src.obj) and src.obj.has_bias
+                    and src.name not in folded):
+                conv_name = src.name
+                folded.add(src.name)
+                if len(consumers.get(src.name, [])) > 1:
+                    shared.add(src.name)
+            plan[node.name] = (act_node.name, conv_name, alpha)
+        self._epilogue_plan = plan
+        self._epilogue_shared = shared
+        return plan
+
+    def setPrecisionPolicy(self, policy) -> "ComputationGraph":
+        """Attach (or detach with ``None``) a ``PrecisionPolicy`` or a
+        dtype string such as ``"bf16"``: fp32 master params, the compute
+        dtype in conv/dense layers, an optional static loss scale."""
+        from deeplearning4j_tpu_torch.nn.precision import (PrecisionPolicy,
+                                                           runtime_check)
+        policy = PrecisionPolicy.coerce(policy)
+        if policy is not None:
+            runtime_check(policy)
+        self._precision = policy
+        return self
+
+    # ------------------------------------------------------------- utilities
+    def _require_init(self):
+        if not self._initialized:
+            raise RuntimeError("call init() (or params_from_jax()) first")
+
+    def score(self, ds: DataSet = None) -> float:
+        """The last fit step's loss, or the loss on ``ds`` (inference
+        mode)."""
+        if ds is None:
+            if isinstance(self._score, torch.Tensor):
+                self._score = float(self._score)
+            return self._score
+        self._require_init()
+        ins = {self.conf.graph_inputs[0]: self._to_device(ds.features)}
+        with torch.no_grad():
+            loss, _ = self._loss_and_reg(self._params, self._states, ins,
+                                         [self._to_device(ds.labels)], False,
+                                         None)
+        return float(loss)
+
+    def params(self) -> torch.Tensor:
+        """Every parameter, flattened and concatenated in the JAX
+        package's order (its pytree leaves: node names sorted, then
+        param names sorted)."""
+        leaves = [self._params[n][k].detach().reshape(-1)
+                  for n in sorted(self._params)
+                  for k in sorted(self._params[n])]
+        if not leaves:
+            return torch.zeros((0,))
+        return torch.cat(leaves)
+
+    def numParams(self) -> int:
+        return sum(v.numel() for p in self._params.values()
+                   for v in p.values())

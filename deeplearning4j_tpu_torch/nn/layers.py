@@ -1,0 +1,500 @@
+"""Layer configurations and their forward passes (the slice's subset of
+``deeplearning4j_tpu/nn/layers.py``).
+
+Weight layouts match the reference (dense W [nIn, nOut], conv W
+[nOut, nIn, kH, kW]). Each layer is ``apply(params, state, x, train) ->
+(out, new_state)`` over plain dicts of tensors; gradients are autograd's.
+Dropout is not ported yet: a nonzero ``dropOut`` raises.
+
+Also here, as in the JAX package: the dtype policy's casts
+(``policy_cast``), the NHWC compute-layout seam (``layout_step``,
+``stamp_layout``) and the fused conv-bias + BN + relu/leaky epilogue
+(``fused_bn_act``), which dispatches ``scale_shift_act`` through the op
+registry.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from deeplearning4j_tpu_torch.nn.config import InputType
+from deeplearning4j_tpu_torch.nn.precision import normalize_dtype
+from deeplearning4j_tpu_torch.ops import activations as act
+from deeplearning4j_tpu_torch.ops import convolution as conv_ops
+from deeplearning4j_tpu_torch.ops import losses as loss_ops
+from deeplearning4j_tpu_torch.ops import normalization as norm_ops
+from deeplearning4j_tpu_torch.ops import registry
+
+
+def _pair(v):
+    if isinstance(v, (tuple, list)):
+        return tuple(int(x) for x in v)
+    return (int(v), int(v))
+
+
+def _initialize(shape, init: str, gen: torch.Generator) -> torch.Tensor:
+    """Weight init (ref: org.deeplearning4j.nn.weights.WeightInit), fp32
+    on the CPU from ``gen``. Fans as in the JAX package: conv OIHW has
+    fan_in = I*kH*kW, fan_out = O*kH*kW."""
+    shape = tuple(int(s) for s in shape)
+    init = init.lower()
+    fan_in = shape[0] if len(shape) >= 1 else 1
+    fan_out = shape[-1] if len(shape) >= 2 else 1
+    if len(shape) == 4:
+        rf = shape[2] * shape[3]
+        fan_in, fan_out = shape[1] * rf, shape[0] * rf
+    if init in ("xavier", "glorot_uniform"):
+        limit = math.sqrt(6.0 / (fan_in + fan_out))
+        return torch.rand(shape, generator=gen) * (2 * limit) - limit
+    if init in ("relu", "he", "he_normal"):
+        return torch.randn(shape, generator=gen) * math.sqrt(2.0 / fan_in)
+    raise NotImplementedError(f"weight init {init!r}: only 'xavier' and "
+                              "'relu' are ported")
+
+
+class Layer:
+    """Base layer config. Subclasses define params + forward."""
+
+    input_kind: Optional[str] = "ff"
+    has_params = True
+    #: compute layout of spatial (4-D) input; ``setComputeLayout("NHWC")``
+    #: stamps layout-aware layers with an instance attribute
+    data_format = "NCHW"
+
+    def __init__(self, nOut: int = None, nIn: int = None,
+                 activation: str = None, weightInit: str = None,
+                 biasInit: float = 0.0, dropOut: float = 0.0,
+                 l1: float = None, l2: float = None, name: str = None,
+                 dataType: str = None):
+        if dropOut:
+            raise NotImplementedError("dropout is not ported yet")
+        self.nOut = nOut
+        self.nIn = nIn
+        self.activation = activation
+        self.weight_init = weightInit
+        self.bias_init = biasInit
+        self.l1 = l1
+        self.l2 = l2
+        self.name = name or type(self).__name__
+        # "float32" declares an fp32 island under a PrecisionPolicy
+        self.dtype_override = None if dataType is None \
+            else normalize_dtype(dataType)
+
+    def set_defaults(self, base):
+        if self.activation is None:
+            self.activation = base.activation
+        if self.weight_init is None:
+            self.weight_init = base.weight_init
+        if self.l1 is None:
+            self.l1 = base.l1
+        if self.l2 is None:
+            self.l2 = base.l2
+
+    def infer_nin(self, it: InputType):
+        if self.nIn is None and it.kind == "ff":
+            self.nIn = it.arrayElementsPerExample()
+        elif self.nIn is None and it.kind == "cnn":
+            self.nIn = it.channels
+
+    def output_type(self, it: InputType) -> InputType:
+        return InputType.feedForward(self.nOut)
+
+    def initialize(self, gen: torch.Generator) -> Tuple[Dict, Dict]:
+        return {}, {}
+
+    def _dense_init(self, gen):
+        params = {"W": _initialize((self.nIn, self.nOut), self.weight_init,
+                                   gen)}
+        if self.has_bias:
+            params["b"] = torch.full((self.nOut,), float(self.bias_init))
+        return params, {}
+
+    def apply(self, params, state, x, train: bool):
+        raise NotImplementedError
+
+    def __repr__(self):
+        return f"{type(self).__name__}(nIn={self.nIn}, nOut={self.nOut})"
+
+
+class DenseLayer(Layer):
+    """ref: DenseLayer — W [nIn, nOut], out = act(x W + b)."""
+
+    def __init__(self, nOut=None, hasBias: bool = True, **kw):
+        super().__init__(nOut=nOut, **kw)
+        self.has_bias = hasBias
+
+    def initialize(self, gen):
+        return self._dense_init(gen)
+
+    def apply(self, params, state, x, train):
+        z = x @ params["W"]
+        if self.has_bias:
+            z = z + params["b"]
+        return act.get(self.activation)(z), state
+
+
+class ConvolutionLayer(Layer):
+    """ref: ConvolutionLayer — W [nOut, nIn, kH, kW]."""
+
+    input_kind = "cnn"
+
+    def __init__(self, kernelSize=(3, 3), stride=(1, 1), padding=(0, 0),
+                 nOut=None, dilation=(1, 1), convolutionMode: str = "truncate",
+                 hasBias: bool = True, **kw):
+        super().__init__(nOut=nOut, **kw)
+        self.kernel = _pair(kernelSize)
+        self.stride = _pair(stride)
+        self.padding = _pair(padding)
+        self.dilation = _pair(dilation)
+        self.mode = convolutionMode
+        self.has_bias = hasBias
+
+    def initialize(self, gen):
+        shape = (self.nOut, self.nIn) + self.kernel
+        params = {"W": _initialize(shape, self.weight_init, gen)}
+        if self.has_bias:
+            params["b"] = torch.full((self.nOut,), float(self.bias_init))
+        return params, {}
+
+    def apply(self, params, state, x, train, *, skip_bias=False):
+        out = conv_ops.conv2d(x, params["W"],
+                              None if skip_bias else params.get("b"),
+                              stride=self.stride, pad=self.padding,
+                              dilation=self.dilation, mode=self.mode,
+                              data_format=self.data_format)
+        return act.get(self.activation)(out), state
+
+    def output_type(self, it: InputType) -> InputType:
+        h = conv_ops.conv_output_size(it.height, self.kernel[0],
+                                      self.stride[0], self.padding[0],
+                                      self.dilation[0], self.mode)
+        w = conv_ops.conv_output_size(it.width, self.kernel[1],
+                                      self.stride[1], self.padding[1],
+                                      self.dilation[1], self.mode)
+        return InputType.convolutional(h, w, self.nOut)
+
+
+class SubsamplingLayer(Layer):
+    """ref: SubsamplingLayer (max/avg pooling)."""
+
+    input_kind = "cnn"
+    has_params = False
+
+    def __init__(self, poolingType: str = "max", kernelSize=(2, 2),
+                 stride=(2, 2), padding=(0, 0),
+                 convolutionMode: str = "truncate", **kw):
+        super().__init__(**kw)
+        self.pooling = poolingType.lower()
+        if self.pooling not in ("max", "avg"):
+            raise NotImplementedError(f"pooling {poolingType!r}: only max "
+                                      "and avg are ported")
+        self.kernel = _pair(kernelSize)
+        self.stride = _pair(stride)
+        self.padding = _pair(padding)
+        self.mode = convolutionMode
+
+    def infer_nin(self, it):
+        self.nIn = self.nOut = it.channels
+
+    def apply(self, params, state, x, train):
+        fn = conv_ops.maxpool2d if self.pooling == "max" \
+            else conv_ops.avgpool2d
+        return fn(x, kernel=self.kernel, stride=self.stride,
+                  pad=self.padding, mode=self.mode,
+                  data_format=self.data_format), state
+
+    def output_type(self, it: InputType) -> InputType:
+        h = conv_ops.conv_output_size(it.height, self.kernel[0],
+                                      self.stride[0], self.padding[0], 1,
+                                      self.mode)
+        w = conv_ops.conv_output_size(it.width, self.kernel[1],
+                                      self.stride[1], self.padding[1], 1,
+                                      self.mode)
+        return InputType.convolutional(h, w, it.channels)
+
+
+class BatchNormalization(Layer):
+    """ref: BatchNormalization — running statistics in the layer state,
+    ``decay`` 0.9 like the reference."""
+
+    input_kind = None
+
+    def __init__(self, decay: float = 0.9, eps: float = 1e-5, **kw):
+        super().__init__(**kw)
+        self.decay = decay
+        self.eps = eps
+
+    def infer_nin(self, it: InputType):
+        if it.kind == "cnn":
+            self.nIn = self.nOut = it.channels
+        else:
+            self.nIn = self.nOut = it.arrayElementsPerExample()
+
+    def initialize(self, gen):
+        n = self.nIn
+        params = {"gamma": torch.ones(n), "beta": torch.zeros(n)}
+        state = {"mean": torch.zeros(n), "var": torch.ones(n)}
+        return params, state
+
+    def _channel_axis(self, x) -> int:
+        if x.dim() == 4 and self.data_format == "NHWC":
+            return x.dim() - 1
+        return 1 if x.dim() >= 3 else x.dim() - 1
+
+    def apply(self, params, state, x, train):
+        axis = self._channel_axis(x)
+        if train:
+            out, new_mean, new_var = norm_ops.batch_norm_train(
+                x, params["gamma"], params["beta"], state["mean"],
+                state["var"], eps=self.eps, decay=self.decay, axis=axis)
+            return out, {"mean": new_mean, "var": new_var}
+        out = norm_ops.batch_norm(x, params["gamma"], params["beta"],
+                                  state["mean"], state["var"], eps=self.eps,
+                                  axis=axis)
+        return out, state
+
+    def output_type(self, it: InputType) -> InputType:
+        return it
+
+
+class ActivationLayer(Layer):
+    """ref: ActivationLayer."""
+
+    input_kind = None
+    has_params = False
+
+    def __init__(self, activation="relu", **kw):
+        super().__init__(activation=activation, **kw)
+
+    def set_defaults(self, base):
+        pass  # keeps its own activation
+
+    def infer_nin(self, it):
+        self.nIn = self.nOut = it.arrayElementsPerExample()
+
+    def apply(self, params, state, x, train):
+        return act.get(self.activation)(x), state
+
+    def output_type(self, it):
+        return it
+
+
+class GlobalPoolingLayer(Layer):
+    """ref: GlobalPoolingLayer — cnn [N, C, H, W] -> [N, C]."""
+
+    input_kind = None
+    has_params = False
+
+    def __init__(self, poolingType: str = "max", **kw):
+        super().__init__(**kw)
+        self.pooling = poolingType.lower()
+
+    def infer_nin(self, it):
+        self.nIn = self.nOut = it.channels if it.kind == "cnn" \
+            else it.arrayElementsPerExample()
+
+    def apply(self, params, state, x, train):
+        fmt = self.data_format if x.dim() == 4 else "NCHW"
+        return conv_ops.global_pool(x, self.pooling, data_format=fmt), state
+
+    def output_type(self, it):
+        return InputType.feedForward(it.channels if it.kind == "cnn"
+                                     else it.arrayElementsPerExample())
+
+
+class BaseOutputLayer(Layer):
+    """Common loss plumbing (ref: BaseOutputLayer)."""
+
+    def __init__(self, lossFunction: str = "mcxent", **kw):
+        super().__init__(**kw)
+        self.loss_fn = lossFunction
+
+    def compute_loss(self, labels, preds, mask=None):
+        return loss_ops.get(self.loss_fn)(labels, preds, mask=mask)
+
+
+class OutputLayer(BaseOutputLayer):
+    """ref: OutputLayer — dense + activation + loss."""
+
+    def __init__(self, nOut=None, lossFunction="mcxent", hasBias: bool = True,
+                 **kw):
+        super().__init__(lossFunction=lossFunction, nOut=nOut, **kw)
+        self.has_bias = hasBias
+        if self.activation is None:
+            self.activation = "softmax"
+
+    def set_defaults(self, base):
+        super().set_defaults(base)
+        if self.activation == "identity":
+            self.activation = "softmax"
+
+    def initialize(self, gen):
+        return self._dense_init(gen)
+
+    def apply(self, params, state, x, train):
+        z = x @ params["W"]
+        if self.has_bias:
+            z = z + params["b"]
+        return act.get(self.activation)(z), state
+
+
+# ------------------------------------------------------------- dtype policy
+# Master params stay fp32. BatchNorm keeps fp32 params and casts inside
+# its ops (activations stay in the compute dtype through it); the output
+# layer gets fp32 activations and fp32 params (softmax and loss).
+_POLICY_FP32_PARAM_LAYERS = (BatchNormalization, BaseOutputLayer)
+
+
+def compute_dtype_of(conf_dtype) -> Optional[torch.dtype]:
+    """None = no policy (pure fp32); torch.bfloat16 = mixed precision."""
+    if str(conf_dtype).lower() in ("bfloat16", "bf16"):
+        return torch.bfloat16
+    return None
+
+
+def policy_cast(layer, params, x, compute_dt):
+    """Cast (params, input) for one layer under the dtype policy. A
+    per-layer ``dataType="float32"`` declares an fp32 island."""
+    if compute_dt is None:
+        return params, x
+    override = getattr(layer, "dtype_override", None)
+    if override == "float32" or isinstance(layer, BaseOutputLayer):
+        if x.is_floating_point() and x.dtype != torch.float32:
+            x = x.float()
+        return params, x
+    if isinstance(layer, _POLICY_FP32_PARAM_LAYERS):
+        return params, x
+    if x.is_floating_point() and x.dtype != compute_dt:
+        x = x.to(compute_dt)
+    if params:
+        params = {k: v.to(compute_dt) if v.dtype == torch.float32 else v
+                  for k, v in params.items()}
+    return params, x
+
+
+# ----------------------------------------------------------- compute layout
+# The networks' ``setComputeLayout("NHWC")`` keeps the PUBLIC layout NCHW
+# (inputs, outputs, weights [O, I, kH, kW]) and moves to NHWC once at each
+# layout boundary. On the card an NHWC tensor is the contiguous
+# [N, H, W, C] tensor whose NCHW-shaped permuted view is channels_last,
+# which is what cuDNN and ``scale_shift_act`` want.
+
+#: layers whose apply computes natively in NHWC when stamped
+LAYOUT_AWARE = (ConvolutionLayer, SubsamplingLayer, BatchNormalization,
+                GlobalPoolingLayer)
+
+#: elementwise layers that keep whatever layout flows in
+LAYOUT_TRANSPARENT = (ActivationLayer,)
+
+
+def to_nhwc(x):
+    """[N, C, H, W] -> contiguous [N, H, W, C]: a view when x is
+    channels_last in memory, the one boundary copy otherwise."""
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
+def to_nchw(x):
+    """[N, H, W, C] -> [N, C, H, W] as a view (channels_last memory)."""
+    return x.permute(0, 3, 1, 2)
+
+
+def layout_step(layer, x, cur_nhwc: bool, nhwc_active: bool):
+    """The move-at-boundary rule, one layer at a time: returns ``(x,
+    now_nhwc)``. Aware layers pull spatial input into NHWC, transparent
+    layers keep whatever flows in, everything else forces NCHW back."""
+    if x.dim() != 4:
+        return x, False
+    want = (nhwc_active and isinstance(layer, LAYOUT_AWARE)) or \
+        (cur_nhwc and isinstance(layer, LAYOUT_TRANSPARENT))
+    if want and not cur_nhwc:
+        return to_nhwc(x), True
+    if not want and cur_nhwc:
+        return to_nchw(x), False
+    return x, cur_nhwc
+
+
+def stamp_layout(layers, fmt: str) -> None:
+    """Stamp ``data_format`` on every layout-aware layer; ``"NCHW"``
+    removes the stamp, restoring the class default."""
+    if fmt not in ("NCHW", "NHWC"):
+        raise ValueError(f"compute layout must be 'NCHW' or 'NHWC', "
+                         f"got {fmt!r}")
+    for layer in layers:
+        if isinstance(layer, LAYOUT_AWARE):
+            if fmt == "NHWC":
+                layer.data_format = "NHWC"
+            elif "data_format" in layer.__dict__:
+                del layer.data_format
+
+
+# --------------------------------------------------------- fused epilogues
+# A BatchNormalization followed by a relu/leaky ActivationLayer becomes ONE
+# ``scale_shift_act`` dispatch: the batch statistics are those of
+# ``norm_ops.batch_norm_train`` and normalize + activation is one
+# multiply-add + select. A preceding identity-activation conv's bias folds
+# into the shift: in train mode it cancels against the batch mean and
+# only shifts the recorded running mean; inference un-shifts it again.
+
+
+def activation_alpha(layer) -> Optional[float]:
+    """The epilogue slope of an ActivationLayer: 0.0 for relu, the leak
+    for leakyrelu, None for anything else (not fusable)."""
+    if type(layer) is not ActivationLayer:
+        return None
+    name = str(layer.activation or "").lower()
+    if name == "relu":
+        return 0.0
+    if name == "leakyrelu":
+        return 0.01      # ops.activations.leakyrelu default slope
+    return None
+
+
+def fusable_conv(layer) -> bool:
+    """A plain ConvolutionLayer with an empty epilogue (identity
+    activation), whose bias can fold into the BN's shift."""
+    return (type(layer) is ConvolutionLayer
+            and str(layer.activation or "identity").lower() == "identity")
+
+
+def fusable_bn(layer) -> bool:
+    return type(layer) is BatchNormalization
+
+
+def fused_bn_act(bn, params, state, x, train, alpha: float, bias=None):
+    """BatchNorm + relu/leaky (+ an optional folded conv bias) as one
+    ``scale_shift_act`` dispatch. Returns ``(out, new_bn_state)``. With
+    ``bias``, x is the bias-less conv output: the variance does not see
+    the bias, the recorded running mean adds it back, and inference
+    subtracts it from the running mean."""
+    axis = bn._channel_axis(x)
+    gamma, beta = params["gamma"], params["beta"]
+    b32 = bias.float() if bias is not None else None
+    if train:
+        axes = tuple(i for i in range(x.dim()) if i != axis)
+        m, m2 = norm_ops.channel_moments(x, axes)
+        v = torch.clamp_min(m2 - m.square(), 0.0)
+        m_rec = (m + b32 if b32 is not None else m).detach()
+        new_state = {
+            "mean": bn.decay * state["mean"] + (1.0 - bn.decay) * m_rec,
+            "var": bn.decay * state["var"] + (1.0 - bn.decay) * v.detach()}
+        mean_eff = m        # the folded bias cancels against the batch mean
+    else:
+        mean_eff = state["mean"] - b32 if b32 is not None else state["mean"]
+        v = state["var"]
+        new_state = state
+    inv = torch.rsqrt(v.float() + bn.eps)
+    scale = (gamma * inv).to(x.dtype)
+    shift = (beta - gamma * mean_eff * inv).to(x.dtype)
+    out = registry.get("scale_shift_act")(x, scale, shift, alpha=alpha,
+                                          axis=axis)
+    return out, new_state
+
+
+def conv_bias_add(layer, out, b):
+    """Re-attach a conv bias to a ``skip_bias=True`` conv output,
+    bit-identical to the unfused conv (``conv_ops.conv2d`` adds its bias
+    as this same broadcast add after the convolution)."""
+    return out + conv_ops._bias_reshape(b, 2, layer.data_format)

@@ -1,4 +1,4 @@
-"""Hand-written CUDA kernels — platform overrides for the serving path.
+"""Hand-written CUDA kernels — platform overrides for the port's paths.
 
 The port's counterpart of ``deeplearning4j_tpu/ops/pallas_kernels.py``:
 each Pallas kernel on the path becomes a CUDA C++ kernel for Hopper
@@ -14,18 +14,21 @@ each Pallas kernel on the path becomes a CUDA C++ kernel for Hopper
   (``torch.cuda.current_stream().cuda_stream``) is a ``c_void_p``. Each
   launcher returns ``cudaGetLastError()`` and the wrapper raises on
   anything but 0.
-- **Wrappers.** ``layer_norm_fwd`` and ``flash_attention_fwd`` check
-  device, dtype, shape and contiguity, allocate their outputs with
-  ``torch.empty`` and launch on the current stream. A tensor on the CPU
-  takes the kernel's plain PyTorch version (``*_plain``) instead; there
-  is no fallback from a CUDA tensor. ``LAUNCHES`` counts kernel launches
-  and ``PLAIN_CALLS`` counts plain-version calls made by the wrappers.
-- **Gates.** ``supported`` / ``flash_supported`` decide, as in the JAX
-  package, which calls the kernels take; masked attention and
-  shapes/dtypes outside the gates go to the generic ops.
+- **Wrappers.** ``layer_norm_fwd``, ``flash_attention_fwd`` and
+  ``scale_shift_act_fwd`` check device, dtype, shape and contiguity,
+  allocate their outputs with ``torch.empty`` and launch on the current
+  stream. A tensor on the CPU takes the kernel's plain PyTorch version
+  (``*_plain``) instead; there is no fallback from a CUDA tensor.
+  ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` counts
+  plain-version calls made by the wrappers.
+- **Gates.** ``supported`` / ``flash_supported`` /
+  ``scale_shift_act_supported`` decide, as in the JAX package, which
+  calls the kernels take; masked attention and shapes/dtypes outside the
+  gates go to the generic ops.
 
-Forward only: serving needs no gradient (the backward kernels are
-queued in ROADMAP.md).
+Gradients: layer norm and flash attention are forward only (serving);
+``scale_shift_act`` runs under a ``torch.autograd.Function`` whose
+backward is composed torch, as the JAX custom VJP's is composed jnp.
 """
 
 from __future__ import annotations
@@ -49,7 +52,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-KERNELS = ("layer_norm", "flash_attention")
+KERNELS = ("layer_norm", "flash_attention", "scale_shift_act")
 
 #: kernel launches made by the wrappers (CUDA tensors only)
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -63,6 +66,7 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LN_MAX_D = 8192           # the row is staged in 32 KB of shared memory
 _FLASH_D = (64, 128, 192, 256)
+_SSA_MAX_C = 4096          # the JAX gate's bound (epilogue_supported)
 
 
 def reset_counts() -> None:
@@ -142,14 +146,20 @@ def _lib(name: str) -> ctypes.CDLL:
 
 
 def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+        ctypes.c_longlong
     if name == "layer_norm":
         fn = lib.dl4j_layer_norm_fwd
         fn.argtypes = [P, P, P, P, I, I, F, I, P]
-    else:
+    elif name == "flash_attention":
         fn = lib.dl4j_flash_attention_fwd
         fn.argtypes = [P, P, P, P, P, I, I, I, I, I,
-                       ctypes.POINTER(ctypes.c_longlong), F, I, I, P]
+                       ctypes.POINTER(LL), F, I, I, P]
+    elif name == "scale_shift_act":
+        fn = lib.dl4j_scale_shift_act_fwd
+        fn.argtypes = [P, P, P, P, LL, I, F, I, I, P]
+    else:
+        raise KeyError(f"no binding for kernel {name!r}")
     fn.restype = I
     return lib
 
@@ -353,6 +363,122 @@ def make_flash_attention_override():
     return flash_attention
 
 
+# -------------------------------------------------------- scale_shift_act
+def scale_shift_act_plain(x2d, scale, shift, alpha: float = 0.0):
+    """The kernel's arithmetic in plain PyTorch: x, scale and shift as
+    x's dtype, ``x*scale + shift`` with one rounding to fp32 (the
+    product and sum in fp64 and rounded once, which is what the kernel's
+    fp32 FMA gives), then ``y < 0 ? alpha*y : y`` in fp32 with alpha
+    rounded to x's dtype (``y < 0 ? 0 : y`` at alpha 0: NaN stays NaN),
+    rounded once to x's dtype."""
+    y = torch.addcmul(shift.to(x2d.dtype).double(), x2d.double(),
+                      scale.to(x2d.dtype).double()).float()
+    neg = y * _alpha_in(x2d.dtype, alpha) if alpha else 0.0
+    return torch.where(y < 0, neg, y).to(x2d.dtype)
+
+
+def _alpha_in(dtype, alpha: float) -> float:
+    """The negative slope as x's dtype holds it (JAX multiplies by a
+    weakly typed scalar, which takes the array's dtype)."""
+    return float(torch.tensor(float(alpha), dtype=dtype))
+
+
+def scale_shift_act_fwd(x2d, scale, shift, alpha: float = 0.0):
+    """``act(x*scale + shift)`` over x [rows, C] (fp32/bf16, contiguous)
+    with scale, shift [C] in x's dtype; alpha 0 is relu, alpha > 0 the
+    leaky slope."""
+    if x2d.device.type == "cpu":
+        _bump(PLAIN_CALLS, "scale_shift_act")
+        return scale_shift_act_plain(x2d, scale, shift, alpha)
+    if x2d.device.type != "cuda":
+        raise RuntimeError(f"scale_shift_act: no kernel for device "
+                           f"{x2d.device}")
+    if x2d.dim() != 2 or x2d.dtype not in _DTYPE_CODE:
+        raise ValueError(f"scale_shift_act: want a 2-D fp32/bf16 tensor, "
+                         f"got {tuple(x2d.shape)} {x2d.dtype}")
+    rows, c = x2d.shape
+    if not 1 <= c <= _SSA_MAX_C or rows < 1:
+        raise ValueError(f"scale_shift_act: shape {tuple(x2d.shape)} "
+                         f"outside 1 <= C <= {_SSA_MAX_C}, rows >= 1")
+    if not x2d.is_contiguous():
+        raise ValueError("scale_shift_act: x must be contiguous "
+                         "(channels minor)")
+    for t, what in ((scale, "scale"), (shift, "shift")):
+        if t.device != x2d.device or tuple(t.shape) != (c,) \
+                or t.dtype != x2d.dtype or not t.is_contiguous():
+            raise ValueError(f"scale_shift_act: {what} must be a "
+                             f"contiguous [{c}] {x2d.dtype} tensor on "
+                             f"{x2d.device}")
+    y = torch.empty_like(x2d)
+    lib = _lib("scale_shift_act")
+    with torch.cuda.device(x2d.device):
+        rc = lib.dl4j_scale_shift_act_fwd(
+            x2d.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+            y.data_ptr(), rows, c, _alpha_in(x2d.dtype, alpha),
+            _DTYPE_CODE[x2d.dtype],
+            torch.cuda.get_device_properties(x2d.device).multi_processor_count,
+            _stream(x2d.device))
+    _check_launch("scale_shift_act", rc)
+    _bump(LAUNCHES, "scale_shift_act")
+    return y
+
+
+class _ScaleShiftAct(torch.autograd.Function):
+    """The kernel forward; the backward mirrors the JAX custom VJP
+    (pallas_kernels.py:253-263): y recomputed in x's dtype, slope 1
+    where ``y >= 0`` (so 1 at y == 0) and alpha elsewhere, dx in x's
+    dtype, dscale and dshift reduced in fp32 and cast to their dtype."""
+
+    @staticmethod
+    def forward(ctx, x2d, scale, shift, alpha):
+        ctx.save_for_backward(x2d, scale, shift)
+        ctx.alpha = alpha
+        return scale_shift_act_fwd(x2d, scale, shift, alpha)
+
+    @staticmethod
+    def backward(ctx, ct):
+        x2d, scale, shift = ctx.saved_tensors
+        y = x2d * scale.to(x2d.dtype)[None, :] + shift.to(x2d.dtype)[None, :]
+        slope = torch.where(y >= 0, 1.0, float(ctx.alpha))
+        g = ct.float() * slope
+        dx = (g * scale.float()[None, :]).to(x2d.dtype)
+        dscale = (g * x2d.float()).sum(dim=0)
+        dshift = g.sum(dim=0)
+        return dx, dscale.to(scale.dtype), dshift.to(shift.dtype), None
+
+
+def scale_shift_act_supported(x, axis: int) -> bool:
+    """Calls the kernel takes: fp32/bf16, the channel axis last
+    (``axis == ndim-1``), channels-minor memory (x contiguous: checked
+    on the strides, never copied to fit), C <= 4096, any row count.
+    Wider than the JAX gate (``epilogue_supported``: C % 128 == 0 and
+    rows a multiple of the sublane), which it contains."""
+    return (x.dim() >= 2 and axis == x.dim() - 1
+            and x.dtype in _DTYPE_CODE and x.numel() > 0
+            and x.shape[-1] <= _SSA_MAX_C and x.is_contiguous())
+
+
+def make_scale_shift_act_override():
+    """The ``scale_shift_act`` platform override (signature-compatible
+    with ``ops.normalization.scale_shift_act``): the CUDA kernel on the
+    ``[rows, C]`` view inside the gate, the generic op outside it."""
+
+    def scale_shift_act(x, scale, shift, *, alpha: float = 0.0,
+                        axis: int = 1):
+        axis = axis % x.dim()
+        if not scale_shift_act_supported(x, axis):
+            return norm_ops.scale_shift_act(x, scale, shift, alpha=alpha,
+                                            axis=axis)
+        c = x.shape[-1]
+        y = _ScaleShiftAct.apply(x.view(-1, c),
+                                 scale.to(x.dtype).contiguous(),
+                                 shift.to(x.dtype).contiguous(),
+                                 float(alpha))
+        return y.view(x.shape)
+
+    return scale_shift_act
+
+
 # ------------------------------------------------------------ installation
 def install_platform_overrides() -> None:
     """Register the CUDA kernels over their generic ops."""
@@ -361,9 +487,11 @@ def install_platform_overrides() -> None:
                                         make_layer_norm_override())
     registry.register_platform_override("flash_attention",
                                         make_flash_attention_override())
+    registry.register_platform_override("scale_shift_act",
+                                        make_scale_shift_act_override())
 
 
 def uninstall_platform_overrides() -> None:
     from deeplearning4j_tpu_torch.ops import registry
-    registry.clear_platform_override("layer_norm")
-    registry.clear_platform_override("flash_attention")
+    for name in KERNELS:
+        registry.clear_platform_override(name)

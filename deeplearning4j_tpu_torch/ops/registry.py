@@ -5,7 +5,8 @@ The port's counterpart of ``deeplearning4j_tpu/ops/registry.py`` (the
 platform override shadows the generic op at dispatch time, the way
 libnd4j's PlatformHelpers shadow its declarable ops: here the CUDA
 kernels of :mod:`.cuda_kernels` shadow the generic PyTorch ops of
-:mod:`.normalization` and :mod:`.attention`.
+:mod:`.normalization` (``layer_norm``, ``scale_shift_act``) and
+:mod:`.attention`.
 """
 
 from __future__ import annotations
@@ -56,3 +57,4 @@ def has(name: str) -> bool:
 
 register("layer_norm", _norm.layer_norm)
 register("flash_attention", _attn.flash_attention)
+register("scale_shift_act", _norm.scale_shift_act)

@@ -1,0 +1,110 @@
+"""Updaters (the slice's subset of ``deeplearning4j_tpu/train/updaters.py``):
+``IUpdater``, ``Sgd`` and ``Adam``, plus the gradient-normalization
+helpers the train step applies before them.
+
+Same contract as the JAX package: ``apply(grad, state, lr, t)`` returns
+``(update, new_state)`` and the caller SUBTRACTS ``update`` from the
+param (the reference's ``params.subi(update)``). The math is fp32 on
+fp32 master params. Adam is DL4J's form, ``alpha = lr*sqrt(1-b2^t) /
+(1-b1^t)``, ``update = alpha*m / (sqrt(v) + eps)``: epsilon sits outside
+the bias correction, unlike ``torch.optim.Adam``, so that is not used.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from deeplearning4j_tpu_torch.train.schedules import resolve
+
+State = Dict[str, Any]
+
+
+class IUpdater:
+    """Config object: ``init_state(param)`` + ``apply(grad, state, lr,
+    t)``; ``lr`` comes from the schedule at iteration ``t``."""
+
+    #: default learning rate if none given (each reference config's)
+    DEFAULT_LR = 0.001
+    has_state = True
+
+    def __init__(self, learning_rate=None):
+        self.learning_rate = resolve(self.DEFAULT_LR if learning_rate is None
+                                     else learning_rate)
+
+    def lr_at(self, t, epoch=0):
+        return self.learning_rate.valueAt(t, epoch)
+
+    def init_state(self, param) -> State:
+        return {}
+
+    def apply(self, grad, state: State, lr, t) -> Tuple[torch.Tensor, State]:
+        raise NotImplementedError
+
+    def __repr__(self):
+        return f"{type(self).__name__}({self.__dict__})"
+
+
+class Sgd(IUpdater):
+    """update = lr * g (ref: SgdUpdater)."""
+
+    DEFAULT_LR = 0.1
+    has_state = False
+
+    def apply(self, grad, state, lr, t):
+        return lr * grad, state
+
+
+class Adam(IUpdater):
+    """ref: AdamUpdater — alpha_t = lr*sqrt(1-b2^t)/(1-b1^t)."""
+
+    DEFAULT_LR = 0.001
+
+    def __init__(self, learning_rate=None, beta1: float = 0.9,
+                 beta2: float = 0.999, epsilon: float = 1e-8):
+        super().__init__(learning_rate)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+
+    def init_state(self, param):
+        return {"m": torch.zeros_like(param), "v": torch.zeros_like(param)}
+
+    def apply(self, grad, state, lr, t):
+        # the bias correction in fp32, as the JAX step traces it
+        t1 = np.float32(t) + np.float32(1)
+        one = np.float32(1)
+        alpha = np.float32(lr) * np.sqrt(one - np.float32(self.beta2) ** t1) \
+            / (one - np.float32(self.beta1) ** t1)
+        m = self.beta1 * state["m"] + (1 - self.beta1) * grad
+        v = self.beta2 * state["v"] + (1 - self.beta2) * grad.square()
+        update = float(alpha) * m / (torch.sqrt(v) + self.epsilon)
+        return update, {"m": m, "v": v}
+
+
+def clip_by_value(grads: List[torch.Tensor], clip: float):
+    """ref: GradientNormalization.ClipElementWiseAbsoluteValue."""
+    return [torch.clamp(g, -clip, clip) for g in grads]
+
+
+def clip_by_norm(grads: List[torch.Tensor], max_norm: float):
+    """Per-tensor L2 clip (ref: ClipL2PerLayer/PerParamType)."""
+    out = []
+    for g in grads:
+        n = torch.sqrt(torch.sum(g.square()))
+        out.append(g * torch.clamp(max_norm / torch.clamp_min(n, 1e-12),
+                                   max=1.0))
+    return out
+
+
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float):
+    """Global-norm clip over every gradient."""
+    gn = torch.sqrt(sum(torch.sum(g.square()) for g in grads))
+    scale = torch.clamp(max_norm / torch.clamp_min(gn, 1e-12), max=1.0)
+    return [g * scale for g in grads]
+
+
+def renormalize_l2(grads: List[torch.Tensor]):
+    """ref: GradientNormalization.RenormalizeL2PerLayer — divide by norm."""
+    return [g / torch.clamp_min(torch.sqrt(torch.sum(g.square())), 1e-12)
+            for g in grads]

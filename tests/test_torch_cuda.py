@@ -7,7 +7,9 @@ a machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: fp32 rtol=atol=2e-5 (as tests/test_pallas.py), bf16 2e-2 (a
-few bf16 ulps: both sides round the same fp32 value), lse 1e-5 absolute.
+few bf16 ulps: both sides round the same fp32 value), lse 1e-5 absolute;
+scale_shift_act 1e-6 relative in fp32 and one ulp in bf16 (both sides
+round the exact value once).
 """
 
 import numpy as np
@@ -103,9 +105,50 @@ def test_served_tiny_lm_launches_the_kernels(dev):
             got = sv.output(tok, timeout=60)
             n_fwd = sv.stats()["batches"]
         assert ck.LAUNCHES == {"layer_norm": 5 * n_fwd,
-                               "flash_attention": 2 * n_fwd}
-        assert ck.PLAIN_CALLS == {"layer_norm": 0, "flash_attention": 0}
+                               "flash_attention": 2 * n_fwd,
+                               "scale_shift_act": 0}
+        assert ck.PLAIN_CALLS == {"layer_norm": 0, "flash_attention": 0,
+                                  "scale_shift_act": 0}
         want = lm.logits(tok).argmax(-1).to(torch.int32).cpu().numpy()
         assert (got == want).mean() >= 0.99
     finally:
         ck.uninstall_platform_overrides()
+
+
+@pytest.mark.parametrize("alpha", [0.0, 0.01])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,c", [(64 * 28 * 28, 128), (999, 36)])
+def test_scale_shift_act_kernel_matches_plain(dev, alpha, dtype, rows, c):
+    x = _randn(dev, rows, c, dtype=dtype, seed=9) * 2
+    sc = _randn(dev, c, dtype=dtype, seed=10)
+    sh = _randn(dev, c, dtype=dtype, seed=11)
+    ck.reset_counts()
+    y = ck.scale_shift_act_fwd(x, sc, sh, alpha)
+    assert ck.LAUNCHES["scale_shift_act"] == 1 and y.dtype == dtype
+    want = ck.scale_shift_act_plain(x, sc, sh, alpha)
+    # kernel and plain round the exact x*scale+shift once: 1e-6 relative
+    # in fp32, one ulp (at most 2^-7 relative) in bf16
+    rel = 1e-6 if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(y, want, rtol=rel, atol=0)
+    # backward: the override's autograd Function against the generic
+    # op's, which differs only at y == 0 (slope 1 there, 0 for relu)
+    fused = ck.make_scale_shift_act_override()
+    xg = x.float().requires_grad_(True)
+    ct = _randn(dev, rows, c, seed=12)
+    (g,) = torch.autograd.grad(fused(xg, sc.float(), sh.float(),
+                                     alpha=alpha, axis=1), xg, ct)
+    slope = torch.where(xg.detach() * sc.float() + sh.float() >= 0, 1.0,
+                        alpha)
+    torch.testing.assert_close(g, ct * slope * sc.float(), rtol=FP32_TOL,
+                               atol=FP32_TOL)
+
+
+def test_scale_shift_act_kernel_keeps_nan(dev):
+    x = _randn(dev, 256, 64, dtype=torch.bfloat16, seed=13)
+    x[::7, ::3] = float("nan")
+    one = torch.ones(64, device=dev, dtype=torch.bfloat16)
+    zero = torch.zeros(64, device=dev, dtype=torch.bfloat16)
+    for alpha in (0.0, 0.01):
+        y = ck.scale_shift_act_fwd(x, one, zero, alpha)
+        assert bool(torch.isnan(y[::7, ::3]).all())
+        assert int(torch.isnan(y).sum()) == int(torch.isnan(x).sum())

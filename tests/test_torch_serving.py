@@ -77,7 +77,8 @@ class TestParityWithJax:
                 got = [h.get(60) for h in handles]
                 n_fwd = sv.stats()["batches"]
             assert ck.PLAIN_CALLS == {"layer_norm": 5 * n_fwd,
-                                      "flash_attention": 2 * n_fwd}
+                                      "flash_attention": 2 * n_fwd,
+                                      "scale_shift_act": 0}
         finally:
             ck.uninstall_platform_overrides()
         jsv = JaxModelServer(jlm.logits, batch_limit=4, input_dtype=np.int32,
