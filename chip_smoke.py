@@ -12,7 +12,9 @@ Phases (each one fails the run with a non-zero exit):
    (one ``nvcc`` per source, all started together).
 2. Each kernel against its plain PyTorch version on the card, at the
    listed shapes, with the tolerances below; then each one timed (CUDA
-   events, median of 30 launches, L2 flushed before each) beside its
+   events, median of 30 launches, L2 flushed before each and each queued
+   behind a short device spin, so the host's launch time is not counted)
+   beside its
    plain version, its roofline bound, and one PyTorch library call that
    computes the same function (a yardstick only; the port never calls it).
 3. Serve BERT-base (full width, bf16, random weights from a seed) through
@@ -31,6 +33,27 @@ Phases (each one fails the run with a non-zero exit):
    step and no plain call.
 5. ResNet-50 ``output()`` (33 launches) held against the same forward on
    the plain ``scale_shift_act``.
+6. Serve a BERT-base sequence classifier written op by op in SameDiff
+   (full width, fp32, post-LN, 2 labels, random weights from
+   ``numpy.random.default_rng(0)``; :func:`build_bert`, a copy of the
+   builder in ``tests/test_torch_samediff.py``) through
+   ``ModelServer(samediff_forward(sd, ["probs"]))``: warmup, then 64
+   requests of 1-8 rows at T=128 from four threads. Every request must
+   resolve exactly once, its probs equal a direct ``sd.output`` (1e-4
+   absolute: the served batch pads to a bucket, so cuBLAS may sum in
+   another order), and the counters must read 13 softmax and 25 layer-norm
+   launches per forward and no plain call.
+7. Fine-tune that graph with ``sd.fit``: Adam 1e-4, 6 steps on one B=32
+   batch. Every loss finite, the last below the first, 12 softmax (the
+   loss takes the logits, not the head's probs) and 25 layer-norm
+   launches per step.
+8. ``save`` the graph, uninstall the kernels and ``load`` the file, so
+   its nodes resolve the generic ops; the two graphs' probs must agree
+   within 1e-5, and their ``calculateGradients`` on one batch within a
+   relative L2 distance of 1e-4 with every element within 1e-4 of the
+   largest gradient (some gradients, like the key biases', are zero in
+   exact arithmetic and pure rounding in both, so no per-tensor relative
+   bound holds for them).
 
 Tolerances: layer norm and flash fp32 ``rtol=atol=2e-5`` (as
 ``tests/test_pallas.py``), bf16 ``rtol=atol=2e-2`` (a few bf16 ulps: both
@@ -38,7 +61,11 @@ sides round the same fp32 value, summed in another order), lse 1e-5
 absolute in fp32. ``scale_shift_act``: fp32 1e-6 relative, bf16 1 ulp
 (kernel and plain both round the exact ``x*scale+shift`` once to fp32,
 then once to bf16, so they agree to the bit but for double-rounding
-ties), a NaN in must come out NaN.
+ties), a NaN in must come out NaN. Softmax: fp32 ``rtol=1e-5, atol=1e-6``
+(as ``tests/test_pallas.py``), bf16 one ulp (2^-7 relative), NaN where
+the plain version has NaN. Gradients through the layer-norm and flash
+overrides (composed backwards) against autograd through their plain
+versions: 2e-4 absolute (fp32 values of order one).
 
 Output: progress lines, then a JSON line ``{"kernels": [...]}``, the
 ``nvidia-smi`` name/power-limit line, and as the last line
@@ -52,6 +79,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -61,8 +89,17 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 BF16_FLOPS = 989e12            # dense bf16 tensor-core peak
 FP32_FLOPS = 67e12             # fp32 outside the tensor cores
 TIMED_RUNS = 30
+#: device spin before each timed launch (~0.5 ms at 1.98 GHz): the card is
+#: still busy when the host has queued the events and the launch, so the
+#: wrapper's Python time never lands between the two events
+SPIN_CYCLES = 1_000_000
 RESNET_BATCH = 64
 RESNET_STEPS = 5
+#: BERT-base as modelimport/bert.py infers it, with a 2-label head
+BERT_SD = dict(V=30522, E=768, H=12, L=12, F=3072, T=128, max_len=512,
+               n_labels=2)
+SD_BATCH = 32
+SD_STEPS = 6
 
 
 def fail(msg: str) -> None:
@@ -97,13 +134,16 @@ def main() -> None:
     sys.path.insert(0, root)
     import torch.nn.functional as F
 
+    from deeplearning4j_tpu_torch.autodiff import SameDiff, TrainingConfig
     from deeplearning4j_tpu_torch.data.dataset import DataSet
     from deeplearning4j_tpu_torch.models import zoo
     from deeplearning4j_tpu_torch.models.transformer import (
         TransformerConfig, TransformerLM)
     from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
     from deeplearning4j_tpu_torch.ops import registry
-    from deeplearning4j_tpu_torch.serving import ModelServer
+    from deeplearning4j_tpu_torch.serving import (ModelServer,
+                                                  samediff_forward)
+    from deeplearning4j_tpu_torch.train.updaters import Adam
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -147,6 +187,7 @@ def main() -> None:
         ts = []
         for _ in range(TIMED_RUNS):
             flush.zero_()
+            torch.cuda._sleep(SPIN_CYCLES)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -308,7 +349,99 @@ def main() -> None:
     ssa.update(bound(2 * rows * c * 2 + 2 * c * 2, 2 * rows * c,
                      FP32_FLOPS))
     del x
-    for kr in (ln, fa, ssa):
+
+    # softmax at the SameDiff BERT-base rows at B=32, T=128 (attention
+    # [B*H*T, T] and the [B, 2] head), ragged D, the block kernel
+    # (D > 1024), a 4-D input through the override, NaN and -inf rows
+    def check_sm(name, got, want, dtype):
+        nan_w = torch.isnan(want)
+        if not torch.equal(nan_w, torch.isnan(got)):
+            fail(f"{name}: NaN positions differ")
+        g = got.float().masked_fill(nan_w, 0.0)
+        w = want.float().masked_fill(nan_w, 0.0)
+        rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+        err = (g - w).abs()
+        bad = err > 1e-6 + rtol * w.abs()
+        if bool(bad.any()):
+            fail(f"{name}: {int(bad.sum())} element(s) beyond rtol={rtol:g} "
+                 f"atol=1e-6, max |err| {err.max().item():.3g}")
+        return float(err.max().item())
+
+    for n, d in ((49152, 128), (32, 2), (1000, 100), (500, 1000),
+                 (64, 4096), (37, 5000)):
+        for dt in (torch.float32, torch.bfloat16):
+            x = rand(n, d, dtype=dt, scale=4.0)
+            y = ck.softmax_fwd(x)
+            torch.cuda.synchronize()
+            e = check_sm(f"softmax [{n},{d}] {dt}", y, ck.softmax_plain(x), dt)
+            log(f"softmax [{n}, {d}] {str(dt)[6:]}: max|err| {e:.3g}")
+    sm_override = ck.make_softmax_override()
+    x4 = rand(4, 12, 128, 128, scale=4.0)
+    e = check_sm("softmax override [4,12,128,128]", sm_override(x4),
+                 ck.softmax_plain(x4.view(-1, 128)).view(x4.shape),
+                 torch.float32)
+    log(f"softmax override on a 4-D input: max|err| {e:.3g}")
+    for d in (128, 2000):                      # warp and block kernels
+        for dt in (torch.float32, torch.bfloat16):
+            x = rand(8, d, dtype=dt)
+            x[1, 5] = float("nan")
+            x[2] = -float("inf")
+            x[3, 7] = float("inf")
+            y = ck.softmax_fwd(x)
+            torch.cuda.synchronize()
+            if not bool(torch.isnan(y[1:4]).all()) or \
+                    bool(torch.isnan(y[0]).any()):
+                fail(f"softmax D={d} {dt}: NaN/-inf/inf rows not NaN, or a "
+                     "finite row NaN")
+            check_sm(f"softmax NaN/inf rows D={d} {dt}", y,
+                     ck.softmax_plain(x), dt)
+    log("softmax: a NaN, +inf or all--inf row gives a NaN row, as jnp")
+
+    N, D = SD_BATCH * 12 * 128, 128
+    x = rand(N, D, scale=4.0)
+    sm = {
+        "name": "softmax", "route": "cuda",
+        "source": "deeplearning4j_tpu_torch/ops/csrc/softmax.cu",
+        "replaces": "deeplearning4j_tpu/ops/pallas_kernels.py:144",
+        "shape": f"x [{N}, {D}] float32 (SameDiff BERT-base attention, "
+                 f"B={SD_BATCH}, T=128)",
+        "max_abs_err": check_sm("softmax main shape", ck.softmax_fwd(x),
+                                ck.softmax_plain(x), torch.float32),
+        "ms": time_ms(lambda: ck.softmax_fwd(x)),
+        "plain_ms": time_ms(lambda: ck.softmax_plain(x)),
+        "library_ms": time_ms(lambda: torch.softmax(x, -1)),
+    }
+    # max, subtract, exp, add, divide per element on the CUDA cores
+    sm.update(bound(2 * N * D * 4, 5 * N * D, FP32_FLOPS))
+    del x
+
+    # the layer-norm and flash overrides carry gradients (composed
+    # backwards) on the card, equal to autograd through the plain versions
+    ck.install_platform_overrides()
+    xg = rand(64, 768, scale=2.0).requires_grad_(True)
+    gg = rand(768, shift=1.0).requires_grad_(True)
+    bg = rand(768).requires_grad_(True)
+    wg = rand(64, 768)
+    got = torch.autograd.grad((registry.get("layer_norm")(xg, gg, bg)
+                               * wg).sum(), (xg, gg, bg))
+    want = torch.autograd.grad((ck.layer_norm_plain(xg, gg, bg) * wg).sum(),
+                               (xg, gg, bg))
+    errs = [check(f"layer_norm grad {n}", a, b, None, atol=2e-4)
+            for n, a, b in zip(("x", "gain", "bias"), got, want)]
+    qg, kg, vg = (rand(2, 200, 3, 64).requires_grad_(True) for _ in range(3))
+    wg = rand(2, 200, 3, 64)
+    for causal in (False, True):
+        got = torch.autograd.grad(
+            (registry.get("flash_attention")(qg, kg, vg, is_causal=causal)
+             * wg).sum(), (qg, kg, vg))
+        want = torch.autograd.grad(
+            (ck.flash_attention_plain(qg, kg, vg, causal)[0] * wg).sum(),
+            (qg, kg, vg))
+        errs += [check(f"flash grad d{n} causal={causal}", a, b, None,
+                       atol=2e-4) for n, a, b in zip("qkv", got, want)]
+    log(f"gradients through the layer_norm and flash overrides equal "
+        f"autograd through the plain versions: max|err| {max(errs):.3g}")
+    for kr in (ln, fa, ssa, sm):
         log(f"{kr['name']} at {kr['shape']}: kernel {kr['ms']:.4f} ms, "
             f"plain {kr['plain_ms']:.4f} ms, library {kr['library_ms']:.4f} "
             f"ms, bound {kr['bound_ms']:.4f} ms ({kr['bound_by']}) [{smi}]")
@@ -337,34 +470,8 @@ def main() -> None:
                                 (int(rng.integers(1, 9)),
                                  128 if i % 2 == 0 else 512), dtype=np.int32)
                    for i in range(64)]
-        handles = [None] * len(reqs_in)
-        errors = []
-        batches0 = server.stats()["batches"]
-
-        def client(idx):
-            try:
-                for i in idx:
-                    handles[i] = server.submit(reqs_in[i])
-                    time.sleep(0.002)
-            except Exception as e:     # reported below, fails the run
-                errors.append(e)
-
-        ck.reset_counts()
-        t0 = time.perf_counter()
-        threads = [threading.Thread(target=client, args=(range(j, 64, 4),))
-                   for j in range(4)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(120)
-        if errors or any(t.is_alive() for t in threads):
-            fail(f"client threads failed: {errors}")
-        served = [h.get(300) for h in handles]
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(ck.LAUNCHES)
-        plain = dict(ck.PLAIN_CALLS)
-        n_fwd = server.stats()["batches"] - batches0
+        handles, served, wall, launches, plain, n_fwd = serve_burst(
+            server, reqs_in)
     finally:
         server.close()
 
@@ -373,16 +480,12 @@ def main() -> None:
     if server.counts["completed"] != 64:
         fail(f"expected 64 completed requests, counts {dict(server.counts)}")
     if launches != {"flash_attention": 12 * n_fwd, "layer_norm": 25 * n_fwd,
-                    "scale_shift_act": 0} or any(plain.values()):
+                    "scale_shift_act": 0, "softmax": 0} \
+            or any(plain.values()):
         fail(f"launch counts {launches} (plain {plain}) over {n_fwd} "
              "forwards: want 12 flash_attention and 25 layer_norm each")
     log(f"served 64 requests in {n_fwd} forwards; launches {launches}")
-    lat = sorted(h.resolved_at - h.enqueued_at for h in handles)
-    tokens = sum(int(r.size) for r in reqs_in)
-    log(f"latency p50 {1e3 * float(np.percentile(lat, 50)):.2f} ms, "
-        f"p99 {1e3 * float(np.percentile(lat, 99)):.2f} ms, "
-        f"{tokens / wall:.1f} tokens/s ({tokens} tokens in {wall:.3f} s) "
-        f"[{smi}]")
+    log_latency(handles, reqs_in, wall, smi)
 
     agree = total = 0
     for r, got in zip(reqs_in, served):
@@ -506,19 +609,244 @@ def main() -> None:
     if float(dp.max()) > 0.05 * pmax or float(dp.mean()) > 2e-3 * pmax:
         fail("kernel and plain ResNet-50 forwards disagree beyond the bound "
              "(max 5%, mean 0.2% of max p)")
+    del net, ds, xr, yr, probs, probs_plain
+    torch.cuda.empty_cache()
+
+    # --------------------------------------- 6. serve a SameDiff BERT-base
+    ck.install_platform_overrides()       # before recording: nodes bind ops
+    t0 = time.perf_counter()
+    sd = build_bert(SameDiff.create(), **BERT_SD)
+    n_params = sum(v.numel() for v in sd._variables.values())
+    log(f"SameDiff BERT-base: {n_params} parameters, {len(sd._nodes)} ops, "
+        f"fp32, built in {time.perf_counter() - t0:.2f} s")
+    T = BERT_SD["T"]
+    server = ModelServer(samediff_forward(sd, ["probs"],
+                                          input_name="input_ids"),
+                         batch_limit=32, input_dtype=np.int32,
+                         coalesce_ms=5.0, max_queue=256)
+    try:
+        t0 = time.perf_counter()
+        server.warmup([(T,)])
+        log(f"warmup: buckets {server.buckets()} x T={T} in "
+            f"{time.perf_counter() - t0:.2f} s")
+        rng = np.random.default_rng(1)
+        sd_reqs = [rng.integers(0, BERT_SD["V"], (int(rng.integers(1, 9)), T),
+                                dtype=np.int32) for _ in range(64)]
+        sd_handles, sd_served, sd_wall, sd_launches, sd_plain, sd_fwd = \
+            serve_burst(server, sd_reqs)
+    finally:
+        server.close()
+    if any(h.resolutions != 1 for h in sd_handles) or \
+            server.counts["completed"] != 64:
+        fail(f"SameDiff serving: a request not resolved exactly once, "
+             f"counts {dict(server.counts)}")
+    want_launches = {"layer_norm": 25 * sd_fwd, "flash_attention": 0,
+                     "scale_shift_act": 0, "softmax": 13 * sd_fwd}
+    if sd_launches != want_launches or any(sd_plain.values()):
+        fail(f"SameDiff serving launch counts {sd_launches} (plain "
+             f"{sd_plain}) over {sd_fwd} forwards: want 13 softmax and 25 "
+             "layer_norm each")
+    log(f"served 64 SameDiff requests in {sd_fwd} forwards; launches "
+        f"{sd_launches}")
+    log_latency(sd_handles, sd_reqs, sd_wall, smi)
+    worst = 0.0
+    for r, got in zip(sd_reqs, sd_served):
+        want = sd.output({"input_ids": r}, ["probs"])["probs"].cpu().numpy()
+        if got.shape != want.shape or not np.isfinite(got).all():
+            fail(f"served probs of shape {got.shape}, direct {want.shape}, "
+                 "or not finite")
+        worst = max(worst, float(np.abs(got - want).max()))
+    log(f"served probs vs direct sd.output: max|diff| {worst:.3g}")
+    if worst > 1e-4:
+        fail("served and direct SameDiff probs differ by more than 1e-4")
+
+    # ----------------------------------------- 7. fine-tune it with fit
+    sd.setTrainingConfig(TrainingConfig(
+        updater=Adam(1e-4), data_set_feature_mapping=["input_ids"],
+        data_set_label_mapping=["labels"]))
+    rng = np.random.default_rng(2)
+    batch = {"input_ids": torch.from_numpy(rng.integers(
+                 0, BERT_SD["V"], (SD_BATCH, T), dtype=np.int32)).to(dev),
+             "labels": torch.from_numpy(rng.integers(
+                 0, BERT_SD["n_labels"], SD_BATCH, dtype=np.int32)).to(dev)}
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_counts()
+    sd_losses, sd_step_ms = [], []
+    for _ in range(SD_STEPS):
+        t0 = time.perf_counter()
+        sd_losses += sd.fit([batch]).lossCurve()   # floats: waits for it
+        sd_step_ms.append((time.perf_counter() - t0) * 1e3)
+    fit_sd_launches = dict(ck.LAUNCHES)
+    fit_sd_plain = dict(ck.PLAIN_CALLS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(np.isfinite(sd_losses)) or not sd_losses[-1] < sd_losses[0]:
+        fail(f"SameDiff fit losses not finite and falling: {sd_losses}")
+    # the loss takes the logits, not the head's probs: 12 softmax a step
+    if fit_sd_launches != {"layer_norm": 25 * SD_STEPS, "flash_attention": 0,
+                           "scale_shift_act": 0,
+                           "softmax": 12 * SD_STEPS} \
+            or any(fit_sd_plain.values()):
+        fail(f"SameDiff fit launch counts {fit_sd_launches} (plain "
+             f"{fit_sd_plain}) over {SD_STEPS} steps: want 12 softmax and 25 "
+             "layer_norm per step")
+    timed = sd_step_ms[1:]
+    med = float(np.median(timed))
+    log(f"SameDiff BERT-base fit B={SD_BATCH}, T={T}, Adam 1e-4: losses "
+        f"{', '.join(f'{v:.5f}' for v in sd_losses)}; step ms (steps 2-"
+        f"{SD_STEPS}) median {med:.2f} (min {min(timed):.2f}, max "
+        f"{max(timed):.2f}), first {sd_step_ms[0]:.2f}; "
+        f"{SD_BATCH * T / (med / 1e3):.1f} tokens/s, peak {peak_gb:.2f} GB; "
+        f"softmax launches per step "
+        f"{fit_sd_launches['softmax'] // SD_STEPS} [{smi}]")
+
+    # ------------------------ 8. the kernels' graph against the generic one
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "bert_samediff.zip")
+        sd.save(path, save_updater_state=False)
+        ck.uninstall_platform_overrides()
+        generic = SameDiff.load(path)        # nodes resolve the generic ops
+        ck.install_platform_overrides()
+    ck.reset_counts()
+    p_gen = generic.output(batch, ["probs"])["probs"]
+    g_gen = generic.calculateGradients(batch)
+    if any(ck.LAUNCHES.values()):
+        fail(f"the generic graph launched kernels: {ck.LAUNCHES}")
+    p_ker = sd.output(batch, ["probs"])["probs"]
+    g_ker = sd.calculateGradients(batch)
+    dprob = float((p_ker - p_gen).abs().max())
+    flat_k = torch.cat([g_ker[k].flatten() for k in g_gen])
+    flat_g = torch.cat([g_gen[k].flatten() for k in g_gen])
+    rel_l2 = float((flat_k - flat_g).norm() / flat_g.norm())
+    gmax = float(flat_g.abs().max())
+    emax = float((flat_k - flat_g).abs().max())
+    log(f"kernel vs generic SameDiff graph: probs max|diff| {dprob:.3g}; "
+        f"gradients over {len(g_gen)} variables: relative L2 {rel_l2:.3g}, "
+        f"max|diff| {emax:.3g} (max|g| {gmax:.3g})")
+    if not bool(torch.isfinite(flat_k).all()) or dprob > 1e-5 \
+            or rel_l2 > 1e-4 or emax > 1e-4 * gmax:
+        fail("kernel and generic SameDiff graphs disagree beyond the bound "
+             "(probs 1e-5; gradients relative L2 1e-4, elements 1e-4 of "
+             "max|g|)")
 
     ln["launches"] = launches["layer_norm"]
     fa["launches"] = launches["flash_attention"]
     ssa["launches"] = fit_launches["scale_shift_act"]
+    sm["launches"] = sd_launches["softmax"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{k: kr[k] for k in keys}
-                                  for kr in (ln, fa, ssa)]}))
+                                  for kr in (ln, fa, ssa, sm)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def serve_burst(server, reqs):
+    """Submit ``reqs`` from four threads, 2 ms apart in each, with the
+    launch counters set to 0 just before; wait for every answer. Returns
+    (handles, answers, wall s, launches, plain calls, forwards)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+    handles = [None] * len(reqs)
+    errors = []
+    batches0 = server.stats()["batches"]
+
+    def client(idx):
+        try:
+            for i in idx:
+                handles[i] = server.submit(reqs[i])
+                time.sleep(0.002)
+        except Exception as e:     # reported below, fails the run
+            errors.append(e)
+
+    ck.reset_counts()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client,
+                                args=(range(j, len(reqs), 4),))
+               for j in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"client threads failed: {errors}")
+    served = [h.get(300) for h in handles]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (handles, served, wall, dict(ck.LAUNCHES), dict(ck.PLAIN_CALLS),
+            server.stats()["batches"] - batches0)
+
+
+def log_latency(handles, reqs, wall: float, smi: str) -> None:
+    lat = sorted(h.resolved_at - h.enqueued_at for h in handles)
+    tokens = sum(int(r.size) for r in reqs)
+    log(f"latency p50 {1e3 * float(np.percentile(lat, 50)):.2f} ms, "
+        f"p99 {1e3 * float(np.percentile(lat, 99)):.2f} ms, "
+        f"{tokens / wall:.1f} tokens/s ({tokens} tokens in {wall:.3f} s) "
+        f"[{smi}]")
+
+
+def build_bert(sd, dtype=np.float32, *, V, E, H, L, F, T, max_len,
+               n_labels, eps=1e-12, seed=0):
+    """A BERT sequence classifier (post-LN, tanh gelu, tanh pooler)
+    written op by op in SameDiff, as an imported BERT graph runs (a copy
+    of the builder in tests/test_torch_samediff.py). Placeholders
+    ``input_ids`` [None, T] and ``labels`` [None], int32; outputs
+    ``probs`` [B, n_labels] and ``loss``. Activations stay on the 2-D
+    [B*T, E] view, so every layer norm and the attention softmax (on
+    [B*H*T, T]) take 2-D inputs. Weights N(0, 0.02), biases 0, LN gains
+    1, from ``numpy.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    D = E // H
+
+    def w(name, *shape):
+        return sd.var(name, (rng.standard_normal(shape) * 0.02)
+                      .astype(dtype))
+
+    def zeros(name, n):
+        return sd.var(name, np.zeros(n, dtype))
+
+    def ln(x, name):
+        # BERT's eps through the registry op: SDNN.layerNorm has no eps
+        return sd.math.layer_norm(x, sd.var(name + "_g", np.ones(E, dtype)),
+                                  zeros(name + "_b", E), eps=eps)
+
+    def linear(x, name, n_in, n_out):
+        return sd.nn.linear(x, w(name + "_w", n_in, n_out),
+                            zeros(name + "_b", n_out))
+
+    ids = sd.placeHolder("input_ids", shape=(None, T), dtype=np.int32)
+    labels = sd.placeHolder("labels", shape=(None,), dtype=np.int32)
+    tok = sd.math.gather(w("tok_emb", V, E), ids, axis=0)       # [B, T, E]
+    pos = sd.math.gather(w("pos_emb", max_len, E),
+                         np.arange(T, dtype=np.int32), axis=0)  # [T, E]
+    typ = sd.math.gather(w("type_emb", 2, E),
+                         np.zeros(T, np.int32), axis=0)         # [T, E]
+    h = ln((tok + pos + typ).reshape(-1, E), "emb_ln")          # [B*T, E]
+    for i in range(L):
+        p = f"l{i}_"
+
+        def heads(x):
+            return x.reshape(-1, T, H, D).transpose(0, 2, 1, 3)  # [B,H,T,D]
+        q = heads(linear(h, p + "q", E, E))
+        k = heads(linear(h, p + "k", E, E))
+        v = heads(linear(h, p + "v", E, E))
+        s = q.mmul(k, transpose_b=True) * float(1.0 / np.sqrt(D))
+        a = sd.nn.softmax(s.reshape(-1, T)).reshape(-1, H, T, T)
+        ctx = a.mmul(v).transpose(0, 2, 1, 3).reshape(-1, E)
+        h = ln(h + linear(ctx, p + "o", E, E), p + "ln1")
+        ff = linear(sd.nn.gelu(linear(h, p + "ff1", E, F)), p + "ff2", F, E)
+        h = ln(h + ff, p + "ln2")
+    cls = h.reshape(-1, T, E).get((slice(None), 0))             # [B, E]
+    pooled = sd.nn.tanh(linear(cls, "pool", E, E))
+    logits = linear(pooled, "cls", E, n_labels)
+    sd.nn.softmax(logits, name="probs")
+    sd.loss.sparseSoftmaxCrossEntropy(labels, logits, name="loss")
+    sd.setLossVariables("loss")
+    return sd
 
 
 def bound(nbytes: int, ops: int, peak: float) -> dict:

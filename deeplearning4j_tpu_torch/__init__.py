@@ -2,25 +2,29 @@
 
 The JAX package beside it is the reference this package is held
 against; this one imports ``torch``, numpy and the standard library
-only. Two paths run: serving a pre-LN BERT-base (``models.transformer``)
-behind the continuous-batching ``serving.ModelServer``, and training
-ResNet-50 (``models.zoo``) through ``nn.graph.ComputationGraph``, with
-hand-written CUDA kernels for flash attention, layer norm and the fused
-conv epilogue (``ops.cuda_kernels``) installed as platform overrides
-over the generic ops (``ops.registry``).
+only. Three paths run: serving a pre-LN BERT-base
+(``models.transformer``) behind the continuous-batching
+``serving.ModelServer``; training ResNet-50 (``models.zoo``) through
+``nn.graph.ComputationGraph``; and serving and fine-tuning graphs
+recorded in SameDiff (``autodiff``). Hand-written CUDA kernels for flash
+attention, layer norm, the fused conv epilogue and the row softmax
+(``ops.cuda_kernels``) are installed as platform overrides over the
+generic ops (``ops.registry``).
 
 Layout (module and public names follow the JAX package):
 
+- ``autodiff``  — ``SameDiff``, ``SDVariable``, ``TrainingConfig``
 - ``ops``       — op registry, the generic ops (normalization,
                   attention, convolution/pooling, activations, losses),
                   and the CUDA kernels with their plain PyTorch twins
 - ``nn``        — ``NeuralNetConfiguration``/``InputType``, the layers,
                   ``ComputationGraph`` and ``PrecisionPolicy``
-- ``train``     — the updaters (``Sgd``, ``Adam``) and schedules
+- ``train``     — the updaters (``Sgd``, ``Adam``, ``AdamW``) and schedules
 - ``data``      — ``DataSet``
 - ``models``    — the transformer and the model zoo (``ResNet50``)
-- ``serving``   — ``ModelServer``, ``ServingRequest``, ``CircuitBreaker``
-                  and the structured serving errors
+- ``serving``   — ``ModelServer``, ``samediff_forward``,
+                  ``ServingRequest``, ``CircuitBreaker`` and the
+                  structured serving errors
 - ``profiler``  — the Counter/Gauge/Histogram metrics registry
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;

@@ -3,12 +3,15 @@
 
 Derivatives are autograd's. ``relu`` has slope 0 at 0 and propagates
 NaN, as ``jax.nn.relu`` does; ``leakyrelu`` takes the slope in the
-input's dtype, as JAX does with a weakly typed Python scalar.
+input's dtype, as JAX does with a weakly typed Python scalar; ``gelu`` is
+the tanh approximation (the reference's ActivationGELU, JAX's
+``approximate=True``), not ``F.gelu``'s default erf form.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 __all__ = ["get", "ACTIVATIONS"]
 
@@ -25,6 +28,22 @@ def leakyrelu(x, alpha: float = 0.01):
     return torch.where(x >= 0, x, torch.tensor(alpha, dtype=x.dtype) * x)
 
 
+def gelu(x):
+    return F.gelu(x, approximate="tanh")
+
+
+def sigmoid(x):
+    return torch.sigmoid(x)
+
+
+def tanh(x):
+    return torch.tanh(x)
+
+
+def swish(x):
+    return x * torch.sigmoid(x)
+
+
 def softmax(x, axis: int = -1):
     return torch.softmax(x, dim=axis)
 
@@ -34,6 +53,10 @@ ACTIVATIONS = {
     "linear": identity,
     "relu": relu,
     "leakyrelu": leakyrelu,
+    "gelu": gelu,
+    "sigmoid": sigmoid,
+    "tanh": tanh,
+    "swish": swish,
     "softmax": softmax,
 }
 

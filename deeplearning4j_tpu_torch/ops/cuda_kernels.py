@@ -14,21 +14,24 @@ each Pallas kernel on the path becomes a CUDA C++ kernel for Hopper
   (``torch.cuda.current_stream().cuda_stream``) is a ``c_void_p``. Each
   launcher returns ``cudaGetLastError()`` and the wrapper raises on
   anything but 0.
-- **Wrappers.** ``layer_norm_fwd``, ``flash_attention_fwd`` and
-  ``scale_shift_act_fwd`` check device, dtype, shape and contiguity,
-  allocate their outputs with ``torch.empty`` and launch on the current
-  stream. A tensor on the CPU takes the kernel's plain PyTorch version
-  (``*_plain``) instead; there is no fallback from a CUDA tensor.
-  ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` counts
+- **Wrappers.** ``layer_norm_fwd``, ``flash_attention_fwd``,
+  ``scale_shift_act_fwd`` and ``softmax_fwd`` check device, dtype, shape
+  and contiguity, allocate their outputs with ``torch.empty`` and launch
+  on the current stream. A tensor on the CPU takes the kernel's plain
+  PyTorch version (``*_plain``) instead; there is no fallback from a CUDA
+  tensor. ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` counts
   plain-version calls made by the wrappers.
 - **Gates.** ``supported`` / ``flash_supported`` /
-  ``scale_shift_act_supported`` decide, as in the JAX package, which
-  calls the kernels take; masked attention and shapes/dtypes outside the
-  gates go to the generic ops.
+  ``scale_shift_act_supported`` / ``softmax_supported`` decide, as in the
+  JAX package, which calls the kernels take; masked attention and
+  shapes/dtypes outside the gates go to the generic ops.
 
-Gradients: layer norm and flash attention are forward only (serving);
-``scale_shift_act`` runs under a ``torch.autograd.Function`` whose
-backward is composed torch, as the JAX custom VJP's is composed jnp.
+Gradients: each override runs its kernel under a
+``torch.autograd.Function`` whose backward is composed torch, as the JAX
+custom VJPs are composed jnp (pallas_kernels.py:101-115 layer norm,
+:165-169 softmax, :253-263 the epilogue, :375-409 flash attention). The
+Function also runs on CPU tensors, where its forward takes the plain
+version, so the CPU tests reach the composed backwards.
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-KERNELS = ("layer_norm", "flash_attention", "scale_shift_act")
+KERNELS = ("layer_norm", "flash_attention", "scale_shift_act", "softmax")
 
 #: kernel launches made by the wrappers (CUDA tensors only)
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -67,6 +70,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LN_MAX_D = 8192           # the row is staged in 32 KB of shared memory
 _FLASH_D = (64, 128, 192, 256)
 _SSA_MAX_C = 4096          # the JAX gate's bound (epilogue_supported)
+_SOFTMAX_MAX_D = 12288     # a staged row in 48 KB of shared memory
+_FLASH_BWD_K = 256         # the k block of the composed flash backward
 
 
 def reset_counts() -> None:
@@ -158,6 +163,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     elif name == "scale_shift_act":
         fn = lib.dl4j_scale_shift_act_fwd
         fn.argtypes = [P, P, P, P, LL, I, F, I, I, P]
+    elif name == "softmax":
+        fn = lib.dl4j_softmax_fwd
+        fn.argtypes = [P, P, LL, I, I, P]
     else:
         raise KeyError(f"no binding for kernel {name!r}")
     fn.restype = I
@@ -217,6 +225,36 @@ def layer_norm_fwd(x, gain, bias, eps: float = 1e-5):
     return y
 
 
+class _LayerNormKernel(torch.autograd.Function):
+    """The kernel forward; the backward mirrors the JAX custom VJP
+    (pallas_kernels.py:101-115): ``xhat`` and the cotangent in fp32, dx
+    in x's dtype, dgain and dbias reduced in fp32 and cast to gain's
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, x, gain, bias, eps):
+        ctx.save_for_backward(x, gain)
+        ctx.eps = eps
+        return layer_norm_fwd(x, gain, bias, eps)
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, gain = ctx.saved_tensors
+        x32 = x.float()
+        g32 = ct.float()
+        m = x32.mean(dim=1, keepdim=True)
+        v = (x32 - m).square().mean(dim=1, keepdim=True)
+        inv = torch.rsqrt(v + ctx.eps)
+        xhat = (x32 - m) * inv
+        gy = g32 * gain.float()
+        dx = inv * (gy - gy.mean(dim=1, keepdim=True)
+                    - xhat * (gy * xhat).mean(dim=1, keepdim=True))
+        dgain = (g32 * xhat).sum(dim=0)
+        dbias = g32.sum(dim=0)
+        return (dx.to(x.dtype), dgain.to(gain.dtype), dbias.to(gain.dtype),
+                None)
+
+
 def supported(x, axis: int = -1) -> bool:
     """Calls the layer-norm kernel takes: 2-D fp32/bf16, normalized axis
     last, D <= 8192, any N (wider than the TPU kernel's (8, 128) tiling
@@ -236,7 +274,7 @@ def make_layer_norm_override():
         if gain is None or bias is None or \
                 not supported(x, axis if isinstance(axis, int) else -2):
             return norm_ops.layer_norm(x, gain, bias, axis=axis, eps=eps)
-        return layer_norm_fwd(x.contiguous(), gain, bias, eps)
+        return _LayerNormKernel.apply(x.contiguous(), gain, bias, float(eps))
 
     return layer_norm
 
@@ -330,6 +368,60 @@ def flash_attention_fwd(q, k, v, causal: bool = False
     return o, lse
 
 
+def flash_attention_bwd(q, k, v, o, lse, ct, causal: bool = False):
+    """The flash backward from the saved ``(o, lse)``, composed torch
+    after ``_flash_bwd_blockwise`` (pallas_kernels.py:375-409): fp32
+    throughout, ``delta = sum(ct * o)``, then a loop over k blocks of
+    256 (the last one ragged, as the kernel takes any Tk) that
+    recomputes ``p = exp(q.k * scale - lse)`` under the causal mask, so
+    the [Tq, Tk] scores never materialise. Returns (dq, dk, dv) in the
+    dtypes of q, k, v, laid out [B, T, H, D]."""
+    D = q.shape[-1]
+    Tq, Tk = q.shape[1], k.shape[1]
+    scale = 1.0 / math.sqrt(D)
+    qf, kf, vf, of, cf = (t.float().permute(0, 2, 1, 3)
+                          for t in (q, k, v, o, ct))      # [B,H,T,D]
+    delta = (cf * of).sum(dim=-1, keepdim=True)           # [B,H,Tq,1]
+    lse = lse.float()[..., None]
+    rows = torch.arange(Tq, device=q.device)[:, None]
+    dq = torch.zeros_like(qf)
+    dks, dvs = [], []
+    bk = _FLASH_BWD_K
+    for k0 in range(0, Tk, bk):
+        kj, vj = kf[:, :, k0:k0 + bk], vf[:, :, k0:k0 + bk]
+        s = (qf @ kj.transpose(-1, -2)) * scale
+        if causal:
+            cols = k0 + torch.arange(kj.shape[2], device=q.device)[None, :]
+            s = s.masked_fill(cols > rows, -math.inf)
+        p = torch.exp(s - lse)                            # [B,H,Tq,bk]
+        dvs.append(p.transpose(-1, -2) @ cf)
+        ds = p * (cf @ vj.transpose(-1, -2) - delta)
+        dq = dq + (ds @ kj) * scale
+        dks.append((ds.transpose(-1, -2) @ qf) * scale)
+    dk, dv = torch.cat(dks, dim=2), torch.cat(dvs, dim=2)
+    return tuple(g.permute(0, 2, 1, 3).to(t.dtype)
+                 for g, t in ((dq, q), (dk, k), (dv, v)))
+
+
+class _FlashAttentionKernel(torch.autograd.Function):
+    """The kernel forward, saving ``(q, k, v, o, lse)`` as the JAX custom
+    VJP does (pallas_kernels.py:452-467); the backward is
+    :func:`flash_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o, lse = flash_attention_fwd(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, ct):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, ct, ctx.causal)
+        return dq, dk, dv, None
+
+
 def flash_supported(q, k) -> bool:
     """Calls the flash kernel takes: fp32/bf16 q, k, v of one dtype and
     D in {64, 128, 192, 256} (the JAX gate's D % 64 == 0, D <= 256), any
@@ -358,7 +450,7 @@ def make_flash_attention_override():
             k = k.contiguous()
         if v.stride(-1) != 1:
             v = v.contiguous()
-        return flash_attention_fwd(q, k, v, bool(is_causal))[0]
+        return _FlashAttentionKernel.apply(q, k, v, bool(is_causal))
 
     return flash_attention
 
@@ -479,6 +571,86 @@ def make_scale_shift_act_override():
     return scale_shift_act
 
 
+# ---------------------------------------------------------------- softmax
+def softmax_plain(x2d):
+    """The kernel's function in plain PyTorch: the row read as fp32, its
+    max subtracted, ``exp``, divided by the fp32 row sum, cast back to
+    x's dtype (NaN in a row gives a NaN row; a row of -inf gives NaN)."""
+    x32 = x2d.float()
+    e = torch.exp(x32 - x32.amax(dim=-1, keepdim=True))
+    return (e / e.sum(dim=-1, keepdim=True)).to(x2d.dtype)
+
+
+def softmax_fwd(x2d):
+    """Row softmax of x [N, D] (fp32/bf16, contiguous, D <= 12288)."""
+    if x2d.device.type == "cpu":
+        _bump(PLAIN_CALLS, "softmax")
+        return softmax_plain(x2d)
+    if x2d.device.type != "cuda":
+        raise RuntimeError(f"softmax: no kernel for device {x2d.device}")
+    if x2d.dim() != 2 or x2d.dtype not in _DTYPE_CODE:
+        raise ValueError(f"softmax: want a 2-D fp32/bf16 tensor, got "
+                         f"{tuple(x2d.shape)} {x2d.dtype}")
+    n, d = x2d.shape
+    if not 1 <= d <= _SOFTMAX_MAX_D or n < 1:
+        raise ValueError(f"softmax: shape {tuple(x2d.shape)} outside "
+                         f"1 <= D <= {_SOFTMAX_MAX_D}, N >= 1")
+    if not x2d.is_contiguous():
+        raise ValueError("softmax: x must be contiguous")
+    y = torch.empty_like(x2d)
+    lib = _lib("softmax")
+    with torch.cuda.device(x2d.device):
+        rc = lib.dl4j_softmax_fwd(x2d.data_ptr(), y.data_ptr(), n, d,
+                                  _DTYPE_CODE[x2d.dtype], _stream(x2d.device))
+    _check_launch("softmax", rc)
+    _bump(LAUNCHES, "softmax")
+    return y
+
+
+class _SoftmaxKernel(torch.autograd.Function):
+    """The kernel forward; the backward mirrors the JAX custom VJP
+    (pallas_kernels.py:165-169): ``y * (g - sum(g * y))`` in fp32, cast
+    to y's dtype."""
+
+    @staticmethod
+    def forward(ctx, x2d):
+        y = softmax_fwd(x2d)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, ct):
+        (y,) = ctx.saved_tensors
+        y32 = y.float()
+        g = ct.float()
+        return (y32 * (g - (g * y32).sum(dim=-1, keepdim=True))).to(y.dtype)
+
+
+def softmax_supported(x, axis: int = -1) -> bool:
+    """Calls the kernel takes: fp32/bf16, the softmax axis last, x
+    contiguous (any rank, viewed as [rows, D]), any row count and
+    1 <= D <= 12288. Wider than the JAX gate (``supported``: 2-D,
+    D % 128 == 0, N % 8 == 0, D <= 4096), which it contains."""
+    return (isinstance(axis, int) and x.dim() >= 1
+            and axis in (-1, x.dim() - 1) and x.dtype in _DTYPE_CODE
+            and x.numel() > 0 and 1 <= x.shape[-1] <= _SOFTMAX_MAX_D
+            and x.is_contiguous())
+
+
+def make_softmax_override():
+    """The ``softmax`` platform override (signature-compatible with the
+    generic registry op): the CUDA kernel on the ``[rows, D]`` view
+    inside the gate, the generic op outside it."""
+    from deeplearning4j_tpu_torch.ops import registry
+
+    def softmax(x, axis: int = -1):
+        if not softmax_supported(x, axis):
+            return registry.softmax(x, axis=axis)
+        return _SoftmaxKernel.apply(x.view(-1, x.shape[-1])).view(x.shape)
+
+    return softmax
+
+
 # ------------------------------------------------------------ installation
 def install_platform_overrides() -> None:
     """Register the CUDA kernels over their generic ops."""
@@ -489,6 +661,7 @@ def install_platform_overrides() -> None:
                                         make_flash_attention_override())
     registry.register_platform_override("scale_shift_act",
                                         make_scale_shift_act_override())
+    registry.register_platform_override("softmax", make_softmax_override())
 
 
 def uninstall_platform_overrides() -> None:

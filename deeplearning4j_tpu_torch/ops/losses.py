@@ -5,7 +5,9 @@
 ``p`` to ``[eps, 1]`` before the log and autograd differentiates through
 the clip and the softmax before it. It is not ``F.cross_entropy`` (log
 softmax of logits), which differs where ``p < eps``.
-All functions take ``(labels, predictions)``, like the reference.
+All functions take ``(labels, predictions)``, like the reference; the two
+logit losses take the log-softmax of the logits, as the JAX ones take
+``jax.nn.log_softmax``.
 """
 
 from __future__ import annotations
@@ -43,6 +45,21 @@ def mcxent(labels, preds, weights=None, mask=None):
     p = torch.clamp(preds, _EPS, 1.0)
     per = -labels * torch.log(p)
     return _reduce(_apply_weights(per, weights), mask)
+
+
+def softmax_cross_entropy_logits(labels, logits, weights=None, mask=None):
+    """MCXENT from logits (ref: libnd4j ``softmax_cross_entropy_loss``):
+    per example ``-sum_c y_c log_softmax(z)_c``."""
+    per = -labels * torch.log_softmax(logits, dim=-1)
+    return _reduce(_apply_weights(per, weights), mask)
+
+
+def sparse_mcxent(label_idx, logits, mask=None):
+    """Sparse MCXENT: integer class labels (ref: LossSparseMCXENT)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    idx = label_idx.long()[..., None]
+    per = -torch.take_along_dim(logp, idx, dim=-1)  # keeps an outputs axis
+    return _reduce(per, mask)
 
 
 LOSSES = {

@@ -54,10 +54,12 @@ def _scoped(fn, label):
     return wrapped
 
 
-def _group_of(event) -> str:
+def _group_of(event, scopes=_SCOPES) -> str:
+    """The first group whose needle names the event or one of its
+    callers, walking up from the launching op; "rest" if none does."""
     e = event
     while e is not None:
-        for group, needle in _SCOPES:
+        for group, needle in scopes:
             if needle in e.name:
                 return group
         e = e.cpu_parent

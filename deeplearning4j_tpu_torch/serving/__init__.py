@@ -29,4 +29,5 @@ from deeplearning4j_tpu_torch.serving.server import (CircuitBreaker,
                                                      InferenceFailedError,
                                                      ModelServer,
                                                      ServingRequest,
-                                                     resolve_forward)
+                                                     resolve_forward,
+                                                     samediff_forward)

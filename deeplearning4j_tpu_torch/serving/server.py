@@ -124,9 +124,40 @@ class InferenceFailedError(RuntimeError):
 
 
 # ------------------------------------------------------- forward adapters
+def samediff_forward(sd, outputs, input_name=None):
+    """Adapt a SameDiff graph to the callable-forward contract (ref:
+    ``sd.batchOutput().input(...).output(...).exec()``): returns
+    ``x -> tensor`` (one output) or ``x -> tuple`` (several). ``outputs``
+    are SDVariables or names; ``input_name`` defaults to the graph's
+    single placeholder (a graph with several must name it)."""
+    names = [o.name if hasattr(o, "name") else str(o) for o in outputs]
+    if not names:
+        raise ValueError("samediff_forward needs at least one output name")
+    if input_name is None:
+        phs = list(getattr(sd, "_placeholders", {}))
+        if len(phs) != 1:
+            raise ValueError(
+                f"SameDiff graph has {len(phs)} placeholders ({phs}) — "
+                "pass input_name= to pick the request-features one")
+        input_name = phs[0]
+
+    def forward(x):
+        out = sd.output({input_name: x}, names)
+        if len(names) == 1:
+            return out[names[0]]
+        return tuple(out[n] for n in names)
+    return forward
+
+
 def resolve_forward(model):
     """The server's model contract: anything with ``.output(x)``, or any
-    plain callable ``x -> predictions`` (e.g. ``TransformerLM.logits``)."""
+    plain callable ``x -> predictions`` (e.g. ``TransformerLM.logits``).
+    SameDiff graphs need :func:`samediff_forward` because their
+    ``output`` wants ``(placeholders, output_names)``, not features."""
+    if hasattr(model, "batchOutput") and hasattr(model, "_placeholders"):
+        raise TypeError(
+            "a SameDiff graph's output() takes (placeholders, outputs) — "
+            "wrap it: ModelServer(samediff_forward(sd, ['out']), ...)")
     out = getattr(model, "output", None)
     if callable(out):
         return out
@@ -134,7 +165,8 @@ def resolve_forward(model):
         return model
     raise TypeError(
         f"cannot serve {type(model).__name__}: pass a model exposing "
-        "output(x) or any callable x -> predictions")
+        "output(x), samediff_forward(sd, outputs), or any callable "
+        "x -> predictions")
 
 
 def _argmax(y):

@@ -1,6 +1,9 @@
 """Updaters (the slice's subset of ``deeplearning4j_tpu/train/updaters.py``):
-``IUpdater``, ``Sgd`` and ``Adam``, plus the gradient-normalization
-helpers the train step applies before them.
+``IUpdater``, ``Sgd``, ``Adam`` and ``AdamW``, the gradient-normalization
+helpers the train step applies before them, and L1/L2 regularization.
+``to_config`` / ``from_config`` write and read the JAX package's JSON
+(``{"@class": "Adam", "learning_rate": {...}, ...}``), so a
+``TrainingConfig`` saved by either package loads in the other.
 
 Same contract as the JAX package: ``apply(grad, state, lr, t)`` returns
 ``(update, new_state)`` and the caller SUBTRACTS ``update`` from the
@@ -17,7 +20,7 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.train.schedules import resolve
+from deeplearning4j_tpu_torch.train.schedules import ISchedule, resolve
 
 State = Dict[str, Any]
 
@@ -42,6 +45,26 @@ class IUpdater:
 
     def apply(self, grad, state: State, lr, t) -> Tuple[torch.Tensor, State]:
         raise NotImplementedError
+
+    def to_config(self):
+        d = {"@class": type(self).__name__}
+        for k, v in self.__dict__.items():
+            d[k] = v.to_config() if isinstance(v, ISchedule) else v
+        return d
+
+    @staticmethod
+    def from_config(d):
+        d = dict(d)
+        name = d.pop("@class")
+        if name not in UPDATERS:
+            raise ValueError(f"updater {name!r} is not ported (known: "
+                             f"{sorted(UPDATERS)})")
+        obj = UPDATERS[name].__new__(UPDATERS[name])
+        for k, v in d.items():
+            if k == "learning_rate" and isinstance(v, dict):
+                v = ISchedule.from_config(v)
+            setattr(obj, k, v)
+        return obj
 
     def __repr__(self):
         return f"{type(self).__name__}({self.__dict__})"
@@ -82,6 +105,23 @@ class Adam(IUpdater):
         return update, {"m": m, "v": v}
 
 
+class AdamW(Adam):
+    """Adam + decoupled weight decay (ref: AdamW). The trainer adds
+    ``weight_decay_update`` because it needs the param value."""
+
+    def __init__(self, learning_rate=None, beta1: float = 0.9,
+                 beta2: float = 0.999, epsilon: float = 1e-8,
+                 weight_decay: float = 0.0):
+        super().__init__(learning_rate, beta1, beta2, epsilon)
+        self.weight_decay = weight_decay
+
+    def weight_decay_update(self, param, lr):
+        return lr * self.weight_decay * param
+
+
+UPDATERS = {c.__name__: c for c in (Sgd, Adam, AdamW)}
+
+
 def clip_by_value(grads: List[torch.Tensor], clip: float):
     """ref: GradientNormalization.ClipElementWiseAbsoluteValue."""
     return [torch.clamp(g, -clip, clip) for g in grads]
@@ -108,3 +148,12 @@ def renormalize_l2(grads: List[torch.Tensor]):
     """ref: GradientNormalization.RenormalizeL2PerLayer — divide by norm."""
     return [g / torch.clamp_min(torch.sqrt(torch.sum(g.square())), 1e-12)
             for g in grads]
+
+
+def apply_regularization(param, grad, l1: float = 0.0, l2: float = 0.0):
+    """ref semantics: L1/L2 fold into the gradient BEFORE the updater."""
+    if l2 > 0:
+        grad = grad + l2 * param
+    if l1 > 0:
+        grad = grad + l1 * torch.sign(param)
+    return grad

@@ -106,9 +106,9 @@ def test_served_tiny_lm_launches_the_kernels(dev):
             n_fwd = sv.stats()["batches"]
         assert ck.LAUNCHES == {"layer_norm": 5 * n_fwd,
                                "flash_attention": 2 * n_fwd,
-                               "scale_shift_act": 0}
+                               "scale_shift_act": 0, "softmax": 0}
         assert ck.PLAIN_CALLS == {"layer_norm": 0, "flash_attention": 0,
-                                  "scale_shift_act": 0}
+                                  "scale_shift_act": 0, "softmax": 0}
         want = lm.logits(tok).argmax(-1).to(torch.int32).cpu().numpy()
         assert (got == want).mean() >= 0.99
     finally:
@@ -152,3 +152,58 @@ def test_scale_shift_act_kernel_keeps_nan(dev):
         y = ck.scale_shift_act_fwd(x, one, zero, alpha)
         assert bool(torch.isnan(y[::7, ::3]).all())
         assert int(torch.isnan(y).sum()) == int(torch.isnan(x).sum())
+
+
+# softmax: fp32 rtol 1e-5 / atol 1e-6 (tests/test_pallas.py); bf16 one ulp
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(49152, 128), (32, 2), (100, 100),
+                                   (64, 1000), (16, 4096), (8, 5000)])
+def test_softmax_kernel_matches_plain(dev, dtype, shape):
+    x = _randn(dev, *shape, dtype=dtype, seed=14) * 4
+    ck.reset_counts()
+    y = ck.softmax_fwd(x)
+    assert ck.LAUNCHES["softmax"] == 1 and y.dtype == dtype
+    rtol, atol = (1e-5, 1e-6) if dtype == torch.float32 else (2.0 ** -7,
+                                                              1e-6)
+    torch.testing.assert_close(y, ck.softmax_plain(x), rtol=rtol, atol=atol)
+
+
+def test_softmax_kernel_nan_and_minus_inf_rows(dev):
+    for d in (128, 2000):              # the warp and the block kernels
+        x = _randn(dev, 4, d, seed=15)
+        x[1, 3] = float("nan")
+        x[2] = -float("inf")
+        y = ck.softmax_fwd(x)
+        assert bool(torch.isnan(y[1:3]).all())
+        assert not bool(torch.isnan(y[0]).any()) and not bool(
+            torch.isnan(y[3]).any())
+
+
+def test_override_gradients_flow_on_the_card(dev):
+    ck.install_platform_overrides()
+    try:
+        from deeplearning4j_tpu_torch.ops import registry
+        x = (_randn(dev, 64, 768, seed=16) * 2).requires_grad_(True)
+        g = (_randn(dev, 768, seed=17) + 1).requires_grad_(True)
+        b = _randn(dev, 768, seed=18).requires_grad_(True)
+        w = _randn(dev, 64, 768, seed=19)
+        got = torch.autograd.grad(
+            (registry.get("layer_norm")(x, g, b) * w).sum(), (x, g, b))
+        want = torch.autograd.grad(
+            (ck.layer_norm_plain(x, g, b) * w).sum(), (x, g, b))
+        for a, e in zip(got, want):
+            torch.testing.assert_close(a, e, rtol=2e-4, atol=2e-4)
+        q, k, v = (_randn(dev, 2, 200, 3, 64, seed=s).requires_grad_(True)
+                   for s in (20, 21, 22))
+        w = _randn(dev, 2, 200, 3, 64, seed=23)
+        for causal in (False, True):
+            got = torch.autograd.grad(
+                (registry.get("flash_attention")(q, k, v, is_causal=causal)
+                 * w).sum(), (q, k, v))
+            want = torch.autograd.grad(
+                (ck.flash_attention_plain(q, k, v, causal)[0] * w).sum(),
+                (q, k, v))
+            for a, e in zip(got, want):
+                torch.testing.assert_close(a, e, rtol=2e-4, atol=2e-4)
+    finally:
+        ck.uninstall_platform_overrides()

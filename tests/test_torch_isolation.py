@@ -62,6 +62,8 @@ def _run(code, cwd):
 def test_import_leaves_jax_unloaded():
     r = _run("import sys, deeplearning4j_tpu_torch.serving, "
              "deeplearning4j_tpu_torch.models.transformer, "
+             "deeplearning4j_tpu_torch.autodiff, "
+             "deeplearning4j_tpu_torch.profile_samediff, "
              "deeplearning4j_tpu_torch.ops.cuda_kernels; "
              "print(sorted(m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'jaxlib', 'deeplearning4j_tpu')))", ROOT)
