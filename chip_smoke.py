@@ -9,20 +9,30 @@ Phases (each one fails the run with a non-zero exit):
 
 1. Environment: card name and power limit, torch/CUDA versions, and the
    build of every CUDA kernel from ``deeplearning4j_tpu_torch/ops/csrc``
-   (one ``nvcc`` per source, all started together).
+   (one ``nvcc`` per source, all started together), with the registers and
+   spills ``ptxas`` reports for the flash-attention and layer-norm kernels.
 2. Each kernel against its plain PyTorch version on the card, at the
-   listed shapes, with the tolerances below; then each one timed (CUDA
+   listed shapes, with the tolerances below: layer norm on both routes
+   (a warp per row up to D=1024, a block above; 16-byte and scalar loads;
+   row counts off the block's 8), flash attention on both routes (the
+   tensor-core route for bf16 at every D, causal or not, T in 1, 63, 64,
+   65, 200, 512, Tq != Tk, the strided thirds of a QKV product; the
+   CUDA-core route for fp32 and an unaligned bf16 view), each call's route
+   read from ``FLASH_ROUTES``; then each one timed (CUDA
    events, median of 30 launches, L2 flushed before each and each queued
    behind a short device spin, so the host's launch time is not counted)
    beside its
    plain version, its roofline bound, and one PyTorch library call that
-   computes the same function (a yardstick only; the port never calls it).
+   computes the same function (a yardstick only; the port never calls it);
+   layer norm and flash attention at T=128 and T=512 (B=32).
 3. Serve BERT-base (full width, bf16, random weights from a seed) through
    ``ModelServer(lm.logits, head="argmax")`` with the kernels installed:
    warmup, then 64 requests of 1-8 rows at T=128 and T=512 from four
    threads. Every request must resolve exactly once, agree with a direct
    ``lm.logits`` on >= 99.9% of tokens, and the launch counters must read
-   12 flash-attention and 25 layer-norm launches per dispatched forward.
+   12 flash-attention and 25 layer-norm launches per dispatched forward,
+   every flash launch on the tensor-core route (also checked on one
+   direct forward at T=128 and one at T=512).
    One forward with the kernels is held against the same forward on the
    plain versions.
 4. Train ResNet-50 (full width, 1000 classes, 3x224x224, random weights
@@ -159,6 +169,10 @@ def main() -> None:
     paths = ck.build()
     log(f"kernel build: {time.perf_counter() - t0:.2f} s for "
         f"{', '.join(p.name for p in paths.values())}")
+    for name in ("flash_attention", "layer_norm"):
+        for fn, regs, st, ld in ck.ptxas_report(name):
+            log(f"ptxas {name}: {fn}: {regs} registers, spill stores {st} B, "
+                f"spill loads {ld} B")
 
     # ------------------------------------------- 2. kernels against plain
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -197,8 +211,12 @@ def main() -> None:
             ts.append(a.elapsed_time(b))
         return float(np.median(ts))
 
-    # the serving path's LN rows are B*T for T in (128, 512), B <= 32
-    for n, d in ((4096, 768), (16384, 768), (1000, 1024), (4093, 768)):
+    # the serving path's LN rows are B*T for T in (128, 512), B <= 32;
+    # then both routes (a warp per row up to D=1024, a block above), 16-byte
+    # and scalar loads, and row counts off the 8 rows of a warp-route block
+    ln_cases = [(4096, 768), (16384, 768), (1000, 1024), (4093, 768)]
+    ln_cases += [(1001, d) for d in (33, 768, 1000, 1024, 1025, 4096, 8192)]
+    for n, d in ln_cases:
         for dt in (torch.float32, torch.bfloat16):
             x = rand(n, d, dtype=dt, scale=2.0, shift=0.5)
             g, b = rand(d, scale=0.5, shift=1.0), rand(d, scale=0.1)
@@ -214,58 +232,104 @@ def main() -> None:
     flash_cases.append((32, 512, 12, 64, torch.bfloat16, False))
     flash_cases.append((2, 256, 6, 128, torch.bfloat16, False))
     flash_cases.append((2, 256, 6, 128, torch.float32, True))
+    # the tensor-core route's edges: every D, causal or not, ragged T
+    flash_cases += [(2, T, 3, D, torch.bfloat16, c) for D in (64, 128, 192, 256)
+                    for c in (False, True) for T in (1, 63, 64, 65, 200, 512)]
+
+    def check_flash(name, q, k, v, causal, route):
+        """The wrapper's call, which must take ``route``, against the plain
+        version."""
+        ck.reset_counts()
+        o, lse = ck.flash_attention_fwd(q, k, v, causal)
+        if ck.FLASH_ROUTES[route] != 1:
+            fail(f"{name}: took {ck.FLASH_ROUTES}, want the {route} route")
+        torch.cuda.synchronize()
+        op, lp = ck.flash_attention_plain(q.contiguous(), k.contiguous(),
+                                          v.contiguous(), causal)
+        e = check(name, o, op, q.dtype)
+        el = check(name + " lse", lse, lp, q.dtype, atol=1e-5)
+        log(f"{name} [{route}]: max|err| o {e:.3g}, lse {el:.3g}")
+        return e
+
     for B, T, H, D, dt, causal in flash_cases:
         q, k, v = (rand(B, T, H, D, dtype=dt) for _ in range(3))
-        o, lse = ck.flash_attention_fwd(q, k, v, causal)
-        torch.cuda.synchronize()
-        op, lp = ck.flash_attention_plain(q, k, v, causal)
-        name = f"flash_attention B={B} T={T} H={H} D={D} {dt} causal={causal}"
-        e = check(name, o, op, dt)
-        el = check(name + " lse", lse, lp, dt, atol=1e-5)
-        log(f"{name}: max|err| o {e:.3g}, lse {el:.3g}")
+        check_flash(f"flash_attention B={B} T={T} H={H} D={D} {dt} "
+                    f"causal={causal}", q, k, v, causal,
+                    "tensor_core" if dt == torch.bfloat16 else "cuda_core")
+    for tq, tk in ((100, 300), (300, 100)):
+        for causal in (False, True):
+            q = rand(2, tq, 3, 64, dtype=torch.bfloat16)
+            k, v = (rand(2, tk, 3, 64, dtype=torch.bfloat16) for _ in range(2))
+            check_flash(f"flash_attention Tq={tq} Tk={tk} causal={causal}",
+                        q, k, v, causal, "tensor_core")
+    # q, k, v as the QKV projection leaves them: thirds of one [B, T, 3E]
+    qkv = rand(2, 200, 3 * 12 * 64, dtype=torch.bfloat16)
+    q, k, v = (t.reshape(2, 200, 12, 64) for t in qkv.split(768, dim=-1))
+    check_flash("flash_attention strided thirds", q, k, v, False,
+                "tensor_core")
+    # an unaligned bf16 view (2-byte offset, odd t stride): the CUDA cores
+    buf = rand(2, 200, 3 * 64 + 1, dtype=torch.bfloat16)
+    q = buf[..., 1:].reshape(2, 200, 3, 64)
+    check_flash("flash_attention unaligned view", q, q, q, True, "cuda_core")
 
-    # timing at the serving path's shapes: LN on [B*T, E] fp32 with
-    # B=32, T=128; flash on B=32, T=128, H=12, D=64 bf16, non-causal
-    N, E = 32 * 128, 768
-    x = rand(N, E, scale=2.0, shift=0.5)
-    g, b = rand(E, scale=0.5, shift=1.0), rand(E, scale=0.1)
-    ln_err = check("layer_norm main shape", ck.layer_norm_fwd(x, g, b, 1e-5),
-                   ck.layer_norm_plain(x, g, b, 1e-5), torch.float32)
-    ln = {
-        "name": "layer_norm", "route": "cuda",
-        "source": "deeplearning4j_tpu_torch/ops/csrc/layer_norm.cu",
-        "replaces": "deeplearning4j_tpu/ops/pallas_kernels.py:72",
-        "shape": f"x [{N}, {E}] float32",
-        "max_abs_err": ln_err,
-        "ms": time_ms(lambda: ck.layer_norm_fwd(x, g, b, 1e-5)),
-        "plain_ms": time_ms(lambda: ck.layer_norm_plain(x, g, b, 1e-5)),
-        "library_ms": time_ms(lambda: F.layer_norm(x, (E,), g, b, 1e-5)),
-    }
-    ln_bytes = 2 * N * E * 4 + 2 * E * 4
-    ln_ops = 8 * N * E
-    ln.update(bound(ln_bytes, ln_ops, FP32_FLOPS))
+    def timed_row(shape, err, kernel, plain, library, nbytes, ops, peak):
+        row = {"shape": shape, "max_abs_err": err, "ms": time_ms(kernel),
+               "plain_ms": time_ms(plain), "library_ms": time_ms(library)}
+        row.update(bound(nbytes, ops, peak))
+        return row
 
-    B, T, H, D = 32, 128, 12, 64
-    q, k, v = (rand(B, T, H, D, dtype=torch.bfloat16) for _ in range(3))
-    fa_err = check("flash_attention main shape",
-                   ck.flash_attention_fwd(q, k, v, False)[0],
-                   ck.flash_attention_plain(q, k, v, False)[0],
-                   torch.bfloat16)
-    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-    fa = {
-        "name": "flash_attention", "route": "cuda",
-        "source": "deeplearning4j_tpu_torch/ops/csrc/flash_attention.cu",
-        "replaces": "deeplearning4j_tpu/ops/pallas_kernels.py:341",
-        "shape": f"q, k, v [{B}, {T}, {H}, {D}] bfloat16, non-causal",
-        "max_abs_err": fa_err,
-        "ms": time_ms(lambda: ck.flash_attention_fwd(q, k, v, False)),
-        "plain_ms": time_ms(lambda: ck.flash_attention_plain(q, k, v, False)),
-        "library_ms": time_ms(
-            lambda: F.scaled_dot_product_attention(qh, kh, vh)),
-    }
-    fa_bytes = 4 * B * T * H * D * 2 + B * H * T * 4
-    fa_ops = 4 * B * H * T * T * D
-    fa.update(bound(fa_bytes, fa_ops, BF16_FLOPS))
+    # timing at the serving path's shapes, B=32 and T in (128, 512): LN on
+    # [B*T, E] fp32; flash on H=12, D=64 bf16, non-causal (the first row
+    # of each is the kernels line's; the T=512 row goes under other_shapes)
+    ln_rows = []
+    for N in (32 * 128, 32 * 512):
+        E = 768
+        x = rand(N, E, scale=2.0, shift=0.5)
+        g, b = rand(E, scale=0.5, shift=1.0), rand(E, scale=0.1)
+        err = check(f"layer_norm [{N}, {E}]", ck.layer_norm_fwd(x, g, b, 1e-5),
+                    ck.layer_norm_plain(x, g, b, 1e-5), torch.float32)
+        ln_rows.append(timed_row(
+            f"x [{N}, {E}] float32", err,
+            lambda: ck.layer_norm_fwd(x, g, b, 1e-5),
+            lambda: ck.layer_norm_plain(x, g, b, 1e-5),
+            lambda: F.layer_norm(x, (E,), g, b, 1e-5),
+            2 * N * E * 4 + 2 * E * 4, 8 * N * E, FP32_FLOPS))
+        del x
+    ln = {"name": "layer_norm", "route": "cuda",
+          "source": "deeplearning4j_tpu_torch/ops/csrc/layer_norm.cu",
+          "replaces": "deeplearning4j_tpu/ops/pallas_kernels.py:72",
+          **ln_rows[0], "other_shapes": ln_rows[1:]}
+
+    fa_rows = []
+    for T in (128, 512):
+        B, H, D = 32, 12, 64
+        q, k, v = (rand(B, T, H, D, dtype=torch.bfloat16) for _ in range(3))
+        ck.reset_counts()
+        err = check(f"flash_attention [{B}, {T}, {H}, {D}]",
+                    ck.flash_attention_fwd(q, k, v, False)[0],
+                    ck.flash_attention_plain(q, k, v, False)[0],
+                    torch.bfloat16)
+        if ck.FLASH_ROUTES["tensor_core"] != 1:
+            fail(f"flash at the main shape took {ck.FLASH_ROUTES}")
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        fa_rows.append(timed_row(
+            f"q, k, v [{B}, {T}, {H}, {D}] bfloat16, non-causal", err,
+            lambda: ck.flash_attention_fwd(q, k, v, False),
+            lambda: ck.flash_attention_plain(q, k, v, False),
+            lambda: F.scaled_dot_product_attention(qh, kh, vh),
+            4 * B * T * H * D * 2 + B * H * T * 4, 4 * B * H * T * T * D,
+            BF16_FLOPS))
+        del q, k, v, qh, kh, vh
+    fa = {"name": "flash_attention", "route": "cuda",
+          "source": "deeplearning4j_tpu_torch/ops/csrc/flash_attention.cu",
+          "replaces": "deeplearning4j_tpu/ops/pallas_kernels.py:341",
+          **fa_rows[0], "other_shapes": fa_rows[1:]}
+    for kr in (ln, fa):
+        for row in [kr] + kr["other_shapes"]:
+            log(f"{kr['name']} at {row['shape']}: kernel {row['ms']:.4f} ms, "
+                f"plain {row['plain_ms']:.4f} ms, library "
+                f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']}) [{smi}]")
 
     # scale_shift_act at ResNet-50's epilogue shapes at B=64 (stem, then
     # the fused BNs of stages 0-3), a ragged row count, and C % 8 != 0
@@ -441,7 +505,7 @@ def main() -> None:
                        atol=2e-4) for n, a, b in zip("qkv", got, want)]
     log(f"gradients through the layer_norm and flash overrides equal "
         f"autograd through the plain versions: max|err| {max(errs):.3g}")
-    for kr in (ln, fa, ssa, sm):
+    for kr in (ssa, sm):
         log(f"{kr['name']} at {kr['shape']}: kernel {kr['ms']:.4f} ms, "
             f"plain {kr['plain_ms']:.4f} ms, library {kr['library_ms']:.4f} "
             f"ms, bound {kr['bound_ms']:.4f} ms ({kr['bound_by']}) [{smi}]")
@@ -472,6 +536,7 @@ def main() -> None:
                    for i in range(64)]
         handles, served, wall, launches, plain, n_fwd = serve_burst(
             server, reqs_in)
+        routes = dict(ck.FLASH_ROUTES)
     finally:
         server.close()
 
@@ -484,7 +549,11 @@ def main() -> None:
             or any(plain.values()):
         fail(f"launch counts {launches} (plain {plain}) over {n_fwd} "
              "forwards: want 12 flash_attention and 25 layer_norm each")
-    log(f"served 64 requests in {n_fwd} forwards; launches {launches}")
+    if routes != {"tensor_core": 12 * n_fwd, "cuda_core": 0}:
+        fail(f"flash routes {routes} over {n_fwd} forwards: want all "
+             "12 a forward on the tensor cores")
+    log(f"served 64 requests in {n_fwd} forwards; launches {launches}, "
+        f"flash routes {routes}")
     log_latency(handles, reqs_in, wall, smi)
 
     agree = total = 0
@@ -499,6 +568,15 @@ def main() -> None:
         f"tokens ({frac:.5f})")
     if frac < 0.999:
         fail(f"served/direct argmax agreement {frac:.5f} < 0.999")
+    for T in (128, 512):
+        ck.reset_counts()
+        with torch.inference_mode():
+            lm.logits(rng.integers(0, cfg.vocab_size, (2, T), dtype=np.int32))
+        if ck.FLASH_ROUTES != {"tensor_core": 12, "cuda_core": 0}:
+            fail(f"a direct forward at T={T} took flash routes "
+                 f"{ck.FLASH_ROUTES}: want 12 on the tensor cores")
+    log("direct forwards at T=128 and T=512: 12 flash launches each, all "
+        "on the tensor cores")
 
     # the same forward with the plain versions of both kernels
     tok = reqs_in[0]
@@ -733,9 +811,10 @@ def main() -> None:
     ssa["launches"] = fit_launches["scale_shift_act"]
     sm["launches"] = sd_launches["softmax"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
+            "other_shapes")
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [{k: kr[k] for k in keys}
+    print(json.dumps({"kernels": [{k: kr[k] for k in keys if k in kr}
                                   for kr in (ln, fa, ssa, sm)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,12 @@ each Pallas kernel on the path becomes a CUDA C++ kernel for Hopper
 
 - **Build.** At first use every ``csrc/*.cu`` is compiled by ``nvcc``
   (one process per source, all started together) into a shared library
-  with a plain C interface, keyed by a hash of the source and the flags,
-  under ``deeplearning4j_tpu_torch/_build/``; a later process reuses it.
-  A missing ``nvcc`` or a failed build raises.
+  with a plain C interface, keyed by a hash of the source and the flags
+  (each kernel is one self-contained ``.cu``), under
+  ``deeplearning4j_tpu_torch/_build/``; a later process reuses it. The
+  compiler's output (``-Xptxas -v``: registers, shared memory and spills
+  of every kernel) is kept beside the library and read by
+  :func:`ptxas_report`. A missing ``nvcc`` or a failed build raises.
 - **Binding.** ``ctypes``; every pointer and the stream
   (``torch.cuda.current_stream().cuda_stream``) is a ``c_void_p``. Each
   launcher returns ``cudaGetLastError()`` and the wrapper raises on
@@ -20,11 +23,15 @@ each Pallas kernel on the path becomes a CUDA C++ kernel for Hopper
   on the current stream. A tensor on the CPU takes the kernel's plain
   PyTorch version (``*_plain``) instead; there is no fallback from a CUDA
   tensor. ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` counts
-  plain-version calls made by the wrappers.
+  plain-version calls made by the wrappers; ``FLASH_ROUTES`` splits the
+  flash launches by route (:func:`flash_route`).
 - **Gates.** ``supported`` / ``flash_supported`` /
   ``scale_shift_act_supported`` / ``softmax_supported`` decide, as in the
   JAX package, which calls the kernels take; masked attention and
-  shapes/dtypes outside the gates go to the generic ops.
+  shapes/dtypes outside the gates go to the generic ops. Inside the flash
+  gate, :func:`flash_route` picks the tensor-core kernel (bf16 whose
+  16-byte copies align) or the CUDA-core kernel (the rest) before launch;
+  a launch that fails raises and is never retried on the other route.
 
 Gradients: each override runs its kernel under a
 ``torch.autograd.Function`` whose backward is composed torch, as the JAX
@@ -40,11 +47,12 @@ import ctypes
 import hashlib
 import math
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -54,20 +62,22 @@ from deeplearning4j_tpu_torch.ops import normalization as norm_ops
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 KERNELS = ("layer_norm", "flash_attention", "scale_shift_act", "softmax")
 
 #: kernel launches made by the wrappers (CUDA tensors only)
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 #: plain-version calls made by the wrappers (CPU tensors only)
 PLAIN_CALLS: Dict[str, int] = {name: 0 for name in KERNELS}
+#: flash-attention launches by route (``LAUNCHES`` counts them all)
+FLASH_ROUTES: Dict[str, int] = {"tensor_core": 0, "cuda_core": 0}
 _COUNT_LOCK = threading.Lock()
 
 _LIB_LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_LN_MAX_D = 8192           # the row is staged in 32 KB of shared memory
+_LN_MAX_D = 8192           # above 1024 a row is staged in 32 KB of smem
 _FLASH_D = (64, 128, 192, 256)
 _SSA_MAX_C = 4096          # the JAX gate's bound (epilogue_supported)
 _SOFTMAX_MAX_D = 12288     # a staged row in 48 KB of shared memory
@@ -79,6 +89,8 @@ def reset_counts() -> None:
         for name in KERNELS:
             LAUNCHES[name] = 0
             PLAIN_CALLS[name] = 0
+        for route in FLASH_ROUTES:
+            FLASH_ROUTES[route] = 0
 
 
 def _bump(counter: Dict[str, int], name: str) -> None:
@@ -132,11 +144,37 @@ def build() -> Dict[str, Path]:
                               f"{log.decode(errors='replace')}")
                 tmp.unlink(missing_ok=True)
             else:
+                out.with_suffix(".log").write_bytes(log)
                 os.replace(tmp, out)
         if failed:
             raise RuntimeError("CUDA kernel build failed:\n"
                                + "\n".join(failed))
     return paths
+
+
+def ptxas_report(name: str) -> List[Tuple[str, int, int, int]]:
+    """(kernel, registers, spill-store bytes, spill-load bytes) of every
+    kernel in ``name``'s library, from the ``-Xptxas -v`` output kept at
+    build time (empty if the library was built before that was kept)."""
+    log = _lib_path(name).with_suffix(".log")
+    if not log.exists():
+        return []
+    rows, fn, spills = [], None, (0, 0)
+    for line in log.read_text(errors="replace").splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            rows.append((fn, int(m.group(1))) + spills)
+            fn, spills = None, (0, 0)
+    return rows
 
 
 def _lib(name: str) -> ctypes.CDLL:
@@ -155,11 +193,11 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_longlong
     if name == "layer_norm":
         fn = lib.dl4j_layer_norm_fwd
-        fn.argtypes = [P, P, P, P, I, I, F, I, P]
+        fn.argtypes = [P, P, P, P, LL, I, F, I, P]
     elif name == "flash_attention":
         fn = lib.dl4j_flash_attention_fwd
         fn.argtypes = [P, P, P, P, P, I, I, I, I, I,
-                       ctypes.POINTER(LL), F, I, I, P]
+                       ctypes.POINTER(LL), F, I, I, I, P]
     elif name == "scale_shift_act":
         fn = lib.dl4j_scale_shift_act_fwd
         fn.argtypes = [P, P, P, P, LL, I, F, I, I, P]
@@ -280,9 +318,30 @@ def make_layer_norm_override():
 
 
 # ------------------------------------------------------- flash attention
-def flash_k_tile(D: int) -> int:
-    """The kernel's k tile (``k_tile<D>`` in flash_attention.cu)."""
+def flash_k_tile(D: int, dtype: torch.dtype) -> int:
+    """The k tile of the route the kernel takes for head dim ``D`` and
+    ``dtype`` (``k_tile<D>`` in flash_attention.cu). Both routes use the
+    same tile for a D, so the plain version rounds P at the same running
+    max as whichever route the gate picks."""
     return 64 if D <= 128 else 32
+
+
+def flash_route(q, k, v) -> str:
+    """The kernel a call takes, chosen before launch: ``"tensor_core"``
+    for bf16 with every base pointer 16-byte aligned and the b, t, h
+    strides (of dims longer than 1) multiples of 8 elements, so every
+    16-byte ``cp.async`` chunk is aligned; ``"cuda_core"`` (the fp32-FMA
+    kernel) for fp32 and every other bf16 call. The output is allocated
+    contiguous by the wrapper and always qualifies."""
+    if q.dtype != torch.bfloat16:
+        return "cuda_core"
+    for t in (q, k, v):
+        if t.data_ptr() % 16:
+            return "cuda_core"
+        for dim in (0, 1, 2):
+            if t.shape[dim] > 1 and t.stride(dim) % 8:
+                return "cuda_core"
+    return "tensor_core"
 
 
 def flash_attention_plain(q, k, v, causal: bool = False
@@ -293,7 +352,7 @@ def flash_attention_plain(q, k, v, causal: bool = False
     lse fp32 [B,H,Tq])."""
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
-    bk = flash_k_tile(D)
+    bk = flash_k_tile(D, q.dtype)
     scale = float(torch.tensor(1.0 / math.sqrt(D), dtype=torch.float32))
     dev = q.device
     qf = q.float().permute(0, 2, 1, 3)                     # [B,H,Tq,D]
@@ -327,7 +386,7 @@ def flash_attention_fwd(q, k, v, causal: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """FlashAttention forward over q [B,Tq,H,D], k/v [B,Tk,H,D] (any
     strides with the last dim contiguous) -> (o [B,Tq,H,D], lse fp32
-    [B,H,Tq])."""
+    [B,H,Tq]), on the route :func:`flash_route` picks."""
     if q.device.type == "cpu":
         _bump(PLAIN_CALLS, "flash_attention")
         return flash_attention_plain(q, k, v, causal)
@@ -352,6 +411,7 @@ def flash_attention_fwd(q, k, v, causal: bool = False
         raise ValueError("flash_attention: empty input")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("flash_attention: the head dim must be contiguous")
+    route = flash_route(q, k, v)
     o = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 12)(
@@ -362,9 +422,11 @@ def flash_attention_fwd(q, k, v, causal: bool = False
         rc = lib.dl4j_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), B, H, Tq, Tk, D, strides, scale,
-            int(bool(causal)), _DTYPE_CODE[q.dtype], _stream(q.device))
+            int(bool(causal)), _DTYPE_CODE[q.dtype],
+            int(route == "tensor_core"), _stream(q.device))
     _check_launch("flash_attention", rc)
     _bump(LAUNCHES, "flash_attention")
+    _bump(FLASH_ROUTES, route)
     return o, lse
 
 

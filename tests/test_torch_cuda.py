@@ -44,8 +44,11 @@ def _tol(dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(1000, 768), (7, 33), (64, 4096)])
+@pytest.mark.parametrize("shape", [(1000, 768), (7, 33), (64, 4096)] + [
+    (1001, d) for d in (33, 768, 1000, 1024, 1025, 4096, 8192)])
 def test_layer_norm_kernel_matches_plain(dev, dtype, shape):
+    # a warp a row up to D=1024 (16-byte loads where D allows, scalar
+    # otherwise), a block a row above; N off the 8 rows of a warp block
     x = _randn(dev, *shape, dtype=dtype, seed=1) * 2 + 0.5
     g = _randn(dev, shape[1], seed=2)
     b = _randn(dev, shape[1], seed=3)
@@ -69,16 +72,53 @@ def test_flash_kernel_matches_plain(dev, causal, dtype, T, D):
     torch.testing.assert_close(lse, plse, rtol=0, atol=1e-5)
 
 
+def _flash_against_plain(q, k, v, causal, route):
+    """The wrapper's call takes ``route`` and matches the plain version."""
+    ck.reset_counts()
+    o, lse = ck.flash_attention_fwd(q, k, v, causal)
+    assert ck.FLASH_ROUTES == {"tensor_core": int(route == "tensor_core"),
+                               "cuda_core": int(route == "cuda_core")}
+    po, plse = ck.flash_attention_plain(q.contiguous(), k.contiguous(),
+                                        v.contiguous(), causal)
+    torch.testing.assert_close(o, po, rtol=_tol(q.dtype), atol=_tol(q.dtype))
+    torch.testing.assert_close(lse, plse, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 200, 512])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [64, 128, 192, 256])
+def test_flash_tensor_core_route_matches_plain(dev, D, causal, T):
+    q, k, v = (_randn(dev, 2, T, 3, D, dtype=torch.bfloat16, seed=s)
+               for s in (24, 25, 26))
+    _flash_against_plain(q, k, v, causal, "tensor_core")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("tq,tk", [(100, 300), (300, 100)])
+def test_flash_tensor_core_route_tq_ne_tk(dev, tq, tk, causal):
+    q = _randn(dev, 2, tq, 3, 64, dtype=torch.bfloat16, seed=27)
+    k, v = (_randn(dev, 2, tk, 3, 64, dtype=torch.bfloat16, seed=s)
+            for s in (28, 29))
+    _flash_against_plain(q, k, v, causal, "tensor_core")
+
+
 def test_flash_kernel_reads_strided_views(dev):
     # q, k, v as the QKV projection leaves them: thirds of one [B, T, 3E]
     B, T, H, D = 2, 96, 4, 64
     qkv = _randn(dev, B, T, 3 * H * D, dtype=torch.bfloat16, seed=7)
     q, k, v = (t.reshape(B, T, H, D) for t in qkv.split(H * D, dim=-1))
     assert not q.is_contiguous()
-    o, _ = ck.flash_attention_fwd(q, k, v)
-    po, _ = ck.flash_attention_plain(q.contiguous(), k.contiguous(),
-                                     v.contiguous())
-    torch.testing.assert_close(o, po, rtol=BF16_TOL, atol=BF16_TOL)
+    _flash_against_plain(q, k, v, False, "tensor_core")
+
+
+def test_flash_unaligned_bf16_takes_the_cuda_cores(dev):
+    # the last H*D columns of a [B, T, H*D + 1] buffer: 2-byte offset and
+    # an odd t stride, which the 16-byte copies cannot take
+    B, T, H, D = 2, 150, 3, 64
+    buf = _randn(dev, B, T, H * D + 1, dtype=torch.bfloat16, seed=30)
+    q = buf[..., 1:].reshape(B, T, H, D)
+    for causal in (False, True):
+        _flash_against_plain(q, q, q, causal, "cuda_core")
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -107,6 +147,7 @@ def test_served_tiny_lm_launches_the_kernels(dev):
         assert ck.LAUNCHES == {"layer_norm": 5 * n_fwd,
                                "flash_attention": 2 * n_fwd,
                                "scale_shift_act": 0, "softmax": 0}
+        assert ck.FLASH_ROUTES == {"tensor_core": 2 * n_fwd, "cuda_core": 0}
         assert ck.PLAIN_CALLS == {"layer_norm": 0, "flash_attention": 0,
                                   "scale_shift_act": 0, "softmax": 0}
         want = lm.logits(tok).argmax(-1).to(torch.int32).cpu().numpy()

@@ -166,6 +166,57 @@ class TestFlashAttention:
                                    atol=BF16_TOL)
 
     @pytest.mark.parametrize("causal", [False, True])
+    @pytest.mark.parametrize("D", [64, 128])
+    def test_plain_tensor_core_tile_matches_pallas_bf16(self, causal, D):
+        # the plain version at the k tile the tensor-core route takes for
+        # bf16 (P rounds to bf16 at that tile's running max)
+        assert ck.flash_k_tile(D, torch.bfloat16) == 64
+        q, k, v = _qkv(15, 2, 256, 2, D)
+        qb, kb, vb = (_t(a, torch.bfloat16) for a in (q, k, v))
+        o, lse = ck.flash_attention_plain(qb, kb, vb, causal)
+        want_o, want_lse = _pallas_flash(q, k, v, causal, jnp.bfloat16)
+        np.testing.assert_allclose(o.float().numpy(), want_o, rtol=BF16_TOL,
+                                   atol=BF16_TOL)
+        np.testing.assert_allclose(lse.numpy(), want_lse, rtol=BF16_TOL,
+                                   atol=BF16_TOL)
+
+    @pytest.mark.parametrize("case,route", [
+        ("contiguous", "tensor_core"), ("fp32", "cuda_core"),
+        ("qkv_thirds", "tensor_core"), ("two_byte_offset", "cuda_core"),
+        ("odd_t_stride", "cuda_core"), ("size_one_dims", "tensor_core")])
+    def test_route_gate(self, case, route):
+        # decided on strides and addresses alone, which CPU tensors have
+        B, T, H, D = 2, 40, 3, 64
+        if case == "contiguous":
+            q = torch.zeros((B, T, H, D), dtype=torch.bfloat16)
+            k = v = q
+        elif case == "fp32":
+            q = k = v = torch.zeros((B, T, H, D))
+        elif case == "qkv_thirds":   # [B, T, 3E]: strides (T*3E, 3E, D)
+            qkv = torch.zeros((B, T, 3 * H * D), dtype=torch.bfloat16)
+            q, k, v = (t.reshape(B, T, H, D)
+                       for t in qkv.split(H * D, dim=-1))
+        elif case == "two_byte_offset":
+            buf = torch.zeros((B, T, H * D + 8), dtype=torch.bfloat16)
+            q = buf[..., 1:H * D + 1].reshape(B, T, H, D)
+            k = v = torch.zeros((B, T, H, D), dtype=torch.bfloat16)
+        elif case == "odd_t_stride":   # aligned base, t stride H*D + 1
+            buf = torch.zeros((B, T, H * D + 1), dtype=torch.bfloat16)
+            q = buf[..., :H * D].reshape(B, T, H, D)
+            k = v = torch.zeros((B, T, H, D), dtype=torch.bfloat16)
+        else:   # B = T = H = 1: those strides are never used
+            buf = torch.zeros((1, 1, D + 3), dtype=torch.bfloat16)
+            q = k = v = buf[..., :D].reshape(1, 1, 1, D)
+        assert q.data_ptr() % 16 == 0 or case == "two_byte_offset"
+        assert ck.flash_route(q, k, v) == route
+
+    def test_k_tile_is_the_same_on_both_routes(self):
+        # the plain version rounds P at the running max of this tile
+        for D in (64, 128, 192, 256):
+            assert ck.flash_k_tile(D, torch.bfloat16) == ck.flash_k_tile(
+                D, torch.float32) == (64 if D <= 128 else 32)
+
+    @pytest.mark.parametrize("causal", [False, True])
     def test_plain_ragged_matches_exact(self, causal):
         # lengths off the kernel's tiles: the ragged k tile is masked
         q, k, v = _qkv(7, 1, 100, 3, 192)
@@ -266,6 +317,27 @@ class TestWrappersAndBuild:
         assert p.parent == ck.BUILD_DIR and p.name.endswith(".so")
         assert p != ck._lib_path("layer_norm")
         assert p == ck._lib_path("flash_attention")
+
+    def test_ptxas_report_reads_the_build_log(self, monkeypatch, tmp_path):
+        monkeypatch.setattr(ck, "BUILD_DIR", tmp_path)
+        assert ck.ptxas_report("flash_attention") == []
+        ck._lib_path("flash_attention").with_suffix(".log").write_text(
+            "ptxas info    : Compiling entry function '_Z3fooPf' for "
+            "'sm_90a'\n"
+            "ptxas info    : Function properties for _Z3fooPf\n"
+            "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill "
+            "loads\n"
+            "ptxas info    : Used 128 registers, used 1 barriers\n"
+            "ptxas info    : Compiling entry function '_Z3barPf' for "
+            "'sm_90a'\n"
+            "ptxas info    : Used 40 registers, used 0 barriers\n")
+        assert ck.ptxas_report("flash_attention") == [
+            ("_Z3fooPf", 128, 8, 4), ("_Z3barPf", 40, 0, 0)]
+
+    def test_reset_counts_clears_the_flash_routes(self):
+        ck.FLASH_ROUTES["tensor_core"] += 3
+        ck.reset_counts()
+        assert ck.FLASH_ROUTES == {"tensor_core": 0, "cuda_core": 0}
 
     def test_registry_semantics(self):
         assert treg.has("layer_norm") and treg.has("flash_attention")
