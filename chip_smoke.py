@@ -10,7 +10,8 @@ Phases (each one fails the run with a non-zero exit):
 1. Environment: card name and power limit, torch/CUDA versions, and the
    build of every CUDA kernel from ``deeplearning4j_tpu_torch/ops/csrc``
    (one ``nvcc`` per source, all started together), with the registers and
-   spills ``ptxas`` reports for the flash-attention and layer-norm kernels.
+   spills ``ptxas`` reports for the flash-attention, layer-norm and
+   BN+leaky kernels.
 2. Each kernel against its plain PyTorch version on the card, at the
    listed shapes, with the tolerances below: layer norm on both routes
    (a warp per row up to D=1024, a block above; 16-byte and scalar loads;
@@ -24,7 +25,14 @@ Phases (each one fails the run with a non-zero exit):
    beside its
    plain version, its roofline bound, and one PyTorch library call that
    computes the same function (a yardstick only; the port never calls it);
-   layer norm and flash attention at T=128 and T=512 (B=32).
+   layer norm and flash attention at T=128 and T=512 (B=32). The BN+leaky
+   probe's kernels (``bn_stats``, ``bn_apply_leaky``) at C in {1, 16,
+   1024} x M in {1, 7, 4099, 1,000,003, 5,537,792}, fp32 and bf16, and
+   with a NaN, then timed at the probe's [16, 5,537,792] bf16 beside
+   their bounds and library calls (and the pair beside
+   ``F.batch_norm(training=True)`` + ``F.leaky_relu``);
+   ``scale_shift_act`` also at TinyYOLO's first epilogue, [5,537,792, 16]
+   bf16, alpha 0.01.
 3. Serve BERT-base (full width, bf16, random weights from a seed) through
    ``ModelServer(lm.logits, head="argmax")`` with the kernels installed:
    warmup, then 64 requests of 1-8 rows at T=128 and T=512 from four
@@ -65,6 +73,29 @@ Phases (each one fails the run with a non-zero exit):
    exact arithmetic and pure rounding in both, so no per-tensor relative
    bound holds for them).
 
+9. Train TinyYOLO (full width: 20 classes, 3x416x416, random weights
+   from seed 123, Adam 1e-3) through ``MultiLayerNetwork.fit`` in the
+   bf16 / NHWC / fused-epilogue configuration, B=32, on one batch whose
+   labels hold 1-3 boxes an image (``numpy.random.default_rng(0)``): one
+   warm step, then 5 timed steps. Every loss finite, 8 ``scale_shift_act``
+   launches per step and no plain call; the first two losses within 2e-2
+   relative of a fresh net from the same seed on the plain
+   ``scale_shift_act``. (The loss need not fall: the reference's TinyYOLO
+   loss spikes after its first steps.)
+10. TinyYOLO ``output()`` at B=32 (8 launches) on a fresh net from the
+   seed (the trained one's wh outputs, anchors * exp, may overflow after
+   the loss's spike) against the same net on the plain
+   ``scale_shift_act``: relative L2 distance <= 1e-2 (both sides run
+   bf16 through 8 epilogues; kernel and plain agree to the bit but for
+   double-rounding ties, which the 1024-channel layers may carry on);
+   then ``YoloUtils.getPredictedObjects`` on it.
+11. The BN+leaky probe (``deeplearning4j_tpu_torch.benchmarks.
+   probe_bn_leaky.main``) at [32, 16, 416, 416] bf16: the kernels within
+   the probe's 0.05 of the composed version, one ``bn_stats`` and one
+   ``bn_apply_leaky`` launch per call and no plain call; it prints the
+   measured stream, both times, their shares of it and the verdict (no
+   speed threshold fails the run).
+
 Tolerances: layer norm and flash fp32 ``rtol=atol=2e-5`` (as
 ``tests/test_pallas.py``), bf16 ``rtol=atol=2e-2`` (a few bf16 ulps: both
 sides round the same fp32 value, summed in another order), lse 1e-5
@@ -75,7 +106,10 @@ ties), a NaN in must come out NaN. Softmax: fp32 ``rtol=1e-5, atol=1e-6``
 (as ``tests/test_pallas.py``), bf16 one ulp (2^-7 relative), NaN where
 the plain version has NaN. Gradients through the layer-norm and flash
 overrides (composed backwards) against autograd through their plain
-versions: 2e-4 absolute (fp32 values of order one).
+versions: 2e-4 absolute (fp32 values of order one). ``bn_stats``: fp32
+sums against an fp64 sum, |d sum| <= 1e-5 sum|x| and |d sumsq| <= 1e-5
+sumsq, NaN where the fp64 sum is NaN; ``bn_apply_leaky`` as
+``scale_shift_act`` (fp32 1e-6 relative, bf16 one ulp, NaN kept).
 
 Output: progress lines, then a JSON line ``{"kernels": [...]}``, the
 ``nvidia-smi`` name/power-limit line, and as the last line
@@ -110,6 +144,9 @@ BERT_SD = dict(V=30522, E=768, H=12, L=12, F=3072, T=128, max_len=512,
                n_labels=2)
 SD_BATCH = 32
 SD_STEPS = 6
+YOLO_BATCH = 32
+YOLO_STEPS = 5
+YOLO_CLASSES = 20
 
 
 def fail(msg: str) -> None:
@@ -145,10 +182,12 @@ def main() -> None:
     import torch.nn.functional as F
 
     from deeplearning4j_tpu_torch.autodiff import SameDiff, TrainingConfig
+    from deeplearning4j_tpu_torch.benchmarks import probe_bn_leaky
     from deeplearning4j_tpu_torch.data.dataset import DataSet
     from deeplearning4j_tpu_torch.models import zoo
     from deeplearning4j_tpu_torch.models.transformer import (
         TransformerConfig, TransformerLM)
+    from deeplearning4j_tpu_torch.nn.objdetect import YoloUtils, yolo_labels
     from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
     from deeplearning4j_tpu_torch.ops import registry
     from deeplearning4j_tpu_torch.serving import (ModelServer,
@@ -169,7 +208,7 @@ def main() -> None:
     paths = ck.build()
     log(f"kernel build: {time.perf_counter() - t0:.2f} s for "
         f"{', '.join(p.name for p in paths.values())}")
-    for name in ("flash_attention", "layer_norm"):
+    for name in ("flash_attention", "layer_norm", "bn_leaky"):
         for fn, regs, st, ld in ck.ptxas_report(name):
             log(f"ptxas {name}: {fn}: {regs} registers, spill stores {st} B, "
                 f"spill loads {ld} B")
@@ -413,6 +452,158 @@ def main() -> None:
     ssa.update(bound(2 * rows * c * 2 + 2 * c * 2, 2 * rows * c,
                      FP32_FLOPS))
     del x
+    # and at TinyYOLO's first epilogue at B=32: [32*416*416, 16] bf16, leaky
+    rows, c = 32 * 416 * 416, 16
+    x = rand(rows, c, dtype=torch.bfloat16, scale=2.0)
+    sc = rand(c, dtype=torch.bfloat16, scale=0.5, shift=1.0)
+    sh = rand(c, dtype=torch.bfloat16)
+    err = check_ssa("scale_shift_act TinyYOLO shape",
+                    ck.scale_shift_act_fwd(x, sc, sh, 0.01),
+                    ck.scale_shift_act_plain(x, sc, sh, 0.01), torch.bfloat16)
+    ssa["other_shapes"] = [timed_row(
+        f"x [{rows}, {c}] bfloat16, leaky 0.01 (TinyYOLO's first block, "
+        f"B={YOLO_BATCH})", err,
+        lambda: ck.scale_shift_act_fwd(x, sc, sh, 0.01),
+        lambda: ck.scale_shift_act_plain(x, sc, sh, 0.01),
+        lambda: F.leaky_relu(torch.addcmul(sh, x, sc), 0.01),
+        2 * rows * c * 2 + 2 * c * 2, 2 * rows * c, FP32_FLOPS)]
+    del x
+
+    # the BN+leaky probe's two kernels: the sums against an fp64 sum and
+    # the apply against its plain version, row block by row block (C=1024
+    # x M=5,537,792 fp32 is 22.7 GB), at every C x M and both dtypes, then
+    # with a NaN
+    def check_bn(c, m, dtype, nan=False):
+        x = torch.randn((c, m), generator=gen, device=dev)
+        x = x.mul_(1.5).add_(0.25).to(dtype)
+        if nan:
+            x[c // 2, m // 3] = float("nan")
+        s, q = ck.bn_stats(x)
+        sc = rand(c, scale=0.5, shift=1.0)
+        sh = rand(c)
+        y = ck.bn_apply_leaky(x, sc, sh, 0.1)
+        torch.cuda.synchronize()
+        name = f"bn [{c}, {m}] {str(dtype)[6:]}{' NaN' if nan else ''}"
+        es = ey = 0.0
+        step = max(1, (1 << 27) // m)
+        for r0 in range(0, c, step):
+            r1 = min(c, r0 + step)
+            x64 = x[r0:r1].double()
+            s64, q64 = x64.sum(1), x64.square().sum(1)
+            for got, want, scale, what in (
+                    (s[r0:r1], s64, x64.abs().sum(1), "sum"),
+                    (q[r0:r1], q64, q64, "sum of squares")):
+                nan_w = torch.isnan(want)
+                if not torch.equal(nan_w, torch.isnan(got)):
+                    fail(f"{name}: {what} NaN where the fp64 sum is not, "
+                         "or the reverse")
+                d = (got.double() - want).abs().masked_fill(nan_w, 0.0)
+                if bool((d > 1e-5 * scale.masked_fill(nan_w, 0.0)).any()):
+                    fail(f"{name}: {what} beyond 1e-5 of the fp64 sum's "
+                         f"scale, max |err| {float(d.max()):.3g}")
+                es = max(es, float((d / scale.clamp_min(1e-30)).max()))
+            del x64
+            ey = max(ey, check_ssa(
+                f"{name} apply rows {r0}-{r1}", y[r0:r1],
+                ck.bn_apply_leaky_plain(x[r0:r1], sc[r0:r1], sh[r0:r1], 0.1),
+                dtype))
+        return x, es, ey
+
+    for c in (1, 16, 1024):
+        for m in (1, 7, 4099, 1_000_003, 5_537_792):
+            for dt in (torch.float32, torch.bfloat16):
+                x, es, ey = check_bn(c, m, dt)
+                del x
+                log(f"bn_stats / bn_apply_leaky [{c}, {m}] {str(dt)[6:]}: "
+                    f"sums max|err|/scale {es:.3g}, apply max|err| {ey:.3g}")
+    for dt in (torch.float32, torch.bfloat16):
+        x, _, _ = check_bn(16, 4099, dt, nan=True)
+        s, q = ck.bn_stats(x)
+        if not (bool(torch.isnan(s[8])) and bool(torch.isnan(q[8]))
+                and int(torch.isnan(s).sum()) == 1):
+            fail(f"bn_stats {dt}: a NaN did not give NaN sums in its "
+                 "channel alone")
+        s2, q2 = ck.bn_stats(x)
+        if not (torch.equal(s.nan_to_num(), s2.nan_to_num())
+                and torch.equal(q.nan_to_num(), q2.nan_to_num())):
+            fail(f"bn_stats {dt}: two runs gave different sums")
+        del x
+    log("bn_stats: a NaN gives NaN sums in its channel alone; two runs give "
+        "the same bits")
+
+    # timing at the probe's shape, [C, N*H*W] = [16, 5,537,792] bf16
+    n_, c, h_, w_ = probe_bn_leaky.SHAPE
+    m = n_ * h_ * w_
+    x4 = torch.randn(probe_bn_leaky.SHAPE, generator=gen, device=dev).to(
+        torch.bfloat16)
+    x2d = x4.transpose(0, 1).reshape(c, m)
+    s, q = ck.bn_stats(x2d)
+    x64 = x2d.double()
+    es = max(float((s.double() - x64.sum(1)).abs().max()),
+             float((q.double() - x64.square().sum(1)).abs().max()))
+    del x64
+    gamma = rand(c, scale=0.2, shift=1.0)
+    beta = rand(c, scale=0.2)
+    mean = s / m
+    sc = (gamma * torch.rsqrt(q / m - mean * mean + 1e-5)).contiguous()
+    sh = (beta - mean * sc).contiguous()
+    ey = check_ssa("bn_apply_leaky probe shape",
+                   ck.bn_apply_leaky(x2d, sc, sh, 0.1),
+                   ck.bn_apply_leaky_plain(x2d, sc, sh, 0.1), torch.bfloat16)
+    shape = f"x [{c}, {m}] bfloat16 (the probe's [32, 16, 416, 416])"
+    bn_st = {
+        "name": "bn_stats", "route": "cuda",
+        "source": "deeplearning4j_tpu_torch/ops/csrc/bn_leaky.cu",
+        "replaces": "benchmarks/probe_bn_leaky.py:89",
+        "shape": shape, "max_abs_err": es,
+        "ms": time_ms(lambda: ck.bn_stats(x2d)),
+        "plain_ms": time_ms(lambda: ck.bn_stats_plain(x2d)),
+        # two calls, each one pass over x in fp32: the sum, and the
+        # 2-norm whose square is the sum of squares
+        "library_ms": time_ms(lambda: (
+            torch.sum(x2d, 1, dtype=torch.float32),
+            torch.linalg.vector_norm(x2d, 2, 1, dtype=torch.float32)
+            .square())),
+    }
+    # add, multiply, add an element in fp32
+    bn_st.update(bound(c * m * 2 + 2 * c * 4, 3 * c * m, FP32_FLOPS))
+    scb, shb = sc.to(torch.bfloat16), sh.to(torch.bfloat16)
+    bn_ap = {
+        "name": "bn_apply_leaky", "route": "cuda",
+        "source": "deeplearning4j_tpu_torch/ops/csrc/bn_leaky.cu",
+        "replaces": "benchmarks/probe_bn_leaky.py:114",
+        "shape": shape + ", slope 0.1", "max_abs_err": ey,
+        "ms": time_ms(lambda: ck.bn_apply_leaky(x2d, sc, sh, 0.1)),
+        "plain_ms": time_ms(lambda: ck.bn_apply_leaky_plain(x2d, sc, sh,
+                                                            0.1)),
+        # two calls in x's dtype: the port never makes them
+        "library_ms": time_ms(lambda: F.leaky_relu(
+            torch.addcmul(shb[:, None], x2d, scb[:, None]), 0.1)),
+    }
+    # an FMA and a select (a multiply) an element in fp32
+    bn_ap.update(bound(2 * c * m * 2 + 2 * c * 4, 3 * c * m, FP32_FLOPS))
+    gb, bb = gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
+    pair = {
+        "what": "bn_stats + bn_apply_leaky through probe_bn_leaky."
+                "bn_leaky_kernels, and F.batch_norm(training=True) + "
+                "F.leaky_relu on the NCHW tensor",
+        "ms": time_ms(lambda: probe_bn_leaky.bn_leaky_kernels(
+            x2d, gamma, beta)),
+        "library_ms": time_ms(lambda: F.leaky_relu(F.batch_norm(
+            x4, None, None, gb, bb, training=True, eps=1e-5), 0.1)),
+    }
+    pair.update(bound(3 * c * m * 2, 6 * c * m, FP32_FLOPS))
+    bn_ap["pair"] = pair
+    del x4, x2d
+    for kr in (bn_st, bn_ap, pair):
+        log(f"{kr.get('name', 'bn pair')}: kernel {kr['ms']:.4f} ms, "
+            f"plain {kr.get('plain_ms', float('nan')):.4f} ms, library "
+            f"{kr['library_ms']:.4f} ms, bound {kr['bound_ms']:.4f} ms "
+            f"({kr['bound_by']}) [{smi}]")
+    row = ssa["other_shapes"][0]
+    log(f"scale_shift_act at {row['shape']}: kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}) [{smi}]")
 
     # softmax at the SameDiff BERT-base rows at B=32, T=128 (attention
     # [B*H*T, T] and the [B, 2] head), ragged D, the block kernel
@@ -545,7 +736,8 @@ def main() -> None:
     if server.counts["completed"] != 64:
         fail(f"expected 64 completed requests, counts {dict(server.counts)}")
     if launches != {"flash_attention": 12 * n_fwd, "layer_norm": 25 * n_fwd,
-                    "scale_shift_act": 0, "softmax": 0} \
+                    "scale_shift_act": 0, "softmax": 0, "bn_stats": 0,
+                    "bn_apply_leaky": 0} \
             or any(plain.values()):
         fail(f"launch counts {launches} (plain {plain}) over {n_fwd} "
              "forwards: want 12 flash_attention and 25 layer_norm each")
@@ -719,7 +911,8 @@ def main() -> None:
         fail(f"SameDiff serving: a request not resolved exactly once, "
              f"counts {dict(server.counts)}")
     want_launches = {"layer_norm": 25 * sd_fwd, "flash_attention": 0,
-                     "scale_shift_act": 0, "softmax": 13 * sd_fwd}
+                     "scale_shift_act": 0, "softmax": 13 * sd_fwd,
+                     "bn_stats": 0, "bn_apply_leaky": 0}
     if sd_launches != want_launches or any(sd_plain.values()):
         fail(f"SameDiff serving launch counts {sd_launches} (plain "
              f"{sd_plain}) over {sd_fwd} forwards: want 13 softmax and 25 "
@@ -762,7 +955,8 @@ def main() -> None:
     # the loss takes the logits, not the head's probs: 12 softmax a step
     if fit_sd_launches != {"layer_norm": 25 * SD_STEPS, "flash_attention": 0,
                            "scale_shift_act": 0,
-                           "softmax": 12 * SD_STEPS} \
+                           "softmax": 12 * SD_STEPS, "bn_stats": 0,
+                           "bn_apply_leaky": 0} \
             or any(fit_sd_plain.values()):
         fail(f"SameDiff fit launch counts {fit_sd_launches} (plain "
              f"{fit_sd_plain}) over {SD_STEPS} steps: want 12 softmax and 25 "
@@ -806,16 +1000,136 @@ def main() -> None:
              "(probs 1e-5; gradients relative L2 1e-4, elements 1e-4 of "
              "max|g|)")
 
+    del sd, generic, batch, p_gen, g_gen, p_ker, g_ker, flat_k, flat_g
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ 9. TinyYOLO fit
+    ck.install_platform_overrides()
+    rng = np.random.default_rng(0)
+    xy = torch.from_numpy(rng.standard_normal(
+        (YOLO_BATCH, 3, 416, 416), dtype=np.float32)).to(dev)
+    yy = torch.from_numpy(yolo_labels(rng, YOLO_BATCH, YOLO_CLASSES)).to(dev)
+    yds = DataSet(xy, yy)
+
+    def tiny_yolo():
+        net = zoo.TinyYOLO(num_classes=YOLO_CLASSES).init()
+        net.setPrecisionPolicy("bf16")
+        net.setComputeLayout("NHWC")
+        net.setEpilogueFusion(True)
+        return net
+
+    # the reference for the first two losses: a fresh net from the same
+    # seed on the plain scale_shift_act
+    registry.register_platform_override("scale_shift_act", ssa_plain)
+    net = tiny_yolo()
+    plain_losses = []
+    for _ in range(2):
+        net.fit(yds)
+        plain_losses.append(net.score())
+    del net
+    ck.install_platform_overrides()
+    t0 = time.perf_counter()
+    net = tiny_yolo()
+    log(f"TinyYOLO: {net.numParams()} parameters, {len(net.layers)} layers, "
+        f"{YOLO_CLASSES} classes, 3x416x416, bf16 policy, NHWC, fused "
+        f"epilogues {sorted(net._ensure_epilogue_plan())}, built in "
+        f"{time.perf_counter() - t0:.2f} s; {int(yy[:, 4:].sum())} boxes in "
+        f"{YOLO_BATCH} images")
+    t0 = time.perf_counter()
+    net.fit(yds)
+    y_losses = [net.score()]
+    log(f"warm step: loss {y_losses[0]:.5f} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_counts()
+    y_ms = []
+    for _ in range(YOLO_STEPS):
+        t0 = time.perf_counter()
+        net.fit(yds)
+        y_losses.append(net.score())     # a float: waits for the step
+        y_ms.append((time.perf_counter() - t0) * 1e3)
+    yolo_launches = dict(ck.LAUNCHES)
+    yolo_plain = dict(ck.PLAIN_CALLS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(np.isfinite(y_losses)):
+        fail(f"TinyYOLO losses not finite: {y_losses}")
+    want = {k: 0 for k in ck.KERNELS}
+    want["scale_shift_act"] = 8 * YOLO_STEPS
+    if yolo_launches != want or any(yolo_plain.values()):
+        fail(f"TinyYOLO fit launch counts {yolo_launches} (plain "
+             f"{yolo_plain}) over {YOLO_STEPS} steps: want 8 scale_shift_act "
+             "launches per step and nothing else")
+    rel = [abs(a - b) / abs(b) for a, b in zip(y_losses[:2], plain_losses)]
+    med = float(np.median(y_ms))
+    log(f"TinyYOLO fit B={YOLO_BATCH}: losses "
+        f"{', '.join(f'{v:.5f}' for v in y_losses)}; step ms median {med:.2f} "
+        f"(min {min(y_ms):.2f}, max {max(y_ms):.2f}), "
+        f"{YOLO_BATCH / (med / 1e3):.1f} images/s, peak {peak_gb:.2f} GB, "
+        f"launches {yolo_launches} [{smi}]")
+    log(f"first two losses {y_losses[:2]} vs the plain scale_shift_act's "
+        f"{plain_losses}: relative {rel}")
+    if max(rel) > 2e-2:
+        fail("TinyYOLO's first two losses differ from the plain version's "
+             "by more than 2e-2 relative")
+
+    # --------------------------- 10. TinyYOLO output against plain
+    # on a fresh net from the seed: after the loss's spike the trained
+    # net's wh outputs (anchors * exp) may overflow to inf
+    del net
+    net = tiny_yolo()
+    xo = xy[:YOLO_BATCH]
+    ck.reset_counts()
+    out = net.output(xo)
+    out_launches = ck.LAUNCHES["scale_shift_act"]
+    registry.register_platform_override("scale_shift_act", ssa_plain)
+    out_plain = net.output(xo)
+    ck.install_platform_overrides()
+    n_ch = 5 * (5 + YOLO_CLASSES)
+    if out_launches != 8:
+        fail(f"TinyYOLO output ran {out_launches} scale_shift_act launches, "
+             "want 8")
+    if tuple(out.shape) != (YOLO_BATCH, n_ch, 13, 13) or \
+            out.dtype != torch.float32 or not bool(torch.isfinite(out).all()):
+        fail(f"TinyYOLO output not finite fp32 of shape [{YOLO_BATCH}, "
+             f"{n_ch}, 13, 13]: {tuple(out.shape)} {out.dtype}")
+    rel_l2 = float((out - out_plain).norm() / out_plain.norm())
+    objs = YoloUtils.getPredictedObjects(zoo.TinyYOLO.ANCHORS, out)
+    log(f"TinyYOLO output kernel vs plain: relative L2 {rel_l2:.3g}, max|diff| "
+        f"{float((out - out_plain).abs().max()):.4g} (max|out| "
+        f"{float(out_plain.abs().max()):.4g}); getPredictedObjects: "
+        f"{len(objs)} objects in {YOLO_BATCH} images")
+    if rel_l2 > 1e-2:
+        fail("TinyYOLO kernel and plain outputs differ by more than 1e-2 "
+             "relative L2")
+    del net, xy, yy, yds, out, out_plain
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------ 11. the BN+leaky probe
+    ck.reset_counts()
+    probe = probe_bn_leaky.main()
+    probe_launches = dict(ck.LAUNCHES)
+    want = {k: 0 for k in ck.KERNELS}
+    want["bn_stats"] = want["bn_apply_leaky"] = probe["calls"]
+    if probe_launches != want or any(ck.PLAIN_CALLS.values()):
+        fail(f"probe launch counts {probe_launches} (plain "
+             f"{dict(ck.PLAIN_CALLS)}) over {probe['calls']} calls: want one "
+             "bn_stats and one bn_apply_leaky launch per call")
+    log(f"probe: {probe['calls']} calls, one bn_stats and one bn_apply_leaky "
+        f"launch each [{smi}]")
+
     ln["launches"] = launches["layer_norm"]
     fa["launches"] = launches["flash_attention"]
     ssa["launches"] = fit_launches["scale_shift_act"]
+    ssa["other_shapes"][0]["launches"] = yolo_launches["scale_shift_act"]
     sm["launches"] = sd_launches["softmax"]
+    bn_st["launches"] = probe_launches["bn_stats"]
+    bn_ap["launches"] = probe_launches["bn_apply_leaky"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
-            "other_shapes")
+            "other_shapes", "pair")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{k: kr[k] for k in keys if k in kr}
-                                  for kr in (ln, fa, ssa, sm)]}))
+                                  for kr in (ln, fa, ssa, sm, bn_st, bn_ap)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

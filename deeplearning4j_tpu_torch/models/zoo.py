@@ -1,6 +1,7 @@
 """Model zoo (the slice's subset of ``deeplearning4j_tpu/models/zoo.py``):
-``ZooModel`` and ``ResNet50``, with the JAX package's node names and
-topological order, so its params transplant one to one."""
+``ZooModel``, ``ResNet50`` (a ``ComputationGraph``) and ``TinyYOLO`` (a
+``MultiLayerNetwork``), with the JAX package's node names, layer order
+and defaults, so its params transplant one to one."""
 
 from __future__ import annotations
 
@@ -9,6 +10,8 @@ from typing import Tuple
 from deeplearning4j_tpu_torch.nn.config import InputType, NeuralNetConfiguration
 from deeplearning4j_tpu_torch.nn.graph import (ComputationGraph,
                                                ElementWiseVertex)
+from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+from deeplearning4j_tpu_torch.nn.objdetect import Yolo2OutputLayer
 from deeplearning4j_tpu_torch.nn.layers import (ActivationLayer,
                                                 BatchNormalization,
                                                 ConvolutionLayer,
@@ -120,3 +123,49 @@ class ResNet50(ZooModel):
                                      activation="softmax"), "avgpool")
         g.setOutputs("fc")
         return ComputationGraph(g.build())
+
+
+class TinyYOLO(ZooModel):
+    """ref: zoo.model.TinyYOLO — the darknet-tiny backbone (six conv-BN-
+    leaky blocks with max pools, the sixth pool 2x2 stride 1 in same
+    mode, two 1024-channel blocks) and a ``Yolo2OutputLayer`` with the
+    reference's VOC anchor priors, as a ``MultiLayerNetwork``."""
+
+    ANCHORS = [[1.08, 1.19], [3.42, 4.41], [6.63, 11.38], [9.42, 5.11],
+               [16.62, 10.52]]
+
+    def __init__(self, num_classes: int = 20, **kw):
+        super().__init__(num_classes=num_classes, **kw)
+
+    def default_input_shape(self):
+        return (3, 416, 416)
+
+    def conf_builder(self) -> MultiLayerNetwork:
+        c, h, w = self.input_shape
+        n_boxes = len(self.ANCHORS)
+        b = (NeuralNetConfiguration.Builder()
+             .seed(self.seed).updater(self.updater).weightInit("relu")
+             .list())
+
+        def conv_bn(b, n_out):
+            b = b.layer(ConvolutionLayer(kernelSize=(3, 3), padding=(1, 1),
+                                         nOut=n_out, activation="identity"))
+            b = b.layer(BatchNormalization())
+            return b.layer(ActivationLayer("leakyrelu"))
+
+        for n_out in (16, 32, 64, 128, 256):
+            b = conv_bn(b, n_out)
+            b = b.layer(SubsamplingLayer(poolingType="max", kernelSize=(2, 2),
+                                         stride=(2, 2)))
+        b = conv_bn(b, 512)
+        b = b.layer(SubsamplingLayer(poolingType="max", kernelSize=(2, 2),
+                                     stride=(1, 1), padding=(1, 1),
+                                     convolutionMode="same"))
+        b = conv_bn(b, 1024)
+        b = conv_bn(b, 1024)
+        b = b.layer(ConvolutionLayer(kernelSize=(1, 1),
+                                     nOut=n_boxes * (5 + self.num_classes),
+                                     activation="identity"))
+        b = (b.layer(Yolo2OutputLayer(boundingBoxPriors=self.ANCHORS))
+             .setInputType(InputType.convolutional(h, w, c)))
+        return MultiLayerNetwork(b.build())

@@ -1,10 +1,21 @@
 """Network configuration (the slice's subset of
-``deeplearning4j_tpu/nn/config.py``): ``InputType`` and
-``NeuralNetConfiguration.Builder`` with ``graphBuilder``."""
+``deeplearning4j_tpu/nn/config.py``): ``InputType``,
+``NeuralNetConfiguration.Builder`` with ``graphBuilder`` and ``list``,
+``ListBuilder`` and ``MultiLayerConfiguration``.
+
+``MultiLayerConfiguration.to_json``/``from_json`` write and read the JAX
+package's JSON (each layer's attributes under its class name), so a
+sequential configuration crosses between the packages as long as every
+layer class in it is ported. Input preprocessors are not ported: a layer
+whose input kind differs from what flows in raises at build time.
+"""
 
 from __future__ import annotations
 
-from deeplearning4j_tpu_torch.train.updaters import Sgd
+import json
+from typing import Any, List, Optional
+
+from deeplearning4j_tpu_torch.train.updaters import IUpdater, Sgd
 
 
 class InputType:
@@ -38,6 +49,14 @@ class InputType:
             return (self.dims["height"] * self.dims["width"]
                     * self.dims["channels"])
         raise ValueError(self.kind)
+
+    def to_config(self):
+        return {"kind": self.kind, **self.dims}
+
+    @staticmethod
+    def from_config(d):
+        d = dict(d)
+        return InputType(d.pop("kind"), **d)
 
     def __repr__(self):
         return f"InputType({self.kind}, {self.dims})"
@@ -102,6 +121,9 @@ class NeuralNetConfiguration:
             self._grad_norm_threshold = float(threshold)
             return self
 
+        def list(self) -> "ListBuilder":
+            return ListBuilder(self._freeze())
+
         def graphBuilder(self):
             from deeplearning4j_tpu_torch.nn.graph import GraphBuilder
             return GraphBuilder(self._freeze())
@@ -131,3 +153,99 @@ class NeuralNetConfiguration:
         self.grad_norm_threshold = 1.0
         self.dtype = "float32"
         self.compute_layout = "NCHW"
+
+    def to_config(self):
+        return {"seed": self.seed, "updater": self.updater.to_config(),
+                "weight_init": self.weight_init, "activation": self.activation,
+                "l1": self.l1, "l2": self.l2, "grad_norm": self.grad_norm,
+                "grad_norm_threshold": self.grad_norm_threshold,
+                "dtype": self.dtype, "compute_layout": self.compute_layout}
+
+    @staticmethod
+    def from_config(d):
+        cfg = NeuralNetConfiguration()
+        cfg.__dict__.update({k: v for k, v in d.items() if k != "updater"})
+        cfg.updater = IUpdater.from_config(d["updater"])
+        return cfg
+
+
+class ListBuilder:
+    """Sequential-network builder (ref: NeuralNetConfiguration.ListBuilder).
+    Truncated BPTT is not ported."""
+
+    def __init__(self, base: NeuralNetConfiguration):
+        self.base = base
+        self.layers: List[Any] = []
+        self.input_type: Optional[InputType] = None
+
+    def layer(self, *args):
+        """.layer(conf) or .layer(idx, conf)"""
+        self.layers.append(args[-1])
+        return self
+
+    def setInputType(self, it: InputType):
+        self.input_type = it
+        return self
+
+    def inputType(self, it: InputType):
+        return self.setInputType(it)
+
+    def build(self) -> "MultiLayerConfiguration":
+        return MultiLayerConfiguration(self.base, list(self.layers),
+                                       self.input_type)
+
+
+class MultiLayerConfiguration:
+    """ref: org.deeplearning4j.nn.conf.MultiLayerConfiguration — the built
+    model spec with propagated InputTypes: each layer takes the base
+    config's defaults and infers its ``nIn`` from the type flowing in."""
+
+    def __init__(self, base: NeuralNetConfiguration, layers: List[Any],
+                 input_type: Optional[InputType]):
+        self.base = base
+        self.layers = layers
+        self.input_type = input_type
+        #: layer index -> input preprocessor (none are ported: always empty)
+        self.preprocessors = {}
+        self.layer_input_types: List[InputType] = []
+        if input_type is not None:
+            self._propagate_input_types()
+
+    def _propagate_input_types(self):
+        cur = self.input_type
+        self.layer_input_types = []
+        for i, layer in enumerate(self.layers):
+            need = layer.input_kind
+            if need is not None and cur.kind != need:
+                raise NotImplementedError(
+                    f"layer {i} ({type(layer).__name__}) takes {need} input "
+                    f"but gets {cur.kind}: input preprocessors are not "
+                    "ported yet")
+            layer.set_defaults(self.base)
+            layer.infer_nin(cur)
+            self.layer_input_types.append(cur)
+            cur = layer.output_type(cur)
+
+    def to_json(self) -> str:
+        return json.dumps({
+            "base": self.base.to_config(),
+            "layers": [layer.to_config() for layer in self.layers],
+            "input_type": self.input_type.to_config()
+            if self.input_type else None,
+            "backprop_type": "standard",
+            "tbptt_length": None,
+        })
+
+    @staticmethod
+    def from_json(s: str) -> "MultiLayerConfiguration":
+        from deeplearning4j_tpu_torch.nn import layers as L
+        d = json.loads(s)
+        if d.get("backprop_type", "standard") != "standard":
+            raise NotImplementedError(
+                f"backprop type {d['backprop_type']!r}: truncated BPTT is "
+                "not ported")
+        base = NeuralNetConfiguration.from_config(d["base"])
+        layers = [L.layer_from_config(lc) for lc in d["layers"]]
+        it = InputType.from_config(d["input_type"]) \
+            if d["input_type"] else None
+        return MultiLayerConfiguration(base, layers, it)

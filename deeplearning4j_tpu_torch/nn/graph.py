@@ -18,14 +18,13 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, Optional
 
-import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.data.dataset import DataSet
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.nn import layers as L
 from deeplearning4j_tpu_torch.nn.config import InputType, NeuralNetConfiguration
-from deeplearning4j_tpu_torch.train import updaters as upd
+from deeplearning4j_tpu_torch.nn.network import BaseNetwork
 
 
 class GraphVertex:
@@ -182,27 +181,26 @@ class ComputationGraphConfiguration:
         self.types = types
 
 
-class ComputationGraph:
+class ComputationGraph(BaseNetwork):
     """DAG network (ref: org.deeplearning4j.nn.graph.ComputationGraph)."""
 
     def __init__(self, conf: ComputationGraphConfiguration):
-        self.conf = conf
+        super().__init__(conf)
         self._params: Dict[str, Dict[str, torch.Tensor]] = {}
         self._states: Dict[str, Dict[str, torch.Tensor]] = {}
-        self._opt_state = None
-        self._iteration = 0
-        self._epoch = 0
-        self._score = float("nan")
-        self._device: Optional[torch.device] = None
-        self._precision = None  # PrecisionPolicy (see setPrecisionPolicy)
-        self._initialized = False
-        self._compute_layout = "NCHW"
-        self._fuse_epilogues = False
-        self._epilogue_plan = None
         self._epilogue_shared = None
         fmt = getattr(conf.base, "compute_layout", None)
         if fmt and fmt != "NCHW":
             self.setComputeLayout(fmt)
+
+    def _layers(self):
+        return [(n.name, n.obj) for n in self.conf.topo if n.kind == "layer"]
+
+    def _leaf_keys(self):
+        """Node names sorted, then param names sorted (the JAX pytree's
+        leaf order)."""
+        return [(n, k) for n in sorted(self._params)
+                for k in sorted(self._params[n])]
 
     def init(self, seed: int = None, device=None) -> "ComputationGraph":
         """Initialize params (from a seeded ``torch.Generator``; the
@@ -233,29 +231,10 @@ class ComputationGraph:
         through ``np.asarray``, as fp32) into this graph on ``device``.
         The updater state and the iteration count start afresh."""
         self._device = resolve_device(device)
-
-        def conv(a):
-            return torch.from_numpy(np.array(np.asarray(a), np.float32)
-                                    ).to(self._device)
-
-        self._params = {n: {k: conv(v).requires_grad_(True)
-                            for k, v in p.items()}
-                        for n, p in params.items()}
-        self._states = {n: {k: conv(v) for k, v in s.items()}
-                        for n, s in states.items()}
-        self._opt_state = None
-        self._iteration = 0
-        self._initialized = True
+        self._adopt_jax(params, states)
         return self
 
     # --------------------------------------------------------------- forward
-    def _compute_dtype(self):
-        """The compute dtype: the attached PrecisionPolicy's, else the
-        config's dataType."""
-        if self._precision is not None:
-            return self._precision.compute_torch()
-        return L.compute_dtype_of(self.conf.base.dtype)
-
     def _forward(self, params, states, inputs: Dict[str, Any], train):
         cdt = self._compute_dtype()
         nhwc = self._compute_layout == "NHWC"
@@ -337,11 +316,6 @@ class ComputationGraph:
         return {name: self._to_device(a)
                 for name, a in zip(self.conf.graph_inputs, inputs)}
 
-    def _to_device(self, a) -> torch.Tensor:
-        if not isinstance(a, torch.Tensor):
-            a = torch.from_numpy(np.asarray(a))
-        return a.to(self._device)
-
     def output(self, *inputs, train: bool = False):
         """ref: ComputationGraph.output — the output tensor(s), on the
         graph's device (a list if the graph has several outputs)."""
@@ -371,128 +345,27 @@ class ComputationGraph:
         for i, (ol, out) in enumerate(zip(self._output_layers(), outs)):
             lm = lmasks[i] if lmasks is not None else None
             loss = loss + ol.compute_loss(labels[i], out, mask=lm)
-        reg = 0.0
-        for node in self.conf.topo:
-            if node.kind != "layer":
-                continue
-            l1 = node.obj.l1 or 0.0
-            l2 = node.obj.l2 or 0.0
-            if l1 == 0.0 and l2 == 0.0:
-                continue
-            for pname, w in (params.get(node.name) or {}).items():
-                if not pname.startswith(("W", "RW")):
-                    continue
-                if l2:
-                    reg = reg + 0.5 * l2 * torch.sum(w.square())
-                if l1:
-                    reg = reg + l1 * torch.sum(w.abs())
+        reg = self._regularization(
+            (layer, params.get(name) or {}) for name, layer in self._layers())
         return loss + reg, new_states
 
-    # ------------------------------------------------------------------- fit
-    def _ensure_opt_state(self):
-        if self._opt_state is None:
-            updater = self.conf.base.updater
-            self._opt_state = {
-                n: {k: updater.init_state(v.detach()) for k, v in p.items()}
-                for n, p in self._params.items()}
-
-    def fit(self, data, labels=None, epochs: int = 1):
-        """Train on a DataSet, a list of DataSets, or (features, labels)
-        arrays: one update step per batch, ``epochs`` times."""
-        if not self._initialized:
-            self.init()
-        self._ensure_opt_state()
-        if isinstance(data, DataSet):
-            batches = [data]
-        elif isinstance(data, (list, tuple)) and data \
-                and isinstance(data[0], DataSet):
-            batches = list(data)
-        else:
-            batches = [DataSet(data, labels)]
-        for _ in range(epochs):
-            for ds in batches:
-                self._fit_one(ds)
-            self._epoch += 1
-        return self
-
-    def _fit_one(self, ds: DataSet):
+    def _ds_inputs(self, ds: DataSet, train: bool):
+        """The first graph input's features, the labels and, in training,
+        the label mask (the graph's score, as the JAX one, reads none)."""
         ins = {self.conf.graph_inputs[0]: self._to_device(ds.features)}
-        labels = [self._to_device(ds.labels)]
-        lmasks = [self._to_device(ds.labels_mask)] \
-            if ds.labels_mask is not None else None
-        pol = self._precision
-        loss_scale = pol.loss_scale if pol is not None else None
-        loss, new_states = self._loss_and_reg(self._params, self._states, ins,
-                                              labels, True, lmasks)
-        names = [(n, k) for n, p in self._params.items() for k in p]
-        leaves = [self._params[n][k] for n, k in names]
-        scaled = loss * loss_scale if loss_scale else loss
-        # a folded conv bias takes no part in the train-mode loss (it
-        # cancels against the batch mean): its gradient is zero
-        grads = torch.autograd.grad(scaled, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(leaves, grads)]
-        if loss_scale:
-            inv = 1.0 / loss_scale
-            grads = [g * inv for g in grads]
-        self._process_and_apply_grads(names, leaves, grads)
-        self._states = new_states
-        # kept on the device; score() converts lazily
-        self._score = loss.detach()
-        self._iteration += 1
-
-    def _process_and_apply_grads(self, names, leaves, grads):
-        """Gradient normalization, then the updater per leaf; the fp32
-        master params are updated in place (``p -= update``)."""
-        base = self.conf.base
-        updater = base.updater
-        if base.grad_norm == "clip_value":
-            grads = upd.clip_by_value(grads, base.grad_norm_threshold)
-        elif base.grad_norm == "clip_l2":
-            grads = upd.clip_by_norm(grads, base.grad_norm_threshold)
-        elif base.grad_norm == "clip_global":
-            grads = upd.clip_by_global_norm(grads, base.grad_norm_threshold)
-        elif base.grad_norm == "renorm":
-            grads = upd.renormalize_l2(grads)
-        t = self._iteration
-        lr = updater.lr_at(t)
-        with torch.no_grad():
-            for (n, k), p, g in zip(names, leaves, grads):
-                u, s2 = updater.apply(g, self._opt_state[n][k], lr, t)
-                p.sub_(u)
-                self._opt_state[n][k] = s2
+        masks = [self._to_device(ds.labels_mask)] \
+            if train and ds.labels_mask is not None else None
+        return ins, [self._to_device(ds.labels)], masks
 
     # --------------------------------------------------------- configuration
-    def setComputeLayout(self, fmt: str) -> "ComputationGraph":
-        """NHWC compute layout for the conv stacks: channels-minor conv/
-        pool/BN between layout-aware layers (the ResNet residual add stays
-        NHWC), public NCHW API unchanged."""
-        if fmt not in ("NCHW", "NHWC"):
-            raise ValueError(f"compute layout must be 'NCHW' or 'NHWC', "
-                             f"got {fmt!r}")
-        self._compute_layout = fmt
-        self.conf.base.compute_layout = fmt
-        L.stamp_layout([n.obj for n in self.conf.topo if n.kind == "layer"],
-                       fmt)
-        return self
-
-    def setEpilogueFusion(self, enabled: bool = True) -> "ComputationGraph":
-        """Fuse conv-bias + BN + relu/leaky blocks into one
-        ``scale_shift_act`` dispatch. A fusion anchors at a
-        BatchNormalization node whose ONLY consumer is a relu/leaky
-        ActivationLayer node; a conv feeding it folds its bias (other
-        consumers of that conv read a bit-identical re-biased copy)."""
-        enabled = bool(enabled)
-        if enabled != self._fuse_epilogues:
-            self._epilogue_plan = None
-            self._epilogue_shared = None
-        self._fuse_epilogues = enabled
-        return self
-
     def _ensure_epilogue_plan(self):
         """``{bn_node: (act_node, folded_conv_node | None, alpha)}``, built
         once from the graph topology, with ``self._epilogue_shared``: the
-        folded convs whose output has consumers besides the anchoring BN."""
+        folded convs whose output has consumers besides the anchoring BN.
+        A fusion anchors at a BatchNormalization node whose ONLY consumer
+        is a relu/leaky ActivationLayer node; a conv feeding it folds its
+        bias (other consumers of that conv read a bit-identical re-biased
+        copy)."""
         if self._epilogue_plan is not None \
                 and self._epilogue_shared is not None:
             return self._epilogue_plan
@@ -534,50 +407,3 @@ class ComputationGraph:
         self._epilogue_plan = plan
         self._epilogue_shared = shared
         return plan
-
-    def setPrecisionPolicy(self, policy) -> "ComputationGraph":
-        """Attach (or detach with ``None``) a ``PrecisionPolicy`` or a
-        dtype string such as ``"bf16"``: fp32 master params, the compute
-        dtype in conv/dense layers, an optional static loss scale."""
-        from deeplearning4j_tpu_torch.nn.precision import (PrecisionPolicy,
-                                                           runtime_check)
-        policy = PrecisionPolicy.coerce(policy)
-        if policy is not None:
-            runtime_check(policy)
-        self._precision = policy
-        return self
-
-    # ------------------------------------------------------------- utilities
-    def _require_init(self):
-        if not self._initialized:
-            raise RuntimeError("call init() (or params_from_jax()) first")
-
-    def score(self, ds: DataSet = None) -> float:
-        """The last fit step's loss, or the loss on ``ds`` (inference
-        mode)."""
-        if ds is None:
-            if isinstance(self._score, torch.Tensor):
-                self._score = float(self._score)
-            return self._score
-        self._require_init()
-        ins = {self.conf.graph_inputs[0]: self._to_device(ds.features)}
-        with torch.no_grad():
-            loss, _ = self._loss_and_reg(self._params, self._states, ins,
-                                         [self._to_device(ds.labels)], False,
-                                         None)
-        return float(loss)
-
-    def params(self) -> torch.Tensor:
-        """Every parameter, flattened and concatenated in the JAX
-        package's order (its pytree leaves: node names sorted, then
-        param names sorted)."""
-        leaves = [self._params[n][k].detach().reshape(-1)
-                  for n in sorted(self._params)
-                  for k in sorted(self._params[n])]
-        if not leaves:
-            return torch.zeros((0,))
-        return torch.cat(leaves)
-
-    def numParams(self) -> int:
-        return sum(v.numel() for p in self._params.values()
-                   for v in p.values())

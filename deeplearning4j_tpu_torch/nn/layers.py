@@ -4,7 +4,9 @@
 Weight layouts match the reference (dense W [nIn, nOut], conv W
 [nOut, nIn, kH, kW]). Each layer is ``apply(params, state, x, train) ->
 (out, new_state)`` over plain dicts of tensors; gradients are autograd's.
-Dropout is not ported yet: a nonzero ``dropOut`` raises.
+Dropout is not ported yet: a nonzero ``dropOut`` raises. ``to_config``
+/ ``layer_from_config`` write and read the JAX package's per-layer JSON
+(the layer's attributes under its class name, the same attribute names).
 
 Also here, as in the JAX package: the dtype policy's casts
 (``policy_cast``), the NHWC compute-layout seam (``layout_step``,
@@ -76,9 +78,11 @@ class Layer:
         self.activation = activation
         self.weight_init = weightInit
         self.bias_init = biasInit
+        self.dropout = 0.0      # the JAX package's key, kept for its JSON
         self.l1 = l1
         self.l2 = l2
         self.name = name or type(self).__name__
+        self.tied_with = None   # likewise (a pipeline-stage lint's label)
         # "float32" declares an fp32 island under a PrecisionPolicy
         self.dtype_override = None if dataType is None \
             else normalize_dtype(dataType)
@@ -114,6 +118,26 @@ class Layer:
 
     def apply(self, params, state, x, train: bool):
         raise NotImplementedError
+
+    def to_config(self):
+        d = {"@class": type(self).__name__}
+        for k, v in self.__dict__.items():
+            d[k] = list(v) if isinstance(v, tuple) else v
+        return d
+
+    @classmethod
+    def from_config(cls, d):
+        if 0.0 < (d.get("dropout") or 0.0) < 1.0:   # a retain probability
+            raise NotImplementedError("dropout is not ported yet")
+        obj = cls.__new__(cls)
+        for k, v in d.items():
+            if k == "@class":
+                continue
+            if isinstance(v, list) and k in ("kernel", "stride", "padding",
+                                             "dilation"):
+                v = tuple(v)
+            setattr(obj, k, v)
+        return obj
 
     def __repr__(self):
         return f"{type(self).__name__}(nIn={self.nIn}, nOut={self.nOut})"
@@ -168,6 +192,7 @@ class ConvolutionLayer(Layer):
         return act.get(self.activation)(out), state
 
     def output_type(self, it: InputType) -> InputType:
+        conv_ops._check_mode(self.mode)     # same mode: pooling only
         h = conv_ops.conv_output_size(it.height, self.kernel[0],
                                       self.stride[0], self.padding[0],
                                       self.dilation[0], self.mode)
@@ -178,7 +203,9 @@ class ConvolutionLayer(Layer):
 
 
 class SubsamplingLayer(Layer):
-    """ref: SubsamplingLayer (max/avg pooling)."""
+    """ref: SubsamplingLayer (max/avg pooling); ``convolutionMode="same"``
+    gives ``ceil(n / stride)`` outputs and ignores ``padding``, as XLA's
+    SAME does."""
 
     input_kind = "cnn"
     has_params = False
@@ -341,6 +368,20 @@ class OutputLayer(BaseOutputLayer):
         return act.get(self.activation)(z), state
 
 
+_LAYER_CLASSES = {cls.__name__: cls for cls in (
+    DenseLayer, ConvolutionLayer, SubsamplingLayer, BatchNormalization,
+    ActivationLayer, GlobalPoolingLayer, OutputLayer)}
+
+
+def layer_from_config(d: Dict) -> Layer:
+    """A layer from its JSON dict (the JAX package's ``to_config``)."""
+    name = d["@class"]
+    if name not in _LAYER_CLASSES:
+        raise NotImplementedError(f"layer class {name!r} is not ported "
+                                  f"(known: {sorted(_LAYER_CLASSES)})")
+    return _LAYER_CLASSES[name].from_config(d)
+
+
 # ------------------------------------------------------------- dtype policy
 # Master params stay fp32. BatchNorm keeps fp32 params and casts inside
 # its ops (activations stay in the compute dtype through it); the output
@@ -491,6 +532,35 @@ def fused_bn_act(bn, params, state, x, train, alpha: float, bias=None):
     out = registry.get("scale_shift_act")(x, scale, shift, alpha=alpha,
                                           axis=axis)
     return out, new_state
+
+
+def build_epilogue_plan(layers, preprocessors=()
+                        ) -> Dict[int, Tuple[int, bool, float]]:
+    """The sequential fusion plan (the JAX package's, nn/layers.py:1778):
+    ``{start_index: (n_layers_consumed, conv_leads, alpha)}``, 3 for a
+    conv(identity, bias) + BN + relu/leaky triple (the bias folds), 2 for
+    a BN + act pair. A block with an input preprocessor at an interior
+    index cannot fuse (the fused dispatch would skip it); one at the
+    block's start runs before the block either way."""
+    plan: Dict[int, Tuple[int, bool, float]] = {}
+    pre = frozenset(preprocessors)
+    i = 0
+    while i < len(layers):
+        if (i + 2 < len(layers) and fusable_conv(layers[i])
+                and layers[i].has_bias and fusable_bn(layers[i + 1])
+                and activation_alpha(layers[i + 2]) is not None
+                and not (pre & {i + 1, i + 2})):
+            plan[i] = (3, True, activation_alpha(layers[i + 2]))
+            i += 3
+            continue
+        if (i + 1 < len(layers) and fusable_bn(layers[i])
+                and activation_alpha(layers[i + 1]) is not None
+                and i + 1 not in pre):
+            plan[i] = (2, False, activation_alpha(layers[i + 1]))
+            i += 2
+            continue
+        i += 1
+    return plan
 
 
 def conv_bias_add(layer, out, b):

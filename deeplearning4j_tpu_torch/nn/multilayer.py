@@ -1,0 +1,184 @@
+"""MultiLayerNetwork — the sequential network and its training step (the
+slice's subset of ``deeplearning4j_tpu/nn/multilayer.py``).
+
+As in :mod:`.graph`, the JAX package's one compiled step becomes an eager
+one: ``fit`` runs the forward, ``torch.autograd.grad`` of the loss,
+gradient normalization and the updater in place on the fp32 master
+params. The forward (``_forward``) follows the JAX one layer for layer:
+the NHWC compute layout, the fp32 islands of the dtype policy, and the
+sequential epilogue plan (``nn.layers.build_epilogue_plan``), in which a
+conv(identity, bias) + BN + relu/leaky triple runs as one conv without
+its bias and one ``scale_shift_act`` dispatch.
+
+Not ported yet (ROADMAP.md): megasteps (``steps_per_dispatch`` > 1),
+dynamic loss scaling, TBPTT and ``rnnTimeStep``, listeners, resilience,
+sharding, augmentation, ``evaluate``, ``save``/``load`` and ``clone``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import torch
+
+from deeplearning4j_tpu_torch.data.dataset import DataSet
+from deeplearning4j_tpu_torch.device import resolve_device
+from deeplearning4j_tpu_torch.nn import layers as L
+from deeplearning4j_tpu_torch.nn.config import MultiLayerConfiguration
+from deeplearning4j_tpu_torch.nn.network import BaseNetwork
+
+
+class MultiLayerNetwork(BaseNetwork):
+    """Sequential network (ref: org.deeplearning4j.nn.multilayer.
+    MultiLayerNetwork). Parameters and layer states are lists (one dict a
+    layer) on the network's device."""
+
+    def __init__(self, conf: MultiLayerConfiguration):
+        super().__init__(conf)
+        self.layers = conf.layers
+        self._params: List[Dict[str, torch.Tensor]] = []
+        self._states: List[Dict[str, torch.Tensor]] = []
+        fmt = getattr(conf.base, "compute_layout", None)
+        if fmt and fmt != "NCHW":
+            self.setComputeLayout(fmt)
+
+    def _layers(self):
+        return list(enumerate(self.layers))
+
+    def _leaf_keys(self):
+        """Layers in order, each layer's param names sorted (the JAX
+        pytree's leaf order)."""
+        return [(i, k) for i, p in enumerate(self._params) for k in sorted(p)]
+
+    # ------------------------------------------------------------------ init
+    def init(self, seed: int = None, device=None) -> "MultiLayerNetwork":
+        """Initialize params (from a seeded ``torch.Generator``; the draws
+        differ from the JAX package's, see :meth:`params_from_jax`) and
+        layer states on ``device``: the card unless the caller names
+        another; without a card and without ``device`` this raises."""
+        self._device = resolve_device(device)
+        seed = self.conf.base.seed if seed is None else seed
+        gen = torch.Generator().manual_seed(int(seed))
+        self._params, self._states = [], []
+        for layer in self.layers:
+            p, s = layer.initialize(gen)
+            self._params.append({k: v.to(self._device).requires_grad_(True)
+                                 for k, v in p.items()})
+            self._states.append({k: v.to(self._device) for k, v in s.items()})
+        self._opt_state = None
+        self._iteration = 0
+        self._initialized = True
+        return self
+
+    def params_from_jax(self, params, states, device=None
+                        ) -> "MultiLayerNetwork":
+        """Carry the JAX package's per-layer lists of param dicts and
+        state dicts over (each leaf through ``np.asarray``, as fp32) into
+        this network on ``device``. The updater state and the iteration
+        count start afresh."""
+        if len(params) != len(self.layers) or len(states) != len(self.layers):
+            raise ValueError(f"{len(params)} param and {len(states)} state "
+                             f"dicts for {len(self.layers)} layers")
+        self._device = resolve_device(device)
+        self._adopt_jax(params, states)
+        return self
+
+    # --------------------------------------------------------------- forward
+    def _forward(self, params, states, x, train: bool):
+        cdt = self._compute_dtype()
+        if cdt is None and x.dtype == torch.uint8:
+            x = x.float()                  # image bytes (fp32 nets)
+        nhwc = self._compute_layout == "NHWC"
+        plan = self._ensure_epilogue_plan() if self._fuse_epilogues else {}
+        new_states: List[Optional[Dict]] = [None] * len(self.layers)
+        cur_nhwc = False
+        i = 0
+        while i < len(self.layers):
+            layer = self.layers[i]
+            x, cur_nhwc = L.layout_step(layer, x, cur_nhwc, nhwc)
+            fuse = plan.get(i)
+            if fuse is not None:
+                n_used, conv_leads, alpha = fuse
+                bn_idx, bias = i, None
+                if conv_leads:
+                    p = params[i]
+                    if cdt is not None:
+                        p, x = L.policy_cast(layer, p, x, cdt)
+                    x, new_states[i] = layer.apply(p, states[i], x, train,
+                                                   skip_bias=True)
+                    bias = p.get("b")
+                    bn_idx = i + 1
+                bn = self.layers[bn_idx]
+                pbn = params[bn_idx]
+                if cdt is not None:
+                    pbn, x = L.policy_cast(bn, pbn, x, cdt)
+                x, new_states[bn_idx] = L.fused_bn_act(
+                    bn, pbn, states[bn_idx], x, train, alpha, bias=bias)
+                for j in range(bn_idx + 1, i + n_used):
+                    new_states[j] = states[j]       # the folded activation
+                i += n_used
+                continue
+            p = params[i]
+            if cdt is not None:
+                p, x = L.policy_cast(layer, p, x, cdt)
+            x, new_states[i] = layer.apply(p, states[i], x, train)
+            i += 1
+        if cur_nhwc and x.dim() == 4:
+            x = L.to_nchw(x)
+        return x, new_states
+
+    def feedForward(self, x, train: bool = False) -> List[torch.Tensor]:
+        """Every layer's activation, the input first (ref: feedForward),
+        in the public NCHW layout; unfused, as in the JAX package."""
+        self._require_init()
+        cur = self._to_device(x)
+        acts = [cur]
+        nhwc = self._compute_layout == "NHWC"
+        cur_nhwc = False
+        with torch.no_grad():
+            for i, layer in enumerate(self.layers):
+                cur, cur_nhwc = L.layout_step(layer, cur, cur_nhwc, nhwc)
+                cur, _ = layer.apply(self._params[i], self._states[i], cur,
+                                     train)
+                cur_nhwc = cur_nhwc and cur.dim() == 4
+                acts.append(L.to_nchw(cur) if cur_nhwc else cur)
+        return acts
+
+    def output(self, x, train: bool = False) -> torch.Tensor:
+        """Inference forward (ref: MultiLayerNetwork.output), on the
+        network's device."""
+        self._require_init()
+        with torch.no_grad():
+            out, _ = self._forward(self._params, self._states,
+                                   self._to_device(x), train)
+        return out
+
+    # ------------------------------------------------------------------ loss
+    def _loss_and_reg(self, params, states, x, y, train, lmask=None):
+        out, new_states = self._forward(params, states, x, train)
+        out_layer = self.layers[-1]
+        if not isinstance(out_layer, L.BaseOutputLayer):
+            raise ValueError("last layer must be an output/loss layer for "
+                             "fit()")
+        loss = out_layer.compute_loss(y, out, mask=lmask)
+        reg = self._regularization(zip(self.layers, params))
+        return loss + reg, new_states
+
+    def _ds_inputs(self, ds: DataSet, train: bool):
+        masks = self._to_device(ds.labels_mask) \
+            if ds.labels_mask is not None else None
+        return (self._to_device(ds.features), self._to_device(ds.labels),
+                masks)
+
+    # --------------------------------------------------------- configuration
+    def _ensure_epilogue_plan(self):
+        if self._epilogue_plan is None:
+            self._epilogue_plan = L.build_epilogue_plan(
+                self.layers, self.conf.preprocessors)
+        return self._epilogue_plan
+
+    def getLayer(self, i: int):
+        return self.layers[i]
+
+    def getParam(self, i: int, name: str) -> torch.Tensor:
+        return self._params[i][name]

@@ -10,11 +10,17 @@ to torch as its NCHW-shaped permuted view, which is ``channels_last`` in
 memory when the NHWC tensor is contiguous, so cuDNN runs channels-last
 and the result permutes back to a contiguous NHWC tensor without a copy.
 
-Padding follows DL4J's ``ConvolutionMode``: only ``truncate`` (explicit
-symmetric padding, floor-divided output) is ported.
+Padding follows DL4J's ``ConvolutionMode``: ``truncate`` (explicit
+symmetric padding, floor-divided output) for convolutions and pooling,
+and ``same`` for pooling: XLA's SAME, which ignores the explicit padding
+and pads ``max((ceil(n/s)-1)*s + k - n, 0)`` per spatial dim, half of it
+(rounded down) before and the rest after. Torch's pools pad only
+symmetrically, so same mode pads with ``F.pad`` first.
 """
 
 from __future__ import annotations
+
+import math
 
 from typing import Sequence, Tuple, Union
 
@@ -40,10 +46,13 @@ def _channels_first(data_format: str) -> bool:
     return fmt == "NCHW"
 
 
-def _check_mode(mode: str) -> None:
-    if mode.lower() not in ("truncate", "strict"):
+def _check_mode(mode: str, pooling: bool = False) -> None:
+    ported = ("truncate", "strict", "same") if pooling \
+        else ("truncate", "strict")
+    if mode.lower() not in ported:
         raise NotImplementedError(
-            f"convolution mode {mode!r}: only 'truncate' is ported")
+            f"{'pooling' if pooling else 'convolution'} mode {mode!r}: only "
+            f"{', '.join(repr(m) for m in ported)} ported")
 
 
 def _to_torch(x, cf: bool):
@@ -96,13 +105,21 @@ def avgpool2d(x, *, kernel: IntOrPair, stride: IntOrPair = None,
     return _pool(x, "avg", kernel, stride, pad, mode, data_format)
 
 
+def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
+    """XLA's SAME padding of one spatial dim: ``(before, after)``."""
+    total = max((math.ceil(size / stride) - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
 def _pool(x, kind: str, kernel, stride, pad, mode, data_format):
-    _check_mode(mode)
+    _check_mode(mode, pooling=True)
     cf = _channels_first(data_format)
     kernel = _pair(kernel)
     stride = _pair(stride if stride is not None else kernel)
     pad = _pair(pad)
     xt = _to_torch(x, cf)
+    if mode.lower() == "same":
+        return _from_torch(_pool_same(xt, kind, kernel, stride), cf)
     if kind == "max":
         out = F.max_pool2d(xt, kernel, stride, pad)
     elif kind == "avg":
@@ -110,6 +127,27 @@ def _pool(x, kind: str, kernel, stride, pad, mode, data_format):
     else:
         raise ValueError(kind)
     return _from_torch(out, cf)
+
+
+def _pool_same(xt, kind: str, kernel, stride):
+    """Same-mode pooling of an NCHW-shaped tensor: pad asymmetrically
+    (``-inf`` for max, zeros for avg), pool with no padding; avg divides
+    each window's fp32 sum by its count of real elements."""
+    (pt, pb), (pl, pr) = (same_padding(n, k, s) for n, k, s in
+                          zip(xt.shape[2:], kernel, stride))
+    spatial = (pl, pr, pt, pb)
+    if kind == "max":
+        return F.max_pool2d(F.pad(xt, spatial, value=-math.inf), kernel,
+                            stride)
+    if kind != "avg":
+        raise ValueError(kind)
+    sums = F.avg_pool2d(F.pad(xt.float(), spatial), kernel, stride,
+                        divisor_override=1)
+    ones = torch.ones((1, 1) + tuple(xt.shape[2:]), dtype=torch.float32,
+                      device=xt.device)
+    counts = F.avg_pool2d(F.pad(ones, spatial), kernel, stride,
+                          divisor_override=1)
+    return (sums / counts).to(xt.dtype)
 
 
 def global_pool(x, pooling_type: str = "avg", data_format: str = "NCHW",
@@ -129,8 +167,11 @@ def global_pool(x, pooling_type: str = "avg", data_format: str = "NCHW",
 def conv_output_size(size: int, kernel: int, stride: int, pad: int,
                      dilation: int = 1, mode: str = "truncate") -> int:
     """Shape inference for conv/pool (ref: ``ConvolutionUtils.
-    getOutputSize``), which rejects a spatial output of zero."""
-    _check_mode(mode)
+    getOutputSize``), which rejects a spatial output of zero; same mode
+    gives ``ceil(size / stride)`` whatever the kernel and padding."""
+    _check_mode(mode, pooling=True)
+    if mode.lower() == "same":
+        return -(-size // stride)
     eff_k = kernel + (kernel - 1) * (dilation - 1)
     out = (size + 2 * pad - eff_k) // stride + 1
     if out <= 0:

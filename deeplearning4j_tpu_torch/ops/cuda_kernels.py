@@ -18,13 +18,20 @@ each Pallas kernel on the path becomes a CUDA C++ kernel for Hopper
   launcher returns ``cudaGetLastError()`` and the wrapper raises on
   anything but 0.
 - **Wrappers.** ``layer_norm_fwd``, ``flash_attention_fwd``,
-  ``scale_shift_act_fwd`` and ``softmax_fwd`` check device, dtype, shape
-  and contiguity, allocate their outputs with ``torch.empty`` and launch
-  on the current stream. A tensor on the CPU takes the kernel's plain
+  ``scale_shift_act_fwd``, ``softmax_fwd``, ``bn_stats`` and
+  ``bn_apply_leaky`` check device, dtype, shape and contiguity, allocate
+  their outputs (and scratch) with ``torch.empty`` and launch on the
+  current stream. A tensor on the CPU takes the kernel's plain
   PyTorch version (``*_plain``) instead; there is no fallback from a CUDA
   tensor. ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` counts
-  plain-version calls made by the wrappers; ``FLASH_ROUTES`` splits the
-  flash launches by route (:func:`flash_route`).
+  plain-version calls made by the wrappers, one a wrapper call, keyed by
+  ``KERNELS``: a ``bn_stats`` count covers its two ``__global__``
+  kernels (the partial sums and the final sum). ``FLASH_ROUTES`` splits
+  the flash launches by route (:func:`flash_route`).
+- **Names.** ``KERNELS`` are the counter keys, one a wrapper;
+  ``SOURCES`` are the ``.cu`` files, one library each. :func:`build`,
+  :func:`ptxas_report` and ``_lib`` take source names (``bn_stats`` and
+  ``bn_apply_leaky`` both live in ``bn_leaky``).
 - **Gates.** ``supported`` / ``flash_supported`` /
   ``scale_shift_act_supported`` / ``softmax_supported`` decide, as in the
   JAX package, which calls the kernels take; masked attention and
@@ -32,6 +39,12 @@ each Pallas kernel on the path becomes a CUDA C++ kernel for Hopper
   gate, :func:`flash_route` picks the tensor-core kernel (bf16 whose
   16-byte copies align) or the CUDA-core kernel (the rest) before launch;
   a launch that fails raises and is never retried on the other route.
+
+The BN+leaky probe's two kernels (``csrc/bn_leaky.cu``: ``bn_stats``
+and ``bn_apply_leaky``, the port of ``benchmarks/probe_bn_leaky.py``'s
+Pallas passes) are not installed over any op: the probe
+(``deeplearning4j_tpu_torch.benchmarks.probe_bn_leaky``) calls them, as
+the JAX package never routes BN through the probe's kernels.
 
 Gradients: each override runs its kernel under a
 ``torch.autograd.Function`` whose backward is composed torch, as the JAX
@@ -63,7 +76,12 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-KERNELS = ("layer_norm", "flash_attention", "scale_shift_act", "softmax")
+#: kernel sources, one library each (``csrc/<name>.cu``)
+SOURCES = ("layer_norm", "flash_attention", "scale_shift_act", "softmax",
+           "bn_leaky")
+#: counter keys of ``LAUNCHES``/``PLAIN_CALLS``, one a wrapper
+KERNELS = ("layer_norm", "flash_attention", "scale_shift_act", "softmax",
+           "bn_stats", "bn_apply_leaky")
 
 #: kernel launches made by the wrappers (CUDA tensors only)
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -122,9 +140,9 @@ def _lib_path(name: str) -> Path:
 
 def build() -> Dict[str, Path]:
     """Compile every kernel source not yet built (in parallel) and
-    return each kernel's library path. Raises on a missing ``nvcc`` or a
+    return each source's library path. Raises on a missing ``nvcc`` or a
     failed compile, with the compiler's output."""
-    paths = {name: _lib_path(name) for name in KERNELS}
+    paths = {name: _lib_path(name) for name in SOURCES}
     todo = {n: p for n, p in paths.items() if not p.exists()}
     if todo:
         nvcc = _nvcc()
@@ -154,7 +172,7 @@ def build() -> Dict[str, Path]:
 
 def ptxas_report(name: str) -> List[Tuple[str, int, int, int]]:
     """(kernel, registers, spill-store bytes, spill-load bytes) of every
-    kernel in ``name``'s library, from the ``-Xptxas -v`` output kept at
+    kernel in source ``name``'s library, from the ``-Xptxas -v`` output kept at
     build time (empty if the library was built before that was kept)."""
     log = _lib_path(name).with_suffix(".log")
     if not log.exists():
@@ -178,6 +196,8 @@ def ptxas_report(name: str) -> List[Tuple[str, int, int, int]]:
 
 
 def _lib(name: str) -> ctypes.CDLL:
+    """The loaded library of source ``name``, building every source at
+    first use."""
     with _LIB_LOCK:
         lib = _LIBS.get(name)
         if lib is None:
@@ -204,8 +224,15 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     elif name == "softmax":
         fn = lib.dl4j_softmax_fwd
         fn.argtypes = [P, P, LL, I, I, P]
+    elif name == "bn_leaky":
+        lib.dl4j_bn_chunks.argtypes = [LL, I]
+        lib.dl4j_bn_chunks.restype = LL
+        lib.dl4j_bn_stats.argtypes = [P, LL, LL, I, P, P, P, P]
+        lib.dl4j_bn_stats.restype = I
+        fn = lib.dl4j_bn_apply_leaky
+        fn.argtypes = [P, P, P, P, LL, LL, F, I, P]
     else:
-        raise KeyError(f"no binding for kernel {name!r}")
+        raise KeyError(f"no binding for source {name!r}")
     fn.restype = I
     return lib
 
@@ -711,6 +738,91 @@ def make_softmax_override():
         return _SoftmaxKernel.apply(x.view(-1, x.shape[-1])).view(x.shape)
 
     return softmax
+
+
+# ------------------------------------------------ the BN+leaky probe's pair
+def bn_stats_plain(x2d) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The statistics kernel's function in plain PyTorch: per row of x
+    [C, M], ``sum(x)`` and ``sum(x*x)`` of x read as fp32, fp32 [C]
+    each."""
+    x32 = x2d.float()
+    return x32.sum(dim=1), x32.square().sum(dim=1)
+
+
+def bn_apply_leaky_plain(x2d, scale, shift, alpha: float = 0.1):
+    """The apply kernel's function in plain PyTorch: ``x*scale + shift``
+    per row with fp32 scale and shift, rounded once to fp32 (product and
+    sum in fp64, which is what the kernel's fp32 FMA gives), then ``y > 0
+    ? y : alpha*y`` in fp32 (NaN stays NaN), rounded once to x's
+    dtype."""
+    y = torch.addcmul(shift.double()[:, None], x2d.double(),
+                      scale.double()[:, None]).float()
+    return torch.where(y > 0, y, y * float(alpha)).to(x2d.dtype)
+
+
+def _check_bn_x(name: str, x2d) -> None:
+    if x2d.dim() != 2 or x2d.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{name}: want a 2-D fp32/bf16 x [C, M], got "
+                         f"{tuple(x2d.shape)} {x2d.dtype}")
+    if min(x2d.shape) < 1:
+        raise ValueError(f"{name}: empty x {tuple(x2d.shape)}")
+    if not x2d.is_contiguous():
+        raise ValueError(f"{name}: x must be contiguous (channel-major)")
+
+
+def bn_stats(x2d) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel ``(sum(x), sum(x*x))`` over x [C, M] (fp32/bf16,
+    contiguous), fp32 [C] each, the same bits on every run."""
+    if x2d.device.type == "cpu":
+        _bump(PLAIN_CALLS, "bn_stats")
+        return bn_stats_plain(x2d)
+    if x2d.device.type != "cuda":
+        raise RuntimeError(f"bn_stats: no kernel for device {x2d.device}")
+    _check_bn_x("bn_stats", x2d)
+    c, m = x2d.shape
+    lib = _lib("bn_leaky")
+    dtype = _DTYPE_CODE[x2d.dtype]
+    chunks = int(lib.dl4j_bn_chunks(m, dtype))
+    partials = torch.empty(2 * c * chunks, dtype=torch.float32,
+                           device=x2d.device)
+    sums = torch.empty(c, dtype=torch.float32, device=x2d.device)
+    sumsq = torch.empty(c, dtype=torch.float32, device=x2d.device)
+    with torch.cuda.device(x2d.device):
+        rc = lib.dl4j_bn_stats(x2d.data_ptr(), c, m, dtype,
+                               partials.data_ptr(), sums.data_ptr(),
+                               sumsq.data_ptr(), _stream(x2d.device))
+    _check_launch("bn_stats", rc)
+    _bump(LAUNCHES, "bn_stats")
+    return sums, sumsq
+
+
+def bn_apply_leaky(x2d, scale, shift, alpha: float = 0.1):
+    """``y = x*scale + shift`` per channel row of x [C, M] (fp32/bf16,
+    contiguous) with fp32 scale and shift [C], then ``y > 0 ? y :
+    alpha*y``; y in x's dtype."""
+    if x2d.device.type == "cpu":
+        _bump(PLAIN_CALLS, "bn_apply_leaky")
+        return bn_apply_leaky_plain(x2d, scale, shift, alpha)
+    if x2d.device.type != "cuda":
+        raise RuntimeError(f"bn_apply_leaky: no kernel for device "
+                           f"{x2d.device}")
+    _check_bn_x("bn_apply_leaky", x2d)
+    c, m = x2d.shape
+    for t, what in ((scale, "scale"), (shift, "shift")):
+        if t.device != x2d.device or tuple(t.shape) != (c,) \
+                or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"bn_apply_leaky: {what} must be a contiguous "
+                             f"[{c}] float32 tensor on {x2d.device}")
+    y = torch.empty_like(x2d)
+    lib = _lib("bn_leaky")
+    with torch.cuda.device(x2d.device):
+        rc = lib.dl4j_bn_apply_leaky(x2d.data_ptr(), scale.data_ptr(),
+                                     shift.data_ptr(), y.data_ptr(), c, m,
+                                     float(alpha), _DTYPE_CODE[x2d.dtype],
+                                     _stream(x2d.device))
+    _check_launch("bn_apply_leaky", rc)
+    _bump(LAUNCHES, "bn_apply_leaky")
+    return y
 
 
 # ------------------------------------------------------------ installation

@@ -1,25 +1,32 @@
-"""Where one ResNet-50 training step spends its time on the card.
+"""Where one training step of ResNet-50 or TinyYOLO spends its time on
+the card.
 
 Usage (on a machine with a CUDA card, from the root of a checkout)::
 
-    python3 -m deeplearning4j_tpu_torch.profile_fit
+    python3 -m deeplearning4j_tpu_torch.profile_fit [--model tiny_yolo]
 
-Builds ``zoo.ResNet50(num_classes=1000)`` (random weights from its
-seed) in the bf16 / NHWC / fused-epilogue configuration with the CUDA
-kernels installed, times ``net.fit`` on one [64, 3, 224, 224] batch
-(host clock around the step and the ``score()`` that waits for it,
-median of 5 after 2 warm steps) and traces one more step with
-``torch.profiler``. The trace's device time is summed by kernel name and
-by group, each kernel going to the first group its launching op or one
-of that op's callers names: the ``scale_shift_act`` kernel, its
-composed backward, the BN statistics (``channel_moments``, forward and
-backward), the optimizer (``_process_and_apply_grads``), cuDNN
-convolutions (forward and backward) and the rest. It prints one JSON
-object. Without a card it exits non-zero.
+Builds ``zoo.ResNet50(num_classes=1000)`` (the default; a
+``ComputationGraph``, one [64, 3, 224, 224] batch of one-hot labels) or
+``zoo.TinyYOLO(num_classes=20)`` (``--model tiny_yolo``; a
+``MultiLayerNetwork``, one [32, 3, 416, 416] batch whose YOLO labels hold
+1-3 boxes an image), random weights from the zoo's seed, in the bf16 /
+NHWC / fused-epilogue configuration with the CUDA kernels installed;
+times ``net.fit`` on that batch (host clock around the step and the
+``score()`` that waits for it, median of 5 after 2 warm steps) and
+traces one more step with ``torch.profiler``. The trace's device time is
+summed by kernel name and by group, each kernel going to the first group
+its launching op or one of that op's callers names: the
+``scale_shift_act`` kernel, its composed backward, the BN statistics
+(``channel_moments``, forward and backward), the optimizer
+(``_process_and_apply_grads``), the YOLO loss's forward
+(``Yolo2OutputLayer.compute_loss``; its backward runs as generic autograd
+ops and lands in "rest"), cuDNN convolutions (forward and backward) and
+the rest. It prints one JSON object. Without a card it exits non-zero.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -30,11 +37,12 @@ import torch
 
 from deeplearning4j_tpu_torch.data.dataset import DataSet
 from deeplearning4j_tpu_torch.models import zoo
-from deeplearning4j_tpu_torch.nn import graph as graph_mod
+from deeplearning4j_tpu_torch.nn import network as network_mod
+from deeplearning4j_tpu_torch.nn.objdetect import Yolo2OutputLayer, yolo_labels
 from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
 from deeplearning4j_tpu_torch.ops import normalization as norm_ops
 
-BATCH = 64
+BATCH = {"resnet50": 64, "tiny_yolo": 32}
 WARM = 2
 ITERS = 5
 
@@ -44,6 +52,7 @@ _SCOPES = (("scale_shift_act backward (composed)", "ScaleShiftAct"),
            ("bn_stats", "ChannelMoments"),
            ("bn_stats", _LABEL + "bn_stats"),
            ("optimizer", _LABEL + "optimizer"),
+           ("yolo loss (forward)", _LABEL + "yolo_loss"),
            ("conv (cuDNN)", "convolution"))
 
 
@@ -76,12 +85,16 @@ def _device_us(ev) -> float:
 def profile(net, ds) -> dict:
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    # label the BN statistics and the optimizer for the trace only
-    moments = norm_ops.channel_moments
-    apply_grads = graph_mod.ComputationGraph._process_and_apply_grads
-    norm_ops.channel_moments = _scoped(moments, _LABEL + "bn_stats")
-    graph_mod.ComputationGraph._process_and_apply_grads = _scoped(
-        apply_grads, _LABEL + "optimizer")
+    # label the BN statistics, the optimizer and the YOLO loss for the
+    # trace only
+    patches = [(norm_ops, "channel_moments", "bn_stats"),
+               (network_mod.BaseNetwork, "_process_and_apply_grads",
+                "optimizer"),
+               (Yolo2OutputLayer, "compute_loss", "yolo_loss")]
+    saved = [(owner, name, getattr(owner, name))
+             for owner, name, _ in patches]
+    for owner, name, label in patches:
+        setattr(owner, name, _scoped(getattr(owner, name), _LABEL + label))
     try:
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
@@ -89,8 +102,8 @@ def profile(net, ds) -> dict:
             net.score()
             traced_ms = (time.perf_counter() - t0) * 1e3
     finally:
-        norm_ops.channel_moments = moments
-        graph_mod.ComputationGraph._process_and_apply_grads = apply_grads
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
     by_kernel, n_kernels = {}, 0
     for ev in prof.key_averages():
         us = _device_us(ev)
@@ -123,7 +136,29 @@ def profile(net, ds) -> dict:
             "top_kernels_ms": [[k[:90], v] for k, v in top]}
 
 
-def main() -> int:
+def build(model: str):
+    """(net, DataSet) for ``model`` on the card, in the bench's
+    bf16 / NHWC / fused configuration."""
+    rng = np.random.default_rng(0)
+    batch = BATCH[model]
+    if model == "resnet50":
+        net = zoo.ResNet50(num_classes=1000).init()
+        x = rng.standard_normal((batch, 3, 224, 224), dtype=np.float32)
+        y = np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, batch)]
+    else:
+        net = zoo.TinyYOLO(num_classes=20).init()
+        x = rng.standard_normal((batch, 3, 416, 416), dtype=np.float32)
+        y = yolo_labels(rng, batch, 20)
+    net.setPrecisionPolicy("bf16")
+    net.setComputeLayout("NHWC")
+    net.setEpilogueFusion(True)
+    return net, DataSet(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=sorted(BATCH), default="resnet50")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_fit: needs a CUDA card", file=sys.stderr)
         return 1
@@ -131,16 +166,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     ck.install_platform_overrides()
-    net = zoo.ResNet50(num_classes=1000).init()
-    net.setPrecisionPolicy("bf16")
-    net.setComputeLayout("NHWC")
-    net.setEpilogueFusion(True)
-    rng = np.random.default_rng(0)
-    x = torch.from_numpy(rng.standard_normal((BATCH, 3, 224, 224),
-                                             dtype=np.float32)).cuda()
-    y = torch.from_numpy(np.eye(1000, dtype=np.float32)[
-        rng.integers(0, 1000, BATCH)]).cuda()
-    ds = DataSet(x, y)
+    net, ds = build(args.model)
+    batch = BATCH[args.model]
     for _ in range(WARM):
         net.fit(ds)
     net.score()
@@ -151,11 +178,12 @@ def main() -> int:
         net.fit(ds)
         net.score()
         times.append((time.perf_counter() - t0) * 1e3)
-    out = {"card": smi, "batch": BATCH,
+    out = {"card": smi, "model": args.model, "batch": batch,
            "launches_per_step": {k: v // ITERS for k, v in ck.LAUNCHES.items()},
            "step_ms_median": float(np.median(times)),
            "step_ms_min": float(np.min(times)),
-           "images_per_s": BATCH / (float(np.median(times)) / 1e3),
+           "step_ms_max": float(np.max(times)),
+           "images_per_s": batch / (float(np.median(times)) / 1e3),
            "loss": net.score()}
     out.update(profile(net, ds))
     print(json.dumps(out), flush=True)

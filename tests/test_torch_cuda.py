@@ -146,10 +146,12 @@ def test_served_tiny_lm_launches_the_kernels(dev):
             n_fwd = sv.stats()["batches"]
         assert ck.LAUNCHES == {"layer_norm": 5 * n_fwd,
                                "flash_attention": 2 * n_fwd,
-                               "scale_shift_act": 0, "softmax": 0}
+                               "scale_shift_act": 0, "softmax": 0,
+                               "bn_stats": 0, "bn_apply_leaky": 0}
         assert ck.FLASH_ROUTES == {"tensor_core": 2 * n_fwd, "cuda_core": 0}
         assert ck.PLAIN_CALLS == {"layer_norm": 0, "flash_attention": 0,
-                                  "scale_shift_act": 0, "softmax": 0}
+                                  "scale_shift_act": 0, "softmax": 0,
+                                  "bn_stats": 0, "bn_apply_leaky": 0}
         want = lm.logits(tok).argmax(-1).to(torch.int32).cpu().numpy()
         assert (got == want).mean() >= 0.99
     finally:
@@ -248,3 +250,64 @@ def test_override_gradients_flow_on_the_card(dev):
                 torch.testing.assert_close(a, e, rtol=2e-4, atol=2e-4)
     finally:
         ck.uninstall_platform_overrides()
+
+
+# the BN+leaky probe's kernels: the sums against an fp64 sum within 1e-5
+# of sum|x| (sum of squares: 1e-5 relative), the same bits on a second
+# run; the apply within 1e-6 relative in fp32 and one ulp in bf16 (both
+# round the exact x*scale+shift once), NaN where the plain version has it
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,m", [(1, 1), (16, 7), (3, 4099),
+                                 (16, 1_000_003), (1024, 5000)])
+def test_bn_stats_kernel_matches_fp64(dev, dtype, c, m):
+    x = _randn(dev, c, m, dtype=dtype, seed=24) * 1.5 + 0.25
+    ck.reset_counts()
+    s, q = ck.bn_stats(x)
+    assert ck.LAUNCHES["bn_stats"] == 1
+    assert s.dtype == q.dtype == torch.float32 and s.shape == (c,)
+    x64 = x.double()
+    s64, q64 = x64.sum(1), x64.square().sum(1)
+    assert bool(((s.double() - s64).abs()
+                 <= 1e-5 * x64.abs().sum(1)).all())
+    assert bool(((q.double() - q64).abs() <= 1e-5 * q64).all())
+    s2, q2 = ck.bn_stats(x)
+    assert torch.equal(s, s2) and torch.equal(q, q2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,m", [(1, 1), (16, 7), (3, 4099),
+                                 (16, 1_000_003)])
+def test_bn_apply_leaky_kernel_matches_plain(dev, dtype, c, m):
+    x = _randn(dev, c, m, dtype=dtype, seed=25) * 2
+    sc = _randn(dev, c, seed=26) + 1
+    sh = _randn(dev, c, seed=27)
+    ck.reset_counts()
+    y = ck.bn_apply_leaky(x, sc, sh, 0.1)
+    assert ck.LAUNCHES["bn_apply_leaky"] == 1 and y.dtype == dtype
+    rel = 1e-6 if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(y, ck.bn_apply_leaky_plain(x, sc, sh, 0.1),
+                               rtol=rel, atol=0)
+    # x and y at different offsets modulo 16 bytes: the one-element path
+    xs = x.reshape(-1)[1:].reshape(-1)[: c * m - 1]
+    if xs.numel():
+        xs = xs.reshape(1, -1)
+        torch.testing.assert_close(
+            ck.bn_apply_leaky(xs, sc[:1], sh[:1], 0.1),
+            ck.bn_apply_leaky_plain(xs, sc[:1], sh[:1], 0.1), rtol=rel,
+            atol=0)
+
+
+def test_bn_kernels_keep_nan(dev):
+    x = _randn(dev, 4, 10_000, dtype=torch.bfloat16, seed=28)
+    x[2, 1234] = float("nan")
+    s, q = ck.bn_stats(x)
+    assert bool(torch.isnan(s[2])) and bool(torch.isnan(q[2]))
+    assert bool(torch.isfinite(s[[0, 1, 3]]).all())
+    y = ck.bn_apply_leaky(x, torch.ones(4, device=dev),
+                          torch.zeros(4, device=dev), 0.1)
+    assert int(torch.isnan(y).sum()) == 1 and bool(torch.isnan(y[2, 1234]))
+    with pytest.raises(ValueError, match="float32"):
+        ck.bn_apply_leaky(x, torch.ones(4, device=dev, dtype=torch.bfloat16),
+                          torch.zeros(4, device=dev), 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        ck.bn_stats(x.t())

@@ -64,7 +64,11 @@ def test_import_leaves_jax_unloaded():
              "deeplearning4j_tpu_torch.models.transformer, "
              "deeplearning4j_tpu_torch.autodiff, "
              "deeplearning4j_tpu_torch.profile_samediff, "
-             "deeplearning4j_tpu_torch.ops.cuda_kernels; "
+             "deeplearning4j_tpu_torch.ops.cuda_kernels, "
+             "deeplearning4j_tpu_torch.nn.multilayer, "
+             "deeplearning4j_tpu_torch.nn.objdetect, "
+             "deeplearning4j_tpu_torch.models.zoo, "
+             "deeplearning4j_tpu_torch.benchmarks.probe_bn_leaky; "
              "print(sorted(m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'jaxlib', 'deeplearning4j_tpu')))", ROOT)
     assert r.returncode == 0, r.stderr

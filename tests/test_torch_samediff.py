@@ -177,7 +177,8 @@ def test_output_matches_jax(jax_graph, torch_overrides):
     # 2 attention softmaxes + the head's [2, 2] (outside the JAX gate),
     # 5 layer norms, all on the plain versions on the CPU
     assert ck.PLAIN_CALLS == {"layer_norm": 5, "softmax": 3,
-                              "flash_attention": 0, "scale_shift_act": 0}
+                              "flash_attention": 0, "scale_shift_act": 0,
+                              "bn_stats": 0, "bn_apply_leaky": 0}
     assert tuple(out["probs"].shape) == (B, CFG["n_labels"])
     np.testing.assert_allclose(_np(out["probs"]), jax_graph["probs"],
                                rtol=OUT_TOL, atol=OUT_TOL)

@@ -78,7 +78,8 @@ class TestParityWithJax:
                 n_fwd = sv.stats()["batches"]
             assert ck.PLAIN_CALLS == {"layer_norm": 5 * n_fwd,
                                       "flash_attention": 2 * n_fwd,
-                                      "scale_shift_act": 0, "softmax": 0}
+                                      "scale_shift_act": 0, "softmax": 0,
+                                      "bn_stats": 0, "bn_apply_leaky": 0}
         finally:
             ck.uninstall_platform_overrides()
         jsv = JaxModelServer(jlm.logits, batch_limit=4, input_dtype=np.int32,
