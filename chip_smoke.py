@@ -25,7 +25,8 @@ Phases (each one fails the run with a non-zero exit):
    beside its
    plain version, its roofline bound, and one PyTorch library call that
    computes the same function (a yardstick only; the port never calls it);
-   layer norm and flash attention at T=128 and T=512 (B=32). The BN+leaky
+   layer norm and flash attention at T=128 and T=512 (B=32) and at the
+   BertBench train step's B=64, T=128. The BN+leaky
    probe's kernels (``bn_stats``, ``bn_apply_leaky``) at C in {1, 16,
    1024} x M in {1, 7, 4099, 1,000,003, 5,537,792}, fp32 and bf16, and
    with a NaN, then timed at the probe's [16, 5,537,792] bf16 beside
@@ -96,6 +97,42 @@ Phases (each one fails the run with a non-zero exit):
    measured stream, both times, their shares of it and the verdict (no
    speed threshold fails the run).
 
+12. Train the BertBench BERT-base (``profile_fit.BertBench``: full width,
+   bf16, flash attention, random weights from seed 0, Adam 1e-4, B=64,
+   T=128, tokens from ``np.random.RandomState(0)``, an all-ones mask)
+   through ``models.transformer.make_train_step``, eagerly: 2 warm steps,
+   then 5 timed (host clock around a step that ends in a host read of
+   its loss). Losses finite; 12 flash launches a step, all on the tensor
+   cores, and 25 layer-norm launches; no plain call. It prints MFU (FLOPs
+   a token as bench.py counts them, against the dense bf16 peak of the
+   card), then step ms, samples/s, tokens/s, peak GB and the losses.
+13. The same step through ``CachedDispatch``, captured once: first the
+   eager step runs twice from one state (restored in place), then the
+   captured step from that state; every tensor of the state (params,
+   Adam moments, the clock) and the loss are held against the first eager
+   run by the rule below; then 5 replays are timed. The capture must
+   record 12 flash and 25 layer-norm launches, each replay adds them to
+   ``REPLAYS`` and launches nothing eagerly; 0 capture failures and, after
+   the capture, 0 new captures and one churn signature.
+14. ResNet-50 (B=64) and TinyYOLO (B=32, 416²) in their phase 4 and 9
+   configurations, ``fit(steps_per_dispatch=4)``: from one state (restored
+   in place), 8 single eager steps twice, then ``compilecache.warmup``
+   (which must leave the state bit-equal) and 2 captured megasteps of 4;
+   params, BN statistics, Adam moments, the clock and the 8 per-step
+   losses held against the first eager run by the rule below; then 8
+   steps each way timed. The capture must record 4 x 33 (ResNet-50) and 4
+   x 8 (TinyYOLO) ``scale_shift_act`` launches and nothing else; 0
+   capture failures, 0 new captures after warmup, one churn signature.
+
+The captured-against-eager rule: where the two eager runs agree to the
+bit on a tensor (and on the params' group: the param and its Adam
+moments), the captured run must too; where they do not (atomics in a
+backward sum in another order each run), the phase names the tensors and
+holds the captured run within twice the eager-against-eager max
+difference of each, and at least one unit in the last place of the
+tensor's dtype at its largest magnitude (a rounding flip the two eager
+runs happened not to make).
+
 Tolerances: layer norm and flash fp32 ``rtol=atol=2e-5`` (as
 ``tests/test_pallas.py``), bf16 ``rtol=atol=2e-2`` (a few bf16 ulps: both
 sides round the same fp32 value, summed in another order), lse 1e-5
@@ -147,6 +184,8 @@ SD_STEPS = 6
 YOLO_BATCH = 32
 YOLO_STEPS = 5
 YOLO_CLASSES = 20
+BERT_STEPS = 5
+MEGA_K = 4
 
 
 def fail(msg: str) -> None:
@@ -317,11 +356,12 @@ def main() -> None:
         row.update(bound(nbytes, ops, peak))
         return row
 
-    # timing at the serving path's shapes, B=32 and T in (128, 512): LN on
-    # [B*T, E] fp32; flash on H=12, D=64 bf16, non-causal (the first row
-    # of each is the kernels line's; the T=512 row goes under other_shapes)
+    # timing at the serving path's shapes, B=32 and T in (128, 512), and
+    # the BertBench train step's, B=64 and T=128: LN on [B*T, E] fp32;
+    # flash on H=12, D=64 bf16, non-causal (the first row of each is the
+    # kernels line's; the others go under other_shapes)
     ln_rows = []
-    for N in (32 * 128, 32 * 512):
+    for N in (32 * 128, 32 * 512, 64 * 128):
         E = 768
         x = rand(N, E, scale=2.0, shift=0.5)
         g, b = rand(E, scale=0.5, shift=1.0), rand(E, scale=0.1)
@@ -340,8 +380,8 @@ def main() -> None:
           **ln_rows[0], "other_shapes": ln_rows[1:]}
 
     fa_rows = []
-    for T in (128, 512):
-        B, H, D = 32, 12, 64
+    for B, T in ((32, 128), (32, 512), (64, 128)):
+        H, D = 12, 64
         q, k, v = (rand(B, T, H, D, dtype=torch.bfloat16) for _ in range(3))
         ck.reset_counts()
         err = check(f"flash_attention [{B}, {T}, {H}, {D}]",
@@ -1117,6 +1157,34 @@ def main() -> None:
     log(f"probe: {probe['calls']} calls, one bn_stats and one bn_apply_leaky "
         f"launch each [{smi}]")
 
+    # ------------------------ 12-13. the BertBench step, eager and captured
+    bert_train(smi)
+    torch.cuda.empty_cache()
+
+    # -------------------- 14. ResNet-50 and TinyYOLO, 4 steps a dispatch
+    rng = np.random.default_rng(0)
+    x_r = torch.from_numpy(rng.standard_normal(
+        (RESNET_BATCH, 3, 224, 224), dtype=np.float32)).to(dev)
+    y_r = torch.from_numpy(np.eye(1000, dtype=np.float32)[
+        rng.integers(0, 1000, RESNET_BATCH)]).to(dev)
+
+    def resnet():
+        net = zoo.ResNet50(num_classes=1000).init()
+        net.setPrecisionPolicy("bf16")
+        net.setComputeLayout("NHWC")
+        net.setEpilogueFusion(True)
+        return net
+    rng = np.random.default_rng(0)
+    x_y = torch.from_numpy(rng.standard_normal(
+        (YOLO_BATCH, 3, 416, 416), dtype=np.float32)).to(dev)
+    y_y = torch.from_numpy(yolo_labels(rng, YOLO_BATCH, YOLO_CLASSES)).to(dev)
+    for name, build, ds, per_step in (
+            ("ResNet-50", resnet, DataSet(x_r, y_r), 33),
+            ("TinyYOLO", tiny_yolo, DataSet(x_y, y_y), 8)):
+        captured_fit(name, build(), ds, per_step, smi)
+    del x_r, y_r, x_y, y_y
+    torch.cuda.empty_cache()
+
     ln["launches"] = launches["layer_norm"]
     fa["launches"] = launches["flash_attention"]
     ssa["launches"] = fit_launches["scale_shift_act"]
@@ -1134,6 +1202,284 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def bert_train(smi: str) -> None:
+    """Phases 12 and 13: the BertBench step eagerly, then captured."""
+    import torch
+
+    from deeplearning4j_tpu_torch.analysis import churn
+    from deeplearning4j_tpu_torch.nn import compilecache as cc
+    from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+    from deeplearning4j_tpu_torch.profile_fit import (BertBench,
+                                                      dense_bf16_peak,
+                                                      train_flops_per_token)
+    # -------------------------------- 12. the BertBench training step
+    bench = BertBench()
+    log(f"BertBench BERT-base: {bench.n_params} parameters, bf16, flash, "
+        f"B={bench.batch}, T={bench.seq}, Adam 1e-4")
+    b_losses = [float(bench.step()) for _ in range(2)]
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_counts()
+    b_ms = []
+    for _ in range(BERT_STEPS):
+        t0 = time.perf_counter()
+        b_losses.append(float(bench.step()))     # a float: waits for it
+        b_ms.append((time.perf_counter() - t0) * 1e3)
+    b_launches, b_routes = dict(ck.LAUNCHES), dict(ck.FLASH_ROUTES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(np.isfinite(b_losses)):
+        fail(f"BertBench losses not finite: {b_losses}")
+    want = {k: 0 for k in ck.KERNELS}
+    want.update(flash_attention=12 * BERT_STEPS, layer_norm=25 * BERT_STEPS)
+    if b_launches != want or any(ck.PLAIN_CALLS.values()) \
+            or b_routes != {"tensor_core": 12 * BERT_STEPS, "cuda_core": 0}:
+        fail(f"BertBench launch counts {b_launches}, routes {b_routes} "
+             f"(plain {dict(ck.PLAIN_CALLS)}) over {BERT_STEPS} steps: want "
+             "12 tensor-core flash and 25 layer_norm launches a step")
+    eager_ms = float(np.median(b_ms))
+    tokens = bench.batch * bench.seq
+    flops = train_flops_per_token(bench.cfg, bench.seq)
+    peak = dense_bf16_peak(torch.cuda.get_device_name(0))
+    log(f"BertBench MFU {flops * tokens / (eager_ms / 1e3) / peak:.4f} "
+        f"({flops:.4g} FLOPs a token, bench.py's count, against "
+        f"{peak / 1e12:.0f} TFLOP/s dense bf16) [{smi}]")
+    log(f"BertBench eager step ms median {eager_ms:.2f} (min "
+        f"{min(b_ms):.2f}, max {max(b_ms):.2f}), "
+        f"{bench.batch / (eager_ms / 1e3):.1f} samples/s, "
+        f"{tokens / (eager_ms / 1e3):.1f} tokens/s, peak {peak_gb:.2f} GB; "
+        f"losses {', '.join(f'{v:.5f}' for v in b_losses)}; launches a step "
+        f"12 flash (tensor cores), 25 layer_norm [{smi}]")
+
+    # ------------------------------- 13. the BertBench step, captured
+    s0 = snapshot(bench.state())
+    held = {}
+    for run in ("eager 1", "eager 2"):
+        restore(bench.state(), s0)
+        held[run] = (float(bench.step()), snapshot(bench.state()))
+    restore(bench.state(), s0)
+    cc.reset_stats()
+    torch.cuda.reset_peak_memory_stats()
+    disp = bench.captured()
+    args = (bench.tokens, bench.targets, bench.mask)
+    t0 = time.perf_counter()
+    disp.warm(*args)
+    capture_s = time.perf_counter() - t0
+    same_after_warm = all(torch.equal(a, b)
+                          for a, b in zip(bench.state(), s0))
+    ck.reset_counts()
+    c_loss = float(disp(*args))
+    held["captured"] = (c_loss, snapshot(bench.state()))
+    names = tree_names(bench.params) + tree_names(bench.opt) + ["t"]
+    hold_captured("BertBench", held, names,
+                  [n.rsplit(".", 1)[0] if n.endswith((".m", ".v")) else n
+                   for n in names])
+    churn.get_churn_detector().record(
+        "bert.train_step", churn.array_fingerprint(*args), owner=disp)
+    c_ms = []
+    for _ in range(BERT_STEPS):
+        t0 = time.perf_counter()
+        loss = float(disp(*args))
+        c_ms.append((time.perf_counter() - t0) * 1e3)
+        churn.get_churn_detector().record(
+            "bert.train_step", churn.array_fingerprint(*args), owner=disp)
+        if not np.isfinite(loss):
+            fail(f"captured BertBench loss not finite: {loss}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stats = cc.cache_stats()
+    n_sig = churn.get_churn_detector().signature_count("bert.train_step",
+                                                       owner=disp)
+    at_capture = disp.launches_at_capture()
+    replays = dict(ck.REPLAYS)
+    if not same_after_warm:
+        fail("capturing the BertBench step changed its state")
+    if at_capture != [{"flash_attention": 12, "layer_norm": 25}]:
+        fail(f"the captured BertBench step recorded {at_capture}: want 12 "
+             "flash_attention and 25 layer_norm launches")
+    if any(ck.LAUNCHES.values()) or replays["flash_attention"] != \
+            12 * (BERT_STEPS + 1) or replays["layer_norm"] != \
+            25 * (BERT_STEPS + 1):
+        fail(f"replays ran launches {dict(ck.LAUNCHES)} eagerly and "
+             f"{replays} replayed over {BERT_STEPS + 1} replays")
+    if stats["capture_failures"] or stats["compile_seconds"][
+            "cold_compiles"] != 1 or n_sig != 1 \
+            or stats["memory"]["hits"] != BERT_STEPS + 1:
+        fail(f"captured BertBench: cache stats {stats}, {n_sig} churn "
+             "signatures: want one capture, no failure, every call a hit")
+    cap_ms = float(np.median(c_ms))
+    log(f"BertBench captured step ms median {cap_ms:.2f} (min "
+        f"{min(c_ms):.2f}, max {max(c_ms):.2f}), "
+        f"{bench.batch / (cap_ms / 1e3):.1f} samples/s, MFU "
+        f"{flops * tokens / (cap_ms / 1e3) / peak:.4f}, speed-up over eager "
+        f"{eager_ms / cap_ms:.3f}x; capture {capture_s:.2f} s; peak "
+        f"{peak_gb:.2f} GB; cache_stats {stats}; churn signatures {n_sig}; "
+        f"replayed launches {replays} [{smi}]")
+
+
+
+def tree_names(tree, prefix=""):
+    """Dotted names of a tree's tensors, in ``state_tensors`` order."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return [prefix]
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    return [n for k, v in items
+            for n in tree_names(v, f"{prefix}.{k}" if prefix else str(k))]
+
+
+def snapshot(tensors):
+    return [t.detach().clone() for t in tensors]
+
+
+def restore(tensors, saved) -> None:
+    import torch
+    with torch.no_grad():
+        for t, v in zip(tensors, saved):
+            t.copy_(v)
+
+
+def _ulp(t) -> float:
+    """One unit in the last place of ``t``'s dtype at its largest
+    magnitude."""
+    import torch
+    m = float(t.detach().abs().max()) if t.numel() else 0.0
+    if m == 0.0 or not np.isfinite(m):
+        return 0.0
+    bits = {torch.float32: 23, torch.bfloat16: 7, torch.float16: 10}.get(
+        t.dtype, 0)
+    return float(np.ldexp(1.0, int(np.frexp(m)[1]) - 1 - bits))
+
+
+def hold_captured(name, held, names, groups=None) -> None:
+    """The captured-against-eager rule (module docstring) over ``held``:
+    ``{"eager 1"|"eager 2"|"captured": (losses, [tensors])}``. ``groups``
+    maps a tensor index to its group key (a param and its Adam moments);
+    a group where the eager runs differ anywhere is nondeterministic."""
+    import torch
+    l1, e1 = held["eager 1"]
+    l2, e2 = held["eager 2"]
+    lc, c = held["captured"]
+    groups = groups or list(range(len(e1)))
+    noisy = {groups[i] for i, (a, b) in enumerate(zip(e1, e2))
+             if not torch.equal(a, b)}
+    bad, differ = [], []
+    for i, (a, b, x) in enumerate(zip(e1, e2, c)):
+        if groups[i] not in noisy:
+            if not torch.equal(a, x):
+                bad.append(f"{names[i]} (eager runs agree to the bit, "
+                           f"captured max|diff| "
+                           f"{float((a.float() - x.float()).abs().max()):.3g})")
+            continue
+        d_ee = float((a.float() - b.float()).abs().max())
+        d_ce = float((a.float() - x.float()).abs().max())
+        bound = max(2 * d_ee, _ulp(a))
+        differ.append(f"{names[i]} {d_ee:.3g}/{d_ce:.3g}")
+        if not d_ce <= bound:
+            bad.append(f"{names[i]} (captured {d_ce:.3g} > {bound:.3g})")
+    l1, l2, lc = (np.atleast_1d(np.asarray(v, np.float64))
+                  for v in (l1, l2, lc))
+    d_ee, d_ce = float(np.abs(l1 - l2).max()), float(np.abs(l1 - lc).max())
+    if d_ce > 2 * d_ee:
+        bad.append(f"losses (captured {d_ce:.3g} > 2 x eager {d_ee:.3g}: "
+                   f"{l1.tolist()} / {lc.tolist()})")
+    log(f"{name} captured vs eager: {len(e1)} state tensors, "
+        f"{len(e1) - len(differ)} bit-equal in all three runs; "
+        f"{len(differ)} differ between the eager runs "
+        f"(eager-eager/captured-eager max|diff|: "
+        f"{'; '.join(differ[:12])}{' ...' if len(differ) > 12 else ''}); "
+        f"losses eager-eager {d_ee:.3g}, captured-eager {d_ce:.3g}")
+    if bad:
+        fail(f"{name}: captured run beyond the rule: {'; '.join(bad[:10])}")
+
+
+def captured_fit(name, net, ds, per_step: int, smi: str) -> None:
+    """Phase 14 for one network: 8 eager steps twice and 2 captured
+    megasteps of 4 from one state, held by the rule; then timed."""
+    import torch
+
+    from deeplearning4j_tpu_torch.analysis import churn
+    from deeplearning4j_tpu_torch.nn import compilecache as cc
+    from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+    from deeplearning4j_tpu_torch.train import stepping
+    k, steps = MEGA_K, 2 * MEGA_K
+    net._ensure_opt_state()
+    net._ensure_clock()
+    names = [f"{n}.{p}" for n, ps in net._items(net._params) for p in ps]
+    names += [f"{n}.{s}" for n, ss in net._items(net._states) for s in ss]
+    names += [f"{n}.{p}.{m}" for n, ps in net._items(net._opt_state)
+              for p, st in ps.items() for m in st]
+    names.append("t")
+    groups = [nm.rsplit(".", 1)[0] if nm.endswith((".m", ".v")) else nm
+              for nm in names]
+    s0 = snapshot(net._dispatch_state())
+
+    def start():
+        restore(net._dispatch_state(), s0)
+        net._iteration = 0
+
+    held, eager_ms = {}, []
+    for run in ("eager 1", "eager 2"):
+        start()
+        losses = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            net.fit(ds)
+            losses.append(net.score())
+            eager_ms.append((time.perf_counter() - t0) * 1e3)
+        held[run] = (losses, snapshot(net._dispatch_state()))
+    start()
+    cc.reset_stats()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cc.warmup(net, [(tuple(ds.features.shape), tuple(ds.labels.shape))],
+              steps_per_dispatch=k)
+    capture_s = time.perf_counter() - t0
+    if not all(torch.equal(a, b) for a, b in zip(net._dispatch_state(), s0)):
+        fail(f"{name}: compilecache.warmup changed the network's state")
+    ck.reset_counts()
+    mb = stepping.stack_megabatch([ds] * k)
+    losses = []
+    for _ in range(steps // k):
+        losses += net._fit_mega(mb).tolist()
+    held["captured"] = (losses, snapshot(net._dispatch_state()))
+    hold_captured(name, held, names, groups)
+    cap_ms = []
+    start()
+    group = [ds] * steps
+    for _ in range(2):
+        t0 = time.perf_counter()
+        net.fit(group, steps_per_dispatch=k)
+        last = net.score()
+        cap_ms.append((time.perf_counter() - t0) * 1e3 / steps)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    disp = net._step_for(False, k)
+    at_capture = disp.launches_at_capture()
+    stats = cc.cache_stats()
+    site = f"{type(net).__name__}.megastep"
+    n_sig = churn.get_churn_detector().signature_count(site, owner=net)
+    n_disp = 3 * steps // k
+    if at_capture != [{"scale_shift_act": k * per_step}]:
+        fail(f"{name}: the megastep recorded {at_capture}: want "
+             f"{k} x {per_step} scale_shift_act launches")
+    if any(ck.LAUNCHES.values()) or any(ck.PLAIN_CALLS.values()) \
+            or ck.REPLAYS["scale_shift_act"] != n_disp * k * per_step:
+        fail(f"{name}: {n_disp} replays ran {dict(ck.LAUNCHES)} eagerly, "
+             f"replayed {dict(ck.REPLAYS)}")
+    if stats["capture_failures"] or stats["compile_seconds"][
+            "cold_compiles"] != 1 or stats["memory"]["hits"] != n_disp \
+            or n_sig != 1:
+        fail(f"{name}: cache stats {stats}, {n_sig} churn signatures: want "
+             "one capture (at warmup), no failure, every dispatch a hit")
+    e_med, c_med = float(np.median(eager_ms)), float(np.median(cap_ms))
+    log(f"{name} fit B={int(ds.features.shape[0])}: eager step ms median "
+        f"{e_med:.2f} (min {min(eager_ms):.2f}, max {max(eager_ms):.2f}); "
+        f"captured K={k} step ms {', '.join(f'{v:.2f}' for v in cap_ms)} "
+        f"(dispatch of {steps} steps / {steps}, with a host read at the "
+        f"end), speed-up {e_med / c_med:.3f}x; capture {capture_s:.2f} s; "
+        f"peak {peak_gb:.2f} GB; last loss {last:.5f}; launches at capture "
+        f"{at_capture}, replayed {dict(ck.REPLAYS)}; cache_stats {stats} "
+        f"[{smi}]")
+    del net, s0, held
 
 
 def serve_burst(server, reqs):

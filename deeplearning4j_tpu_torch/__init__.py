@@ -2,14 +2,17 @@
 
 The JAX package beside it is the reference this package is held
 against; this one imports ``torch``, numpy and the standard library
-only. Three paths run: serving a pre-LN BERT-base
+only. The paths that run: serving a pre-LN BERT-base
 (``models.transformer``) behind the continuous-batching
-``serving.ModelServer``; training ResNet-50 (``models.zoo``) through
-``nn.graph.ComputationGraph``; and serving and fine-tuning graphs
-recorded in SameDiff (``autodiff``). Hand-written CUDA kernels for flash
-attention, layer norm, the fused conv epilogue and the row softmax
-(``ops.cuda_kernels``) are installed as platform overrides over the
-generic ops (``ops.registry``).
+``serving.ModelServer`` and training it (``make_train_step``); training
+ResNet-50 and TinyYOLO (``models.zoo``) through
+``nn.graph.ComputationGraph`` and ``nn.multilayer.MultiLayerNetwork``,
+one step or K steps a dispatch captured as a CUDA graph
+(``nn.compilecache``, ``train.stepping``); and serving and fine-tuning
+graphs recorded in SameDiff (``autodiff``). Hand-written CUDA kernels
+for flash attention, layer norm, the fused conv epilogue and the row
+softmax (``ops.cuda_kernels``) are installed as platform overrides over
+the generic ops (``ops.registry``).
 
 Layout (module and public names follow the JAX package):
 
@@ -18,10 +21,15 @@ Layout (module and public names follow the JAX package):
                   attention, convolution/pooling, activations, losses),
                   and the CUDA kernels with their plain PyTorch twins
 - ``nn``        — ``NeuralNetConfiguration``/``InputType``, the layers,
-                  ``ComputationGraph`` and ``PrecisionPolicy``
-- ``train``     — the updaters (``Sgd``, ``Adam``, ``AdamW``) and schedules
+                  ``ComputationGraph``, ``MultiLayerNetwork``,
+                  ``PrecisionPolicy`` and ``compilecache``
+                  (``CachedDispatch``, ``warmup``)
+- ``train``     — the updaters (``Sgd``, ``Adam``, ``AdamW``), schedules
+                  and ``stepping`` (megasteps)
+- ``analysis``  — the recompile-churn detector
 - ``data``      — ``DataSet``
-- ``models``    — the transformer and the model zoo (``ResNet50``)
+- ``models``    — the transformer and the model zoo (``ResNet50``,
+                  ``TinyYOLO``)
 - ``serving``   — ``ModelServer``, ``samediff_forward``,
                   ``ServingRequest``, ``CircuitBreaker`` and the
                   structured serving errors

@@ -1,0 +1,50 @@
+"""The diagnostic model (the slice's subset of
+``deeplearning4j_tpu/analysis/diagnostics.py``): ``Severity`` and
+``Diagnostic``, with the codes the port reports so far."""
+
+from __future__ import annotations
+
+import enum
+from typing import Optional
+
+
+class Severity(enum.IntEnum):
+    """Ordered so reports can sort most-severe first."""
+
+    INFO = 0
+    WARNING = 1
+    ERROR = 2
+
+
+#: the documented codes the port emits (the JAX package's text)
+DIAGNOSTIC_CODES = {
+    "DL4J-W201": "recompile churn: one dispatch site compiled more than N "
+                 "distinct jit signatures (shifting shapes/dtypes)",
+}
+
+
+class Diagnostic:
+    """One structured finding from the analyzer or the churn detector."""
+
+    __slots__ = ("code", "severity", "location", "message", "fix_hint")
+
+    def __init__(self, code: str, severity: Severity, location: str,
+                 message: str, fix_hint: Optional[str] = None):
+        if code not in DIAGNOSTIC_CODES:
+            raise ValueError(f"undocumented diagnostic code {code!r}")
+        self.code = code
+        self.severity = Severity(severity)
+        self.location = location
+        self.message = message
+        self.fix_hint = fix_hint
+
+    def format(self) -> str:
+        line = (f"{self.code} {self.severity.name.lower():<7} "
+                f"[{self.location}] {self.message}")
+        if self.fix_hint:
+            line += f"\n    fix: {self.fix_hint}"
+        return line
+
+    def __repr__(self):
+        return (f"Diagnostic({self.code}, {self.severity.name}, "
+                f"{self.location!r}, {self.message!r})")

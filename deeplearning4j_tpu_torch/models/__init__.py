@@ -1,2 +1,2 @@
-"""Models: the transformer (``models.transformer``) and the model zoo
-(``models.zoo``: ``ResNet50``)."""
+"""Models: the transformer and its training step (``models.transformer``)
+and the model zoo (``models.zoo``: ``ResNet50``, ``TinyYOLO``)."""

@@ -13,14 +13,21 @@ so :func:`ops.cuda_kernels.install_platform_overrides` routes both
 through the CUDA kernels. The pre-LN ``forward`` runs 12 flash-attention
 and 25 layer-norm calls for BERT-base.
 
-Not ported yet (ROADMAP.md): ``param_shardings``, ring attention over a
-mesh, ``loss_fn`` and ``make_train_step``.
+Training (the BertBench step): :func:`loss_fn`, :func:`make_train_step`
+and :func:`init_opt_state`. The JAX step donates params, updater state
+and its step counter and returns new ones; the port's counterpart of
+donation is an update in place, so every state tensor keeps its storage
+and the step can be captured as a CUDA graph
+(``nn.compilecache.CachedDispatch``) and replayed.
+
+Not ported yet (ROADMAP.md): ``param_shardings`` and ring attention over
+a mesh.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -199,6 +206,89 @@ def forward(params, tokens, cfg: TransformerConfig):
         x = x + (h @ lp["w2"] + lp["b2"])
     x = _layer_norm(x, params["final_norm"])
     return (x.to(cfg.dtype) @ _head(params, cfg)).float()
+
+
+def loss_fn(params, tokens, targets, cfg: TransformerConfig,
+            target_mask=None):
+    """Masked-LM / causal-LM token cross-entropy in fp32: the NLL of
+    ``log_softmax(logits)`` at ``targets``, averaged over
+    ``max(sum(target_mask), 1)`` tokens (a plain mean without a mask)."""
+    logits = forward(params, tokens, cfg)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, targets.long()[..., None])[..., 0]
+    if target_mask is not None:
+        mask = target_mask.float()
+        return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    return nll.mean()
+
+
+def _leaf_paths(tree, prefix=()) -> List[Tuple]:
+    """``(path, leaf)`` in the JAX pytree order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree)
+                for pl in _leaf_paths(tree[k], prefix + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [pl for i, v in enumerate(tree)
+                for pl in _leaf_paths(v, prefix + (i,))]
+    return [(prefix, tree)]
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def make_train_step(cfg: TransformerConfig, updater):
+    """One training step, ``step(params, opt_state, t, tokens, targets,
+    target_mask=None) -> loss`` (JAX transformer.py:241-265).
+
+    ``t`` is the step counter, a 0-d int32 tensor on the params' device.
+    The step takes ``torch.autograd.grad`` of :func:`loss_fn` over every
+    leaf of ``params`` (each becomes an autograd leaf), runs the updater
+    per leaf in fp32 (``lr_at`` and the bias correction from ``t`` on the
+    device) and writes ``(p.float() - u)`` back in the param's dtype: bf16
+    params stay bf16, with no fp32 masters. Params, updater state and
+    ``t`` (incremented) are updated in place; nothing is read on the host,
+    so the step can be captured. Returns the loss, a device scalar."""
+
+    def step(params, opt_state, t, tokens, targets, target_mask=None):
+        paths = _leaf_paths(params)
+        leaves = [p for _, p in paths]
+        for p in leaves:
+            if not p.requires_grad:
+                p.requires_grad_(True)
+        loss = loss_fn(params, tokens, targets, cfg, target_mask)
+        grads = torch.autograd.grad(loss, leaves)
+        apply_updates(paths, grads, opt_state, updater, t)
+        return loss.detach()
+
+    return step
+
+
+def apply_updates(paths, grads, opt_state, updater, t) -> None:
+    """The updater per leaf in fp32, written back in place in the param's
+    dtype, then ``t += 1``."""
+    lr = updater.lr_at(t)
+    with torch.no_grad():
+        for (path, p), g in zip(paths, grads):
+            state = _at(opt_state, path)
+            # optimizer math in fp32 even for bf16 params
+            u, s2 = updater.apply(g.float(), state, lr, t)
+            p.copy_((p.float() - u).to(p.dtype))
+            for k, v in s2.items():
+                state[k].copy_(v)
+        t.add_(1)
+
+
+def init_opt_state(params, updater):
+    """The updater's state for every leaf, in fp32, in the params' tree
+    shape."""
+    if isinstance(params, dict):
+        return {k: init_opt_state(v, updater) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [init_opt_state(v, updater) for v in params]
+    return updater.init_state(params.detach().float())
 
 
 def _as_module(tree) -> nn.Module:

@@ -1,2 +1,3 @@
 """Networks: configuration, layers, the ComputationGraph and the
-``PrecisionPolicy``."""
+MultiLayerNetwork with their shared step (``nn.network``), the
+``PrecisionPolicy``, and captured dispatch (``nn.compilecache``)."""

@@ -2,16 +2,17 @@
 subset of ``deeplearning4j_tpu/nn/graph.py``).
 
 The JAX package traces the whole step into one compiled program; the
-port runs it eagerly: ``fit`` is one forward, ``torch.autograd.grad`` of
-the loss, gradient normalization and the updater in place on the fp32
-master params. The forward (``_forward``) follows the JAX one node for
+port runs the shared step of :mod:`.network`: one forward,
+``torch.autograd.grad`` of the loss, gradient normalization and the
+updater in place on the fp32 master params, eager or captured as a CUDA
+graph (K steps a dispatch with ``fit(steps_per_dispatch=K)``). The forward (``_forward``) follows the JAX one node for
 node, including the NHWC compute layout, the fused BN + activation
 epilogue with its conv-bias fold, the re-biased copy of a folded conv
 that has other consumers, and the fp32/bf16 alignment at vertices.
 
-Not ported yet (ROADMAP.md): megasteps (``steps_per_dispatch`` > 1),
-dynamic loss scaling, augmentation, sharding, resilience, listeners,
-the compile cache, the sanitizer, save/load and ``evaluate``.
+Not ported yet (ROADMAP.md): dynamic loss scaling, augmentation,
+sharding, resilience, listeners, the compile cache's disk tier, the
+sanitizer, save/load and ``evaluate``.
 """
 
 from __future__ import annotations
@@ -20,7 +21,6 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from deeplearning4j_tpu_torch.data.dataset import DataSet
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.nn import layers as L
 from deeplearning4j_tpu_torch.nn.config import InputType, NeuralNetConfiguration
@@ -219,8 +219,7 @@ class ComputationGraph(BaseNetwork):
                     for k, v in p.items()}
                 self._states[node.name] = {k: v.to(self._device)
                                            for k, v in s.items()}
-        self._opt_state = None
-        self._iteration = 0
+        self._reset_training_state()
         self._initialized = True
         return self
 
@@ -349,13 +348,11 @@ class ComputationGraph(BaseNetwork):
             (layer, params.get(name) or {}) for name, layer in self._layers())
         return loss + reg, new_states
 
-    def _ds_inputs(self, ds: DataSet, train: bool):
+    def _pack(self, x, y, lmask, train: bool):
         """The first graph input's features, the labels and, in training,
         the label mask (the graph's score, as the JAX one, reads none)."""
-        ins = {self.conf.graph_inputs[0]: self._to_device(ds.features)}
-        masks = [self._to_device(ds.labels_mask)] \
-            if train and ds.labels_mask is not None else None
-        return ins, [self._to_device(ds.labels)], masks
+        masks = [lmask] if train and lmask is not None else None
+        return {self.conf.graph_inputs[0]: x}, [y], masks
 
     # --------------------------------------------------------- configuration
     def _ensure_epilogue_plan(self):

@@ -1,17 +1,17 @@
 """MultiLayerNetwork — the sequential network and its training step (the
 slice's subset of ``deeplearning4j_tpu/nn/multilayer.py``).
 
-As in :mod:`.graph`, the JAX package's one compiled step becomes an eager
-one: ``fit`` runs the forward, ``torch.autograd.grad`` of the loss,
-gradient normalization and the updater in place on the fp32 master
-params. The forward (``_forward``) follows the JAX one layer for layer:
+As in :mod:`.graph`, the JAX package's one compiled step becomes the
+shared step of :mod:`.network`: the forward, ``torch.autograd.grad`` of
+the loss, gradient normalization and the updater in place on the fp32
+master params, eager or captured as a CUDA graph (K steps a dispatch
+with ``fit(steps_per_dispatch=K)``). The forward (``_forward``) follows the JAX one layer for layer:
 the NHWC compute layout, the fp32 islands of the dtype policy, and the
 sequential epilogue plan (``nn.layers.build_epilogue_plan``), in which a
 conv(identity, bias) + BN + relu/leaky triple runs as one conv without
 its bias and one ``scale_shift_act`` dispatch.
 
-Not ported yet (ROADMAP.md): megasteps (``steps_per_dispatch`` > 1),
-dynamic loss scaling, TBPTT and ``rnnTimeStep``, listeners, resilience,
+Not ported yet (ROADMAP.md): dynamic loss scaling, TBPTT and ``rnnTimeStep``, listeners, resilience,
 sharding, augmentation, ``evaluate``, ``save``/``load`` and ``clone``.
 """
 
@@ -21,7 +21,6 @@ from typing import Dict, List, Optional
 
 import torch
 
-from deeplearning4j_tpu_torch.data.dataset import DataSet
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.nn import layers as L
 from deeplearning4j_tpu_torch.nn.config import MultiLayerConfiguration
@@ -65,8 +64,7 @@ class MultiLayerNetwork(BaseNetwork):
             self._params.append({k: v.to(self._device).requires_grad_(True)
                                  for k, v in p.items()})
             self._states.append({k: v.to(self._device) for k, v in s.items()})
-        self._opt_state = None
-        self._iteration = 0
+        self._reset_training_state()
         self._initialized = True
         return self
 
@@ -164,11 +162,8 @@ class MultiLayerNetwork(BaseNetwork):
         reg = self._regularization(zip(self.layers, params))
         return loss + reg, new_states
 
-    def _ds_inputs(self, ds: DataSet, train: bool):
-        masks = self._to_device(ds.labels_mask) \
-            if ds.labels_mask is not None else None
-        return (self._to_device(ds.features), self._to_device(ds.labels),
-                masks)
+    def _pack(self, x, y, lmask, train: bool):
+        return x, y, lmask
 
     # --------------------------------------------------------- configuration
     def _ensure_epilogue_plan(self):

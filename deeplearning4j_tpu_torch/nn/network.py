@@ -1,6 +1,6 @@
 """What :class:`.graph.ComputationGraph` and
-:class:`.multilayer.MultiLayerNetwork` share: the eager training step,
-the dtype policy, the layout and fusion switches, and the flat parameter
+:class:`.multilayer.MultiLayerNetwork` share: the training step, the
+dtype policy, the layout and fusion switches, and the flat parameter
 views.
 
 A subclass holds its params and layer states in ``_params``/``_states``
@@ -10,10 +10,20 @@ sequential network) and supplies:
 - ``_layers()``: ``[(key, layer)]`` of every layer, in order;
 - ``_leaf_keys()``: the params' ``(key, name)`` in the JAX package's
   pytree order (what :meth:`params` flattens);
-- ``_ds_inputs(ds, train)``: a DataSet as ``(inputs, labels, masks)`` in
-  the form its ``_loss_and_reg`` takes;
+- ``_pack(x, y, lmask, train)``: device tensors of one batch as
+  ``(inputs, labels, masks)`` in the form its ``_loss_and_reg`` takes;
 - ``_loss_and_reg(params, states, inputs, labels, train, masks)`` and
   ``_ensure_epilogue_plan()``.
+
+The step (:meth:`BaseNetwork._train_step`) updates every piece of state
+in place: the params, the updater state, the layers' running statistics
+and the device clock ``_t_dev`` keep their storage, so the step can be
+captured as a CUDA graph and replayed (:mod:`.compilecache`). It goes
+through a :class:`~.compilecache.CachedDispatch`: one step a dispatch
+runs eagerly until a signature is warmed (:func:`.compilecache.warmup`);
+``fit(steps_per_dispatch=K)`` runs K steps a dispatch
+(:mod:`deeplearning4j_tpu_torch.train.stepping`), captured on the card
+at a signature's first dispatch.
 """
 
 from __future__ import annotations
@@ -23,8 +33,11 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.analysis import churn
 from deeplearning4j_tpu_torch.data.dataset import DataSet
+from deeplearning4j_tpu_torch.nn import compilecache as cc
 from deeplearning4j_tpu_torch.nn import layers as L
+from deeplearning4j_tpu_torch.train import stepping
 from deeplearning4j_tpu_torch.train import updaters as upd
 
 
@@ -42,6 +55,9 @@ class BaseNetwork:
         self._compute_layout = "NCHW"
         self._fuse_epilogues = False
         self._epilogue_plan = None
+        self._t_dev: Optional[torch.Tensor] = None   # the device clock
+        #: (label mask given, steps a dispatch) -> CachedDispatch
+        self._step_cache: Dict[Tuple[bool, int], cc.CachedDispatch] = {}
 
     def _items(self, tree) -> List[Tuple]:
         return list(tree.items() if isinstance(tree, dict)
@@ -69,9 +85,17 @@ class BaseNetwork:
             k: conv(v).requires_grad_(True) for k, v in p.items()})
         self._states = each(states, lambda s: {k: conv(v)
                                                for k, v in s.items()})
+        self._reset_training_state()
+        self._initialized = True
+
+    def _reset_training_state(self) -> None:
+        """Fresh params and states: the updater state, the iteration and
+        its device clock start afresh, and no captured step (which holds
+        the old tensors' addresses) survives."""
         self._opt_state = None
         self._iteration = 0
-        self._initialized = True
+        self._t_dev = None
+        self._step_cache = {}
 
     def _require_init(self):
         if not self._initialized:
@@ -111,27 +135,130 @@ class BaseNetwork:
                 n: {k: updater.init_state(v.detach()) for k, v in p.items()}
                 for n, p in self._items(self._params)}
 
-    def fit(self, data, labels=None, epochs: int = 1):
-        """Train on a DataSet, a list of DataSets, or (features, labels)
-        arrays: one update step per batch, ``epochs`` times."""
+    def _ensure_clock(self) -> torch.Tensor:
+        """The device-resident iteration counter (0-d int32, ref
+        ``_ensure_clock``): the step reads it for the updater's bias
+        correction and adds one in place, so no step uploads a host
+        scalar and a captured step reads the current value at replay."""
+        if self._t_dev is None:
+            self._t_dev = torch.tensor(self._iteration, dtype=torch.int32,
+                                       device=self._device)
+        return self._t_dev
+
+    def _dispatch_state(self) -> List[torch.Tensor]:
+        """Every tensor a step writes: params, layer states, updater state
+        and the clock (what warming a captured step must leave as it
+        found it)."""
+        return cc.state_tensors(self._params, self._states, self._opt_state,
+                                self._t_dev)
+
+    def _batches(self, data, labels):
+        """One epoch's DataSets: a DataSet, a list of them, a
+        DataSetIterator-style object (``reset``/``hasNext``/``next``,
+        reset at each epoch), or (features, labels) arrays."""
+        if isinstance(data, DataSet):
+            return [data]
+        if isinstance(data, (list, tuple)) and data \
+                and isinstance(data[0], DataSet):
+            return list(data)
+        if hasattr(data, "hasNext"):
+            data.reset()
+
+            def pull():
+                while data.hasNext():
+                    yield data.next()
+            return pull()
+        return [DataSet(data, labels)]
+
+    def fit(self, data, labels=None, epochs: int = 1,
+            steps_per_dispatch: int = 1):
+        """Train on a DataSet, a list of DataSets, a DataSetIterator-style
+        object, or (features, labels) arrays: one update step per batch,
+        ``epochs`` times. ``steps_per_dispatch=K`` groups K consecutive
+        same-signature batches into one dispatch of K steps (a CUDA graph
+        on the card); signature changes and epoch tails fall back to
+        single steps, so the result equals K single-step fits."""
         if not self._initialized:
             self.init()
-        self._ensure_opt_state()
-        if isinstance(data, DataSet):
-            batches = [data]
-        elif isinstance(data, (list, tuple)) and data \
-                and isinstance(data[0], DataSet):
-            batches = list(data)
-        else:
-            batches = [DataSet(data, labels)]
+        k = int(steps_per_dispatch)
+        if k < 1:
+            raise ValueError(f"steps_per_dispatch must be >= 1, got {k}")
         for _ in range(epochs):
-            for ds in batches:
-                self._fit_one(ds)
+            stepping.fit_epoch_multistep(self, self._batches(data, labels), k)
             self._epoch += 1
         return self
 
+    def _step_for(self, masked: bool, steps: int = 1) -> cc.CachedDispatch:
+        """The dispatch of ``steps`` train steps for a signature's mask
+        arity: one step runs eagerly until warmed; K steps are captured
+        at their first dispatch on the card."""
+        key = (masked, steps)
+        d = self._step_cache.get(key)
+        if d is None:
+            name = type(self).__name__
+            if steps == 1:
+                d = cc.CachedDispatch(self._train_step, f"{name}.fit",
+                                      state=self._dispatch_state)
+            else:
+                d = cc.CachedDispatch(
+                    stepping.scan_megastep(self._train_step),
+                    f"{name}.megastep", state=self._dispatch_state,
+                    always_capture=True)
+            self._step_cache[key] = d
+        return d
+
+    def _batch_tensors(self, features, labels, labels_mask):
+        return (self._to_device(features), self._to_device(labels),
+                None if labels_mask is None else self._to_device(labels_mask))
+
     def _fit_one(self, ds: DataSet):
-        ins, labels, masks = self._ds_inputs(ds, True)
+        """One step on one batch; returns its loss (a device scalar)."""
+        self._ensure_opt_state()
+        self._ensure_clock()
+        x, y, lmask = self._batch_tensors(ds.features, ds.labels,
+                                          ds.labels_mask)
+        churn.get_churn_detector().record(
+            f"{type(self).__name__}.fit", churn.array_fingerprint(x, y, lmask),
+            owner=self)
+        loss = self._step_for(lmask is not None)(x, y, lmask)
+        stepping.STEPS_PER_DISPATCH.set(1)
+        stepping.TRAIN_ITERATIONS.inc()
+        # kept on the device; score() converts lazily
+        self._score = loss
+        self._iteration += 1
+        return loss
+
+    def _fit_mega(self, mb: stepping.MegaBatch):
+        """K stacked batches through one K-step dispatch; returns the K
+        losses as one device vector (ref ``_fit_mega``)."""
+        self._ensure_opt_state()
+        self._ensure_clock()
+        k = mb.steps
+        x, y, lmask = self._batch_tensors(mb.features, mb.labels,
+                                          mb.labels_mask)
+        churn.get_churn_detector().record(
+            f"{type(self).__name__}.megastep",
+            churn.array_fingerprint(x, y, lmask), owner=self)
+        losses = self._step_for(lmask is not None, k)(x, y, lmask)
+        stepping.record_megastep(self, losses, k)
+        return losses
+
+    def _warm_dispatch(self, x, y, lmask=None, steps: int = 1):
+        """Capture the step (K steps for ``steps`` > 1, on ``[K, B, ...]``
+        arrays) for this signature without changing any state."""
+        if not self._initialized:
+            self.init()
+        self._ensure_opt_state()
+        self._ensure_clock()
+        x, y, lmask = self._batch_tensors(x, y, lmask)
+        self._step_for(lmask is not None, steps).warm(x, y, lmask)
+        return self
+
+    def _train_step(self, x, y, lmask):
+        """One update step on the batch's device tensors, every piece of
+        state updated in place (nothing is read on the host, so the step
+        can be captured); returns the loss, a device scalar."""
+        ins, labels, masks = self._pack(x, y, lmask, True)
         pol = self._precision
         loss_scale = pol.loss_scale if pol is not None else None
         loss, new_states = self._loss_and_reg(self._params, self._states, ins,
@@ -148,14 +275,20 @@ class BaseNetwork:
             inv = 1.0 / loss_scale
             grads = [g * inv for g in grads]
         self._process_and_apply_grads(names, leaves, grads)
-        self._states = new_states
-        # kept on the device; score() converts lazily
-        self._score = loss.detach()
-        self._iteration += 1
+        with torch.no_grad():
+            for n, s in self._items(new_states):
+                cur = self._states[n]
+                for k, v in (s or {}).items():
+                    if v is not cur[k]:
+                        cur[k].copy_(v)
+            self._t_dev.add_(1)
+        return loss.detach()
 
     def _process_and_apply_grads(self, names, leaves, grads):
-        """Gradient normalization, then the updater per leaf; the fp32
-        master params are updated in place (``p -= update``)."""
+        """Gradient normalization, then the updater per leaf, with AdamW's
+        decoupled decay on the weights (``W*``, ``RW*``) as the reference
+        gates it (JAX multilayer.py:139-145); the fp32 master params and
+        the updater state are updated in place."""
         base = self.conf.base
         updater = base.updater
         if base.grad_norm == "clip_value":
@@ -166,13 +299,18 @@ class BaseNetwork:
             grads = upd.clip_by_global_norm(grads, base.grad_norm_threshold)
         elif base.grad_norm == "renorm":
             grads = upd.renormalize_l2(grads)
-        t = self._iteration
+        t = self._t_dev
         lr = updater.lr_at(t)
+        decay = isinstance(updater, upd.AdamW) and updater.weight_decay
         with torch.no_grad():
             for (n, k), p, g in zip(names, leaves, grads):
-                u, s2 = updater.apply(g, self._opt_state[n][k], lr, t)
+                state = self._opt_state[n][k]
+                u, s2 = updater.apply(g, state, lr, t)
+                if decay and k.startswith(("W", "RW")):
+                    u = u + updater.weight_decay_update(p, lr)
                 p.sub_(u)
-                self._opt_state[n][k] = s2
+                for sk, sv in s2.items():
+                    state[sk].copy_(sv)
 
     def score(self, ds: DataSet = None) -> float:
         """The last fit step's loss, or the loss on ``ds`` (inference
@@ -182,7 +320,9 @@ class BaseNetwork:
                 self._score = float(self._score)
             return self._score
         self._require_init()
-        ins, labels, masks = self._ds_inputs(ds, False)
+        ins, labels, masks = self._pack(
+            *self._batch_tensors(ds.features, ds.labels, ds.labels_mask),
+            False)
         with torch.no_grad():
             loss, _ = self._loss_and_reg(self._params, self._states, ins,
                                          labels, False, masks)
@@ -196,6 +336,8 @@ class BaseNetwork:
         if fmt not in ("NCHW", "NHWC"):
             raise ValueError(f"compute layout must be 'NCHW' or 'NHWC', "
                              f"got {fmt!r}")
+        if fmt != self._compute_layout:
+            self._step_cache = {}
         self._compute_layout = fmt
         self.conf.base.compute_layout = fmt
         L.stamp_layout([layer for _, layer in self._layers()], fmt)
@@ -208,6 +350,7 @@ class BaseNetwork:
         enabled = bool(enabled)
         if enabled != self._fuse_epilogues:
             self._epilogue_plan = None
+            self._step_cache = {}
         self._fuse_epilogues = enabled
         return self
 
@@ -221,6 +364,7 @@ class BaseNetwork:
         if policy is not None:
             runtime_check(policy)
         self._precision = policy
+        self._step_cache = {}
         return self
 
     # ------------------------------------------------------------ param views

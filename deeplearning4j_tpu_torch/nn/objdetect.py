@@ -19,6 +19,7 @@ an fp32 island (``nn.layers.policy_cast``).
 
 from __future__ import annotations
 
+import weakref
 from typing import List
 
 import numpy as np
@@ -58,6 +59,10 @@ class DetectedObject:
                 f"h={self.height:.2f})")
 
 
+#: layer -> {(device, dtype): anchors tensor}
+_ANCHORS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
 class Yolo2OutputLayer(BaseOutputLayer):
     """ref: conf.layers.objdetect.Yolo2OutputLayer — no params; applies
     the YOLO activations and computes the YOLOv2 loss."""
@@ -90,8 +95,15 @@ class Yolo2OutputLayer(BaseOutputLayer):
         return it
 
     def _anchors(self, like):
-        return torch.as_tensor(self.anchors, dtype=like.dtype,
-                               device=like.device)
+        """The anchors as a tensor of ``like``'s dtype on its device, made
+        once a (device, dtype): a host-to-device copy inside the step
+        would be one a step, and a captured step cannot make it."""
+        per_layer = _ANCHORS.setdefault(self, {})
+        key = (like.device, like.dtype)
+        if key not in per_layer:
+            per_layer[key] = torch.as_tensor(self.anchors, dtype=like.dtype,
+                                             device=like.device)
+        return per_layer[key]
 
     def _split(self, x):
         """x [N, B*(5+C), H, W] -> (xy [N,B,2,H,W], wh, conf [N,B,H,W],

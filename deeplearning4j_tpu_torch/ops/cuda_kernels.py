@@ -27,7 +27,9 @@ each Pallas kernel on the path becomes a CUDA C++ kernel for Hopper
   plain-version calls made by the wrappers, one a wrapper call, keyed by
   ``KERNELS``: a ``bn_stats`` count covers its two ``__global__``
   kernels (the partial sums and the final sum). ``FLASH_ROUTES`` splits
-  the flash launches by route (:func:`flash_route`).
+  the flash launches by route (:func:`flash_route`). A launch recorded
+  into a CUDA graph counts once, at capture; ``REPLAYS`` counts the
+  launches replayed graphs run (``nn.compilecache``).
 - **Names.** ``KERNELS`` are the counter keys, one a wrapper;
   ``SOURCES`` are the ``.cu`` files, one library each. :func:`build`,
   :func:`ptxas_report` and ``_lib`` take source names (``bn_stats`` and
@@ -89,6 +91,10 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 PLAIN_CALLS: Dict[str, int] = {name: 0 for name in KERNELS}
 #: flash-attention launches by route (``LAUNCHES`` counts them all)
 FLASH_ROUTES: Dict[str, int] = {"tensor_core": 0, "cuda_core": 0}
+#: kernel launches run by replaying captured CUDA graphs (a wrapper
+#: counts its launch in ``LAUNCHES`` once, while the graph is captured;
+#: ``nn.compilecache`` adds the graph's count here at each replay)
+REPLAYS: Dict[str, int] = {name: 0 for name in KERNELS}
 _COUNT_LOCK = threading.Lock()
 
 _LIB_LOCK = threading.Lock()
@@ -109,11 +115,20 @@ def reset_counts() -> None:
             PLAIN_CALLS[name] = 0
         for route in FLASH_ROUTES:
             FLASH_ROUTES[route] = 0
+        for name in KERNELS:
+            REPLAYS[name] = 0
 
 
 def _bump(counter: Dict[str, int], name: str) -> None:
     with _COUNT_LOCK:
         counter[name] += 1
+
+
+def count_replay(launches: Dict[str, int]) -> None:
+    """Add one replayed graph's recorded launches to ``REPLAYS``."""
+    with _COUNT_LOCK:
+        for name, n in launches.items():
+            REPLAYS[name] += n
 
 
 # ------------------------------------------------------------------ build

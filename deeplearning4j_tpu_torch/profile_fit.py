@@ -1,9 +1,10 @@
-"""Where one training step of ResNet-50 or TinyYOLO spends its time on
-the card.
+"""Where one training step of ResNet-50, TinyYOLO or the BertBench
+BERT-base spends its time on the card, eager and captured.
 
 Usage (on a machine with a CUDA card, from the root of a checkout)::
 
-    python3 -m deeplearning4j_tpu_torch.profile_fit [--model tiny_yolo]
+    python3 -m deeplearning4j_tpu_torch.profile_fit [--model tiny_yolo|bert]
+        [--captured K]
 
 Builds ``zoo.ResNet50(num_classes=1000)`` (the default; a
 ``ComputationGraph``, one [64, 3, 224, 224] batch of one-hot labels) or
@@ -21,7 +22,28 @@ its launching op or one of that op's callers names: the
 (``_process_and_apply_grads``), the YOLO loss's forward
 (``Yolo2OutputLayer.compute_loss``; its backward runs as generic autograd
 ops and lands in "rest"), cuDNN convolutions (forward and backward) and
-the rest. It prints one JSON object. Without a card it exits non-zero.
+the rest.
+
+``--model bert`` runs the BertBench step instead (bench.py:224-265):
+``TransformerConfig.bert_base`` in bf16 with flash attention, B=64,
+T=128, Adam 1e-4, tokens and targets from ``np.random.RandomState(0)``,
+an all-ones mask, through ``models.transformer.make_train_step``; its
+groups are the flash forward kernel, the composed flash backward, the LN
+forward kernel, the composed LN backward, the optimizer
+(``apply_updates``), GEMMs, casts and the rest, each kernel going to the
+first of those (in that order) that it or a caller names. It also prints
+samples/s, tokens/s and MFU (FLOPs a token as bench.py counts them,
+against the dense bf16 peak of the card ``torch.cuda.get_device_name()``
+names).
+
+``--captured K`` adds the same model with K steps a dispatch, captured as
+one CUDA graph (``fit(steps_per_dispatch=K)`` after
+``compilecache.warmup``; for BERT the step through
+``stepping.scan_megastep`` and a ``CachedDispatch``), timed per step
+(dispatch time / K) and traced over one dispatch. A replayed graph's
+kernels have no launching op on the host, so its trace is grouped by
+kernel name alone. Both runs share one process and one card. It prints
+one JSON object. Without a card it exits non-zero.
 """
 
 from __future__ import annotations
@@ -36,13 +58,18 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.data.dataset import DataSet
+from deeplearning4j_tpu_torch.models import transformer as tfm
 from deeplearning4j_tpu_torch.models import zoo
+from deeplearning4j_tpu_torch.nn import compilecache as cc
 from deeplearning4j_tpu_torch.nn import network as network_mod
 from deeplearning4j_tpu_torch.nn.objdetect import Yolo2OutputLayer, yolo_labels
 from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
 from deeplearning4j_tpu_torch.ops import normalization as norm_ops
+from deeplearning4j_tpu_torch.train import stepping
+from deeplearning4j_tpu_torch.train.updaters import Adam
 
-BATCH = {"resnet50": 64, "tiny_yolo": 32}
+BATCH = {"resnet50": 64, "tiny_yolo": 32, "bert": 64}
+BERT_SEQ = 128
 WARM = 2
 ITERS = 5
 
@@ -54,6 +81,22 @@ _SCOPES = (("scale_shift_act backward (composed)", "ScaleShiftAct"),
            ("optimizer", _LABEL + "optimizer"),
            ("yolo loss (forward)", _LABEL + "yolo_loss"),
            ("conv (cuDNN)", "convolution"))
+#: the BERT step's groups, in priority order: a kernel goes to the first
+#: group whose needle names its launching op or any caller (so a GEMM of
+#: the composed flash backward is the backward's)
+_BERT_SCOPES = (("flash backward (composed)", "_FlashAttentionKernelBackward"),
+                ("layer_norm backward (composed)", "_LayerNormKernelBackward"),
+                ("optimizer", _LABEL + "optimizer"),
+                ("GEMMs", "aten::mm"), ("GEMMs", "aten::addmm"),
+                ("GEMMs", "aten::bmm"), ("GEMMs", "aten::matmul"),
+                ("casts", "aten::_to_copy"), ("casts", "aten::copy_"))
+#: kernels grouped by their own name (substring of the kernel's name)
+_KERNEL_GROUPS = {"resnet50": (("scale_shift_act", "scale_shift_act_kernel"),),
+                  "tiny_yolo": (("scale_shift_act",
+                                 "scale_shift_act_kernel"),),
+                  "bert": (("flash forward (kernel)", "flash_fwd_kernel"),
+                           ("layer_norm forward (kernel)",
+                            "layer_norm_fwd_kernel"))}
 
 
 def _scoped(fn, label):
@@ -75,6 +118,20 @@ def _group_of(event, scopes=_SCOPES) -> str:
     return "rest"
 
 
+def _group_by_priority(event, scopes=_BERT_SCOPES) -> str:
+    """The first group, in ``scopes`` order, whose needle names the event
+    or any of its callers; "rest" if none does."""
+    chain = []
+    e = event
+    while e is not None:
+        chain.append(e.name)
+        e = e.cpu_parent
+    for group, needle in scopes:
+        if any(needle in name for name in chain):
+            return group
+    return "rest"
+
+
 def _device_us(ev) -> float:
     us = getattr(ev, "device_time_total", None)
     if us is None:
@@ -82,7 +139,9 @@ def _device_us(ev) -> float:
     return us
 
 
-def profile(net, ds) -> dict:
+def profile(run, model: str, captured: bool) -> dict:
+    """Trace one call of ``run`` (a step, or a K-step dispatch, ending in
+    a host read); device time by kernel name and by group."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     # label the BN statistics, the optimizer and the YOLO loss for the
@@ -90,6 +149,7 @@ def profile(net, ds) -> dict:
     patches = [(norm_ops, "channel_moments", "bn_stats"),
                (network_mod.BaseNetwork, "_process_and_apply_grads",
                 "optimizer"),
+               (tfm, "apply_updates", "optimizer"),
                (Yolo2OutputLayer, "compute_loss", "yolo_loss")]
     saved = [(owner, name, getattr(owner, name))
              for owner, name, _ in patches]
@@ -98,8 +158,7 @@ def profile(net, ds) -> dict:
     try:
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
-            net.fit(ds)
-            net.score()
+            run()
             traced_ms = (time.perf_counter() - t0) * 1e3
     finally:
         for owner, name, fn in saved:
@@ -115,25 +174,95 @@ def profile(net, ds) -> dict:
         n_kernels += ev.count
         by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + us / 1e3
     total = sum(by_kernel.values())
-    ssa_ms = sum(v for k, v in by_kernel.items()
-                 if "scale_shift_act_kernel" in k)
-    by_group = {"scale_shift_act": ssa_ms}
-    for ev in prof.events():
-        for k in getattr(ev, "kernels", ()):
-            if "scale_shift_act_kernel" in k.name \
-                    or k.name.startswith(_LABEL):
-                continue
-            g = _group_of(ev)
-            by_group[g] = by_group.get(g, 0.0) + k.duration / 1e3
+    by_group = {}
+    named = _KERNEL_GROUPS[model]
+    for group, needle in named:
+        by_group[group] = sum(v for k, v in by_kernel.items() if needle in k)
+    if not captured:
+        for ev in prof.events():
+            for k in getattr(ev, "kernels", ()):
+                if any(needle in k.name for _, needle in named) \
+                        or k.name.startswith(_LABEL):
+                    continue
+                g = _group_by_priority(ev) if model == "bert" \
+                    else _group_of(ev)
+                by_group[g] = by_group.get(g, 0.0) + k.duration / 1e3
     attributed = sum(v for g, v in by_group.items() if g != "rest")
     by_group["rest"] = max(total - attributed, 0.0)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
-    return {"traced_step_ms": traced_ms,
+    return {"traced_ms": traced_ms,
             "traced_device_ms": total,
             "device_busy_share_traced": total / traced_ms,
-            "device_kernels_per_step": n_kernels,
+            "device_kernels": n_kernels,
             "device_ms_by_group": by_group,
             "top_kernels_ms": [[k[:90], v] for k, v in top]}
+
+
+def train_flops_per_token(cfg, seq_len: int) -> float:
+    """bench.py's count (``transformer_train_flops_per_token``): per
+    layer the QKV, output and two FFN products and the attention scores
+    and weighted values, plus the LM head; backward twice the forward."""
+    L, E, F, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size
+    proj = 2 * E * (3 * E) + 2 * E * E + 2 * (2 * E * F)
+    attn = 2 * (2 * seq_len * E)
+    head = 2 * E * V
+    return 3.0 * (L * (proj + attn) + head)
+
+
+def dense_bf16_peak(name: str) -> float:
+    """The dense bf16 tensor-core peak (FLOP/s) of the card ``name``
+    names (NVIDIA's data sheets; the SXM part unless it says PCIe)."""
+    if "H100" in name or "H200" in name:
+        return 756e12 if "PCIe" in name else 989e12
+    raise ValueError(f"no dense bf16 peak on record for {name!r}")
+
+
+class BertBench:
+    """The BertBench training state on the card: bf16 BERT-base with
+    flash attention, params from ``seed`` 0, Adam 1e-4, B=64, T=128,
+    tokens and targets from ``np.random.RandomState(0)``, an all-ones
+    mask; ``step()`` is one eager ``make_train_step`` call."""
+
+    def __init__(self, batch: int = BATCH["bert"], seq: int = BERT_SEQ,
+                 device="cuda"):
+        self.cfg = tfm.TransformerConfig.bert_base(
+            dtype=torch.bfloat16, use_flash_attention=True)
+        self.batch, self.seq = batch, seq
+        self.params = tfm.init_params(self.cfg, seed=0, device=device)
+        updater = Adam(1e-4)
+        self.opt = tfm.init_opt_state(self.params, updater)
+        self.t = torch.zeros((), dtype=torch.int32, device=device)
+        self.train_step = tfm.make_train_step(self.cfg, updater)
+        rng = np.random.RandomState(0)
+        V = self.cfg.vocab_size
+        self.tokens = torch.from_numpy(
+            rng.randint(0, V, (batch, seq))).to(device)
+        self.targets = torch.from_numpy(
+            rng.randint(0, V, (batch, seq))).to(device)
+        self.mask = torch.ones((batch, seq), dtype=torch.float32,
+                               device=device)
+        self.n_params = sum(p.numel() for p in cc.state_tensors(self.params))
+
+    def step_fn(self, tokens, targets, mask):
+        return self.train_step(self.params, self.opt, self.t, tokens,
+                               targets, mask)
+
+    def step(self):
+        return self.step_fn(self.tokens, self.targets, self.mask)
+
+    def state(self):
+        return cc.state_tensors(self.params, self.opt, self.t)
+
+    def captured(self, k: int = 1) -> cc.CachedDispatch:
+        """The step (K steps on ``[K, B, T]`` buffers for k > 1) as a
+        captured dispatch."""
+        fn = self.step_fn if k == 1 else stepping.scan_megastep(self.step_fn)
+        return cc.CachedDispatch(fn, f"bert.train_step.k{k}",
+                                 state=self.state, always_capture=True)
+
+    def stacked(self, k: int):
+        return tuple(a.expand(k, *a.shape).contiguous()
+                     for a in (self.tokens, self.targets, self.mask))
 
 
 def build(model: str):
@@ -155,37 +284,127 @@ def build(model: str):
     return net, DataSet(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
 
 
+def _timed(call, n: int):
+    """Host ms of ``n`` calls, each ending in a host read."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        call()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def _stats(times, steps: int, batch: int, what: str) -> dict:
+    med = float(np.median(times)) / steps
+    return {"step_ms_median": med,
+            "step_ms_min": float(np.min(times)) / steps,
+            "step_ms_max": float(np.max(times)) / steps,
+            f"{what}_per_s": batch / (med / 1e3)}
+
+
+def run_network(model: str, k: int) -> dict:
+    net, ds = build(model)
+    batch = BATCH[model]
+    for _ in range(WARM):
+        net.fit(ds)
+    net.score()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_counts()
+    times = _timed(lambda: (net.fit(ds), net.score()), ITERS)
+    out = {"eager": {"launches_per_step": {
+        k_: v // ITERS for k_, v in ck.LAUNCHES.items()},
+        **_stats(times, 1, batch, "images"), "loss": net.score(),
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}}
+    out["eager"].update(profile(lambda: (net.fit(ds), net.score()), model,
+                                False))
+    if k > 1:
+        cc.reset_stats()
+        torch.cuda.reset_peak_memory_stats()
+        cc.warmup(net, [(tuple(ds.features.shape), tuple(ds.labels.shape))],
+                  steps_per_dispatch=k)
+        group = [ds] * k
+        ck.reset_counts()
+        times = _timed(lambda: (net.fit(group, steps_per_dispatch=k),
+                                net.score()), ITERS)
+        out["captured"] = {
+            "steps_per_dispatch": k,
+            "launches_at_capture": net._step_for(False, k)
+            .launches_at_capture(),
+            "replayed_launches_per_step": {
+                k_: v // (ITERS * k) for k_, v in ck.REPLAYS.items()},
+            **_stats(times, k, batch, "images"), "loss": net.score(),
+            "cache_stats": cc.cache_stats(),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        out["captured"].update(profile(
+            lambda: (net.fit(group, steps_per_dispatch=k), net.score()),
+            model, True))
+    return out
+
+
+def run_bert(k: int) -> dict:
+    bench = BertBench()
+    batch, seq = bench.batch, bench.seq
+    for _ in range(WARM):
+        float(bench.step())
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_counts()
+    times = _timed(lambda: float(bench.step()), ITERS)
+    flops = train_flops_per_token(bench.cfg, seq)
+    peak = dense_bf16_peak(torch.cuda.get_device_name(0))
+
+    def rates(st):
+        toks = batch * seq / (st["step_ms_median"] / 1e3)
+        return {"tokens_per_s": toks, "mfu": flops * toks / peak}
+    eager = {"launches_per_step": {k_: v // ITERS
+                                   for k_, v in ck.LAUNCHES.items()},
+             **_stats(times, 1, batch, "samples"),
+             "loss": float(bench.step()),
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    eager.update(rates(eager))
+    eager.update(profile(lambda: float(bench.step()), "bert", False))
+    out = {"params": bench.n_params, "seq": seq, "flops_per_token": flops,
+           "peak_flops": peak, "eager": eager}
+    if k >= 1:
+        cc.reset_stats()
+        torch.cuda.reset_peak_memory_stats()
+        disp = bench.captured(k)
+        args = (bench.tokens, bench.targets, bench.mask) if k == 1 \
+            else bench.stacked(k)
+        disp.warm(*args)
+        ck.reset_counts()
+        times = _timed(lambda: disp(*args).float().sum().item(), ITERS)
+        cap = {"steps_per_dispatch": k,
+               "launches_at_capture": disp.launches_at_capture(),
+               **_stats(times, k, batch, "samples"),
+               "cache_stats": cc.cache_stats(),
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        cap.update(rates(cap))
+        cap.update(profile(lambda: disp(*args).float().sum().item(), "bert",
+                           True))
+        out["captured"] = cap
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=sorted(BATCH), default="resnet50")
+    ap.add_argument("--captured", type=int, default=0, metavar="K",
+                    help="also K steps a dispatch, captured (0: eager only)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_fit: needs a CUDA card", file=sys.stderr)
         return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     ck.install_platform_overrides()
-    net, ds = build(args.model)
-    batch = BATCH[args.model]
-    for _ in range(WARM):
-        net.fit(ds)
-    net.score()
-    ck.reset_counts()
-    times = []
-    for _ in range(ITERS):
-        t0 = time.perf_counter()
-        net.fit(ds)
-        net.score()
-        times.append((time.perf_counter() - t0) * 1e3)
-    out = {"card": smi, "model": args.model, "batch": batch,
-           "launches_per_step": {k: v // ITERS for k, v in ck.LAUNCHES.items()},
-           "step_ms_median": float(np.median(times)),
-           "step_ms_min": float(np.min(times)),
-           "step_ms_max": float(np.max(times)),
-           "images_per_s": batch / (float(np.median(times)) / 1e3),
-           "loss": net.score()}
-    out.update(profile(net, ds))
+    out = {"card": smi, "model": args.model, "batch": BATCH[args.model]}
+    if args.model == "bert":
+        out.update(run_bert(args.captured))
+    else:
+        out.update(run_network(args.model, args.captured))
     print(json.dumps(out), flush=True)
     return 0
 

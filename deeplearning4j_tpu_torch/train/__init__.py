@@ -1,2 +1,2 @@
-"""Training: the updaters (``Sgd``, ``Adam``) and the constant
-learning-rate schedule."""
+"""Training: the updaters (``Sgd``, ``Adam``, ``AdamW``), the constant
+learning-rate schedule, and K steps a dispatch (``train.stepping``)."""

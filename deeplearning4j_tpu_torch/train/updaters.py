@@ -8,7 +8,9 @@ helpers the train step applies before them, and L1/L2 regularization.
 Same contract as the JAX package: ``apply(grad, state, lr, t)`` returns
 ``(update, new_state)`` and the caller SUBTRACTS ``update`` from the
 param (the reference's ``params.subi(update)``). The math is fp32 on
-fp32 master params. Adam is DL4J's form, ``alpha = lr*sqrt(1-b2^t) /
+fp32 master params. ``t`` is a Python int or a 0-d device tensor (the
+networks' and the transformer step's device clock), which a captured
+step reads at every replay. Adam is DL4J's form, ``alpha = lr*sqrt(1-b2^t) /
 (1-b1^t)``, ``update = alpha*m / (sqrt(v) + eps)``: epsilon sits outside
 the bias correction, unlike ``torch.optim.Adam``, so that is not used.
 """
@@ -49,6 +51,8 @@ class IUpdater:
     def to_config(self):
         d = {"@class": type(self).__name__}
         for k, v in self.__dict__.items():
+            if k.startswith("_"):
+                continue                  # run-time caches, not config
             d[k] = v.to_config() if isinstance(v, ISchedule) else v
         return d
 
@@ -93,15 +97,37 @@ class Adam(IUpdater):
     def init_state(self, param):
         return {"m": torch.zeros_like(param), "v": torch.zeros_like(param)}
 
-    def apply(self, grad, state, lr, t):
-        # the bias correction in fp32, as the JAX step traces it
+    def alpha(self, lr, t):
+        """``lr*sqrt(1-b2^(t+1))/(1-b1^(t+1))`` in fp32, as the JAX step
+        traces it: a Python float for a Python ``t`` (numpy's fp32
+        ``pow``), a 0-d fp32 tensor beside a 0-d device ``t``, so a
+        captured step reads the counter at replay (the same bits on the
+        CPU: both round ``powf``)."""
+        if isinstance(t, torch.Tensor):
+            # one computation a step, not one a leaf: the clock's version
+            # counter moves with every in-place update of it; a value made
+            # while a CUDA graph is captured is never read eagerly (nor
+            # the reverse)
+            capturing = t.is_cuda and torch.cuda.is_current_stream_capturing()
+            key = (t.data_ptr(), t._version, str(t.device), lr, capturing)
+            memo = self.__dict__.get("_alpha_memo")
+            if memo is not None and memo[0] == key:
+                return memo[1]
+            t1 = t.float() + 1
+            alpha = lr * torch.sqrt(1 - self.beta2 ** t1) \
+                / (1 - self.beta1 ** t1)
+            self._alpha_memo = (key, alpha)
+            return alpha
         t1 = np.float32(t) + np.float32(1)
         one = np.float32(1)
-        alpha = np.float32(lr) * np.sqrt(one - np.float32(self.beta2) ** t1) \
-            / (one - np.float32(self.beta1) ** t1)
+        return float(np.float32(lr) * np.sqrt(
+            one - np.float32(self.beta2) ** t1)
+            / (one - np.float32(self.beta1) ** t1))
+
+    def apply(self, grad, state, lr, t):
         m = self.beta1 * state["m"] + (1 - self.beta1) * grad
         v = self.beta2 * state["v"] + (1 - self.beta2) * grad.square()
-        update = float(alpha) * m / (torch.sqrt(v) + self.epsilon)
+        update = self.alpha(lr, t) * m / (torch.sqrt(v) + self.epsilon)
         return update, {"m": m, "v": v}
 
 

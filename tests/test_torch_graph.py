@@ -270,3 +270,53 @@ class TestResNet50:
         assert ck.PLAIN_CALLS["scale_shift_act"] == 66
         assert out.shape == (2, 10) and bool(torch.isfinite(out).all())
         assert np.isfinite(net.score())
+
+
+def _dense_graph(conf, G, Lm, it, updater):
+    """in -> dense(tanh) -> output, built the same way in either
+    package."""
+    return G.ComputationGraph(
+        conf.Builder().seed(11).updater(updater).graphBuilder()
+        .addInputs("in").setInputTypes(it.feedForward(4))
+        .addLayer("fc", Lm.DenseLayer(nOut=6, activation="tanh"), "in")
+        .addLayer("out", Lm.OutputLayer(nOut=3, lossFunction="mcxent",
+                                        activation="softmax"), "fc")
+        .setOutputs("out").build())
+
+
+class TestAdamW:
+    """AdamW's decoupled decay on the weights (``W*``/``RW*``), not on the
+    biases, as the reference's shared step gates it (JAX
+    multilayer.py:139-145, graph.py:748): one step against the JAX step
+    within FIT_TOL; the decay term, lr * wd * W ~ 1e-3, is well above it."""
+
+    LR, WD = 1e-2, 0.5
+
+    def _fit(self, updater_j, updater_t):
+        x, y = np.random.default_rng(4).standard_normal((8, 4)).astype(
+            np.float32), np.eye(3, dtype=np.float32)[[0, 1, 2, 0, 1, 2, 0, 1]]
+        j = _dense_graph(JConf, jgraph, jlayers, JInputType,
+                         updater_j).init()
+        t = _dense_graph(NeuralNetConfiguration, tgraph, tlayers, InputType,
+                         updater_t)
+        t.params_from_jax(j._params, j._states, device="cpu")
+        w0 = {n: {k: np.asarray(v) for k, v in p.items()}
+              for n, p in j._params.items()}
+        j.fit(JDataSet(x, y))
+        t.fit(DataSet(x, y))
+        return j, t, w0
+
+    def test_one_step_matches_jax(self):
+        j, t, w0 = self._fit(jupd.AdamW(self.LR, weight_decay=self.WD),
+                             tupd.AdamW(self.LR, weight_decay=self.WD))
+        for n, p in j._params.items():
+            for k, v in p.items():
+                _close(t._params[n][k].detach().numpy(), np.asarray(v),
+                       FIT_TOL, f"{n}.{k}")
+        # the gate: against a plain Adam step from the same start, W moved
+        # by the decay and b did not
+        _, a, _ = self._fit(jupd.Adam(self.LR), tupd.Adam(self.LR))
+        for n in ("fc", "out"):
+            assert torch.equal(t._params[n]["b"], a._params[n]["b"])
+            d = (a._params[n]["W"] - t._params[n]["W"]).detach().numpy()
+            _close(d, self.LR * self.WD * w0[n]["W"], 1e-6, f"{n}.W decay")

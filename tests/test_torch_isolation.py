@@ -68,7 +68,11 @@ def test_import_leaves_jax_unloaded():
              "deeplearning4j_tpu_torch.nn.multilayer, "
              "deeplearning4j_tpu_torch.nn.objdetect, "
              "deeplearning4j_tpu_torch.models.zoo, "
-             "deeplearning4j_tpu_torch.benchmarks.probe_bn_leaky; "
+             "deeplearning4j_tpu_torch.benchmarks.probe_bn_leaky, "
+             "deeplearning4j_tpu_torch.analysis, "
+             "deeplearning4j_tpu_torch.nn.compilecache, "
+             "deeplearning4j_tpu_torch.train.stepping, "
+             "deeplearning4j_tpu_torch.profile_fit; "
              "print(sorted(m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'jaxlib', 'deeplearning4j_tpu')))", ROOT)
     assert r.returncode == 0, r.stderr

@@ -337,3 +337,64 @@ def test_same_mode_output_size_and_padding():
     with pytest.raises(NotImplementedError, match="'same'"):
         tconv.conv2d(torch.zeros(1, 1, 4, 4), torch.zeros(1, 1, 3, 3),
                      mode="same")
+
+
+def _dense_list(conf, Lm, it, updater):
+    return (conf.Builder().seed(11).updater(updater).list()
+            .layer(Lm.DenseLayer(nOut=6, activation="tanh"))
+            .layer(Lm.OutputLayer(nOut=3, lossFunction="mcxent",
+                                  activation="softmax"))
+            .setInputType(it.feedForward(4)).build())
+
+
+class TestAdamW:
+    """AdamW's decoupled decay on the weights (``W*``/``RW*``), not on the
+    biases (JAX multilayer.py:139-145): one step against the JAX step
+    within FIT_TOL (the decay term, lr * wd * W ~ 1e-3, is well above
+    it), and the worked example of one W=1, b=1 with g=0.5, lr 0.1,
+    wd 0.5: W -> 0.85000075 (Adam's step 0.09999925 plus the decay 0.05),
+    b -> 0.90000075."""
+
+    LR, WD = 1e-2, 0.5
+
+    def _fit(self, updater_j, updater_t):
+        x = np.random.default_rng(4).standard_normal((8, 4)).astype(
+            np.float32)
+        y = np.eye(3, dtype=np.float32)[[0, 1, 2, 0, 1, 2, 0, 1]]
+        j = JMLN(_dense_list(JConf, jlayers, JInputType, updater_j)).init()
+        t = MultiLayerNetwork(_dense_list(NeuralNetConfiguration, tlayers,
+                                          InputType, updater_t))
+        t.params_from_jax(j._params, j._states, device="cpu")
+        w0 = [{k: np.asarray(v) for k, v in p.items()} for p in j._params]
+        j.fit(JDataSet(x, y))
+        t.fit(DataSet(x, y))
+        return j, t, w0
+
+    def test_one_step_matches_jax(self):
+        j, t, w0 = self._fit(jupd.AdamW(self.LR, weight_decay=self.WD),
+                             tupd.AdamW(self.LR, weight_decay=self.WD))
+        for i, p in enumerate(j._params):
+            for k, v in p.items():
+                np.testing.assert_allclose(
+                    t._params[i][k].detach().numpy(), np.asarray(v),
+                    rtol=FIT_TOL, atol=FIT_TOL, err_msg=f"layer {i} {k}")
+        _, a, _ = self._fit(jupd.Adam(self.LR), tupd.Adam(self.LR))
+        for i in range(2):
+            assert torch.equal(t._params[i]["b"], a._params[i]["b"])
+            d = (a._params[i]["W"] - t._params[i]["W"]).detach().numpy()
+            np.testing.assert_allclose(d, self.LR * self.WD * w0[i]["W"],
+                                       rtol=1e-6, atol=1e-6)
+
+    def test_worked_example(self):
+        t = MultiLayerNetwork(_dense_list(
+            NeuralNetConfiguration, tlayers, InputType,
+            tupd.AdamW(0.1, weight_decay=0.5))).init(device="cpu")
+        w = torch.ones(1, requires_grad=True)
+        b = torch.ones(1, requires_grad=True)
+        t._opt_state = {0: {"W": tupd.Adam().init_state(w.detach()),
+                            "b": tupd.Adam().init_state(b.detach())}}
+        t._ensure_clock()
+        t._process_and_apply_grads([(0, "W"), (0, "b")], [w, b],
+                                   [torch.full((1,), 0.5)] * 2)
+        assert float(w.detach()) == np.float32(0.85000075)
+        assert float(b.detach()) == np.float32(0.90000075)
