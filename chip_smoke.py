@@ -35,15 +35,21 @@ Phases (each one fails the run with a non-zero exit):
    ``scale_shift_act`` also at TinyYOLO's first epilogue, [5,537,792, 16]
    bf16, alpha 0.01.
 3. Serve BERT-base (full width, bf16, random weights from a seed) through
-   ``ModelServer(lm.logits, head="argmax")`` with the kernels installed:
-   warmup, then 64 requests of 1-8 rows at T=128 and T=512 from four
-   threads. Every request must resolve exactly once, agree with a direct
-   ``lm.logits`` on >= 99.9% of tokens, and the launch counters must read
-   12 flash-attention and 25 layer-norm launches per dispatched forward,
-   every flash launch on the tensor-core route (also checked on one
-   direct forward at T=128 and one at T=512).
-   One forward with the kernels is held against the same forward on the
-   plain versions.
+   ``ModelServer(lm.logits, head="argmax")`` with the kernels installed,
+   the forward and head captured as one CUDA graph a bucket x shape:
+   warmup must capture 12 graphs (6 buckets x T in 128, 512), each
+   recording 12 flash-attention launches, all on the tensor-core route,
+   and 25 layer-norm launches, with no capture failure; then 64 requests
+   of 1-8 rows at T=128 and T=512 from four threads. Every request must
+   resolve exactly once and agree with a direct ``lm.logits`` on >= 99.9%
+   of tokens; during the traffic no kernel is launched eagerly, each
+   dispatched batch replays 12 flash + 25 layer-norm launches
+   (``REPLAYS``), and ``recompiles_after_warmup()`` and the captures
+   after warmup stay 0. It prints, at B=32 and T in 128, 512, one eager
+   forward+head against one replay (host clock, median of 10, each from
+   the host batch to the host answer). Direct forwards at T=128 and T=512
+   take 12 tensor-core flash launches each, and one forward with the
+   kernels is held against the same forward on the plain versions.
 4. Train ResNet-50 (full width, 1000 classes, 3x224x224, random weights
    from a seed) through ``ComputationGraph.fit`` in the bf16 / NHWC /
    fused-epilogue configuration, B=64: one warm step, then 5 timed steps
@@ -55,13 +61,15 @@ Phases (each one fails the run with a non-zero exit):
 6. Serve a BERT-base sequence classifier written op by op in SameDiff
    (full width, fp32, post-LN, 2 labels, random weights from
    ``numpy.random.default_rng(0)``; :func:`build_bert`, a copy of the
-   builder in ``tests/test_torch_samediff.py``) through
-   ``ModelServer(samediff_forward(sd, ["probs"]))``: warmup, then 64
-   requests of 1-8 rows at T=128 from four threads. Every request must
-   resolve exactly once, its probs equal a direct ``sd.output`` (1e-4
-   absolute: the served batch pads to a bucket, so cuBLAS may sum in
-   another order), and the counters must read 13 softmax and 25 layer-norm
-   launches per forward and no plain call.
+   builder in ``tests/test_torch_samediff.py``) through the same captured
+   ``ModelServer(samediff_forward(sd, ["probs"]))``: warmup must capture
+   6 graphs, each recording 13 softmax and 25 layer-norm launches, with
+   no capture failure; then 64 requests of 1-8 rows at T=128 from four
+   threads. Every request must resolve exactly once, its probs equal a
+   direct ``sd.output`` (1e-4 absolute: the served batch pads to a
+   bucket, so cuBLAS may sum in another order); during the traffic no
+   kernel is launched eagerly, each batch replays 13 softmax + 25
+   layer-norm launches, and ``recompiles_after_warmup()`` stays 0.
 7. Fine-tune that graph with ``sd.fit``: Adam 1e-4, 6 steps on one B=32
    batch. Every loss finite, the last below the first, 12 softmax (the
    loss takes the logits, not the head's probs) and 25 layer-norm
@@ -124,6 +132,28 @@ Phases (each one fails the run with a non-zero exit):
    x 8 (TinyYOLO) ``scale_shift_act`` launches and nothing else; 0
    capture failures, 0 new captures after warmup, one churn signature.
 
+15. The front door: ``ModelRegistry(batch_limit=32, head="argmax",
+   input_dtype=np.int32)`` loads the phase-3 BERT-base (seed 0) as
+   ``"bert"`` v1 with ``shapes=[(128,)]`` and ``HttpIngress(reg, port=0)``
+   puts it on loopback. ``ServingLoad.seeded(seed=0, mix="steady",
+   n=512, rps=150, max_rows=8)`` replays over real sockets
+   (``replay_http``, JSON bodies of int32 tokens, T=128, ``deadline_ms``
+   5000); meanwhile ``reg.load("bert", v2)`` (the same configuration from
+   seed 1) captures v2's 6 graphs while v1 serves, then a
+   ``SwapSchedule`` fires roll, rollback, roll. Every request must be
+   answered exactly once with 200 by the version routed at its admission
+   (read under the registry lock with the admission, keyed by trace id),
+   and agree with a direct argmax of that version on >= 99.9% of tokens;
+   v1 must dispatch while v2 captures; both servers keep
+   ``recompiles_after_warmup()`` and their captures after warmup at 0;
+   no capture fails; the only eager launches during the traffic are v2's
+   warmup's (its warm-up runs, captures and one replay a bucket);
+   ``GET /v1/models``, ``/v1/load``, ``/healthz`` and ``/readyz`` answer
+   200 with the reference's keys; and a request with ``deadline_ms`` 1
+   behind 64 queued requests comes back 504. It prints tokens/s, the wire
+   latency p50/p99 (client clock, first byte sent to response read), v2's
+   load and capture seconds, and the memory with two versions loaded.
+
 The captured-against-eager rule: where the two eager runs agree to the
 bit on a tensor (and on the params' group: the param and its Adam
 moments), the captured run must too; where they do not (atomics in a
@@ -148,7 +178,9 @@ sums against an fp64 sum, |d sum| <= 1e-5 sum|x| and |d sumsq| <= 1e-5
 sumsq, NaN where the fp64 sum is NaN; ``bn_apply_leaky`` as
 ``scale_shift_act`` (fp32 1e-6 relative, bf16 one ulp, NaN kept).
 
-Output: progress lines, then a JSON line ``{"kernels": [...]}``, the
+Output: progress lines, then a JSON line ``{"kernels": [...]}`` (the
+flash and layer-norm ``launches`` are phase 3's warmup launches plus its
+replays, softmax's phase 6's; ``replays`` counts the replayed ones), the
 ``nvidia-smi`` name/power-limit line, and as the last line
 ``{"ok": true, "device": {...}}``. Without a card, or outside a
 checkout, it exits non-zero and prints no result.
@@ -224,8 +256,7 @@ def main() -> None:
     from deeplearning4j_tpu_torch.benchmarks import probe_bn_leaky
     from deeplearning4j_tpu_torch.data.dataset import DataSet
     from deeplearning4j_tpu_torch.models import zoo
-    from deeplearning4j_tpu_torch.models.transformer import (
-        TransformerConfig, TransformerLM)
+    from deeplearning4j_tpu_torch.nn import compilecache as cc
     from deeplearning4j_tpu_torch.nn.objdetect import YoloUtils, yolo_labels
     from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
     from deeplearning4j_tpu_torch.ops import registry
@@ -745,99 +776,7 @@ def main() -> None:
     del flush
 
     # ------------------------------------------------- 3. serve BERT-base
-    ck.install_platform_overrides()
-    cfg = TransformerConfig.bert_base(use_flash_attention=True)
-    t0 = time.perf_counter()
-    lm = TransformerLM(cfg, seed=0)
-    log(f"BERT-base: {lm.n_params()} parameters, {cfg.n_layers} layers, "
-        f"E={cfg.d_model}, H={cfg.n_heads}, dtype {cfg.dtype}, built in "
-        f"{time.perf_counter() - t0:.2f} s")
-    server = ModelServer(lm.logits, batch_limit=32, input_dtype=np.int32,
-                         head="argmax", coalesce_ms=5.0, max_queue=256)
-    try:
-        t0 = time.perf_counter()
-        server.warmup([(128,), (512,)])
-        log(f"warmup: buckets {server.buckets()} x T in (128, 512) in "
-            f"{time.perf_counter() - t0:.2f} s")
-
-        rng = np.random.default_rng(0)
-        reqs_in = [rng.integers(0, cfg.vocab_size,
-                                (int(rng.integers(1, 9)),
-                                 128 if i % 2 == 0 else 512), dtype=np.int32)
-                   for i in range(64)]
-        handles, served, wall, launches, plain, n_fwd = serve_burst(
-            server, reqs_in)
-        routes = dict(ck.FLASH_ROUTES)
-    finally:
-        server.close()
-
-    if any(h.resolutions != 1 for h in handles):
-        fail("a request was not resolved exactly once")
-    if server.counts["completed"] != 64:
-        fail(f"expected 64 completed requests, counts {dict(server.counts)}")
-    if launches != {"flash_attention": 12 * n_fwd, "layer_norm": 25 * n_fwd,
-                    "scale_shift_act": 0, "softmax": 0, "bn_stats": 0,
-                    "bn_apply_leaky": 0} \
-            or any(plain.values()):
-        fail(f"launch counts {launches} (plain {plain}) over {n_fwd} "
-             "forwards: want 12 flash_attention and 25 layer_norm each")
-    if routes != {"tensor_core": 12 * n_fwd, "cuda_core": 0}:
-        fail(f"flash routes {routes} over {n_fwd} forwards: want all "
-             "12 a forward on the tensor cores")
-    log(f"served 64 requests in {n_fwd} forwards; launches {launches}, "
-        f"flash routes {routes}")
-    log_latency(handles, reqs_in, wall, smi)
-
-    agree = total = 0
-    for r, got in zip(reqs_in, served):
-        want = lm.logits(r).argmax(-1).to(torch.int32).cpu().numpy()
-        if got.shape != want.shape:
-            fail(f"served shape {got.shape} != direct {want.shape}")
-        agree += int((got == want).sum())
-        total += want.size
-    frac = agree / total
-    log(f"served argmax agrees with direct lm.logits on {agree}/{total} "
-        f"tokens ({frac:.5f})")
-    if frac < 0.999:
-        fail(f"served/direct argmax agreement {frac:.5f} < 0.999")
-    for T in (128, 512):
-        ck.reset_counts()
-        with torch.inference_mode():
-            lm.logits(rng.integers(0, cfg.vocab_size, (2, T), dtype=np.int32))
-        if ck.FLASH_ROUTES != {"tensor_core": 12, "cuda_core": 0}:
-            fail(f"a direct forward at T={T} took flash routes "
-                 f"{ck.FLASH_ROUTES}: want 12 on the tensor cores")
-    log("direct forwards at T=128 and T=512: 12 flash launches each, all "
-        "on the tensor cores")
-
-    # the same forward with the plain versions of both kernels
-    tok = reqs_in[0]
-    with torch.inference_mode():
-        kern = lm.logits(tok)
-        registry.register_platform_override(
-            "layer_norm", lambda x, g, b=None, *, axis=-1, eps=1e-5:
-            ck.layer_norm_plain(x, g, b, eps))
-        registry.register_platform_override(
-            "flash_attention", lambda q, k, v, *, mask=None, is_causal=False,
-            block_size=512: ck.flash_attention_plain(q, k, v, is_causal)[0])
-        plain_logits = lm.logits(tok)
-        ck.install_platform_overrides()
-    if not bool(torch.isfinite(kern).all()) or \
-            kern.shape != (tok.shape[0], tok.shape[1], cfg.vocab_size):
-        fail(f"logits not finite or of shape {tuple(kern.shape)}")
-    dl = (kern - plain_logits).abs()
-    scale = float(plain_logits.abs().max())
-    log(f"kernel vs plain forward logits: max|diff| {float(dl.max()):.4g}, "
-        f"mean|diff| {float(dl.mean()):.4g}, max|logit| {scale:.4g}")
-    # bound: bf16 activations carry 8 significant bits; the two forwards
-    # round the same values after sums in another order, so each layer
-    # may move a value by an ulp or two and 12 layers compound that
-    if float(dl.max()) > 0.05 * scale or float(dl.mean()) > 2e-3 * scale:
-        fail("kernel and plain forwards disagree beyond the bf16 bound "
-             "(max 5%, mean 0.2% of max|logit|)")
-
-    del server, lm, kern, plain_logits
-    torch.cuda.empty_cache()
+    served = serve_bert(smi)
 
     # ------------------------------------------------ 4. ResNet-50 fit
     ck.install_platform_overrides()
@@ -935,30 +874,47 @@ def main() -> None:
                          batch_limit=32, input_dtype=np.int32,
                          coalesce_ms=5.0, max_queue=256)
     try:
+        cc.reset_stats()
+        ck.reset_counts()
         t0 = time.perf_counter()
         server.warmup([(T,)])
-        log(f"warmup: buckets {server.buckets()} x T={T} in "
-            f"{time.perf_counter() - t0:.2f} s")
+        sd_warm = dict(ck.LAUNCHES)
+        at_capture = server._dispatch.launches_at_capture()
+        stats = cc.cache_stats()
+        log(f"warmup: buckets {server.buckets()} x T={T}: "
+            f"{len(at_capture)} graphs captured in "
+            f"{time.perf_counter() - t0:.2f} s (cache_stats {stats})")
+        if stats["capture_failures"] or \
+                len(at_capture) != len(server.buckets()) or \
+                any(a != {"softmax": 13, "layer_norm": 25}
+                    for a in at_capture):
+            fail(f"SameDiff serving captures {at_capture}, cache_stats "
+                 f"{stats}: want {len(server.buckets())} graphs of 13 "
+                 "softmax and 25 layer_norm launches and no failure")
         rng = np.random.default_rng(1)
         sd_reqs = [rng.integers(0, BERT_SD["V"], (int(rng.integers(1, 9)), T),
                                 dtype=np.int32) for _ in range(64)]
         sd_handles, sd_served, sd_wall, sd_launches, sd_plain, sd_fwd = \
             serve_burst(server, sd_reqs)
+        sd_replays = dict(ck.REPLAYS)
+        sd_recompiles = server.recompiles_after_warmup()
     finally:
         server.close()
     if any(h.resolutions != 1 for h in sd_handles) or \
             server.counts["completed"] != 64:
         fail(f"SameDiff serving: a request not resolved exactly once, "
              f"counts {dict(server.counts)}")
-    want_launches = {"layer_norm": 25 * sd_fwd, "flash_attention": 0,
-                     "scale_shift_act": 0, "softmax": 13 * sd_fwd,
-                     "bn_stats": 0, "bn_apply_leaky": 0}
-    if sd_launches != want_launches or any(sd_plain.values()):
-        fail(f"SameDiff serving launch counts {sd_launches} (plain "
-             f"{sd_plain}) over {sd_fwd} forwards: want 13 softmax and 25 "
-             "layer_norm each")
-    log(f"served 64 SameDiff requests in {sd_fwd} forwards; launches "
-        f"{sd_launches}")
+    want_replays = {k: 0 for k in ck.KERNELS}
+    want_replays.update(softmax=13 * sd_fwd, layer_norm=25 * sd_fwd)
+    if any(sd_launches.values()) or any(sd_plain.values()) \
+            or sd_replays != want_replays or sd_recompiles \
+            or cc.cache_stats()["capture_failures"]:
+        fail(f"SameDiff serving ran launches {sd_launches} eagerly (plain "
+             f"{sd_plain}), replayed {sd_replays} over {sd_fwd} forwards, "
+             f"recompiles_after_warmup {sd_recompiles}: want none eagerly, "
+             "13 softmax + 25 layer_norm replayed a forward, 0 recompiles")
+    log(f"served 64 SameDiff requests in {sd_fwd} captured forwards: no "
+        f"eager launch, replayed {sd_replays}")
     log_latency(sd_handles, sd_reqs, sd_wall, smi)
     worst = 0.0
     for r, got in zip(sd_reqs, sd_served):
@@ -1185,14 +1141,19 @@ def main() -> None:
     del x_r, y_r, x_y, y_y
     torch.cuda.empty_cache()
 
-    ln["launches"] = launches["layer_norm"]
-    fa["launches"] = launches["flash_attention"]
+    # ------------------------------------------------ 15. the front door
+    front_door(smi)
+
+    ln.update(served["layer_norm"])
+    fa.update(served["flash_attention"])
     ssa["launches"] = fit_launches["scale_shift_act"]
     ssa["other_shapes"][0]["launches"] = yolo_launches["scale_shift_act"]
-    sm["launches"] = sd_launches["softmax"]
+    sm["launches"] = sd_warm["softmax"] + sd_replays["softmax"]
+    sm["replays"] = sd_replays["softmax"]
     bn_st["launches"] = probe_launches["bn_stats"]
     bn_ap["launches"] = probe_launches["bn_apply_leaky"]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+    keys = ("name", "route", "source", "replaces", "launches", "replays",
+            "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "other_shapes", "pair")
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -1202,6 +1163,395 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def serve_bert(smi: str) -> dict:
+    """Phase 3: BERT-base served captured. Returns the flash and layer-norm
+    launches of the run (captures and eager warm-up runs of the warmup,
+    then the replays of the traffic) and the replays alone."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models.transformer import (
+        TransformerConfig, TransformerLM)
+    from deeplearning4j_tpu_torch.nn import compilecache as cc
+    from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+    from deeplearning4j_tpu_torch.ops import registry
+    from deeplearning4j_tpu_torch.serving import ModelServer
+    dev = torch.device("cuda")
+    ck.install_platform_overrides()
+    cfg = TransformerConfig.bert_base(use_flash_attention=True)
+    t0 = time.perf_counter()
+    lm = TransformerLM(cfg, seed=0)
+    log(f"BERT-base: {lm.n_params()} parameters, {cfg.n_layers} layers, "
+        f"E={cfg.d_model}, H={cfg.n_heads}, dtype {cfg.dtype}, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    server = ModelServer(lm.logits, batch_limit=32, input_dtype=np.int32,
+                         head="argmax", coalesce_ms=5.0, max_queue=256)
+    try:
+        cc.reset_stats()
+        ck.reset_counts()
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        server.warmup([(128,), (512,)])
+        warm_s = time.perf_counter() - t0
+        warm_launches = dict(ck.LAUNCHES)
+        warm_routes = dict(ck.FLASH_ROUTES)
+        at_capture = server._dispatch.launches_at_capture()
+        warm_stats = cc.cache_stats()
+        graph_gb = (torch.cuda.memory_allocated() - mem0) / 1e9
+        warm_peak_gb = (torch.cuda.max_memory_allocated() - mem0) / 1e9
+        n_caps = len(server.buckets()) * 2
+        log(f"warmup: buckets {server.buckets()} x T in (128, 512): "
+            f"{server._dispatch.warmed_signatures()} graphs captured in "
+            f"{warm_s:.2f} s (cache_stats {warm_stats}); graphs hold "
+            f"{graph_gb:.3f} GB, warmup peak {warm_peak_gb:.3f} GB above "
+            f"the weights [{smi}]")
+        if warm_stats["capture_failures"] or len(at_capture) != n_caps \
+                or any(a != {"flash_attention": 12, "layer_norm": 25}
+                       for a in at_capture) \
+                or warm_routes["cuda_core"]:
+            fail(f"served BERT-base captures: {at_capture}, routes "
+                 f"{warm_routes}, cache_stats {warm_stats}: want {n_caps} "
+                 "graphs of 12 tensor-core flash and 25 layer_norm launches "
+                 "and no failure")
+
+        rng = np.random.default_rng(0)
+        reqs_in = [rng.integers(0, cfg.vocab_size,
+                                (int(rng.integers(1, 9)),
+                                 128 if i % 2 == 0 else 512), dtype=np.int32)
+                   for i in range(64)]
+        handles, served, wall, launches, plain, n_fwd = serve_burst(
+            server, reqs_in)
+        replays = dict(ck.REPLAYS)
+        recompiles = server.recompiles_after_warmup()
+        new_caps = server.captures_after_warmup()
+
+        if any(h.resolutions != 1 for h in handles):
+            fail("a request was not resolved exactly once")
+        if server.counts["completed"] != 64:
+            fail(f"expected 64 completed requests, counts "
+                 f"{dict(server.counts)}")
+        want = {k: 0 for k in ck.KERNELS}
+        want.update(flash_attention=12 * n_fwd, layer_norm=25 * n_fwd)
+        if any(launches.values()) or any(plain.values()) or replays != want:
+            fail(f"traffic ran launches {launches} eagerly (plain {plain}) "
+                 f"and replayed {replays} over {n_fwd} forwards: want none "
+                 "eagerly and 12 flash_attention + 25 layer_norm replayed "
+                 "a forward")
+        if recompiles or new_caps or cc.cache_stats()["capture_failures"]:
+            fail(f"recompiles_after_warmup {recompiles}, captures after "
+                 f"warmup {new_caps}, cache_stats {cc.cache_stats()}: want "
+                 "0, 0 and no capture failure")
+        log(f"served 64 requests in {n_fwd} captured forwards: no eager "
+            f"launch, replayed {replays}; recompiles_after_warmup 0, "
+            "captures after warmup 0")
+        log_latency(handles, reqs_in, wall, smi)
+
+        agree = total = 0
+        for r, got in zip(reqs_in, served):
+            want_a = lm.logits(r).argmax(-1).to(torch.int32).cpu().numpy()
+            if got.shape != want_a.shape:
+                fail(f"served shape {got.shape} != direct {want_a.shape}")
+            agree += int((got == want_a).sum())
+            total += want_a.size
+        frac = agree / total
+        log(f"served argmax agrees with direct lm.logits on {agree}/{total} "
+            f"tokens ({frac:.5f})")
+        if frac < 0.999:
+            fail(f"served/direct argmax agreement {frac:.5f} < 0.999")
+
+        # one dispatch of the eager forward+head against one replay, each
+        # from the host batch to the host answer
+        for T in (128, 512):
+            x = rng.integers(0, cfg.vocab_size, (32, T), dtype=np.int32)
+
+            def eager():
+                xt = torch.from_numpy(x).to(dev)
+                with torch.inference_mode():
+                    return server._device_forward(xt).cpu().numpy()
+
+            def replay():
+                return server._forward_raw(x)
+            for fn in (eager, replay):
+                fn()
+            times = {}
+            for name, fn in (("eager", eager), ("replay", replay)):
+                ts = []
+                for _ in range(10):
+                    t0 = time.perf_counter()
+                    out = fn()
+                    ts.append((time.perf_counter() - t0) * 1e3)
+                times[name] = (float(np.median(ts)), out)
+            same = float((times["eager"][1] == times["replay"][1]).mean())
+            log(f"B=32, T={T} forward+argmax, host batch to host answer "
+                f"(host clock, median of 10): eager {times['eager'][0]:.3f} "
+                f"ms, captured replay {times['replay'][0]:.3f} ms, "
+                f"{times['eager'][0] / times['replay'][0]:.2f}x; "
+                f"{32 * T / (times['replay'][0] / 1e3):.0f} tokens/s "
+                f"replayed; answers agree on {same:.5f} [{smi}]")
+            if same < 0.999:
+                fail(f"eager and replayed argmax agree on {same:.5f} < "
+                     "0.999 of tokens")
+        if server.captures_after_warmup() or server.recompiles_after_warmup():
+            fail("the timed replays captured a graph")
+    finally:
+        server.close()
+
+    for T in (128, 512):
+        ck.reset_counts()
+        with torch.inference_mode():
+            lm.logits(rng.integers(0, cfg.vocab_size, (2, T), dtype=np.int32))
+        if ck.FLASH_ROUTES != {"tensor_core": 12, "cuda_core": 0}:
+            fail(f"a direct forward at T={T} took flash routes "
+                 f"{ck.FLASH_ROUTES}: want 12 on the tensor cores")
+    log("direct forwards at T=128 and T=512: 12 flash launches each, all "
+        "on the tensor cores")
+
+    # the same forward with the plain versions of both kernels
+    tok = reqs_in[0]
+    with torch.inference_mode():
+        kern = lm.logits(tok)
+        registry.register_platform_override(
+            "layer_norm", lambda x, g, b=None, *, axis=-1, eps=1e-5:
+            ck.layer_norm_plain(x, g, b, eps))
+        registry.register_platform_override(
+            "flash_attention", lambda q, k, v, *, mask=None, is_causal=False,
+            block_size=512: ck.flash_attention_plain(q, k, v, is_causal)[0])
+        plain_logits = lm.logits(tok)
+        ck.install_platform_overrides()
+    if not bool(torch.isfinite(kern).all()) or \
+            kern.shape != (tok.shape[0], tok.shape[1], cfg.vocab_size):
+        fail(f"logits not finite or of shape {tuple(kern.shape)}")
+    dl = (kern - plain_logits).abs()
+    scale = float(plain_logits.abs().max())
+    log(f"kernel vs plain forward logits: max|diff| {float(dl.max()):.4g}, "
+        f"mean|diff| {float(dl.mean()):.4g}, max|logit| {scale:.4g}")
+    # bound: bf16 activations carry 8 significant bits; the two forwards
+    # round the same values after sums in another order, so each layer
+    # may move a value by an ulp or two and 12 layers compound that
+    if float(dl.max()) > 0.05 * scale or float(dl.mean()) > 2e-3 * scale:
+        fail("kernel and plain forwards disagree beyond the bf16 bound "
+             "(max 5%, mean 0.2% of max|logit|)")
+    del server, lm, kern, plain_logits
+    torch.cuda.empty_cache()
+    return {k: {"launches": warm_launches[k] + replays[k],
+                "replays": replays[k]}
+            for k in ("flash_attention", "layer_norm")}
+
+
+def front_door(smi: str) -> None:
+    """Phase 15: BERT-base behind ``HttpIngress`` and ``ModelRegistry``:
+    a steady replay over real sockets while v2 loads (and captures) and
+    the route rolls, rolls back and rolls again."""
+    import gc
+    import http.client
+    import urllib.request
+
+    import torch
+
+    from deeplearning4j_tpu_torch.faults import ServingLoad, SwapSchedule
+    from deeplearning4j_tpu_torch.models.transformer import (
+        TransformerConfig, TransformerLM)
+    from deeplearning4j_tpu_torch.nn import compilecache as cc
+    from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+    from deeplearning4j_tpu_torch.serving import HttpIngress, ModelRegistry
+    ck.install_platform_overrides()
+    cfg = TransformerConfig.bert_base(use_flash_attention=True)
+    gc.collect()        # what earlier phases left is freed now, not later
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    lms = {1: TransformerLM(cfg, seed=0), 2: TransformerLM(cfg, seed=1)}
+    T = 128
+    cc.reset_stats()
+    reg = ModelRegistry(batch_limit=32, head="argmax", input_dtype=np.int32)
+    ingress = None
+    try:
+        t0 = time.perf_counter()
+        reg.load("bert", lms[1].logits, shapes=[(T,)])
+        log(f"front door: bert v1 loaded and captured in "
+            f"{time.perf_counter() - t0:.2f} s")
+        ingress = HttpIngress(reg, port=0).start()
+
+        # the route's version at each admission, read under the registry
+        # lock together with the admission itself (a roll takes the same
+        # lock), keyed by the request's trace id
+        admitted = {}
+        submit = reg.submit
+
+        def submit_recorded(name, x, deadline=None, version=None,
+                            trace=None):
+            with reg._lock:
+                active = reg.active_version(name)
+                req = submit(name, x, deadline=deadline, version=version,
+                             trace=trace)
+            admitted[req.trace.trace_id] = active
+            return req
+        reg.submit = submit_recorded
+
+        load = ServingLoad.seeded(seed=0, mix="steady", n=512, rps=150,
+                                  max_rows=8)
+        for spec in load.specs:
+            spec.deadline = 5.0
+
+        def tokens(rng, spec):
+            return rng.randint(0, cfg.vocab_size, (spec.rows, T)).astype(
+                np.int32)
+        feats = load.features((T,), make=tokens)
+        out = {}
+        ck.reset_counts()
+        launches0 = dict(ck.LAUNCHES)
+        t_start = time.perf_counter()
+        replay = threading.Thread(target=lambda: out.setdefault(
+            "res", load.replay_http(ingress.url, "bert", (T,), make=tokens)))
+        replay.start()
+        time.sleep(0.3)
+        v1 = reg.server("bert", 1)
+        b0 = v1.stats()["batches"]
+        t0 = time.perf_counter()
+        reg.load("bert", lms[2].logits)
+        load_s = time.perf_counter() - t0
+        v1_batches = v1.stats()["batches"] - b0
+        v2 = reg.server("bert", 2)
+        left = load.duration() - (time.perf_counter() - t_start)
+        if left < 0.3:
+            fail(f"v2's load took {load_s:.2f} s: the replay of "
+                 f"{load.duration():.2f} s ended before the swaps")
+        swaps = SwapSchedule([(0.15 * left, "bert", 2),
+                              (0.5 * left, "bert", "rollback"),
+                              (0.85 * left, "bert", 2)]).start(reg)
+        performed = swaps.join(60)
+        replay.join(120)
+        wall = time.perf_counter() - t_start
+        if replay.is_alive():
+            fail("the HTTP replay did not finish within 120 s")
+        traffic = {k: ck.LAUNCHES[k] - launches0[k] for k in ck.KERNELS}
+        torch.cuda.synchronize()
+        both_gb = (torch.cuda.memory_allocated() - base) / 1e9
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        res = out["res"]
+        log(f"v2 loaded and captured {v2._dispatch.warmed_signatures()} "
+            f"graphs in {load_s:.2f} s while v1 served {v1_batches} "
+            f"batches; swaps {[(round(a, 3), act, r) for a, _, act, r in performed]}")
+        if v1_batches == 0:
+            fail("v1 dispatched no batch while v2 captured")
+        if v2._dispatch.warmed_signatures() != len(v2.buckets()):
+            fail(f"v2 captured {v2._dispatch.warmed_signatures()} graphs, "
+                 f"want {len(v2.buckets())}")
+        if [p[2] for p in performed] != ["roll", "rollback", "roll"]:
+            fail(f"swaps {performed}: want roll, rollback, roll")
+
+        # every request answered exactly once, with 200, by the version
+        # that was routed at its admission
+        codes = [o[0] if isinstance(o, tuple) else o for _, o in res]
+        if codes.count(200) != len(res):
+            fail(f"{len(res) - codes.count(200)} of {len(res)} requests "
+                 f"not answered 200: {sorted(set(map(str, codes)))}")
+        by_version = {1: [], 2: []}
+        for i, (spec, (code, payload)) in enumerate(res):
+            want_v = admitted.get(payload["trace_id"])
+            if payload["version"] != want_v:
+                fail(f"request {i} answered by v{payload['version']}, "
+                     f"routed to v{want_v} at admission")
+            by_version[payload["version"]].append(
+                (feats[i], np.asarray(payload["predictions"])))
+        if len(admitted) != len(res):
+            fail(f"{len(admitted)} admissions for {len(res)} requests")
+        for sv in (v1, v2):
+            n_done = sv.counts["completed"]
+            if sv.recompiles_after_warmup() or sv.captures_after_warmup():
+                fail(f"{sv.name}: recompiles_after_warmup "
+                     f"{sv.recompiles_after_warmup()}, captures after warmup "
+                     f"{sv.captures_after_warmup()}: want 0")
+            if n_done != len(by_version[int(sv.name[-1])]):
+                fail(f"{sv.name} completed {n_done} requests, the wire "
+                     f"says {len(by_version[int(sv.name[-1])])}")
+        stats = cc.cache_stats()
+        if stats["capture_failures"]:
+            fail(f"capture failures: {stats}")
+        # during traffic only v2's load ran kernels eagerly: its warm-up
+        # runs, its captures and one replay a bucket
+        per = (cc.WARMUP_RUNS + 1) * len(v2.buckets())
+        want = {k: 0 for k in ck.KERNELS}
+        want.update(flash_attention=12 * per, layer_norm=25 * per)
+        if traffic != want:
+            fail(f"launches during traffic {traffic}: want {want} (v2's "
+                 "warmup alone), i.e. no eager launch by v1")
+
+        agree = total = 0
+        for v, items in by_version.items():
+            if not items:
+                continue
+            x = np.concatenate([f for f, _ in items])
+            got = np.concatenate([p for _, p in items])
+            want_a = np.concatenate([
+                lms[v].logits(x[i:i + 32]).argmax(-1).to(
+                    torch.int32).cpu().numpy()
+                for i in range(0, len(x), 32)])
+            agree += int((got == want_a).sum())
+            total += want_a.size
+        frac = agree / total
+        log(f"front door: {len(res)} requests over HTTP, all 200, v1 "
+            f"{len(by_version[1])} / v2 {len(by_version[2])}; answers agree "
+            f"with a direct argmax of their version on {agree}/{total} "
+            f"tokens ({frac:.5f})")
+        if frac < 0.999:
+            fail(f"front-door argmax agreement {frac:.5f} < 0.999")
+
+        wire = sorted(s for s in load.wire_seconds if s is not None)
+        n_tok = sum(spec.rows for spec in load.specs) * T
+        log(f"front door [{smi}]: {n_tok / wall:.1f} tokens/s over "
+            f"{wall:.2f} s ({n_tok} tokens, offered {load.duration():.2f} s "
+            f"at 150 requests/s); wire latency p50 "
+            f"{1e3 * float(np.percentile(wire, 50)):.2f} ms, p99 "
+            f"{1e3 * float(np.percentile(wire, 99)):.2f} ms; v2 load and "
+            f"capture {load_s:.2f} s; two versions loaded hold "
+            f"{both_gb:.3f} GB (weights, graphs, the allocator's blocks), "
+            f"peak {peak_gb:.3f} GB, over the phase's start")
+
+        for path, keys in (("/v1/models", {"models"}),
+                           ("/v1/load", {"models", "totals"}),
+                           ("/healthz", {"status"}),
+                           ("/readyz", {"ready"})):
+            with urllib.request.urlopen(ingress.url + path,
+                                        timeout=30) as r:
+                body = json.loads(r.read())
+                if r.status != 200 or set(body) != keys:
+                    fail(f"GET {path}: {r.status} {sorted(body)}")
+        route = reg.models()["bert"]
+        if set(route) != {"active", "previous", "canary", "canary_fraction",
+                          "accepts_images", "versions"} \
+                or route["active"] != 2:
+            fail(f"/v1/models route {route}")
+
+        # a 1 ms deadline behind a full queue comes back 504
+        active = reg.server("bert")
+        backlog = [active.submit(np.zeros((8, T), np.int32))
+                   for _ in range(64)]
+        conn = http.client.HTTPConnection("127.0.0.1", ingress.port,
+                                          timeout=30)
+        body = json.dumps({"instances": np.zeros((1, T), int).tolist(),
+                           "deadline_ms": 1}).encode()
+        conn.request("POST", "/v1/models/bert:predict", body,
+                     {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        late = json.loads(r.read())
+        conn.close()
+        for h in backlog:
+            h.get(60)
+        if r.status != 504 or late.get("type") != "DeadlineExceededError":
+            fail(f"a 1 ms deadline behind a full queue answered {r.status} "
+                 f"{late}")
+        log(f"a 1 ms deadline behind 64 queued requests: 504 "
+            f"{late['type']}, latency_ms {late.get('latency_ms')}")
+    finally:
+        if ingress is not None:
+            ingress.stop()
+        reg.close()
+    del lms
+    torch.cuda.empty_cache()
 
 
 def bert_train(smi: str) -> None:

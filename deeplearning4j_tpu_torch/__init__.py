@@ -4,7 +4,9 @@ The JAX package beside it is the reference this package is held
 against; this one imports ``torch``, numpy and the standard library
 only. The paths that run: serving a pre-LN BERT-base
 (``models.transformer``) behind the continuous-batching
-``serving.ModelServer`` and training it (``make_train_step``); training
+``serving.ModelServer``, its forward captured as CUDA graphs, and behind
+the network front door (``serving.ModelRegistry``, ``serving.
+HttpIngress``), and training it (``make_train_step``); training
 ResNet-50 and TinyYOLO (``models.zoo``) through
 ``nn.graph.ComputationGraph`` and ``nn.multilayer.MultiLayerNetwork``,
 one step or K steps a dispatch captured as a CUDA graph
@@ -24,16 +26,23 @@ Layout (module and public names follow the JAX package):
                   ``ComputationGraph``, ``MultiLayerNetwork``,
                   ``PrecisionPolicy`` and ``compilecache``
                   (``CachedDispatch``, ``warmup``)
-- ``train``     — the updaters (``Sgd``, ``Adam``, ``AdamW``), schedules
-                  and ``stepping`` (megasteps)
-- ``analysis``  — the recompile-churn detector
+- ``train``     — the updaters (``Sgd``, ``Adam``, ``AdamW``), schedules,
+                  ``stepping`` (megasteps) and the preemption signals
+                  (``resilience``)
+- ``analysis``  — the recompile-churn detector and the registry roll
+                  lint (DL4J-W111)
 - ``data``      — ``DataSet``
 - ``models``    — the transformer and the model zoo (``ResNet50``,
                   ``TinyYOLO``)
-- ``serving``   — ``ModelServer``, ``samediff_forward``,
+- ``serving``   — ``ModelServer``, ``ModelRegistry``, ``HttpIngress``,
+                  ``DecodePreset``, ``samediff_forward``,
                   ``ServingRequest``, ``CircuitBreaker`` and the
                   structured serving errors
-- ``profiler``  — the Counter/Gauge/Histogram metrics registry
+- ``parallel``  — the dispatch watchdog (``parallel.elastic``)
+- ``faults``    — serving fault plans, seeded traffic, swap schedules
+- ``profiler``  — the metrics registry, span tracer, ``traceparent``
+                  tracing, flight recorder, ``ProfilingMode`` and the
+                  instrumented locks
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card and without an explicit device they raise.

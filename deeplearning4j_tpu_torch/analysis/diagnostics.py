@@ -1,11 +1,12 @@
 """The diagnostic model (the slice's subset of
-``deeplearning4j_tpu/analysis/diagnostics.py``): ``Severity`` and
-``Diagnostic``, with the codes the port reports so far."""
+``deeplearning4j_tpu/analysis/diagnostics.py``): ``Severity``,
+``Diagnostic``, ``ValidationReport`` and ``ModelValidationError``, with
+the codes the port reports so far."""
 
 from __future__ import annotations
 
 import enum
-from typing import Optional
+from typing import Iterable, List, Optional
 
 
 class Severity(enum.IntEnum):
@@ -18,6 +19,10 @@ class Severity(enum.IntEnum):
 
 #: the documented codes the port emits (the JAX package's text)
 DIAGNOSTIC_CODES = {
+    "DL4J-W111": "registry roll without warmed buckets: the hot-swap "
+                 "target version was never warmed (or misses shapes the "
+                 "active version serves warm), so post-roll traffic "
+                 "captures under live load",
     "DL4J-W201": "recompile churn: one dispatch site compiled more than N "
                  "distinct jit signatures (shifting shapes/dtypes)",
 }
@@ -48,3 +53,39 @@ class Diagnostic:
     def __repr__(self):
         return (f"Diagnostic({self.code}, {self.severity.name}, "
                 f"{self.location!r}, {self.message!r})")
+
+
+class ValidationReport:
+    """Ordered collection of diagnostics with severity accessors."""
+
+    def __init__(self, diagnostics: Iterable[Diagnostic] = (),
+                 subject: str = ""):
+        self.subject = subject
+        self.diagnostics: List[Diagnostic] = list(diagnostics)
+
+    def errors(self) -> List[Diagnostic]:
+        return [d for d in self.diagnostics if d.severity is Severity.ERROR]
+
+    def warnings(self) -> List[Diagnostic]:
+        return [d for d in self.diagnostics if d.severity is Severity.WARNING]
+
+    def codes(self) -> List[str]:
+        return [d.code for d in self.diagnostics]
+
+    def format(self) -> str:
+        head = self.subject or "model"
+        if not self.diagnostics:
+            return f"{head}: clean (0 errors, 0 warnings)"
+        lines = [f"{head}: {len(self.errors())} error(s), "
+                 f"{len(self.warnings())} warning(s)"]
+        for d in sorted(self.diagnostics, key=lambda d: -int(d.severity)):
+            lines.append("  " + d.format().replace("\n", "\n  "))
+        return "\n".join(lines)
+
+
+class ModelValidationError(ValueError):
+    """Raised by a strict check (``ModelRegistry.roll(strict=True)``)."""
+
+    def __init__(self, report: ValidationReport):
+        self.report = report
+        super().__init__(report.format())

@@ -1,0 +1,456 @@
+"""Deterministic fault injection for serving — the port of the serving
+kinds of ``deeplearning4j_tpu/faults.py``.
+
+Serving fault kinds (the model server's degradation paths):
+
+- **Replica fault at serving batch k** (``serve_fail_at``) — the k-th
+  dispatched batch's forward raises once, standing in for a transient
+  runtime error; the bounded-retry path must recover.
+- **Replica loss mid-serve** (``serve_device_loss_at_batch``) — from
+  batch k on, any forward touching the planned-dead devices raises.
+- **Slow / hung forward** (``slow_replica_at`` / ``hung_dispatch_at``,
+  the index meaning *serving batch*): the server's
+  :class:`~deeplearning4j_tpu_torch.parallel.elastic.DispatchWatchdog`
+  consumes them through the ``dispatch_hold`` seam.
+- **Request bursts / deadline storms** — workload-side:
+  :class:`ServingLoad` generates seeded arrival schedules (steady /
+  burst / deadline-storm mixes).
+
+Wire-level chaos (the HTTP ingress front door):
+
+- **Slow clients** (``slow_frac``) and **mid-flight disconnects**
+  (``disconnect_frac``) in :meth:`ServingLoad.replay_http`.
+- **Swap under load** — :class:`SwapSchedule` fires seeded
+  ``ModelRegistry.roll()``/``rollback()`` calls at planned offsets while
+  a replay is in flight: every request must resolve exactly once against
+  exactly one version.
+
+Every fault fires exactly once per planned batch index (so a retried
+forward succeeds, like a real transient).
+
+Not ported yet (ROADMAP.md): the training kinds (NaN gradients, data and
+checkpoint errors), the lifecycle kinds and the interleaving harness.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Callable, Iterable, Optional, Set
+
+import numpy as np
+
+
+def _as_step_set(steps) -> Set[int]:
+    if steps is None:
+        return set()
+    if isinstance(steps, int):
+        return {steps}
+    return {int(s) for s in steps}
+
+
+class FaultPlan:
+    """A deterministic schedule of injected serving faults.
+
+    Parameters name the failure mode and the 1-based serving batch
+    index(es) it fires at; each planned (mode, batch) fires exactly once.
+    Pass the plan to ``ModelServer(..., faults=plan)``.
+    """
+
+    def __init__(self, seed: int = 0,
+                 lose_devices: Iterable[int] = (),
+                 hung_dispatch_at: Iterable[int] = (),
+                 hang_seconds: Optional[float] = 0.2,
+                 slow_replica_at: Iterable[int] = (),
+                 slow_seconds: float = 0.1,
+                 serve_fail_at: Iterable[int] = (),
+                 serve_device_loss_at_batch: Optional[int] = None):
+        self.seed = seed
+        self.lose_devices = frozenset(int(d) for d in lose_devices)
+        self.hung_dispatch_at = _as_step_set(hung_dispatch_at)
+        self.hang_seconds = hang_seconds
+        self.slow_replica_at = _as_step_set(slow_replica_at)
+        self.slow_seconds = float(slow_seconds)
+        self.serve_fail_at = _as_step_set(serve_fail_at)
+        self.serve_device_loss_at_batch = serve_device_loss_at_batch
+        # consumed-state: each fault fires once
+        self._hang_pending = set(self.hung_dispatch_at)
+        self._slow_pending = set(self.slow_replica_at)
+        self._serve_fail_pending = set(self.serve_fail_at)
+        self._hang_release = threading.Event()
+
+    @classmethod
+    def seeded_serving(cls, seed: int, horizon: int, n_fail: int = 1,
+                       n_slow: int = 0, n_hang: int = 0,
+                       slow_seconds: float = 0.05,
+                       hang_seconds: Optional[float] = 0.2,
+                       device_loss: int = 0,
+                       device_pool: Iterable[int] = ()) -> "FaultPlan":
+        """A serving-side plan from one seed: fault *batch indices* are
+        drawn without replacement from ``[2, horizon]`` (batch 1 is left
+        clean so warmup-adjacent traffic always lands once). ``n_fail``
+        injects transient replica faults, ``n_slow``/``n_hang`` stall
+        forwards through the watchdog's dispatch_hold seam, and
+        ``device_loss=n`` kills n devices from ``device_pool`` at a
+        drawn batch (the mesh-shrink path)."""
+        rng = np.random.RandomState(seed)
+        n_faults = n_fail + n_slow + n_hang + (1 if device_loss else 0)
+        lo = 2
+        pool = rng.permutation(np.arange(lo, max(horizon + 1, lo + n_faults)))
+        picks = [int(p) for p in pool[:n_faults]]
+        fail_at = picks[:n_fail]
+        slow_at = picks[n_fail:n_fail + n_slow]
+        hang_at = picks[n_fail + n_slow:n_fail + n_slow + n_hang]
+        loss_at, lose = None, ()
+        if device_loss:
+            loss_at = picks[n_fail + n_slow + n_hang]
+            ids = sorted(int(d) for d in device_pool)
+            if device_loss >= len(ids):
+                raise ValueError(
+                    f"device_loss={device_loss} would kill the whole "
+                    f"device_pool ({len(ids)} devices)")
+            lose = [ids[int(i)] for i in
+                    rng.choice(len(ids), size=device_loss, replace=False)]
+        return cls(seed=seed, serve_fail_at=fail_at,
+                   slow_replica_at=slow_at, slow_seconds=slow_seconds,
+                   hung_dispatch_at=hang_at, hang_seconds=hang_seconds,
+                   serve_device_loss_at_batch=loss_at, lose_devices=lose)
+
+    # -------------------------------------------------------- serving seams
+    def serving_forward(self, batch_index: int, device_ids) -> None:
+        """Called by the model server as serving batch ``batch_index``
+        (1-based) is about to forward on ``device_ids``: raises the
+        planned replica fault (once) or the planned device-loss error
+        (every forward that still touches a dead device — the server
+        must shrink the mesh before forwards succeed again)."""
+        if batch_index in self._serve_fail_pending:
+            self._serve_fail_pending.discard(batch_index)
+            raise RuntimeError(
+                f"injected replica fault at serving batch {batch_index} "
+                f"(FaultPlan seed={self.seed})")
+        if self.serve_device_loss_at_batch is not None \
+                and batch_index >= self.serve_device_loss_at_batch:
+            dead = set(self.lose_devices) & {int(d) for d in device_ids}
+            if dead:
+                raise RuntimeError(
+                    f"injected device loss at serving batch {batch_index}: "
+                    f"device(s) {sorted(dead)} are dead "
+                    f"(FaultPlan seed={self.seed})")
+
+    def dispatch_hold(self, step: int) -> bool:
+        """Called (in the dispatch thread) as update step ``step`` is
+        about to dispatch: stalls for the planned hang/straggler delay.
+        Returns False when the dispatch must be SKIPPED — a hard hang
+        (``hang_seconds=None``) aborted by :meth:`release_hangs`, i.e.
+        a dispatch that never completed."""
+        if step in self._slow_pending:
+            self._slow_pending.discard(step)
+            time.sleep(self.slow_seconds)
+        if step in self._hang_pending:
+            self._hang_pending.discard(step)
+            if self.hang_seconds is None:
+                self._hang_release.wait()
+                return False
+            time.sleep(self.hang_seconds)
+        return True
+
+    def release_hangs(self):
+        """Unblock any hard-hung dispatch (``hang_seconds=None``): the
+        holder returns WITHOUT dispatching, modelling a dispatch the
+        watchdog abandoned that never reaches the device."""
+        self._hang_release.set()
+
+    def __repr__(self):
+        return (f"FaultPlan(seed={self.seed}, "
+                f"hung={sorted(self.hung_dispatch_at)}, "
+                f"slow={sorted(self.slow_replica_at)}, "
+                f"serve_fail={sorted(self.serve_fail_at)}, "
+                f"serve_loss={self.serve_device_loss_at_batch}:"
+                f"{sorted(self.lose_devices)})")
+
+
+# ------------------------------------------------------------ serving load
+class RequestSpec:
+    """One planned serving request: ``at`` seconds after replay start,
+    ``rows`` feature rows, optional ``deadline`` seconds. Wire-side
+    behaviors (``replay_http`` only): ``slow_s`` dribbles the body over
+    that many seconds, ``disconnect`` closes the socket without reading
+    the response."""
+
+    __slots__ = ("at", "rows", "deadline", "slow_s", "disconnect")
+
+    def __init__(self, at: float, rows: int, deadline: Optional[float],
+                 slow_s: float = 0.0, disconnect: bool = False):
+        self.at = float(at)
+        self.rows = int(rows)
+        self.deadline = deadline
+        self.slow_s = float(slow_s)
+        self.disconnect = bool(disconnect)
+
+    def __repr__(self):
+        extra = ""
+        if self.slow_s:
+            extra += f", slow_s={self.slow_s:g}"
+        if self.disconnect:
+            extra += ", disconnect=True"
+        return (f"RequestSpec(at={self.at:.4f}, rows={self.rows}, "
+                f"deadline={self.deadline}{extra})")
+
+
+class ServingLoad:
+    """Seeded, deterministic request-arrival schedule for the model
+    server — the workload half of the serving fault kinds, shared by the
+    chaos tests and the chip smoke's front-door phase.
+
+    Mixes:
+
+    - ``steady``: exponential inter-arrival gaps at ``rps`` (a Poisson
+      process), uniform row counts in ``[1, max_rows]``.
+    - ``burst``: a quiet floor at ``rps`` punctuated by ``n_bursts``
+      zero-gap volleys of ``burst_size`` requests — the admission-
+      control stressor (a full queue must shed, not block).
+    - ``deadline``: the steady process, but ``deadline_frac`` of the
+      requests carry a tight ``tight_deadline`` and the rest a loose
+      one — the deadline-storm stressor (expired requests must be shed
+      before dispatch without rotting the batch for the rest).
+    """
+
+    MIXES = ("steady", "burst", "deadline")
+
+    def __init__(self, specs):
+        self.specs = list(specs)
+        self.wire_seconds: list = []
+
+    def __len__(self):
+        return len(self.specs)
+
+    def __iter__(self):
+        return iter(self.specs)
+
+    def duration(self) -> float:
+        return self.specs[-1].at if self.specs else 0.0
+
+    @classmethod
+    def seeded(cls, seed: int, mix: str = "steady", n: int = 200,
+               rps: float = 500.0, max_rows: int = 4,
+               n_bursts: int = 4, burst_size: int = 32,
+               tight_deadline: float = 0.005, loose_deadline: float = 2.0,
+               deadline_frac: float = 0.5, slow_frac: float = 0.0,
+               slow_client_seconds: float = 0.05,
+               disconnect_frac: float = 0.0) -> "ServingLoad":
+        """``slow_frac``/``disconnect_frac`` mark a seeded fraction of
+        the schedule with the wire-level client behaviors
+        :meth:`replay_http` executes (the in-process :meth:`replay`
+        ignores them — there is no wire to misbehave on)."""
+        if mix not in cls.MIXES:
+            raise ValueError(f"unknown mix {mix!r} (expected one of "
+                             f"{cls.MIXES})")
+        rng = np.random.RandomState(seed)
+        specs = []
+        t = 0.0
+        if mix == "burst":
+            # exactly n requests, always: an oversized volley plan is
+            # clamped instead of silently generating more than n (and
+            # collapsing every volley into one mega-burst at t~0)
+            n_bursts = max(1, min(n_bursts, n))
+            burst_size = min(burst_size, max(n // n_bursts, 1))
+            floor = n - n_bursts * burst_size
+            burst_at = sorted(rng.uniform(0.0, max(floor, n_bursts) / rps,
+                                          size=n_bursts))
+            for i in range(floor):
+                t += rng.exponential(1.0 / rps)
+                specs.append(RequestSpec(t, 1 + rng.randint(max_rows), None))
+            for b in burst_at:
+                for _ in range(burst_size):
+                    specs.append(RequestSpec(
+                        b, 1 + rng.randint(max_rows), None))
+            specs.sort(key=lambda s: s.at)
+        else:
+            for i in range(n):
+                t += rng.exponential(1.0 / rps)
+                deadline = None
+                if mix == "deadline":
+                    deadline = tight_deadline \
+                        if rng.uniform() < deadline_frac else loose_deadline
+                specs.append(RequestSpec(t, 1 + rng.randint(max_rows),
+                                         deadline))
+        # wire-side behaviors drawn AFTER the arrival schedule, so a
+        # given (seed, mix, n) keeps the same arrivals with or without
+        # client chaos enabled
+        for spec in specs:
+            if slow_frac and rng.uniform() < slow_frac:
+                spec.slow_s = slow_client_seconds
+            if disconnect_frac and rng.uniform() < disconnect_frac:
+                spec.disconnect = True
+        return cls(specs)
+
+    def features(self, feature_shape, dtype=np.float32, rng_seed: int = 0,
+                 make: Optional[Callable] = None) -> list:
+        """Each spec's request features, in schedule order: seeded
+        normals cast to ``dtype`` (the reference's), or ``make(rng,
+        spec)`` when given (e.g. token ids within a vocabulary). What
+        :meth:`replay` and :meth:`replay_http` send."""
+        rng = np.random.RandomState(rng_seed)
+        if make is not None:
+            return [np.asarray(make(rng, spec)) for spec in self.specs]
+        return [rng.randn(spec.rows, *feature_shape).astype(dtype)
+                for spec in self.specs]
+
+    def replay(self, submit, feature_shape, dtype=np.float32,
+               time_scale: float = 1.0, rng_seed: int = 0,
+               make: Optional[Callable] = None):
+        """Drive ``submit(x, deadline=...)`` honoring the arrival
+        offsets (scaled by ``time_scale``). Returns the list of
+        ``(spec, handle_or_exception)`` pairs — admission rejections are
+        captured, not raised, so callers can assert on the outcome
+        partition. Feature values are seeded for reproducibility
+        (:meth:`features`)."""
+        feats = self.features(feature_shape, dtype, rng_seed, make)
+        t0 = time.monotonic()
+        out = []
+        for spec, x in zip(self.specs, feats):
+            delay = spec.at * time_scale - (time.monotonic() - t0)
+            if delay > 0:
+                time.sleep(delay)
+            try:
+                out.append((spec, submit(x, deadline=spec.deadline)))
+            except Exception as e:  # admission errors are outcomes here
+                out.append((spec, e))
+        return out
+
+    def replay_http(self, url: str, model: str, feature_shape,
+                    dtype=np.float32, time_scale: float = 1.0,
+                    rng_seed: int = 0, timeout: float = 60.0,
+                    make: Optional[Callable] = None):
+        """Replay the schedule over REAL sockets against an
+        :class:`~deeplearning4j_tpu_torch.serving.ingress.HttpIngress`:
+        ``POST {url}/v1/models/{model}:predict`` per spec, honoring
+        arrival offsets, with the wire-level client chaos the specs
+        carry — ``slow_s`` dribbles the JSON body in chunks, and
+        ``disconnect`` closes the socket after sending without reading
+        the response (the server must absorb both).
+
+        Each request runs on its own thread (queueing belongs on the
+        server, not in the generator). Returns ``[(spec, outcome)]`` in
+        schedule order: ``(status_code, payload_dict)`` for answered
+        requests, the string ``"disconnected"`` for planned
+        disconnects, or the raised exception for transport failures.
+        Feature values are seeded identically to :meth:`replay`.
+        ``wire_seconds`` then holds each answered request's round trip
+        on the client's clock, from the first byte sent to the response
+        read (None for the others).
+        """
+        import http.client
+        import json
+        from urllib.parse import urlparse
+        parsed = urlparse(url)
+        host, port = parsed.hostname, parsed.port
+        bodies = [json.dumps({"instances": x.tolist()}).encode()
+                  for x in self.features(feature_shape, dtype, rng_seed,
+                                         make)]
+        out: list = [None] * len(self.specs)
+        self.wire_seconds: list = [None] * len(self.specs)
+
+        def one(i: int, spec: RequestSpec, body: bytes):
+            conn = http.client.HTTPConnection(host, port, timeout=timeout)
+            t0 = time.perf_counter()
+            try:
+                conn.putrequest("POST", f"/v1/models/{model}:predict")
+                conn.putheader("Content-Type", "application/json")
+                conn.putheader("Content-Length", str(len(body)))
+                if spec.deadline is not None:
+                    conn.putheader("deadline_ms",
+                                   f"{spec.deadline * 1e3:g}")
+                conn.endheaders()
+                if spec.slow_s > 0:
+                    # dribble: 4 chunks with stalls between them — the
+                    # handler blocks on ONE thread reading this body
+                    step = max(len(body) // 4, 1)
+                    for pos in range(0, len(body), step):
+                        conn.send(body[pos:pos + step])
+                        time.sleep(spec.slow_s / 4.0)
+                else:
+                    conn.send(body)
+                if spec.disconnect:
+                    out[i] = "disconnected"
+                    return          # finally closes the socket unread
+                resp = conn.getresponse()
+                out[i] = (resp.status, json.loads(resp.read()))
+                self.wire_seconds[i] = time.perf_counter() - t0
+            except Exception as e:
+                out[i] = e
+            finally:
+                conn.close()
+
+        t0 = time.monotonic()
+        threads = []
+        for i, spec in enumerate(self.specs):
+            delay = spec.at * time_scale - (time.monotonic() - t0)
+            if delay > 0:
+                time.sleep(delay)
+            th = threading.Thread(target=one, args=(i, spec, bodies[i]),
+                                  daemon=True)
+            th.start()
+            threads.append(th)
+        for th in threads:
+            th.join(timeout)
+        return list(zip(self.specs, out))
+
+
+class SwapSchedule:
+    """Seeded hot-swap-under-load schedule: planned
+    ``ModelRegistry.roll()``/``rollback()`` calls fired from a
+    background thread while a :class:`ServingLoad` replay is in flight
+    — the workload half of the zero-drop hot-swap chaos pin.
+
+    ``swaps`` is a list of ``(at_seconds, name, version_or_None)``;
+    ``version=None`` means "roll to the newest staged version" and the
+    literal string ``"rollback"`` rolls back instead.
+    """
+
+    def __init__(self, swaps):
+        self.swaps = sorted(swaps, key=lambda s: s[0])
+        self.performed: list = []
+        self._thread: Optional[threading.Thread] = None
+
+    @classmethod
+    def seeded(cls, seed: int, name: str, duration: float,
+               n_swaps: int = 2) -> "SwapSchedule":
+        """``n_swaps`` swap points drawn uniformly from the middle 70%
+        of ``duration`` (the edges prove nothing — traffic must be in
+        flight), alternating roll -> rollback -> roll ..."""
+        rng = np.random.RandomState(seed)
+        at = np.sort(rng.uniform(0.15 * duration, 0.85 * duration,
+                                 size=n_swaps))
+        return cls([(float(t), name, None if i % 2 == 0 else "rollback")
+                    for i, t in enumerate(at)])
+
+    def start(self, registry, time_scale: float = 1.0) -> "SwapSchedule":
+        """Fire the schedule against ``registry`` on a daemon thread;
+        :meth:`join` collects ``performed`` — ``(at, name, action,
+        result_or_exception)`` per swap."""
+        def run():
+            t0 = time.monotonic()
+            for at, name, version in self.swaps:
+                delay = at * time_scale - (time.monotonic() - t0)
+                if delay > 0:
+                    time.sleep(delay)
+                try:
+                    if version == "rollback":
+                        result = registry.rollback(name)
+                        action = "rollback"
+                    else:
+                        result = registry.roll(name, version)
+                        action = "roll"
+                except Exception as e:      # surfaced via performed
+                    result, action = e, "error"
+                self.performed.append((at, name, action, result))
+        self._thread = threading.Thread(target=run, daemon=True,
+                                        name="dl4j-swap-schedule")
+        self._thread.start()
+        return self
+
+    def join(self, timeout: float = 30.0) -> list:
+        if self._thread is not None:
+            self._thread.join(timeout)
+        return self.performed

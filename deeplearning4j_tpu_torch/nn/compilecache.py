@@ -26,7 +26,9 @@ per kernel.
 - :func:`warmup` is the one entry point: ``warmup(net, [((64, 3, 224,
   224), (64, 1000))], steps_per_dispatch=K)`` captures the train step (K
   steps with K > 1) for that batch signature; ``warmup(server, shapes)``
-  delegates to the serving bucket-ladder warmup.
+  delegates to the serving bucket-ladder warmup, which captures the
+  served forward and head of every bucket x shape (scope
+  ``"serving:forward"``).
 
 Kernel launch counts (``ops.cuda_kernels.LAUNCHES``) are bumped in
 Python, so a graph's launches count once, while it is captured; each
@@ -164,13 +166,24 @@ def _join_side_stream(args) -> None:
                                     and a.is_cuda))
 
 
-def _record(fn, static_args):
+def _record(fn, static_args, **capture):
     """Capture ``fn(*static_args)`` into a new CUDA graph; returns
-    ``(graph, static outputs)``."""
+    ``(graph, static outputs)``. ``capture`` holds the ``pool`` and
+    ``stream`` of :meth:`CachedDispatch._capture_options`. The capture is
+    thread-local: another thread's calls meanwhile (a server replaying
+    its own graphs, its synchronous copies to and from the card) neither
+    invalidate it nor raise there."""
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, capture_error_mode="thread_local",
+                          **capture):
         out = fn(*static_args)
     return graph, out
+
+
+def _capturing(args) -> bool:
+    """Whether this thread is capturing a graph on the card right now."""
+    return any(isinstance(a, torch.Tensor) and a.is_cuda for a in args) \
+        and torch.cuda.is_current_stream_capturing()
 
 
 def _clone_out(out):
@@ -211,11 +224,19 @@ class CachedDispatch:
     signature on the card is captured at its first call; without it the
     dispatch calls ``fn`` eagerly until :meth:`warm` has captured some
     signature (the reference's "plain jit until warmed"). On the CPU it
-    always calls ``fn`` eagerly.
+    always calls ``fn`` eagerly, and so does a call made while this thread
+    captures another graph (a dispatch inside a captured function is
+    recorded into that graph: captures do not nest).
+
+    Each dispatch captures on a stream of its own, and its graphs share
+    one memory pool (``torch.cuda.graph_pool_handle()``): a graph's
+    intermediates may lie where another graph's did, which is safe
+    because a call replays one graph and copies its outputs out before
+    it returns; each entry keeps its own static inputs and outputs alive.
     """
 
     __slots__ = ("fn", "scope", "state", "always_capture", "_graphs",
-                 "_warned")
+                 "_warned", "_pool", "_stream")
 
     def __init__(self, fn: Callable, scope: str,
                  state: Optional[Callable[[], List[torch.Tensor]]] = None,
@@ -226,13 +247,16 @@ class CachedDispatch:
         self.always_capture = always_capture
         self._graphs: Dict[tuple, object] = {}
         self._warned = False
+        self._pool = None
+        self._stream = None
 
     def _signature(self, args):
         return tuple(_leaf_signature(a) for a in args)
 
     def __call__(self, *args):
         if not _on_card(args) or (not self._graphs
-                                  and not self.always_capture):
+                                  and not self.always_capture) \
+                or _capturing(args):
             return self.fn(*args)
         sig = self._signature(args)
         entry = self._graphs.get(sig)
@@ -252,11 +276,27 @@ class CachedDispatch:
     def warm(self, *args) -> "CachedDispatch":
         """Capture the graph for this signature without changing any
         state (a no-op on the CPU)."""
-        if _on_card(args):
+        if _on_card(args) and not _capturing(args):
             sig = self._signature(args)
             if sig not in self._graphs:
                 self._acquire(args, sig)
         return self
+
+    def captures(self) -> int:
+        """Captures attempted (successful or not): one per signature."""
+        return len(self._graphs)
+
+    def _capture_options(self, args) -> dict:
+        """The stream and the pool of this dispatch's captures on the
+        card; nothing on the CPU."""
+        dev = next((a.device for a in args
+                    if isinstance(a, torch.Tensor) and a.is_cuda), None)
+        if dev is None:
+            return {}
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(dev)
+            self._pool = torch.cuda.graph_pool_handle()
+        return {"stream": self._stream, "pool": self._pool}
 
     def warmed_signatures(self) -> int:
         return sum(1 for v in self._graphs.values()
@@ -282,7 +322,8 @@ class CachedDispatch:
             _join_side_stream(args)
         before = dict(ck.LAUNCHES)
         try:
-            graph, out = _record(self.fn, static)
+            graph, out = _record(self.fn, static,
+                                 **self._capture_options(args))
         except Exception as e:      # any capture error: eager from now on
             self._graphs[sig] = _CAPTURE_FAILED
             _STATS["capture_failures"] += 1
@@ -322,8 +363,8 @@ def warmup(target, shapes, *, steps_per_dispatch: int = 1, dtype=None,
     ``[K, B, ...]`` buffers with ``steps_per_dispatch=K`` > 1), on zeros
     of ``dtype``/``label_dtype`` (fp32 by default). No state changes:
     params, updater state, running statistics and the clock come out as
-    they went in. A bare feature shape (the inference forward) is not
-    captured yet (ROADMAP: the served forward through CachedDispatch)."""
+    they went in. A bare feature shape warms a served forward: pass the
+    ``ModelServer`` (a network's own ``output()`` is not captured yet)."""
     if hasattr(target, "buckets") and hasattr(target, "submit"):
         return target.warmup(shapes)
     model = target
@@ -334,8 +375,9 @@ def warmup(target, shapes, *, steps_per_dispatch: int = 1, dtype=None,
     for spec in shapes:
         if _is_shape(spec):
             raise ValueError(
-                f"warmup shape spec {spec!r}: the inference forward is not "
-                "captured yet; pass a (features_shape, labels_shape) pair")
+                f"warmup shape spec {spec!r}: a network's inference forward "
+                "is captured through the server — warmup(ModelServer(net), "
+                "shapes) — or pass a (features_shape, labels_shape) pair")
         if not (isinstance(spec, (tuple, list)) and len(spec) == 2):
             raise ValueError(
                 f"warmup shape spec {spec!r}: expected a (features_shape, "

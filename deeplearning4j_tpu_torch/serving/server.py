@@ -11,28 +11,47 @@ request queue with the operational properties of the JAX server:
   dispatch and its batch slot reclaimed. Requests are resolved exactly
   once (shed XOR completed), enforced by a lock in
   :class:`ServingRequest`.
-- **Bucketed warmup.** Coalesced batches pad to power-of-two buckets
-  (data width 1 on one device); :meth:`ModelServer.warmup` runs every
-  bucket x shape once before ``ready`` flips true.
-- **Bounded retry and a circuit breaker.** A failed dispatch is retried
-  up to ``max_retries`` times; :class:`CircuitBreaker` trips after
+- **Bucketed, captured warmup.** Coalesced batches pad to power-of-two
+  buckets (data width 1 on one device). On the card the forward and its
+  head run as one CUDA graph per bucket x feature shape
+  (:class:`~deeplearning4j_tpu_torch.nn.compilecache.CachedDispatch`,
+  scope ``"serving:forward"``, one memory pool per server):
+  :meth:`ModelServer.warmup` captures every one before ``ready`` flips
+  true, and each signature is reported to the recompile-churn detector
+  so zero steady-state captures is a *measured* property
+  (:meth:`ModelServer.recompiles_after_warmup`). Before warmup the
+  forward runs eagerly; unwarmed shapes are refused at ``submit``.
+- **Supervised dispatch, bounded retry and a circuit breaker.** Each
+  forward runs under a
+  :class:`~deeplearning4j_tpu_torch.parallel.elastic.DispatchWatchdog`
+  (``replica_timeout``); a failed or timed-out dispatch is retried up to
+  ``max_retries`` times; :class:`CircuitBreaker` trips after
   ``breaker_threshold`` consecutive failures and admissions fail fast
   with :class:`~.errors.ServerUnhealthyError` until a half-open probe
   batch succeeds.
-- **Graceful drain.** :meth:`drain` stops admissions, completes the
-  in-flight batch and fails queued requests with the retriable
-  :class:`~.errors.ServerDrainingError`.
+- **Graceful drain.** SIGTERM (``preemption=True``, through
+  :class:`~deeplearning4j_tpu_torch.train.resilience.SignalPreemption`)
+  or :meth:`drain` stops admissions, completes the in-flight batch,
+  fails queued requests with the retriable
+  :class:`~.errors.ServerDrainingError`, and exits the serve loop.
 - **Results-only device->host copy.** ``head="argmax" | "softmax" |
-  "top_k[:k]"`` runs on the device; the one ``.cpu()`` copy per batch
-  moves the head's output, billed to ``dl4j_serving_d2h_bytes_total``.
+  "top_k[:k]"`` (or any callable) runs on the device inside the graph;
+  the one ``.cpu()`` copy per batch moves the head's output, billed to
+  ``dl4j_serving_d2h_bytes_total``.
+- **Observability.** ``serve:admission``/``queue``/``coalesce``/
+  ``dispatch``/``retry``/``terminal`` spans under each request's
+  :class:`~deeplearning4j_tpu_torch.profiler.tracecontext.TraceContext`
+  (recorded while tracing is on), flight-recorder events at every
+  dispatch and failure, and an instrumented ``"serving"`` condition.
 
-The forward of a batch is: numpy -> tensor on ``device`` -> forward
-under ``torch.inference_mode()`` -> head -> one copy to the host.
+The forward of a batch is: numpy -> tensor on ``device`` (outside the
+graph) -> the captured forward + head under ``torch.inference_mode()``
+-> one copy to the host.
 
-Not ported yet (ROADMAP.md): meshes and sharding, the dispatch watchdog
-and mesh shrink, the recompile-churn detector, ``validate()`` lints and
-cost checks, the flight recorder, trace spans and instrumented locks,
-fault injection, tuned plans, traffic capture and preemption signals.
+Not ported yet (ROADMAP.md): meshes, sharding and mesh shrink (on one
+card a failed dispatch retries on the same card), ``validate()`` with
+``lint_serving``, ``warmup(strict=, cost=)``, tuned plans and traffic
+capture.
 """
 
 from __future__ import annotations
@@ -48,8 +67,14 @@ from typing import Iterable, Optional, Sequence
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch import profiler as _prof
+from deeplearning4j_tpu_torch.analysis import churn as _churn
 from deeplearning4j_tpu_torch.device import resolve_device
-from deeplearning4j_tpu_torch.profiler.metrics import get_registry
+from deeplearning4j_tpu_torch.nn import compilecache as _cc
+from deeplearning4j_tpu_torch.parallel.elastic import (DispatchTimeoutError,
+                                                       DispatchWatchdog)
+from deeplearning4j_tpu_torch.profiler import flightrec as _flightrec
+from deeplearning4j_tpu_torch.profiler import tracecontext as _tracectx
 from deeplearning4j_tpu_torch.serving.errors import (DeadlineExceededError,
                                                      ServerClosedError,
                                                      ServerDrainingError,
@@ -59,7 +84,7 @@ from deeplearning4j_tpu_torch.serving.errors import (DeadlineExceededError,
 
 logger = logging.getLogger("deeplearning4j_tpu_torch")
 
-_REG = get_registry()
+_REG = _prof.get_registry()
 REQUESTS = _REG.counter(
     "dl4j_serving_requests_total",
     "Serving requests by terminal outcome: completed, failed (dispatch "
@@ -90,10 +115,11 @@ BREAKER_STATE = _REG.gauge(
     labelnames=("server",))
 REPLICA_FAILURES = _REG.counter(
     "dl4j_serving_replica_failures_total",
-    "Serving dispatches that raised (each is retried up to max_retries)")
+    "Serving dispatches that raised or exceeded replica_timeout (each is "
+    "retried up to max_retries)")
 WARMUP_SECONDS = _REG.gauge(
     "dl4j_serving_warmup_seconds",
-    "Wall time of the last warmup(): one forward of every bucket x shape")
+    "Wall time of the last warmup(): the capture of every bucket x shape")
 D2H_BYTES = _REG.counter(
     "dl4j_serving_d2h_bytes_total",
     "Bytes actually copied device->host per serving dispatch (the "
@@ -175,9 +201,10 @@ def _argmax(y):
 
 
 def _make_head(head):
-    """A results-only post-processing head run on the device: the
-    device->host copy then moves the head's (small) output instead of
-    full logits."""
+    """A results-only post-processing head run on the device, inside the
+    captured forward: the device->host copy then moves the head's
+    (small) output instead of full logits. Any callable on the logits
+    is a head too."""
     if head is None:
         return None
     if head == "argmax":
@@ -191,9 +218,19 @@ def _make_head(head):
             vals, idx = torch.topk(y, k, dim=-1)
             return vals, idx.to(torch.int32)
         return top_k
+    if callable(head):
+        return head
     raise ValueError(
-        f"unknown head {head!r} (expected 'argmax', 'softmax' or "
-        "'top_k[:k]')")
+        f"unknown head {head!r} (expected 'argmax', 'softmax', "
+        "'top_k[:k]', or a callable)")
+
+
+def _normalize_out(out):
+    """Multi-output forwards may return lists; tuples are the canonical
+    nested-result shape everywhere downstream."""
+    if isinstance(out, (list, tuple)):
+        return tuple(_normalize_out(o) for o in out)
+    return out
 
 
 def _map_arrays(fn, out):
@@ -234,20 +271,31 @@ class ServingRequest:
     """
 
     __slots__ = ("features", "n", "deadline", "enqueued_at", "resolved_at",
-                 "resolutions", "server", "_event", "_lock", "_resolved",
-                 "_result", "_error")
+                 "resolutions", "server", "trace", "_t0_us", "_event",
+                 "_lock", "_resolved", "_result", "_error")
 
     def __init__(self, features: np.ndarray, deadline: Optional[float],
-                 enqueued_at: float):
+                 enqueued_at: float,
+                 trace: Optional[_tracectx.TraceContext] = None):
         self.features = features
         self.n = int(features.shape[0])
-        self.server: Optional[str] = None   # stamped at admission
-        self.deadline = deadline            # absolute time.monotonic() or None
+        self.server: Optional[str] = None  # stamped at admission: which
+        # server (and so which registry version) owns this request
+        self.deadline = deadline          # absolute time.monotonic() or None
         self.enqueued_at = enqueued_at
-        self.resolved_at: Optional[float] = None
+        self.resolved_at: Optional[float] = None   # monotonic, set once
         self.resolutions = 0
+        # every request carries a trace context even with tracing off
+        # (IDs are cheap; span RECORDING stays gated) so responses can
+        # always report their trace_id
+        self.trace = (trace if trace is not None
+                      else _tracectx.TraceContext.new())
+        self._t0_us = _prof.now_us()
         self._event = threading.Event()
-        self._lock = threading.Lock()
+        # WitnessedLock, not InstrumentedLock: the exactly-once gate is
+        # per-request hot path — witness coverage without the per-lock
+        # metrics/TLS overhead
+        self._lock = _prof.WitnessedLock("serving:request")
         self._resolved = False
         self._result = None
         self._error: Optional[BaseException] = None
@@ -266,6 +314,15 @@ class ServingRequest:
             self._result = result
             self._error = error
         self._event.set()
+        # the request's terminal span: exactly one per request (this
+        # call won), spanning admission -> resolution, outcome carried
+        # as an arg — what the chaos sweep asserts every request has
+        _tracectx.record_span(
+            "serve:terminal", self.trace, self._t0_us,
+            _prof.now_us() - self._t0_us,
+            args={"outcome": ("completed" if error is None
+                              else type(error).__name__),
+                  "server": self.server})
         return True
 
     def done(self) -> bool:
@@ -296,7 +353,7 @@ class CircuitBreaker:
         self.cooldown = float(cooldown)
         self.name = str(name)
         self._clock = clock
-        self._lock = threading.Lock()
+        self._lock = _prof.InstrumentedLock("serving:breaker")
         self._failures = 0
         self._state = self.CLOSED
         self._opened_at = 0.0
@@ -384,42 +441,71 @@ class ModelServer:
         holds a partial batch.
     default_deadline : per-request deadline in seconds applied when
         ``submit`` passes none (None = no deadline).
-    max_retries : dispatch retries after a forward failure.
+    max_retries : dispatch retries after a forward failure or timeout.
+    replica_timeout : soft watchdog deadline per dispatch (None = no
+        supervision); grace defaults to 4x.
     breaker_threshold / breaker_cooldown : circuit-breaker tuning.
     drain_timeout : how long ``drain()``/``close()`` waits for the
         in-flight batch before failing the queue itself.
-    input_dtype : requests are cast to this dtype at admission.
-    name : stable label for this server's metrics.
+    input_dtype : requests are cast to this dtype at admission, so the
+        captured signature is pinned (dtype drift = a new capture).
+    preemption : a :class:`~deeplearning4j_tpu_torch.train.resilience.
+        PreemptionSignal` polled between batches — ``True`` installs
+        :class:`~deeplearning4j_tpu_torch.train.resilience.
+        SignalPreemption` (SIGTERM/SIGINT -> drain). Deterministic tests
+        pass ``StepPreemption(n)`` (drain after n batches).
+    faults : a :class:`~deeplearning4j_tpu_torch.faults.FaultPlan`
+        wiring the serving fault seams (injected replica faults, slow and
+        hung forwards) for chaos tests.
+    name : stable label for this server's metrics; defaults to a
+        process-unique ``serverN``.
+    forward : explicit forward callable ``x -> predictions`` overriding
+        the model contract (default: :func:`resolve_forward`).
     head : results-only post-processing on the device: ``"argmax"``,
-        ``"softmax"`` or ``"top_k"``/``"top_k:k"`` (-> ``(values,
-        indices)``).
+        ``"softmax"``, ``"top_k"``/``"top_k:k"`` (-> ``(values,
+        indices)``), or any callable on the logits.
     """
 
     def __init__(self, model, device=None, batch_limit: int = 32,
                  max_queue: int = 128, coalesce_ms: float = 2.0,
                  default_deadline: Optional[float] = None,
                  max_retries: int = 2,
+                 replica_timeout: Optional[float] = None,
                  breaker_threshold: int = 5, breaker_cooldown: float = 5.0,
                  drain_timeout: float = 30.0, input_dtype=np.float32,
-                 name: Optional[str] = None, head=None):
+                 preemption=None, faults=None,
+                 name: Optional[str] = None, forward=None, head=None):
         self.model = model
         self.device = resolve_device(device)
-        self._fwd = resolve_forward(model)
+        self._fwd = forward if forward is not None else resolve_forward(model)
         self.head = head
         self._head_fn = _make_head(head)
+        # forward + head as one captured graph per signature, the graphs
+        # of this server in one pool
+        self._dispatch = _cc.CachedDispatch(self._device_forward,
+                                            "serving:forward")
         self.name = name if name is not None else f"server{next(_SERVER_SEQ)}"
         self.batch_limit = int(batch_limit)
         self.max_queue = int(max_queue)
         self.coalesce = float(coalesce_ms) / 1000.0
         self.default_deadline = default_deadline
         self.max_retries = int(max_retries)
+        self.replica_timeout = replica_timeout
         self.drain_timeout = float(drain_timeout)
         self.input_dtype = np.dtype(input_dtype)
+        self._faults = faults
         self.breaker = CircuitBreaker(breaker_threshold, breaker_cooldown,
                                       name=self.name)
         self._queue_gauge = QUEUE_DEPTH.labels(server=self.name)
-        # Condition over an RLock: _count re-enters it from submit
-        self._cond = threading.Condition()
+        # deadline=None -> unsupervised inline dispatch (fault holds still
+        # honored); warmup=0 because warmup() captures every bucket — a
+        # steady-state dispatch that captures IS a defect here
+        self._watchdog = DispatchWatchdog(replica_timeout, plan=faults,
+                                          warmup=0)
+        self._churn = _churn.get_churn_detector()
+        # instrumented: dl4j_lock_{wait,hold}_seconds{lock="serving"} +
+        # contention counter under ProfilingMode (profiler.locks)
+        self._cond = _prof.InstrumentedCondition("serving")
         self._dq: "collections.deque[ServingRequest]" = collections.deque()
         self._draining = False
         self._drained = False
@@ -427,19 +513,31 @@ class ModelServer:
         self._drain_requested = threading.Event()
         self._warmed = False
         self._warm_shapes: list = []
+        self._warm_sig_count = 0
+        self._warm_captures = 0
         self._died = False
         self._batches = 0
-        self._occ_sum = 0.0
-        self._occ_n = 0
+        self._occ_sum = 0.0         # live-rows/bucket ratios, for the
+        self._occ_n = 0             # load_hints() occupancy mean
         self.counts: "collections.Counter[str]" = collections.Counter()
+        self._preemption = None
+        self._preemption_installed = False
+        if preemption is not None and preemption is not False:
+            from deeplearning4j_tpu_torch.train import resilience as _res
+            self._preemption = _res.SignalPreemption(
+                on_request=self._drain_requested.set) \
+                if preemption is True else preemption
+            install = getattr(self._preemption, "install", None)
+            if install is not None:
+                self._preemption_installed = bool(install())
         self._worker = threading.Thread(target=self._serve, daemon=True,
                                         name="dl4j-serving")
         self._worker.start()
 
     # ------------------------------------------------------------- buckets
     def buckets(self) -> list:
-        """Padded batch sizes this server runs: powers of two from 1 up
-        to (at least) ``batch_limit``."""
+        """Padded batch sizes this server captures: powers of two from 1
+        up to (at least) ``batch_limit``."""
         out = [1]
         while out[-1] < self.batch_limit:
             out.append(out[-1] * 2)
@@ -452,11 +550,17 @@ class ModelServer:
         return self.buckets()[-1]
 
     # ----------------------------------------------------------- admission
-    def submit(self, x, deadline: Optional[float] = None) -> ServingRequest:
+    def submit(self, x, deadline: Optional[float] = None,
+               trace: Optional[_tracectx.TraceContext] = None
+               ) -> ServingRequest:
         """Queue one request. ``x``: [n, ...features] with n <=
         ``batch_limit``; ``deadline``: seconds from now (overrides
-        ``default_deadline``). Raises the structured admission errors
-        instead of ever blocking the caller."""
+        ``default_deadline``); ``trace``: the caller's
+        :class:`~deeplearning4j_tpu_torch.profiler.tracecontext.
+        TraceContext` (the ingress passes the request's — minted fresh
+        when absent). Raises the structured admission errors instead of
+        ever blocking the caller; rejections carry a ``trace_id``
+        attribute and a terminal span."""
         x = np.asarray(x, dtype=self.input_dtype)
         if x.ndim < 1:
             raise ValueError("request features need a leading batch dim")
@@ -467,13 +571,17 @@ class ModelServer:
         if self._warmed:
             fshape = tuple(int(d) for d in x.shape[1:])
             if fshape not in self._warm_shapes:
+                # a novel shape would capture under the steady-state
+                # watchdog (warmup=0): past replica_timeout that reads as
+                # a hung replica and feeds the breaker
                 raise ValueError(
                     f"request feature shape {fshape} was not warmed "
                     f"(warmed: {self._warm_shapes}) — call "
                     "warmup([shape]) before serving it")
         now = time.monotonic()
         dl = self.default_deadline if deadline is None else deadline
-        req = ServingRequest(x, now + dl if dl is not None else None, now)
+        req = ServingRequest(x, now + dl if dl is not None else None, now,
+                             trace=trace)
         req.server = self.name
         try:
             with self._cond:
@@ -496,9 +604,21 @@ class ModelServer:
                 self._queue_gauge.set(len(self._dq))
                 self._cond.notify()
         except ServingError as e:
-            # an admission rejection IS the request's terminal outcome
+            # an admission rejection IS the request's terminal outcome:
+            # resolve it (the serve:terminal span) and stamp the trace id
+            # on the error so the caller can correlate
+            e.trace_id = req.trace.trace_id
             req._resolve(error=e)
+            _tracectx.record_span(
+                "serve:admission", req.trace.child(), req._t0_us,
+                _prof.now_us() - req._t0_us,
+                args={"outcome": type(e).__name__, "server": self.name})
             raise
+        _tracectx.record_span(
+            "serve:admission", req.trace.child(), req._t0_us,
+            _prof.now_us() - req._t0_us,
+            args={"outcome": "admitted", "server": self.name,
+                  "rows": req.n})
         return req
 
     def output(self, x, timeout: float = 30.0,
@@ -507,38 +627,68 @@ class ModelServer:
         return self.submit(x, deadline=deadline).get(timeout)
 
     def _count(self, outcome: str):
+        # _cond wraps an RLock: callers already holding it re-enter
         with self._cond:
             self.counts[outcome] += 1
         REQUESTS.labels(outcome=outcome).inc()
 
     # ------------------------------------------------------------- warmup
     def warmup(self, shapes: Iterable[Sequence[int]]) -> "ModelServer":
-        """Run every bucket x feature shape once BEFORE taking traffic
-        (kernel builds, cuBLAS handles and the caching allocator's pools
-        are set up then, not on the first request): ``shapes`` are
-        per-request feature shapes WITHOUT the leading batch dim, e.g.
-        ``[(128,), (512,)]`` for token rows. Then flips ``ready`` true."""
+        """Capture every bucket x feature shape BEFORE taking traffic:
+        ``shapes`` are per-request feature shapes WITHOUT the leading
+        batch dim, e.g. ``[(128,), (512,)]`` for token rows. On the card
+        each becomes one CUDA graph of the forward and head; on the CPU
+        each runs once. Each signature is reported to the churn detector;
+        :meth:`recompiles_after_warmup` counts new ones since. Then flips
+        ``ready`` true."""
         shapes = [tuple(int(d) for d in s) for s in shapes]
-        t0 = time.perf_counter()
-        for shape in shapes:
-            for b in self.buckets():
-                self._forward_raw(np.zeros((b,) + shape, self.input_dtype))
-        elapsed = time.perf_counter() - t0
+        elapsed = self._compile_buckets(shapes)
         WARMUP_SECONDS.set(elapsed)
-        with self._cond:
+        with self._cond:    # the serve thread reads both fields
             for s in shapes:
                 if s not in self._warm_shapes:
                     self._warm_shapes.append(s)
             self._warmed = True
         logger.info("serving warmup: %d bucket(s) x %d shape(s) in %.3fs "
-                    "on %s", len(self.buckets()), len(shapes), elapsed,
-                    self.device)
+                    "on %s (%d captured)", len(self.buckets()), len(shapes),
+                    elapsed, self.device, self._dispatch.warmed_signatures())
         return self
+
+    def _compile_buckets(self, shapes) -> float:
+        """Capture every bucket x feature shape and re-base the
+        zero-recompile baselines. Returns the wall seconds spent."""
+        t0 = time.perf_counter()
+        for shape in shapes:
+            for b in self.buckets():
+                self._forward_raw(
+                    np.zeros((b,) + tuple(shape), self.input_dtype),
+                    capture=True)
+        with self._cond:
+            self._warm_sig_count = self._churn.signature_count(
+                "serving:forward", owner=self)
+            self._warm_captures = self._dispatch.captures()
+        return time.perf_counter() - t0
+
+    def recompiles_after_warmup(self) -> int:
+        """Distinct forward signatures seen since the last ``warmup()``
+        — the steady-state pin is 0."""
+        if not self._warmed:
+            return 0
+        return self._churn.signature_count("serving:forward",
+                                           owner=self) - self._warm_sig_count
+
+    def captures_after_warmup(self) -> int:
+        """CUDA-graph captures since the last ``warmup()`` (0 on the CPU,
+        which never captures); agrees with
+        :meth:`recompiles_after_warmup` on the card."""
+        if not self._warmed:
+            return 0
+        return self._dispatch.captures() - self._warm_captures
 
     # ------------------------------------------------------- health surface
     @property
     def ready(self) -> bool:
-        """True once warmed and still admitting."""
+        """True once warmed and still admitting (what /readyz serves)."""
         return (self._warmed and not self._draining and not self._closed
                 and not self._drain_requested.is_set()
                 and self._worker.is_alive()
@@ -546,7 +696,8 @@ class ModelServer:
 
     @property
     def healthy(self) -> bool:
-        """True unless the breaker is open or the serve loop died."""
+        """True unless the breaker is open or the serve loop died (what
+        /healthz serves)."""
         return (self.breaker.state != CircuitBreaker.OPEN
                 and not self._died
                 and (self._worker.is_alive() or self._drained
@@ -578,6 +729,7 @@ class ModelServer:
             "breaker": self.breaker.state,
             "counts": dict(self.counts),
             "buckets": self.buckets(),
+            "recompiles_after_warmup": self.recompiles_after_warmup(),
             "latency_p50": LATENCY.quantile(0.5),
             "latency_p99": LATENCY.quantile(0.99),
         }
@@ -586,9 +738,10 @@ class ModelServer:
                       "rejected_unhealthy")
 
     def load_hints(self) -> dict:
-        """Structured autoscaling / load-balancer hints: queue depth and
-        fill, shed rate over this server's terminal outcomes, breaker
-        state, and mean bucket occupancy. Mirrored to the
+        """Structured autoscaling / load-balancer hints (what the
+        ingress serves at ``GET /v1/load``): queue depth and fill, shed
+        rate over this server's terminal outcomes, breaker state, and
+        mean bucket occupancy. Mirrored to the
         ``dl4j_serving_shed_ratio`` and
         ``dl4j_serving_batch_occupancy_mean`` gauges on every call."""
         with self._cond:
@@ -616,18 +769,22 @@ class ModelServer:
             "batches": batches,
             "buckets": self.buckets(),
             "batch_occupancy_mean": None if occ is None else round(occ, 6),
+            "recompiles_after_warmup": self.recompiles_after_warmup(),
         }
 
     # ------------------------------------------------------------ serve loop
     def _serve(self):
         try:
             while True:
+                if self._preemption is not None \
+                        and self._preemption.requested(self._batches):
+                    self._drain_requested.set()
                 with self._cond:
                     if self._closed or self._drain_requested.is_set():
                         return
                     if not self._dq:
-                        # bounded wait so drain/breaker checks run even
-                        # on an idle server
+                        # bounded wait so drain/preemption/breaker checks
+                        # run even on an idle server
                         self._cond.wait(0.05)
                         continue
                 if not self.breaker.allow_dispatch():
@@ -636,12 +793,22 @@ class ModelServer:
                     self._shed_expired()
                     time.sleep(0.005)
                     continue
+                t0_us = _prof.now_us()
                 batch = self._build_batch()
                 if batch:
-                    self._dispatch(batch)
-        except BaseException:
+                    # the coalesce wait, attributed to the batch's trace
+                    _tracectx.record_span(
+                        "serve:coalesce", batch[0].trace.child(), t0_us,
+                        _prof.now_us() - t0_us,
+                        args={"requests": len(batch), "server": self.name})
+                    self._dispatch_batch(batch)
+        except BaseException as e:
             with self._cond:
                 self._died = True
+            # capture the ring + trace + metrics before the queued-request
+            # failures scroll everything away
+            _flightrec.get_flight_recorder().dump("serve_loop_death",
+                                                  exc=e)
             logger.exception("serving loop died — failing queued requests")
             raise
         finally:
@@ -714,15 +881,33 @@ class ModelServer:
                 if not self._dq:
                     self._cond.wait(min(remaining, 0.01))
 
-    def _dispatch(self, batch: list):
+    def _dispatch_batch(self, batch: list):
         total = sum(r.n for r in batch)
         bucket = self._bucket_for(total)
+        t0_us = _prof.now_us()
+        if _prof.tracing_enabled():
+            # per-request queue-wait spans: enqueue -> popped into this
+            # batch (each under its own request's trace)
+            for req in batch:
+                _tracectx.record_span("serve:queue", req.trace.child(),
+                                      req._t0_us, t0_us - req._t0_us,
+                                      args={"rows": req.n})
+        # ONE dispatch span serves the whole coalesced batch: it lives in
+        # batch[0]'s trace and links to every member request's root span
+        batch_ctx = batch[0].trace.child()
+        _flightrec.get_flight_recorder().record(
+            "serving:dispatch", server=self.name, rows=total,
+            bucket=bucket, requests=len(batch),
+            trace_id=batch_ctx.trace_id)
+        err: Optional[BaseException] = None
         try:
             # inside the try: ANY failure building or running the batch
             # must resolve its requests, never kill the serve loop
             feats = np.concatenate([r.features for r in batch], axis=0)
-            out = self._forward(feats)
+            with _tracectx.use(batch_ctx):
+                out = self._forward(feats)
         except Exception as e:
+            err = e
             self.breaker.record_failure()
             for req in batch:
                 if req._resolve(error=e):
@@ -733,11 +918,19 @@ class ModelServer:
             pos = 0
             for req in batch:
                 if req._resolve(result=_slice_rows(out, pos, pos + req.n)):
-                    LATENCY.observe(now - req.enqueued_at)
+                    LATENCY.observe(now - req.enqueued_at,
+                                    exemplar=req.trace.trace_id)
                     self._count("completed")
                 pos += req.n
+        _tracectx.record_span(
+            "serve:dispatch", batch_ctx, t0_us, _prof.now_us() - t0_us,
+            args={"server": self.name, "rows": total, "bucket": bucket,
+                  "requests": len(batch),
+                  "outcome": ("completed" if err is None
+                              else type(err).__name__)},
+            links=[r.trace for r in batch])
         OCCUPANCY.observe(total / float(bucket))
-        with self._cond:
+        with self._cond:    # stats() readers race this increment
             self._batches += 1
             self._occ_sum += total / float(bucket)
             self._occ_n += 1
@@ -746,7 +939,8 @@ class ModelServer:
     # ------------------------------------------------------------- forward
     def _forward(self, feats: np.ndarray):
         """One coalesced batch (live rows only), padded to its bucket,
-        with bounded retry after a failure."""
+        through the supervised forward with bounded retry after a failure
+        or timeout. On one card a retry runs on the same card."""
         total = int(feats.shape[0])
         bucket = self._bucket_for(total)
         padded = feats
@@ -755,24 +949,69 @@ class ModelServer:
                 [feats, np.zeros((bucket - total,) + feats.shape[1:],
                                  feats.dtype)], axis=0)
         last = None
-        for attempt in range(1, self.max_retries + 2):
+        attempts = 0
+        ctx = _tracectx.current()   # the dispatch span's context
+        for _ in range(self.max_retries + 1):
+            attempts += 1
+            t_attempt = _prof.now_us()
+            if not self._warmed:
+                # pre-warmup traffic legitimately runs cold; the
+                # zero-leniency steady-state watchdog must not read it as
+                # a hung replica and feed the breaker
+                self._watchdog.begin_attempt(1)
             try:
-                return _slice_rows(self._forward_raw(padded), 0, total)
-            except Exception as e:
+                out = self._watchdog.run(
+                    lambda p=padded: self._forward_once(p),
+                    self._batches + 1)
+                return _slice_rows(out, 0, total)
+            except (Exception, DispatchTimeoutError) as e:
                 last = e
                 REPLICA_FAILURES.inc()
+                rec = _flightrec.get_flight_recorder()
+                rec.record("serving:dispatch_failure", server=self.name,
+                           attempt=attempts, error=type(e).__name__,
+                           detail=str(e)[:256])
+                if isinstance(e, DispatchTimeoutError):
+                    # a hung replica is a prime flight-recorder trigger
+                    # (rate-limited — a retry storm makes one bundle)
+                    rec.dump("dispatch_timeout", exc=e)
+                _tracectx.record_span(
+                    "serve:retry",
+                    ctx.child() if ctx is not None else None,
+                    t_attempt, _prof.now_us() - t_attempt,
+                    args={"attempt": attempts,
+                          "error": type(e).__name__})
                 warnings.warn(
-                    f"serving dispatch failure (attempt {attempt}): "
+                    f"serving dispatch failure (attempt {attempts}): "
                     f"{type(e).__name__}: {e} — retrying", stacklevel=2)
-        raise InferenceFailedError(self.max_retries + 1, last)
+        raise InferenceFailedError(attempts, last)
 
-    def _forward_raw(self, feats: np.ndarray):
+    def _forward_once(self, feats: np.ndarray):
+        if self._faults is not None:
+            self._faults.serving_forward(self._batches + 1,
+                                         [self.device.index or 0])
+        return self._forward_raw(feats)
+
+    def _device_forward(self, x):
+        """What one graph holds: the forward and the head."""
+        out = _normalize_out(self._fwd(x))
+        if self._head_fn is not None:
+            out = _map_arrays(self._head_fn, out)
+        return out
+
+    def _forward_raw(self, feats: np.ndarray, capture: bool = False):
+        fp = (str(self.device), _churn.array_fingerprint(feats))
+        self._churn.record("serving:forward", fp, owner=self)
+        _flightrec.get_flight_recorder().record(
+            "serving:forward", server=self.name, device=fp[0],
+            signature=str(fp[1]))
+        # the H2D copy stays outside the graph: the dispatch copies the
+        # tensor into the graph's static input
         x = torch.from_numpy(np.ascontiguousarray(feats)).to(self.device)
         with torch.inference_mode():
-            out = self._fwd(x)
-            if self._head_fn is not None:
-                out = _map_arrays(self._head_fn, out)
-            host = _to_host(out)            # THE per-batch D2H copy
+            if capture:
+                self._dispatch.warm(x)
+            host = _to_host(self._dispatch(x))   # THE per-batch D2H copy
         D2H_BYTES.inc(_nbytes(host))
         return host
 
@@ -781,7 +1020,8 @@ class ModelServer:
         """Stop admissions, let the in-flight batch complete, fail every
         queued-but-undispatched request with the retriable
         :class:`ServerDrainingError`, and stop the serve loop. Safe to
-        call from any thread and idempotent."""
+        call from any thread and idempotent; SIGTERM triggers the same
+        path through the preemption seam."""
         self._drain_requested.set()
         with self._cond:
             self._cond.notify_all()
@@ -809,13 +1049,19 @@ class ModelServer:
             self._drained = True
 
     def close(self):
-        """Drain, then refuse every later submit. Idempotent; also the
-        context-manager exit."""
+        """Drain, then refuse every later submit and release the
+        preemption handlers. Idempotent; also the context-manager
+        exit."""
         if self._closed:
             return
         self.drain()
         with self._cond:
             self._closed = True
+        if self._preemption_installed:
+            uninstall = getattr(self._preemption, "uninstall", None)
+            if uninstall is not None:
+                uninstall()
+            self._preemption_installed = False
 
     def __enter__(self) -> "ModelServer":
         return self

@@ -1,2 +1,3 @@
 """Training: the updaters (``Sgd``, ``Adam``, ``AdamW``), the constant
-learning-rate schedule, and K steps a dispatch (``train.stepping``)."""
+learning-rate schedule, K steps a dispatch (``train.stepping``) and the
+preemption signals (``train.resilience``)."""

@@ -15,6 +15,7 @@ arithmetic, and warming must leave every piece of state bit-equal.
 """
 
 import contextlib
+import threading
 import warnings
 
 import numpy as np
@@ -242,6 +243,18 @@ class TestCachedDispatch:
         assert fake_capture[0].replays == 3
 
 
+    def test_captures_count_and_no_pool_on_the_cpu(self, fake_capture):
+        d = cc.CachedDispatch(lambda x: x + 1, "test:pool",
+                              always_capture=True)
+        assert d._capture_options((torch.ones(2),)) == {}
+        d(torch.ones(2))
+        d(torch.ones(3))
+        assert torch.equal(d(torch.ones(3)), torch.full((3,), 2.0))
+        assert d.captures() == d.warmed_signatures() == len(fake_capture) == 2
+        assert d._pool is None and d._stream is None
+        assert not cc._capturing((torch.ones(2),))
+
+
 # ------------------------------------------------------- the networks' step
 class TestCapturedNetworks:
     @pytest.mark.parametrize("make", ["mlp", "graph", "cnn"])
@@ -404,3 +417,36 @@ class TestOnTheCard:
         cc.reset_stats()
         net.fit(_images(seed=3))
         assert cc.cache_stats()["memory"] == {"hits": 1, "misses": 0}
+
+    def test_a_capture_beside_another_dispatchs_replays(self, card):
+        """A thread-local capture into a shared pool while another thread
+        replays another dispatch's graph: both answer right."""
+        w = torch.randn(64, 64, device=card)
+        a = cc.CachedDispatch(lambda x: torch.relu(x @ w), "test:a")
+        b = cc.CachedDispatch(lambda x: torch.tanh(x @ w) * 2, "test:b")
+        x = torch.randn(32, 64, device=card)
+        a.warm(x)
+        want_a = a(x).cpu()
+        torch.testing.assert_close(want_a, torch.relu(x @ w).cpu())
+        stop, errors, n = [False], [], [0]
+
+        def replays():
+            try:
+                while not stop[0]:
+                    if not torch.equal(a(x).cpu(), want_a):
+                        errors.append("a answered wrong")
+                    n[0] += 1
+            except Exception as e:
+                errors.append(repr(e))
+        th = threading.Thread(target=replays)
+        th.start()
+        for rows in (1, 2, 4, 8, 16):
+            b.warm(x[:rows])
+        stop[0] = True
+        th.join(30)
+        assert not errors and n[0] > 0
+        assert cc.cache_stats()["capture_failures"] == 0
+        assert b.captures() == 5 and b._pool is not None
+        for rows in (1, 2, 4, 8, 16):
+            torch.testing.assert_close(b(x[:rows]),
+                                       torch.tanh(x[:rows] @ w) * 2)

@@ -12,13 +12,16 @@ scale_shift_act 1e-6 relative in fp32 and one ulp in bf16 (both sides
 round the exact value once).
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
 
 from deeplearning4j_tpu_torch.models import transformer as ttr
+from deeplearning4j_tpu_torch.nn import compilecache as cc
 from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
-from deeplearning4j_tpu_torch.serving import ModelServer
+from deeplearning4j_tpu_torch.serving import ModelRegistry, ModelServer
 
 pytestmark = pytest.mark.cuda
 
@@ -138,17 +141,24 @@ def test_served_tiny_lm_launches_the_kernels(dev):
     try:
         with ModelServer(lm.logits, batch_limit=4, input_dtype=np.int32,
                          head="argmax") as sv:
+            ck.reset_counts()
             sv.warmup([(64,)])
+            # one graph a bucket, each recording the kernels' launches
+            assert sv._dispatch.launches_at_capture() == [
+                {"flash_attention": 2, "layer_norm": 5}] * 3
+            assert ck.FLASH_ROUTES["cuda_core"] == 0
             ck.reset_counts()
             tok = np.random.default_rng(8).integers(0, 1024, (3, 64),
                                                     dtype=np.int32)
             got = sv.output(tok, timeout=60)
             n_fwd = sv.stats()["batches"]
-        assert ck.LAUNCHES == {"layer_norm": 5 * n_fwd,
-                               "flash_attention": 2 * n_fwd,
-                               "scale_shift_act": 0, "softmax": 0,
-                               "bn_stats": 0, "bn_apply_leaky": 0}
-        assert ck.FLASH_ROUTES == {"tensor_core": 2 * n_fwd, "cuda_core": 0}
+            assert sv.recompiles_after_warmup() == 0
+            assert sv.captures_after_warmup() == 0
+        assert not any(ck.LAUNCHES.values())
+        assert ck.REPLAYS == {"layer_norm": 5 * n_fwd,
+                              "flash_attention": 2 * n_fwd,
+                              "scale_shift_act": 0, "softmax": 0,
+                              "bn_stats": 0, "bn_apply_leaky": 0}
         assert ck.PLAIN_CALLS == {"layer_norm": 0, "flash_attention": 0,
                                   "scale_shift_act": 0, "softmax": 0,
                                   "bn_stats": 0, "bn_apply_leaky": 0}
@@ -311,3 +321,52 @@ def test_bn_kernels_keep_nan(dev):
                           torch.zeros(4, device=dev), 0.1)
     with pytest.raises(ValueError, match="contiguous"):
         ck.bn_stats(x.t())
+
+
+def test_a_capture_leaves_another_servers_replays_right(dev):
+    """v2 of a registry captures its graphs while v1 serves from its own
+    (thread-local captures, one pool a server): v1's answers during the
+    capture, and v2's after the roll, equal a direct argmax."""
+    cfg = ttr.TransformerConfig.tiny(d_model=128, n_heads=2,
+                                     use_flash_attention=True)
+    lms = {1: ttr.TransformerLM(cfg, seed=0), 2: ttr.TransformerLM(cfg,
+                                                                   seed=1)}
+    ck.install_platform_overrides()
+    cc.reset_stats()
+    reg = ModelRegistry(batch_limit=8, input_dtype=np.int32, head="argmax")
+    rng = np.random.default_rng(3)
+    reqs = [rng.integers(0, 1024, (1 + i % 4, 64), dtype=np.int32)
+            for i in range(200)]
+    try:
+        reg.load("m", lms[1].logits, shapes=[(64,)])
+        served = []
+        stop = threading.Event()
+
+        def traffic():
+            after = 0
+            for i in range(100000):
+                r = reqs[i % len(reqs)]
+                req = reg.submit("m", r)
+                served.append((r, req.server, req.get(60)))
+                after += stop.is_set()
+                if after > 20:
+                    return
+        th = threading.Thread(target=traffic)
+        th.start()
+        reg.load("m", lms[2].logits)             # captures under traffic
+        reg.roll("m")
+        stop.set()
+        th.join(120)
+        assert not th.is_alive()
+        assert {s for _, s, _ in served} == {"m:v1", "m:v2"}
+        for r, server, got in served:
+            lm = lms[int(server[-1])]
+            want = lm.logits(r).argmax(-1).to(torch.int32).cpu().numpy()
+            assert (got == want).mean() >= 0.99, server
+        for v in (1, 2):
+            assert reg.server("m", v).recompiles_after_warmup() == 0
+            assert reg.server("m", v).captures_after_warmup() == 0
+        assert cc.cache_stats()["capture_failures"] == 0
+    finally:
+        reg.close()
+        ck.uninstall_platform_overrides()

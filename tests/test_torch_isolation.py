@@ -72,7 +72,19 @@ def test_import_leaves_jax_unloaded():
              "deeplearning4j_tpu_torch.analysis, "
              "deeplearning4j_tpu_torch.nn.compilecache, "
              "deeplearning4j_tpu_torch.train.stepping, "
-             "deeplearning4j_tpu_torch.profile_fit; "
+             "deeplearning4j_tpu_torch.profile_fit, "
+             "deeplearning4j_tpu_torch.profiler.tracer, "
+             "deeplearning4j_tpu_torch.profiler.tracecontext, "
+             "deeplearning4j_tpu_torch.profiler.flightrec, "
+             "deeplearning4j_tpu_torch.profiler.modes, "
+             "deeplearning4j_tpu_torch.profiler.locks, "
+             "deeplearning4j_tpu_torch.parallel.elastic, "
+             "deeplearning4j_tpu_torch.train.resilience, "
+             "deeplearning4j_tpu_torch.faults, "
+             "deeplearning4j_tpu_torch.analysis.serving, "
+             "deeplearning4j_tpu_torch.serving.server, "
+             "deeplearning4j_tpu_torch.serving.registry, "
+             "deeplearning4j_tpu_torch.serving.ingress; "
              "print(sorted(m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'jaxlib', 'deeplearning4j_tpu')))", ROOT)
     assert r.returncode == 0, r.stderr
@@ -86,6 +98,19 @@ def test_transformer_lm_raises_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ttr.TransformerLM(cfg)
     assert ttr.TransformerLM(cfg, device="cpu").n_params() > 0
+
+
+@pytest.mark.parametrize("entry", ["ModelServer", "ModelRegistry",
+                                   "HttpIngress"])
+def test_serving_entry_points_raise_without_a_card(monkeypatch, entry):
+    from deeplearning4j_tpu_torch import serving
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    make = {"ModelServer": lambda: serving.ModelServer(lambda x: x),
+            "ModelRegistry": lambda: serving.ModelRegistry(),
+            "HttpIngress": lambda: serving.HttpIngress(
+                serving.ModelRegistry(), port=0)}[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
 
 
 @pytest.mark.parametrize("alone", [False, True])
