@@ -33,7 +33,7 @@ Phases (each one fails the run with a non-zero exit):
    their bounds and library calls (and the pair beside
    ``F.batch_norm(training=True)`` + ``F.leaky_relu``);
    ``scale_shift_act`` also at TinyYOLO's first epilogue, [5,537,792, 16]
-   bf16, alpha 0.01.
+   bf16, alpha 0.01, and at Darknet19's, [1,605,632, 32] bf16, alpha 0.01.
 3. Serve BERT-base (full width, bf16, random weights from a seed) through
    ``ModelServer(lm.logits, head="argmax")`` with the kernels installed,
    the forward and head captured as one CUDA graph a bucket x shape:
@@ -57,7 +57,8 @@ Phases (each one fails the run with a non-zero exit):
    first, and the counters must read 33 ``scale_shift_act`` launches per
    step and no plain call.
 5. ResNet-50 ``output()`` (33 launches) held against the same forward on
-   the plain ``scale_shift_act``.
+   the plain ``scale_shift_act``; the trained net is then saved with
+   ``ComputationGraph.save`` (phase 18 loads it).
 6. Serve a BERT-base sequence classifier written op by op in SameDiff
    (full width, fp32, post-LN, 2 labels, random weights from
    ``numpy.random.default_rng(0)``; :func:`build_bert`, a copy of the
@@ -136,7 +137,7 @@ Phases (each one fails the run with a non-zero exit):
    input_dtype=np.int32)`` loads the phase-3 BERT-base (seed 0) as
    ``"bert"`` v1 with ``shapes=[(128,)]`` and ``HttpIngress(reg, port=0)``
    puts it on loopback. ``ServingLoad.seeded(seed=0, mix="steady",
-   n=512, rps=150, max_rows=8)`` replays over real sockets
+   n=1024, rps=150, max_rows=8)`` replays over real sockets
    (``replay_http``, JSON bodies of int32 tokens, T=128, ``deadline_ms``
    5000); meanwhile ``reg.load("bert", v2)`` (the same configuration from
    seed 1) captures v2's 6 graphs while v1 serves, then a
@@ -153,6 +154,43 @@ Phases (each one fails the run with a non-zero exit):
    behind 64 queued requests comes back 504. It prints tokens/s, the wire
    latency p50/p99 (client clock, first byte sent to response read), v2's
    load and capture seconds, and the memory with two versions loaded.
+
+16. LeNet-5 (``zoo.LeNet``: widths 20/50/500, flat 1x28x28 rows through
+   its ``convolutionalFlat`` preprocessor, xavier, Adam 1e-3, random
+   weights from seed 123, fp32 as dl4j-examples runs it) through
+   ``MultiLayerNetwork.fit`` on ``MnistDataSetIterator(64, True,
+   num_examples=2048)`` (the seeded synthetic digits unless
+   ``DL4J_TPU_DATA_DIR`` holds the IDX files): 4 epochs a step a
+   dispatch, then 4 at ``steps_per_dispatch=4`` (one capture, no
+   failure). ``evaluate(MnistDataSetIterator(256, False,
+   num_examples=512))`` must reach accuracy >= 0.99 (the JAX package's
+   pinned bar); ``save`` -> ``load`` -> ``output()`` and
+   ``clone().output()`` must equal ``output()`` to the bit.
+17. VGG16 (``zoo.VGG16``: 1000 classes, 3x224x224, 138,357,544 params,
+   two ``DenseLayer(4096, dropOut=0.5)``, Adam 1e-3, random weights from
+   seed 123) at B=64 in the bf16 / NHWC / fused configuration, with
+   cuDNN held to deterministic algorithms for the phase: one warm step
+   (its mask draws counted: fc1's [64, 25088] and fc2's [64, 4096]; an
+   eval-mode ``output()`` draws none), then 5 eager timed steps; then
+   phase 14's comparison (8 eager steps twice, ``warmup``, 2 captured
+   dispatches of 4, from one state), here to the bit on every tensor and
+   loss, dropout masks included (the masks are a function of the seed,
+   the device clock and the layer); fc1's masks over 8 steps keep 0.5 +-
+   0.01 and change from step to step, and a CUDA graph replaying the mask
+   draw on its clock gives the eager masks. It prints step ms eager and
+   captured, images/s, MFU (``vgg16_flops(224)`` x 3 a step, bench.py's
+   count, against the card's dense bf16 peak), peak memory and the card's
+   busy share of one eager step and one captured dispatch (the traces of
+   ``profile_fit.py --model vgg16``).
+18. Darknet19 (``zoo.Darknet19``: 1000 classes, 224^2, random weights
+   from seed 123) at B=32, bf16 / NHWC / fused: 18 ``scale_shift_act``
+   launches (leaky 0.01) a step and no plain call over 3 eager steps;
+   phase 14's comparison with 4 x 18 launches recorded at capture; the
+   busy share of one traced eager step and one captured dispatch;
+   ``output()`` (18 launches) against the same net on the plain
+   ``scale_shift_act`` within phase 5's bound. Then
+   ``ComputationGraph.load`` of phase 5's archive gives the trained
+   ResNet-50 back, whose ``output()`` must equal phase 5's to the bit.
 
 The captured-against-eager rule: where the two eager runs agree to the
 bit on a tensor (and on the params' group: the param and its Adam
@@ -180,7 +218,9 @@ sumsq, NaN where the fp64 sum is NaN; ``bn_apply_leaky`` as
 
 Output: progress lines, then a JSON line ``{"kernels": [...]}`` (the
 flash and layer-norm ``launches`` are phase 3's warmup launches plus its
-replays, softmax's phase 6's; ``replays`` counts the replayed ones), the
+replays, softmax's phase 6's; ``replays`` counts the replayed ones;
+``scale_shift_act``'s are phase 4's, its TinyYOLO row phase 9's and its
+Darknet19 row phase 18's eager steps), the
 ``nvidia-smi`` name/power-limit line, and as the last line
 ``{"ok": true, "device": {...}}``. Without a card, or outside a
 checkout, it exits non-zero and prints no result.
@@ -218,6 +258,11 @@ YOLO_STEPS = 5
 YOLO_CLASSES = 20
 BERT_STEPS = 5
 MEGA_K = 4
+VGG_BATCH = 64
+VGG_STEPS = 5
+DARKNET_BATCH = 32
+DARKNET_STEPS = 3
+LENET_EPOCHS = 4
 
 
 def fail(msg: str) -> None:
@@ -539,6 +584,22 @@ def main() -> None:
         lambda: F.leaky_relu(torch.addcmul(sh, x, sc), 0.01),
         2 * rows * c * 2 + 2 * c * 2, 2 * rows * c, FP32_FLOPS)]
     del x
+    # and at Darknet19's first epilogue at B=32: [32*224*224, 32] bf16, leaky
+    rows, c = DARKNET_BATCH * 224 * 224, 32
+    x = rand(rows, c, dtype=torch.bfloat16, scale=2.0)
+    sc = rand(c, dtype=torch.bfloat16, scale=0.5, shift=1.0)
+    sh = rand(c, dtype=torch.bfloat16)
+    err = check_ssa("scale_shift_act Darknet19 shape",
+                    ck.scale_shift_act_fwd(x, sc, sh, 0.01),
+                    ck.scale_shift_act_plain(x, sc, sh, 0.01), torch.bfloat16)
+    ssa["other_shapes"].append(timed_row(
+        f"x [{rows}, {c}] bfloat16, leaky 0.01 (Darknet19's first block, "
+        f"B={DARKNET_BATCH})", err,
+        lambda: ck.scale_shift_act_fwd(x, sc, sh, 0.01),
+        lambda: ck.scale_shift_act_plain(x, sc, sh, 0.01),
+        lambda: F.leaky_relu(torch.addcmul(sh, x, sc), 0.01),
+        2 * rows * c * 2 + 2 * c * 2, 2 * rows * c, FP32_FLOPS))
+    del x
 
     # the BN+leaky probe's two kernels: the sums against an fp64 sum and
     # the apply against its plain version, row block by row block (C=1024
@@ -671,10 +732,10 @@ def main() -> None:
             f"plain {kr.get('plain_ms', float('nan')):.4f} ms, library "
             f"{kr['library_ms']:.4f} ms, bound {kr['bound_ms']:.4f} ms "
             f"({kr['bound_by']}) [{smi}]")
-    row = ssa["other_shapes"][0]
-    log(f"scale_shift_act at {row['shape']}: kernel {row['ms']:.4f} ms, plain "
-        f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, bound "
-        f"{row['bound_ms']:.4f} ms ({row['bound_by']}) [{smi}]")
+    for row in ssa["other_shapes"]:
+        log(f"scale_shift_act at {row['shape']}: kernel {row['ms']:.4f} ms, "
+            f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} "
+            f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}) [{smi}]")
 
     # softmax at the SameDiff BERT-base rows at B=32, T=128 (attention
     # [B*H*T, T] and the [B, 2] head), ragged D, the block kernel
@@ -829,13 +890,6 @@ def main() -> None:
     probs = net.output(xr)
     out_launches = ck.LAUNCHES["scale_shift_act"]
 
-    def ssa_plain(x, scale, shift, *, alpha=0.0, axis=1):
-        if axis % x.dim() != x.dim() - 1 or not x.is_contiguous():
-            fail("a fused epilogue reached the plain version off the gate")
-        c = x.shape[-1]
-        return ck.scale_shift_act_plain(x.view(-1, c), scale.to(x.dtype),
-                                        shift.to(x.dtype), alpha).view(x.shape)
-
     registry.register_platform_override("scale_shift_act", ssa_plain)
     probs_plain = net.output(xr)
     ck.install_platform_overrides()
@@ -858,7 +912,15 @@ def main() -> None:
     if float(dp.max()) > 0.05 * pmax or float(dp.mean()) > 2e-3 * pmax:
         fail("kernel and plain ResNet-50 forwards disagree beyond the bound "
              "(max 5%, mean 0.2% of max p)")
-    del net, ds, xr, yr, probs, probs_plain
+    # the trained net's archive, for phase 18
+    archive_dir = tempfile.TemporaryDirectory()
+    resnet_zip = os.path.join(archive_dir.name, "resnet50.zip")
+    t0 = time.perf_counter()
+    net.save(resnet_zip)
+    log(f"ResNet-50 saved: {os.path.getsize(resnet_zip) / 1e6:.1f} MB in "
+        f"{time.perf_counter() - t0:.2f} s")
+    resnet_out = (xr, probs)
+    del net, ds, yr, probs_plain
     torch.cuda.empty_cache()
 
     # --------------------------------------- 6. serve a SameDiff BERT-base
@@ -1144,10 +1206,24 @@ def main() -> None:
     # ------------------------------------------------ 15. the front door
     front_door(smi)
 
+    # ------------------------------------------------------ 16. LeNet-5
+    lenet(smi)
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------- 17. VGG16
+    vgg16(smi)
+    torch.cuda.empty_cache()
+
+    # ------------------- 18. Darknet19, and the ResNet-50 archive back
+    dk_launches = darknet19(smi)
+    resnet_back(resnet_zip, *resnet_out)
+    archive_dir.cleanup()
+
     ln.update(served["layer_norm"])
     fa.update(served["flash_attention"])
     ssa["launches"] = fit_launches["scale_shift_act"]
     ssa["other_shapes"][0]["launches"] = yolo_launches["scale_shift_act"]
+    ssa["other_shapes"][1]["launches"] = dk_launches
     sm["launches"] = sd_warm["softmax"] + sd_replays["softmax"]
     sm["replays"] = sd_replays["softmax"]
     bn_st["launches"] = probe_launches["bn_stats"]
@@ -1391,7 +1467,11 @@ def front_door(smi: str) -> None:
             return req
         reg.submit = submit_recorded
 
-        load = ServingLoad.seeded(seed=0, mix="steady", n=512, rps=150,
+        # 1024 requests, 6.8 s at 150 requests/s: long enough that v2's
+        # load ends inside the replay (0.6-1.4 s on a quiet host, 4.2 s
+        # seen on a contended one, whose GIL v2's eager warm-up forwards
+        # share with v1's server and the HTTP threads)
+        load = ServingLoad.seeded(seed=0, mix="steady", n=1024, rps=150,
                                   max_rows=8)
         for spec in load.specs:
             spec.deadline = 5.0
@@ -1667,6 +1747,325 @@ def bert_train(smi: str) -> None:
 
 
 
+def lenet(smi: str) -> None:
+    """Phase 16: LeNet-5 fit through the iterator, eager then K=4,
+    evaluated, and its archive and clone held to the bit."""
+    import torch
+
+    from deeplearning4j_tpu_torch.data.iterators import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn import compilecache as cc
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    train = MnistDataSetIterator(64, True, num_examples=2048)
+    test = MnistDataSetIterator(256, False, num_examples=512)
+    net = zoo.LeNet(num_classes=10).init()
+    log(f"LeNet-5: {net.numParams()} parameters, preprocessors "
+        f"{ {i: type(p).__name__ for i, p in net.conf.preprocessors.items()} }"
+        f", {'synthetic' if train.synthetic else 'IDX'} digits, "
+        f"{train.data.numExamples()} to train, fp32")
+    per_epoch = -(-train.data.numExamples() // 64)
+    t0 = time.perf_counter()
+    net.fit(train, epochs=LENET_EPOCHS)
+    first = net.score()
+    eager_s = time.perf_counter() - t0
+    cc.reset_stats()
+    t0 = time.perf_counter()
+    net.fit(train, epochs=LENET_EPOCHS, steps_per_dispatch=MEGA_K)
+    last = net.score()
+    cap_s = time.perf_counter() - t0
+    stats = cc.cache_stats()
+    if stats["capture_failures"] or \
+            stats["compile_seconds"]["cold_compiles"] != 1:
+        fail(f"LeNet K={MEGA_K} fit: cache stats {stats}: want one capture "
+             "and no failure")
+    if not (np.isfinite(first) and np.isfinite(last)) or \
+            net.getIterationCount() != 2 * LENET_EPOCHS * per_epoch:
+        fail(f"LeNet: losses {first}, {last}, {net.getIterationCount()} "
+             "iterations")
+    t0 = time.perf_counter()
+    ev = net.evaluate(test)
+    eval_s = time.perf_counter() - t0
+    acc = ev.accuracy()
+    steps = LENET_EPOCHS * per_epoch
+    log(f"LeNet fit: {LENET_EPOCHS} epochs a step a dispatch in "
+        f"{eager_s:.2f} s ({1e3 * eager_s / steps:.2f} ms a step, loss "
+        f"{first:.5f}), {LENET_EPOCHS} at K={MEGA_K} in {cap_s:.2f} s "
+        f"({1e3 * cap_s / steps:.2f} ms a step, loss {last:.5f}; capture "
+        f"{stats['compile_seconds']['cold']:.2f} s); evaluate on "
+        f"{test.data.numExamples()}: accuracy {acc:.4f} in {eval_s:.3f} s "
+        f"[{smi}]")
+    if acc < 0.99:
+        fail(f"LeNet accuracy {acc:.4f} < 0.99\n{ev.stats()}")
+    x = test.data.features
+    out = net.output(x)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "lenet.zip")
+        net.save(path)
+        back = MultiLayerNetwork.load(path)
+    if back.getIterationCount() != net.getIterationCount() or \
+            not torch.equal(back.output(x), out) or \
+            not torch.equal(net.clone().output(x), out):
+        fail("LeNet: save -> load -> output() or clone().output() is not "
+             "bit-equal to output()")
+    log("LeNet save -> load -> output() and clone().output(): bit-equal")
+
+
+def vgg16(smi: str) -> None:
+    """Phase 17: VGG16 at full width, dropout drawn on the device clock,
+    eager against captured to the bit."""
+    import torch
+
+    from deeplearning4j_tpu_torch import profile_fit
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.ops import normalization as norm_ops
+    dev = torch.device("cuda")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        net = zoo.VGG16(num_classes=1000).init()
+        net.setPrecisionPolicy("bf16")
+        net.setComputeLayout("NHWC")
+        net.setEpilogueFusion(True)
+        n_params = net.numParams()
+        dropped = [i for i, a in enumerate(net.layers) if a.dropout]
+        log(f"VGG16: {n_params} parameters, dropout (retain 0.5) on the "
+            f"inputs of layers {dropped}, bf16 policy, NHWC, built in "
+            f"{time.perf_counter() - t0:.2f} s")
+        if n_params != 138_357_544:
+            fail(f"VGG16 has {n_params} parameters, want 138,357,544")
+        rng = np.random.default_rng(0)
+        x = torch.from_numpy(rng.standard_normal(
+            (VGG_BATCH, 3, 224, 224), dtype=np.float32)).to(dev)
+        y = torch.from_numpy(np.eye(1000, dtype=np.float32)[
+            rng.integers(0, 1000, VGG_BATCH)]).to(dev)
+        ds = DataSet(x, y)
+        fc1 = dropped[0]
+        n_in = net.layers[fc1].nIn
+        # the warm step, its mask draws counted; an eval-mode output draws
+        # none
+        draws, real = [], norm_ops.dropout_mask
+
+        def counted(key, shape, keep, device):
+            draws.append((key.path, tuple(shape), keep))
+            return real(key, shape, keep, device)
+        norm_ops.dropout_mask = counted
+        try:
+            t0 = time.perf_counter()
+            net.fit(ds)
+            losses = [net.score()]
+            warm_s = time.perf_counter() - t0
+            want = [((fc1,), (VGG_BATCH, n_in), 0.5),
+                    ((dropped[1],), (VGG_BATCH, 4096), 0.5)]
+            if draws != want:
+                fail(f"VGG16 train step drew masks {draws}, want {want}")
+            draws.clear()
+            probs = net.output(x[:8])
+            if draws:
+                fail(f"VGG16 output() drew dropout masks: {draws}")
+        finally:
+            norm_ops.dropout_mask = real
+        if tuple(probs.shape) != (8, 1000) or \
+                not bool(torch.isfinite(probs).all()):
+            fail(f"VGG16 output of shape {tuple(probs.shape)}, or not finite")
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = []
+        for _ in range(VGG_STEPS):
+            t0 = time.perf_counter()
+            net.fit(ds)
+            losses.append(net.score())
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if not all(np.isfinite(losses)):
+            fail(f"VGG16 losses not finite: {losses}")
+        flops = 3 * profile_fit.vgg16_flops(224) * VGG_BATCH
+        peak = profile_fit.dense_bf16_peak(torch.cuda.get_device_name(0))
+        med = float(np.median(step_ms))
+        log(f"VGG16 fit B={VGG_BATCH}: warm step {warm_s:.2f} s; losses "
+            f"{', '.join(f'{v:.5f}' for v in losses)}; eager step ms median "
+            f"{med:.2f} (min {min(step_ms):.2f}, max {max(step_ms):.2f}), "
+            f"{VGG_BATCH / (med / 1e3):.1f} images/s, MFU "
+            f"{flops / (med / 1e3) / peak:.4f} ({flops / 1e12:.3f} TFLOP a "
+            f"step), peak {peak_gb:.2f} GB [{smi}]")
+        # fc1's masks over 8 steps, and drawn inside a CUDA graph on its clock
+        seed = net.conf.base.seed
+        clock = torch.zeros((), dtype=torch.int32, device=dev)
+        masks = []
+        for t in range(2 * MEGA_K):
+            clock.fill_(t)
+            masks.append(real(norm_ops.StepKey(seed, clock).fold(fc1),
+                              (VGG_BATCH, n_in), 0.5, dev))
+        keep = [float(m.float().mean()) for m in masks]
+        change = [float((a != b).float().mean())
+                  for a, b in zip(masks, masks[1:])]
+        clock.zero_()
+        drawn = torch.empty((VGG_BATCH, n_in), dtype=torch.bool, device=dev)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            drawn.copy_(real(norm_ops.StepKey(seed, clock).fold(fc1),
+                             (VGG_BATCH, n_in), 0.5, dev))
+            clock.add_(1)
+        replayed = []
+        for _ in range(2 * MEGA_K):
+            graph.replay()
+            replayed.append(torch.equal(drawn, masks[len(replayed)]))
+        log(f"VGG16 fc1 masks [{VGG_BATCH}, {n_in}] at t = 0-7: kept "
+            f"{', '.join(f'{k:.4f}' for k in keep)}; changed between steps "
+            f"{', '.join(f'{c:.4f}' for c in change)}; a graph's replays equal "
+            f"the eager draws: {replayed}")
+        if any(abs(k - 0.5) > 0.01 for k in keep) or \
+                any(not 0.45 < c < 0.55 for c in change) or not all(replayed):
+            fail("VGG16 fc1 masks: keep rate off 0.5 +- 0.01, masks not "
+                 "changing between steps, or a replay unequal to eager")
+        del graph, drawn, masks
+        res = captured_fit("VGG16", net, ds, 0, smi, exact=True)
+        log(f"VGG16 captured K={MEGA_K}: step ms {res['captured_ms']:.2f}, "
+            f"{VGG_BATCH / (res['captured_ms'] / 1e3):.1f} images/s, MFU "
+            f"{flops / (res['captured_ms'] / 1e3) / peak:.4f}; eager step "
+            f"ms {res['eager_ms']:.2f} in that comparison [{smi}]")
+        eager = profile_fit.profile(lambda: (net.fit(ds), net.score()),
+                                    "vgg16", False)
+        group = [ds] * MEGA_K
+        captured = profile_fit.profile(
+            lambda: (net.fit(group, steps_per_dispatch=MEGA_K), net.score()),
+            "vgg16", True)
+        for what, tr, steps in (("eager step", eager, 1),
+                                (f"captured dispatch of {MEGA_K}", captured,
+                                 MEGA_K)):
+            log(f"VGG16 traced {what}: {tr['traced_ms']:.2f} ms host, "
+                f"{tr['traced_device_ms']:.2f} ms device in "
+                f"{tr['device_kernels']} kernels ({tr['traced_device_ms'] / steps:.2f} "
+                f"ms a step), busy {tr['device_busy_share_traced']:.3f}; by "
+                f"group {json.dumps(tr['device_ms_by_group'])} [{smi}]")
+        del net, ds, x, y
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def darknet19(smi: str) -> int:
+    """Phase 18: Darknet19 on the ``scale_shift_act`` kernel; returns the
+    kernel's launches over the eager steps."""
+    import torch
+
+    from deeplearning4j_tpu_torch import profile_fit
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+    from deeplearning4j_tpu_torch.ops import registry
+    dev = torch.device("cuda")
+    ck.install_platform_overrides()
+
+    def build():
+        net = zoo.Darknet19(num_classes=1000).init()
+        net.setPrecisionPolicy("bf16")
+        net.setComputeLayout("NHWC")
+        net.setEpilogueFusion(True)
+        return net
+    net = build()
+    plan = net._ensure_epilogue_plan()
+    log(f"Darknet19: {net.numParams()} parameters, {len(net.layers)} layers, "
+        f"{len(plan)} fused conv-BN-leaky blocks, bf16 policy, NHWC")
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal(
+        (DARKNET_BATCH, 3, 224, 224), dtype=np.float32)).to(dev)
+    y = torch.from_numpy(np.eye(1000, dtype=np.float32)[
+        rng.integers(0, 1000, DARKNET_BATCH)]).to(dev)
+    ds = DataSet(x, y)
+    net.fit(ds)
+    losses = [net.score()]
+    ck.reset_counts()
+    step_ms = []
+    for _ in range(DARKNET_STEPS):
+        t0 = time.perf_counter()
+        net.fit(ds)
+        losses.append(net.score())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(ck.LAUNCHES)
+    want = {k: 0 for k in ck.KERNELS}
+    want["scale_shift_act"] = 18 * DARKNET_STEPS
+    if launches != want or any(ck.PLAIN_CALLS.values()) or \
+            not all(np.isfinite(losses)):
+        fail(f"Darknet19 fit: launches {launches} (plain "
+             f"{dict(ck.PLAIN_CALLS)}) over {DARKNET_STEPS} steps, losses "
+             f"{losses}: want 18 scale_shift_act launches a step, finite")
+    med = float(np.median(step_ms))
+    log(f"Darknet19 fit B={DARKNET_BATCH}: losses "
+        f"{', '.join(f'{v:.5f}' for v in losses)}; eager step ms median "
+        f"{med:.2f} (min {min(step_ms):.2f}, max {max(step_ms):.2f}), "
+        f"{DARKNET_BATCH / (med / 1e3):.1f} images/s; launches {launches} "
+        f"[{smi}]")
+    captured_fit("Darknet19", net, ds, 18, smi)
+    group = [ds] * MEGA_K
+    for what, tr, steps in (
+            ("eager step", profile_fit.profile(
+                lambda: (net.fit(ds), net.score()), "darknet19", False), 1),
+            (f"captured dispatch of {MEGA_K}", profile_fit.profile(
+                lambda: (net.fit(group, steps_per_dispatch=MEGA_K),
+                         net.score()), "darknet19", True), MEGA_K)):
+        log(f"Darknet19 traced {what}: {tr['traced_ms']:.2f} ms host, "
+            f"{tr['traced_device_ms']:.2f} ms device in "
+            f"{tr['device_kernels']} kernels "
+            f"({tr['traced_device_ms'] / steps:.2f} ms a step), busy "
+            f"{tr['device_busy_share_traced']:.3f}; by group "
+            f"{json.dumps(tr['device_ms_by_group'])} [{smi}]")
+    del net
+    net = build()
+    ck.reset_counts()
+    probs = net.output(x)
+    out_launches = ck.LAUNCHES["scale_shift_act"]
+    registry.register_platform_override("scale_shift_act", ssa_plain)
+    probs_plain = net.output(x)
+    ck.install_platform_overrides()
+    if out_launches != 18 or tuple(probs.shape) != (DARKNET_BATCH, 1000) or \
+            not bool(torch.isfinite(probs).all()):
+        fail(f"Darknet19 output: {out_launches} launches, shape "
+             f"{tuple(probs.shape)}: want 18 and finite [{DARKNET_BATCH}, "
+             "1000]")
+    dp = (probs - probs_plain).abs()
+    pmax = float(probs_plain.max())
+    log(f"Darknet19 output kernel vs plain: max|diff| {float(dp.max()):.4g}, "
+        f"mean|diff| {float(dp.mean()):.4g}, max p {pmax:.4g}")
+    if float(dp.max()) > 0.05 * pmax or float(dp.mean()) > 2e-3 * pmax:
+        fail("kernel and plain Darknet19 forwards disagree beyond the bound "
+             "(max 5%, mean 0.2% of max p)")
+    return launches["scale_shift_act"]
+
+
+def resnet_back(path: str, x, probs) -> None:
+    """Phase 18's end: phase 5's ResNet-50 archive through
+    ``ComputationGraph.load``, its output to the bit."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+    ck.install_platform_overrides()
+    t0 = time.perf_counter()
+    net = ComputationGraph.load(path)
+    net.setPrecisionPolicy("bf16")
+    net.setComputeLayout("NHWC")
+    net.setEpilogueFusion(True)
+    load_s = time.perf_counter() - t0
+    out = net.output(x)
+    if not torch.equal(out, probs):
+        fail(f"ResNet-50 loaded from its archive: output differs from "
+             f"phase 5's, max|diff| {float((out - probs).abs().max()):.3g}")
+    log(f"ResNet-50 ComputationGraph.load in {load_s:.2f} s (iteration "
+        f"{net.getIterationCount()}): output() bit-equal to phase 5's")
+
+
+def ssa_plain(x, scale, shift, *, alpha=0.0, axis=1):
+    """The ``scale_shift_act`` override on the kernel's plain version: the
+    fused epilogues' reference (channels-minor inputs only, as the
+    kernel's gate)."""
+    from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+    if axis % x.dim() != x.dim() - 1 or not x.is_contiguous():
+        fail("a fused epilogue reached the plain version off the gate")
+    c = x.shape[-1]
+    return ck.scale_shift_act_plain(x.view(-1, c), scale.to(x.dtype),
+                                    shift.to(x.dtype), alpha).view(x.shape)
+
+
 def tree_names(tree, prefix=""):
     """Dotted names of a tree's tensors, in ``state_tensors`` order."""
     import torch
@@ -1700,11 +2099,13 @@ def _ulp(t) -> float:
     return float(np.ldexp(1.0, int(np.frexp(m)[1]) - 1 - bits))
 
 
-def hold_captured(name, held, names, groups=None) -> None:
+def hold_captured(name, held, names, groups=None, exact=False) -> None:
     """The captured-against-eager rule (module docstring) over ``held``:
     ``{"eager 1"|"eager 2"|"captured": (losses, [tensors])}``. ``groups``
     maps a tensor index to its group key (a param and its Adam moments);
-    a group where the eager runs differ anywhere is nondeterministic."""
+    a group where the eager runs differ anywhere is nondeterministic.
+    ``exact``: every tensor and loss of the three runs must agree to the
+    bit (no group may be nondeterministic)."""
     import torch
     l1, e1 = held["eager 1"]
     l2, e2 = held["eager 2"]
@@ -1712,6 +2113,10 @@ def hold_captured(name, held, names, groups=None) -> None:
     groups = groups or list(range(len(e1)))
     noisy = {groups[i] for i, (a, b) in enumerate(zip(e1, e2))
              if not torch.equal(a, b)}
+    if exact and (noisy or list(l1) != list(l2) or list(l1) != list(lc)):
+        fail(f"{name}: the runs are not bit-equal: eager runs differ in "
+             f"{sorted(noisy)[:10]}, losses {list(l1)} / {list(l2)} / "
+             f"{list(lc)}")
     bad, differ = [], []
     for i, (a, b, x) in enumerate(zip(e1, e2, c)):
         if groups[i] not in noisy:
@@ -1742,9 +2147,13 @@ def hold_captured(name, held, names, groups=None) -> None:
         fail(f"{name}: captured run beyond the rule: {'; '.join(bad[:10])}")
 
 
-def captured_fit(name, net, ds, per_step: int, smi: str) -> None:
+def captured_fit(name, net, ds, per_step: int, smi: str,
+                 exact: bool = False) -> dict:
     """Phase 14 for one network: 8 eager steps twice and 2 captured
-    megasteps of 4 from one state, held by the rule; then timed."""
+    megasteps of 4 from one state, held by the rule (to the bit with
+    ``exact``); then timed. ``per_step`` is the ``scale_shift_act``
+    launches a step. Returns the eager and captured step ms, the capture
+    seconds and the peak GB."""
     import torch
 
     from deeplearning4j_tpu_torch.analysis import churn
@@ -1792,7 +2201,7 @@ def captured_fit(name, net, ds, per_step: int, smi: str) -> None:
     for _ in range(steps // k):
         losses += net._fit_mega(mb).tolist()
     held["captured"] = (losses, snapshot(net._dispatch_state()))
-    hold_captured(name, held, names, groups)
+    hold_captured(name, held, names, groups, exact)
     cap_ms = []
     start()
     group = [ds] * steps
@@ -1808,7 +2217,7 @@ def captured_fit(name, net, ds, per_step: int, smi: str) -> None:
     site = f"{type(net).__name__}.megastep"
     n_sig = churn.get_churn_detector().signature_count(site, owner=net)
     n_disp = 3 * steps // k
-    if at_capture != [{"scale_shift_act": k * per_step}]:
+    if at_capture != [{"scale_shift_act": k * per_step} if per_step else {}]:
         fail(f"{name}: the megastep recorded {at_capture}: want "
              f"{k} x {per_step} scale_shift_act launches")
     if any(ck.LAUNCHES.values()) or any(ck.PLAIN_CALLS.values()) \
@@ -1829,7 +2238,9 @@ def captured_fit(name, net, ds, per_step: int, smi: str) -> None:
         f"peak {peak_gb:.2f} GB; last loss {last:.5f}; launches at capture "
         f"{at_capture}, replayed {dict(ck.REPLAYS)}; cache_stats {stats} "
         f"[{smi}]")
-    del net, s0, held
+    del s0, held
+    return {"eager_ms": e_med, "captured_ms": c_med, "capture_s": capture_s,
+            "peak_gb": peak_gb}
 
 
 def serve_burst(server, reqs):

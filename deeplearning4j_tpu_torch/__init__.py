@@ -7,14 +7,16 @@ only. The paths that run: serving a pre-LN BERT-base
 ``serving.ModelServer``, its forward captured as CUDA graphs, and behind
 the network front door (``serving.ModelRegistry``, ``serving.
 HttpIngress``), and training it (``make_train_step``); training
-ResNet-50 and TinyYOLO (``models.zoo``) through
-``nn.graph.ComputationGraph`` and ``nn.multilayer.MultiLayerNetwork``,
-one step or K steps a dispatch captured as a CUDA graph
-(``nn.compilecache``, ``train.stepping``); and serving and fine-tuning
-graphs recorded in SameDiff (``autodiff``). Hand-written CUDA kernels
-for flash attention, layer norm, the fused conv epilogue and the row
-softmax (``ops.cuda_kernels``) are installed as platform overrides over
-the generic ops (``ops.registry``).
+ResNet-50, LeNet-5, VGG16, Darknet19 and TinyYOLO (``models.zoo``)
+through ``nn.graph.ComputationGraph`` and
+``nn.multilayer.MultiLayerNetwork``, one step or K steps a dispatch
+captured as a CUDA graph (``nn.compilecache``, ``train.stepping``),
+dropout drawn on the device clock, scored with ``evaluate`` and kept in
+the JAX package's model archive (``train.serializer``); and serving and
+fine-tuning graphs recorded in SameDiff (``autodiff``). Hand-written CUDA
+kernels for flash attention, layer norm, the fused conv epilogue and the
+row softmax (``ops.cuda_kernels``) are installed as platform overrides
+over the generic ops (``ops.registry``).
 
 Layout (module and public names follow the JAX package):
 
@@ -22,18 +24,23 @@ Layout (module and public names follow the JAX package):
 - ``ops``       — op registry, the generic ops (normalization,
                   attention, convolution/pooling, activations, losses),
                   and the CUDA kernels with their plain PyTorch twins
-- ``nn``        — ``NeuralNetConfiguration``/``InputType``, the layers,
+- ``nn``        — ``NeuralNetConfiguration``/``InputType``, the input
+                  preprocessors, the layers,
                   ``ComputationGraph``, ``MultiLayerNetwork``,
                   ``PrecisionPolicy`` and ``compilecache``
                   (``CachedDispatch``, ``warmup``)
 - ``train``     — the updaters (``Sgd``, ``Adam``, ``AdamW``), schedules,
-                  ``stepping`` (megasteps) and the preemption signals
+                  ``stepping`` (megasteps), the model archive
+                  (``serializer``) and the preemption signals
                   (``resilience``)
+- ``evaluation``— ``Evaluation``, ``ROC`` and the other metrics
 - ``analysis``  — the recompile-churn detector and the registry roll
                   lint (DL4J-W111)
-- ``data``      — ``DataSet``
-- ``models``    — the transformer and the model zoo (``ResNet50``,
-                  ``TinyYOLO``)
+- ``data``      — ``DataSet``, ``ListDataSetIterator`` and the MNIST,
+                  EMNIST, Iris and TinyImageNet iterators
+- ``models``    — the transformer and the model zoo (``LeNet``,
+                  ``SimpleCNN``, ``VGG16``, ``VGG19``, ``Darknet19``,
+                  ``TinyYOLO``, ``ResNet50``)
 - ``serving``   — ``ModelServer``, ``ModelRegistry``, ``HttpIngress``,
                   ``DecodePreset``, ``samediff_forward``,
                   ``ServingRequest``, ``CircuitBreaker`` and the

@@ -1,1 +1,2 @@
-"""Data: the ``DataSet`` batch container."""
+"""Data: ``DataSet`` and the iterator contract (``data.dataset``), and
+the MNIST, EMNIST, Iris and TinyImageNet iterators (``data.iterators``)."""

@@ -1,2 +1,3 @@
 """Models: the transformer and its training step (``models.transformer``)
-and the model zoo (``models.zoo``: ``ResNet50``, ``TinyYOLO``)."""
+and the model zoo (``models.zoo``: ``LeNet``, ``SimpleCNN``, ``VGG16``,
+``VGG19``, ``Darknet19``, ``TinyYOLO``, ``ResNet50``)."""

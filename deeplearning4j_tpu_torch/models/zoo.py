@@ -1,7 +1,10 @@
 """Model zoo (the slice's subset of ``deeplearning4j_tpu/models/zoo.py``):
-``ZooModel``, ``ResNet50`` (a ``ComputationGraph``) and ``TinyYOLO`` (a
-``MultiLayerNetwork``), with the JAX package's node names, layer order
-and defaults, so its params transplant one to one."""
+``ZooModel``, ``LeNet``, ``SimpleCNN``, ``VGG16``, ``VGG19``,
+``Darknet19`` and ``TinyYOLO`` (``MultiLayerNetwork``s) and ``ResNet50``
+(a ``ComputationGraph``), with the JAX package's node names, layer order
+and defaults, so its params transplant one to one. Not ported yet:
+AlexNet (it needs LocalResponseNormalization) and the other zoo models
+(ROADMAP.md)."""
 
 from __future__ import annotations
 
@@ -14,7 +17,8 @@ from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.nn.objdetect import Yolo2OutputLayer
 from deeplearning4j_tpu_torch.nn.layers import (ActivationLayer,
                                                 BatchNormalization,
-                                                ConvolutionLayer,
+                                                ConvolutionLayer, DenseLayer,
+                                                DropoutLayer,
                                                 GlobalPoolingLayer,
                                                 OutputLayer, SubsamplingLayer)
 from deeplearning4j_tpu_torch.train import updaters
@@ -45,6 +49,103 @@ class ZooModel:
 
     def conf_builder(self):
         raise NotImplementedError
+
+
+class LeNet(ZooModel):
+    """ref: zoo.model.LeNet — the canonical MNIST configuration: flat
+    [N, 784] rows in (``InputType.convolutionalFlat``)."""
+
+    def default_input_shape(self):
+        return (1, 28, 28)
+
+    def conf_builder(self) -> MultiLayerNetwork:
+        c, h, w = self.input_shape
+        conf = (NeuralNetConfiguration.Builder()
+                .seed(self.seed).updater(self.updater).weightInit("xavier")
+                .list()
+                .layer(ConvolutionLayer(kernelSize=(5, 5), stride=(1, 1),
+                                        nOut=20, activation="identity"))
+                .layer(SubsamplingLayer(poolingType="max", kernelSize=(2, 2),
+                                        stride=(2, 2)))
+                .layer(ConvolutionLayer(kernelSize=(5, 5), stride=(1, 1),
+                                        nOut=50, activation="identity"))
+                .layer(SubsamplingLayer(poolingType="max", kernelSize=(2, 2),
+                                        stride=(2, 2)))
+                .layer(DenseLayer(nOut=500, activation="relu"))
+                .layer(OutputLayer(nOut=self.num_classes,
+                                   lossFunction="mcxent",
+                                   activation="softmax"))
+                .setInputType(InputType.convolutionalFlat(h, w, c))
+                .build())
+        return MultiLayerNetwork(conf)
+
+
+class SimpleCNN(ZooModel):
+    """ref: zoo.model.SimpleCNN — six conv-BN-relu blocks, a global
+    average pool and a dropout before the classifier."""
+
+    def default_input_shape(self):
+        return (3, 48, 48)
+
+    def conf_builder(self) -> MultiLayerNetwork:
+        c, h, w = self.input_shape
+        b = (NeuralNetConfiguration.Builder()
+             .seed(self.seed).updater(self.updater).weightInit("relu")
+             .list())
+        for n_out in (16, 16, 32, 32, 64, 64):
+            b = b.layer(ConvolutionLayer(kernelSize=(3, 3), nOut=n_out,
+                                         padding=(1, 1),
+                                         activation="identity"))
+            b = b.layer(BatchNormalization())
+            b = b.layer(ActivationLayer("relu"))
+            if n_out in (16, 32):
+                b = b.layer(SubsamplingLayer(poolingType="max",
+                                             kernelSize=(2, 2), stride=(2, 2)))
+        b = (b.layer(GlobalPoolingLayer("avg"))
+             .layer(DropoutLayer(dropOut=0.5))
+             .layer(OutputLayer(nOut=self.num_classes, lossFunction="mcxent",
+                                activation="softmax"))
+             .setInputType(InputType.convolutional(h, w, c)))
+        return MultiLayerNetwork(b.build())
+
+
+def _vgg_blocks(b, plan):
+    """``(n_convs, n_out)`` blocks of 3x3 relu convs, each closed by a 2x2
+    max pool."""
+    for n_convs, n_out in plan:
+        for _ in range(n_convs):
+            b = b.layer(ConvolutionLayer(kernelSize=(3, 3), padding=(1, 1),
+                                         nOut=n_out, activation="relu"))
+        b = b.layer(SubsamplingLayer(poolingType="max", kernelSize=(2, 2),
+                                     stride=(2, 2)))
+    return b
+
+
+class VGG16(ZooModel):
+    """ref: zoo.model.VGG16 — 13 convs in five blocks, then two
+    ``DenseLayer(4096, dropOut=0.5)`` (a retain probability) and the
+    classifier."""
+
+    PLAN = [(2, 64), (2, 128), (3, 256), (3, 512), (3, 512)]
+
+    def conf_builder(self) -> MultiLayerNetwork:
+        c, h, w = self.input_shape
+        b = (NeuralNetConfiguration.Builder()
+             .seed(self.seed).updater(self.updater).weightInit("relu")
+             .list())
+        b = _vgg_blocks(b, self.PLAN)
+        b = (b.layer(DenseLayer(nOut=4096, activation="relu", dropOut=0.5))
+             .layer(DenseLayer(nOut=4096, activation="relu", dropOut=0.5))
+             .layer(OutputLayer(nOut=self.num_classes, lossFunction="mcxent",
+                                activation="softmax"))
+             .setInputType(InputType.convolutional(h, w, c)))
+        return MultiLayerNetwork(b.build())
+
+
+class VGG19(VGG16):
+    """ref: zoo.model.VGG19."""
+
+    PLAN = [(2, 64), (2, 128), (4, 256), (4, 512), (4, 512)]
 
 
 class ResNet50(ZooModel):
@@ -123,6 +224,48 @@ class ResNet50(ZooModel):
                                      activation="softmax"), "avgpool")
         g.setOutputs("fc")
         return ComputationGraph(g.build())
+
+
+class Darknet19(ZooModel):
+    """ref: zoo.model.Darknet19 (the YOLOv2 backbone): 18 conv-BN-leaky
+    blocks, a 1x1 conv to the classes, a global average pool and the
+    classifier."""
+
+    def conf_builder(self) -> MultiLayerNetwork:
+        c, h, w = self.input_shape
+        b = (NeuralNetConfiguration.Builder()
+             .seed(self.seed).updater(self.updater).weightInit("relu")
+             .list())
+
+        def conv_bn(b, n_out, k):
+            b = b.layer(ConvolutionLayer(kernelSize=(k, k),
+                                         padding=(k // 2, k // 2),
+                                         nOut=n_out, activation="identity"))
+            b = b.layer(BatchNormalization())
+            return b.layer(ActivationLayer("leakyrelu"))
+
+        def maxpool(b):
+            return b.layer(SubsamplingLayer(poolingType="max",
+                                            kernelSize=(2, 2), stride=(2, 2)))
+
+        b = maxpool(conv_bn(b, 32, 3))
+        b = maxpool(conv_bn(b, 64, 3))
+        for big, small in ((128, 64), (256, 128)):
+            b = conv_bn(conv_bn(conv_bn(b, big, 3), small, 1), big, 3)
+            b = maxpool(b)
+        for big, small in ((512, 256), (1024, 512)):
+            for n_out, k in ((big, 3), (small, 1), (big, 3), (small, 1),
+                             (big, 3)):
+                b = conv_bn(b, n_out, k)
+            if big == 512:
+                b = maxpool(b)
+        b = b.layer(ConvolutionLayer(kernelSize=(1, 1), nOut=self.num_classes,
+                                     activation="identity"))
+        b = (b.layer(GlobalPoolingLayer("avg"))
+             .layer(OutputLayer(nOut=self.num_classes, lossFunction="mcxent",
+                                activation="softmax"))
+             .setInputType(InputType.convolutional(h, w, c)))
+        return MultiLayerNetwork(b.build())
 
 
 class TinyYOLO(ZooModel):

@@ -6,8 +6,10 @@
 ``MultiLayerConfiguration.to_json``/``from_json`` write and read the JAX
 package's JSON (each layer's attributes under its class name), so a
 sequential configuration crosses between the packages as long as every
-layer class in it is ported. Input preprocessors are not ported: a layer
-whose input kind differs from what flows in raises at build time.
+layer class in it is ported. Input preprocessors (``nn.preprocessors``)
+are inserted while input types propagate, as in the JAX package, and are
+derived again from the input types when a configuration is read from
+JSON.
 """
 
 from __future__ import annotations
@@ -20,8 +22,9 @@ from deeplearning4j_tpu_torch.train.updaters import IUpdater, Sgd
 
 class InputType:
     """Shape metadata propagated through layers (ref: conf.inputs.
-    InputType). Kinds: ``ff`` (size,) and ``cnn`` (channels, height,
-    width — NCHW like the reference)."""
+    InputType). Kinds: ``ff`` (size,), ``cnn`` (channels, height, width —
+    NCHW like the reference), ``cnn_flat`` (flattened image rows),
+    ``rnn`` (size, timesteps) and ``cnn3d``."""
 
     def __init__(self, kind: str, **dims):
         self.kind = kind
@@ -36,6 +39,22 @@ class InputType:
         return InputType("cnn", height=int(height), width=int(width),
                          channels=int(channels))
 
+    @staticmethod
+    def convolutionalFlat(height: int, width: int, depth: int) -> "InputType":
+        return InputType("cnn_flat", height=int(height), width=int(width),
+                         channels=int(depth))
+
+    @staticmethod
+    def recurrent(size: int, timeseries_length: int = -1) -> "InputType":
+        return InputType("rnn", size=int(size),
+                         timesteps=int(timeseries_length))
+
+    @staticmethod
+    def convolutional3D(depth: int, height: int, width: int,
+                        channels: int) -> "InputType":
+        return InputType("cnn3d", depth=int(depth), height=int(height),
+                         width=int(width), channels=int(channels))
+
     def __getattr__(self, item):
         try:
             return self.dims[item]
@@ -45,9 +64,14 @@ class InputType:
     def arrayElementsPerExample(self) -> int:
         if self.kind == "ff":
             return self.dims["size"]
-        if self.kind == "cnn":
+        if self.kind in ("cnn", "cnn_flat"):
             return (self.dims["height"] * self.dims["width"]
                     * self.dims["channels"])
+        if self.kind == "cnn3d":
+            return (self.dims["depth"] * self.dims["height"]
+                    * self.dims["width"] * self.dims["channels"])
+        if self.kind == "rnn":
+            return self.dims["size"] * max(self.dims["timesteps"], 1)
         raise ValueError(self.kind)
 
     def to_config(self):
@@ -60,6 +84,10 @@ class InputType:
 
     def __repr__(self):
         return f"InputType({self.kind}, {self.dims})"
+
+    def __eq__(self, other):
+        return isinstance(other, InputType) and self.kind == other.kind \
+            and self.dims == other.dims
 
 
 class NeuralNetConfiguration:
@@ -205,22 +233,24 @@ class MultiLayerConfiguration:
         self.base = base
         self.layers = layers
         self.input_type = input_type
-        #: layer index -> input preprocessor (none are ported: always empty)
+        #: layer index -> the input preprocessor that runs before it
         self.preprocessors = {}
         self.layer_input_types: List[InputType] = []
         if input_type is not None:
             self._propagate_input_types()
 
     def _propagate_input_types(self):
+        """InputType propagation with automatic preprocessor insertion
+        (ref: MultiLayerConfiguration.Builder.setInputType)."""
+        from deeplearning4j_tpu_torch.nn import preprocessors as pp
         cur = self.input_type
+        self.preprocessors = {}
         self.layer_input_types = []
         for i, layer in enumerate(self.layers):
-            need = layer.input_kind
-            if need is not None and cur.kind != need:
-                raise NotImplementedError(
-                    f"layer {i} ({type(layer).__name__}) takes {need} input "
-                    f"but gets {cur.kind}: input preprocessors are not "
-                    "ported yet")
+            pre = pp.preprocessor_for(cur, layer)
+            if pre is not None:
+                self.preprocessors[i] = pre
+                cur = pre.output_type(cur)
             layer.set_defaults(self.base)
             layer.infer_nin(cur)
             self.layer_input_types.append(cur)

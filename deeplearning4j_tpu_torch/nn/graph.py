@@ -6,25 +6,31 @@ port runs the shared step of :mod:`.network`: one forward,
 ``torch.autograd.grad`` of the loss, gradient normalization and the
 updater in place on the fp32 master params, eager or captured as a CUDA
 graph (K steps a dispatch with ``fit(steps_per_dispatch=K)``). The forward (``_forward``) follows the JAX one node for
-node, including the NHWC compute layout, the fused BN + activation
-epilogue with its conv-bias fold, the re-biased copy of a folded conv
-that has other consumers, and the fp32/bf16 alignment at vertices.
+node, including the input preprocessors, the NHWC compute layout, the
+per-layer dropout keys, the fused BN + activation epilogue with its
+conv-bias fold, the re-biased copy of a folded conv that has other
+consumers, and the fp32/bf16 alignment at vertices. ``evaluate``,
+``summary``, ``save``/``load`` (the JAX package's archive and JSON) and
+``clone`` are the reference's.
 
 Not ported yet (ROADMAP.md): dynamic loss scaling, augmentation,
 sharding, resilience, listeners, the compile cache's disk tier, the
-sanitizer, save/load and ``evaluate``.
+sanitizer, the vertices other than Merge and ElementWise.
 """
 
 from __future__ import annotations
 
+import json
 from typing import Any, Dict, List, Optional
 
 import torch
 
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.nn import layers as L
+from deeplearning4j_tpu_torch.nn import preprocessors as pp
 from deeplearning4j_tpu_torch.nn.config import InputType, NeuralNetConfiguration
 from deeplearning4j_tpu_torch.nn.network import BaseNetwork
+from deeplearning4j_tpu_torch.ops.normalization import StepKey
 
 
 class GraphVertex:
@@ -35,6 +41,20 @@ class GraphVertex:
 
     def output_type(self, *input_types: InputType) -> InputType:
         return input_types[0]
+
+    def to_config(self):
+        d = {"@class": type(self).__name__}
+        d.update({k: (list(v) if isinstance(v, tuple) else v)
+                  for k, v in self.__dict__.items()})
+        return d
+
+    @classmethod
+    def from_config(cls, d):
+        obj = cls.__new__(cls)
+        for k, v in d.items():
+            if k != "@class":
+                setattr(obj, k, v)
+        return obj
 
 
 class MergeVertex(GraphVertex):
@@ -83,6 +103,9 @@ class ElementWiseVertex(GraphVertex):
         raise ValueError(self.op)
 
 
+_VERTEX_CLASSES = {c.__name__: c for c in (MergeVertex, ElementWiseVertex)}
+
+
 class _GraphNode:
     def __init__(self, name: str, kind: str, obj, inputs: List[str]):
         self.name = name
@@ -128,9 +151,9 @@ class GraphBuilder:
 
 
 class ComputationGraphConfiguration:
-    """ref: org.deeplearning4j.nn.conf.ComputationGraphConfiguration.
-    Input preprocessors are not ported: a layer whose input kind differs
-    from what flows in raises at build time."""
+    """ref: org.deeplearning4j.nn.conf.ComputationGraphConfiguration, with
+    input preprocessors inserted by node name while types propagate and
+    the JAX package's JSON (``to_json``/``from_json``)."""
 
     def __init__(self, builder: GraphBuilder):
         self.base = builder.base
@@ -138,6 +161,7 @@ class ComputationGraphConfiguration:
         self.graph_inputs = builder.graph_inputs
         self.graph_outputs = builder.graph_outputs
         self.input_types = builder.input_types
+        self.preprocessors: Dict[str, Any] = {}
         self.node_by_name = {n.name: n for n in self.nodes}
         self._toposort()
         if self.input_types:
@@ -167,18 +191,50 @@ class ComputationGraphConfiguration:
             in_types = [types[i] for i in node.inputs]
             if node.kind == "layer":
                 layer = node.obj
-                need = layer.input_kind
-                if need is not None and in_types[0].kind != need:
-                    raise NotImplementedError(
-                        f"layer '{node.name}' takes {need} input but gets "
-                        f"{in_types[0].kind}: input preprocessors are not "
-                        "ported yet")
+                pre = pp.preprocessor_for(in_types[0], layer)
+                if pre is not None:
+                    self.preprocessors[node.name] = pre
+                    in_types[0] = pre.output_type(in_types[0])
                 layer.set_defaults(self.base)
                 layer.infer_nin(in_types[0])
                 types[node.name] = layer.output_type(in_types[0])
             else:
                 types[node.name] = node.obj.output_type(*in_types)
         self.types = types
+
+    def to_json(self) -> str:
+        return json.dumps({
+            "base": self.base.to_config(),
+            "inputs": self.graph_inputs,
+            "outputs": self.graph_outputs,
+            "input_types": {k: v.to_config()
+                            for k, v in self.input_types.items()},
+            "nodes": [{"name": n.name, "kind": n.kind,
+                       "inputs": n.inputs, "conf": n.obj.to_config()}
+                      for n in self.nodes],
+        })
+
+    @staticmethod
+    def from_json(s: str) -> "ComputationGraphConfiguration":
+        d = json.loads(s)
+        b = GraphBuilder(NeuralNetConfiguration.from_config(d["base"]))
+        b.addInputs(*d["inputs"])
+        b.input_types = {k: InputType.from_config(v)
+                         for k, v in d["input_types"].items()}
+        for nd in d["nodes"]:
+            if nd["kind"] == "layer":
+                b.addLayer(nd["name"], L.layer_from_config(nd["conf"]),
+                           *nd["inputs"])
+                continue
+            name = nd["conf"]["@class"]
+            if name not in _VERTEX_CLASSES:
+                raise NotImplementedError(
+                    f"vertex class {name!r} is not ported (known: "
+                    f"{sorted(_VERTEX_CLASSES)})")
+            b.addVertex(nd["name"], _VERTEX_CLASSES[name].from_config(
+                nd["conf"]), *nd["inputs"])
+        b.setOutputs(*d["outputs"])
+        return ComputationGraphConfiguration(b)
 
 
 class ComputationGraph(BaseNetwork):
@@ -234,7 +290,12 @@ class ComputationGraph(BaseNetwork):
         return self
 
     # --------------------------------------------------------------- forward
-    def _forward(self, params, states, inputs: Dict[str, Any], train):
+    def _forward(self, params, states, inputs: Dict[str, Any], train,
+                 key: Optional[StepKey] = None):
+        """The forward; ``key`` is the train step's dropout key: the k-th
+        layer node in topological order draws from ``key.fold(k)`` (the
+        JAX forward splits its key once a layer node, vertices take
+        none)."""
         cdt = self._compute_dtype()
         nhwc = self._compute_layout == "NHWC"
         plan = self._ensure_epilogue_plan() if self._fuse_epilogues else {}
@@ -257,6 +318,7 @@ class ComputationGraph(BaseNetwork):
             return env[name]
 
         new_states = {}
+        ordinal = self._layer_ordinals()
         for node in self.conf.topo:
             if node.name in fused_act:
                 # folded into its BN's scale_shift_act epilogue
@@ -266,8 +328,13 @@ class ComputationGraph(BaseNetwork):
                 continue
             if node.kind == "layer":
                 x = read(node.inputs[0], node.name)
-                x, cur_nhwc = L.layout_step(node.obj, x, fmt[node.inputs[0]],
-                                            nhwc)
+                cur_nhwc = fmt[node.inputs[0]]
+                if node.name in self.conf.preprocessors:
+                    if cur_nhwc:
+                        x, cur_nhwc = L.to_nchw(x), False
+                    x = self.conf.preprocessors[node.name](x)
+                x, cur_nhwc = L.layout_step(node.obj, x, cur_nhwc, nhwc)
+                sub = None if key is None else key.fold(ordinal[node.name])
                 p = params[node.name]
                 if cdt is not None:
                     p, x = L.policy_cast(node.obj, p, x, cdt)
@@ -278,13 +345,14 @@ class ComputationGraph(BaseNetwork):
                         bias=pending_bias.pop(conv_name, None))
                 elif node.name in fused_conv:  # bias folds into the BN
                     out, ns = node.obj.apply(p, states[node.name], x, train,
-                                             skip_bias=True)
+                                             sub, skip_bias=True)
                     pending_bias[node.name] = p.get("b")
                     if node.name in shared:
                         biased[node.name] = L.conv_bias_add(
                             node.obj, out, p.get("b"))
                 else:
-                    out, ns = node.obj.apply(p, states[node.name], x, train)
+                    out, ns = node.obj.apply(p, states[node.name], x, train,
+                                             sub)
                 new_states[node.name] = ns
                 fmt[node.name] = cur_nhwc and out.dim() == 4
             else:
@@ -309,6 +377,12 @@ class ComputationGraph(BaseNetwork):
         return [L.to_nchw(read(o)) if fmt.get(o) else read(o)
                 for o in self.conf.graph_outputs], new_states
 
+    def _layer_ordinals(self) -> Dict[str, int]:
+        """Each layer node's position among the layer nodes in topological
+        order (its dropout key's fold)."""
+        names = [n.name for n in self.conf.topo if n.kind == "layer"]
+        return {name: k for k, name in enumerate(names)}
+
     def _as_input_dict(self, inputs) -> Dict[str, torch.Tensor]:
         if not isinstance(inputs, (list, tuple)):
             inputs = [inputs]
@@ -322,7 +396,8 @@ class ComputationGraph(BaseNetwork):
         ins = self._as_input_dict(inputs[0] if len(inputs) == 1
                                   else list(inputs))
         with torch.no_grad():
-            outs, _ = self._forward(self._params, self._states, ins, train)
+            outs, _ = self._forward(self._params, self._states, ins, train,
+                                    StepKey(0, 0))
         return outs[0] if len(outs) == 1 else outs
 
     # ------------------------------------------------------------------ loss
@@ -338,8 +413,8 @@ class ComputationGraph(BaseNetwork):
         return outs
 
     def _loss_and_reg(self, params, states, ins, labels: List, train,
-                      lmasks: Optional[List]):
-        outs, new_states = self._forward(params, states, ins, train)
+                      lmasks: Optional[List], key=None):
+        outs, new_states = self._forward(params, states, ins, train, key)
         loss = 0.0
         for i, (ol, out) in enumerate(zip(self._output_layers(), outs)):
             lm = lmasks[i] if lmasks is not None else None
@@ -353,6 +428,60 @@ class ComputationGraph(BaseNetwork):
         the label mask (the graph's score, as the JAX one, reads none)."""
         masks = [lmask] if train and lmask is not None else None
         return {self.conf.graph_inputs[0]: x}, [y], masks
+
+    def getLayer(self, name: str):
+        return self.conf.node_by_name[name].obj
+
+    def summary(self) -> str:
+        lines = ["=" * 78,
+                 f"{'Name (Type)':<38}{'In':<20}{'Params':<10}", "=" * 78]
+        total = 0
+        for node in self.conf.topo:
+            n = sum(v.numel() for v in self._params.get(node.name,
+                                                         {}).values())
+            total += n
+            lines.append(f"{f'{node.name} ({type(node.obj).__name__})':<38}"
+                         f"{','.join(node.inputs):<20}{n:<10}")
+        lines.append(f"Total params: {total}")
+        return "\n".join(lines)
+
+    # ------------------------------------------------------------ save / load
+    def save(self, path: str, save_updater: bool = True):
+        """The JAX package's archive (``train.serializer``), written
+        atomically."""
+        from deeplearning4j_tpu_torch.train import serializer as ser
+        self._require_init()
+        meta, arrays = ser.archive_arrays(
+            self, lambda kind, n, name: f"{kind}::{n}::{name}", save_updater)
+        ser.write_model_zip(path, self.conf.to_json(), meta, arrays)
+
+    @staticmethod
+    def load(path: str, load_updater: bool = True,
+             device=None) -> "ComputationGraph":
+        """An archive of either package, on ``device`` (the card unless the
+        caller names another). Raises ``serializer.CorruptModelError``
+        naming the bad entry of a damaged archive."""
+        from deeplearning4j_tpu_torch.train import serializer as ser
+        conf_json, meta, arrays = ser.read_model_zip(path)
+        try:
+            conf = ComputationGraphConfiguration.from_json(conf_json)
+        except Exception as e:
+            raise ser.CorruptModelError(
+                path, "conf.json", f"unparseable configuration ({e})") from e
+        net = ComputationGraph(conf).init(device=device)
+
+        def entries():
+            for k in arrays.files:
+                parts = k.split("::")
+                if parts[0] in ("p", "s") and len(parts) == 3:
+                    yield parts[0], parts[1], parts[2], k
+        ser.restore_into(net, path, meta, arrays, entries(), load_updater)
+        return net
+
+    def clone(self) -> "ComputationGraph":
+        """The same configuration, copies of the params and states on the
+        same device; the updater state starts afresh."""
+        return self._copy_into(ComputationGraph(self.conf))
 
     # --------------------------------------------------------- configuration
     def _ensure_epilogue_plan(self):

@@ -4,7 +4,10 @@
 Weight layouts match the reference (dense W [nIn, nOut], conv W
 [nOut, nIn, kH, kW]). Each layer is ``apply(params, state, x, train) ->
 (out, new_state)`` over plain dicts of tensors; gradients are autograd's.
-Dropout is not ported yet: a nonzero ``dropOut`` raises. ``to_config``
+``key`` (an ``ops.normalization.StepKey``, None outside a train step)
+feeds dropout: ``dropOut`` is the RETAIN probability, as in the
+reference, applied to the layer's input by Dense, Convolution, Output and
+``DropoutLayer``. ``to_config``
 / ``layer_from_config`` write and read the JAX package's per-layer JSON
 (the layer's attributes under its class name, the same attribute names).
 
@@ -71,14 +74,12 @@ class Layer:
                  biasInit: float = 0.0, dropOut: float = 0.0,
                  l1: float = None, l2: float = None, name: str = None,
                  dataType: str = None):
-        if dropOut:
-            raise NotImplementedError("dropout is not ported yet")
         self.nOut = nOut
         self.nIn = nIn
         self.activation = activation
         self.weight_init = weightInit
         self.bias_init = biasInit
-        self.dropout = 0.0      # the JAX package's key, kept for its JSON
+        self.dropout = dropOut   # RETAIN probability (reference semantics)
         self.l1 = l1
         self.l2 = l2
         self.name = name or type(self).__name__
@@ -98,10 +99,12 @@ class Layer:
             self.l2 = base.l2
 
     def infer_nin(self, it: InputType):
-        if self.nIn is None and it.kind == "ff":
+        if self.nIn is None and it.kind in ("ff", "cnn_flat"):
             self.nIn = it.arrayElementsPerExample()
         elif self.nIn is None and it.kind == "cnn":
             self.nIn = it.channels
+        elif self.nIn is None and it.kind == "rnn":
+            self.nIn = it.size
 
     def output_type(self, it: InputType) -> InputType:
         return InputType.feedForward(self.nOut)
@@ -116,8 +119,13 @@ class Layer:
             params["b"] = torch.full((self.nOut,), float(self.bias_init))
         return params, {}
 
-    def apply(self, params, state, x, train: bool):
+    def apply(self, params, state, x, train: bool, key=None):
         raise NotImplementedError
+
+    def _maybe_dropout(self, x, train, key):
+        if self.dropout and self.dropout < 1.0:
+            return norm_ops.dropout(x, 1.0 - self.dropout, key, train=train)
+        return x
 
     def to_config(self):
         d = {"@class": type(self).__name__}
@@ -127,8 +135,6 @@ class Layer:
 
     @classmethod
     def from_config(cls, d):
-        if 0.0 < (d.get("dropout") or 0.0) < 1.0:   # a retain probability
-            raise NotImplementedError("dropout is not ported yet")
         obj = cls.__new__(cls)
         for k, v in d.items():
             if k == "@class":
@@ -153,7 +159,8 @@ class DenseLayer(Layer):
     def initialize(self, gen):
         return self._dense_init(gen)
 
-    def apply(self, params, state, x, train):
+    def apply(self, params, state, x, train, key=None):
+        x = self._maybe_dropout(x, train, key)
         z = x @ params["W"]
         if self.has_bias:
             z = z + params["b"]
@@ -183,7 +190,8 @@ class ConvolutionLayer(Layer):
             params["b"] = torch.full((self.nOut,), float(self.bias_init))
         return params, {}
 
-    def apply(self, params, state, x, train, *, skip_bias=False):
+    def apply(self, params, state, x, train, key=None, *, skip_bias=False):
+        x = self._maybe_dropout(x, train, key)
         out = conv_ops.conv2d(x, params["W"],
                               None if skip_bias else params.get("b"),
                               stride=self.stride, pad=self.padding,
@@ -226,7 +234,7 @@ class SubsamplingLayer(Layer):
     def infer_nin(self, it):
         self.nIn = self.nOut = it.channels
 
-    def apply(self, params, state, x, train):
+    def apply(self, params, state, x, train, key=None):
         fn = conv_ops.maxpool2d if self.pooling == "max" \
             else conv_ops.avgpool2d
         return fn(x, kernel=self.kernel, stride=self.stride,
@@ -271,7 +279,7 @@ class BatchNormalization(Layer):
             return x.dim() - 1
         return 1 if x.dim() >= 3 else x.dim() - 1
 
-    def apply(self, params, state, x, train):
+    def apply(self, params, state, x, train, key=None):
         axis = self._channel_axis(x)
         if train:
             out, new_mean, new_var = norm_ops.batch_norm_train(
@@ -302,8 +310,27 @@ class ActivationLayer(Layer):
     def infer_nin(self, it):
         self.nIn = self.nOut = it.arrayElementsPerExample()
 
-    def apply(self, params, state, x, train):
+    def apply(self, params, state, x, train, key=None):
         return act.get(self.activation)(x), state
+
+    def output_type(self, it):
+        return it
+
+
+class DropoutLayer(Layer):
+    """ref: layers.DropoutLayer — ``dropOut`` is the RETAIN probability."""
+
+    input_kind = None
+    has_params = False
+
+    def __init__(self, dropOut=0.5, **kw):
+        super().__init__(dropOut=dropOut, **kw)
+
+    def infer_nin(self, it):
+        self.nIn = self.nOut = it.arrayElementsPerExample()
+
+    def apply(self, params, state, x, train, key=None):
+        return self._maybe_dropout(x, train, key), state
 
     def output_type(self, it):
         return it
@@ -323,7 +350,7 @@ class GlobalPoolingLayer(Layer):
         self.nIn = self.nOut = it.channels if it.kind == "cnn" \
             else it.arrayElementsPerExample()
 
-    def apply(self, params, state, x, train):
+    def apply(self, params, state, x, train, key=None):
         fmt = self.data_format if x.dim() == 4 else "NCHW"
         return conv_ops.global_pool(x, self.pooling, data_format=fmt), state
 
@@ -361,7 +388,8 @@ class OutputLayer(BaseOutputLayer):
     def initialize(self, gen):
         return self._dense_init(gen)
 
-    def apply(self, params, state, x, train):
+    def apply(self, params, state, x, train, key=None):
+        x = self._maybe_dropout(x, train, key)
         z = x @ params["W"]
         if self.has_bias:
             z = z + params["b"]
@@ -370,7 +398,7 @@ class OutputLayer(BaseOutputLayer):
 
 _LAYER_CLASSES = {cls.__name__: cls for cls in (
     DenseLayer, ConvolutionLayer, SubsamplingLayer, BatchNormalization,
-    ActivationLayer, GlobalPoolingLayer, OutputLayer)}
+    ActivationLayer, DropoutLayer, GlobalPoolingLayer, OutputLayer)}
 
 
 def layer_from_config(d: Dict) -> Layer:

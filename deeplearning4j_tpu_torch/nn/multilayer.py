@@ -6,13 +6,17 @@ shared step of :mod:`.network`: the forward, ``torch.autograd.grad`` of
 the loss, gradient normalization and the updater in place on the fp32
 master params, eager or captured as a CUDA graph (K steps a dispatch
 with ``fit(steps_per_dispatch=K)``). The forward (``_forward``) follows the JAX one layer for layer:
-the NHWC compute layout, the fp32 islands of the dtype policy, and the
+the input preprocessors (an NHWC activation goes back to NCHW before
+one, so a flatten reads ``[c, h, w]``), the NHWC compute layout, the fp32
+islands of the dtype policy, the per-layer dropout keys, and the
 sequential epilogue plan (``nn.layers.build_epilogue_plan``), in which a
 conv(identity, bias) + BN + relu/leaky triple runs as one conv without
-its bias and one ``scale_shift_act`` dispatch.
+its bias and one ``scale_shift_act`` dispatch. ``evaluate``,
+``save``/``load`` (the JAX package's archive, ``train.serializer``),
+``clone`` and ``summary`` are the reference's.
 
-Not ported yet (ROADMAP.md): dynamic loss scaling, TBPTT and ``rnnTimeStep``, listeners, resilience,
-sharding, augmentation, ``evaluate``, ``save``/``load`` and ``clone``.
+Not ported yet (ROADMAP.md): dynamic loss scaling, TBPTT and
+``rnnTimeStep``, listeners, resilience, sharding, augmentation.
 """
 
 from __future__ import annotations
@@ -22,9 +26,12 @@ from typing import Dict, List, Optional
 import torch
 
 from deeplearning4j_tpu_torch.device import resolve_device
+from deeplearning4j_tpu_torch.evaluation.evaluation import (
+    RegressionEvaluation)
 from deeplearning4j_tpu_torch.nn import layers as L
 from deeplearning4j_tpu_torch.nn.config import MultiLayerConfiguration
-from deeplearning4j_tpu_torch.nn.network import BaseNetwork
+from deeplearning4j_tpu_torch.nn.network import EVAL_PULL_CHUNK, BaseNetwork
+from deeplearning4j_tpu_torch.ops.normalization import StepKey
 
 
 class MultiLayerNetwork(BaseNetwork):
@@ -82,7 +89,11 @@ class MultiLayerNetwork(BaseNetwork):
         return self
 
     # --------------------------------------------------------------- forward
-    def _forward(self, params, states, x, train: bool):
+    def _forward(self, params, states, x, train: bool,
+                 key: Optional[StepKey] = None):
+        """The forward; ``key`` is the train step's dropout key (layer i
+        draws from ``key.fold(i)``, in a fused group too, as the JAX
+        forward's one key split a layer)."""
         cdt = self._compute_dtype()
         if cdt is None and x.dtype == torch.uint8:
             x = x.float()                  # image bytes (fp32 nets)
@@ -91,9 +102,15 @@ class MultiLayerNetwork(BaseNetwork):
         new_states: List[Optional[Dict]] = [None] * len(self.layers)
         cur_nhwc = False
         i = 0
+        pre = self.conf.preprocessors
         while i < len(self.layers):
             layer = self.layers[i]
+            if i in pre:
+                if cur_nhwc:
+                    x, cur_nhwc = L.to_nchw(x), False
+                x = pre[i](x)
             x, cur_nhwc = L.layout_step(layer, x, cur_nhwc, nhwc)
+            sub = key.fold(i) if key is not None else None
             fuse = plan.get(i)
             if fuse is not None:
                 n_used, conv_leads, alpha = fuse
@@ -103,7 +120,7 @@ class MultiLayerNetwork(BaseNetwork):
                     if cdt is not None:
                         p, x = L.policy_cast(layer, p, x, cdt)
                     x, new_states[i] = layer.apply(p, states[i], x, train,
-                                                   skip_bias=True)
+                                                   sub, skip_bias=True)
                     bias = p.get("b")
                     bn_idx = i + 1
                 bn = self.layers[bn_idx]
@@ -119,7 +136,7 @@ class MultiLayerNetwork(BaseNetwork):
             p = params[i]
             if cdt is not None:
                 p, x = L.policy_cast(layer, p, x, cdt)
-            x, new_states[i] = layer.apply(p, states[i], x, train)
+            x, new_states[i] = layer.apply(p, states[i], x, train, sub)
             i += 1
         if cur_nhwc and x.dim() == 4:
             x = L.to_nchw(x)
@@ -133,27 +150,34 @@ class MultiLayerNetwork(BaseNetwork):
         acts = [cur]
         nhwc = self._compute_layout == "NHWC"
         cur_nhwc = False
+        key = StepKey(0, 0)
         with torch.no_grad():
             for i, layer in enumerate(self.layers):
+                if i in self.conf.preprocessors:
+                    if cur_nhwc:
+                        cur, cur_nhwc = L.to_nchw(cur), False
+                    cur = self.conf.preprocessors[i](cur)
                 cur, cur_nhwc = L.layout_step(layer, cur, cur_nhwc, nhwc)
                 cur, _ = layer.apply(self._params[i], self._states[i], cur,
-                                     train)
+                                     train, key.fold(i))
                 cur_nhwc = cur_nhwc and cur.dim() == 4
                 acts.append(L.to_nchw(cur) if cur_nhwc else cur)
         return acts
 
     def output(self, x, train: bool = False) -> torch.Tensor:
         """Inference forward (ref: MultiLayerNetwork.output), on the
-        network's device."""
+        network's device; ``train=True`` draws dropout from a fixed key
+        (the JAX package's ``PRNGKey(0)``)."""
         self._require_init()
         with torch.no_grad():
             out, _ = self._forward(self._params, self._states,
-                                   self._to_device(x), train)
+                                   self._to_device(x), train, StepKey(0, 0))
         return out
 
     # ------------------------------------------------------------------ loss
-    def _loss_and_reg(self, params, states, x, y, train, lmask=None):
-        out, new_states = self._forward(params, states, x, train)
+    def _loss_and_reg(self, params, states, x, y, train, lmask=None,
+                      key=None):
+        out, new_states = self._forward(params, states, x, train, key)
         out_layer = self.layers[-1]
         if not isinstance(out_layer, L.BaseOutputLayer):
             raise ValueError("last layer must be an output/loss layer for "
@@ -177,3 +201,46 @@ class MultiLayerNetwork(BaseNetwork):
 
     def getParam(self, i: int, name: str) -> torch.Tensor:
         return self._params[i][name]
+
+    # ------------------------------------------------------------ evaluation
+    def evaluateRegression(self, iterator,
+                           pull_chunk: int = EVAL_PULL_CHUNK
+                           ) -> RegressionEvaluation:
+        return self.evaluate(iterator, RegressionEvaluation(), pull_chunk)
+
+    def summary(self) -> str:
+        lines = ["=" * 70,
+                 f"{'LayerName (Type)':<36}{'nIn,nOut':<16}{'Params':<10}",
+                 "=" * 70]
+        total = 0
+        for i, layer in enumerate(self.layers):
+            n = sum(v.numel() for v in self._params[i].values()) \
+                if self._initialized else 0
+            total += n
+            lines.append(f"{f'{i}_{layer.name} ({type(layer).__name__})':<36}"
+                         f"{f'{layer.nIn},{layer.nOut}':<16}{n:<10}")
+        lines.append("-" * 70)
+        lines.append(f"Total params: {total}")
+        lines.append("=" * 70)
+        return "\n".join(lines)
+
+    # ------------------------------------------------------------ save / load
+    def save(self, path: str, save_updater: bool = True):
+        """ref: ModelSerializer.writeModel — the JAX package's archive
+        (``train.serializer``)."""
+        from deeplearning4j_tpu_torch.train.serializer import ModelSerializer
+        ModelSerializer.writeModel(self, path, save_updater)
+
+    @staticmethod
+    def load(path: str, load_updater: bool = True,
+             device=None) -> "MultiLayerNetwork":
+        """An archive of either package, on ``device`` (the card unless the
+        caller names another)."""
+        from deeplearning4j_tpu_torch.train.serializer import ModelSerializer
+        return ModelSerializer.restoreMultiLayerNetwork(path, load_updater,
+                                                        device)
+
+    def clone(self) -> "MultiLayerNetwork":
+        """ref: clone — the same configuration, copies of the params and
+        states on the same device; the updater state starts afresh."""
+        return self._copy_into(MultiLayerNetwork(self.conf))

@@ -12,8 +12,14 @@ sequential network) and supplies:
   pytree order (what :meth:`params` flattens);
 - ``_pack(x, y, lmask, train)``: device tensors of one batch as
   ``(inputs, labels, masks)`` in the form its ``_loss_and_reg`` takes;
-- ``_loss_and_reg(params, states, inputs, labels, train, masks)`` and
-  ``_ensure_epilogue_plan()``.
+- ``_loss_and_reg(params, states, inputs, labels, train, masks, key)``
+  and ``_ensure_epilogue_plan()``.
+
+A train step's dropout key is ``StepKey(seed, t)`` on the device clock
+``t`` (``ops.normalization``); each network folds in its layer's ordinal
+(the JAX package's per-layer key split), so the masks are a function of
+the seed, the step and the layer alone. ``evaluate`` keeps predictions
+on the device and pulls them in chunks (:func:`predict_batches`).
 
 The step (:meth:`BaseNetwork._train_step`) updates every piece of state
 in place: the params, the updater state, the layers' running statistics
@@ -35,10 +41,61 @@ import torch
 
 from deeplearning4j_tpu_torch.analysis import churn
 from deeplearning4j_tpu_torch.data.dataset import DataSet
+from deeplearning4j_tpu_torch.evaluation.evaluation import Evaluation
 from deeplearning4j_tpu_torch.nn import compilecache as cc
 from deeplearning4j_tpu_torch.nn import layers as L
+from deeplearning4j_tpu_torch.ops import normalization as norm_ops
 from deeplearning4j_tpu_torch.train import stepping
 from deeplearning4j_tpu_torch.train import updaters as upd
+
+#: batches of predictions held on the device between pulls
+EVAL_PULL_CHUNK = 64
+
+
+def _datasets_of(iterator):
+    """The DataSets of a DataSetIterator (reset first) or of any iterable
+    of DataSets."""
+    if hasattr(iterator, "hasNext"):
+        iterator.reset()
+        while iterator.hasNext():
+            yield iterator.next()
+    else:
+        yield from iterator
+
+
+def _host(a):
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else a
+
+
+def predict_batches(output_fn, iterator, chunk: int = EVAL_PULL_CHUNK):
+    """Yield ``(labels, preds, labels_mask)`` per batch, preds as host
+    numpy, dispatching ``output_fn`` for every batch WITHOUT pulling each
+    result (ref: the JAX ``_predict_batches``): predictions stay on the
+    device and come back in one copy of up to ``chunk`` batches, so the
+    host waits once a chunk, not once a batch, and at most ``chunk``
+    batches of predictions are held on the device. The iterator is
+    consumed on the calling thread (the JAX package's
+    ``AsyncDataSetIterator`` prefetch is not ported)."""
+    pending = []
+
+    def drain():
+        flat = torch.cat([p.detach().float().reshape(-1)
+                          for _, p, _ in pending]).cpu().numpy()
+        out, pos = [], 0
+        for labels, p, mask in pending:
+            n = p.numel()
+            out.append((_host(labels), flat[pos:pos + n].reshape(
+                tuple(p.shape)), _host(mask)))
+            pos += n
+        pending.clear()
+        return out
+
+    for ds in _datasets_of(iterator):
+        pending.append((ds.labels, output_fn(ds.features), ds.labels_mask))
+        if len(pending) >= chunk:
+            yield from drain()
+    if pending:
+        yield from drain()
 
 
 class BaseNetwork:
@@ -76,15 +133,9 @@ class BaseNetwork:
             return torch.from_numpy(np.array(np.asarray(a), np.float32)
                                     ).to(self._device)
 
-        def each(tree, fn):
-            if isinstance(tree, dict):
-                return {n: fn(d) for n, d in tree.items()}
-            return [fn(d) for d in tree]
-
-        self._params = each(params, lambda p: {
-            k: conv(v).requires_grad_(True) for k, v in p.items()})
-        self._states = each(states, lambda s: {k: conv(v)
-                                               for k, v in s.items()})
+        self._params = self._map(params,
+                                 lambda a: conv(a).requires_grad_(True))
+        self._states = self._map(states, conv)
         self._reset_training_state()
         self._initialized = True
 
@@ -162,12 +213,7 @@ class BaseNetwork:
                 and isinstance(data[0], DataSet):
             return list(data)
         if hasattr(data, "hasNext"):
-            data.reset()
-
-            def pull():
-                while data.hasNext():
-                    yield data.next()
-            return pull()
+            return _datasets_of(data)
         return [DataSet(data, labels)]
 
     def fit(self, data, labels=None, epochs: int = 1,
@@ -261,8 +307,9 @@ class BaseNetwork:
         ins, labels, masks = self._pack(x, y, lmask, True)
         pol = self._precision
         loss_scale = pol.loss_scale if pol is not None else None
+        key = norm_ops.StepKey(self.conf.base.seed, self._t_dev)
         loss, new_states = self._loss_and_reg(self._params, self._states, ins,
-                                              labels, True, masks)
+                                              labels, True, masks, key)
         names = [(n, k) for n, p in self._items(self._params) for k in p]
         leaves = [self._params[n][k] for n, k in names]
         scaled = loss * loss_scale if loss_scale else loss
@@ -327,6 +374,45 @@ class BaseNetwork:
             loss, _ = self._loss_and_reg(self._params, self._states, ins,
                                          labels, False, masks)
         return float(loss)
+
+    # ------------------------------------------------------------ evaluation
+    def evaluate(self, iterator, evaluation=None,
+                 pull_chunk: int = EVAL_PULL_CHUNK) -> Evaluation:
+        """ref: evaluate(DataSetIterator); also any iterable of DataSets.
+        ``pull_chunk`` bounds how many batches of predictions stay on the
+        device between pulls (:func:`predict_batches`)."""
+        ev = evaluation or Evaluation()
+        for labels, preds, mask in predict_batches(self.output, iterator,
+                                                   pull_chunk):
+            ev.eval(labels, preds, mask=mask)
+        return ev
+
+    def getIterationCount(self) -> int:
+        return self._iteration
+
+    def getEpochCount(self) -> int:
+        return self._epoch
+
+    def _copy_into(self, net):
+        """``net`` (a fresh network on the same configuration) takes
+        copies of this one's params and states on this device (ref:
+        clone; the updater state and the iteration start afresh)."""
+        self._require_init()
+        net._device = self._device
+        net._params = self._map(self._params, lambda v: v.detach().clone()
+                                .requires_grad_(True))
+        net._states = self._map(self._states, lambda v: v.detach().clone())
+        net._reset_training_state()
+        net._initialized = True
+        return net
+
+    @staticmethod
+    def _map(tree, fn):
+        """``fn`` over each leaf of a list or dict of dicts of arrays."""
+        if isinstance(tree, dict):
+            return {n: {k: fn(v) for k, v in d.items()}
+                    for n, d in tree.items()}
+        return [{k: fn(v) for k, v in d.items()} for d in tree]
 
     # --------------------------------------------------------- configuration
     def setComputeLayout(self, fmt: str):

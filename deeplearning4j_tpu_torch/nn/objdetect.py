@@ -113,7 +113,7 @@ class Yolo2OutputLayer(BaseOutputLayer):
         x = x.reshape(N, B, ch // B, H, W)
         return x[:, :, 0:2], x[:, :, 2:4], x[:, :, 4], x[:, :, 5:]
 
-    def apply(self, params, state, x, train):
+    def apply(self, params, state, x, train, key=None):
         """sigmoid(xy), anchors*exp(wh), sigmoid(conf), softmax over the
         classes, repacked to [N, B*(5+C), H, W] (ref:
         Yolo2OutputLayer.activate)."""

@@ -1,6 +1,9 @@
 """Normalization ops (the slice's subset of
 ``deeplearning4j_tpu/ops/normalization.py``).
 
+Dropout draws its masks from a counter-based hash (``dropout_mask``),
+not a generator: see the note above ``StepKey``.
+
 Batch norm follows the JAX package, not ``F.batch_norm``: statistics
 accumulate in fp32 over the input dtype, the variance is the biased
 ``max(E[x^2] - E[x]^2, 0)``, and the running statistics weight the OLD
@@ -10,7 +13,7 @@ the unbiased variance).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -92,6 +95,88 @@ def batch_norm_train(x, gamma, beta, running_mean, running_var, *,
     new_mean = decay * running_mean + (1.0 - decay) * m.detach()
     new_var = decay * running_var + (1.0 - decay) * v.detach()
     return out, new_mean, new_var
+
+
+# ------------------------------------------------------------------ dropout
+# The JAX package draws a dropout mask from a threefry key split off
+# ``fold_in(PRNGKey(seed), t)`` once a layer; threefry bits cannot be had
+# in torch. The port's mask is a counter-based hash of (seed, the step
+# clock t, the layer, the element index): a function of those alone, so a
+# captured K-step graph draws what K eager steps draw, a resumed or loaded
+# net draws what it would have drawn, and no generator state exists for a
+# capture's warm-up runs to advance. The clock may be a 0-d device tensor,
+# read at replay.
+
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(x):
+    """A 32-bit integer hash (xorshift-multiply, multipliers below 2^31 so
+    an int64 product of a 32-bit value never overflows) of a Python int or
+    an int64 tensor of values in [0, 2^32)."""
+    x = x ^ (x >> 16)
+    x = (x * 0x21F0AAAD) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x735A2D97) & _M32
+    return x ^ (x >> 15)
+
+
+class StepKey:
+    """The dropout key of one train step and one layer: the network's
+    ``seed``, the step clock ``t`` (a Python int or a 0-d integer tensor)
+    and a ``path`` of ints naming the layer (:meth:`fold`)."""
+
+    __slots__ = ("seed", "t", "path")
+
+    def __init__(self, seed: int, t, path: Tuple[int, ...] = ()):
+        self.seed, self.t, self.path = int(seed), t, tuple(path)
+
+    def fold(self, i: int) -> "StepKey":
+        return StepKey(self.seed, self.t, self.path + (int(i),))
+
+    def __repr__(self):
+        return f"StepKey(seed={self.seed}, t={self.t}, path={self.path})"
+
+
+def dropout_mask(key: StepKey, shape, keep: float, device) -> torch.Tensor:
+    """Boolean keep-mask of ``shape``: True with probability ``keep`` (to
+    2^-24), drawn from ``key`` alone (see above). Two hash rounds over
+    the element index, keyed by words of (seed, path) and of t; the top 24
+    bits of the hash are compared with ``keep * 2^24``."""
+    base = _mix32(key.seed & _M32)
+    for p in key.path:
+        base = _mix32(base ^ _mix32((p + 0x9E3779B9) & _M32))
+    t = key.t
+    if isinstance(t, torch.Tensor):
+        t = t.to(device=device, dtype=torch.int64)
+    else:
+        t = torch.full((), int(t), dtype=torch.int64, device=device)
+    k1 = _mix32((t & _M32) ^ base)
+    k2 = _mix32(k1 ^ 0x5BD1E995)
+    n = 1
+    for s in shape:
+        n *= int(s)
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    h = _mix32(_mix32(idx ^ k1) ^ k2)
+    return ((h >> 8) < int(round(keep * (1 << 24)))).reshape(tuple(shape))
+
+
+def dropout(x, rate: float, key: Optional[StepKey], *, train: bool = True):
+    """Inverted dropout (ref: the JAX ``ops/normalization.py`` ``dropout``):
+    ``rate`` is the DROP probability (a layer's ``dropOut`` is the retain
+    probability; the layer adapts); kept values are scaled by ``1/keep``
+    and the result is in x's dtype. The identity when not training or
+    ``rate <= 0``. The mask comes from the module's ``dropout_mask``,
+    looked up at each call."""
+    if not train or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = dropout_mask(key, x.shape, keep, x.device)
+    # divide by keep rounded to x's dtype, as jnp divides by a weakly
+    # typed scalar (a host float: no copy to the card inside a capture)
+    scale = float(torch.tensor(keep, dtype=x.dtype))
+    return torch.where(mask, x / scale, torch.zeros((), dtype=x.dtype,
+                                                    device=x.device))
 
 
 def scale_shift_act(x, scale, shift, *, alpha: float = 0.0, axis: int = 1):

@@ -1,13 +1,17 @@
-"""Where one training step of ResNet-50, TinyYOLO or the BertBench
-BERT-base spends its time on the card, eager and captured.
+"""Where one training step of ResNet-50, VGG16, Darknet19, TinyYOLO or the
+BertBench BERT-base spends its time on the card, eager and captured.
 
 Usage (on a machine with a CUDA card, from the root of a checkout)::
 
-    python3 -m deeplearning4j_tpu_torch.profile_fit [--model tiny_yolo|bert]
-        [--captured K]
+    python3 -m deeplearning4j_tpu_torch.profile_fit
+        [--model vgg16|darknet19|tiny_yolo|bert] [--captured K]
 
 Builds ``zoo.ResNet50(num_classes=1000)`` (the default; a
-``ComputationGraph``, one [64, 3, 224, 224] batch of one-hot labels) or
+``ComputationGraph``, one [64, 3, 224, 224] batch of one-hot labels),
+``zoo.VGG16(num_classes=1000)`` (``--model vgg16``; a
+``MultiLayerNetwork`` with two dropouts, the same batch shape),
+``zoo.Darknet19(num_classes=1000)`` (``--model darknet19``; a
+``MultiLayerNetwork``, one [32, 3, 224, 224] batch) or
 ``zoo.TinyYOLO(num_classes=20)`` (``--model tiny_yolo``; a
 ``MultiLayerNetwork``, one [32, 3, 416, 416] batch whose YOLO labels hold
 1-3 boxes an image), random weights from the zoo's seed, in the bf16 /
@@ -19,7 +23,8 @@ summed by kernel name and by group, each kernel going to the first group
 its launching op or one of that op's callers names: the
 ``scale_shift_act`` kernel, its composed backward, the BN statistics
 (``channel_moments``, forward and backward), the optimizer
-(``_process_and_apply_grads``), the YOLO loss's forward
+(``_process_and_apply_grads``), dropout's forward (the mask draw and the
+select; its backward lands in "rest"), the YOLO loss's forward
 (``Yolo2OutputLayer.compute_loss``; its backward runs as generic autograd
 ops and lands in "rest"), cuDNN convolutions (forward and backward) and
 the rest.
@@ -34,7 +39,7 @@ forward kernel, the composed LN backward, the optimizer
 first of those (in that order) that it or a caller names. It also prints
 samples/s, tokens/s and MFU (FLOPs a token as bench.py counts them,
 against the dense bf16 peak of the card ``torch.cuda.get_device_name()``
-names).
+names); VGG16's runs print MFU too (``vgg16_flops`` x 3 an image).
 
 ``--captured K`` adds the same model with K steps a dispatch, captured as
 one CUDA graph (``fit(steps_per_dispatch=K)`` after
@@ -68,7 +73,11 @@ from deeplearning4j_tpu_torch.ops import normalization as norm_ops
 from deeplearning4j_tpu_torch.train import stepping
 from deeplearning4j_tpu_torch.train.updaters import Adam
 
-BATCH = {"resnet50": 64, "tiny_yolo": 32, "bert": 64}
+BATCH = {"resnet50": 64, "vgg16": 64, "darknet19": 32, "tiny_yolo": 32,
+         "bert": 64}
+#: the 224x224 ImageNet classifiers, by ``--model``
+CLASSIFIERS = {"resnet50": zoo.ResNet50, "vgg16": zoo.VGG16,
+               "darknet19": zoo.Darknet19}
 BERT_SEQ = 128
 WARM = 2
 ITERS = 5
@@ -79,6 +88,7 @@ _SCOPES = (("scale_shift_act backward (composed)", "ScaleShiftAct"),
            ("bn_stats", "ChannelMoments"),
            ("bn_stats", _LABEL + "bn_stats"),
            ("optimizer", _LABEL + "optimizer"),
+           ("dropout (forward)", _LABEL + "dropout"),
            ("yolo loss (forward)", _LABEL + "yolo_loss"),
            ("conv (cuDNN)", "convolution"))
 #: the BERT step's groups, in priority order: a kernel goes to the first
@@ -92,6 +102,9 @@ _BERT_SCOPES = (("flash backward (composed)", "_FlashAttentionKernelBackward"),
                 ("casts", "aten::_to_copy"), ("casts", "aten::copy_"))
 #: kernels grouped by their own name (substring of the kernel's name)
 _KERNEL_GROUPS = {"resnet50": (("scale_shift_act", "scale_shift_act_kernel"),),
+                  "vgg16": (),
+                  "darknet19": (("scale_shift_act",
+                                 "scale_shift_act_kernel"),),
                   "tiny_yolo": (("scale_shift_act",
                                  "scale_shift_act_kernel"),),
                   "bert": (("flash forward (kernel)", "flash_fwd_kernel"),
@@ -144,9 +157,10 @@ def profile(run, model: str, captured: bool) -> dict:
     a host read); device time by kernel name and by group."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    # label the BN statistics, the optimizer and the YOLO loss for the
-    # trace only
+    # label the BN statistics, dropout, the optimizer and the YOLO loss
+    # for the trace only
     patches = [(norm_ops, "channel_moments", "bn_stats"),
+               (norm_ops, "dropout", "dropout"),
                (network_mod.BaseNetwork, "_process_and_apply_grads",
                 "optimizer"),
                (tfm, "apply_updates", "optimizer"),
@@ -207,6 +221,20 @@ def train_flops_per_token(cfg, seq_len: int) -> float:
     attn = 2 * (2 * seq_len * E)
     head = 2 * E * V
     return 3.0 * (L * (proj + attn) + head)
+
+
+def vgg16_flops(hw: int = 224, n_classes: int = 1000) -> int:
+    """Forward FLOPs an image of VGG16, bench.py's count (``vgg16_flops``:
+    the 13 3x3 convs and the three dense layers, ~30.9 GFLOP at 224^2); a
+    train step is three times the forward."""
+    f, c_in, size = 0, 3, hw
+    for n_convs, c_out in [(2, 64), (2, 128), (3, 256), (3, 512), (3, 512)]:
+        for _ in range(n_convs):
+            f += 2 * 9 * c_in * c_out * size * size
+            c_in = c_out
+        size //= 2
+    feat = c_in * size * size
+    return f + 2 * feat * 4096 + 2 * 4096 * 4096 + 2 * 4096 * n_classes
 
 
 def dense_bf16_peak(name: str) -> float:
@@ -270,8 +298,8 @@ def build(model: str):
     bf16 / NHWC / fused configuration."""
     rng = np.random.default_rng(0)
     batch = BATCH[model]
-    if model == "resnet50":
-        net = zoo.ResNet50(num_classes=1000).init()
+    if model in CLASSIFIERS:
+        net = CLASSIFIERS[model](num_classes=1000).init()
         x = rng.standard_normal((batch, 3, 224, 224), dtype=np.float32)
         y = np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, batch)]
     else:
@@ -305,6 +333,13 @@ def _stats(times, steps: int, batch: int, what: str) -> dict:
 def run_network(model: str, k: int) -> dict:
     net, ds = build(model)
     batch = BATCH[model]
+    flops = 3 * vgg16_flops() * batch if model == "vgg16" else None
+
+    def mfu(st):
+        if flops is None:
+            return {}
+        peak = dense_bf16_peak(torch.cuda.get_device_name(0))
+        return {"mfu": flops / (st["step_ms_median"] / 1e3) / peak}
     for _ in range(WARM):
         net.fit(ds)
     net.score()
@@ -315,6 +350,7 @@ def run_network(model: str, k: int) -> dict:
         k_: v // ITERS for k_, v in ck.LAUNCHES.items()},
         **_stats(times, 1, batch, "images"), "loss": net.score(),
         "peak_gb": torch.cuda.max_memory_allocated() / 1e9}}
+    out["eager"].update(mfu(out["eager"]))
     out["eager"].update(profile(lambda: (net.fit(ds), net.score()), model,
                                 False))
     if k > 1:
@@ -335,6 +371,7 @@ def run_network(model: str, k: int) -> dict:
             **_stats(times, k, batch, "images"), "loss": net.score(),
             "cache_stats": cc.cache_stats(),
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        out["captured"].update(mfu(out["captured"]))
         out["captured"].update(profile(
             lambda: (net.fit(group, steps_per_dispatch=k), net.score()),
             model, True))

@@ -1,0 +1,210 @@
+"""Model archives — the port of ``deeplearning4j_tpu/train/serializer.py``
+(ref: ``org.deeplearning4j.util.ModelSerializer``).
+
+The format is the JAX package's, unchanged, so an archive written by
+either package loads in the other: a zip of ``conf.json`` (the
+configuration's JSON), ``meta.json`` (``type``, ``iteration``, ``epoch``,
+``save_updater``) and ``arrays.npz``, which holds the params
+(``p{i}::name`` for layer i of a ``MultiLayerNetwork``, ``p::node::name``
+in a ``ComputationGraph``), the layer states (``s{i}::name``,
+``s::node::name``) and the updater state as ``u::{j}``.
+
+``u::{j}`` is the j-th leaf of the JAX package's updater-state pytree in
+``jax.tree_util.tree_flatten`` order: layers (a list) in order, or nodes
+(a dict) by sorted name, then each layer's param names sorted, then each
+param's state keys sorted (Adam: ``m``, ``v``). The port keeps its
+updater state by the same names (:func:`updater_leaves`), so it writes
+and reads that order.
+
+Every write goes to a temp file in the target directory finalized by one
+``os.replace``: a crash mid-write never leaves a truncated archive under
+the real name. Every restore failure raises :class:`CorruptModelError`
+naming the bad entry. ``writeNormalizer``/``restoreNormalizer`` wait for
+the normalizers (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import os
+import zipfile
+from contextlib import contextmanager
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+
+class CorruptModelError(Exception):
+    """A model archive failed to restore: truncated zip, missing entry,
+    CRC mismatch, or unparseable metadata. ``entry`` names the offending
+    archive member (None for damage to the container)."""
+
+    def __init__(self, path: str, entry, detail: str):
+        self.path = path
+        self.entry = entry
+        where = f"{path}[{entry}]" if entry else path
+        super().__init__(f"corrupt model archive {where}: {detail}")
+
+
+@contextmanager
+def atomic_write(path: str):
+    """Yield a temp path in ``path``'s directory; on a clean exit
+    ``os.replace`` it over ``path`` (readers see the old file or the new
+    one, never a partial one). On error the temp file is removed and the
+    original is untouched."""
+    tmp = f"{path}.tmp{os.getpid()}"
+    try:
+        yield tmp
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            try:
+                os.remove(tmp)
+            except OSError:
+                pass
+        raise
+
+
+def write_model_zip(path: str, conf_json: str, meta: dict,
+                    arrays: Dict[str, np.ndarray]) -> None:
+    """The shared atomic writer of the archive format."""
+    with atomic_write(path) as tmp:
+        with zipfile.ZipFile(tmp, "w") as z:
+            z.writestr("conf.json", conf_json)
+            z.writestr("meta.json", json.dumps(meta))
+            buf = io.BytesIO()
+            np.savez(buf, **arrays) if arrays else np.savez(
+                buf, __empty__=np.zeros(1))
+            z.writestr("arrays.npz", buf.getvalue())
+
+
+def read_model_zip(path: str):
+    """The shared validating reader: ``(conf_json, meta, npz arrays)``,
+    raising CorruptModelError naming the bad entry."""
+    try:
+        z = zipfile.ZipFile(path)
+    except FileNotFoundError:
+        raise
+    except (zipfile.BadZipFile, OSError) as e:
+        raise CorruptModelError(path, None,
+                                f"not a readable zip ({e})") from e
+    with z:
+        names = set(z.namelist())
+        for req in ("conf.json", "meta.json", "arrays.npz"):
+            if req not in names:
+                raise CorruptModelError(path, req, "entry missing")
+        try:
+            bad = z.testzip()
+        except (zipfile.BadZipFile, OSError) as e:
+            raise CorruptModelError(path, None,
+                                    f"CRC scan failed ({e})") from e
+        if bad is not None:
+            raise CorruptModelError(path, bad, "CRC mismatch (truncated or "
+                                    "bit-flipped write)")
+        conf_json = z.read("conf.json").decode()
+        try:
+            meta = json.loads(z.read("meta.json"))
+        except (json.JSONDecodeError, UnicodeDecodeError) as e:
+            raise CorruptModelError(path, "meta.json",
+                                    f"unparseable ({e})") from e
+        try:
+            arrays = np.load(io.BytesIO(z.read("arrays.npz")))
+        except (ValueError, OSError) as e:
+            raise CorruptModelError(path, "arrays.npz",
+                                    f"unloadable npz ({e})") from e
+    return conf_json, meta, arrays
+
+
+def require_array(arrays, key: str, path: str):
+    """One npz member, or CorruptModelError (not KeyError) naming it."""
+    if key not in arrays.files:
+        raise CorruptModelError(path, f"arrays.npz::{key}", "entry missing")
+    return arrays[key]
+
+
+def updater_leaves(model) -> List[Tuple]:
+    """``(layer key, param name, state key)`` of every updater-state
+    tensor, in the JAX pytree's flatten order (see the module note)."""
+    return [(n, k, sk) for n, k in model._leaf_keys()
+            for sk in sorted(model._opt_state[n][k])]
+
+
+def archive_arrays(model, params_key, save_updater: bool):
+    """``(meta, arrays)`` of a network: ``params_key(kind, layer, name)``
+    spells an entry's name (``p``/``s`` for params and states)."""
+    meta = {"type": type(model).__name__, "iteration": model._iteration,
+            "epoch": model._epoch,
+            "save_updater": bool(save_updater
+                                 and model._opt_state is not None)}
+    arrays: Dict[str, np.ndarray] = {}
+    for kind, tree in (("p", model._params), ("s", model._states)):
+        for n, d in model._items(tree):
+            for name, t in d.items():
+                arrays[params_key(kind, n, name)] = \
+                    t.detach().cpu().numpy()
+    if meta["save_updater"]:
+        for j, (n, k, sk) in enumerate(updater_leaves(model)):
+            arrays[f"u::{j}"] = model._opt_state[n][k][sk].detach().cpu(
+            ).numpy()
+    return meta, arrays
+
+
+def restore_into(net, path: str, meta, arrays, entries,
+                 load_updater: bool) -> None:
+    """Fill an initialized ``net`` from an archive: ``entries`` yields
+    ``(kind, layer key, name, array name)`` for its params (``p``) and
+    states (``s``); then the counters and, if asked and saved, the
+    updater state in the JAX flatten order."""
+    with torch.no_grad():
+        for kind, n, name, key in entries:
+            t = torch.from_numpy(np.array(arrays[key])).to(net._device)
+            if kind == "p":
+                net._params[n][name] = t.float().requires_grad_(True)
+            else:
+                net._states[n][name] = t
+    net._reset_training_state()
+    net._iteration = int(meta["iteration"])
+    net._epoch = int(meta["epoch"])
+    if load_updater and meta.get("save_updater"):
+        net._ensure_opt_state()
+        with torch.no_grad():
+            for j, (n, k, sk) in enumerate(updater_leaves(net)):
+                a = require_array(arrays, f"u::{j}", path)
+                net._opt_state[n][k][sk].copy_(torch.from_numpy(np.array(a)))
+
+
+class ModelSerializer:
+    """ref: ModelSerializer — ``writeModel`` and
+    ``restoreMultiLayerNetwork``."""
+
+    @staticmethod
+    def writeModel(model, path: str, save_updater: bool = True):
+        model._require_init()
+        meta, arrays = archive_arrays(
+            model, lambda kind, i, name: f"{kind}{i}::{name}", save_updater)
+        write_model_zip(path, model.conf.to_json(), meta, arrays)
+
+    @staticmethod
+    def restoreMultiLayerNetwork(path: str, load_updater: bool = True,
+                                 device=None):
+        """The network on ``device`` (the card unless the caller names
+        another)."""
+        from deeplearning4j_tpu_torch.nn.config import MultiLayerConfiguration
+        from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+        conf_json, meta, arrays = read_model_zip(path)
+        try:
+            conf = MultiLayerConfiguration.from_json(conf_json)
+        except Exception as e:
+            raise CorruptModelError(path, "conf.json",
+                                    f"unparseable configuration ({e})") from e
+        net = MultiLayerNetwork(conf).init(device=device)
+
+        def entries():
+            for k in arrays.files:
+                kind, _, name = k.partition("::")
+                if kind[:1] in ("p", "s") and kind[1:].isdigit():
+                    yield kind[:1], int(kind[1:]), name, k
+        restore_into(net, path, meta, arrays, entries(), load_updater)
+        return net

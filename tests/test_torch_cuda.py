@@ -18,10 +18,18 @@ import numpy as np
 import pytest
 import torch
 
+from deeplearning4j_tpu_torch.data.dataset import DataSet
 from deeplearning4j_tpu_torch.models import transformer as ttr
+from deeplearning4j_tpu_torch.models import zoo
 from deeplearning4j_tpu_torch.nn import compilecache as cc
+from deeplearning4j_tpu_torch.nn import layers as tlayers
+from deeplearning4j_tpu_torch.nn.config import InputType, NeuralNetConfiguration
+from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+from deeplearning4j_tpu_torch.ops import normalization as norm_ops
 from deeplearning4j_tpu_torch.serving import ModelRegistry, ModelServer
+from deeplearning4j_tpu_torch.train import stepping
+from deeplearning4j_tpu_torch.train.updaters import Adam
 
 pytestmark = pytest.mark.cuda
 
@@ -369,4 +377,108 @@ def test_a_capture_leaves_another_servers_replays_right(dev):
         assert cc.cache_stats()["capture_failures"] == 0
     finally:
         reg.close()
+        ck.uninstall_platform_overrides()
+
+
+# ----------------------------------------- dropout, VGG-like and Darknet19
+def test_dropout_masks_drawn_in_a_graph_equal_eager(dev):
+    """The mask is a function of (seed, clock, layer): a captured draw
+    replayed on an advancing device clock gives the eager masks, new ones
+    each step, and the CPU's bits."""
+    clock = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def draw():
+        return norm_ops.dropout_mask(norm_ops.StepKey(9, clock).fold(3),
+                                     (33, 1000), 0.5, dev)
+    eager = []
+    for t in range(4):
+        clock.fill_(t)
+        eager.append(draw())
+    clock.zero_()
+    out = torch.empty((33, 1000), dtype=torch.bool, device=dev)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out.copy_(draw())
+        clock.add_(1)
+    for t in range(4):
+        graph.replay()
+        assert torch.equal(out, eager[t]), t
+    assert not any(torch.equal(a, b) for a, b in zip(eager, eager[1:]))
+    cpu = norm_ops.dropout_mask(norm_ops.StepKey(9, 2).fold(3), (33, 1000),
+                                0.5, "cpu")
+    assert torch.equal(eager[2].cpu(), cpu)
+
+
+def _vgg_like():
+    b = (NeuralNetConfiguration.Builder().seed(5).updater(Adam(1e-3))
+         .weightInit("relu").list())
+    b = zoo._vgg_blocks(b, [(1, 8), (2, 16)])
+    return MultiLayerNetwork(
+        b.layer(tlayers.DenseLayer(nOut=64, activation="relu", dropOut=0.5))
+        .layer(tlayers.DenseLayer(nOut=64, activation="relu", dropOut=0.5))
+        .layer(tlayers.OutputLayer(nOut=10, lossFunction="mcxent"))
+        .setInputType(InputType.convolutional(16, 16, 3)).build())
+
+
+def test_captured_vgg_like_fit_with_dropout_equals_eager(dev):
+    """Two K=4 captured dispatches equal 8 eager steps to the bit, the
+    dropout masks included: the second dispatch draws the masks of steps
+    5-8, not the first dispatch's again."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        net = _vgg_like().init()
+        net.setPrecisionPolicy("bf16")
+        net.setComputeLayout("NHWC")
+        rng = np.random.default_rng(0)
+        batches = [DataSet(
+            torch.from_numpy(rng.standard_normal((8, 3, 16, 16)).astype(
+                np.float32)).to(dev),
+            torch.from_numpy(np.eye(10, dtype=np.float32)[
+                rng.integers(0, 10, 8)]).to(dev)) for _ in range(8)]
+        net._ensure_opt_state()
+        net._ensure_clock()
+        s0 = [t.detach().clone() for t in net._dispatch_state()]
+        eager = []
+        for ds in batches:
+            net.fit(ds)
+            eager.append(net.score())
+        want = [t.detach().clone() for t in net._dispatch_state()]
+        with torch.no_grad():
+            for t, v in zip(net._dispatch_state(), s0):
+                t.copy_(v)
+        cc.reset_stats()
+        cc.warmup(net, [((8, 3, 16, 16), (8, 10))], steps_per_dispatch=4)
+        losses = []
+        for k in (0, 4):
+            losses += net._fit_mega(
+                stepping.stack_megabatch(batches[k:k + 4])).tolist()
+        assert cc.cache_stats()["capture_failures"] == 0
+        assert cc.cache_stats()["compile_seconds"]["cold_compiles"] == 1
+        assert losses == eager
+        got = net._dispatch_state()
+        assert len(got) == len(want)
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert torch.equal(a, b), i
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def test_darknet19_takes_18_epilogue_launches_a_forward(dev):
+    ck.install_platform_overrides()
+    try:
+        net = zoo.Darknet19(num_classes=10, input_shape=(3, 64, 64)).init()
+        net.setPrecisionPolicy("bf16")
+        net.setComputeLayout("NHWC")
+        net.setEpilogueFusion(True)
+        x = _randn(dev, 4, 3, 64, 64, seed=30)
+        ck.reset_counts()
+        out = net.output(x)
+        assert ck.LAUNCHES["scale_shift_act"] == 18
+        assert not any(ck.PLAIN_CALLS.values())
+        assert out.shape == (4, 10) and bool(torch.isfinite(out).all())
+        cc.warmup(net, [((4, 3, 64, 64), (4, 10))], steps_per_dispatch=4)
+        assert net._step_for(False, 4).launches_at_capture() == \
+            [{"scale_shift_act": 72}]
+    finally:
         ck.uninstall_platform_overrides()

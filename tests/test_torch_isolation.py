@@ -84,7 +84,11 @@ def test_import_leaves_jax_unloaded():
              "deeplearning4j_tpu_torch.analysis.serving, "
              "deeplearning4j_tpu_torch.serving.server, "
              "deeplearning4j_tpu_torch.serving.registry, "
-             "deeplearning4j_tpu_torch.serving.ingress; "
+             "deeplearning4j_tpu_torch.serving.ingress, "
+             "deeplearning4j_tpu_torch.nn.preprocessors, "
+             "deeplearning4j_tpu_torch.evaluation, "
+             "deeplearning4j_tpu_torch.train.serializer, "
+             "deeplearning4j_tpu_torch.data.iterators; "
              "print(sorted(m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'jaxlib', 'deeplearning4j_tpu')))", ROOT)
     assert r.returncode == 0, r.stderr

@@ -283,11 +283,17 @@ class TestMultiLayerConfiguration:
         assert json.loads(back.to_json()) == json.loads(jconf.to_json())
 
     def test_unported_pieces_raise_by_name(self):
-        with pytest.raises(NotImplementedError, match="preprocessors"):
+        # a conv -> dense step takes its preprocessor (ported); ff input
+        # into a conv refuses as the reference does
+        conf = (NeuralNetConfiguration.Builder().list()
+                .layer(tlayers.ConvolutionLayer(nOut=2))
+                .layer(tlayers.DenseLayer(nOut=2))
+                .setInputType(InputType.convolutional(4, 4, 1)).build())
+        assert type(conf.preprocessors[1]).__name__ == "CnnToFeedForward"
+        with pytest.raises(ValueError, match="convolutionalFlat"):
             (NeuralNetConfiguration.Builder().list()
              .layer(tlayers.ConvolutionLayer(nOut=2))
-             .layer(tlayers.DenseLayer(nOut=2))
-             .setInputType(InputType.convolutional(4, 4, 1)).build())
+             .setInputType(InputType.feedForward(16)).build())
         with pytest.raises(NotImplementedError, match="pooling only|'same'"):
             (NeuralNetConfiguration.Builder().list()
              .layer(tlayers.ConvolutionLayer(nOut=2, convolutionMode="same"))
