@@ -33,7 +33,8 @@ Phases (each one fails the run with a non-zero exit):
    their bounds and library calls (and the pair beside
    ``F.batch_norm(training=True)`` + ``F.leaky_relu``);
    ``scale_shift_act`` also at TinyYOLO's first epilogue, [5,537,792, 16]
-   bf16, alpha 0.01, and at Darknet19's, [1,605,632, 32] bf16, alpha 0.01.
+   bf16, alpha 0.01, at Darknet19's, [1,605,632, 32] bf16, alpha 0.01,
+   and at YOLO2's, [5,537,792, 32] bf16, alpha 0.01.
 3. Serve BERT-base (full width, bf16, random weights from a seed) through
    ``ModelServer(lm.logits, head="argmax")`` with the kernels installed,
    the forward and head captured as one CUDA graph a bucket x shape:
@@ -191,6 +192,29 @@ Phases (each one fails the run with a non-zero exit):
    ``scale_shift_act`` within phase 5's bound. Then
    ``ComputationGraph.load`` of phase 5's archive gives the trained
    ResNet-50 back, whose ``output()`` must equal phase 5's to the bit.
+19. YOLO2 (``zoo.YOLO2``: 80 classes, 3x416x416, the COCO anchors, Adam
+   1e-3, random weights from seed 123) through ``ComputationGraph.fit``
+   at B=32, bf16 / NHWC / fused, labels of 1-3 boxes an image on the
+   13x13 grid (``yolo_labels``, ``numpy.random.default_rng(0)``): 21
+   fused conv-BN-leaky blocks; one warm step, then 3 eager timed steps
+   (21 ``scale_shift_act`` launches a step, no plain call, finite
+   losses; step ms, images/s, MFU against the card's dense bf16 peak
+   from ``profile_fit.conv_flops``, 35.0 GFLOP an image forward x 3 a
+   step; peak memory); phase 14's comparison to the bit
+   (``captured_fit(..., exact=True)``, cuDNN held to deterministic
+   algorithms for it) with 4 x 21 launches recorded at capture; a traced
+   eager step and a traced captured dispatch by group
+   (``profile_fit.profile``); then ``output()`` of a fresh net (21
+   launches, finite fp32 [32, 425, 13, 13]) against the same net on the
+   plain ``scale_shift_act`` within phase 18's bound (max 5%, mean 0.2%
+   of max|out|), decoded with ``YoloUtils.getPredictedObjects``.
+20. The other zoo CNNs (AlexNet, SqueezeNet, UNet, Xception,
+   FaceNetNN4Small2, InceptionResNetV1, NASNet), each at its default
+   input shape and classes, B=16, bf16 / NHWC / fused: a warm step and 3
+   eager steps (finite losses; launches: its fused blocks'
+   ``scale_shift_act`` a step, none in these seven, and no other kernel
+   or plain call), ``output()`` finite of the right shape; step ms and
+   images/s.
 
 The captured-against-eager rule: where the two eager runs agree to the
 bit on a tensor (and on the params' group: the param and its Adam
@@ -219,8 +243,8 @@ sumsq, NaN where the fp64 sum is NaN; ``bn_apply_leaky`` as
 Output: progress lines, then a JSON line ``{"kernels": [...]}`` (the
 flash and layer-norm ``launches`` are phase 3's warmup launches plus its
 replays, softmax's phase 6's; ``replays`` counts the replayed ones;
-``scale_shift_act``'s are phase 4's, its TinyYOLO row phase 9's and its
-Darknet19 row phase 18's eager steps), the
+``scale_shift_act``'s are phase 4's, its TinyYOLO row phase 9's, its
+Darknet19 row phase 18's and its YOLO2 row phase 19's eager steps), the
 ``nvidia-smi`` name/power-limit line, and as the last line
 ``{"ok": true, "device": {...}}``. Without a card, or outside a
 checkout, it exits non-zero and prints no result.
@@ -262,6 +286,14 @@ VGG_BATCH = 64
 VGG_STEPS = 5
 DARKNET_BATCH = 32
 DARKNET_STEPS = 3
+YOLO2_BATCH = 32
+YOLO2_STEPS = 3
+YOLO2_CLASSES = 80
+#: phase 20's zoo CNNs, each at its default input shape and classes
+ZOO_CNNS = ("AlexNet", "SqueezeNet", "UNet", "Xception", "FaceNetNN4Small2",
+            "InceptionResNetV1", "NASNet")
+ZOO_BATCH = 16
+ZOO_STEPS = 3
 LENET_EPOCHS = 4
 
 
@@ -595,6 +627,22 @@ def main() -> None:
     ssa["other_shapes"].append(timed_row(
         f"x [{rows}, {c}] bfloat16, leaky 0.01 (Darknet19's first block, "
         f"B={DARKNET_BATCH})", err,
+        lambda: ck.scale_shift_act_fwd(x, sc, sh, 0.01),
+        lambda: ck.scale_shift_act_plain(x, sc, sh, 0.01),
+        lambda: F.leaky_relu(torch.addcmul(sh, x, sc), 0.01),
+        2 * rows * c * 2 + 2 * c * 2, 2 * rows * c, FP32_FLOPS))
+    del x
+    # and at YOLO2's first epilogue at B=32: [32*416*416, 32] bf16, leaky
+    rows, c = YOLO2_BATCH * 416 * 416, 32
+    x = rand(rows, c, dtype=torch.bfloat16, scale=2.0)
+    sc = rand(c, dtype=torch.bfloat16, scale=0.5, shift=1.0)
+    sh = rand(c, dtype=torch.bfloat16)
+    err = check_ssa("scale_shift_act YOLO2 shape",
+                    ck.scale_shift_act_fwd(x, sc, sh, 0.01),
+                    ck.scale_shift_act_plain(x, sc, sh, 0.01), torch.bfloat16)
+    ssa["other_shapes"].append(timed_row(
+        f"x [{rows}, {c}] bfloat16, leaky 0.01 (YOLO2's first block, "
+        f"B={YOLO2_BATCH})", err,
         lambda: ck.scale_shift_act_fwd(x, sc, sh, 0.01),
         lambda: ck.scale_shift_act_plain(x, sc, sh, 0.01),
         lambda: F.leaky_relu(torch.addcmul(sh, x, sc), 0.01),
@@ -1218,12 +1266,22 @@ def main() -> None:
     dk_launches = darknet19(smi)
     resnet_back(resnet_zip, *resnet_out)
     archive_dir.cleanup()
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- 19. YOLO2
+    y2_launches = yolo2(smi)
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------- 20. the other zoo CNNs
+    zoo_cnns(smi)
+    torch.cuda.empty_cache()
 
     ln.update(served["layer_norm"])
     fa.update(served["flash_attention"])
     ssa["launches"] = fit_launches["scale_shift_act"]
     ssa["other_shapes"][0]["launches"] = yolo_launches["scale_shift_act"]
     ssa["other_shapes"][1]["launches"] = dk_launches
+    ssa["other_shapes"][2]["launches"] = y2_launches
     sm["launches"] = sd_warm["softmax"] + sd_replays["softmax"]
     sm["replays"] = sd_replays["softmax"]
     bn_st["launches"] = probe_launches["bn_stats"]
@@ -2052,6 +2110,200 @@ def resnet_back(path: str, x, probs) -> None:
              f"phase 5's, max|diff| {float((out - probs).abs().max()):.3g}")
     log(f"ResNet-50 ComputationGraph.load in {load_s:.2f} s (iteration "
         f"{net.getIterationCount()}): output() bit-equal to phase 5's")
+
+
+def yolo2(smi: str) -> int:
+    """Phase 19: YOLO2 at full width through ``ComputationGraph.fit``;
+    returns the ``scale_shift_act`` launches of its eager steps."""
+    import torch
+
+    from deeplearning4j_tpu_torch import profile_fit
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn.objdetect import YoloUtils, yolo_labels
+    from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+    from deeplearning4j_tpu_torch.ops import registry
+    dev = torch.device("cuda")
+    ck.install_platform_overrides()
+
+    model = zoo.YOLO2(num_classes=YOLO2_CLASSES)
+    c, h, w = model.input_shape
+    grid = h // 32
+
+    def build():
+        net = model.init()
+        net.setPrecisionPolicy("bf16")
+        net.setComputeLayout("NHWC")
+        net.setEpilogueFusion(True)
+        return net
+    t0 = time.perf_counter()
+    net = build()
+    plan = net._ensure_epilogue_plan()
+    per_image = profile_fit.conv_flops(net)
+    log(f"YOLO2: {net.numParams()} parameters, {len(net.conf.topo)} nodes, "
+        f"{len(plan)} fused conv-BN-leaky blocks, {YOLO2_CLASSES} classes, "
+        f"{c}x{h}x{w}, bf16 policy, NHWC, built in "
+        f"{time.perf_counter() - t0:.2f} s; the convs' forward "
+        f"{per_image / 1e9:.3f} GFLOP an image")
+    if len(plan) != 21:
+        fail(f"YOLO2 fuses {len(plan)} blocks, want 21")
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal(
+        (YOLO2_BATCH, c, h, w), dtype=np.float32)).to(dev)
+    y = torch.from_numpy(yolo_labels(rng, YOLO2_BATCH, YOLO2_CLASSES,
+                                     grid)).to(dev)
+    ds = DataSet(x, y)
+    t0 = time.perf_counter()
+    net.fit(ds)
+    losses = [net.score()]
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_counts()
+    step_ms = []
+    for _ in range(YOLO2_STEPS):
+        t0 = time.perf_counter()
+        net.fit(ds)
+        losses.append(net.score())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(ck.LAUNCHES)
+    plain = dict(ck.PLAIN_CALLS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {k: 0 for k in ck.KERNELS}
+    want["scale_shift_act"] = 21 * YOLO2_STEPS
+    if launches != want or any(plain.values()) or \
+            not all(np.isfinite(losses)):
+        fail(f"YOLO2 fit: launches {launches} (plain {plain}) over "
+             f"{YOLO2_STEPS} steps, losses {losses}: want 21 scale_shift_act "
+             "launches a step, finite")
+    flops = 3 * per_image * YOLO2_BATCH
+    peak = profile_fit.dense_bf16_peak(torch.cuda.get_device_name(0))
+    med = float(np.median(step_ms))
+    log(f"YOLO2 fit B={YOLO2_BATCH}: warm step {warm_s:.2f} s; losses "
+        f"{', '.join(f'{v:.5f}' for v in losses)}; eager step ms median "
+        f"{med:.2f} (min {min(step_ms):.2f}, max {max(step_ms):.2f}), "
+        f"{YOLO2_BATCH / (med / 1e3):.1f} images/s, MFU "
+        f"{flops / (med / 1e3) / peak:.4f} ({flops / 1e12:.3f} TFLOP a step), "
+        f"peak {peak_gb:.2f} GB; launches {launches} [{smi}]")
+    # eager against captured to the bit: cuDNN held to deterministic
+    # algorithms for the comparison
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        res = captured_fit("YOLO2", net, ds, 21, smi, exact=True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    log(f"YOLO2 captured K={MEGA_K} (deterministic cuDNN): step ms "
+        f"{res['captured_ms']:.2f}, "
+        f"{YOLO2_BATCH / (res['captured_ms'] / 1e3):.1f} images/s, MFU "
+        f"{flops / (res['captured_ms'] / 1e3) / peak:.4f}; eager step ms "
+        f"{res['eager_ms']:.2f} in that comparison [{smi}]")
+    group = [ds] * MEGA_K
+    for what, tr, steps in (
+            ("eager step", profile_fit.profile(
+                lambda: (net.fit(ds), net.score()), "yolo2", False), 1),
+            (f"captured dispatch of {MEGA_K}", profile_fit.profile(
+                lambda: (net.fit(group, steps_per_dispatch=MEGA_K),
+                         net.score()), "yolo2", True), MEGA_K)):
+        log(f"YOLO2 traced {what}: {tr['traced_ms']:.2f} ms host, "
+            f"{tr['traced_device_ms']:.2f} ms device in "
+            f"{tr['device_kernels']} kernels "
+            f"({tr['traced_device_ms'] / steps:.2f} ms a step), busy "
+            f"{tr['device_busy_share_traced']:.3f}; by group "
+            f"{json.dumps(tr['device_ms_by_group'])} [{smi}]")
+    # output() on a fresh net from the seed (a trained YOLO's wh outputs,
+    # anchors * exp, may overflow), kernel against plain, then decoded
+    del net
+    net = build()
+    ck.reset_counts()
+    out = net.output(x)
+    out_launches = ck.LAUNCHES["scale_shift_act"]
+    registry.register_platform_override("scale_shift_act", ssa_plain)
+    out_plain = net.output(x)
+    ck.install_platform_overrides()
+    n_ch = 5 * (5 + YOLO2_CLASSES)
+    if out_launches != 21 or \
+            tuple(out.shape) != (YOLO2_BATCH, n_ch, grid, grid) or \
+            out.dtype != torch.float32 or not bool(torch.isfinite(out).all()):
+        fail(f"YOLO2 output: {out_launches} launches, {tuple(out.shape)} "
+             f"{out.dtype}: want 21 and finite fp32 [{YOLO2_BATCH}, {n_ch}, "
+             f"{grid}, {grid}]")
+    dp = (out - out_plain).abs()
+    pmax = float(out_plain.abs().max())
+    objs = YoloUtils.getPredictedObjects(zoo.YOLO2.ANCHORS, out)
+    log(f"YOLO2 output kernel vs plain: max|diff| {float(dp.max()):.4g}, "
+        f"mean|diff| {float(dp.mean()):.4g}, max|out| {pmax:.4g}; "
+        f"getPredictedObjects: {len(objs)} objects in {YOLO2_BATCH} images")
+    if float(dp.max()) > 0.05 * pmax or float(dp.mean()) > 2e-3 * pmax:
+        fail("kernel and plain YOLO2 forwards disagree beyond the bound "
+             "(max 5%, mean 0.2% of max|out|)")
+    return launches["scale_shift_act"]
+
+
+def zoo_cnns(smi: str) -> None:
+    """Phase 20: each of ``ZOO_CNNS`` at its default input shape and
+    classes, bf16 / NHWC / fused: a warm step, ``ZOO_STEPS`` eager steps
+    (finite losses, its fused blocks' ``scale_shift_act`` launches and
+    nothing else), ``output()`` of the right shape, finite."""
+    import torch
+
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+    dev = torch.device("cuda")
+    ck.install_platform_overrides()
+    t_phase = time.perf_counter()
+    for name in ZOO_CNNS:
+        model = getattr(zoo, name)()
+        net = model.init()
+        net.setPrecisionPolicy("bf16")
+        net.setComputeLayout("NHWC")
+        net.setEpilogueFusion(True)
+        blocks = len(net._ensure_epilogue_plan())
+        c, h, w = model.input_shape
+        rng = np.random.default_rng(0)
+        x = torch.from_numpy(rng.standard_normal(
+            (ZOO_BATCH, c, h, w), dtype=np.float32)).to(dev)
+        if name == "UNet":
+            y = (rng.random((ZOO_BATCH, 1, h, w)) < 0.5).astype(np.float32)
+            out_shape = (ZOO_BATCH, 1, h, w)
+        else:
+            y = np.eye(model.num_classes, dtype=np.float32)[
+                rng.integers(0, model.num_classes, ZOO_BATCH)]
+            out_shape = (ZOO_BATCH, model.num_classes)
+        ds = DataSet(x, torch.from_numpy(y).to(dev))
+        t0 = time.perf_counter()
+        net.fit(ds)
+        losses = [net.score()]
+        warm_s = time.perf_counter() - t0
+        ck.reset_counts()
+        step_ms = []
+        for _ in range(ZOO_STEPS):
+            t0 = time.perf_counter()
+            net.fit(ds)
+            losses.append(net.score())
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(ck.LAUNCHES)
+        want = {k: 0 for k in ck.KERNELS}
+        want["scale_shift_act"] = blocks * ZOO_STEPS
+        out = net.output(x)
+        if launches != want or any(ck.PLAIN_CALLS.values()) or \
+                not all(np.isfinite(losses)) or \
+                tuple(out.shape) != out_shape or \
+                not bool(torch.isfinite(out).all()):
+            fail(f"{name}: launches {launches} (plain "
+                 f"{dict(ck.PLAIN_CALLS)}), losses {losses}, output "
+                 f"{tuple(out.shape)}: want {blocks} scale_shift_act launches "
+                 f"a step, finite losses and a finite {out_shape} output")
+        med = float(np.median(step_ms))
+        log(f"{name} fit B={ZOO_BATCH} at {c}x{h}x{w}: {net.numParams()} "
+            f"parameters, {blocks} fused blocks; warm step {warm_s:.2f} s; "
+            f"losses {', '.join(f'{v:.5f}' for v in losses)}; eager step ms "
+            f"median {med:.2f} (min {min(step_ms):.2f}, max "
+            f"{max(step_ms):.2f}), {ZOO_BATCH / (med / 1e3):.1f} images/s; "
+            f"output {tuple(out.shape)} [{smi}]")
+        del net, ds, x, out
+    log(f"zoo CNNs: {len(ZOO_CNNS)} models in "
+        f"{time.perf_counter() - t_phase:.1f} s")
 
 
 def ssa_plain(x, scale, shift, *, alpha=0.0, axis=1):

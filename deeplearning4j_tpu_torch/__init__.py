@@ -7,8 +7,10 @@ only. The paths that run: serving a pre-LN BERT-base
 ``serving.ModelServer``, its forward captured as CUDA graphs, and behind
 the network front door (``serving.ModelRegistry``, ``serving.
 HttpIngress``), and training it (``make_train_step``); training
-ResNet-50, LeNet-5, VGG16, Darknet19 and TinyYOLO (``models.zoo``)
-through ``nn.graph.ComputationGraph`` and
+every CNN of the JAX zoo (``models.zoo``: ResNet-50, YOLO2, LeNet-5,
+VGG16, Darknet19, TinyYOLO, AlexNet, SqueezeNet, UNet, Xception,
+FaceNetNN4Small2, InceptionResNetV1, NASNet and the rest) through
+``nn.graph.ComputationGraph`` and
 ``nn.multilayer.MultiLayerNetwork``, one step or K steps a dispatch
 captured as a CUDA graph (``nn.compilecache``, ``train.stepping``),
 dropout drawn on the device clock, scored with ``evaluate`` and kept in

@@ -1,5 +1,5 @@
-"""ComputationGraph — DAG networks with graph vertices (the slice's
-subset of ``deeplearning4j_tpu/nn/graph.py``).
+"""ComputationGraph — DAG networks with graph vertices (the port of
+``deeplearning4j_tpu/nn/graph.py``).
 
 The JAX package traces the whole step into one compiled program; the
 port runs the shared step of :mod:`.network`: one forward,
@@ -13,9 +13,13 @@ consumers, and the fp32/bf16 alignment at vertices. ``evaluate``,
 ``summary``, ``save``/``load`` (the JAX package's archive and JSON) and
 ``clone`` are the reference's.
 
+Every vertex of the JAX package is here; ElementWise, Scale and Shift
+keep an NHWC activation when all their inputs are NHWC, every other
+vertex is handed NCHW, as in the JAX forward.
+
 Not ported yet (ROADMAP.md): dynamic loss scaling, augmentation,
 sharding, resilience, listeners, the compile cache's disk tier, the
-sanitizer, the vertices other than Merge and ElementWise.
+sanitizer, feature masks for recurrent inputs.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from deeplearning4j_tpu_torch.nn import layers as L
 from deeplearning4j_tpu_torch.nn import preprocessors as pp
 from deeplearning4j_tpu_torch.nn.config import InputType, NeuralNetConfiguration
 from deeplearning4j_tpu_torch.nn.network import BaseNetwork
-from deeplearning4j_tpu_torch.ops.normalization import StepKey
+from deeplearning4j_tpu_torch.ops.normalization import StepKey, dtype_scalar
 
 
 class GraphVertex:
@@ -103,7 +107,135 @@ class ElementWiseVertex(GraphVertex):
         raise ValueError(self.op)
 
 
-_VERTEX_CLASSES = {c.__name__: c for c in (MergeVertex, ElementWiseVertex)}
+class DotProductVertex(GraphVertex):
+    """Per-example dot product of two [N, C] inputs, optionally of their
+    L2-normalized rows (norms at least 1e-12); [N, 1] out (the Keras
+    ``Dot`` merge)."""
+
+    def __init__(self, normalize: bool = False):
+        self.normalize = normalize
+
+    def apply(self, a, b):
+        if a.dim() != 2 or b.dim() != 2:
+            raise ValueError(
+                f"DotProductVertex supports rank-2 [N, C] inputs (got ranks "
+                f"{a.dim()}/{b.dim()})")
+        if self.normalize:
+            a = a / torch.clamp_min(
+                torch.linalg.vector_norm(a, dim=-1, keepdim=True), 1e-12)
+            b = b / torch.clamp_min(
+                torch.linalg.vector_norm(b, dim=-1, keepdim=True), 1e-12)
+        return (a * b).sum(dim=-1, keepdim=True)
+
+    def output_type(self, *its: InputType) -> InputType:
+        return InputType.feedForward(1)
+
+
+class SubsetVertex(GraphVertex):
+    """Channels (features) ``frm`` to ``to`` inclusive (ref: SubsetVertex)."""
+
+    def __init__(self, frm: int, to: int):
+        self.frm, self.to = frm, to
+
+    def apply(self, x):
+        return x[:, self.frm:self.to + 1]
+
+    def output_type(self, it: InputType) -> InputType:
+        n = self.to - self.frm + 1
+        if it.kind == "cnn":
+            return InputType.convolutional(it.height, it.width, n)
+        if it.kind == "rnn":
+            return InputType.recurrent(n, it.dims.get("timesteps", -1))
+        return InputType.feedForward(n)
+
+
+class L2NormalizeVertex(GraphVertex):
+    """Each example divided by its L2 norm over every other axis, the norm
+    at least ``eps`` (ref: L2NormalizeVertex; FaceNet's embedding)."""
+
+    def __init__(self, eps: float = 1e-8):
+        self.eps = eps
+
+    def apply(self, x):
+        flat = x.reshape(x.shape[0], -1)
+        n = torch.sqrt((flat * flat).sum(dim=1, keepdim=True))
+        return (flat / torch.clamp_min(n, self.eps)).reshape(x.shape)
+
+
+class ScaleVertex(GraphVertex):
+    """``x * scale`` (ref: ScaleVertex), the scalar rounded to x's dtype
+    first as jnp rounds a weakly typed one."""
+
+    def __init__(self, scale: float):
+        self.scale = scale
+
+    def apply(self, x):
+        return x * dtype_scalar(self.scale, x.dtype)
+
+
+class ShiftVertex(GraphVertex):
+    """``x + shift`` (ref: ShiftVertex), rounded as ScaleVertex's."""
+
+    def __init__(self, shift: float):
+        self.shift = shift
+
+    def apply(self, x):
+        return x + dtype_scalar(self.shift, x.dtype)
+
+
+class StackVertex(GraphVertex):
+    """Inputs stacked along the batch axis (ref: StackVertex)."""
+
+    def apply(self, *inputs):
+        return torch.cat(inputs, dim=0)
+
+
+class UnstackVertex(GraphVertex):
+    """Slice ``frm`` of ``stack_size`` equal batch slices (ref:
+    UnstackVertex)."""
+
+    def __init__(self, frm: int, stack_size: int):
+        self.frm, self.stack_size = frm, stack_size
+
+    def apply(self, x):
+        n = x.shape[0] // self.stack_size
+        return x[self.frm * n:(self.frm + 1) * n]
+
+
+class PreprocessorVertex(GraphVertex):
+    """An input preprocessor as a vertex (ref: PreprocessorVertex). Its
+    JSON names a class of :mod:`.preprocessors` and its attributes."""
+
+    def __init__(self, preproc):
+        self.preproc = preproc
+
+    def apply(self, x):
+        return self.preproc(x)
+
+    def output_type(self, it: InputType) -> InputType:
+        return self.preproc.output_type(it)
+
+    def to_config(self):
+        return {"@class": "PreprocessorVertex",
+                "preproc_class": type(self.preproc).__name__,
+                "preproc_args": dict(self.preproc.__dict__)}
+
+    @classmethod
+    def from_config(cls, d):
+        pc = getattr(pp, d["preproc_class"])
+        obj = pc.__new__(pc)
+        obj.__dict__.update(d["preproc_args"])
+        return PreprocessorVertex(obj)
+
+
+_VERTEX_CLASSES = {c.__name__: c for c in (
+    MergeVertex, ElementWiseVertex, SubsetVertex, DotProductVertex,
+    L2NormalizeVertex, ScaleVertex, ShiftVertex, StackVertex, UnstackVertex,
+    PreprocessorVertex)}
+
+#: vertices that keep NHWC when every input is NHWC (elementwise); every
+#: other vertex is handed NCHW (JAX nn/graph.py:537-558)
+_LAYOUT_TRANSPARENT_VERTICES = (ElementWiseVertex, ScaleVertex, ShiftVertex)
 
 
 class _GraphNode:
@@ -358,7 +490,7 @@ class ComputationGraph(BaseNetwork):
             else:
                 xs = [read(i) for i in node.inputs]
                 in_fmts = [fmt[i] for i in node.inputs]
-                if isinstance(node.obj, ElementWiseVertex) \
+                if isinstance(node.obj, _LAYOUT_TRANSPARENT_VERTICES) \
                         and any(in_fmts) and all(in_fmts):
                     out_nhwc = True                # elementwise: keep NHWC
                 else:

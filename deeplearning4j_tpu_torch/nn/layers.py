@@ -1,5 +1,6 @@
-"""Layer configurations and their forward passes (the slice's subset of
-``deeplearning4j_tpu/nn/layers.py``).
+"""Layer configurations and their forward passes (the feed-forward and
+2-D convolutional layers of ``deeplearning4j_tpu/nn/layers.py``; the
+recurrent, 1-D/3-D and attention layers are not ported).
 
 Weight layouts match the reference (dense W [nIn, nOut], conv W
 [nOut, nIn, kH, kW]). Each layer is ``apply(params, state, x, train) ->
@@ -140,7 +141,7 @@ class Layer:
             if k == "@class":
                 continue
             if isinstance(v, list) and k in ("kernel", "stride", "padding",
-                                             "dilation"):
+                                             "dilation", "scale", "crop"):
                 v = tuple(v)
             setattr(obj, k, v)
         return obj
@@ -200,7 +201,6 @@ class ConvolutionLayer(Layer):
         return act.get(self.activation)(out), state
 
     def output_type(self, it: InputType) -> InputType:
-        conv_ops._check_mode(self.mode)     # same mode: pooling only
         h = conv_ops.conv_output_size(it.height, self.kernel[0],
                                       self.stride[0], self.padding[0],
                                       self.dilation[0], self.mode)
@@ -210,36 +210,113 @@ class ConvolutionLayer(Layer):
         return InputType.convolutional(h, w, self.nOut)
 
 
+class Deconvolution2D(ConvolutionLayer):
+    """ref: Deconvolution2DLayer — W [nOut, nIn, kH, kW] (no dropout on
+    its input, as in the JAX package)."""
+
+    def apply(self, params, state, x, train, key=None):
+        out = conv_ops.deconv2d(x, params["W"], params.get("b"),
+                                stride=self.stride, pad=self.padding,
+                                mode=self.mode, data_format=self.data_format)
+        return act.get(self.activation)(out), state
+
+    def output_type(self, it: InputType) -> InputType:
+        (sh, sw), (kh, kw), (ph, pw) = self.stride, self.kernel, self.padding
+        if self.mode.lower() == "same":
+            h, w = it.height * sh, it.width * sw
+        else:
+            h = (it.height - 1) * sh + kh - 2 * ph
+            w = (it.width - 1) * sw + kw - 2 * pw
+        return InputType.convolutional(h, w, self.nOut)
+
+
+class DepthwiseConvolution2D(ConvolutionLayer):
+    """ref: DepthwiseConvolution2DLayer — W [mult, nIn, kH, kW], nOut
+    ``nIn * mult``."""
+
+    def __init__(self, depthMultiplier: int = 1, **kw):
+        super().__init__(**kw)
+        self.depth_multiplier = depthMultiplier
+
+    def infer_nin(self, it):
+        super().infer_nin(it)
+        if self.nOut is None:
+            self.nOut = self.nIn * self.depth_multiplier
+
+    def initialize(self, gen):
+        shape = (self.depth_multiplier, self.nIn) + self.kernel
+        params = {"W": _initialize(shape, self.weight_init, gen)}
+        if self.has_bias:
+            params["b"] = torch.full((self.nOut,), float(self.bias_init))
+        return params, {}
+
+    def apply(self, params, state, x, train, key=None):
+        out = conv_ops.depthwise_conv2d(x, params["W"], params.get("b"),
+                                        stride=self.stride, pad=self.padding,
+                                        dilation=self.dilation, mode=self.mode,
+                                        data_format=self.data_format)
+        return act.get(self.activation)(out), state
+
+
+class SeparableConvolution2D(ConvolutionLayer):
+    """ref: SeparableConvolution2DLayer — depthwise ``Wd`` [mult, nIn, kH,
+    kW], then pointwise ``Wp`` [nOut, nIn*mult, 1, 1] and the bias."""
+
+    def __init__(self, depthMultiplier: int = 1, **kw):
+        super().__init__(**kw)
+        self.depth_multiplier = depthMultiplier
+
+    def initialize(self, gen):
+        params = {
+            "Wd": _initialize((self.depth_multiplier, self.nIn) + self.kernel,
+                              self.weight_init, gen),
+            "Wp": _initialize((self.nOut, self.nIn * self.depth_multiplier,
+                               1, 1), self.weight_init, gen)}
+        if self.has_bias:
+            params["b"] = torch.full((self.nOut,), float(self.bias_init))
+        return params, {}
+
+    def apply(self, params, state, x, train, key=None):
+        out = conv_ops.separable_conv2d(x, params["Wd"], params["Wp"],
+                                        params.get("b"), stride=self.stride,
+                                        pad=self.padding,
+                                        dilation=self.dilation,
+                                        mode=self.mode,
+                                        data_format=self.data_format)
+        return act.get(self.activation)(out), state
+
+
 class SubsamplingLayer(Layer):
-    """ref: SubsamplingLayer (max/avg pooling); ``convolutionMode="same"``
-    gives ``ceil(n / stride)`` outputs and ignores ``padding``, as XLA's
-    SAME does."""
+    """ref: SubsamplingLayer (max/avg/pnorm pooling);
+    ``convolutionMode="same"`` gives ``ceil(n / stride)`` outputs and
+    ignores ``padding``, as XLA's SAME does."""
 
     input_kind = "cnn"
     has_params = False
 
     def __init__(self, poolingType: str = "max", kernelSize=(2, 2),
                  stride=(2, 2), padding=(0, 0),
-                 convolutionMode: str = "truncate", **kw):
+                 convolutionMode: str = "truncate", pnorm: int = 2, **kw):
         super().__init__(**kw)
         self.pooling = poolingType.lower()
-        if self.pooling not in ("max", "avg"):
-            raise NotImplementedError(f"pooling {poolingType!r}: only max "
-                                      "and avg are ported")
         self.kernel = _pair(kernelSize)
         self.stride = _pair(stride)
         self.padding = _pair(padding)
         self.mode = convolutionMode
+        self.pnorm = pnorm
 
     def infer_nin(self, it):
         self.nIn = self.nOut = it.channels
 
     def apply(self, params, state, x, train, key=None):
-        fn = conv_ops.maxpool2d if self.pooling == "max" \
-            else conv_ops.avgpool2d
-        return fn(x, kernel=self.kernel, stride=self.stride,
-                  pad=self.padding, mode=self.mode,
-                  data_format=self.data_format), state
+        fn = {"max": conv_ops.maxpool2d, "avg": conv_ops.avgpool2d,
+              "pnorm": conv_ops.pnormpool2d}[self.pooling]
+        kw = {"kernel": self.kernel, "stride": self.stride,
+              "pad": self.padding, "mode": self.mode,
+              "data_format": self.data_format}
+        if self.pooling == "pnorm":
+            kw["pnorm"] = self.pnorm
+        return fn(x, **kw), state
 
     def output_type(self, it: InputType) -> InputType:
         h = conv_ops.conv_output_size(it.height, self.kernel[0],
@@ -295,6 +372,34 @@ class BatchNormalization(Layer):
         return it
 
 
+class LocalResponseNormalization(Layer):
+    """ref: LocalResponseNormalization — ``x / (k + alpha * sum x^2)^beta``
+    over ``n`` neighbouring channels (alpha not divided by n, unlike
+    ``F.local_response_norm``; ``k`` 2.0 as the reference's layer)."""
+
+    input_kind = "cnn"
+    has_params = False
+
+    def __init__(self, n: int = 5, alpha: float = 1e-4, beta: float = 0.75,
+                 k: float = 2.0, **kw):
+        super().__init__(**kw)
+        self.n = n
+        self.alpha = alpha
+        self.beta = beta
+        self.k = k
+
+    def infer_nin(self, it):
+        self.nIn = self.nOut = it.channels
+
+    def apply(self, params, state, x, train, key=None):
+        return norm_ops.lrn(x, depth=self.n, alpha=self.alpha,
+                            beta=self.beta, bias=self.k,
+                            data_format=self.data_format), state
+
+    def output_type(self, it):
+        return it
+
+
 class ActivationLayer(Layer):
     """ref: ActivationLayer."""
 
@@ -334,6 +439,108 @@ class DropoutLayer(Layer):
 
     def output_type(self, it):
         return it
+
+
+class SpatialDropoutLayer(Layer):
+    """Channel dropout (ref: SpatialDropout): whole feature maps of each
+    example are zeroed, the rest scaled by ``1/keep``. ``rate`` is the
+    DROP probability; the mask is ``dropout_mask`` over [N, C]. Input
+    [N, C, *spatial]."""
+
+    input_kind = None
+    has_params = False
+
+    def __init__(self, rate=0.5, **kw):
+        super().__init__(**kw)
+        self.rate = float(rate)
+
+    def infer_nin(self, it):
+        self.nIn = self.nOut = it.arrayElementsPerExample()
+
+    def apply(self, params, state, x, train, key=None):
+        if not train or self.rate <= 0.0:
+            return x, state
+        keep = 1.0 - self.rate
+        shape = (x.shape[0], x.shape[1]) + (1,) * (x.dim() - 2)
+        mask = norm_ops.dropout_mask(key, shape, keep, x.device).to(x.dtype)
+        return x * mask / norm_ops.dtype_scalar(keep, x.dtype), state
+
+    def output_type(self, it):
+        return it
+
+
+class ZeroPaddingLayer(Layer):
+    """ref: ZeroPaddingLayer — ``padding`` an int, ``(h, w)`` or
+    ``((top, bottom), (left, right))``."""
+
+    input_kind = "cnn"
+    has_params = False
+
+    def __init__(self, padding=(1, 1), **kw):
+        super().__init__(**kw)
+        if isinstance(padding, int):
+            self.pad = (padding, padding)
+        elif all(isinstance(p, int) for p in padding):
+            self.pad = tuple(int(p) for p in padding)
+        else:
+            self.pad = tuple(tuple(int(v) for v in p) for p in padding)
+
+    def infer_nin(self, it):
+        self.nIn = self.nOut = it.channels
+
+    def apply(self, params, state, x, train, key=None):
+        return conv_ops.zero_padding2d(x, self.pad,
+                                       data_format=self.data_format), state
+
+    def output_type(self, it):
+        (t, b), (l, r) = conv_ops._edges(self.pad)
+        return InputType.convolutional(it.height + t + b, it.width + l + r,
+                                       it.channels)
+
+
+class Upsampling2D(Layer):
+    """ref: Upsampling2D (nearest neighbour)."""
+
+    input_kind = "cnn"
+    has_params = False
+
+    def __init__(self, size=2, **kw):
+        super().__init__(**kw)
+        self.scale = _pair(size)
+
+    def infer_nin(self, it):
+        self.nIn = self.nOut = it.channels
+
+    def apply(self, params, state, x, train, key=None):
+        return conv_ops.upsampling2d(x, self.scale,
+                                     data_format=self.data_format), state
+
+    def output_type(self, it):
+        return InputType.convolutional(it.height * self.scale[0],
+                                       it.width * self.scale[1], it.channels)
+
+
+class Cropping2D(Layer):
+    """ref: Cropping2D — ``crop`` as ZeroPaddingLayer's ``padding``."""
+
+    input_kind = "cnn"
+    has_params = False
+
+    def __init__(self, crop=(1, 1), **kw):
+        super().__init__(**kw)
+        self.crop = tuple(crop)
+
+    def infer_nin(self, it):
+        self.nIn = self.nOut = it.channels
+
+    def apply(self, params, state, x, train, key=None):
+        return conv_ops.cropping2d(x, self.crop,
+                                   data_format=self.data_format), state
+
+    def output_type(self, it):
+        (t, b), (l, r) = conv_ops._edges(self.crop)
+        return InputType.convolutional(it.height - t - b, it.width - l - r,
+                                       it.channels)
 
 
 class GlobalPoolingLayer(Layer):
@@ -396,9 +603,33 @@ class OutputLayer(BaseOutputLayer):
         return act.get(self.activation)(z), state
 
 
+class LossLayer(BaseOutputLayer):
+    """ref: LossLayer — the activation and the loss, no params."""
+
+    has_params = False
+    input_kind = None
+
+    def __init__(self, lossFunction="mcxent", **kw):
+        super().__init__(lossFunction=lossFunction, **kw)
+        if self.activation is None:
+            self.activation = "identity"
+
+    def infer_nin(self, it):
+        self.nIn = self.nOut = it.arrayElementsPerExample()
+
+    def apply(self, params, state, x, train, key=None):
+        return act.get(self.activation)(x), state
+
+    def output_type(self, it):
+        return it
+
+
 _LAYER_CLASSES = {cls.__name__: cls for cls in (
-    DenseLayer, ConvolutionLayer, SubsamplingLayer, BatchNormalization,
-    ActivationLayer, DropoutLayer, GlobalPoolingLayer, OutputLayer)}
+    DenseLayer, ConvolutionLayer, Deconvolution2D, DepthwiseConvolution2D,
+    SeparableConvolution2D, SubsamplingLayer, BatchNormalization,
+    LocalResponseNormalization, ActivationLayer, DropoutLayer,
+    SpatialDropoutLayer, ZeroPaddingLayer, Upsampling2D, Cropping2D,
+    GlobalPoolingLayer, OutputLayer, LossLayer)}
 
 
 def layer_from_config(d: Dict) -> Layer:
@@ -411,10 +642,12 @@ def layer_from_config(d: Dict) -> Layer:
 
 
 # ------------------------------------------------------------- dtype policy
-# Master params stay fp32. BatchNorm keeps fp32 params and casts inside
-# its ops (activations stay in the compute dtype through it); the output
-# layer gets fp32 activations and fp32 params (softmax and loss).
-_POLICY_FP32_PARAM_LAYERS = (BatchNormalization, BaseOutputLayer)
+# Master params stay fp32. BatchNorm and LRN keep fp32 params and cast
+# inside their ops (activations stay in the compute dtype through them);
+# the output layers get fp32 activations and fp32 params (softmax and
+# loss).
+_POLICY_FP32_PARAM_LAYERS = (BatchNormalization, LocalResponseNormalization,
+                             BaseOutputLayer)
 
 
 def compute_dtype_of(conf_dtype) -> Optional[torch.dtype]:
@@ -451,9 +684,11 @@ def policy_cast(layer, params, x, compute_dt):
 # [N, H, W, C] tensor whose NCHW-shaped permuted view is channels_last,
 # which is what cuDNN and ``scale_shift_act`` want.
 
-#: layers whose apply computes natively in NHWC when stamped
+#: layers whose apply computes natively in NHWC when stamped (the conv
+#: family covers Deconvolution/Depthwise/Separable by subclassing)
 LAYOUT_AWARE = (ConvolutionLayer, SubsamplingLayer, BatchNormalization,
-                GlobalPoolingLayer)
+                LocalResponseNormalization, ZeroPaddingLayer, Upsampling2D,
+                Cropping2D, GlobalPoolingLayer)
 
 #: elementwise layers that keep whatever layout flows in
 LAYOUT_TRANSPARENT = (ActivationLayer,)

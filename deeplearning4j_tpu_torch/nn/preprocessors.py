@@ -1,5 +1,6 @@
 """Input preprocessors — layout adapters inserted between layers (the
-port of ``deeplearning4j_tpu/nn/preprocessors.py``).
+port of ``deeplearning4j_tpu/nn/preprocessors.py``, and YOLO2's
+space-to-depth).
 
 ref: ``org.deeplearning4j.nn.conf.preprocessor.{FeedForwardToCnn,
 CnnToFeedForward, RnnToFeedForward, FeedForwardToRnn, CnnToRnn}
@@ -16,6 +17,7 @@ from typing import Optional
 import torch
 
 from deeplearning4j_tpu_torch.nn.config import InputType
+from deeplearning4j_tpu_torch.ops.convolution import space_to_depth
 
 
 class Preprocessor:
@@ -87,6 +89,23 @@ class CnnToRnn(Preprocessor):
 
     def output_type(self, it: InputType) -> InputType:
         return InputType.recurrent(it.channels * it.height, it.width)
+
+
+class SpaceToDepth(Preprocessor):
+    """[N, c, h, w] -> [N, c*b*b, h/b, w/b] (``ops.convolution.
+    space_to_depth``, channels in (bh, bw, c) order): YOLO2's passthrough
+    route, which the JAX zoo defines inside ``YOLO2.conf_builder``."""
+
+    def __init__(self, block_size: int = 2):
+        self.block_size = block_size
+
+    def __call__(self, x):
+        return space_to_depth(x, self.block_size)
+
+    def output_type(self, it: InputType) -> InputType:
+        b = self.block_size
+        return InputType.convolutional(it.height // b, it.width // b,
+                                       it.channels * b * b)
 
 
 def preprocessor_for(input_type: InputType, layer) -> Optional[Preprocessor]:

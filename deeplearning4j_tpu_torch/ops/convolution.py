@@ -1,8 +1,9 @@
-"""Convolution and pooling ops (the slice's subset of
-``deeplearning4j_tpu/ops/convolution.py``).
+"""The 2-D convolution, pooling and resampling ops of
+``deeplearning4j_tpu/ops/convolution.py`` (1-D and 3-D are not ported).
 
 The JAX package leaves convolutions to XLA; the port leaves them to
-``F.conv2d`` (cuDNN on the card). Weights stay ``[O, I, kH, kW]``.
+``F.conv2d`` and ``F.conv_transpose2d`` (cuDNN on the card). Weights stay
+``[O, I, kH, kW]``; a depthwise weight is ``[mult, I, kH, kW]``.
 
 Layouts: ``data_format="NCHW"`` takes and returns ``[N, C, H, W]``;
 ``"NHWC"`` takes and returns ``[N, H, W, C]``. An NHWC tensor is handed
@@ -11,11 +12,11 @@ memory when the NHWC tensor is contiguous, so cuDNN runs channels-last
 and the result permutes back to a contiguous NHWC tensor without a copy.
 
 Padding follows DL4J's ``ConvolutionMode``: ``truncate`` (explicit
-symmetric padding, floor-divided output) for convolutions and pooling,
-and ``same`` for pooling: XLA's SAME, which ignores the explicit padding
-and pads ``max((ceil(n/s)-1)*s + k - n, 0)`` per spatial dim, half of it
-(rounded down) before and the rest after. Torch's pools pad only
-symmetrically, so same mode pads with ``F.pad`` first.
+symmetric padding, floor-divided output) and ``same``: XLA's SAME, which
+ignores the explicit padding and pads ``max((ceil(n/s)-1)*s + k' - n,
+0)`` per spatial dim (``k'`` the dilated kernel), half of it (rounded
+down) before and the rest after. Torch pads only symmetrically, so an
+odd total pads with ``F.pad`` first.
 """
 
 from __future__ import annotations
@@ -46,13 +47,11 @@ def _channels_first(data_format: str) -> bool:
     return fmt == "NCHW"
 
 
-def _check_mode(mode: str, pooling: bool = False) -> None:
-    ported = ("truncate", "strict", "same") if pooling \
-        else ("truncate", "strict")
-    if mode.lower() not in ported:
-        raise NotImplementedError(
-            f"{'pooling' if pooling else 'convolution'} mode {mode!r}: only "
-            f"{', '.join(repr(m) for m in ported)} ported")
+def _check_mode(mode: str) -> None:
+    if mode.lower() not in ("truncate", "strict", "same"):
+        raise NotImplementedError(f"convolution mode {mode!r}: only "
+                                  "'truncate', 'strict' and 'same' are "
+                                  "ported (causal is 1-D)")
 
 
 def _to_torch(x, cf: bool):
@@ -75,19 +74,87 @@ def _bias_reshape(b, ndim_spatial: int, data_format: str):
     return b.reshape((1,) + (1,) * ndim_spatial + (-1,))
 
 
+def _same_pad(xt, kernel, stride, dilation=(1, 1), value=0.0):
+    """XLA's SAME padding of an NCHW-shaped tensor: ``(xt, padding)``,
+    the symmetric part left to the op's ``padding`` and an odd remainder
+    padded after with ``F.pad``."""
+    (pt, pb), (pl, pr) = (same_padding(n, (k - 1) * d + 1, s) for n, k, s, d
+                          in zip(xt.shape[2:], kernel, stride, dilation))
+    if pb != pt or pr != pl:
+        xt = F.pad(xt, (0, pr - pl, 0, pb - pt), value=value)
+    return xt, (pt, pl)
+
+
 def conv2d(x, w, b=None, *, stride: IntOrPair = 1, pad: IntOrPair = 0,
            dilation: IntOrPair = 1, mode: str = "truncate",
-           data_format: str = "NCHW"):
-    """2D convolution (ref: libnd4j ``conv2d``), ``w`` in OIHW. The bias
-    is added after the convolution, as the JAX package does."""
+           data_format: str = "NCHW", groups: int = 1):
+    """2D convolution (ref: libnd4j ``conv2d``), ``w`` in OIHW
+    (``[O, I/groups, kH, kW]``). The bias is added after the convolution,
+    as the JAX package does."""
     _check_mode(mode)
     cf = _channels_first(data_format)
-    out = F.conv2d(_to_torch(x, cf), w, None, stride=_pair(stride),
-                   padding=_pair(pad), dilation=_pair(dilation))
+    xt = _to_torch(x, cf)
+    stride, dilation = _pair(stride), _pair(dilation)
+    if mode.lower() == "same":
+        xt, pad = _same_pad(xt, tuple(w.shape[2:]), stride, dilation)
+    out = F.conv2d(xt, w, None, stride=stride, padding=_pair(pad),
+                   dilation=dilation, groups=groups)
     out = _from_torch(out, cf)
     if b is not None:
         out = out + _bias_reshape(b, 2, data_format)
     return out
+
+
+def deconv2d(x, w, b=None, *, stride: IntOrPair = 1, pad: IntOrPair = 0,
+             mode: str = "truncate", data_format: str = "NCHW"):
+    """Transposed convolution (ref: ``deconv2d``), ``w`` ``[O, I, kH,
+    kW]`` as the JAX package's (its conv of the stride-dilated input with
+    the flipped kernel is ``F.conv_transpose2d`` with the weight's two
+    channel axes swapped). Truncate mode: ``(n-1)*s + k - 2p`` outputs.
+    Same mode: ``n*s`` outputs where ``k >= s``; the JAX package crops
+    ``max(k-s, 0)`` from the full ``(n-1)*s + k``, half (rounded down)
+    before and the rest after."""
+    _check_mode(mode)
+    cf = _channels_first(data_format)
+    stride = _pair(stride)
+    wt = w.transpose(0, 1)
+    if mode.lower() == "same":
+        out = F.conv_transpose2d(_to_torch(x, cf), wt, None, stride=stride)
+        crops = [max(k - s, 0) for k, s in zip(w.shape[2:], stride)]
+        h, wd = out.shape[2:]
+        out = out[:, :, crops[0] // 2:h - (crops[0] - crops[0] // 2),
+                  crops[1] // 2:wd - (crops[1] - crops[1] // 2)]
+    else:
+        out = F.conv_transpose2d(_to_torch(x, cf), wt, None, stride=stride,
+                                 padding=_pair(pad))
+    out = _from_torch(out, cf)
+    if b is not None:
+        out = out + _bias_reshape(b, 2, data_format)
+    return out
+
+
+def depthwise_conv2d(x, w, b=None, *, stride: IntOrPair = 1,
+                     pad: IntOrPair = 0, dilation: IntOrPair = 1,
+                     mode: str = "truncate", data_format: str = "NCHW"):
+    """Depthwise convolution (ref: ``depthwise_conv2d``), ``w`` ``[mult,
+    I, kH, kW]``: a grouped conv with ``groups=I`` whose output channel
+    ``c*mult + m`` is input channel c under multiplier m (the JAX
+    package's ``feature_group_count`` order, which torch's groups share)."""
+    mult, in_c = int(w.shape[0]), int(w.shape[1])
+    w_g = w.transpose(0, 1).reshape((in_c * mult, 1) + tuple(w.shape[2:]))
+    return conv2d(x, w_g, b, stride=stride, pad=pad, dilation=dilation,
+                  mode=mode, data_format=data_format, groups=in_c)
+
+
+def separable_conv2d(x, w_depth, w_point, b=None, *, stride: IntOrPair = 1,
+                     pad: IntOrPair = 0, dilation: IntOrPair = 1,
+                     mode: str = "truncate", data_format: str = "NCHW"):
+    """Separable convolution (ref: ``sconv2d``): depthwise, then a 1x1
+    pointwise ``w_point`` ``[O, I*mult, 1, 1]`` with the bias."""
+    y = depthwise_conv2d(x, w_depth, None, stride=stride, pad=pad,
+                         dilation=dilation, mode=mode,
+                         data_format=data_format)
+    return conv2d(y, w_point, b, data_format=data_format)
 
 
 def maxpool2d(x, *, kernel: IntOrPair, stride: IntOrPair = None,
@@ -111,8 +178,28 @@ def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
+def pnormpool2d(x, *, kernel: IntOrPair, stride: IntOrPair = None,
+                pad: IntOrPair = 0, pnorm: int = 2, mode: str = "truncate",
+                data_format: str = "NCHW"):
+    """P-norm pooling (ref: ``pnormpool2d``): ``(sum |x|^p)^(1/p)`` over
+    each window, padding counting as zeros."""
+    _check_mode(mode)
+    cf = _channels_first(data_format)
+    kernel = _pair(kernel)
+    stride = _pair(stride if stride is not None else kernel)
+    p = float(pnorm)
+    xt = _to_torch(x, cf).abs() ** p
+    if mode.lower() == "same":
+        xt, pad = _same_pad(xt, kernel, stride)
+    ph, pw = _pair(pad)
+    if ph or pw:
+        xt = F.pad(xt, (pw, pw, ph, ph))
+    sums = F.avg_pool2d(xt, kernel, stride, divisor_override=1)
+    return _from_torch(sums ** (1.0 / p), cf)
+
+
 def _pool(x, kind: str, kernel, stride, pad, mode, data_format):
-    _check_mode(mode, pooling=True)
+    _check_mode(mode)
     cf = _channels_first(data_format)
     kernel = _pair(kernel)
     stride = _pair(stride if stride is not None else kernel)
@@ -130,9 +217,9 @@ def _pool(x, kind: str, kernel, stride, pad, mode, data_format):
 
 
 def _pool_same(xt, kind: str, kernel, stride):
-    """Same-mode pooling of an NCHW-shaped tensor: pad asymmetrically
-    (``-inf`` for max, zeros for avg), pool with no padding; avg divides
-    each window's fp32 sum by its count of real elements."""
+    """Same-mode pooling of an NCHW-shaped tensor: pad (``-inf`` for max,
+    zeros for avg), pool with no padding; avg divides each window's fp32
+    sum by its count of real elements."""
     (pt, pb), (pl, pr) = (same_padding(n, k, s) for n, k, s in
                           zip(xt.shape[2:], kernel, stride))
     spatial = (pl, pr, pt, pb)
@@ -164,12 +251,82 @@ def global_pool(x, pooling_type: str = "avg", data_format: str = "NCHW",
     raise ValueError(pooling_type)
 
 
+# -------------------------------------------------------------- resampling
+def upsampling2d(x, scale: IntOrPair = 2, data_format: str = "NCHW"):
+    """Nearest-neighbour upsampling (ref: ``upsampling2d``): each pixel
+    repeated ``scale`` times along H and W (a broadcast view, one copy)."""
+    sh, sw = _pair(scale)
+    if _channels_first(data_format):
+        n, c, h, w = x.shape
+        return x[:, :, :, None, :, None].expand(n, c, h, sh, w, sw) \
+            .reshape(n, c, h * sh, w * sw)
+    n, h, w, c = x.shape
+    return x[:, :, None, :, None, :].expand(n, h, sh, w, sw, c) \
+        .reshape(n, h * sh, w * sw, c)
+
+
+def space_to_depth(x, block_size: int, data_format: str = "NCHW"):
+    """(ref: ``space_to_depth``) Output channel ``(bh*b + bw)*C + c`` holds
+    input channel c at offset (bh, bw) of each block, the JAX package's
+    (bh, bw, c) order in both layouts (``F.pixel_unshuffle`` gives
+    (c, bh, bw))."""
+    b = int(block_size)
+    if _channels_first(data_format):
+        n, c, h, w = x.shape
+        x = x.reshape(n, c, h // b, b, w // b, b).permute(0, 3, 5, 1, 2, 4)
+        return x.reshape(n, c * b * b, h // b, w // b)
+    n, h, w, c = x.shape
+    x = x.reshape(n, h // b, b, w // b, b, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(n, h // b, w // b, c * b * b)
+
+
+def depth_to_space(x, block_size: int, data_format: str = "NCHW"):
+    """(ref: ``depth_to_space``) The inverse of :func:`space_to_depth`."""
+    b = int(block_size)
+    if _channels_first(data_format):
+        n, c, h, w = x.shape
+        x = x.reshape(n, b, b, c // (b * b), h, w).permute(0, 3, 4, 1, 5, 2)
+        return x.reshape(n, c // (b * b), h * b, w * b)
+    n, h, w, c = x.shape
+    x = x.reshape(n, h, w, b, b, c // (b * b)).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(n, h * b, w * b, c // (b * b))
+
+
+def _edges(v):
+    """An int, ``(h, w)`` or ``((top, bottom), (left, right))`` as the
+    latter."""
+    if isinstance(v, int):
+        return (v, v), (v, v)
+    if isinstance(v[0], int):
+        return (v[0], v[0]), (v[1], v[1])
+    return tuple(v[0]), tuple(v[1])
+
+
+def zero_padding2d(x, pad, data_format: str = "NCHW"):
+    """(ref: ``ZeroPaddingLayer``) ``pad``: an int, ``(h, w)`` or
+    ``((top, bottom), (left, right))``."""
+    (t, bm), (l, r) = _edges(pad)
+    if _channels_first(data_format):
+        return F.pad(x, (l, r, t, bm))
+    return F.pad(x, (0, 0, l, r, t, bm))
+
+
+def cropping2d(x, crop, data_format: str = "NCHW"):
+    """(ref: ``Cropping2D``) ``crop`` as :func:`zero_padding2d`'s pad."""
+    (t, bm), (l, r) = _edges(crop)
+    if _channels_first(data_format):
+        h, w = x.shape[2], x.shape[3]
+        return x[:, :, t:h - bm, l:w - r]
+    h, w = x.shape[1], x.shape[2]
+    return x[:, t:h - bm, l:w - r, :]
+
+
 def conv_output_size(size: int, kernel: int, stride: int, pad: int,
                      dilation: int = 1, mode: str = "truncate") -> int:
     """Shape inference for conv/pool (ref: ``ConvolutionUtils.
     getOutputSize``), which rejects a spatial output of zero; same mode
     gives ``ceil(size / stride)`` whatever the kernel and padding."""
-    _check_mode(mode, pooling=True)
+    _check_mode(mode)
     if mode.lower() == "same":
         return -(-size // stride)
     eff_k = kernel + (kernel - 1) * (dilation - 1)

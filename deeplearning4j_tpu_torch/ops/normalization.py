@@ -1,5 +1,5 @@
-"""Normalization ops (the slice's subset of
-``deeplearning4j_tpu/ops/normalization.py``).
+"""Normalization ops (layer norm, batch norm, LRN, dropout and the fused
+BN epilogue of ``deeplearning4j_tpu/ops/normalization.py``).
 
 Dropout draws its masks from a counter-based hash (``dropout_mask``),
 not a generator: see the note above ``StepKey``.
@@ -30,6 +30,24 @@ def layer_norm(x, gain, bias=None, *, axis=-1, eps: float = 1e-5):
     if bias is not None:
         out = out + bias
     return out
+
+
+def lrn(x, *, depth: int = 5, alpha: float = 1e-4, beta: float = 0.75,
+        bias: float = 1.0, data_format: str = "NCHW"):
+    """Local response normalization across channels (ref: libnd4j
+    ``lrn``): ``x / (bias + alpha * s)^beta``, ``s`` the sum of x^2 over a
+    window of ``depth`` channels (``depth // 2`` before each channel, the
+    rest after, zeros past the ends). ``alpha`` is not divided by
+    ``depth``, unlike ``F.local_response_norm``."""
+    axis = 1 if data_format.upper().startswith("NC") else x.dim() - 1
+    c = x.shape[axis]
+    half = depth // 2
+    pad = [0, 0] * (x.dim() - 1 - axis) + [half, depth - 1 - half]
+    sq = torch.nn.functional.pad(x.square(), pad)
+    summed = sq.narrow(axis, 0, c)
+    for i in range(1, depth):
+        summed = summed + sq.narrow(axis, i, c)
+    return x / (bias + alpha * summed) ** beta
 
 
 class _ChannelMoments(torch.autograd.Function):
@@ -172,11 +190,16 @@ def dropout(x, rate: float, key: Optional[StepKey], *, train: bool = True):
         return x
     keep = 1.0 - rate
     mask = dropout_mask(key, x.shape, keep, x.device)
-    # divide by keep rounded to x's dtype, as jnp divides by a weakly
-    # typed scalar (a host float: no copy to the card inside a capture)
-    scale = float(torch.tensor(keep, dtype=x.dtype))
-    return torch.where(mask, x / scale, torch.zeros((), dtype=x.dtype,
-                                                    device=x.device))
+    return torch.where(mask, x / dtype_scalar(keep, x.dtype),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def dtype_scalar(v: float, dtype: torch.dtype) -> float:
+    """``v`` rounded to ``dtype``, as a host float: what jnp makes of a
+    weakly typed Python scalar beside an array of that dtype (torch would
+    keep it in fp32 beside a bf16 tensor). A host float, so no copy to
+    the card inside a capture."""
+    return float(torch.tensor(v, dtype=dtype))
 
 
 def scale_shift_act(x, scale, shift, *, alpha: float = 0.0, axis: int = 1):

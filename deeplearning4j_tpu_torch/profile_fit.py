@@ -1,10 +1,11 @@
-"""Where one training step of ResNet-50, VGG16, Darknet19, TinyYOLO or the
-BertBench BERT-base spends its time on the card, eager and captured.
+"""Where one training step of ResNet-50, VGG16, Darknet19, TinyYOLO, YOLO2
+or the BertBench BERT-base spends its time on the card, eager and
+captured.
 
 Usage (on a machine with a CUDA card, from the root of a checkout)::
 
     python3 -m deeplearning4j_tpu_torch.profile_fit
-        [--model vgg16|darknet19|tiny_yolo|bert] [--captured K]
+        [--model vgg16|darknet19|tiny_yolo|yolo2|bert] [--captured K]
 
 Builds ``zoo.ResNet50(num_classes=1000)`` (the default; a
 ``ComputationGraph``, one [64, 3, 224, 224] batch of one-hot labels),
@@ -14,7 +15,9 @@ Builds ``zoo.ResNet50(num_classes=1000)`` (the default; a
 ``MultiLayerNetwork``, one [32, 3, 224, 224] batch) or
 ``zoo.TinyYOLO(num_classes=20)`` (``--model tiny_yolo``; a
 ``MultiLayerNetwork``, one [32, 3, 416, 416] batch whose YOLO labels hold
-1-3 boxes an image), random weights from the zoo's seed, in the bf16 /
+1-3 boxes an image) or ``zoo.YOLO2(num_classes=80)`` (``--model yolo2``;
+a ``ComputationGraph``, the same batch with the COCO classes), random
+weights from the zoo's seed, in the bf16 /
 NHWC / fused-epilogue configuration with the CUDA kernels installed;
 times ``net.fit`` on that batch (host clock around the step and the
 ``score()`` that waits for it, median of 5 after 2 warm steps) and
@@ -39,7 +42,8 @@ forward kernel, the composed LN backward, the optimizer
 first of those (in that order) that it or a caller names. It also prints
 samples/s, tokens/s and MFU (FLOPs a token as bench.py counts them,
 against the dense bf16 peak of the card ``torch.cuda.get_device_name()``
-names); VGG16's runs print MFU too (``vgg16_flops`` x 3 an image).
+names); VGG16's and YOLO2's runs print MFU too (``vgg16_flops``, or
+``conv_flops`` of the configuration, x 3 an image).
 
 ``--captured K`` adds the same model with K steps a dispatch, captured as
 one CUDA graph (``fit(steps_per_dispatch=K)`` after
@@ -67,6 +71,7 @@ from deeplearning4j_tpu_torch.models import transformer as tfm
 from deeplearning4j_tpu_torch.models import zoo
 from deeplearning4j_tpu_torch.nn import compilecache as cc
 from deeplearning4j_tpu_torch.nn import network as network_mod
+from deeplearning4j_tpu_torch.nn.layers import ConvolutionLayer
 from deeplearning4j_tpu_torch.nn.objdetect import Yolo2OutputLayer, yolo_labels
 from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
 from deeplearning4j_tpu_torch.ops import normalization as norm_ops
@@ -74,7 +79,9 @@ from deeplearning4j_tpu_torch.train import stepping
 from deeplearning4j_tpu_torch.train.updaters import Adam
 
 BATCH = {"resnet50": 64, "vgg16": 64, "darknet19": 32, "tiny_yolo": 32,
-         "bert": 64}
+         "yolo2": 32, "bert": 64}
+#: the YOLO detectors, by ``--model``: (zoo class, classes)
+DETECTORS = {"tiny_yolo": (zoo.TinyYOLO, 20), "yolo2": (zoo.YOLO2, 80)}
 #: the 224x224 ImageNet classifiers, by ``--model``
 CLASSIFIERS = {"resnet50": zoo.ResNet50, "vgg16": zoo.VGG16,
                "darknet19": zoo.Darknet19}
@@ -107,6 +114,7 @@ _KERNEL_GROUPS = {"resnet50": (("scale_shift_act", "scale_shift_act_kernel"),),
                                  "scale_shift_act_kernel"),),
                   "tiny_yolo": (("scale_shift_act",
                                  "scale_shift_act_kernel"),),
+                  "yolo2": (("scale_shift_act", "scale_shift_act_kernel"),),
                   "bert": (("flash forward (kernel)", "flash_fwd_kernel"),
                            ("layer_norm forward (kernel)",
                             "layer_norm_fwd_kernel"))}
@@ -237,6 +245,18 @@ def vgg16_flops(hw: int = 224, n_classes: int = 1000) -> int:
     return f + 2 * feat * 4096 + 2 * 4096 * 4096 + 2 * 4096 * n_classes
 
 
+def conv_flops(net) -> int:
+    """Forward FLOPs an image (2 a multiply-add) of a graph's plain
+    convolutions, from its configuration's propagated types: YOLO2's
+    22 convs at 416^2 come to ~35.0 GFLOP (the BN, pool and activation
+    work is left out); a train step is three times the forward."""
+    types = net.conf.types
+    return sum(2 * n.obj.kernel[0] * n.obj.kernel[1] * n.obj.nIn
+               * n.obj.nOut * types[n.name].height * types[n.name].width
+               for n in net.conf.topo
+               if type(n.obj) is ConvolutionLayer)
+
+
 def dense_bf16_peak(name: str) -> float:
     """The dense bf16 tensor-core peak (FLOP/s) of the card ``name``
     names (NVIDIA's data sheets; the SXM part unless it says PCIe)."""
@@ -303,9 +323,10 @@ def build(model: str):
         x = rng.standard_normal((batch, 3, 224, 224), dtype=np.float32)
         y = np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, batch)]
     else:
-        net = zoo.TinyYOLO(num_classes=20).init()
+        cls, classes = DETECTORS[model]
+        net = cls(num_classes=classes).init()
         x = rng.standard_normal((batch, 3, 416, 416), dtype=np.float32)
-        y = yolo_labels(rng, batch, 20)
+        y = yolo_labels(rng, batch, classes)
     net.setPrecisionPolicy("bf16")
     net.setComputeLayout("NHWC")
     net.setEpilogueFusion(True)
@@ -333,7 +354,8 @@ def _stats(times, steps: int, batch: int, what: str) -> dict:
 def run_network(model: str, k: int) -> dict:
     net, ds = build(model)
     batch = BATCH[model]
-    flops = 3 * vgg16_flops() * batch if model == "vgg16" else None
+    per_image = {"vgg16": vgg16_flops, "yolo2": lambda: conv_flops(net)}
+    flops = 3 * batch * per_image[model]() if model in per_image else None
 
     def mfu(st):
         if flops is None:

@@ -294,9 +294,10 @@ class TestMultiLayerConfiguration:
             (NeuralNetConfiguration.Builder().list()
              .layer(tlayers.ConvolutionLayer(nOut=2))
              .setInputType(InputType.feedForward(16)).build())
-        with pytest.raises(NotImplementedError, match="pooling only|'same'"):
+        with pytest.raises(NotImplementedError, match="'causal'"):
             (NeuralNetConfiguration.Builder().list()
-             .layer(tlayers.ConvolutionLayer(nOut=2, convolutionMode="same"))
+             .layer(tlayers.ConvolutionLayer(nOut=2,
+                                             convolutionMode="causal"))
              .setInputType(InputType.convolutional(4, 4, 1)).build())
         bad = json.loads(_small_list(JConf, jlayers, JInputType,
                                      jupd.Adam(1e-2)).build().to_json())
@@ -340,9 +341,12 @@ def test_same_mode_output_size_and_padding():
     # TinyYOLO's sixth pool: 13 -> 13, padded (0, 1)
     assert tconv.same_padding(13, 2, 1) == (0, 1)
     assert tconv.same_padding(13, 3, 2) == (1, 1)
-    with pytest.raises(NotImplementedError, match="'same'"):
+    # a same-mode convolution (ported with the 2-D ops) keeps ceil(n/s)
+    assert tconv.conv2d(torch.zeros(1, 1, 4, 4), torch.zeros(1, 1, 3, 3),
+                        stride=2, mode="same").shape == (1, 1, 2, 2)
+    with pytest.raises(NotImplementedError, match="'causal'"):
         tconv.conv2d(torch.zeros(1, 1, 4, 4), torch.zeros(1, 1, 3, 3),
-                     mode="same")
+                     mode="causal")
 
 
 def _dense_list(conf, Lm, it, updater):

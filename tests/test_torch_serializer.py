@@ -193,10 +193,10 @@ class TestGraphArchive:
         conf = _graph_conf(NeuralNetConfiguration, tlayers, InputType, tupd,
                            TEW)
         d = json.loads(conf.to_json())
-        d["nodes"][4]["conf"]["@class"] = "StackVertex"
+        d["nodes"][4]["conf"]["@class"] = "LastTimeStepVertex"
         from deeplearning4j_tpu_torch.nn.graph import \
             ComputationGraphConfiguration
-        with pytest.raises(NotImplementedError, match="StackVertex"):
+        with pytest.raises(NotImplementedError, match="LastTimeStepVertex"):
             ComputationGraphConfiguration.from_json(json.dumps(d))
 
 
