@@ -215,6 +215,33 @@ Phases (each one fails the run with a non-zero exit):
    ``scale_shift_act`` a step, none in these seven, and no other kernel
    or plain call), ``output()`` finite of the right shape; step ms and
    images/s.
+21. TextGenerationLSTM (``zoo.TextGenerationLSTM()``: 77 symbols, two
+   LSTM(256), fp32, xavier, Adam 1e-3, clip_value 5.0, random weights
+   from seed 123) on the seeded synthetic corpus of
+   ``profile_fit.markov_chars`` (an order-2 Markov chain, Zipf-skewed,
+   seed 0): 3 batches of B=32 sequences of T=1000 one-hot characters
+   through ``fitTBPTT(ds, 50)`` (20 window updates a batch), twice
+   eagerly and once through the captured window step
+   (``compilecache.warmup(..., tbptt_length=50)``, which must leave the
+   state bit-equal), all from one snapshot; params, Adam moments, the
+   clock and the carried (h, c) after every batch and every window loss
+   held by the rule below; one capture, 60 hits, no failure, one churn
+   signature. Every loss finite; the first window's loss within 1e-4
+   relative of the same net's on the CPU; the last batch's mean window
+   loss below the first's. It prints ms a window and characters/s each
+   way. Then 4 samples of 300 characters through ``rnnTimeStep``, one
+   [4, 77] step at a time, drawn from the softmax with a seeded
+   ``torch.Generator`` on the card (ms a character); ``rnnTimeStep`` over
+   the samples in chunks of 1, 7 and 50 within 1e-5 of ``output()`` over
+   the whole sequence, and ``rnnClearPreviousState`` restarting it. A
+   batch with ragged lengths 500-1000 (features and labels masked)
+   through ``fit()`` on the configuration read back from JSON with
+   ``backpropType("tbptt", 50)``, at learning rate 0: its 20 window
+   losses must sum to the plain forward's masked loss over the whole
+   sequence within 1e-5 relative (the windows carry state and slice the
+   label mask), the params unchanged. ``save``/``load`` must give a
+   bit-equal ``output()``, and none of the six kernels may launch (the
+   recurrences are stock torch ops, as the JAX ones are jnp).
 
 The captured-against-eager rule: where the two eager runs agree to the
 bit on a tensor (and on the params' group: the param and its Adam
@@ -295,6 +322,13 @@ ZOO_CNNS = ("AlexNet", "SqueezeNet", "UNet", "Xception", "FaceNetNN4Small2",
 ZOO_BATCH = 16
 ZOO_STEPS = 3
 LENET_EPOCHS = 4
+#: phase 21: dl4j-examples' LSTMCharModellingExample (minibatches of 32
+#: sequences of 1000 characters, TBPTT windows of 50, 4 samples of 300)
+TEXT_BATCH = 32
+TEXT_BATCHES = 3
+TEXT_SAMPLES = 4
+TEXT_SAMPLE_LEN = 300
+TEXT_SEED = 0
 
 
 def fail(msg: str) -> None:
@@ -1274,6 +1308,10 @@ def main() -> None:
 
     # ------------------------------------------- 20. the other zoo CNNs
     zoo_cnns(smi)
+    torch.cuda.empty_cache()
+
+    # ---------------------------------- 21. TextGenerationLSTM, TBPTT
+    textgen(smi)
     torch.cuda.empty_cache()
 
     ln.update(served["layer_norm"])
@@ -2304,6 +2342,221 @@ def zoo_cnns(smi: str) -> None:
         del net, ds, x, out
     log(f"zoo CNNs: {len(ZOO_CNNS)} models in "
         f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def textgen(smi: str) -> None:
+    """Phase 21: TextGenerationLSTM trained with truncated BPTT, eager and
+    captured, then sampled through ``rnnTimeStep``; a masked batch
+    through ``fit()`` under ``backpropType("tbptt", 50)``; the archive."""
+    import torch
+
+    from deeplearning4j_tpu_torch import profile_fit as pf
+    from deeplearning4j_tpu_torch.analysis import churn
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn import compilecache as cc
+    from deeplearning4j_tpu_torch.nn.config import MultiLayerConfiguration
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+    from deeplearning4j_tpu_torch.train.updaters import Adam
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    B, T, W, V = TEXT_BATCH, pf.TEXT_LEN, pf.TEXT_WINDOW, pf.TEXT_VOCAB
+    n_win = T // W
+    idx = pf.markov_chars(TEXT_SEED, TEXT_BATCHES * B, T)
+    batches = [DataSet(pf.one_hot_ncw(idx[b * B:(b + 1) * B, :-1]),
+                       pf.one_hot_ncw(idx[b * B:(b + 1) * B, 1:]))
+               for b in range(TEXT_BATCHES)]
+    ck.reset_counts()
+    net = zoo.TextGenerationLSTM().init()
+    cpu = zoo.TextGenerationLSTM().init(device="cpu")
+    x0c, y0c = batches[0].features.cpu(), batches[0].labels.cpu()
+    cpu_first = float(cpu._fit_window(x0c[:, :, :W], y0c[:, :, :W], None,
+                                      cpu._zero_carry(x0c))[0])
+    del cpu
+
+    # every window's output (loss, carry), read off the window step
+    windows = []
+    fit_window = net._fit_window
+
+    def recording(*args):
+        out = fit_window(*args)
+        windows.append(out)
+        return out
+    net._fit_window = recording
+    net._ensure_opt_state()
+    net._ensure_clock()
+    names = [f"{n}.{p}" for n, ps in net._items(net._params) for p in ps]
+    names += [f"{n}.{p}.{m}" for n, ps in net._items(net._opt_state)
+              for p, st in ps.items() for m in st]
+    names.append("t")
+    s0 = snapshot(net._dispatch_state())
+
+    def train():
+        """The three batches through fitTBPTT from the snapshot: the
+        window losses, the state and the carry after every batch, and
+        ms a window of each batch."""
+        restore(net._dispatch_state(), s0)
+        net._iteration = 0
+        windows.clear()
+        held, ms = [], []
+        for ds in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            net.fitTBPTT(ds, W)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3 / n_win)
+            held += snapshot(net._dispatch_state()) + \
+                snapshot(list(windows[-1][1:]))
+        return [float(w[0]) for w in windows], held, ms
+
+    held, ms = {}, {}
+    for run in ("eager 1", "eager 2"):
+        losses, tensors, ms[run] = train()
+        held[run] = (losses, tensors)
+    restore(net._dispatch_state(), s0)
+    cc.reset_stats()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9   # earlier phases' too
+    t0 = time.perf_counter()
+    cc.warmup(net, [(tuple(batches[0].features.shape),
+                     tuple(batches[0].labels.shape))], tbptt_length=W)
+    capture_s = time.perf_counter() - t0
+    if not all(torch.equal(a, b) for a, b in zip(net._dispatch_state(), s0)):
+        fail("textgen: compilecache.warmup changed the network's state")
+    losses, tensors, ms["captured"] = train()
+    held["captured"] = (losses, tensors)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 - held_gb
+    per_batch = [f"b{b}.{n}" for b in range(TEXT_BATCHES)
+                 for n in names + ["carry.h0", "carry.c0", "carry.h1",
+                                   "carry.c1"]]
+    groups = [n.rsplit(".", 1)[0] if n.endswith((".m", ".v")) else n
+              for n in per_batch]
+    hold_captured("TextGenerationLSTM TBPTT", held, per_batch, groups)
+    stats = cc.cache_stats()
+    n_sig = churn.get_churn_detector().signature_count(
+        "MultiLayerNetwork.tbptt", owner=net)
+    if stats["capture_failures"] or stats["compile_seconds"][
+            "cold_compiles"] != 1 or stats["memory"]["hits"] != \
+            TEXT_BATCHES * n_win or n_sig != 1:
+        fail(f"textgen: cache stats {stats}, {n_sig} churn signatures: want "
+             f"one capture, no failure, {TEXT_BATCHES * n_win} hits")
+    losses = held["eager 1"][0]
+    if not all(np.isfinite(v) for run in held.values() for v in run[0]):
+        fail(f"textgen: a loss is not finite: {losses}")
+    rel = abs(losses[0] - cpu_first) / abs(cpu_first)
+    if not rel <= 1e-4:
+        fail(f"textgen: the first window's loss {losses[0]!r} on the card "
+             f"is {rel:.3g} relative from the CPU's {cpu_first!r}")
+    first = float(np.mean(losses[:n_win]))
+    last = float(np.mean(losses[-n_win:]))
+    if not last < first:
+        fail(f"textgen: the last batch's mean window loss {last} is not "
+             f"below the first batch's {first}")
+    for run in ("eager 1", "captured"):
+        w_ms = float(np.median(ms[run]))
+        log(f"TextGenerationLSTM fitTBPTT {run}: {TEXT_BATCHES} batches of "
+            f"B={B} x T={T}, window {W}: ms a window "
+            f"{', '.join(f'{v:.2f}' for v in ms[run])} (median {w_ms:.2f}), "
+            f"{B * W / (w_ms / 1e3):.0f} characters/s; window losses "
+            f"{' '.join(f'{v:.2f}' for v in held[run][0])} [{smi}]")
+    log(f"TextGenerationLSTM: {net.numParams()} parameters; first window "
+        f"loss {losses[0]:.6f} (CPU {cpu_first:.6f}, {rel:.2g} relative); "
+        f"mean window loss batch 1 {first:.4f} -> batch {TEXT_BATCHES} "
+        f"{last:.4f}; capture {capture_s:.2f} s; peak {peak_gb:.3f} GB "
+        f"over the {held_gb:.3f} GB held when the capture began; "
+        f"cache_stats {stats} [{smi}]")
+    del net._fit_window
+
+    # --------------------------------------- generate through rnnTimeStep
+    g = torch.Generator(device="cuda").manual_seed(TEXT_SEED)
+    cur = torch.nn.functional.one_hot(
+        torch.as_tensor(idx[:TEXT_SAMPLES, 0], device="cuda"), V).float()
+    net.rnnClearPreviousState()
+    sampled = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TEXT_SAMPLE_LEN):
+        probs = net.rnnTimeStep(cur)
+        nxt = torch.multinomial(probs, 1, generator=g)[:, 0]
+        sampled.append(nxt)
+        cur = torch.nn.functional.one_hot(nxt, V).float()
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - t0) * 1e3 / TEXT_SAMPLE_LEN
+    seq = torch.stack(sampled, dim=1)                       # [4, 300]
+    if tuple(probs.shape) != (TEXT_SAMPLES, V) or \
+            not bool(torch.isfinite(probs).all()):
+        fail(f"textgen: rnnTimeStep gave {tuple(probs.shape)} "
+             f"(finite: {bool(torch.isfinite(probs).all())})")
+    xs = pf.one_hot_ncw(seq)
+    full = net.output(xs)
+    errs = {}
+    for chunk in (1, 7, 50):
+        net.rnnClearPreviousState()
+        parts = [net.rnnTimeStep(xs[:, :, i:i + chunk])
+                 for i in range(0, TEXT_SAMPLE_LEN, chunk)]
+        errs[chunk] = float((torch.cat(parts, dim=2) - full).abs().max())
+    cont = net.rnnTimeStep(xs[:, :, :7])
+    net.rnnClearPreviousState()
+    fresh = net.rnnTimeStep(xs[:, :, :7])
+    restart = float((fresh - full[:, :, :7]).abs().max())
+    if not max(errs.values()) <= 1e-5 or not restart <= 1e-5 or \
+            torch.equal(cont, fresh):
+        fail(f"textgen: rnnTimeStep in chunks against output(): max|diff| "
+             f"{errs}, after rnnClearPreviousState {restart}, continuing "
+             f"equals fresh: {torch.equal(cont, fresh)}")
+    text = ["".join(chr(33 + int(c)) for c in row) for row in seq.tolist()]
+    log(f"TextGenerationLSTM generate: {TEXT_SAMPLES} x {TEXT_SAMPLE_LEN} "
+        f"characters through rnnTimeStep, {gen_ms:.3f} ms a character "
+        f"({TEXT_SAMPLES * 1e3 / gen_ms:.0f} characters/s); streaming "
+        f"against output() max|diff| by chunk {errs}, restart {restart:.3g}; "
+        f"samples (symbol i as chr(33+i)): "
+        f"{' | '.join(t[:60] for t in text)} [{smi}]")
+
+    # ------------------ a masked batch through fit() under TBPTT, lr 0
+    d = json.loads(net.conf.to_json())
+    d["backprop_type"], d["tbptt_length"] = "tbptt", W
+    conf = MultiLayerConfiguration.from_json(json.dumps(d))
+    conf.base.updater = Adam(0.0)
+    masked = MultiLayerNetwork(conf).init()
+    masked.setParams(net.params())
+    lengths = np.random.default_rng(TEXT_SEED).integers(500, T + 1, B)
+    m = torch.from_numpy((np.arange(T)[None, :] < lengths[:, None]).astype(
+        np.float32)).cuda()
+    ds = DataSet(batches[0].features, batches[0].labels, m, m)
+    plain = masked.score(ds)
+    before = masked.params().clone()
+    seen = []
+    fit_window = masked._fit_window
+    masked._fit_window = lambda *a: seen.append(fit_window(*a)) or seen[-1]
+    masked.fit(ds)
+    del masked._fit_window
+    total = float(sum(float(w[0]) for w in seen))
+    if len(seen) != n_win or not abs(total - plain) <= 1e-5 * abs(plain) \
+            or not torch.equal(masked.params(), before):
+        fail(f"textgen: the masked batch's {len(seen)} windows sum to "
+             f"{total!r}, the plain forward's masked loss is {plain!r} "
+             f"(want {n_win} windows within 1e-5 relative; params "
+             f"unchanged at lr 0: {torch.equal(masked.params(), before)})")
+    log(f"TextGenerationLSTM masked batch (lengths {int(lengths.min())}-"
+        f"{int(lengths.max())}) through fit() under backpropType('tbptt', "
+        f"{W}), lr 0: {n_win} window losses sum to {total:.6f}, the plain "
+        f"forward's masked loss {plain:.6f} ({abs(total - plain) / plain:.2g} "
+        f"relative)")
+
+    # ------------------------------------------------------- the archive
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "textgen.zip")
+        net.save(path)
+        back = MultiLayerNetwork.load(path)
+        x0 = batches[0].features
+        if not torch.equal(back.output(x0), net.output(x0)):
+            fail("textgen: save/load changed output()")
+    if any(ck.LAUNCHES.values()) or any(ck.PLAIN_CALLS.values()):
+        fail(f"textgen: a kernel ran on this path: {dict(ck.LAUNCHES)} "
+             f"(plain {dict(ck.PLAIN_CALLS)})")
+    log(f"textgen: save/load output() bit-equal; no kernel launched; phase "
+        f"{time.perf_counter() - t_phase:.1f} s [{smi}]")
 
 
 def ssa_plain(x, scale, shift, *, alpha=0.0, axis=1):

@@ -2,12 +2,14 @@
 ``deeplearning4j_tpu/data/dataset.py``): ``DataSet`` with
 ``splitTestAndTrain``, ``shuffle``, ``batchBy`` and ``merge``,
 ``SplitTestAndTrain``, ``DataSetIterator`` (reset/hasNext/next, the
-cursor/seek protocol, ``setPreProcessor``) and ``ListDataSetIterator``.
+cursor/seek protocol, ``setPreProcessor``), ``ListDataSetIterator``, and
+the normalizers ``NormalizerStandardize``, ``NormalizerMinMaxScaler``
+and ``ImagePreProcessingScaler`` (``ModelSerializer.writeNormalizer`` /
+``restoreNormalizer`` store them in the JAX package's file).
 
 Host arrays stay numpy until a step moves a batch to the device; tensors
 (on any device) are kept as they are. Not ported yet (ROADMAP.md):
-``MultiDataSet``, the asynchronous and retrying iterators, the
-normalizers.
+``MultiDataSet``, the asynchronous and retrying iterators.
 """
 
 from __future__ import annotations
@@ -198,3 +200,101 @@ class ListDataSetIterator(DataSetIterator):
 
     def inputColumns(self):
         return int(np.prod(self.data.features.shape[1:]))
+
+
+# ------------------------------------------------------------------ normalizers
+def _channel_shape(stat, feats):
+    """A per-channel statistic broadcast over axis 1 of 3-D and 4-D
+    features."""
+    if feats.ndim > 2:
+        shape = [1] * feats.ndim
+        shape[1] = -1
+        return stat.reshape(shape)
+    return stat
+
+
+def _features(data):
+    return data.features if isinstance(data, DataSet) else data
+
+
+def _set_features(data, out):
+    if isinstance(data, DataSet):
+        data.features = out
+        return data
+    return out
+
+
+class NormalizerStandardize:
+    """Zero mean, unit variance (ref: NormalizerStandardize): ``fit`` takes
+    the mean and standard deviation of every feature column (of every
+    channel, axis 1, of 3-D and 4-D features), a deviation below 1e-8
+    counting as 1; ``transform`` and ``revert`` work on a DataSet (in
+    place) or a numpy array."""
+
+    def __init__(self):
+        self.mean = None
+        self.std = None
+
+    def fit(self, data):
+        feats = np.asarray(_features(data))
+        axes = tuple(i for i in range(feats.ndim) if i != 1) \
+            if feats.ndim > 2 else (0,)
+        self.mean = feats.mean(axis=axes)
+        std = feats.std(axis=axes)
+        self.std = np.where(std < 1e-8, 1.0, std)
+
+    def transform(self, data):
+        feats = _features(data)
+        return _set_features(data, (feats - _channel_shape(self.mean, feats))
+                             / _channel_shape(self.std, feats))
+
+    def revert(self, data):
+        """The inverse of :meth:`transform`, per channel of 3-D and 4-D
+        features too."""
+        feats = _features(data)
+        return _set_features(data, feats * _channel_shape(self.std, feats)
+                             + _channel_shape(self.mean, feats))
+
+    def state(self):
+        return {"mean": self.mean, "std": self.std}
+
+    def load_state(self, d):
+        self.mean, self.std = d["mean"], d["std"]
+
+
+class NormalizerMinMaxScaler:
+    """Scale into ``[min_range, max_range]`` (ref: NormalizerMinMaxScaler)
+    by the minimum and maximum over all of the fitted features, as the
+    JAX package does."""
+
+    def __init__(self, min_range: float = 0.0, max_range: float = 1.0):
+        self.min_range, self.max_range = min_range, max_range
+        self.data_min = None
+        self.data_max = None
+
+    def fit(self, data):
+        feats = np.asarray(_features(data))
+        self.data_min = feats.min()
+        self.data_max = feats.max()
+
+    def transform(self, data):
+        feats = _features(data)
+        denom = max(self.data_max - self.data_min, 1e-8)
+        out = (feats - self.data_min) / denom \
+            * (self.max_range - self.min_range) + self.min_range
+        return _set_features(data, out)
+
+
+class ImagePreProcessingScaler:
+    """Pixels in [0, 255] to [a, b] (ref: ImagePreProcessingScaler)."""
+
+    def __init__(self, a: float = 0.0, b: float = 1.0):
+        self.a, self.b = a, b
+
+    def fit(self, data):
+        pass
+
+    def transform(self, data):
+        feats = _features(data)
+        return _set_features(data, feats / 255.0 * (self.b - self.a)
+                             + self.a)

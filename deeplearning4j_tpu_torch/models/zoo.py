@@ -1,11 +1,10 @@
-"""Model zoo: the CNNs of ``deeplearning4j_tpu/models/zoo.py`` — LeNet,
-SimpleCNN, AlexNet, VGG16, VGG19, Darknet19 and TinyYOLO
-(``MultiLayerNetwork``s), ResNet50, SqueezeNet, UNet, Xception,
-FaceNetNN4Small2, YOLO2, InceptionResNetV1 and NASNet
-(``ComputationGraph``s) — with the JAX package's node names, layer order
-and defaults, so its params transplant one to one. Not ported yet:
-TextGenerationLSTM (the recurrent layers, ROADMAP.md) and
-``initPretrained``."""
+"""Model zoo: every model of ``deeplearning4j_tpu/models/zoo.py`` —
+LeNet, SimpleCNN, AlexNet, VGG16, VGG19, Darknet19, TinyYOLO and the
+char-RNN TextGenerationLSTM (``MultiLayerNetwork``s), ResNet50,
+SqueezeNet, UNet, Xception, FaceNetNN4Small2, YOLO2, InceptionResNetV1
+and NASNet (``ComputationGraph``s) — with the JAX package's node names,
+layer order and defaults, so its params transplant one to one. Not
+ported yet: ``initPretrained``."""
 
 from __future__ import annotations
 
@@ -25,7 +24,8 @@ from deeplearning4j_tpu_torch.nn.layers import (ActivationLayer,
                                                 DropoutLayer,
                                                 GlobalPoolingLayer,
                                                 LocalResponseNormalization,
-                                                LossLayer, OutputLayer,
+                                                LossLayer, LSTM, OutputLayer,
+                                                RnnOutputLayer,
                                                 SeparableConvolution2D,
                                                 SubsamplingLayer,
                                                 Upsampling2D)
@@ -313,6 +313,35 @@ class Darknet19(ZooModel):
                                 activation="softmax"))
              .setInputType(InputType.convolutional(h, w, c)))
         return MultiLayerNetwork(b.build())
+
+
+class TextGenerationLSTM(ZooModel):
+    """ref: zoo.model.TextGenerationLSTM — the char-RNN of dl4j-examples'
+    LSTMCharModellingExample: two LSTM(256) over one-hot characters
+    [N, vocab, T] and an RnnOutputLayer (softmax, mcxent); xavier, Adam
+    1e-3, gradients clipped element-wise at 5.0."""
+
+    def __init__(self, vocab_size: int = 77, **kw):
+        self.vocab_size = vocab_size
+        super().__init__(num_classes=vocab_size, **kw)
+
+    def default_input_shape(self):
+        return (self.vocab_size, 60)
+
+    def conf_builder(self) -> MultiLayerNetwork:
+        n_in, t = self.input_shape
+        conf = (NeuralNetConfiguration.Builder()
+                .seed(self.seed).updater(self.updater).weightInit("xavier")
+                .gradientNormalization("clip_value", 5.0)
+                .list()
+                .layer(LSTM(nOut=256))
+                .layer(LSTM(nOut=256))
+                .layer(RnnOutputLayer(nOut=self.vocab_size,
+                                      lossFunction="mcxent",
+                                      activation="softmax"))
+                .setInputType(InputType.recurrent(n_in, t))
+                .build())
+        return MultiLayerNetwork(conf)
 
 
 class TinyYOLO(ZooModel):
@@ -715,8 +744,9 @@ class NASNet(ZooModel):
 #: name); the JAX zoo's TextGenerationLSTM is not ported yet
 ZOO_MODELS = {cls.__name__: cls for cls in
               (LeNet, SimpleCNN, AlexNet, VGG16, VGG19, ResNet50, Darknet19,
-               SqueezeNet, UNet, Xception, FaceNetNN4Small2, TinyYOLO, YOLO2,
-               InceptionResNetV1, NASNet)}
+               SqueezeNet, UNet, Xception, FaceNetNN4Small2,
+               TextGenerationLSTM, TinyYOLO, YOLO2, InceptionResNetV1,
+               NASNet)}
 
 
 def all_zoo_models():

@@ -353,7 +353,7 @@ def _is_shape(spec) -> bool:
 
 
 def warmup(target, shapes, *, steps_per_dispatch: int = 1, dtype=None,
-           label_dtype=None):
+           label_dtype=None, tbptt_length: int = None):
     """Capture ahead of the first dispatch.
 
     ``target`` is a ``ModelServer`` (delegates to its bucket-ladder
@@ -364,7 +364,9 @@ def warmup(target, shapes, *, steps_per_dispatch: int = 1, dtype=None,
     of ``dtype``/``label_dtype`` (fp32 by default). No state changes:
     params, updater state, running statistics and the clock come out as
     they went in. A bare feature shape warms a served forward: pass the
-    ``ModelServer`` (a network's own ``output()`` is not captured yet)."""
+    ``ModelServer`` (a network's own ``output()`` is not captured yet).
+    A ``MultiLayerNetwork`` under truncated BPTT (configured, or
+    ``tbptt_length``) warms its window step for 3-D features instead."""
     if hasattr(target, "buckets") and hasattr(target, "submit"):
         return target.warmup(shapes)
     model = target
@@ -383,8 +385,10 @@ def warmup(target, shapes, *, steps_per_dispatch: int = 1, dtype=None,
                 f"warmup shape spec {spec!r}: expected a (features_shape, "
                 "labels_shape) pair (train step)")
         fshape, lshape = spec
+        extra = {} if tbptt_length is None else {"tbptt_length": tbptt_length}
         model._warm_dispatch(np.zeros(lead + tuple(fshape), fdt),
-                             np.zeros(lead + tuple(lshape), ldt), steps=k)
+                             np.zeros(lead + tuple(lshape), ldt), steps=k,
+                             **extra)
     return model
 
 

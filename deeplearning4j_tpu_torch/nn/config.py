@@ -1,7 +1,8 @@
 """Network configuration (the slice's subset of
 ``deeplearning4j_tpu/nn/config.py``): ``InputType``,
 ``NeuralNetConfiguration.Builder`` with ``graphBuilder`` and ``list``,
-``ListBuilder`` and ``MultiLayerConfiguration``.
+``ListBuilder`` (with ``backpropType``/``tBPTTLength``) and
+``MultiLayerConfiguration``.
 
 ``MultiLayerConfiguration.to_json``/``from_json`` write and read the JAX
 package's JSON (each layer's attributes under its class name), so a
@@ -198,13 +199,15 @@ class NeuralNetConfiguration:
 
 
 class ListBuilder:
-    """Sequential-network builder (ref: NeuralNetConfiguration.ListBuilder).
-    Truncated BPTT is not ported."""
+    """Sequential-network builder (ref: NeuralNetConfiguration.ListBuilder),
+    with the truncated-BPTT declaration."""
 
     def __init__(self, base: NeuralNetConfiguration):
         self.base = base
         self.layers: List[Any] = []
         self.input_type: Optional[InputType] = None
+        self.backprop_type: str = "standard"
+        self.tbptt_length: Optional[int] = None
 
     def layer(self, *args):
         """.layer(conf) or .layer(idx, conf)"""
@@ -218,9 +221,31 @@ class ListBuilder:
     def inputType(self, it: InputType):
         return self.setInputType(it)
 
+    def backpropType(self, kind: str, tbpttLength: int = None):
+        """ref: ListBuilder.backpropType(BackpropType.TruncatedBPTT):
+        ``fit()`` then splits each sequence batch into ``tBPTTLength``
+        windows, as ``fitTBPTT(ds, length)`` does."""
+        self.backprop_type = str(kind).lower()
+        if tbpttLength is not None:
+            self.tbptt_length = int(tbpttLength)
+        return self
+
+    def tBPTTLength(self, n: int):
+        self.tbptt_length = int(n)
+        return self
+
+    def tBPTTForwardLength(self, n: int):
+        return self.tBPTTLength(n)
+
+    def tBPTTBackwardLength(self, n: int):
+        return self.tBPTTLength(n)
+
     def build(self) -> "MultiLayerConfiguration":
-        return MultiLayerConfiguration(self.base, list(self.layers),
-                                       self.input_type)
+        mlc = MultiLayerConfiguration(self.base, list(self.layers),
+                                      self.input_type)
+        mlc.backprop_type = self.backprop_type
+        mlc.tbptt_length = self.tbptt_length
+        return mlc
 
 
 class MultiLayerConfiguration:
@@ -233,6 +258,8 @@ class MultiLayerConfiguration:
         self.base = base
         self.layers = layers
         self.input_type = input_type
+        self.backprop_type: str = "standard"
+        self.tbptt_length: Optional[int] = None
         #: layer index -> the input preprocessor that runs before it
         self.preprocessors = {}
         self.layer_input_types: List[InputType] = []
@@ -262,20 +289,19 @@ class MultiLayerConfiguration:
             "layers": [layer.to_config() for layer in self.layers],
             "input_type": self.input_type.to_config()
             if self.input_type else None,
-            "backprop_type": "standard",
-            "tbptt_length": None,
+            "backprop_type": self.backprop_type,
+            "tbptt_length": self.tbptt_length,
         })
 
     @staticmethod
     def from_json(s: str) -> "MultiLayerConfiguration":
         from deeplearning4j_tpu_torch.nn import layers as L
         d = json.loads(s)
-        if d.get("backprop_type", "standard") != "standard":
-            raise NotImplementedError(
-                f"backprop type {d['backprop_type']!r}: truncated BPTT is "
-                "not ported")
         base = NeuralNetConfiguration.from_config(d["base"])
         layers = [L.layer_from_config(lc) for lc in d["layers"]]
         it = InputType.from_config(d["input_type"]) \
             if d["input_type"] else None
-        return MultiLayerConfiguration(base, layers, it)
+        mlc = MultiLayerConfiguration(base, layers, it)
+        mlc.backprop_type = d.get("backprop_type", "standard")
+        mlc.tbptt_length = d.get("tbptt_length")
+        return mlc

@@ -17,9 +17,16 @@ Every vertex of the JAX package is here; ElementWise, Scale and Shift
 keep an NHWC activation when all their inputs are NHWC, every other
 vertex is handed NCHW, as in the JAX forward.
 
+A DataSet's ``features_mask`` ([N, T]) reaches the mask-aware layers
+(``_MASK_AWARE``) in training and in ``score``; ``output()`` and
+``feedForward`` take none, as in the JAX package. (The JAX graph's own
+train step passes none to its forward; the port's passes it, as the
+sequential network's does.) The graph has no truncated BPTT and no
+``rnnTimeStep``, in either package.
+
 Not ported yet (ROADMAP.md): dynamic loss scaling, augmentation,
 sharding, resilience, listeners, the compile cache's disk tier, the
-sanitizer, feature masks for recurrent inputs.
+sanitizer.
 """
 
 from __future__ import annotations
@@ -233,6 +240,11 @@ _VERTEX_CLASSES = {c.__name__: c for c in (
     L2NormalizeVertex, ScaleVertex, ShiftVertex, StackVertex, UnstackVertex,
     PreprocessorVertex)}
 
+#: layers that take the feature mask (the JAX package's tuple, its ported
+#: members; GRU is not one)
+_MASK_AWARE = (L.LSTM, L.SimpleRnn, L.Bidirectional, L.LastTimeStep,
+               L.GlobalPoolingLayer)
+
 #: vertices that keep NHWC when every input is NHWC (elementwise); every
 #: other vertex is handed NCHW (JAX nn/graph.py:537-558)
 _LAYOUT_TRANSPARENT_VERTICES = (ElementWiseVertex, ScaleVertex, ShiftVertex)
@@ -423,11 +435,11 @@ class ComputationGraph(BaseNetwork):
 
     # --------------------------------------------------------------- forward
     def _forward(self, params, states, inputs: Dict[str, Any], train,
-                 key: Optional[StepKey] = None):
+                 key: Optional[StepKey] = None, fmask=None):
         """The forward; ``key`` is the train step's dropout key: the k-th
         layer node in topological order draws from ``key.fold(k)`` (the
         JAX forward splits its key once a layer node, vertices take
-        none)."""
+        none); ``fmask`` goes to the mask-aware layers."""
         cdt = self._compute_dtype()
         nhwc = self._compute_layout == "NHWC"
         plan = self._ensure_epilogue_plan() if self._fuse_epilogues else {}
@@ -482,6 +494,9 @@ class ComputationGraph(BaseNetwork):
                     if node.name in shared:
                         biased[node.name] = L.conv_bias_add(
                             node.obj, out, p.get("b"))
+                elif isinstance(node.obj, _MASK_AWARE):
+                    out, ns = node.obj.apply(p, states[node.name], x, train,
+                                             sub, mask=fmask)
                 else:
                     out, ns = node.obj.apply(p, states[node.name], x, train,
                                              sub)
@@ -545,8 +560,9 @@ class ComputationGraph(BaseNetwork):
         return outs
 
     def _loss_and_reg(self, params, states, ins, labels: List, train,
-                      lmasks: Optional[List], key=None):
-        outs, new_states = self._forward(params, states, ins, train, key)
+                      lmasks: Optional[List], key=None, fmask=None):
+        outs, new_states = self._forward(params, states, ins, train, key,
+                                         fmask)
         loss = 0.0
         for i, (ol, out) in enumerate(zip(self._output_layers(), outs)):
             lm = lmasks[i] if lmasks is not None else None

@@ -1,6 +1,13 @@
-"""Layer configurations and their forward passes (the feed-forward and
-2-D convolutional layers of ``deeplearning4j_tpu/nn/layers.py``; the
-recurrent, 1-D/3-D and attention layers are not ported).
+"""Layer configurations and their forward passes (the feed-forward, 2-D
+convolutional and recurrent layers of ``deeplearning4j_tpu/nn/layers.py``;
+the 1-D/3-D, embedding and attention layers are not ported).
+
+The recurrent layers take DL4J's ``[N, C, T]`` and an optional ``[N, T]``
+feature mask; those with a state (LSTM, GravesLSTM, GRU, SimpleRnn) also
+run ``apply_with_state``, the carry of ``rnnTimeStep`` and truncated
+BPTT, and make its zero start (``zero_state``). A wrapper's params
+(Bidirectional) are the wrapped layers' under flat ``fwd/``/``bwd/``
+names.
 
 Weight layouts match the reference (dense W [nIn, nOut], conv W
 [nOut, nIn, kH, kW]). Each layer is ``apply(params, state, x, train) ->
@@ -21,6 +28,7 @@ registry.
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Dict, Optional, Tuple
 
@@ -32,6 +40,7 @@ from deeplearning4j_tpu_torch.ops import activations as act
 from deeplearning4j_tpu_torch.ops import convolution as conv_ops
 from deeplearning4j_tpu_torch.ops import losses as loss_ops
 from deeplearning4j_tpu_torch.ops import normalization as norm_ops
+from deeplearning4j_tpu_torch.ops import recurrent as rnn_ops
 from deeplearning4j_tpu_torch.ops import registry
 
 
@@ -544,7 +553,9 @@ class Cropping2D(Layer):
 
 
 class GlobalPoolingLayer(Layer):
-    """ref: GlobalPoolingLayer — cnn [N, C, H, W] -> [N, C]."""
+    """ref: GlobalPoolingLayer — cnn [N, C, H, W] or rnn [N, C, T] ->
+    [N, C]; a ``[N, T]`` mask of an rnn input pools the active steps
+    only."""
 
     input_kind = None
     has_params = False
@@ -554,16 +565,275 @@ class GlobalPoolingLayer(Layer):
         self.pooling = poolingType.lower()
 
     def infer_nin(self, it):
-        self.nIn = self.nOut = it.channels if it.kind == "cnn" \
-            else it.arrayElementsPerExample()
+        self.nIn = self.nOut = self._pooled(it)
 
-    def apply(self, params, state, x, train, key=None):
+    @staticmethod
+    def _pooled(it):
+        return it.channels if it.kind in ("cnn", "cnn3d") \
+            else it.size if it.kind == "rnn" else it.arrayElementsPerExample()
+
+    def apply(self, params, state, x, train, key=None, mask=None):
+        # the NHWC stamp applies to spatial input only; rnn [N, C, T]
+        # stays channels-second
         fmt = self.data_format if x.dim() == 4 else "NCHW"
-        return conv_ops.global_pool(x, self.pooling, data_format=fmt), state
+        return conv_ops.global_pool(x, self.pooling, data_format=fmt,
+                                    mask=mask), state
 
     def output_type(self, it):
-        return InputType.feedForward(it.channels if it.kind == "cnn"
-                                     else it.arrayElementsPerExample())
+        return InputType.feedForward(self._pooled(it))
+
+
+# ------------------------------------------------------------------ recurrent
+def _sub_params(params, prefix: str):
+    """A wrapped layer's params out of its wrapper's flat dict
+    (``"fwd/W"`` -> ``"W"``)."""
+    n = len(prefix) + 1
+    return {k[n:]: v for k, v in params.items() if k.startswith(prefix + "/")}
+
+
+def _prefixed(params, prefix: str):
+    return {f"{prefix}/{k}": v for k, v in params.items()}
+
+
+class _Recurrent(Layer):
+    """The shared plumbing of the recurrent layers: input [N, nIn, T] ->
+    [N, nOut, T], the activation tanh unless given (an inherited
+    ``identity`` becomes tanh, as in the reference)."""
+
+    input_kind = "rnn"
+
+    def __init__(self, nOut=None, **kw):
+        super().__init__(nOut=nOut, **kw)
+        if self.activation is None:
+            self.activation = "tanh"
+
+    def set_defaults(self, base):
+        super().set_defaults(base)
+        if self.activation == "identity":
+            self.activation = "tanh"
+
+    def apply(self, params, state, x, train, key=None, mask=None):
+        out, _ = self.apply_with_state(params, x, None, mask=mask)
+        return out, state
+
+    def output_type(self, it: InputType) -> InputType:
+        return InputType.recurrent(self.nOut, it.dims.get("timesteps", -1))
+
+
+class LSTM(_Recurrent):
+    """ref: layers.recurrent.LSTM — params ``W`` [nIn, 4H], ``RW`` [H, 4H],
+    ``b`` [4H], gate order ``[i, f, g, o]``; the forget gate's bias starts
+    at ``forgetGateBiasInit`` (1.0), as in the reference. Its state is
+    ``(h, c)``."""
+
+    def __init__(self, nOut=None, forgetGateBiasInit: float = 1.0, **kw):
+        super().__init__(nOut=nOut, **kw)
+        self.forget_bias = forgetGateBiasInit
+
+    def initialize(self, gen):
+        H = self.nOut
+        b = torch.zeros(4 * H)
+        b[H:2 * H] = float(self.forget_bias)
+        return {"W": _initialize((self.nIn, 4 * H), self.weight_init, gen),
+                "RW": _initialize((H, 4 * H), self.weight_init, gen),
+                "b": b}, {}
+
+    def apply_with_state(self, params, x, rnn_state, mask=None):
+        """The forward carrying ``(h, c)`` in and out (ref:
+        MultiLayerNetwork.rnnTimeStep's state); None starts from zeros."""
+        x_tnc, mask_tn = rnn_ops.time_major(x, mask)
+        h0, c0 = rnn_state if rnn_state is not None else (None, None)
+        outs, (hT, cT) = rnn_ops.lstm(x_tnc, params["W"], params["RW"],
+                                      params["b"], h0=h0, c0=c0,
+                                      mask_tn=mask_tn)
+        return outs.permute(1, 2, 0), (hT, cT)
+
+    def zero_state(self, n: int, dtype, device):
+        z = torch.zeros((n, self.nOut), dtype=dtype, device=device)
+        return (z, z.clone())
+
+
+class GravesLSTM(LSTM):
+    """ref: layers.recurrent.GravesLSTM — the JAX package's LSTM, without
+    the reference's peephole connections."""
+
+
+class GRU(_Recurrent):
+    """ref: layers.recurrent.GRU — params ``W`` [nIn, 3H], ``RW`` [H, 3H],
+    biases ``b`` and ``bR`` [3H], gate order ``[r, z, n]``. Its state is
+    ``h``."""
+
+    def initialize(self, gen):
+        H = self.nOut
+        return {"W": _initialize((self.nIn, 3 * H), self.weight_init, gen),
+                "RW": _initialize((H, 3 * H), self.weight_init, gen),
+                "b": torch.zeros(3 * H), "bR": torch.zeros(3 * H)}, {}
+
+    def apply_with_state(self, params, x, rnn_state, mask=None):
+        x_tnc, mask_tn = rnn_ops.time_major(x, mask)
+        outs, hT = rnn_ops.gru(x_tnc, params["W"], params["RW"], params["b"],
+                               params["bR"], h0=rnn_state, mask_tn=mask_tn)
+        return outs.permute(1, 2, 0), hT
+
+    def zero_state(self, n: int, dtype, device):
+        return torch.zeros((n, self.nOut), dtype=dtype, device=device)
+
+
+class SimpleRnn(_Recurrent):
+    """ref: layers.recurrent.SimpleRnn — ``h = act(x W + h RW + b)``. Its
+    state is ``h``."""
+
+    def initialize(self, gen):
+        return {"W": _initialize((self.nIn, self.nOut), self.weight_init, gen),
+                "RW": _initialize((self.nOut, self.nOut), self.weight_init,
+                                  gen),
+                "b": torch.zeros(self.nOut)}, {}
+
+    def apply_with_state(self, params, x, rnn_state, mask=None):
+        x_tnc, mask_tn = rnn_ops.time_major(x, mask)
+        outs, hT = rnn_ops.simple_rnn(x_tnc, params["W"], params["RW"],
+                                      params["b"], h0=rnn_state,
+                                      mask_tn=mask_tn,
+                                      activation=act.get(self.activation))
+        return outs.permute(1, 2, 0), hT
+
+    def zero_state(self, n: int, dtype, device):
+        return torch.zeros((n, self.nOut), dtype=dtype, device=device)
+
+
+class Bidirectional(Layer):
+    """ref: layers.recurrent.Bidirectional — a recurrent layer run forward
+    and on the time-reversed input (its own weights), merged by
+    ``concat``/``add``/``mul``/``average``. Params are the wrapped
+    layers' under ``fwd/`` and ``bwd/`` (the JAX package's nested
+    ``{"fwd": {...}, "bwd": {...}}``, flat here)."""
+
+    input_kind = "rnn"
+
+    def __init__(self, rnn_layer: Layer, mode: str = "concat", **kw):
+        super().__init__(**kw)
+        self.fwd = rnn_layer
+        self.bwd = copy.deepcopy(rnn_layer)
+        self.mode = mode.lower()
+
+    def set_defaults(self, base):
+        self.fwd.set_defaults(base)
+        self.bwd.set_defaults(base)
+
+    def infer_nin(self, it):
+        self.fwd.infer_nin(it)
+        self.bwd.infer_nin(it)
+        self.nIn = self.fwd.nIn
+        self.nOut = self.fwd.nOut * (2 if self.mode == "concat" else 1)
+
+    def initialize(self, gen):
+        pf, _ = self.fwd.initialize(gen)
+        pb, _ = self.bwd.initialize(gen)
+        return {**_prefixed(pf, "fwd"), **_prefixed(pb, "bwd")}, {}
+
+    def _directions(self, params, x, train, key, mask):
+        yf, _ = self.fwd.apply(_sub_params(params, "fwd"), {}, x, train, key,
+                               mask=mask)
+        yb, _ = self.bwd.apply(_sub_params(params, "bwd"), {},
+                               torch.flip(x, dims=(2,)), train, key,
+                               mask=None if mask is None
+                               else torch.flip(mask, dims=(1,)))
+        return yf, yb
+
+    def _merge(self, f, b):
+        if self.mode == "concat":
+            return torch.cat([f, b], dim=1)
+        if self.mode == "add":
+            return f + b
+        if self.mode == "mul":
+            return f * b
+        if self.mode == "average":
+            return 0.5 * (f + b)
+        raise ValueError(self.mode)
+
+    def apply(self, params, state, x, train, key=None, mask=None):
+        yf, yb = self._directions(params, x, train, key, mask)
+        return self._merge(yf, torch.flip(yb, dims=(2,))), state
+
+    def output_type(self, it: InputType) -> InputType:
+        return InputType.recurrent(self.nOut, it.dims.get("timesteps", -1))
+
+    def to_config(self):
+        return {"@class": type(self).__name__, "mode": self.mode,
+                "fwd": self.fwd.to_config(), "bwd": self.bwd.to_config(),
+                "name": self.name, "nIn": self.nIn, "nOut": self.nOut}
+
+    @classmethod
+    def from_config(cls, d):
+        obj = cls(layer_from_config(d["fwd"]), mode=d["mode"])
+        if "bwd" in d:
+            obj.bwd = layer_from_config(d["bwd"])
+        obj.nIn, obj.nOut = d.get("nIn"), d.get("nOut")
+        return obj
+
+
+class BidirectionalLastStep(Bidirectional):
+    """Bidirectional collapsed to one step with Keras semantics: the
+    forward direction's last output merged with the backward direction's
+    final state (input position 0) — unlike ``LastTimeStep(Bidirectional
+    (...))``, which takes position T-1 of both. For Keras import parity;
+    no sequence masks."""
+
+    def apply(self, params, state, x, train, key=None, mask=None):
+        if mask is not None:
+            raise ValueError("BidirectionalLastStep does not support "
+                             "sequence masks (imported-model inference "
+                             "path); pad-free batches only")
+        yf, yb = self._directions(params, x, train, key, None)
+        if self.mode not in ("concat", "add", "mul"):
+            return (yf[:, :, -1] + yb[:, :, -1]) / 2.0, state
+        return self._merge(yf[:, :, -1], yb[:, :, -1]), state
+
+    def output_type(self, it: InputType) -> InputType:
+        return InputType.feedForward(self.nOut)
+
+
+class LastTimeStep(Layer):
+    """ref: layers.recurrent.LastTimeStep — the wrapped layer's output at
+    each example's last active step (the last step without a mask), as
+    feed-forward rows."""
+
+    input_kind = "rnn"
+
+    def __init__(self, rnn_layer: Layer, **kw):
+        super().__init__(**kw)
+        self.inner = rnn_layer
+
+    def set_defaults(self, base):
+        self.inner.set_defaults(base)
+
+    def infer_nin(self, it):
+        self.inner.infer_nin(it)
+        self.nIn, self.nOut = self.inner.nIn, self.inner.nOut
+
+    def initialize(self, gen):
+        return self.inner.initialize(gen)
+
+    def apply(self, params, state, x, train, key=None, mask=None):
+        y, state = self.inner.apply(params, state, x, train, key, mask=mask)
+        if mask is not None:
+            # each example's last active step
+            idx = torch.clamp_min((mask > 0).sum(dim=1) - 1, 0)
+            return y[torch.arange(y.shape[0], device=y.device), :, idx], state
+        return y[:, :, -1], state
+
+    def output_type(self, it: InputType) -> InputType:
+        return InputType.feedForward(self.inner.nOut)
+
+    def to_config(self):
+        return {"@class": "LastTimeStep", "inner": self.inner.to_config(),
+                "name": self.name, "nIn": self.nIn, "nOut": self.nOut}
+
+    @classmethod
+    def from_config(cls, d):
+        obj = LastTimeStep(layer_from_config(d["inner"]))
+        obj.nIn, obj.nOut = d.get("nIn"), d.get("nOut")
+        return obj
 
 
 class BaseOutputLayer(Layer):
@@ -623,13 +893,61 @@ class LossLayer(BaseOutputLayer):
     def output_type(self, it):
         return it
 
+class RnnOutputLayer(BaseOutputLayer):
+    """ref: layers.recurrent.RnnOutputLayer — the dense projection at each
+    step, [N, nIn, T] -> [N, nOut, T] (softmax over the classes), and the
+    reference's loss: each example's per-step losses summed, divided by
+    the minibatch size N (not N*T)."""
+
+    input_kind = "rnn"
+
+    def __init__(self, nOut=None, lossFunction="mcxent", **kw):
+        super().__init__(lossFunction=lossFunction, nOut=nOut, **kw)
+        if self.activation is None:
+            self.activation = "softmax"
+
+    def set_defaults(self, base):
+        super().set_defaults(base)
+        if self.activation == "identity":
+            self.activation = "softmax"
+
+    def initialize(self, gen):
+        return {"W": _initialize((self.nIn, self.nOut), self.weight_init,
+                                 gen),
+                "b": torch.zeros(self.nOut)}, {}
+
+    def apply(self, params, state, x, train, key=None):
+        z = torch.matmul(x.transpose(1, 2), params["W"]) + params["b"]
+        fn = act.get(self.activation)
+        a = fn(z, axis=-1) if self.activation in ("softmax", "logsoftmax") \
+            else fn(z)
+        return a.transpose(1, 2), state            # [N, T, V] -> [N, V, T]
+
+    def compute_loss(self, labels, preds, mask=None):
+        """labels/preds [N, C, T], mask [N, T]: time folds into the rows
+        of the loss, whose mean over the (active) rows is scaled back to
+        the sum over time divided by N."""
+        n, c = labels.shape[0], labels.shape[1]
+        lab = labels.transpose(1, 2).reshape(-1, c)
+        pre = preds.transpose(1, 2).reshape(-1, preds.shape[1])
+        m = mask.reshape(-1) if mask is not None else None
+        per_row_mean = loss_ops.get(self.loss_fn)(lab, pre, mask=m)
+        n_rows = torch.clamp_min(m.sum(), 1.0) if m is not None \
+            else lab.shape[0]
+        return per_row_mean * n_rows / n
+
+    def output_type(self, it: InputType) -> InputType:
+        return InputType.recurrent(self.nOut, it.dims.get("timesteps", -1))
+
 
 _LAYER_CLASSES = {cls.__name__: cls for cls in (
     DenseLayer, ConvolutionLayer, Deconvolution2D, DepthwiseConvolution2D,
     SeparableConvolution2D, SubsamplingLayer, BatchNormalization,
     LocalResponseNormalization, ActivationLayer, DropoutLayer,
     SpatialDropoutLayer, ZeroPaddingLayer, Upsampling2D, Cropping2D,
-    GlobalPoolingLayer, OutputLayer, LossLayer)}
+    GlobalPoolingLayer, LSTM, GravesLSTM, GRU, SimpleRnn, Bidirectional,
+    BidirectionalLastStep, LastTimeStep, OutputLayer, LossLayer,
+    RnnOutputLayer)}
 
 
 def layer_from_config(d: Dict) -> Layer:

@@ -15,23 +15,45 @@ its bias and one ``scale_shift_act`` dispatch. ``evaluate``,
 ``save``/``load`` (the JAX package's archive, ``train.serializer``),
 ``clone`` and ``summary`` are the reference's.
 
-Not ported yet (ROADMAP.md): dynamic loss scaling, TBPTT and
-``rnnTimeStep``, listeners, resilience, sharding, augmentation.
+Sequences: a DataSet's ``features_mask`` ([N, T]) reaches the mask-aware
+layers (``_MASK_AWARE``) in training and in ``score``; ``output()`` takes
+none, as in the JAX package. Truncated BPTT (``fitTBPTT``, and ``fit()``
+under ``backpropType("tbptt", L)``) splits a batch into windows of L
+steps, one update a window, the recurrent layers' ``(h, c)`` carried
+from window to window without its gradient; the window step is one
+``CachedDispatch`` a label-mask signature, eager until warmed and then
+one captured CUDA graph for every window (the first window starts from
+zero state, as the JAX one's ``None`` does). ``rnnTimeStep`` streams
+inference through the same ``apply_with_state``, eagerly.
+
+Not ported yet (ROADMAP.md): dynamic loss scaling, listeners, resilience,
+sharding, augmentation, K steps a dispatch under TBPTT.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.analysis import churn
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.evaluation.evaluation import (
     RegressionEvaluation)
+from deeplearning4j_tpu_torch.nn import compilecache as cc
 from deeplearning4j_tpu_torch.nn import layers as L
 from deeplearning4j_tpu_torch.nn.config import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.network import EVAL_PULL_CHUNK, BaseNetwork
 from deeplearning4j_tpu_torch.ops.normalization import StepKey
+from deeplearning4j_tpu_torch.train import stepping
+
+#: layers that take the feature mask (the JAX package's tuple, its ported
+#: members; GravesLSTM by subclassing, GRU not at all)
+_MASK_AWARE = (L.LSTM, L.SimpleRnn, L.Bidirectional, L.LastTimeStep,
+               L.GlobalPoolingLayer)
+
+_TBPTT_NAMES = ("tbptt", "truncatedbptt", "truncated_bptt")
 
 
 class MultiLayerNetwork(BaseNetwork):
@@ -44,6 +66,7 @@ class MultiLayerNetwork(BaseNetwork):
         self.layers = conf.layers
         self._params: List[Dict[str, torch.Tensor]] = []
         self._states: List[Dict[str, torch.Tensor]] = []
+        self._rnn_states: Optional[List] = None    # rnnTimeStep's carry
         fmt = getattr(conf.base, "compute_layout", None)
         if fmt and fmt != "NCHW":
             self.setComputeLayout(fmt)
@@ -90,10 +113,11 @@ class MultiLayerNetwork(BaseNetwork):
 
     # --------------------------------------------------------------- forward
     def _forward(self, params, states, x, train: bool,
-                 key: Optional[StepKey] = None):
+                 key: Optional[StepKey] = None, fmask=None):
         """The forward; ``key`` is the train step's dropout key (layer i
         draws from ``key.fold(i)``, in a fused group too, as the JAX
-        forward's one key split a layer)."""
+        forward's one key split a layer); ``fmask`` goes to the
+        mask-aware layers."""
         cdt = self._compute_dtype()
         if cdt is None and x.dtype == torch.uint8:
             x = x.float()                  # image bytes (fp32 nets)
@@ -136,7 +160,11 @@ class MultiLayerNetwork(BaseNetwork):
             p = params[i]
             if cdt is not None:
                 p, x = L.policy_cast(layer, p, x, cdt)
-            x, new_states[i] = layer.apply(p, states[i], x, train, sub)
+            if isinstance(layer, _MASK_AWARE):
+                x, new_states[i] = layer.apply(p, states[i], x, train, sub,
+                                               mask=fmask)
+            else:
+                x, new_states[i] = layer.apply(p, states[i], x, train, sub)
             i += 1
         if cur_nhwc and x.dim() == 4:
             x = L.to_nchw(x)
@@ -176,8 +204,8 @@ class MultiLayerNetwork(BaseNetwork):
 
     # ------------------------------------------------------------------ loss
     def _loss_and_reg(self, params, states, x, y, train, lmask=None,
-                      key=None):
-        out, new_states = self._forward(params, states, x, train, key)
+                      key=None, fmask=None):
+        out, new_states = self._forward(params, states, x, train, key, fmask)
         out_layer = self.layers[-1]
         if not isinstance(out_layer, L.BaseOutputLayer):
             raise ValueError("last layer must be an output/loss layer for "
@@ -188,6 +216,219 @@ class MultiLayerNetwork(BaseNetwork):
 
     def _pack(self, x, y, lmask, train: bool):
         return x, y, lmask
+
+    # ---------------------------------------------------- truncated BPTT
+    def _tbptt_length(self) -> Optional[int]:
+        """The window length when the configuration declares truncated
+        BPTT (``backpropType("tbptt", L)``), else None."""
+        bp = str(getattr(self.conf, "backprop_type", None) or "standard")
+        if bp.lower() in _TBPTT_NAMES and self.conf.tbptt_length:
+            return int(self.conf.tbptt_length)
+        return None
+
+    def fit(self, data, labels=None, epochs: int = 1,
+            steps_per_dispatch: int = 1):
+        """As :meth:`BaseNetwork.fit`; under a truncated-BPTT
+        configuration each batch of 3-D features goes through
+        :meth:`fitTBPTT` (any other batch through the plain step)."""
+        length = self._tbptt_length()
+        if length is None:
+            return super().fit(data, labels, epochs, steps_per_dispatch)
+        if int(steps_per_dispatch) != 1:
+            raise NotImplementedError(
+                "fit(steps_per_dispatch > 1) under truncated BPTT: K "
+                "windows a dispatch are not ported (the JAX package has no "
+                "megastep x TBPTT either)")
+        if not self._initialized:
+            self.init()
+        for _ in range(epochs):
+            for ds in self._batches(data, labels):
+                if ds.features.ndim == 3:
+                    self.fitTBPTT(ds, length)
+                else:
+                    self._fit_one(ds)
+            self._epoch += 1
+        return self
+
+    def fitTBPTT(self, ds, tbptt_length: int):
+        """Truncated BPTT (ref: BackpropType.TruncatedBPTT + tBPTTLength):
+        the batch's T steps in windows of ``tbptt_length``, one update a
+        window; the recurrent layers' state carries across windows
+        without its gradient. Labels that are not 3-D go whole to every
+        window; the feature mask is not used (the JAX package's window
+        step passes ``mask=None``), the label mask is sliced."""
+        if not self._initialized:
+            self.init()
+        length = int(tbptt_length)
+        x, y, lmask, _ = self._batch_tensors(ds.features, ds.labels,
+                                             ds.labels_mask)
+        carry = self._zero_carry(x)
+        for start in range(0, x.shape[2], length):
+            sl = slice(start, start + length)
+            out = self._fit_window(
+                x[:, :, sl], y[:, :, sl] if y.dim() == 3 else y,
+                None if lmask is None else lmask[:, sl], carry)
+            carry = out[1:]
+        return self
+
+    def _fit_window(self, x, y, lmask, carry):
+        """One window's update through its dispatch; returns ``(loss,
+        *new carry)``."""
+        self._ensure_opt_state()
+        self._ensure_clock()
+        churn.get_churn_detector().record(
+            "MultiLayerNetwork.tbptt", churn.array_fingerprint(x, y, lmask),
+            owner=self)
+        out = self._tbptt_for(lmask is not None)(x, y, lmask, *carry)
+        stepping.STEPS_PER_DISPATCH.set(1)
+        stepping.TRAIN_ITERATIONS.inc()
+        self._score = out[0]
+        self._iteration += 1
+        return out
+
+    def _tbptt_for(self, masked: bool) -> cc.CachedDispatch:
+        """The window step's dispatch for a label-mask signature: eager
+        until :meth:`_warm_tbptt` captures it."""
+        key = ("tbptt", masked)
+        d = self._step_cache.get(key)
+        if d is None:
+            d = cc.CachedDispatch(self._tbptt_step, "MultiLayerNetwork.tbptt",
+                                  state=self._dispatch_state)
+            self._step_cache[key] = d
+        return d
+
+    def _zero_carry(self, x) -> List[torch.Tensor]:
+        """The first window's state of every stateful layer, flat: zeros
+        of the layer's input dtype (the JAX ``None`` start is zeros of
+        x's dtype)."""
+        cdt = self._compute_dtype()
+        n = x.shape[0]
+        out: List[torch.Tensor] = []
+        for layer in self.layers:
+            if not hasattr(layer, "zero_state"):
+                continue
+            if cdt is None or layer.dtype_override == "float32":
+                dt = x.dtype if x.is_floating_point() else torch.float32
+            else:
+                dt = cdt
+            s = layer.zero_state(n, dt, x.device)
+            out.extend(s if isinstance(s, tuple) else (s,))
+        return out
+
+    def _tbptt_step(self, x, y, lmask, *carry):
+        """One window: the forward from the carried state (params and the
+        input under the dtype policy; the stateful layers through
+        ``apply_with_state``, the others in train mode, mask-aware ones
+        with ``mask=None``), the output layer's loss (no L1/L2, as the
+        JAX window step), the update in place and the clock. Returns
+        ``(loss, *new carry)``, all detached."""
+        cdt = self._compute_dtype()
+        key = StepKey(self.conf.base.seed, self._t_dev)
+        carry = list(carry)
+        new_carry: List[torch.Tensor] = []
+        cur = x
+        for i, layer in enumerate(self.layers):
+            if i in self.conf.preprocessors:
+                cur = self.conf.preprocessors[i](cur)
+            p = self._params[i]
+            if cdt is not None:
+                p, cur = L.policy_cast(layer, p, cur, cdt)
+            if hasattr(layer, "apply_with_state"):
+                n = 2 if isinstance(layer, L.LSTM) else 1
+                s = tuple(carry[:n]) if n == 2 else carry[0]
+                del carry[:n]
+                cur, s = layer.apply_with_state(p, cur, s)
+                new_carry.extend(s if isinstance(s, tuple) else (s,))
+            elif isinstance(layer, _MASK_AWARE):
+                cur, _ = layer.apply(p, self._states[i], cur, True,
+                                     key.fold(i), mask=None)
+            else:
+                cur, _ = layer.apply(p, self._states[i], cur, True,
+                                     key.fold(i))
+        loss = self.layers[-1].compute_loss(y, cur, mask=lmask)
+        self._apply_loss(loss)
+        with torch.no_grad():
+            self._t_dev.add_(1)
+        return (loss.detach(),) + tuple(c.detach() for c in new_carry)
+
+    def _warm_tbptt(self, x, y, lmask=None, tbptt_length: int = None):
+        """Capture the window step for the windows of a ``[N, C, T]``
+        batch (the full window and a shorter last one) without changing
+        any state."""
+        if not self._initialized:
+            self.init()
+        length = int(tbptt_length or self._tbptt_length())
+        self._ensure_opt_state()
+        self._ensure_clock()
+        x, y, lmask, _ = self._batch_tensors(x, y, lmask)
+        carry = self._zero_carry(x)
+        T = x.shape[2]
+        for start in sorted({0, T - T % length} - {T}):
+            sl = slice(start, start + length)
+            self._tbptt_for(lmask is not None).warm(
+                x[:, :, sl], y[:, :, sl] if y.dim() == 3 else y,
+                None if lmask is None else lmask[:, sl], *carry)
+        return self
+
+    def _warm_dispatch(self, x, y, lmask=None, steps: int = 1, fmask=None,
+                       tbptt_length: int = None):
+        """As :meth:`BaseNetwork._warm_dispatch`; under truncated BPTT
+        (configured, or ``tbptt_length``) a 3-D batch warms the window
+        step instead."""
+        length = tbptt_length or self._tbptt_length()
+        if length is None or np.ndim(x) != 3:
+            return super()._warm_dispatch(x, y, lmask, steps, fmask)
+        if steps != 1:
+            raise NotImplementedError(
+                "warmup(steps_per_dispatch > 1) under truncated BPTT: K "
+                "windows a dispatch are not ported")
+        return self._warm_tbptt(x, y, lmask, length)
+
+    # ------------------------------------------------- streaming inference
+    def rnnTimeStep(self, x) -> torch.Tensor:
+        """Streaming inference carrying the recurrent layers' state across
+        calls (ref: MultiLayerNetwork.rnnTimeStep): ``x`` [N, C, T_chunk],
+        or [N, C] for one step (then [N, C_out] comes back). Preprocessors
+        apply; layers without ``apply_with_state`` (Bidirectional,
+        LastTimeStep) run on the chunk alone with ``mask=None``, as in
+        the JAX package. Eager, no dtype policy (the JAX one casts
+        nothing here either)."""
+        self._require_init()
+        x = self._to_device(x)
+        single = x.dim() == 2
+        if single:
+            x = x[:, :, None]
+        if self._rnn_states is None:
+            self._rnn_states = [None] * len(self.layers)
+        key = StepKey(0, 0)
+        cur = x
+        with torch.no_grad():
+            for i, layer in enumerate(self.layers):
+                if i in self.conf.preprocessors:
+                    cur = self.conf.preprocessors[i](cur)
+                if hasattr(layer, "apply_with_state"):
+                    cur, self._rnn_states[i] = layer.apply_with_state(
+                        self._params[i], cur, self._rnn_states[i])
+                elif isinstance(layer, _MASK_AWARE):
+                    cur, _ = layer.apply(self._params[i], self._states[i],
+                                         cur, False, key.fold(i), mask=None)
+                else:
+                    cur, _ = layer.apply(self._params[i], self._states[i],
+                                         cur, False, key.fold(i))
+        if single and cur.dim() == 3:
+            cur = cur[:, :, -1]
+        return cur
+
+    def rnnClearPreviousState(self) -> None:
+        """ref: rnnClearPreviousState — the next rnnTimeStep starts from
+        zero state."""
+        self._rnn_states = None
+
+    def rnnGetPreviousState(self, layer_idx: int):
+        """Layer ``layer_idx``'s carried state (``(h, c)`` for an LSTM,
+        ``h`` for GRU/SimpleRnn), None before the first rnnTimeStep."""
+        states = self._rnn_states
+        return states[layer_idx] if states else None
 
     # --------------------------------------------------------- configuration
     def _ensure_epilogue_plan(self):

@@ -12,8 +12,9 @@ sequential network) and supplies:
   pytree order (what :meth:`params` flattens);
 - ``_pack(x, y, lmask, train)``: device tensors of one batch as
   ``(inputs, labels, masks)`` in the form its ``_loss_and_reg`` takes;
-- ``_loss_and_reg(params, states, inputs, labels, train, masks, key)``
-  and ``_ensure_epilogue_plan()``.
+- ``_loss_and_reg(params, states, inputs, labels, train, masks, key,
+  fmask=None)`` (``fmask``, a ``[N, T]`` feature mask, goes to the
+  mask-aware layers) and ``_ensure_epilogue_plan()``.
 
 A train step's dropout key is ``StepKey(seed, t)`` on the device clock
 ``t`` (``ops.normalization``); each network folds in its layer's ordinal
@@ -27,7 +28,8 @@ and the device clock ``_t_dev`` keep their storage, so the step can be
 captured as a CUDA graph and replayed (:mod:`.compilecache`). It goes
 through a :class:`~.compilecache.CachedDispatch`: one step a dispatch
 runs eagerly until a signature is warmed (:func:`.compilecache.warmup`);
-``fit(steps_per_dispatch=K)`` runs K steps a dispatch
+each mask signature (feature mask given, label mask given) has a
+dispatch of its own; ``fit(steps_per_dispatch=K)`` runs K steps a dispatch
 (:mod:`deeplearning4j_tpu_torch.train.stepping`), captured on the card
 at a signature's first dispatch.
 """
@@ -113,8 +115,10 @@ class BaseNetwork:
         self._fuse_epilogues = False
         self._epilogue_plan = None
         self._t_dev: Optional[torch.Tensor] = None   # the device clock
-        #: (label mask given, steps a dispatch) -> CachedDispatch
-        self._step_cache: Dict[Tuple[bool, int], cc.CachedDispatch] = {}
+        #: (feature mask given, label mask given, steps a dispatch)
+        #: -> CachedDispatch
+        self._step_cache: Dict[Tuple[bool, bool, int],
+                               cc.CachedDispatch] = {}
 
     def _items(self, tree) -> List[Tuple]:
         return list(tree.items() if isinstance(tree, dict)
@@ -128,11 +132,24 @@ class BaseNetwork:
     def _adopt_jax(self, params, states) -> None:
         """Take the JAX package's params and states (a dict or a list of
         dicts of arrays, each leaf through ``np.asarray`` as fp32) on
-        ``self._device``; the updater state and iteration start afresh."""
+        ``self._device``; a wrapper's nested ``{"fwd": {"W": ..}}`` becomes
+        the port's flat ``{"fwd/W": ..}``. The updater state and iteration
+        start afresh."""
         def conv(a):
             return torch.from_numpy(np.array(np.asarray(a), np.float32)
                                     ).to(self._device)
 
+        def flat(d, prefix=""):
+            out = {}
+            for k, v in d.items():
+                if isinstance(v, dict):
+                    out.update(flat(v, f"{prefix}{k}/"))
+                else:
+                    out[prefix + k] = v
+            return out
+
+        params = {n: flat(d) for n, d in params.items()} \
+            if isinstance(params, dict) else [flat(d) for d in params]
         self._params = self._map(params,
                                  lambda a: conv(a).requires_grad_(True))
         self._states = self._map(states, conv)
@@ -234,11 +251,13 @@ class BaseNetwork:
             self._epoch += 1
         return self
 
-    def _step_for(self, masked: bool, steps: int = 1) -> cc.CachedDispatch:
-        """The dispatch of ``steps`` train steps for a signature's mask
-        arity: one step runs eagerly until warmed; K steps are captured
-        at their first dispatch on the card."""
-        key = (masked, steps)
+    def _step_for(self, masked: bool, steps: int = 1,
+                  fmasked: bool = False) -> cc.CachedDispatch:
+        """The dispatch of ``steps`` train steps for a signature's masks
+        (label mask ``masked``, feature mask ``fmasked``): one step runs
+        eagerly until warmed; K steps are captured at their first
+        dispatch on the card."""
+        key = (fmasked, masked, steps)
         d = self._step_cache.get(key)
         if d is None:
             name = type(self).__name__
@@ -253,20 +272,25 @@ class BaseNetwork:
             self._step_cache[key] = d
         return d
 
-    def _batch_tensors(self, features, labels, labels_mask):
+    def _batch_tensors(self, features, labels, labels_mask,
+                       features_mask=None):
+        """``(x, y, lmask, fmask)`` on the device (masks None if absent)."""
+        def dev(a):
+            return None if a is None else self._to_device(a)
         return (self._to_device(features), self._to_device(labels),
-                None if labels_mask is None else self._to_device(labels_mask))
+                dev(labels_mask), dev(features_mask))
 
     def _fit_one(self, ds: DataSet):
         """One step on one batch; returns its loss (a device scalar)."""
         self._ensure_opt_state()
         self._ensure_clock()
-        x, y, lmask = self._batch_tensors(ds.features, ds.labels,
-                                          ds.labels_mask)
+        x, y, lmask, fmask = self._batch_tensors(
+            ds.features, ds.labels, ds.labels_mask, ds.features_mask)
         churn.get_churn_detector().record(
-            f"{type(self).__name__}.fit", churn.array_fingerprint(x, y, lmask),
-            owner=self)
-        loss = self._step_for(lmask is not None)(x, y, lmask)
+            f"{type(self).__name__}.fit",
+            churn.array_fingerprint(x, y, fmask, lmask), owner=self)
+        loss = self._step_for(lmask is not None, 1, fmask is not None)(
+            x, y, lmask, fmask)
         stepping.STEPS_PER_DISPATCH.set(1)
         stepping.TRAIN_ITERATIONS.inc()
         # kept on the device; score() converts lazily
@@ -280,36 +304,52 @@ class BaseNetwork:
         self._ensure_opt_state()
         self._ensure_clock()
         k = mb.steps
-        x, y, lmask = self._batch_tensors(mb.features, mb.labels,
-                                          mb.labels_mask)
+        x, y, lmask, fmask = self._batch_tensors(
+            mb.features, mb.labels, mb.labels_mask, mb.features_mask)
         churn.get_churn_detector().record(
             f"{type(self).__name__}.megastep",
-            churn.array_fingerprint(x, y, lmask), owner=self)
-        losses = self._step_for(lmask is not None, k)(x, y, lmask)
+            churn.array_fingerprint(x, y, fmask, lmask), owner=self)
+        losses = self._step_for(lmask is not None, k, fmask is not None)(
+            x, y, lmask, fmask)
         stepping.record_megastep(self, losses, k)
         return losses
 
-    def _warm_dispatch(self, x, y, lmask=None, steps: int = 1):
+    def _warm_dispatch(self, x, y, lmask=None, steps: int = 1, fmask=None):
         """Capture the step (K steps for ``steps`` > 1, on ``[K, B, ...]``
         arrays) for this signature without changing any state."""
         if not self._initialized:
             self.init()
         self._ensure_opt_state()
         self._ensure_clock()
-        x, y, lmask = self._batch_tensors(x, y, lmask)
-        self._step_for(lmask is not None, steps).warm(x, y, lmask)
+        x, y, lmask, fmask = self._batch_tensors(x, y, lmask, fmask)
+        self._step_for(lmask is not None, steps, fmask is not None).warm(
+            x, y, lmask, fmask)
         return self
 
-    def _train_step(self, x, y, lmask):
+    def _train_step(self, x, y, lmask, fmask=None):
         """One update step on the batch's device tensors, every piece of
         state updated in place (nothing is read on the host, so the step
         can be captured); returns the loss, a device scalar."""
         ins, labels, masks = self._pack(x, y, lmask, True)
+        key = norm_ops.StepKey(self.conf.base.seed, self._t_dev)
+        loss, new_states = self._loss_and_reg(
+            self._params, self._states, ins, labels, True, masks, key,
+            fmask=fmask)
+        self._apply_loss(loss)
+        with torch.no_grad():
+            for n, s in self._items(new_states):
+                cur = self._states[n]
+                for k, v in (s or {}).items():
+                    if v is not cur[k]:
+                        cur[k].copy_(v)
+            self._t_dev.add_(1)
+        return loss.detach()
+
+    def _apply_loss(self, loss) -> None:
+        """The backward of ``loss`` (under the policy's static loss scale)
+        and the update of every param and its updater state, in place."""
         pol = self._precision
         loss_scale = pol.loss_scale if pol is not None else None
-        key = norm_ops.StepKey(self.conf.base.seed, self._t_dev)
-        loss, new_states = self._loss_and_reg(self._params, self._states, ins,
-                                              labels, True, masks, key)
         names = [(n, k) for n, p in self._items(self._params) for k in p]
         leaves = [self._params[n][k] for n, k in names]
         scaled = loss * loss_scale if loss_scale else loss
@@ -322,20 +362,13 @@ class BaseNetwork:
             inv = 1.0 / loss_scale
             grads = [g * inv for g in grads]
         self._process_and_apply_grads(names, leaves, grads)
-        with torch.no_grad():
-            for n, s in self._items(new_states):
-                cur = self._states[n]
-                for k, v in (s or {}).items():
-                    if v is not cur[k]:
-                        cur[k].copy_(v)
-            self._t_dev.add_(1)
-        return loss.detach()
 
     def _process_and_apply_grads(self, names, leaves, grads):
         """Gradient normalization, then the updater per leaf, with AdamW's
-        decoupled decay on the weights (``W*``, ``RW*``) as the reference
-        gates it (JAX multilayer.py:139-145); the fp32 master params and
-        the updater state are updated in place."""
+        decoupled decay on the weights (leaf names ``W*``, ``RW*``; a
+        wrapper's ``fwd/W`` too) as the reference gates it (JAX
+        multilayer.py:139-145); the fp32 master params and the updater
+        state are updated in place."""
         base = self.conf.base
         updater = base.updater
         if base.grad_norm == "clip_value":
@@ -353,7 +386,7 @@ class BaseNetwork:
             for (n, k), p, g in zip(names, leaves, grads):
                 state = self._opt_state[n][k]
                 u, s2 = updater.apply(g, state, lr, t)
-                if decay and k.startswith(("W", "RW")):
+                if decay and k.rsplit("/", 1)[-1].startswith(("W", "RW")):
                     u = u + updater.weight_decay_update(p, lr)
                 p.sub_(u)
                 for sk, sv in s2.items():
@@ -367,12 +400,12 @@ class BaseNetwork:
                 self._score = float(self._score)
             return self._score
         self._require_init()
-        ins, labels, masks = self._pack(
-            *self._batch_tensors(ds.features, ds.labels, ds.labels_mask),
-            False)
+        x, y, lmask, fmask = self._batch_tensors(
+            ds.features, ds.labels, ds.labels_mask, ds.features_mask)
+        ins, labels, masks = self._pack(x, y, lmask, False)
         with torch.no_grad():
             loss, _ = self._loss_and_reg(self._params, self._states, ins,
-                                         labels, False, masks)
+                                         labels, False, masks, fmask=fmask)
         return float(loss)
 
     # ------------------------------------------------------------ evaluation

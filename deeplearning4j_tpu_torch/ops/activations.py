@@ -48,6 +48,10 @@ def softmax(x, axis: int = -1):
     return torch.softmax(x, dim=axis)
 
 
+def logsoftmax(x, axis: int = -1):
+    return torch.log_softmax(x, dim=axis)
+
+
 ACTIVATIONS = {
     "identity": identity,
     "linear": identity,
@@ -58,6 +62,7 @@ ACTIVATIONS = {
     "tanh": tanh,
     "swish": swish,
     "softmax": softmax,
+    "logsoftmax": logsoftmax,
 }
 
 

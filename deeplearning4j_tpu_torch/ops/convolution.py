@@ -238,16 +238,34 @@ def _pool_same(xt, kind: str, kernel, stride):
 
 
 def global_pool(x, pooling_type: str = "avg", data_format: str = "NCHW",
-                keepdims: bool = False):
-    """Global pooling over every spatial dim (ref: ``GlobalPoolingLayer``)."""
+                keepdims: bool = False, pnorm: int = 2, mask=None):
+    """Global pooling over every spatial or time dim (ref:
+    ``GlobalPoolingLayer``). A ``[N, T]`` mask of an ``[N, C, T]`` input
+    pools the active steps only (avg, max and sum)."""
     cf = _channels_first(data_format)
     axes = tuple(range(2, x.dim())) if cf else tuple(range(1, x.dim() - 1))
+    if mask is not None:
+        m = mask
+        while m.dim() < x.dim():
+            m = m.unsqueeze(1 if cf else -1)
+        if pooling_type == "avg":
+            s = torch.sum(x * m, dim=axes, keepdim=keepdims)
+            n = torch.sum(m, dim=axes, keepdim=keepdims)
+            return s / torch.clamp_min(n, 1e-8)
+        if pooling_type == "max":
+            return torch.amax(torch.where(m > 0, x, -math.inf), dim=axes,
+                              keepdim=keepdims)
+        if pooling_type == "sum":
+            return torch.sum(x * m, dim=axes, keepdim=keepdims)
     if pooling_type == "avg":
         return torch.mean(x, dim=axes, keepdim=keepdims)
     if pooling_type == "max":
         return torch.amax(x, dim=axes, keepdim=keepdims)
     if pooling_type == "sum":
         return torch.sum(x, dim=axes, keepdim=keepdims)
+    if pooling_type == "pnorm":
+        return torch.sum(x.abs() ** pnorm, dim=axes,
+                         keepdim=keepdims) ** (1.0 / pnorm)
     raise ValueError(pooling_type)
 
 

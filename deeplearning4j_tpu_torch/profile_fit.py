@@ -1,11 +1,11 @@
-"""Where one training step of ResNet-50, VGG16, Darknet19, TinyYOLO, YOLO2
-or the BertBench BERT-base spends its time on the card, eager and
-captured.
+"""Where one training step of ResNet-50, VGG16, Darknet19, TinyYOLO, YOLO2,
+the BertBench BERT-base or TextGenerationLSTM spends its time on the
+card, eager and captured.
 
 Usage (on a machine with a CUDA card, from the root of a checkout)::
 
     python3 -m deeplearning4j_tpu_torch.profile_fit
-        [--model vgg16|darknet19|tiny_yolo|yolo2|bert] [--captured K]
+        [--model vgg16|darknet19|tiny_yolo|yolo2|bert|textgen] [--captured K]
 
 Builds ``zoo.ResNet50(num_classes=1000)`` (the default; a
 ``ComputationGraph``, one [64, 3, 224, 224] batch of one-hot labels),
@@ -45,14 +45,33 @@ against the dense bf16 peak of the card ``torch.cuda.get_device_name()``
 names); VGG16's and YOLO2's runs print MFU too (``vgg16_flops``, or
 ``conv_flops`` of the configuration, x 3 an image).
 
+``--model textgen`` runs one truncated-BPTT window of the char-RNN
+(``zoo.TextGenerationLSTM()``: vocabulary 77, two LSTM(256), fp32, Adam
+1e-3, clip 5.0) on B=32 sequences of :func:`markov_chars` (seed 0),
+window 50 of T=1000, through ``MultiLayerNetwork._fit_window`` (the
+window step ``fitTBPTT`` dispatches; the carry is the previous window's);
+its groups are the optimizer (``_process_and_apply_grads``, the clip
+included), the loss's forward (``RnnOutputLayer.compute_loss``), the
+backward (any op under an autograd ``*Backward`` node), the forward
+GEMMs (``addmm``/``mm``/``matmul``: the hoisted input projection and the
+recurrent ``h @ RW`` of each step) and the gates' forward elementwise
+ops (sigmoid, tanh, mul, add, where), each kernel going to the first of
+those (in that order) that it or a caller names. With ``--captured K``
+the window step is captured (``compilecache.warmup(...,
+tbptt_length=50)``) and K windows are timed and traced, one replay each
+(K windows a dispatch are not ported). It prints launches a window and
+characters/s.
+
 ``--captured K`` adds the same model with K steps a dispatch, captured as
 one CUDA graph (``fit(steps_per_dispatch=K)`` after
 ``compilecache.warmup``; for BERT the step through
 ``stepping.scan_megastep`` and a ``CachedDispatch``), timed per step
 (dispatch time / K) and traced over one dispatch. A replayed graph's
 kernels have no launching op on the host, so its trace is grouped by
-kernel name alone. Both runs share one process and one card. It prints
-one JSON object. Without a card it exits non-zero.
+kernel name alone; every trace also sums its device time by kernel kind
+(GEMMs, elementwise, reductions, other: by the kernel's own name). Both
+runs share one process and one card. It prints one JSON object. Without
+a card it exits non-zero.
 """
 
 from __future__ import annotations
@@ -71,7 +90,8 @@ from deeplearning4j_tpu_torch.models import transformer as tfm
 from deeplearning4j_tpu_torch.models import zoo
 from deeplearning4j_tpu_torch.nn import compilecache as cc
 from deeplearning4j_tpu_torch.nn import network as network_mod
-from deeplearning4j_tpu_torch.nn.layers import ConvolutionLayer
+from deeplearning4j_tpu_torch.nn.layers import (ConvolutionLayer,
+                                                RnnOutputLayer)
 from deeplearning4j_tpu_torch.nn.objdetect import Yolo2OutputLayer, yolo_labels
 from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
 from deeplearning4j_tpu_torch.ops import normalization as norm_ops
@@ -79,7 +99,12 @@ from deeplearning4j_tpu_torch.train import stepping
 from deeplearning4j_tpu_torch.train.updaters import Adam
 
 BATCH = {"resnet50": 64, "vgg16": 64, "darknet19": 32, "tiny_yolo": 32,
-         "yolo2": 32, "bert": 64}
+         "yolo2": 32, "bert": 64, "textgen": 32}
+#: TextGenerationLSTM's run: dl4j-examples' LSTMCharModellingExample
+#: (sequences of 1000 characters, TBPTT windows of 50, vocabulary 77)
+TEXT_LEN = 1000
+TEXT_WINDOW = 50
+TEXT_VOCAB = 77
 #: the YOLO detectors, by ``--model``: (zoo class, classes)
 DETECTORS = {"tiny_yolo": (zoo.TinyYOLO, 20), "yolo2": (zoo.YOLO2, 80)}
 #: the 224x224 ImageNet classifiers, by ``--model``
@@ -107,6 +132,18 @@ _BERT_SCOPES = (("flash backward (composed)", "_FlashAttentionKernelBackward"),
                 ("GEMMs", "aten::mm"), ("GEMMs", "aten::addmm"),
                 ("GEMMs", "aten::bmm"), ("GEMMs", "aten::matmul"),
                 ("casts", "aten::_to_copy"), ("casts", "aten::copy_"))
+#: the char-RNN window's groups, in priority order (see the module note)
+_TEXTGEN_SCOPES = (("optimizer", _LABEL + "optimizer"),
+                   ("loss (forward)", _LABEL + "rnn_loss"),
+                   ("backward", "Backward"),
+                   ("recurrent GEMMs (forward)", "aten::addmm"),
+                   ("recurrent GEMMs (forward)", "aten::mm"),
+                   ("recurrent GEMMs (forward)", "aten::matmul"),
+                   ("gates (forward)", "aten::sigmoid"),
+                   ("gates (forward)", "aten::tanh"),
+                   ("gates (forward)", "aten::mul"),
+                   ("gates (forward)", "aten::add"),
+                   ("gates (forward)", "aten::where"))
 #: kernels grouped by their own name (substring of the kernel's name)
 _KERNEL_GROUPS = {"resnet50": (("scale_shift_act", "scale_shift_act_kernel"),),
                   "vgg16": (),
@@ -117,7 +154,15 @@ _KERNEL_GROUPS = {"resnet50": (("scale_shift_act", "scale_shift_act_kernel"),),
                   "yolo2": (("scale_shift_act", "scale_shift_act_kernel"),),
                   "bert": (("flash forward (kernel)", "flash_fwd_kernel"),
                            ("layer_norm forward (kernel)",
-                            "layer_norm_fwd_kernel"))}
+                            "layer_norm_fwd_kernel")),
+                  "textgen": ()}
+
+
+#: kernel kinds by the kernel's own name (what a replay's trace can
+#: group by): GEMMs (cuBLAS/CUTLASS), elementwise, reductions
+_KERNEL_KINDS = (("gemm", ("gemm", "xmma", "cutlass")),
+                 ("elementwise", ("elementwise",)),
+                 ("reduction", ("reduce",)))
 
 
 def _scoped(fn, label):
@@ -172,7 +217,8 @@ def profile(run, model: str, captured: bool) -> dict:
                (network_mod.BaseNetwork, "_process_and_apply_grads",
                 "optimizer"),
                (tfm, "apply_updates", "optimizer"),
-               (Yolo2OutputLayer, "compute_loss", "yolo_loss")]
+               (Yolo2OutputLayer, "compute_loss", "yolo_loss"),
+               (RnnOutputLayer, "compute_loss", "rnn_loss")]
     saved = [(owner, name, getattr(owner, name))
              for owner, name, _ in patches]
     for owner, name, label in patches:
@@ -207,16 +253,23 @@ def profile(run, model: str, captured: bool) -> dict:
                         or k.name.startswith(_LABEL):
                     continue
                 g = _group_by_priority(ev) if model == "bert" \
-                    else _group_of(ev)
+                    else _group_by_priority(ev, _TEXTGEN_SCOPES) \
+                    if model == "textgen" else _group_of(ev)
                 by_group[g] = by_group.get(g, 0.0) + k.duration / 1e3
     attributed = sum(v for g, v in by_group.items() if g != "rest")
     by_group["rest"] = max(total - attributed, 0.0)
+    by_kind = {}
+    for name, ms in by_kernel.items():
+        kind = next((k for k, needles in _KERNEL_KINDS
+                     if any(n in name.lower() for n in needles)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
     return {"traced_ms": traced_ms,
             "traced_device_ms": total,
             "device_busy_share_traced": total / traced_ms,
             "device_kernels": n_kernels,
             "device_ms_by_group": by_group,
+            "device_ms_by_kernel_kind": by_kind,
             "top_kernels_ms": [[k[:90], v] for k, v in top]}
 
 
@@ -444,6 +497,84 @@ def run_bert(k: int) -> dict:
     return out
 
 
+def markov_chars(seed: int, n: int, length: int, vocab: int = TEXT_VOCAB,
+                 concentration: float = 20.0):
+    """A seeded synthetic corpus: ``n`` sequences of ``length + 1``
+    symbols of an order-2 Markov chain over ``vocab`` symbols, as int64
+    ``[n, length + 1]``. Each pair's next-symbol distribution is drawn
+    from a Dirichlet around Zipf's law (symbol r's weight ``1/(r+1)``,
+    ``concentration`` in all), so the symbols' frequencies are skewed as
+    a text's characters are and each pair adds structure of its own: a
+    model has something to learn at every order. One-hot features are
+    ``[:, :-1]``, labels the next symbol ``[:, 1:]``."""
+    rng = np.random.default_rng(seed)
+    zipf = 1.0 / np.arange(1, vocab + 1)
+    alpha = concentration * zipf / zipf.sum()
+    cdf = np.cumsum(rng.dirichlet(alpha, (vocab, vocab)), axis=-1)
+    out = np.empty((n, length + 1), np.int64)
+    out[:, :2] = rng.integers(0, vocab, (n, 2))
+    for t in range(2, length + 1):
+        u = rng.random(n)[:, None]
+        nxt = (cdf[out[:, t - 2], out[:, t - 1]] < u).sum(axis=1)
+        out[:, t] = np.minimum(nxt, vocab - 1)
+    return out
+
+
+def one_hot_ncw(idx, vocab: int = TEXT_VOCAB, device="cuda"):
+    """Symbols ``[n, T]`` as one-hot fp32 ``[n, vocab, T]`` on ``device``
+    (the one-hot made there: a host copy of the indices only)."""
+    t = torch.as_tensor(idx, device=device)
+    return torch.nn.functional.one_hot(t, vocab).float().permute(
+        0, 2, 1).contiguous()
+
+
+def run_textgen(k: int) -> dict:
+    """One TBPTT window of TextGenerationLSTM, eager and (``k`` >= 1)
+    captured, timed and traced (module note)."""
+    net = zoo.TextGenerationLSTM().init()
+    idx = markov_chars(0, BATCH["textgen"], TEXT_LEN)
+    x = one_hot_ncw(idx[:, :-1])
+    y = one_hot_ncw(idx[:, 1:])
+    w = TEXT_WINDOW
+    state = {"window": 0, "carry": None}
+
+    def one():
+        """The next window of the batch (the first from zero state)."""
+        s = state["window"] % (TEXT_LEN // w) * w
+        state["window"] += 1
+        carry = net._zero_carry(x) if s == 0 else state["carry"]
+        out = net._fit_window(x[:, :, s:s + w], y[:, :, s:s + w], None,
+                              carry)
+        state["carry"] = out[1:]
+        return float(out[0])
+    chars = BATCH["textgen"] * w
+    for _ in range(WARM):
+        one()
+    torch.cuda.reset_peak_memory_stats()
+    times = _timed(one, ITERS)
+    eager = {**_stats(times, 1, chars, "chars"),
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    eager.update(profile(one, "textgen", False))
+    out = {"params": net.numParams(), "window": w, "seq": TEXT_LEN,
+           "eager": eager}
+    if k >= 1:
+        cc.reset_stats()
+        torch.cuda.reset_peak_memory_stats()
+        cc.warmup(net, [(tuple(x.shape), tuple(y.shape))], tbptt_length=w)
+
+        def k_windows():
+            for _ in range(k):
+                one()
+        times = _timed(k_windows, ITERS)
+        cap = {"windows_traced": k, **_stats(times, k, chars, "chars"),
+               "cache_stats": cc.cache_stats(),
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        cap.update(profile(k_windows, "textgen", True))
+        cap["device_kernels_per_window"] = cap["device_kernels"] / k
+        out["captured"] = cap
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=sorted(BATCH), default="resnet50")
@@ -462,6 +593,8 @@ def main(argv=None) -> int:
     out = {"card": smi, "model": args.model, "batch": BATCH[args.model]}
     if args.model == "bert":
         out.update(run_bert(args.captured))
+    elif args.model == "textgen":
+        out.update(run_textgen(args.captured))
     else:
         out.update(run_network(args.model, args.captured))
     print(json.dumps(out), flush=True)

@@ -19,8 +19,17 @@ and reads that order.
 Every write goes to a temp file in the target directory finalized by one
 ``os.replace``: a crash mid-write never leaves a truncated archive under
 the real name. Every restore failure raises :class:`CorruptModelError`
-naming the bad entry. ``writeNormalizer``/``restoreNormalizer`` wait for
-the normalizers (ROADMAP.md).
+naming the bad entry.
+
+A wrapper layer's params are stored under their flat names
+(``p{i}::fwd/W`` for a ``Bidirectional``). The JAX package stores its
+nested dict as one pickled object array a wrapper, which neither its own
+reader nor this one loads (both refuse pickles): such an entry raises
+:class:`CorruptModelError` naming it.
+
+``writeNormalizer``/``restoreNormalizer`` store a normalizer as the JAX
+package does: an ``.npz`` of its state and ``__class__``, its class
+name in ``data.dataset``.
 """
 
 from __future__ import annotations
@@ -159,6 +168,13 @@ def restore_into(net, path: str, meta, arrays, entries,
     updater state in the JAX flatten order."""
     with torch.no_grad():
         for kind, n, name, key in entries:
+            if kind == "p" and name not in net._params[n]:
+                raise CorruptModelError(
+                    path, f"arrays.npz::{key}",
+                    f"names no parameter of layer {n!r} (its params: "
+                    f"{sorted(net._params[n])}; a JAX package archive "
+                    "stores a wrapper's nested params as a pickle, which "
+                    "is not read)")
             t = torch.from_numpy(np.array(arrays[key])).to(net._device)
             if kind == "p":
                 net._params[n][name] = t.float().requires_grad_(True)
@@ -176,8 +192,8 @@ def restore_into(net, path: str, meta, arrays, entries,
 
 
 class ModelSerializer:
-    """ref: ModelSerializer — ``writeModel`` and
-    ``restoreMultiLayerNetwork``."""
+    """ref: ModelSerializer — ``writeModel``, ``restoreMultiLayerNetwork``,
+    ``writeNormalizer`` and ``restoreNormalizer``."""
 
     @staticmethod
     def writeModel(model, path: str, save_updater: bool = True):
@@ -208,3 +224,41 @@ class ModelSerializer:
                     yield kind[:1], int(kind[1:]), name, k
         restore_into(net, path, meta, arrays, entries(), load_updater)
         return net
+
+    # normalizer (ref: NormalizerSerializer)
+    @staticmethod
+    def writeNormalizer(norm, path: str):
+        """The normalizer's state (``state()``, else its attributes) and
+        ``__class__`` as an ``.npz``, written atomically."""
+        state = norm.state() if hasattr(norm, "state") else norm.__dict__
+        with atomic_write(path) as tmp:
+            # a file object: np.savez(path) would append ".npz" to an
+            # extension-less path and break the final replace
+            with open(tmp, "wb") as f:
+                np.savez(f, __class__=np.asarray(type(norm).__name__),
+                         **{k: np.asarray(v) for k, v in state.items()
+                            if v is not None})
+
+    @staticmethod
+    def restoreNormalizer(path: str):
+        """A normalizer file of either package."""
+        from deeplearning4j_tpu_torch.data import dataset as D
+        try:
+            data = np.load(path, allow_pickle=False)
+        except FileNotFoundError:
+            raise
+        except (ValueError, OSError) as e:
+            raise CorruptModelError(path, None,
+                                    f"unloadable normalizer npz ({e})") from e
+        if "__class__" not in data.files:
+            raise CorruptModelError(path, "__class__", "entry missing")
+        name = str(data["__class__"])
+        cls = getattr(D, name, None)
+        if cls is None or not hasattr(cls, "transform"):
+            raise CorruptModelError(path, "__class__",
+                                    f"unknown normalizer class {name!r}")
+        norm = cls()
+        for k in data.files:
+            if k != "__class__":
+                setattr(norm, k, data[k])
+        return norm

@@ -482,3 +482,51 @@ def test_darknet19_takes_18_epilogue_launches_a_forward(dev):
             [{"scale_shift_act": 72}]
     finally:
         ck.uninstall_platform_overrides()
+
+
+def test_captured_tbptt_windows_equal_eager(dev):
+    """A small TextGenerationLSTM: three windows a batch through the
+    captured window step give the eager run's params, Adam moments and
+    carried state to the bit; streaming equals output()."""
+    r = np.random.default_rng(31)
+    idx = r.integers(0, 11, (4, 25))
+    eye = np.eye(11, dtype=np.float32)
+    x = torch.from_numpy(eye[idx[:, :-1]].transpose(0, 2, 1).copy()).to(dev)
+    y = torch.from_numpy(eye[idx[:, 1:]].transpose(0, 2, 1).copy()).to(dev)
+    net = zoo.TextGenerationLSTM(vocab_size=11, input_shape=(11, 24)).init()
+    net._ensure_opt_state()
+    net._ensure_clock()
+    s0 = [t.detach().clone() for t in net._dispatch_state()]
+    runs = []
+    for captured in (False, True):
+        with torch.no_grad():
+            for t, v in zip(net._dispatch_state(), s0):
+                t.copy_(v)
+        if captured:
+            cc.reset_stats()
+            cc.warmup(net, [(tuple(x.shape), tuple(y.shape))],
+                      tbptt_length=8)
+            assert all(torch.equal(a, b)
+                       for a, b in zip(net._dispatch_state(), s0))
+        carry, losses = net._zero_carry(x), []
+        for start in range(0, 24, 8):
+            out = net._fit_window(x[:, :, start:start + 8],
+                                  y[:, :, start:start + 8], None, carry)
+            losses.append(float(out[0]))
+            carry = out[1:]
+        runs.append((losses, [t.detach().clone()
+                              for t in net._dispatch_state()],
+                     [c.clone() for c in carry]))
+    stats = cc.cache_stats()
+    assert stats["capture_failures"] == 0
+    assert stats["compile_seconds"]["cold_compiles"] == 1
+    assert stats["memory"]["hits"] == 3
+    (l1, s1, c1), (l2, s2, c2) = runs
+    assert l1 == l2
+    assert all(torch.equal(a, b) for a, b in zip(s1, s2))
+    assert all(torch.equal(a, b) for a, b in zip(c1, c2))
+    full = net.output(x)
+    net.rnnClearPreviousState()
+    parts = [net.rnnTimeStep(x[:, :, i:i + 7]) for i in range(0, 24, 7)]
+    torch.testing.assert_close(torch.cat(parts, dim=2), full, rtol=1e-5,
+                               atol=1e-5)

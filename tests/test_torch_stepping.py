@@ -208,7 +208,7 @@ class TestMultiStepEquivalence:
         a = mlp().fit(batches, steps_per_dispatch=1)
         b = fit_singly(mlp(), batches)
         assert_same_state(a, b)
-        assert list(a._step_cache) == [(False, 1)]
+        assert list(a._step_cache) == [(False, False, 1)]
 
     def test_bad_k_refused(self):
         with pytest.raises(ValueError, match="steps_per_dispatch"):

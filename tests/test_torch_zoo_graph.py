@@ -159,8 +159,7 @@ def test_loss_and_gradients_match_jax(name, monkeypatch):
 
 
 def test_the_zoo_lists_every_ported_model():
-    assert sorted(zoo.ZOO_MODELS) == \
-        sorted(set(jzoo.ZOO_MODELS) - {"TextGenerationLSTM"})
+    assert sorted(zoo.ZOO_MODELS) == sorted(jzoo.ZOO_MODELS)
     for name, net in zoo.all_zoo_models():
         assert type(net).__name__ == \
             type(jzoo.ZOO_MODELS[name]().conf_builder()).__name__, name
