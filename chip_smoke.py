@@ -242,6 +242,32 @@ Phases (each one fails the run with a non-zero exit):
    label mask), the params unchanged. ``save``/``load`` must give a
    bit-equal ``output()``, and none of the six kernels may launch (the
    recurrences are stock torch ops, as the JAX ones are jnp).
+22. ResNet-50 from JPEG files on disk: bench.py's DataPipelineBench data
+   (``profile_fit.noise_jpegs``: 1024 images of 256^2 uniform noise,
+   JPEG quality 85, 8 class directories, ``RandomState(42)``, in a
+   temporary directory removed at the end) through
+   ``MultiWorkerImageIterator(root, 224, 224, batch_size=64,
+   workers=os.cpu_count(), drop_last=True, steps_per_dispatch=4)`` into
+   ``zoo.ResNet50(num_classes=8, input_shape=(3, 224, 224))`` in phase
+   14's bf16 / NHWC / fused configuration, cuDNN held to deterministic
+   algorithms: ``compilecache.warmup`` captures the uint8 megastep (4 x
+   33 ``scale_shift_act`` launches, no failure, the state unchanged),
+   then 2 epochs of ``fit(it, steps_per_dispatch=4, prefetch=2)`` and,
+   from the same initial state, of ``prefetch=0``. Each run must see
+   every image once an epoch (the label histogram of its megabatches
+   equals the tree's) in 8 megasteps and no single step, make one uint8
+   [4, 64, 3, 224, 224] copy to the card and one of its labels a dispatch
+   and no other (``data.dataset.H2D_COPIES``), replay 4 x 33
+   ``scale_shift_act`` a dispatch and launch nothing eagerly, and give
+   finite losses; the two runs' state (params, BN statistics, Adam
+   moments, the clock) and losses must be equal to the bit;
+   ``evaluate(it, prefetch=True)`` must give ``prefetch=False``'s
+   accuracy. It prints images/s and ms a step from disk beside phase
+   14's in-memory captured step, the host's data wait against its
+   dispatch time and ``data_overlap_ratio()``, the pipeline's decode,
+   ring-copy and consumer-stall seconds, the decode ms an image on one
+   core (and the codec: cv2 where it imports, else PIL) with the host
+   cores, the pinned copy rate of one megabatch and the peak memory.
 
 The captured-against-eager rule: where the two eager runs agree to the
 bit on a tensor (and on the params' group: the param and its Adam
@@ -271,7 +297,9 @@ Output: progress lines, then a JSON line ``{"kernels": [...]}`` (the
 flash and layer-norm ``launches`` are phase 3's warmup launches plus its
 replays, softmax's phase 6's; ``replays`` counts the replayed ones;
 ``scale_shift_act``'s are phase 4's, its TinyYOLO row phase 9's, its
-Darknet19 row phase 18's and its YOLO2 row phase 19's eager steps), the
+Darknet19 row phase 18's and its YOLO2 row phase 19's eager steps;
+``from_disk_launches`` and ``from_disk_replays`` are phase 22's capture
+and replays), the
 ``nvidia-smi`` name/power-limit line, and as the last line
 ``{"ok": true, "device": {...}}``. Without a card, or outside a
 checkout, it exits non-zero and prints no result.
@@ -329,6 +357,14 @@ TEXT_BATCHES = 3
 TEXT_SAMPLES = 4
 TEXT_SAMPLE_LEN = 300
 TEXT_SEED = 0
+#: phase 22: bench.py's DataPipelineBench data (1024 noise JPEGs, 256^2,
+#: quality 85, 8 classes) decoded to 224^2, B=64, K=MEGA_K, 2 epochs
+DISK_IMAGES = 1024
+DISK_SIDE = 256
+DISK_HW = 224
+DISK_CLASSES = 8
+DISK_BATCH = 64
+DISK_EPOCHS = 2
 
 
 def fail(msg: str) -> None:
@@ -1278,10 +1314,10 @@ def main() -> None:
     x_y = torch.from_numpy(rng.standard_normal(
         (YOLO_BATCH, 3, 416, 416), dtype=np.float32)).to(dev)
     y_y = torch.from_numpy(yolo_labels(rng, YOLO_BATCH, YOLO_CLASSES)).to(dev)
-    for name, build, ds, per_step in (
-            ("ResNet-50", resnet, DataSet(x_r, y_r), 33),
-            ("TinyYOLO", tiny_yolo, DataSet(x_y, y_y), 8)):
-        captured_fit(name, build(), ds, per_step, smi)
+    r14 = {name: captured_fit(name, build(), ds, per_step, smi)
+           for name, build, ds, per_step in (
+               ("ResNet-50", resnet, DataSet(x_r, y_r), 33),
+               ("TinyYOLO", tiny_yolo, DataSet(x_y, y_y), 8))}
     del x_r, y_r, x_y, y_y
     torch.cuda.empty_cache()
 
@@ -1314,12 +1350,18 @@ def main() -> None:
     textgen(smi)
     torch.cuda.empty_cache()
 
+    # ------------------------------- 22. ResNet-50 from JPEGs on disk
+    disk = from_disk(smi, r14["ResNet-50"]["captured_ms"])
+    torch.cuda.empty_cache()
+
     ln.update(served["layer_norm"])
     fa.update(served["flash_attention"])
     ssa["launches"] = fit_launches["scale_shift_act"]
     ssa["other_shapes"][0]["launches"] = yolo_launches["scale_shift_act"]
     ssa["other_shapes"][1]["launches"] = dk_launches
     ssa["other_shapes"][2]["launches"] = y2_launches
+    ssa["from_disk_launches"] = disk["at_capture"]
+    ssa["from_disk_replays"] = disk["replays"]
     sm["launches"] = sd_warm["softmax"] + sd_replays["softmax"]
     sm["replays"] = sd_replays["softmax"]
     bn_st["launches"] = probe_launches["bn_stats"]
@@ -1327,7 +1369,8 @@ def main() -> None:
     keys = ("name", "route", "source", "replaces", "launches", "replays",
             "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
-            "other_shapes", "pair")
+            "other_shapes", "pair", "from_disk_launches",
+            "from_disk_replays")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{k: kr[k] for k in keys if k in kr}
                                   for kr in (ln, fa, ssa, sm, bn_st, bn_ap)]}))
@@ -2557,6 +2600,224 @@ def textgen(smi: str) -> None:
              f"(plain {dict(ck.PLAIN_CALLS)})")
     log(f"textgen: save/load output() bit-equal; no kernel launched; phase "
         f"{time.perf_counter() - t_phase:.1f} s [{smi}]")
+
+
+def from_disk(smi: str, inmem_ms: float) -> dict:
+    """Phase 22: ResNet-50 trained from JPEG files on disk through the
+    staged pipeline, ``dispatch_stream`` and ``fit(K=4, prefetch=2)``,
+    held to the bit against ``prefetch=0``. Returns the
+    ``scale_shift_act`` launches at capture and the replays of the two
+    runs."""
+    import torch
+
+    from deeplearning4j_tpu_torch import profile_fit
+    from deeplearning4j_tpu_torch import profiler as prof
+    from deeplearning4j_tpu_torch.data import dataset as dsmod
+    from deeplearning4j_tpu_torch.data.decode import codec, decode_one
+    from deeplearning4j_tpu_torch.data.pipeline import (
+        MultiWorkerImageIterator)
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn import compilecache as cc
+    from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+    from deeplearning4j_tpu_torch.profiler.modes import (ProfilingMode,
+                                                         set_profiling_mode)
+    t_phase = time.perf_counter()
+    k, b, hw = MEGA_K, DISK_BATCH, DISK_HW
+    tmp = tempfile.TemporaryDirectory()
+    it = None
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        # bench.py's DataPipelineBench dataset: uniform noise, 256^2,
+        # JPEG quality 85, RandomState(42), 8 class directories
+        t0 = time.perf_counter()
+        files = profile_fit.noise_jpegs(tmp.name, DISK_IMAGES, DISK_SIDE,
+                                        DISK_CLASSES)
+        mb_on_disk = sum(os.path.getsize(f) for f in files) / 1e6
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for f in files[:64]:
+            decode_one(f, hw, hw, 3)
+        decode_ms = (time.perf_counter() - t0) / 64 * 1e3
+        cores = os.cpu_count() or 1
+        log(f"from disk: {len(files)} JPEGs ({DISK_SIDE}^2, quality 85, "
+            f"{DISK_CLASSES} classes, {mb_on_disk:.1f} MB) written in "
+            f"{write_s:.2f} s; decode with {codec()}: {decode_ms:.3f} ms an "
+            f"image to {hw}^2 on one core; {cores} host cores")
+
+        # pinned host-to-device rate for one uint8 megabatch, fresh
+        # device buffers each copy
+        mega = (k, b, 3, hw, hw)
+        pinned = torch.empty(mega, dtype=torch.uint8, pin_memory=True)
+        pinned.fill_(7)
+        bufs = [torch.empty(mega, dtype=torch.uint8, device="cuda")
+                for _ in range(3)]
+        start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+        torch.cuda.synchronize()
+        start.record()
+        for buf in bufs:
+            buf.copy_(pinned, non_blocking=True)
+        end.record()
+        torch.cuda.synchronize()
+        copy_ms = start.elapsed_time(end) / len(bufs)
+        h2d_mbps = pinned.numel() / (copy_ms / 1e3) / 1e6
+        del pinned, bufs
+
+        it = MultiWorkerImageIterator(tmp.name, hw, hw, batch_size=b,
+                                      workers=cores, drop_last=True,
+                                      steps_per_dispatch=k)
+        tree = np.bincount([it.labels.index(os.path.basename(
+            os.path.dirname(f))) for f in files], minlength=DISK_CLASSES)
+        # the two runs are held to the bit: cuDNN's deterministic
+        # algorithms, chosen before the capture
+        torch.backends.cudnn.deterministic = True
+        net = zoo.ResNet50(num_classes=DISK_CLASSES,
+                           input_shape=(3, hw, hw)).init()
+        net.setPrecisionPolicy("bf16")
+        net.setComputeLayout("NHWC")
+        net.setEpilogueFusion(True)
+        net._ensure_opt_state()
+        net._ensure_clock()
+        s0 = snapshot(net._dispatch_state())
+        torch.cuda.reset_peak_memory_stats()
+        ck.reset_counts()
+        cc.reset_stats()
+        t0 = time.perf_counter()
+        cc.warmup(net, [((b, 3, hw, hw), (b, DISK_CLASSES))],
+                  steps_per_dispatch=k, dtype=np.uint8)
+        capture_s = time.perf_counter() - t0
+        at_capture = net._step_for(False, k).launches_at_capture()
+        if at_capture != [{"scale_shift_act": k * 33}] or \
+                cc.cache_stats()["capture_failures"]:
+            fail(f"from disk: the uint8 megastep recorded {at_capture}, "
+                 f"cache_stats {cc.cache_stats()}: want {k} x 33 "
+                 "scale_shift_act launches and no failure")
+        if not all(torch.equal(x, y)
+                   for x, y in zip(net._dispatch_state(), s0)):
+            fail("from disk: compilecache.warmup changed the state")
+
+        def run(prefetch: int):
+            restore(net._dispatch_state(), s0)
+            net._iteration = 0
+            net._epoch = 0
+            seen = {"hist": [torch.zeros(DISK_CLASSES, device="cuda")
+                             for _ in range(DISK_EPOCHS)],
+                    "losses": [], "dispatches": 0, "singles": 0}
+            mega_fit, one_fit = net._fit_mega, net._fit_one
+
+            def fit_mega(mb):
+                seen["dispatches"] += 1
+                seen["hist"][net._epoch] += mb.labels.sum(dim=(0, 1))
+                losses = mega_fit(mb)
+                seen["losses"].append(losses)
+                return losses
+
+            def fit_one(ds):
+                seen["singles"] += 1
+                return one_fit(ds)
+            net._fit_mega, net._fit_one = fit_mega, fit_one
+            dsmod.reset_h2d_counts()
+            ck.reset_counts()
+            before = profile_fit.host_seconds()
+            set_profiling_mode(ProfilingMode.BASIC)
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                net.fit(it, epochs=DISK_EPOCHS, steps_per_dispatch=k,
+                        prefetch=prefetch)
+                last = net.score()                  # waits for the card
+                wall = time.perf_counter() - t0
+            finally:
+                set_profiling_mode(ProfilingMode.OFF)
+                del net._fit_mega, net._fit_one
+            after = profile_fit.host_seconds()
+            seen.update(wall=wall, last=last,
+                        h2d=dict(dsmod.H2D_COPIES),
+                        launches=dict(ck.LAUNCHES), replays=dict(ck.REPLAYS),
+                        delta={key: after[key] - before[key]
+                               for key in after},
+                        state=snapshot(net._dispatch_state()))
+            return seen
+
+        runs = {p: run(p) for p in (2, 0)}
+        ratio = prof.data_overlap_ratio()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        n_disp = DISK_EPOCHS * DISK_IMAGES // (k * b)
+        want_h2d = {(mega, "uint8"): n_disp,
+                    ((k, b, DISK_CLASSES), "float32"): n_disp}
+        for p, r in runs.items():
+            hist = [h.cpu().numpy() for h in r["hist"]]
+            if any(not np.array_equal(h, tree) for h in hist) \
+                    or r["singles"] or r["dispatches"] != n_disp:
+                fail(f"from disk prefetch={p}: label histograms {hist} "
+                     f"against the tree's {tree.tolist()}, {r['dispatches']} "
+                     f"megasteps and {r['singles']} single steps: want every "
+                     f"image once an epoch in {n_disp} megasteps")
+            if r["h2d"] != want_h2d:
+                fail(f"from disk prefetch={p}: host-to-device copies "
+                     f"{r['h2d']}: want one uint8 {list(mega)} megabatch and "
+                     "its labels a dispatch, nothing else")
+            if any(r["launches"].values()) or any(ck.PLAIN_CALLS.values()) \
+                    or r["replays"]["scale_shift_act"] != n_disp * k * 33:
+                fail(f"from disk prefetch={p}: launched {r['launches']} "
+                     f"eagerly, replayed {r['replays']}: want {n_disp} "
+                     f"replays of {k} x 33 scale_shift_act")
+            losses = torch.cat(r["losses"]).float().cpu().numpy()
+            if losses.shape != (DISK_EPOCHS * DISK_IMAGES // b,) or \
+                    not np.isfinite(losses).all():
+                fail(f"from disk prefetch={p}: losses {losses}")
+            r["losses"] = losses
+        same = [torch.equal(x, y) for x, y in zip(runs[2]["state"],
+                                                  runs[0]["state"])]
+        if not all(same) or not np.array_equal(runs[2]["losses"],
+                                               runs[0]["losses"]):
+            fail(f"from disk: prefetch=2 and prefetch=0 differ in "
+                 f"{same.count(False)} of {len(same)} state tensors (losses "
+                 f"{runs[2]['losses'].tolist()} / "
+                 f"{runs[0]['losses'].tolist()})")
+        acc = {}
+        for p in (True, False):
+            t0 = time.perf_counter()
+            acc[p] = (net.evaluate(it, prefetch=p).accuracy(),
+                      time.perf_counter() - t0)
+        if acc[True][0] != acc[False][0]:
+            fail(f"from disk: evaluate accuracy {acc[True][0]} with "
+                 f"prefetch, {acc[False][0]} without")
+        cap = cc.cache_stats()
+        if cap["capture_failures"] or \
+                cap["compile_seconds"]["cold_compiles"] != 1:
+            fail(f"from disk: cache stats {cap}: want the one capture")
+        n_img = DISK_EPOCHS * DISK_IMAGES
+        for p, r in runs.items():
+            d = r["delta"]
+            log(f"from disk fit(K={k}, prefetch={p}), {DISK_EPOCHS} epochs of "
+                f"{DISK_IMAGES}: {r['wall']:.3f} s, {n_img / r['wall']:.1f} "
+                f"images/s, {r['wall'] * 1e3 / (n_img / b):.2f} ms a step "
+                f"(in memory, phase 14: {inmem_ms:.2f} ms a step, "
+                f"{b / (inmem_ms / 1e3):.1f} images/s); data wait "
+                f"{d['data_wait']:.3f} s against dispatch "
+                f"{d['dispatch']:.3f} s; pipeline: decode "
+                f"{d['decode']:.3f} worker-s, ring copy {d['ring_copy']:.3f} "
+                f"s, consumer stall {d['consumer_stall']:.3f} s; last loss "
+                f"{r['last']:.5f} [{smi}]")
+        log(f"from disk: data_overlap_ratio {ratio:.4f} (prefetch=2 and 0); "
+            f"pinned H2D {h2d_mbps:.1f} MB/s ({copy_ms:.3f} ms a "
+            f"{int(np.prod(mega)) / 1e6:.1f} MB megabatch); capture "
+            f"{capture_s:.2f} s; peak {peak_gb:.2f} GB; decode bound "
+            f"{cores * 1e3 / decode_ms:.0f} images/s on {cores} cores with "
+            f"{codec()}; {n_disp} dispatches a run, copies "
+            f"{runs[2]['h2d']}; state bit-equal across prefetch=2/0 "
+            f"({len(same)} tensors, {len(runs[2]['losses'])} losses); "
+            f"evaluate accuracy {acc[True][0]:.4f} both ways "
+            f"({acc[True][1]:.2f} s / {acc[False][1]:.2f} s); phase "
+            f"{time.perf_counter() - t_phase:.1f} s [{smi}]")
+        return {"at_capture": k * 33,
+                "replays": sum(r["replays"]["scale_shift_act"]
+                               for r in runs.values())}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        if it is not None:
+            it.close()
+        tmp.cleanup()
 
 
 def ssa_plain(x, scale, shift, *, alpha=0.0, axis=1):

@@ -1,18 +1,21 @@
-"""Built-in dataset iterators (the slice's subset of
+"""Built-in dataset iterators (the port of
 ``deeplearning4j_tpu/data/iterators.py``): ``MnistDataSetIterator``,
-``EmnistDataSetIterator``, ``IrisDataSetIterator`` and
-``TinyImageNetDataSetIterator``.
+``EmnistDataSetIterator``, ``IrisDataSetIterator``,
+``TinyImageNetDataSetIterator`` and ``Cifar10DataSetIterator``.
 
 ref: ``org.deeplearning4j.datasets.iterator.impl.*``. Nothing is
-downloaded. ``MnistDataSetIterator`` reads the standard IDX files under
-``$DL4J_TPU_DATA_DIR/mnist`` when that variable names a directory holding
-them; otherwise, and for the other image sets always, the batches come
-from the JAX package's seeded synthetic generators, copied here bit for
-bit (the same seeds give the same arrays): blocky class templates with
-shift and noise, learnable and MNIST-shaped, NOT real digits. The iris
-data is the canonical 150-row Fisher set. The JAX package's real
-TinyImageNet branch (``$DL4J_TPU_TINYIMAGENET_DIR``, decoded through its
-image record reader) is not ported.
+downloaded. The real sets are read where they already lie on disk:
+MNIST's IDX files under ``$DL4J_TPU_DATA_DIR/mnist``, CIFAR-10's python
+batches under ``$DL4J_TPU_DATA_DIR/cifar10`` (or
+``cifar-10-batches-py``), TinyImageNet's class-per-directory tree under
+``$DL4J_TPU_TINYIMAGENET_DIR`` (decoded through the image record
+reader). Otherwise (and for EMNIST always) the batches come from the JAX
+package's seeded synthetic generators, copied here bit for bit (the same
+seeds give the same arrays): blocky class templates with shift and
+noise, or CIFAR's coloured blobs — learnable stand-ins, NOT the real
+images. Unlike the JAX package the port reads no directory in the home
+directory: only the variables name data. The iris data is the canonical
+150-row Fisher set.
 """
 
 from __future__ import annotations
@@ -138,23 +141,55 @@ class EmnistDataSetIterator(ListDataSetIterator):
 
 class TinyImageNetDataSetIterator(ListDataSetIterator):
     """ref: TinyImageNetDataSetIterator — 200 classes, 64x64 RGB, NCHW
-    fp32 in [0, 1], from the seeded synthetic class generator."""
+    fp32 in [0, 1]. The real images when ``$DL4J_TPU_TINYIMAGENET_DIR``
+    names a class-per-directory tree (a fixed 90/10 train/test split of
+    ``RandomState(20481)``'s permutation of the files, every class in the
+    label map), else the seeded synthetic class generator."""
 
     NUM_CLASSES = 200
     HW = 64
 
     def __init__(self, batch_size: int, train: bool = True,
                  seed: int = 12345, num_examples: int = None):
-        n = num_examples or (2048 if train else 256)
-        flat, labels = _synthetic_classes(
-            n, self.NUM_CLASSES, seed + (0 if train else 777),
-            image_hw=self.HW, channels=3)
-        feats = flat.reshape(n, 3, self.HW, self.HW) / 255.0
-        self.synthetic = True
-        onehot = np.eye(self.NUM_CLASSES, dtype=np.float32)[
-            labels.astype(np.int64)]
+        root = os.environ.get("DL4J_TPU_TINYIMAGENET_DIR")
+        if root and os.path.isdir(root):
+            feats, labels, n_cls = _tiny_imagenet_files(root, train,
+                                                        num_examples, self.HW)
+            self.synthetic = False
+        else:
+            n = num_examples or (2048 if train else 256)
+            flat, labels = _synthetic_classes(
+                n, self.NUM_CLASSES, seed + (0 if train else 777),
+                image_hw=self.HW, channels=3)
+            feats = flat.reshape(n, 3, self.HW, self.HW) / 255.0
+            n_cls = self.NUM_CLASSES
+            self.synthetic = True
+        onehot = np.eye(n_cls, dtype=np.float32)[labels.astype(np.int64)]
         super().__init__(DataSet(feats, onehot), batch_size,
                          shuffle=train, seed=seed)
+
+
+def _tiny_imagenet_files(root: str, train: bool, num_examples, hw: int):
+    """``(features [n, 3, hw, hw] in [0, 1], labels, classes)`` of the
+    image tree under ``root`` (the JAX package's real-data branch): a
+    deterministic 90/10 split over a fixed permutation, since a sorted
+    class-per-directory walk would give train == test and class-skewed
+    truncation."""
+    from deeplearning4j_tpu_torch.data.image import (ImageRecordReader,
+                                                     _list_images)
+    files = _list_images(root)
+    perm = np.random.RandomState(20481).permutation(len(files))
+    cut = int(len(files) * 0.9)
+    chosen = perm[:cut] if train else perm[cut:]
+    if num_examples is not None:
+        chosen = chosen[:num_examples]
+    rr = ImageRecordReader(hw, hw, 3)
+    names = sorted({rr.label_generator.getLabelForPath(f) for f in files})
+    feats = np.stack([rr.loader.asMatrix(files[i]) / 255.0
+                      for i in chosen]).astype(np.float32)
+    labels = np.asarray([names.index(rr.label_generator.getLabelForPath(
+        files[i])) for i in chosen])
+    return feats, labels, len(names)
 
 
 def _synthetic_classes(n: int, num_classes: int, seed: int,
@@ -242,3 +277,73 @@ def _iris_data():
         [6.2,3.4,5.4,2.3,2],[5.9,3.0,5.1,1.8,2]], dtype=np.float32)
     return raw[:, :4], raw[:, 4].astype(np.int64)
 
+
+def _find_cifar10(train: bool):
+    """CIFAR-10's python batches (``data_batch_1..5`` or ``test_batch``)
+    under ``$DL4J_TPU_DATA_DIR/cifar10``, ``.../cifar10/cifar-10-batches-py``
+    or ``.../cifar-10-batches-py``, as ``(uint8 [n, 3, 32, 32], labels)``;
+    None without the variable or the files. The batches are pickles, as
+    the reference's download ships them: read only files you trust."""
+    import pickle
+    root = os.environ.get("DL4J_TPU_DATA_DIR")
+    if not root:
+        return None
+    names = [f"data_batch_{i}" for i in range(1, 6)] if train \
+        else ["test_batch"]
+    for sub in ("cifar10", os.path.join("cifar10", "cifar-10-batches-py"),
+                "cifar-10-batches-py"):
+        base = os.path.join(root, sub)
+        if not all(os.path.exists(os.path.join(base, n)) for n in names):
+            continue
+        xs, ys = [], []
+        for n in names:
+            with open(os.path.join(base, n), "rb") as f:
+                d = pickle.load(f, encoding="bytes")
+            xs.append(np.asarray(d[b"data"], np.uint8))
+            ys.append(np.asarray(d[b"labels"], np.int64))
+        return np.concatenate(xs).reshape(-1, 3, 32, 32), np.concatenate(ys)
+    return None
+
+
+def _synthetic_cifar(n: int, seed: int):
+    """Class-dependent coloured blobs standing in for CIFAR-10 (the JAX
+    package's generator, bit for bit)."""
+    rng = np.random.RandomState(seed)
+    y = rng.randint(0, 10, n)
+    x = rng.rand(n, 3, 32, 32).astype(np.float32) * 0.25
+    yy, xx = np.mgrid[0:32, 0:32].astype(np.float32)
+    for i in range(n):
+        c = y[i]
+        cx, cy = 8 + 2 * (c % 4), 8 + 2 * (c // 4)
+        blob = np.exp(-(((xx - cx * 1.5) ** 2 + (yy - cy * 1.5) ** 2)
+                        / (2.0 * (3 + c % 3) ** 2)))
+        x[i, c % 3] += blob
+        x[i, (c + 1) % 3] += 0.5 * blob.T
+    return (np.clip(x, 0, 1) * 255).astype(np.uint8), y
+
+
+class Cifar10DataSetIterator(ListDataSetIterator):
+    """ref: Cifar10DataSetIterator — 10 classes, 32x32 RGB, NCHW fp32 in
+    [0, 1]: the real python batches when :func:`_find_cifar10` finds them,
+    else the seeded synthetic blobs (``real_data`` says which)."""
+
+    NUM_CLASSES = 10
+
+    def __init__(self, batch_size: int, train: bool = True,
+                 num_examples: int = None, seed: int = 123,
+                 shuffle: bool = True):
+        found = _find_cifar10(train)
+        self.real_data = found is not None
+        if found is not None:
+            x, y = found
+        else:
+            # a split-dependent seed: the synthetic test set is not the
+            # training set
+            x, y = _synthetic_cifar(num_examples or 2048,
+                                    seed + (0 if train else 777))
+        if num_examples is not None:
+            x, y = x[:num_examples], y[:num_examples]
+        feats = x.astype(np.float32) / 255.0
+        labels = np.eye(self.NUM_CLASSES, dtype=np.float32)[y]
+        super().__init__(DataSet(feats, labels), batch_size=batch_size,
+                         shuffle=shuffle, seed=seed)

@@ -47,6 +47,7 @@ cannot be serialized.
 from __future__ import annotations
 
 import contextlib
+import gc
 import time
 import warnings
 from typing import Callable, Dict, List, Optional
@@ -172,11 +173,23 @@ def _record(fn, static_args, **capture):
     ``stream`` of :meth:`CachedDispatch._capture_options`. The capture is
     thread-local: another thread's calls meanwhile (a server replaying
     its own graphs, its synchronous copies to and from the card) neither
-    invalidate it nor raise there."""
+    invalidate it nor raise there.
+
+    The cyclic garbage collector is off while the capture runs: a network
+    and its dispatches form a reference cycle, so an older network's
+    graphs are freed by a collection, and a collection that an allocation
+    set off inside the capture would free them on this thread mid-capture,
+    which invalidates the capture."""
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode="thread_local",
-                          **capture):
-        out = fn(*static_args)
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, capture_error_mode="thread_local",
+                              **capture):
+            out = fn(*static_args)
+    finally:
+        if collecting:
+            gc.enable()
     return graph, out
 
 

@@ -11,7 +11,12 @@ per-layer dropout keys, the fused BN + activation epilogue with its
 conv-bias fold, the re-biased copy of a folded conv that has other
 consumers, and the fp32/bf16 alignment at vertices. ``evaluate``,
 ``summary``, ``save``/``load`` (the JAX package's archive and JSON) and
-``clone`` are the reference's.
+``clone`` are the reference's. uint8 inputs (image bytes from the staged
+pipeline) are cast on the device: to fp32 when no compute dtype is set,
+as JAX graph.py:474-476 does, and to the policy's dtype at the first
+layer otherwise (``layers.policy_cast``). ``fit`` also takes
+``MultiDataSet`` batches (every graph input and output), one step or K
+steps a dispatch.
 
 Every vertex of the JAX package is here; ElementWise, Scale and Shift
 keep an NHWC activation when all their inputs are NHWC, every other
@@ -36,6 +41,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from deeplearning4j_tpu_torch.data.dataset import MultiDataSet
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.nn import layers as L
 from deeplearning4j_tpu_torch.nn import preprocessors as pp
@@ -446,7 +452,9 @@ class ComputationGraph(BaseNetwork):
         fused_act = {act: bn for bn, (act, _c, _a) in plan.items()}
         fused_conv = {c for _a, c, _al in plan.values() if c}
         shared = self._epilogue_shared if self._fuse_epilogues else set()
-        env = dict(inputs)
+        env = {k: (v.float() if cdt is None and v.dtype == torch.uint8
+                   else v)
+               for k, v in inputs.items()}    # on-device image-byte cast
         fmt = {k: False for k in env}        # node name -> output is NHWC
         pending_bias: Dict[str, Any] = {}    # fused conv name -> cast bias
         # shared folded convs: env[] holds the BIAS-LESS output (what the
@@ -576,6 +584,30 @@ class ComputationGraph(BaseNetwork):
         the label mask (the graph's score, as the JAX one, reads none)."""
         masks = [lmask] if train and lmask is not None else None
         return {self.conf.graph_inputs[0]: x}, [y], masks
+
+    def _multi_step(self, n_in: int, n_out: int, masked: bool):
+        """The train step on a MultiDataSet's flat arguments: ``n_in``
+        features (the graph's inputs, in order), ``n_out`` labels, then a
+        label mask an output when ``masked``."""
+        def step(*flat):
+            ins = dict(zip(self.conf.graph_inputs, flat[:n_in]))
+            labels = list(flat[n_in:n_in + n_out])
+            masks = list(flat[n_in + n_out:]) if masked else None
+            return self._step_on(ins, labels, masks)
+        return step
+
+    def score(self, ds=None) -> float:
+        """As :meth:`BaseNetwork.score`; a MultiDataSet feeds every graph
+        input and output (no label masks, as the JAX graph's score)."""
+        if not isinstance(ds, MultiDataSet):
+            return super().score(ds)
+        self._require_init()
+        ins = self._as_input_dict(list(ds.features))
+        labels = [self._to_device(a) for a in ds.labels]
+        with torch.no_grad():
+            loss, _ = self._loss_and_reg(self._params, self._states, ins,
+                                         labels, False, None)
+        return float(loss)
 
     def getLayer(self, name: str):
         return self.conf.node_by_name[name].obj

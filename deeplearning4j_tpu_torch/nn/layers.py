@@ -977,17 +977,23 @@ def compute_dtype_of(conf_dtype) -> Optional[torch.dtype]:
 
 def policy_cast(layer, params, x, compute_dt):
     """Cast (params, input) for one layer under the dtype policy. A
-    per-layer ``dataType="float32"`` declares an fp32 island."""
+    per-layer ``dataType="float32"`` declares an fp32 island. uint8 image
+    bytes are cast on the device: to the compute dtype, or to fp32 in an
+    island (an output layer takes them as they are, as in the JAX
+    package)."""
     if compute_dt is None:
         return params, x
     override = getattr(layer, "dtype_override", None)
-    if override == "float32" or isinstance(layer, BaseOutputLayer):
-        if x.is_floating_point() and x.dtype != torch.float32:
+    out_layer = isinstance(layer, BaseOutputLayer)
+    if override == "float32" or out_layer:
+        if (x.is_floating_point() and x.dtype != torch.float32) \
+                or (x.dtype == torch.uint8 and not out_layer):
             x = x.float()
         return params, x
     if isinstance(layer, _POLICY_FP32_PARAM_LAYERS):
         return params, x
-    if x.is_floating_point() and x.dtype != compute_dt:
+    if (x.is_floating_point() and x.dtype != compute_dt) \
+            or x.dtype == torch.uint8:
         x = x.to(compute_dt)
     if params:
         params = {k: v.to(compute_dt) if v.dtype == torch.float32 else v

@@ -26,8 +26,13 @@ one captured CUDA graph for every window (the first window starts from
 zero state, as the JAX one's ``None`` does). ``rnnTimeStep`` streams
 inference through the same ``apply_with_state``, eagerly.
 
+Under truncated BPTT ``fit`` ignores ``steps_per_dispatch``, as the JAX
+package does: every 3-D batch goes through ``fitTBPTT``, one window a
+dispatch; ``warmup(steps_per_dispatch=K)`` warms the plain K-step
+megastep, as the JAX one does.
+
 Not ported yet (ROADMAP.md): dynamic loss scaling, listeners, resilience,
-sharding, augmentation, K steps a dispatch under TBPTT.
+sharding, augmentation.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch import profiler as _prof
 from deeplearning4j_tpu_torch.analysis import churn
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.evaluation.evaluation import (
@@ -227,22 +233,20 @@ class MultiLayerNetwork(BaseNetwork):
         return None
 
     def fit(self, data, labels=None, epochs: int = 1,
-            steps_per_dispatch: int = 1):
+            steps_per_dispatch: int = 1, prefetch: int = 2):
         """As :meth:`BaseNetwork.fit`; under a truncated-BPTT
         configuration each batch of 3-D features goes through
-        :meth:`fitTBPTT` (any other batch through the plain step)."""
+        :meth:`fitTBPTT` (any other batch through the plain step), one
+        window a dispatch, and ``steps_per_dispatch`` and ``prefetch`` do
+        not apply (JAX multilayer.py:907-913)."""
         length = self._tbptt_length()
         if length is None:
-            return super().fit(data, labels, epochs, steps_per_dispatch)
-        if int(steps_per_dispatch) != 1:
-            raise NotImplementedError(
-                "fit(steps_per_dispatch > 1) under truncated BPTT: K "
-                "windows a dispatch are not ported (the JAX package has no "
-                "megastep x TBPTT either)")
+            return super().fit(data, labels, epochs, steps_per_dispatch,
+                               prefetch)
         if not self._initialized:
             self.init()
         for _ in range(epochs):
-            for ds in self._batches(data, labels):
+            for ds in _prof.iter_with_data_wait(self._batches(data, labels)):
                 if ds.features.ndim == 3:
                     self.fitTBPTT(ds, length)
                 else:
@@ -373,15 +377,12 @@ class MultiLayerNetwork(BaseNetwork):
     def _warm_dispatch(self, x, y, lmask=None, steps: int = 1, fmask=None,
                        tbptt_length: int = None):
         """As :meth:`BaseNetwork._warm_dispatch`; under truncated BPTT
-        (configured, or ``tbptt_length``) a 3-D batch warms the window
-        step instead."""
+        (configured, or ``tbptt_length``) a 3-D batch at one step a
+        dispatch warms the window step instead. K > 1 steps always warm
+        the plain K-step megastep, as the JAX ``warmup`` does."""
         length = tbptt_length or self._tbptt_length()
-        if length is None or np.ndim(x) != 3:
+        if length is None or steps != 1 or np.ndim(x) != 3:
             return super()._warm_dispatch(x, y, lmask, steps, fmask)
-        if steps != 1:
-            raise NotImplementedError(
-                "warmup(steps_per_dispatch > 1) under truncated BPTT: K "
-                "windows a dispatch are not ported")
         return self._warm_tbptt(x, y, lmask, length)
 
     # ------------------------------------------------- streaming inference
@@ -445,9 +446,10 @@ class MultiLayerNetwork(BaseNetwork):
 
     # ------------------------------------------------------------ evaluation
     def evaluateRegression(self, iterator,
-                           pull_chunk: int = EVAL_PULL_CHUNK
-                           ) -> RegressionEvaluation:
-        return self.evaluate(iterator, RegressionEvaluation(), pull_chunk)
+                           pull_chunk: int = EVAL_PULL_CHUNK,
+                           prefetch: bool = True) -> RegressionEvaluation:
+        return self.evaluate(iterator, RegressionEvaluation(), pull_chunk,
+                             prefetch)
 
     def summary(self) -> str:
         lines = ["=" * 70,

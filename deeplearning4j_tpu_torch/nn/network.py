@@ -29,9 +29,20 @@ captured as a CUDA graph and replayed (:mod:`.compilecache`). It goes
 through a :class:`~.compilecache.CachedDispatch`: one step a dispatch
 runs eagerly until a signature is warmed (:func:`.compilecache.warmup`);
 each mask signature (feature mask given, label mask given) has a
-dispatch of its own; ``fit(steps_per_dispatch=K)`` runs K steps a dispatch
+dispatch of its own, and so does each MultiDataSet arity in the graph;
+``fit(steps_per_dispatch=K)`` runs K steps a dispatch
 (:mod:`deeplearning4j_tpu_torch.train.stepping`), captured on the card
-at a signature's first dispatch.
+at a signature's first dispatch, fed by a ``DevicePrefetcher`` that
+stages the next megabatch on a side stream while the current one runs
+(``prefetch=2``, the reference's default; ``prefetch=0`` stages on the
+calling thread). A staged pipeline iterator (``data.pipeline``) whose
+``megabatch_steps`` is K hands the fit whole ``[K, B, ...]`` megabatches
+(``dispatch_stream``). ``evaluate`` pulls its batches through an
+``AsyncDataSetIterator`` unless ``prefetch=False``.
+
+The dispatch and the data wait before it are timed while
+instrumentation is active (``dl4j_train_step_seconds``,
+``dl4j_train_data_wait_seconds``; ``profiler.data_overlap_ratio``).
 """
 
 from __future__ import annotations
@@ -41,8 +52,12 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch import profiler as _prof
 from deeplearning4j_tpu_torch.analysis import churn
-from deeplearning4j_tpu_torch.data.dataset import DataSet
+from deeplearning4j_tpu_torch.data.dataset import (AsyncDataSetIterator,
+                                                   DataSet,
+                                                   IterableDataSetIterator,
+                                                   MultiDataSet, to_device)
 from deeplearning4j_tpu_torch.evaluation.evaluation import Evaluation
 from deeplearning4j_tpu_torch.nn import compilecache as cc
 from deeplearning4j_tpu_torch.nn import layers as L
@@ -54,30 +69,48 @@ from deeplearning4j_tpu_torch.train import updaters as upd
 EVAL_PULL_CHUNK = 64
 
 
-def _datasets_of(iterator):
-    """The DataSets of a DataSetIterator (reset first) or of any iterable
-    of DataSets."""
-    if hasattr(iterator, "hasNext"):
-        iterator.reset()
-        while iterator.hasNext():
-            yield iterator.next()
-    else:
-        yield from iterator
+def _epoch_of(iterator, steps: int = 1):
+    """One epoch of a DataSetIterator-style object (reset first): whole
+    megabatches from its ``dispatch_stream()`` when
+    :func:`~deeplearning4j_tpu_torch.train.stepping.use_dispatch_stream`
+    holds for ``steps``, else its batches."""
+    iterator.reset()
+    if stepping.use_dispatch_stream(iterator, steps):
+        yield from iterator.dispatch_stream()
+        return
+    while iterator.hasNext():
+        yield iterator.next()
 
 
 def _host(a):
     return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else a
 
 
-def predict_batches(output_fn, iterator, chunk: int = EVAL_PULL_CHUNK):
+def _eval_iterator(iterator, prefetch: bool = True):
+    """``evaluate``'s source: ``(iterator, owned)``. A DataSetIterator-style
+    object (or any iterable of DataSets, through IterableDataSetIterator)
+    goes behind an AsyncDataSetIterator that this call owns and closes,
+    unless ``prefetch`` is False (sources bound to one thread)."""
+    if isinstance(iterator, AsyncDataSetIterator):
+        return iterator, False
+    base = iterator if hasattr(iterator, "hasNext") \
+        else IterableDataSetIterator(iterator)
+    if not prefetch:
+        return base, False
+    return AsyncDataSetIterator(base), True
+
+
+def predict_batches(output_fn, iterator, chunk: int = EVAL_PULL_CHUNK,
+                    prefetch: bool = True):
     """Yield ``(labels, preds, labels_mask)`` per batch, preds as host
     numpy, dispatching ``output_fn`` for every batch WITHOUT pulling each
     result (ref: the JAX ``_predict_batches``): predictions stay on the
     device and come back in one copy of up to ``chunk`` batches, so the
     host waits once a chunk, not once a batch, and at most ``chunk``
-    batches of predictions are held on the device. The iterator is
-    consumed on the calling thread (the JAX package's
-    ``AsyncDataSetIterator`` prefetch is not ported)."""
+    batches of predictions are held on the device. With ``prefetch`` the
+    batches are pulled by a background thread
+    (:func:`_eval_iterator`)."""
+    it, owned = _eval_iterator(iterator, prefetch)
     pending = []
 
     def drain():
@@ -92,12 +125,29 @@ def predict_batches(output_fn, iterator, chunk: int = EVAL_PULL_CHUNK):
         pending.clear()
         return out
 
-    for ds in _datasets_of(iterator):
-        pending.append((ds.labels, output_fn(ds.features), ds.labels_mask))
-        if len(pending) >= chunk:
+    try:
+        if not owned:
+            it.reset()
+        while it.hasNext():
+            ds = it.next()
+            pending.append((ds.labels, output_fn(ds.features),
+                            ds.labels_mask))
+            if len(pending) >= chunk:
+                yield from drain()
+        if pending:
             yield from drain()
-    if pending:
-        yield from drain()
+    except BaseException:
+        # already unwinding: close without letting a buffered worker
+        # error mask this one
+        if owned:
+            try:
+                it.close()
+            except BaseException:
+                pass
+        raise
+    else:
+        if owned:
+            it.close()      # raises a worker error nobody pulled
 
 
 class BaseNetwork:
@@ -115,19 +165,17 @@ class BaseNetwork:
         self._fuse_epilogues = False
         self._epilogue_plan = None
         self._t_dev: Optional[torch.Tensor] = None   # the device clock
-        #: (feature mask given, label mask given, steps a dispatch)
+        #: (feature mask given, label mask given, steps a dispatch), or
+        #: ("multi", inputs, outputs, label masks given, steps a dispatch)
         #: -> CachedDispatch
-        self._step_cache: Dict[Tuple[bool, bool, int],
-                               cc.CachedDispatch] = {}
+        self._step_cache: Dict[tuple, cc.CachedDispatch] = {}
 
     def _items(self, tree) -> List[Tuple]:
         return list(tree.items() if isinstance(tree, dict)
                     else enumerate(tree))
 
     def _to_device(self, a) -> torch.Tensor:
-        if not isinstance(a, torch.Tensor):
-            a = torch.from_numpy(np.asarray(a))
-        return a.to(self._device)
+        return to_device(a, self._device)
 
     def _adopt_jax(self, params, states) -> None:
         """Take the JAX package's params and states (a dict or a list of
@@ -220,57 +268,107 @@ class BaseNetwork:
         return cc.state_tensors(self._params, self._states, self._opt_state,
                                 self._t_dev)
 
-    def _batches(self, data, labels):
-        """One epoch's DataSets: a DataSet, a list of them, a
-        DataSetIterator-style object (``reset``/``hasNext``/``next``,
-        reset at each epoch), or (features, labels) arrays."""
-        if isinstance(data, DataSet):
+    def _batches(self, data, labels, steps: int = 1):
+        """One epoch's batches: a DataSet or MultiDataSet, a list of them,
+        a DataSetIterator-style object (``reset``/``hasNext``/``next``,
+        reset at each epoch; whole megabatches from a staged pipeline's
+        ``dispatch_stream`` when its ``megabatch_steps`` is ``steps``),
+        or (features, labels) arrays."""
+        if isinstance(data, (DataSet, MultiDataSet)):
             return [data]
         if isinstance(data, (list, tuple)) and data \
-                and isinstance(data[0], DataSet):
+                and isinstance(data[0], (DataSet, MultiDataSet)):
             return list(data)
         if hasattr(data, "hasNext"):
-            return _datasets_of(data)
+            return _epoch_of(data, steps)
         return [DataSet(data, labels)]
 
     def fit(self, data, labels=None, epochs: int = 1,
-            steps_per_dispatch: int = 1):
-        """Train on a DataSet, a list of DataSets, a DataSetIterator-style
-        object, or (features, labels) arrays: one update step per batch,
-        ``epochs`` times. ``steps_per_dispatch=K`` groups K consecutive
-        same-signature batches into one dispatch of K steps (a CUDA graph
-        on the card); signature changes and epoch tails fall back to
-        single steps, so the result equals K single-step fits."""
+            steps_per_dispatch: int = 1, prefetch: int = 2):
+        """Train on a DataSet (a MultiDataSet in the graph), a list of
+        them, a DataSetIterator-style object, or (features, labels)
+        arrays: one update step per batch, ``epochs`` times.
+        ``steps_per_dispatch=K`` groups K consecutive same-signature
+        batches into one dispatch of K steps (a CUDA graph on the card);
+        signature changes and epoch tails fall back to single steps, so
+        the result equals K single-step fits. With K > 1 a
+        ``DevicePrefetcher`` stages each megabatch ``prefetch`` ahead on
+        a worker thread and a side stream (``prefetch=0``: synchronously
+        on this thread); a staged pipeline iterator whose
+        ``megabatch_steps`` is K gives whole megabatches, one copy to the
+        card a dispatch."""
         if not self._initialized:
             self.init()
         k = int(steps_per_dispatch)
         if k < 1:
             raise ValueError(f"steps_per_dispatch must be >= 1, got {k}")
         for _ in range(epochs):
-            stepping.fit_epoch_multistep(self, self._batches(data, labels), k)
+            batches = self._batches(data, labels, k)
+            if k > 1:
+                stepping.fit_epoch_multistep(self, batches, k, prefetch)
+            else:
+                for ds in _prof.iter_with_data_wait(batches):
+                    self._fit_one(ds)
             self._epoch += 1
         return self
 
     def _step_for(self, masked: bool, steps: int = 1,
                   fmasked: bool = False) -> cc.CachedDispatch:
-        """The dispatch of ``steps`` train steps for a signature's masks
-        (label mask ``masked``, feature mask ``fmasked``): one step runs
-        eagerly until warmed; K steps are captured at their first
+        """The dispatch of ``steps`` train steps for a DataSet signature's
+        masks (label mask ``masked``, feature mask ``fmasked``): one step
+        runs eagerly until warmed; K steps are captured at their first
         dispatch on the card."""
-        key = (fmasked, masked, steps)
+        return self._dispatch_for((fmasked, masked), steps)
+
+    def _dispatch_for(self, sig: tuple, steps: int) -> cc.CachedDispatch:
+        key = sig + (steps,)
         d = self._step_cache.get(key)
         if d is None:
             name = type(self).__name__
+            fn = self._multi_step(*sig[1:]) if sig[0] == "multi" \
+                else self._train_step
             if steps == 1:
-                d = cc.CachedDispatch(self._train_step, f"{name}.fit",
+                d = cc.CachedDispatch(fn, f"{name}.fit",
                                       state=self._dispatch_state)
             else:
                 d = cc.CachedDispatch(
-                    stepping.scan_megastep(self._train_step),
-                    f"{name}.megastep", state=self._dispatch_state,
-                    always_capture=True)
+                    stepping.scan_megastep(fn), f"{name}.megastep",
+                    state=self._dispatch_state, always_capture=True)
             self._step_cache[key] = d
         return d
+
+    def _multi_step(self, n_in: int, n_out: int, masked: bool):
+        raise TypeError(f"{type(self).__name__} trains on DataSets, not "
+                        "MultiDataSets")
+
+    def _step_args(self, item, multi: bool):
+        """``(signature, args)`` of one batch or megabatch: the dispatch's
+        signature and its arguments, on the device. A DataSet's are
+        ``(x, y, labels_mask, features_mask)``; a MultiDataSet's its
+        features, its labels and its label masks, flat."""
+        dev = self._to_device
+
+        def opt(a):
+            return None if a is None else dev(a)
+        if multi:
+            lm = getattr(item, "labels_masks", None) \
+                if isinstance(item, MultiDataSet) else item.labels_mask
+            xs = [dev(a) for a in item.features]
+            ys = [dev(a) for a in item.labels]
+            lms = [opt(m) for m in lm] if lm else []
+            return ("multi", len(xs), len(ys), bool(lms)), \
+                tuple(xs + ys + lms)
+        x, y, lmask, fmask = self._batch_tensors(
+            item.features, item.labels, item.labels_mask,
+            item.features_mask)
+        return (fmask is not None, lmask is not None), (x, y, lmask, fmask)
+
+    @staticmethod
+    def _fingerprint(sig, args):
+        if sig[0] == "multi":
+            return churn.array_fingerprint(*args)
+        x, y, lmask, fmask = args
+        return churn.array_fingerprint(x, y, fmask, lmask)
 
     def _batch_tensors(self, features, labels, labels_mask,
                        features_mask=None):
@@ -280,17 +378,20 @@ class BaseNetwork:
         return (self._to_device(features), self._to_device(labels),
                 dev(labels_mask), dev(features_mask))
 
-    def _fit_one(self, ds: DataSet):
-        """One step on one batch; returns its loss (a device scalar)."""
+    def _fit_one(self, ds):
+        """One step on one DataSet (or MultiDataSet); returns its loss (a
+        device scalar)."""
         self._ensure_opt_state()
         self._ensure_clock()
-        x, y, lmask, fmask = self._batch_tensors(
-            ds.features, ds.labels, ds.labels_mask, ds.features_mask)
+        sig, args = self._step_args(ds, isinstance(ds, MultiDataSet))
         churn.get_churn_detector().record(
-            f"{type(self).__name__}.fit",
-            churn.array_fingerprint(x, y, fmask, lmask), owner=self)
-        loss = self._step_for(lmask is not None, 1, fmask is not None)(
-            x, y, lmask, fmask)
+            f"{type(self).__name__}.fit", self._fingerprint(sig, args),
+            owner=self)
+        with _prof.timed_region(
+                "train:step", "dl4j_train_step_seconds",
+                "Train-step dispatch time per iteration",
+                iteration=self._iteration + 1):
+            loss = self._dispatch_for(sig, 1)(*args)
         stepping.STEPS_PER_DISPATCH.set(1)
         stepping.TRAIN_ITERATIONS.inc()
         # kept on the device; score() converts lazily
@@ -304,13 +405,15 @@ class BaseNetwork:
         self._ensure_opt_state()
         self._ensure_clock()
         k = mb.steps
-        x, y, lmask, fmask = self._batch_tensors(
-            mb.features, mb.labels, mb.labels_mask, mb.features_mask)
+        sig, args = self._step_args(mb, mb.multi)
         churn.get_churn_detector().record(
-            f"{type(self).__name__}.megastep",
-            churn.array_fingerprint(x, y, fmask, lmask), owner=self)
-        losses = self._step_for(lmask is not None, k, fmask is not None)(
-            x, y, lmask, fmask)
+            f"{type(self).__name__}.megastep", self._fingerprint(sig, args),
+            owner=self)
+        with _prof.timed_region(
+                "train:megastep", "dl4j_train_step_seconds",
+                "Train-step dispatch time per iteration",
+                iteration=self._iteration + 1, steps=k):
+            losses = self._dispatch_for(sig, k)(*args)
         stepping.record_megastep(self, losses, k)
         return losses
 
@@ -331,6 +434,10 @@ class BaseNetwork:
         state updated in place (nothing is read on the host, so the step
         can be captured); returns the loss, a device scalar."""
         ins, labels, masks = self._pack(x, y, lmask, True)
+        return self._step_on(ins, labels, masks, fmask)
+
+    def _step_on(self, ins, labels, masks, fmask=None):
+        """The step on packed inputs (``_pack``'s form)."""
         key = norm_ops.StepKey(self.conf.base.seed, self._t_dev)
         loss, new_states = self._loss_and_reg(
             self._params, self._states, ins, labels, True, masks, key,
@@ -410,13 +517,15 @@ class BaseNetwork:
 
     # ------------------------------------------------------------ evaluation
     def evaluate(self, iterator, evaluation=None,
-                 pull_chunk: int = EVAL_PULL_CHUNK) -> Evaluation:
+                 pull_chunk: int = EVAL_PULL_CHUNK,
+                 prefetch: bool = True) -> Evaluation:
         """ref: evaluate(DataSetIterator); also any iterable of DataSets.
         ``pull_chunk`` bounds how many batches of predictions stay on the
-        device between pulls (:func:`predict_batches`)."""
+        device between pulls; ``prefetch=False`` pulls the batches on the
+        calling thread (:func:`predict_batches`)."""
         ev = evaluation or Evaluation()
         for labels, preds, mask in predict_batches(self.output, iterator,
-                                                   pull_chunk):
+                                                   pull_chunk, prefetch):
             ev.eval(labels, preds, mask=mask)
         return ev
 

@@ -5,7 +5,8 @@ card, eager and captured.
 Usage (on a machine with a CUDA card, from the root of a checkout)::
 
     python3 -m deeplearning4j_tpu_torch.profile_fit
-        [--model vgg16|darknet19|tiny_yolo|yolo2|bert|textgen] [--captured K]
+        [--model vgg16|darknet19|tiny_yolo|yolo2|bert|textgen|resnet50_disk]
+        [--captured K]
 
 Builds ``zoo.ResNet50(num_classes=1000)`` (the default; a
 ``ComputationGraph``, one [64, 3, 224, 224] batch of one-hot labels),
@@ -62,6 +63,21 @@ tbptt_length=50)``) and K windows are timed and traced, one replay each
 (K windows a dispatch are not ported). It prints launches a window and
 characters/s.
 
+``--model resnet50_disk`` trains ResNet-50 (8 classes, 224², the same
+bf16 / NHWC / fused configuration) from JPEG files on disk: the
+:func:`noise_jpegs` of bench.py's DataPipelineBench (1024 images of 256²
+uniform noise, quality 85, 8 class directories, ``RandomState(42)``,
+written to a temporary directory and removed at the end) through
+``MultiWorkerImageIterator(workers=os.cpu_count(), batch_size=64,
+steps_per_dispatch=4)`` and ``fit(steps_per_dispatch=4, prefetch=2)``
+(the megastep captured by ``compilecache.warmup`` first, then one
+untraced epoch). It traces one more epoch ending in a host read: the
+card's busy share, device ms by kernel name and kind, and, with the
+profiling mode on for that epoch, the host's data wait against its
+dispatch time and the pipeline's decode, ring-copy and consumer-stall
+seconds; it also prints the epoch's images/s and the decode ms an image
+on one core. ``--captured`` does not apply to it.
+
 ``--captured K`` adds the same model with K steps a dispatch, captured as
 one CUDA graph (``fit(steps_per_dispatch=K)`` after
 ``compilecache.warmup``; for BERT the step through
@@ -78,6 +94,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -99,7 +116,13 @@ from deeplearning4j_tpu_torch.train import stepping
 from deeplearning4j_tpu_torch.train.updaters import Adam
 
 BATCH = {"resnet50": 64, "vgg16": 64, "darknet19": 32, "tiny_yolo": 32,
-         "yolo2": 32, "bert": 64, "textgen": 32}
+         "yolo2": 32, "bert": 64, "textgen": 32, "resnet50_disk": 64}
+#: the from-disk run: bench.py's DataPipelineBench data, K steps a dispatch
+DISK_IMAGES = 1024
+DISK_SIDE = 256
+DISK_HW = 224
+DISK_CLASSES = 8
+DISK_K = 4
 #: TextGenerationLSTM's run: dl4j-examples' LSTMCharModellingExample
 #: (sequences of 1000 characters, TBPTT windows of 50, vocabulary 77)
 TEXT_LEN = 1000
@@ -155,7 +178,9 @@ _KERNEL_GROUPS = {"resnet50": (("scale_shift_act", "scale_shift_act_kernel"),),
                   "bert": (("flash forward (kernel)", "flash_fwd_kernel"),
                            ("layer_norm forward (kernel)",
                             "layer_norm_fwd_kernel")),
-                  "textgen": ()}
+                  "textgen": (),
+                  "resnet50_disk": (("scale_shift_act",
+                                     "scale_shift_act_kernel"),)}
 
 
 #: kernel kinds by the kernel's own name (what a replay's trace can
@@ -520,6 +545,101 @@ def markov_chars(seed: int, n: int, length: int, vocab: int = TEXT_VOCAB,
     return out
 
 
+def noise_jpegs(root: str, n: int = DISK_IMAGES, side: int = DISK_SIDE,
+                classes: int = DISK_CLASSES, seed: int = 42) -> list:
+    """bench.py's DataPipelineBench data under ``root``: ``n`` images of
+    uniform noise, ``side``² RGB, JPEG quality 85, ``n / classes`` in each
+    of ``classes`` directories ``class{c}``, from ``RandomState(seed)``.
+    Returns the files, sorted."""
+    from PIL import Image
+
+    from deeplearning4j_tpu_torch.data.image import _list_images
+    rng = np.random.RandomState(seed)
+    for c in range(classes):
+        d = os.path.join(root, f"class{c}")
+        os.makedirs(d, exist_ok=True)
+        for i in range(n // classes):
+            arr = rng.randint(0, 255, (side, side, 3), dtype=np.uint8)
+            Image.fromarray(arr).save(os.path.join(d, f"{i}.jpg"),
+                                      quality=85)
+    return _list_images(root)
+
+
+def host_seconds() -> dict:
+    """The fit's data-wait and dispatch seconds and the staged pipeline's
+    decode, ring-copy and consumer-stall seconds, cumulative."""
+    from deeplearning4j_tpu_torch import profiler as prof
+    reg = prof.get_registry()
+
+    def child(name, stage, attr):
+        m = reg.get(name)
+        return 0.0 if m is None else getattr(m.labels(stage=stage), attr)
+    out = {}
+    for key, name in (("data_wait", "dl4j_train_data_wait_seconds"),
+                      ("dispatch", "dl4j_train_step_seconds")):
+        h = reg.get(name)
+        out[key] = h.sum if h is not None else 0.0
+    out["decode"] = child("dl4j_pipeline_stage_seconds", "decode", "sum")
+    out["ring_copy"] = child("dl4j_pipeline_stage_seconds", "stage", "sum")
+    out["consumer_stall"] = child("dl4j_pipeline_stall_seconds", "consume",
+                                  "value")
+    return out
+
+
+def run_from_disk() -> dict:
+    """ResNet-50 from JPEGs on disk, one traced epoch (module note)."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.data.decode import codec, decode_one
+    from deeplearning4j_tpu_torch.data.pipeline import (
+        MultiWorkerImageIterator)
+    from deeplearning4j_tpu_torch.profiler.modes import (ProfilingMode,
+                                                         set_profiling_mode)
+    b, k, hw = BATCH["resnet50_disk"], DISK_K, DISK_HW
+    with tempfile.TemporaryDirectory() as root:
+        files = noise_jpegs(root)
+        t0 = time.perf_counter()
+        for f in files[:64]:
+            decode_one(f, hw, hw, 3)
+        decode_ms = (time.perf_counter() - t0) / 64 * 1e3
+        net = zoo.ResNet50(num_classes=DISK_CLASSES,
+                           input_shape=(3, hw, hw)).init()
+        net.setPrecisionPolicy("bf16")
+        net.setComputeLayout("NHWC")
+        net.setEpilogueFusion(True)
+        cc.warmup(net, [((b, 3, hw, hw), (b, DISK_CLASSES))],
+                  steps_per_dispatch=k, dtype=np.uint8)
+        it = MultiWorkerImageIterator(root, hw, hw, batch_size=b,
+                                      workers=os.cpu_count(),
+                                      drop_last=True, steps_per_dispatch=k)
+        try:
+            def epoch():
+                net.fit(it, steps_per_dispatch=k, prefetch=2)
+                return net.score()
+            epoch()                                 # untraced
+            torch.cuda.reset_peak_memory_stats()
+            ck.reset_counts()
+            before = host_seconds()
+            set_profiling_mode(ProfilingMode.BASIC)
+            try:
+                out = profile(epoch, "resnet50_disk", True)
+            finally:
+                set_profiling_mode(ProfilingMode.OFF)
+            after = host_seconds()
+        finally:
+            it.close()
+    n = DISK_IMAGES // b * b
+    out.update({
+        "images": n, "steps_per_dispatch": k, "codec": codec(),
+        "host_cores": os.cpu_count(), "decode_ms_per_image_one_core":
+            decode_ms,
+        "images_per_s_traced_epoch": n / (out["traced_ms"] / 1e3),
+        "host_seconds": {key: after[key] - before[key] for key in after},
+        "replayed_launches": dict(ck.REPLAYS), "loss": net.score(),
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return out
+
+
 def one_hot_ncw(idx, vocab: int = TEXT_VOCAB, device="cuda"):
     """Symbols ``[n, T]`` as one-hot fp32 ``[n, vocab, T]`` on ``device``
     (the one-hot made there: a host copy of the indices only)."""
@@ -595,6 +715,8 @@ def main(argv=None) -> int:
         out.update(run_bert(args.captured))
     elif args.model == "textgen":
         out.update(run_textgen(args.captured))
+    elif args.model == "resnet50_disk":
+        out.update(run_from_disk())
     else:
         out.update(run_network(args.model, args.captured))
     print(json.dumps(out), flush=True)

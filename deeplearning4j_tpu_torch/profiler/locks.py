@@ -2,8 +2,8 @@
 ``deeplearning4j_tpu/profiler/locks.py``.
 
 :class:`InstrumentedLock` / :class:`InstrumentedRLock` /
-:class:`InstrumentedCondition` are drop-in replacements for the
-``threading`` primitives that, while instrumentation is active
+:class:`InstrumentedCondition` / :class:`InstrumentedQueue` are drop-in
+replacements for the ``threading`` and ``queue`` primitives that, while instrumentation is active
 (ProfilingMode != OFF or tracing on), record:
 
 - ``dl4j_lock_wait_seconds{lock=...}`` — time spent *waiting* to
@@ -25,6 +25,7 @@ and counts ``dl4j_lock_order_inversions_total``.
 
 from __future__ import annotations
 
+import queue as _queue
 import threading
 import time
 import warnings
@@ -349,3 +350,23 @@ class WitnessedLock:
 
     def __repr__(self):
         return f"WitnessedLock({self.name!r})"
+
+
+class InstrumentedQueue(_queue.Queue):
+    """``queue.Queue`` whose internal mutex (and the three conditions
+    built on it) is an :class:`InstrumentedRLock`: every put/get reports
+    wait/hold/contention under the queue's name. The input pipeline's
+    queues (``DevicePrefetcher``, ``AsyncDataSetIterator``) use it, so
+    their contention shows in ``dl4j_lock_*{lock=...}`` like any other
+    lock's."""
+
+    def __init__(self, maxsize: int = 0, name: str = "queue"):
+        super().__init__(maxsize)
+        # replace the plain primitives queue.Queue.__init__ installed; a
+        # Condition drives the lock through the _release_save/
+        # _acquire_restore/_is_owned protocol InstrumentedRLock delegates
+        lock = InstrumentedRLock(name)
+        self.mutex = lock
+        self.not_empty = threading.Condition(lock)
+        self.not_full = threading.Condition(lock)
+        self.all_tasks_done = threading.Condition(lock)

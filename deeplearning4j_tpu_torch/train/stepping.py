@@ -17,11 +17,19 @@ per step.
   vector; a network's ``_step_for`` captures it through
   :class:`~deeplearning4j_tpu_torch.nn.compilecache.CachedDispatch`.
 - :func:`fit_epoch_multistep` — the epoch loop both networks' ``fit``
-  delegates to, staging synchronously (the reference's ``prefetch <= 0``
-  branch; ``DevicePrefetcher`` is not ported yet).
+  delegates to for K > 1: the batch stream grouped into megabatches
+  behind a :class:`~deeplearning4j_tpu_torch.data.dataset.DevicePrefetcher`
+  (megabatch K+1 is staged on the card while K computes), or, with
+  ``prefetch <= 0``, grouped and staged synchronously on the calling
+  thread.
+- :func:`use_dispatch_stream` — whether a fit pulls whole megabatches
+  from a staged pipeline iterator (``dispatch_stream()``: one contiguous
+  ``[K, B, ...]`` copy a dispatch instead of K batches and a stack).
 
-Not ported: MultiDataSet batches, listeners, the sanitizer and
-resilience hooks, sharded staging.
+MultiDataSet batches group and stack as DataSets do (``MegaBatch.multi``).
+Not ported: listeners, the sanitizer and resilience hooks, sharded
+staging (``stage_batch``, ``batch_placement``) and the elastic fence
+(``dispatch_commit``).
 """
 
 from __future__ import annotations
@@ -31,7 +39,8 @@ from typing import Iterable, Iterator, List
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.data.dataset import DataSet
+from deeplearning4j_tpu_torch import profiler as _prof
+from deeplearning4j_tpu_torch.data.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.profiler.metrics import get_registry
 
 # How many update steps the most recent train dispatch performed.
@@ -48,22 +57,30 @@ TRAIN_ITERATIONS = get_registry().counter(
 
 class MegaBatch:
     """K same-signature training batches stacked along a leading axis:
-    ``features``/``labels``/masks are ``[K, B, ...]`` arrays (masks None
-    when absent); ``steps`` is K."""
+    ``features``/``labels``/masks are ``[K, B, ...]`` arrays (lists of them
+    when ``multi``, the MultiDataSet container; masks None when absent);
+    ``steps`` is K."""
 
     __slots__ = ("features", "labels", "features_mask", "labels_mask",
-                 "steps")
+                 "steps", "multi")
 
     def numExamples(self) -> int:
-        return int(self.features.shape[0] * self.features.shape[1])
+        a = self.features[0] if self.multi else self.features
+        return int(a.shape[0] * a.shape[1])
 
 
-def batch_signature(ds: DataSet):
+def batch_signature(ds):
     """Grouping key: two batches share a megastep iff their arrays'
     shapes and dtypes and their masks' presence all match (the condition
     under which one captured step serves both)."""
     def sig(a):
         return None if a is None else (tuple(a.shape), str(a.dtype))
+    if isinstance(ds, MultiDataSet):
+        return ("multi",
+                tuple(sig(a) for a in ds.features),
+                tuple(sig(a) for a in ds.labels),
+                tuple(sig(a) for a in (ds.features_masks or ())),
+                tuple(sig(a) for a in (ds.labels_masks or ())))
     return ("single", sig(ds.features), sig(ds.labels),
             sig(ds.features_mask), sig(ds.labels_mask))
 
@@ -76,11 +93,26 @@ def _stack(arrs):
     return np.stack(arrs)
 
 
-def stack_megabatch(group: List[DataSet]) -> MegaBatch:
-    """Stack K same-signature batches into one MegaBatch (``np.stack`` on
-    the host, ``torch.stack`` where a batch is already a tensor)."""
+def stack_megabatch(group: List) -> MegaBatch:
+    """Stack K same-signature DataSets or MultiDataSets into one MegaBatch
+    (``np.stack`` on the host, ``torch.stack`` where a batch is already a
+    tensor)."""
+    first = group[0]
     mb = MegaBatch()
     mb.steps = len(group)
+    mb.multi = isinstance(first, MultiDataSet)
+    if mb.multi:
+        def each(attr):
+            lists = [getattr(d, attr) for d in group]
+            if not lists[0]:
+                return None
+            return [_stack([xs[i] for xs in lists])
+                    for i in range(len(lists[0]))]
+        mb.features = each("features")
+        mb.labels = each("labels")
+        mb.features_mask = each("features_masks")
+        mb.labels_mask = each("labels_masks")
+        return mb
     mb.features = _stack([d.features for d in group])
     mb.labels = _stack([d.labels for d in group])
     mb.features_mask = _stack([d.features_mask for d in group])
@@ -129,6 +161,17 @@ def scan_megastep(body):
     return megastep
 
 
+def use_dispatch_stream(data, steps: int) -> bool:
+    """True when a fit can pull native megabatches from a staged pipeline
+    iterator: K matches the iterator's declared staging
+    (``megabatch_steps``) and no per-batch preprocessor is set (those run
+    on the per-batch path)."""
+    return (steps > 1
+            and getattr(data, "megabatch_steps", 1) == steps
+            and hasattr(data, "dispatch_stream")
+            and getattr(data, "_pre", None) is None)
+
+
 def record_megastep(model, losses, steps: int) -> None:
     """Bookkeeping after a K-step dispatch (both network classes): the
     iteration count and the score, which stays a lazy device slice until
@@ -139,13 +182,32 @@ def record_megastep(model, losses, steps: int) -> None:
     model._score = losses[steps - 1]
 
 
-def fit_epoch_multistep(model, batches: Iterable, steps: int) -> None:
+def fit_epoch_multistep(model, batches: Iterable, steps: int,
+                        prefetch: int = 2) -> None:
     """One epoch of K-step dispatch: group the batch stream into
     megabatches and run each through the model's captured megastep, the
-    batches left over (every batch when K is 1) through its single step.
-    Staging is synchronous, on the calling thread."""
-    for item in group_into_megabatches(batches, steps):
-        if isinstance(item, MegaBatch):
-            model._fit_mega(item)
-        else:
-            model._fit_one(item)
+    batches left over through its single step. With ``prefetch`` > 0 a
+    :class:`~deeplearning4j_tpu_torch.data.dataset.DevicePrefetcher`
+    groups and stages them on the model's device from a worker thread
+    (``prefetch`` items ahead); ``prefetch <= 0`` does both synchronously
+    on the calling thread (for sources bound to one thread). Each pull is
+    timed as data wait (:func:`~deeplearning4j_tpu_torch.profiler.
+    iter_with_data_wait`)."""
+    from deeplearning4j_tpu_torch.data.dataset import (DevicePrefetcher,
+                                                       stage_item)
+
+    def drive(items):
+        for item in _prof.iter_with_data_wait(items):
+            if isinstance(item, MegaBatch):
+                model._fit_mega(item)
+            else:
+                model._fit_one(item)
+
+    if prefetch and prefetch > 0:
+        with DevicePrefetcher(batches, steps_per_dispatch=steps,
+                              prefetch=prefetch,
+                              device=model._device) as pf:
+            drive(pf)
+    else:
+        drive(stage_item(item, model._device)
+              for item in group_into_megabatches(batches, steps))

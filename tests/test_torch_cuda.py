@@ -484,6 +484,44 @@ def test_darknet19_takes_18_epilogue_launches_a_forward(dev):
         ck.uninstall_platform_overrides()
 
 
+def test_a_collection_during_a_capture_frees_no_graph(dev):
+    """A captured graph kept alive only by a reference cycle (as a network
+    and its dispatches are) is freed by the cyclic collector; a collection
+    that an allocation sets off inside another capture would free it
+    there, and freeing a graph on the capturing thread invalidates the
+    capture. Here the old graph's last holder becomes a young garbage
+    cycle inside the capture while collections are due at every
+    allocation: captures run with the collector off, so the new graph
+    captures."""
+    import gc
+    old = cc.CachedDispatch(lambda x: x * 2, "old", always_capture=True)
+    old(torch.ones(8, device=dev))
+    assert old.warmed_signatures() == 1
+    box = [old]
+    del old
+
+    def step(x):
+        if torch.cuda.is_current_stream_capturing() and box:
+            cycle = {"dispatch": box.pop()}     # the old graph's last holder
+            cycle["self"] = cycle
+            del cycle
+        junk = [[i] for i in range(2000)]       # allocations: collections due
+        return x + len(junk)
+    new = cc.CachedDispatch(step, "new", always_capture=True)
+    cc.reset_stats()
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        out = new(torch.ones(8, device=dev))
+    finally:
+        gc.set_threshold(*thresholds)
+    assert not box and gc.isenabled()
+    assert cc.cache_stats()["capture_failures"] == 0
+    assert new.warmed_signatures() == 1
+    assert torch.equal(out, torch.full((8,), 2001.0, device=dev))
+    gc.collect()
+
+
 def test_captured_tbptt_windows_equal_eager(dev):
     """A small TextGenerationLSTM: three windows a batch through the
     captured window step give the eager run's params, Adam moments and
@@ -530,3 +568,75 @@ def test_captured_tbptt_windows_equal_eager(dev):
     parts = [net.rnnTimeStep(x[:, :, i:i + 7]) for i in range(0, 24, 7)]
     torch.testing.assert_close(torch.cat(parts, dim=2), full, rtol=1e-5,
                                atol=1e-5)
+
+
+def test_prefetcher_stages_host_batches_on_a_side_stream(dev):
+    """Host megabatches through the DevicePrefetcher on the card: each
+    arrives whole although the compute stream is busy when it is taken
+    and the page-locked ring (depth 2) is reused across 8 items; the
+    staging ran on a stream of its own."""
+    from deeplearning4j_tpu_torch.data.dataset import (DevicePrefetcher,
+                                                       reset_h2d_counts,
+                                                       H2D_COPIES)
+    r = np.random.default_rng(0)
+    host = [DataSet(r.integers(0, 255, (4, 3, 32, 32), dtype=np.uint8),
+                    r.standard_normal((4, 5)).astype(np.float32))
+            for _ in range(16)]
+    reset_h2d_counts()
+    pf = DevicePrefetcher(host, steps_per_dispatch=2, prefetch=2,
+                          device=dev)
+    got = []
+    for mb in pf:
+        torch.cuda._sleep(2_000_000)        # the compute stream is busy
+        got.append((mb.features.clone(), mb.labels.clone()))
+    pf.close()
+    assert pf._stager._stream is not None
+    assert pf._stager._stream != torch.cuda.current_stream(dev)
+    assert H2D_COPIES == {((2, 4, 3, 32, 32), "uint8"): 8,
+                          ((2, 4, 5), "float32"): 8}
+    for j, (f, y) in enumerate(got):
+        want = stepping.stack_megabatch(host[2 * j:2 * j + 2])
+        assert f.is_cuda and f.dtype == torch.uint8
+        assert np.array_equal(f.cpu().numpy(), want.features)
+        assert np.array_equal(y.cpu().numpy(), want.labels)
+
+
+def test_fit_with_prefetch_equals_sync_staging_on_the_card(dev):
+    """ComputationGraph.fit(K=2) on uint8 batches with prefetch=2 (side
+    stream, pinned buffers, captured megastep) equals prefetch=0 to the
+    bit (cuDNN held to deterministic algorithms)."""
+    from deeplearning4j_tpu_torch.nn import graph as tgraph
+    r = np.random.default_rng(1)
+    data = [DataSet(r.integers(0, 255, (8, 3, 16, 16), dtype=np.uint8),
+                    np.eye(3, dtype=np.float32)[r.integers(0, 3, 8)])
+            for _ in range(6)]
+
+    def net():
+        g = (NeuralNetConfiguration.Builder().seed(2).weightInit("relu")
+             .updater(Adam(1e-2)).graphBuilder().addInputs("in")
+             .setInputTypes(InputType.convolutional(16, 16, 3)))
+        g.addLayer("c", tlayers.ConvolutionLayer(
+            kernelSize=(3, 3), nOut=8, activation="identity"), "in")
+        g.addLayer("bn", tlayers.BatchNormalization(), "c")
+        g.addLayer("r", tlayers.ActivationLayer("relu"), "bn")
+        g.addLayer("p", tlayers.GlobalPoolingLayer("avg"), "r")
+        g.addLayer("o", tlayers.OutputLayer(nOut=3, lossFunction="mcxent",
+                                            activation="softmax"), "p")
+        g.setOutputs("o")
+        n = tgraph.ComputationGraph(g.build()).init(device=dev)
+        n.setPrecisionPolicy("bf16")
+        n.setComputeLayout("NHWC")
+        n.setEpilogueFusion(True)
+        return n
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        states = []
+        for prefetch in (2, 0):
+            n = net()
+            n.fit(data, epochs=2, steps_per_dispatch=2, prefetch=prefetch)
+            assert n.getIterationCount() == 12
+            states.append([t.clone() for t in n._dispatch_state()])
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert all(torch.equal(a, b) for a, b in zip(*states))

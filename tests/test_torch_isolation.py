@@ -88,7 +88,13 @@ def test_import_leaves_jax_unloaded():
              "deeplearning4j_tpu_torch.nn.preprocessors, "
              "deeplearning4j_tpu_torch.evaluation, "
              "deeplearning4j_tpu_torch.train.serializer, "
-             "deeplearning4j_tpu_torch.data.iterators; "
+             "deeplearning4j_tpu_torch.data.iterators, "
+             "deeplearning4j_tpu_torch.data.dataset, "
+             "deeplearning4j_tpu_torch.data.records, "
+             "deeplearning4j_tpu_torch.data.image, "
+             "deeplearning4j_tpu_torch.data.decode, "
+             "deeplearning4j_tpu_torch.data.pipeline, "
+             "deeplearning4j_tpu_torch.utils.concurrent; "
              "print(sorted(m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'jaxlib', 'deeplearning4j_tpu')))", ROOT)
     assert r.returncode == 0, r.stderr

@@ -75,6 +75,28 @@ def _pair(tbptt=None, bidi=False):
     return j, t
 
 
+def _k_conf(Conf, M, It, upd):
+    b = (Conf.Builder().seed(7).updater(upd.Adam(1e-2)).weightInit("xavier")
+         .list())
+    b.layer(M.LSTM(nOut=8))
+    b.layer(M.RnnOutputLayer(nOut=5, lossFunction="mcxent",
+                             activation="softmax"))
+    b.setInputType(It.recurrent(5, 12))
+    b.backpropType("tbptt", 4)
+    return b.build()
+
+
+def _k_pair():
+    """The LSTM(8) + RnnOutputLayer net under ``backpropType("tbptt", 4)``
+    in both packages, from the JAX init."""
+    j = JMLN(_k_conf(JConf, jlayers, JInputType, jupd))
+    j.init()
+    t = MultiLayerNetwork(_k_conf(NeuralNetConfiguration, tlayers, InputType,
+                                  tupd)).params_from_jax(
+        j._params, j._states, device="cpu")
+    return j, t
+
+
 def _chars(seed, T=3 * L, n=N):
     """One-hot characters [n, V, T] and the next character as labels."""
     r = np.random.default_rng(seed)
@@ -151,8 +173,17 @@ def test_fit_under_the_tbptt_configuration_matches_jax():
     # arguments (the first starts from zeros, not from None)
     assert churn.get_churn_detector().signature_count(
         "MultiLayerNetwork.tbptt", owner=t) == 1
-    with pytest.raises(NotImplementedError, match="truncated BPTT"):
-        t.fit(tdata.DataSet(*data[0]), steps_per_dispatch=2)
+    # fit(steps_per_dispatch=2) under TBPTT ignores K, as the JAX fit does
+    # (JAX multilayer.py:907-913): an LSTM(8) + RnnOutputLayer net with
+    # backpropType("tbptt", 4), two [2, 5, 12] batches, 6 window updates
+    jk, tk = _k_pair()
+    x, y = _chars(6, T=12, n=2)
+    x, y = x[:, :5], y[:, :5]
+    jk.fit([jdata.DataSet(x, y)] * 2, steps_per_dispatch=2)
+    tk.fit([tdata.DataSet(x, y)] * 2, steps_per_dispatch=2)
+    assert jk._iteration == 6
+    _assert_state(jk, tk)
+    assert set(tk._step_cache) == {("tbptt", False)}
 
 
 def test_fit_with_a_feature_mask_matches_jax():
@@ -252,6 +283,21 @@ def test_warmup_keeps_state_and_fits_eagerly_on_the_cpu():
     assert all(torch.equal(a, b) for a, b in zip(before, t._dispatch_state()))
     t.fit(tdata.DataSet(x, y))
     assert t.getIterationCount() == 3
+
+
+def test_warmup_of_k_steps_under_tbptt_warms_the_megastep():
+    """As the JAX ``warmup``: K > 1 steps warm the plain K-step megastep
+    (here, on the CPU, its dispatch), whatever the configuration's
+    backprop type; the state is left as it was."""
+    _, t = _k_pair()
+    before = [v.clone() for v in t._params[0].values()]
+    cc.warmup(t, [((2, 5, 12), (2, 5, 12))], steps_per_dispatch=2)
+    cc.warmup(t, [((2, 5), (2, 5))], steps_per_dispatch=2)
+    assert (False, False, 2) in t._step_cache
+    assert ("tbptt", False) not in t._step_cache
+    for a, b in zip(before, t._params[0].values()):
+        assert torch.equal(a, b)
+    assert t.getIterationCount() == 0
 
 
 def test_config_json_with_tbptt_crosses_both_ways():
