@@ -26,7 +26,9 @@ Phases (each one fails the run with a non-zero exit):
    plain version, its roofline bound, and one PyTorch library call that
    computes the same function (a yardstick only; the port never calls it);
    layer norm and flash attention at T=128 and T=512 (B=32) and at the
-   BertBench train step's B=64, T=128. The BN+leaky
+   BertBench train step's B=64, T=128, then both at phase 23's shapes: LN
+   on [4096, 768] fp32 with BERT's eps 1e-12 and flash on q, k, v [32,
+   128, 12, 64] fp32 (the CUDA-core route, beside fp32 SDPA). The BN+leaky
    probe's kernels (``bn_stats``, ``bn_apply_leaky``) at C in {1, 16,
    1024} x M in {1, 7, 4099, 1,000,003, 5,537,792}, fp32 and bf16, and
    with a NaN, then timed at the probe's [16, 5,537,792] bf16 beside
@@ -268,6 +270,47 @@ Phases (each one fails the run with a non-zero exit):
    ring-copy and consumer-stall seconds, the decode ms an image on one
    core (and the codec: cv2 where it imports, else PIL) with the host
    cores, the pinned copy rate of one megabatch and the peak memory.
+23. BERT-base by checkpoint import (path A; BASELINE config #3): the
+   full-width weights (V=30522, E=768, H=12, L=12, F=3072, 512 positions,
+   2 token types, the pooler and a 2-label classifier; fp32, about 110M
+   parameters, drawn from ``numpy.random.default_rng(0)`` by
+   ``modelimport.tf_fixtures.bert_weights``) saved with ``torch.save``
+   under HuggingFace keys and under google-research TF names in a
+   temporary directory; ``importBertModelAndWeights(path,
+   use_flash_attention=True)`` of the two files must give bit-equal
+   params. A sequence classifier over ``models.transformer.encode`` (the
+   pooler and head applied to the [CLS] row) is served through
+   ``ModelServer`` captured a bucket x shape: each capture records 25
+   ``layer_norm`` launches (the [B*T, 768] fp32 view) and 12 flash
+   launches, all on the fp32 CUDA-core route (``FLASH_ROUTES``); then 64
+   requests of 1-8 rows at T=128, each resolved once, replaying 12 + 25 a
+   forward and launching nothing eagerly, and equal to a direct call
+   within 1e-4. One forward with the kernels against the same forward on
+   their plain versions (fp32, 1e-4). Then ``make_train_step`` with Adam
+   1e-4, 5 steps at B=32, T=128 (12 flash and 25 LN launches a step):
+   finite losses, the last below the first. It prints the import
+   seconds, the served latency and tokens/s, one captured replay at
+   B=32, and the train-step ms.
+24. The same weights as a frozen BERT-base GraphDef (path B), written by
+   ``tf_fixtures.bert_graph_def`` in google-research ``modeling.py``'s
+   frozen op structure (one int32 ``input_ids`` placeholder [-1, 128]),
+   parsed by ``modelimport.tf_proto`` and imported by
+   ``importTensorflowGraph`` onto the card: its ``pooled_output`` and
+   ``logits`` within 1e-3 absolute of phase 23's ``encode`` + pooler +
+   head on the same batch (taken before phase 23 trained), with no kernel
+   launched (the importer's softmax is plain torch, as the JAX one's is
+   ``jax.nn.softmax``); served through ``ModelServer(samediff_forward(sd,
+   ["logits"]))`` (eager SameDiff under the server's capture, as phase
+   6): 64 requests, each resolved once and equal to a direct
+   ``sd.output`` within 1e-4; fine-tuned as the JAX
+   ``TestImportedGraphFinetune`` does (``convertToVariables`` on the
+   weight constants the graph consumes, ``loss.softmaxCrossEntropy`` on a
+   ``labels`` placeholder, ``TrainingConfig(Adam(1e-4))``, 6 ``sd.fit``
+   steps at B=32: finite, falling losses); ``save`` then ``load`` gives
+   bit-equal logits. It prints the GraphDef's MB, the write, parse and
+   import seconds (the import twice: the first in a process also loads
+   torch's meta kernels for the fold check), the node count, the served
+   tokens/s and the ms a fit step.
 
 The captured-against-eager rule: where the two eager runs agree to the
 bit on a tensor (and on the params' group: the param and its Adam
@@ -299,7 +342,8 @@ replays, softmax's phase 6's; ``replays`` counts the replayed ones;
 ``scale_shift_act``'s are phase 4's, its TinyYOLO row phase 9's, its
 Darknet19 row phase 18's and its YOLO2 row phase 19's eager steps;
 ``from_disk_launches`` and ``from_disk_replays`` are phase 22's capture
-and replays), the
+and replays; ``import_launches`` and ``import_train_launches`` are phase
+23's served launches (warmup and replays) and its train steps'), the
 ``nvidia-smi`` name/power-limit line, and as the last line
 ``{"ok": true, "device": {...}}``. Without a card, or outside a
 checkout, it exits non-zero and prints no result.
@@ -365,6 +409,11 @@ DISK_HW = 224
 DISK_CLASSES = 8
 DISK_BATCH = 64
 DISK_EPOCHS = 2
+#: phases 23-24: BERT-base by import, served at T=128, trained at B=32
+IMPORT_T = 128
+IMPORT_BATCH = 32
+IMPORT_STEPS = 5
+IMPORT_FIT_STEPS = 6
 
 
 def fail(msg: str) -> None:
@@ -552,6 +601,21 @@ def main() -> None:
             lambda: F.layer_norm(x, (E,), g, b, 1e-5),
             2 * N * E * 4 + 2 * E * 4, 8 * N * E, FP32_FLOPS))
         del x
+    # phase 23's LN: the imported BERT-base's [B*T, E] fp32 rows, eps 1e-12
+    N, E = IMPORT_BATCH * IMPORT_T, 768
+    x = rand(N, E, scale=2.0, shift=0.5)
+    g, b = rand(E, scale=0.5, shift=1.0), rand(E, scale=0.1)
+    err = check(f"layer_norm [{N}, {E}] eps 1e-12",
+                ck.layer_norm_fwd(x, g, b, 1e-12),
+                ck.layer_norm_plain(x, g, b, 1e-12), torch.float32)
+    ln_rows.append(timed_row(
+        f"x [{N}, {E}] float32, eps 1e-12 (phase 23's imported BERT-base, "
+        f"B={IMPORT_BATCH}, T={IMPORT_T})", err,
+        lambda: ck.layer_norm_fwd(x, g, b, 1e-12),
+        lambda: ck.layer_norm_plain(x, g, b, 1e-12),
+        lambda: F.layer_norm(x, (E,), g, b, 1e-12),
+        2 * N * E * 4 + 2 * E * 4, 8 * N * E, FP32_FLOPS))
+    del x
     ln = {"name": "layer_norm", "route": "cuda",
           "source": "deeplearning4j_tpu_torch/ops/csrc/layer_norm.cu",
           "replaces": "deeplearning4j_tpu/ops/pallas_kernels.py:72",
@@ -577,6 +641,25 @@ def main() -> None:
             4 * B * T * H * D * 2 + B * H * T * 4, 4 * B * H * T * T * D,
             BF16_FLOPS))
         del q, k, v, qh, kh, vh
+    # phase 23's flash: fp32 on the CUDA-core route, against fp32 SDPA
+    B, T, H, D = IMPORT_BATCH, IMPORT_T, 12, 64
+    q, k, v = (rand(B, T, H, D) for _ in range(3))
+    ck.reset_counts()
+    err = check(f"flash_attention [{B}, {T}, {H}, {D}] float32",
+                ck.flash_attention_fwd(q, k, v, False)[0],
+                ck.flash_attention_plain(q, k, v, False)[0], torch.float32)
+    if ck.FLASH_ROUTES["cuda_core"] != 1:
+        fail(f"fp32 flash at phase 23's shape took {ck.FLASH_ROUTES}")
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    fa_rows.append(timed_row(
+        f"q, k, v [{B}, {T}, {H}, {D}] float32, non-causal (phase 23's "
+        "imported BERT-base, the CUDA-core route)", err,
+        lambda: ck.flash_attention_fwd(q, k, v, False),
+        lambda: ck.flash_attention_plain(q, k, v, False),
+        lambda: F.scaled_dot_product_attention(qh, kh, vh),
+        4 * B * T * H * D * 4 + B * H * T * 4, 4 * B * H * T * T * D,
+        FP32_FLOPS))
+    del q, k, v, qh, kh, vh
     fa = {"name": "flash_attention", "route": "cuda",
           "source": "deeplearning4j_tpu_torch/ops/csrc/flash_attention.cu",
           "replaces": "deeplearning4j_tpu/ops/pallas_kernels.py:341",
@@ -1354,8 +1437,15 @@ def main() -> None:
     disk = from_disk(smi, r14["ResNet-50"]["captured_ms"])
     torch.cuda.empty_cache()
 
+    # ----------------------- 23-24. BERT-base by checkpoint and by GraphDef
+    imported = import_bert(smi)
+    torch.cuda.empty_cache()
+
     ln.update(served["layer_norm"])
     fa.update(served["flash_attention"])
+    for kr in (ln, fa):
+        kr["import_launches"] = imported["served"][kr["name"]]
+        kr["import_train_launches"] = imported["train"][kr["name"]]
     ssa["launches"] = fit_launches["scale_shift_act"]
     ssa["other_shapes"][0]["launches"] = yolo_launches["scale_shift_act"]
     ssa["other_shapes"][1]["launches"] = dk_launches
@@ -1370,7 +1460,7 @@ def main() -> None:
             "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "other_shapes", "pair", "from_disk_launches",
-            "from_disk_replays")
+            "from_disk_replays", "import_launches", "import_train_launches")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{k: kr[k] for k in keys if k in kr}
                                   for kr in (ln, fa, ssa, sm, bn_st, bn_ap)]}))
@@ -3007,6 +3097,312 @@ def captured_fit(name, net, ds, per_step: int, smi: str,
     del s0, held
     return {"eager_ms": e_med, "captured_ms": c_med, "capture_s": capture_s,
             "peak_gb": peak_gb}
+
+
+def import_bert(smi: str) -> dict:
+    """Phases 23 and 24: BERT-base enters by checkpoint import (path A)
+    and by frozen GraphDef import (path B), each served and fine-tuned.
+    Returns phase 23's layer-norm and flash launches, served (warmup and
+    replays) and in its train steps."""
+    import shutil
+
+    import torch
+
+    from deeplearning4j_tpu_torch.autodiff import SameDiff, TrainingConfig
+    from deeplearning4j_tpu_torch.modelimport import tf_fixtures as fx
+    from deeplearning4j_tpu_torch.modelimport import tf_proto
+    from deeplearning4j_tpu_torch.modelimport.bert import (
+        importBertModelAndWeights)
+    from deeplearning4j_tpu_torch.modelimport.tensorflow import (
+        importTensorflowGraph)
+    from deeplearning4j_tpu_torch.models import transformer as tfm
+    from deeplearning4j_tpu_torch.nn import compilecache as cc
+    from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+    from deeplearning4j_tpu_torch.ops import registry
+    from deeplearning4j_tpu_torch.serving import (ModelServer,
+                                                  samediff_forward)
+    from deeplearning4j_tpu_torch.train.updaters import Adam
+    dev = torch.device("cuda")
+    T, B = IMPORT_T, IMPORT_BATCH
+    ck.install_platform_overrides()
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    w = fx.bert_weights(0, **fx.BERT_BASE)
+    n_params = sum(a.size for a in w.values())
+    log(f"BERT-base weights: {n_params} parameters ({4 * n_params / 1e6:.1f} "
+        f"MB fp32) drawn in {time.perf_counter() - t0:.2f} s")
+    tmp = tempfile.mkdtemp(prefix="bert_import_")
+    try:
+        # ------------------------------------------- 23. the checkpoint
+        paths = {}
+        t0 = time.perf_counter()
+        for fmt, state in (("hf", fx.hf_state(w)), ("tf", w)):
+            paths[fmt] = os.path.join(tmp, f"bert_{fmt}.bin")
+            torch.save({k: torch.from_numpy(np.ascontiguousarray(v))
+                        for k, v in state.items()}, paths[fmt])
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cfg, params = importBertModelAndWeights(paths["hf"],
+                                                use_flash_attention=True)
+        torch.cuda.synchronize()
+        import_s = time.perf_counter() - t0
+        cfg_tf, params_tf = importBertModelAndWeights(
+            paths["tf"], use_flash_attention=True)
+        leaves = tfm._leaf_paths(params)
+        if cfg_tf != cfg or any(
+                not torch.equal(a, b) for (_, a), (_, b) in
+                zip(leaves, tfm._leaf_paths(params_tf))):
+            fail("the HF-keyed and TF-named checkpoints imported to "
+                 "different configs or params")
+        del params_tf
+        if (cfg.vocab_size, cfg.d_model, cfg.n_heads, cfg.n_layers,
+                cfg.d_ff, cfg.max_len, cfg.type_vocab_size) != \
+                (30522, 768, 12, 12, 3072, 512, 2) or \
+                cfg.dtype != torch.float32 or cfg.arch != "postln_bert":
+            fail(f"imported config {cfg}")
+        log(f"path A: two checkpoints ({os.path.getsize(paths['hf']) / 1e6:.1f}"
+            f" MB each) written in {save_s:.2f} s; importBertModelAndWeights "
+            f"{import_s:.2f} s; HF-keyed and TF-named params bit-equal; "
+            f"{sum(p.numel() for _, p in leaves)} parameters on the card")
+        head = {k: torch.from_numpy(w[k]).to(dev) for k in (
+            "bert/pooler/dense/kernel", "bert/pooler/dense/bias",
+            "output_weights", "output_bias")}
+
+        def classify(tokens):
+            """The sequence classifier over the imported encoder: the
+            pooler and head on the [CLS] row (run_classifier.py's)."""
+            with torch.inference_mode():
+                x = tfm.encode(params, tokens.long(), cfg)
+                pooled = torch.tanh(x[:, 0] @ head["bert/pooler/dense/kernel"]
+                                    + head["bert/pooler/dense/bias"])
+                return pooled, pooled @ head["output_weights"].T \
+                    + head["output_bias"]
+
+        rng = np.random.default_rng(3)
+        ref_ids = rng.integers(0, cfg.vocab_size, (8, T), dtype=np.int32)
+        ref_pooled, ref_logits = classify(torch.from_numpy(ref_ids).to(dev))
+
+        server = ModelServer(lambda x: classify(x)[1], batch_limit=B,
+                             input_dtype=np.int32, coalesce_ms=5.0,
+                             max_queue=256)
+        try:
+            cc.reset_stats()
+            ck.reset_counts()
+            t0 = time.perf_counter()
+            server.warmup([(T,)])
+            warm_s = time.perf_counter() - t0
+            warm = dict(ck.LAUNCHES)
+            routes = dict(ck.FLASH_ROUTES)
+            at_capture = server._dispatch.launches_at_capture()
+            if cc.cache_stats()["capture_failures"] or \
+                    len(at_capture) != len(server.buckets()) or \
+                    any(a != {"flash_attention": 12, "layer_norm": 25}
+                        for a in at_capture) or routes["tensor_core"]:
+                fail(f"imported BERT-base captures {at_capture}, routes "
+                     f"{routes}, cache_stats {cc.cache_stats()}: want "
+                     f"{len(server.buckets())} graphs of 12 fp32 CUDA-core "
+                     "flash and 25 layer_norm launches and no failure")
+            log(f"path A warmup: {len(at_capture)} graphs (buckets "
+                f"{server.buckets()} x T={T}) captured in {warm_s:.2f} s, "
+                f"each 12 flash (fp32, CUDA-core route) + 25 layer_norm")
+            reqs = [rng.integers(0, cfg.vocab_size, (int(rng.integers(1, 9)), T),
+                                 dtype=np.int32) for _ in range(64)]
+            handles, got, wall, launches, plain, n_fwd = serve_burst(
+                server, reqs)
+            replays = dict(ck.REPLAYS)
+            want = {k: 0 for k in ck.KERNELS}
+            want.update(flash_attention=12 * n_fwd, layer_norm=25 * n_fwd)
+            if any(h.resolutions != 1 for h in handles) or \
+                    server.counts["completed"] != 64 or \
+                    any(launches.values()) or any(plain.values()) or \
+                    replays != want or server.recompiles_after_warmup():
+                fail(f"path A serving: counts {dict(server.counts)}, eager "
+                     f"launches {launches} (plain {plain}), replays "
+                     f"{replays} over {n_fwd} forwards: want every request "
+                     "once, none eagerly, 12 + 25 replayed a forward")
+            worst = max(float(np.abs(g - classify(torch.from_numpy(r).to(
+                dev))[1].cpu().numpy()).max()) for r, g in zip(reqs, got))
+            if worst > 1e-4:
+                fail(f"served and direct logits differ by {worst:.3g}")
+            log(f"path A served 64 requests in {n_fwd} captured forwards: "
+                f"replayed {replays}; served vs direct max|diff| {worst:.3g}")
+            log_latency(handles, reqs, wall, smi)
+            x32 = rng.integers(0, cfg.vocab_size, (B, T), dtype=np.int32)
+            server._forward_raw(x32)
+            ts = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                server._forward_raw(x32)
+                ts.append((time.perf_counter() - t0) * 1e3)
+            rep_ms = float(np.median(ts))
+            log(f"path A B={B}, T={T} forward+head, host batch to host "
+                f"answer, captured replay (median of 10): {rep_ms:.3f} ms, "
+                f"{B * T / (rep_ms / 1e3):.0f} tokens/s [{smi}]")
+        finally:
+            server.close()
+        served = {k: warm[k] + replays[k]
+                  for k in ("flash_attention", "layer_norm")}
+
+        # the same forward on the plain versions of both kernels
+        registry.register_platform_override(
+            "layer_norm", lambda x, g, b=None, *, axis=-1, eps=1e-5:
+            ck.layer_norm_plain(x, g, b, eps))
+        registry.register_platform_override(
+            "flash_attention", lambda q, k, v, *, mask=None, is_causal=False,
+            block_size=512: ck.flash_attention_plain(q, k, v, is_causal)[0])
+        plain_pooled, plain_logits = classify(torch.from_numpy(ref_ids).to(dev))
+        ck.install_platform_overrides()
+        dk = max(float((ref_pooled - plain_pooled).abs().max()),
+                 float((ref_logits - plain_logits).abs().max()))
+        log(f"path A kernels vs plain forward (fp32): max|diff| {dk:.3g}")
+        if dk > 1e-4 or not bool(torch.isfinite(ref_logits).all()):
+            fail("path A's kernels and plain versions disagree beyond 1e-4")
+
+        # fine-tune: the BertBench-style MLM step on the imported params
+        updater = Adam(1e-4)
+        opt = tfm.init_opt_state(params, updater)
+        step = tfm.make_train_step(cfg, updater)
+        t_dev = torch.zeros((), dtype=torch.int32, device=dev)
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, T))).to(dev)
+        tgt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, T))).to(dev)
+        step(params, opt, t_dev, tok, tgt)         # warm
+        torch.cuda.synchronize()
+        ck.reset_counts()
+        losses, step_ms = [], []
+        for _ in range(IMPORT_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(step(params, opt, t_dev, tok, tgt)))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        train = dict(ck.LAUNCHES)
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0] or \
+                train["flash_attention"] != 12 * IMPORT_STEPS or \
+                train["layer_norm"] != 25 * IMPORT_STEPS or \
+                any(ck.PLAIN_CALLS.values()):
+            fail(f"path A training: losses {losses}, launches {train} "
+                 f"(plain {dict(ck.PLAIN_CALLS)}) over {IMPORT_STEPS} steps")
+        med = float(np.median(step_ms))
+        log(f"path A make_train_step B={B}, T={T}, Adam 1e-4: losses "
+            f"{', '.join(f'{v:.5f}' for v in losses)}; step ms median "
+            f"{med:.2f} (min {min(step_ms):.2f}, max {max(step_ms):.2f}), "
+            f"{B * T / (med / 1e3):.0f} tokens/s; 12 flash + 25 LN launches "
+            f"a step [{smi}]")
+        del params, opt, head
+        torch.cuda.empty_cache()
+
+        # -------------------------------------------- 24. the GraphDef
+        t0 = time.perf_counter()
+        gd = fx.bert_graph_def(w, T=T, H=cfg.n_heads)
+        write_s = time.perf_counter() - t0
+        names = list(w)
+        del w
+        t0 = time.perf_counter()
+        graph = tf_proto.load_graph_def(gd)
+        parse_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sd = importTensorflowGraph(graph)
+        torch.cuda.synchronize()
+        gimport_s = time.perf_counter() - t0
+        # again in the same process: the first import also pays torch's
+        # one-time load of its meta kernels (the fold check's first meta op)
+        t0 = time.perf_counter()
+        again = importTensorflowGraph(graph)
+        torch.cuda.synchronize()
+        again_s = time.perf_counter() - t0
+        del again
+        log(f"path B: GraphDef {len(gd) / 1e6:.1f} MB, {len(graph.node)} "
+            f"nodes, written in {write_s:.2f} s, parsed in {parse_s:.3f} s, "
+            f"imported in {gimport_s:.2f} s (again in the process: "
+            f"{again_s:.2f} s): {len(sd._nodes)} ops, {len(sd._constants)} "
+            f"constants; import report {sd.import_report.codes()} [{smi}]")
+        del graph, gd
+        ck.reset_counts()
+        out = sd.output({"input_ids": ref_ids}, ["pooled_output", "logits"])
+        if any(ck.LAUNCHES.values()):
+            fail(f"the imported graph launched kernels {dict(ck.LAUNCHES)}")
+        dp = float((out["pooled_output"] - ref_pooled).abs().max())
+        dl = float((out["logits"] - ref_logits).abs().max())
+        log(f"path B vs path A on one [8, {T}] batch: pooled max|diff| "
+            f"{dp:.3g}, logits max|diff| {dl:.3g}")
+        if max(dp, dl) > 1e-3 or out["logits"].shape != (8, 2):
+            fail("path B's outputs differ from path A's by more than 1e-3")
+
+        server = ModelServer(samediff_forward(sd, ["logits"],
+                                              input_name="input_ids"),
+                             batch_limit=B, input_dtype=np.int32,
+                             coalesce_ms=5.0, max_queue=256)
+        try:
+            cc.reset_stats()
+            t0 = time.perf_counter()
+            server.warmup([(T,)])
+            warm_s = time.perf_counter() - t0
+            stats = cc.cache_stats()
+            reqs = [rng.integers(0, cfg.vocab_size, (int(rng.integers(1, 9)), T),
+                                 dtype=np.int32) for _ in range(64)]
+            handles, got, wall, launches, _, n_fwd = serve_burst(server, reqs)
+            if any(h.resolutions != 1 for h in handles) or \
+                    server.counts["completed"] != 64 or \
+                    any(launches.values()) or stats["capture_failures"]:
+                fail(f"path B serving: counts {dict(server.counts)}, "
+                     f"launches {launches}, cache_stats {stats}")
+            worst = max(float(np.abs(g - sd.output(
+                {"input_ids": r}, ["logits"])["logits"].cpu().numpy()).max())
+                for r, g in zip(reqs, got))
+            if worst > 1e-4:
+                fail(f"path B served and direct logits differ by {worst:.3g}")
+            log(f"path B warmup {warm_s:.2f} s ({stats}); served 64 "
+                f"requests in {n_fwd} forwards, served vs direct max|diff| "
+                f"{worst:.3g}")
+            log_latency(handles, reqs, wall, smi)
+        finally:
+            server.close()
+
+        consumed = {i for node in sd._nodes for i in node.inputs}
+        trained = [n for n in names if n in consumed]
+        sd.convertToVariables(*trained)
+        labels = sd.placeHolder("labels", shape=(None, 2), dtype=np.float32)
+        sd.loss.softmaxCrossEntropy(labels, sd.getVariable("logits"),
+                                    name="loss")
+        sd.setLossVariables("loss")
+        sd.setTrainingConfig(TrainingConfig(
+            updater=Adam(1e-4), data_set_feature_mapping=["input_ids"],
+            data_set_label_mapping=["labels"]))
+        batch = {"input_ids": torch.from_numpy(rng.integers(
+                     0, cfg.vocab_size, (B, T), dtype=np.int32)).to(dev),
+                 "labels": torch.from_numpy(np.eye(2, dtype=np.float32)[
+                     rng.integers(0, 2, B)]).to(dev)}
+        fit_losses, fit_ms = [], []
+        for _ in range(IMPORT_FIT_STEPS):
+            t0 = time.perf_counter()
+            fit_losses += sd.fit([batch]).lossCurve()   # floats: waits
+            fit_ms.append((time.perf_counter() - t0) * 1e3)
+        if not all(np.isfinite(fit_losses)) or \
+                not fit_losses[-1] < fit_losses[0]:
+            fail(f"path B fit losses not finite and falling: {fit_losses}")
+        med = float(np.median(fit_ms[1:]))
+        log(f"path B sd.fit B={B}, T={T}, Adam 1e-4 over {len(trained)} "
+            f"unfrozen weights: losses "
+            f"{', '.join(f'{v:.5f}' for v in fit_losses)}; step ms (steps "
+            f"2-{IMPORT_FIT_STEPS}) median {med:.2f}, first {fit_ms[0]:.2f}; "
+            f"{B * T / (med / 1e3):.0f} tokens/s [{smi}]")
+
+        p = os.path.join(tmp, "bert_graph.sdz")
+        t0 = time.perf_counter()
+        sd.save(p, save_updater_state=False)
+        back = SameDiff.load(p)
+        rt_s = time.perf_counter() - t0
+        a = sd.output({"input_ids": ref_ids}, ["logits"])["logits"]
+        b = back.output({"input_ids": ref_ids}, ["logits"])["logits"]
+        if not torch.equal(a, b):
+            fail(f"path B save/load: logits differ by "
+                 f"{float((a - b).abs().max()):.3g}")
+        log(f"path B save + load ({os.path.getsize(p) / 1e6:.1f} MB) in "
+            f"{rt_s:.2f} s through the 'tf' rebuild: logits bit-equal; "
+            f"phases 23-24 {time.perf_counter() - t_phase:.1f} s")
+        del sd, back
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"served": served,
+            "train": {k: train[k] for k in ("flash_attention", "layer_norm")}}
 
 
 def serve_burst(server, reqs):

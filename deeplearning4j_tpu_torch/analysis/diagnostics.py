@@ -23,6 +23,20 @@ DIAGNOSTIC_CODES = {
                  "target version was never warmed (or misses shapes the "
                  "active version serves warm), so post-roll traffic "
                  "captures under live load",
+    # E16x/W16x import-time lints (analysis/imports.py, emitted by the TF
+    # importer into the returned graph's import_report)
+    "DL4J-E163": "lossy import narrowing: an initializer or input dtype "
+                 "is narrowed at import (fp64 weights -> fp32, int64 "
+                 "indices -> int32) and large values would truncate",
+    "DL4J-W161": "dynamic-dim placeholder: a non-batch dimension is "
+                 "unknown at import, so every distinct shape fed at "
+                 "runtime compiles a fresh executable (recompile churn)",
+    "DL4J-W162": "frozen variable: a source-graph variable imported as a "
+                 "constant while a TrainingConfig exists — fit() will "
+                 "never update it",
+    "DL4J-W163": "import const-folding overflow: folding constant "
+                 "subgraphs at import produced nonfinite floats or "
+                 "values past the target integer range",
     "DL4J-W201": "recompile churn: one dispatch site compiled more than N "
                  "distinct jit signatures (shifting shapes/dtypes)",
 }
@@ -62,6 +76,15 @@ class ValidationReport:
                  subject: str = ""):
         self.subject = subject
         self.diagnostics: List[Diagnostic] = list(diagnostics)
+
+    def extend(self, diags: Iterable[Diagnostic]) -> None:
+        self.diagnostics.extend(diags)
+
+    def __iter__(self):
+        return iter(self.diagnostics)
+
+    def __len__(self):
+        return len(self.diagnostics)
 
     def errors(self) -> List[Diagnostic]:
         return [d for d in self.diagnostics if d.severity is Severity.ERROR]

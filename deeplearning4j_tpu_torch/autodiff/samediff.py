@@ -18,15 +18,25 @@ Serialization is the JAX package's zip (``graph.json`` + ``arrays.npz``,
 optional updater state): a graph either package saves loads in the
 other. Placeholder dtypes are numpy dtype names.
 
-Not ported yet (ROADMAP.md queue 1 item 10): ``while_loop``, ``cond`` and
-subgraphs; RNG ops and dropout; multi-head attention, ``std`` and
-``variance``; ``infer_shapes``, ``validate`` and ``summary``; the native
-backend; the CNN, RNN, Random, Linalg, Bitwise and Image namespaces;
-listeners and ``rename``.
+Control flow: ``while_loop``, ``cond`` and ``invoke_subgraph`` take Python
+callables or SameDiff subgraphs; a subgraph serializes to a self-contained
+JSON spec (:func:`subgraph_spec`), so such nodes round-trip through
+``save``/``load``, as the TF importer's ``While``/``If``/``PartitionedCall``
+nodes do. Where the JAX package lowers them to ``lax.while_loop`` and
+``lax.cond``, the port runs them eagerly: the loop is a Python loop over the
+body on the graph's device, reading the predicate on the host once an
+iteration.
+
+Not ported yet (ROADMAP.md queue 1 item 9): RNG ops and dropout;
+multi-head attention, ``std`` and ``variance``; ``infer_shapes``,
+``validate`` and ``summary``; the native backend; the CNN, RNN, Random,
+Linalg, Bitwise and Image namespaces; listeners and the public
+``rename``.
 """
 
 from __future__ import annotations
 
+import base64
 import io
 import json
 import os
@@ -419,6 +429,23 @@ class SameDiff:
             outs.append(v)
         return outs[0] if n_out == 1 else tuple(outs)
 
+    def _rename(self, old: str, new: str):
+        """Rename a variable everywhere it appears (the TF importer aligns
+        multi-output and deframed nodes' names with TF's refs)."""
+        for d in (self._variables, self._constants, self._placeholders,
+                  self._vars):
+            if old in d:
+                d[new] = d.pop(old)
+        if new in self._vars:
+            self._vars[new].name = new
+        for node in self._nodes:
+            node.inputs = [new if i == old else i for i in node.inputs]
+            node.outputs = [new if o == old else o for o in node.outputs]
+        if old in self._producers:
+            self._producers[new] = self._producers.pop(old)
+        self._loss_variables = [new if n == old else n
+                                for n in self._loss_variables]
+
     # ------------------------------------------------------------ execution
     def _needed_nodes(self, output_names: Sequence[str]) -> List[_Node]:
         needed = set()
@@ -647,6 +674,87 @@ class SameDiff:
                 hist.loss_curve += torch.stack(losses).cpu().tolist()
         return hist
 
+    # ---------------------------------------------------------- control flow
+    def while_loop(self, cond_fn, body_fn, init_vars: Sequence[SDVariable],
+                   name: str = None):
+        """A loop over ``init_vars`` (ref: the interpreted Enter/Exit/Merge
+        frames). ``cond_fn``/``body_fn`` are Python callables over tensors
+        (the node then cannot be saved) or SameDiff subgraphs whose
+        placeholders, in declaration order, are the loop carries and whose
+        last-recorded outputs (or ``setOutputs``) are the result; those
+        round-trip through ``save``/``load``."""
+        names = [self._as_var(v).name for v in init_vars]
+        n = len(names)
+        if isinstance(cond_fn, SameDiff) and isinstance(body_fn, SameDiff):
+            attrs = {"cond": subgraph_spec(cond_fn,
+                                           cond_fn._default_outputs(1)),
+                     "body": subgraph_spec(body_fn,
+                                           body_fn._default_outputs(n))}
+            return self._record_fn("while_loop", _make_subwhile_fn(attrs),
+                                   names, name=name, n_out=n, attrs=attrs,
+                                   rebuild="subwhile")
+
+        def fn(*args):
+            c = tuple(args)
+            while bool(cond_fn(*c)):
+                out = body_fn(*c)
+                c = tuple(out) if isinstance(out, (tuple, list)) else (out,)
+            return c[0] if n == 1 else c
+        return self._record_fn("while_loop", fn, names, name=name, n_out=n)
+
+    def cond(self, pred: SDVariable, true_fn, false_fn,
+             operands: Sequence[SDVariable], name: str = None,
+             n_out: int = 1):
+        """Run one of two branches on ``operands`` as ``pred`` says;
+        branches are Python callables (not serializable) or SameDiff
+        subgraphs (round-trip; see :meth:`while_loop`)."""
+        names = [self._as_var(pred).name] + [self._as_var(v).name
+                                             for v in operands]
+        if isinstance(true_fn, SameDiff) and isinstance(false_fn, SameDiff):
+            attrs = {"true": subgraph_spec(true_fn,
+                                           true_fn._default_outputs(n_out)),
+                     "false": subgraph_spec(false_fn,
+                                            false_fn._default_outputs(n_out))}
+            return self._record_fn("cond", _make_subcond_fn(attrs), names,
+                                   name=name, n_out=n_out, attrs=attrs,
+                                   rebuild="subcond")
+
+        def fn(p, *args):
+            return (true_fn if bool(p) else false_fn)(*args)
+        return self._record_fn("cond", fn, names, name=name)
+
+    def invoke_subgraph(self, sub: "SameDiff", inputs: Sequence[SDVariable],
+                        outputs: Sequence[str] = None, name: str = None):
+        """Record a whole subgraph as one node (the import of
+        ``PartitionedCall`` / FunctionDef bodies). Differentiable and
+        serializable."""
+        names = [self._as_var(v).name for v in inputs]
+        outs = list(outputs) if outputs else sub._default_outputs(1)
+        attrs = {"sub": subgraph_spec(sub, outs)}
+        return self._record_fn("subgraph", _make_subcall_fn(attrs), names,
+                               name=name, n_out=len(outs), attrs=attrs,
+                               rebuild="subcall")
+
+    def setOutputs(self, *names):
+        """Mark this graph's result variables (used when the graph serves
+        as a control-flow body or a called subgraph)."""
+        self._marked_outputs = [n.name if isinstance(n, SDVariable) else n
+                                for n in names]
+        return self
+
+    def _default_outputs(self, n: int) -> List[str]:
+        """Explicitly marked outputs, else the last n recorded outputs (the
+        last n placeholders of a graph without nodes)."""
+        marked = getattr(self, "_marked_outputs", None)
+        if marked:
+            if len(marked) != n:
+                raise ValueError(f"subgraph marks {len(marked)} outputs, "
+                                 f"{n} required")
+            return list(marked)
+        if not self._nodes:
+            return list(self._placeholders)[-n:]
+        return [o for node in self._nodes for o in node.outputs][-n:]
+
     # ------------------------------------------------------------ utilities
     def variables(self) -> List[SDVariable]:
         return [self._vars[n] for n in self._variables]
@@ -737,8 +845,11 @@ def _node_to_spec(node: _Node) -> dict:
     if node.rebuild is not None:
         spec["rebuild"] = node.rebuild
     elif not op_registry.has(node.op):
-        raise ValueError(f"node '{node.op}' is not serializable: its body "
-                         "is an arbitrary Python closure")
+        raise ValueError(
+            f"node '{node.op}' is not serializable: its body is an "
+            f"arbitrary Python closure. while_loop/cond round-trip when "
+            f"their bodies are SameDiff subgraphs (pass SameDiff instances "
+            f"instead of Python callables)")
     return spec
 
 
@@ -751,6 +862,9 @@ def _node_from_spec(nd_spec: dict) -> _Node:
         raise NotImplementedError(
             f"node '{nd_spec['op']}' draws random numbers: RNG ops are not "
             "ported yet")
+    if rebuild == "tf" and rebuild not in _FN_REBUILDERS:
+        # TF-imported graphs: the importer registers its rebuilder
+        import deeplearning4j_tpu_torch.modelimport.tensorflow  # noqa: F401
     if rebuild is not None:
         if rebuild not in _FN_REBUILDERS:
             raise NotImplementedError(
@@ -801,8 +915,121 @@ def _make_getitem_fn(attrs):
     return lambda x, index=None: x[idx]
 
 
+# ------------------------------------------------------------- subgraphs
+# A SameDiff graph can serve as the body of a control-flow node or a
+# function call. It serializes to a self-contained JSON spec (arrays
+# base64-inline: control-flow bodies are small), the JAX package's format,
+# so control flow round-trips through save()/load() in either package.
+
+def _arr_to_json(a) -> dict:
+    a = _to_numpy(a) if isinstance(a, torch.Tensor) else np.asarray(a)
+    return {"dtype": str(a.dtype), "shape": list(a.shape),
+            "data": base64.b64encode(a.tobytes()).decode("ascii")}
+
+
+def _arr_from_json(d) -> np.ndarray:
+    return np.frombuffer(base64.b64decode(d["data"]),
+                         np.dtype(d["dtype"])).reshape(d["shape"]).copy()
+
+
+def subgraph_spec(sub: "SameDiff", outputs: Sequence[str]) -> dict:
+    """Self-contained JSON spec of ``sub``: placeholders in declared order
+    (the call convention), variables folded to constants (a subgraph's
+    weights are closed over, not trained), nodes and output names."""
+    return {
+        "ph_order": list(sub._placeholders),
+        "placeholders": {k: [list(v[0]) if v[0] else None,
+                             op_registry.dtype_name(v[1])]
+                         for k, v in sub._placeholders.items()},
+        "consts": {k: _arr_to_json(v)
+                   for k, v in {**sub._constants, **sub._variables}.items()},
+        "nodes": [_node_to_spec(n) for n in sub._nodes],
+        "outputs": list(outputs),
+        "has_rng": False,
+    }
+
+
+def subgraph_from_spec(spec: dict, device="cpu") -> "SameDiff":
+    sub = SameDiff(device)
+    for name in spec["ph_order"]:
+        shp, dt = spec["placeholders"][name]
+        sub.placeHolder(name, shape=tuple(shp) if shp else None,
+                        dtype=op_registry.torch_dtype(dt))
+    for name, d in spec["consts"].items():
+        sub.constant(_arr_from_json(d), name=name)
+    for nd_spec in spec["nodes"]:
+        node = _node_from_spec(nd_spec)
+        sub._nodes.append(node)
+        for on in node.outputs:
+            sub._vars[on] = SDVariable(sub, on, "ARRAY")
+            sub._producers[on] = node
+    return sub
+
+
+def subgraph_fn(spec: dict) -> Callable:
+    """A subgraph spec as ``call(*args) -> tuple(outputs)``, the args bound
+    to the placeholders in declared order. The subgraph is built on the
+    device of the first tensor argument when first called there."""
+    outputs = tuple(spec["outputs"])
+    ph_names = spec["ph_order"]
+    subs: Dict[torch.device, SameDiff] = {}
+
+    def call(*args):
+        dev = next((a.device for a in args if isinstance(a, torch.Tensor)),
+                   torch.device("cpu"))
+        sub = subs.get(dev)
+        if sub is None:
+            sub = subs[dev] = subgraph_from_spec(spec, dev)
+        outs = sub._exec({}, {k: sub._as_tensor(a)
+                              for k, a in zip(ph_names, args)}, outputs)
+        return tuple(outs[n] for n in outputs)
+    return call
+
+
+def _make_subwhile_fn(attrs: dict) -> Callable:
+    """A loop over subgraph bodies: a Python loop on the device, the
+    predicate read on the host once an iteration."""
+    cond = subgraph_fn(attrs["cond"])
+    body = subgraph_fn(attrs["body"])
+    n = len(attrs["body"]["outputs"])
+
+    def fn(*args, **_kw):
+        c = tuple(args)
+        while bool(cond(*c)[0].reshape(())):
+            c = body(*c)
+        return c if n > 1 else c[0]
+    return fn
+
+
+def _make_subcond_fn(attrs: dict) -> Callable:
+    tfn = subgraph_fn(attrs["true"])
+    ffn = subgraph_fn(attrs["false"])
+    n = len(attrs["true"]["outputs"])
+
+    def fn(p, *args, **_kw):
+        res = (tfn if bool(p.reshape(())) else ffn)(*args)
+        return res if n > 1 else res[0]
+    return fn
+
+
+def _make_subcall_fn(attrs: dict) -> Callable:
+    """An inline function call: one node that runs a whole subgraph
+    (differentiable: autograd runs straight through)."""
+    sub = subgraph_fn(attrs["sub"])
+    n = len(attrs["sub"]["outputs"])
+
+    def fn(*args, **_kw):
+        res = sub(*args)
+        return res if n > 1 else res[0]
+    return fn
+
+
 # rebuild-key -> closure builder; save() records the key, load() calls it
-_FN_REBUILDERS = {"getitem": _make_getitem_fn}
+# (the TF importer adds "tf")
+_FN_REBUILDERS = {"getitem": _make_getitem_fn,
+                  "subwhile": _make_subwhile_fn,
+                  "subcond": _make_subcond_fn,
+                  "subcall": _make_subcall_fn}
 
 
 def _tree_leaves(tree) -> list:

@@ -259,7 +259,11 @@ def make_train_step(cfg: TransformerConfig, updater):
             if not p.requires_grad:
                 p.requires_grad_(True)
         loss = loss_fn(params, tokens, targets, cfg, target_mask)
-        grads = torch.autograd.grad(loss, leaves)
+        # a leaf the loss does not reach (a post-LN BERT's final_norm)
+        # gets zeros, as jax.grad gives
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
         apply_updates(paths, grads, opt_state, updater, t)
         return loss.detach()
 

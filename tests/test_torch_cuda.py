@@ -640,3 +640,61 @@ def test_fit_with_prefetch_equals_sync_staging_on_the_card(dev):
     finally:
         torch.backends.cudnn.deterministic = deterministic
     assert all(torch.equal(a, b) for a, b in zip(*states))
+
+
+def _small_bert_files(tmp_path):
+    from deeplearning4j_tpu_torch.modelimport import tf_fixtures as fx
+    w = fx.bert_weights(0, V=99, E=128, L=2, F=256, P=64)
+    paths = {}
+    for fmt, state in (("hf", fx.hf_state(w)), ("tf", w)):
+        paths[fmt] = str(tmp_path / f"{fmt}.bin")
+        torch.save({k: torch.from_numpy(np.ascontiguousarray(v))
+                    for k, v in state.items()}, paths[fmt])
+    return w, paths
+
+
+def test_imported_bert_runs_the_fp32_kernels_on_the_card(dev, tmp_path):
+    """Path A: a checkpoint import's encode launches 2L+1 layer norms and
+    L fp32 flash kernels (the CUDA-core route), and agrees with the plain
+    versions and with the same import on the CPU."""
+    from deeplearning4j_tpu_torch.modelimport.bert import (
+        importBertModelAndWeights)
+    _, paths = _small_bert_files(tmp_path)
+    ck.install_platform_overrides()
+    cfg, params = importBertModelAndWeights(paths["tf"], n_heads=2,
+                                            use_flash_attention=True)
+    _, params_hf = importBertModelAndWeights(paths["hf"], n_heads=2,
+                                             use_flash_attention=True)
+    assert all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        ttr._leaf_paths(params), ttr._leaf_paths(params_hf)))
+    tok = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 99, (4, 64))).to(dev)
+    ck.reset_counts()
+    with torch.no_grad():
+        x = ttr.encode(params, tok, cfg)
+    assert ck.LAUNCHES["layer_norm"] == 5 and \
+        ck.FLASH_ROUTES == {"tensor_core": 0, "cuda_core": 2}
+    cfg_c, params_c = importBertModelAndWeights(paths["tf"], device="cpu",
+                                                n_heads=2)
+    with torch.no_grad():
+        want = ttr.encode(params_c, tok.cpu(), cfg_c)
+    torch.testing.assert_close(x.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_imported_graph_def_on_the_card_equals_the_cpu(dev, tmp_path):
+    """Path B: the frozen GraphDef imports onto the card and gives the
+    CPU import's logits; it launches no hand-written kernel."""
+    from deeplearning4j_tpu_torch.modelimport import tf_fixtures as fx
+    from deeplearning4j_tpu_torch.modelimport.tensorflow import (
+        importTensorflowGraph)
+    w, _ = _small_bert_files(tmp_path)
+    gd = fx.bert_graph_def(w, T=64, H=2)
+    ids = np.random.default_rng(0).integers(0, 99, (4, 64)).astype(np.int32)
+    ck.install_platform_overrides()
+    ck.reset_counts()
+    got = importTensorflowGraph(gd).output({"input_ids": ids}, ["logits"])
+    assert not any(ck.LAUNCHES.values())
+    want = importTensorflowGraph(gd, device="cpu").output(
+        {"input_ids": ids}, ["logits"])
+    torch.testing.assert_close(got["logits"].cpu(), want["logits"],
+                               rtol=1e-4, atol=1e-5)

@@ -15,24 +15,44 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "deeplearning4j_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "deeplearning4j_tpu"}
+#: what the card's machine lacks, so the port parses and loads model files
+#: itself: TF and protobuf (GraphDefs), ml_dtypes (bf16), safetensors and
+#: transformers (checkpoints); matched by dotted prefix
+FORBIDDEN_LIBS = ("tensorflow", "google.protobuf", "ml_dtypes",
+                  "safetensors", "transformers")
+
+
+def _imported_names(path: Path):
+    """The full dotted name of every import in a file, lazy ones
+    (inside functions, ``__import__``, ``importlib.import_module``)
+    included."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module:
+                yield node.module
+                for a in node.names:
+                    yield f"{node.module}.{a.name}"
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "id", getattr(node.func, "attr", None)) in (
+                "__import__", "import_module") and node.args \
+                and isinstance(node.args[0], ast.Constant):
+            yield str(node.args[0].value)
 
 
 def _imported_roots(path: Path):
     """First dotted component of every import in a file (by component,
     not prefix: 'deeplearning4j_tpu_torch' is not 'deeplearning4j_tpu')."""
-    tree = ast.parse(path.read_text(), filename=str(path))
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            for a in node.names:
-                yield a.name.split(".")[0]
-        elif isinstance(node, ast.ImportFrom):
-            if node.level == 0 and node.module:
-                yield node.module.split(".")[0]
-        elif isinstance(node, ast.Call) and getattr(
-                node.func, "id", getattr(node.func, "attr", None)) in (
-                "__import__", "import_module") and node.args \
-                and isinstance(node.args[0], ast.Constant):
-            yield str(node.args[0].value).split(".")[0]
+    for name in _imported_names(path):
+        yield name.split(".")[0]
+
+
+def _forbidden_lib(name: str) -> bool:
+    return any(name == lib or name.startswith(lib + ".")
+               for lib in FORBIDDEN_LIBS)
 
 
 def _sources():
@@ -46,6 +66,25 @@ def _sources():
 def test_no_jax_imports(path):
     bad = sorted(set(_imported_roots(path)) & FORBIDDEN)
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_tf_protobuf_or_checkpoint_library_imports(path):
+    bad = sorted({n for n in _imported_names(path) if _forbidden_lib(n)})
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_the_library_check_sees_lazy_and_from_imports(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("def f():\n    from google import protobuf\n"
+                   "    import importlib\n"
+                   "    importlib.import_module('safetensors.numpy')\n"
+                   "from google.protobuf import message\n")
+    names = {n for n in _imported_names(src) if _forbidden_lib(n)}
+    assert names == {"google.protobuf", "safetensors.numpy",
+                     "google.protobuf.message"}
+    assert not _forbidden_lib("google") and not _forbidden_lib("tensorflowx")
 
 
 def test_component_check_is_not_a_prefix_check():
@@ -94,9 +133,16 @@ def test_import_leaves_jax_unloaded():
              "deeplearning4j_tpu_torch.data.image, "
              "deeplearning4j_tpu_torch.data.decode, "
              "deeplearning4j_tpu_torch.data.pipeline, "
-             "deeplearning4j_tpu_torch.utils.concurrent; "
+             "deeplearning4j_tpu_torch.utils.concurrent, "
+             "deeplearning4j_tpu_torch.modelimport.bert, "
+             "deeplearning4j_tpu_torch.modelimport.tf_proto, "
+             "deeplearning4j_tpu_torch.modelimport.tensorflow, "
+             "deeplearning4j_tpu_torch.modelimport.tf_fixtures, "
+             "deeplearning4j_tpu_torch.analysis.imports; "
              "print(sorted(m for m in sys.modules if m.split('.')[0] in "
-             "('jax', 'jaxlib', 'deeplearning4j_tpu')))", ROOT)
+             "('jax', 'jaxlib', 'deeplearning4j_tpu', 'tensorflow', "
+             "'ml_dtypes', 'safetensors', 'transformers') "
+             "or m.startswith('google.protobuf')))", ROOT)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "[]"
 
