@@ -311,6 +311,50 @@ Phases (each one fails the run with a non-zero exit):
    import seconds (the import twice: the first in a process also loads
    torch's meta kernels for the fold check), the node count, the served
    tokens/s and the ms a fit step.
+25. A long ResNet-50 run from disk (``ComputationGraph``): phase 22's
+   1024 noise JPEGs decoded at 256^2 by
+   ``MultiWorkerImageIterator(shuffle=True, steps_per_dispatch=4)``;
+   ``DeviceAugmentation(seed=7).crop(32).random_flip().normalize(ImageNet
+   mean, std)`` to 224^2 inside the captured step; ResNet-50 (8 classes)
+   bf16 / NHWC / fused, B=64, K=4, ``Nesterovs(StepSchedule("iteration",
+   0.1, 0.1, 16), momentum=0.9)``, 2 epochs (32 steps), cuDNN
+   deterministic. ``warmup`` captures the augmented uint8 megastep (4 x 33
+   ``scale_shift_act``, the state unchanged); the schedule read on the
+   card at steps 1, 17 and 32 is the host's (1e-6 relative). Run A:
+   ``CheckpointConfig(every_steps=8, keep_last=2, async_write=True)`` with
+   ``ScoreIterationListener(8)`` and ``PerformanceListener(8)``: 32 finite
+   losses, 4 checkpoints, the last two kept; the same run with the
+   checkpoints alone and with neither (no session: the dispatch stream)
+   must end bit-equal to it. Run B: ``FaultPlan(preempt_at_step=12)``
+   stops with a ``"preempted"`` checkpoint at step 12; a fresh net
+   resumed from it (``resume=True``) must end at step 32 bit-equal to run
+   A (params, updater state, BN statistics, the clock). Run C, from the
+   same start, a NaN batch at step 20 (``nan_grads_at={20}``, stopping at
+   24): under ``SKIP_STEP`` one non-finite step and the state after it
+   bit-equal to the state before the dropped dispatch; under
+   ``BACKOFF_LR`` the scale 0.5 on the host and on the card in the same
+   storage, one capture (the lr-scaled megastep, before the backoff) and
+   none after; under ``ROLLBACK`` the state of run A's step 16, and
+   each run's state at step 16 equal to run A's. It prints the ms a step
+   of the three runs, the checkpoint's MB and write seconds, and the
+   copies to the card a dispatch under the session.
+26. Dynamic loss scaling (``MultiLayerNetwork``): TinyYOLO at B=32,
+   416^2, fp16 / NHWC / fused (fp16 takes the generic epilogue: the
+   kernel's gate is fp32 and bf16), ``PrecisionPolicy("fp16",
+   loss_scale="dynamic", loss_scale_init=2**24, growth_interval=4)``,
+   captured at K=4 for 32 steps: each step's finite flag recorded on the
+   card (a spy on ``precision.grads_all_finite`` writing at the clock's
+   index inside the graph), the first step overflowing, the scale after
+   each dispatch equal to the automaton's rule run on the CPU from those
+   flags, an all-overflow first dispatch leaving the state as it was; one
+   capture, no failure, a finite last loss.
+27. Early stopping: LeNet-5 on phase 16's digits through
+   ``EarlyStoppingTrainer(steps_per_dispatch=4)``,
+   ``DataSetLossCalculator`` on the 512 held-out digits,
+   ``ScoreImprovementEpochTerminationCondition(2)``,
+   ``MaxEpochsTerminationCondition(10)`` and ``LocalFileModelSaver``: the
+   best model reloaded from its file scores the recorded best score
+   exactly, and its accuracy is at least 0.99.
 
 The captured-against-eager rule: where the two eager runs agree to the
 bit on a tensor (and on the params' group: the param and its Adam
@@ -343,7 +387,8 @@ replays, softmax's phase 6's; ``replays`` counts the replayed ones;
 Darknet19 row phase 18's and its YOLO2 row phase 19's eager steps;
 ``from_disk_launches`` and ``from_disk_replays`` are phase 22's capture
 and replays; ``import_launches`` and ``import_train_launches`` are phase
-23's served launches (warmup and replays) and its train steps'), the
+23's served launches (warmup and replays) and its train steps';
+``long_run_launches`` phase 25's capture), the
 ``nvidia-smi`` name/power-limit line, and as the last line
 ``{"ok": true, "device": {...}}``. Without a card, or outside a
 checkout, it exits non-zero and prints no result.
@@ -414,6 +459,26 @@ IMPORT_T = 128
 IMPORT_BATCH = 32
 IMPORT_STEPS = 5
 IMPORT_FIT_STEPS = 6
+#: phase 25: a long ResNet-50 run from disk: phase 22's JPEGs decoded at
+#: 256^2, a random 32-pixel crop to 224^2, a random flip and ImageNet's
+#: normalization on the card, Nesterovs (momentum 0.9) under a step decay
+#: of 0.1 every 16 steps from 0.1, B=64, K=4, 2 epochs (32 steps)
+LONG_SIDE = 256
+LONG_CROP = 32
+LONG_EPOCHS = 2
+LONG_EVERY = 8
+LONG_PREEMPT = 12
+LONG_NAN = 20
+LONG_STOP = 24
+IMAGENET_MEAN = (123.675, 116.28, 103.53)     # 255 * (0.485, 0.456, 0.406)
+IMAGENET_STD = (58.395, 57.12, 57.375)        # 255 * (0.229, 0.224, 0.225)
+#: phase 26: TinyYOLO under fp16 dynamic loss scaling, 8 dispatches of 4
+#: (from 2^24 its first 14 steps overflow on the H100: 12 steps would
+#: show the backoff but no update)
+DYN_STEPS = 32
+#: phase 27: LeNet-5 under early stopping
+ES_MAX_EPOCHS = 10
+ES_PATIENCE = 2
 
 
 def fail(msg: str) -> None:
@@ -1441,6 +1506,18 @@ def main() -> None:
     imported = import_bert(smi)
     torch.cuda.empty_cache()
 
+    # ------------------- 25. a long ResNet-50 run: checkpoints, recovery
+    long = long_run(smi)
+    torch.cuda.empty_cache()
+
+    # ----------------------------------- 26. dynamic loss scaling (fp16)
+    dynamic_scaling(smi)
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ 27. early stopping
+    early_stopping(smi)
+    torch.cuda.empty_cache()
+
     ln.update(served["layer_norm"])
     fa.update(served["flash_attention"])
     for kr in (ln, fa):
@@ -1452,6 +1529,7 @@ def main() -> None:
     ssa["other_shapes"][2]["launches"] = y2_launches
     ssa["from_disk_launches"] = disk["at_capture"]
     ssa["from_disk_replays"] = disk["replays"]
+    ssa["long_run_launches"] = long["at_capture"]
     sm["launches"] = sd_warm["softmax"] + sd_replays["softmax"]
     sm["replays"] = sd_replays["softmax"]
     bn_st["launches"] = probe_launches["bn_stats"]
@@ -1460,7 +1538,8 @@ def main() -> None:
             "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "other_shapes", "pair", "from_disk_launches",
-            "from_disk_replays", "import_launches", "import_train_launches")
+            "from_disk_replays", "import_launches", "import_train_launches",
+            "long_run_launches")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{k: kr[k] for k in keys if k in kr}
                                   for kr in (ln, fa, ssa, sm, bn_st, bn_ap)]}))
@@ -2908,6 +2987,428 @@ def from_disk(smi: str, inmem_ms: float) -> dict:
         if it is not None:
             it.close()
         tmp.cleanup()
+
+
+def long_run(smi: str) -> dict:
+    """Phase 25: ResNet-50 for 2 epochs from JPEGs on disk with the
+    augmentation in the captured step, Nesterovs under a step schedule,
+    async checkpoints and listeners; then a preempted run resumed into a
+    fresh net, held to the bit against the uninterrupted one; then a NaN
+    batch under SKIP_STEP, BACKOFF_LR and ROLLBACK. Returns the
+    ``scale_shift_act`` launches recorded at the capture."""
+    import torch
+
+    from deeplearning4j_tpu_torch import profile_fit
+    from deeplearning4j_tpu_torch.data import dataset as dsmod
+    from deeplearning4j_tpu_torch.data.pipeline import (
+        MultiWorkerImageIterator)
+    from deeplearning4j_tpu_torch.faults import FaultPlan
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn import compilecache as cc
+    from deeplearning4j_tpu_torch.nn.augment import DeviceAugmentation
+    from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+    from deeplearning4j_tpu_torch.profiler.modes import (ProfilingMode,
+                                                         set_profiling_mode)
+    from deeplearning4j_tpu_torch.train import resilience as res
+    from deeplearning4j_tpu_torch.train.listeners import (
+        PerformanceListener, ScoreIterationListener, TrainingListener)
+    from deeplearning4j_tpu_torch.train.schedules import StepSchedule
+    from deeplearning4j_tpu_torch.train.updaters import Nesterovs
+    t_phase = time.perf_counter()
+    k, b, side = MEGA_K, DISK_BATCH, LONG_SIDE
+    hw = side - LONG_CROP
+    steps = LONG_EPOCHS * DISK_IMAGES // b
+    n_disp = steps // k
+    tmp = tempfile.TemporaryDirectory()
+    it = None
+    deterministic = torch.backends.cudnn.deterministic
+
+    def make_net():
+        net = zoo.ResNet50(
+            num_classes=DISK_CLASSES, input_shape=(3, hw, hw),
+            updater=Nesterovs(StepSchedule("iteration", 0.1, 0.1, 16),
+                              momentum=0.9)).init()
+        net.setPrecisionPolicy("bf16")
+        net.setComputeLayout("NHWC")
+        net.setEpilogueFusion(True)
+        net.setDeviceAugmentation(
+            DeviceAugmentation(seed=7).crop(LONG_CROP).random_flip()
+            .normalize(IMAGENET_MEAN, IMAGENET_STD))
+        net._ensure_step_state()
+        return net
+
+    def state_of(net):
+        return snapshot(net._snapshot_tensors() + [net._t_dev])
+
+    def equal(a, b):
+        return len(a) == len(b) and all(torch.equal(x, y)
+                                        for x, y in zip(a, b))
+
+    def differ(a, b):
+        """Where two states differ: the count, and the first few names
+        with their max |diff|."""
+        names = tree_names([net._params, net._states, net._opt_state])
+        bad = [(n, float((x.float() - y.float()).abs().max()))
+               for n, x, y in zip(names, a, b) if not torch.equal(x, y)]
+        return f"{len(bad)} of {len(a)} tensors differ, e.g. {bad[:6]}"
+
+    class AtStep(TrainingListener):
+        """Keeps the state at one iteration (a dispatch boundary)."""
+
+        def __init__(self, step):
+            self.step, self.state = step, None
+
+        def iterationDone(self, model, iteration, epoch):
+            if iteration == self.step:
+                self.state = state_of(model)
+
+    host = {}
+
+    def fit(net, timed=None, **kw):
+        """One run from the start of the data; a ``timed`` run records the
+        host's data wait, dispatch and pipeline seconds under it."""
+        it.seek({"batch": 0, "epoch": 0})
+        if timed:
+            set_profiling_mode(ProfilingMode.BASIC)
+            before = profile_fit.host_seconds()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            net.fit(it, epochs=LONG_EPOCHS, steps_per_dispatch=k, **kw)
+            torch.cuda.synchronize()
+        finally:
+            set_profiling_mode(ProfilingMode.OFF)
+        if timed:
+            after = profile_fit.host_seconds()
+            host[timed] = {key: after[key] - before[key] for key in after}
+        return time.perf_counter() - t0
+
+    def ckpt(d, **kw):
+        return res.CheckpointConfig(os.path.join(tmp.name, d), **kw)
+
+    try:
+        files = profile_fit.noise_jpegs(os.path.join(tmp.name, "jpegs"),
+                                        DISK_IMAGES, DISK_SIDE, DISK_CLASSES)
+        it = MultiWorkerImageIterator(
+            os.path.join(tmp.name, "jpegs"), side, side, batch_size=b,
+            workers=os.cpu_count(), drop_last=True, shuffle=True,
+            steps_per_dispatch=k)
+        torch.backends.cudnn.deterministic = True
+        cc.reset_stats()
+        ck.reset_counts()
+        net = make_net()
+        s0 = snapshot(net._dispatch_state())
+        cc.warmup(net, [((b, 3, side, side), (b, DISK_CLASSES))],
+                  steps_per_dispatch=k, dtype=np.uint8)
+        at_capture = net._step_for(False, k).launches_at_capture()
+        if at_capture != [{"scale_shift_act": k * 33}] or \
+                not equal(snapshot(net._dispatch_state()), s0):
+            fail(f"long run: the augmented uint8 megastep recorded "
+                 f"{at_capture} (want {k} x 33 scale_shift_act), or warmup "
+                 "changed the state")
+        upd = net.conf.base.updater
+        for t, want in ((0, 0.1), (16, 0.01), (31, 0.01)):
+            got = float(upd.lr_at(torch.tensor(t, dtype=torch.int32,
+                                               device="cuda")))
+            if abs(got - float(np.float32(want))) > 1e-6 * want:
+                fail(f"long run: the lr read on the card at step {t + 1} "
+                     f"is {got!r}, the schedule's {want}")
+
+        # run A: uninterrupted, async checkpoints every 8 steps, listeners
+        score = ScoreIterationListener(LONG_EVERY, out=log)
+        perf = PerformanceListener(LONG_EVERY, out=log)
+        at16 = AtStep(16)
+        net.setListeners(score, perf, at16)
+        dsmod.reset_h2d_counts()
+        c_n, c_s = res.CKPT_SECONDS.count, res.CKPT_SECONDS.sum
+        wall_a = fit(net, timed="all", checkpoint=ckpt(
+            "a", every_steps=LONG_EVERY, keep_last=2, async_write=True))
+        h2d_a = dict(dsmod.H2D_COPIES)
+        n_ck = res.CKPT_SECONDS.count - c_n
+        ck_s = (res.CKPT_SECONDS.sum - c_s) / max(n_ck, 1)
+        state_a = state_of(net)
+        kept = sorted(os.listdir(os.path.join(tmp.name, "a")))
+        ck_mb = sum(os.path.getsize(os.path.join(r, f))
+                    for r, _, fs in os.walk(os.path.join(tmp.name, "a",
+                                                         kept[-1]))
+                    for f in fs) / 1e6
+        losses = np.asarray(score.history)
+        if net.getIterationCount() != steps or len(losses) != steps or \
+                not np.isfinite(losses).all() or n_ck != steps // LONG_EVERY \
+                or kept != [f"ckpt_{s:010d}" for s in (steps - LONG_EVERY,
+                                                       steps)]:
+            fail(f"long run A: {net.getIterationCount()} steps, losses "
+                 f"{losses.tolist()}, {n_ck} checkpoints, kept {kept}")
+
+        # the same run with checkpoints and no listeners, then with
+        # neither (no session: the dispatch stream)
+        walls = {}
+        net.setListeners()
+        for name, kw in (("checkpoints", {"checkpoint": ckpt(
+                "a2", every_steps=LONG_EVERY, keep_last=2,
+                async_write=True)}), ("plain", {})):
+            restore(net._dispatch_state(), s0)
+            net._iteration = net._epoch = 0
+            walls[name] = fit(net, timed=name, **kw)
+            if not equal(state_of(net), state_a):
+                fail(f"long run: the run with {name} differs from run A")
+
+        # run B: preempted at step 12, resumed into a fresh net
+        net_b = make_net()
+        fit(net_b, checkpoint=ckpt("b", every_steps=LONG_EVERY, keep_last=2,
+                                   async_write=True),
+            faults=FaultPlan(preempt_at_step=LONG_PREEMPT))
+        man_path = os.path.join(tmp.name, "b", f"ckpt_{LONG_PREEMPT:010d}",
+                                "manifest.json")
+        with open(man_path) as f:
+            status = json.load(f)["status"]
+        if net_b.getIterationCount() != LONG_PREEMPT or \
+                status != "preempted":
+            fail(f"long run B: stopped at {net_b.getIterationCount()}, "
+                 f"checkpoint status {status!r}")
+        del net_b
+        net_r = make_net()
+        fit(net_r, checkpoint=ckpt("b", resume=True))
+        same = [torch.equal(x, y) for x, y in zip(state_of(net_r), state_a)]
+        if net_r.getIterationCount() != steps or not all(same):
+            fail(f"long run B: resumed to {net_r.getIterationCount()} steps;"
+                 f" {same.count(False)} of {len(same)} state tensors differ "
+                 "from the uninterrupted run")
+        del net_r
+
+        # run C: a NaN batch at step 20 under each policy
+        seen = []
+        orig = res.TrainingSession._handle_nonfinite
+
+        def lr_ptr(m):
+            s = m.conf.base.updater.__dict__.get("_lr_scale")
+            return s.data_ptr() if isinstance(s, torch.Tensor) else None
+
+        def spy(session, n_steps, bad):
+            before = snapshot(session._snap_bufs or [])
+            ptr = lr_ptr(session.model)
+            orig(session, n_steps, bad)
+            m = session.model
+            seen.append({"before": before, "after": state_of(m)[:-1],
+                         "same_scale": lr_ptr(m) == ptr,
+                         "clock": int(m._t_dev), "iteration": m._iteration,
+                         "scale": m.lr_scale(),
+                         "scale_dev": float(m.conf.base.updater.__dict__.get(
+                             "_lr_scale", 1.0))})
+        policy_runs = {}
+        res.TrainingSession._handle_nonfinite = spy
+        try:
+            for policy in (res.NanPolicy.SKIP_STEP, res.NanPolicy.BACKOFF_LR,
+                           res.NanPolicy.ROLLBACK):
+                restore(net._snapshot_tensors() + [net._t_dev],
+                        s0[:len(net._snapshot_tensors()) + 1])
+                net._iteration = net._epoch = 0
+                if policy is res.NanPolicy.ROLLBACK:
+                    net._set_lr_scale(1.0)
+                counts = (res.NONFINITE_STEPS.value, res.LR_BACKOFFS.value,
+                          res.ROLLBACKS.value,
+                          cc.cache_stats()["compile_seconds"]["cold_compiles"])
+                del seen[:]
+                kw = {"checkpoint": ckpt("c", every_steps=LONG_EVERY,
+                                         keep_last=2)} \
+                    if policy is res.NanPolicy.ROLLBACK else {}
+                c16 = AtStep(16)
+                net.setListeners(c16)
+                wall = fit(net, nan_policy=policy, faults=FaultPlan(
+                    nan_grads_at={LONG_NAN}, preempt_at_step=LONG_STOP), **kw)
+                after = (res.NONFINITE_STEPS.value, res.LR_BACKOFFS.value,
+                         res.ROLLBACKS.value,
+                         cc.cache_stats()["compile_seconds"]["cold_compiles"])
+                policy_runs[policy.name] = (
+                    [a - c for a, c in zip(after, counts)], list(seen), wall)
+                if not equal(c16.state, at16.state):
+                    fail(f"long run {policy.name}: the state at step 16, "
+                         "before the NaN batch, is not run A's: "
+                         + differ(c16.state[:-1], at16.state[:-1]))
+        finally:
+            res.TrainingSession._handle_nonfinite = orig
+        deltas, ev, _ = policy_runs["SKIP_STEP"]
+        if deltas[0] != 1 or len(ev) != 1 or \
+                not equal(ev[0]["before"], ev[0]["after"]):
+            fail(f"long run SKIP_STEP: nonfinite {deltas[0]}, {len(ev)} "
+                 "events; want one, the state after it bit-equal to the "
+                 "state before the dropped dispatch")
+        deltas, ev, _ = policy_runs["BACKOFF_LR"]
+        if deltas[:2] != [1, 1] or len(ev) != 1 or ev[0]["scale"] != 0.5 \
+                or ev[0]["scale_dev"] != 0.5 or deltas[3] != 1 or \
+                not ev[0]["same_scale"] or \
+                not equal(ev[0]["before"], ev[0]["after"]):
+            fail(f"long run BACKOFF_LR: counts {deltas}, events "
+                 f"{[(e['scale'], e['scale_dev']) for e in ev]}; want one "
+                 "backoff to 0.5 on the host and the card, one capture (the "
+                 "lr-scaled megastep, before the backoff) and the update "
+                 "dropped")
+        deltas, ev, _ = policy_runs["ROLLBACK"]
+        if deltas[0] != 1 or deltas[2] != 1 or len(ev) != 1 or \
+                ev[0]["iteration"] != 16 or ev[0]["clock"] != 16 or \
+                not equal(ev[0]["after"], at16.state[:-1]):
+            fail(f"long run ROLLBACK: counts {deltas}, events "
+                 f"{[(e['iteration'], e['clock']) for e in ev]}; want the "
+                 "state of run A's step-16 checkpoint back: "
+                 + (differ(ev[0]["after"], at16.state[:-1]) if ev else ""))
+        stats = cc.cache_stats()
+        if stats["capture_failures"]:
+            fail(f"long run: cache stats {stats}: a capture failed")
+        ms = {name: wall * 1e3 / steps for name, wall in
+              dict(walls, all=wall_a).items()}
+        log(f"long run: ResNet-50 B={b}, {side}^2 JPEGs cropped to {hw}^2 "
+            f"and flipped and normalized in the captured step, K={k}, "
+            f"Nesterovs 0.9 under StepSchedule(0.1, x0.1 / 16): {steps} "
+            f"steps, losses {losses[0]:.5f} .. {losses[-1]:.5f}; ms a step: "
+            f"{ms['all']:.2f} with async checkpoints every {LONG_EVERY} "
+            f"steps and the score and performance listeners, "
+            f"{ms['checkpoints']:.2f} with the checkpoints alone, "
+            f"{ms['plain']:.2f} with neither (no session: the dispatch "
+            f"stream); {n_ck} checkpoints of {ck_mb:.1f} MB, {ck_s:.3f} s "
+            f"each on the writer thread; "
+            f"{sum(h2d_a.values()) / n_disp:.1f} copies to the card a "
+            f"dispatch under the session ({h2d_a}); capture {at_capture} "
+            f"[{smi}]")
+        log("long run, host seconds of each run (data wait, dispatch; "
+            "pipeline decode, ring copy, consumer stall): " + "; ".join(
+                f"{name} " + ", ".join(f"{v:.3f}" for v in (
+                    h["data_wait"], h["dispatch"], h["decode"],
+                    h["ring_copy"], h["consumer_stall"]))
+                for name, h in host.items()))
+        log(f"long run: preempted at step {LONG_PREEMPT} and resumed in a "
+            f"fresh net: {len(same)} state tensors bit-equal at step "
+            f"{steps}; run A again with checkpoints alone and with neither: "
+            f"bit-equal; NaN batch "
+            f"at step {LONG_NAN}: " + "; ".join(
+                f"{name} counts (nonfinite, backoffs, rollbacks, captures) "
+                f"{d} in {w:.2f} s" for name, (d, _, w) in
+                policy_runs.items()) +
+            f"; phase {time.perf_counter() - t_phase:.1f} s [{smi}]")
+        return {"at_capture": k * 33}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        if it is not None:
+            it.close()
+        tmp.cleanup()
+
+
+def dynamic_scaling(smi: str) -> None:
+    """Phase 26: TinyYOLO under fp16 dynamic loss scaling, captured K=4:
+    each step's finite flag recorded on the card, the scale after each
+    dispatch held to the automaton's rule run on the CPU from those
+    flags."""
+    import torch
+
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn import compilecache as cc
+    from deeplearning4j_tpu_torch.nn import precision
+    from deeplearning4j_tpu_torch.nn.objdetect import yolo_labels
+    t_phase = time.perf_counter()
+    k, b = MEGA_K, YOLO_BATCH
+    pol = precision.PrecisionPolicy("fp16", loss_scale="dynamic",
+                                    loss_scale_init=2.0 ** 24,
+                                    growth_interval=4)
+    rng = np.random.default_rng(1)
+    ds = DataSet(torch.from_numpy(rng.standard_normal(
+        (b, 3, 416, 416), dtype=np.float32)).cuda(),
+        torch.from_numpy(yolo_labels(rng, b, YOLO_CLASSES)).cuda())
+    net = zoo.TinyYOLO(num_classes=YOLO_CLASSES).init()
+    net.setPrecisionPolicy(pol)
+    net.setComputeLayout("NHWC")
+    net.setEpilogueFusion(True)
+    net._ensure_step_state()
+    flags = torch.zeros(DYN_STEPS, dtype=torch.float32, device="cuda")
+    orig = precision.grads_all_finite
+
+    def spy(grads):
+        ok = orig(grads)
+        flags.index_copy_(0, net._t_dev.long().reshape(1),
+                          ok.float().reshape(1))
+        return ok
+    cc.reset_stats()
+    scales, states, losses = [], [snapshot(net._dispatch_state())], []
+    precision.grads_all_finite = spy
+    try:
+        for _ in range(DYN_STEPS // k):
+            net.fit([ds] * k, steps_per_dispatch=k)
+            scales.append(net._scale_state.detach().cpu())
+            states.append(snapshot(net._dispatch_state()))
+            losses.append(float(net.score()))
+    finally:
+        precision.grads_all_finite = orig
+    ok = flags.cpu().numpy() > 0.5
+    s = torch.tensor([pol.loss_scale_init, 0.0])
+    want = []
+    for j in range(DYN_STEPS):
+        s = precision.dynamic_scale_next(pol, s, torch.tensor(bool(ok[j])))
+        if (j + 1) % k == 0:
+            want.append(s.clone())
+    stats = cc.cache_stats()
+    if ok[0] or not all(torch.equal(g, w) for g, w in zip(scales, want)):
+        fail(f"dynamic scaling: finite flags {ok.tolist()}, scale after "
+             f"each dispatch {[v.tolist() for v in scales]}, the rule's "
+             f"{[v.tolist() for v in want]}: want the first step to "
+             "overflow and the card to follow the rule")
+    if not ok[:k].any():
+        n_p = len(net._snapshot_tensors())
+        if not all(torch.equal(x, y) for x, y in zip(states[0][:n_p],
+                                                     states[1][:n_p])):
+            fail("dynamic scaling: the first dispatch overflowed at every "
+                 "step but its updates were not all dropped")
+    if stats["capture_failures"] or \
+            stats["compile_seconds"]["cold_compiles"] != 1 or \
+            not np.isfinite(losses[-1]):
+        fail(f"dynamic scaling: cache stats {stats}, losses {losses}")
+    log(f"dynamic loss scaling: TinyYOLO B={b} fp16 NHWC, K={k}, "
+        f"{DYN_STEPS} steps from 2^24: finite flags "
+        f"{''.join('1' if v else '0' for v in ok)}, scale after each "
+        f"dispatch {[float(v[0]) for v in scales]} (the rule's), losses "
+        f"{[round(v, 5) for v in losses]}; one capture, no failure; phase "
+        f"{time.perf_counter() - t_phase:.1f} s [{smi}]")
+
+
+def early_stopping(smi: str) -> None:
+    """Phase 27: LeNet-5 under ``EarlyStoppingTrainer``; the best model
+    reloaded from its file scores what was recorded."""
+    import torch
+
+    from deeplearning4j_tpu_torch.data.iterators import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.train import earlystopping as es
+    t_phase = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        train = MnistDataSetIterator(64, True, num_examples=2048)
+        held = MnistDataSetIterator(256, False, num_examples=512)
+        net = zoo.LeNet(num_classes=10).init()
+        with tempfile.TemporaryDirectory() as d:
+            cfg = (es.EarlyStoppingConfiguration.Builder()
+                   .scoreCalculator(es.DataSetLossCalculator(held))
+                   .epochTerminationConditions(
+                       es.MaxEpochsTerminationCondition(ES_MAX_EPOCHS),
+                       es.ScoreImprovementEpochTerminationCondition(
+                           ES_PATIENCE))
+                   .modelSaver(es.LocalFileModelSaver(d)).build())
+            result = es.EarlyStoppingTrainer(cfg, net, train,
+                                             steps_per_dispatch=MEGA_K).fit()
+            best = result.getBestModel()
+            again = es.DataSetLossCalculator(held).calculateScore(best)
+        acc = best.evaluate(held).accuracy()
+        if best is net or again != result.best_score or acc < 0.99:
+            fail(f"early stopping: best model {type(best).__name__} scores "
+                 f"{again!r} against the recorded {result.best_score!r}, "
+                 f"accuracy {acc:.4f}")
+        log(f"early stopping: LeNet-5 K={MEGA_K}, {result.total_epochs} "
+            f"epochs ({result.termination_reason}: "
+            f"{result.termination_details}), best epoch "
+            f"{result.best_epoch} at held-out loss {result.best_score:.6f}, "
+            f"reloaded from its file: the same score, accuracy {acc:.4f}; "
+            f"scores {[f'{v:.3g}' for v in result.score_vs_epoch.values()]};"
+            f" phase {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
 
 
 def ssa_plain(x, scale, shift, *, alpha=0.0, axis=1):

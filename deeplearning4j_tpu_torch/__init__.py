@@ -14,7 +14,10 @@ FaceNetNN4Small2, InceptionResNetV1, NASNet and the rest) through
 ``nn.multilayer.MultiLayerNetwork``, one step or K steps a dispatch
 captured as a CUDA graph (``nn.compilecache``, ``train.stepping``),
 dropout drawn on the device clock, scored with ``evaluate`` and kept in
-the JAX package's model archive (``train.serializer``); and serving and
+the JAX package's model archive (``train.serializer``), with device
+augmentation in the step (``nn.augment``), dynamic loss scaling,
+listeners, early stopping, and checkpoints, resume, preemption and NaN
+recovery (``train.resilience``); and serving and
 fine-tuning graphs recorded in SameDiff (``autodiff``). Hand-written CUDA
 kernels for flash attention, layer norm, the fused conv epilogue and the
 row softmax (``ops.cuda_kernels``) are installed as platform overrides
@@ -29,12 +32,12 @@ Layout (module and public names follow the JAX package):
 - ``nn``        — ``NeuralNetConfiguration``/``InputType``, the input
                   preprocessors, the layers,
                   ``ComputationGraph``, ``MultiLayerNetwork``,
-                  ``PrecisionPolicy`` and ``compilecache``
-                  (``CachedDispatch``, ``warmup``)
-- ``train``     — the updaters (``Sgd``, ``Adam``, ``AdamW``), schedules,
-                  ``stepping`` (megasteps), the model archive
-                  (``serializer``) and the preemption signals
-                  (``resilience``)
+                  ``PrecisionPolicy``, ``DeviceAugmentation`` and
+                  ``compilecache`` (``CachedDispatch``, ``warmup``)
+- ``train``     — the eleven updaters, the nine schedules, ``stepping``
+                  (megasteps), the model archive (``serializer``),
+                  checkpoints, resume and recovery (``resilience``),
+                  ``listeners`` and ``earlystopping``
 - ``evaluation``— ``Evaluation``, ``ROC`` and the other metrics
 - ``analysis``  — the recompile-churn detector and the registry roll
                   lint (DL4J-W111)
@@ -48,7 +51,8 @@ Layout (module and public names follow the JAX package):
                   ``ServingRequest``, ``CircuitBreaker`` and the
                   structured serving errors
 - ``parallel``  — the dispatch watchdog (``parallel.elastic``)
-- ``faults``    — serving fault plans, seeded traffic, swap schedules
+- ``faults``    — training and serving fault plans, seeded traffic,
+                  swap schedules
 - ``profiler``  — the metrics registry, span tracer, ``traceparent``
                   tracing, flight recorder, ``ProfilingMode`` and the
                   instrumented locks

@@ -1,5 +1,24 @@
-"""Deterministic fault injection for serving — the port of the serving
+"""Deterministic fault injection — the port of the training and serving
 kinds of ``deeplearning4j_tpu/faults.py``.
+
+Training fault kinds (``fit(..., faults=plan)``, behind the seams of
+``train.resilience``); step indices are 1-based update steps, and step k
+is the k-th batch pulled, which is the k-th update applied:
+
+- **NaN gradients at step k** (``nan_grads_at``) — the k-th pulled
+  batch's features become NaN, so the step's loss and gradients go
+  non-finite through the device, as a real blow-up does.
+- **Data-pipeline errors at step k** (``data_error_at``) — the iterator
+  raises on the k-th pull; marked transient (``TransientDataError``,
+  ``data_error_transient``) the retry path must recover it, permanent
+  it propagates.
+- **Checkpoint write failure / corruption at step k** — the manager's
+  write raises ``OSError`` once (the retry must succeed), or the
+  finished checkpoint's archive has bytes flipped (resume must
+  quarantine it).
+- **Preemption at step k** (``preempt_at_step``) — a
+  :class:`~deeplearning4j_tpu_torch.train.resilience.StepPreemption`
+  that fires once step k has completed, standing in for SIGTERM.
 
 Serving fault kinds (the model server's degradation paths):
 
@@ -25,20 +44,28 @@ Wire-level chaos (the HTTP ingress front door):
   a replay is in flight: every request must resolve exactly once against
   exactly one version.
 
-Every fault fires exactly once per planned batch index (so a retried
+Every fault fires exactly once per planned index (so a retried pull or
 forward succeeds, like a real transient).
 
-Not ported yet (ROADMAP.md): the training kinds (NaN gradients, data and
-checkpoint errors), the lifecycle kinds and the interleaving harness.
+Not ported yet (ROADMAP.md): device loss in training
+(``device_loss_at_step``), layer-parameter poisoning
+(``nan_layer_params_at``, the sanitizer's), the coordinator and
+lifecycle kinds and the interleaving harness.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from typing import Callable, Iterable, Optional, Set
 
 import numpy as np
+import torch
+
+from deeplearning4j_tpu_torch.data.dataset import (DataSet, DataSetIterator,
+                                                   MultiDataSet,
+                                                   TransientDataError)
 
 
 def _as_step_set(steps) -> Set[int]:
@@ -50,14 +77,21 @@ def _as_step_set(steps) -> Set[int]:
 
 
 class FaultPlan:
-    """A deterministic schedule of injected serving faults.
+    """A deterministic schedule of injected faults.
 
-    Parameters name the failure mode and the 1-based serving batch
-    index(es) it fires at; each planned (mode, batch) fires exactly once.
-    Pass the plan to ``ModelServer(..., faults=plan)``.
+    Parameters name the failure mode and the 1-based update step(s) or
+    serving batch index(es) it fires at; each planned (mode, index) fires
+    exactly once. Pass the plan to ``fit(..., faults=plan)`` or
+    ``ModelServer(..., faults=plan)``.
     """
 
     def __init__(self, seed: int = 0,
+                 nan_grads_at: Iterable[int] = (),
+                 data_error_at: Iterable[int] = (),
+                 data_error_transient: bool = True,
+                 checkpoint_write_fail_at: Iterable[int] = (),
+                 checkpoint_corrupt_at: Iterable[int] = (),
+                 preempt_at_step: Optional[int] = None,
                  lose_devices: Iterable[int] = (),
                  hung_dispatch_at: Iterable[int] = (),
                  hang_seconds: Optional[float] = 0.2,
@@ -66,6 +100,12 @@ class FaultPlan:
                  serve_fail_at: Iterable[int] = (),
                  serve_device_loss_at_batch: Optional[int] = None):
         self.seed = seed
+        self.nan_grads_at = _as_step_set(nan_grads_at)
+        self.data_error_at = _as_step_set(data_error_at)
+        self.data_error_transient = bool(data_error_transient)
+        self.checkpoint_write_fail_at = _as_step_set(checkpoint_write_fail_at)
+        self.checkpoint_corrupt_at = _as_step_set(checkpoint_corrupt_at)
+        self.preempt_at_step = preempt_at_step
         self.lose_devices = frozenset(int(d) for d in lose_devices)
         self.hung_dispatch_at = _as_step_set(hung_dispatch_at)
         self.hang_seconds = hang_seconds
@@ -74,10 +114,97 @@ class FaultPlan:
         self.serve_fail_at = _as_step_set(serve_fail_at)
         self.serve_device_loss_at_batch = serve_device_loss_at_batch
         # consumed-state: each fault fires once
+        self._nan_pending = set(self.nan_grads_at)
+        self._data_pending = set(self.data_error_at)
+        self._ckpt_fail_pending = set(self.checkpoint_write_fail_at)
+        self._ckpt_corrupt_pending = set(self.checkpoint_corrupt_at)
+        self._pull_index = 0
         self._hang_pending = set(self.hung_dispatch_at)
         self._slow_pending = set(self.slow_replica_at)
         self._serve_fail_pending = set(self.serve_fail_at)
         self._hang_release = threading.Event()
+
+    @classmethod
+    def seeded(cls, seed: int, horizon: int, n_nan: int = 1,
+               n_data_errors: int = 1, preempt: bool = False,
+               corrupt_checkpoint: bool = False) -> "FaultPlan":
+        """A training plan from one seed: fault steps drawn without
+        replacement from ``[2, horizon]`` (step 1 is left clean, so every
+        run makes one good update first), as the JAX package draws them
+        (without its device-loss kind)."""
+        rng = np.random.RandomState(seed)
+        n_faults = n_nan + n_data_errors + (1 if preempt else 0)
+        lo = 2
+        pool = rng.permutation(np.arange(lo, max(horizon + 1, lo + n_faults)))
+        picks = [int(p) for p in pool[:n_faults]]
+        pos = n_nan + n_data_errors
+        return cls(seed=seed, nan_grads_at=picks[:n_nan],
+                   data_error_at=picks[n_nan:pos],
+                   preempt_at_step=picks[pos] if preempt else None,
+                   checkpoint_corrupt_at=(
+                       [int(rng.randint(lo, horizon + 1))]
+                       if corrupt_checkpoint else ()))
+
+    # ----------------------------------------------------------- data seams
+    def wrap_iterator(self, iterator) -> "DataSetIterator":
+        """Wrap a DataSetIterator so the data-side faults (NaN batches,
+        iterator errors) fire at the planned pull indices."""
+        return _FaultInjectionIterator(iterator, self)
+
+    def _on_pull(self) -> bool:
+        """One batch pull is about to be served: True when it must be
+        poisoned; raises the planned iterator error (the pull index is
+        not advanced, so the retry delivers the same batch)."""
+        self._pull_index += 1
+        k = self._pull_index
+        if k in self._data_pending:
+            self._data_pending.discard(k)
+            self._pull_index -= 1
+            if self.data_error_transient:
+                raise TransientDataError(
+                    f"injected transient data error at step {k} "
+                    f"(FaultPlan seed={self.seed})")
+            raise IOError(f"injected permanent data error at step {k} "
+                          f"(FaultPlan seed={self.seed})")
+        if k in self._nan_pending:
+            self._nan_pending.discard(k)
+            return True
+        return False
+
+    # ------------------------------------------------------ checkpoint seams
+    def checkpoint_write_error(self, step: int) -> bool:
+        """True exactly once for a step planned to fail its checkpoint
+        write (the manager raises ``OSError``; its retry succeeds)."""
+        if step in self._ckpt_fail_pending:
+            self._ckpt_fail_pending.discard(step)
+            return True
+        return False
+
+    def corrupt_checkpoint(self, step: int, directory: str) -> bool:
+        """After the checkpoint of ``step`` is finished: flip 64 bytes in
+        the middle of its model archive if planned, so its manifest
+        checksum no longer matches. True when it did."""
+        if step not in self._ckpt_corrupt_pending:
+            return False
+        self._ckpt_corrupt_pending.discard(step)
+        target = os.path.join(directory, "model.zip")
+        if not os.path.exists(target):
+            return False
+        size = os.path.getsize(target)
+        with open(target, "r+b") as f:
+            f.seek(size // 2)
+            chunk = f.read(64)
+            f.seek(size // 2)
+            f.write(bytes(b ^ 0xFF for b in chunk))
+        return True
+
+    # ------------------------------------------------------ preemption seam
+    def preemption_signal(self):
+        """A StepPreemption for the planned preemption, or None."""
+        if self.preempt_at_step is None:
+            return None
+        from deeplearning4j_tpu_torch.train.resilience import StepPreemption
+        return StepPreemption(self.preempt_at_step)
 
     @classmethod
     def seeded_serving(cls, seed: int, horizon: int, n_fail: int = 1,
@@ -162,11 +289,76 @@ class FaultPlan:
 
     def __repr__(self):
         return (f"FaultPlan(seed={self.seed}, "
+                f"nan={sorted(self.nan_grads_at)}, "
+                f"data={sorted(self.data_error_at)}"
+                f"{' transient' if self.data_error_transient else ' permanent'}, "
+                f"ckpt_fail={sorted(self.checkpoint_write_fail_at)}, "
+                f"ckpt_corrupt={sorted(self.checkpoint_corrupt_at)}, "
+                f"preempt={self.preempt_at_step}, "
                 f"hung={sorted(self.hung_dispatch_at)}, "
                 f"slow={sorted(self.slow_replica_at)}, "
                 f"serve_fail={sorted(self.serve_fail_at)}, "
                 f"serve_loss={self.serve_device_loss_at_batch}:"
                 f"{sorted(self.lose_devices)})")
+
+
+def _nan_like(a):
+    """A float32 array (or tensor) of ``a``'s shape, all NaN: uint8 image
+    bytes cannot hold one, so a poisoned batch is float, as in the JAX
+    package."""
+    if isinstance(a, torch.Tensor):
+        return torch.full(a.shape, float("nan"), dtype=torch.float32,
+                          device=a.device)
+    return np.full(np.shape(a), np.nan, np.float32)
+
+
+def _poison(ds):
+    """A NaN-poisoned copy of a batch: features NaN, labels and masks
+    kept, so the step's loss and gradients go non-finite through the
+    device."""
+    if isinstance(ds, MultiDataSet):
+        out = MultiDataSet.__new__(MultiDataSet)
+        out.features = [_nan_like(a) for a in ds.features]
+        out.labels = list(ds.labels)
+        out.features_masks = ds.features_masks
+        out.labels_masks = ds.labels_masks
+        return out
+    out = DataSet.__new__(DataSet)
+    out.features = _nan_like(ds.features)
+    out.labels = ds.labels
+    out.features_mask = ds.features_mask
+    out.labels_mask = ds.labels_mask
+    return out
+
+
+class _FaultInjectionIterator(DataSetIterator):
+    """A DataSetIterator wrapper running a FaultPlan's data faults: the
+    planned iterator errors (the base not advanced, so a retry delivers
+    the batch) and the NaN-poisoned batches."""
+
+    def __init__(self, base, plan: FaultPlan):
+        self.base = base
+        self.plan = plan
+
+    def hasNext(self) -> bool:
+        return self.base.hasNext()
+
+    def next(self):
+        poison = self.plan._on_pull()          # may raise the planned error
+        ds = self.base.next()
+        return _poison(ds) if poison else ds
+
+    def reset(self):
+        self.base.reset()
+
+    def batch(self):
+        return self.base.batch()
+
+    def cursor(self):
+        return self.base.cursor()
+
+    def seek(self, cursor):
+        self.base.seek(cursor)
 
 
 # ------------------------------------------------------------ serving load

@@ -29,8 +29,13 @@ train step passes none to its forward; the port's passes it, as the
 sequential network's does.) The graph has no truncated BPTT and no
 ``rnnTimeStep``, in either package.
 
-Not ported yet (ROADMAP.md): dynamic loss scaling, augmentation,
-sharding, resilience, listeners, the compile cache's disk tier, the
+The fit's surroundings are :mod:`.network`'s: listeners, the
+``train.resilience`` session, dynamic loss scaling, and the device
+augmentation, which runs on every 4-D graph input (others pass through,
+as in the JAX graph) and hands the forward fp32, so the uint8 cast above
+does not run again.
+
+Not ported yet (ROADMAP.md): sharding, the compile cache's disk tier, the
 sanitizer.
 """
 
@@ -649,13 +654,8 @@ class ComputationGraph(BaseNetwork):
             raise ser.CorruptModelError(
                 path, "conf.json", f"unparseable configuration ({e})") from e
         net = ComputationGraph(conf).init(device=device)
-
-        def entries():
-            for k in arrays.files:
-                parts = k.split("::")
-                if parts[0] in ("p", "s") and len(parts) == 3:
-                    yield parts[0], parts[1], parts[2], k
-        ser.restore_into(net, path, meta, arrays, entries(), load_updater)
+        ser.restore_into(net, path, meta, arrays,
+                         ser._archive_entries(net, arrays), load_updater)
         return net
 
     def clone(self) -> "ComputationGraph":

@@ -31,8 +31,15 @@ package does: every 3-D batch goes through ``fitTBPTT``, one window a
 dispatch; ``warmup(steps_per_dispatch=K)`` warms the plain K-step
 megastep, as the JAX one does.
 
-Not ported yet (ROADMAP.md): dynamic loss scaling, listeners, resilience,
-sharding, augmentation.
+The fit's surroundings are :mod:`.network`'s (listeners, device
+augmentation, dynamic loss scaling, the ``train.resilience`` session);
+the TBPTT window step scales, tests and drops its update as the plain
+step does, and under a session one batch's windows are one recovery
+unit (the JAX package's: checkpoints land between batches, where no
+recurrent state is carried).
+
+Not ported yet (ROADMAP.md): sharding, frozen layers (``nn/transfer.py``),
+the sanitizer.
 """
 
 from __future__ import annotations
@@ -232,27 +239,24 @@ class MultiLayerNetwork(BaseNetwork):
             return int(self.conf.tbptt_length)
         return None
 
-    def fit(self, data, labels=None, epochs: int = 1,
-            steps_per_dispatch: int = 1, prefetch: int = 2):
-        """As :meth:`BaseNetwork.fit`; under a truncated-BPTT
+    def _fit_epoch(self, data, labels, k: int, prefetch: int,
+                   session=None) -> None:
+        """As :meth:`BaseNetwork._fit_epoch`; under a truncated-BPTT
         configuration each batch of 3-D features goes through
         :meth:`fitTBPTT` (any other batch through the plain step), one
         window a dispatch, and ``steps_per_dispatch`` and ``prefetch`` do
         not apply (JAX multilayer.py:907-913)."""
         length = self._tbptt_length()
         if length is None:
-            return super().fit(data, labels, epochs, steps_per_dispatch,
-                               prefetch)
-        if not self._initialized:
-            self.init()
-        for _ in range(epochs):
-            for ds in _prof.iter_with_data_wait(self._batches(data, labels)):
-                if ds.features.ndim == 3:
-                    self.fitTBPTT(ds, length)
-                else:
-                    self._fit_one(ds)
-            self._epoch += 1
-        return self
+            return super()._fit_epoch(data, labels, k, prefetch, session)
+        batches = self._batches(data, labels, 1, session)
+        if session is not None:
+            batches = session.wrap_batches(batches)
+        for ds in _prof.iter_with_data_wait(batches):
+            if ds.features.ndim == 3:
+                self.fitTBPTT(ds, length)
+            else:
+                self._fit_one(ds)
 
     def fitTBPTT(self, ds, tbptt_length: int):
         """Truncated BPTT (ref: BackpropType.TruncatedBPTT + tBPTTLength):
@@ -260,29 +264,40 @@ class MultiLayerNetwork(BaseNetwork):
         window; the recurrent layers' state carries across windows
         without its gradient. Labels that are not 3-D go whole to every
         window; the feature mask is not used (the JAX package's window
-        step passes ``mask=None``), the label mask is sliced."""
+        step passes ``mask=None``), the label mask is sliced. Under a
+        session the batch's windows are one dispatch for its hooks (one
+        pull, ``ceil(T/L)`` steps)."""
         if not self._initialized:
             self.init()
         length = int(tbptt_length)
         x, y, lmask, _ = self._batch_tensors(ds.features, ds.labels,
                                              ds.labels_mask)
+        res = self._resilience
+        if res is not None:
+            res.before_dispatch()
         carry = self._zero_carry(x)
+        losses = []
         for start in range(0, x.shape[2], length):
             sl = slice(start, start + length)
             out = self._fit_window(
                 x[:, :, sl], y[:, :, sl] if y.dim() == 3 else y,
                 None if lmask is None else lmask[:, sl], carry)
             carry = out[1:]
+            losses.append(out[0])
+        self._last_batch_size = int(x.shape[0])
+        if res is not None:
+            res.after_dispatch(torch.stack(losses), len(losses), pulls=1)
         return self
 
     def _fit_window(self, x, y, lmask, carry):
         """One window's update through its dispatch; returns ``(loss,
-        *new carry)``."""
-        self._ensure_opt_state()
-        self._ensure_clock()
+        *new carry)``. Listeners see ``onIterationStart`` (the JAX window
+        step calls no ``iterationDone``)."""
+        self._ensure_step_state()
         churn.get_churn_detector().record(
             "MultiLayerNetwork.tbptt", churn.array_fingerprint(x, y, lmask),
             owner=self)
+        self._iteration_start()
         out = self._tbptt_for(lmask is not None)(x, y, lmask, *carry)
         stepping.STEPS_PER_DISPATCH.set(1)
         stepping.TRAIN_ITERATIONS.inc()
@@ -293,7 +308,7 @@ class MultiLayerNetwork(BaseNetwork):
     def _tbptt_for(self, masked: bool) -> cc.CachedDispatch:
         """The window step's dispatch for a label-mask signature: eager
         until :meth:`_warm_tbptt` captures it."""
-        key = ("tbptt", masked)
+        key = ("tbptt", masked) + self._step_mode()
         d = self._step_cache.get(key)
         if d is None:
             d = cc.CachedDispatch(self._tbptt_step, "MultiLayerNetwork.tbptt",
@@ -350,7 +365,7 @@ class MultiLayerNetwork(BaseNetwork):
                 cur, _ = layer.apply(p, self._states[i], cur, True,
                                      key.fold(i))
         loss = self.layers[-1].compute_loss(y, cur, mask=lmask)
-        self._apply_loss(loss)
+        _, loss = self._apply_loss(loss)  # the dynamic policy's drop too
         with torch.no_grad():
             self._t_dev.add_(1)
         return (loss.detach(),) + tuple(c.detach() for c in new_carry)
@@ -362,8 +377,7 @@ class MultiLayerNetwork(BaseNetwork):
         if not self._initialized:
             self.init()
         length = int(tbptt_length or self._tbptt_length())
-        self._ensure_opt_state()
-        self._ensure_clock()
+        self._ensure_step_state()
         x, y, lmask, _ = self._batch_tensors(x, y, lmask)
         carry = self._zero_carry(x)
         T = x.shape[2]

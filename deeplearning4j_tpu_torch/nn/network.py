@@ -43,6 +43,27 @@ calling thread). A staged pipeline iterator (``data.pipeline``) whose
 The dispatch and the data wait before it are timed while
 instrumentation is active (``dl4j_train_step_seconds``,
 ``dl4j_train_data_wait_seconds``; ``profiler.data_overlap_ratio``).
+
+Around the step (the JAX package's fit surroundings):
+
+- ``setDeviceAugmentation`` / ``fit(augment=)``: a
+  :class:`~.augment.DeviceAugmentation` runs as the step's prelude on
+  every 4-D input; its ``signature()`` is part of the step-cache key.
+- ``PrecisionPolicy(loss_scale="dynamic")``: ``[scale, good_steps]``
+  (``_scale_state``) is a device tensor of the dispatch state; the step
+  scales the loss, unscales the gradients, tests them all finite in one
+  reduction, keeps or drops every update with ``torch.where`` (no host
+  read) and ticks the automaton (``nn.precision``).
+- The updater's ``_lr_scale``, once a device tensor
+  (:meth:`BaseNetwork._ensure_lr_scale`), is dispatch state too: the
+  ``NanPolicy.BACKOFF_LR`` recovery writes it in place.
+- ``setListeners``/``addListeners``: ``onIterationStart`` and
+  ``iterationDone`` around each step (after a K-step dispatch, once a
+  step, with lazy device losses), ``onEpochEnd`` after each epoch.
+- ``fit(checkpoint=, nan_policy=, faults=)`` runs the epochs under a
+  :class:`~deeplearning4j_tpu_torch.train.resilience.TrainingSession`
+  (``train.resilience``). A fit without them adds no host read and no
+  launch.
 """
 
 from __future__ import annotations
@@ -61,21 +82,25 @@ from deeplearning4j_tpu_torch.data.dataset import (AsyncDataSetIterator,
 from deeplearning4j_tpu_torch.evaluation.evaluation import Evaluation
 from deeplearning4j_tpu_torch.nn import compilecache as cc
 from deeplearning4j_tpu_torch.nn import layers as L
+from deeplearning4j_tpu_torch.nn import precision
+from deeplearning4j_tpu_torch.nn.augment import maybe_augment
 from deeplearning4j_tpu_torch.ops import normalization as norm_ops
-from deeplearning4j_tpu_torch.train import stepping
+from deeplearning4j_tpu_torch.train import resilience, stepping
 from deeplearning4j_tpu_torch.train import updaters as upd
 
 #: batches of predictions held on the device between pulls
 EVAL_PULL_CHUNK = 64
 
 
-def _epoch_of(iterator, steps: int = 1):
-    """One epoch of a DataSetIterator-style object (reset first): whole
-    megabatches from its ``dispatch_stream()`` when
+def _epoch_of(iterator, steps: int = 1, session=None):
+    """One epoch of a DataSetIterator-style object (reset first, unless a
+    resumed session has just sought it): whole megabatches from its
+    ``dispatch_stream()`` when
     :func:`~deeplearning4j_tpu_torch.train.stepping.use_dispatch_stream`
     holds for ``steps``, else its batches."""
-    iterator.reset()
-    if stepping.use_dispatch_stream(iterator, steps):
+    if session is None or not session.consume_skip_reset():
+        iterator.reset()
+    if stepping.use_dispatch_stream(iterator, steps, session):
         yield from iterator.dispatch_stream()
         return
     while iterator.hasNext():
@@ -169,6 +194,11 @@ class BaseNetwork:
         #: ("multi", inputs, outputs, label masks given, steps a dispatch)
         #: -> CachedDispatch
         self._step_cache: Dict[tuple, cc.CachedDispatch] = {}
+        self._listeners: List = []
+        self._augment = None        # DeviceAugmentation
+        self._scale_state: Optional[torch.Tensor] = None  # dynamic scale
+        self._resilience = None     # the fit's TrainingSession
+        self._last_batch_size = 0
 
     def _items(self, tree) -> List[Tuple]:
         return list(tree.items() if isinstance(tree, dict)
@@ -211,6 +241,7 @@ class BaseNetwork:
         self._opt_state = None
         self._iteration = 0
         self._t_dev = None
+        self._scale_state = None
         self._step_cache = {}
 
     def _require_init(self):
@@ -261,30 +292,115 @@ class BaseNetwork:
                                        device=self._device)
         return self._t_dev
 
+    def _ensure_step_state(self) -> None:
+        """Everything a step reads and writes in place exists before the
+        step runs (a tensor made inside a capture would be a copy from
+        the host): the updater state, the clock and, under a dynamic
+        policy, the loss-scale state."""
+        self._ensure_opt_state()
+        self._ensure_clock()
+        if self._dynamic_scaling():
+            self._ensure_scale_state()
+
+    def _dynamic_scaling(self) -> bool:
+        pol = self._precision
+        return pol is not None and pol.is_dynamic
+
+    def _ensure_scale_state(self) -> torch.Tensor:
+        """The device ``[scale, good_steps]`` of dynamic loss scaling (ref
+        ``_ensure_scale_state``), made at the policy's initial scale."""
+        if self._scale_state is None:
+            s = torch.zeros(2, dtype=torch.float32, device=self._device)
+            s[0] = float(self._precision.loss_scale_init)
+            self._scale_state = s
+        return self._scale_state
+
+    def current_loss_scale(self):
+        """The live dynamic loss scale (a host float; reads the device),
+        the static scale, or None when the policy scales nothing."""
+        if self._dynamic_scaling():
+            if self._scale_state is None:
+                return float(self._precision.loss_scale_init)
+            return float(self._scale_state[0])
+        pol = self._precision
+        return pol.loss_scale if pol is not None else None
+
+    def _ensure_lr_scale(self) -> torch.Tensor:
+        """The updater's ``_lr_scale`` as a 0-d fp32 tensor on this
+        network's device (made once, from its current value), so
+        recovery writes it in place and a captured step reads it at
+        replay. The step-cache key changes once, when it is made."""
+        upd_ = self.conf.base.updater
+        s = upd_.__dict__.get("_lr_scale", 1.0)
+        dev = torch.device(self._device)
+        if not isinstance(s, torch.Tensor) or s.device.type != dev.type \
+                or dev.index not in (None, s.device.index):
+            # never rebound once made: a captured step reads its storage,
+            # and the updater's reference is what keeps that alive
+            upd_._lr_scale = torch.full((), float(s), dtype=torch.float32,
+                                        device=self._device)
+        return upd_._lr_scale
+
+    def lr_scale(self) -> float:
+        """The updater's learning-rate scale (1.0 unless
+        ``NanPolicy.BACKOFF_LR`` backed it off); a read of the device
+        once it is a tensor."""
+        return float(self.conf.base.updater.__dict__.get("_lr_scale", 1.0))
+
+    def _set_lr_scale(self, value: float) -> None:
+        """Write the learning-rate scale in place (no new capture)."""
+        with torch.no_grad():
+            self._ensure_lr_scale().fill_(float(value))
+
+    def _step_mode(self) -> tuple:
+        """The part of a step's cache key that is not its arguments: the
+        augmentation's signature and whether the learning-rate scale is a
+        device tensor (empty for a plain step)."""
+        mode = ()
+        if self._augment is not None:
+            mode += (("augment", self._augment.signature()),)
+        if isinstance(self.conf.base.updater.__dict__.get("_lr_scale"),
+                      torch.Tensor):
+            mode += ("lr_scale",)
+        return mode
+
     def _dispatch_state(self) -> List[torch.Tensor]:
         """Every tensor a step writes: params, layer states, updater state
-        and the clock (what warming a captured step must leave as it
-        found it)."""
-        return cc.state_tensors(self._params, self._states, self._opt_state,
-                                self._t_dev)
+        and the clock, and the dynamic loss-scale state and the
+        learning-rate scale where they are tensors (what warming a
+        captured step must leave as it found it)."""
+        lr_scale = self.conf.base.updater.__dict__.get("_lr_scale")
+        return cc.state_tensors(
+            self._params, self._states, self._opt_state, self._t_dev,
+            self._scale_state,
+            lr_scale if isinstance(lr_scale, torch.Tensor) else None)
 
-    def _batches(self, data, labels, steps: int = 1):
+    def _snapshot_tensors(self) -> List[torch.Tensor]:
+        """What a skipped or rolled-back step restores: params, layer
+        states and updater state (not the clock, as in the JAX
+        package)."""
+        return cc.state_tensors(self._params, self._states, self._opt_state)
+
+    def _batches(self, data, labels, steps: int = 1, session=None):
         """One epoch's batches: a DataSet or MultiDataSet, a list of them,
         a DataSetIterator-style object (``reset``/``hasNext``/``next``,
-        reset at each epoch; whole megabatches from a staged pipeline's
-        ``dispatch_stream`` when its ``megabatch_steps`` is ``steps``),
-        or (features, labels) arrays."""
+        reset at each epoch unless a resumed session just sought it;
+        whole megabatches from a staged pipeline's ``dispatch_stream``
+        when its ``megabatch_steps`` is ``steps`` and no session records
+        cursors), or (features, labels) arrays."""
         if isinstance(data, (DataSet, MultiDataSet)):
             return [data]
         if isinstance(data, (list, tuple)) and data \
                 and isinstance(data[0], (DataSet, MultiDataSet)):
             return list(data)
         if hasattr(data, "hasNext"):
-            return _epoch_of(data, steps)
+            return _epoch_of(data, steps, session)
         return [DataSet(data, labels)]
 
     def fit(self, data, labels=None, epochs: int = 1,
-            steps_per_dispatch: int = 1, prefetch: int = 2):
+            steps_per_dispatch: int = 1, prefetch: int = 2,
+            checkpoint=None, nan_policy=None, faults=None, augment=None,
+            precision=None):
         """Train on a DataSet (a MultiDataSet in the graph), a list of
         them, a DataSetIterator-style object, or (features, labels)
         arrays: one update step per batch, ``epochs`` times.
@@ -296,21 +412,78 @@ class BaseNetwork:
         a worker thread and a side stream (``prefetch=0``: synchronously
         on this thread); a staged pipeline iterator whose
         ``megabatch_steps`` is K gives whole megabatches, one copy to the
-        card a dispatch."""
+        card a dispatch.
+
+        ``augment=`` attaches a device augmentation
+        (:meth:`setDeviceAugmentation`), ``precision=`` a precision
+        policy (:meth:`setPrecisionPolicy`), for this fit and later ones.
+        ``checkpoint=CheckpointConfig(...)``, ``nan_policy=NanPolicy...``
+        and ``faults=FaultPlan(...)`` run the fit under a
+        ``train.resilience`` session: periodic atomic checkpoints and
+        resume, recovery from a non-finite loss, preemption at dispatch
+        boundaries (a ``"preempted"`` checkpoint, then a clean return),
+        injected faults."""
         if not self._initialized:
             self.init()
         k = int(steps_per_dispatch)
         if k < 1:
             raise ValueError(f"steps_per_dispatch must be >= 1, got {k}")
-        for _ in range(epochs):
-            batches = self._batches(data, labels, k)
-            if k > 1:
-                stepping.fit_epoch_multistep(self, batches, k, prefetch)
-            else:
-                for ds in _prof.iter_with_data_wait(batches):
-                    self._fit_one(ds)
-            self._epoch += 1
+        if augment is not None:
+            self.setDeviceAugmentation(augment)
+        if precision is not None:
+            self.setPrecisionPolicy(precision)
+        session = None
+        if checkpoint is not None or nan_policy is not None \
+                or faults is not None:
+            session, data = resilience.begin_session(
+                self, data, checkpoint, nan_policy, faults)
+        with resilience.fit_scope(session, self, epochs) as n_epochs:
+            for _ in range(n_epochs):
+                self._fit_epoch(data, labels, k, prefetch, session)
+                self._epoch += 1
+                for lst in self._listeners:
+                    if hasattr(lst, "onEpochEnd"):
+                        lst.onEpochEnd(self)
+                if session is not None:
+                    session.on_epoch_end()
         return self
+
+    def _fit_epoch(self, data, labels, k: int, prefetch: int,
+                   session=None) -> None:
+        """One epoch of ``fit``: the batches (through the session, which
+        records the iterator's cursor at each pull), K steps a dispatch
+        for K > 1."""
+        batches = self._batches(data, labels, k, session)
+        if session is not None:
+            batches = session.wrap_batches(batches)
+        if k > 1:
+            stepping.fit_epoch_multistep(self, batches, k, prefetch)
+        else:
+            for ds in _prof.iter_with_data_wait(batches):
+                self._fit_one(ds)
+
+    # ------------------------------------------------------ listeners
+    def setListeners(self, *listeners):
+        """ref: setListeners — replaces the training listeners."""
+        self._listeners = list(listeners)
+        return self
+
+    def addListeners(self, *listeners):
+        self._listeners.extend(listeners)
+        return self
+
+    def getListeners(self) -> List:
+        return list(self._listeners)
+
+    def _iteration_start(self) -> None:
+        for lst in self._listeners:
+            if hasattr(lst, "onIterationStart"):
+                lst.onIterationStart(self, self._iteration + 1)
+
+    def _iteration_done(self) -> None:
+        for lst in self._listeners:
+            if hasattr(lst, "iterationDone"):
+                lst.iterationDone(self, self._iteration, self._epoch)
 
     def _step_for(self, masked: bool, steps: int = 1,
                   fmasked: bool = False) -> cc.CachedDispatch:
@@ -321,7 +494,7 @@ class BaseNetwork:
         return self._dispatch_for((fmasked, masked), steps)
 
     def _dispatch_for(self, sig: tuple, steps: int) -> cc.CachedDispatch:
-        key = sig + (steps,)
+        key = sig + (steps,) + self._step_mode()
         d = self._step_cache.get(key)
         if d is None:
             name = type(self).__name__
@@ -380,13 +553,17 @@ class BaseNetwork:
 
     def _fit_one(self, ds):
         """One step on one DataSet (or MultiDataSet); returns its loss (a
-        device scalar)."""
-        self._ensure_opt_state()
-        self._ensure_clock()
+        device scalar). The listeners' hooks and the session's run around
+        it."""
+        self._ensure_step_state()
         sig, args = self._step_args(ds, isinstance(ds, MultiDataSet))
         churn.get_churn_detector().record(
             f"{type(self).__name__}.fit", self._fingerprint(sig, args),
             owner=self)
+        res = self._resilience
+        if res is not None:
+            res.before_step()
+        self._iteration_start()
         with _prof.timed_region(
                 "train:step", "dl4j_train_step_seconds",
                 "Train-step dispatch time per iteration",
@@ -397,24 +574,30 @@ class BaseNetwork:
         # kept on the device; score() converts lazily
         self._score = loss
         self._iteration += 1
+        self._last_batch_size = int(args[0].shape[0])
+        self._iteration_done()
+        if res is not None:
+            res.after_step()
         return loss
 
     def _fit_mega(self, mb: stepping.MegaBatch):
         """K stacked batches through one K-step dispatch; returns the K
         losses as one device vector (ref ``_fit_mega``)."""
-        self._ensure_opt_state()
-        self._ensure_clock()
+        self._ensure_step_state()
         k = mb.steps
         sig, args = self._step_args(mb, mb.multi)
         churn.get_churn_detector().record(
             f"{type(self).__name__}.megastep", self._fingerprint(sig, args),
             owner=self)
+        res = self._resilience
+        if res is not None:
+            res.before_dispatch()
         with _prof.timed_region(
                 "train:megastep", "dl4j_train_step_seconds",
                 "Train-step dispatch time per iteration",
                 iteration=self._iteration + 1, steps=k):
             losses = self._dispatch_for(sig, k)(*args)
-        stepping.record_megastep(self, losses, k)
+        stepping.record_megastep(self, losses, k, int(args[0].shape[1]))
         return losses
 
     def _warm_dispatch(self, x, y, lmask=None, steps: int = 1, fmask=None):
@@ -422,8 +605,7 @@ class BaseNetwork:
         arrays) for this signature without changing any state."""
         if not self._initialized:
             self.init()
-        self._ensure_opt_state()
-        self._ensure_clock()
+        self._ensure_step_state()
         x, y, lmask, fmask = self._batch_tensors(x, y, lmask, fmask)
         self._step_for(lmask is not None, steps, fmask is not None).warm(
             x, y, lmask, fmask)
@@ -436,46 +618,83 @@ class BaseNetwork:
         ins, labels, masks = self._pack(x, y, lmask, True)
         return self._step_on(ins, labels, masks, fmask)
 
+    def _augment_ins(self, ins):
+        """The augmentation prelude on the packed inputs (a tensor, or the
+        graph's dict of them): every 4-D input, at the device clock."""
+        aug = self._augment
+        if aug is None:
+            return ins
+        if isinstance(ins, dict):
+            return {k: maybe_augment(aug, v, self._t_dev)
+                    for k, v in ins.items()}
+        return maybe_augment(aug, ins, self._t_dev)
+
     def _step_on(self, ins, labels, masks, fmask=None):
-        """The step on packed inputs (``_pack``'s form)."""
+        """The step on packed inputs (``_pack``'s form): the augmentation
+        prelude, the loss, the update and the layer states (kept only
+        where a dynamic policy's gradients were finite), the clock."""
         key = norm_ops.StepKey(self.conf.base.seed, self._t_dev)
+        ins = self._augment_ins(ins)
         loss, new_states = self._loss_and_reg(
             self._params, self._states, ins, labels, True, masks, key,
             fmask=fmask)
-        self._apply_loss(loss)
+        ok, loss = self._apply_loss(loss)
         with torch.no_grad():
             for n, s in self._items(new_states):
                 cur = self._states[n]
                 for k, v in (s or {}).items():
                     if v is not cur[k]:
-                        cur[k].copy_(v)
+                        cur[k].copy_(v if ok is None
+                                     else torch.where(ok, v, cur[k]))
             self._t_dev.add_(1)
         return loss.detach()
 
-    def _apply_loss(self, loss) -> None:
-        """The backward of ``loss`` (under the policy's static loss scale)
-        and the update of every param and its updater state, in place."""
+    def _apply_loss(self, loss):
+        """The backward of ``loss`` under the policy's loss scale and the
+        update of every param and its updater state, in place. Under a
+        dynamic policy the gradients are unscaled by the live scale, the
+        update is kept only if they are all finite, and the automaton
+        ticks. Returns ``(ok, loss)``: that device flag (None otherwise)
+        and the loss to report, which under a dynamic policy is the
+        scaled loss unscaled (infinite where the scaled loss overflowed),
+        as in the JAX step."""
         pol = self._precision
-        loss_scale = pol.loss_scale if pol is not None else None
+        dynamic = pol is not None and pol.is_dynamic
         names = [(n, k) for n, p in self._items(self._params) for k in p]
         leaves = [self._params[n][k] for n, k in names]
-        scaled = loss * loss_scale if loss_scale else loss
+        if dynamic:
+            scale_state = self._ensure_scale_state()
+            loss_scale = scale_state[0]
+        else:
+            loss_scale = pol.loss_scale if pol is not None else None
+        scaled = loss * loss_scale if loss_scale is not None else loss
         # a folded conv bias takes no part in the train-mode loss (it
         # cancels against the batch mean): its gradient is zero
         grads = torch.autograd.grad(scaled, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
-        if loss_scale:
+        ok = None
+        if loss_scale is not None:
             inv = 1.0 / loss_scale
             grads = [g * inv for g in grads]
-        self._process_and_apply_grads(names, leaves, grads)
+        if dynamic:
+            ok = precision.grads_all_finite(grads)
+            loss = scaled * inv
+        self._process_and_apply_grads(names, leaves, grads, ok)
+        if dynamic:
+            with torch.no_grad():
+                scale_state.copy_(precision.dynamic_scale_next(
+                    pol, scale_state, ok))
+        return ok, loss
 
-    def _process_and_apply_grads(self, names, leaves, grads):
+    def _process_and_apply_grads(self, names, leaves, grads, ok=None):
         """Gradient normalization, then the updater per leaf, with AdamW's
         decoupled decay on the weights (leaf names ``W*``, ``RW*``; a
         wrapper's ``fwd/W`` too) as the reference gates it (JAX
         multilayer.py:139-145); the fp32 master params and the updater
-        state are updated in place."""
+        state are updated in place, or, given the device flag ``ok``,
+        keep their old values where it is False (ref
+        ``_select_update``)."""
         base = self.conf.base
         updater = base.updater
         if base.grad_norm == "clip_value":
@@ -495,9 +714,14 @@ class BaseNetwork:
                 u, s2 = updater.apply(g, state, lr, t)
                 if decay and k.rsplit("/", 1)[-1].startswith(("W", "RW")):
                     u = u + updater.weight_decay_update(p, lr)
-                p.sub_(u)
-                for sk, sv in s2.items():
-                    state[sk].copy_(sv)
+                if ok is None:
+                    p.sub_(u)
+                    for sk, sv in s2.items():
+                        state[sk].copy_(sv)
+                else:
+                    p.copy_(torch.where(ok, p - u, p))
+                    for sk, sv in s2.items():
+                        state[sk].copy_(torch.where(ok, sv, state[sk]))
 
     def score(self, ds: DataSet = None) -> float:
         """The last fit step's loss, or the loss on ``ds`` (inference
@@ -585,14 +809,28 @@ class BaseNetwork:
     def setPrecisionPolicy(self, policy):
         """Attach (or detach with ``None``) a ``PrecisionPolicy`` or a
         dtype string such as ``"bf16"``: fp32 master params, the compute
-        dtype in conv/dense layers, an optional static loss scale."""
-        from deeplearning4j_tpu_torch.nn.precision import (PrecisionPolicy,
-                                                           runtime_check)
-        policy = PrecisionPolicy.coerce(policy)
+        dtype in conv/dense layers, an optional static or dynamic loss
+        scale. A policy with another ``signature()`` drops the captured
+        steps and restarts a dynamic scale at its initial value; an equal
+        one keeps them."""
+        policy = precision.PrecisionPolicy.coerce(policy)
         if policy is not None:
-            runtime_check(policy)
+            precision.runtime_check(policy)
+        cur = self._precision
+        if (policy.signature() if policy is not None else None) != \
+                (cur.signature() if cur is not None else None):
+            self._step_cache = {}
+            self._scale_state = None
         self._precision = policy
-        self._step_cache = {}
+        return self
+
+    def setDeviceAugmentation(self, augment):
+        """Attach (or detach with ``None``) a
+        :class:`~deeplearning4j_tpu_torch.nn.augment.DeviceAugmentation`:
+        the chain runs inside the train step on the uint8 (or float)
+        images, eager or captured; its ``signature()`` is part of the
+        step-cache key, so an equal chain reuses the captured step."""
+        self._augment = augment
         return self
 
     # ------------------------------------------------------------ param views

@@ -5,8 +5,15 @@ A policy declares ``(compute, params, loss_scale)``. Conv and dense
 layers run in ``compute``; master params, updater state, BatchNorm
 statistics and the loss head stay fp32 (``nn.layers.policy_cast``). A
 static ``loss_scale`` multiplies the loss before the backward pass and
-divides the gradients straight back out. Dynamic loss scaling is not
-ported yet.
+divides the gradients straight back out. ``loss_scale="dynamic"`` is the
+grow/backoff automaton (the fp16 recipe): the scale starts at
+``loss_scale_init``; a step whose unscaled gradients are not all finite
+drops its update and multiplies the scale by ``backoff_factor``
+(floored at ``min_loss_scale``); ``growth_interval`` clean steps in a
+row multiply it by ``growth_factor`` (capped at ``max_loss_scale``).
+The networks keep ``[scale, good_steps]`` as a device tensor of their
+dispatch state and tick it inside the step (``nn.network``), so a
+captured step carries it without a host read.
 """
 
 from __future__ import annotations
@@ -39,26 +46,56 @@ def normalize_dtype(name) -> str:
 
 class PrecisionPolicy:
     """``compute`` is the dtype conv/dense layers run in, ``params`` the
-    master-weight (and updater-state) dtype, ``loss_scale`` None or a
-    static positive float. ``PrecisionPolicy("bfloat16")`` is bf16
-    compute with fp32 masters and no scale."""
+    master-weight (and updater-state) dtype, ``loss_scale`` None, a
+    static positive float, or ``"dynamic"`` with its automaton's knobs.
+    ``PrecisionPolicy("bfloat16")`` is bf16 compute with fp32 masters and
+    no scale."""
 
-    __slots__ = ("compute", "params", "loss_scale")
+    __slots__ = ("compute", "params", "loss_scale", "loss_scale_init",
+                 "growth_interval", "growth_factor", "backoff_factor",
+                 "min_loss_scale", "max_loss_scale")
+
+    DYNAMIC = "dynamic"
 
     def __init__(self, compute: str = "float32", params: str = "float32",
-                 loss_scale=None):
+                 loss_scale=None, loss_scale_init: float = 2.0 ** 15,
+                 growth_interval: int = 2000, growth_factor: float = 2.0,
+                 backoff_factor: float = 0.5,
+                 min_loss_scale: float = 2.0 ** -14,
+                 max_loss_scale: float = 2.0 ** 24):
         self.compute = normalize_dtype(compute)
         self.params = normalize_dtype(params)
         if isinstance(loss_scale, str):
-            raise NotImplementedError(
-                f"loss_scale={loss_scale!r}: dynamic loss scaling is not "
-                "ported yet; pass a static float or None")
-        if loss_scale is not None:
+            if loss_scale.strip().lower() != self.DYNAMIC:
+                raise ValueError(
+                    f"loss_scale={loss_scale!r}: the only string value is "
+                    f"'{self.DYNAMIC}' (or pass a static float)")
+            loss_scale = self.DYNAMIC
+        elif loss_scale is not None:
             loss_scale = float(loss_scale)
             if loss_scale <= 0:
                 raise ValueError(
                     f"loss_scale must be positive, got {loss_scale}")
         self.loss_scale = loss_scale
+        self.loss_scale_init = float(loss_scale_init)
+        self.growth_interval = int(growth_interval)
+        self.growth_factor = float(growth_factor)
+        self.backoff_factor = float(backoff_factor)
+        self.min_loss_scale = float(min_loss_scale)
+        self.max_loss_scale = float(max_loss_scale)
+        if self.is_dynamic and (
+                self.loss_scale_init <= 0 or self.growth_factor <= 1.0
+                or not 0.0 < self.backoff_factor < 1.0
+                or self.growth_interval < 1):
+            raise ValueError(
+                "dynamic loss scaling needs loss_scale_init > 0, "
+                "growth_factor > 1, 0 < backoff_factor < 1, and "
+                "growth_interval >= 1")
+
+    @property
+    def is_dynamic(self) -> bool:
+        """True when ``loss_scale="dynamic"``."""
+        return self.loss_scale == self.DYNAMIC
 
     @staticmethod
     def coerce(value) -> Optional["PrecisionPolicy"]:
@@ -76,8 +113,37 @@ class PrecisionPolicy:
                         "or a {'compute': ..., 'params': ...} dict)")
 
     def signature(self):
-        """Hashable identity of the policy."""
+        """Hashable identity of the policy (the automaton's knobs join it
+        when the policy is dynamic)."""
+        if self.is_dynamic:
+            return (self.compute, self.params, self.loss_scale,
+                    self.loss_scale_init, self.growth_interval,
+                    self.growth_factor, self.backoff_factor,
+                    self.min_loss_scale, self.max_loss_scale)
         return (self.compute, self.params, self.loss_scale)
+
+    def to_config(self):
+        out = {"compute": self.compute, "params": self.params,
+               "loss_scale": self.loss_scale}
+        if self.is_dynamic:
+            out.update(loss_scale_init=self.loss_scale_init,
+                       growth_interval=self.growth_interval,
+                       growth_factor=self.growth_factor,
+                       backoff_factor=self.backoff_factor,
+                       min_loss_scale=self.min_loss_scale,
+                       max_loss_scale=self.max_loss_scale)
+        return out
+
+    @staticmethod
+    def from_config(d):
+        return PrecisionPolicy(**d)
+
+    def __eq__(self, other):
+        return isinstance(other, PrecisionPolicy) \
+            and self.signature() == other.signature()
+
+    def __hash__(self):
+        return hash(self.signature())
 
     def compute_torch(self) -> Optional[torch.dtype]:
         """The torch compute dtype for ``nn.layers.policy_cast`` (the JAX
@@ -100,3 +166,31 @@ def runtime_check(policy: PrecisionPolicy) -> PrecisionPolicy:
             "keeps fp32 master params; declare params='float32' (the "
             f"compute dtype may still be {policy.compute!r}).")
     return policy
+
+
+def grads_all_finite(grads) -> torch.Tensor:
+    """0-d bool on the device: every gradient is finite (ref
+    ``_grads_all_finite``). One reduction over all of them: each leaf's
+    max |g| (a NaN anywhere stays NaN), stacked and tested at once."""
+    norms = torch._foreach_norm(list(grads), float("inf"))
+    return torch.isfinite(torch.stack([n.float() for n in norms])).all()
+
+
+def dynamic_scale_next(pol: PrecisionPolicy, scale_state: torch.Tensor,
+                       ok: torch.Tensor) -> torch.Tensor:
+    """One tick of the grow/backoff automaton on ``[scale, good_steps]``
+    (ref ``_dynamic_scale_next``), tensor ops only: a clean step counts
+    one more good step and grows the scale by ``growth_factor`` (capped)
+    once ``growth_interval`` are reached, resetting the count; an
+    overflow backs the scale off (floored) and resets the count."""
+    scale = scale_state[0]
+    good = scale_state[1] + 1.0
+    grew = good >= float(pol.growth_interval)
+    grown = torch.where(
+        grew, torch.clamp(scale * float(pol.growth_factor),
+                          max=float(pol.max_loss_scale)), scale)
+    new_scale = torch.where(
+        ok, grown, torch.clamp(scale * float(pol.backoff_factor),
+                               min=float(pol.min_loss_scale)))
+    new_good = torch.where(ok & ~grew, good, torch.zeros_like(good))
+    return torch.stack([new_scale, new_good])

@@ -156,11 +156,11 @@ class StepKey:
         return f"StepKey(seed={self.seed}, t={self.t}, path={self.path})"
 
 
-def dropout_mask(key: StepKey, shape, keep: float, device) -> torch.Tensor:
-    """Boolean keep-mask of ``shape``: True with probability ``keep`` (to
-    2^-24), drawn from ``key`` alone (see above). Two hash rounds over
-    the element index, keyed by words of (seed, path) and of t; the top 24
-    bits of the hash are compared with ``keep * 2^24``."""
+def hash24(key: StepKey, n: int, device) -> torch.Tensor:
+    """``n`` int64 values in ``[0, 2^24)``, a function of ``key`` alone: two
+    hash rounds over the element index, keyed by words of (seed, path)
+    and of t (the draws behind :func:`dropout_mask` and the device
+    augmentation's)."""
     base = _mix32(key.seed & _M32)
     for p in key.path:
         base = _mix32(base ^ _mix32((p + 0x9E3779B9) & _M32))
@@ -171,12 +171,19 @@ def dropout_mask(key: StepKey, shape, keep: float, device) -> torch.Tensor:
         t = torch.full((), int(t), dtype=torch.int64, device=device)
     k1 = _mix32((t & _M32) ^ base)
     k2 = _mix32(k1 ^ 0x5BD1E995)
+    idx = torch.arange(int(n), dtype=torch.int64, device=device)
+    return _mix32(_mix32(idx ^ k1) ^ k2) >> 8
+
+
+def dropout_mask(key: StepKey, shape, keep: float, device) -> torch.Tensor:
+    """Boolean keep-mask of ``shape``: True with probability ``keep`` (to
+    2^-24), drawn from ``key`` alone (see above): the :func:`hash24` of
+    each element compared with ``keep * 2^24``."""
     n = 1
     for s in shape:
         n *= int(s)
-    idx = torch.arange(n, dtype=torch.int64, device=device)
-    h = _mix32(_mix32(idx ^ k1) ^ k2)
-    return ((h >> 8) < int(round(keep * (1 << 24)))).reshape(tuple(shape))
+    h = hash24(key, n, device)
+    return (h < int(round(keep * (1 << 24)))).reshape(tuple(shape))
 
 
 def dropout(x, rate: float, key: Optional[StepKey], *, train: bool = True):

@@ -191,6 +191,67 @@ def restore_into(net, path: str, meta, arrays, entries,
                 net._opt_state[n][k][sk].copy_(torch.from_numpy(np.array(a)))
 
 
+def _archive_entries(net, arrays):
+    """``(kind, layer key, name, array name)`` of an archive's params
+    (``p``) and states (``s``), spelled as ``net``'s class writes them
+    (``p0::W`` in the sequential network, ``p::node::W`` in the graph)."""
+    graph = isinstance(net._params, dict)
+    for k in arrays.files:
+        if graph:
+            parts = k.split("::")
+            if parts[0] in ("p", "s") and len(parts) == 3:
+                yield parts[0], parts[1], parts[2], k
+        else:
+            kind, _, name = k.partition("::")
+            if kind[:1] in ("p", "s") and kind[1:].isdigit():
+                yield kind[:1], int(kind[1:]), name, k
+
+
+def load_into(net, path: str, load_updater: bool = True) -> dict:
+    """Copy an archive of either package into ``net``'s own tensors: every
+    param, layer state and (if saved and asked) updater-state tensor, in
+    place, so their storage and any captured step over it stay valid;
+    then the step and epoch counters and the device clock. The archive
+    must be of this network (each entry names one of its tensors, and
+    each of its params is in the archive). Returns the archive's meta."""
+    _conf_json, meta, arrays = read_model_zip(path)
+    seen = set()
+    with torch.no_grad():
+        for kind, n, name, key in _archive_entries(net, arrays):
+            tree = net._params if kind == "p" else net._states
+            try:
+                dst = tree[n][name]
+            except (KeyError, IndexError, TypeError):
+                raise CorruptModelError(
+                    path, f"arrays.npz::{key}",
+                    "names no tensor of this network") from None
+            src = torch.from_numpy(np.array(arrays[key]))
+            if tuple(src.shape) != tuple(dst.shape):
+                raise CorruptModelError(
+                    path, f"arrays.npz::{key}",
+                    f"shape {tuple(src.shape)}, the network's "
+                    f"{tuple(dst.shape)}")
+            dst.copy_(src)
+            if kind == "p":
+                seen.add((n, name))
+    missing = [f"{n}/{k}" for n, k in net._leaf_keys() if (n, k) not in seen]
+    if missing:
+        raise CorruptModelError(path, "arrays.npz",
+                                f"no entry for params {missing[:4]}")
+    net._iteration = int(meta["iteration"])
+    net._epoch = int(meta["epoch"])
+    if net._t_dev is not None:
+        with torch.no_grad():
+            net._t_dev.fill_(net._iteration)
+    if load_updater and meta.get("save_updater"):
+        net._ensure_opt_state()
+        with torch.no_grad():
+            for j, (n, k, sk) in enumerate(updater_leaves(net)):
+                a = require_array(arrays, f"u::{j}", path)
+                net._opt_state[n][k][sk].copy_(torch.from_numpy(np.array(a)))
+    return meta
+
+
 class ModelSerializer:
     """ref: ModelSerializer — ``writeModel``, ``restoreMultiLayerNetwork``,
     ``writeNormalizer`` and ``restoreNormalizer``."""
@@ -216,13 +277,8 @@ class ModelSerializer:
             raise CorruptModelError(path, "conf.json",
                                     f"unparseable configuration ({e})") from e
         net = MultiLayerNetwork(conf).init(device=device)
-
-        def entries():
-            for k in arrays.files:
-                kind, _, name = k.partition("::")
-                if kind[:1] in ("p", "s") and kind[1:].isdigit():
-                    yield kind[:1], int(kind[1:]), name, k
-        restore_into(net, path, meta, arrays, entries(), load_updater)
+        restore_into(net, path, meta, arrays, _archive_entries(net, arrays),
+                     load_updater)
         return net
 
     # normalizer (ref: NormalizerSerializer)

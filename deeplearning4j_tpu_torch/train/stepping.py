@@ -26,10 +26,14 @@ per step.
   from a staged pipeline iterator (``dispatch_stream()``: one contiguous
   ``[K, B, ...]`` copy a dispatch instead of K batches and a stack).
 
+- :func:`record_megastep` — the bookkeeping after a K-step dispatch:
+  the iteration count, the listeners (once a step, each step's loss a
+  lazy device slice) and the resilience session's ``after_dispatch``.
+
 MultiDataSet batches group and stack as DataSets do (``MegaBatch.multi``).
-Not ported: listeners, the sanitizer and resilience hooks, sharded
-staging (``stage_batch``, ``batch_placement``) and the elastic fence
-(``dispatch_commit``).
+Not ported: the sanitizer hooks, sharded staging (``stage_batch``,
+``batch_placement``), the elastic fence (``dispatch_commit``) and
+``apply_tuned_plan`` (``tune/``).
 """
 
 from __future__ import annotations
@@ -161,25 +165,48 @@ def scan_megastep(body):
     return megastep
 
 
-def use_dispatch_stream(data, steps: int) -> bool:
+def use_dispatch_stream(data, steps: int, session=None) -> bool:
     """True when a fit can pull native megabatches from a staged pipeline
     iterator: K matches the iterator's declared staging
-    (``megabatch_steps``) and no per-batch preprocessor is set (those run
-    on the per-batch path)."""
-    return (steps > 1
+    (``megabatch_steps``), no resilience session (it records a cursor
+    per pulled batch, which a K-batch pull would make dispatch-grained)
+    and no per-batch preprocessor is set (those run on the per-batch
+    path)."""
+    return (steps > 1 and session is None
             and getattr(data, "megabatch_steps", 1) == steps
             and hasattr(data, "dispatch_stream")
             and getattr(data, "_pre", None) is None)
 
 
-def record_megastep(model, losses, steps: int) -> None:
+def record_megastep(model, losses, steps: int,
+                    batch_size: int = None) -> None:
     """Bookkeeping after a K-step dispatch (both network classes): the
     iteration count and the score, which stays a lazy device slice until
-    ``score()`` reads it."""
+    ``score()`` reads it; then each step's listener calls, after the
+    dispatch, each ``losses[j]`` a lazy slice unless a listener reads
+    ``score()`` (a listener that reads the model at iteration N sees the
+    state at the end of the dispatch); then the session's
+    ``after_dispatch`` (recovery, checkpoints and preemption act at
+    dispatch boundaries)."""
     STEPS_PER_DISPATCH.set(steps)
     TRAIN_ITERATIONS.inc(steps)
-    model._iteration += steps
-    model._score = losses[steps - 1]
+    if batch_size is not None:
+        model._last_batch_size = batch_size
+    listeners = model._listeners
+    if not listeners:
+        model._iteration += steps
+        model._score = losses[steps - 1]
+    else:
+        for j in range(steps):
+            model._score = losses[j]
+            model._iteration += 1
+            for lst in listeners:
+                if hasattr(lst, "onIterationStart"):
+                    lst.onIterationStart(model, model._iteration)
+                if hasattr(lst, "iterationDone"):
+                    lst.iterationDone(model, model._iteration, model._epoch)
+    if model._resilience is not None:
+        model._resilience.after_dispatch(losses, steps)
 
 
 def fit_epoch_multistep(model, batches: Iterable, steps: int,

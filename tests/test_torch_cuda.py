@@ -698,3 +698,123 @@ def test_imported_graph_def_on_the_card_equals_the_cpu(dev, tmp_path):
         {"input_ids": ids}, ["logits"])
     torch.testing.assert_close(got["logits"].cpu(), want["logits"],
                                rtol=1e-4, atol=1e-5)
+
+
+# ------------------------------------------------- a long run's surroundings
+def _small_mlp(updater=None):
+    conf = (NeuralNetConfiguration.Builder().seed(3)
+            .updater(updater or Adam(1e-2)).list()
+            .layer(tlayers.DenseLayer(nOut=16, activation="relu"))
+            .layer(tlayers.OutputLayer(nOut=3, lossFunction="mcxent",
+                                       activation="softmax"))
+            .setInputType(InputType.feedForward(8)).build())
+    return MultiLayerNetwork(conf).init()
+
+
+def _list_iterator(dev, n=40, b=4):
+    from deeplearning4j_tpu_torch.data.dataset import ListDataSetIterator
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((n, 8)).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[rng.integers(0, 3, n)]
+    return ListDataSetIterator(DataSet(x, y), b)
+
+
+def test_a_restore_keeps_the_storage_and_captures_nothing_again(dev,
+                                                                 tmp_path):
+    from deeplearning4j_tpu_torch.faults import FaultPlan
+    from deeplearning4j_tpu_torch.train import resilience as res
+    net = _small_mlp()
+    cfg = res.CheckpointConfig(str(tmp_path), every_steps=4, keep_last=5)
+    cc.reset_stats()
+    net.fit(_list_iterator(dev), steps_per_dispatch=2, checkpoint=cfg)
+    ptrs = [t.data_ptr() for t in net._dispatch_state()]
+    saved = [t.detach().clone() for t in net._dispatch_state()]
+    res.CheckpointManager(cfg).save(net)
+    captures = cc.cache_stats()["compile_seconds"]["cold_compiles"]
+    net.fit(_list_iterator(dev), steps_per_dispatch=2, checkpoint=cfg,
+            nan_policy=res.NanPolicy.ROLLBACK,
+            faults=FaultPlan(nan_grads_at=[2]))
+    res.CheckpointManager(cfg).restore(net, step=10)
+    assert [t.data_ptr() for t in net._dispatch_state()] == ptrs
+    for a, b in zip(net._dispatch_state(), saved):
+        assert torch.equal(a, b)
+    stats = cc.cache_stats()
+    assert stats["capture_failures"] == 0
+    assert stats["compile_seconds"]["cold_compiles"] == captures
+
+
+def test_backoff_lr_replays_the_same_graph(dev):
+    from deeplearning4j_tpu_torch.faults import FaultPlan
+    from deeplearning4j_tpu_torch.train import resilience as res
+    from deeplearning4j_tpu_torch.train.updaters import Sgd
+    net = _small_mlp(Sgd(0.1))
+    cc.reset_stats()
+    net.fit(_list_iterator(dev), steps_per_dispatch=2,
+            nan_policy=res.NanRecovery(res.NanPolicy.BACKOFF_LR,
+                                       cooldown_steps=100),
+            faults=FaultPlan(nan_grads_at=[5]))
+    scale = net.conf.base.updater._lr_scale
+    ptr = scale.data_ptr()
+    assert scale.is_cuda and float(scale) == 0.5 and net.lr_scale() == 0.5
+    d = net._step_cache[(False, False, 2, "lr_scale")]
+    assert d.captures() == 1
+    # the graph reads the scale in place: half the rate from here on
+    p0 = [t.detach().clone() for t in net._snapshot_tensors()]
+    ref = _small_mlp(Sgd(0.05))
+    with torch.no_grad():
+        for t, v in zip(ref._snapshot_tensors(), p0):
+            t.copy_(v)
+    batches = _list_iterator(dev, n=8)
+    net.fit(batches, steps_per_dispatch=2)
+    ref.fit(batches, steps_per_dispatch=2)
+    assert d.captures() == 1 and scale.data_ptr() == ptr
+    for a, b in zip(net._snapshot_tensors(), ref._snapshot_tensors()):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+    assert cc.cache_stats()["capture_failures"] == 0
+
+
+def test_a_dynamic_scale_megastep_captures(dev):
+    from deeplearning4j_tpu_torch.nn.precision import PrecisionPolicy
+    net = _small_mlp()
+    net.setPrecisionPolicy(PrecisionPolicy(
+        "fp16", loss_scale="dynamic", loss_scale_init=2.0 ** 30,
+        growth_interval=2))
+    rng = np.random.default_rng(2)
+    batches = [DataSet(torch.from_numpy(rng.standard_normal(
+        (4, 8)).astype(np.float32)).to(dev), torch.from_numpy(np.eye(
+            3, dtype=np.float32)[rng.integers(0, 3, 4)]).to(dev))
+        for _ in range(8)]
+    cc.reset_stats()
+    net.fit(batches, steps_per_dispatch=4)
+    stats = cc.cache_stats()
+    assert stats["capture_failures"] == 0
+    assert stats["compile_seconds"]["cold_compiles"] == 1
+    scale = net.current_loss_scale()
+    assert scale < 2.0 ** 30 and np.isfinite(net.score())
+    # the same steps eagerly give the same automaton
+    eager = _small_mlp()
+    eager.setPrecisionPolicy(net._precision)
+    for ds in batches:
+        eager.fit(ds)
+    assert eager.current_loss_scale() == scale
+    assert torch.equal(eager._scale_state, net._scale_state)
+
+
+def test_the_crop_launches_a_fixed_number_of_kernels(dev):
+    from deeplearning4j_tpu_torch.nn.augment import DeviceAugmentation
+    a = DeviceAugmentation(7).crop(32).random_flip()
+    t = torch.tensor(3, dtype=torch.int32, device=dev)
+    counts = []
+    for b in (2, 64):
+        x = torch.randint(0, 256, (b, 3, 256, 256), dtype=torch.uint8,
+                          device=dev)
+        a.apply(x, a.step_key(t))
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            out = a.apply(x, a.step_key(t))
+            torch.cuda.synchronize()
+        assert out.shape == (b, 3, 224, 224) and out.dtype == torch.float32
+        counts.append(sum(e.device_type == torch.autograd.DeviceType.CUDA
+                          for e in prof.events()))
+    assert 0 < counts[0] == counts[1], counts

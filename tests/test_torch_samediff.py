@@ -363,8 +363,11 @@ class TestGraphApi:
         assert jtc.updater.weight_decay == 0.01
         back = TrainingConfig.from_config(jtc.to_config())
         assert back.to_config() == tc.to_config()
-        with pytest.raises(ValueError, match="not ported"):
-            tupd.IUpdater.from_config(jupd.Nesterovs().to_config())
+        # Nesterovs is ported now: it crosses too; an unknown class raises
+        nest = tupd.IUpdater.from_config(jupd.Nesterovs().to_config())
+        assert isinstance(nest, tupd.Nesterovs) and nest.momentum == 0.9
+        with pytest.raises(ValueError, match="unknown updater"):
+            tupd.IUpdater.from_config({"@class": "Lion"})
 
     def test_var_init_needs_a_generator(self):
         sd = self._sd()
