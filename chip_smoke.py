@@ -27,8 +27,9 @@ Phases (each one fails the run with a non-zero exit):
    computes the same function (a yardstick only; the port never calls it);
    layer norm and flash attention at T=128 and T=512 (B=32) and at the
    BertBench train step's B=64, T=128, then both at phase 23's shapes: LN
-   on [4096, 768] fp32 with BERT's eps 1e-12 and flash on q, k, v [32,
-   128, 12, 64] fp32 (the CUDA-core route, beside fp32 SDPA). The BN+leaky
+   on [4096, 768] fp32 with BERT's eps 1e-12 (phase 28's rows too) and
+   flash on q, k, v [32, 128, 12, 64] fp32 (the CUDA-core route, beside
+   fp32 SDPA), and flash at phase 28's [4, 1024, 12, 64] fp32. The BN+leaky
    probe's kernels (``bn_stats``, ``bn_apply_leaky``) at C in {1, 16,
    1024} x M in {1, 7, 4099, 1,000,003, 5,537,792}, fp32 and bf16, and
    with a NaN, then timed at the probe's [16, 5,537,792] bf16 beside
@@ -355,6 +356,28 @@ Phases (each one fails the run with a non-zero exit):
    ``MaxEpochsTerminationCondition(10)`` and ``LocalFileModelSaver``: the
    best model reloaded from its file scores the recorded best score
    exactly, and its accuracy is at least 0.99.
+28. A Keras model enters by import: ``modelimport.keras_fixtures.
+   encoder_h5`` writes a Keras 3 functional full-model ``.h5`` (stock
+   Keras layers in keras.io's Transformer block, post-LN: token and
+   position ``Embedding``s, 12 blocks of ``MultiHeadAttention`` -> ``Add``
+   -> ``LayerNormalization`` -> ``TimeDistributed(Dense(3072, gelu))`` ->
+   ``TimeDistributed(Dense(768))`` -> ``Add`` -> ``LayerNormalization``,
+   ``GlobalAveragePooling1D``, ``Dense(2, softmax)``; BERT-base's widths,
+   108,891,650 fp32 parameters from ``numpy.random.default_rng(0)``) to a
+   temporary directory; ``modelimport.hdf5`` parses it and
+   ``importKerasModelAndWeights`` imports it onto the card as a
+   ``ComputationGraph``. Served through ``ModelServer`` (captured, the
+   position ids made on the card) at T=128, B <= 32: each capture records
+   25 ``layer_norm`` launches and no flash (the JAX gate sends T < 1024
+   to ``dot_product_attention``); 64 requests of 1-8 rows, each resolved
+   once, replaying 25 a forward, launching nothing eagerly, equal to a
+   direct ``output()`` within 1e-4, with ``recompiles_after_warmup()``
+   0; one forward against the plain versions within 1e-4. Then a depth-2
+   copy with 1024 positions, served one unmasked [4, 1024] batch: 2 fp32
+   flash launches on the CUDA-core route and 5 ``layer_norm`` a forward,
+   captured and direct, kernels against plain versions within 1e-4. It
+   prints the file's MB, the parse and import seconds, tokens/s, p50/p99
+   and the captured B=32 replay beside phase 23's path A.
 
 The captured-against-eager rule: where the two eager runs agree to the
 bit on a tensor (and on the params' group: the param and its Adam
@@ -388,7 +411,8 @@ Darknet19 row phase 18's and its YOLO2 row phase 19's eager steps;
 ``from_disk_launches`` and ``from_disk_replays`` are phase 22's capture
 and replays; ``import_launches`` and ``import_train_launches`` are phase
 23's served launches (warmup and replays) and its train steps';
-``long_run_launches`` phase 25's capture), the
+``long_run_launches`` phase 25's capture; ``keras_launches`` phase 28's:
+layer norm's served at T=128 and at T=1024, flash's at T=1024), the
 ``nvidia-smi`` name/power-limit line, and as the last line
 ``{"ok": true, "device": {...}}``. Without a card, or outside a
 checkout, it exits non-zero and prints no result.
@@ -472,6 +496,14 @@ LONG_NAN = 20
 LONG_STOP = 24
 IMAGENET_MEAN = (123.675, 116.28, 103.53)     # 255 * (0.485, 0.456, 0.406)
 IMAGENET_STD = (58.395, 57.12, 57.375)        # 255 * (0.229, 0.224, 0.225)
+#: phase 28: the Keras encoder at BERT-base's widths, 108,891,650
+#: parameters (the encoder's 108,890,112 and a 2-class head), served at
+#: T=128, B <= 32; its depth-2 copy with 1024 positions at [4, 1024]
+KERAS_T = 128
+KERAS_BATCH = 32
+KERAS_PARAMS = 108_891_650
+KERAS_LONG_T = 1024
+KERAS_LONG_B = 4
 #: phase 26: TinyYOLO under fp16 dynamic loss scaling, 8 dispatches of 4
 #: (from 2^24 its first 14 steps overflow on the H100: 12 steps would
 #: show the backoff but no update)
@@ -719,6 +751,25 @@ def main() -> None:
     fa_rows.append(timed_row(
         f"q, k, v [{B}, {T}, {H}, {D}] float32, non-causal (phase 23's "
         "imported BERT-base, the CUDA-core route)", err,
+        lambda: ck.flash_attention_fwd(q, k, v, False),
+        lambda: ck.flash_attention_plain(q, k, v, False),
+        lambda: F.scaled_dot_product_attention(qh, kh, vh),
+        4 * B * T * H * D * 4 + B * H * T * 4, 4 * B * H * T * T * D,
+        FP32_FLOPS))
+    del q, k, v, qh, kh, vh
+    # phase 28's flash: the Keras encoder's depth-2 copy at T=1024, fp32
+    B, T, H, D = KERAS_LONG_B, KERAS_LONG_T, 12, 64
+    q, k, v = (rand(B, T, H, D) for _ in range(3))
+    ck.reset_counts()
+    err = check(f"flash_attention [{B}, {T}, {H}, {D}] float32",
+                ck.flash_attention_fwd(q, k, v, False)[0],
+                ck.flash_attention_plain(q, k, v, False)[0], torch.float32)
+    if ck.FLASH_ROUTES["cuda_core"] != 1:
+        fail(f"fp32 flash at phase 28's shape took {ck.FLASH_ROUTES}")
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    fa_rows.append(timed_row(
+        f"q, k, v [{B}, {T}, {H}, {D}] float32, non-causal (phase 28's "
+        "imported Keras encoder at T=1024, the CUDA-core route)", err,
         lambda: ck.flash_attention_fwd(q, k, v, False),
         lambda: ck.flash_attention_plain(q, k, v, False),
         lambda: F.scaled_dot_product_attention(qh, kh, vh),
@@ -1518,11 +1569,18 @@ def main() -> None:
     early_stopping(smi)
     torch.cuda.empty_cache()
 
+    # ------------------------------ 28. a Keras encoder enters by import
+    keras = keras_encoder(smi, imported["path_a"])
+    torch.cuda.empty_cache()
+
     ln.update(served["layer_norm"])
     fa.update(served["flash_attention"])
     for kr in (ln, fa):
         kr["import_launches"] = imported["served"][kr["name"]]
         kr["import_train_launches"] = imported["train"][kr["name"]]
+    ln["keras_launches"] = keras["served_layer_norm"] \
+        + keras["long_layer_norm"]
+    fa["keras_launches"] = keras["long_flash"]
     ssa["launches"] = fit_launches["scale_shift_act"]
     ssa["other_shapes"][0]["launches"] = yolo_launches["scale_shift_act"]
     ssa["other_shapes"][1]["launches"] = dk_launches
@@ -1539,7 +1597,7 @@ def main() -> None:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "other_shapes", "pair", "from_disk_launches",
             "from_disk_replays", "import_launches", "import_train_launches",
-            "long_run_launches")
+            "long_run_launches", "keras_launches")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{k: kr[k] for k in keys if k in kr}
                                   for kr in (ln, fa, ssa, sm, bn_st, bn_ap)]}))
@@ -3727,7 +3785,7 @@ def import_bert(smi: str) -> dict:
                 fail(f"served and direct logits differ by {worst:.3g}")
             log(f"path A served 64 requests in {n_fwd} captured forwards: "
                 f"replayed {replays}; served vs direct max|diff| {worst:.3g}")
-            log_latency(handles, reqs, wall, smi)
+            path_a = log_latency(handles, reqs, wall, smi)
             x32 = rng.integers(0, cfg.vocab_size, (B, T), dtype=np.int32)
             server._forward_raw(x32)
             ts = []
@@ -3735,7 +3793,7 @@ def import_bert(smi: str) -> dict:
                 t0 = time.perf_counter()
                 server._forward_raw(x32)
                 ts.append((time.perf_counter() - t0) * 1e3)
-            rep_ms = float(np.median(ts))
+            rep_ms = path_a["replay_ms"] = float(np.median(ts))
             log(f"path A B={B}, T={T} forward+head, host batch to host "
                 f"answer, captured replay (median of 10): {rep_ms:.3f} ms, "
                 f"{B * T / (rep_ms / 1e3):.0f} tokens/s [{smi}]")
@@ -3745,12 +3803,7 @@ def import_bert(smi: str) -> dict:
                   for k in ("flash_attention", "layer_norm")}
 
         # the same forward on the plain versions of both kernels
-        registry.register_platform_override(
-            "layer_norm", lambda x, g, b=None, *, axis=-1, eps=1e-5:
-            ck.layer_norm_plain(x, g, b, eps))
-        registry.register_platform_override(
-            "flash_attention", lambda q, k, v, *, mask=None, is_causal=False,
-            block_size=512: ck.flash_attention_plain(q, k, v, is_causal)[0])
+        plain_overrides(registry, ck)
         plain_pooled, plain_logits = classify(torch.from_numpy(ref_ids).to(dev))
         ck.install_platform_overrides()
         dk = max(float((ref_pooled - plain_pooled).abs().max()),
@@ -3902,8 +3955,231 @@ def import_bert(smi: str) -> dict:
         del sd, back
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return {"served": served,
+    return {"served": served, "path_a": path_a,
             "train": {k: train[k] for k in ("flash_attention", "layer_norm")}}
+
+
+def keras_encoder(smi: str, path_a: dict = None) -> dict:
+    """Phase 28: the BERT-base-shaped Keras encoder enters by import.
+    Returns its layer-norm launches served at T=128 (warmup and replays)
+    and its flash and layer-norm launches at T=1024."""
+    import shutil
+
+    import torch
+
+    from deeplearning4j_tpu_torch.modelimport import keras_fixtures as kf
+    from deeplearning4j_tpu_torch.modelimport.hdf5 import Hdf5Archive
+    from deeplearning4j_tpu_torch.modelimport.keras import (
+        importKerasModelAndWeights)
+    from deeplearning4j_tpu_torch.nn import compilecache as cc
+    from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+    from deeplearning4j_tpu_torch.ops import registry
+    from deeplearning4j_tpu_torch.serving import ModelServer
+    dev = torch.device("cuda")
+    T, B = KERAS_T, KERAS_BATCH
+    ck.install_platform_overrides()
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="keras_import_")
+    try:
+        path = os.path.join(tmp, "encoder.h5")
+        t0 = time.perf_counter()
+        n = kf.encoder_h5(path, 0, T=T)
+        write_s = time.perf_counter() - t0
+        if n != KERAS_PARAMS:
+            fail(f"the Keras encoder has {n} parameters, want {KERAS_PARAMS}")
+        t0 = time.perf_counter()
+        arch = Hdf5Archive(path)
+        layers = [e["name"] for e in arch.model_config()["config"]["layers"]]
+        n_read = sum(a.size for name in layers
+                     for a in arch.layer_weights(name).values())
+        arch.close()
+        parse_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        net = importKerasModelAndWeights(path)
+        torch.cuda.synchronize()
+        import_s = time.perf_counter() - t0
+        kinds = [type(layer).__name__ for _, layer in net._layers()]
+        if n_read != n or net.numParams() != n or \
+                kinds.count("LayerNorm") != 25 or \
+                kinds.count("SelfAttentionLayer") != 12 or \
+                any(p.device.type != "cuda" for d in net._params.values()
+                    for p in d.values()):
+            fail(f"imported encoder: {n_read} weights read, "
+                 f"{net.numParams()} params, layers {kinds}")
+        log(f"phase 28: Keras encoder .h5 {os.path.getsize(path) / 1e6:.1f} MB"
+            f" ({n} parameters) written in {write_s:.2f} s; parse (the model "
+            f"config and every weight view) {parse_s:.3f} s; "
+            f"importKerasModelAndWeights {import_s:.2f} s onto the card: "
+            f"{len(kinds)} layers, import report "
+            f"{net.import_report.codes()} [{smi}]")
+
+        def classify(tokens):
+            """The imported encoder's class probabilities; the position
+            ids are made on the card, so a request carries tokens only."""
+            pos = torch.arange(tokens.shape[1], device=tokens.device,
+                               dtype=torch.int32).expand(tokens.shape[0], -1)
+            return net.output([tokens, pos])
+
+        server = ModelServer(classify, batch_limit=B, input_dtype=np.int32,
+                             coalesce_ms=5.0, max_queue=256)
+        rng = np.random.default_rng(28)
+        try:
+            cc.reset_stats()
+            ck.reset_counts()
+            t0 = time.perf_counter()
+            server.warmup([(T,)])
+            warm_s = time.perf_counter() - t0
+            warm = dict(ck.LAUNCHES)
+            at_capture = server._dispatch.launches_at_capture()
+            if cc.cache_stats()["capture_failures"] or \
+                    len(at_capture) != len(server.buckets()) or \
+                    any(a != {"layer_norm": 25} for a in at_capture):
+                fail(f"imported Keras encoder captures {at_capture}, "
+                     f"cache_stats {cc.cache_stats()}: want "
+                     f"{len(server.buckets())} graphs of 25 layer_norm "
+                     "launches (no flash below T=1024) and no failure")
+            log(f"phase 28 warmup: {len(at_capture)} graphs (buckets "
+                f"{server.buckets()} x T={T}) captured in {warm_s:.2f} s, "
+                "each 25 layer_norm launches and no flash (T < 1024)")
+            reqs = [rng.integers(0, 30522, (int(rng.integers(1, 9)), T),
+                                 dtype=np.int32) for _ in range(64)]
+            handles, got, wall, launches, plain, n_fwd = serve_burst(
+                server, reqs)
+            replays = dict(ck.REPLAYS)
+            want = {k: 0 for k in ck.KERNELS}
+            want["layer_norm"] = 25 * n_fwd
+            if any(h.resolutions != 1 for h in handles) or \
+                    server.counts["completed"] != 64 or \
+                    any(launches.values()) or any(plain.values()) or \
+                    replays != want or server.recompiles_after_warmup():
+                fail(f"Keras encoder serving: counts {dict(server.counts)}, "
+                     f"eager launches {launches} (plain {plain}), replays "
+                     f"{replays} over {n_fwd} forwards, recompiles "
+                     f"{server.recompiles_after_warmup()}")
+            worst = max(float(np.abs(g - classify(torch.from_numpy(r).to(
+                dev)).cpu().numpy()).max()) for r, g in zip(reqs, got))
+            if worst > 1e-4 or not all(np.isfinite(g).all() and
+                                       g.shape == (r.shape[0], 2)
+                                       for r, g in zip(reqs, got)):
+                fail(f"served and direct probabilities differ by "
+                     f"{worst:.3g}, or are not finite [N, 2]")
+            log(f"phase 28 served 64 requests in {n_fwd} captured forwards: "
+                f"replayed {replays}; served vs direct max|diff| "
+                f"{worst:.3g}; recompiles_after_warmup 0")
+            lat = log_latency(handles, reqs, wall, smi)
+            x32 = rng.integers(0, 30522, (B, T), dtype=np.int32)
+            server._forward_raw(x32)
+            ts = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                server._forward_raw(x32)
+                ts.append((time.perf_counter() - t0) * 1e3)
+            rep_ms = float(np.median(ts))
+            a = path_a or {}
+            log(f"phase 28 B={B}, T={T}, host batch to host answer, "
+                f"captured replay (median of 10): {rep_ms:.3f} ms, "
+                f"{B * T / (rep_ms / 1e3):.0f} tokens/s; served "
+                f"{lat['tokens_per_s']:.1f} tokens/s, p99 "
+                f"{lat['p99_ms']:.2f} ms; beside phase 23's path A (the same "
+                f"widths through transformer.encode): replay "
+                f"{a.get('replay_ms', float('nan')):.3f} ms, served "
+                f"{a.get('tokens_per_s', float('nan')):.1f} tokens/s, p99 "
+                f"{a.get('p99_ms', float('nan')):.2f} ms [{smi}]")
+        finally:
+            server.close()
+        served = warm["layer_norm"] + replays["layer_norm"]
+
+        # the kernels against their plain versions on one batch
+        xb = torch.from_numpy(rng.integers(0, 30522, (8, T),
+                                           dtype=np.int32)).to(dev)
+        ref = classify(xb)
+        plain_overrides(registry, ck)
+        plain = classify(xb)
+        ck.install_platform_overrides()
+        dk = float((ref - plain).abs().max())
+        log(f"phase 28 kernels vs plain forward (fp32, [8, {T}]): max|diff| "
+            f"{dk:.3g}")
+        if dk > 1e-4:
+            fail("phase 28's kernels and plain versions disagree beyond 1e-4")
+        del net, server, ref, plain
+        torch.cuda.empty_cache()
+
+        # the flash route: a depth-2 copy with 1024 positions at T=1024
+        path2 = os.path.join(tmp, "encoder_1024.h5")
+        kf.encoder_h5(path2, 1, P=KERAS_LONG_T, L=2, T=KERAS_LONG_T)
+        net2 = importKerasModelAndWeights(path2)
+
+        def classify2(tokens):
+            pos = torch.arange(tokens.shape[1], device=tokens.device,
+                               dtype=torch.int32).expand(tokens.shape[0], -1)
+            return net2.output([tokens, pos])
+
+        xl = rng.integers(0, 30522, (KERAS_LONG_B, KERAS_LONG_T),
+                          dtype=np.int32)
+        server = ModelServer(classify2, batch_limit=KERAS_LONG_B,
+                             input_dtype=np.int32, coalesce_ms=5.0)
+        try:
+            cc.reset_stats()
+            ck.reset_counts()
+            server.warmup([(KERAS_LONG_T,)])
+            long_warm = dict(ck.LAUNCHES)
+            routes = dict(ck.FLASH_ROUTES)
+            at_capture = server._dispatch.launches_at_capture()
+            ck.reset_counts()
+            got = server.submit(xl).get(300)
+            long_replays = dict(ck.REPLAYS)
+            if cc.cache_stats()["capture_failures"] or any(
+                    a != {"flash_attention": 2, "layer_norm": 5}
+                    for a in at_capture) or routes["tensor_core"] or \
+                    long_replays["flash_attention"] != 2 or \
+                    long_replays["layer_norm"] != 5 or \
+                    any(ck.LAUNCHES.values()):
+                fail(f"T={KERAS_LONG_T}: captures {at_capture}, routes "
+                     f"{routes}, replays {long_replays}, eager "
+                     f"{dict(ck.LAUNCHES)}: want 2 fp32 CUDA-core flash + 5 "
+                     "layer_norm a forward")
+        finally:
+            server.close()
+        xt = torch.from_numpy(xl).to(dev)
+        ck.reset_counts()
+        ref = classify2(xt)
+        direct = dict(ck.LAUNCHES)
+        direct_routes = dict(ck.FLASH_ROUTES)
+        plain_overrides(registry, ck)
+        plain = classify2(xt)
+        ck.install_platform_overrides()
+        dk2 = max(float((ref - plain).abs().max()),
+                  float(np.abs(got - ref.cpu().numpy()).max()))
+        if direct["flash_attention"] != 2 or direct["layer_norm"] != 5 or \
+                direct_routes["cuda_core"] != 2 or dk2 > 1e-4:
+            fail(f"T={KERAS_LONG_T} direct forward: launches {direct}, "
+                 f"routes {direct_routes}; kernels vs plain and served vs "
+                 f"direct {dk2:.3g} (want 2 CUDA-core flash, 5 LN, 1e-4)")
+        log(f"phase 28 depth-2 copy at [{KERAS_LONG_B}, {KERAS_LONG_T}]: "
+            f"served (captures of {at_capture[0]}), a direct forward "
+            f"{direct['flash_attention']} fp32 flash on the CUDA-core route "
+            f"+ {direct['layer_norm']} LN; kernels vs plain and served vs "
+            f"direct max|diff| {dk2:.3g}; phase 28 "
+            f"{time.perf_counter() - t_phase:.1f} s [{smi}]")
+        del net2
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"served_layer_norm": served,
+            "long_flash": long_warm["flash_attention"]
+            + long_replays["flash_attention"] + direct["flash_attention"],
+            "long_layer_norm": long_warm["layer_norm"]
+            + long_replays["layer_norm"] + direct["layer_norm"]}
+
+
+def plain_overrides(registry, ck) -> None:
+    """Register the layer-norm and flash kernels' plain PyTorch versions
+    in the kernels' place."""
+    registry.register_platform_override(
+        "layer_norm", lambda x, g, b=None, *, axis=-1, eps=1e-5:
+        ck.layer_norm_plain(x, g, b, eps))
+    registry.register_platform_override(
+        "flash_attention", lambda q, k, v, *, mask=None, is_causal=False,
+        block_size=512: ck.flash_attention_plain(q, k, v, is_causal)[0])
 
 
 def serve_burst(server, reqs):
@@ -3943,13 +4219,16 @@ def serve_burst(server, reqs):
             server.stats()["batches"] - batches0)
 
 
-def log_latency(handles, reqs, wall: float, smi: str) -> None:
+def log_latency(handles, reqs, wall: float, smi: str) -> dict:
     lat = sorted(h.resolved_at - h.enqueued_at for h in handles)
     tokens = sum(int(r.size) for r in reqs)
-    log(f"latency p50 {1e3 * float(np.percentile(lat, 50)):.2f} ms, "
-        f"p99 {1e3 * float(np.percentile(lat, 99)):.2f} ms, "
-        f"{tokens / wall:.1f} tokens/s ({tokens} tokens in {wall:.3f} s) "
-        f"[{smi}]")
+    out = {"p50_ms": 1e3 * float(np.percentile(lat, 50)),
+           "p99_ms": 1e3 * float(np.percentile(lat, 99)),
+           "tokens_per_s": tokens / wall}
+    log(f"latency p50 {out['p50_ms']:.2f} ms, p99 {out['p99_ms']:.2f} ms, "
+        f"{out['tokens_per_s']:.1f} tokens/s ({tokens} tokens in "
+        f"{wall:.3f} s) [{smi}]")
+    return out
 
 
 def build_bert(sd, dtype=np.float32, *, V, E, H, L, F, T, max_len,

@@ -1,11 +1,11 @@
-"""Import-time lints (E163, W161-W163): what a graph loses crossing the
-border into SameDiff — the TF half of
+"""Import-time lints (E163, W161-W163): what a model loses crossing the
+border into the port — the TF and Keras halves of
 ``deeplearning4j_tpu/analysis/imports.py``.
 
-The TF importer calls in with what it has (const arrays, folded arrays,
-the finished SameDiff) and attaches the resulting
-:class:`~.diagnostics.ValidationReport` to the graph as
-``import_report``. Codes:
+The importers call in with what they have (const arrays, folded arrays,
+the finished SameDiff; a Keras file's input shapes and weight arrays)
+and attach the resulting :class:`~.diagnostics.ValidationReport` to the
+graph or network as ``import_report``. Codes:
 
 - ``E163`` lossy narrowing: fp64 consts demote to fp32 and int64 values
   past the int32 range truncate (the port feeds its graphs the dtypes the

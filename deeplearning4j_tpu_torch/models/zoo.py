@@ -3,11 +3,13 @@ LeNet, SimpleCNN, AlexNet, VGG16, VGG19, Darknet19, TinyYOLO and the
 char-RNN TextGenerationLSTM (``MultiLayerNetwork``s), ResNet50,
 SqueezeNet, UNet, Xception, FaceNetNN4Small2, YOLO2, InceptionResNetV1
 and NASNet (``ComputationGraph``s) — with the JAX package's node names,
-layer order and defaults, so its params transplant one to one. Not
-ported yet: ``initPretrained``."""
+layer order and defaults, so its params transplant one to one — and
+``ZooModel.initPretrained``, which loads a local archive or Keras
+``.h5`` (there is no download)."""
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 from deeplearning4j_tpu_torch.nn.config import InputType, NeuralNetConfiguration
@@ -58,6 +60,40 @@ class ZooModel:
 
     def conf_builder(self):
         raise NotImplementedError
+
+    def initPretrained(self, pretrained_type: str = "IMAGENET",
+                       path: str = None, device=None):
+        """ref: ZooModel.initPretrained — the reference downloads a
+        checksummed file; here it loads a local one onto ``device`` (the
+        card unless the caller names another): ``path``, or
+        ``$DL4J_TPU_DATA_DIR/pretrained/<model>_<type>.zip|.h5``. A zip
+        is the JAX package's model archive; a ``.h5``/``.hdf5``/
+        ``.keras`` file is a Keras full-model save, imported through
+        ``modelimport.keras``."""
+        if path is None:
+            base = os.path.join(
+                os.environ.get("DL4J_TPU_DATA_DIR",
+                               os.path.expanduser("~/.deeplearning4j_tpu")),
+                "pretrained",
+                f"{type(self).__name__.lower()}_{pretrained_type.lower()}")
+            for cand in (base + ".zip", base + ".h5"):
+                if os.path.exists(cand):
+                    path = cand
+                    break
+            if path is None:
+                raise FileNotFoundError(
+                    f"pretrained weights not found at {base}.zip|.h5 (no "
+                    f"network egress; place the checkpoint there manually)")
+        if not os.path.exists(path):
+            raise FileNotFoundError(path)
+        if path.endswith((".h5", ".hdf5", ".keras")):
+            from deeplearning4j_tpu_torch.modelimport.keras import \
+                KerasModelImport
+            return KerasModelImport.importKerasModelAndWeights(path, device)
+        try:
+            return MultiLayerNetwork.load(path, device=device)
+        except Exception:
+            return ComputationGraph.load(path, device=device)
 
 
 class LeNet(ZooModel):

@@ -24,7 +24,8 @@ vertex is handed NCHW, as in the JAX forward.
 
 A DataSet's ``features_mask`` ([N, T]) reaches the mask-aware layers
 (``_MASK_AWARE``) in training and in ``score``; ``output()`` and
-``feedForward`` take none, as in the JAX package. (The JAX graph's own
+``feedForward`` (every node's activation, for naming the first layer
+where two forwards part) take none, as in the JAX package. (The JAX graph's own
 train step passes none to its forward; the port's passes it, as the
 sequential network's does.) The graph has no truncated BPTT and no
 ``rnnTimeStep``, in either package.
@@ -251,10 +252,11 @@ _VERTEX_CLASSES = {c.__name__: c for c in (
     L2NormalizeVertex, ScaleVertex, ShiftVertex, StackVertex, UnstackVertex,
     PreprocessorVertex)}
 
-#: layers that take the feature mask (the JAX package's tuple, its ported
-#: members; GRU is not one)
+#: layers that take the feature mask (the JAX package's tuple; GRU is not
+#: one)
 _MASK_AWARE = (L.LSTM, L.SimpleRnn, L.Bidirectional, L.LastTimeStep,
-               L.GlobalPoolingLayer)
+               L.GlobalPoolingLayer, L.SelfAttentionLayer,
+               L.RecurrentAttentionLayer)
 
 #: vertices that keep NHWC when every input is NHWC (elementwise); every
 #: other vertex is handed NCHW (JAX nn/graph.py:537-558)
@@ -537,6 +539,39 @@ class ComputationGraph(BaseNetwork):
         return [L.to_nchw(read(o)) if fmt.get(o) else read(o)
                 for o in self.conf.graph_outputs], new_states
 
+    def feedForward(self, inputs, train: bool = False
+                    ) -> Dict[str, torch.Tensor]:
+        """Every node's activation by name, in the public NCHW layout
+        (ref: ComputationGraph.feedForward): unfused, no mask, the k-th
+        layer node in topological order drawing dropout from
+        ``StepKey(0, 0).fold(k)``, as the JAX one splits its fixed key."""
+        self._require_init()
+        env = self._as_input_dict(inputs)
+        nhwc = self._compute_layout == "NHWC"
+        fmt = {k: False for k in env}
+        key, ordinal = StepKey(0, 0), self._layer_ordinals()
+        acts: Dict[str, torch.Tensor] = {}
+        with torch.no_grad():
+            for node in self.conf.topo:
+                if node.kind == "layer":
+                    x, cur_nhwc = env[node.inputs[0]], fmt[node.inputs[0]]
+                    if node.name in self.conf.preprocessors:
+                        if cur_nhwc:
+                            x, cur_nhwc = L.to_nchw(x), False
+                        x = self.conf.preprocessors[node.name](x)
+                    x, cur_nhwc = L.layout_step(node.obj, x, cur_nhwc, nhwc)
+                    out, _ = node.obj.apply(
+                        self._params[node.name], self._states[node.name], x,
+                        train, key.fold(ordinal[node.name]))
+                    fmt[node.name] = cur_nhwc and out.dim() == 4
+                else:
+                    out = node.obj.apply(*[L.to_nchw(env[i]) if fmt[i]
+                                           else env[i] for i in node.inputs])
+                    fmt[node.name] = False
+                env[node.name] = out
+                acts[node.name] = L.to_nchw(out) if fmt[node.name] else out
+        return acts
+
     def _layer_ordinals(self) -> Dict[str, int]:
         """Each layer node's position among the layer nodes in topological
         order (its dropout key's fold)."""
@@ -544,6 +579,8 @@ class ComputationGraph(BaseNetwork):
         return {name: k for k, name in enumerate(names)}
 
     def _as_input_dict(self, inputs) -> Dict[str, torch.Tensor]:
+        if isinstance(inputs, dict):
+            return {k: self._to_device(v) for k, v in inputs.items()}
         if not isinstance(inputs, (list, tuple)):
             inputs = [inputs]
         return {name: self._to_device(a)

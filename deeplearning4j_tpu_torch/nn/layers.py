@@ -1,6 +1,7 @@
-"""Layer configurations and their forward passes (the feed-forward, 2-D
-convolutional and recurrent layers of ``deeplearning4j_tpu/nn/layers.py``;
-the 1-D/3-D, embedding and attention layers are not ported).
+"""Layer configurations and their forward passes: the layers of
+``deeplearning4j_tpu/nn/layers.py`` (feed-forward, embedding, 1-D, 2-D
+and 3-D convolutional, recurrent, normalization, noise, attention and
+wrapper layers) but ``SameDiffLayer``.
 
 The recurrent layers take DL4J's ``[N, C, T]`` and an optional ``[N, T]``
 feature mask; those with a state (LSTM, GravesLSTM, GRU, SimpleRnn) also
@@ -32,11 +33,14 @@ import copy
 import math
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.nn.config import InputType
 from deeplearning4j_tpu_torch.nn.precision import normalize_dtype
 from deeplearning4j_tpu_torch.ops import activations as act
+from deeplearning4j_tpu_torch.ops import attention as attn_ops
 from deeplearning4j_tpu_torch.ops import convolution as conv_ops
 from deeplearning4j_tpu_torch.ops import losses as loss_ops
 from deeplearning4j_tpu_torch.ops import normalization as norm_ops
@@ -52,22 +56,42 @@ def _pair(v):
 
 def _initialize(shape, init: str, gen: torch.Generator) -> torch.Tensor:
     """Weight init (ref: org.deeplearning4j.nn.weights.WeightInit), fp32
-    on the CPU from ``gen``. Fans as in the JAX package: conv OIHW has
-    fan_in = I*kH*kW, fan_out = O*kH*kW."""
+    on the CPU from ``gen``: the JAX package's schemes and fans (conv
+    OIHW fan_in = I*kH*kW, fan_out = O*kH*kW; OIDHW likewise), drawn from
+    torch's stream, so the values differ from JAX's threefry draws."""
     shape = tuple(int(s) for s in shape)
     init = init.lower()
     fan_in = shape[0] if len(shape) >= 1 else 1
     fan_out = shape[-1] if len(shape) >= 2 else 1
-    if len(shape) == 4:
-        rf = shape[2] * shape[3]
+    if len(shape) in (4, 5):
+        rf = math.prod(shape[2:])
         fan_in, fan_out = shape[1] * rf, shape[0] * rf
-    if init in ("xavier", "glorot_uniform"):
-        limit = math.sqrt(6.0 / (fan_in + fan_out))
+
+    def uniform(limit):
         return torch.rand(shape, generator=gen) * (2 * limit) - limit
+
+    def normal(std):
+        return torch.randn(shape, generator=gen) * std
+
+    if init == "zeros":
+        return torch.zeros(shape)
+    if init == "ones":
+        return torch.ones(shape)
+    if init in ("xavier", "glorot_uniform"):
+        return uniform(math.sqrt(6.0 / (fan_in + fan_out)))
+    if init in ("xavier_gaussian", "glorot_normal"):
+        return normal(math.sqrt(2.0 / (fan_in + fan_out)))
     if init in ("relu", "he", "he_normal"):
-        return torch.randn(shape, generator=gen) * math.sqrt(2.0 / fan_in)
-    raise NotImplementedError(f"weight init {init!r}: only 'xavier' and "
-                              "'relu' are ported")
+        return normal(math.sqrt(2.0 / fan_in))
+    if init in ("he_uniform", "relu_uniform"):
+        return uniform(math.sqrt(6.0 / fan_in))
+    if init == "lecun_normal":
+        return normal(math.sqrt(1.0 / fan_in))
+    if init == "uniform":
+        return uniform(1.0 / math.sqrt(fan_in))
+    if init in ("normal", "gaussian"):
+        return normal(1.0 / math.sqrt(fan_in))
+    raise ValueError(f"unknown weight init '{init}'")
 
 
 class Layer:
@@ -150,7 +174,8 @@ class Layer:
             if k == "@class":
                 continue
             if isinstance(v, list) and k in ("kernel", "stride", "padding",
-                                             "dilation", "scale", "crop"):
+                                             "dilation", "scale", "crop",
+                                             "dims"):
                 v = tuple(v)
             setattr(obj, k, v)
         return obj
@@ -210,6 +235,7 @@ class ConvolutionLayer(Layer):
         return act.get(self.activation)(out), state
 
     def output_type(self, it: InputType) -> InputType:
+        conv_ops._check_mode(self.mode)          # causal is 1-D
         h = conv_ops.conv_output_size(it.height, self.kernel[0],
                                       self.stride[0], self.padding[0],
                                       self.dilation[0], self.mode)
@@ -940,6 +966,881 @@ class RnnOutputLayer(BaseOutputLayer):
         return InputType.recurrent(self.nOut, it.dims.get("timesteps", -1))
 
 
+# ----------------------------------------------------- embedding, 1-D
+class EmbeddingLayer(Layer):
+    """ref: EmbeddingLayer — int indices [N] (or [N, 1]) or one-hot rows
+    [N, nIn] -> [N, nOut]."""
+
+    def __init__(self, nOut=None, hasBias: bool = False, **kw):
+        super().__init__(nOut=nOut, **kw)
+        self.has_bias = hasBias
+
+    def initialize(self, gen):
+        return self._dense_init(gen)
+
+    def apply(self, params, state, x, train, key=None):
+        if x.is_floating_point() and x.dim() == 2 and x.shape[1] == self.nIn:
+            out = x @ params["W"]                      # one-hot rows
+        else:
+            idx = x.long()
+            if idx.dim() == 2 and idx.shape[1] == 1:
+                idx = idx[:, 0]
+            out = params["W"][idx]
+        if self.has_bias:
+            out = out + params["b"]
+        return act.get(self.activation)(out), state
+
+
+class EmbeddingSequenceLayer(Layer):
+    """ref: EmbeddingSequenceLayer — int [N, T] (or [N, 1, T]) ->
+    [N, nOut, T]."""
+
+    input_kind = None
+
+    def initialize(self, gen):
+        return {"W": _initialize((self.nIn, self.nOut), self.weight_init,
+                                 gen)}, {}
+
+    def apply(self, params, state, x, train, key=None):
+        idx = x.long()
+        if idx.dim() == 3:
+            idx = idx[:, 0, :]
+        return params["W"][idx].transpose(1, 2), state
+
+    def output_type(self, it: InputType) -> InputType:
+        t = it.dims.get("timesteps", -1) if it.kind == "rnn" \
+            else it.dims.get("size", -1)
+        return InputType.recurrent(self.nOut, t)
+
+
+def _first(v) -> int:
+    return int(v[0] if isinstance(v, (tuple, list)) else v)
+
+
+class Convolution1D(Layer):
+    """ref: Convolution1DLayer — [N, nIn, T] -> [N, nOut, T'], W [nOut,
+    nIn, k]; causal mode as the reference."""
+
+    input_kind = "rnn"
+
+    def __init__(self, kernelSize: int = 3, stride: int = 1,
+                 padding: int = 0, nOut=None, dilation: int = 1,
+                 convolutionMode: str = "same", hasBias: bool = True, **kw):
+        super().__init__(nOut=nOut, **kw)
+        self.kernel = _first(kernelSize)
+        self.stride = _first(stride)
+        self.padding = _first(padding)
+        self.dilation = _first(dilation)
+        self.mode = convolutionMode
+        self.has_bias = hasBias
+
+    def initialize(self, gen):
+        params = {"W": _initialize((self.nOut, self.nIn, self.kernel),
+                                   self.weight_init, gen)}
+        if self.has_bias:
+            params["b"] = torch.full((self.nOut,), float(self.bias_init))
+        return params, {}
+
+    def apply(self, params, state, x, train, key=None, mask=None):
+        out = conv_ops.conv1d(x, params["W"], params.get("b"),
+                              stride=self.stride, pad=self.padding,
+                              dilation=self.dilation, mode=self.mode)
+        return act.get(self.activation)(out), state
+
+    def output_type(self, it: InputType) -> InputType:
+        t = it.dims.get("timesteps", -1)
+        if t and t > 0:
+            t = conv_ops.conv_output_size(t, self.kernel, self.stride,
+                                          self.padding, self.dilation,
+                                          self.mode)
+        return InputType.recurrent(self.nOut, t)
+
+
+class Subsampling1DLayer(Layer):
+    """ref: Subsampling1DLayer — max/avg pooling over T of [N, C, T] (the
+    mask is not downsampled, as in the JAX package)."""
+
+    input_kind = "rnn"
+    has_params = False
+
+    def __init__(self, poolingType: str = "max", kernelSize: int = 2,
+                 stride: int = None, padding: int = 0,
+                 convolutionMode: str = "truncate", **kw):
+        super().__init__(**kw)
+        self.pooling = poolingType.lower()
+        self.kernel = _first(kernelSize)
+        self.stride = int(stride if stride is not None else self.kernel)
+        self.padding = int(padding)
+        self.mode = convolutionMode
+
+    def infer_nin(self, it):
+        self.nIn = self.nOut = it.size
+
+    def apply(self, params, state, x, train, key=None, mask=None):
+        fn = conv_ops.maxpool1d if self.pooling == "max" \
+            else conv_ops.avgpool1d
+        return fn(x, kernel=self.kernel, stride=self.stride,
+                  pad=self.padding, mode=self.mode), state
+
+    def output_type(self, it: InputType) -> InputType:
+        t = it.dims.get("timesteps", -1)
+        if t and t > 0:
+            t = conv_ops.conv_output_size(t, self.kernel, self.stride,
+                                          self.padding, 1, self.mode)
+        return InputType.recurrent(it.size, t)
+
+
+# ----------------------------------------------- elementwise, normalization
+class PReLULayer(Layer):
+    """ref: PReLULayer — ``alpha`` [nIn] (nIn the elements an example),
+    per channel plane on 4-D input when it has C entries."""
+
+    input_kind = None
+
+    def infer_nin(self, it):
+        self.nIn = self.nOut = it.arrayElementsPerExample()
+
+    def initialize(self, gen):
+        return {"alpha": torch.full((self.nIn,), 0.25)}, {}
+
+    def apply(self, params, state, x, train, key=None):
+        a = params["alpha"]
+        if x.dim() == 4:
+            a = a.reshape(1, -1, 1, 1) if a.numel() == x.shape[1] \
+                else a.reshape((1,) + tuple(x.shape[1:]))
+        return act.prelu(x, a), state
+
+    def output_type(self, it):
+        return it
+
+
+class LayerNorm(Layer):
+    """ref: LayerNorm (Keras LayerNormalization) — per-example
+    normalization of the feature axis with gain and bias: -1 of [N, D],
+    the channel axis of [N, C, T]. It resolves ``layer_norm`` through the
+    registry (the CUDA kernel when installed) on 2-D rows: an [N, C, T]
+    input goes as its [N*T, C] rows, the same function."""
+
+    input_kind = None
+
+    def __init__(self, eps: float = 1e-5, **kw):
+        super().__init__(**kw)
+        self.eps = eps
+
+    def infer_nin(self, it: InputType):
+        if it.kind == "cnn":
+            raise ValueError(
+                "LayerNorm supports dense [N, D] and recurrent [N, C, T] "
+                "inputs; 4-D CNN feature maps are not supported")
+        self.nIn = self.nOut = it.size if it.kind == "rnn" \
+            else it.arrayElementsPerExample()
+
+    def initialize(self, gen):
+        return {"gamma": torch.ones(self.nIn),
+                "beta": torch.zeros(self.nIn)}, {}
+
+    def _ln(self, x, params):
+        rows = x.reshape(-1, x.shape[-1])
+        y = registry.get("layer_norm")(rows, params["gamma"],
+                                       params["beta"], eps=self.eps)
+        return y.reshape(x.shape)
+
+    def apply(self, params, state, x, train, key=None, mask=None):
+        if x.dim() == 3:               # [N, C, T]: the channel axis
+            return self._ln(x.transpose(1, 2), params).transpose(1, 2), \
+                state
+        return self._ln(x, params), state
+
+    def output_type(self, it: InputType) -> InputType:
+        return it
+
+
+def _channel_count(it: InputType) -> int:
+    return it.channels if it.kind in ("cnn", "cnn3d") \
+        else it.size if it.kind == "rnn" else it.arrayElementsPerExample()
+
+
+class GroupNorm(Layer):
+    """Group normalization (the Keras GroupNormalization import target):
+    [N, C, *spatial], each of ``groups`` channel groups normalized with
+    its spatial dims, in fp32, then gamma and beta a channel."""
+
+    input_kind = None
+
+    def __init__(self, groups: int = 32, eps: float = 1e-3, **kw):
+        super().__init__(**kw)
+        self.groups = int(groups)
+        self.eps = eps
+
+    def infer_nin(self, it: InputType):
+        self.nIn = self.nOut = _channel_count(it)
+        if self.groups == -1:            # Keras shorthand: instance norm
+            self.groups = self.nIn
+        if self.groups < 1 or self.nIn % self.groups:
+            raise ValueError(f"GroupNorm: {self.nIn} channels not divisible "
+                             f"by {self.groups} groups")
+
+    def initialize(self, gen):
+        return {"gamma": torch.ones(self.nIn),
+                "beta": torch.zeros(self.nIn)}, {}
+
+    def apply(self, params, state, x, train, key=None):
+        n, c = x.shape[0], x.shape[1]
+        g = self.groups
+        xg = x.reshape((n, g, c // g) + tuple(x.shape[2:])).float()
+        axes = tuple(range(2, xg.dim()))
+        m = xg.mean(dim=axes, keepdim=True)
+        v = (xg - m).square().mean(dim=axes, keepdim=True)
+        y = ((xg - m) * torch.rsqrt(v + self.eps)).reshape(x.shape)
+        shape = (1, c) + (1,) * (x.dim() - 2)
+        y = y * params["gamma"].reshape(shape) \
+            + params["beta"].reshape(shape)
+        return y.to(x.dtype), state
+
+    def output_type(self, it: InputType) -> InputType:
+        return it
+
+
+class UnitNormLayer(Layer):
+    """L2 normalization of the channel/feature axis (Keras
+    UnitNormalization): the norm in fp32, floored at 1e-12."""
+
+    input_kind = None
+    has_params = False
+
+    def infer_nin(self, it: InputType):
+        self.nIn = self.nOut = _channel_count(it)
+
+    def apply(self, params, state, x, train, key=None):
+        axis = 1 if x.dim() > 2 else -1
+        n = torch.sqrt(x.float().square().sum(dim=axis, keepdim=True))
+        return x / torch.clamp_min(n, 1e-12).to(x.dtype), state
+
+    def output_type(self, it: InputType) -> InputType:
+        return it
+
+
+class Permute(Layer):
+    """ref: Keras Permute — reorder the non-batch axes (1-based dims)."""
+
+    input_kind = None
+    has_params = False
+
+    def __init__(self, dims=(2, 1), **kw):
+        super().__init__(**kw)
+        self.dims = tuple(int(d) for d in dims)
+
+    def infer_nin(self, it):
+        self.nIn = self.nOut = None
+
+    def apply(self, params, state, x, train, key=None):
+        return x.permute((0,) + tuple(self.dims)), state
+
+    def output_type(self, it: InputType) -> InputType:
+        if it.kind == "rnn" and self.dims == (2, 1):
+            return InputType.recurrent(it.dims.get("timesteps", -1), it.size)
+        return it
+
+
+class RepeatVector(Layer):
+    """ref: Keras RepeatVector — [N, D] -> [N, D, n] (NCW)."""
+
+    input_kind = "ff"
+    has_params = False
+
+    def __init__(self, n: int = 2, **kw):
+        super().__init__(**kw)
+        self.n = int(n)
+
+    def infer_nin(self, it):
+        self.nIn = self.nOut = it.arrayElementsPerExample()
+
+    def apply(self, params, state, x, train, key=None):
+        return x[:, :, None].expand(-1, -1, self.n).contiguous(), state
+
+    def output_type(self, it: InputType) -> InputType:
+        return InputType.recurrent(self.nOut, self.n)
+
+
+# ---------------------------------------------------------------- attention
+class SelfAttentionLayer(Layer):
+    """ref: SelfAttentionLayer — multi-head dot-product self-attention
+    over [N, nIn, T] -> [N, nOut, T]. With ``projectInput`` it learns Wq,
+    Wk, Wv [nIn, nHeads*headSize] and Wo [nHeads*headSize, nOut] (and
+    biases with ``useBias``); without, nHeads is 1 and nOut is nIn. A
+    [N, T] mask blocks attention to padded keys and zeroes padded
+    queries. An unmasked sequence of T >= 1024 goes through
+    ``flash_attention`` (the CUDA kernel when installed), shorter or
+    masked ones through ``dot_product_attention``, the JAX gate exactly."""
+
+    input_kind = "rnn"
+
+    def __init__(self, nOut=None, nHeads: int = 1, headSize: int = None,
+                 projectInput: bool = True, useBias: bool = False, **kw):
+        super().__init__(nOut=nOut, **kw)
+        self.n_heads = nHeads
+        self.head_size = headSize
+        self.project = projectInput
+        self.use_bias = useBias
+
+    def infer_nin(self, it: InputType):
+        super().infer_nin(it)
+        if self.nOut is None:
+            self.nOut = self.nIn
+        if self.head_size is None:
+            self.head_size = self.nOut // self.n_heads
+        if not self.project and (self.n_heads != 1 or self.nOut != self.nIn):
+            raise ValueError(
+                "SelfAttentionLayer: projectInput=False requires nHeads=1 "
+                f"and nOut==nIn (got nHeads={self.n_heads}, nIn={self.nIn}, "
+                f"nOut={self.nOut})")
+
+    def initialize(self, gen):
+        if not self.project:
+            return {}, {}
+        e = self.n_heads * self.head_size
+        params = {"Wq": _initialize((self.nIn, e), self.weight_init, gen),
+                  "Wk": _initialize((self.nIn, e), self.weight_init, gen),
+                  "Wv": _initialize((self.nIn, e), self.weight_init, gen),
+                  "Wo": _initialize((e, self.nOut), self.weight_init, gen)}
+        if getattr(self, "use_bias", False):
+            params.update({"bq": torch.zeros(e), "bk": torch.zeros(e),
+                           "bv": torch.zeros(e),
+                           "bo": torch.zeros(self.nOut)})
+        return params, {}
+
+    def _project_attend(self, params, q_btc, kv_btc, m):
+        """Projected multi-head attention (nIn need not be
+        nHeads*headSize)."""
+        b, tq = q_btc.shape[0], q_btc.shape[1]
+        h, hs = self.n_heads, self.head_size
+
+        def proj(x, w, bias):
+            y = x @ w
+            if bias is not None:
+                y = y + bias
+            return y.reshape(x.shape[0], x.shape[1], h, hs)
+        qh = proj(q_btc, params["Wq"], params.get("bq"))
+        kh = proj(kv_btc, params["Wk"], params.get("bk"))
+        vh = proj(kv_btc, params["Wv"], params.get("bv"))
+        if m is None and tq >= 1024:
+            ctx = attn_ops.flash_attention(qh, kh, vh)
+        else:
+            ctx = attn_ops.dot_product_attention(qh, kh, vh, mask=m)
+        out = ctx.reshape(b, tq, h * hs) @ params["Wo"]
+        if params.get("bo") is not None:
+            out = out + params["bo"]
+        return out
+
+    def apply(self, params, state, x, train, key=None, mask=None):
+        x_btc = x.transpose(1, 2)
+        m = mask[:, None, None, :] if mask is not None else None
+        if self.project:
+            y = self._project_attend(params, x_btc, x_btc, m)
+        else:
+            q = x_btc[:, :, None, :]
+            y = attn_ops.dot_product_attention(q, q, q, mask=m)[:, :, 0]
+        if mask is not None:
+            y = y * mask[:, :, None]
+        return y.transpose(1, 2), state
+
+    def output_type(self, it: InputType) -> InputType:
+        return InputType.recurrent(self.nOut, it.dims.get("timesteps", -1))
+
+
+class LearnedSelfAttentionLayer(SelfAttentionLayer):
+    """ref: LearnedSelfAttentionLayer — ``nQueries`` learned queries
+    ``Q`` [nQueries, nIn] instead of one a step: [N, nIn, T] -> [N, nOut,
+    nQueries]."""
+
+    def __init__(self, nOut=None, nQueries: int = 1, **kw):
+        super().__init__(nOut=nOut, **kw)
+        self.n_queries = nQueries
+
+    def initialize(self, gen):
+        params, state = super().initialize(gen)
+        params["Q"] = _initialize((self.n_queries, self.nIn),
+                                  self.weight_init, gen)
+        return params, state
+
+    def apply(self, params, state, x, train, key=None, mask=None):
+        x_btc = x.transpose(1, 2)
+        q_bqc = params["Q"][None].expand((x.shape[0],)
+                                         + tuple(params["Q"].shape))
+        m = mask[:, None, None, :] if mask is not None else None
+        if self.project:
+            y = self._project_attend(params, q_bqc, x_btc, m)
+        else:
+            kv = x_btc[:, :, None, :]
+            y = attn_ops.dot_product_attention(q_bqc[:, :, None, :], kv, kv,
+                                               mask=m)[:, :, 0]
+        return y.transpose(1, 2), state
+
+    def output_type(self, it: InputType) -> InputType:
+        return InputType.recurrent(self.nOut, self.n_queries)
+
+
+class RecurrentAttentionLayer(Layer):
+    """ref: RecurrentAttentionLayer — a recurrent cell whose input at each
+    step is joined by attention over the whole sequence, queried by the
+    previous output: ``a_t = attention(y_{t-1} Wq, x)``, ``y_t = act(x_t W
+    + a_t R + b)``; [N, nIn, T] -> [N, nOut, T], a Python loop over T."""
+
+    input_kind = "rnn"
+
+    def __init__(self, nOut=None, nHeads: int = 1, **kw):
+        super().__init__(nOut=nOut, **kw)
+        self.n_heads = nHeads
+        if self.activation is None:
+            self.activation = "tanh"
+
+    def set_defaults(self, base):
+        super().set_defaults(base)
+        if self.activation == "identity":
+            self.activation = "tanh"
+
+    def initialize(self, gen):
+        return {"W": _initialize((self.nIn, self.nOut), self.weight_init,
+                                 gen),
+                "R": _initialize((self.nIn, self.nOut), self.weight_init,
+                                 gen),
+                "Wq": _initialize((self.nOut, self.nIn), self.weight_init,
+                                  gen),
+                "b": torch.zeros(self.nOut)}, {}
+
+    def apply(self, params, state, x, train, key=None, mask=None):
+        h = self.n_heads
+        if self.nIn % h:
+            raise ValueError(f"RecurrentAttentionLayer: nIn={self.nIn} not "
+                             f"divisible by nHeads={h}")
+        hd = self.nIn // h
+        act_fn = act.get(self.activation)
+        keys = x.transpose(1, 2).reshape(x.shape[0], x.shape[2], h, hd)
+        scale = float(np.sqrt(hd).astype(np.float32))
+        y = torch.zeros((x.shape[0], self.nOut), dtype=x.dtype,
+                        device=x.device)
+        ys = []
+        for t in range(x.shape[2]):
+            q = (y @ params["Wq"]).reshape(-1, h, hd)
+            scores = torch.einsum("nhd,nthd->nht", q, keys) / scale
+            if mask is not None:
+                scores = torch.where(mask[:, None, :] > 0, scores, -1e30)
+            w = torch.softmax(scores, dim=-1)
+            a_t = torch.einsum("nht,nthd->nhd", w, keys).reshape(-1, self.nIn)
+            y = act_fn(x[:, :, t] @ params["W"] + a_t @ params["R"]
+                       + params["b"])
+            ys.append(y)
+        out = torch.stack(ys, dim=2)
+        if mask is not None:
+            out = out * mask[:, None, :]
+        return out, state
+
+    def output_type(self, it: InputType) -> InputType:
+        return InputType.recurrent(self.nOut, it.dims.get("timesteps", -1))
+
+
+# ------------------------------------------------------------- recurrent 2-D
+class ConvLSTM2D(Layer):
+    """Convolutional LSTM over image sequences (the Keras ConvLSTM2D import
+    target): [N, C, T, H, W] -> [N, nOut, H', W'] (the last state) or
+    [N, nOut, T, H', W'] with ``returnSequences``. The input convs take
+    the configured stride and mode, all steps at once; the recurrent
+    convs are SAME on the state grid. Gate order [i, f, g, o]."""
+
+    input_kind = "cnn3d"
+
+    def __init__(self, nOut=None, kernelSize=(3, 3), stride=(1, 1),
+                 convolutionMode: str = "truncate",
+                 returnSequences: bool = False,
+                 forgetGateBiasInit: float = 1.0, **kw):
+        super().__init__(nOut=nOut, **kw)
+        self.kernel = _pair(kernelSize)
+        self.stride = _pair(stride)
+        self.mode = convolutionMode
+        self.return_sequences = returnSequences
+        self.forget_bias = forgetGateBiasInit
+
+    def infer_nin(self, it: InputType):
+        self.nIn = it.channels
+
+    def initialize(self, gen):
+        h = self.nOut
+        b = torch.zeros(4 * h)
+        b[h:2 * h] = float(self.forget_bias)
+        return {"W": _initialize((4 * h, self.nIn) + self.kernel,
+                                 self.weight_init, gen),
+                "RW": _initialize((4 * h, h) + self.kernel,
+                                  self.weight_init, gen),
+                "b": b}, {}
+
+    def apply(self, params, state, x, train, key=None):
+        n, t = x.shape[0], x.shape[2]
+        x_t = x.movedim(2, 0)                        # [T, N, C, H, W]
+        xg = conv_ops.conv2d(x_t.reshape((t * n,) + tuple(x_t.shape[2:])),
+                             params["W"], params["b"], stride=self.stride,
+                             pad=(0, 0), mode=self.mode)
+        xg = xg.reshape((t, n) + tuple(xg.shape[1:]))   # [T, N, 4H, H', W']
+        h = torch.zeros((n, self.nOut) + tuple(xg.shape[3:]),
+                        dtype=xg.dtype, device=xg.device)
+        c = h
+        hs = []
+        for step in range(t):
+            gates = xg[step] + conv_ops.conv2d(h, params["RW"], None,
+                                               mode="same")
+            i, f, g, o = torch.chunk(gates, 4, dim=1)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            h = torch.sigmoid(o) * torch.tanh(c)
+            if self.return_sequences:
+                hs.append(h)
+        if self.return_sequences:
+            return torch.stack(hs, dim=2), state
+        return h, state
+
+    def output_type(self, it: InputType) -> InputType:
+        h = conv_ops.conv_output_size(it.height, self.kernel[0],
+                                      self.stride[0], 0, 1, self.mode)
+        w = conv_ops.conv_output_size(it.width, self.kernel[1],
+                                      self.stride[1], 0, 1, self.mode)
+        if self.return_sequences:
+            return InputType.convolutional3D(it.depth, h, w, self.nOut)
+        return InputType.convolutional(h, w, self.nOut)
+
+
+# ------------------------------------------------------------------- 3-D
+def _triple(v):
+    return tuple(int(s) for s in v) if isinstance(v, (tuple, list)) \
+        else (int(v),) * 3
+
+
+class Convolution3D(Layer):
+    """ref: Convolution3D — NCDHW, W [nOut, nIn, kD, kH, kW]."""
+
+    input_kind = "cnn3d"
+
+    def __init__(self, kernelSize=(3, 3, 3), stride=(1, 1, 1),
+                 padding=(0, 0, 0), nOut=None,
+                 convolutionMode: str = "truncate", hasBias: bool = True,
+                 **kw):
+        super().__init__(nOut=nOut, **kw)
+        self.kernel = _triple(kernelSize)
+        self.stride = _triple(stride)
+        self.padding = _triple(padding)
+        self.mode = convolutionMode
+        self.has_bias = hasBias
+
+    def infer_nin(self, it: InputType):
+        if self.nIn is None:
+            self.nIn = it.channels
+
+    def initialize(self, gen):
+        params = {"W": _initialize((self.nOut, self.nIn) + self.kernel,
+                                   self.weight_init, gen)}
+        if self.has_bias:
+            params["b"] = torch.full((self.nOut,), float(self.bias_init))
+        return params, {}
+
+    def apply(self, params, state, x, train, key=None):
+        x = self._maybe_dropout(x, train, key)
+        out = conv_ops.conv3d(x, params["W"],
+                              params.get("b") if self.has_bias else None,
+                              stride=self.stride, pad=self.padding,
+                              mode=self.mode)
+        return act.get(self.activation)(out), state
+
+    def output_type(self, it: InputType) -> InputType:
+        d, h, w = (conv_ops.conv_output_size(s, k, st, p, 1, self.mode)
+                   for s, k, st, p in zip((it.depth, it.height, it.width),
+                                          self.kernel, self.stride,
+                                          self.padding))
+        return InputType.convolutional3D(d, h, w, self.nOut)
+
+
+class Subsampling3DLayer(Layer):
+    """ref: Subsampling3DLayer — NCDHW max/avg pooling."""
+
+    input_kind = "cnn3d"
+    has_params = False
+
+    def __init__(self, poolingType: str = "max", kernelSize=(2, 2, 2),
+                 stride=None, padding=(0, 0, 0), **kw):
+        super().__init__(**kw)
+        self.pooling = poolingType.lower()
+        self.kernel = _triple(kernelSize)
+        self.stride = tuple(stride) if stride is not None else self.kernel
+        self.padding = _triple(padding)
+
+    def infer_nin(self, it: InputType):
+        self.nIn = self.nOut = it.channels
+
+    def apply(self, params, state, x, train, key=None):
+        fn = conv_ops.maxpool3d if self.pooling == "max" \
+            else conv_ops.avgpool3d
+        return fn(x, kernel=self.kernel, stride=self.stride,
+                  pad=self.padding), state
+
+    def output_type(self, it: InputType) -> InputType:
+        d, h, w = (conv_ops.conv_output_size(s, k, st, p, 1, "truncate")
+                   for s, k, st, p in zip((it.depth, it.height, it.width),
+                                          self.kernel, self.stride,
+                                          self.padding))
+        return InputType.convolutional3D(d, h, w, it.channels)
+
+
+def _triple_pads(spec):
+    """int | (a, b, c) | ((lo, hi), ...) -> three (lo, hi) pairs."""
+    if isinstance(spec, int):
+        spec = (spec,) * 3
+    return tuple((int(p), int(p)) if isinstance(p, int)
+                 else (int(p[0]), int(p[1])) for p in spec)
+
+
+class ZeroPadding3DLayer(Layer):
+    """ref: ZeroPadding3DLayer — NCDHW."""
+
+    input_kind = "cnn3d"
+    has_params = False
+
+    def __init__(self, padding=(1, 1, 1), **kw):
+        super().__init__(**kw)
+        self.pad = _triple_pads(padding)
+
+    def infer_nin(self, it):
+        self.nIn = self.nOut = it.channels
+
+    def apply(self, params, state, x, train, key=None):
+        flat = [p for lo_hi in reversed(self.pad) for p in lo_hi]
+        return F.pad(x, flat), state
+
+    def output_type(self, it):
+        d, h, w = (s + sum(p) for s, p in
+                   zip((it.depth, it.height, it.width), self.pad))
+        return InputType.convolutional3D(d, h, w, it.channels)
+
+
+class Cropping3D(Layer):
+    """ref: Cropping3D — NCDHW."""
+
+    input_kind = "cnn3d"
+    has_params = False
+
+    def __init__(self, crop=(1, 1, 1), **kw):
+        super().__init__(**kw)
+        self.crop = _triple_pads(crop)
+
+    def infer_nin(self, it):
+        self.nIn = self.nOut = it.channels
+
+    def apply(self, params, state, x, train, key=None):
+        (d0, d1), (h0, h1), (w0, w1) = self.crop
+        d, h, w = x.shape[2:]
+        return x[:, :, d0:d - d1, h0:h - h1, w0:w - w1], state
+
+    def output_type(self, it):
+        d, h, w = (s - sum(c) for s, c in
+                   zip((it.depth, it.height, it.width), self.crop))
+        return InputType.convolutional3D(d, h, w, it.channels)
+
+
+class Upsampling3D(Layer):
+    """ref: Upsampling3D — nearest repeat, NCDHW."""
+
+    input_kind = "cnn3d"
+    has_params = False
+
+    def __init__(self, size=2, **kw):
+        super().__init__(**kw)
+        self.scale = _triple(size)
+
+    def infer_nin(self, it):
+        self.nIn = self.nOut = it.channels
+
+    def apply(self, params, state, x, train, key=None):
+        for ax, s in zip((2, 3, 4), self.scale):
+            if s != 1:
+                x = torch.repeat_interleave(x, s, dim=ax)
+        return x, state
+
+    def output_type(self, it):
+        return InputType.convolutional3D(it.depth * self.scale[0],
+                                         it.height * self.scale[1],
+                                         it.width * self.scale[2],
+                                         it.channels)
+
+
+# ------------------------------------------------------ 1-D resampling
+class Upsampling1D(Layer):
+    """ref: Upsampling1D — [N, C, T] each step repeated ``size`` times."""
+
+    input_kind = "rnn"
+    has_params = False
+
+    def __init__(self, size: int = 2, **kw):
+        super().__init__(**kw)
+        self.size = int(size)
+
+    def infer_nin(self, it):
+        self.nIn = self.nOut = it.size
+
+    def apply(self, params, state, x, train, key=None):
+        return torch.repeat_interleave(x, self.size, dim=2), state
+
+    def output_type(self, it: InputType) -> InputType:
+        t = it.dims.get("timesteps", -1)
+        return InputType.recurrent(it.size, t * self.size if t > 0 else -1)
+
+
+class ZeroPadding1DLayer(Layer):
+    """ref: ZeroPadding1DLayer — zeros before and after along T."""
+
+    input_kind = "rnn"
+    has_params = False
+
+    def __init__(self, padding=1, **kw):
+        super().__init__(**kw)
+        self.pad = tuple(padding) if isinstance(padding, (tuple, list)) \
+            else (int(padding), int(padding))
+
+    def infer_nin(self, it):
+        self.nIn = self.nOut = it.size
+
+    def apply(self, params, state, x, train, key=None):
+        return F.pad(x, tuple(int(p) for p in self.pad)), state
+
+    def output_type(self, it: InputType) -> InputType:
+        t = it.dims.get("timesteps", -1)
+        return InputType.recurrent(it.size,
+                                   t + sum(self.pad) if t > 0 else -1)
+
+
+class Cropping1D(Layer):
+    """ref: Cropping1D — steps cut from the start and the end of T."""
+
+    input_kind = "rnn"
+    has_params = False
+
+    def __init__(self, cropping=1, **kw):
+        super().__init__(**kw)
+        self.crop = tuple(cropping) if isinstance(cropping, (tuple, list)) \
+            else (int(cropping), int(cropping))
+
+    def infer_nin(self, it):
+        self.nIn = self.nOut = it.size
+
+    def apply(self, params, state, x, train, key=None):
+        t = x.shape[2]
+        return x[:, :, self.crop[0]:t - self.crop[1]], state
+
+    def output_type(self, it: InputType) -> InputType:
+        t = it.dims.get("timesteps", -1)
+        return InputType.recurrent(it.size,
+                                   t - sum(self.crop) if t > 0 else -1)
+
+
+class MaskZeroLayer(Layer):
+    """ref: MaskZeroLayer / Keras Masking — steps whose every feature
+    equals ``maskValue`` are zeroed (the mask itself is not produced)."""
+
+    input_kind = "rnn"
+    has_params = False
+
+    def __init__(self, maskValue: float = 0.0, **kw):
+        super().__init__(**kw)
+        self.mask_value = float(maskValue)
+
+    def infer_nin(self, it):
+        self.nIn = self.nOut = it.size
+
+    def apply(self, params, state, x, train, key=None):
+        keep = (x != self.mask_value).any(dim=1, keepdim=True)
+        return torch.where(keep, x, torch.zeros((), dtype=x.dtype,
+                                                device=x.device)), state
+
+    def output_type(self, it: InputType) -> InputType:
+        return it
+
+
+# -------------------------------------------------------------------- noise
+class GaussianNoiseLayer(Layer):
+    """Keras GaussianNoise — additive N(0, stddev) noise in training (the
+    draws of ``norm_ops.gaussian_noise``), the identity otherwise."""
+
+    input_kind = None
+    has_params = False
+
+    def __init__(self, stddev: float = 0.1, **kw):
+        super().__init__(**kw)
+        self.stddev = float(stddev)
+
+    def infer_nin(self, it):
+        self.nIn = self.nOut = it.arrayElementsPerExample()
+
+    def apply(self, params, state, x, train, key=None):
+        return norm_ops.gaussian_noise(x, self.stddev, key,
+                                       train=train), state
+
+    def output_type(self, it):
+        return it
+
+
+class GaussianDropoutLayer(GaussianNoiseLayer):
+    """Keras GaussianDropout — multiplicative N(1, rate/(1-rate)) noise in
+    training."""
+
+    def __init__(self, rate: float = 0.1, **kw):
+        Layer.__init__(self, **kw)
+        self.rate = float(rate)
+
+    def apply(self, params, state, x, train, key=None):
+        return norm_ops.gaussian_dropout(x, self.rate, key,
+                                         train=train), state
+
+
+class AlphaDropoutLayer(GaussianNoiseLayer):
+    """Keras AlphaDropout — SELU's self-normalizing dropout in training,
+    through the registry's ``alpha_dropout``."""
+
+    def __init__(self, rate: float = 0.1, **kw):
+        Layer.__init__(self, **kw)
+        self.rate = float(rate)
+
+    def apply(self, params, state, x, train, key=None):
+        if not train or self.rate <= 0:
+            return x, state
+        return registry.get("alpha_dropout")(key, x, self.rate), state
+
+
+# ------------------------------------------------------------------ wrapper
+class TimeDistributed(Layer):
+    """Keras TimeDistributed(Dense) — the dense layer at every step of
+    [N, C, T] -> [N, nOut, T] (one einsum)."""
+
+    input_kind = "rnn"
+
+    def __init__(self, inner: DenseLayer = None, nOut=None, **kw):
+        if inner is not None and not isinstance(inner, DenseLayer):
+            raise ValueError("TimeDistributed supports a Dense inner layer")
+        super().__init__(nOut=nOut if nOut is not None
+                         else (inner.nOut if inner else None), **kw)
+        if inner is not None and self.activation is None:
+            self.activation = inner.activation
+        self.has_bias = inner.has_bias if inner is not None else True
+
+    def initialize(self, gen):
+        return self._dense_init(gen)
+
+    def apply(self, params, state, x, train, key=None):
+        z = torch.einsum("nct,ch->nht", x, params["W"])
+        if self.has_bias:
+            z = z + params["b"][None, :, None]
+        fn = act.get(self.activation)
+        a = fn(z, axis=1) if self.activation in ("softmax", "logsoftmax") \
+            else fn(z)
+        return a, state
+
+    def output_type(self, it: InputType) -> InputType:
+        return InputType.recurrent(self.nOut, it.dims.get("timesteps", -1))
+
+
 _LAYER_CLASSES = {cls.__name__: cls for cls in (
     DenseLayer, ConvolutionLayer, Deconvolution2D, DepthwiseConvolution2D,
     SeparableConvolution2D, SubsamplingLayer, BatchNormalization,
@@ -947,7 +1848,13 @@ _LAYER_CLASSES = {cls.__name__: cls for cls in (
     SpatialDropoutLayer, ZeroPaddingLayer, Upsampling2D, Cropping2D,
     GlobalPoolingLayer, LSTM, GravesLSTM, GRU, SimpleRnn, Bidirectional,
     BidirectionalLastStep, LastTimeStep, OutputLayer, LossLayer,
-    RnnOutputLayer)}
+    RnnOutputLayer, EmbeddingLayer, EmbeddingSequenceLayer, Convolution1D,
+    Subsampling1DLayer, PReLULayer, LayerNorm, GroupNorm, UnitNormLayer,
+    Permute, RepeatVector, SelfAttentionLayer, LearnedSelfAttentionLayer,
+    RecurrentAttentionLayer, ConvLSTM2D, Convolution3D, Subsampling3DLayer,
+    ZeroPadding3DLayer, Cropping3D, Upsampling3D, Upsampling1D,
+    ZeroPadding1DLayer, Cropping1D, MaskZeroLayer, GaussianNoiseLayer,
+    GaussianDropoutLayer, AlphaDropoutLayer, TimeDistributed)}
 
 
 def layer_from_config(d: Dict) -> Layer:

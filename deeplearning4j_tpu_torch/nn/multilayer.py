@@ -61,10 +61,11 @@ from deeplearning4j_tpu_torch.nn.network import EVAL_PULL_CHUNK, BaseNetwork
 from deeplearning4j_tpu_torch.ops.normalization import StepKey
 from deeplearning4j_tpu_torch.train import stepping
 
-#: layers that take the feature mask (the JAX package's tuple, its ported
-#: members; GravesLSTM by subclassing, GRU not at all)
+#: layers that take the feature mask (the JAX package's tuple; GravesLSTM
+#: and LearnedSelfAttentionLayer by subclassing, GRU not at all)
 _MASK_AWARE = (L.LSTM, L.SimpleRnn, L.Bidirectional, L.LastTimeStep,
-               L.GlobalPoolingLayer)
+               L.GlobalPoolingLayer, L.SelfAttentionLayer,
+               L.RecurrentAttentionLayer)
 
 _TBPTT_NAMES = ("tbptt", "truncatedbptt", "truncated_bptt")
 

@@ -1,5 +1,6 @@
-"""Attention ops over ``[B, T, H, D]`` tensors (the slice's subset of
-``deeplearning4j_tpu/ops/attention.py``).
+"""Attention ops over ``[B, T, H, D]`` tensors, the port of
+``deeplearning4j_tpu/ops/attention.py``, with the reference-layout
+``[B, E, T]`` wrapper at the bottom.
 
 ``flash_attention`` dispatches to the installed platform override (the
 CUDA kernel of :mod:`.cuda_kernels`) and otherwise runs the blockwise
@@ -13,6 +14,8 @@ import math
 
 import torch
 
+from deeplearning4j_tpu_torch.ops.normalization import dtype_scalar
+
 _NEG = -1e30
 
 
@@ -20,21 +23,48 @@ def dot_product_attention(q, k, v, *, mask=None, scaled: bool = True,
                           is_causal: bool = False):
     """Scaled dot-product attention over [B, T, H, D] tensors.
 
-    mask: broadcastable to [B, H, Tq, Tk]; 1 = attend, 0 = block.
+    mask: broadcastable to [B, H, Tq, Tk]; 1 = attend, 0 = block. The
+    scale and the blocked score are host scalars rounded to q's dtype (no
+    copy to the card, so the op runs inside a CUDA-graph capture).
     """
     B, Tq, H, D = q.shape
-    scale = torch.tensor(1.0 / math.sqrt(D) if scaled else 1.0,
-                         dtype=q.dtype, device=q.device)
+    scale = dtype_scalar(1.0 / math.sqrt(D) if scaled else 1.0, q.dtype)
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
-    neg = torch.tensor(_NEG, dtype=scores.dtype, device=scores.device)
     if mask is not None:
-        scores = torch.where(mask > 0, scores, neg)
+        scores = torch.where(mask > 0, scores, _NEG)
     if is_causal:
         causal = torch.tril(torch.ones((Tq, k.shape[1]), dtype=torch.bool,
                                        device=q.device))
-        scores = torch.where(causal[None, None], scores, neg)
+        scores = torch.where(causal[None, None], scores, _NEG)
     weights = torch.softmax(scores.float(), dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", weights, v)
+
+
+def multi_head_attention(x_q, x_kv, wq, wk, wv, wo, *, num_heads: int,
+                         mask=None, is_causal: bool = False,
+                         bq=None, bk=None, bv=None, bo=None,
+                         use_flash: bool = False, block_size: int = 512):
+    """Multi-head attention with its projections (ref: libnd4j
+    ``multi_head_dot_product_attention``): x_q [B, Tq, E], x_kv [B, Tk, E],
+    w* [E, E] -> [B, Tq, E]."""
+    B, Tq, E = x_q.shape
+    D = E // num_heads
+
+    def proj(x, w, b):
+        y = x @ w
+        if b is not None:
+            y = y + b
+        return y.reshape(x.shape[0], x.shape[1], num_heads, D)
+    q, k, v = proj(x_q, wq, bq), proj(x_kv, wk, bk), proj(x_kv, wv, bv)
+    if use_flash:
+        ctx = flash_attention(q, k, v, mask=mask, is_causal=is_causal,
+                              block_size=block_size)
+    else:
+        ctx = dot_product_attention(q, k, v, mask=mask, is_causal=is_causal)
+    out = ctx.reshape(B, Tq, E) @ wo
+    if bo is not None:
+        out = out + bo
+    return out
 
 
 def flash_attention(q, k, v, *, mask=None, is_causal: bool = False,
@@ -106,3 +136,15 @@ def _flash_attention_scan(q, k, v, *, mask=None, is_causal: bool = False,
         m_run = m_new
     out = acc / torch.clamp(l_run, min=1e-30)[..., None]
     return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+# --------------------------------------------------- reference-layout shim
+def dot_product_attention_ncw(q_ncw, k_ncw, v_ncw, mask=None, scaled=True):
+    """The reference's layout: queries [B, E, Tq], keys and values
+    [B, E, Tk] (one head of width E), an optional key mask [B, Tk];
+    returns [B, E, Tq]."""
+    q, k, v = (t.transpose(1, 2)[:, :, None, :] for t in (q_ncw, k_ncw,
+                                                           v_ncw))
+    m = mask[:, None, None, :] if mask is not None else None
+    out = dot_product_attention(q, k, v, mask=m, scaled=scaled)
+    return out[:, :, 0, :].transpose(1, 2)

@@ -1,5 +1,7 @@
-"""The 2-D convolution, pooling and resampling ops of
-``deeplearning4j_tpu/ops/convolution.py`` (1-D and 3-D are not ported).
+"""The convolution, pooling and resampling ops of
+``deeplearning4j_tpu/ops/convolution.py``: 2-D in both layouts, 1-D
+(``[N, C, T]``, with causal mode) and 3-D (``[N, C, D, H, W]``)
+channels-first.
 
 The JAX package leaves convolutions to XLA; the port leaves them to
 ``F.conv2d`` and ``F.conv_transpose2d`` (cuDNN on the card). Weights stay
@@ -12,7 +14,9 @@ memory when the NHWC tensor is contiguous, so cuDNN runs channels-last
 and the result permutes back to a contiguous NHWC tensor without a copy.
 
 Padding follows DL4J's ``ConvolutionMode``: ``truncate`` (explicit
-symmetric padding, floor-divided output) and ``same``: XLA's SAME, which
+symmetric padding, floor-divided output), ``causal`` (1-D only: a left
+pad of ``(k-1)*dilation``, so an output sees no later step; the 2-D ops
+refuse it) and ``same``: XLA's SAME, which
 ignores the explicit padding and pads ``max((ceil(n/s)-1)*s + k' - n,
 0)`` per spatial dim (``k'`` the dilated kernel), half of it (rounded
 down) before and the rest after. Torch pads only symmetrically, so an
@@ -47,11 +51,13 @@ def _channels_first(data_format: str) -> bool:
     return fmt == "NCHW"
 
 
-def _check_mode(mode: str) -> None:
-    if mode.lower() not in ("truncate", "strict", "same"):
+def _check_mode(mode: str, causal: bool = False) -> None:
+    """Refuse a mode the op does not take; ``causal`` is the 1-D ops'."""
+    ok = ("truncate", "strict", "same") + (("causal",) if causal else ())
+    if mode.lower() not in ok:
         raise NotImplementedError(f"convolution mode {mode!r}: only "
                                   "'truncate', 'strict' and 'same' are "
-                                  "ported (causal is 1-D)")
+                                  "ported for 2-D and 3-D (causal is 1-D)")
 
 
 def _to_torch(x, cf: bool):
@@ -74,15 +80,64 @@ def _bias_reshape(b, ndim_spatial: int, data_format: str):
     return b.reshape((1,) + (1,) * ndim_spatial + (-1,))
 
 
-def _same_pad(xt, kernel, stride, dilation=(1, 1), value=0.0):
-    """XLA's SAME padding of an NCHW-shaped tensor: ``(xt, padding)``,
-    the symmetric part left to the op's ``padding`` and an odd remainder
-    padded after with ``F.pad``."""
-    (pt, pb), (pl, pr) = (same_padding(n, (k - 1) * d + 1, s) for n, k, s, d
-                          in zip(xt.shape[2:], kernel, stride, dilation))
-    if pb != pt or pr != pl:
-        xt = F.pad(xt, (0, pr - pl, 0, pb - pt), value=value)
-    return xt, (pt, pl)
+def _same_pad(xt, kernel, stride, dilation=None, value=0.0):
+    """XLA's SAME padding of a channels-first tensor of any spatial rank:
+    ``(xt, padding)``, the symmetric part left to the op's ``padding``
+    and an odd remainder padded after with ``F.pad``."""
+    dilation = dilation or (1,) * len(kernel)
+    pads = [same_padding(n, (k - 1) * d + 1, s) for n, k, s, d
+            in zip(xt.shape[2:], kernel, stride, dilation)]
+    extra = []
+    for lo, hi in reversed(pads):
+        extra += [0, hi - lo]
+    if any(extra):
+        xt = F.pad(xt, extra, value=value)
+    return xt, tuple(lo for lo, _ in pads)
+
+
+def _channels_first_nd(data_format: str, names) -> None:
+    if data_format.upper() not in names + ("CHANNELS_FIRST",):
+        raise ValueError(f"data_format must be one of {names}, got "
+                         f"{data_format!r} (channels-last 1-D/3-D is not "
+                         "ported)")
+
+
+def conv1d(x, w, b=None, *, stride: int = 1, pad: int = 0,
+           dilation: int = 1, mode: str = "truncate",
+           data_format: str = "NCW", groups: int = 1):
+    """1D convolution (ref: ``conv1d``) of x [N, C, T] with w [O, C/groups,
+    k]; causal mode left-pads ``(k-1)*dilation``."""
+    _check_mode(mode, causal=True)
+    _channels_first_nd(data_format, ("NCW",))
+    k, s, d = int(w.shape[2]), int(stride), int(dilation)
+    p = int(pad)
+    if mode.lower() == "same":
+        x, (p,) = _same_pad(x, (k,), (s,), (d,))
+    elif mode.lower() == "causal":
+        x, p = F.pad(x, ((k - 1) * d, 0)), 0
+    out = F.conv1d(x, w, None, stride=s, padding=p, dilation=d,
+                   groups=groups)
+    if b is not None:
+        out = out + b.reshape(1, -1, 1)
+    return out
+
+
+def conv3d(x, w, b=None, *, stride: IntOrPair = 1, pad: IntOrPair = 0,
+           dilation: IntOrPair = 1, mode: str = "truncate",
+           data_format: str = "NCDHW"):
+    """3D convolution (ref: ``conv3dnew``) of x [N, C, D, H, W] with w
+    [O, C, kD, kH, kW]."""
+    _check_mode(mode)
+    _channels_first_nd(data_format, ("NCDHW",))
+    stride, pad, dilation = _pair(stride, 3), _pair(pad, 3), \
+        _pair(dilation, 3)
+    if mode.lower() == "same":
+        x, pad = _same_pad(x, tuple(w.shape[2:]), stride, dilation)
+    out = F.conv3d(x, w, None, stride=stride, padding=pad,
+                   dilation=dilation)
+    if b is not None:
+        out = out + b.reshape(1, -1, 1, 1, 1)
+    return out
 
 
 def conv2d(x, w, b=None, *, stride: IntOrPair = 1, pad: IntOrPair = 0,
@@ -198,43 +253,87 @@ def pnormpool2d(x, *, kernel: IntOrPair, stride: IntOrPair = None,
     return _from_torch(sums ** (1.0 / p), cf)
 
 
-def _pool(x, kind: str, kernel, stride, pad, mode, data_format):
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+_AVG_POOL = {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}
+
+
+def _pool(x, kind: str, kernel, stride, pad, mode, data_format,
+          ndim: int = 2):
     _check_mode(mode)
-    cf = _channels_first(data_format)
-    kernel = _pair(kernel)
-    stride = _pair(stride if stride is not None else kernel)
-    pad = _pair(pad)
+    if ndim == 2:
+        cf = _channels_first(data_format)
+    else:
+        _channels_first_nd(data_format, ("NCW",) if ndim == 1
+                           else ("NCDHW",))
+        cf = True
+    kernel = _pair(kernel, ndim)
+    stride = _pair(stride if stride is not None else kernel, ndim)
+    pad = _pair(pad, ndim)
     xt = _to_torch(x, cf)
     if mode.lower() == "same":
         return _from_torch(_pool_same(xt, kind, kernel, stride), cf)
     if kind == "max":
-        out = F.max_pool2d(xt, kernel, stride, pad)
+        out = _MAX_POOL[ndim](xt, kernel, stride, pad)
     elif kind == "avg":
-        out = F.avg_pool2d(xt, kernel, stride, pad, count_include_pad=False)
+        out = _AVG_POOL[ndim](xt, kernel, stride, pad,
+                              count_include_pad=False)
     else:
         raise ValueError(kind)
     return _from_torch(out, cf)
 
 
+def _window_sum(xt, kernel, stride):
+    """Each window's sum (no padding) of a channels-first tensor."""
+    if xt.dim() == 3:       # avg_pool1d has no divisor_override
+        return F.avg_pool2d(xt[:, :, None], (1, kernel[0]), (1, stride[0]),
+                            divisor_override=1)[:, :, 0]
+    return _AVG_POOL[xt.dim() - 2](xt, kernel, stride, divisor_override=1)
+
+
 def _pool_same(xt, kind: str, kernel, stride):
-    """Same-mode pooling of an NCHW-shaped tensor: pad (``-inf`` for max,
-    zeros for avg), pool with no padding; avg divides each window's fp32
-    sum by its count of real elements."""
-    (pt, pb), (pl, pr) = (same_padding(n, k, s) for n, k, s in
-                          zip(xt.shape[2:], kernel, stride))
-    spatial = (pl, pr, pt, pb)
+    """Same-mode pooling of a channels-first tensor: pad (``-inf`` for
+    max, zeros for avg), pool with no padding; avg divides each window's
+    fp32 sum by its count of real elements."""
+    pads = [same_padding(n, k, s) for n, k, s in
+            zip(xt.shape[2:], kernel, stride)]
+    spatial = [p for lo_hi in reversed(pads) for p in lo_hi]
     if kind == "max":
-        return F.max_pool2d(F.pad(xt, spatial, value=-math.inf), kernel,
-                            stride)
+        return _MAX_POOL[len(kernel)](F.pad(xt, spatial, value=-math.inf),
+                                      kernel, stride)
     if kind != "avg":
         raise ValueError(kind)
-    sums = F.avg_pool2d(F.pad(xt.float(), spatial), kernel, stride,
-                        divisor_override=1)
+    sums = _window_sum(F.pad(xt.float(), spatial), kernel, stride)
     ones = torch.ones((1, 1) + tuple(xt.shape[2:]), dtype=torch.float32,
                       device=xt.device)
-    counts = F.avg_pool2d(F.pad(ones, spatial), kernel, stride,
-                          divisor_override=1)
+    counts = _window_sum(F.pad(ones, spatial), kernel, stride)
     return (sums / counts).to(xt.dtype)
+
+
+def maxpool1d(x, *, kernel: int, stride: int = None, pad: int = 0,
+              mode: str = "truncate", data_format: str = "NCW"):
+    """Max pooling over T of [N, C, T]."""
+    return _pool(x, "max", kernel, stride, pad, mode, data_format, 1)
+
+
+def avgpool1d(x, *, kernel: int, stride: int = None, pad: int = 0,
+              mode: str = "truncate", data_format: str = "NCW"):
+    """Average pooling over T of [N, C, T]; padding is left out of each
+    window's count."""
+    return _pool(x, "avg", kernel, stride, pad, mode, data_format, 1)
+
+
+def maxpool3d(x, *, kernel: IntOrPair, stride: IntOrPair = None,
+              pad: IntOrPair = 0, mode: str = "truncate",
+              data_format: str = "NCDHW"):
+    """Max pooling of [N, C, D, H, W]."""
+    return _pool(x, "max", kernel, stride, pad, mode, data_format, 3)
+
+
+def avgpool3d(x, *, kernel: IntOrPair, stride: IntOrPair = None,
+              pad: IntOrPair = 0, mode: str = "truncate",
+              data_format: str = "NCDHW"):
+    """Average pooling of [N, C, D, H, W]."""
+    return _pool(x, "avg", kernel, stride, pad, mode, data_format, 3)
 
 
 def global_pool(x, pooling_type: str = "avg", data_format: str = "NCHW",
@@ -343,10 +442,14 @@ def conv_output_size(size: int, kernel: int, stride: int, pad: int,
                      dilation: int = 1, mode: str = "truncate") -> int:
     """Shape inference for conv/pool (ref: ``ConvolutionUtils.
     getOutputSize``), which rejects a spatial output of zero; same mode
-    gives ``ceil(size / stride)`` whatever the kernel and padding."""
-    _check_mode(mode)
+    gives ``ceil(size / stride)`` whatever the kernel and padding, and
+    causal ``(size - 1) // stride + 1`` (the left pad keeps the length at
+    stride 1)."""
+    _check_mode(mode, causal=True)
     if mode.lower() == "same":
         return -(-size // stride)
+    if mode.lower() == "causal":
+        return (size - 1) // stride + 1
     eff_k = kernel + (kernel - 1) * (dilation - 1)
     out = (size + 2 * pad - eff_k) // stride + 1
     if out <= 0:

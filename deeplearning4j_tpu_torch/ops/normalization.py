@@ -1,8 +1,12 @@
-"""Normalization ops (layer norm, batch norm, LRN, dropout and the fused
-BN epilogue of ``deeplearning4j_tpu/ops/normalization.py``).
+"""Normalization ops (layer norm, batch norm, LRN, dropout, the noise
+ops and the fused BN epilogue of ``deeplearning4j_tpu/ops/
+normalization.py``).
 
 Dropout draws its masks from a counter-based hash (``dropout_mask``),
-not a generator: see the note above ``StepKey``.
+not a generator: see the note above ``StepKey``. The noise ops
+(``alpha_dropout``, ``gaussian_dropout``, ``gaussian_noise``) draw the
+same way: their masks from ``dropout_mask``, their normals from
+``normal_draw``.
 
 Batch norm follows the JAX package, not ``F.batch_norm``: statistics
 accumulate in fp32 over the input dtype, the variance is the biased
@@ -13,6 +17,7 @@ the unbiased variance).
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -199,6 +204,61 @@ def dropout(x, rate: float, key: Optional[StepKey], *, train: bool = True):
     mask = dropout_mask(key, x.shape, keep, x.device)
     return torch.where(mask, x / dtype_scalar(keep, x.dtype),
                        torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def normal_draw(key: StepKey, shape, device) -> torch.Tensor:
+    """Standard normal fp32 draws of ``shape``, a function of ``key``
+    alone: Box-Muller over two :func:`hash24` streams (``key`` folded with
+    0 and with 1), the first shifted half a step off zero so its log is
+    finite."""
+    n = 1
+    for s in shape:
+        n *= int(s)
+    step = 2.0 ** -24
+    u1 = (hash24(key.fold(0), n, device).float() + 0.5) * step
+    u2 = hash24(key.fold(1), n, device).float() * step
+    z = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * math.pi) * u2)
+    return z.reshape(tuple(shape))
+
+
+#: SELU's ``-scale * alpha``: the value a dropped unit takes in alpha
+#: dropout
+_ALPHA_P = -1.7580993408473766
+
+
+def alpha_dropout(x, rate: float, key: Optional[StepKey], *,
+                  train: bool = True):
+    """SELU-compatible alpha dropout (ref: DL4J ``AlphaDropout``): dropped
+    units take ``alpha'``, then ``a * x + b`` restores the mean and
+    variance. ``rate`` is the DROP probability."""
+    if not train or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = dropout_mask(key, x.shape, keep, x.device)
+    a = (keep + _ALPHA_P ** 2 * keep * (1.0 - keep)) ** -0.5
+    b = -a * _ALPHA_P * (1.0 - keep)
+    kept = torch.where(mask, x, torch.full((), _ALPHA_P, dtype=x.dtype,
+                                           device=x.device))
+    return (a * kept + b).to(x.dtype)
+
+
+def gaussian_dropout(x, rate: float, key: Optional[StepKey], *,
+                     train: bool = True):
+    """Multiplicative ``N(1, rate / (1 - rate))`` noise (ref: DL4J
+    ``GaussianDropout``)."""
+    if not train or rate <= 0.0:
+        return x
+    stddev = (rate / (1.0 - rate)) ** 0.5
+    noise = normal_draw(key, x.shape, x.device).to(x.dtype)
+    return x * (1.0 + stddev * noise)
+
+
+def gaussian_noise(x, stddev: float, key: Optional[StepKey], *,
+                   train: bool = True):
+    """Additive ``N(0, stddev)`` noise (ref: DL4J ``GaussianNoise``)."""
+    if not train or stddev <= 0.0:
+        return x
+    return x + stddev * normal_draw(key, x.shape, x.device).to(x.dtype)
 
 
 def dtype_scalar(v: float, dtype: torch.dtype) -> float:

@@ -201,6 +201,14 @@ def softmax(x, axis: int = -1):
 register("layer_norm", _norm.layer_norm)
 register("scale_shift_act", _norm.scale_shift_act)
 register("flash_attention", _attn.flash_attention)
+register("multi_head_dot_product_attention", _attn.multi_head_attention)
+# the JAX registry's argument order: (key, x, rate)
+register("alpha_dropout", lambda key, x, rate: _norm.alpha_dropout(
+    x, rate, key))
+register("gaussian_dropout", lambda key, x, rate: _norm.gaussian_dropout(
+    x, rate, key))
+register("gaussian_noise", lambda key, x, stddev: _norm.gaussian_noise(
+    x, stddev, key))
 register("softmax", softmax)
 register("log_softmax", lambda x, axis=-1: torch.log_softmax(x, dim=axis))
 register("relu_layer", lambda x, w, b: torch.relu(_xw_plus_b(x, w, b)))

@@ -818,3 +818,32 @@ def test_the_crop_launches_a_fixed_number_of_kernels(dev):
         counts.append(sum(e.device_type == torch.autograd.DeviceType.CUDA
                           for e in prof.events()))
     assert 0 < counts[0] == counts[1], counts
+
+
+def test_imported_keras_encoder_on_the_card(dev, tmp_path):
+    """The fixture Keras encoder (E=64, L=2, T=16) imported onto the card
+    with the kernels installed: 5 layer-norm launches a forward (1 + 2 a
+    block; no flash below T=1024), output within 1e-4 of the same file
+    imported on the CPU."""
+    from deeplearning4j_tpu_torch.modelimport import keras_fixtures as kf
+    from deeplearning4j_tpu_torch.modelimport.keras import \
+        importKerasModelAndWeights
+    path = str(tmp_path / "enc.h5")
+    kf.encoder_h5(path, 0, V=100, P=16, E=64, H=1, L=2, F=128)
+    rng = np.random.default_rng(0)
+    tok = rng.integers(0, 100, (4, 16)).astype(np.int32)
+    pos = np.tile(np.arange(16, dtype=np.int32), (4, 1))
+    cpu = importKerasModelAndWeights(path, device="cpu")
+    want = cpu.output([tok, pos]).numpy()
+    ck.install_platform_overrides()
+    try:
+        net = importKerasModelAndWeights(path)
+        ck.reset_counts()
+        got = net.output([tok, pos])
+        torch.cuda.synchronize()
+        assert ck.LAUNCHES["layer_norm"] == 5
+        assert ck.LAUNCHES["flash_attention"] == 0
+        assert not any(ck.PLAIN_CALLS.values())
+    finally:
+        ck.uninstall_platform_overrides()
+    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-4, atol=1e-4)

@@ -17,9 +17,10 @@ PORT = ROOT / "deeplearning4j_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "deeplearning4j_tpu"}
 #: what the card's machine lacks, so the port parses and loads model files
 #: itself: TF and protobuf (GraphDefs), ml_dtypes (bf16), safetensors and
-#: transformers (checkpoints); matched by dotted prefix
+#: transformers (checkpoints), h5py and Keras (Keras .h5 saves); matched
+#: by dotted prefix
 FORBIDDEN_LIBS = ("tensorflow", "google.protobuf", "ml_dtypes",
-                  "safetensors", "transformers")
+                  "safetensors", "transformers", "h5py", "keras")
 
 
 def _imported_names(path: Path):
@@ -138,10 +139,14 @@ def test_import_leaves_jax_unloaded():
              "deeplearning4j_tpu_torch.modelimport.tf_proto, "
              "deeplearning4j_tpu_torch.modelimport.tensorflow, "
              "deeplearning4j_tpu_torch.modelimport.tf_fixtures, "
+             "deeplearning4j_tpu_torch.modelimport.hdf5, "
+             "deeplearning4j_tpu_torch.modelimport.keras, "
+             "deeplearning4j_tpu_torch.modelimport.keras_fixtures, "
              "deeplearning4j_tpu_torch.analysis.imports; "
              "print(sorted(m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'jaxlib', 'deeplearning4j_tpu', 'tensorflow', "
-             "'ml_dtypes', 'safetensors', 'transformers') "
+             "'ml_dtypes', 'safetensors', 'transformers', 'h5py', "
+             "'keras') "
              "or m.startswith('google.protobuf')))", ROOT)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "[]"

@@ -301,8 +301,8 @@ class TestMultiLayerConfiguration:
              .setInputType(InputType.convolutional(4, 4, 1)).build())
         bad = json.loads(_small_list(JConf, jlayers, JInputType,
                                      jupd.Adam(1e-2)).build().to_json())
-        bad["layers"][0]["@class"] = "ConvLSTM2D"
-        with pytest.raises(NotImplementedError, match="ConvLSTM2D"):
+        bad["layers"][0]["@class"] = "SameDiffLayer"
+        with pytest.raises(NotImplementedError, match="SameDiffLayer"):
             MultiLayerConfiguration.from_json(json.dumps(bad))
 
 
