@@ -378,6 +378,42 @@ Phases (each one fails the run with a non-zero exit):
    captured and direct, kernels against plain versions within 1e-4. It
    prints the file's MB, the parse and import seconds, tokens/s, p50/p99
    and the captured B=32 replay beside phase 23's path A.
+29. ResNet-50 v1 from an ONNX file: ``zoo.ResNet50`` (1000 classes,
+   224^2, seed 0, fp32, no policy) with seeded BN statistics
+   (``onnx_fixtures.randomize_batch_norm``) written by
+   ``onnx_fixtures.write_resnet50`` to a temporary directory (the ONNX
+   model zoo's resnet50-v1 node kinds, ~102 MB), parsed by
+   ``onnx_proto`` and imported onto the card by ``importOnnxModel``; the
+   import report holds no E16x. On one [32, 3, 224, 224] batch the
+   imported logits are within ``ONNX_LOGIT_TOL`` of the largest logit of
+   the ``ComputationGraph``'s (``onnx_fixtures.resnet50_logits``) and
+   their softmax within ``ONNX_PROB_TOL`` of ``output()``, with no kernel
+   launched. Served through ``ModelServer`` over ``sd.output`` (captured
+   per bucket, B <= 32): 64 requests of 1-8 images, each resolved once,
+   equal to a direct call within the same bound, nothing launched or
+   replayed of the kernels, no recompile; images/s, p50/p99 and the
+   captured B=32 replay. ``SameDiff.save``/``load`` through the
+   ``"onnx"`` rebuild gives the logits back to the bit.
+30. Transfer learning: phase 9's TinyYOLO (20 classes, 416^2, B=32, bf16
+   policy, NHWC, fused epilogues) through ``TransferLearning.Builder``
+   (``FineTuneConfiguration`` with Adam 1e-4, ``setFeatureExtractor`` on
+   the last leaky activation, ``removeLayersFromOutput(2)``, a new 1x1
+   conv of 5 * (5 + 10) and a ``Yolo2OutputLayer`` with the same anchors)
+   into a 10-class detector on seeded label grids: 8 eager steps twice
+   and 2 captured dispatches of K=4 from one state, cuDNN deterministic,
+   held to the bit (the rule with ``exact``); every frozen param and its
+   Adam moments bit-equal after each run, every head param moved, 8
+   ``scale_shift_act`` launches a forward (the frozen prefix's 8 fused
+   blocks) and 32 recorded at capture, finite losses (not required to
+   fall: TinyYOLO's loss spikes). Then ``TransferLearningHelper``:
+   ``featurize`` over 4 batches ([32, 1024, 13, 13]) and
+   ``fitFeaturized`` for one epoch; the source TinyYOLO's params are
+   untouched.
+31. ``SameDiffLayer``: the gated dense fragment of
+   ``tests/test_attention_layers.py`` (``sigmoid(x Wg) * tanh(x W)``) at
+   768 -> 768 in a ``MultiLayerNetwork``, B=256, fp32, Adam: 4 eager
+   steps twice and one captured dispatch of K=4 from one state, held to
+   the bit, no capture failure.
 
 The captured-against-eager rule: where the two eager runs agree to the
 bit on a tensor (and on the params' group: the param and its Adam
@@ -412,7 +448,8 @@ Darknet19 row phase 18's and its YOLO2 row phase 19's eager steps;
 and replays; ``import_launches`` and ``import_train_launches`` are phase
 23's served launches (warmup and replays) and its train steps';
 ``long_run_launches`` phase 25's capture; ``keras_launches`` phase 28's:
-layer norm's served at T=128 and at T=1024, flash's at T=1024), the
+layer norm's served at T=128 and at T=1024, flash's at T=1024;
+``transfer_launches`` phase 30's recorded at its K=4 capture), the
 ``nvidia-smi`` name/power-limit line, and as the last line
 ``{"ok": true, "device": {...}}``. Without a card, or outside a
 checkout, it exits non-zero and prints no result.
@@ -511,6 +548,23 @@ DYN_STEPS = 32
 #: phase 27: LeNet-5 under early stopping
 ES_MAX_EPOCHS = 10
 ES_PATIENCE = 2
+#: phase 29: ResNet-50 v1 from an ONNX file, served at B <= 32, 224^2, fp32;
+#: the imported logits against the ComputationGraph's within ONNX_LOGIT_TOL
+#: of the largest logit, its softmax against output() within ONNX_PROB_TOL
+#: (the first card run measured 5.6e-7 of the largest logit and 3.4e-10)
+ONNX_BATCH = 32
+ONNX_REQUESTS = 64
+ONNX_LOGIT_TOL = 1e-5
+ONNX_PROB_TOL = 1e-6
+#: phase 30: TinyYOLO fine-tuned into a 10-class detector (HouseNumber-
+#: Detection's shape of transfer), 8 eager steps and 2 dispatches of K=4,
+#: then TransferLearningHelper over 4 featurized batches
+TRANSFER_CLASSES = 10
+TRANSFER_STEPS = 8
+TRANSFER_FEATURIZE = 4
+#: phase 31: the gated dense SameDiffLayer at 768 -> 768, B=256
+SDL_WIDTH = 768
+SDL_BATCH = 256
 
 
 def fail(msg: str) -> None:
@@ -1573,6 +1627,18 @@ def main() -> None:
     keras = keras_encoder(smi, imported["path_a"])
     torch.cuda.empty_cache()
 
+    # ------------------------ 29. ResNet-50 from an ONNX file, served
+    onnx_resnet(smi)
+    torch.cuda.empty_cache()
+
+    # ------------- 30. transfer learning: TinyYOLO into 10 classes
+    transfer_launches = transfer_tinyyolo(smi)
+    torch.cuda.empty_cache()
+
+    # -------------------------------------------- 31. SameDiffLayer
+    samediff_layer(smi)
+    torch.cuda.empty_cache()
+
     ln.update(served["layer_norm"])
     fa.update(served["flash_attention"])
     for kr in (ln, fa):
@@ -1588,6 +1654,7 @@ def main() -> None:
     ssa["from_disk_launches"] = disk["at_capture"]
     ssa["from_disk_replays"] = disk["replays"]
     ssa["long_run_launches"] = long["at_capture"]
+    ssa["transfer_launches"] = transfer_launches
     sm["launches"] = sd_warm["softmax"] + sd_replays["softmax"]
     sm["replays"] = sd_replays["softmax"]
     bn_st["launches"] = probe_launches["bn_stats"]
@@ -1597,7 +1664,7 @@ def main() -> None:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "other_shapes", "pair", "from_disk_launches",
             "from_disk_replays", "import_launches", "import_train_launches",
-            "long_run_launches", "keras_launches")
+            "long_run_launches", "keras_launches", "transfer_launches")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{k: kr[k] for k in keys if k in kr}
                                   for kr in (ln, fa, ssa, sm, bn_st, bn_ap)]}))
@@ -4169,6 +4236,431 @@ def keras_encoder(smi: str, path_a: dict = None) -> dict:
             + long_replays["flash_attention"] + direct["flash_attention"],
             "long_layer_norm": long_warm["layer_norm"]
             + long_replays["layer_norm"] + direct["layer_norm"]}
+
+
+def onnx_resnet(smi: str) -> None:
+    """Phase 29: ResNet-50 v1 enters from an ONNX file and is served."""
+    import shutil
+
+    import torch
+
+    from deeplearning4j_tpu_torch.autodiff import SameDiff
+    from deeplearning4j_tpu_torch.modelimport import onnx_fixtures as fx
+    from deeplearning4j_tpu_torch.modelimport import onnx_proto
+    from deeplearning4j_tpu_torch.modelimport.onnx import importOnnxModel
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn import compilecache as cc
+    from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+    from deeplearning4j_tpu_torch.serving import (ModelServer,
+                                                  samediff_forward)
+    dev = torch.device("cuda")
+    B = ONNX_BATCH
+    t_phase = time.perf_counter()
+    net = zoo.ResNet50(num_classes=1000, seed=0,
+                       input_shape=(3, 224, 224)).init()
+    fx.randomize_batch_norm(net, seed=0)
+    tmp = tempfile.mkdtemp(prefix="onnx_import_")
+    try:
+        path = os.path.join(tmp, "resnet50-v1.onnx")
+        t0 = time.perf_counter()
+        fx.write_resnet50(net, path)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        model = onnx_proto.load_model(path)
+        parse_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sd = importOnnxModel(model)
+        torch.cuda.synchronize()
+        import_s = time.perf_counter() - t0
+        kinds = sorted({n.op_type for n in model.graph.nodes})
+        n_nodes = len(model.graph.nodes)
+        del model
+        codes = sd.import_report.codes()
+        log(f"phase 29: ResNet-50 v1 ONNX {os.path.getsize(path) / 1e6:.1f} "
+            f"MB ({net.numParams()} parameters, {n_nodes} nodes of "
+            f"{kinds}) written in {write_s:.2f} s; parsed in {parse_s:.3f} "
+            f"s, imported onto the card in {import_s:.2f} s: "
+            f"{len(sd._nodes)} ops, {len(sd._constants)} constants; import "
+            f"report {codes} [{smi}]")
+        if any(c.startswith("DL4J-E16") for c in codes) or \
+                any(t.device.type != "cuda"
+                    for t in sd._constants.values()):
+            fail(f"the ONNX import: report {sd.import_report.format()}")
+
+        # the gate: one B=32 batch against the ComputationGraph
+        rng = np.random.default_rng(3)
+        x32 = rng.standard_normal((B, 3, 224, 224), dtype=np.float32)
+        xt = torch.from_numpy(x32).to(dev)
+        ck.reset_counts()
+        logits = sd.output({"input": xt}, ["logits"])["logits"]
+        imported_launches = dict(ck.LAUNCHES)
+        ref = fx.resnet50_logits(net, xt)
+        probs = net.output(xt)
+        lmax = float(ref.abs().max())
+        dl = float((logits - ref).abs().max())
+        dp = float((torch.softmax(logits, -1) - probs).abs().max())
+        log(f"phase 29 ONNX import vs ComputationGraph on one [{B}, 3, 224, "
+            f"224] batch (fp32): logits max|diff| {dl:.3g} (max|logit| "
+            f"{lmax:.4g}, relative {dl / lmax:.3g}), softmax vs output() "
+            f"max|diff| {dp:.3g}")
+        if tuple(logits.shape) != (B, 1000) or \
+                not bool(torch.isfinite(logits).all()) or \
+                dl > ONNX_LOGIT_TOL * lmax or dp > ONNX_PROB_TOL or \
+                any(imported_launches.values()):
+            fail(f"the imported ResNet-50 differs from the graph beyond "
+                 f"{ONNX_LOGIT_TOL:g} of max|logit| (or softmax beyond "
+                 f"{ONNX_PROB_TOL:g}), or launched {imported_launches}")
+        del probs, ref
+        net_params = net.numParams()
+        del net
+        torch.cuda.empty_cache()
+
+        server = ModelServer(samediff_forward(sd, ["logits"],
+                                              input_name="input"),
+                             batch_limit=B, input_dtype=np.float32,
+                             coalesce_ms=5.0, max_queue=256)
+        try:
+            cc.reset_stats()
+            t0 = time.perf_counter()
+            server.warmup([(3, 224, 224)])
+            warm_s = time.perf_counter() - t0
+            stats = cc.cache_stats()
+            at_capture = server._dispatch.launches_at_capture()
+            reqs = [rng.standard_normal((int(rng.integers(1, 9)), 3, 224,
+                                         224), dtype=np.float32)
+                    for _ in range(ONNX_REQUESTS)]
+            handles, got, wall, launches, plain, n_fwd = \
+                serve_burst(server, reqs)
+            replays = dict(ck.REPLAYS)
+            recompiles = server.recompiles_after_warmup()
+            if any(h.resolutions != 1 for h in handles) or \
+                    server.counts["completed"] != ONNX_REQUESTS or \
+                    any(launches.values()) or any(plain.values()) or \
+                    any(replays.values()) or recompiles or \
+                    stats["capture_failures"] or \
+                    len(at_capture) != len(server.buckets()):
+                fail(f"ONNX serving: counts {dict(server.counts)}, "
+                     f"launches {launches}, replays {replays}, "
+                     f"recompiles {recompiles}, captures {at_capture}, "
+                     f"cache_stats {stats}")
+            worst = 0.0
+            for r, g in zip(reqs, got):
+                want = sd.output({"input": r}, ["logits"])["logits"]
+                worst = max(worst, float(np.abs(
+                    g - want.cpu().numpy()).max()))
+            if worst > ONNX_LOGIT_TOL * lmax:
+                fail(f"ONNX served and direct logits differ by {worst:.3g}")
+            images = sum(int(r.shape[0]) for r in reqs)
+            lat = sorted(h.resolved_at - h.enqueued_at for h in handles)
+            log(f"phase 29 warmup {warm_s:.2f} s: {len(at_capture)} graphs "
+                f"(buckets {server.buckets()}), no kernel; served "
+                f"{ONNX_REQUESTS} requests ({images} images) in {n_fwd} "
+                f"captured forwards, each resolved once, served vs direct "
+                f"max|diff| {worst:.3g}; {images / wall:.1f} images/s, "
+                f"latency p50 {1e3 * float(np.percentile(lat, 50)):.2f} ms, "
+                f"p99 {1e3 * float(np.percentile(lat, 99)):.2f} ms [{smi}]")
+            server._forward_raw(x32)
+            ts = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                server._forward_raw(x32)
+                ts.append((time.perf_counter() - t0) * 1e3)
+            rep_ms = float(np.median(ts))
+            log(f"phase 29 B={B} 224^2 fp32 forward, host batch to host "
+                f"answer, captured replay (median of 10): {rep_ms:.3f} ms, "
+                f"{B / (rep_ms / 1e3):.1f} images/s [{smi}]")
+        finally:
+            server.close()
+
+        p = os.path.join(tmp, "resnet50_onnx.sdz")
+        t0 = time.perf_counter()
+        sd.save(p, save_updater_state=False)
+        back = SameDiff.load(p)
+        rt_s = time.perf_counter() - t0
+        a = sd.output({"input": xt}, ["logits"])["logits"]
+        b = back.output({"input": xt}, ["logits"])["logits"]
+        if not torch.equal(a, b):
+            fail(f"ONNX save/load: logits differ by "
+                 f"{float((a - b).abs().max()):.3g}")
+        log(f"phase 29 save + load ({os.path.getsize(p) / 1e6:.1f} MB, "
+            f"{net_params} parameters) in {rt_s:.2f} s through the 'onnx' "
+            f"rebuild: logits bit-equal; phase 29 "
+            f"{time.perf_counter() - t_phase:.1f} s")
+        del sd, back
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def transfer_tinyyolo(smi: str) -> int:
+    """Phase 30: TinyYOLO fine-tuned into a 10-class detector with its
+    feature extractor frozen. Returns the ``scale_shift_act`` launches its
+    K=4 capture recorded."""
+    import torch
+
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn import compilecache as cc
+    from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.nn.objdetect import (Yolo2OutputLayer,
+                                                       yolo_labels)
+    from deeplearning4j_tpu_torch.nn.transfer import (FineTuneConfiguration,
+                                                      TransferLearning,
+                                                      TransferLearningHelper)
+    from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+    from deeplearning4j_tpu_torch.train import stepping
+    from deeplearning4j_tpu_torch.train.updaters import Adam
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    ck.install_platform_overrides()
+    src = zoo.TinyYOLO(num_classes=YOLO_CLASSES).init()
+    src.setPrecisionPolicy("bf16")
+    src.setComputeLayout("NHWC")
+    src.setEpilogueFusion(True)
+    src0 = snapshot([t for d in src._params for t in d.values()])
+    head_at = len(src.layers) - 2          # the 1x1 conv before the output
+    frozen_until = head_at - 1
+    if not (isinstance(src.layers[head_at], L.ConvolutionLayer)
+            and isinstance(src.layers[frozen_until], L.ActivationLayer)
+            and src.layers[frozen_until].activation == "leakyrelu"):
+        fail(f"TinyYOLO's layers {frozen_until}-{head_at}: "
+             f"{src.layers[frozen_until:]}")
+    n_out = 5 * (5 + TRANSFER_CLASSES)
+    t0 = time.perf_counter()
+    net = (TransferLearning.Builder(src)
+           .fineTuneConfiguration(FineTuneConfiguration.Builder()
+                                  .updater(Adam(1e-4)).build())
+           .setFeatureExtractor(frozen_until)
+           .removeLayersFromOutput(2)
+           .addLayer(L.ConvolutionLayer(kernelSize=(1, 1), nOut=n_out,
+                                        activation="identity"))
+           .addLayer(Yolo2OutputLayer(boundingBoxPriors=zoo.TinyYOLO.ANCHORS))
+           .build())
+    net.setPrecisionPolicy("bf16")
+    net.setEpilogueFusion(True)
+    build_s = time.perf_counter() - t0
+    frozen = sorted(net._frozen_layers)
+    if net._compute_layout != "NHWC" or frozen != list(range(head_at)):
+        fail(f"the new net: layout {net._compute_layout}, frozen {frozen}")
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal(
+        (YOLO_BATCH, 3, 416, 416), dtype=np.float32)).to(dev)
+    y = torch.from_numpy(yolo_labels(rng, YOLO_BATCH,
+                                     TRANSFER_CLASSES)).to(dev)
+    ds = DataSet(x, y)
+    log(f"phase 30: TinyYOLO ({src.numParams()} parameters, "
+        f"{YOLO_CLASSES} classes) -> {TRANSFER_CLASSES}-class detector "
+        f"({net.numParams()} parameters, layers 0-{frozen_until} frozen: "
+        f"{sum(net._params[i][k].numel() for i in frozen for k in net._params[i])}"
+        f" parameters), built in {build_s:.2f} s; bf16 policy, NHWC, fused "
+        f"epilogues {sorted(net._ensure_epilogue_plan())}")
+    net._ensure_opt_state()
+    net._ensure_clock()
+    frozen_t = [net._params[i][k] for i in frozen for k in net._params[i]]
+    frozen_t += [v for i in frozen for st in net._opt_state[i].values()
+                 for v in st.values()]
+    head_t = [t for i in range(head_at, len(net.layers))
+              for t in net._params[i].values()]
+    frozen0, head0 = snapshot(frozen_t), snapshot(head_t)
+    names = [f"{n}.{p}" for n, ps in net._items(net._params) for p in ps]
+    names += [f"{n}.{s}" for n, ss in net._items(net._states) for s in ss]
+    names += [f"{n}.{p}.{m}" for n, ps in net._items(net._opt_state)
+              for p, st in ps.items() for m in st]
+    names.append("t")
+    s0 = snapshot(net._dispatch_state())
+
+    def start():
+        restore(net._dispatch_state(), s0)
+        net._iteration = 0
+
+    def frozen_held(what):
+        bad = [i for i, (a, b) in enumerate(zip(frozen_t, frozen0))
+               if not torch.equal(a, b)]
+        if bad:
+            fail(f"phase 30 {what}: {len(bad)} frozen params or updater "
+                 f"state tensors moved")
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        held, eager_ms, per_step = {}, [], []
+        for run in ("eager 1", "eager 2"):
+            start()
+            losses = []
+            for _ in range(TRANSFER_STEPS):
+                ck.reset_counts()
+                t0 = time.perf_counter()
+                net.fit(ds)
+                losses.append(net.score())
+                eager_ms.append((time.perf_counter() - t0) * 1e3)
+                per_step.append(ck.LAUNCHES["scale_shift_act"])
+            held[run] = (losses, snapshot(net._dispatch_state()))
+            frozen_held(run)
+            moved = [i for i, (a, b) in enumerate(zip(head_t, head0))
+                     if torch.equal(a, b)]
+            if moved:
+                fail(f"phase 30 {run}: head params {moved} did not move")
+        start()
+        cc.reset_stats()
+        t0 = time.perf_counter()
+        cc.warmup(net, [(tuple(x.shape), tuple(y.shape))],
+                  steps_per_dispatch=MEGA_K)
+        capture_s = time.perf_counter() - t0
+        if not all(torch.equal(a, b)
+                   for a, b in zip(net._dispatch_state(), s0)):
+            fail("phase 30: compilecache.warmup changed the network's state")
+        at_capture = net._step_for(False, MEGA_K).launches_at_capture()
+        mb = stepping.stack_megabatch([ds] * MEGA_K)
+        losses, cap_ms = [], []
+        ck.reset_counts()
+        for _ in range(TRANSFER_STEPS // MEGA_K):
+            t0 = time.perf_counter()
+            losses += net._fit_mega(mb).tolist()
+            cap_ms.append((time.perf_counter() - t0) * 1e3 / MEGA_K)
+        cap_launches, cap_replays = dict(ck.LAUNCHES), dict(ck.REPLAYS)
+        held["captured"] = (losses, snapshot(net._dispatch_state()))
+        frozen_held("captured")
+        stats = cc.cache_stats()
+        hold_captured("phase 30 transfer", held, names, exact=True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    n_disp = TRANSFER_STEPS // MEGA_K
+    want = {k: 0 for k in ck.KERNELS}
+    if set(per_step) != {8} or \
+            at_capture != [{"scale_shift_act": 8 * MEGA_K}] or \
+            cap_launches != want or \
+            cap_replays["scale_shift_act"] != 8 * MEGA_K * n_disp or \
+            stats["capture_failures"] or \
+            not all(np.isfinite(held["eager 1"][0] + losses)):
+        fail(f"phase 30: scale_shift_act launches a step {set(per_step)}, "
+             f"at capture {at_capture}, captured dispatches launched "
+             f"{cap_launches} and replayed {cap_replays}, cache_stats "
+             f"{stats}, losses {held['eager 1'][0]} / {losses}: want 8 a "
+             f"forward, {8 * MEGA_K} recorded, finite")
+    e_med, c_med = float(np.median(eager_ms)), float(np.median(cap_ms))
+    log(f"phase 30 fine-tune B={YOLO_BATCH}, Adam 1e-4 (deterministic "
+        f"cuDNN): losses {', '.join(f'{v:.5f}' for v in held['eager 1'][0])}"
+        f"; eager step ms median {e_med:.2f} (min {min(eager_ms):.2f}, max "
+        f"{max(eager_ms):.2f}), captured K={MEGA_K} step ms "
+        f"{', '.join(f'{v:.2f}' for v in cap_ms)} (capture {capture_s:.2f} "
+        f"s); {8} scale_shift_act launches a forward, {at_capture} at "
+        f"capture; frozen params and updater state bit-equal, every head "
+        f"param moved [{smi}]")
+
+    # the helper: the frozen prefix once a batch, then the head alone
+    helper = TransferLearningHelper(net, frozen_until=frozen_until)
+    t0 = time.perf_counter()
+    feats = []
+    for k in range(TRANSFER_FEATURIZE):
+        xb = torch.from_numpy(rng.standard_normal(
+            (YOLO_BATCH, 3, 416, 416), dtype=np.float32)).to(dev)
+        yb = torch.from_numpy(yolo_labels(rng, YOLO_BATCH,
+                                          TRANSFER_CLASSES)).to(dev)
+        feats.append(helper.featurize(DataSet(xb, yb)))
+    torch.cuda.synchronize()
+    feat_s = time.perf_counter() - t0
+    shape = tuple(feats[0].features.shape)
+    head0 = snapshot(head_t)
+    t0 = time.perf_counter()
+    helper.fitFeaturized(feats, epochs=1)
+    head_loss = net.score(DataSet(x, y))
+    fit_s = time.perf_counter() - t0
+    frozen_held("fitFeaturized")
+    if any(torch.equal(a, b) for a, b in zip(head_t, head0)):
+        fail("phase 30: fitFeaturized left a head param where it was")
+    if shape != (YOLO_BATCH, 1024, 13, 13) or not np.isfinite(head_loss):
+        fail(f"phase 30 featurize: {shape}, head loss {head_loss}")
+    if not all(torch.equal(a, b) for a, b in zip(
+            [t for d in src._params for t in d.values()], src0)):
+        fail("phase 30: the source TinyYOLO's params changed")
+    log(f"phase 30 TransferLearningHelper: featurized {TRANSFER_FEATURIZE} "
+        f"batches of {YOLO_BATCH} to {list(shape)} in {feat_s:.2f} s; "
+        f"fitFeaturized (the head alone, one epoch of them) in {fit_s:.2f} "
+        f"s, then the whole net's score on the first batch "
+        f"{head_loss:.5f}; the source TinyYOLO's params untouched; phase 30 "
+        f"{time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return at_capture[0]["scale_shift_act"]
+
+
+def samediff_layer(smi: str) -> None:
+    """Phase 31: the gated dense SameDiffLayer in a MultiLayerNetwork,
+    eager and captured."""
+    import torch
+
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.nn import compilecache as cc
+    from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.nn.config import (InputType,
+                                                    NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.train import stepping
+    from deeplearning4j_tpu_torch.train.updaters import Adam
+
+    class GatedDense(L.SameDiffLayer):
+        """y = sigmoid(x Wg) * tanh(x W)"""
+
+        def defineParameters(self):
+            return {"W": (self.nIn, self.nOut), "Wg": (self.nIn, self.nOut)}
+
+        def defineLayer(self, sd, layerInput, paramTable, mask=None):
+            h = layerInput.mmul(paramTable["W"]).tanh()
+            g = layerInput.mmul(paramTable["Wg"]).sigmoid()
+            return h * g
+
+    dev = torch.device("cuda")
+    E, B, n_cls = SDL_WIDTH, SDL_BATCH, 10
+    net = MultiLayerNetwork(
+        NeuralNetConfiguration.Builder().seed(9).updater(Adam(5e-3))
+        .weightInit("xavier").list()
+        .layer(GatedDense(nOut=E))
+        .layer(L.OutputLayer(nOut=n_cls, lossFunction="mcxent",
+                             activation="softmax"))
+        .setInputType(InputType.feedForward(E)).build()).init()
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((B, E), dtype=np.float32)
+                         ).to(dev)
+    y = torch.from_numpy(np.eye(n_cls, dtype=np.float32)[
+        rng.integers(0, n_cls, B)]).to(dev)
+    ds = DataSet(x, y)
+    net._ensure_opt_state()
+    net._ensure_clock()
+    names = [f"{n}.{p}" for n, ps in net._items(net._params) for p in ps]
+    names += [f"{n}.{p}.{m}" for n, ps in net._items(net._opt_state)
+              for p, st in ps.items() for m in st]
+    names.append("t")
+    s0 = snapshot(net._dispatch_state())
+    held, eager_ms = {}, []
+    for run in ("eager 1", "eager 2"):
+        restore(net._dispatch_state(), s0)
+        net._iteration = 0
+        losses = []
+        for _ in range(MEGA_K):
+            t0 = time.perf_counter()
+            net.fit(ds)
+            losses.append(net.score())
+            eager_ms.append((time.perf_counter() - t0) * 1e3)
+        held[run] = (losses, snapshot(net._dispatch_state()))
+    restore(net._dispatch_state(), s0)
+    net._iteration = 0
+    cc.reset_stats()
+    cc.warmup(net, [(tuple(x.shape), tuple(y.shape))],
+              steps_per_dispatch=MEGA_K)
+    mb = stepping.stack_megabatch([ds] * MEGA_K)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = net._fit_mega(mb).tolist()
+    cap_ms = (time.perf_counter() - t0) * 1e3 / MEGA_K
+    held["captured"] = (losses, snapshot(net._dispatch_state()))
+    stats = cc.cache_stats()
+    if stats["capture_failures"] or stats["memory"]["hits"] != 1 or \
+            not all(np.isfinite(held["eager 1"][0] + losses)):
+        fail(f"phase 31: cache_stats {stats}, losses {losses}")
+    hold_captured("phase 31 SameDiffLayer", held, names, exact=True)
+    log(f"phase 31 SameDiffLayer (gated dense {E}->{E}, fp32) in a "
+        f"MultiLayerNetwork, B={B}, Adam 5e-3: losses "
+        f"{', '.join(f'{v:.5f}' for v in held['eager 1'][0])}; eager step ms "
+        f"median {float(np.median(eager_ms)):.2f}, captured K={MEGA_K} "
+        f"{cap_ms:.2f} a step; captured bit-equal to eager, no capture "
+        f"failure [{smi}]")
 
 
 def plain_overrides(registry, ck) -> None:

@@ -23,8 +23,15 @@ DIAGNOSTIC_CODES = {
                  "target version was never warmed (or misses shapes the "
                  "active version serves warm), so post-roll traffic "
                  "captures under live load",
-    # E16x/W16x import-time lints (analysis/imports.py, emitted by the TF
-    # importer into the returned graph's import_report)
+    # E16x/W16x import-time lints (analysis/imports.py, emitted by the
+    # importers into the returned graph's import_report)
+    "DL4J-E161": "unmapped import op: the source graph uses an op the "
+                 "importer has no builder for — the import raises (or "
+                 "the pre-scan reports every such op up front)",
+    "DL4J-E162": "unhonored import semantics: an attribute/opset detail "
+                 "the builder cannot reproduce exactly (ceil_mode pools, "
+                 "SAME_LOWER asymmetric padding, ...) — results will "
+                 "differ from the source framework",
     "DL4J-E163": "lossy import narrowing: an initializer or input dtype "
                  "is narrowed at import (fp64 weights -> fp32, int64 "
                  "indices -> int32) and large values would truncate",
@@ -76,6 +83,9 @@ class ValidationReport:
                  subject: str = ""):
         self.subject = subject
         self.diagnostics: List[Diagnostic] = list(diagnostics)
+
+    def add(self, diag: Diagnostic) -> None:
+        self.diagnostics.append(diag)
 
     def extend(self, diags: Iterable[Diagnostic]) -> None:
         self.diagnostics.extend(diags)

@@ -1,12 +1,18 @@
-"""Import-time lints (E163, W161-W163): what a model loses crossing the
-border into the port — the TF and Keras halves of
-``deeplearning4j_tpu/analysis/imports.py``.
+"""Import-time lints (E161-E163, W161-W163): what a model loses crossing
+the border into the port — the port of
+``deeplearning4j_tpu/analysis/imports.py`` (ONNX, TF and Keras).
 
 The importers call in with what they have (const arrays, folded arrays,
 the finished SameDiff; a Keras file's input shapes and weight arrays)
 and attach the resulting :class:`~.diagnostics.ValidationReport` to the
 graph or network as ``import_report``. Codes:
 
+- ``E161`` unmapped op: the ONNX importer has no builder for it (the
+  import raises; :func:`lint_onnx_model` pre-scans so every unmapped op
+  surfaces at once).
+- ``E162`` unhonored semantics: an ONNX attribute the builder silently
+  approximates (``ceil_mode`` pools, ``SAME_LOWER`` padding, non-constant
+  ``Pad``).
 - ``E163`` lossy narrowing: fp64 consts demote to fp32 and int64 values
   past the int32 range truncate (the port feeds its graphs the dtypes the
   JAX package does with x64 off).
@@ -16,13 +22,11 @@ graph or network as ``import_report``. Codes:
 - ``W163`` const-folding overflow: folding at import produced nonfinite
   floats or values past the int32 range.
 
-Not ported yet: the ONNX lints (E161 pre-scan, E162), which wait for the
-ONNX importer.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -34,13 +38,143 @@ _INT32_MAX = 2 ** 31 - 1
 _INT32_MIN = -(2 ** 31)
 
 #: the input positions that hold weights, by op (the JAX package's
-#: ``analysis/graphir.py`` WEIGHT_POSITIONS, without the ONNX ops the
-#: port cannot import yet)
+#: ``analysis/graphir.py`` WEIGHT_POSITIONS)
 WEIGHT_POSITIONS: Dict[str, Tuple[int, ...]] = {
     "matmul": (1,), "xw_plus_b": (1, 2), "relu_layer": (1, 2),
+    "onnx.MatMul": (1,), "onnx.Gemm": (1, 2), "onnx.Conv": (1, 2),
+    "onnx.BatchNormalization": (1, 2, 3, 4),
     "tf.MatMul": (1,), "tf.Conv2D": (1,), "tf.DepthwiseConv2dNative": (1,),
     "tf.BiasAdd": (1,), "tf.FusedBatchNormV3": (1, 2, 3, 4),
 }
+
+#: ONNX TensorProto.DataType enum -> dtype name (``analysis/graphir.py``'s
+#: ONNX_DTYPE_NAMES)
+ONNX_DTYPE_NAMES = {
+    1: "float32", 2: "uint8", 3: "int8", 4: "uint16", 5: "int16",
+    6: "int32", 7: "int64", 9: "bool", 10: "float16", 11: "float64",
+    12: "uint32", 13: "uint64", 16: "bfloat16",
+}
+
+#: ops ``modelimport.onnx._BUILDERS`` maps (plus ``Constant``, which the
+#: importer handles inline): a mirror so the E161 pre-scan runs without
+#: importing the importer, pinned against its registry by test
+SUPPORTED_ONNX_OPS = frozenset({
+    "Constant",
+    # _SIMPLE_OPS
+    "Add", "Sub", "Mul", "Div", "Pow", "Max", "Min", "Neg", "Abs", "Exp",
+    "Log", "Sqrt", "Reciprocal", "Floor", "Ceil", "Round", "Sign", "Relu",
+    "Sigmoid", "Tanh", "Erf", "Softplus", "Softsign", "Selu", "Identity",
+    "MatMul", "Sin", "Cos", "Where", "Equal", "Greater", "GreaterOrEqual",
+    "Less", "LessOrEqual", "Not", "And", "Or", "GlobalAveragePool",
+    "GlobalMaxPool", "Shape", "Size",
+    # decorated builders
+    "Gemm", "Softmax", "LogSoftmax", "LeakyRelu", "Elu", "HardSigmoid",
+    "Gelu", "Clip", "Transpose", "Reshape", "Flatten", "Concat", "Squeeze",
+    "Unsqueeze", "Gather", "Slice", "Cast", "Conv", "BatchNormalization",
+    "Pad", "Expand", "Split", "Dropout",
+    # pools + reductions
+    "MaxPool", "AveragePool", "ReduceMean", "ReduceSum", "ReduceMax",
+    "ReduceMin", "ReduceProd",
+})
+
+#: dtype names that narrow at import (the dtypes the JAX package computes
+#: in with x64 off)
+_NARROWED = {"float64": "float32", "int64": "int32", "uint64": "uint32"}
+
+
+def _attr_of(node, name):
+    """A NodeProto attribute's value by name, None when absent (off the
+    ``onnx_proto`` NodeProto: ``attrs`` maps names to objects with
+    ``.value``)."""
+    a = (getattr(node, "attrs", {}) or {}).get(name)
+    if a is None:
+        return None
+    v = getattr(a, "value", a)
+    if isinstance(v, bytes):
+        return v.decode("utf-8", "replace")
+    return v
+
+
+def lint_onnx_model(model, supported_ops: Optional[Iterable[str]] = None
+                    ) -> ValidationReport:
+    """Pre-import scan of a parsed ONNX ModelProto: E161, E162, E163 on
+    initializers and graph inputs, W161 on graph inputs. It runs before
+    (and apart from) the import, so an admission check can refuse a model
+    without building it. ``supported_ops`` defaults to
+    :data:`SUPPORTED_ONNX_OPS`; the importer passes its own registry."""
+    report = ValidationReport(subject="ONNX import")
+    supported = set(supported_ops) if supported_ops is not None \
+        else SUPPORTED_ONNX_OPS
+    g = getattr(model, "graph", model)
+    if g is None:
+        return report
+
+    for node in getattr(g, "nodes", ()) or ():
+        op = node.op_type
+        loc = f"node '{node.name or node.outputs[0]}' ({op})"
+        if op not in supported:
+            report.add(Diagnostic(
+                "DL4J-E161", Severity.ERROR, loc,
+                f"unmapped ONNX op '{op}' — the importer has no builder "
+                f"for it and importOnnxModel will raise",
+                fix_hint="add a builder to modelimport.onnx._BUILDERS or "
+                         "export the model without this op"))
+            continue
+        report.extend(_onnx_node_semantics(op, node, loc))
+
+    init_names = set()
+    for t in getattr(g, "initializers", ()) or ():
+        init_names.add(t.name)
+        report.extend(lint_narrowed_array(
+            t.array, f"initializer '{t.name}'",
+            dtype_name=ONNX_DTYPE_NAMES.get(
+                getattr(t, "data_type", None))))
+    for vi in getattr(g, "inputs", ()) or ():
+        if vi.name in init_names:
+            continue
+        report.extend(lint_placeholder_shape(
+            getattr(vi, "shape", None), f"graph input '{vi.name}'"))
+        elem = ONNX_DTYPE_NAMES.get(getattr(vi, "elem_type", None))
+        if elem in _NARROWED:
+            report.add(Diagnostic(
+                "DL4J-E163", Severity.ERROR, f"graph input '{vi.name}'",
+                f"input dtype {elem} narrows to {_NARROWED[elem]} at "
+                f"import — values past the narrow range truncate silently "
+                f"at feed time",
+                fix_hint=f"export the model with {_NARROWED[elem]} "
+                         f"inputs (or re-quantize the feed)"))
+    return report
+
+
+def _onnx_node_semantics(op: str, node, loc: str) -> List[Diagnostic]:
+    """E162: attributes the builders silently approximate."""
+    diags: List[Diagnostic] = []
+    if op in ("MaxPool", "AveragePool") and _attr_of(node, "ceil_mode"):
+        diags.append(Diagnostic(
+            "DL4J-E162", Severity.ERROR, loc,
+            f"{op} ceil_mode=1 is not honored — the builder always "
+            f"floor-divides the output size, so the last partial window "
+            f"is dropped and shapes downstream shift",
+            fix_hint="re-export with ceil_mode=0 (add explicit padding "
+                     "to keep the output size)"))
+    if op in ("Conv", "MaxPool", "AveragePool") and \
+            _attr_of(node, "auto_pad") == "SAME_LOWER":
+        diags.append(Diagnostic(
+            "DL4J-E162", Severity.ERROR, loc,
+            f"{op} auto_pad=SAME_LOWER imports as SAME_UPPER — odd "
+            f"padding lands on the opposite edge, shifting every output "
+            f"by one for even kernels",
+            fix_hint="re-export with explicit pads (or SAME_UPPER if the "
+                     "off-by-one is acceptable)"))
+    if op == "Pad":
+        mode = _attr_of(node, "mode")
+        if mode and str(mode) not in ("constant",):
+            diags.append(Diagnostic(
+                "DL4J-E162", Severity.ERROR, loc,
+                f"Pad mode '{mode}' is not honored (constant-mode "
+                f"padding only)",
+                fix_hint="re-export with constant padding"))
+    return diags
 
 
 def lint_placeholder_shape(shape, loc: str) -> List[Diagnostic]:

@@ -865,6 +865,8 @@ def _node_from_spec(nd_spec: dict) -> _Node:
     if rebuild == "tf" and rebuild not in _FN_REBUILDERS:
         # TF-imported graphs: the importer registers its rebuilder
         import deeplearning4j_tpu_torch.modelimport.tensorflow  # noqa: F401
+    if rebuild == "onnx" and rebuild not in _FN_REBUILDERS:
+        import deeplearning4j_tpu_torch.modelimport.onnx  # noqa: F401
     if rebuild is not None:
         if rebuild not in _FN_REBUILDERS:
             raise NotImplementedError(

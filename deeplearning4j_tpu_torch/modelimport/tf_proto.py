@@ -35,6 +35,10 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.modelimport._wire import (fields, fixed, s64,
+                                                     tag, utf8, varint,
+                                                     varints)
+
 # TF DataType enum values (types.proto)
 DT_FLOAT, DT_DOUBLE, DT_INT32, DT_UINT8, DT_INT16, DT_INT8 = 1, 2, 3, 4, 5, 6
 DT_STRING, DT_INT64, DT_BOOL = 7, 9, 10
@@ -60,72 +64,6 @@ def tf_dtype(dt) -> int:
 
 # ----------------------------------------------------------------- decoding
 
-def _read_varint(buf, pos: int) -> Tuple[int, int]:
-    result = 0
-    shift = 0
-    while True:
-        b = buf[pos]
-        pos += 1
-        result |= (b & 0x7F) << shift
-        if not b & 0x80:
-            return result, pos
-        shift += 7
-
-
-def _fields(buf):
-    """Yield (field_number, wire_type, value) over a message's bytes; a
-    length-delimited value is a zero-copy ``memoryview`` slice."""
-    buf = memoryview(buf)
-    pos, n = 0, len(buf)
-    while pos < n:
-        tag, pos = _read_varint(buf, pos)
-        fnum, wt = tag >> 3, tag & 7
-        if wt == 0:
-            v, pos = _read_varint(buf, pos)
-        elif wt == 1:
-            v = buf[pos:pos + 8]
-            pos += 8
-        elif wt == 2:
-            ln, pos = _read_varint(buf, pos)
-            v = buf[pos:pos + ln]
-            pos += ln
-        elif wt == 5:
-            v = buf[pos:pos + 4]
-            pos += 4
-        else:
-            raise ValueError(f"unsupported protobuf wire type {wt}")
-        yield fnum, wt, v
-
-
-def _s64(v: int) -> int:
-    """varint -> signed int64 (two's complement)."""
-    return v - (1 << 64) if v >= (1 << 63) else v
-
-
-def _str(v) -> str:
-    return bytes(v).decode("utf-8")
-
-
-def _varints(wt: int, v, out: list, signed: bool = True) -> None:
-    """A repeated varint field, packed (one length-delimited run) or not
-    (one value a tag): both occur."""
-    if wt == 0:
-        out.append(_s64(v) if signed else v)
-        return
-    p = 0
-    while p < len(v):
-        d, p = _read_varint(v, p)
-        out.append(_s64(d) if signed else d)
-
-
-def _fixed(wt: int, v, out: list, fmt: str, width: int) -> None:
-    """A repeated fixed32/fixed64 field, packed or not."""
-    if wt == 2:
-        out.extend(struct.unpack(f"<{len(v) // width}{fmt}", v))
-    else:
-        out.append(struct.unpack(f"<{fmt}", v)[0])
-
-
 class Dim:
     __slots__ = ("size", "name")
 
@@ -144,14 +82,14 @@ class TensorShapeProto:
     @staticmethod
     def parse(buf) -> "TensorShapeProto":
         s = TensorShapeProto()
-        for fnum, wt, v in _fields(buf):
+        for fnum, wt, v in fields(buf):
             if fnum == 2 and wt == 2:
                 d = Dim()
-                for f2, w2, v2 in _fields(v):
+                for f2, w2, v2 in fields(v):
                     if f2 == 1 and w2 == 0:
-                        d.size = _s64(v2)
+                        d.size = s64(v2)
                     elif f2 == 2 and w2 == 2:
-                        d.name = _str(v2)
+                        d.name = utf8(v2)
                 s.dim.append(d)
             elif fnum == 3 and wt == 0:
                 s.unknown_rank = bool(v)
@@ -183,7 +121,7 @@ class TensorProto:
     @staticmethod
     def parse(buf) -> "TensorProto":
         t = TensorProto()
-        for fnum, wt, v in _fields(buf):
+        for fnum, wt, v in fields(buf):
             if fnum == 1 and wt == 0:
                 t.dtype = v
             elif fnum == 2 and wt == 2:
@@ -191,23 +129,23 @@ class TensorProto:
             elif fnum == 4 and wt == 2:
                 t.tensor_content = v
             elif fnum == 5:
-                _fixed(wt, v, t.float_val, "f", 4)
+                fixed(wt, v, t.float_val, "f", 4)
             elif fnum == 6:
-                _fixed(wt, v, t.double_val, "d", 8)
+                fixed(wt, v, t.double_val, "d", 8)
             elif fnum == 7:
-                _varints(wt, v, t.int_val)
+                varints(wt, v, t.int_val)
             elif fnum == 8 and wt == 2:
                 t.string_val.append(bytes(v))
             elif fnum == 10:
-                _varints(wt, v, t.int64_val)
+                varints(wt, v, t.int64_val)
             elif fnum == 11:
-                _varints(wt, v, t.bool_val)
+                varints(wt, v, t.bool_val)
             elif fnum == 13:
-                _varints(wt, v, t.half_val)
+                varints(wt, v, t.half_val)
             elif fnum == 16:
-                _varints(wt, v, t.uint32_val, signed=False)
+                varints(wt, v, t.uint32_val, signed=False)
             elif fnum == 17:
-                _varints(wt, v, t.uint64_val, signed=False)
+                varints(wt, v, t.uint64_val, signed=False)
         return t
 
 
@@ -268,9 +206,9 @@ class NameAttrList:
     @staticmethod
     def parse(buf) -> "NameAttrList":
         f = NameAttrList()
-        for fnum, wt, v in _fields(buf):
+        for fnum, wt, v in fields(buf):
             if fnum == 1 and wt == 2:
-                f.name = _str(v)
+                f.name = utf8(v)
             elif fnum == 2 and wt == 2:
                 k, a = _parse_attr_entry(v)
                 f.attr[k] = a
@@ -293,19 +231,19 @@ class ListValue:
     @staticmethod
     def parse(buf) -> "ListValue":
         lv = ListValue()
-        for fnum, wt, v in _fields(buf):
+        for fnum, wt, v in fields(buf):
             if fnum == 2 and wt == 2:
                 lv.s.append(bytes(v))
             elif fnum == 3:
-                _varints(wt, v, lv.i)
+                varints(wt, v, lv.i)
             elif fnum == 4:
-                _fixed(wt, v, lv.f, "f", 4)
+                fixed(wt, v, lv.f, "f", 4)
             elif fnum == 5:
                 bs: list = []
-                _varints(wt, v, bs)
+                varints(wt, v, bs)
                 lv.b.extend(bool(x) for x in bs)
             elif fnum == 6:
-                _varints(wt, v, lv.type)
+                varints(wt, v, lv.type)
             elif fnum == 7 and wt == 2:
                 lv.shape.append(TensorShapeProto.parse(v))
             elif fnum == 8 and wt == 2:
@@ -342,13 +280,13 @@ class AttrValue:
     @staticmethod
     def parse(buf) -> "AttrValue":
         a = AttrValue()
-        for fnum, wt, v in _fields(buf):
+        for fnum, wt, v in fields(buf):
             if fnum == 1 and wt == 2:
                 a.list, a._which = ListValue.parse(v), "list"
             elif fnum == 2 and wt == 2:
                 a.s, a._which = bytes(v), "s"
             elif fnum == 3 and wt == 0:
-                a.i, a._which = _s64(v), "i"
+                a.i, a._which = s64(v), "i"
             elif fnum == 4 and wt == 5:
                 a.f, a._which = struct.unpack("<f", v)[0], "f"
             elif fnum == 5 and wt == 0:
@@ -360,7 +298,7 @@ class AttrValue:
             elif fnum == 8 and wt == 2:
                 a.tensor, a._which = TensorProto.parse(v), "tensor"
             elif fnum == 9 and wt == 2:
-                a.placeholder, a._which = _str(v), "placeholder"
+                a.placeholder, a._which = utf8(v), "placeholder"
             elif fnum == 10 and wt == 2:
                 a.func, a._which = NameAttrList.parse(v), "func"
         return a
@@ -369,9 +307,9 @@ class AttrValue:
 def _parse_attr_entry(buf) -> Tuple[str, AttrValue]:
     """One ``map<string, AttrValue>`` entry (key 1, value 2)."""
     key, val = "", AttrValue()
-    for fnum, wt, v in _fields(buf):
+    for fnum, wt, v in fields(buf):
         if fnum == 1 and wt == 2:
-            key = _str(v)
+            key = utf8(v)
         elif fnum == 2 and wt == 2:
             val = AttrValue.parse(v)
     return key, val
@@ -390,15 +328,15 @@ class NodeDef:
     @staticmethod
     def parse(buf) -> "NodeDef":
         n = NodeDef()
-        for fnum, wt, v in _fields(buf):
+        for fnum, wt, v in fields(buf):
             if fnum == 1 and wt == 2:
-                n.name = _str(v)
+                n.name = utf8(v)
             elif fnum == 2 and wt == 2:
-                n.op = _str(v)
+                n.op = utf8(v)
             elif fnum == 3 and wt == 2:
-                n.input.append(_str(v))
+                n.input.append(utf8(v))
             elif fnum == 4 and wt == 2:
-                n.device = _str(v)
+                n.device = utf8(v)
             elif fnum == 5 and wt == 2:
                 k, a = _parse_attr_entry(v)
                 n.attr[k] = a
@@ -415,9 +353,9 @@ class ArgDef:
     @staticmethod
     def parse(buf) -> "ArgDef":
         a = ArgDef()
-        for fnum, wt, v in _fields(buf):
+        for fnum, wt, v in fields(buf):
             if fnum == 1 and wt == 2:
-                a.name = _str(v)
+                a.name = utf8(v)
             elif fnum == 3 and wt == 0:
                 a.type = v
         return a
@@ -434,9 +372,9 @@ class OpDef:
     @staticmethod
     def parse(buf) -> "OpDef":
         o = OpDef()
-        for fnum, wt, v in _fields(buf):
+        for fnum, wt, v in fields(buf):
             if fnum == 1 and wt == 2:
-                o.name = _str(v)
+                o.name = utf8(v)
             elif fnum == 2 and wt == 2:
                 o.input_arg.append(ArgDef.parse(v))
             elif fnum == 3 and wt == 2:
@@ -455,18 +393,18 @@ class FunctionDef:
     @staticmethod
     def parse(buf) -> "FunctionDef":
         f = FunctionDef()
-        for fnum, wt, v in _fields(buf):
+        for fnum, wt, v in fields(buf):
             if fnum == 1 and wt == 2:
                 f.signature = OpDef.parse(v)
             elif fnum == 3 and wt == 2:
                 f.node_def.append(NodeDef.parse(v))
             elif fnum == 4 and wt == 2:
                 key = val = ""
-                for f2, w2, v2 in _fields(v):
+                for f2, w2, v2 in fields(v):
                     if f2 == 1 and w2 == 2:
-                        key = _str(v2)
+                        key = utf8(v2)
                     elif f2 == 2 and w2 == 2:
-                        val = _str(v2)
+                        val = utf8(v2)
                 f.ret[key] = val
         return f
 
@@ -480,7 +418,7 @@ class FunctionDefLibrary:
     @staticmethod
     def parse(buf) -> "FunctionDefLibrary":
         lib = FunctionDefLibrary()
-        for fnum, wt, v in _fields(buf):
+        for fnum, wt, v in fields(buf):
             if fnum == 1 and wt == 2:
                 lib.function.append(FunctionDef.parse(v))
         return lib
@@ -507,7 +445,7 @@ class GraphDef:
     @staticmethod
     def parse(buf) -> "GraphDef":
         g = GraphDef()
-        for fnum, wt, v in _fields(buf):
+        for fnum, wt, v in fields(buf):
             if fnum == 1 and wt == 2:
                 g.node.append(NodeDef.parse(v))
             elif fnum == 2 and wt == 2:
@@ -529,36 +467,19 @@ def load_graph_def(src) -> GraphDef:
 # ----------------------------------------------------------------- encoding
 # (for tests and chip_smoke.py: build GraphDefs without TensorFlow)
 
-def _varint(v: int) -> bytes:
-    v &= (1 << 64) - 1
-    out = bytearray()
-    while True:
-        b = v & 0x7F
-        v >>= 7
-        if v:
-            out.append(b | 0x80)
-        else:
-            out.append(b)
-            return bytes(out)
-
-
-def _tag(fnum: int, wt: int) -> bytes:
-    return _varint((fnum << 3) | wt)
-
-
 def _len_field(fnum: int, data) -> List:
     """The pieces of one length-delimited field (joined once, later)."""
-    return [_tag(fnum, 2), _varint(len(data)), data]
+    return [tag(fnum, 2), varint(len(data)), data]
 
 
 def _int_field(fnum: int, v: int) -> bytes:
-    return _tag(fnum, 0) + _varint(int(v))
+    return tag(fnum, 0) + varint(int(v))
 
 
 def _packed_varints(fnum: int, vals: Iterable[int], packed: bool) -> bytes:
     vals = list(vals)
     if packed:
-        return b"".join(_len_field(fnum, b"".join(_varint(int(x))
+        return b"".join(_len_field(fnum, b"".join(varint(int(x))
                                                   for x in vals)))
     return b"".join(_int_field(fnum, x) for x in vals)
 
@@ -569,7 +490,7 @@ def _packed_fixed(fnum: int, vals: Sequence[float], fmt: str,
     if packed:
         return b"".join(_len_field(
             fnum, struct.pack(f"<{len(vals)}{fmt}", *vals)))
-    return b"".join(_tag(fnum, wt) + struct.pack(f"<{fmt}", x) for x in vals)
+    return b"".join(tag(fnum, wt) + struct.pack(f"<{fmt}", x) for x in vals)
 
 
 def encode_shape(dims: Optional[Sequence[int]]) -> bytes:
@@ -683,7 +604,7 @@ def encode_attr_value(v) -> bytes:
     if isinstance(v, (int, np.integer)):
         return _int_field(3, int(v))
     if isinstance(v, (float, np.floating)):
-        return _tag(4, 5) + struct.pack("<f", float(v))
+        return tag(4, 5) + struct.pack("<f", float(v))
     if isinstance(v, str):
         return b"".join(_len_field(2, v.encode()))
     if isinstance(v, bytes):

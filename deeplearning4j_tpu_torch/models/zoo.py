@@ -235,6 +235,10 @@ class ResNet50(ZooModel):
     """ref: zoo.model.ResNet50 — bottleneck residual blocks as a
     ComputationGraph with ElementWiseVertex adds."""
 
+    #: ``(blocks, mid, out, first stride)`` of the four stages
+    STAGES = ((3, 64, 256, 1), (4, 128, 512, 2), (6, 256, 1024, 2),
+              (3, 512, 2048, 2))
+
     def conf_builder(self) -> ComputationGraph:
         c, h, w = self.input_shape
         g = (NeuralNetConfiguration.Builder()
@@ -256,9 +260,7 @@ class ResNet50(ZooModel):
                                                  stride=(2, 2),
                                                  padding=(1, 1)), "stem_relu")
         last = "stem_pool"
-        stages = [(3, 64, 256, 1), (4, 128, 512, 2), (6, 256, 1024, 2),
-                  (3, 512, 2048, 2)]
-        for si, (blocks, mid, out, first_stride) in enumerate(stages):
+        for si, (blocks, mid, out, first_stride) in enumerate(self.STAGES):
             for bi in range(blocks):
                 stride = first_stride if bi == 0 else 1
                 pref = f"s{si}b{bi}"

@@ -1,7 +1,8 @@
 """Layer configurations and their forward passes: the layers of
 ``deeplearning4j_tpu/nn/layers.py`` (feed-forward, embedding, 1-D, 2-D
 and 3-D convolutional, recurrent, normalization, noise, attention and
-wrapper layers) but ``SameDiffLayer``.
+wrapper layers, and ``SameDiffLayer``, a layer defined as a SameDiff
+graph fragment).
 
 The recurrent layers take DL4J's ``[N, C, T]`` and an optional ``[N, T]``
 feature mask; those with a state (LSTM, GravesLSTM, GRU, SimpleRnn) also
@@ -31,6 +32,7 @@ from __future__ import annotations
 
 import copy
 import math
+import weakref
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -1841,6 +1843,82 @@ class TimeDistributed(Layer):
         return InputType.recurrent(self.nOut, it.dims.get("timesteps", -1))
 
 
+class SameDiffLayer(Layer):
+    """ref: nn.conf.layers.samediff.SameDiffLayer — a layer defined as a
+    SameDiff graph fragment instead of a Layer subclass with its own
+    forward.
+
+    Subclass and override:
+
+    - ``defineParameters() -> {name: shape}``
+    - ``defineLayer(sd, layerInput, paramTable, mask) -> SDVariable``
+
+    The fragment is recorded once, at the layer's first forward, into a
+    private SameDiff on the input's device (placeholders ``layer_input``
+    and one a param), as the JAX layer records it once at its first
+    trace; a forward on another device or at another dtype records its
+    own. Each forward then runs it eagerly on the layer's tensors, so
+    autograd flows through it; it reads nothing on the host and makes no
+    tensor from a host value, so a captured step replays it (a constant
+    the fragment defines is made when it is recorded). The recorded
+    fragments live in :data:`_SAMEDIFF_FRAGMENTS`, not on the layer: a
+    copy of the layer (``TransferLearning``'s) records its own."""
+
+    def defineParameters(self) -> Dict[str, Tuple[int, ...]]:
+        raise NotImplementedError
+
+    def defineLayer(self, sd, layerInput, paramTable, mask=None):
+        raise NotImplementedError
+
+    def infer_nin(self, it: InputType):
+        super().infer_nin(it)
+        if self.nOut is None:
+            self.nOut = self.nIn
+
+    def initialize(self, gen):
+        shapes = self.defineParameters()
+        params = {name: _initialize(tuple(shape), self.weight_init, gen)
+                  for name, shape in shapes.items()}
+        _SAMEDIFF_FRAGMENTS.pop(self, None)
+        return params, {}
+
+    def _fragment(self, params, x):
+        frags = _SAMEDIFF_FRAGMENTS.setdefault(self, {})
+        frag = frags.get((x.device, x.dtype))
+        if frag is None:
+            from deeplearning4j_tpu_torch.autodiff.samediff import SameDiff
+            sd = SameDiff.create(device=x.device)
+            xv = sd.placeHolder("layer_input", shape=tuple(x.shape),
+                                dtype=x.dtype)
+            pvs = {k: sd.placeHolder(k, shape=tuple(v.shape), dtype=v.dtype)
+                   for k, v in params.items()}
+            out = self.defineLayer(sd, xv, pvs, None)
+            frag = frags[(x.device, x.dtype)] = (sd, out.name)
+        return frag
+
+    def apply(self, params, state, x, train, key=None):
+        sd, out_name = self._fragment(params, x)
+        res = sd._exec({}, {"layer_input": x, **params}, [out_name])
+        return res[out_name], state
+
+    @classmethod
+    def from_config(cls, d):
+        """A subclass rebuilds from its config (its fragment is its code);
+        the base class does not, as the JAX package's layer registry holds
+        no ``SameDiffLayer`` (``layer_from_config`` raises KeyError)."""
+        if cls is SameDiffLayer:
+            raise KeyError("SameDiffLayer: a config holds no graph "
+                           "fragment; rebuild the subclass that defines it "
+                           "(SubClass.from_config)")
+        return super().from_config(d)
+
+
+#: the recorded fragments of each live SameDiffLayer,
+#: ``{(device, dtype): (SameDiff, output name)}``
+_SAMEDIFF_FRAGMENTS: "weakref.WeakKeyDictionary[SameDiffLayer, Dict]" = \
+    weakref.WeakKeyDictionary()
+
+
 _LAYER_CLASSES = {cls.__name__: cls for cls in (
     DenseLayer, ConvolutionLayer, Deconvolution2D, DepthwiseConvolution2D,
     SeparableConvolution2D, SubsamplingLayer, BatchNormalization,
@@ -1854,7 +1932,8 @@ _LAYER_CLASSES = {cls.__name__: cls for cls in (
     RecurrentAttentionLayer, ConvLSTM2D, Convolution3D, Subsampling3DLayer,
     ZeroPadding3DLayer, Cropping3D, Upsampling3D, Upsampling1D,
     ZeroPadding1DLayer, Cropping1D, MaskZeroLayer, GaussianNoiseLayer,
-    GaussianDropoutLayer, AlphaDropoutLayer, TimeDistributed)}
+    GaussianDropoutLayer, AlphaDropoutLayer, TimeDistributed,
+    SameDiffLayer)}
 
 
 def layer_from_config(d: Dict) -> Layer:

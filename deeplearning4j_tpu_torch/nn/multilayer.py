@@ -38,8 +38,13 @@ step does, and under a session one batch's windows are one recovery
 unit (the JAX package's: checkpoints land between batches, where no
 recurrent state is carried).
 
-Not ported yet (ROADMAP.md): sharding, frozen layers (``nn/transfer.py``),
-the sanitizer.
+Frozen layers (``_frozen_layers``, set by ``nn.transfer``) keep their
+params and updater state in every step (the plain and dynamic-scaling
+steps, the K-step megastep and the TBPTT window step); they still run in
+train mode and their gradients still enter gradient normalization, as in
+the JAX step.
+
+Not ported yet (ROADMAP.md): sharding, the sanitizer.
 """
 
 from __future__ import annotations

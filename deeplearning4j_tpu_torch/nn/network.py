@@ -199,6 +199,9 @@ class BaseNetwork:
         self._scale_state: Optional[torch.Tensor] = None  # dynamic scale
         self._resilience = None     # the fit's TrainingSession
         self._last_batch_size = 0
+        #: layer keys whose params and updater state the step keeps
+        #: (transfer learning, ref FrozenLayer; ``nn.transfer``)
+        self._frozen_layers: set = set()
 
     def _items(self, tree) -> List[Tuple]:
         return list(tree.items() if isinstance(tree, dict)
@@ -354,9 +357,13 @@ class BaseNetwork:
 
     def _step_mode(self) -> tuple:
         """The part of a step's cache key that is not its arguments: the
-        augmentation's signature and whether the learning-rate scale is a
-        device tensor (empty for a plain step)."""
+        frozen layers, the augmentation's signature and whether the
+        learning-rate scale is a device tensor (empty for a plain step).
+        A step captured before a freeze is never replayed after it (JAX
+        multilayer.py's ``_compile_key_parts``)."""
         mode = ()
+        if self._frozen_layers:
+            mode += (("frozen", tuple(sorted(self._frozen_layers))),)
         if self._augment is not None:
             mode += (("augment", self._augment.signature()),)
         if isinstance(self.conf.base.updater.__dict__.get("_lr_scale"),
@@ -694,7 +701,10 @@ class BaseNetwork:
         multilayer.py:139-145); the fp32 master params and the updater
         state are updated in place, or, given the device flag ``ok``,
         keep their old values where it is False (ref
-        ``_select_update``)."""
+        ``_select_update``). A frozen layer's params and updater state
+        keep their values; its gradients still enter the normalization,
+        as the JAX step normalizes the whole tree before it restores the
+        frozen layers (multilayer.py:124-136, :514-518)."""
         base = self.conf.base
         updater = base.updater
         if base.grad_norm == "clip_value":
@@ -708,8 +718,11 @@ class BaseNetwork:
         t = self._t_dev
         lr = updater.lr_at(t)
         decay = isinstance(updater, upd.AdamW) and updater.weight_decay
+        frozen = self._frozen_layers
         with torch.no_grad():
             for (n, k), p, g in zip(names, leaves, grads):
+                if n in frozen:
+                    continue
                 state = self._opt_state[n][k]
                 u, s2 = updater.apply(g, state, lr, t)
                 if decay and k.rsplit("/", 1)[-1].startswith(("W", "RW")):

@@ -42,6 +42,7 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -847,3 +848,135 @@ def test_imported_keras_encoder_on_the_card(dev, tmp_path):
     finally:
         ck.uninstall_platform_overrides()
     np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------- ONNX import and transfer learning
+def test_imported_onnx_resnet_on_the_card_equals_the_cpu(dev, tmp_path):
+    """A narrow ResNet-50 (2 blocks a stage, 32^2) written as ONNX,
+    imported onto the card: logits within 1e-4 of the CPU import's (fp32,
+    TF32 off), no hand-written kernel launched, and a served capture that
+    replays them."""
+    from deeplearning4j_tpu_torch.modelimport import onnx_fixtures as fx
+    from deeplearning4j_tpu_torch.modelimport.onnx import importOnnxModel
+    from deeplearning4j_tpu_torch.serving import samediff_forward
+    net = fx.SmallResNet50(num_classes=10, input_shape=(3, 32, 32)).init(
+        device="cpu")
+    fx.randomize_batch_norm(net, seed=0)
+    path = fx.write_resnet50(net, str(tmp_path / "r.onnx"))
+    x = np.random.default_rng(0).standard_normal(
+        (4, 3, 32, 32)).astype(np.float32)
+    want = importOnnxModel(path, device="cpu").output(
+        {"input": x}, ["logits"])["logits"].numpy()
+    sd = importOnnxModel(path)
+    ck.reset_counts()
+    got = sd.output({"input": x}, ["logits"])["logits"]
+    assert not any(ck.LAUNCHES.values())
+    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-4,
+                               atol=1e-4)
+    server = ModelServer(samediff_forward(sd, ["logits"]), batch_limit=4,
+                         input_dtype=np.float32)
+    try:
+        cc.reset_stats()
+        server.warmup([(3, 32, 32)])
+        assert not cc.cache_stats()["capture_failures"]
+        served = server.output(x)
+    finally:
+        server.close()
+    np.testing.assert_allclose(served, want, rtol=1e-4, atol=1e-4)
+
+
+def test_frozen_tiny_yolo_captured_equals_eager(dev):
+    """A transfer-learned TinyYOLO (64^2, 3 -> 2 classes, the prefix
+    frozen, bf16/NHWC/fused): 8 scale_shift_act launches a forward, the
+    K=2 capture records 16, the frozen params and Adam moments keep their
+    bits, and 2 captured steps equal 2 eager ones (deterministic cuDNN)."""
+    from deeplearning4j_tpu_torch.nn.objdetect import (Yolo2OutputLayer,
+                                                       yolo_labels)
+    from deeplearning4j_tpu_torch.nn.transfer import (FineTuneConfiguration,
+                                                      TransferLearning)
+    ck.install_platform_overrides()
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        src = zoo.TinyYOLO(num_classes=3, input_shape=(3, 64, 64)).init()
+        src.setComputeLayout("NHWC")
+        net = (TransferLearning.Builder(src)
+               .fineTuneConfiguration(FineTuneConfiguration.Builder()
+                                      .updater(Adam(1e-3)).build())
+               .setFeatureExtractor(len(src.layers) - 3)
+               .removeLayersFromOutput(2)
+               .addLayer(tlayers.ConvolutionLayer(kernelSize=(1, 1),
+                                                  nOut=5 * 7))
+               .addLayer(Yolo2OutputLayer(
+                   boundingBoxPriors=zoo.TinyYOLO.ANCHORS)).build())
+        net.setPrecisionPolicy("bf16")
+        net.setEpilogueFusion(True)
+        rng = np.random.default_rng(0)
+        x = torch.from_numpy(rng.standard_normal(
+            (4, 3, 64, 64)).astype(np.float32)).to(dev)
+        y = torch.from_numpy(yolo_labels(rng, 4, 2, grid=2)).to(dev)
+        ds = DataSet(x, y)
+        net._ensure_opt_state()
+        net._ensure_clock()
+        frozen = [t for i in net._frozen_layers
+                  for t in list(net._params[i].values())
+                  + [v for st in net._opt_state[i].values()
+                     for v in st.values()]]
+        f0 = [t.detach().clone() for t in frozen]
+        s0 = [t.detach().clone() for t in net._dispatch_state()]
+        ck.reset_counts()
+        net.fit(ds)
+        assert ck.LAUNCHES["scale_shift_act"] == 8
+        net.fit(ds)
+        eager = [t.detach().clone() for t in net._dispatch_state()]
+        with torch.no_grad():
+            for t, v in zip(net._dispatch_state(), s0):
+                t.copy_(v)
+        cc.warmup(net, [(tuple(x.shape), tuple(y.shape))],
+                  steps_per_dispatch=2)
+        assert net._step_for(False, 2).launches_at_capture() == \
+            [{"scale_shift_act": 16}]
+        net._fit_mega(stepping.stack_megabatch([ds, ds]))
+        for a, b in zip(net._dispatch_state(), eager):
+            assert torch.equal(a, b)
+        assert all(torch.equal(a, b) for a, b in zip(frozen, f0))
+    finally:
+        torch.backends.cudnn.deterministic = det
+        ck.uninstall_platform_overrides()
+
+
+def test_samediff_layer_captured_equals_eager(dev):
+    """The gated dense SameDiffLayer (64 -> 64) in a network: one captured
+    dispatch of 2 steps equals 2 eager steps to the bit, no failure."""
+    class Gated(tlayers.SameDiffLayer):
+        def defineParameters(self):
+            return {"W": (self.nIn, self.nOut), "Wg": (self.nIn, self.nOut)}
+
+        def defineLayer(self, sd, layerInput, paramTable, mask=None):
+            return layerInput.mmul(paramTable["W"]).tanh() * \
+                layerInput.mmul(paramTable["Wg"]).sigmoid()
+
+    net = MultiLayerNetwork(
+        NeuralNetConfiguration.Builder().seed(1).updater(Adam(1e-3))
+        .weightInit("xavier").list().layer(Gated(nOut=64))
+        .layer(tlayers.OutputLayer(nOut=4, lossFunction="mcxent",
+                                   activation="softmax"))
+        .setInputType(InputType.feedForward(64)).build()).init()
+    x = _randn(dev, 16, 64)
+    y = torch.eye(4, device=dev)[torch.arange(16, device=dev) % 4]
+    ds = DataSet(x, y)
+    net._ensure_opt_state()
+    net._ensure_clock()
+    s0 = [t.detach().clone() for t in net._dispatch_state()]
+    net.fit(ds)
+    net.fit(ds)
+    eager = [t.detach().clone() for t in net._dispatch_state()]
+    with torch.no_grad():
+        for t, v in zip(net._dispatch_state(), s0):
+            t.copy_(v)
+    cc.reset_stats()
+    cc.warmup(net, [(tuple(x.shape), tuple(y.shape))], steps_per_dispatch=2)
+    net._fit_mega(stepping.stack_megabatch([ds, ds]))
+    assert not cc.cache_stats()["capture_failures"]
+    for a, b in zip(net._dispatch_state(), eager):
+        assert torch.equal(a, b)

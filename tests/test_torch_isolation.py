@@ -20,7 +20,13 @@ FORBIDDEN = {"jax", "jaxlib", "deeplearning4j_tpu"}
 #: transformers (checkpoints), h5py and Keras (Keras .h5 saves); matched
 #: by dotted prefix
 FORBIDDEN_LIBS = ("tensorflow", "google.protobuf", "ml_dtypes",
-                  "safetensors", "transformers", "h5py", "keras")
+                  "safetensors", "transformers", "h5py", "keras", "onnx",
+                  "onnxruntime")
+#: the interop runners run a foreign graph with its own engine (the
+#: reference's GraphRunner and OnnxRuntimeRunner): each imports its engine
+#: inside its constructor, never at module level
+ENGINE_IMPORTS = {"deeplearning4j_tpu_torch/modelimport/interop.py":
+                  ("tensorflow", "onnxruntime")}
 
 
 def _imported_names(path: Path):
@@ -69,11 +75,32 @@ def test_no_jax_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def _engine_import(path: Path, name: str) -> bool:
+    allowed = ENGINE_IMPORTS.get(str(path.relative_to(ROOT)), ())
+    return any(name == lib or name.startswith(lib + ".") for lib in allowed)
+
+
 @pytest.mark.parametrize("path", _sources(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_tf_protobuf_or_checkpoint_library_imports(path):
-    bad = sorted({n for n in _imported_names(path) if _forbidden_lib(n)})
+    bad = sorted({n for n in _imported_names(path) if _forbidden_lib(n)
+                  and not _engine_import(path, n)})
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("rel", sorted(ENGINE_IMPORTS))
+def test_engine_imports_stay_inside_the_runners(rel):
+    """An interop runner's engine is imported in a function body only, so
+    the module imports where the engine is missing."""
+    tree = ast.parse((ROOT / rel).read_text())
+    top = [n for n in tree.body if isinstance(n, (ast.Import,
+                                                  ast.ImportFrom))]
+    names = {a.name for n in top if isinstance(n, ast.Import)
+             for a in n.names} | {n.module for n in top
+                                  if isinstance(n, ast.ImportFrom)}
+    assert not {n for n in names if n and _forbidden_lib(n)}
+    lazy = {n for n in _imported_names(ROOT / rel) if _forbidden_lib(n)}
+    assert lazy and all(_engine_import(ROOT / rel, n) for n in lazy)
 
 
 def test_the_library_check_sees_lazy_and_from_imports(tmp_path):
@@ -136,17 +163,24 @@ def test_import_leaves_jax_unloaded():
              "deeplearning4j_tpu_torch.data.pipeline, "
              "deeplearning4j_tpu_torch.utils.concurrent, "
              "deeplearning4j_tpu_torch.modelimport.bert, "
+             "deeplearning4j_tpu_torch.modelimport._wire, "
              "deeplearning4j_tpu_torch.modelimport.tf_proto, "
              "deeplearning4j_tpu_torch.modelimport.tensorflow, "
              "deeplearning4j_tpu_torch.modelimport.tf_fixtures, "
              "deeplearning4j_tpu_torch.modelimport.hdf5, "
              "deeplearning4j_tpu_torch.modelimport.keras, "
              "deeplearning4j_tpu_torch.modelimport.keras_fixtures, "
+             "deeplearning4j_tpu_torch.modelimport.onnx_proto, "
+             "deeplearning4j_tpu_torch.modelimport.onnx, "
+             "deeplearning4j_tpu_torch.modelimport.onnx_fixtures, "
+             "deeplearning4j_tpu_torch.modelimport.interop, "
+             "deeplearning4j_tpu_torch.nn.transfer, "
+             "deeplearning4j_tpu_torch.nn.layers, "
              "deeplearning4j_tpu_torch.analysis.imports; "
              "print(sorted(m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'jaxlib', 'deeplearning4j_tpu', 'tensorflow', "
              "'ml_dtypes', 'safetensors', 'transformers', 'h5py', "
-             "'keras') "
+             "'keras', 'onnx', 'onnxruntime') "
              "or m.startswith('google.protobuf')))", ROOT)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "[]"

@@ -19,6 +19,7 @@ the attention key bias's gradient, zero in exact arithmetic, below 1e-4
 of the layer's largest gradient in both packages.
 """
 
+import copy
 import json
 import math
 
@@ -258,9 +259,25 @@ def test_config_json_and_init_shapes_cross(name):
 
 
 def test_every_jax_layer_class_but_samediff_is_registered():
+    """Every JAX layer class reads back in the port, and SameDiffLayer is
+    a ported class too. It builds from config as the JAX one does: a
+    subclass through its own ``from_config``, while the registry lookup of
+    the base class refuses (the JAX registry holds no SameDiffLayer: a
+    config holds no graph fragment)."""
     assert set(jlayers._LAYER_CLASSES) <= set(tlayers._LAYER_CLASSES)
-    with pytest.raises(NotImplementedError, match="SameDiffLayer"):
-        tlayers.layer_from_config({"@class": "SameDiffLayer"})
+    assert tlayers._LAYER_CLASSES["SameDiffLayer"] is tlayers.SameDiffLayer
+    d = _TGated(nOut=4, nIn=5, weightInit="xavier").to_config()
+    jd = _JGated(nOut=4, nIn=5, weightInit="xavier").to_config()
+    assert {k: v for k, v in d.items() if k not in ("@class", "name")} == \
+        {k: v for k, v in jd.items() if k not in ("@class", "name")}
+    back = _TGated.from_config(d)
+    assert type(back) is _TGated and back.to_config() == d
+    assert _JGated.from_config(jd).to_config() == jd
+    base = dict(d, **{"@class": "SameDiffLayer"})
+    with pytest.raises(KeyError, match="SameDiffLayer"):
+        tlayers.layer_from_config(base)
+    with pytest.raises(KeyError, match="SameDiffLayer"):
+        jlayers.layer_from_config(base)
 
 
 # --------------------------- the eight classes through a JAX config JSON
@@ -536,3 +553,123 @@ def test_a_jax_config_naming_a_new_init_initializes():
     assert net.layers[0].weight_init == "lecun_normal"
     assert float(net._params[1]["W"].detach().abs().max()) <= \
         math.sqrt(6.0 / 4)
+
+
+# ------------------------------------------------------------ SameDiffLayer
+class _JGated(jlayers.SameDiffLayer):
+    """tests/test_attention_layers.py's gated dense,
+    y = sigmoid(x Wg) * tanh(x W), in the JAX package."""
+
+    def defineParameters(self):
+        return {"W": (self.nIn, self.nOut), "Wg": (self.nIn, self.nOut)}
+
+    def defineLayer(self, sd, layerInput, paramTable, mask=None):
+        h = layerInput.mmul(paramTable["W"]).tanh()
+        g = layerInput.mmul(paramTable["Wg"]).sigmoid()
+        return h * g
+
+
+class _TGated(tlayers.SameDiffLayer):
+    """The same fragment in the port."""
+
+    def defineParameters(self):
+        return {"W": (self.nIn, self.nOut), "Wg": (self.nIn, self.nOut)}
+
+    def defineLayer(self, sd, layerInput, paramTable, mask=None):
+        h = layerInput.mmul(paramTable["W"]).tanh()
+        g = layerInput.mmul(paramTable["Wg"]).sigmoid()
+        return h * g
+
+
+def _gated_conf(Conf, M, Gated, It, upd):
+    return (Conf.Builder().seed(9).updater(upd.Adam(5e-3))
+            .weightInit("xavier").list()
+            .layer(Gated(nOut=16))
+            .layer(M.OutputLayer(nOut=3, lossFunction="mcxent",
+                                 activation="softmax"))
+            .setInputType(It.feedForward(10)).build())
+
+
+def test_samediff_layer_trains_in_stack_like_jax():
+    """test_attention_layers.py's first case through both packages from
+    the JAX init: forward 1e-5, every param after each of 5 Adam steps
+    within 2e-4 of its largest magnitude, and the port's loss halves over
+    81 steps as the JAX one does."""
+    jnet = JMLN(_gated_conf(JConf, jlayers, _JGated, JInputType,
+                            jupd)).init()
+    tnet = MultiLayerNetwork(_gated_conf(NeuralNetConfiguration, tlayers,
+                                         _TGated, InputType, tupd))
+    tnet.params_from_jax(jnet._params, jnet._states, device="cpu")
+    rng = np.random.RandomState(0)
+    x = rng.randn(32, 10).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[rng.randint(0, 3, 32)]
+    out = tnet.output(x).numpy()
+    assert out.shape == (32, 3)
+    np.testing.assert_allclose(out, np.asarray(jnet.output(x)),
+                               rtol=FWD_TOL, atol=FWD_TOL)
+    for _ in range(5):
+        jnet.fit(JDataSet(x, y))
+        tnet.fit(DataSet(x, y))
+        for jp, tp in zip(jnet._params, tnet._params):
+            for k in jp:
+                a = np.asarray(jp[k])
+                np.testing.assert_allclose(
+                    tp[k].detach().numpy(), a, rtol=0,
+                    atol=GRAD_TOL * float(np.abs(a).max()), err_msg=k)
+    first = tnet.score()
+    np.testing.assert_allclose(first, float(jnet.score()), rtol=1e-5)
+    for _ in range(76):
+        tnet.fit(DataSet(x, y))
+    assert tnet.score() < first * 0.5, (first, tnet.score())
+
+
+def test_samediff_layer_records_a_fragment_per_dtype():
+    """A forward at another dtype records its own fragment (its
+    placeholders and constants at that dtype), kept off the layer's
+    config: the bf16 forward is bf16 and within bf16 rounding of the
+    fp32 one, and ``to_config`` and a copy of the layer carry no graph."""
+    tl = _TGated(nOut=4, nIn=5, weightInit="xavier")
+    p, _ = tl.initialize(torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.RandomState(0).randn(3, 5).astype(
+        np.float32))
+    y32, _ = tl.apply(p, {}, x, False)
+    y16, _ = tl.apply({k: v.bfloat16() for k, v in p.items()}, {},
+                      x.bfloat16(), False)
+    cpu = torch.device("cpu")
+    assert set(tlayers._SAMEDIFF_FRAGMENTS[tl]) == {
+        (cpu, torch.float32), (cpu, torch.bfloat16)}
+    assert y32.dtype == torch.float32 and y16.dtype == torch.bfloat16
+    np.testing.assert_allclose(y16.float().numpy(), y32.numpy(), rtol=0,
+                               atol=2e-2)
+    json.dumps(tl.to_config())          # plain configuration, no graph
+    assert copy.deepcopy(tl) not in tlayers._SAMEDIFF_FRAGMENTS
+
+
+def test_samediff_layer_gradients_flow_through_fragment():
+    """test_attention_layers.py's second case: the gradient of
+    sum(y^2) reaches both params, equal to the JAX layer's within 2e-4 of
+    the largest; the forward within 1e-5."""
+    jl = _JGated(nOut=4, nIn=5, weightInit="xavier")
+    tl = _TGated(nOut=4, nIn=5, weightInit="xavier")
+    jp, _ = jl.initialize(jax.random.PRNGKey(0))
+    tl.initialize(torch.Generator().manual_seed(0))
+    tp = {k: torch.from_numpy(np.array(v)).requires_grad_(True)
+          for k, v in jp.items()}
+    xn = np.random.RandomState(0).randn(3, 5).astype(np.float32)
+    x = jnp.asarray(xn)
+
+    def loss(p):
+        y, _ = jl.apply(p, {}, x, False, jax.random.PRNGKey(0))
+        return jnp.sum(jnp.square(y))
+    jg = jax.grad(loss)(jp)
+    y, _ = tl.apply(tp, {}, torch.from_numpy(xn), False)
+    np.testing.assert_allclose(
+        y.detach().numpy(),
+        np.asarray(jl.apply(jp, {}, x, False, jax.random.PRNGKey(0))[0]),
+        rtol=FWD_TOL, atol=FWD_TOL)
+    tg = torch.autograd.grad(y.square().sum(), [tp["W"], tp["Wg"]])
+    for name, g in zip(("W", "Wg"), tg):
+        assert float(g.abs().sum()) > 0
+        want = np.asarray(jg[name])
+        np.testing.assert_allclose(g.numpy(), want, rtol=0,
+                                   atol=GRAD_TOL * float(np.abs(want).max()))

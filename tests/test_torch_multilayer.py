@@ -301,9 +301,13 @@ class TestMultiLayerConfiguration:
              .setInputType(InputType.convolutional(4, 4, 1)).build())
         bad = json.loads(_small_list(JConf, jlayers, JInputType,
                                      jupd.Adam(1e-2)).build().to_json())
+        # a SameDiffLayer's fragment is code, not configuration: neither
+        # package rebuilds one from JSON (the JAX registry lacks it)
         bad["layers"][0]["@class"] = "SameDiffLayer"
-        with pytest.raises(NotImplementedError, match="SameDiffLayer"):
+        with pytest.raises(KeyError, match="SameDiffLayer"):
             MultiLayerConfiguration.from_json(json.dumps(bad))
+        with pytest.raises(KeyError, match="SameDiffLayer"):
+            JMLC.from_json(json.dumps(bad))
 
 
 # ------------------------------------------------------ same-mode pooling

@@ -199,13 +199,19 @@ class TestStress:
         """8 submitting threads against a thread that rolls and rolls
         back, with the interpreter switching threads every 10 us: every
         request resolves once, on the version its answer names, and the
-        two servers' completed counts add up to the requests made."""
+        two servers' completed counts add up to the requests made.
+
+        A serve loop counts a request completed just after it resolves
+        the request's handle, so the counts are read once ``close()`` has
+        joined both serve loops, not as soon as the last handle resolves
+        (that read raced the last batch's counting)."""
         reg = treg.ModelRegistry(device="cpu", batch_limit=8, max_queue=512,
                                  coalesce_ms=0.2)
         old = sys.getswitchinterval()
         try:
             reg.load("s", _const_t(1), shapes=[(NIN,)])
             reg.load("s", _const_t(2))
+            servers = [reg.server("s", v) for v in (1, 2)]
             stop = threading.Event()
             handles, errors = [], []
 
@@ -236,8 +242,9 @@ class TestStress:
             for h in handles:
                 v = int(np.asarray(h.get(60))[0, 0])
                 assert h.resolutions == 1 and h.server == f"s:v{v}"
-            done = sum(reg.server("s", v).counts["completed"]
-                       for v in (1, 2))
+            reg.close()
+            assert not any(srv._worker.is_alive() for srv in servers)
+            done = sum(srv.counts["completed"] for srv in servers)
             assert done == 320
         finally:
             sys.setswitchinterval(old)

@@ -291,4 +291,4 @@ def test_attr_value_oneof_and_errors():
     with pytest.raises(TypeError):
         P.encode_attr_value(object())
     with pytest.raises(ValueError, match="wire type"):
-        list(P._fields(bytes([0x0B])))          # field 1, wire type 3
+        P.GraphDef.parse(bytes([0x0B]))         # field 1, wire type 3
