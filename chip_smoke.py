@@ -157,7 +157,13 @@ Phases (each one fails the run with a non-zero exit):
    200 with the reference's keys; and a request with ``deadline_ms`` 1
    behind 64 queued requests comes back 504. It prints tokens/s, the wire
    latency p50/p99 (client clock, first byte sent to response read), v2's
-   load and capture seconds, and the memory with two versions loaded.
+   load and capture seconds, and the memory with two versions loaded;
+   and what the load costs v1: v2's load split into its eager warm-up
+   runs, the captures' entry (``compilecache.cache_stats()``) and the
+   recording, v1's longest gap between two batches while v2 loads (and
+   the stretch of the load it falls in) beside its longest while it
+   serves alone (between the rollback and the second roll), and v1's
+   peak queue depth.
 
 16. LeNet-5 (``zoo.LeNet``: widths 20/50/500, flat 1x28x28 rows through
    its ``convolutionalFlat`` preprocessor, xavier, Adam 1e-3, random
@@ -414,6 +420,38 @@ Phases (each one fails the run with a non-zero exit):
    768 -> 768 in a ``MultiLayerNetwork``, B=256, fp32, Adam: 4 eager
    steps twice and one captured dispatch of K=4 from one state, held to
    the bit, no capture failure.
+32. DataVec feeds nets on the card (``data.records``, ``data.audio``; the
+   datasets written to a temporary directory by
+   ``data.datavec_fixtures`` from ``numpy.random.RandomState`` seeds).
+   (a) 262,144 rows of dl4j-examples' ``BasicDataVecExample`` transaction
+   table (~13 MB of CSV) through ``CSVRecordReader``, the example's
+   ``TransformProcess`` (the IDs removed, a filter keeping USA and CAN,
+   the country one-hot, the date string to a time, ``hourOfDay``
+   derived, the time removed, the amount standardized),
+   ``CollectionRecordReader`` and ``RecordReaderDataSetIterator(B=1024,
+   FraudLabel, 2 classes)`` into an MLP (three ``DenseLayer(256, relu)``,
+   ``OutputLayer(2, softmax, mcxent)``, Adam 1e-3): one epoch eager twice
+   and one at ``steps_per_dispatch=4`` from one state, held by the rule
+   below, then a second epoch at K=4. (b) the UCI synthetic control
+   charts (600 sequences x 60 steps, 6 classes; one ``value,label`` CSV
+   a sequence) through ``CSVSequenceRecordReader`` and
+   ``SequenceRecordReaderDataSetIterator(B=10, label -1, 6 classes)``,
+   standardized by ``NormalizerStandardize``, into dl4j-examples'
+   ``UCISequenceClassification`` net (``LSTM(10, tanh)``,
+   ``RnnOutputLayer(6, softmax, mcxent)``, Adam 5e-3), 5 epochs (the
+   example's 40 cut), the first eager and the rest at K=4 (one capture). (c) 1,024 clips in Speech Commands' format (1 s, 16
+   kHz, 16-bit mono, 8 word directories) through
+   ``WavFileRecordReader(feature="mfcc", n_frames=124)`` and
+   ``AudioDataSetIterator(B=64)``, standardized, shuffled once into
+   batches of 64 (the reader lists the files a directory at a time),
+   into ``Convolution1D(3, 64, same)`` -> ``BatchNormalization`` ->
+   ``Convolution1D(3, 64, same)`` -> ``BatchNormalization`` ->
+   ``GlobalPoolingLayer("avg")`` -> ``OutputLayer(8)``, 2 epochs. Each
+   path: the net's parameters on the card, every loss finite, the last
+   epoch's mean loss below the first's, the first step's loss within
+   1e-4 of the same net's first step on the CPU from the same parameters
+   and batch (relative). It prints the rows/s of reading, transforming and
+   iterating, the clips/s of decoding and MFCC, and the step ms.
 
 The captured-against-eager rule: where the two eager runs agree to the
 bit on a tensor (and on the params' group: the param and its Adam
@@ -565,6 +603,20 @@ TRANSFER_FEATURIZE = 4
 #: phase 31: the gated dense SameDiffLayer at 768 -> 768, B=256
 SDL_WIDTH = 768
 SDL_BATCH = 256
+#: phase 32: DataVec. (a) transactions at B=1024 into a 3 x 256 MLP;
+#: (b) the 600 UCI control charts at B=10, 5 epochs; (c) 1024 clips of
+#: 1 s at 16 kHz (124 MFCC frames) at B=64, 2 epochs
+DV_ROWS = 262144
+DV_BATCH = 1024
+DV_WIDTH = 256
+DV_CHART_BATCH = 10
+DV_CHART_EPOCHS = 5
+DV_CLIPS = 1024
+DV_CLIP_BATCH = 64
+DV_CLIP_FRAMES = 124
+DV_CLIP_EPOCHS = 2
+#: a path's first step on the card against the CPU's (relative)
+DV_CPU_TOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -1639,6 +1691,10 @@ def main() -> None:
     samediff_layer(smi)
     torch.cuda.empty_cache()
 
+    # ----------------------------------- 32. DataVec feeds nets on the card
+    datavec(smi)
+    torch.cuda.empty_cache()
+
     ln.update(served["layer_norm"])
     fa.update(served["flash_attention"])
     for kr in (ln, fa):
@@ -1884,6 +1940,22 @@ def front_door(smi: str) -> None:
             f"{time.perf_counter() - t0:.2f} s")
         ingress = HttpIngress(reg, port=0).start()
 
+        # what v2's load costs v1: the end of each of v1's batches and
+        # its queue depth after each admission
+        v1 = reg.server("bert", 1)
+        v1_ends, v1_depth = [], [0]
+        v1_dispatch, v1_submit = v1._dispatch_batch, v1.submit
+
+        def dispatch_timed(batch):
+            v1_dispatch(batch)
+            v1_ends.append(time.perf_counter())
+
+        def submit_depth(*a, **kw):
+            req = v1_submit(*a, **kw)
+            v1_depth[0] = max(v1_depth[0], len(v1._dq))
+            return req
+        v1._dispatch_batch, v1.submit = dispatch_timed, submit_depth
+
         # the route's version at each admission, read under the registry
         # lock together with the admission itself (a roll takes the same
         # lock), keyed by the request's trace id
@@ -1921,17 +1993,34 @@ def front_door(smi: str) -> None:
             "res", load.replay_http(ingress.url, "bert", (T,), make=tokens)))
         replay.start()
         time.sleep(0.3)
-        v1 = reg.server("bert", 1)
         b0 = v1.stats()["batches"]
+        split0 = cc.cache_stats()["compile_seconds"]
+        # each bucket's capture, timed: its warm-up runs lie before it
+        captures, record = [], cc._record
+
+        def record_timed(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return record(*a, **kw)
+            finally:
+                captures.append((t, time.perf_counter()))
+        cc._record = record_timed
         t0 = time.perf_counter()
-        reg.load("bert", lms[2].logits)
-        load_s = time.perf_counter() - t0
+        try:
+            reg.load("bert", lms[2].logits)
+        finally:
+            cc._record = record
+        t1 = time.perf_counter()
+        load_s = t1 - t0
+        split = {k: cc.cache_stats()["compile_seconds"][k] - split0[k]
+                 for k in ("warmup", "enter", "capture")}
         v1_batches = v1.stats()["batches"] - b0
         v2 = reg.server("bert", 2)
         left = load.duration() - (time.perf_counter() - t_start)
         if left < 0.3:
             fail(f"v2's load took {load_s:.2f} s: the replay of "
                  f"{load.duration():.2f} s ended before the swaps")
+        t_sw = time.perf_counter()
         swaps = SwapSchedule([(0.15 * left, "bert", 2),
                               (0.5 * left, "bert", "rollback"),
                               (0.85 * left, "bert", 2)]).start(reg)
@@ -1948,6 +2037,35 @@ def front_door(smi: str) -> None:
         log(f"v2 loaded and captured {v2._dispatch.warmed_signatures()} "
             f"graphs in {load_s:.2f} s while v1 served {v1_batches} "
             f"batches; swaps {[(round(a, 3), act, r) for a, _, act, r in performed]}")
+        ends = np.asarray(v1_ends)
+        during = np.concatenate([ends[ends < t0][-1:],
+                                 ends[(ends >= t0) & (ends <= t1)],
+                                 ends[ends > t1][:1]])
+        gaps = np.diff(during)
+        # v1 alone on the card: between the rollback and the second roll
+        alone = np.diff(ends[(ends > t_sw + 0.5 * left + 0.05)
+                             & (ends < t_sw + 0.85 * left - 0.05)])
+        # the stretch of the load that overlaps the longest gap most
+        stretches, prev = [], t0
+        for i, (a, b) in enumerate(captures):
+            stretches += [(f"bucket {i}'s warm-up", prev, a),
+                          (f"bucket {i}'s capture", a, b)]
+            prev = b
+        worst = ""
+        if len(gaps):
+            g0, g1 = during[int(gaps.argmax())], during[int(gaps.argmax()) + 1]
+            worst = max(stretches, key=lambda st: min(st[2], g1)
+                        - max(st[1], g0))[0] if stretches else ""
+        log(f"v2's load [{smi}]: {load_s:.3f} s = eager warm-up "
+            f"{split['warmup']:.3f} s + capture entry {split['enter']:.3f} s "
+            f"+ capture {split['capture']:.3f} s (+ "
+            f"{load_s - sum(split.values()):.3f} s besides) over "
+            f"{len(captures)} buckets; v1's longest gap between two batches "
+            f"while v2 loads {1e3 * gaps.max(initial=0.0):.2f} ms (over "
+            f"{len(gaps)} gaps, mostly in {worst or 'none'}), while it "
+            f"serves alone after the rollback "
+            f"{1e3 * alone.max(initial=0.0):.2f} ms (over {len(alone)} "
+            f"gaps); v1's peak queue depth {v1_depth[0]} of {v1.max_queue}")
         if v1_batches == 0:
             fail("v1 dispatched no batch while v2 captured")
         if v2._dispatch.warmed_signatures() != len(v2.buckets()):
@@ -3629,6 +3747,22 @@ def hold_captured(name, held, names, groups=None, exact=False) -> None:
         fail(f"{name}: captured run beyond the rule: {'; '.join(bad[:10])}")
 
 
+def state_names(net):
+    """The names of a network's ``_dispatch_state()`` tensors and their
+    groups for :func:`hold_captured` (a param with its Adam moments);
+    the updater state and the clock are made first."""
+    net._ensure_opt_state()
+    net._ensure_clock()
+    names = [f"{n}.{p}" for n, ps in net._items(net._params) for p in ps]
+    names += [f"{n}.{s}" for n, ss in net._items(net._states) for s in ss]
+    names += [f"{n}.{p}.{m}" for n, ps in net._items(net._opt_state)
+              for p, st in ps.items() for m in st]
+    names.append("t")
+    groups = [nm.rsplit(".", 1)[0] if nm.endswith((".m", ".v")) else nm
+              for nm in names]
+    return names, groups
+
+
 def captured_fit(name, net, ds, per_step: int, smi: str,
                  exact: bool = False) -> dict:
     """Phase 14 for one network: 8 eager steps twice and 2 captured
@@ -3643,15 +3777,7 @@ def captured_fit(name, net, ds, per_step: int, smi: str,
     from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
     from deeplearning4j_tpu_torch.train import stepping
     k, steps = MEGA_K, 2 * MEGA_K
-    net._ensure_opt_state()
-    net._ensure_clock()
-    names = [f"{n}.{p}" for n, ps in net._items(net._params) for p in ps]
-    names += [f"{n}.{s}" for n, ss in net._items(net._states) for s in ss]
-    names += [f"{n}.{p}.{m}" for n, ps in net._items(net._opt_state)
-              for p, st in ps.items() for m in st]
-    names.append("t")
-    groups = [nm.rsplit(".", 1)[0] if nm.endswith((".m", ".v")) else nm
-              for nm in names]
+    names, groups = state_names(net)
     s0 = snapshot(net._dispatch_state())
 
     def start():
@@ -4661,6 +4787,257 @@ def samediff_layer(smi: str) -> None:
         f"median {float(np.median(eager_ms)):.2f}, captured K={MEGA_K} "
         f"{cap_ms:.2f} a step; captured bit-equal to eager, no capture "
         f"failure [{smi}]")
+
+
+def datavec(smi: str) -> None:
+    """Phase 32: DataVec feeds nets on the card: (a) a transaction table
+    through a ``TransformProcess`` into an MLP, eager and captured; (b)
+    the UCI control charts through the sequence reader into an LSTM; (c)
+    Speech Commands-shaped WAVs through MFCC into a Conv1D net."""
+    import shutil
+
+    import torch
+
+    from deeplearning4j_tpu_torch.data import datavec_fixtures as fx
+    from deeplearning4j_tpu_torch.data import records as R
+    from deeplearning4j_tpu_torch.data.audio import (AudioDataSetIterator,
+                                                     WavFileRecordReader,
+                                                     read_wav)
+    from deeplearning4j_tpu_torch.data.dataset import (DataSet,
+                                                       NormalizerStandardize)
+    from deeplearning4j_tpu_torch.nn import compilecache as cc
+    from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.nn.config import (InputType,
+                                                    NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.train.listeners import \
+        ScoreIterationListener
+    from deeplearning4j_tpu_torch.train.updaters import Adam
+    t_phase = time.perf_counter()
+
+    def cpu_first(conf, net, ds):
+        """The first step's loss of the same net on the CPU, from the card
+        net's initial parameters (the same seeded draws) and batch."""
+        cpu = MultiLayerNetwork(conf).init(device="cpu")
+        for a, b in zip(cpu._params, net._params):
+            if any(not torch.equal(a[k], b[k].detach().cpu()) for k in a):
+                fail("the CPU net's initial params differ from the card's")
+        cpu.fit(DataSet(*(None if v is None else np.asarray(v)
+                          for v in (ds.features, ds.labels,
+                                    ds.features_mask, ds.labels_mask))))
+        return cpu.score()
+
+    def epochs(net, batches, n, k=1):
+        """``n`` epochs of ``fit`` (K steps a dispatch); each epoch's
+        losses and ms a step (host clock, a host read of each loss)."""
+        lst = ScoreIterationListener(1 << 30, out=lambda msg: None)
+        net.setListeners(lst)
+        out = []
+        for _ in range(n):
+            lst.history = []
+            t0 = time.perf_counter()
+            net.fit(batches, steps_per_dispatch=k)
+            ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+            out.append((list(lst.history), ms))
+        net.setListeners()
+        return out
+
+    def checks(name, net, runs, first_cpu):
+        """The path's gates over its epochs' losses."""
+        losses = [v for ls, _ in runs for v in ls]
+        card = all(p.is_cuda for ps in net._params for p in ps.values())
+        first, last = np.mean(runs[0][0]), np.mean(runs[-1][0])
+        d_cpu = abs(runs[0][0][0] - first_cpu) / abs(first_cpu)
+        if not card or not np.isfinite(losses).all() or not last < first \
+                or not d_cpu <= DV_CPU_TOL:
+            fail(f"{name}: params on the card {card}, {len(losses)} losses "
+                 f"finite {bool(np.isfinite(losses).all())}, epoch mean "
+                 f"loss first {first:.6f} last {last:.6f}, first step "
+                 f"{runs[0][0][0]!r} against the CPU's {first_cpu!r} "
+                 f"({d_cpu:.3g} relative, bound {DV_CPU_TOL:g})")
+        return first, last, d_cpu
+
+    tmp = tempfile.mkdtemp(prefix="datavec_")
+    try:
+        # -------------------------------------- (a) a table into an MLP
+        path = os.path.join(tmp, "transactions.csv")
+        t0 = time.perf_counter()
+        fx.write_transactions(path, DV_ROWS, seed=0)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rows = list(R.CSVRecordReader().initialize(path))
+        read_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tp = fx.transaction_process(R)
+        out = tp.execute(rows)
+        tf_s = time.perf_counter() - t0
+        schema = tp.getFinalSchema()
+        label = schema.getIndexOfColumn("FraudLabel")
+        t0 = time.perf_counter()
+        batches = list(R.RecordReaderDataSetIterator(
+            R.CollectionRecordReader(out), DV_BATCH, label, 2))
+        iter_s = time.perf_counter() - t0
+        n_in = schema.numColumns() - 1
+        kept = sum(b.features.shape[0] for b in batches)
+        if kept != len(out) or not 0.7 * DV_ROWS < kept < 0.9 * DV_ROWS \
+                or batches[0].features.shape != (DV_BATCH, n_in):
+            fail(f"transactions: {kept} rows batched of {len(out)} kept of "
+                 f"{DV_ROWS}, first batch {batches[0].features.shape}")
+        host_s = read_s + tf_s + iter_s
+        del rows, out
+        conf = (NeuralNetConfiguration.Builder().seed(11)
+                .updater(Adam(1e-3)).list()
+                .layer(L.DenseLayer(nOut=DV_WIDTH, activation="relu"))
+                .layer(L.DenseLayer(nOut=DV_WIDTH, activation="relu"))
+                .layer(L.DenseLayer(nOut=DV_WIDTH, activation="relu"))
+                .layer(L.OutputLayer(nOut=2, activation="softmax",
+                                     lossFunction="mcxent"))
+                .setInputType(InputType.feedForward(n_in)).build())
+        net = MultiLayerNetwork(conf).init()
+        first_cpu = cpu_first(conf, net, batches[0])
+        names, groups = state_names(net)
+        s0 = snapshot(net._dispatch_state())
+        held, runs = {}, {}
+        for run, k in (("eager 1", 1), ("eager 2", 1), ("captured", MEGA_K)):
+            restore(net._dispatch_state(), s0)
+            net._iteration = 0
+            cc.reset_stats()
+            runs[run] = epochs(net, batches, 1, k)[0]
+            held[run] = (runs[run][0], snapshot(net._dispatch_state()))
+        stats = cc.cache_stats()
+        hold_captured("transactions MLP", held, names, groups)
+        if stats["capture_failures"] or \
+                stats["compile_seconds"]["cold_compiles"] != 1:
+            fail(f"transactions K={MEGA_K} epoch: cache stats {stats}: want "
+                 "one capture and no failure")
+        second = epochs(net, batches, 1, MEGA_K)[0]
+        first, last, d_cpu = checks("transactions MLP", net,
+                                    [runs["captured"], second], first_cpu)
+        cap_s = stats["compile_seconds"]["cold"]
+        cap_ms = (runs["captured"][1] * len(batches) - cap_s * 1e3) \
+            / len(batches)
+        log(f"DataVec (a) [{smi}]: {DV_ROWS} transactions "
+            f"({os.path.getsize(path) / 1e6:.1f} MB of CSV, written in "
+            f"{write_s:.2f} s): read {DV_ROWS / read_s:,.0f} rows/s, "
+            f"transformed {DV_ROWS / tf_s:,.0f} rows/s ({kept} kept, "
+            f"{schema.numColumns()} columns), iterated {kept / iter_s:,.0f} "
+            f"rows/s into {len(batches)} batches; host {host_s:.2f} s. MLP "
+            f"{n_in}->{DV_WIDTH}x3->2 ({net.numParams()} params): eager "
+            f"{runs['eager 1'][1]:.3f} ms a step, K={MEGA_K} "
+            f"{second[1]:.3f} ms (the first K={MEGA_K} epoch "
+            f"{cap_ms:.3f} ms past its {cap_s:.2f} s capture); epoch mean "
+            f"loss {first:.5f} -> {last:.5f}; first step vs CPU "
+            f"{d_cpu:.3g} relative")
+        del net, batches
+
+        # ----------------------------------- (b) sequences into an LSTM
+        t0 = time.perf_counter()
+        paths = fx.write_control_charts(os.path.join(tmp, "charts"), seed=0)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        seq = list(R.SequenceRecordReaderDataSetIterator(
+            R.CSVSequenceRecordReader().initialize(paths), DV_CHART_BATCH,
+            -1, len(fx.CHART_CLASSES)))
+        read_s = time.perf_counter() - t0
+        norm = NormalizerStandardize()
+        norm.fit(np.concatenate([b.features for b in seq]))
+        for b in seq:
+            norm.transform(b)
+        if len(seq) != 600 // DV_CHART_BATCH or seq[0].features.shape != \
+                (DV_CHART_BATCH, 1, fx.CHART_LENGTH) \
+                or seq[0].features_mask is not None:
+            fail(f"control charts: {len(seq)} batches of "
+                 f"{seq[0].features.shape}")
+        conf = (NeuralNetConfiguration.Builder().seed(12)
+                .updater(Adam(5e-3)).list()
+                .layer(L.LSTM(nOut=10, activation="tanh"))
+                .layer(L.RnnOutputLayer(nOut=len(fx.CHART_CLASSES),
+                                        activation="softmax",
+                                        lossFunction="mcxent"))
+                .setInputType(InputType.recurrent(1, fx.CHART_LENGTH))
+                .build())
+        net = MultiLayerNetwork(conf).init()
+        first_cpu = cpu_first(conf, net, seq[0])
+        cc.reset_stats()
+        runs_b = epochs(net, seq, 1) + epochs(net, seq, DV_CHART_EPOCHS - 1,
+                                              MEGA_K)
+        stats = cc.cache_stats()
+        if stats["capture_failures"] or \
+                stats["compile_seconds"]["cold_compiles"] != 1:
+            fail(f"control-chart LSTM K={MEGA_K}: cache stats {stats}: want "
+                 "one capture and no failure")
+        first, last, d_cpu = checks("control-chart LSTM", net, runs_b,
+                                    first_cpu)
+        log(f"DataVec (b) [{smi}]: 600 control charts x {fx.CHART_LENGTH} "
+            f"steps written in {write_s:.2f} s, read and batched in "
+            f"{read_s:.2f} s ({600 * fx.CHART_LENGTH / read_s:,.0f} rows/s); "
+            f"LSTM(10) {DV_CHART_EPOCHS} epochs of {len(seq)} steps, the "
+            f"first eager, then K={MEGA_K} (capture "
+            f"{stats['compile_seconds']['cold']:.2f} s): "
+            f"{', '.join(f'{ms:.2f}' for _, ms in runs_b)} ms a step; epoch "
+            f"mean loss {first:.5f} -> {last:.5f}; first step vs CPU "
+            f"{d_cpu:.3g} relative")
+        del net, seq
+
+        # --------------------------------------- (c) audio into a Conv1D
+        root = os.path.join(tmp, "speech")
+        t0 = time.perf_counter()
+        fx.write_speech_commands(root, DV_CLIPS, seed=0)
+        write_s = time.perf_counter() - t0
+        rr = WavFileRecordReader(feature="mfcc", n_frames=DV_CLIP_FRAMES)
+        rr.initialize(root)
+        t0 = time.perf_counter()
+        for f in rr._files:
+            read_wav(f)
+        decode_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        clips = DataSet.merge(list(AudioDataSetIterator(rr, DV_CLIP_BATCH)))
+        feat_s = time.perf_counter() - t0
+        norm = NormalizerStandardize()
+        norm.fit(clips)
+        norm.transform(clips)
+        clips.shuffle(seed=0)
+        audio = clips.batchBy(DV_CLIP_BATCH)
+        n_cls = rr.numLabels()
+        if clips.features.shape != (DV_CLIPS, 13, DV_CLIP_FRAMES) or \
+                n_cls != 8:
+            fail(f"speech clips: features {clips.features.shape}, {n_cls} "
+                 "labels")
+        conf = (NeuralNetConfiguration.Builder().seed(13)
+                .updater(Adam(3e-3)).list()
+                .layer(L.Convolution1D(kernelSize=3, nOut=64,
+                                       activation="relu",
+                                       convolutionMode="same"))
+                .layer(L.BatchNormalization())
+                .layer(L.Convolution1D(kernelSize=3, nOut=64,
+                                       activation="relu",
+                                       convolutionMode="same"))
+                .layer(L.BatchNormalization())
+                .layer(L.GlobalPoolingLayer("avg"))
+                .layer(L.OutputLayer(nOut=n_cls, activation="softmax",
+                                     lossFunction="mcxent"))
+                # no timesteps: with them BatchNormalization sizes its
+                # params as channels x steps (a JAX package finding)
+                .setInputType(InputType.recurrent(13))
+                .build())
+        net = MultiLayerNetwork(conf).init()
+        first_cpu = cpu_first(conf, net, audio[0])
+        runs_c = epochs(net, audio, DV_CLIP_EPOCHS)
+        first, last, d_cpu = checks("speech Conv1D", net, runs_c, first_cpu)
+        log(f"DataVec (c) [{smi}]: {DV_CLIPS} clips (1 s, 16 kHz) written "
+            f"in {write_s:.2f} s; decode {decode_s:.2f} s "
+            f"({DV_CLIPS / decode_s:,.0f} clips/s), decode + MFCC "
+            f"{feat_s:.2f} s ({DV_CLIPS / feat_s:,.0f} clips/s, "
+            f"{1e3 * feat_s / len(audio):.1f} ms a batch of "
+            f"{DV_CLIP_BATCH}); Conv1D x2 + BN ({net.numParams()} params) "
+            f"{DV_CLIP_EPOCHS} epochs of {len(audio)} steps: "
+            f"{', '.join(f'{ms:.2f}' for _, ms in runs_c)} ms a step; epoch "
+            f"mean loss {first:.5f} -> {last:.5f}; first step vs CPU "
+            f"{d_cpu:.3g} relative")
+        del net, clips, audio
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"DataVec: phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def plain_overrides(registry, ck) -> None:

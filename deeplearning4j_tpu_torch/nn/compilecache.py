@@ -80,7 +80,8 @@ _FAILURES = _REG.counter(
 
 #: per-process aggregates for cache_stats() (plain ints under the GIL)
 _STATS = {"memory_hits": 0, "memory_misses": 0, "cold_seconds": 0.0,
-          "cold_compiles": 0, "capture_failures": 0}
+          "cold_compiles": 0, "capture_failures": 0, "warmup_seconds": 0.0,
+          "enter_seconds": 0.0, "capture_seconds": 0.0}
 
 #: eager runs before a capture: cuBLAS/cuDNN handles and workspaces and
 #: the allocator's blocks come into being outside the graph
@@ -92,11 +93,17 @@ _CAPTURE_FAILED = object()
 
 def cache_stats() -> dict:
     """Per-process snapshot: memory-tier hits and misses, captures ("cold
-    compiles") and their seconds, and failed captures."""
+    compiles") and their seconds, and failed captures. The cold seconds
+    split into the eager warm-up runs (``warmup``), the capture's set-up
+    before its first recorded launch (``enter``) and the recording itself
+    (``capture``)."""
     return {"memory": {"hits": _STATS["memory_hits"],
                        "misses": _STATS["memory_misses"]},
             "compile_seconds": {"cold": _STATS["cold_seconds"],
-                                "cold_compiles": _STATS["cold_compiles"]},
+                                "cold_compiles": _STATS["cold_compiles"],
+                                "warmup": _STATS["warmup_seconds"],
+                                "enter": _STATS["enter_seconds"],
+                                "capture": _STATS["capture_seconds"]},
             "capture_failures": _STATS["capture_failures"]}
 
 
@@ -148,32 +155,41 @@ def _on_card(args) -> bool:
     return any(isinstance(a, torch.Tensor) and a.is_cuda for a in args)
 
 
+@contextlib.contextmanager
 def _side_stream(args):
     """The stream the eager warm-up runs take: a side stream on the card
-    (kept off the capture's), none on the CPU."""
+    (kept off the capture's), which the caller's stream waits for on the
+    way out, so the state restored after the runs is written after them.
+    That is an order on the card, not a wait of the host: a server on the
+    same card replays meanwhile. Nothing on the CPU."""
     if not _on_card(args):
-        return contextlib.nullcontext()
+        yield
+        return
     dev = next(a.device for a in args
                if isinstance(a, torch.Tensor) and a.is_cuda)
+    current = torch.cuda.current_stream(dev)
     side = torch.cuda.Stream(dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    return torch.cuda.stream(side)
+    side.wait_stream(current)
+    try:
+        with torch.cuda.stream(side):
+            yield
+    finally:
+        current.wait_stream(side)
 
 
-def _join_side_stream(args) -> None:
-    if _on_card(args):
-        torch.cuda.synchronize(next(a.device for a in args
-                                    if isinstance(a, torch.Tensor)
-                                    and a.is_cuda))
+def _record(fn, static_args, *, pool, stream):
+    """Capture ``fn(*static_args)`` into a new CUDA graph on ``stream``
+    (which first waits for the caller's stream) into the memory ``pool``
+    of :meth:`CachedDispatch._capture_options`; returns ``(graph, static
+    outputs)``. The capture is thread-local: another thread's calls
+    meanwhile (a server replaying its own graphs, its synchronous copies
+    to and from the card) neither invalidate it nor raise there.
 
-
-def _record(fn, static_args, **capture):
-    """Capture ``fn(*static_args)`` into a new CUDA graph; returns
-    ``(graph, static outputs)``. ``capture`` holds the ``pool`` and
-    ``stream`` of :meth:`CachedDispatch._capture_options`. The capture is
-    thread-local: another thread's calls meanwhile (a server replaying
-    its own graphs, its synchronous copies to and from the card) neither
-    invalidate it nor raise there.
+    ``torch.cuda.graph`` is not used: its entry synchronizes the whole
+    card and empties the caching allocator, which hands every other
+    server's cached blocks back to CUDA (``cudaFree`` waits for the card)
+    and holds the interpreter lock while it does, so each capture stalled
+    a server that was serving beside it.
 
     The cyclic garbage collector is off while the capture runs: a network
     and its dispatches form a reference cycle, so an older network's
@@ -184,9 +200,17 @@ def _record(fn, static_args, **capture):
     collecting = gc.isenabled()
     gc.disable()
     try:
-        with torch.cuda.graph(graph, capture_error_mode="thread_local",
-                              **capture):
-            out = fn(*static_args)
+        t0 = time.perf_counter()
+        stream.wait_stream(torch.cuda.current_stream(stream.device))
+        with torch.cuda.stream(stream):
+            graph.capture_begin(pool, capture_error_mode="thread_local")
+            t1 = time.perf_counter()
+            try:
+                out = fn(*static_args)
+            finally:
+                graph.capture_end()
+        _STATS["enter_seconds"] += t1 - t0
+        _STATS["capture_seconds"] += time.perf_counter() - t1
     finally:
         if collecting:
             gc.enable()
@@ -332,7 +356,7 @@ class CachedDispatch:
             with _side_stream(args):
                 for _ in range(WARMUP_RUNS):
                     self.fn(*static)
-            _join_side_stream(args)
+        _STATS["warmup_seconds"] += time.perf_counter() - t0
         before = dict(ck.LAUNCHES)
         try:
             graph, out = _record(self.fn, static,

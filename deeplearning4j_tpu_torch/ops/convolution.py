@@ -438,6 +438,19 @@ def cropping2d(x, crop, data_format: str = "NCHW"):
     return x[:, t:h - bm, l:w - r, :]
 
 
+def im2col(x, kernel: IntOrPair, stride: IntOrPair = 1, pad: IntOrPair = 0,
+           dilation: IntOrPair = 1):
+    """(ref: libnd4j ``helpers::im2col``; kept for API parity, no conv
+    path uses it) ``x`` [N, C, H, W] -> [N, C, kH, kW, oH, oW], zero
+    padded, ``F.unfold``'s patches in the reference's layout."""
+    k, s, p, d = (_pair(v) for v in (kernel, stride, pad, dilation))
+    n, c, h, w = x.shape
+    oh, ow = (conv_output_size(size, *args) for size, args in
+              zip((h, w), zip(k, s, p, d)))
+    cols = F.unfold(x, k, dilation=d, padding=p, stride=s)
+    return cols.reshape(n, c, k[0], k[1], oh, ow)
+
+
 def conv_output_size(size: int, kernel: int, stride: int, pad: int,
                      dilation: int = 1, mode: str = "truncate") -> int:
     """Shape inference for conv/pool (ref: ``ConvolutionUtils.

@@ -226,3 +226,24 @@ def get(name):
     if key not in LOSSES:
         raise ValueError(f"Unknown loss '{name}'. Known: {sorted(LOSSES)}")
     return LOSSES[key]
+
+
+class LossFunction:
+    """Enum-style names mirroring ``LossFunctions.LossFunction``."""
+
+    MSE = "mse"
+    L1 = "l1"
+    L2 = "l2"
+    MAE = "mae"
+    XENT = "xent"
+    MCXENT = "mcxent"
+    SPARSE_MCXENT = "sparse_mcxent"
+    NEGATIVELOGLIKELIHOOD = "negativeloglikelihood"
+    HINGE = "hinge"
+    SQUARED_HINGE = "squared_hinge"
+    KL_DIVERGENCE = "kl_divergence"
+    MEAN_SQUARED_LOGARITHMIC_ERROR = "msle"
+    MEAN_ABSOLUTE_PERCENTAGE_ERROR = "mape"
+    POISSON = "poisson"
+    COSINE_PROXIMITY = "cosine_proximity"
+    WASSERSTEIN = "wasserstein"

@@ -37,6 +37,14 @@ def layer_norm(x, gain, bias=None, *, axis=-1, eps: float = 1e-5):
     return out
 
 
+def rms_norm(x, gain, *, axis=-1, eps: float = 1e-6):
+    """RMSNorm (the JAX package's transformer-era extension):
+    ``x * rsqrt(mean(x^2) + eps) * gain``."""
+    ms = torch.mean(torch.square(x), dim=axis, keepdim=True)
+    out = x * torch.rsqrt(ms + eps)
+    return out * gain if gain is not None else out
+
+
 def lrn(x, *, depth: int = 5, alpha: float = 1e-4, beta: float = 0.75,
         bias: float = 1.0, data_format: str = "NCHW"):
     """Local response normalization across channels (ref: libnd4j

@@ -199,6 +199,7 @@ def softmax(x, axis: int = -1):
 
 
 register("layer_norm", _norm.layer_norm)
+register("rms_norm", _norm.rms_norm)
 register("scale_shift_act", _norm.scale_shift_act)
 register("flash_attention", _attn.flash_attention)
 register("multi_head_dot_product_attention", _attn.multi_head_attention)

@@ -83,7 +83,6 @@ def fake_capture(monkeypatch):
         isinstance(a, torch.Tensor) for a in args))
     monkeypatch.setattr(cc, "_side_stream",
                         lambda args: contextlib.nullcontext())
-    monkeypatch.setattr(cc, "_join_side_stream", lambda args: None)
     monkeypatch.setattr(cc, "_record", record)
     monkeypatch.setattr(cc.CachedDispatch, "_acquire", acquire)
     return made
@@ -169,8 +168,35 @@ class TestCachedDispatch:
         assert len(calls) == 2
         assert cc.cache_stats() == {
             "memory": {"hits": 0, "misses": 0},
-            "compile_seconds": {"cold": 0.0, "cold_compiles": 0},
+            "compile_seconds": {"cold": 0.0, "cold_compiles": 0,
+                                "warmup": 0.0, "enter": 0.0,
+                                "capture": 0.0},
             "capture_failures": 0}
+
+    def test_cpu_dispatch_equals_eager_and_keeps_its_state(self):
+        """On the CPU a dispatch, whatever its options, is the eager
+        function: the same outputs and the same writes to its state,
+        with nothing captured and no stream touched."""
+        def step(state, x):
+            state.mul_(0.5).add_(x)
+            return state.sum() * x
+
+        x = torch.arange(6, dtype=torch.float32)
+        for always in (False, True):
+            s_eager = torch.ones(6)
+            s_disp = torch.ones(6)
+            d = cc.CachedDispatch(lambda a: step(s_disp, a), "test:cpu_eq",
+                                  state=lambda: [s_disp],
+                                  always_capture=always)
+            d.warm(x)
+            assert torch.equal(s_disp, s_eager)
+            for _ in range(3):
+                assert torch.equal(d(x), step(s_eager, x))
+                assert torch.equal(s_disp, s_eager)
+            assert d.captures() == 0
+        with cc._side_stream((x,)):
+            pass
+        assert cc.cache_stats()["compile_seconds"]["cold_compiles"] == 0
 
     def test_signature_keying_and_stats(self, fake_capture):
         d = cc.CachedDispatch(lambda x, s: x * s, "test:keys",

@@ -381,6 +381,37 @@ def test_a_capture_leaves_another_servers_replays_right(dev):
         ck.uninstall_platform_overrides()
 
 
+def test_a_capture_does_not_wait_for_the_card(dev):
+    """Capturing a signature (warm-up runs on a side stream, then the
+    recording) while another stream runs a long spin returns before the
+    spin ends: nothing in it synchronizes the card. The replay equals the
+    eager call to the bit."""
+    w = _randn(dev, 256, 256, seed=1) * 0.1
+    x = _randn(dev, 32, 256, seed=2)
+
+    def fn(a):
+        return torch.tanh(a @ w) * 2 + a
+
+    want = fn(x)
+    d = cc.CachedDispatch(fn, "test:no_sync", always_capture=True)
+    torch.cuda.synchronize()
+    busy = torch.cuda.Stream(dev)
+    spun = torch.cuda.Event()
+    with torch.cuda.stream(busy):
+        torch.cuda._sleep(2_000_000_000)      # about a second
+        spun.record()
+    try:
+        d.warm(x)
+        assert not spun.query(), "the capture waited for the spin"
+        assert d.warmed_signatures() == 1
+    finally:
+        spun.synchronize()
+    got = d(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert cc.cache_stats()["capture_failures"] == 0
+
+
 # ----------------------------------------- dropout, VGG-like and Darknet19
 def test_dropout_masks_drawn_in_a_graph_equal_eager(dev):
     """The mask is a function of (seed, clock, layer): a captured draw

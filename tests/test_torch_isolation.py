@@ -158,6 +158,12 @@ def test_import_leaves_jax_unloaded():
              "deeplearning4j_tpu_torch.data.iterators, "
              "deeplearning4j_tpu_torch.data.dataset, "
              "deeplearning4j_tpu_torch.data.records, "
+             "deeplearning4j_tpu_torch.data.audio, "
+             "deeplearning4j_tpu_torch.data.datavec_fixtures, "
+             "deeplearning4j_tpu_torch.ops.normalization, "
+             "deeplearning4j_tpu_torch.ops.convolution, "
+             "deeplearning4j_tpu_torch.ops.losses, "
+             "deeplearning4j_tpu_torch.ops.registry, "
              "deeplearning4j_tpu_torch.data.image, "
              "deeplearning4j_tpu_torch.data.decode, "
              "deeplearning4j_tpu_torch.data.pipeline, "

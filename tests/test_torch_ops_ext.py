@@ -27,6 +27,7 @@ from deeplearning4j_tpu.modelimport import keras as jkeras
 from deeplearning4j_tpu.ops import activations as jact
 from deeplearning4j_tpu.ops import attention as jattn
 from deeplearning4j_tpu.ops import convolution as jconv
+from deeplearning4j_tpu.ops import losses as jloss
 from deeplearning4j_tpu.ops import normalization as jnorm
 from deeplearning4j_tpu.ops import registry as jreg
 from deeplearning4j_tpu.ops import validation as jval
@@ -34,6 +35,7 @@ from deeplearning4j_tpu_torch.modelimport import keras as tkeras
 from deeplearning4j_tpu_torch.ops import activations as tact
 from deeplearning4j_tpu_torch.ops import attention as tattn
 from deeplearning4j_tpu_torch.ops import convolution as tconv
+from deeplearning4j_tpu_torch.ops import losses as tloss
 from deeplearning4j_tpu_torch.ops import normalization as tnorm
 from deeplearning4j_tpu_torch.ops import registry as treg
 
@@ -324,3 +326,53 @@ def test_gelu_is_the_tanh_form_keras_computes_the_exact_one():
     assert 4.73e-4 < float(d.max()) < 4.74e-4
     assert abs(abs(float(x[d.argmax()])) - 2.70) < 0.01
     assert tkeras._ACTIVATION_MAP["gelu"] == "gelu"
+
+
+# ------------------------------------- rms_norm, im2col, LossFunction
+@pytest.mark.parametrize("axis,eps,gain", [(-1, 1e-6, True), (-1, 1e-3, False),
+                                           (0, 1e-6, True)])
+def test_rms_norm_matches_jax(axis, eps, gain):
+    """The nn case table's ``rms_norm`` inputs (and a random gain),
+    through both registries: outputs and gradients."""
+    x, g = _case_args("rms_norm")
+    g = np.random.default_rng(1).standard_normal(
+        x.shape[axis]).astype(np.float32)
+    if axis == 0:
+        g = g[:, None]
+    if gain:
+        _both(lambda a, b: jreg.get("rms_norm")(a, b, axis=axis, eps=eps),
+              lambda a, b: treg.get("rms_norm")(a, b, axis=axis, eps=eps),
+              [x, g], grad_idx=(0, 1))
+    else:
+        _both(lambda a: jnorm.rms_norm(a, None, axis=axis, eps=eps),
+              lambda a: tnorm.rms_norm(a, None, axis=axis, eps=eps), [x])
+    golden = NN_CASES["rms_norm"].golden(*_case_args("rms_norm"))
+    _close(tnorm.rms_norm(*[torch.from_numpy(a) for a in
+                            _case_args("rms_norm")]), golden)
+
+
+@pytest.mark.parametrize("kernel,stride,pad,dilation", [
+    (2, 1, 0, 1), (3, 2, 1, 1), ((2, 3), (1, 2), (1, 0), 1), (2, 1, 1, 2)])
+def test_im2col_matches_jax(kernel, stride, pad, dilation):
+    """The nn case table's ``im2col`` input (and a wider one),
+    [N, C, H, W] -> [N, C, kH, kW, oH, oW] equal to the JAX op, its
+    gradient too."""
+    x = _case_args("im2col")[0]
+    wide = np.random.default_rng(2).standard_normal((2, 3, 7, 6)).astype(
+        np.float32)
+    for arr in (x, wide):
+        _both(lambda a: jconv.im2col(a, kernel, stride, pad, dilation),
+              lambda a: tconv.im2col(a, kernel, stride, pad, dilation),
+              [arr])
+
+
+def test_loss_function_names_match_jax():
+    """``LossFunction``'s enum names and values are the JAX ones, and each
+    value names a loss both packages know."""
+    def names(cls):
+        return {k: v for k, v in vars(cls).items() if k.isupper()}
+    assert names(tloss.LossFunction) == names(jloss.LossFunction)
+    for v in names(tloss.LossFunction).values():
+        assert tloss.get(v) is tloss.LOSSES[v]
+        assert v in jloss.LOSSES
+
