@@ -452,6 +452,41 @@ Phases (each one fails the run with a non-zero exit):
    1e-4 of the same net's first step on the CPU from the same parameters
    and batch (relative). It prints the rows/s of reading, transforming and
    iterating, the clips/s of decoding and MFCC, and the step ms.
+33. The analyzer against the card (``deeplearning4j_tpu_torch.analysis``,
+   static: no tensor, no ``init``). (a) The CLI in-process:
+   ``main(["--zoo"])`` exits 0 with "16 model(s) linted: 16 clean", and
+   ``main(["--cost", "--chip", "h100-sxm", "ResNet50"])`` exits 0. (b) For
+   ResNet-50 (B=64, bf16), TinyYOLO (B=32, bf16), LeNet-5 (B=64, fp32),
+   VGG16 (B=64, bf16), Darknet19 (B=32, bf16) and YOLO2 (B=32, bf16),
+   their phases' configurations at K=4: ``analyze(conf, batch_size=B,
+   cost=CostSpec(chip="h100-sxm", precision=..., steps_per_dispatch=4))``
+   must hold no E-code (each of them ran); then the cost model's
+   predicted step ms and planned peak bytes beside the captured step ms
+   and the ``max_memory_allocated()`` their phases measured (14, 16, 17,
+   18, 19; less the bytes already live before each net was built, which
+   the process's earlier phases hold), with ``cost_model_ratio`` =
+   measured / predicted. Every ratio
+   finite and every step ratio >= 1: a roofline the card beats has a
+   wrong FLOP or byte count, or a wrong peak. The other zoo CNNs of
+   phase 20 (eager steps) are printed beside theirs, not gated. (c)
+   Phase 22's pipeline as an ``InputPipelineSpec`` (its workers, B=64,
+   K=4, uint8, its measured decode ms an image and pinned H2D MB/s, and
+   phase 14's in-memory ResNet-50 rate as the device rate): whether W108
+   fires, printed beside phase 22's from-disk and in-memory rates (not
+   gated). (d) ``init(strict=True)`` on a seeded E001 configuration
+   raises ``ModelValidationError`` and ``torch.cuda.memory_allocated()``
+   does not move. (e) The Hopper W101 rule measured: CUDA-event medians
+   (L2 flushed) of a bf16 ``torch.matmul`` [8192, 4096] x [4096, N] at N
+   in 296, 300, 304, 384, 424, 425 and 512, beside the padded N and the
+   waste the rule computes and whether it fires; and of YOLO2's head, a
+   1x1 bf16 NHWC conv over [32, 1024, 13, 13], forward and forward +
+   backward, at 424, 425 and 432 output channels; and of LeNet's dense,
+   bf16 [64, 800] x [800, N] at N in 496, 500 and 504 (the rule judges
+   each under bf16). (f) ``ModelServer.validate(shapes=,
+   hbm_gb=74.5, cost="h100-sxm")`` on a served ResNet-50 (fp32, 1000
+   classes, B <= 32, warmed, answering 8 requests): its report holds no
+   E111, E121 or E122; the net's own ``validate()`` (on the card, NCHW)
+   gives the conv-stack W101, and none after ``setComputeLayout("NHWC")``.
 
 The captured-against-eager rule: where the two eager runs agree to the
 bit on a tensor (and on the params' group: the param and its Adam
@@ -617,6 +652,25 @@ DV_CLIP_FRAMES = 124
 DV_CLIP_EPOCHS = 2
 #: a path's first step on the card against the CPU's (relative)
 DV_CPU_TOL = 1e-4
+#: phase 33: (phase name, zoo class, its kwargs, batch, policy) of the nets
+#: whose captured K=4 steps the cost model is held against
+ANALYZER_NETS = (
+    ("ResNet-50", "ResNet50", {"num_classes": 1000}, RESNET_BATCH, "bf16"),
+    ("TinyYOLO", "TinyYOLO", {"num_classes": YOLO_CLASSES}, YOLO_BATCH,
+     "bf16"),
+    ("LeNet-5", "LeNet", {"num_classes": 10}, 64, None),
+    ("VGG16", "VGG16", {"num_classes": 1000}, VGG_BATCH, "bf16"),
+    ("Darknet19", "Darknet19", {"num_classes": 1000}, DARKNET_BATCH, "bf16"),
+    ("YOLO2", "YOLO2", {"num_classes": YOLO2_CLASSES}, YOLO2_BATCH, "bf16"))
+#: phase 33 (e): the bf16 GEMM [M, K] x [K, N] the W101 rule is timed on
+LAYOUT_M, LAYOUT_K = 8192, 4096
+#: (424 and 425: the widths of YOLO2's 425-channel head)
+LAYOUT_NS = (296, 300, 304, 384, 424, 425, 512)
+#: phase 33 (e): YOLO2's head conv (1x1, 1024 in) at its 425 channels
+#: and the aligned neighbours
+HEAD_CONV_CIN, HEAD_CONV_NS = 1024, (424, 425, 432)
+#: phase 33 (e): LeNet's 500-wide dense at B=64 (800 in) and neighbours
+LENET_DENSE_M, LENET_DENSE_K, LENET_DENSE_NS = 64, 800, (496, 500, 504)
 
 
 def fail(msg: str) -> None:
@@ -1619,10 +1673,13 @@ def main() -> None:
     x_y = torch.from_numpy(rng.standard_normal(
         (YOLO_BATCH, 3, 416, 416), dtype=np.float32)).to(dev)
     y_y = torch.from_numpy(yolo_labels(rng, YOLO_BATCH, YOLO_CLASSES)).to(dev)
-    r14 = {name: captured_fit(name, build(), ds, per_step, smi)
-           for name, build, ds, per_step in (
-               ("ResNet-50", resnet, DataSet(x_r, y_r), 33),
-               ("TinyYOLO", tiny_yolo, DataSet(x_y, y_y), 8))}
+    r14 = {}
+    for name, build, ds, per_step in (
+            ("ResNet-50", resnet, DataSet(x_r, y_r), 33),
+            ("TinyYOLO", tiny_yolo, DataSet(x_y, y_y), 8)):
+        live = torch.cuda.memory_allocated()
+        r14[name] = captured_fit(name, build(), ds, per_step, smi,
+                                 live_before=live)
     del x_r, y_r, x_y, y_y
     torch.cuda.empty_cache()
 
@@ -1630,25 +1687,26 @@ def main() -> None:
     front_door(smi)
 
     # ------------------------------------------------------ 16. LeNet-5
-    lenet(smi)
+    measured = {name: r14[name] for name in ("ResNet-50", "TinyYOLO")}
+    measured["LeNet-5"] = lenet(smi)
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------- 17. VGG16
-    vgg16(smi)
+    measured["VGG16"] = vgg16(smi)
     torch.cuda.empty_cache()
 
     # ------------------- 18. Darknet19, and the ResNet-50 archive back
-    dk_launches = darknet19(smi)
+    dk_launches, measured["Darknet19"] = darknet19(smi)
     resnet_back(resnet_zip, *resnet_out)
     archive_dir.cleanup()
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- 19. YOLO2
-    y2_launches = yolo2(smi)
+    y2_launches, measured["YOLO2"] = yolo2(smi)
     torch.cuda.empty_cache()
 
     # ------------------------------------------- 20. the other zoo CNNs
-    zoo_cnns(smi)
+    zoo_eager = zoo_cnns(smi)
     torch.cuda.empty_cache()
 
     # ---------------------------------- 21. TextGenerationLSTM, TBPTT
@@ -1693,6 +1751,11 @@ def main() -> None:
 
     # ----------------------------------- 32. DataVec feeds nets on the card
     datavec(smi)
+    torch.cuda.empty_cache()
+
+    # ------------------------------------- 33. the analyzer against the card
+    analyzer_vs_card(smi, measured, zoo_eager, disk,
+                     r14["ResNet-50"]["captured_ms"])
     torch.cuda.empty_cache()
 
     ln.update(served["layer_norm"])
@@ -1972,11 +2035,15 @@ def front_door(smi: str) -> None:
             return req
         reg.submit = submit_recorded
 
-        # 1024 requests, 6.8 s at 150 requests/s: long enough that v2's
-        # load ends inside the replay (0.6-1.4 s on a quiet host, 4.2 s
-        # seen on a contended one, whose GIL v2's eager warm-up forwards
-        # share with v1's server and the HTTP threads)
-        load = ServingLoad.seeded(seed=0, mix="steady", n=1024, rps=150,
+        # the replay lasts as long as the phase needs it: v2's load,
+        # then SWAP_S s in which the route rolls, rolls back and rolls
+        # again, and then it stops. v2's load took 0.6-2.5 s on a quiet
+        # host and 4.2, 10.6 and 13.0 s on contended ones, whose GIL
+        # v2's eager warm-up forwards share with v1's server and the
+        # HTTP threads, so the schedule holds 4096 requests (27.4 s at
+        # 150 requests/s) and is cut when the swaps are done
+        SWAP_S = 5.0
+        load = ServingLoad.seeded(seed=0, mix="steady", n=4096, rps=150,
                                   max_rows=8)
         for spec in load.specs:
             spec.deadline = 5.0
@@ -1985,13 +2052,18 @@ def front_door(smi: str) -> None:
             return rng.randint(0, cfg.vocab_size, (spec.rows, T)).astype(
                 np.int32)
         feats = load.features((T,), make=tokens)
-        out = {}
+        out, stop = {}, threading.Event()
         ck.reset_counts()
         launches0 = dict(ck.LAUNCHES)
         t_start = time.perf_counter()
         replay = threading.Thread(target=lambda: out.setdefault(
-            "res", load.replay_http(ingress.url, "bert", (T,), make=tokens)))
+            "res", load.replay_http(ingress.url, "bert", (T,), make=tokens,
+                                    stop=stop)))
         replay.start()
+        # v2's load starts under traffic: once the replay has encoded its
+        # bodies (about a second for 4096) and sent for 0.3 s
+        while load.replay_started is None and replay.is_alive():
+            time.sleep(0.01)
         time.sleep(0.3)
         b0 = v1.stats()["batches"]
         split0 = cc.cache_stats()["compile_seconds"]
@@ -2016,17 +2088,21 @@ def front_door(smi: str) -> None:
                  for k in ("warmup", "enter", "capture")}
         v1_batches = v1.stats()["batches"] - b0
         v2 = reg.server("bert", 2)
-        left = load.duration() - (time.perf_counter() - t_start)
-        if left < 0.3:
-            fail(f"v2's load took {load_s:.2f} s: the replay of "
-                 f"{load.duration():.2f} s ended before the swaps")
+        left = load.duration() - (time.perf_counter()
+                                  - (load.replay_started or t_start))
+        if left < SWAP_S + 0.3:
+            stop.set()
+            fail(f"v2's load took {load_s:.2f} s: the replay's schedule "
+                 f"of {load.duration():.2f} s ends before the swaps")
         t_sw = time.perf_counter()
-        swaps = SwapSchedule([(0.15 * left, "bert", 2),
-                              (0.5 * left, "bert", "rollback"),
-                              (0.85 * left, "bert", 2)]).start(reg)
+        swaps = SwapSchedule([(0.15 * SWAP_S, "bert", 2),
+                              (0.5 * SWAP_S, "bert", "rollback"),
+                              (0.85 * SWAP_S, "bert", 2)]).start(reg)
         performed = swaps.join(60)
+        stop.wait(max(0.0, t_sw + SWAP_S - time.perf_counter()))
+        stop.set()
         replay.join(120)
-        wall = time.perf_counter() - t_start
+        wall = time.perf_counter() - load.replay_started
         if replay.is_alive():
             fail("the HTTP replay did not finish within 120 s")
         traffic = {k: ck.LAUNCHES[k] - launches0[k] for k in ck.KERNELS}
@@ -2043,8 +2119,8 @@ def front_door(smi: str) -> None:
                                  ends[ends > t1][:1]])
         gaps = np.diff(during)
         # v1 alone on the card: between the rollback and the second roll
-        alone = np.diff(ends[(ends > t_sw + 0.5 * left + 0.05)
-                             & (ends < t_sw + 0.85 * left - 0.05)])
+        alone = np.diff(ends[(ends > t_sw + 0.5 * SWAP_S + 0.05)
+                             & (ends < t_sw + 0.85 * SWAP_S - 0.05)])
         # the stretch of the load that overlaps the longest gap most
         stretches, prev = [], t0
         for i, (a, b) in enumerate(captures):
@@ -2132,9 +2208,9 @@ def front_door(smi: str) -> None:
             fail(f"front-door argmax agreement {frac:.5f} < 0.999")
 
         wire = sorted(s for s in load.wire_seconds if s is not None)
-        n_tok = sum(spec.rows for spec in load.specs) * T
+        n_tok = sum(spec.rows for spec, _ in res) * T
         log(f"front door [{smi}]: {n_tok / wall:.1f} tokens/s over "
-            f"{wall:.2f} s ({n_tok} tokens, offered {load.duration():.2f} s "
+            f"{wall:.2f} s ({n_tok} tokens, offered {res[-1][0].at:.2f} s "
             f"at 150 requests/s); wire latency p50 "
             f"{1e3 * float(np.percentile(wire, 50)):.2f} ms, p99 "
             f"{1e3 * float(np.percentile(wire, 99)):.2f} ms; v2 load and "
@@ -2298,9 +2374,11 @@ def bert_train(smi: str) -> None:
 
 
 
-def lenet(smi: str) -> None:
+def lenet(smi: str) -> dict:
     """Phase 16: LeNet-5 fit through the iterator, eager then K=4,
-    evaluated, and its archive and clone held to the bit."""
+    evaluated, and its archive and clone held to the bit. Returns the
+    K=4 ms a step, the peak bytes of that fit and the bytes allocated
+    before the net was built."""
     import torch
 
     from deeplearning4j_tpu_torch.data.iterators import MnistDataSetIterator
@@ -2309,6 +2387,7 @@ def lenet(smi: str) -> None:
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
     train = MnistDataSetIterator(64, True, num_examples=2048)
     test = MnistDataSetIterator(256, False, num_examples=512)
+    live_before = torch.cuda.memory_allocated()
     net = zoo.LeNet(num_classes=10).init()
     log(f"LeNet-5: {net.numParams()} parameters, preprocessors "
         f"{ {i: type(p).__name__ for i, p in net.conf.preprocessors.items()} }"
@@ -2320,10 +2399,12 @@ def lenet(smi: str) -> None:
     first = net.score()
     eager_s = time.perf_counter() - t0
     cc.reset_stats()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     net.fit(train, epochs=LENET_EPOCHS, steps_per_dispatch=MEGA_K)
     last = net.score()
     cap_s = time.perf_counter() - t0
+    peak_bytes = torch.cuda.max_memory_allocated()
     stats = cc.cache_stats()
     if stats["capture_failures"] or \
             stats["compile_seconds"]["cold_compiles"] != 1:
@@ -2359,11 +2440,14 @@ def lenet(smi: str) -> None:
         fail("LeNet: save -> load -> output() or clone().output() is not "
              "bit-equal to output()")
     log("LeNet save -> load -> output() and clone().output(): bit-equal")
+    return {"captured_ms": 1e3 * cap_s / steps, "peak_bytes": peak_bytes,
+            "live_before": live_before}
 
 
-def vgg16(smi: str) -> None:
+def vgg16(smi: str) -> dict:
     """Phase 17: VGG16 at full width, dropout drawn on the device clock,
-    eager against captured to the bit."""
+    eager against captured to the bit. Returns the captured fit's
+    numbers (``captured_fit``)."""
     import torch
 
     from deeplearning4j_tpu_torch import profile_fit
@@ -2374,6 +2458,7 @@ def vgg16(smi: str) -> None:
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
+        live_before = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         net = zoo.VGG16(num_classes=1000).init()
         net.setPrecisionPolicy("bf16")
@@ -2470,7 +2555,8 @@ def vgg16(smi: str) -> None:
             fail("VGG16 fc1 masks: keep rate off 0.5 +- 0.01, masks not "
                  "changing between steps, or a replay unequal to eager")
         del graph, drawn, masks
-        res = captured_fit("VGG16", net, ds, 0, smi, exact=True)
+        res = captured_fit("VGG16", net, ds, 0, smi, exact=True,
+                           live_before=live_before)
         log(f"VGG16 captured K={MEGA_K}: step ms {res['captured_ms']:.2f}, "
             f"{VGG_BATCH / (res['captured_ms'] / 1e3):.1f} images/s, MFU "
             f"{flops / (res['captured_ms'] / 1e3) / peak:.4f}; eager step "
@@ -2490,13 +2576,15 @@ def vgg16(smi: str) -> None:
                 f"ms a step), busy {tr['device_busy_share_traced']:.3f}; by "
                 f"group {json.dumps(tr['device_ms_by_group'])} [{smi}]")
         del net, ds, x, y
+        return res
     finally:
         torch.backends.cudnn.deterministic = deterministic
 
 
-def darknet19(smi: str) -> int:
+def darknet19(smi: str) -> tuple:
     """Phase 18: Darknet19 on the ``scale_shift_act`` kernel; returns the
-    kernel's launches over the eager steps."""
+    kernel's launches over the eager steps and the captured fit's
+    numbers (``captured_fit``)."""
     import torch
 
     from deeplearning4j_tpu_torch import profile_fit
@@ -2513,6 +2601,7 @@ def darknet19(smi: str) -> int:
         net.setComputeLayout("NHWC")
         net.setEpilogueFusion(True)
         return net
+    live_before = torch.cuda.memory_allocated()
     net = build()
     plan = net._ensure_epilogue_plan()
     log(f"Darknet19: {net.numParams()} parameters, {len(net.layers)} layers, "
@@ -2546,7 +2635,8 @@ def darknet19(smi: str) -> int:
         f"{med:.2f} (min {min(step_ms):.2f}, max {max(step_ms):.2f}), "
         f"{DARKNET_BATCH / (med / 1e3):.1f} images/s; launches {launches} "
         f"[{smi}]")
-    captured_fit("Darknet19", net, ds, 18, smi)
+    res = captured_fit("Darknet19", net, ds, 18, smi,
+                       live_before=live_before)
     group = [ds] * MEGA_K
     for what, tr, steps in (
             ("eager step", profile_fit.profile(
@@ -2580,7 +2670,7 @@ def darknet19(smi: str) -> int:
     if float(dp.max()) > 0.05 * pmax or float(dp.mean()) > 2e-3 * pmax:
         fail("kernel and plain Darknet19 forwards disagree beyond the bound "
              "(max 5%, mean 0.2% of max p)")
-    return launches["scale_shift_act"]
+    return launches["scale_shift_act"], res
 
 
 def resnet_back(path: str, x, probs) -> None:
@@ -2605,9 +2695,10 @@ def resnet_back(path: str, x, probs) -> None:
         f"{net.getIterationCount()}): output() bit-equal to phase 5's")
 
 
-def yolo2(smi: str) -> int:
+def yolo2(smi: str) -> tuple:
     """Phase 19: YOLO2 at full width through ``ComputationGraph.fit``;
-    returns the ``scale_shift_act`` launches of its eager steps."""
+    returns the ``scale_shift_act`` launches of its eager steps and the
+    captured fit's numbers (``captured_fit``)."""
     import torch
 
     from deeplearning4j_tpu_torch import profile_fit
@@ -2629,6 +2720,7 @@ def yolo2(smi: str) -> int:
         net.setComputeLayout("NHWC")
         net.setEpilogueFusion(True)
         return net
+    live_before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     net = build()
     plan = net._ensure_epilogue_plan()
@@ -2682,7 +2774,8 @@ def yolo2(smi: str) -> int:
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        res = captured_fit("YOLO2", net, ds, 21, smi, exact=True)
+        res = captured_fit("YOLO2", net, ds, 21, smi, exact=True,
+                           live_before=live_before)
     finally:
         torch.backends.cudnn.deterministic = deterministic
     log(f"YOLO2 captured K={MEGA_K} (deterministic cuDNN): step ms "
@@ -2729,14 +2822,16 @@ def yolo2(smi: str) -> int:
     if float(dp.max()) > 0.05 * pmax or float(dp.mean()) > 2e-3 * pmax:
         fail("kernel and plain YOLO2 forwards disagree beyond the bound "
              "(max 5%, mean 0.2% of max|out|)")
-    return launches["scale_shift_act"]
+    return launches["scale_shift_act"], res
 
 
-def zoo_cnns(smi: str) -> None:
+def zoo_cnns(smi: str) -> dict:
     """Phase 20: each of ``ZOO_CNNS`` at its default input shape and
     classes, bf16 / NHWC / fused: a warm step, ``ZOO_STEPS`` eager steps
     (finite losses, its fused blocks' ``scale_shift_act`` launches and
-    nothing else), ``output()`` of the right shape, finite."""
+    nothing else), ``output()`` of the right shape, finite. Returns each
+    model's median eager step ms, the peak bytes of its eager steps and
+    the bytes allocated before it was built."""
     import torch
 
     from deeplearning4j_tpu_torch.data.dataset import DataSet
@@ -2745,8 +2840,10 @@ def zoo_cnns(smi: str) -> None:
     dev = torch.device("cuda")
     ck.install_platform_overrides()
     t_phase = time.perf_counter()
+    measured = {}
     for name in ZOO_CNNS:
         model = getattr(zoo, name)()
+        live_before = torch.cuda.memory_allocated()
         net = model.init()
         net.setPrecisionPolicy("bf16")
         net.setComputeLayout("NHWC")
@@ -2769,12 +2866,14 @@ def zoo_cnns(smi: str) -> None:
         losses = [net.score()]
         warm_s = time.perf_counter() - t0
         ck.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
         step_ms = []
         for _ in range(ZOO_STEPS):
             t0 = time.perf_counter()
             net.fit(ds)
             losses.append(net.score())
             step_ms.append((time.perf_counter() - t0) * 1e3)
+        peak_bytes = torch.cuda.max_memory_allocated()
         launches = dict(ck.LAUNCHES)
         want = {k: 0 for k in ck.KERNELS}
         want["scale_shift_act"] = blocks * ZOO_STEPS
@@ -2794,9 +2893,12 @@ def zoo_cnns(smi: str) -> None:
             f"median {med:.2f} (min {min(step_ms):.2f}, max "
             f"{max(step_ms):.2f}), {ZOO_BATCH / (med / 1e3):.1f} images/s; "
             f"output {tuple(out.shape)} [{smi}]")
+        measured[name] = {"eager_ms": med, "peak_bytes": peak_bytes,
+                          "live_before": live_before}
         del net, ds, x, out
     log(f"zoo CNNs: {len(ZOO_CNNS)} models in "
         f"{time.perf_counter() - t_phase:.1f} s")
+    return measured
 
 
 def textgen(smi: str) -> None:
@@ -3224,7 +3326,10 @@ def from_disk(smi: str, inmem_ms: float) -> dict:
             f"{time.perf_counter() - t_phase:.1f} s [{smi}]")
         return {"at_capture": k * 33,
                 "replays": sum(r["replays"]["scale_shift_act"]
-                               for r in runs.values())}
+                               for r in runs.values()),
+                "workers": cores, "decode_ms": decode_ms,
+                "h2d_mbps": h2d_mbps,
+                "img_s": {p: n_img / r["wall"] for p, r in runs.items()}}
     finally:
         torch.backends.cudnn.deterministic = deterministic
         if it is not None:
@@ -3654,6 +3759,282 @@ def early_stopping(smi: str) -> None:
         torch.backends.cudnn.deterministic = deterministic
 
 
+def analyzer_vs_card(smi: str, measured: dict, zoo_eager: dict, disk: dict,
+                     inmem_ms: float) -> None:
+    """Phase 33: the static analyzer's verdicts and predictions against
+    what the earlier phases measured on the card; see the module
+    docstring."""
+    import contextlib
+    import io
+
+    import torch
+
+    from deeplearning4j_tpu_torch.analysis import (CHIP_REGISTRY, CostSpec,
+                                                   InputPipelineSpec,
+                                                   ModelValidationError,
+                                                   analyze)
+    from deeplearning4j_tpu_torch.analysis import cost as C
+    from deeplearning4j_tpu_torch.analysis import layout
+    from deeplearning4j_tpu_torch.analysis.__main__ import main as lint
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn.config import (InputType,
+                                                    NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.serving import ModelServer
+    t_phase = time.perf_counter()
+    h100 = CHIP_REGISTRY["h100-sxm"]
+
+    # (a) the CLI, in-process
+    for argv, want in ((["--zoo"], "16 model(s) linted: 16 clean"),
+                       (["--cost", "--chip", "h100-sxm", "ResNet50"],
+                        "1 model(s) linted: 1 clean")):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = lint(argv)
+        if rc != 0 or want not in out.getvalue():
+            fail(f"analysis CLI {argv}: exit {rc}\n{out.getvalue()}")
+        log(f"analysis CLI {' '.join(argv)}: exit 0, {want!r}")
+
+    # (b) the cost model against the captured steps and their peaks
+    def predict(cls, kwargs, batch, precision):
+        conf = getattr(zoo, cls)(**kwargs).conf_builder()
+        spec = CostSpec(chip="h100-sxm", precision=precision,
+                        steps_per_dispatch=MEGA_K)
+        report = analyze(conf, batch_size=batch, cost=spec)
+        est = C.step_time(conf, cost=spec, batch_size=batch)
+        mem = C.memory_plan(conf, cost=spec, batch_size=batch)
+        return report, est, mem
+
+    rows = []
+    for name, cls, kwargs, batch, precision in ANALYZER_NETS:
+        report, est, mem = predict(cls, kwargs, batch, precision)
+        if report.errors():
+            fail(f"{name}: the analyzer reports errors for a net that ran "
+                 f"on the card:\n{report.format()}")
+        m = measured[name]
+        pred_ms = est.step_s * 1e3
+        ratio = m["captured_ms"] / pred_ms
+        own = m["peak_bytes"] - m["live_before"]
+        mem_ratio = own / mem.peak_bytes
+        dom = mem.dominating()[0]
+        rows.append({"net": name, "batch": batch,
+                     "precision": precision or "float32",
+                     "predicted_step_ms": pred_ms, "bound": est.bound,
+                     "predicted_mfu": est.mfu,
+                     "measured_step_ms": m["captured_ms"],
+                     "cost_model_ratio": ratio,
+                     "planned_peak_bytes": mem.peak_bytes,
+                     "plan_dominated_by": dom,
+                     "measured_peak_bytes": m["peak_bytes"],
+                     "live_before_bytes": m["live_before"],
+                     "peak_ratio": mem_ratio,
+                     "codes": report.codes()})
+        log(f"cost model {name} B={batch} {precision or 'float32'} K="
+            f"{MEGA_K}: predicted step {pred_ms:.3f} ms ({est.bound}-bound, "
+            f"MFU {est.mfu:.3f}), measured captured {m['captured_ms']:.2f} "
+            f"ms, cost_model_ratio {ratio:.3f}; planned peak "
+            f"{mem.peak_bytes / 1e9:.3f} GB ({dom} dominates), measured "
+            f"{own / 1e9:.3f} GB above the {m['live_before'] / 1e9:.3f} GB "
+            f"live before the net was built ({m['peak_bytes'] / 1e9:.3f} "
+            f"GB in all), ratio {mem_ratio:.3f}; codes {report.codes()} "
+            f"[{smi}]")
+        if not (np.isfinite(ratio) and np.isfinite(mem_ratio)) or ratio < 1:
+            fail(f"{name}: cost_model_ratio {ratio}, peak ratio "
+                 f"{mem_ratio}: want both finite and the step ratio >= 1 "
+                 "(the card beat the roofline)")
+    for name, m in zoo_eager.items():
+        model = getattr(zoo, name)()
+        _, est, mem = predict(name, {}, ZOO_BATCH, "bf16")
+        log(f"cost model {name} B={ZOO_BATCH} bf16 (phase 20, eager, not "
+            f"gated): predicted step {est.step_s * 1e3:.3f} ms, measured "
+            f"eager {m['eager_ms']:.2f} ms, ratio "
+            f"{m['eager_ms'] / (est.step_s * 1e3):.3f}; planned peak "
+            f"{mem.peak_bytes / 1e9:.3f} GB at K={MEGA_K}, measured "
+            f"{(m['peak_bytes'] - m['live_before']) / 1e9:.3f} GB above "
+            f"what was live before ({model.input_shape})")
+    print(json.dumps({"cost_model": rows}))
+
+    # (c) W108 against phase 22
+    conf = zoo.ResNet50(num_classes=DISK_CLASSES).conf_builder()
+    device_rate = RESNET_BATCH / (inmem_ms / 1e3)
+    spec = InputPipelineSpec(
+        workers=disk["workers"], batch_size=DISK_BATCH,
+        decode_ms_per_img=disk["decode_ms"], h2d_mbps=disk["h2d_mbps"],
+        height=DISK_HW, width=DISK_HW, dtype="uint8",
+        steps_per_dispatch=MEGA_K, device_img_per_sec=device_rate)
+    w108 = [d for d in analyze(conf, input_pipeline=spec)
+            if d.code == "DL4J-W108"]
+    decode_bound = disk["workers"] * 1e3 / disk["decode_ms"]
+    h2d_bound = disk["h2d_mbps"] * 1e6 / (3 * DISK_HW * DISK_HW)
+    log(f"W108 on phase 22's pipeline ({disk['workers']} workers, "
+        f"B={DISK_BATCH}, K={MEGA_K}, uint8, decode {disk['decode_ms']:.3f} "
+        f"ms an image, H2D {disk['h2d_mbps']:.1f} MB/s; device "
+        f"{device_rate:.1f} images/s from phase 14): "
+        f"{'fires' if w108 else 'silent'}; its bounds: decode "
+        f"{decode_bound:.1f}, H2D {h2d_bound:.1f} images/s; measured from "
+        f"disk {', '.join(f'{v:.1f}' for v in disk['img_s'].values())} "
+        f"images/s (prefetch {', '.join(str(p) for p in disk['img_s'])}), "
+        f"in memory {device_rate:.1f} [{smi}]")
+    if w108:
+        log(f"W108: {w108[0].message}")
+
+    # (d) init(strict=True) raises before anything is allocated
+    bad = (NeuralNetConfiguration.Builder().list()
+           .layer(DenseLayer(nIn=300, nOut=16))
+           .layer(OutputLayer(nOut=4))
+           .setInputType(InputType.feedForward(128)).build())
+    net = MultiLayerNetwork(bad)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    try:
+        net.init(strict=True)
+        fail("init(strict=True) on a seeded E001 configuration did not raise")
+    except ModelValidationError as e:
+        if "DL4J-E001" not in str(e):
+            fail(f"init(strict=True) raised without E001: {e}")
+    after = torch.cuda.memory_allocated()
+    if after != before or net._initialized or net._params:
+        fail(f"init(strict=True) allocated: memory {before} -> {after} "
+             f"bytes, initialized {net._initialized}")
+    log(f"init(strict=True) on the seeded E001 configuration: "
+        f"ModelValidationError, memory_allocated {before} -> {after} bytes")
+
+    # (e) the Hopper W101 rule, measured: a bf16 GEMM's N dim
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+
+    def timed(fn):
+        for _ in range(3):
+            fn()
+        ts = []
+        for _ in range(TIMED_RUNS):
+            flush.zero_()
+            torch.cuda._sleep(SPIN_CYCLES)
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0.record()
+            fn()
+            t1.record()
+            t1.synchronize()
+            ts.append(t0.elapsed_time(t1))
+        return float(np.median(ts))
+
+    a = torch.randn((LAYOUT_M, LAYOUT_K), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    sweep = []
+    for n in LAYOUT_NS:
+        b = torch.randn((LAYOUT_K, n), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        ms = timed(lambda: torch.matmul(a, b))
+        fires = layout.lint_lane_dim(n, "sweep",
+                                     compute_dtype="bfloat16") is not None
+        sweep.append({"n": n, "ms": ms,
+                      "tflops": 2 * LAYOUT_M * LAYOUT_K * n / (ms / 1e3) / 1e12,
+                      "padded_n": layout.padded_dim(n),
+                      "waste": layout.padding_waste(n), "w101": fires})
+        del b
+    base = sweep[LAYOUT_NS.index(384)]["ms"]
+    for r in sweep:
+        log(f"bf16 matmul [{LAYOUT_M}, {LAYOUT_K}] x [{LAYOUT_K}, {r['n']}]: "
+            f"{r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s, "
+            f"{r['ms'] / base:.3f} of N=384's), the rule pads N to "
+            f"{r['padded_n']} ({r['waste']:.1%} dead), W101 "
+            f"{'fires' if r['w101'] else 'silent'} [{smi}]")
+    del a
+    # YOLO2's head: its 1x1 conv_out over [B, 1024, 13, 13], bf16 NHWC as
+    # phase 19 runs it, at its 425 channels and the aligned 424 and 432
+    x = torch.randn((YOLO2_BATCH, HEAD_CONV_CIN, 13, 13), generator=gen,
+                    device="cuda").to(torch.bfloat16).contiguous(
+                        memory_format=torch.channels_last)
+    x.requires_grad_(True)
+    conv = []
+    for n in HEAD_CONV_NS:
+        w = (torch.randn((n, HEAD_CONV_CIN, 1, 1), generator=gen,
+                         device="cuda") / HEAD_CONV_CIN ** 0.5).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        bias = torch.zeros(n, dtype=torch.bfloat16, device="cuda")
+        w.requires_grad_(True)
+        fwd = timed(lambda: torch.nn.functional.conv2d(x, w, bias))
+
+        def step():
+            y = torch.nn.functional.conv2d(x, w, bias)
+            torch.autograd.grad(y, (x, w), torch.ones_like(y))
+        conv.append({"n": n, "fwd_ms": fwd, "fwd_bwd_ms": timed(step),
+                     "w101": layout.lint_lane_dim(
+                         n, "head", conv=True, compute_layout="NHWC",
+                         compute_dtype="bfloat16") is not None})
+        del w, bias
+    base = conv[HEAD_CONV_NS.index(424)]
+    y2_ms = measured["YOLO2"]["captured_ms"]
+    for r in conv:
+        log(f"YOLO2 head conv 1x1 [{YOLO2_BATCH}, {HEAD_CONV_CIN}, 13, 13] "
+            f"-> {r['n']} bf16 NHWC: forward {r['fwd_ms']:.4f} ms "
+            f"({r['fwd_ms'] / base['fwd_ms']:.3f} of N=424's), forward + "
+            f"backward {r['fwd_bwd_ms']:.4f} ms "
+            f"({r['fwd_bwd_ms'] / base['fwd_bwd_ms']:.3f} of N=424's, "
+            f"{(r['fwd_bwd_ms'] - base['fwd_bwd_ms']) / y2_ms:.2%} of "
+            f"YOLO2's {y2_ms:.2f} ms step above it), W101 "
+            f"{'fires' if r['w101'] else 'silent'} [{smi}]")
+    # LeNet's 500-wide dense (B=64, 800 in) in bf16, against 496 and 504
+    x = torch.randn((LENET_DENSE_M, LENET_DENSE_K), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    dense = []
+    for n in LENET_DENSE_NS:
+        b = torch.randn((LENET_DENSE_K, n), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        dense.append({"n": n, "ms": timed(lambda: torch.matmul(x, b)),
+                      "w101": layout.lint_lane_dim(
+                          n, "dense", compute_dtype="bfloat16") is not None})
+        del b
+    base = dense[LENET_DENSE_NS.index(496)]["ms"]
+    for r in dense:
+        log(f"LeNet dense bf16 [{LENET_DENSE_M}, {LENET_DENSE_K}] x "
+            f"[{LENET_DENSE_K}, {r['n']}]: {r['ms']:.4f} ms "
+            f"({r['ms'] / base:.3f} of N=496's), W101 "
+            f"{'fires' if r['w101'] else 'silent'} [{smi}]")
+    print(json.dumps({"w101_sweep": sweep, "w101_head_conv": conv,
+                      "w101_lenet_dense": dense}))
+    del x, flush
+
+    # (f) a served ResNet-50's serving lint at the card's 80 GB
+    net = zoo.ResNet50(num_classes=1000).init()
+    server = ModelServer(net, batch_limit=32)
+    try:
+        server.warmup([(3, 224, 224)])
+        rng = np.random.default_rng(0)
+        reqs = [server.submit(rng.standard_normal((n, 3, 224, 224),
+                                                  dtype=np.float32))
+                for n in (1, 2, 3, 4, 5, 6, 7, 8)]
+        outs = [r.get(timeout=60) for r in reqs]
+        if [tuple(o.shape) for o in outs] != \
+                [(n, 1000) for n in (1, 2, 3, 4, 5, 6, 7, 8)]:
+            fail(f"served ResNet-50 answered {[o.shape for o in outs]}")
+        report = server.validate(shapes=[(3, 224, 224)], hbm_gb=h100.hbm_gb,
+                                 cost="h100-sxm")
+    finally:
+        server.close()
+    log(f"ModelServer.validate(hbm_gb={h100.hbm_gb}, cost='h100-sxm') on "
+        f"the served ResNet-50 (buckets {server.buckets()}): "
+        f"{report.format()}")
+    if {"DL4J-E111", "DL4J-E121", "DL4J-E122"} & set(report.codes()):
+        fail(f"served ResNet-50: the serving lint reports "
+             f"{report.codes()} at the card's {h100.hbm_gb} GiB")
+    # its params live on the card and its convs run NCHW: the conv-stack
+    # W101 fires from validate(), and the NHWC layout silences it
+    stack = [d for d in net.validate() if d.code == "DL4J-W101"]
+    net.setComputeLayout("NHWC")
+    nhwc = [d for d in net.validate() if d.code == "DL4J-W101"]
+    log(f"validate() on the served ResNet-50 (on the card, NCHW): "
+        f"{[d.message for d in stack]}; after setComputeLayout('NHWC'): "
+        f"{len(nhwc)} W101")
+    if len(stack) != 1 or "NCHW compute layout" not in stack[0].message \
+            or nhwc:
+        fail(f"the conv-stack W101 on the card: {len(stack)} under NCHW, "
+             f"{len(nhwc)} under NHWC; want 1 and 0")
+    del net
+    log(f"phase 33: {time.perf_counter() - t_phase:.1f} s")
+
+
 def ssa_plain(x, scale, shift, *, alpha=0.0, axis=1):
     """The ``scale_shift_act`` override on the kernel's plain version: the
     fused epilogues' reference (channels-minor inputs only, as the
@@ -3764,12 +4145,15 @@ def state_names(net):
 
 
 def captured_fit(name, net, ds, per_step: int, smi: str,
-                 exact: bool = False) -> dict:
+                 exact: bool = False, live_before: int = None) -> dict:
     """Phase 14 for one network: 8 eager steps twice and 2 captured
     megasteps of 4 from one state, held by the rule (to the bit with
     ``exact``); then timed. ``per_step`` is the ``scale_shift_act``
     launches a step. Returns the eager and captured step ms, the capture
-    seconds and the peak GB."""
+    seconds, the peak (GB and bytes, ``max_memory_allocated`` from the
+    warmup on) and ``live_before``: the bytes allocated before the net was
+    built (the caller's reading, else the bytes live on entry), which
+    the peak holds too."""
     import torch
 
     from deeplearning4j_tpu_torch.analysis import churn
@@ -3777,6 +4161,8 @@ def captured_fit(name, net, ds, per_step: int, smi: str,
     from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
     from deeplearning4j_tpu_torch.train import stepping
     k, steps = MEGA_K, 2 * MEGA_K
+    if live_before is None:
+        live_before = torch.cuda.memory_allocated()
     names, groups = state_names(net)
     s0 = snapshot(net._dispatch_state())
 
@@ -3818,7 +4204,8 @@ def captured_fit(name, net, ds, per_step: int, smi: str,
         net.fit(group, steps_per_dispatch=k)
         last = net.score()
         cap_ms.append((time.perf_counter() - t0) * 1e3 / steps)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_bytes = torch.cuda.max_memory_allocated()
+    peak_gb = peak_bytes / 1e9
     disp = net._step_for(False, k)
     at_capture = disp.launches_at_capture()
     stats = cc.cache_stats()
@@ -3848,7 +4235,8 @@ def captured_fit(name, net, ds, per_step: int, smi: str,
         f"[{smi}]")
     del s0, held
     return {"eager_ms": e_med, "captured_ms": c_med, "capture_s": capture_s,
-            "peak_gb": peak_gb}
+            "peak_gb": peak_gb, "peak_bytes": peak_bytes,
+            "live_before": live_before}
 
 
 def import_bert(smi: str) -> dict:

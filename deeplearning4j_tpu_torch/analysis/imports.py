@@ -26,34 +26,18 @@ graph or network as ``import_report``. Codes:
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Iterable, List, Optional, Sequence
 
 import numpy as np
 
 from deeplearning4j_tpu_torch.analysis.diagnostics import (Diagnostic,
                                                            Severity,
                                                            ValidationReport)
+from deeplearning4j_tpu_torch.analysis.graphir import (ONNX_DTYPE_NAMES,
+                                                       WEIGHT_POSITIONS)
 
 _INT32_MAX = 2 ** 31 - 1
 _INT32_MIN = -(2 ** 31)
-
-#: the input positions that hold weights, by op (the JAX package's
-#: ``analysis/graphir.py`` WEIGHT_POSITIONS)
-WEIGHT_POSITIONS: Dict[str, Tuple[int, ...]] = {
-    "matmul": (1,), "xw_plus_b": (1, 2), "relu_layer": (1, 2),
-    "onnx.MatMul": (1,), "onnx.Gemm": (1, 2), "onnx.Conv": (1, 2),
-    "onnx.BatchNormalization": (1, 2, 3, 4),
-    "tf.MatMul": (1,), "tf.Conv2D": (1,), "tf.DepthwiseConv2dNative": (1,),
-    "tf.BiasAdd": (1,), "tf.FusedBatchNormV3": (1, 2, 3, 4),
-}
-
-#: ONNX TensorProto.DataType enum -> dtype name (``analysis/graphir.py``'s
-#: ONNX_DTYPE_NAMES)
-ONNX_DTYPE_NAMES = {
-    1: "float32", 2: "uint8", 3: "int8", 4: "uint16", 5: "int16",
-    6: "int32", 7: "int64", 9: "bool", 10: "float16", 11: "float64",
-    12: "uint32", 13: "uint64", 16: "bfloat16",
-}
 
 #: ops ``modelimport.onnx._BUILDERS`` maps (plus ``Constant``, which the
 #: importer handles inline): a mirror so the E161 pre-scan runs without

@@ -27,10 +27,12 @@ nodes do. Where the JAX package lowers them to ``lax.while_loop`` and
 body on the graph's device, reading the predicate on the host once an
 iteration.
 
-Not ported yet (ROADMAP.md queue 1 item 9): RNG ops and dropout;
-multi-head attention, ``std`` and ``variance``; ``infer_shapes``,
-``validate`` and ``summary``; the native backend; the CNN, RNN, Random,
-Linalg, Bitwise and Image namespaces; listeners and the public
+Static analysis: ``infer_shapes`` (on ``meta`` tensors), ``validate``
+(the ``analysis`` package's SameDiff lints) and ``summary``.
+
+Not ported yet (ROADMAP.md queue 1): RNG ops and dropout; multi-head
+attention, ``std`` and ``variance``; the native backend; the CNN, RNN,
+Random, Linalg, Bitwise and Image namespaces; listeners and the public
 ``rename``.
 """
 
@@ -754,6 +756,84 @@ class SameDiff:
         if not self._nodes:
             return list(self._placeholders)[-n:]
         return [o for node in self._nodes for o in node.outputs][-n:]
+
+    # --------------------------------------------------------- shape report
+    def infer_shapes(self, batch_size: int = 1) -> Dict[str, tuple]:
+        """Static shape of every graph variable without executing anything
+        (ref: each DeclarableOp's shape fn feeding SameDiff.summary()).
+
+        Each node runs on ``meta`` tensors (the JAX package's
+        ``jax.eval_shape``): shapes and dtypes propagate, no memory is
+        allocated, nothing runs on a device. Placeholder ``None`` dims
+        use ``batch_size``; a rank-free placeholder, and everything
+        downstream of it or of a node that cannot run on ``meta`` (one
+        that reads a value on the host, such as a ``while_loop``
+        predicate), reports None."""
+        def meta(shape, dtype):
+            return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+        env: Dict[str, Optional[torch.Tensor]] = {}
+        for k, v in {**self._variables, **self._constants}.items():
+            env[k] = meta(v.shape, v.dtype)
+        for k, (shape, dtype) in self._placeholders.items():
+            if shape is None:
+                env[k] = None
+                continue
+            env[k] = meta([batch_size if d in (None, -1) else int(d)
+                           for d in shape], op_registry.torch_dtype(dtype))
+        for node in self._nodes:
+            args = [env.get(n) for n in node.inputs]
+            outs = None
+            if all(a is not None for a in args):
+                try:
+                    res = node.fn(*args, **node.attrs)
+                    outs = (res,) if len(node.outputs) == 1 else tuple(res)
+                except (RuntimeError, NotImplementedError, TypeError,
+                        ValueError, IndexError):
+                    outs = None
+            for i, name in enumerate(node.outputs):
+                o = outs[i] if outs is not None else None
+                env[name] = o if isinstance(o, torch.Tensor) else None
+        return {k: (tuple(v.shape) if v is not None else None)
+                for k, v in env.items()}
+
+    def validate(self, batch_size: int = 1, **kw):
+        """Static lint of the recorded op graph — shape propagation over
+        the ``_Node`` list plus structural checks (E151 undefined input,
+        E152 shape conflict, E153 bad loss variable, W151 dangling
+        placeholder, W152 unused variable, W153 training config with no
+        loss), and the layout/distribution/numerics families over the
+        analysis IR. Pure-static like ``model.validate()``: no tensor is
+        made, nothing runs on a device. Extra keywords pass through to
+        ``analysis.analyze`` (``mesh=``, ``policy=``, ``suppress=``,
+        ``severity_overrides=``)."""
+        from deeplearning4j_tpu_torch.analysis import analyze
+        return analyze(self, batch_size=batch_size, **kw)
+
+    def summary(self, batch_size: int = 1) -> str:
+        """Printable graph summary with per-variable shapes — from
+        :meth:`infer_shapes`, not from running the graph (ref:
+        SameDiff.summary())."""
+        shapes = self.infer_shapes(batch_size)
+        lines = [f"SameDiff: {len(self._variables)} variables, "
+                 f"{len(self._placeholders)} placeholders, "
+                 f"{len(self._nodes)} ops",
+                 f"{'name':<28} {'kind':<12} {'op':<28} shape",
+                 "-" * 80]
+        for k in self._placeholders:
+            lines.append(f"{k:<28} {'PLACEHOLDER':<12} {'':<28} "
+                         f"{shapes.get(k)}")
+        for k in self._variables:
+            lines.append(f"{k:<28} {'VARIABLE':<12} {'':<28} {shapes.get(k)}")
+        for k in self._constants:
+            if k in self._producers:
+                continue  # folded node outputs appear as ops below
+            lines.append(f"{k:<28} {'CONSTANT':<12} {'':<28} {shapes.get(k)}")
+        for node in self._nodes:
+            for o in node.outputs:
+                lines.append(f"{o:<28} {'ARRAY':<12} {node.op:<28} "
+                             f"{shapes.get(o)}")
+        return "\n".join(lines)
 
     # ------------------------------------------------------------ utilities
     def variables(self) -> List[SDVariable]:

@@ -412,6 +412,7 @@ class ServingLoad:
     def __init__(self, specs):
         self.specs = list(specs)
         self.wire_seconds: list = []
+        self.replay_started: Optional[float] = None
 
     def __len__(self):
         return len(self.specs)
@@ -513,7 +514,8 @@ class ServingLoad:
     def replay_http(self, url: str, model: str, feature_shape,
                     dtype=np.float32, time_scale: float = 1.0,
                     rng_seed: int = 0, timeout: float = 60.0,
-                    make: Optional[Callable] = None):
+                    make: Optional[Callable] = None,
+                    stop: Optional[threading.Event] = None):
         """Replay the schedule over REAL sockets against an
         :class:`~deeplearning4j_tpu_torch.serving.ingress.HttpIngress`:
         ``POST {url}/v1/models/{model}:predict`` per spec, honoring
@@ -530,7 +532,15 @@ class ServingLoad:
         Feature values are seeded identically to :meth:`replay`.
         ``wire_seconds`` then holds each answered request's round trip
         on the client's clock, from the first byte sent to the response
-        read (None for the others).
+        read (None for the others), and ``replay_started`` the
+        ``time.perf_counter()`` at which the schedule's clock started,
+        after the bodies were encoded.
+
+        ``stop``, when set, ends the schedule early: no request is sent
+        after it, those in flight are answered, and only the sent prefix
+        of the schedule is returned. A caller whose own work sets the
+        length of the traffic it needs gives a long schedule and sets
+        ``stop`` when that work is done.
         """
         import http.client
         import json
@@ -575,18 +585,24 @@ class ServingLoad:
                 conn.close()
 
         t0 = time.monotonic()
+        self.replay_started = time.perf_counter()
         threads = []
         for i, spec in enumerate(self.specs):
             delay = spec.at * time_scale - (time.monotonic() - t0)
             if delay > 0:
-                time.sleep(delay)
+                if stop is None:
+                    time.sleep(delay)
+                else:
+                    stop.wait(delay)
+            if stop is not None and stop.is_set():
+                break
             th = threading.Thread(target=one, args=(i, spec, bodies[i]),
                                   daemon=True)
             th.start()
             threads.append(th)
         for th in threads:
             th.join(timeout)
-        return list(zip(self.specs, out))
+        return list(zip(self.specs[:len(threads)], out))
 
 
 class SwapSchedule:

@@ -266,6 +266,20 @@ class MultiLayerConfiguration:
         if input_type is not None:
             self._propagate_input_types()
 
+    def validate(self, batch_size: int = None, data_devices: int = None,
+                 **kw):
+        """Static lint of this configuration — shape/dtype propagation,
+        structural diagnostics, and Hopper layout lints; returns a
+        ``deeplearning4j_tpu_torch.analysis.ValidationReport`` (no tensor
+        is made). Extra keywords pass through to ``analysis.analyze``:
+        ``mesh=`` (enables the E1xx/W10x distribution lints),
+        ``sharding=``, ``pipeline=``, ``hbm_gb=``, ``policy=``,
+        ``data_range=``, ``cost=``, ``suppress=[codes]``,
+        ``severity_overrides={code: severity}``."""
+        from deeplearning4j_tpu_torch.analysis import analyze
+        return analyze(self, batch_size=batch_size,
+                       data_devices=data_devices, **kw)
+
     def _propagate_input_types(self):
         """InputType propagation with automatic preprocessor insertion
         (ref: MultiLayerConfiguration.Builder.setInputType)."""

@@ -306,6 +306,16 @@ class GraphBuilder:
     def build(self) -> "ComputationGraphConfiguration":
         return ComputationGraphConfiguration(self)
 
+    def validate(self, batch_size: int = None, data_devices: int = None,
+                 **kw):
+        """Static lint of the (possibly not-yet-buildable) graph — unlike
+        ``build()``, a cyclic or dangling graph comes back as E002/E003
+        diagnostics instead of a ValueError. Extra keywords pass through
+        to ``analysis.analyze`` (``mesh=``, ``suppress=``, ...)."""
+        from deeplearning4j_tpu_torch.analysis import analyze
+        return analyze(self, batch_size=batch_size,
+                       data_devices=data_devices, **kw)
+
 
 class ComputationGraphConfiguration:
     """ref: org.deeplearning4j.nn.conf.ComputationGraphConfiguration, with
@@ -323,6 +333,13 @@ class ComputationGraphConfiguration:
         self._toposort()
         if self.input_types:
             self._propagate_types()
+
+    def validate(self, batch_size: int = None, data_devices: int = None,
+                 **kw):
+        """Static lint — see ``deeplearning4j_tpu_torch.analysis.analyze``."""
+        from deeplearning4j_tpu_torch.analysis import analyze
+        return analyze(self, batch_size=batch_size,
+                       data_devices=data_devices, **kw)
 
     def _toposort(self):
         order, seen = [], set(self.graph_inputs)
@@ -415,11 +432,17 @@ class ComputationGraph(BaseNetwork):
         return [(n, k) for n in sorted(self._params)
                 for k in sorted(self._params[n])]
 
-    def init(self, seed: int = None, device=None) -> "ComputationGraph":
+    def init(self, seed: int = None, device=None,
+             strict: bool = False) -> "ComputationGraph":
         """Initialize params (from a seeded ``torch.Generator``; the
         draws differ from the JAX package's, see :meth:`params_from_jax`)
         and layer states on ``device``: the card unless the caller names
-        another; without a card and without ``device`` this raises."""
+        another; without a card and without ``device`` this raises.
+        ``strict=True`` runs the static analyzer first and raises
+        ``ModelValidationError`` on any E-code diagnostic, before any
+        parameter is allocated."""
+        if strict:
+            self.validate().raise_if_errors()
         self._device = resolve_device(device)
         seed = self.conf.base.seed if seed is None else seed
         gen = torch.Generator().manual_seed(int(seed))

@@ -109,7 +109,7 @@ class Layer:
                  activation: str = None, weightInit: str = None,
                  biasInit: float = 0.0, dropOut: float = 0.0,
                  l1: float = None, l2: float = None, name: str = None,
-                 dataType: str = None):
+                 tiedWith: str = None, dataType: str = None):
         self.nOut = nOut
         self.nIn = nIn
         self.activation = activation
@@ -119,7 +119,9 @@ class Layer:
         self.l1 = l1
         self.l2 = l2
         self.name = name or type(self).__name__
-        self.tied_with = None   # likewise (a pipeline-stage lint's label)
+        # weight-tie group label: layers sharing one group must land on
+        # the same pipeline stage (analysis/distribution.py E103)
+        self.tied_with = tiedWith
         # "float32" declares an fp32 island under a PrecisionPolicy
         self.dtype_override = None if dataType is None \
             else normalize_dtype(dataType)
@@ -141,6 +143,42 @@ class Layer:
             self.nIn = it.channels
         elif self.nIn is None and it.kind == "rnn":
             self.nIn = it.size
+
+    def expected_nin(self, it: InputType) -> Optional[int]:
+        """Declared-shape hook for ``analysis/``: the nIn this layer's
+        ``infer_nin`` would derive from ``it``, computed on a throwaway
+        copy so the static linter can compare a user-declared nIn against
+        the propagated input without mutating the config. May raise —
+        subclasses' infer_nin validates geometry (the analyzer maps the
+        exception to a diagnostic)."""
+        probe = copy.deepcopy(self)
+        probe.nIn = None
+        probe.infer_nin(it)
+        return probe.nIn
+
+    def gemm_lane_dims(self):
+        """Declared-shape hook for the Hopper layout lint (W101): the N
+        dims of this layer's tensor-core GEMMs, the dims that pad to the
+        GEMM's CTA tile (the JAX package's ``mxu_lane_dims``, whose dims
+        pad to the MXU's 128 lanes). Default: nOut for any param-bearing
+        layer; elementwise param layers override to [] and gated
+        recurrent layers report their fused gate width."""
+        return [self.nOut] if self.has_params and self.nOut else []
+
+    def param_shapes(self) -> Dict[str, Tuple[int, ...]]:
+        """Declared parameter shapes without allocating anything — the
+        static hook ``analysis/`` sizes shards, HBM footprints, and FLOP
+        estimates from. Equal to the shapes ``initialize`` makes (pinned
+        for every class by ``tests/test_torch_analysis.py``). Dense
+        default (W [nIn, nOut] + b [nOut] when the layer has a bias);
+        other layers override. Returns {} while nIn/nOut are
+        unresolved."""
+        if not self.has_params or not self.nIn or not self.nOut:
+            return {}
+        shapes = {"W": (self.nIn, self.nOut)}
+        if getattr(self, "has_bias", True):
+            shapes["b"] = (self.nOut,)
+        return shapes
 
     def output_type(self, it: InputType) -> InputType:
         return InputType.feedForward(self.nOut)
@@ -220,6 +258,14 @@ class ConvolutionLayer(Layer):
         self.mode = convolutionMode
         self.has_bias = hasBias
 
+    def param_shapes(self):
+        if not self.nIn or not self.nOut:
+            return {}
+        shapes = {"W": (self.nOut, self.nIn) + tuple(self.kernel)}
+        if self.has_bias:
+            shapes["b"] = (self.nOut,)
+        return shapes
+
     def initialize(self, gen):
         shape = (self.nOut, self.nIn) + self.kernel
         params = {"W": _initialize(shape, self.weight_init, gen)}
@@ -280,6 +326,15 @@ class DepthwiseConvolution2D(ConvolutionLayer):
         if self.nOut is None:
             self.nOut = self.nIn * self.depth_multiplier
 
+    def param_shapes(self):
+        if not self.nIn or not self.nOut:
+            return {}
+        shapes = {"W": (self.depth_multiplier, self.nIn)
+                  + tuple(self.kernel)}
+        if self.has_bias:
+            shapes["b"] = (self.nOut,)
+        return shapes
+
     def initialize(self, gen):
         shape = (self.depth_multiplier, self.nIn) + self.kernel
         params = {"W": _initialize(shape, self.weight_init, gen)}
@@ -302,6 +357,16 @@ class SeparableConvolution2D(ConvolutionLayer):
     def __init__(self, depthMultiplier: int = 1, **kw):
         super().__init__(**kw)
         self.depth_multiplier = depthMultiplier
+
+    def param_shapes(self):
+        if not self.nIn or not self.nOut:
+            return {}
+        shapes = {"Wd": (self.depth_multiplier, self.nIn)
+                  + tuple(self.kernel),
+                  "Wp": (self.nOut, self.nIn * self.depth_multiplier, 1, 1)}
+        if self.has_bias:
+            shapes["b"] = (self.nOut,)
+        return shapes
 
     def initialize(self, gen):
         params = {
@@ -381,6 +446,14 @@ class BatchNormalization(Layer):
             self.nIn = self.nOut = it.channels
         else:
             self.nIn = self.nOut = it.arrayElementsPerExample()
+
+    def gemm_lane_dims(self):
+        return []   # elementwise scale/shift — no GEMM
+
+    def param_shapes(self):
+        if not self.nIn:
+            return {}
+        return {"gamma": (self.nIn,), "beta": (self.nIn,)}
 
     def initialize(self, gen):
         n = self.nIn
@@ -658,6 +731,15 @@ class LSTM(_Recurrent):
         super().__init__(nOut=nOut, **kw)
         self.forget_bias = forgetGateBiasInit
 
+    def gemm_lane_dims(self):
+        return [4 * self.nOut] if self.nOut else []   # fused [i,f,g,o] gates
+
+    def param_shapes(self):
+        if not self.nIn or not self.nOut:
+            return {}
+        H = self.nOut
+        return {"W": (self.nIn, 4 * H), "RW": (H, 4 * H), "b": (4 * H,)}
+
     def initialize(self, gen):
         H = self.nOut
         b = torch.zeros(4 * H)
@@ -691,6 +773,16 @@ class GRU(_Recurrent):
     biases ``b`` and ``bR`` [3H], gate order ``[r, z, n]``. Its state is
     ``h``."""
 
+    def gemm_lane_dims(self):
+        return [3 * self.nOut] if self.nOut else []   # fused [r,z,n] gates
+
+    def param_shapes(self):
+        if not self.nIn or not self.nOut:
+            return {}
+        H = self.nOut
+        return {"W": (self.nIn, 3 * H), "RW": (H, 3 * H),
+                "b": (3 * H,), "bR": (3 * H,)}
+
     def initialize(self, gen):
         H = self.nOut
         return {"W": _initialize((self.nIn, 3 * H), self.weight_init, gen),
@@ -710,6 +802,12 @@ class GRU(_Recurrent):
 class SimpleRnn(_Recurrent):
     """ref: layers.recurrent.SimpleRnn — ``h = act(x W + h RW + b)``. Its
     state is ``h``."""
+
+    def param_shapes(self):
+        if not self.nIn or not self.nOut:
+            return {}
+        return {"W": (self.nIn, self.nOut), "RW": (self.nOut, self.nOut),
+                "b": (self.nOut,)}
 
     def initialize(self, gen):
         return {"W": _initialize((self.nIn, self.nOut), self.weight_init, gen),
@@ -753,6 +851,15 @@ class Bidirectional(Layer):
         self.bwd.infer_nin(it)
         self.nIn = self.fwd.nIn
         self.nOut = self.fwd.nOut * (2 if self.mode == "concat" else 1)
+
+    def gemm_lane_dims(self):
+        return self.fwd.gemm_lane_dims() + self.bwd.gemm_lane_dims()
+
+    def param_shapes(self):
+        out = {f"fwd/{k}": v for k, v in self.fwd.param_shapes().items()}
+        out.update({f"bwd/{k}": v
+                    for k, v in self.bwd.param_shapes().items()})
+        return out
 
     def initialize(self, gen):
         pf, _ = self.fwd.initialize(gen)
@@ -838,6 +945,12 @@ class LastTimeStep(Layer):
     def infer_nin(self, it):
         self.inner.infer_nin(it)
         self.nIn, self.nOut = self.inner.nIn, self.inner.nOut
+
+    def gemm_lane_dims(self):
+        return self.inner.gemm_lane_dims()
+
+    def param_shapes(self):
+        return self.inner.param_shapes()
 
     def initialize(self, gen):
         return self.inner.initialize(gen)
@@ -939,6 +1052,11 @@ class RnnOutputLayer(BaseOutputLayer):
         if self.activation == "identity":
             self.activation = "softmax"
 
+    def param_shapes(self):
+        if not self.nIn or not self.nOut:
+            return {}
+        return {"W": (self.nIn, self.nOut), "b": (self.nOut,)}
+
     def initialize(self, gen):
         return {"W": _initialize((self.nIn, self.nOut), self.weight_init,
                                  gen),
@@ -999,6 +1117,11 @@ class EmbeddingSequenceLayer(Layer):
 
     input_kind = None
 
+    def param_shapes(self):
+        if not self.nIn or not self.nOut:
+            return {}
+        return {"W": (self.nIn, self.nOut)}
+
     def initialize(self, gen):
         return {"W": _initialize((self.nIn, self.nOut), self.weight_init,
                                  gen)}, {}
@@ -1035,6 +1158,14 @@ class Convolution1D(Layer):
         self.dilation = _first(dilation)
         self.mode = convolutionMode
         self.has_bias = hasBias
+
+    def param_shapes(self):
+        if not self.nIn or not self.nOut:
+            return {}
+        shapes = {"W": (self.nOut, self.nIn, self.kernel)}
+        if self.has_bias:
+            shapes["b"] = (self.nOut,)
+        return shapes
 
     def initialize(self, gen):
         params = {"W": _initialize((self.nOut, self.nIn, self.kernel),
@@ -1102,6 +1233,12 @@ class PReLULayer(Layer):
     def infer_nin(self, it):
         self.nIn = self.nOut = it.arrayElementsPerExample()
 
+    def gemm_lane_dims(self):
+        return []   # elementwise slope — no GEMM
+
+    def param_shapes(self):
+        return {"alpha": (self.nIn,)} if self.nIn else {}
+
     def initialize(self, gen):
         return {"alpha": torch.full((self.nIn,), 0.25)}, {}
 
@@ -1136,6 +1273,13 @@ class LayerNorm(Layer):
                 "inputs; 4-D CNN feature maps are not supported")
         self.nIn = self.nOut = it.size if it.kind == "rnn" \
             else it.arrayElementsPerExample()
+
+    def gemm_lane_dims(self):
+        return []   # elementwise gain/bias — no GEMM
+
+    def param_shapes(self):
+        return {"gamma": (self.nIn,), "beta": (self.nIn,)} if self.nIn \
+            else {}
 
     def initialize(self, gen):
         return {"gamma": torch.ones(self.nIn),
@@ -1181,6 +1325,13 @@ class GroupNorm(Layer):
         if self.groups < 1 or self.nIn % self.groups:
             raise ValueError(f"GroupNorm: {self.nIn} channels not divisible "
                              f"by {self.groups} groups")
+
+    def gemm_lane_dims(self):
+        return []   # elementwise gain/bias — no GEMM
+
+    def param_shapes(self):
+        return {"gamma": (self.nIn,), "beta": (self.nIn,)} if self.nIn \
+            else {}
 
     def initialize(self, gen):
         return {"gamma": torch.ones(self.nIn),
@@ -1297,6 +1448,18 @@ class SelfAttentionLayer(Layer):
                 f"and nOut==nIn (got nHeads={self.n_heads}, nIn={self.nIn}, "
                 f"nOut={self.nOut})")
 
+    def param_shapes(self):
+        if not self.project or not self.nIn or not self.nOut \
+                or not self.head_size:
+            return {}
+        E = self.n_heads * self.head_size
+        shapes = {"Wq": (self.nIn, E), "Wk": (self.nIn, E),
+                  "Wv": (self.nIn, E), "Wo": (E, self.nOut)}
+        if getattr(self, "use_bias", False):
+            shapes.update({"bq": (E,), "bk": (E,), "bv": (E,),
+                           "bo": (self.nOut,)})
+        return shapes
+
     def initialize(self, gen):
         if not self.project:
             return {}, {}
@@ -1359,6 +1522,12 @@ class LearnedSelfAttentionLayer(SelfAttentionLayer):
         super().__init__(nOut=nOut, **kw)
         self.n_queries = nQueries
 
+    def param_shapes(self):
+        shapes = super().param_shapes()
+        if self.nIn:
+            shapes["Q"] = (self.n_queries, self.nIn)
+        return shapes
+
     def initialize(self, gen):
         params, state = super().initialize(gen)
         params["Q"] = _initialize((self.n_queries, self.nIn),
@@ -1400,6 +1569,12 @@ class RecurrentAttentionLayer(Layer):
         super().set_defaults(base)
         if self.activation == "identity":
             self.activation = "tanh"
+
+    def param_shapes(self):
+        if not self.nIn or not self.nOut:
+            return {}
+        return {"W": (self.nIn, self.nOut), "R": (self.nIn, self.nOut),
+                "Wq": (self.nOut, self.nIn), "b": (self.nOut,)}
 
     def initialize(self, gen):
         return {"W": _initialize((self.nIn, self.nOut), self.weight_init,
@@ -1464,6 +1639,16 @@ class ConvLSTM2D(Layer):
 
     def infer_nin(self, it: InputType):
         self.nIn = it.channels
+
+    def gemm_lane_dims(self):
+        return [4 * self.nOut] if self.nOut else []
+
+    def param_shapes(self):
+        if not self.nIn or not self.nOut:
+            return {}
+        H = self.nOut
+        return {"W": (4 * H, self.nIn) + tuple(self.kernel),
+                "RW": (4 * H, H) + tuple(self.kernel), "b": (4 * H,)}
 
     def initialize(self, gen):
         h = self.nOut
@@ -1533,6 +1718,14 @@ class Convolution3D(Layer):
     def infer_nin(self, it: InputType):
         if self.nIn is None:
             self.nIn = it.channels
+
+    def param_shapes(self):
+        if not self.nIn or not self.nOut:
+            return {}
+        shapes = {"W": (self.nOut, self.nIn) + tuple(self.kernel)}
+        if self.has_bias:
+            shapes["b"] = (self.nOut,)
+        return shapes
 
     def initialize(self, gen):
         params = {"W": _initialize((self.nOut, self.nIn) + self.kernel,
@@ -1874,6 +2067,11 @@ class SameDiffLayer(Layer):
         super().infer_nin(it)
         if self.nOut is None:
             self.nOut = self.nIn
+
+    def param_shapes(self):
+        """The hook contract: the shapes ``defineParameters`` declares."""
+        return {name: tuple(int(d) for d in shape)
+                for name, shape in self.defineParameters().items()}
 
     def initialize(self, gen):
         shapes = self.defineParameters()

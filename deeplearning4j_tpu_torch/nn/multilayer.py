@@ -99,11 +99,17 @@ class MultiLayerNetwork(BaseNetwork):
         return [(i, k) for i, p in enumerate(self._params) for k in sorted(p)]
 
     # ------------------------------------------------------------------ init
-    def init(self, seed: int = None, device=None) -> "MultiLayerNetwork":
+    def init(self, seed: int = None, device=None,
+             strict: bool = False) -> "MultiLayerNetwork":
         """Initialize params (from a seeded ``torch.Generator``; the draws
         differ from the JAX package's, see :meth:`params_from_jax`) and
         layer states on ``device``: the card unless the caller names
-        another; without a card and without ``device`` this raises."""
+        another; without a card and without ``device`` this raises.
+        ``strict=True`` runs the static analyzer first and raises
+        ``ModelValidationError`` on any E-code diagnostic, before any
+        parameter is allocated."""
+        if strict:
+            self.validate().raise_if_errors()
         self._device = resolve_device(device)
         seed = self.conf.base.seed if seed is None else seed
         gen = torch.Generator().manual_seed(int(seed))

@@ -203,6 +203,21 @@ class BaseNetwork:
         #: (transfer learning, ref FrozenLayer; ``nn.transfer``)
         self._frozen_layers: set = set()
 
+    def validate(self, batch_size: int = None, data_devices: int = None,
+                 **kw):
+        """Static lint of this network: the configuration analysis
+        (shape/dtype propagation, structural diagnostics, Hopper
+        layout lints) plus model-level findings (frozen-layer/updater
+        pairing W003, accumulated recapture-churn W201s). Returns a
+        ``deeplearning4j_tpu_torch.analysis.ValidationReport``; makes no
+        tensor, so it runs before ``init``. Extra keywords pass through
+        to ``analysis.analyze``: ``mesh=``, ``sharding=``,
+        ``pipeline=``, ``hbm_gb=``, ``policy=``, ``cost=``,
+        ``suppress=``, ``severity_overrides=``."""
+        from deeplearning4j_tpu_torch.analysis import analyze
+        return analyze(self, batch_size=batch_size,
+                       data_devices=data_devices, **kw)
+
     def _items(self, tree) -> List[Tuple]:
         return list(tree.items() if isinstance(tree, dict)
                     else enumerate(tree))

@@ -1,5 +1,8 @@
-"""PrecisionPolicy — the mixed-precision seam (the slice's subset of
-``deeplearning4j_tpu/nn/precision.py``).
+"""PrecisionPolicy — the mixed-precision seam (the port of
+``deeplearning4j_tpu/nn/precision.py``). Its static half
+(``LOW_PRECISION``, ``DTYPE_MAX``, ``is_low_precision``,
+``numeric_loss_scale``, ``compute_max``, ``params_max``,
+``from_config_dtype``) is what ``analysis/`` reasons with.
 
 A policy declares ``(compute, params, loss_scale)``. Conv and dense
 layers run in ``compute``; master params, updater state, BatchNorm
@@ -32,6 +35,13 @@ _DTYPE_ALIASES = {
 }
 
 _TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
+
+#: dtypes with a reduced mantissa/exponent the numerics lints reason about
+LOW_PRECISION = frozenset({"bfloat16", "float16"})
+
+#: finite maxima the static range model compares against (IEEE half,
+#: bfloat16, single)
+DTYPE_MAX = {"float16": 65504.0, "bfloat16": 3.39e38, "float32": 3.40e38}
 
 
 def normalize_dtype(name) -> str:
@@ -92,10 +102,42 @@ class PrecisionPolicy:
                 "growth_factor > 1, 0 < backoff_factor < 1, and "
                 "growth_interval >= 1")
 
+    @staticmethod
+    def from_config_dtype(conf_dtype) -> Optional["PrecisionPolicy"]:
+        """The implicit policy a configuration's ``dataType`` declares:
+        bf16/fp16 configs run the mixed policy with fp32 masters;
+        fp32/f64 configs have no policy (None)."""
+        try:
+            name = normalize_dtype(conf_dtype)
+        except ValueError:
+            return None                      # float64 etc: no mixed policy
+        if name in LOW_PRECISION:
+            return PrecisionPolicy(compute=name)
+        return None
+
+    @property
+    def is_low_precision(self) -> bool:
+        return self.compute in LOW_PRECISION
+
     @property
     def is_dynamic(self) -> bool:
         """True when ``loss_scale="dynamic"``."""
         return self.loss_scale == self.DYNAMIC
+
+    def numeric_loss_scale(self) -> Optional[float]:
+        """The scale static analysis reasons with: the static factor, the
+        dynamic automaton's initial value (its worst-case overflow
+        exposure: backoff only shrinks it), or None when nothing
+        scales."""
+        if self.is_dynamic:
+            return self.loss_scale_init
+        return self.loss_scale
+
+    def compute_max(self) -> float:
+        return DTYPE_MAX[self.compute]
+
+    def params_max(self) -> float:
+        return DTYPE_MAX[self.params]
 
     @staticmethod
     def coerce(value) -> Optional["PrecisionPolicy"]:

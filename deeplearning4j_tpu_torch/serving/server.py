@@ -48,10 +48,13 @@ The forward of a batch is: numpy -> tensor on ``device`` (outside the
 graph) -> the captured forward + head under ``torch.inference_mode()``
 -> one copy to the host.
 
+``validate(shapes=, hbm_gb=, cost=)`` lints the bucket ladder statically
+(``analysis.serving.lint_serving`` and, with ``cost=``, the E121/E122
+cost-model codes).
+
 Not ported yet (ROADMAP.md): meshes, sharding and mesh shrink (on one
-card a failed dispatch retries on the same card), ``validate()`` with
-``lint_serving``, ``warmup(strict=, cost=)``, tuned plans and traffic
-capture.
+card a failed dispatch retries on the same card), ``warmup(strict=,
+cost=)``, tuned plans and traffic capture.
 """
 
 from __future__ import annotations
@@ -676,6 +679,34 @@ class ModelServer:
             return 0
         return self._churn.signature_count("serving:forward",
                                            owner=self) - self._warm_sig_count
+
+    def validate(self, shapes=None, hbm_gb=None, cost=None):
+        """Static serving-config lint: the bucket ladder x HBM
+        (``analysis.serving``: E110, E111, W110) plus any W201 churn
+        findings recorded for this server. ``cost`` (CostSpec / chip
+        name / dict) adds the liveness-based E121 bucket-peak and E122
+        capacity checks over this server's bucket ladder — declare
+        ``qps=``/``p99_ms=`` on the CostSpec to size the fleet. One card
+        serves, so no mesh is declared. Makes no tensor."""
+        from deeplearning4j_tpu_torch.analysis import cost as _cost
+        from deeplearning4j_tpu_torch.analysis.serving import lint_serving
+        report = lint_serving(self.model, self.buckets(), shapes=shapes,
+                              hbm_gb=hbm_gb, input_dtype=self.input_dtype,
+                              extra=self._churn.diagnostics_for(owner=self))
+        if cost is not None:
+            spec = _cost.CostSpec.coerce(cost)
+            spec = _cost.CostSpec(
+                chip=spec.chip, qps=spec.qps, p99_ms=spec.p99_ms,
+                replicas=spec.replicas, mfu_target=spec.mfu_target,
+                buckets=spec.buckets or tuple(self.buckets()),
+                steps_per_dispatch=spec.steps_per_dispatch,
+                prefetch=spec.prefetch, precision=spec.precision)
+            # serving surface: only the serving-relevant codes — the
+            # training-step E120/W120/W121 family belongs to fit-side
+            # validate(), not a replica's bucket ladder
+            report.extend(d for d in _cost.lint_cost(self.model, spec)
+                          if d.code in ("DL4J-E121", "DL4J-E122"))
+        return report
 
     def captures_after_warmup(self) -> int:
         """CUDA-graph captures since the last ``warmup()`` (0 on the CPU,

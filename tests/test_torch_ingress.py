@@ -350,6 +350,32 @@ class TestPortOnly:
         assert x.shape == (1, 3, 4, 4) and x.dtype == np.float32
         np.testing.assert_allclose(x, 200 / 255.0, rtol=1e-6)
 
+    def test_http_replay_stops_when_its_event_is_set(self):
+        """A long schedule ends at ``stop``: the sent prefix comes back,
+        every request of it answered 200, and nothing after it is sent."""
+        from deeplearning4j_tpu_torch.faults import ServingLoad
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            reg = ModelRegistry(batch_limit=4, device="cpu")
+            reg.load("m", _fwd_t, shapes=[(NIN,)])
+        ing = HttpIngress(reg, port=0).start()
+        try:
+            load = ServingLoad.seeded(seed=3, mix="steady", n=2000, rps=100,
+                                      max_rows=2)
+            stop = threading.Event()
+            threading.Timer(0.5, stop.set).start()
+            t0 = time.perf_counter()
+            res = load.replay_http(ing.url, "m", (NIN,), stop=stop)
+            took = time.perf_counter() - t0
+        finally:
+            ing.stop()
+            reg.close()
+        assert 0 < len(res) < len(load) and took < 0.5 * load.duration()
+        assert t0 <= load.replay_started <= t0 + took
+        assert [spec for spec, _ in res] == load.specs[:len(res)]
+        assert all(out[0] == 200 for _, out in res)
+        assert all(w is None for w in load.wire_seconds[len(res):])
+
     def test_entry_points_need_a_card_or_the_cpu(self, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -4,6 +4,7 @@ port's entry points run on the card unless told otherwise."""
 
 import ast
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -226,3 +227,35 @@ def test_chip_smoke_fails_without_a_card_or_a_checkout(tmp_path, alone):
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+_MODULE_NAME = re.compile(r"^[A-Za-z_]\w*(\.\w+)*(:\w+)?$")
+
+
+def _module_name_strings(path: Path):
+    """String constants shaped like a module name (``pkg.mod`` or
+    ``pkg.mod:attr``): what a CLI hands ``importlib`` or
+    ``importlib.util.find_spec`` later, such as the analyzer's
+    ``--concurrency`` default."""
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and _MODULE_NAME.match(node.value):
+            yield node.value
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_module_name_strings_of_the_jax_package(path):
+    """The import check reads import statements; a module named in a
+    string and resolved at run time (a CLI's default target) is checked
+    here."""
+    bad = sorted({s for s in _module_name_strings(path)
+                  if re.split(r"[.:]", s)[0] in FORBIDDEN})
+    assert not bad, f"{path.relative_to(ROOT)} names {bad}"
+
+
+def test_the_analyzer_cli_targets_the_port():
+    cli = PORT / "analysis" / "__main__.py"
+    names = set(_module_name_strings(cli))
+    assert "deeplearning4j_tpu_torch" in names         # --concurrency
+    assert "deeplearning4j_tpu_torch.models" in set(_imported_names(cli))
