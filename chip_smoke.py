@@ -487,6 +487,45 @@ Phases (each one fails the run with a non-zero exit):
    classes, B <= 32, warmed, answering 8 requests): its report holds no
    E111, E121 or E122; the net's own ``validate()`` (on the card, NCHW)
    gives the conv-stack W101, and none after ``setComputeLayout("NHWC")``.
+34. Observability (:func:`observability`; cuDNN held to deterministic
+   algorithms). (a) TinyYOLO (phase 9's: bf16, 416², B=32) K=4 captured
+   under ``NAN_PANIC``: ``FaultPlan(nan_layer_params_at={5: <the first
+   conv after the input>})`` must raise ``NonfiniteAttributionError``
+   naming that conv, op ``params``, step 5 (a poison lands at a dispatch
+   boundary: steps 1, 5, 9), and a NaN batch at step 7, mid-dispatch,
+   ``<input>``, ``batch``, step 7 (the replay rolls the step-0 snapshot 6
+   steps); after each raise every state tensor equals, to the bit, a
+   twin's that ran the same dispatches with the mode OFF; the replay's
+   seconds and ``scale_shift_act`` launches are printed. (b) ResNet-50
+   B=64 K=4 captured, ms a step over ``OBS_DISPATCHES`` dispatches in
+   turns OFF, NAN_PANIC, NAN_PANIC, OFF from one state; the losses of all
+   four bit-equal; the overhead printed. (c) TextGenerationLSTM (phase
+   21's) through ``fitTBPTT``: a NaN in window 3 names ``<input>``,
+   ``batch``, step 3. (d) ``track_value_ranges(True)`` on TinyYOLO bf16:
+   one ``dl4j_tensor_absmax`` sample a layer for a step,
+   ``dl4j_overflow_proximity`` in (0, 1). (e)
+   ``devicetime.measure(mode="trace")`` on ResNet-50 B=64 (bf16, NHWC,
+   fused) and on BERT-base as served (B=32, T=128, bf16, flash): every
+   conv and BN (attention and LN) layer has a row with seconds > 0; the
+   kernels in BN scopes count exactly 33 ``scale_shift_act`` a forward
+   (12 flash in attention scopes and 25 LN in LN scopes on BERT) and
+   none elsewhere; the rows sum to no more than the eager forward's
+   CUDA-event time; ``top_offenders`` with MFU against 989 TFLOP/s and
+   sync mode beside trace mode. (f) ``ProfilingListener`` over three
+   captured ResNet-50 steps (one step a dispatch) writes a Chrome trace
+   that parses as JSON; its kernel events under replay are counted. (g)
+   LeNet-5 (phase 16's data) with ``StatsListener`` into
+   ``InMemoryStatsStorage`` at frequency 1 (a record a step, finite
+   scores) and a ``UIServer``: ``/api/sessions``, ``/api/overview``,
+   ``/api/model``, ``/metrics``, ``/trace`` answer 200; ms a step with
+   and without the listener. (h) BERT-base behind ``HttpIngress`` +
+   ``ModelRegistry`` (phase 15's front door, v1) with a
+   ``MetricsAggregator`` fed by a ``FleetScraper`` from the ingress's
+   ``/metrics`` and a ``UIServer``'s, and an ``SLOGate`` (p99 under 250
+   ms, availability 0.99): 300 requests at 150 requests/s
+   (``ServingLoad.seeded``), all 200; ``/v1/fleet/metrics`` (merging both
+   hosts), ``/v1/fleet/load`` and ``/v1/slo`` answer 200; the verdict and
+   its burn rates are printed.
 
 The captured-against-eager rule: where the two eager runs agree to the
 bit on a tensor (and on the params' group: the param and its Adam
@@ -522,7 +561,8 @@ and replays; ``import_launches`` and ``import_train_launches`` are phase
 23's served launches (warmup and replays) and its train steps';
 ``long_run_launches`` phase 25's capture; ``keras_launches`` phase 28's:
 layer norm's served at T=128 and at T=1024, flash's at T=1024;
-``transfer_launches`` phase 30's recorded at its K=4 capture), the
+``transfer_launches`` phase 30's recorded at its K=4 capture;
+``sanitizer_launches`` phase 34 (a)'s replays and walks), the
 ``nvidia-smi`` name/power-limit line, and as the last line
 ``{"ok": true, "device": {...}}``. Without a card, or outside a
 checkout, it exits non-zero and prints no result.
@@ -652,6 +692,8 @@ DV_CLIP_FRAMES = 124
 DV_CLIP_EPOCHS = 2
 #: a path's first step on the card against the CPU's (relative)
 DV_CPU_TOL = 1e-4
+#: phase 34 (b): K=4 dispatches in each of the four timed runs
+OBS_DISPATCHES = 8
 #: phase 33: (phase name, zoo class, its kwargs, batch, policy) of the nets
 #: whose captured K=4 steps the cost model is held against
 ANALYZER_NETS = (
@@ -1758,6 +1800,10 @@ def main() -> None:
                      r14["ResNet-50"]["captured_ms"])
     torch.cuda.empty_cache()
 
+    # --------------------------------------------- 34. observability
+    obs = observability(smi)
+    torch.cuda.empty_cache()
+
     ln.update(served["layer_norm"])
     fa.update(served["flash_attention"])
     for kr in (ln, fa):
@@ -1774,6 +1820,7 @@ def main() -> None:
     ssa["from_disk_replays"] = disk["replays"]
     ssa["long_run_launches"] = long["at_capture"]
     ssa["transfer_launches"] = transfer_launches
+    ssa["sanitizer_launches"] = obs["sanitizer_launches"]
     sm["launches"] = sd_warm["softmax"] + sd_replays["softmax"]
     sm["replays"] = sd_replays["softmax"]
     bn_st["launches"] = probe_launches["bn_stats"]
@@ -1783,7 +1830,8 @@ def main() -> None:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "other_shapes", "pair", "from_disk_launches",
             "from_disk_replays", "import_launches", "import_train_launches",
-            "long_run_launches", "keras_launches", "transfer_launches")
+            "long_run_launches", "keras_launches", "transfer_launches",
+            "sanitizer_launches")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{k: kr[k] for k in keys if k in kr}
                                   for kr in (ln, fa, ssa, sm, bn_st, bn_ap)]}))
@@ -2088,6 +2136,13 @@ def front_door(smi: str) -> None:
                  for k in ("warmup", "enter", "capture")}
         v1_batches = v1.stats()["batches"] - b0
         v2 = reg.server("bert", 2)
+        # the split goes out before any check, so a long load that fails
+        # the phase still says which stretch took the time
+        log(f"v2's load [{smi}]: {load_s:.3f} s = eager warm-up "
+            f"{split['warmup']:.3f} s + capture entry {split['enter']:.3f} s "
+            f"+ capture {split['capture']:.3f} s (+ "
+            f"{load_s - sum(split.values()):.3f} s besides) over "
+            f"{len(captures)} buckets")
         left = load.duration() - (time.perf_counter()
                                   - (load.replay_started or t_start))
         if left < SWAP_S + 0.3:
@@ -2132,11 +2187,7 @@ def front_door(smi: str) -> None:
             g0, g1 = during[int(gaps.argmax())], during[int(gaps.argmax()) + 1]
             worst = max(stretches, key=lambda st: min(st[2], g1)
                         - max(st[1], g0))[0] if stretches else ""
-        log(f"v2's load [{smi}]: {load_s:.3f} s = eager warm-up "
-            f"{split['warmup']:.3f} s + capture entry {split['enter']:.3f} s "
-            f"+ capture {split['capture']:.3f} s (+ "
-            f"{load_s - sum(split.values()):.3f} s besides) over "
-            f"{len(captures)} buckets; v1's longest gap between two batches "
+        log(f"v2's load [{smi}]: v1's longest gap between two batches "
             f"while v2 loads {1e3 * gaps.max(initial=0.0):.2f} ms (over "
             f"{len(gaps)} gaps, mostly in {worst or 'none'}), while it "
             f"serves alone after the rollback "
@@ -5426,6 +5477,591 @@ def datavec(smi: str) -> None:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"DataVec: phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def bits_equal(a, b) -> bool:
+    """``a`` and ``b`` hold the same bits (NaN payloads included)."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        as_int = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+            a.element_size()]
+        return torch.equal(a.detach().view(as_int), b.detach().view(as_int))
+    return torch.equal(a, b)
+
+
+def observability(smi: str) -> dict:
+    """Phase 34: observability on the card. (a) NAN_PANIC names the first
+    non-finite under TinyYOLO's K=4 captured steps, and the live state
+    after the raise is an OFF twin's to the bit; (b) the armed gate's cost
+    on ResNet-50 K=4; (c) a TBPTT window's site; (d) value ranges; (e)
+    per-layer device time from torch.profiler on ResNet-50 and served
+    BERT-base; (f) ``ProfilingListener`` over captured steps; (g)
+    ``StatsListener`` + ``UIServer`` on LeNet-5; (h) the front door's
+    fleet and SLO endpoints. Returns the ``scale_shift_act`` launches the
+    sanitizer's replays and walks made (``sanitizer_launches``)."""
+    import torch
+
+    from deeplearning4j_tpu_torch import profiler as prof
+    from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+    from deeplearning4j_tpu_torch.profiler import sanitizer as san
+    ck.install_platform_overrides()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    # the raises are held to the bit against twins: one cuDNN algorithm
+    torch.backends.cudnn.deterministic = True
+    try:
+        launches = obs_attribution(smi)
+        obs_tbptt(smi)
+        obs_ranges(smi)
+        net, ds = obs_gate_cost(smi)
+        obs_devicetime(smi, net, ds)
+        obs_profiling_listener(smi, net, ds)
+        del net, ds
+        torch.cuda.empty_cache()
+        obs_stats_ui(smi)
+        obs_fleet(smi)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        prof.set_profiling_mode(None)
+        san.track_value_ranges(False)
+    log(f"observability: phase {time.perf_counter() - t_phase:.1f} s")
+    return {"sanitizer_launches": launches}
+
+
+def tiny_yolo_bf16():
+    from deeplearning4j_tpu_torch.models import zoo
+    net = zoo.TinyYOLO(num_classes=YOLO_CLASSES).init()
+    net.setPrecisionPolicy("bf16")
+    net.setComputeLayout("NHWC")
+    net.setEpilogueFusion(True)
+    return net
+
+
+def obs_attribution(smi: str) -> int:
+    """Phase 34 (a): a planned conv poison and a NaN batch mid-dispatch
+    under TinyYOLO's K=4 captured steps; returns the sanitizer's
+    ``scale_shift_act`` launches."""
+    import torch
+
+    from deeplearning4j_tpu_torch import profiler as prof
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.faults import FaultPlan
+    from deeplearning4j_tpu_torch.nn.objdetect import yolo_labels
+    from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+    from deeplearning4j_tpu_torch.profiler import sanitizer as san
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal(
+        (YOLO_BATCH, 3, 416, 416), dtype=np.float32)).to(dev)
+    y = torch.from_numpy(yolo_labels(rng, YOLO_BATCH, YOLO_CLASSES)).to(dev)
+    xnan = x.clone()
+    xnan[1, 1, 100, 200] = float("nan")
+    probe = tiny_yolo_bf16()
+    conv = next(i for i, layer in enumerate(probe.layers)
+                if i > 0 and type(layer).__name__ == "ConvolutionLayer")
+    conv_name = f"{conv}:{probe.layers[conv].name}"
+    del probe
+    # a poison lands at a dispatch boundary (steps 1, 5, 9 under K=4):
+    # planned for step 5, it is in place before that dispatch runs
+    clean = [DataSet(x, y)] * (3 * MEGA_K)
+    cases = (
+        ("a conv's params poisoned at step 5", clean,
+         lambda: {"faults": FaultPlan(nan_layer_params_at={5: conv})},
+         (conv_name, "params", 5)),
+        ("a NaN batch at step 7", clean[:6] + [DataSet(xnan, y)]
+         + clean[:5], dict, ("<input>", "batch", 7)))
+    timed, attribute = [], san._attribute
+
+    def attribute_timed(model, token, j):
+        a = ck.LAUNCHES["scale_shift_act"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return attribute(model, token, j)
+        finally:
+            torch.cuda.synchronize()
+            timed.append((time.perf_counter() - t0,
+                          ck.LAUNCHES["scale_shift_act"] - a, token.step0,
+                          j, token.state.snap_step))
+    total = 0
+    for what, batches, kw, want in cases:
+        net, twin = tiny_yolo_bf16(), tiny_yolo_bf16()
+        if not all(bits_equal(a, b) for a, b in zip(net._dispatch_state(),
+                                                    twin._dispatch_state())):
+            fail("phase 34 (a): two TinyYOLO inits from one seed differ")
+        timed.clear()
+        san._attribute = attribute_timed
+        prof.set_profiling_mode(prof.ProfilingMode.NAN_PANIC)
+        try:
+            net.fit(batches, steps_per_dispatch=MEGA_K, **kw())
+        except san.NonfiniteAttributionError as e:
+            site = (e.layer, e.op, e.step)
+        else:
+            fail(f"phase 34 (a) {what}: NAN_PANIC raised nothing")
+        finally:
+            prof.set_profiling_mode(None)
+            san._attribute = attribute
+        if site != want:
+            fail(f"phase 34 (a) {what}: named {site}, want {want}")
+        twin.fit(batches[:2 * MEGA_K], steps_per_dispatch=MEGA_K, **kw())
+        a, b = net._dispatch_state(), twin._dispatch_state()
+        same = sum(bits_equal(u, v) for u, v in zip(a, b))
+        if len(a) != len(b) or same != len(a):
+            fail(f"phase 34 (a) {what}: after the raise {same} of {len(a)} "
+                 "state tensors equal the OFF twin's to the bit")
+        secs, n_ssa, step0, j, snap = timed[0]
+        total += n_ssa
+        log(f"phase 34 (a) TinyYOLO B={YOLO_BATCH} bf16 K={MEGA_K} captured, "
+            f"{what}: NonfiniteAttributionError {site}; the replay rolled "
+            f"{step0 + j - snap} step(s) from the snapshot of step {snap} "
+            f"and walked step {step0 + j + 1} in {secs:.3f} s ({n_ssa} "
+            f"scale_shift_act launches); the live state after the raise "
+            f"equals an OFF twin's to the bit ({len(a)} tensors) [{smi}]")
+        del net, twin
+        torch.cuda.empty_cache()
+    return total
+
+
+def obs_tbptt(smi: str) -> None:
+    """Phase 34 (c): a NaN in the third window of a TextGenerationLSTM
+    TBPTT batch is named with that window's step."""
+    from deeplearning4j_tpu_torch import profile_fit as pf
+    from deeplearning4j_tpu_torch import profiler as prof
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.profiler import sanitizer as san
+    W = pf.TEXT_WINDOW
+    idx = pf.markov_chars(TEXT_SEED, TEXT_BATCH, pf.TEXT_LEN)
+    x, y = pf.one_hot_ncw(idx[:, :-1]), pf.one_hot_ncw(idx[:, 1:])
+    x[0, 5, 2 * W + 20] = float("nan")          # window 3
+    net = zoo.TextGenerationLSTM().init()
+    prof.set_profiling_mode(prof.ProfilingMode.NAN_PANIC)
+    t0 = time.perf_counter()
+    try:
+        net.fitTBPTT(DataSet(x, y), W)
+    except san.NonfiniteAttributionError as e:
+        site = (e.layer, e.op, e.step)
+    else:
+        fail("phase 34 (c): NAN_PANIC raised nothing in the TBPTT windows")
+    finally:
+        prof.set_profiling_mode(None)
+    if site != ("<input>", "batch", 3):
+        fail(f"phase 34 (c): named {site}, want ('<input>', 'batch', 3)")
+    log(f"phase 34 (c) TextGenerationLSTM B={TEXT_BATCH} T={pf.TEXT_LEN} "
+        f"TBPTT {W}: a NaN in window 3 named {site} (kind tbptt) after "
+        f"{time.perf_counter() - t0:.2f} s of windows [{smi}]")
+
+
+def obs_ranges(smi: str) -> None:
+    """Phase 34 (d): ``track_value_ranges`` on TinyYOLO bf16: one
+    ``dl4j_tensor_absmax`` sample a layer, the proximity in (0, 1)."""
+    import torch
+
+    from deeplearning4j_tpu_torch import profiler as prof
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.nn.objdetect import yolo_labels
+    from deeplearning4j_tpu_torch.profiler import sanitizer as san
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal(
+        (YOLO_BATCH, 3, 416, 416), dtype=np.float32)).cuda()
+    y = torch.from_numpy(yolo_labels(rng, YOLO_BATCH, YOLO_CLASSES)).cuda()
+    net = tiny_yolo_bf16()
+    hist = prof.get_registry().get("dl4j_tensor_absmax")
+
+    def counts():
+        return {k[1]: c.count for k, c in hist.children().items()
+                if k[0] == "MultiLayerNetwork"}
+    before = counts()
+    san.track_value_ranges(True, every=1)
+    prof.set_profiling_mode(prof.ProfilingMode.NAN_PANIC)
+    try:
+        net.fit(DataSet(x, y))
+    finally:
+        prof.set_profiling_mode(None)
+        san.track_value_ranges(False)
+    added = {k: v - before.get(k, 0) for k, v in counts().items()}
+    want = {f"{i}:{layer.name}": 1 for i, layer in enumerate(net.layers)}
+    prox = prof.get_registry().get("dl4j_overflow_proximity").value
+    if added != want:
+        fail(f"phase 34 (d): absmax samples {added}, want one a layer")
+    if not 0.0 < prox < 1.0:
+        fail(f"phase 34 (d): dl4j_overflow_proximity {prox}")
+    sums = {k[1]: c.sum for k, c in hist.children().items()
+            if k[0] == "MultiLayerNetwork"}
+    top = ", ".join(f"{k} {sums[k]:.4g}"
+                    for k in sorted(want, key=lambda k: -sums[k])[:3])
+    log(f"phase 34 (d) TinyYOLO bf16 value ranges: {len(want)} layers one "
+        f"sample each; largest |max| {top}; dl4j_overflow_proximity "
+        f"{prox:.4g} [{smi}]")
+    del net, x, y
+    torch.cuda.empty_cache()
+
+
+def resnet50_bf16():
+    from deeplearning4j_tpu_torch.models import zoo
+    net = zoo.ResNet50(num_classes=1000).init()
+    net.setPrecisionPolicy("bf16")
+    net.setComputeLayout("NHWC")
+    net.setEpilogueFusion(True)
+    return net
+
+
+def obs_gate_cost(smi: str):
+    """Phase 34 (b): ResNet-50 B=64 K=4 captured, ms a step over 8
+    dispatches in turns OFF, NAN_PANIC, NAN_PANIC, OFF from one state,
+    the losses bit-equal. Returns the net and its batch."""
+    import torch
+
+    from deeplearning4j_tpu_torch import profiler as prof
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.nn import compilecache as cc
+    from deeplearning4j_tpu_torch.profiler import sanitizer as san
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal(
+        (RESNET_BATCH, 3, 224, 224), dtype=np.float32)).to(dev)
+    y = torch.from_numpy(np.eye(1000, dtype=np.float32)[
+        rng.integers(0, 1000, RESNET_BATCH)]).to(dev)
+    ds = DataSet(x, y)
+    net = resnet50_bf16()
+    net._ensure_step_state()
+    s0 = snapshot(net._dispatch_state())
+    cc.warmup(net, [(tuple(x.shape), tuple(y.shape))],
+              steps_per_dispatch=MEGA_K)
+    n_disp = OBS_DISPATCHES
+    group = [ds] * (n_disp * MEGA_K)
+    kept = []
+    fit_mega = net._fit_mega
+
+    def fit_mega_kept(mb):
+        losses = fit_mega(mb)
+        kept.append(losses)
+        return losses
+    net._fit_mega = fit_mega_kept
+    runs = []
+    try:
+        for mode in ("OFF", "NAN_PANIC", "NAN_PANIC", "OFF"):
+            restore(net._dispatch_state(), s0)
+            net._iteration = 0
+            san.invalidate(net)
+            kept.clear()
+            prof.set_profiling_mode(getattr(prof.ProfilingMode, mode))
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                net.fit(group, steps_per_dispatch=MEGA_K)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3 / len(group)
+            finally:
+                prof.set_profiling_mode(None)
+            runs.append((mode, ms, torch.cat(kept).float().cpu()))
+    finally:
+        del net._fit_mega
+    ref = runs[0][2]
+    for mode, _ms, losses in runs:
+        if not bits_equal(losses, ref) or not bool(torch.isfinite(
+                losses).all()):
+            fail(f"phase 34 (b): the {mode} losses {losses.tolist()} are not "
+                 f"the OFF run's {ref.tolist()} to the bit, or not finite")
+    off = [ms for mode, ms, _ in runs if mode == "OFF"]
+    on = [ms for mode, ms, _ in runs if mode == "NAN_PANIC"]
+    extra = np.mean(on) - np.mean(off)
+    over = extra / np.mean(off)
+    log(f"phase 34 (b) ResNet-50 B={RESNET_BATCH} bf16 K={MEGA_K} captured, "
+        f"{n_disp} dispatches a run, turns OFF/NAN_PANIC/NAN_PANIC/OFF: ms a "
+        f"step {', '.join(f'{m} {ms:.3f}' for m, ms, _ in runs)}; the armed "
+        f"gate's overhead {100 * over:+.2f}% ({extra:+.3f} ms a step); "
+        f"{len(ref)} losses bit-equal in all four [{smi}]")
+    return net, ds
+
+
+def obs_devicetime(smi: str, net, ds) -> None:
+    """Phase 34 (e): ``devicetime.measure(mode="trace")`` on ResNet-50
+    (B=64, bf16, NHWC, fused) and on BERT-base as served (B=32, T=128,
+    bf16, flash), beside sync mode and the eager forward's CUDA-event
+    time."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models.transformer import (
+        TransformerConfig, TransformerLM)
+    from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+    from deeplearning4j_tpu_torch.profiler import devicetime
+
+    def event_ms(fn):
+        fn()
+        ts = []
+        for _ in range(5):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            ts.append(a.elapsed_time(b))
+        return float(np.median(ts))
+
+    def launches_in(table, ops, fragment):
+        return sum(c for r in table.rows if r.op in ops
+                   for k, c in table.launches.get(r.layer, {}).items()
+                   if fragment in k)
+
+    def launches_out(table, ops, fragment):
+        return sum(c for r in table.rows if r.op not in ops
+                   for k, c in table.launches.get(r.layer, {}).items()
+                   if fragment in k)
+
+    lm = TransformerLM(TransformerConfig.bert_base(use_flash_attention=True),
+                       seed=0)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, lm.cfg.vocab_size, (32, 128)).astype(np.int64)).cuda()
+    x = ds.features
+    for name, model, feats, fwd, want_ops, counts in (
+            ("ResNet-50 B=64 bf16 NHWC fused", net, x,
+             lambda: net.output(x), {"conv2d", "batch_norm"},
+             ((("batch_norm",), "scale_shift_act", 33),)),
+            ("BERT-base B=32 T=128 bf16 flash", lm, tokens,
+             lambda: lm.logits(tokens), {"attention", "layer_norm"},
+             ((("attention",), "flash_fwd_kernel", 12),
+              (("layer_norm",), "layer_norm_fwd_kernel", 25)))):
+        fwd_ms = event_ms(fwd)
+        ck.reset_counts()
+        t0 = time.perf_counter()
+        tr = devicetime.measure(model, feats, reps=3, mode="trace")
+        trace_s = time.perf_counter() - t0
+        # the wrappers' own count over the traced step's 3 forwards and
+        # the profiler's warm-up step's one
+        counted = {k: v / 4 for k, v in ck.LAUNCHES.items() if v}
+        sy = devicetime.measure(model, feats, reps=3, mode="sync")
+        missing = [r.layer for r in tr.rows if r.op in want_ops
+                   and not r.seconds > 0]
+        want_rows = {r.layer for r in sy.rows if r.op in want_ops}
+        have = {r.layer for r in tr.rows if r.op in want_ops
+                and r.seconds > 0}
+        if missing or want_rows - have:
+            fail(f"phase 34 (e) {name}: no device time for "
+                 f"{sorted(set(missing) | (want_rows - have))[:8]}")
+        seen = []
+        for ops, frag, n in counts:
+            got_in = launches_in(tr, ops, frag)
+            got_out = launches_out(tr, ops, frag)
+            seen.append(f"{got_in:g} {frag} in {'/'.join(ops)} scopes")
+            if got_in != n or got_out:
+                fail(f"phase 34 (e) {name}: {got_in} {frag} launches a "
+                     f"forward in {ops} scopes and {got_out} elsewhere, "
+                     f"want {n} and 0 (the wrappers counted {counted} a "
+                     f"forward)")
+        total_ms = tr.total_seconds * 1e3
+        if total_ms > fwd_ms:
+            fail(f"phase 34 (e) {name}: the rows sum to {total_ms:.3f} ms, "
+                 f"above the eager forward's {fwd_ms:.3f} ms")
+        by_op = {}
+        for r in sorted(tr.rows, key=lambda r: r.op):
+            by_op[r.op] = by_op.get(r.op, 0.0) + r.seconds * 1e3
+        by_op = {k: round(v, 3) for k, v in sorted(by_op.items(),
+                                                   key=lambda kv: -kv[1])}
+        sync = {r.layer: r.seconds * 1e3 for r in sy.rows}
+        top = tr.top_offenders(5)
+        log(f"phase 34 (e) {name}: {len(tr.rows)} rows, device {total_ms:.3f} "
+            f"ms of an eager forward of {fwd_ms:.3f} ms (CUDA events; the "
+            f"trace took {trace_s:.2f} s); by op "
+            f"{by_op}; a forward: {', '.join(seen)} [{smi}]")
+        log(f"phase 34 (e) {name} top offenders (MFU against "
+            f"{tr.peak_flops / 1e12:.0f} TFLOP/s): " + "; ".join(
+                f"{o['layer']} ({o['op']}) {o['device_ms']} ms trace / "
+                f"{sync.get(o['layer'], float('nan')):.4f} ms sync, MFU "
+                f"{o['mfu']}" for o in top))
+        log(f"phase 34 (e) {name} trace vs sync, ms a layer: total "
+            f"{total_ms:.3f} / {sy.total_seconds * 1e3:.3f}; median row "
+            f"{1e3 * float(np.median([r.seconds for r in tr.rows])):.4f} / "
+            f"{1e3 * float(np.median([r.seconds for r in sy.rows])):.4f}")
+    del lm, tokens
+    torch.cuda.empty_cache()
+
+
+def obs_profiling_listener(smi: str, net, ds) -> None:
+    """Phase 34 (f): ``ProfilingListener`` over three captured ResNet-50
+    iterations (one captured step a dispatch) writes a Chrome trace that
+    parses as JSON; which kernel events it holds under replay."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn import compilecache as cc
+    from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+    from deeplearning4j_tpu_torch.train.listeners import ProfilingListener
+    cc.warmup(net, [(tuple(ds.features.shape), tuple(ds.labels.shape))])
+    with tempfile.TemporaryDirectory() as d:
+        pl = ProfilingListener(d, start_iter=2, n_iters=3)
+        net.setListeners(pl)
+        ck.reset_counts()
+        try:
+            net.fit([ds] * 5)
+        finally:
+            net.setListeners()
+        replays = ck.REPLAYS["scale_shift_act"]
+        if ck.LAUNCHES["scale_shift_act"] or replays != 5 * 33:
+            fail(f"phase 34 (f): {dict(ck.LAUNCHES)} launched, "
+                 f"{dict(ck.REPLAYS)} replayed: want 5 replays of 33")
+        if not pl.trace_path or not os.path.isfile(pl.trace_path):
+            fail("phase 34 (f): ProfilingListener wrote no trace")
+        size = os.path.getsize(pl.trace_path)
+        with open(pl.trace_path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    names = {}
+    for e in kernels:
+        names[e["name"]] = names.get(e["name"], 0) + 1
+    graph_launches = sum(1 for e in events
+                         if "cudaGraphLaunch" in str(e.get("name", "")))
+    scopes = sum(1 for e in events
+                 if str(e.get("name", "")).startswith("dl4j_L"))
+    ssa = sum(c for k, c in names.items() if "scale_shift_act" in k)
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:4]
+    log(f"phase 34 (f) ProfilingListener over 3 captured ResNet-50 "
+        f"iterations: {size / 1e6:.1f} MB Chrome trace, {len(events)} "
+        f"events; under replay it holds {len(kernels)} kernel events "
+        f"({len(names)} names, {ssa} scale_shift_act; most: "
+        f"{'; '.join(f'{n[:60]} x{c}' for n, c in top)}), "
+        f"{graph_launches} cudaGraphLaunch events and {scopes} dl4j_L "
+        f"scopes [{smi}]")
+    torch.cuda.synchronize()
+
+
+def obs_stats_ui(smi: str) -> None:
+    """Phase 34 (g): LeNet-5 (phase 16's data) with a ``StatsListener``
+    into ``InMemoryStatsStorage`` at frequency 1, served by a
+    ``UIServer``; ms a step with and without the listener."""
+    import urllib.request
+
+    import torch
+
+    from deeplearning4j_tpu_torch.data.iterators import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.train.listeners import StatsListener
+    from deeplearning4j_tpu_torch.ui import InMemoryStatsStorage, UIServer
+    train = MnistDataSetIterator(64, True, num_examples=2048)
+    net = zoo.LeNet(num_classes=10).init()
+    net.fit(train)                       # warm
+    steps = -(-train.data.numExamples() // 64)
+
+    def epoch_ms():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(train)
+        net.score()
+        return (time.perf_counter() - t0) * 1e3 / steps
+    bare = epoch_ms()
+    st = InMemoryStatsStorage()
+    net.setListeners(StatsListener(st, frequency=1, session_id="lenet"))
+    with_stats = epoch_ms()
+    net.setListeners()
+    bare2 = epoch_ms()
+    ups = st.getAllUpdates("lenet")
+    if len(ups) != steps or not all(np.isfinite(u["score"]) for u in ups):
+        fail(f"phase 34 (g): {len(ups)} StatsListener records for {steps} "
+             "steps, or a score not finite")
+    server = UIServer(port=0).attach(st)
+    codes = {}
+    try:
+        for path in ("api/sessions", "api/overview?session=lenet",
+                     "api/model?session=lenet", "metrics", "trace"):
+            with urllib.request.urlopen(server.url + path, timeout=30) as r:
+                codes[path] = r.status
+                body = r.read()
+            if path.startswith("api/"):
+                json.loads(body)
+    finally:
+        server.stop()
+    if set(codes.values()) != {200}:
+        fail(f"phase 34 (g): UIServer answered {codes}")
+    leaf = ups[-1]["layers"]
+    log(f"phase 34 (g) LeNet-5 B=64 fp32, {steps} eager steps an epoch: "
+        f"{bare:.3f} / {bare2:.3f} ms a step without StatsListener, "
+        f"{with_stats:.3f} with it (frequency 1, {len(leaf)} leaves a "
+        f"record, update_ratio of {next(iter(leaf))} "
+        f"{leaf[next(iter(leaf))]['update_ratio']:.3g}); UIServer "
+        f"{codes} [{smi}]")
+
+
+def obs_fleet(smi: str) -> None:
+    """Phase 34 (h): phase 15's front door (BERT-base v1 behind
+    ``HttpIngress`` + ``ModelRegistry``) with a ``MetricsAggregator`` fed by
+    a ``FleetScraper`` from the ingress's /metrics and a ``UIServer``'s,
+    and an ``SLOGate`` (p99 under 250 ms, availability 0.99) over a short
+    ``ServingLoad.seeded`` replay at 150 requests/s."""
+    import urllib.request
+
+    import torch
+
+    from deeplearning4j_tpu_torch import profiler as prof
+    from deeplearning4j_tpu_torch.faults import ServingLoad
+    from deeplearning4j_tpu_torch.models.transformer import (
+        TransformerConfig, TransformerLM)
+    from deeplearning4j_tpu_torch.serving import HttpIngress, ModelRegistry
+    from deeplearning4j_tpu_torch.ui import UIServer
+    cfg = TransformerConfig.bert_base(use_flash_attention=True)
+    lm = TransformerLM(cfg, seed=0)
+    T = 128
+    reg = ModelRegistry(batch_limit=32, head="argmax", input_dtype=np.int32)
+    agg = prof.MetricsAggregator(max_age=120.0)
+    gate = prof.SLOGate(prof.SLOEngine([prof.SLOSpec(
+        "serve", objective=0.99, latency_bound=0.25, availability=0.99)]))
+    ingress = ui_server = None
+    try:
+        reg.load("bert", lm.logits, shapes=[(T,)])
+        ingress = HttpIngress(reg, port=0, fleet=agg, slo=gate).start()
+        ui_server = UIServer(port=0).attach_serving(reg.server("bert"))
+        scraper = prof.FleetScraper(agg, lambda: {
+            "ingress": ingress.url, "ui": ui_server.url.rstrip("/")})
+        gate()                           # the window's first sample
+        load = ServingLoad.seeded(seed=34, mix="steady", n=300, rps=150,
+                                  max_rows=8)
+        for spec in load.specs:
+            spec.deadline = 5.0
+
+        def tokens(rng, spec):
+            return rng.randint(0, cfg.vocab_size, (spec.rows, T)).astype(
+                np.int32)
+        res = load.replay_http(ingress.url, "bert", (T,), make=tokens)
+        codes = [o[0] if isinstance(o, tuple) else o for _, o in res]
+        if codes.count(200) != len(res):
+            fail(f"phase 34 (h): {len(res) - codes.count(200)} of "
+                 f"{len(res)} requests not answered 200")
+        scraped = scraper.scrape_once()
+        if scraped != {"ingress": True, "ui": True}:
+            fail(f"phase 34 (h): scrape {scraped}")
+        answers = {}
+        for path in ("/v1/fleet/metrics", "/v1/fleet/load", "/v1/slo"):
+            with urllib.request.urlopen(ingress.url + path,
+                                        timeout=30) as r:
+                answers[path] = (r.status, r.read().decode())
+        if {c for c, _ in answers.values()} != {200}:
+            fail(f"phase 34 (h): {[(p, c) for p, (c, _) in answers.items()]}")
+        text = answers["/v1/fleet/metrics"][1]
+        if "dl4j_fleet_members 2" not in text or 'host="ingress"' not in \
+                text or 'host="ui"' not in text:
+            fail("phase 34 (h): /v1/fleet/metrics does not merge both hosts")
+        fleet_load = json.loads(answers["/v1/fleet/load"][1])
+        verdict = json.loads(answers["/v1/slo"][1])
+        win = verdict["specs"]["serve"]["windows"]
+        wire = sorted(s for s in load.wire_seconds if s is not None)
+        log(f"phase 34 (h) front door: {len(res)} requests at 150/s, all "
+            f"200 (wire p99 {1e3 * float(np.percentile(wire, 99)):.2f} ms); "
+            f"fleet p99 {agg.quantile('dl4j_serving_latency_seconds', 0.99)}"
+            f" s over {agg.hosts()}; /v1/fleet/load hosts "
+            f"{sorted(fleet_load['hosts'])} (the UIServer serves no "
+            f"/v1/load); SLO passing {verdict['passing']}, burn rates fast "
+            f"{win['fast']['burn']:.4g} {win['fast']['criteria']}, slow "
+            f"{win['slow']['burn']:.4g} [{smi}]")
+    finally:
+        if ingress is not None:
+            ingress.stop()
+        if ui_server is not None:
+            ui_server.stop()
+        reg.close()
+    del lm
+    torch.cuda.empty_cache()
 
 
 def plain_overrides(registry, ck) -> None:

@@ -19,6 +19,11 @@ is the k-th batch pulled, which is the k-th update applied:
 - **Preemption at step k** (``preempt_at_step``) — a
   :class:`~deeplearning4j_tpu_torch.train.resilience.StepPreemption`
   that fires once step k has completed, standing in for SIGTERM.
+- **A layer's params poisoned at step k** (``nan_layer_params_at``,
+  ``{step: layer}``) — NaN written in place into the first float param
+  of the layer just before the dispatch that holds step k (at the
+  first dispatch boundary at or after k under K steps a dispatch); the
+  provenance sanitizer must name that layer (``profiler.sanitizer``).
 
 Serving fault kinds (the model server's degradation paths):
 
@@ -48,9 +53,8 @@ Every fault fires exactly once per planned index (so a retried pull or
 forward succeeds, like a real transient).
 
 Not ported yet (ROADMAP.md): device loss in training
-(``device_loss_at_step``), layer-parameter poisoning
-(``nan_layer_params_at``, the sanitizer's), the coordinator and
-lifecycle kinds and the interleaving harness.
+(``device_loss_at_step``), the coordinator and lifecycle kinds and the
+interleaving harness.
 """
 
 from __future__ import annotations
@@ -98,7 +102,8 @@ class FaultPlan:
                  slow_replica_at: Iterable[int] = (),
                  slow_seconds: float = 0.1,
                  serve_fail_at: Iterable[int] = (),
-                 serve_device_loss_at_batch: Optional[int] = None):
+                 serve_device_loss_at_batch: Optional[int] = None,
+                 nan_layer_params_at: Optional[dict] = None):
         self.seed = seed
         self.nan_grads_at = _as_step_set(nan_grads_at)
         self.data_error_at = _as_step_set(data_error_at)
@@ -113,6 +118,10 @@ class FaultPlan:
         self.slow_seconds = float(slow_seconds)
         self.serve_fail_at = _as_step_set(serve_fail_at)
         self.serve_device_loss_at_batch = serve_device_loss_at_batch
+        #: {step: layer} (an index in a sequential net, a node name in a
+        #: graph): NaN planted in that layer's params before step ``step``
+        self.nan_layer_params_at = {int(k): v for k, v in
+                                    (nan_layer_params_at or {}).items()}
         # consumed-state: each fault fires once
         self._nan_pending = set(self.nan_grads_at)
         self._data_pending = set(self.data_error_at)
@@ -122,6 +131,7 @@ class FaultPlan:
         self._hang_pending = set(self.hung_dispatch_at)
         self._slow_pending = set(self.slow_replica_at)
         self._serve_fail_pending = set(self.serve_fail_at)
+        self._layer_poison_pending = set(self.nan_layer_params_at)
         self._hang_release = threading.Event()
 
     @classmethod
@@ -199,6 +209,30 @@ class FaultPlan:
         return True
 
     # ------------------------------------------------------ preemption seam
+    def poison_layer_params(self, model, step: int) -> bool:
+        """Fires once a planned layer poison: writes NaN into element 0 of
+        the planned layer's first float param (sorted by name), in place
+        (a captured step reads that storage), and voids the sanitizer's
+        provenance window (an out-of-band mutation its replay cannot
+        reproduce). The resilience session calls it before each step or
+        dispatch with the dispatch's first step, so a poison planned
+        inside a K-step dispatch lands at the next dispatch boundary."""
+        due = sorted(s for s in self._layer_poison_pending if s <= step)
+        if not due:
+            return False
+        fire_at = due[0]
+        self._layer_poison_pending.discard(fire_at)
+        entry = model._params[self.nan_layer_params_at[fire_at]]
+        for name in sorted(entry):
+            t = entry[name]
+            if t.is_floating_point():
+                with torch.no_grad():
+                    t[(0,) * t.dim()] = float("nan")
+                from deeplearning4j_tpu_torch.profiler import sanitizer
+                sanitizer.invalidate(model)
+                return True
+        return False
+
     def preemption_signal(self):
         """A StepPreemption for the planned preemption, or None."""
         if self.preempt_at_step is None:

@@ -36,6 +36,7 @@ from torch import nn
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.ops import attention as attn_ops
 from deeplearning4j_tpu_torch.ops import registry
+from deeplearning4j_tpu_torch.profiler import devicetime as _dt
 
 
 @dataclass
@@ -170,42 +171,67 @@ def _head(params, cfg: TransformerConfig):
 def encode(params, tokens, cfg: TransformerConfig, token_type_ids=None,
            attn_mask=None):
     """Faithful post-LN BERT encoder: tokens [B, T] -> hidden [B, T, E]
-    (fp32): embedding LayerNorm, post-LN residuals, exact-erf gelu."""
+    (fp32): embedding LayerNorm, post-LN residuals, exact-erf gelu. While
+    ``profiler.devicetime`` records, each sublayer runs in its scope
+    (``devicetime.transformer_scopes``)."""
+    rec = _dt.recorder()
     B, T = tokens.shape
     emb = params["embed"]
-    x = emb["tok"][tokens] + emb["pos"][:T][None]
-    if "type" in emb:
-        tt = token_type_ids if token_type_ids is not None \
-            else torch.zeros((B, T), dtype=torch.long, device=tokens.device)
-        x = x + emb["type"][tt]
     eps = cfg.layer_norm_eps
-    x = _layer_norm(x, params["emb_norm"], eps).to(cfg.dtype)
-    for lp in params["layers"]:
-        a = _attention(x, lp, cfg, attn_mask=attn_mask)
-        x = _layer_norm(x + a, lp["ln1"], eps).to(cfg.dtype)
-        h = nn.functional.gelu(x @ lp["w1"] + lp["b1"], approximate="none")
-        h = h @ lp["w2"] + lp["b2"]
-        x = _layer_norm(x + h, lp["ln2"], eps).to(cfg.dtype)
+    with _dt.layer_scope(rec, 0, "embed"):
+        x = emb["tok"][tokens] + emb["pos"][:T][None]
+        if "type" in emb:
+            tt = token_type_ids if token_type_ids is not None \
+                else torch.zeros((B, T), dtype=torch.long,
+                                 device=tokens.device)
+            x = x + emb["type"][tt]
+    with _dt.layer_scope(rec, 1, "emb_norm"):
+        x = _layer_norm(x, params["emb_norm"], eps).to(cfg.dtype)
+    for b, lp in enumerate(params["layers"]):
+        i = 2 + 4 * b
+        with _dt.layer_scope(rec, i, f"b{b}.attn"):
+            a = _attention(x, lp, cfg, attn_mask=attn_mask)
+        with _dt.layer_scope(rec, i + 1, f"b{b}.ln1"):
+            x = _layer_norm(x + a, lp["ln1"], eps).to(cfg.dtype)
+        with _dt.layer_scope(rec, i + 2, f"b{b}.mlp"):
+            h = nn.functional.gelu(x @ lp["w1"] + lp["b1"],
+                                   approximate="none")
+            h = h @ lp["w2"] + lp["b2"]
+        with _dt.layer_scope(rec, i + 3, f"b{b}.ln2"):
+            x = _layer_norm(x + h, lp["ln2"], eps).to(cfg.dtype)
     return x.float()
 
 
 def forward(params, tokens, cfg: TransformerConfig):
-    """tokens [B, T] int -> logits [B, T, V] (fp32)."""
+    """tokens [B, T] int -> logits [B, T, V] (fp32). Scoped per sublayer
+    while ``profiler.devicetime`` records, as :func:`encode`."""
+    rec = _dt.recorder()
     if cfg.arch == "postln_bert":
         x = encode(params, tokens, cfg)
-        return (x.to(cfg.dtype) @ _head(params, cfg)).float()
+        with _dt.layer_scope(rec, 2 + 4 * cfg.n_layers, "head"):
+            return (x.to(cfg.dtype) @ _head(params, cfg)).float()
     B, T = tokens.shape
     emb = params["embed"]
-    x = (emb["tok"][tokens] + emb["pos"][:T][None]).to(cfg.dtype)
-    for lp in params["layers"]:
-        h = _layer_norm(x, lp["ln1"]).to(cfg.dtype)
-        x = x + _attention(h, lp, cfg)
-        h = _layer_norm(x, lp["ln2"]).to(cfg.dtype)
-        # jax.nn.gelu defaults to the tanh approximation
-        h = nn.functional.gelu(h @ lp["w1"] + lp["b1"], approximate="tanh")
-        x = x + (h @ lp["w2"] + lp["b2"])
-    x = _layer_norm(x, params["final_norm"])
-    return (x.to(cfg.dtype) @ _head(params, cfg)).float()
+    with _dt.layer_scope(rec, 0, "embed"):
+        x = (emb["tok"][tokens] + emb["pos"][:T][None]).to(cfg.dtype)
+    for b, lp in enumerate(params["layers"]):
+        i = 1 + 4 * b
+        with _dt.layer_scope(rec, i, f"b{b}.ln1"):
+            h = _layer_norm(x, lp["ln1"]).to(cfg.dtype)
+        with _dt.layer_scope(rec, i + 1, f"b{b}.attn"):
+            x = x + _attention(h, lp, cfg)
+        with _dt.layer_scope(rec, i + 2, f"b{b}.ln2"):
+            h = _layer_norm(x, lp["ln2"]).to(cfg.dtype)
+        with _dt.layer_scope(rec, i + 3, f"b{b}.mlp"):
+            # jax.nn.gelu defaults to the tanh approximation
+            h = nn.functional.gelu(h @ lp["w1"] + lp["b1"],
+                                   approximate="tanh")
+            x = x + (h @ lp["w2"] + lp["b2"])
+    n = 1 + 4 * cfg.n_layers
+    with _dt.layer_scope(rec, n, "final_norm"):
+        x = _layer_norm(x, params["final_norm"])
+    with _dt.layer_scope(rec, n + 1, "head"):
+        return (x.to(cfg.dtype) @ _head(params, cfg)).float()
 
 
 def loss_fn(params, tokens, targets, cfg: TransformerConfig,

@@ -36,8 +36,7 @@ augmentation, which runs on every 4-D graph input (others pass through,
 as in the JAX graph) and hands the forward fp32, so the uint8 cast above
 does not run again.
 
-Not ported yet (ROADMAP.md): sharding, the compile cache's disk tier, the
-sanitizer.
+Not ported yet (ROADMAP.md): sharding, the compile cache's disk tier.
 """
 
 from __future__ import annotations
@@ -54,6 +53,7 @@ from deeplearning4j_tpu_torch.nn import preprocessors as pp
 from deeplearning4j_tpu_torch.nn.config import InputType, NeuralNetConfiguration
 from deeplearning4j_tpu_torch.nn.network import BaseNetwork
 from deeplearning4j_tpu_torch.ops.normalization import StepKey, dtype_scalar
+from deeplearning4j_tpu_torch.profiler import devicetime as _dt
 
 
 class GraphVertex:
@@ -471,11 +471,18 @@ class ComputationGraph(BaseNetwork):
 
     # --------------------------------------------------------------- forward
     def _forward(self, params, states, inputs: Dict[str, Any], train,
-                 key: Optional[StepKey] = None, fmask=None):
+                 key: Optional[StepKey] = None, fmask=None, visit=None):
         """The forward; ``key`` is the train step's dropout key: the k-th
         layer node in topological order draws from ``key.fold(k)`` (the
         JAX forward splits its key once a layer node, vertices take
-        none); ``fmask`` goes to the mask-aware layers."""
+        none); ``fmask`` goes to the mask-aware layers.
+        ``visit(name, node_obj, cast_params_or_None, out)``, when given,
+        sees every node's output in topological order (a folded
+        activation with its BN's output, a vertex with no params): the
+        sanitizer's eager walk. While ``profiler.devicetime`` records,
+        each node at topological position i runs in its scope
+        ``dl4j_L<i>_<name>``."""
+        rec = _dt.recorder()
         cdt = self._compute_dtype()
         nhwc = self._compute_layout == "NHWC"
         plan = self._ensure_epilogue_plan() if self._fuse_epilogues else {}
@@ -501,12 +508,14 @@ class ComputationGraph(BaseNetwork):
 
         new_states = {}
         ordinal = self._layer_ordinals()
-        for node in self.conf.topo:
+        for ti, node in enumerate(self.conf.topo):
             if node.name in fused_act:
                 # folded into its BN's scale_shift_act epilogue
                 env[node.name] = env[fused_act[node.name]]
                 fmt[node.name] = fmt[fused_act[node.name]]
                 new_states[node.name] = states[node.name]
+                if visit is not None:
+                    visit(node.name, node.obj, None, env[node.name])
                 continue
             if node.kind == "layer":
                 x = read(node.inputs[0], node.name)
@@ -517,30 +526,32 @@ class ComputationGraph(BaseNetwork):
                     x = self.conf.preprocessors[node.name](x)
                 x, cur_nhwc = L.layout_step(node.obj, x, cur_nhwc, nhwc)
                 sub = None if key is None else key.fold(ordinal[node.name])
-                p = params[node.name]
-                if cdt is not None:
-                    p, x = L.policy_cast(node.obj, p, x, cdt)
-                if node.name in plan:          # BN anchoring a fusion
-                    _act, conv_name, alpha = plan[node.name]
-                    out, ns = L.fused_bn_act(
-                        node.obj, p, states[node.name], x, train, alpha,
-                        bias=pending_bias.pop(conv_name, None))
-                elif node.name in fused_conv:  # bias folds into the BN
-                    out, ns = node.obj.apply(p, states[node.name], x, train,
-                                             sub, skip_bias=True)
-                    pending_bias[node.name] = p.get("b")
-                    if node.name in shared:
-                        biased[node.name] = L.conv_bias_add(
-                            node.obj, out, p.get("b"))
-                elif isinstance(node.obj, _MASK_AWARE):
-                    out, ns = node.obj.apply(p, states[node.name], x, train,
-                                             sub, mask=fmask)
-                else:
-                    out, ns = node.obj.apply(p, states[node.name], x, train,
-                                             sub)
+                with _dt.layer_scope(rec, ti, node.name):
+                    p = params[node.name]
+                    if cdt is not None:
+                        p, x = L.policy_cast(node.obj, p, x, cdt)
+                    if node.name in plan:          # BN anchoring a fusion
+                        _act, conv_name, alpha = plan[node.name]
+                        out, ns = L.fused_bn_act(
+                            node.obj, p, states[node.name], x, train, alpha,
+                            bias=pending_bias.pop(conv_name, None))
+                    elif node.name in fused_conv:  # bias folds into the BN
+                        out, ns = node.obj.apply(p, states[node.name], x,
+                                                 train, sub, skip_bias=True)
+                        pending_bias[node.name] = p.get("b")
+                        if node.name in shared:
+                            biased[node.name] = L.conv_bias_add(
+                                node.obj, out, p.get("b"))
+                    elif isinstance(node.obj, _MASK_AWARE):
+                        out, ns = node.obj.apply(p, states[node.name], x,
+                                                 train, sub, mask=fmask)
+                    else:
+                        out, ns = node.obj.apply(p, states[node.name], x,
+                                                 train, sub)
                 new_states[node.name] = ns
                 fmt[node.name] = cur_nhwc and out.dim() == 4
             else:
+                p = None
                 xs = [read(i) for i in node.inputs]
                 in_fmts = [fmt[i] for i in node.inputs]
                 if isinstance(node.obj, _LAYOUT_TRANSPARENT_VERTICES) \
@@ -556,9 +567,12 @@ class ComputationGraph(BaseNetwork):
                     # conv branch)
                     xs = [a.to(torch.bfloat16) if a.dtype == torch.float32
                           else a for a in xs]
-                out = node.obj.apply(*xs)
+                with _dt.layer_scope(rec, ti, node.name):
+                    out = node.obj.apply(*xs)
                 fmt[node.name] = out_nhwc and out.dim() == 4
             env[node.name] = out
+            if visit is not None:
+                visit(node.name, node.obj, p, out)
         return [L.to_nchw(read(o)) if fmt.get(o) else read(o)
                 for o in self.conf.graph_outputs], new_states
 

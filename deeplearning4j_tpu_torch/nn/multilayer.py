@@ -44,7 +44,11 @@ steps, the K-step megastep and the TBPTT window step); they still run in
 train mode and their gradients still enter gradient normalization, as in
 the JAX step.
 
-Not ported yet (ROADMAP.md): sharding, the sanitizer.
+Under ``NAN_PANIC``/``INF_PANIC`` each TBPTT window goes through the
+provenance sanitizer (``profiler.sanitizer``, kind ``"tbptt"``) with the
+carried state it was handed.
+
+Not ported yet (ROADMAP.md): sharding.
 """
 
 from __future__ import annotations
@@ -64,6 +68,8 @@ from deeplearning4j_tpu_torch.nn import layers as L
 from deeplearning4j_tpu_torch.nn.config import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.network import EVAL_PULL_CHUNK, BaseNetwork
 from deeplearning4j_tpu_torch.ops.normalization import StepKey
+from deeplearning4j_tpu_torch.profiler import devicetime as _dt
+from deeplearning4j_tpu_torch.profiler import sanitizer as _san
 from deeplearning4j_tpu_torch.train import stepping
 
 #: layers that take the feature mask (the JAX package's tuple; GravesLSTM
@@ -138,11 +144,17 @@ class MultiLayerNetwork(BaseNetwork):
 
     # --------------------------------------------------------------- forward
     def _forward(self, params, states, x, train: bool,
-                 key: Optional[StepKey] = None, fmask=None):
+                 key: Optional[StepKey] = None, fmask=None, visit=None):
         """The forward; ``key`` is the train step's dropout key (layer i
         draws from ``key.fold(i)``, in a fused group too, as the JAX
         forward's one key split a layer); ``fmask`` goes to the
-        mask-aware layers."""
+        mask-aware layers. ``visit(name, layer, cast_params, out)``, when
+        given, sees every layer's output as ``"<i>:<layer name>"`` (a
+        fused group's conv, its BN, then the folded activations with the
+        BN's output): the sanitizer's eager walk. While
+        ``profiler.devicetime`` records, each layer runs in its scope
+        ``dl4j_L<i>_<name>``."""
+        rec = _dt.recorder()
         cdt = self._compute_dtype()
         if cdt is None and x.dtype == torch.uint8:
             x = x.float()                  # image bytes (fp32 nets)
@@ -165,31 +177,44 @@ class MultiLayerNetwork(BaseNetwork):
                 n_used, conv_leads, alpha = fuse
                 bn_idx, bias = i, None
                 if conv_leads:
-                    p = params[i]
-                    if cdt is not None:
-                        p, x = L.policy_cast(layer, p, x, cdt)
-                    x, new_states[i] = layer.apply(p, states[i], x, train,
-                                                   sub, skip_bias=True)
+                    with _dt.layer_scope(rec, i, layer.name):
+                        p = params[i]
+                        if cdt is not None:
+                            p, x = L.policy_cast(layer, p, x, cdt)
+                        x, new_states[i] = layer.apply(
+                            p, states[i], x, train, sub, skip_bias=True)
+                    if visit is not None:
+                        visit(f"{i}:{layer.name}", layer, p, x)
                     bias = p.get("b")
                     bn_idx = i + 1
                 bn = self.layers[bn_idx]
-                pbn = params[bn_idx]
-                if cdt is not None:
-                    pbn, x = L.policy_cast(bn, pbn, x, cdt)
-                x, new_states[bn_idx] = L.fused_bn_act(
-                    bn, pbn, states[bn_idx], x, train, alpha, bias=bias)
+                with _dt.layer_scope(rec, bn_idx, bn.name):
+                    pbn = params[bn_idx]
+                    if cdt is not None:
+                        pbn, x = L.policy_cast(bn, pbn, x, cdt)
+                    x, new_states[bn_idx] = L.fused_bn_act(
+                        bn, pbn, states[bn_idx], x, train, alpha, bias=bias)
+                if visit is not None:
+                    visit(f"{bn_idx}:{bn.name}", bn, pbn, x)
                 for j in range(bn_idx + 1, i + n_used):
                     new_states[j] = states[j]       # the folded activation
+                    if visit is not None:
+                        visit(f"{j}:{self.layers[j].name}", self.layers[j],
+                              params[j], x)
                 i += n_used
                 continue
-            p = params[i]
-            if cdt is not None:
-                p, x = L.policy_cast(layer, p, x, cdt)
-            if isinstance(layer, _MASK_AWARE):
-                x, new_states[i] = layer.apply(p, states[i], x, train, sub,
-                                               mask=fmask)
-            else:
-                x, new_states[i] = layer.apply(p, states[i], x, train, sub)
+            with _dt.layer_scope(rec, i, layer.name):
+                p = params[i]
+                if cdt is not None:
+                    p, x = L.policy_cast(layer, p, x, cdt)
+                if isinstance(layer, _MASK_AWARE):
+                    x, new_states[i] = layer.apply(p, states[i], x, train,
+                                                   sub, mask=fmask)
+                else:
+                    x, new_states[i] = layer.apply(p, states[i], x, train,
+                                                   sub)
+            if visit is not None:
+                visit(f"{i}:{layer.name}", layer, p, x)
             i += 1
         if cur_nhwc and x.dim() == 4:
             x = L.to_nchw(x)
@@ -309,11 +334,17 @@ class MultiLayerNetwork(BaseNetwork):
         churn.get_churn_detector().record(
             "MultiLayerNetwork.tbptt", churn.array_fingerprint(x, y, lmask),
             owner=self)
+        # the window keeps the carried state it was handed, so the
+        # sanitizer can name a poisoned carry (op "carried-state")
+        masked = lmask is not None
+        tok = _san.snapshot(self, "tbptt", masked, (x, y, lmask, *carry))
         self._iteration_start()
-        out = self._tbptt_for(lmask is not None)(x, y, lmask, *carry)
+        out = self._tbptt_for(masked)(x, y, lmask, *carry)
         stepping.STEPS_PER_DISPATCH.set(1)
         stepping.TRAIN_ITERATIONS.inc()
         self._score = out[0]
+        _san.check(self, tok, out[0],
+                   context=f"tBPTT loss at iteration {self._iteration}")
         self._iteration += 1
         return out
 
@@ -347,40 +378,55 @@ class MultiLayerNetwork(BaseNetwork):
         return out
 
     def _tbptt_step(self, x, y, lmask, *carry):
-        """One window: the forward from the carried state (params and the
+        """One window: :meth:`_tbptt_forward` from the carried state, the
+        output layer's loss (no L1/L2, as the JAX window step), the
+        update in place and the clock. Returns ``(loss, *new carry)``,
+        all detached."""
+        key = StepKey(self.conf.base.seed, self._t_dev)
+        cur, new_carry = self._tbptt_forward(x, carry, key)
+        loss = self.layers[-1].compute_loss(y, cur, mask=lmask)
+        _, loss = self._apply_loss(loss)  # the dynamic policy's drop too
+        with torch.no_grad():
+            self._t_dev.add_(1)
+        return (loss.detach(),) + tuple(c.detach() for c in new_carry)
+
+    def _tbptt_forward(self, x, carry, key, params=None, visit=None):
+        """The window's forward from the carried state: params and the
         input under the dtype policy; the stateful layers through
         ``apply_with_state``, the others in train mode, mask-aware ones
-        with ``mask=None``), the output layer's loss (no L1/L2, as the
-        JAX window step), the update in place and the clock. Returns
-        ``(loss, *new carry)``, all detached."""
+        with ``mask=None``. Returns ``(output, new carry)``.
+        ``visit(name, layer, cast_params, out, carried)`` sees each
+        layer (``carried`` the state it was handed, None for a stateless
+        layer): the sanitizer's walk."""
+        rec = _dt.recorder()
+        params = self._params if params is None else params
         cdt = self._compute_dtype()
-        key = StepKey(self.conf.base.seed, self._t_dev)
         carry = list(carry)
         new_carry: List[torch.Tensor] = []
         cur = x
         for i, layer in enumerate(self.layers):
             if i in self.conf.preprocessors:
                 cur = self.conf.preprocessors[i](cur)
-            p = self._params[i]
-            if cdt is not None:
-                p, cur = L.policy_cast(layer, p, cur, cdt)
-            if hasattr(layer, "apply_with_state"):
-                n = 2 if isinstance(layer, L.LSTM) else 1
-                s = tuple(carry[:n]) if n == 2 else carry[0]
-                del carry[:n]
-                cur, s = layer.apply_with_state(p, cur, s)
-                new_carry.extend(s if isinstance(s, tuple) else (s,))
-            elif isinstance(layer, _MASK_AWARE):
-                cur, _ = layer.apply(p, self._states[i], cur, True,
-                                     key.fold(i), mask=None)
-            else:
-                cur, _ = layer.apply(p, self._states[i], cur, True,
-                                     key.fold(i))
-        loss = self.layers[-1].compute_loss(y, cur, mask=lmask)
-        _, loss = self._apply_loss(loss)  # the dynamic policy's drop too
-        with torch.no_grad():
-            self._t_dev.add_(1)
-        return (loss.detach(),) + tuple(c.detach() for c in new_carry)
+            s = None
+            with _dt.layer_scope(rec, i, layer.name):
+                p = params[i]
+                if cdt is not None:
+                    p, cur = L.policy_cast(layer, p, cur, cdt)
+                if hasattr(layer, "apply_with_state"):
+                    n = 2 if isinstance(layer, L.LSTM) else 1
+                    s = tuple(carry[:n]) if n == 2 else carry[0]
+                    del carry[:n]
+                    cur, s2 = layer.apply_with_state(p, cur, s)
+                    new_carry.extend(s2 if isinstance(s2, tuple) else (s2,))
+                elif isinstance(layer, _MASK_AWARE):
+                    cur, _ = layer.apply(p, self._states[i], cur, True,
+                                         key.fold(i), mask=None)
+                else:
+                    cur, _ = layer.apply(p, self._states[i], cur, True,
+                                         key.fold(i))
+            if visit is not None:
+                visit(f"{i}:{layer.name}", layer, p, cur, s)
+        return cur, new_carry
 
     def _warm_tbptt(self, x, y, lmask=None, tbptt_length: int = None):
         """Capture the window step for the windows of a ``[N, C, T]``

@@ -64,6 +64,13 @@ Around the step (the JAX package's fit surroundings):
   :class:`~deeplearning4j_tpu_torch.train.resilience.TrainingSession`
   (``train.resilience``). A fit without them adds no host read and no
   launch.
+- Under ``ProfilingMode.NAN_PANIC``/``INF_PANIC`` every dispatch (one
+  step, K steps, a TBPTT window) goes through the provenance sanitizer
+  (``profiler.sanitizer``: :func:`~deeplearning4j_tpu_torch.profiler.
+  sanitizer.snapshot` before, :func:`~deeplearning4j_tpu_torch.profiler.
+  sanitizer.check` after), which raises ``NonfiniteAttributionError``
+  naming the first non-finite (layer, op, step); with no panic mode on
+  each costs one enum read.
 """
 
 from __future__ import annotations
@@ -85,6 +92,7 @@ from deeplearning4j_tpu_torch.nn import layers as L
 from deeplearning4j_tpu_torch.nn import precision
 from deeplearning4j_tpu_torch.nn.augment import maybe_augment
 from deeplearning4j_tpu_torch.ops import normalization as norm_ops
+from deeplearning4j_tpu_torch.profiler import sanitizer as _san
 from deeplearning4j_tpu_torch.train import resilience, stepping
 from deeplearning4j_tpu_torch.train import updaters as upd
 
@@ -261,6 +269,7 @@ class BaseNetwork:
         self._t_dev = None
         self._scale_state = None
         self._step_cache = {}
+        _san.invalidate(self)
 
     def _require_init(self):
         if not self._initialized:
@@ -585,6 +594,9 @@ class BaseNetwork:
         res = self._resilience
         if res is not None:
             res.before_step()
+        # after the session's hook, so a planned poison is in the window;
+        # one enum read unless a panic mode is on
+        tok = _san.snapshot(self, "single", sig, args)
         self._iteration_start()
         with _prof.timed_region(
                 "train:step", "dl4j_train_step_seconds",
@@ -595,6 +607,8 @@ class BaseNetwork:
         stepping.TRAIN_ITERATIONS.inc()
         # kept on the device; score() converts lazily
         self._score = loss
+        _san.check(self, tok, loss,
+                   context=f"loss at iteration {self._iteration}")
         self._iteration += 1
         self._last_batch_size = int(args[0].shape[0])
         self._iteration_done()
@@ -614,12 +628,14 @@ class BaseNetwork:
         res = self._resilience
         if res is not None:
             res.before_dispatch()
+        tok = _san.snapshot(self, "mega", sig, args)   # see _fit_one
         with _prof.timed_region(
                 "train:megastep", "dl4j_train_step_seconds",
                 "Train-step dispatch time per iteration",
                 iteration=self._iteration + 1, steps=k):
             losses = self._dispatch_for(sig, k)(*args)
-        stepping.record_megastep(self, losses, k, int(args[0].shape[1]))
+        stepping.record_megastep(self, losses, k, int(args[0].shape[1]),
+                                 san_token=tok)
         return losses
 
     def _warm_dispatch(self, x, y, lmask=None, steps: int = 1, fmask=None):

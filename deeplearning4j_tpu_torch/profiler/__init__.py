@@ -8,6 +8,13 @@ instrumented locks and queue with their lock-order witness
 (:func:`iter_with_data_wait`, :func:`timed_region`,
 :func:`data_overlap_ratio`; the JAX package's ``profiler/__init__.py``).
 
+The observability plane on top: cross-host metric federation behind
+``GET /v1/fleet/metrics`` (:mod:`.aggregate`), declarative SLOs with
+burn-rate gates behind ``GET /v1/slo`` (:mod:`.slo`), the NAN_PANIC
+provenance sanitizer (:mod:`.sanitizer`) and per-layer device time from
+torch.profiler (:mod:`.devicetime`); the last two are imported where they
+are used.
+
 Everything records only while :func:`instrumentation_active` (tracing on
 or a ``ProfilingMode`` other than OFF): off, a region costs one flag and
 one enum read."""
@@ -28,6 +35,11 @@ from deeplearning4j_tpu_torch.profiler.metrics import (Counter, Gauge,
 from deeplearning4j_tpu_torch.profiler.modes import (ProfilingMode,
                                                      get_profiling_mode,
                                                      set_profiling_mode)
+from deeplearning4j_tpu_torch.profiler.aggregate import (
+    FleetScraper, HistogramSnapshot, MetricsAggregator,
+    members_from_coordinator, parse_exposition)
+from deeplearning4j_tpu_torch.profiler.slo import (SLOEngine, SLOGate,
+                                                   SLOSpec, SLOVerdict)
 from deeplearning4j_tpu_torch.profiler.tracecontext import (
     TraceContext, current as current_trace, record_span, span,
     spans_for_trace)

@@ -18,9 +18,17 @@ Endpoints::
     GET  /readyz                        warmed & admitting (LB rotation)
     GET  /metrics                       this process's registry (OpenMetrics
                                         with exemplars when negotiated)
-    GET  /v1/fleet/metrics              404: no fleet aggregator (not
-    GET  /v1/fleet/load                 ported yet)
-    GET  /v1/slo                        404: no SLO gate (not ported yet)
+    GET  /v1/fleet/metrics              merged cross-host exposition
+    GET  /v1/fleet/load                 merged autoscaling hints
+    GET  /v1/slo                        SLO burn-rate verdict
+
+The fleet endpoints answer from a ``profiler.aggregate.MetricsAggregator``
+(``fleet=`` / :meth:`HttpIngress.attach_fleet`, typically fed by a
+``FleetScraper``) and ``/v1/slo`` from a ``profiler.slo.SLOGate``
+(``slo=`` / :meth:`HttpIngress.attach_slo`); without one attached each
+answers 404, as in the JAX package. A failing SLO answers 200 with
+``passing: false``: the endpoint reports budget state, ``/healthz`` and
+``/readyz`` own liveness.
 
 Tracing: predict requests honor an incoming W3C ``traceparent`` header
 (else mint a fresh trace); responses — success and error alike — carry
@@ -542,12 +550,31 @@ class _IngressHandler(BaseHTTPRequestHandler):
                 ("application/openmetrics-text; version=1.0.0; "
                  "charset=utf-8") if om
                 else "text/plain; version=0.0.4; charset=utf-8")
-        if path in ("/v1/fleet/metrics", "/v1/fleet/load"):
-            # the fleet aggregator is not ported yet: answer as the
-            # reference does when none is attached
-            return self._error(404, "no fleet aggregator attached")
+        if path == "/v1/fleet/metrics":
+            agg = self.ingress.fleet
+            if agg is None:
+                return self._error(
+                    404, "no fleet aggregator attached — "
+                         "HttpIngress(..., fleet=MetricsAggregator()) "
+                         "or ingress.attach_fleet(agg)")
+            return self._respond_text(
+                200, agg.exposition(),
+                "text/plain; version=0.0.4; charset=utf-8")
+        if path == "/v1/fleet/load":
+            agg = self.ingress.fleet
+            if agg is None:
+                return self._error(404, "no fleet aggregator attached")
+            return self._respond(200, agg.fleet_load())
         if path == "/v1/slo":
-            return self._error(404, "no SLO gate attached")
+            gate = self.ingress.slo
+            if gate is None:
+                return self._error(
+                    404, "no SLO gate attached — HttpIngress(..., "
+                         "slo=SLOGate(engine)) or ingress.attach_slo()")
+            verdict = gate()
+            return self._respond(200, {"passing": verdict.passing,
+                                       "failing": verdict.failures,
+                                       **verdict.detail})
         if path == "/v1/models":
             return self._respond(200, {"models": router.models()})
         if path.startswith("/v1/models/"):
@@ -590,16 +617,41 @@ class HttpIngress:
     def __init__(self, target, port: int = 8500, host: str = "127.0.0.1",
                  default_timeout: float = 30.0, deadline_grace: float = 5.0,
                  max_body_mb: float = 64.0,
-                 decode: Optional[DecodePreset] = None):
+                 decode: Optional[DecodePreset] = None,
+                 fleet=None, slo=None):
         self.router = _as_router(target, decode=decode)
         self.host = host
         self.port = int(port)
         self.default_timeout = float(default_timeout)
         self.deadline_grace = float(deadline_grace)
         self.max_body = int(max_body_mb * 1024 * 1024)
+        self.fleet = None
+        self.slo = None
+        if fleet is not None:
+            self.attach_fleet(fleet)
+        if slo is not None:
+            self.attach_slo(slo)
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
         self._lifecycle = _prof.InstrumentedLock("ingress:lifecycle")
+
+    def attach_fleet(self, aggregator) -> "HttpIngress":
+        """Serve ``aggregator``'s merged fleet view at
+        ``GET /v1/fleet/metrics`` and ``GET /v1/fleet/load`` (a
+        :class:`~deeplearning4j_tpu_torch.profiler.aggregate.
+        MetricsAggregator`, typically fed by a ``FleetScraper``)."""
+        self.fleet = aggregator
+        return self
+
+    def attach_slo(self, gate) -> "HttpIngress":
+        """Serve ``gate``'s verdict at ``GET /v1/slo``: an
+        :class:`~deeplearning4j_tpu_torch.profiler.slo.SLOGate` or a bare
+        ``SLOEngine`` (wrapped in one)."""
+        if not callable(gate):
+            from deeplearning4j_tpu_torch.profiler.slo import SLOGate
+            gate = SLOGate(gate)
+        self.slo = gate
+        return self
 
     def start(self) -> "HttpIngress":
         with self._lifecycle:

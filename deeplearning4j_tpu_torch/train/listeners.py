@@ -1,8 +1,11 @@
 """Training listeners — the port of ``deeplearning4j_tpu/train/listeners.py``
 (ref: ``org.deeplearning4j.optimize.api.TrainingListener`` and
 ``listeners.{ScoreIterationListener, PerformanceListener,
-TimeIterationListener, CheckpointListener, EvaluativeListener}``, and the
-``MetricsListener`` bridge into the metrics registry).
+TimeIterationListener, CheckpointListener, EvaluativeListener}``, the
+``MetricsListener`` bridge into the metrics registry, ``StatsListener``
+(the producer of the StatsListener -> ``ui.StatsStorage`` -> ``ui.UIServer``
+chain) and ``ProfilingListener`` (a torch.profiler window written as a
+Chrome trace)).
 
 A network calls ``onIterationStart(model, i)`` and ``iterationDone(model,
 i, epoch)`` around each update step and ``onEpochEnd(model)`` after each
@@ -12,17 +15,19 @@ slice that a listener's ``model.score()`` reads (``train.stepping.
 record_megastep``): a listener that reads the model at iteration N sees
 the state at the end of the dispatch, so an iteration-indexed side
 effect (checkpoints, evaluation) should use an interval K divides.
-
-Not ported yet (ROADMAP.md): ``StatsListener`` (with ``ui/``) and
-``ProfilingListener`` (with the device-time profiler).
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
 import os
+import tempfile
 import time
+import uuid
 from typing import Callable, List, Optional
+
+import torch
 
 from deeplearning4j_tpu_torch.profiler.metrics import get_registry
 
@@ -211,3 +216,235 @@ class MetricsListener(TrainingListener):
 
     def onEpochEnd(self, model):
         self._c_epochs.inc()
+
+
+class StatsListener(TrainingListener):
+    """Per-iteration training statistics into a StatsStorage (ref:
+    org.deeplearning4j.ui.model.stats.StatsListener): every ``frequency``
+    iterations one update record with the score, the minibatch size, the
+    iteration's wall time and, per parameter leaf (``"<layer>/<name>"``,
+    in the JAX package's tree order), ``param_mean``, ``param_std``,
+    ``param_norm``, ``update_norm``, ``update_ratio`` and, with
+    ``with_histograms``, ``hist_counts`` (``hist_bins`` bins over
+    ``hist_range`` [min, max]); a static record (model class, parameter
+    count, backend, devices) before the first.
+
+    The summaries are computed on the card in one batched pass over one
+    flat fp32 copy of every leaf (a leaf's sums from an fp64 running sum
+    at its ends; the std two-pass; a histogram bin an element) and pulled
+    as one small tensor: never the weights. The pre-step copy of the
+    params is that flat device copy (a copy, so it keeps no autograd
+    node, which would break the step's CUDA-graph capture), freed after
+    the update is taken. Under K steps a dispatch the hooks run after the
+    dispatch (``train.stepping.record_megastep``), as in the JAX
+    package: iteration N's record sees the end-of-dispatch params."""
+
+    def __init__(self, storage, frequency: int = 1, session_id: str = None,
+                 with_histograms: bool = False, hist_bins: int = 20):
+        self.storage = storage
+        self.frequency = max(1, frequency)
+        self.session_id = session_id or f"sess_{uuid.uuid4().hex[:12]}"
+        self.with_histograms = with_histograms
+        self.hist_bins = hist_bins
+        self._snapshot = None
+        self._static_sent = False
+        self._t_iter_start = None
+
+    def _sampled(self, iteration: int) -> bool:
+        return iteration % self.frequency == 0
+
+    @staticmethod
+    def _leaves(model):
+        """``(name, param)`` of every non-empty leaf, ``"<layer>/<name>"``
+        in the JAX package's tree order."""
+        return [(f"{n}/{k}", model._params[n][k])
+                for n, k in model._leaf_keys()
+                if model._params[n][k].numel()]
+
+    @staticmethod
+    def _flat(leaves) -> torch.Tensor:
+        return torch.cat([p.detach().reshape(-1).float() for _, p in leaves])
+
+    def onIterationStart(self, model, iteration: int):
+        if not self._sampled(iteration):
+            return
+        self._t_iter_start = time.monotonic()
+        with torch.no_grad():
+            self._snapshot = self._flat(self._leaves(model))
+
+    def _stats(self, model) -> dict:
+        """``{leaf: record}`` from one batched pass on the device and one
+        host read."""
+        leaves = self._leaves(model)
+        if not leaves:
+            return {}
+        n, bins = len(leaves), self.hist_bins
+        sizes = [p.numel() for _, p in leaves]
+        with torch.no_grad():
+            w = self._flat(leaves)
+            dev = w.device
+            ends = torch.tensor(list(itertools.accumulate(sizes)), device=dev)
+            count = torch.tensor(sizes, dtype=torch.float64, device=dev)
+            seg = torch.repeat_interleave(
+                torch.arange(n, device=dev), torch.tensor(sizes, device=dev),
+                output_size=w.numel())
+
+            def seg_sum(v):
+                # a segment's sum as the difference of an fp64 running sum
+                # at its ends: one scan, no atomics
+                cs = torch.cumsum(v, 0, dtype=torch.float64)[ends - 1]
+                return torch.diff(cs, prepend=cs.new_zeros(1))
+            mean = seg_sum(w) / count
+            centered = w - mean.float()[seg]
+            std = (seg_sum(centered * centered) / count).sqrt()
+            pn = seg_sum(w * w).sqrt()
+            upd = w - self._snapshot
+            un = seg_sum(upd * upd).sqrt()
+            cols = [mean, std, pn, un, un / (pn + 1e-12)]
+            if self.with_histograms:
+                lo = w.new_full((n,), float("inf")).scatter_reduce(
+                    0, seg, w, "amin")
+                hi = w.new_full((n,), -float("inf")).scatter_reduce(
+                    0, seg, w, "amax")
+                counts = _histogram(w, seg, n, bins, lo, hi)
+                cols += [lo.double(), hi.double()]
+            stats = torch.stack(cols, 1)
+            if self.with_histograms:
+                stats = torch.cat([stats, counts.double()], 1)
+            host = stats.cpu().numpy()
+        out = {}
+        for (name, _), row in zip(leaves, host):
+            rec = {"param_mean": float(row[0]), "param_std": float(row[1]),
+                   "param_norm": float(row[2]), "update_norm": float(row[3]),
+                   "update_ratio": float(row[4])}
+            if self.with_histograms:
+                rec["hist_range"] = [float(row[5]), float(row[6])]
+                rec["hist_counts"] = [int(c) for c in row[7:]]
+            out[name] = rec
+        return out
+
+    def iterationDone(self, model, iteration, epoch):
+        if not self._sampled(iteration) or self._snapshot is None:
+            return
+        if not self._static_sent:
+            self._send_static(model)
+        layers = self._stats(model)
+        self._snapshot = None
+        dur = (time.monotonic() - self._t_iter_start) \
+            if self._t_iter_start else None
+        self.storage.putUpdate({
+            "session_id": self.session_id,
+            "worker_id": "0",
+            "iteration": iteration,
+            "epoch": epoch,
+            "score": float(model.score()),
+            "minibatch_size": getattr(model, "_last_batch_size", None),
+            "iteration_time_sec": dur,
+            "layers": layers,
+        })
+
+    def _send_static(self, model):
+        dev = torch.device(model._device) if model._device is not None \
+            else torch.device("cpu")
+        self.storage.putStaticInfo({
+            "session_id": self.session_id,
+            "worker_id": "0",
+            "model_class": type(model).__name__,
+            "n_parameters": int(model.numParams()),
+            "backend": dev.type,
+            "n_devices": torch.cuda.device_count() if dev.type == "cuda"
+            else 1,
+        })
+        self._static_sent = True
+
+
+def _histogram(w, seg, n: int, bins: int, lo, hi):
+    """``[n, bins]`` counts: each segment's ``bins`` equal bins over its
+    [lo, hi], the last closed, as ``jnp.histogram`` bins one tensor (a
+    constant segment's range widened by 0.5 each way); on the device,
+    with no host read."""
+    flat = hi == lo
+    lo = torch.where(flat, lo - 0.5, lo)
+    hi = torch.where(flat, hi + 0.5, hi)
+    width = (hi - lo) / bins
+    b = ((w - lo[seg]) / width[seg]).floor().long().clamp_(0, bins - 1)
+    b = torch.where(w == hi[seg], torch.full_like(b, bins - 1), b)
+    idx = seg * bins + b
+    return torch.zeros(n * bins, dtype=torch.long, device=w.device
+                       ).scatter_add_(0, idx, torch.ones_like(idx)
+                                      ).view(n, bins)
+
+
+def default_profile_dir() -> str:
+    """``DL4J_TPU_PROFILE_DIR``, else ``dl4j_tpu_profile`` in the temporary
+    directory (the JAX package's ``/tmp/dl4j_tpu_profile``)."""
+    return os.environ.get("DL4J_TPU_PROFILE_DIR") or os.path.join(
+        tempfile.gettempdir(), "dl4j_tpu_profile")
+
+
+class ProfilingListener(TrainingListener):
+    """A torch.profiler window over iterations ``[start_iter, start_iter +
+    n_iters)`` (1-based, relative to where the trace actually started),
+    written once as a Chrome trace (``trace_<pid>_<iteration>.json``) under
+    ``log_dir`` (:func:`default_profile_dir`); ``trace_path`` names it.
+    CPU and CUDA activity are traced; the per-layer
+    ``dl4j_L<i>_<name>`` scopes of ``profiler.devicetime`` are on while
+    the window is open, so an eager forward's kernels sit under their
+    layer. A captured step's replay has no Python forward, so it shows
+    as the graph's launch (and such kernels as the profiler reports under
+    replay) with no layer scope. The window synchronizes the card before
+    it stops (the JAX listener reads ``model.score()`` for that), so the
+    last iteration's kernels land in the trace. For the framework-side
+    timeline (dispatch, data wait) use ``profiler.trace_span``."""
+
+    def __init__(self, log_dir: str = None, start_iter: int = 2,
+                 n_iters: int = 3, create_perfetto_trace: bool = True):
+        # create_perfetto_trace: the JAX listener's switch, kept for its
+        # callers; the Chrome trace written here always loads in Perfetto
+        self.log_dir = log_dir or default_profile_dir()
+        self.start_iter = start_iter
+        self.n_iters = n_iters
+        self.trace_path: Optional[str] = None
+        self._prof = None
+        self._scopes = None
+        self._done = False
+        self._trace_start = None
+
+    def onIterationStart(self, model, iteration: int):
+        if self._done or self._prof is not None \
+                or iteration < self.start_iter:
+            return
+        from torch.profiler import ProfilerActivity, profile
+
+        from deeplearning4j_tpu_torch.profiler import devicetime
+        os.makedirs(self.log_dir, exist_ok=True)
+        acts = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(ProfilerActivity.CUDA)
+        self._prof = profile(activities=acts)
+        self._prof.__enter__()
+        self._scopes = devicetime.recording()
+        self._scopes.__enter__()
+        self._trace_start = iteration
+
+    def _stop(self, model):
+        model.score()          # the card has finished the window's work
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        self._scopes.__exit__(None, None, None)
+        self._prof.__exit__(None, None, None)
+        path = os.path.join(self.log_dir, f"trace_{os.getpid()}_"
+                                          f"{self._trace_start}.json")
+        self._prof.export_chrome_trace(path)
+        self.trace_path = path
+        self._prof = self._scopes = None
+        self._done = True
+
+    def iterationDone(self, model, iteration, epoch):
+        if self._prof is not None \
+                and iteration - self._trace_start + 1 >= self.n_iters:
+            self._stop(model)
+
+    def onEpochEnd(self, model):
+        if self._prof is not None:      # an epoch shorter than the window
+            self._stop(model)

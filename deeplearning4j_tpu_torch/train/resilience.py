@@ -46,9 +46,15 @@ Metrics: ``dl4j_nonfinite_steps_total``, ``dl4j_rollbacks_total``,
 ``dl4j_preemptions_total``, ``dl4j_checkpoint_quarantined_total``,
 ``dl4j_lr_backoffs_total``, ``dl4j_checkpoint_async_queue_depth``.
 
+Every restore (a checkpoint, a skipped dispatch's snapshot) and a
+planned layer poison (``FaultPlan(nan_layer_params_at=)``, applied in
+:meth:`TrainingSession.before_step`) void the provenance sanitizer's
+window (``profiler.sanitizer.invalidate``): the next dispatch takes a
+fresh snapshot.
+
 Not ported yet (ROADMAP.md): ``DriverStateStore`` (with ``lifecycle/``),
-the persistent compile cache's resume warmup, the sanitizer's
-invalidation, the flight-recorder dump of a crashing fit.
+the persistent compile cache's resume warmup, the flight-recorder dump
+of a crashing fit.
 """
 
 from __future__ import annotations
@@ -653,6 +659,9 @@ class CheckpointManager:
         cfg = self.config
         retry_io(lambda: load_into(model, os.path.join(path, "model.zip")),
                  cfg.io_retries, cfg.io_backoff)
+        # out of band for the sanitizer's replay window
+        from deeplearning4j_tpu_torch.profiler import sanitizer
+        sanitizer.invalidate(model)
         extra_payload: dict = {}
         extra_path = os.path.join(path, "extra.json")
         if os.path.exists(extra_path):
@@ -850,6 +859,11 @@ class TrainingSession:
 
     # --------------------------------------------------------------- hooks
     def before_step(self):
+        if self.faults is not None:
+            # a planned layer poison lands before the recovery snapshot
+            # and the sanitizer's, so both see it
+            self.faults.poison_layer_params(self.model,
+                                            self.model._iteration + 1)
         rec = self.recovery
         if rec is not None and rec.policy in (NanPolicy.SKIP_STEP,
                                               NanPolicy.BACKOFF_LR):
@@ -947,6 +961,8 @@ class TrainingSession:
             torch._foreach_copy_(self.model._snapshot_tensors(),
                                  self._snap_bufs)
         self._snapshot_valid = False
+        from deeplearning4j_tpu_torch.profiler import sanitizer
+        sanitizer.invalidate(self.model)
 
     def _recover_lr(self, k: int):
         rec = self.recovery

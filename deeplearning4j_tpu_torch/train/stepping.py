@@ -31,7 +31,7 @@ per step.
   lazy device slice) and the resilience session's ``after_dispatch``.
 
 MultiDataSet batches group and stack as DataSets do (``MegaBatch.multi``).
-Not ported: the sanitizer hooks, sharded staging (``stage_batch``,
+Not ported: sharded staging (``stage_batch``,
 ``batch_placement``), the elastic fence (``dispatch_commit``) and
 ``apply_tuned_plan`` (``tune/``).
 """
@@ -45,6 +45,7 @@ import torch
 
 from deeplearning4j_tpu_torch import profiler as _prof
 from deeplearning4j_tpu_torch.data.dataset import DataSet, MultiDataSet
+from deeplearning4j_tpu_torch.profiler import sanitizer as _sanitizer
 from deeplearning4j_tpu_torch.profiler.metrics import get_registry
 
 # How many update steps the most recent train dispatch performed.
@@ -179,15 +180,22 @@ def use_dispatch_stream(data, steps: int, session=None) -> bool:
 
 
 def record_megastep(model, losses, steps: int,
-                    batch_size: int = None) -> None:
+                    batch_size: int = None, san_token=None) -> None:
     """Bookkeeping after a K-step dispatch (both network classes): the
-    iteration count and the score, which stays a lazy device slice until
+    numerics panic gate over the K losses (``profiler.sanitizer.check``,
+    naming the first non-finite when ``san_token`` holds a provenance
+    window; one enum read with no panic mode on), the iteration count
+    and the score, which stays a lazy device slice until
     ``score()`` reads it; then each step's listener calls, after the
     dispatch, each ``losses[j]`` a lazy slice unless a listener reads
     ``score()`` (a listener that reads the model at iteration N sees the
     state at the end of the dispatch); then the session's
     ``after_dispatch`` (recovery, checkpoints and preemption act at
     dispatch boundaries)."""
+    _sanitizer.check(
+        model, san_token, losses,
+        context=f"megastep losses at iterations "
+                f"{model._iteration + 1}..{model._iteration + steps}")
     STEPS_PER_DISPATCH.set(steps)
     TRAIN_ITERATIONS.inc(steps)
     if batch_size is not None:

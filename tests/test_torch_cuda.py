@@ -1011,3 +1011,83 @@ def test_samediff_layer_captured_equals_eager(dev):
     assert not cc.cache_stats()["capture_failures"]
     for a, b in zip(net._dispatch_state(), eager):
         assert torch.equal(a, b)
+
+
+def _fused_conv_net(dev):
+    net = MultiLayerNetwork(
+        NeuralNetConfiguration.Builder().seed(3).updater(Adam(1e-3))
+        .weightInit("relu").list()
+        .layer(tlayers.ConvolutionLayer(kernelSize=(3, 3), padding=(1, 1),
+                                        nOut=16, activation="identity"))
+        .layer(tlayers.BatchNormalization())
+        .layer(tlayers.ActivationLayer("relu"))
+        .layer(tlayers.ConvolutionLayer(kernelSize=(3, 3), padding=(1, 1),
+                                        nOut=16, activation="identity"))
+        .layer(tlayers.BatchNormalization())
+        .layer(tlayers.ActivationLayer("relu"))
+        .layer(tlayers.GlobalPoolingLayer("avg"))
+        .layer(tlayers.OutputLayer(nOut=4, lossFunction="mcxent",
+                                   activation="softmax"))
+        .setInputType(InputType.convolutional(16, 16, 3)).build()).init()
+    net.setPrecisionPolicy("bf16")
+    net.setComputeLayout("NHWC")
+    net.setEpilogueFusion(True)
+    return net
+
+
+def test_devicetime_trace_puts_the_epilogues_in_the_bn_scopes(dev):
+    """torch.profiler on the card: every layer's kernels land in its
+    dl4j_L scope; the two fused epilogues' scale_shift_act launches in
+    the BN scopes, once a forward."""
+    from deeplearning4j_tpu_torch.profiler import devicetime
+    ck.install_platform_overrides()
+    try:
+        net = _fused_conv_net(dev)
+        x = _randn(dev, 8, 3, 16, 16)
+        table = devicetime.measure(net, x, reps=2, mode="trace")
+    finally:
+        ck.uninstall_platform_overrides()
+    assert table.source == "trace"
+    rows = {r.layer: r for r in table.rows}
+    assert rows["convolutionlayer_0"].seconds > 0
+    bn = [r.layer for r in table.rows if r.op == "batch_norm"]
+    assert len(bn) == 2
+    got = sum(c for n in bn for k, c in table.launches.get(n, {}).items()
+              if "scale_shift_act" in k)
+    assert got == 2
+
+
+def test_nan_panic_names_a_nan_batch_under_capture(dev):
+    """K=2 captured dispatches under NAN_PANIC: a NaN batch at step 3 is
+    named (<input>, batch, 3) by the replay, and the live state after the
+    raise is a twin's with the mode off, to the bit."""
+    from deeplearning4j_tpu_torch import profiler as prof
+    from deeplearning4j_tpu_torch.profiler import sanitizer as san
+    ck.install_platform_overrides()
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        x = _randn(dev, 8, 3, 16, 16)
+        y = torch.eye(4, device=dev)[torch.arange(8, device=dev) % 4]
+        xn = x.clone()
+        xn[0, 0, 0, 0] = float("nan")
+        batches = [DataSet(x, y)] * 2 + [DataSet(xn, y)] + [DataSet(x, y)]
+        net, twin = _fused_conv_net(dev), _fused_conv_net(dev)
+        prof.set_profiling_mode(prof.ProfilingMode.NAN_PANIC)
+        try:
+            with pytest.raises(san.NonfiniteAttributionError) as ei:
+                net.fit(batches, steps_per_dispatch=2, prefetch=0)
+        finally:
+            prof.set_profiling_mode(None)
+        assert (ei.value.layer, ei.value.op, ei.value.step) == \
+            ("<input>", "batch", 3)
+        twin.fit(batches, steps_per_dispatch=2, prefetch=0)
+        for a, b in zip(net._dispatch_state(), twin._dispatch_state()):
+            if a.is_floating_point():
+                it = {2: torch.int16, 4: torch.int32}[a.element_size()]
+                assert torch.equal(a.detach().view(it), b.detach().view(it))
+            else:
+                assert torch.equal(a, b)
+    finally:
+        torch.backends.cudnn.deterministic = det
+        ck.uninstall_platform_overrides()

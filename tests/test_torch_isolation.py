@@ -146,6 +146,14 @@ def test_import_leaves_jax_unloaded():
              "deeplearning4j_tpu_torch.profiler.flightrec, "
              "deeplearning4j_tpu_torch.profiler.modes, "
              "deeplearning4j_tpu_torch.profiler.locks, "
+             "deeplearning4j_tpu_torch.profiler.sanitizer, "
+             "deeplearning4j_tpu_torch.profiler.devicetime, "
+             "deeplearning4j_tpu_torch.profiler.aggregate, "
+             "deeplearning4j_tpu_torch.profiler.slo, "
+             "deeplearning4j_tpu_torch.ui, "
+             "deeplearning4j_tpu_torch.ui.stats, "
+             "deeplearning4j_tpu_torch.ui.server, "
+             "deeplearning4j_tpu_torch.train.listeners, "
              "deeplearning4j_tpu_torch.parallel.elastic, "
              "deeplearning4j_tpu_torch.train.resilience, "
              "deeplearning4j_tpu_torch.faults, "
