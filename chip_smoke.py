@@ -526,6 +526,35 @@ Phases (each one fails the run with a non-zero exit):
    (``ServingLoad.seeded``), all 200; ``/v1/fleet/metrics`` (merging both
    hosts), ``/v1/fleet/load`` and ``/v1/slo`` answer 200; the verdict and
    its burn rates are printed.
+35. The op surface on the card (:func:`op_surface`). (a) Every one of
+   ``ops.validation``'s 514 OpCases (505 ops) with its args on ``cuda``
+   through ``run_case``: its golden, finite outputs all on the card, the
+   random statistics, and the 151 float64 gradchecks on the card; each
+   non-random case held to the same case on the CPU at its own tolerance
+   (decompositions by what they reconstruct and their spectra). Every failing case is listed before
+   the phase fails. (b) bench.py's GemmBench through ``NDArray.mmul``:
+   bf16, n=16384, 30 chained products, CUDA-event medians of 3, TFLOP/s
+   against the 989 dense bf16 peak beside the card's name and power
+   limit (and a ``torch.matmul`` chain). (c) The kernels through the new
+   surface at phase 2's shapes: ``Transforms.softmax`` of an NDArray
+   [49152, 128] fp32, ``exec_op`` of ``layer_norm`` [16384, 768] fp32,
+   ``scale_shift_act`` [802816, 64] bf16 relu and ``flash_attention``
+   q,k,v [32, 512, 12, 64] bf16: each launches its kernel exactly once
+   (``ndarray_launches``/``exec_op_launches`` on the kernels line) and
+   matches its plain version at phase 2's tolerances. (d) ``exec_op``
+   under NAN_PANIC raises ``NumericsPanicError`` naming ``log`` and
+   ``softmax`` (through the kernel); µs a call for a 16-float ``add``
+   OFF, BASIC and bare: under OFF no call reaches the instrumented
+   dispatch (under BASIC every one does), and OFF's extra over the bare
+   call is under half of BASIC's. (e) ``shapes.infer_shape`` over every
+   case with array args: tensors on ``meta`` only, card memory
+   unchanged, no kernel launched. (f) The conv ops' shape contract
+   (``ops.shapes.check_call``, checked once per distinct call) on the
+   eager path: ResNet-50 B=64 bf16 NHWC fused, ms an eager ``output()``
+   and an eager ``fit`` step in turns with the contract as shipped and
+   stubbed out, alternating call by call (on/off/off/on; 24 forwards
+   and 8 steps each), the checks a forward counted, and µs a check
+   cached and uncached; printed, not gated on time.
 
 The captured-against-eager rule: where the two eager runs agree to the
 bit on a tensor (and on the params' group: the param and its Adam
@@ -562,7 +591,8 @@ and replays; ``import_launches`` and ``import_train_launches`` are phase
 ``long_run_launches`` phase 25's capture; ``keras_launches`` phase 28's:
 layer norm's served at T=128 and at T=1024, flash's at T=1024;
 ``transfer_launches`` phase 30's recorded at its K=4 capture;
-``sanitizer_launches`` phase 34 (a)'s replays and walks), the
+``sanitizer_launches`` phase 34 (a)'s replays and walks;
+``ndarray_launches`` and ``exec_op_launches`` phase 35 (c)'s), the
 ``nvidia-smi`` name/power-limit line, and as the last line
 ``{"ok": true, "device": {...}}``. Without a card, or outside a
 checkout, it exits non-zero and prints no result.
@@ -1804,6 +1834,10 @@ def main() -> None:
     obs = observability(smi)
     torch.cuda.empty_cache()
 
+    # ----------------------------------------- 35. the op surface on the card
+    surf = op_surface(smi)
+    torch.cuda.empty_cache()
+
     ln.update(served["layer_norm"])
     fa.update(served["flash_attention"])
     for kr in (ln, fa):
@@ -1823,6 +1857,9 @@ def main() -> None:
     ssa["sanitizer_launches"] = obs["sanitizer_launches"]
     sm["launches"] = sd_warm["softmax"] + sd_replays["softmax"]
     sm["replays"] = sd_replays["softmax"]
+    sm["ndarray_launches"] = surf["softmax"]
+    for kr in (ln, ssa, fa):
+        kr["exec_op_launches"] = surf[kr["name"]]
     bn_st["launches"] = probe_launches["bn_stats"]
     bn_ap["launches"] = probe_launches["bn_apply_leaky"]
     keys = ("name", "route", "source", "replaces", "launches", "replays",
@@ -1831,7 +1868,7 @@ def main() -> None:
             "other_shapes", "pair", "from_disk_launches",
             "from_disk_replays", "import_launches", "import_train_launches",
             "long_run_launches", "keras_launches", "transfer_launches",
-            "sanitizer_launches")
+            "sanitizer_launches", "ndarray_launches", "exec_op_launches")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{k: kr[k] for k in keys if k in kr}
                                   for kr in (ln, fa, ssa, sm, bn_st, bn_ap)]}))
@@ -6182,6 +6219,433 @@ def build_bert(sd, dtype=np.float32, *, V, E, H, L, F, T, max_len,
     sd.loss.sparseSoftmaxCrossEntropy(labels, logits, name="loss")
     sd.setLossVariables("loss")
     return sd
+
+
+#: phase 35: the kernels through the new surface, at phase 2's shapes
+SURF_SOFTMAX = (49152, 128)                 # Transforms.softmax, fp32
+SURF_LN = (16384, 768)                      # exec_op("layer_norm"), fp32
+SURF_SSA = (802816, 64)                     # exec_op("scale_shift_act"), bf16
+SURF_FLASH = (32, 512, 12, 64)              # exec_op("flash_attention"), bf16
+#: phase 35 (b): bench.py's GemmBench at full size, through NDArray.mmul
+GEMM_N, GEMM_ITERS = 16384, 30
+#: phase 35 (f): rounds of on/off/off/on eager ResNet-50 forwards, and of
+#: steps
+CONV_CHECK_FORWARDS, CONV_CHECK_STEPS = 12, 4
+
+
+def _card_vs_cpu(case, out, cpu, V):
+    """A case's outputs on the card against the same case on the CPU, at
+    the case's own tolerance (TF32 off: cuBLAS, cuDNN and cuSOLVER stay
+    inside it); decompositions by what they reconstruct. Returns the max
+    |difference|."""
+    got = V.leaves(V.to_host(out))
+    want = V.leaves(V.to_host(cpu))
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} outputs on the card, "
+                             f"{len(want)} on the CPU")
+    if case.op in ("qr", "svd", "eigh", "lu"):
+        args = case.args(np.random.RandomState(0))
+        V._check_structure(case.op, args, out)
+        if case.op in ("svd", "eigh"):       # the spectra are unique
+            idx = 1 if case.op == "svd" else 0
+            got, want = [got[idx]], [want[idx]]
+        else:
+            return 0.0
+    err = 0.0
+    for g, w in zip(got, want):
+        g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+        if g.shape != w.shape:
+            raise AssertionError(f"shape {g.shape} on the card, {w.shape} "
+                                 f"on the CPU")
+        np.testing.assert_allclose(g, w, rtol=case.rtol, atol=case.atol)
+        if g.size:
+            err = max(err, float(np.max(np.abs(g - w))))
+    return err
+
+
+def op_surface(smi: str) -> dict:
+    """Phase 35: the op surface on the card. (a) every OpCase of
+    ``ops.validation`` with its args on ``cuda`` (golden, finite outputs
+    all on the card, random statistics, the float64 gradcheck on the
+    card) and held to the same case on the CPU; (b) bench.py's GemmBench
+    through ``NDArray.mmul``; (c) the softmax, layer-norm,
+    scale_shift_act and flash kernels through ``Transforms.softmax`` and
+    ``exec_op`` at full width, one launch each, against their plain
+    versions; (d) ``exec_op`` under NAN_PANIC, and OFF against BASIC per
+    call; (e) ``shapes.infer_shape`` over every case with no card memory
+    and no kernel. Returns the launches of (c)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    from deeplearning4j_tpu_torch import profiler as prof
+    from deeplearning4j_tpu_torch.linalg import DataType, Transforms, nd
+    from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+    from deeplearning4j_tpu_torch.ops import registry, shapes
+    from deeplearning4j_tpu_torch.ops import validation as V
+    from deeplearning4j_tpu_torch.utils.environment import NumericsPanicError
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    # fp32 convolutions and GEMMs in fp32, as on the CPU (main() sets
+    # both too; the phase also runs alone)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ck.install_platform_overrides()
+
+    # (a) every case on the card
+    cases = V.all_cases()
+    failures, ops_run, worst = [], set(), []
+    n_grad = sum(c.grad for c in cases)
+    ck.reset_counts()
+    t0 = time.perf_counter()
+    for case in cases:
+        try:
+            out = V.run_case(case, device=dev)
+            if case.op not in V.RANDOM_OPS:
+                cpu = V.call(case, case.args(np.random.RandomState(0)),
+                             "cpu")
+                worst.append((_card_vs_cpu(case, out, cpu, V), case.op))
+            ops_run.add(case.op)
+        except Exception as e:          # every failure listed, then fail
+            failures.append(f"{case.op}: {type(e).__name__}: "
+                            f"{' '.join(str(e).split())[:300]}")
+    torch.cuda.synchronize()
+    case_s = time.perf_counter() - t0
+    case_launches = {k: v for k, v in ck.LAUNCHES.items() if v}
+    for f in failures:
+        log(f"op surface FAIL {f}")
+    if failures:
+        fail(f"op surface: {len(failures)} of {len(cases)} cases failed "
+             f"on the card")
+    if len(cases) != 514 or len(ops_run) != 505:
+        fail(f"op surface: {len(cases)} cases over {len(ops_run)} ops, "
+             "want 514 over 505")
+    worst.sort(reverse=True)
+    log(f"op surface (a): {len(cases)} cases passed on cuda over "
+        f"{len(ops_run)} ops ({n_grad} float64 gradchecks on the card), "
+        f"{case_s:.1f} s; kernel launches {case_launches}; largest "
+        f"card-vs-CPU differences "
+        + ", ".join(f"{op} {e:.3g}" for e, op in worst[:6]) + f" [{smi}]")
+
+    # (b) GemmBench through NDArray.mmul
+    n, iters = GEMM_N, GEMM_ITERS
+    g = torch.Generator(device=dev).manual_seed(0)
+    a = nd.create(torch.randn(n, n, generator=g, device=dev),
+                  dtype=DataType.BFLOAT16, device=dev)
+    # b scaled by 1/sqrt(n): the chain's values stay of order one
+    b = nd.create(torch.randn(n, n, generator=g, device=dev) / n ** 0.5,
+                  dtype=DataType.BFLOAT16, device=dev)
+
+    def chain():
+        c = a
+        for _ in range(iters):
+            c = c.mmul(b)
+        return c
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(3):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn()
+            e1.record()
+            e1.synchronize()
+            ts.append(e0.elapsed_time(e1))
+        return float(np.median(ts)), out
+
+    gemm_ms, c = timed(chain)
+    if not bool(torch.isfinite(c.tensor()).all()):
+        fail("GemmBench: non-finite values in the chained product")
+    at, bt = a.tensor(), b.tensor()
+
+    def torch_chain():
+        x = at
+        for _ in range(iters):
+            x = torch.matmul(x, bt)
+        return x
+
+    lib_ms, _ = timed(torch_chain)
+    tflops = iters * 2.0 * n ** 3 / (gemm_ms / 1e3) / 1e12
+    log(f"op surface (b): GemmBench through NDArray.mmul, bf16 n={n}, "
+        f"{iters} chained: {gemm_ms:.2f} ms, {tflops:.1f} TFLOP/s = "
+        f"{tflops / (BF16_FLOPS / 1e12):.3f} of the {BF16_FLOPS / 1e12:.0f} "
+        f"TFLOP/s dense bf16 peak (torch.matmul chain {lib_ms:.2f} ms) "
+        f"[{smi}]")
+    del a, b, c, at, bt
+    torch.cuda.empty_cache()
+
+    # (c) the kernels through the new surface, one launch each
+    launched = {}
+
+    def once(kernel, fn):
+        torch.cuda.synchronize()
+        ck.reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        if ck.LAUNCHES[kernel] != 1 or sum(ck.LAUNCHES.values()) != 1:
+            fail(f"op surface: {kernel} launches {ck.LAUNCHES}, want one")
+        launched[kernel] = ck.LAUNCHES[kernel]
+        return out
+
+    def close(name, got, want, rtol, atol):
+        err = (got.float() - want.float()).abs()
+        bad = err > atol + rtol * want.float().abs()
+        if bool(bad.any()):
+            fail(f"op surface {name}: {int(bad.sum())} element(s) beyond "
+                 f"rtol={rtol:g} atol={atol:g}, max |err| "
+                 f"{err.max().item():.3g}")
+        return float(err.max().item())
+
+    x = torch.randn(SURF_SOFTMAX, generator=g, device=dev) * 4.0
+    y = once("softmax", lambda: Transforms.softmax(nd.create(
+        x, device=dev))).tensor()
+    e_sm = close("Transforms.softmax", y, ck.softmax_plain(x), 1e-5, 1e-6)
+    rows, width = SURF_LN
+    x = torch.randn(SURF_LN, generator=g, device=dev) * 2.0 + 0.5
+    gain = torch.randn(width, generator=g, device=dev) * 0.5 + 1.0
+    bias = torch.randn(width, generator=g, device=dev) * 0.1
+    y = once("layer_norm", lambda: registry.exec_op("layer_norm", x, gain,
+                                                    bias))
+    e_ln = close("exec_op layer_norm", y,
+                 ck.layer_norm_plain(x, gain, bias, 1e-5), 2e-5, 2e-5)
+    rows, ch = SURF_SSA
+    x = torch.randn(SURF_SSA, generator=g, device=dev).to(torch.bfloat16)
+    sc = torch.randn(ch, generator=g, device=dev).to(torch.bfloat16)
+    sh = torch.randn(ch, generator=g, device=dev).to(torch.bfloat16)
+    y = once("scale_shift_act", lambda: registry.exec_op(
+        "scale_shift_act", x, sc, sh, alpha=0.0, axis=-1))
+    want = ck.scale_shift_act_plain(x, sc, sh, 0.0)
+    ulp = torch.ldexp(torch.ones_like(want.float()),
+                      torch.frexp(want.float())[1] - 8)
+    err = (y.float() - want.float()).abs()
+    if bool((err > ulp.masked_fill(want == 0, 0)).any()):
+        fail(f"op surface exec_op scale_shift_act: beyond one bf16 ulp, max "
+             f"|err| {err.max().item():.3g}")
+    e_ssa = float(err.max().item())
+    q, k, v = (torch.randn(SURF_FLASH, generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    y = once("flash_attention", lambda: registry.exec_op(
+        "flash_attention", q, k, v))
+    e_fa = close("exec_op flash_attention", y,
+                 ck.flash_attention_plain(q, k, v, False)[0], 2e-2, 2e-2)
+    log(f"op surface (c): Transforms.softmax {list(SURF_SOFTMAX)} fp32 "
+        f"(max|err| {e_sm:.3g}), exec_op layer_norm {list(SURF_LN)} fp32 "
+        f"({e_ln:.3g}), scale_shift_act {list(SURF_SSA)} bf16 relu "
+        f"({e_ssa:.3g}), flash_attention {list(SURF_FLASH)} bf16 "
+        f"({e_fa:.3g}): one kernel launch each")
+    del x, y, q, k, v, want, ulp, err
+
+    # (d) exec_op's profiling modes
+    prof.set_profiling_mode(prof.ProfilingMode.NAN_PANIC)
+    try:
+        for op, arg in (("log", torch.tensor([-1.0], device=dev)),
+                        ("softmax", torch.tensor([[0.0, float("nan")]],
+                                                 device=dev))):
+            try:
+                registry.exec_op(op, arg)
+            except NumericsPanicError as e:
+                if f"op '{op}'" not in str(e):
+                    fail(f"NAN_PANIC raised without naming '{op}': {e}")
+            else:
+                fail(f"exec_op('{op}') under NAN_PANIC did not raise")
+    finally:
+        prof.set_profiling_mode(None)
+    small = torch.ones(16, device=dev)
+
+    def per_call_us(fn, n_calls=5000):
+        for _ in range(200):
+            fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(5):
+            t = time.perf_counter()
+            for _ in range(n_calls):
+                fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t) / n_calls * 1e6)
+        return float(np.median(ts))
+
+    instrumented = registry._exec_instrumented
+    n_instr = {"OFF": 0, "BASIC": 0}
+
+    def counting(mode_name):
+        def call(*a, **k):
+            n_instr[mode_name] += 1
+            return instrumented(*a, **k)
+        return call
+
+    bare_us = per_call_us(lambda: torch.add(small, small))
+    registry._exec_instrumented = counting("OFF")
+    try:
+        off_us = per_call_us(lambda: registry.exec_op("add", small, small))
+        prof.set_profiling_mode(prof.ProfilingMode.BASIC)
+        registry._exec_instrumented = counting("BASIC")
+        basic_us = per_call_us(lambda: registry.exec_op("add", small, small))
+    finally:
+        prof.set_profiling_mode(None)
+        registry._exec_instrumented = instrumented
+    if n_instr["OFF"] or not n_instr["BASIC"]:
+        fail(f"exec_op reached the instrumented dispatch {n_instr['OFF']} "
+             f"times under OFF and {n_instr['BASIC']} under BASIC: want "
+             "none under OFF, every call under BASIC")
+    if off_us - bare_us >= (basic_us - bare_us) / 2:
+        fail(f"exec_op under OFF costs {off_us:.2f} us a call, BASIC "
+             f"{basic_us:.2f}, torch.add itself {bare_us:.2f}: OFF's extra "
+             "is not under half of BASIC's")
+    log(f"op surface (d): NAN_PANIC raised naming 'log' and 'softmax'; "
+        f"exec_op('add') on 16 floats: {off_us:.2f} us a call OFF, "
+        f"{basic_us:.2f} us BASIC, torch.add {bare_us:.2f} us "
+        f"(host clock); instrumented dispatches OFF {n_instr['OFF']}, "
+        f"BASIC {n_instr['BASIC']} [{smi}]")
+
+    # (e) infer_shape: meta tensors only, no card memory, no kernel
+    class Devices(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in tree_leaves(out):
+                if isinstance(t, torch.Tensor):
+                    self.seen.add(t.device.type)
+            return out
+
+    todo = []
+    for case in cases:
+        args = case.args(np.random.RandomState(0))
+        if args and all(isinstance(a, np.ndarray) for a in args):
+            todo.append((case, [a.shape for a in args]))
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    ck.reset_counts()
+    rec, answered = Devices(), 0
+    t0 = time.perf_counter()
+    with rec:
+        for case, shp in todo:
+            try:
+                shapes.infer_shape(case.op, *shp, **case.kwargs)
+                answered += 1
+            except Exception:   # data-dependent shapes do not answer
+                pass
+    infer_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    if torch.cuda.memory_allocated() != mem0:
+        fail("infer_shape allocated card memory")
+    if rec.seen - {"meta"}:
+        fail(f"infer_shape made tensors on {sorted(rec.seen - {'meta'})}")
+    if any(ck.LAUNCHES.values()):
+        fail(f"infer_shape launched kernels: {ck.LAUNCHES}")
+    log(f"op surface (e): infer_shape answered {answered} of {len(todo)} "
+        f"cases on meta tensors in {infer_s * 1e3:.0f} ms, card memory "
+        f"unchanged, no kernel launched")
+    conv_contract_cost(smi)
+    log(f"op surface: phase {time.perf_counter() - t_phase:.1f} s")
+    return launched
+
+
+def conv_contract_cost(smi: str) -> None:
+    """Phase 35 (f): what the conv ops' shape contract costs the eager
+    path. ResNet-50 B=64 bf16 NHWC fused: ms an eager ``output()`` and an
+    eager ``fit`` step, in turns with the contract as shipped (counted)
+    and stubbed out, on/off/off/on; then µs a check, cached and
+    uncached."""
+    import torch
+
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.ops import convolution as conv
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal(
+        (RESNET_BATCH, 3, 224, 224), dtype=np.float32)).to(dev)
+    y = torch.from_numpy(np.eye(1000, dtype=np.float32)[
+        rng.integers(0, 1000, RESNET_BATCH)]).to(dev)
+    ds = DataSet(x, y)
+    net = resnet50_bf16()
+    net.fit(ds)
+    net.output(x)
+    shipped = conv._check_call
+    checks = [0]
+
+    def counted(*a, **k):
+        checks[0] += 1
+        return shipped(*a, **k)
+
+    def stub(*a, **k):
+        return None
+
+    # the contract on and stubbed out alternate call by call (on, off,
+    # off, on), so the host's drift over seconds falls on both alike
+    times = {("on", "fwd"): [], ("off", "fwd"): [], ("on", "step"): [],
+             ("off", "step"): []}
+    per_fwd = set()
+
+    def timed(turn, what, fn):
+        conv._check_call = counted if turn == "on" else stub
+        checks[0] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times[(turn, what)].append((time.perf_counter() - t0) * 1e3)
+        if turn == "on" and what == "fwd":
+            per_fwd.add(checks[0])
+
+    try:
+        for _ in range(CONV_CHECK_FORWARDS):
+            for turn in ("on", "off", "off", "on"):
+                timed(turn, "fwd", lambda: net.output(x))
+        for _ in range(CONV_CHECK_STEPS):
+            for turn in ("on", "off", "off", "on"):
+                timed(turn, "step", lambda: (net.fit(ds), net.score()))
+    finally:
+        conv._check_call = shipped
+    if len(per_fwd) != 1 or 0 in per_fwd:
+        fail(f"phase 35 (f): checks a forward {sorted(per_fwd)}: want the "
+             "same non-zero count in each forward")
+    if not np.isfinite(net.score()):
+        fail(f"phase 35 (f): ResNet-50 loss {net.score()} is not finite")
+
+    def spread(v):
+        q1, q2, q3 = np.percentile(v, [25, 50, 75])
+        return f"{q2:.3f} [{q1:.3f}-{q3:.3f}]"
+
+    d_fwd = np.median(times[("on", "fwd")]) - np.median(times[("off", "fwd")])
+    d_step = np.median(times[("on", "step")]) \
+        - np.median(times[("off", "step")])
+    # ResNet-50's first 3x3 conv of stage 2, NHWC, on meta tensors
+    xm = torch.empty((RESNET_BATCH, 56, 56, 64), device="meta")
+    wm = torch.empty((64, 64, 3, 3), device="meta")
+    kw = dict(stride=(1, 1), pad=(1, 1), dilation=(1, 1), mode="truncate",
+              data_format="NHWC", groups=1)
+    n = 20000
+    shipped("conv2d", xm, wm, **kw)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        shipped("conv2d", xm, wm, **kw)
+    cached_us = (time.perf_counter() - t0) / n * 1e6
+    t0 = time.perf_counter()
+    for _ in range(n):
+        conv._CHECKED.clear()
+        shipped("conv2d", xm, wm, **kw)
+    uncached_us = (time.perf_counter() - t0) / n * 1e6
+    t0 = time.perf_counter()
+    for _ in range(n):
+        stub("conv2d", xm, wm, **kw)
+    stub_us = (time.perf_counter() - t0) / n * 1e6
+    log(f"op surface (f): the conv contract on ResNet-50 B={RESNET_BATCH} "
+        f"bf16 NHWC eager, {min(per_fwd)} checks a forward; ms median "
+        f"[quartiles] a forward on {spread(times[('on', 'fwd')])}, off "
+        f"{spread(times[('off', 'fwd')])} ({len(times[('on', 'fwd')])} "
+        f"each), a step on {spread(times[('on', 'step')])}, off "
+        f"{spread(times[('off', 'step')])} ({len(times[('on', 'step')])} "
+        f"each); median on - off: forward {d_fwd:+.3f} ms, step "
+        f"{d_step:+.3f} ms; a "
+        f"check {cached_us:.2f} us cached, {uncached_us:.2f} us uncached, "
+        f"{stub_us:.2f} us stubbed (host clock) [{smi}]")
 
 
 def bound(nbytes: int, ops: int, peak: float) -> dict:

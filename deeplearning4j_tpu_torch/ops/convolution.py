@@ -102,11 +102,44 @@ def _channels_first_nd(data_format: str, names) -> None:
                          "ported)")
 
 
+#: calls whose shape contract held: (op, x shape, w shape, settings...)
+_CHECKED: set = set()
+_CHECKED_MAX = 4096
+
+
+def _check_call(op, x, w, *, stride, pad, dilation, mode, data_format,
+                groups=1):
+    """The op's shape contract (``ops.shapes``): an input of the wrong
+    rank, channel count or spatial size raises ``OpShapeError`` (or
+    ``ValueError``) with the op's message, before torch would. The
+    contract reads shapes and settings only, so each distinct call is
+    checked once, as the JAX package checks once a trace, and a repeat
+    costs one set lookup on the host."""
+    key = None
+    if hasattr(x, "shape") and hasattr(w, "shape"):
+        # a torch.Size hashes and compares as the tuple it is
+        key = (op, x.shape, w.shape, stride, pad, dilation, mode,
+               data_format, groups)
+        try:
+            if key in _CHECKED:
+                return
+        except TypeError:           # a list among the settings
+            key = None
+    from deeplearning4j_tpu_torch.ops import shapes
+    shapes.check_call(op, x, w, None, stride=stride, pad=pad,
+                      dilation=dilation, mode=mode, data_format=data_format,
+                      groups=groups)
+    if key is not None and len(_CHECKED) < _CHECKED_MAX:
+        _CHECKED.add(key)
+
+
 def conv1d(x, w, b=None, *, stride: int = 1, pad: int = 0,
            dilation: int = 1, mode: str = "truncate",
            data_format: str = "NCW", groups: int = 1):
     """1D convolution (ref: ``conv1d``) of x [N, C, T] with w [O, C/groups,
     k]; causal mode left-pads ``(k-1)*dilation``."""
+    _check_call("conv1d", x, w, stride=stride, pad=pad, dilation=dilation,
+                mode=mode, data_format=data_format, groups=groups)
     _check_mode(mode, causal=True)
     _channels_first_nd(data_format, ("NCW",))
     k, s, d = int(w.shape[2]), int(stride), int(dilation)
@@ -127,6 +160,8 @@ def conv3d(x, w, b=None, *, stride: IntOrPair = 1, pad: IntOrPair = 0,
            data_format: str = "NCDHW"):
     """3D convolution (ref: ``conv3dnew``) of x [N, C, D, H, W] with w
     [O, C, kD, kH, kW]."""
+    _check_call("conv3d", x, w, stride=stride, pad=pad, dilation=dilation,
+                mode=mode, data_format=data_format)
     _check_mode(mode)
     _channels_first_nd(data_format, ("NCDHW",))
     stride, pad, dilation = _pair(stride, 3), _pair(pad, 3), \
@@ -146,6 +181,8 @@ def conv2d(x, w, b=None, *, stride: IntOrPair = 1, pad: IntOrPair = 0,
     """2D convolution (ref: libnd4j ``conv2d``), ``w`` in OIHW
     (``[O, I/groups, kH, kW]``). The bias is added after the convolution,
     as the JAX package does."""
+    _check_call("conv2d", x, w, stride=stride, pad=pad, dilation=dilation,
+                mode=mode, data_format=data_format, groups=groups)
     _check_mode(mode)
     cf = _channels_first(data_format)
     xt = _to_torch(x, cf)
@@ -469,5 +506,6 @@ def conv_output_size(size: int, kernel: int, stride: int, pad: int,
         raise ValueError(
             f"conv/pool output size {out} <= 0 for input size {size}, "
             f"kernel {kernel} (dilation {dilation}), stride {stride}, "
-            f"pad {pad}")
+            f"pad {pad} — the layer cannot be applied to this input "
+            f"(ref: ConvolutionUtils.getOutputSize validation)")
     return out

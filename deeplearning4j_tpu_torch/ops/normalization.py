@@ -20,6 +20,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -273,8 +274,20 @@ def dtype_scalar(v: float, dtype: torch.dtype) -> float:
     """``v`` rounded to ``dtype``, as a host float: what jnp makes of a
     weakly typed Python scalar beside an array of that dtype (torch would
     keep it in fp32 beside a bf16 tensor). A host float, so no copy to
-    the card inside a capture."""
-    return float(torch.tensor(v, dtype=dtype))
+    the card inside a capture; rounded on the host with numpy (bf16:
+    round to nearest even on the fp32 bits, as torch converts), so it
+    makes no tensor."""
+    if dtype in _NP_FLOATS:
+        return float(_NP_FLOATS[dtype](v))
+    if dtype == torch.bfloat16:
+        bits = np.asarray(np.float32(v)).view(np.uint32).astype(np.uint64)
+        bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+        return float(np.asarray(bits.astype(np.uint32)).view(np.float32))
+    return float(torch.tensor(v, dtype=dtype, device="cpu"))
+
+
+_NP_FLOATS = {torch.float32: np.float32, torch.float16: np.float16,
+              torch.float64: np.float64}
 
 
 def scale_shift_act(x, scale, shift, *, alpha: float = 0.0, axis: int = 1):

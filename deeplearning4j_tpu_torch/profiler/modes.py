@@ -7,17 +7,20 @@ locks (:mod:`.locks`) record their wait/hold series whenever the mode is
 not OFF.
 
 Resolution order: an explicit ``set_profiling_mode(...)`` override wins;
-otherwise the mode comes from the same environment knobs the JAX
-package's ``Environment`` reads (``DL4J_TPU_NAN_PANIC``,
-``DL4J_TPU_INF_PANIC``, ``DL4J_TPU_PROFILING``), read once at the first
-query and again after ``set_profiling_mode(None)``.
+otherwise the mode is derived from the
+:class:`~deeplearning4j_tpu_torch.utils.environment.Environment` knobs
+(``nan_panic``, ``inf_panic``, ``profiling``, from ``DL4J_TPU_NAN_PANIC``,
+``DL4J_TPU_INF_PANIC``, ``DL4J_TPU_PROFILING``) on every read, so setting
+``Environment.get().nan_panic`` or ``Environment.reset()`` after a change
+of the environment takes effect at the next query.
 """
 
 from __future__ import annotations
 
 import enum
-import os
 from typing import Optional
+
+from deeplearning4j_tpu_torch.utils.environment import Environment
 
 
 class ProfilingMode(enum.Enum):
@@ -28,37 +31,28 @@ class ProfilingMode(enum.Enum):
 
 
 _OVERRIDE: Optional[ProfilingMode] = None
-_FROM_ENV: Optional[ProfilingMode] = None
-
-
-def _flag(name: str) -> bool:
-    return os.environ.get(name, "").strip().lower() in ("1", "true", "yes",
-                                                        "on")
-
-
-def _env_mode() -> ProfilingMode:
-    if _flag("DL4J_TPU_NAN_PANIC"):
-        return ProfilingMode.NAN_PANIC
-    if _flag("DL4J_TPU_INF_PANIC"):
-        return ProfilingMode.INF_PANIC
-    if _flag("DL4J_TPU_PROFILING"):
-        return ProfilingMode.BASIC
-    return ProfilingMode.OFF
 
 
 def set_profiling_mode(mode: Optional[ProfilingMode]) -> None:
-    """Set the process-wide mode; ``None`` reverts to the environment."""
-    global _OVERRIDE, _FROM_ENV
+    """Set the process-wide mode; ``None`` reverts to Environment-derived."""
+    global _OVERRIDE
     if mode is not None and not isinstance(mode, ProfilingMode):
         mode = ProfilingMode(str(mode).lower())
     _OVERRIDE = mode
-    _FROM_ENV = None
 
 
 def get_profiling_mode() -> ProfilingMode:
-    global _FROM_ENV
     if _OVERRIDE is not None:
         return _OVERRIDE
-    if _FROM_ENV is None:
-        _FROM_ENV = _env_mode()
-    return _FROM_ENV
+    # lock-free fast path: this sits on every eager dispatch, and reset()
+    # swaps the instance (worst case one call reads the old one)
+    env = Environment._instance
+    if env is None:
+        env = Environment.get()
+    if env.nan_panic:
+        return ProfilingMode.NAN_PANIC
+    if env.inf_panic:
+        return ProfilingMode.INF_PANIC
+    if env.profiling:
+        return ProfilingMode.BASIC
+    return ProfilingMode.OFF

@@ -56,7 +56,7 @@ import torch
 from deeplearning4j_tpu_torch.profiler.metrics import get_registry
 from deeplearning4j_tpu_torch.profiler.modes import (ProfilingMode,
                                                      get_profiling_mode)
-from deeplearning4j_tpu_torch.train.resilience import NumericsPanicError
+from deeplearning4j_tpu_torch.utils.environment import NumericsPanicError
 
 #: |max| buckets for dl4j_tensor_absmax: decades up to fp16-max, then the
 #: bf16/fp32 range — a histogram shaped for "how far from overflow"

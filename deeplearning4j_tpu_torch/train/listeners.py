@@ -22,7 +22,6 @@ from __future__ import annotations
 import itertools
 import logging
 import os
-import tempfile
 import time
 import uuid
 from typing import Callable, List, Optional
@@ -30,6 +29,7 @@ from typing import Callable, List, Optional
 import torch
 
 from deeplearning4j_tpu_torch.profiler.metrics import get_registry
+from deeplearning4j_tpu_torch.utils.environment import Environment
 
 logger = logging.getLogger("deeplearning4j_tpu_torch")
 
@@ -376,10 +376,10 @@ def _histogram(w, seg, n: int, bins: int, lo, hi):
 
 
 def default_profile_dir() -> str:
-    """``DL4J_TPU_PROFILE_DIR``, else ``dl4j_tpu_profile`` in the temporary
-    directory (the JAX package's ``/tmp/dl4j_tpu_profile``)."""
-    return os.environ.get("DL4J_TPU_PROFILE_DIR") or os.path.join(
-        tempfile.gettempdir(), "dl4j_tpu_profile")
+    """``Environment.profile_dir``: ``DL4J_TPU_PROFILE_DIR``, else
+    ``dl4j_tpu_profile`` in the temporary directory (the JAX package's
+    ``/tmp/dl4j_tpu_profile``)."""
+    return Environment.get().profile_dir
 
 
 class ProfilingListener(TrainingListener):

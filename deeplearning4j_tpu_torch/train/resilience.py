@@ -83,6 +83,7 @@ from deeplearning4j_tpu_torch.data.dataset import RetryingDataSetIterator
 from deeplearning4j_tpu_torch.nn import compilecache as cc
 from deeplearning4j_tpu_torch.profiler.metrics import get_registry
 from deeplearning4j_tpu_torch.utils.concurrent import ErrorLatch
+from deeplearning4j_tpu_torch.utils.environment import NumericsPanicError
 
 logger = logging.getLogger("deeplearning4j_tpu_torch")
 
@@ -115,12 +116,6 @@ CKPT_ASYNC_QUEUE = _REG.gauge(
     "dl4j_checkpoint_async_queue_depth",
     "Snapshots queued for the background checkpoint writer (a full "
     "queue means the writer cannot keep up and save() waits)")
-
-
-class NumericsPanicError(ArithmeticError):
-    """A non-finite loss the run cannot recover from (``NanPolicy.RAISE``,
-    the lr-scale floor, no checkpoint to roll back to). The JAX package's
-    ``utils.environment.NumericsPanicError``."""
 
 
 class CorruptCheckpointError(RuntimeError):

@@ -1,2 +1,2 @@
 """Small shared helpers: the cross-thread error latch
-(:mod:`.concurrent`)."""
+(:mod:`.concurrent`) and the runtime environment (:mod:`.environment`)."""

@@ -1091,3 +1091,40 @@ def test_nan_panic_names_a_nan_batch_under_capture(dev):
     finally:
         torch.backends.cudnn.deterministic = det
         ck.uninstall_platform_overrides()
+
+
+# ------------------------------------------- the eager arrays and op surface
+def test_ndarray_softmax_launches_the_softmax_kernel_once(dev):
+    from deeplearning4j_tpu_torch.linalg import Transforms, nd
+    from deeplearning4j_tpu_torch.ops import registry
+    ck.install_platform_overrides()
+    try:
+        a = nd.create(np.random.default_rng(0).standard_normal(
+            (64, 128)).astype(np.float32), device=dev)
+        ck.reset_counts()
+        y = Transforms.softmax(a)
+        assert ck.LAUNCHES["softmax"] == 1
+        assert y.device.type == "cuda"
+        torch.testing.assert_close(y.tensor(), ck.softmax_plain(a.tensor()),
+                                   rtol=1e-5, atol=1e-6)
+        ck.reset_counts()
+        registry.exec_op("softmax", a.tensor())
+        assert ck.LAUNCHES["softmax"] == 1
+    finally:
+        ck.uninstall_platform_overrides()
+
+
+def test_exec_op_results_stay_on_the_card(dev):
+    from deeplearning4j_tpu_torch.ops import registry, validation
+    for case in validation.all_cases():
+        out = validation.run_case(case, device=dev, grad=False)
+        for t in registry.tensor_leaves(out):
+            assert t.device.type == "cuda", case.op
+
+
+def test_nd_factory_defaults_to_the_card(dev):
+    from deeplearning4j_tpu_torch.linalg import nd
+    assert nd.zeros(3).device.type == "cuda"
+    assert nd.rand(2, 2, rng=nd.Random(1)).device.type == "cuda"
+    a = nd.create([1.0, 2.0])
+    assert a.mmul(a.reshape(2, 1)).device.type == "cuda"

@@ -191,7 +191,15 @@ def test_import_leaves_jax_unloaded():
              "deeplearning4j_tpu_torch.modelimport.interop, "
              "deeplearning4j_tpu_torch.nn.transfer, "
              "deeplearning4j_tpu_torch.nn.layers, "
-             "deeplearning4j_tpu_torch.analysis.imports; "
+             "deeplearning4j_tpu_torch.analysis.imports, "
+             "deeplearning4j_tpu_torch.linalg, "
+             "deeplearning4j_tpu_torch.ops.registry_ext, "
+             "deeplearning4j_tpu_torch.ops.registry_r5, "
+             "deeplearning4j_tpu_torch.ops.shapes, "
+             "deeplearning4j_tpu_torch.ops.validation, "
+             "deeplearning4j_tpu_torch.ops.validation_ext, "
+             "deeplearning4j_tpu_torch.ops.validation_r5, "
+             "deeplearning4j_tpu_torch.utils.environment; "
              "print(sorted(m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'jaxlib', 'deeplearning4j_tpu', 'tensorflow', "
              "'ml_dtypes', 'safetensors', 'transformers', 'h5py', "
@@ -267,3 +275,63 @@ def test_the_analyzer_cli_targets_the_port():
     names = set(_module_name_strings(cli))
     assert "deeplearning4j_tpu_torch" in names         # --concurrency
     assert "deeplearning4j_tpu_torch.models" in set(_imported_names(cli))
+
+
+#: the op surface's math: every op runs on the device of its inputs
+OP_MATH = ["ops/registry.py", "ops/registry_ext.py", "ops/registry_r5.py",
+           "ops/shapes.py", "linalg/ndarray.py", "linalg/factory.py",
+           "linalg/transforms.py", "linalg/conditions.py"]
+
+
+@pytest.mark.parametrize("rel", OP_MATH)
+def test_op_math_has_no_host_escape(rel):
+    """No scipy, and no ``.cpu()``/``.numpy()`` round trip, in the
+    registry's and the eager arrays' math (``NDArray.numpy`` and the
+    ``to*Vector`` conversions are the host boundary, named so)."""
+    path = PORT / rel
+    assert not {n for n in _imported_names(path)
+                if n == "scipy" or n.startswith("scipy.")}
+    tree = ast.parse(path.read_text())
+    boundary = {"numpy", "toDoubleMatrix", "toFloatMatrix",
+                "toDoubleVector", "toFloatVector", "toIntVector",
+                "toIntMatrix", "toLongVector", "toLongMatrix",
+                "toByteVector", "data", "__array__", "__repr__"}
+    for fn in ast.walk(tree):
+        if not isinstance(fn, ast.FunctionDef) or fn.name in boundary:
+            continue
+        for node in ast.walk(fn):
+            if isinstance(node, ast.Call) and isinstance(
+                    node.func, ast.Attribute) and node.func.attr in (
+                    "cpu", "numpy"):
+                raise AssertionError(f"{rel}:{node.lineno} {fn.name} calls "
+                                     f".{node.func.attr}()")
+
+
+def test_the_nd_factory_raises_without_a_card(monkeypatch):
+    from deeplearning4j_tpu_torch.linalg import NDArray, nd
+    from deeplearning4j_tpu_torch.ops import validation
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda **k: nd.zeros(3, **k), lambda **k: nd.ones(2, **k),
+                 lambda **k: nd.create([1.0], **k),
+                 lambda **k: nd.arange(3, **k), lambda **k: nd.eye(2, **k),
+                 lambda **k: nd.rand(2, **k), lambda **k: nd.randn(2, **k),
+                 lambda **k: NDArray([1.0], **k)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+        assert make(device="cpu").device.type == "cpu"
+    case = validation.all_cases()[0]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        validation.run_case(case)
+    validation.run_case(case, device="cpu")
+
+
+def test_creation_ops_run_on_cuda_unless_told(monkeypatch):
+    from deeplearning4j_tpu_torch.ops import registry
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for op, args in (("eye", (3,)), ("fill", ((2,), 1.0)),
+                     ("linspace", (0.0, 1.0, 3)), ("range", (4,)),
+                     ("zeros", ((2,),)), ("ones", ((2,),)),
+                     ("empty", ((2,),))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            registry.get(op)(*args)
+        assert registry.get(op)(*args, device="cpu").device.type == "cpu"

@@ -29,6 +29,7 @@ from deeplearning4j_tpu_torch.data.dataset import DataSet
 from deeplearning4j_tpu_torch.models import zoo
 from deeplearning4j_tpu_torch.train import listeners as lst
 from deeplearning4j_tpu_torch.train.resilience import NumericsPanicError
+from deeplearning4j_tpu_torch.utils.environment import Environment
 
 torch.set_num_threads(2)
 
@@ -37,6 +38,7 @@ torch.set_num_threads(2)
 def _reset_modes():
     yield
     os.environ.pop("DL4J_TPU_NAN_PANIC", None)
+    Environment.reset()
     prof.set_profiling_mode(None)
     jprof.set_profiling_mode(None)
 
@@ -276,8 +278,10 @@ def test_profiling_listener_writes_a_chrome_trace(tmp_path):
 
 def test_profiling_listener_default_dir(monkeypatch, tmp_path):
     monkeypatch.setenv("DL4J_TPU_PROFILE_DIR", str(tmp_path / "p"))
+    Environment.reset()                        # re-read the environment
     assert lst.ProfilingListener().log_dir == str(tmp_path / "p")
     monkeypatch.delenv("DL4J_TPU_PROFILE_DIR")
+    Environment.reset()
     assert lst.ProfilingListener().log_dir.endswith("dl4j_tpu_profile")
 
 
@@ -289,7 +293,8 @@ def _nan_batch():
 
 def test_nan_panic_through_the_environment():
     os.environ["DL4J_TPU_NAN_PANIC"] = "1"
-    prof.set_profiling_mode(None)              # re-read the environment
+    Environment.reset()                        # re-read the environment
+    prof.set_profiling_mode(None)
     with pytest.raises(NumericsPanicError, match="NAN_PANIC"):
         _port_net().fit(_nan_batch())
 
