@@ -75,10 +75,20 @@ Phases (each one fails the run with a non-zero exit):
    bucket, so cuBLAS may sum in another order); during the traffic no
    kernel is launched eagerly, each batch replays 13 softmax + 25
    layer-norm launches, and ``recompiles_after_warmup()`` stays 0.
-7. Fine-tune that graph with ``sd.fit``: Adam 1e-4, 6 steps on one B=32
-   batch. Every loss finite, the last below the first, 12 softmax (the
-   loss takes the logits, not the head's probs) and 25 layer-norm
-   launches per step.
+7. Fine-tune that graph: Adam 1e-4, 6 steps on one B=32 batch, from one
+   saved state three ways: the step run eagerly twice (every loss
+   finite, the last below the first, 12 softmax (the loss takes the
+   logits, not the head's probs) and 25 layer-norm launches per step,
+   no plain call), then 6 calls of the public ``sd.fit`` on the captured
+   dispatch (scope ``samediff:fit``): one capture recording 12 softmax
+   and 25 layer-norm launches, every step a replay, no capture failure
+   and no recapture; the loss, the variables, the Adam moments and the
+   clock held by the captured-against-eager rule below (the three runs
+   under PyTorch's deterministic algorithms: the embeddings' backward
+   accumulates with atomics otherwise). Then, without them, 12 eager
+   steps and a fresh capture's 6 replays are timed: it prints the eager
+   (steps 7-12) and captured ms a step (each ending in a host read of
+   its loss).
 8. ``save`` the graph, uninstall the kernels and ``load`` the file, so
    its nodes resolve the generic ops; the two graphs' probs must agree
    within 1e-5, and their ``calculateGradients`` on one batch within a
@@ -312,8 +322,10 @@ Phases (each one fails the run with a non-zero exit):
    ``sd.output`` within 1e-4; fine-tuned as the JAX
    ``TestImportedGraphFinetune`` does (``convertToVariables`` on the
    weight constants the graph consumes, ``loss.softmaxCrossEntropy`` on a
-   ``labels`` placeholder, ``TrainingConfig(Adam(1e-4))``, 6 ``sd.fit``
-   steps at B=32: finite, falling losses); ``save`` then ``load`` gives
+   ``labels`` placeholder, ``TrainingConfig(Adam(1e-4))``, 6 steps at
+   B=32 as phase 7 runs them: eagerly twice, then captured through
+   ``sd.fit``, held by the rule, no kernel launched; finite, falling
+   losses; the eager and captured ms a step); ``save`` then ``load`` gives
    bit-equal logits. It prints the GraphDef's MB, the write, parse and
    import seconds (the import twice: the first in a process also loads
    torch's meta kernels for the fold check), the node count, the served
@@ -555,6 +567,30 @@ Phases (each one fails the run with a non-zero exit):
    stubbed out, alternating call by call (on/off/off/on; 24 forwards
    and 8 steps each), the checks a forward counted, and µs a check
    cached and uncached; printed, not gated on time.
+36. SameDiff's draws under capture, the compile cache's disk tier, the
+   autotuner and strict serving warmup (:func:`rng_disk_tune`). (a) A
+   SameDiff MLP ([64, 1024] + ``random.normal`` noise -> 4096 relu ->
+   ``nn.dropout(0.5)`` -> 10, Adam 1e-3) fit 6 steps through the captured
+   dispatch: one capture; the hidden masks (copied out inside the graph
+   by probes around ``dropout_mask`` and ``normal_draw``) keep 0.5 +-
+   0.01 and change every step, the noise keeps N(0, 1) within 0.01, and
+   a refit from the saved state draws the same masks and losses. (b)
+   Two fresh interpreters fit ResNet-50 (bf16, NHWC, fused, B=64, K=4, 8
+   steps) over one ``compilecache.configure`` directory: the first
+   writes the manifest (one disk miss), the second captures its
+   signature at warm start (4 x 33 ``scale_shift_act`` launches
+   recorded), misses nothing in memory and counts one disk hit; a
+   corrupted manifest is quarantined and a fresh net still fits; W112
+   fires without a directory and not with one. (c) ``python -m
+   deeplearning4j_tpu_torch.tune`` on ResNet-50 (B=64, 224^2) through its
+   ``main(argv)`` (budget 8, 2 reps of 8 steps, K <= 4, pruned by the
+   H100 cost model; every trial's step captured before it is timed):
+   each trial's plan and ms a step, the pruned plans,
+   the winner's speed-up over the fp32 NCHW default and the parity
+   verdict; a fresh net's ``fit(tune="auto")`` then applies the recorded
+   plan (a fused NHWC winner's ``scale_shift_act`` launches counted). (d)
+   ``ModelServer.warmup(strict=True, cost="h100-sxm")`` on phase 6's
+   SameDiff BERT-base passes; on a chip of 1 MB it raises E121 or E122.
 
 The captured-against-eager rule: where the two eager runs agree to the
 bit on a tensor (and on the params' group: the param and its Adam
@@ -592,7 +628,10 @@ and replays; ``import_launches`` and ``import_train_launches`` are phase
 layer norm's served at T=128 and at T=1024, flash's at T=1024;
 ``transfer_launches`` phase 30's recorded at its K=4 capture;
 ``sanitizer_launches`` phase 34 (a)'s replays and walks;
-``ndarray_launches`` and ``exec_op_launches`` phase 35 (c)'s), the
+``ndarray_launches`` and ``exec_op_launches`` phase 35 (c)'s;
+``samediff_capture_launches`` phase 7's capture (softmax and layer
+norm); ``disk_warm_launches`` phase 36 (b)'s warm start and
+``tune_launches`` phase 36 (c)'s tuned fit (``scale_shift_act``)), the
 ``nvidia-smi`` name/power-limit line, and as the last line
 ``{"ok": true, "device": {...}}``. Without a card, or outside a
 checkout, it exits non-zero and prints no result.
@@ -600,6 +639,7 @@ checkout, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -1548,35 +1588,14 @@ def main() -> None:
              "labels": torch.from_numpy(rng.integers(
                  0, BERT_SD["n_labels"], SD_BATCH, dtype=np.int32)).to(dev)}
     torch.cuda.reset_peak_memory_stats()
-    ck.reset_counts()
-    sd_losses, sd_step_ms = [], []
-    for _ in range(SD_STEPS):
-        t0 = time.perf_counter()
-        sd_losses += sd.fit([batch]).lossCurve()   # floats: waits for it
-        sd_step_ms.append((time.perf_counter() - t0) * 1e3)
-    fit_sd_launches = dict(ck.LAUNCHES)
-    fit_sd_plain = dict(ck.PLAIN_CALLS)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    if not all(np.isfinite(sd_losses)) or not sd_losses[-1] < sd_losses[0]:
-        fail(f"SameDiff fit losses not finite and falling: {sd_losses}")
     # the loss takes the logits, not the head's probs: 12 softmax a step
-    if fit_sd_launches != {"layer_norm": 25 * SD_STEPS, "flash_attention": 0,
-                           "scale_shift_act": 0,
-                           "softmax": 12 * SD_STEPS, "bn_stats": 0,
-                           "bn_apply_leaky": 0} \
-            or any(fit_sd_plain.values()):
-        fail(f"SameDiff fit launch counts {fit_sd_launches} (plain "
-             f"{fit_sd_plain}) over {SD_STEPS} steps: want 12 softmax and 25 "
-             "layer_norm per step")
-    timed = sd_step_ms[1:]
-    med = float(np.median(timed))
-    log(f"SameDiff BERT-base fit B={SD_BATCH}, T={T}, Adam 1e-4: losses "
-        f"{', '.join(f'{v:.5f}' for v in sd_losses)}; step ms (steps 2-"
-        f"{SD_STEPS}) median {med:.2f} (min {min(timed):.2f}, max "
-        f"{max(timed):.2f}), first {sd_step_ms[0]:.2f}; "
-        f"{SD_BATCH * T / (med / 1e3):.1f} tokens/s, peak {peak_gb:.2f} GB; "
-        f"softmax launches per step "
-        f"{fit_sd_launches['softmax'] // SD_STEPS} [{smi}]")
+    sd7 = samediff_fit_held("SameDiff BERT-base", sd, batch, SD_STEPS, smi,
+                            {"softmax": 12, "layer_norm": 25})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"SameDiff BERT-base fit B={SD_BATCH}, T={T}, Adam 1e-4: "
+        f"{SD_BATCH * T / (sd7['captured_ms'] / 1e3):.1f} tokens/s "
+        f"captured ({SD_BATCH * T / (sd7['eager_ms'] / 1e3):.1f} eager), "
+        f"peak {peak_gb:.2f} GB [{smi}]")
 
     # ------------------------ 8. the kernels' graph against the generic one
     with tempfile.TemporaryDirectory() as d:
@@ -1607,7 +1626,11 @@ def main() -> None:
              "(probs 1e-5; gradients relative L2 1e-4, elements 1e-4 of "
              "max|g|)")
 
-    del sd, generic, batch, p_gen, g_gen, p_ker, g_ker, flat_k, flat_g
+    # phase 6's server holds the graph (its forward closes over it), and
+    # with it the captured fit step's pool
+    del sd, server, generic, batch, p_gen, g_gen, p_ker, g_ker, flat_k, \
+        flat_g
+    gc.collect()
     torch.cuda.empty_cache()
 
     # ------------------------------------------------ 9. TinyYOLO fit
@@ -1838,6 +1861,10 @@ def main() -> None:
     surf = op_surface(smi)
     torch.cuda.empty_cache()
 
+    # ------------- 36. SameDiff RNG captured, the disk tier, tune, strict
+    p36 = rng_disk_tune(smi)
+    torch.cuda.empty_cache()
+
     ln.update(served["layer_norm"])
     fa.update(served["flash_attention"])
     for kr in (ln, fa):
@@ -1855,6 +1882,10 @@ def main() -> None:
     ssa["long_run_launches"] = long["at_capture"]
     ssa["transfer_launches"] = transfer_launches
     ssa["sanitizer_launches"] = obs["sanitizer_launches"]
+    ssa["disk_warm_launches"] = p36["disk_warm_launches"]
+    ssa["tune_launches"] = p36["tune_launches"]
+    for kr in (sm, ln):
+        kr["samediff_capture_launches"] = sd7["at_capture"][kr["name"]]
     sm["launches"] = sd_warm["softmax"] + sd_replays["softmax"]
     sm["replays"] = sd_replays["softmax"]
     sm["ndarray_launches"] = surf["softmax"]
@@ -1868,7 +1899,9 @@ def main() -> None:
             "other_shapes", "pair", "from_disk_launches",
             "from_disk_replays", "import_launches", "import_train_launches",
             "long_run_launches", "keras_launches", "transfer_launches",
-            "sanitizer_launches", "ndarray_launches", "exec_op_launches")
+            "sanitizer_launches", "ndarray_launches", "exec_op_launches",
+            "samediff_capture_launches", "disk_warm_launches",
+            "tune_launches")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{k: kr[k] for k in keys if k in kr}
                                   for kr in (ln, fa, ssa, sm, bn_st, bn_ap)]}))
@@ -4327,6 +4360,145 @@ def captured_fit(name, net, ds, per_step: int, smi: str,
             "live_before": live_before}
 
 
+def samediff_fit_held(name, sd, batch, steps: int, smi: str,
+                      per_step: dict) -> dict:
+    """A SameDiff fit from one state three ways: ``steps`` eager steps
+    twice (the step itself, ``sd._train_step``, as ``fit`` ran it before
+    the capture) and ``steps`` calls of the public ``sd.fit`` on the
+    captured dispatch, held by the captured-against-eager rule. Each
+    eager run launches ``per_step`` kernels a step and no plain call; the
+    captured fit captures once (``per_step`` recorded), replays every
+    step, recaptures nothing and fails no capture. Losses finite, the
+    last below the first. The three runs use PyTorch's deterministic
+    algorithms (an embedding's backward accumulates with atomics
+    otherwise, which makes every later step differ between two eager
+    runs). Returns the median eager and captured ms of steps
+    2-``steps`` (each ending in a host read of its loss) and the
+    launches recorded at the capture."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn import compilecache as cc
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        held = _samediff_fit_held(name, sd, batch, steps, smi, per_step)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    # the times without deterministic algorithms: eager steps, then a
+    # fresh capture and its replays, on from the held runs' state
+    sd._invalidate()
+    gc.collect()
+    sd._prepare_fit()
+    eager_ms, cap_ms = [], []
+    for _ in range(2 * steps):      # the first round settles the allocator
+        t0 = time.perf_counter()
+        float(sd._train_step(sd._feed(batch)))
+        sd._step += 1
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+    eager_ms = eager_ms[steps:]
+    torch.cuda.empty_cache()
+    cc.reset_stats()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses = sd.fit([batch]).lossCurve()
+        cap_ms.append((time.perf_counter() - t0) * 1e3)
+    st = cc.cache_stats()
+    if st["capture_failures"] or st["compile_seconds"]["cold_compiles"] \
+            != 1 or not np.isfinite(losses[-1]):
+        fail(f"{name}: the timed capture: {st}, last loss {losses}")
+    e_med, c_med = float(np.median(eager_ms)), float(np.median(cap_ms[1:]))
+    log(f"{name} sd.fit timed (default algorithms): eager step ms median "
+        f"{e_med:.2f} (min {min(eager_ms):.2f}, max {max(eager_ms):.2f}; "
+        f"steps {steps + 1}-{2 * steps}), captured {c_med:.2f} (min "
+        f"{min(cap_ms[1:]):.2f}, max {max(cap_ms[1:]):.2f}; with the "
+        f"capture {cap_ms[0]:.2f}), speed-up {e_med / c_med:.3f}x [{smi}]")
+    return {**held, "eager_ms": e_med, "captured_ms": c_med}
+
+
+def _samediff_fit_held(name, sd, batch, steps: int, smi: str,
+                       per_step: dict) -> dict:
+    import torch
+
+    from deeplearning4j_tpu_torch.nn import compilecache as cc
+    from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+    sd._prepare_fit()
+    names = [f"var:{k}" for k in sd._variables]
+    groups = list(sd._variables)
+    for k, st in sd._updater_state.items():
+        names += [f"upd:{k}.{m}" for m in st]
+        groups += [k] * len(st)
+    names.append("t")
+    groups.append("t")
+    if len(names) != len(sd._fit_state()):
+        fail(f"{name}: {len(names)} state names for "
+             f"{len(sd._fit_state())} state tensors")
+    s0 = snapshot(sd._fit_state())
+
+    def start():
+        restore(sd._fit_state(), s0)
+        sd._step = 0
+
+    want = {k: 0 for k in ck.LAUNCHES}
+    want.update({k: v * steps for k, v in per_step.items()})
+    held, eager_ms = {}, []
+    for run in ("eager 1", "eager 2"):
+        start()
+        sd._prepare_fit()
+        ck.reset_counts()
+        losses, ms = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            losses.append(float(sd._train_step(sd._feed(batch))))
+            sd._step += 1
+            ms.append((time.perf_counter() - t0) * 1e3)
+        if dict(ck.LAUNCHES) != want or any(ck.PLAIN_CALLS.values()):
+            fail(f"{name} eager fit launches {dict(ck.LAUNCHES)} (plain "
+                 f"{dict(ck.PLAIN_CALLS)}) over {steps} steps: want "
+                 f"{per_step} a step")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            fail(f"{name} eager fit losses not finite and falling: {losses}")
+        held[run] = (losses, snapshot(sd._fit_state()))
+        eager_ms += ms[1:]
+    start()
+    # the eager runs' cached blocks back to the card: the capture's pool
+    # cannot use them
+    torch.cuda.empty_cache()
+    cc.reset_stats()
+    ck.reset_counts()
+    losses, cap_ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses += sd.fit([batch]).lossCurve()      # floats: waits for it
+        cap_ms.append((time.perf_counter() - t0) * 1e3)
+    held["captured"] = (losses, snapshot(sd._fit_state()))
+    stats = cc.cache_stats()
+    disps = sd.fit_dispatches()
+    at_capture = disps[0].launches_at_capture() if len(disps) == 1 else []
+    replays = {k: v * steps for k, v in per_step.items()}
+    if len(disps) != 1 or disps[0].captures() != 1 \
+            or at_capture != [dict(per_step)] \
+            or stats["capture_failures"] or stats["eager_by_design"] \
+            or stats["compile_seconds"]["cold_compiles"] != 1 \
+            or stats["memory"] != {"hits": steps - 1, "misses": 1} \
+            or {k: v for k, v in ck.REPLAYS.items() if v} != replays:
+        fail(f"{name} captured fit: {len(disps)} dispatch(es), launches at "
+             f"capture {at_capture}, replayed {dict(ck.REPLAYS)}, "
+             f"cache_stats {stats}: want one capture recording {per_step}, "
+             f"{steps} replays, no failure, no recapture")
+    hold_captured(name, held, names, groups)
+    e_med, c_med = float(np.median(eager_ms)), float(np.median(cap_ms[1:]))
+    log(f"{name} sd.fit (deterministic algorithms): losses {', '.join(f'{v:.5f}' for v in losses)}; "
+        f"eager step ms median {e_med:.2f} (min {min(eager_ms):.2f}, max "
+        f"{max(eager_ms):.2f}), captured step ms median {c_med:.2f} (min "
+        f"{min(cap_ms[1:]):.2f}, max {max(cap_ms[1:]):.2f}; the first, "
+        f"with the capture, {cap_ms[0]:.2f}), speed-up {e_med / c_med:.3f}x"
+        f"; launches at capture {at_capture[0]}, capture "
+        f"{stats['compile_seconds']['cold']:.2f} s [{smi}]")
+    del s0, held
+    return {"eager_ms": e_med, "captured_ms": c_med,
+            "at_capture": at_capture[0]}
+
+
 def import_bert(smi: str) -> dict:
     """Phases 23 and 24: BERT-base enters by checkpoint import (path A)
     and by frozen GraphDef import (path B), each served and fine-tuned.
@@ -4578,6 +4750,11 @@ def import_bert(smi: str) -> dict:
             log_latency(handles, reqs, wall, smi)
         finally:
             server.close()
+        # the served graphs' pool and the second import go before the fit
+        # captures its step (a server and its dispatch form a cycle)
+        del server
+        gc.collect()
+        torch.cuda.empty_cache()
 
         consumed = {i for node in sd._nodes for i in node.inputs}
         trained = [n for n in names if n in consumed]
@@ -4593,20 +4770,14 @@ def import_bert(smi: str) -> dict:
                      0, cfg.vocab_size, (B, T), dtype=np.int32)).to(dev),
                  "labels": torch.from_numpy(np.eye(2, dtype=np.float32)[
                      rng.integers(0, 2, B)]).to(dev)}
-        fit_losses, fit_ms = [], []
-        for _ in range(IMPORT_FIT_STEPS):
-            t0 = time.perf_counter()
-            fit_losses += sd.fit([batch]).lossCurve()   # floats: waits
-            fit_ms.append((time.perf_counter() - t0) * 1e3)
-        if not all(np.isfinite(fit_losses)) or \
-                not fit_losses[-1] < fit_losses[0]:
-            fail(f"path B fit losses not finite and falling: {fit_losses}")
-        med = float(np.median(fit_ms[1:]))
+        # no kernel: the importer's softmax is plain torch
+        fb = samediff_fit_held("path B", sd, batch, IMPORT_FIT_STEPS, smi,
+                               {})
         log(f"path B sd.fit B={B}, T={T}, Adam 1e-4 over {len(trained)} "
-            f"unfrozen weights: losses "
-            f"{', '.join(f'{v:.5f}' for v in fit_losses)}; step ms (steps "
-            f"2-{IMPORT_FIT_STEPS}) median {med:.2f}, first {fit_ms[0]:.2f}; "
-            f"{B * T / (med / 1e3):.0f} tokens/s [{smi}]")
+            f"unfrozen weights: eager {fb['eager_ms']:.2f} ms a step, "
+            f"captured {fb['captured_ms']:.2f}; "
+            f"{B * T / (fb['captured_ms'] / 1e3):.0f} tokens/s captured "
+            f"[{smi}]")
 
         p = os.path.join(tmp, "bert_graph.sdz")
         t0 = time.perf_counter()
@@ -6099,6 +6270,389 @@ def obs_fleet(smi: str) -> None:
         reg.close()
     del lm
     torch.cuda.empty_cache()
+
+
+#: phase 36 (a): a SameDiff MLP [B, 1024] + N(0, 1) noise -> 4096 relu
+#: -> dropout 0.5 -> 10, Adam 1e-3, captured
+RNG_BATCH, RNG_IN, RNG_HIDDEN, RNG_STEPS = 64, 1024, 4096, 6
+#: phase 36 (b): ResNet-50 bf16/NHWC/fused, B=64, K=4, 8 steps, in two
+#: fresh interpreters over one disk tier
+DISK_TIER_STEPS = 8
+#: phase 36 (c): the tune CLI on ResNet-50 at B=64, 224^2
+TUNE_ARGV = ("resnet50", "--batch", "64", "--classes", "1000", "--budget",
+             "8", "--reps", "2", "--steps", "8", "--max-k", "4", "--cost",
+             "h100-sxm")
+
+_DISK_CHILD = r"""
+import json, sys, time, warnings
+root, cache_dir, steps, k = sys.argv[1], sys.argv[2], int(sys.argv[3]), \
+    int(sys.argv[4])
+sys.path.insert(0, root)
+import numpy as np
+import torch
+from deeplearning4j_tpu_torch.data.dataset import DataSet
+from deeplearning4j_tpu_torch.models import zoo
+from deeplearning4j_tpu_torch.nn import compilecache as cc
+from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+ck.build()
+ck.install_platform_overrides()
+cc.configure(cache_dir)
+net = zoo.ResNet50(num_classes=1000).init()
+net.setPrecisionPolicy("bf16")
+net.setComputeLayout("NHWC")
+net.setEpilogueFusion(True)
+rng = np.random.default_rng(0)
+x = torch.from_numpy(rng.standard_normal((64, 3, 224, 224),
+                                         dtype=np.float32)).cuda()
+y = torch.from_numpy(np.eye(1000, dtype=np.float32)[
+    rng.integers(0, 1000, 64)]).cuda()
+cc.reset_stats()
+ck.reset_counts()
+t0 = time.perf_counter()
+net.fit([DataSet(x, y)] * steps, steps_per_dispatch=k)
+loss = float(net.score())
+fit_s = time.perf_counter() - t0
+print(json.dumps({"stats": cc.cache_stats(), "loss": loss, "fit_s": fit_s,
+                  "at_capture": net._step_for(False, k)
+                  .launches_at_capture(),
+                  "manifest": len(cc.read_manifest(net) or [])}))
+"""
+
+
+def samediff_rng(smi: str) -> None:
+    """Phase 36 (a): a SameDiff MLP with ``nn.dropout(0.5)`` and a
+    ``random.normal`` node, fit through the captured dispatch. Probes
+    wrapped around ``dropout_mask`` and ``normal_draw`` copy each step's
+    hidden mask and the noise's moments into tensors of their own inside
+    the graph, so every replay leaves its draws there: the masks keep
+    0.5 +- 0.01 and change from step to step, the noise keeps N(0, 1)
+    within 0.01, and a refit from the saved state (clock included) draws
+    the same masks, step for step."""
+    import torch
+
+    from deeplearning4j_tpu_torch.autodiff import SameDiff, TrainingConfig
+    from deeplearning4j_tpu_torch.nn import compilecache as cc
+    from deeplearning4j_tpu_torch.ops import normalization as norm_ops
+    from deeplearning4j_tpu_torch.train.updaters import Adam
+    dev = torch.device("cuda")
+    B, D, H = RNG_BATCH, RNG_IN, RNG_HIDDEN
+    mask_probe = torch.zeros((B, H), dtype=torch.bool, device=dev)
+    noise_probe = torch.zeros(2, device=dev)
+    mask_fn, normal_fn = norm_ops.dropout_mask, norm_ops.normal_draw
+
+    def probed_mask(key, shape, keep, device):
+        m = mask_fn(key, shape, keep, device)
+        if tuple(shape) == (B, H):
+            mask_probe.copy_(m)
+        return m
+
+    def probed_normal(key, shape, device):
+        z = normal_fn(key, shape, device)
+        noise_probe.copy_(torch.stack([z.mean(), z.std()]))
+        return z
+
+    norm_ops.dropout_mask, norm_ops.normal_draw = probed_mask, probed_normal
+    try:
+        rng = np.random.default_rng(3)
+        sd = SameDiff.create()
+        x = sd.placeHolder("x", shape=(None, D))
+        y = sd.placeHolder("y", shape=(None, 10))
+        w1 = sd.var("w1", (rng.standard_normal((D, H)) / np.sqrt(D))
+                    .astype(np.float32))
+        b1 = sd.var("b1", np.zeros(H, np.float32))
+        w2 = sd.var("w2", (rng.standard_normal((H, 10)) / np.sqrt(H))
+                    .astype(np.float32))
+        b2 = sd.var("b2", np.zeros(10, np.float32))
+        noisy = x + sd.random.normal(0.0, 1.0, (B, D), name="noise")
+        h = sd.nn.dropout(sd.nn.relu(sd.nn.linear(noisy, w1, b1)), 0.5)
+        loss = sd.loss.softmaxCrossEntropy(y, sd.nn.linear(h, w2, b2),
+                                           name="loss")
+        sd.setLossVariables(loss)
+        sd.setTrainingConfig(TrainingConfig(
+            updater=Adam(1e-3), data_set_feature_mapping=["x"],
+            data_set_label_mapping=["y"]))
+        batch = {"x": torch.from_numpy(rng.standard_normal(
+                     (B, D)).astype(np.float32)).to(dev),
+                 "y": torch.from_numpy(np.eye(10, dtype=np.float32)[
+                     rng.integers(0, 10, B)]).to(dev)}
+        sd._prepare_fit()
+        s0 = snapshot(sd._fit_state())
+
+        def run():
+            masks, noise, losses = [], [], []
+            for _ in range(RNG_STEPS):
+                losses += sd.fit([batch]).lossCurve()
+                masks.append(mask_probe.clone())
+                noise.append(noise_probe.tolist())
+            return masks, noise, losses
+        cc.reset_stats()
+        masks, noise, losses = run()
+        restore(sd._fit_state(), s0)
+        sd._step = 0
+        again, noise2, losses2 = run()
+        stats = cc.cache_stats()
+    finally:
+        norm_ops.dropout_mask, norm_ops.normal_draw = mask_fn, normal_fn
+    keeps = [float(m.float().mean()) for m in masks]
+    changed = all(not torch.equal(a, b) for a, b in zip(masks, masks[1:]))
+    same = all(torch.equal(a, b) for a, b in zip(masks, again))
+    log(f"SameDiff RNG under capture: keep fractions "
+        f"{', '.join(f'{v:.4f}' for v in keeps)}; noise mean/std "
+        f"{'; '.join(f'{m:.4f}/{sdv:.4f}' for m, sdv in noise)}; masks "
+        f"change every step: {changed}; a refit from the saved state "
+        f"draws the same masks: {same}, losses equal: {losses == losses2}"
+        f"; captures {[d.captures() for d in sd.fit_dispatches()]}, "
+        f"failures {stats['capture_failures']} [{smi}]")
+    if stats["capture_failures"] or [d.captures() for d in
+                                     sd.fit_dispatches()] != [1]:
+        fail(f"phase 36 (a): the RNG graph did not capture once: {stats}")
+    if not all(abs(k - 0.5) <= 0.01 for k in keeps) or not changed \
+            or not same or losses != losses2 or noise != noise2:
+        fail("phase 36 (a): dropout masks under capture: keep 0.5 +- 0.01, "
+             "a new mask each step, the same masks from the same state")
+    if not all(abs(m) <= 0.01 and abs(sdv - 1.0) <= 0.01
+               for m, sdv in noise) or len({tuple(v) for v in noise}) \
+            != RNG_STEPS or not all(np.isfinite(losses)):
+        fail(f"phase 36 (a): random.normal draws {noise}: want N(0, 1) "
+             "within 0.01, new each step, finite losses")
+
+
+def disk_tier(smi: str) -> int:
+    """Phase 36 (b): two fresh interpreters fit ResNet-50 (bf16, NHWC,
+    fused, B=64, K=4, 8 steps) over one disk tier. The first writes the
+    manifest (one disk miss); the second captures the manifest's
+    signature at warm start (4 x 33 ``scale_shift_act`` launches
+    recorded), misses nothing in memory during its fit, and counts one
+    disk hit a manifest entry. Then, in this process, the manifest is
+    corrupted: it is quarantined and a fresh net still fits (captured
+    cold, the manifest rewritten); W112 fires without a directory and is
+    silent with one. Returns the launches the warm start recorded."""
+    import shutil
+    import warnings
+
+    import torch
+
+    from deeplearning4j_tpu_torch.analysis import lint_compile_cache
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.nn import compilecache as cc
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="dl4j_disk_tier_")
+    try:
+        cache = os.path.join(tmp, "cache")
+        script = os.path.join(tmp, "child.py")
+        with open(script, "w") as f:
+            f.write(_DISK_CHILD)
+        runs = []
+        for n in (1, 2):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, script, root, cache, str(DISK_TIER_STEPS),
+                 str(MEGA_K)], capture_output=True, text=True, timeout=300)
+            if proc.returncode != 0:
+                fail(f"phase 36 (b): child {n} exited {proc.returncode}: "
+                     f"{proc.stderr[-2000:]}")
+            out = json.loads(proc.stdout.strip().splitlines()[-1])
+            out["wall_s"] = time.perf_counter() - t0
+            runs.append(out)
+            log(f"disk tier, process {n}: {out['wall_s']:.1f} s (fit "
+                f"{out['fit_s']:.2f} s), loss {out['loss']:.5f}, manifest "
+                f"entries {out['manifest']}, launches at capture "
+                f"{out['at_capture']}, cache_stats {out['stats']} [{smi}]")
+        first, second = runs
+        want = [{"scale_shift_act": MEGA_K * 33}]
+        if first["stats"]["disk"]["misses"] != 1 \
+                or first["stats"]["disk"]["hits"] or first["manifest"] != 1:
+            fail(f"phase 36 (b): the first process wrote {first}")
+        s2 = second["stats"]
+        if second["at_capture"] != want or s2["memory"]["misses"] \
+                or s2["disk"]["hits"] != second["manifest"] \
+                or s2["disk"]["misses"] \
+                or s2["compile_seconds"]["cold_compiles"] \
+                or not np.isfinite(second["loss"]):
+            fail(f"phase 36 (b): the second process {second}: want the "
+                 f"manifest's signature captured at warm start ({want}), "
+                 "one disk hit an entry, no miss")
+        # a corrupted entry: quarantined, and the fit still runs
+        entries = [n for n in os.listdir(cache) if n.startswith("cc_")]
+        with open(os.path.join(cache, entries[0]), "r+b") as f:
+            f.seek(-4, os.SEEK_END)
+            f.write(b"zzzz")
+        cc.configure(cache)
+        net = resnet50_bf16()
+        rng = np.random.default_rng(0)
+        x = torch.from_numpy(rng.standard_normal(
+            (64, 3, 224, 224), dtype=np.float32)).cuda()
+        y = torch.from_numpy(np.eye(1000, dtype=np.float32)[
+            rng.integers(0, 1000, 64)]).cuda()
+        cc.reset_stats()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            net.fit([DataSet(x, y)] * DISK_TIER_STEPS,
+                    steps_per_dispatch=MEGA_K)
+        loss = float(net.score())
+        st = cc.cache_stats()
+        quarantined = [n for n in os.listdir(cache)
+                       if n.startswith("quarantine_")]
+        if not any("quarantined" in str(w.message) for w in caught) \
+                or len(quarantined) != 1 or st["disk"]["hits"] \
+                or st["disk"]["misses"] != 1 or not np.isfinite(loss) \
+                or cc.read_manifest(net) is None:
+            fail(f"phase 36 (b): a corrupted manifest: quarantined "
+                 f"{quarantined}, stats {st}, loss {loss}")
+        cc.configure(None)
+        without = [d.code for d in lint_compile_cache()]
+        cc.configure(cache)
+        with_dir = [d.code for d in lint_compile_cache()]
+        log(f"disk tier, corrupted manifest: quarantined {quarantined}, "
+            f"the fit captured cold (loss {loss:.5f}, {st['disk']}); W112 "
+            f"without a directory {without}, with one {with_dir} [{smi}]")
+        if without != ["DL4J-W112"] or with_dir:
+            fail("phase 36 (b): W112 must fire without a cache directory "
+                 "and stay silent with a writable one")
+        del net, x, y
+        return second["at_capture"][0]["scale_shift_act"]
+    finally:
+        cc.reset_configuration()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def tune_resnet(smi: str) -> int:
+    """Phase 36 (c): ``python -m deeplearning4j_tpu_torch.tune`` on
+    ResNet-50 (B=64, 224^2, 1000 classes) through its ``main(argv)``:
+    budget 8, 2 reps of 8 steps, K up to 4, the H100 cost model pruning.
+    The CLI prints each trial's plan and ms a step, the pruned plans with
+    their reasons, the winner's speed-up over the fp32 NCHW default and
+    the parity verdict. Then a fresh ResNet-50's ``fit(tune="auto")``
+    applies the recorded plan; a fused winner's ``scale_shift_act``
+    launches are counted (at its capture for K > 1; 33 a step in NHWC,
+    none in NCHW, whose epilogues take the generic op). Returns them."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+    from deeplearning4j_tpu_torch.tune import records
+    from deeplearning4j_tpu_torch.tune.__main__ import main as tune_main
+    tmp = tempfile.mkdtemp(prefix="dl4j_tune_")
+    try:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = tune_main(list(TUNE_ARGV) + ["--dir", tmp])
+        tune_s = time.perf_counter() - t0
+        lines = buf.getvalue().splitlines()
+        for line in lines:
+            log(f"tune: {line}")
+        # every trial times its plan's captured step: one whose capture
+        # failed is a failed trial
+        failed = [line for line in lines if " FAILED " in line]
+        fresh = zoo.ResNet50(seed=11, num_classes=1000).init()
+        rec = records.lookup(fresh)
+        if rc != 0 or rec is None or rec.trials != 8 or failed:
+            fail(f"phase 36 (c): the tune CLI returned {rc}, record {rec}, "
+                 f"failed trials {failed}")
+        plan = rec.plan
+        rng = np.random.default_rng(0)
+        x = torch.from_numpy(rng.standard_normal(
+            (64, 3, 224, 224), dtype=np.float32)).cuda()
+        y = torch.from_numpy(np.eye(1000, dtype=np.float32)[
+            rng.integers(0, 1000, 64)]).cuda()
+        ck.reset_counts()
+        fresh.fit([DataSet(x, y)] * 8, tune="auto")
+        k = plan.steps_per_dispatch
+        applied = (fresh._compute_layout, fresh._fuse_epilogues,
+                   fresh._precision is not None)
+        want = (plan.compute_layout, plan.fuse_epilogues,
+                plan.precision is not None)
+        if k > 1:
+            at = fresh._step_for(False, k).launches_at_capture()
+            launches = sum(a.get("scale_shift_act", 0) for a in at)
+        else:
+            launches = ck.LAUNCHES["scale_shift_act"]
+        loss = float(fresh.score())
+        # the kernel takes channels-last epilogues: fused NCHW blocks take
+        # the generic op (the JAX Pallas gate's rule)
+        per = 33 * (k if k > 1 else 8) if plan.fuse_epilogues \
+            and plan.compute_layout == "NHWC" else 0
+        log(f"tune: {tune_s:.1f} s; winner {plan.signature()} "
+            f"({rec.speedup:.3f}x the default's "
+            f"{rec.default_cost_s * 1e3:.2f} ms a step, "
+            f"{rec.cost_s * 1e3:.2f} ms); a fresh net's fit(tune=\"auto\") "
+            f"applied layout/fusion/policy {applied}, K={k}, loss "
+            f"{loss:.5f}, scale_shift_act launches {launches} [{smi}]")
+        if applied != want or not np.isfinite(loss) \
+                or launches != per:
+            fail(f"phase 36 (c): fit(tune='auto') applied {applied}, "
+                 f"{launches} launches: want {plan.signature()}")
+        del fresh, x, y
+        return launches
+    finally:
+        records.reset_configuration()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def strict_warmup(smi: str) -> None:
+    """Phase 36 (d): ``ModelServer.warmup(shapes, strict=True,
+    cost="h100-sxm")`` on the SameDiff BERT-base of phase 6 (full width,
+    served through ``samediff_forward``, which the cost model prices as
+    its graph; a ``TransformerLM``'s forward is not lowered by it) passes;
+    the same warmup on a chip of 1 MB of memory raises E121 or E122."""
+    import torch
+
+    from deeplearning4j_tpu_torch.analysis.diagnostics import \
+        ModelValidationError
+    from deeplearning4j_tpu_torch.autodiff import SameDiff
+    from deeplearning4j_tpu_torch.serving import (ModelServer,
+                                                  samediff_forward)
+    sd = build_bert(SameDiff.create(), **BERT_SD)
+    server = ModelServer(samediff_forward(sd, ["probs"],
+                                          input_name="input_ids"),
+                         batch_limit=8, input_dtype=np.int32)
+    try:
+        t0 = time.perf_counter()
+        server.warmup([(BERT_SD["T"],)], strict=True, cost="h100-sxm")
+        ok_s = time.perf_counter() - t0
+        tiny = {"chip": {"name": "h100-1mb", "peak_flops": 989e12,
+                         "hbm_gb": 1.0 / 1024, "hbm_gbps": 3350.0,
+                         "ici_gbps": 450.0}}
+        try:
+            server.warmup([(BERT_SD["T"],)], strict=True, cost=tiny)
+            raised = None
+        except ModelValidationError as e:
+            raised = sorted({d.code for d in e.report.errors()})
+        log(f"strict warmup: h100-sxm passed ({server.buckets()} x "
+            f"T={BERT_SD['T']}, {ok_s:.2f} s, "
+            f"{server._dispatch.warmed_signatures()} graphs); a 1 MB chip "
+            f"raised {raised} [{smi}]")
+        if not raised or not {"DL4J-E121", "DL4J-E122"} & set(raised):
+            fail(f"phase 36 (d): warmup(strict=True) on a 1 MB chip raised "
+                 f"{raised}: want E121 or E122")
+    finally:
+        server.close()
+    del sd
+    torch.cuda.empty_cache()
+
+
+def rng_disk_tune(smi: str) -> dict:
+    """Phase 36: (a) SameDiff RNG under capture, (b) the disk tier across
+    processes, (c) tune on ResNet-50, (d) strict serving warmup."""
+    import torch
+    t0 = time.perf_counter()
+    samediff_rng(smi)
+    torch.cuda.empty_cache()
+    disk = disk_tier(smi)
+    torch.cuda.empty_cache()
+    tuned = tune_resnet(smi)
+    torch.cuda.empty_cache()
+    strict_warmup(smi)
+    log(f"phase 36 {time.perf_counter() - t0:.1f} s")
+    return {"disk_warm_launches": disk, "tune_launches": tuned}
 
 
 def plain_overrides(registry, ck) -> None:

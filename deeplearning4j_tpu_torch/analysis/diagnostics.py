@@ -118,10 +118,11 @@ DIAGNOSTIC_CODES = {
                  "target version was never warmed (or misses shapes the "
                  "active version serves warm), so post-roll traffic "
                  "captures under live load",
-    "DL4J-W112": "serving warmup without a persistent compile cache: the "
-                 "port's compile cache has only its memory tier, so "
-                 "every fresh process, rollout, and hot-swap staging pays "
-                 "full warm-up and capture instead of a disk hit",
+    "DL4J-W112": "serving warmup without a persistent compile cache (or "
+                 "with an unwritable directory): no warm-signature "
+                 "manifest is replayed or written, so every fresh "
+                 "process, rollout, and hot-swap staging captures what "
+                 "an earlier run already named only as traffic arrives",
     "DL4J-W113": "lifecycle observation window shorter than the SLO fast "
                  "window: the canary judge's burn-rate lookback cannot "
                  "contain even one fast-window reference sample, so every "

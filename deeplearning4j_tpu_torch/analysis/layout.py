@@ -210,7 +210,8 @@ def lint_conv_stack(located_layers, compute_layout: str,
         f"GEMM's N axis",
         fix_hint='enable the NHWC compute seam before training: '
                  'setComputeLayout("NHWC") (or builder '
-                 '.computeLayout("NHWC"))')]
+                 '.computeLayout("NHWC")), or let the autotuner pick the '
+                 'layout: python -m deeplearning4j_tpu_torch.tune <model>')]
 
 
 def lint_dtype(dtype, location: str = "config") -> List[Diagnostic]:

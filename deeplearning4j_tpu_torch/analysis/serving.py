@@ -88,19 +88,32 @@ def _activation_bytes_per_example(conf, shapes, itemsize: int) -> float:
 
 
 def lint_compile_cache(context: str = "serving warmup") -> List[Diagnostic]:
-    """The DL4J-W112 check: is a persistent compile cache configured? The
-    port's ``nn.compilecache`` keeps captured graphs in memory only (a
-    CUDA graph cannot be serialized; its disk tier, a warm-signature
-    manifest, is still to come), so every warmup starts cold and the
-    check always reports it."""
-    return [Diagnostic(
-        "DL4J-W112", Severity.WARNING, context,
-        "no persistent compile cache: the port's compile cache has only "
-        "its memory tier — every fresh process, rollout, and hot-swap "
-        "staging pays full warm-up and capture for graphs an earlier "
-        "run already captured",
-        fix_hint="warm the serving buckets before traffic moves "
-                 "(ModelServer.warmup / ModelRegistry.load with shapes)")]
+    """The DL4J-W112 check: is the compile cache's disk tier (its
+    warm-signature manifests) configured and writable?"""
+    from deeplearning4j_tpu_torch.nn.compilecache import (ENV_DIR,
+                                                          cache_dir_status)
+    directory, writable = cache_dir_status()
+    if directory is None:
+        return [Diagnostic(
+            "DL4J-W112", Severity.WARNING, context,
+            "no persistent compile cache is configured — every fresh "
+            "process, rollout, and hot-swap staging learns its signatures "
+            "from traffic, and captures the ones an earlier run already "
+            "captured only when they arrive",
+            fix_hint=f"set {ENV_DIR}=/path/shared/by/your/fleet (or call "
+                     "nn.compilecache.configure(dir)) so warmup replays "
+                     "the manifests of previously-seen (model, bucket, "
+                     "policy) signatures before traffic")]
+    if not writable:
+        return [Diagnostic(
+            "DL4J-W112", Severity.WARNING, context,
+            f"persistent compile cache directory {directory!r} is not "
+            "writable — warmup can neither populate nor refresh its "
+            "manifests, so rollouts on new (model, bucket, policy) "
+            "signatures still start cold",
+            fix_hint="fix the directory permissions (or point "
+                     f"{ENV_DIR} at a writable path)")]
+    return []
 
 
 def lint_serving(model_or_conf, buckets: Sequence[int], mesh=None,

@@ -1,4 +1,4 @@
-"""SameDiff graph engine: record a graph op by op, run it eagerly.
+"""SameDiff graph engine: record a graph op by op, run it on the card.
 
 The port's counterpart of ``deeplearning4j_tpu/autodiff/samediff.py``
 (ref: ``org.nd4j.autodiff.samediff.SameDiff`` + ``SDVariable`` and the
@@ -7,12 +7,31 @@ XLA program, the port runs it node by node on the graph's device, each
 node calling the op its name resolved to in :mod:`..ops.registry` **at
 record time**, so kernels installed as platform overrides before a node
 is recorded run in it. Gradients come from ``torch.autograd`` over the
-same eager run.
+same run.
 
 Graph model, as in the JAX package: ``variable`` (trainable),
 ``constant``, ``placeholder`` (fed at execution) and op nodes created
-through ``SDVariable`` methods and the ``math`` / ``nn`` / ``loss``
+through ``SDVariable`` methods and the ``math`` / ``nn`` / ``cnn`` /
+``rnn`` / ``loss`` / ``random`` / ``linalg`` / ``bitwise`` / ``image``
 namespaces, in topological order.
+
+Random numbers: ``nn.dropout`` and the ``random`` namespace record RNG
+nodes, rebuilt from ``(op, params)`` at ``load()`` in either package.
+Where the JAX package splits a threefry key, the port draws from the
+counter hash its layers use (``ops.normalization.StepKey(seed, t,
+path=(node index,))``, :func:`~..ops.normalization.hash24`): ``t`` is the
+graph's device step clock in ``fit`` and the Python step in ``output``.
+No generator is involved, so a captured step replays fresh draws from
+the clock it advances. The streams differ from threefry's, so parity is
+by moments and by injected masks.
+
+Training: ``fit`` dispatches its step (forward, backward, clips, the
+updater, the clock) through :class:`~..nn.compilecache.CachedDispatch`,
+one captured CUDA graph for each placeholder signature (scope
+``"samediff:fit"``). The step updates the variables, the updater state
+and the device clock ``_t_dev`` in place, and the first ``fit`` copies
+the variables once, as the JAX fit does, so an array the caller passed
+to ``var()`` survives. Losses stay on the card until each epoch ends.
 
 Serialization is the JAX package's zip (``graph.json`` + ``arrays.npz``,
 optional updater state): a graph either package saves loads in the
@@ -25,15 +44,16 @@ JSON spec (:func:`subgraph_spec`), so such nodes round-trip through
 nodes do. Where the JAX package lowers them to ``lax.while_loop`` and
 ``lax.cond``, the port runs them eagerly: the loop is a Python loop over the
 body on the graph's device, reading the predicate on the host once an
-iteration.
+iteration. Such a node is marked when it is recorded, and a graph whose
+loss needs one trains eagerly on the card by design (counted in
+``compilecache.cache_stats()["eager_by_design"]``): a captured graph
+cannot read a value on the host.
 
 Static analysis: ``infer_shapes`` (on ``meta`` tensors), ``validate``
 (the ``analysis`` package's SameDiff lints) and ``summary``.
 
-Not ported yet (ROADMAP.md queue 1): RNG ops and dropout; multi-head
-attention, ``std`` and ``variance``; the native backend; the CNN, RNN,
-Random, Linalg, Bitwise and Image namespaces; listeners and the public
-``rename``.
+Not ported (ROADMAP.md queue 1 item 11): the native backend
+(``setExecBackend("native")``).
 """
 
 from __future__ import annotations
@@ -49,6 +69,8 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.device import resolve_device
+from deeplearning4j_tpu_torch.nn import compilecache as cc
+from deeplearning4j_tpu_torch.ops import normalization as norm_ops
 from deeplearning4j_tpu_torch.ops import registry as op_registry
 from deeplearning4j_tpu_torch.train import updaters as upd
 from deeplearning4j_tpu_torch.train.updaters import IUpdater
@@ -58,8 +80,16 @@ from deeplearning4j_tpu_torch.train.updaters import IUpdater
 _NARROW = {torch.float64: torch.float32, torch.int64: torch.int32}
 
 
+#: nodes that read a value on the host (a loop predicate, a branch): the
+#: recorded op, the rebuild key, or the TF importer's op
+_HOST_OPS = frozenset({"while_loop", "cond"})
+_HOST_REBUILDS = frozenset({"subwhile", "subcond"})
+_HOST_TF_OPS = frozenset({"While", "StatelessWhile", "If", "StatelessIf"})
+
+
 class _Node:
-    __slots__ = ("op", "fn", "inputs", "outputs", "attrs", "rebuild")
+    __slots__ = ("op", "fn", "inputs", "outputs", "attrs", "rebuild",
+                 "host")
 
     def __init__(self, op: str, fn: Callable, inputs: List[str],
                  outputs: List[str], attrs: Dict[str, Any],
@@ -72,6 +102,9 @@ class _Node:
         # key into _FN_REBUILDERS for nodes whose callable is a closure
         # (not a plain registry op): save() records it, load() rebuilds
         self.rebuild = rebuild
+        # decided when the node is recorded: it reads a value on the host
+        self.host = (op in _HOST_OPS or rebuild in _HOST_REBUILDS
+                     or attrs.get("tf_op") in _HOST_TF_OPS)
 
 
 class SDVariable:
@@ -107,6 +140,11 @@ class SDVariable:
     @property
     def shape(self):
         return self._shape
+
+    def rename(self, new_name: str) -> "SDVariable":
+        self.sd._rename(self.name, new_name)
+        self.name = new_name
+        return self
 
     # ---- fluent op builders (each records a node) ----
     def _bin(self, other, op, reverse=False):
@@ -176,6 +214,7 @@ class SDVariable:
         return self._un("reduce_min", axis=list(axes) or None,
                         keepdims=keepdims)
 
+    def std(self, *axes): return self.sd.math.std(self, *axes)
     def argmax(self, axis=None): return self._un("argmax", axis=axis)
 
     def norm2(self, *axes):
@@ -226,7 +265,8 @@ class _Namespace:
 
 class SDMath(_Namespace):
     """ref: org.nd4j.autodiff.samediff.ops.SDMath — a passthrough to
-    every registry op (``sd.math.gather(x, idx, axis=0)``)."""
+    every registry op (``sd.math.gather(x, idx, axis=0)``), with ``std``
+    and ``variance`` (Bessel-corrected, as ``jnp.std(ddof=1)``)."""
 
     def __getattr__(self, op):
         if op_registry.has(op):
@@ -235,9 +275,19 @@ class SDMath(_Namespace):
             return method
         raise AttributeError(op)
 
+    def std(self, x, *axes, name=None):
+        return self.sd._record_fn(
+            "std", _make_std_fn({}), [x.name], name=name,
+            attrs={"axis": tuple(axes) or None}, rebuild="std")
+
+    def variance(self, x, *axes, name=None):
+        return self.sd._record_fn(
+            "variance", _make_variance_fn({}), [x.name], name=name,
+            attrs={"axis": tuple(axes) or None}, rebuild="variance")
+
 
 class SDNN(_Namespace):
-    """ref: ops.SDNN (without dropout and multi-head attention)."""
+    """ref: ops.SDNN."""
 
     def linear(self, x, w, b, name=None):
         return self._rec("xw_plus_b", [x, w, b], name=name)
@@ -264,17 +314,183 @@ class SDNN(_Namespace):
         ins = [x, gain] + ([bias] if bias is not None else [])
         return self._rec("layer_norm", ins, name=name, axis=axis)
 
+    def batchNorm(self, x, mean, var, gamma, beta, eps=1e-5, axis=1,
+                  name=None):
+        return self._rec("batchnorm_sd", [x, mean, var, gamma, beta],
+                         name=name, eps=eps, axis=axis)
+
+    def dropout(self, x, rate, name=None):
+        """Inverted dropout at drop probability ``rate``, drawn from the
+        graph's step key; the identity unless the run trains (``fit``, or
+        ``output(..., train=True)``)."""
+        sd = self.sd
+        return sd._record_rng("dropout", [sd._as_var(x).name], name=name,
+                              params={"rate": rate})
+
+    def multiHeadDotProductAttention(self, q, kv, wq, wk, wv, wo,
+                                     num_heads, mask=None, name=None):
+        ins = [q, kv, wq, wk, wv, wo] + ([mask] if mask is not None else [])
+        attrs = {"num_heads": num_heads, "has_mask": mask is not None}
+        return self.sd._record_fn("multi_head_dot_product_attention",
+                                  _make_mha_fn(attrs),
+                                  [self.sd._as_var(v).name for v in ins],
+                                  name=name, attrs=attrs,
+                                  rebuild="multi_head_dot_product_attention")
+
+
+class SDCNN(_Namespace):
+    """ref: ops.SDCNN."""
+
+    def conv2d(self, x, w, b=None, name=None, **attrs):
+        ins = [x, w] + ([b] if b is not None else [])
+        return self._rec("conv2d", ins, name=name, **attrs)
+
+    def conv1d(self, x, w, b=None, name=None, **attrs):
+        ins = [x, w] + ([b] if b is not None else [])
+        return self._rec("conv1d", ins, name=name, **attrs)
+
+    def deconv2d(self, x, w, b=None, name=None, **attrs):
+        ins = [x, w] + ([b] if b is not None else [])
+        return self._rec("deconv2d", ins, name=name, **attrs)
+
+    def depthWiseConv2d(self, x, w, b=None, name=None, **attrs):
+        ins = [x, w] + ([b] if b is not None else [])
+        return self._rec("depthwise_conv2d", ins, name=name, **attrs)
+
+    def separableConv2d(self, x, wd, wp, b=None, name=None, **attrs):
+        ins = [x, wd, wp] + ([b] if b is not None else [])
+        return self._rec("sconv2d", ins, name=name, **attrs)
+
+    def maxPooling2d(self, x, name=None, **attrs):
+        return self._rec("maxpool2d", [x], name=name, **attrs)
+
+    def avgPooling2d(self, x, name=None, **attrs):
+        return self._rec("avgpool2d", [x], name=name, **attrs)
+
+    def upsampling2d(self, x, scale=2, name=None):
+        return self._rec("upsampling2d", [x], name=name, scale=scale)
+
+    def im2Col(self, x, name=None, **attrs):
+        return self._rec("im2col", [x], name=name, **attrs)
+
+    def spaceToDepth(self, x, block, name=None):
+        return self._rec("space_to_depth", [x], name=name, block_size=block)
+
+    def depthToSpace(self, x, block, name=None):
+        return self._rec("depth_to_space", [x], name=name, block_size=block)
+
+
+class SDRNN(_Namespace):
+    """ref: ops.SDRNN (time-major [T, N, C] inputs)."""
+
+    def lstmLayer(self, x_tnc, w_ih, w_hh, b, name=None):
+        return self._rec("lstmLayer_out", [x_tnc, w_ih, w_hh, b], name=name)
+
+    def gru(self, x_tnc, w_ih, w_hh, b_ih, b_hh, name=None):
+        return self._rec("gru_out", [x_tnc, w_ih, w_hh, b_ih, b_hh],
+                         name=name)
+
 
 class SDLoss(_Namespace):
-    """ref: ops.SDLoss (the two logit losses)."""
+    """ref: ops.SDLoss."""
+
+    def mse(self, labels, preds, name=None):
+        return self._rec("mean_sqerr_loss", [labels, preds], name=name)
+
+    def meanSquaredError(self, labels, preds, name=None):
+        return self._rec("mean_sqerr_loss", [labels, preds], name=name)
 
     def softmaxCrossEntropy(self, labels, logits, name=None):
         return self._rec("softmax_cross_entropy_loss", [labels, logits],
                          name=name)
 
+    def sigmoidCrossEntropy(self, labels, logits, name=None):
+        return self._rec("sigmoid_cross_entropy_loss", [labels, logits],
+                         name=name)
+
     def sparseSoftmaxCrossEntropy(self, labels, logits, name=None):
         return self._rec("sparse_softmax_cross_entropy_loss",
                          [labels, logits], name=name)
+
+    def absoluteDifference(self, labels, preds, name=None):
+        return self._rec("absolute_difference_loss", [labels, preds],
+                         name=name)
+
+    def cosineDistance(self, labels, preds, name=None):
+        return self._rec("cosine_distance_loss", [labels, preds], name=name)
+
+    def hingeLoss(self, labels, preds, name=None):
+        return self._rec("hinge_loss", [labels, preds], name=name)
+
+    def huberLoss(self, labels, preds, delta=1.0, name=None):
+        return self._rec("huber_loss", [labels, preds], name=name,
+                         delta=delta)
+
+    def logLoss(self, labels, preds, name=None):
+        return self._rec("log_loss", [labels, preds], name=name)
+
+    def l2Loss(self, x, name=None):
+        return self._rec("l2_loss", [x], name=name)
+
+
+class SDRandom(_Namespace):
+    """ref: ops.SDRandom — draws from the graph's step key (module
+    doc)."""
+
+    def _rng_op(self, opname, shape, name=None, **attrs):
+        return self.sd._record_rng(opname, [], name=name,
+                                   params={"shape": tuple(shape), **attrs})
+
+    def uniform(self, low, high, shape, name=None):
+        return self._rng_op("random_uniform", shape, name=name, minval=low,
+                            maxval=high)
+
+    def normal(self, mean, stddev, shape, name=None):
+        return self._rng_op("random_normal", shape, name=name, mean=mean,
+                            stddev=stddev)
+
+    def bernoulli(self, p, shape, name=None):
+        return self._rng_op("random_bernoulli", shape, name=name, p=p)
+
+
+class SDLinalg(_Namespace):
+    """ref: ops.SDLinalg."""
+
+    def mmul(self, a, b, name=None):
+        return self._rec("matmul", [a, b], name=name)
+
+    def cholesky(self, a, name=None): return self._rec("cholesky", [a], name=name)
+    def qr(self, a, name=None): return self._rec("qr", [a], name=name, n_out=2)
+    def svd(self, a, name=None): return self._rec("svd", [a], name=name, n_out=3)
+    def inverse(self, a, name=None): return self._rec("matrix_inverse", [a], name=name)
+    def det(self, a, name=None): return self._rec("matrix_determinant", [a], name=name)
+    def solve(self, a, b, name=None): return self._rec("solve", [a, b], name=name)
+
+
+class SDBitwise(_Namespace):
+    """ref: ops.SDBitwise."""
+
+    def and_(self, a, b, name=None): return self._rec("bitwise_and", [a, b], name=name)
+    def or_(self, a, b, name=None): return self._rec("bitwise_or", [a, b], name=name)
+    def xor(self, a, b, name=None): return self._rec("bitwise_xor", [a, b], name=name)
+    def leftShift(self, a, b, name=None): return self._rec("left_shift", [a, b], name=name)
+    def rightShift(self, a, b, name=None): return self._rec("right_shift", [a, b], name=name)
+
+
+class SDImage(_Namespace):
+    """ref: ops.SDImage."""
+
+    def resizeBiLinear(self, x, h, w, name=None):
+        return self._rec("resize_bilinear", [x], name=name, size=(h, w))
+
+    def resizeNearestNeighbor(self, x, h, w, name=None):
+        return self._rec("resize_nearest_neighbor", [x], name=name,
+                         size=(h, w))
+
+    def nonMaxSuppression(self, boxes, scores, max_out, iou_threshold=0.5,
+                          name=None):
+        return self._rec("non_max_suppression", [boxes, scores], name=name,
+                         max_out=max_out, iou_threshold=iou_threshold)
 
 
 class TrainingConfig:
@@ -337,9 +553,25 @@ class SameDiff:
         self.training_config: Optional[TrainingConfig] = None
         self._updater_state: Optional[Dict] = None
         self._step = 0
+        self._listeners: List[Any] = []
+        #: the seed of the graph's RNG nodes' step keys (the JAX fit's
+        #: PRNGKey(0))
+        self._seed = 0
+        self._t_dev: Optional[torch.Tensor] = None   # the device clock
+        #: the fit's dispatches by placeholder names, and the state
+        #: tensors they were captured over (held, so none is freed)
+        self._fit_dispatch: Dict[tuple, cc.CachedDispatch] = {}
+        self._fit_owned: Optional[List[torch.Tensor]] = None
+        self._fit_eager = False     # the loss needs a host-control node
         self.math = SDMath(self)
         self.nn = SDNN(self)
+        self.cnn = SDCNN(self)
+        self.rnn = SDRNN(self)
         self.loss = SDLoss(self)
+        self.random = SDRandom(self)
+        self.linalg = SDLinalg(self)
+        self.bitwise = SDBitwise(self)
+        self.image = SDImage(self)
 
     # ------------------------------------------------------------- creation
     @staticmethod
@@ -423,6 +655,7 @@ class SameDiff:
         node = _Node(op, fn, list(input_names), out_names, attrs,
                      rebuild=rebuild)
         self._nodes.append(node)
+        self._invalidate()
         outs = []
         for on in out_names:
             v = SDVariable(self, on, "ARRAY")
@@ -431,9 +664,25 @@ class SameDiff:
             outs.append(v)
         return outs[0] if n_out == 1 else tuple(outs)
 
+    def _record_rng(self, op: str, input_names: List[str],
+                    name: str = None, params: Dict = None):
+        """Record an op that takes the step key and the train flag. Its
+        callable is rebuilt from ``(op, params)``, here and at ``load()``,
+        so RNG nodes serialize as the JAX package's do."""
+        params = params or {}
+        return self._record_fn(op, _make_rng_fn(op, params), input_names,
+                               name=name, attrs={"__rng__": True, **params})
+
+    def _invalidate(self):
+        """Drop the fit's captured steps: the graph, its losses or its
+        training configuration changed."""
+        self._fit_dispatch = {}
+        self._fit_owned = None
+
     def _rename(self, old: str, new: str):
-        """Rename a variable everywhere it appears (the TF importer aligns
-        multi-output and deframed nodes' names with TF's refs)."""
+        """Rename a variable everywhere it appears (``SDVariable.rename``;
+        the TF importer aligns multi-output and deframed nodes' names with
+        TF's refs)."""
         for d in (self._variables, self._constants, self._placeholders,
                   self._vars):
             if old in d:
@@ -447,6 +696,7 @@ class SameDiff:
             self._producers[new] = self._producers.pop(old)
         self._loss_variables = [new if n == old else n
                                 for n in self._loss_variables]
+        self._invalidate()
 
     # ------------------------------------------------------------ execution
     def _needed_nodes(self, output_names: Sequence[str]) -> List[_Node]:
@@ -466,12 +716,27 @@ class SameDiff:
 
     def _exec(self, variables: Dict[str, torch.Tensor],
               placeholders: Dict[str, torch.Tensor],
-              output_names: Sequence[str]) -> Dict[str, torch.Tensor]:
-        """Run the nodes the outputs need, in recorded order, eagerly on
-        the graph's device."""
+              output_names: Sequence[str], train: bool = False,
+              t=None, key: "norm_ops.StepKey" = None
+              ) -> Dict[str, torch.Tensor]:
+        """Run the nodes the outputs need, in recorded order, on the
+        graph's device. An RNG node ``i`` draws from ``key.fold(i)``,
+        ``key`` by default ``StepKey(seed, t)`` with ``t`` the step clock
+        (the Python step when None); ``train`` switches dropout on."""
         env = {**variables, **self._constants, **placeholders}
+        if key is None:
+            key = norm_ops.StepKey(self._seed,
+                                   self._step if t is None else t)
+        index = None
         for node in self._needed_nodes(output_names):
-            res = node.fn(*(env[n] for n in node.inputs), **node.attrs)
+            args = [env[n] for n in node.inputs]
+            if node.attrs.get("__rng__"):
+                if index is None:
+                    index = {id(nd): i for i, nd in enumerate(self._nodes)}
+                res = node.fn(*args, key.fold(index[id(node)]), train,
+                              self.device)
+            else:
+                res = node.fn(*args, **node.attrs)
             if len(node.outputs) == 1:
                 env[node.outputs[0]] = res
             else:
@@ -481,15 +746,15 @@ class SameDiff:
     def _feed(self, placeholders) -> Dict[str, torch.Tensor]:
         return {k: self._as_tensor(v) for k, v in (placeholders or {}).items()}
 
-    def output(self, placeholders: Dict[str, Any], outputs: Sequence[str]
-               ) -> Dict[str, torch.Tensor]:
-        """ref: SameDiff.output / batchOutput (no ported op has a
-        training mode, so there is no ``train`` flag yet)."""
+    def output(self, placeholders: Dict[str, Any], outputs: Sequence[str],
+               train: bool = False) -> Dict[str, torch.Tensor]:
+        """ref: SameDiff.output / batchOutput; ``train=True`` runs dropout
+        in training mode."""
         outputs = [o.name if isinstance(o, SDVariable) else o
                    for o in outputs]
         with torch.no_grad():
             return self._exec(self._variables, self._feed(placeholders),
-                              outputs)
+                              outputs, train=train)
 
     def batchOutput(self):
         sd = self
@@ -518,6 +783,7 @@ class SameDiff:
     def setLossVariables(self, *names):
         self._loss_variables = [n.name if isinstance(n, SDVariable) else n
                                 for n in names]
+        self._invalidate()
 
     def convertToVariables(self, *names):
         """Promote constants to trainable variables (ref:
@@ -531,6 +797,7 @@ class SameDiff:
             self._variables[n] = self._constants.pop(n)
             self._vars[n].var_type = "VARIABLE"
         self._updater_state = None       # the set of trained leaves changed
+        self._invalidate()
         return self
 
     def convertToConstants(self, *names):
@@ -545,15 +812,17 @@ class SameDiff:
             self._constants[n] = self._variables.pop(n)
             self._vars[n].var_type = "CONSTANT"
         self._updater_state = None
+        self._invalidate()
         return self
 
-    def _total_loss(self, variables, placeholders) -> torch.Tensor:
+    def _total_loss(self, variables, placeholders, train: bool = False,
+                    t=None) -> torch.Tensor:
         """The sum of the ``sum`` of every loss variable (the JAX
         package's ``_total_loss_fn``)."""
         names = tuple(self._loss_variables)
         if not names:
             raise ValueError("call setLossVariables first")
-        outs = self._exec(variables, placeholders, names)
+        outs = self._exec(variables, placeholders, names, train=train, t=t)
         return sum(outs[n].sum() for n in names)
 
     def calculateGradients(self, placeholders: Dict[str, Any],
@@ -590,20 +859,29 @@ class SameDiff:
     # ------------------------------------------------------------- training
     def setTrainingConfig(self, cfg: TrainingConfig):
         self.training_config = cfg
+        self._invalidate()
+
+    def setListeners(self, *listeners):
+        """Listeners whose ``iterationDone(sd, step, loss)`` runs after
+        each fit step (``loss`` on the device)."""
+        self._listeners = list(listeners)
 
     def _train_step(self, phs: Dict[str, torch.Tensor]) -> torch.Tensor:
         """One step, as the JAX package's ``_make_train_step``: loss and
-        gradients of every variable, L1/L2, the three clips, then the
-        updater at ``t = step`` (Adam adds the 1 itself) and AdamW's
-        decoupled decay on weights of ndim >= 2. Returns the loss on the
+        gradients of every variable (dropout on, the RNG nodes keyed by
+        the device clock), L1/L2, the three clips, then the updater at
+        ``t`` = the clock and AdamW's decoupled decay on weights of ndim
+        >= 2. The variables, the updater state and the clock change in
+        place, so the step can be captured. Returns the loss on the
         device."""
         cfg = self.training_config
         updater = cfg.updater
         names = list(self._variables)
+        t = self._t_dev
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in self._variables.items()}
         with torch.enable_grad():
-            loss = self._total_loss(leaves, phs)
+            loss = self._total_loss(leaves, phs, train=True, t=t)
             grads = torch.autograd.grad(loss, [leaves[k] for k in names],
                                         allow_unused=True)
         grads = [g if g is not None else torch.zeros_like(leaves[k])
@@ -619,32 +897,91 @@ class SameDiff:
                 grads = upd.clip_by_norm(grads, cfg.clip_norm)
             if cfg.clip_global_norm:
                 grads = upd.clip_by_global_norm(grads, cfg.clip_global_norm)
-            t = self._step
             lr = updater.lr_at(t)
             decay = isinstance(updater, upd.AdamW) and updater.weight_decay
             for k, g in zip(names, grads):
                 p = self._variables[k]
-                u, self._updater_state[k] = updater.apply(
-                    g, self._updater_state[k], lr, t)
+                state = self._updater_state[k]
+                u, s2 = updater.apply(g, state, lr, t)
                 if decay and p.dim() >= 2:
                     u = u + updater.weight_decay_update(p, lr)
-                # out of place: an array the caller passed to var() stays
-                self._variables[k] = p - u
+                p.sub_(u)
+                for sk, sv in s2.items():
+                    if sv is not state[sk]:
+                        state[sk].copy_(sv)
+            t.add_(1)
         return loss.detach()
+
+    def _fit_state(self) -> List[torch.Tensor]:
+        """What the fit's step writes: the variables, the updater state
+        and the device clock."""
+        return cc.state_tensors(self._variables, self._updater_state,
+                                self._t_dev)
+
+    def _prepare_fit(self) -> None:
+        """Once per fit: the updater state, the clock at the Python step,
+        and (the first time, or after a caller replaced an array) the
+        variables copied into storage the fit owns; the captured steps
+        are dropped whenever that storage changed."""
+        cfg = self.training_config
+        if self._updater_state is None:
+            self._updater_state = {k: cfg.updater.init_state(v)
+                                   for k, v in self._variables.items()}
+        if self._t_dev is None:
+            self._t_dev = torch.zeros((), dtype=torch.int32,
+                                      device=self.device)
+        self._t_dev.fill_(self._step)
+        owned = self._fit_owned
+        state = self._fit_state()
+        if owned is None or len(owned) != len(state) \
+                or any(a is not b for a, b in zip(owned, state)):
+            # an array the caller passed to var() (or set) must survive
+            # the in-place updates: the fit trains copies of its own
+            self._variables = {k: v.detach().clone()
+                               for k, v in self._variables.items()}
+            self._fit_dispatch = {}
+            self._fit_owned = self._fit_state()
+        self._fit_eager = bool(self.host_control_nodes())
+
+    def host_control_nodes(self) -> List[str]:
+        """The nodes the loss needs that read a value on the host (marked
+        when recorded): a graph with any trains eagerly by design."""
+        return [n.outputs[0] for n in self._needed_nodes(
+            tuple(self._loss_variables)) if n.host]
+
+    def _fit_step(self, phs: Dict[str, torch.Tensor]) -> torch.Tensor:
+        names = tuple(sorted(phs))
+        if self._fit_eager:
+            cc.note_eager_by_design()
+            return self._train_step(phs)
+        d = self._fit_dispatch.get(names)
+        if d is None:
+            def step(*args):
+                return self._train_step(dict(zip(names, args)))
+            d = self._fit_dispatch[names] = cc.CachedDispatch(
+                step, "samediff:fit", state=self._fit_state,
+                always_capture=True)
+        return d(*(phs[n] for n in names))
+
+    def fit_dispatches(self) -> List[cc.CachedDispatch]:
+        """The fit's dispatches (one a placeholder-name set), for their
+        captures and the launches recorded into them."""
+        return list(self._fit_dispatch.values())
 
     def fit(self, data=None, epochs: int = 1, batch_size: int = None,
             iterator=None) -> History:
         """ref: SameDiff.fit. ``data``: an iterable of batches, each a
         dict ``{placeholder: array}`` or a ``(features, labels)`` pair
         mapped through the TrainingConfig's names, or a dict of full
-        arrays (minibatched by ``batch_size``). The losses stay on the
-        device until the end of each epoch."""
+        arrays (minibatched by ``batch_size``). Each step is one replay
+        of the captured step for its placeholder signature on the card
+        (eagerly on the CPU, and by design for a graph with host control
+        flow). The losses stay on the device until the end of each
+        epoch."""
         if self.training_config is None:
             raise ValueError("setTrainingConfig first")
         cfg = self.training_config
-        if self._updater_state is None:
-            self._updater_state = {k: cfg.updater.init_state(v)
-                                   for k, v in self._variables.items()}
+        self._prepare_fit()
 
         def batches():
             src = iterator if iterator is not None else data
@@ -670,8 +1007,12 @@ class SameDiff:
         for _ in range(epochs):
             losses = []
             for batch in batches():
-                losses.append(self._train_step(self._feed(batch)))
+                loss = self._fit_step(self._feed(batch))
+                losses.append(loss)
                 self._step += 1
+                for lst in self._listeners:
+                    if hasattr(lst, "iterationDone"):
+                        lst.iterationDone(self, self._step, loss)
             if losses:
                 hist.loss_curve += torch.stack(losses).cpu().tolist()
         return hist
@@ -692,6 +1033,8 @@ class SameDiff:
                                            cond_fn._default_outputs(1)),
                      "body": subgraph_spec(body_fn,
                                            body_fn._default_outputs(n))}
+            if _sub_has_rng(attrs["cond"], attrs["body"]):
+                attrs["__rng__"] = True
             return self._record_fn("while_loop", _make_subwhile_fn(attrs),
                                    names, name=name, n_out=n, attrs=attrs,
                                    rebuild="subwhile")
@@ -717,6 +1060,8 @@ class SameDiff:
                                            true_fn._default_outputs(n_out)),
                      "false": subgraph_spec(false_fn,
                                             false_fn._default_outputs(n_out))}
+            if _sub_has_rng(attrs["true"], attrs["false"]):
+                attrs["__rng__"] = True
             return self._record_fn("cond", _make_subcond_fn(attrs), names,
                                    name=name, n_out=n_out, attrs=attrs,
                                    rebuild="subcond")
@@ -733,6 +1078,8 @@ class SameDiff:
         names = [self._as_var(v).name for v in inputs]
         outs = list(outputs) if outputs else sub._default_outputs(1)
         attrs = {"sub": subgraph_spec(sub, outs)}
+        if _sub_has_rng(attrs["sub"]):
+            attrs["__rng__"] = True
         return self._record_fn("subgraph", _make_subcall_fn(attrs), names,
                                name=name, n_out=len(outs), attrs=attrs,
                                rebuild="subcall")
@@ -786,7 +1133,11 @@ class SameDiff:
             outs = None
             if all(a is not None for a in args):
                 try:
-                    res = node.fn(*args, **node.attrs)
+                    if node.attrs.get("__rng__"):
+                        res = node.fn(*args, norm_ops.StepKey(0, 0), False,
+                                      torch.device("meta"))
+                    else:
+                        res = node.fn(*args, **node.attrs)
                     outs = (res,) if len(node.outputs) == 1 else tuple(res)
                 except (RuntimeError, NotImplementedError, TypeError,
                         ValueError, IndexError):
@@ -921,7 +1272,8 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 def _node_to_spec(node: _Node) -> dict:
     """JSON-able spec of one node."""
     spec = {"op": node.op, "inputs": node.inputs, "outputs": node.outputs,
-            "attrs": dict(node.attrs), "rng": False}
+            "attrs": {k: v for k, v in node.attrs.items() if k != "__rng__"},
+            "rng": bool(node.attrs.get("__rng__"))}
     if node.rebuild is not None:
         spec["rebuild"] = node.rebuild
     elif not op_registry.has(node.op):
@@ -938,10 +1290,6 @@ def _node_from_spec(nd_spec: dict) -> _Node:
     attrs = {k: (tuple(v) if isinstance(v, list) and k != "index" else v)
              for k, v in nd_spec["attrs"].items()}
     rebuild = nd_spec.get("rebuild")
-    if nd_spec.get("rng"):
-        raise NotImplementedError(
-            f"node '{nd_spec['op']}' draws random numbers: RNG ops are not "
-            "ported yet")
     if rebuild == "tf" and rebuild not in _FN_REBUILDERS:
         # TF-imported graphs: the importer registers its rebuilder
         import deeplearning4j_tpu_torch.modelimport.tensorflow  # noqa: F401
@@ -953,6 +1301,12 @@ def _node_from_spec(nd_spec: dict) -> _Node:
                 f"node '{nd_spec['op']}' (rebuild '{rebuild}') is not "
                 f"ported yet; ported closures: {sorted(_FN_REBUILDERS)}")
         fn = _FN_REBUILDERS[rebuild](attrs)
+        if nd_spec.get("rng"):
+            # control-flow nodes whose bodies hold RNG ops take the key too
+            attrs["__rng__"] = True
+    elif nd_spec.get("rng"):
+        fn = _make_rng_fn(nd_spec["op"], attrs)
+        attrs["__rng__"] = True
     else:
         fn = op_registry.get(nd_spec["op"])
     return _Node(nd_spec["op"], fn, nd_spec["inputs"], nd_spec["outputs"],
@@ -1027,7 +1381,9 @@ def subgraph_spec(sub: "SameDiff", outputs: Sequence[str]) -> dict:
                    for k, v in {**sub._constants, **sub._variables}.items()},
         "nodes": [_node_to_spec(n) for n in sub._nodes],
         "outputs": list(outputs),
-        "has_rng": False,
+        # the containing node passes (key, train) on when True, so
+        # dropout and draws inside control-flow bodies stay live
+        "has_rng": any(n.attrs.get("__rng__") for n in sub._nodes),
     }
 
 
@@ -1049,23 +1405,41 @@ def subgraph_from_spec(spec: dict, device="cpu") -> "SameDiff":
 
 
 def subgraph_fn(spec: dict) -> Callable:
-    """A subgraph spec as ``call(*args) -> tuple(outputs)``, the args bound
-    to the placeholders in declared order. The subgraph is built on the
-    device of the first tensor argument when first called there."""
+    """A subgraph spec as ``call(*args, key=None, train=False) ->
+    tuple(outputs)``, the args bound to the placeholders in declared
+    order; RNG nodes inside draw from ``key`` folded with their index.
+    The subgraph is built on the device of the first tensor argument
+    when first called there."""
     outputs = tuple(spec["outputs"])
     ph_names = spec["ph_order"]
     subs: Dict[torch.device, SameDiff] = {}
 
-    def call(*args):
+    def call(*args, key=None, train=False):
         dev = next((a.device for a in args if isinstance(a, torch.Tensor)),
                    torch.device("cpu"))
         sub = subs.get(dev)
         if sub is None:
             sub = subs[dev] = subgraph_from_spec(spec, dev)
         outs = sub._exec({}, {k: sub._as_tensor(a)
-                              for k, a in zip(ph_names, args)}, outputs)
+                              for k, a in zip(ph_names, args)}, outputs,
+                         train=train, key=key)
         return tuple(outs[n] for n in outputs)
     return call
+
+
+def _sub_has_rng(*specs) -> bool:
+    return any(s.get("has_rng") for s in specs)
+
+
+def _with_rng(run: Callable, rng: bool) -> Callable:
+    """A control-flow node's callable: with RNG bodies the executor
+    appends ``(key, train, device)`` to its arguments."""
+    if rng:
+        def fn(*all_args, **_kw):
+            *args, key, train, _device = all_args
+            return run(args, key, train)
+        return fn
+    return lambda *args, **_kw: run(args, None, False)
 
 
 def _make_subwhile_fn(attrs: dict) -> Callable:
@@ -1075,12 +1449,12 @@ def _make_subwhile_fn(attrs: dict) -> Callable:
     body = subgraph_fn(attrs["body"])
     n = len(attrs["body"]["outputs"])
 
-    def fn(*args, **_kw):
+    def run(args, key, train):
         c = tuple(args)
-        while bool(cond(*c)[0].reshape(())):
-            c = body(*c)
+        while bool(cond(*c, key=key, train=train)[0].reshape(())):
+            c = body(*c, key=key, train=train)
         return c if n > 1 else c[0]
-    return fn
+    return _with_rng(run, _sub_has_rng(attrs["cond"], attrs["body"]))
 
 
 def _make_subcond_fn(attrs: dict) -> Callable:
@@ -1088,10 +1462,12 @@ def _make_subcond_fn(attrs: dict) -> Callable:
     ffn = subgraph_fn(attrs["false"])
     n = len(attrs["true"]["outputs"])
 
-    def fn(p, *args, **_kw):
-        res = (tfn if bool(p.reshape(())) else ffn)(*args)
+    def run(args, key, train):
+        p, *rest = args
+        res = (tfn if bool(p.reshape(())) else ffn)(*rest, key=key,
+                                                    train=train)
         return res if n > 1 else res[0]
-    return fn
+    return _with_rng(run, _sub_has_rng(attrs["true"], attrs["false"]))
 
 
 def _make_subcall_fn(attrs: dict) -> Callable:
@@ -1100,15 +1476,88 @@ def _make_subcall_fn(attrs: dict) -> Callable:
     sub = subgraph_fn(attrs["sub"])
     n = len(attrs["sub"]["outputs"])
 
-    def fn(*args, **_kw):
-        res = sub(*args)
+    def run(args, key, train):
+        res = sub(*args, key=key, train=train)
         return res if n > 1 else res[0]
+    return _with_rng(run, _sub_has_rng(attrs["sub"]))
+
+
+def _uniform01(key, shape, device) -> torch.Tensor:
+    """fp32 uniforms in [0, 1) on a 2^-24 grid from ``key`` alone."""
+    n = 1
+    for d in shape:
+        n *= int(d)
+    u = norm_ops.hash24(key, n, device).float() * (2.0 ** -24)
+    return u.reshape(tuple(shape))
+
+
+def _draw_uniform(key, shape, device, minval=0.0, maxval=1.0):
+    return minval + (maxval - minval) * _uniform01(key, shape, device)
+
+
+def _draw_normal(key, shape, device, mean=0.0, stddev=1.0):
+    return mean + stddev * norm_ops.normal_draw(key, shape, device)
+
+
+def _draw_bernoulli(key, shape, device, p=0.5):
+    return _uniform01(key, shape, device) < p
+
+
+#: the SDRandom ops as counter draws (module doc)
+_COUNTER_DRAWS = {"random_uniform": _draw_uniform,
+                  "random_normal": _draw_normal,
+                  "random_bernoulli": _draw_bernoulli}
+
+
+def _make_rng_fn(op: str, params: Dict) -> Callable:
+    """The callable of an RNG node from its serializable params, at record
+    time and at ``load()``: ``fn(*inputs, key, train, device)``."""
+    params = {k: v for k, v in params.items() if k != "__rng__"}
+    if op == "dropout":
+        rate = float(params["rate"])
+        return lambda x, key, train, _device=None: norm_ops.dropout(
+            x, rate, key, train=train)
+    draw = _COUNTER_DRAWS.get(op)
+    if draw is None:
+        raise NotImplementedError(
+            f"RNG node '{op}': the port draws dropout and "
+            f"{sorted(_COUNTER_DRAWS)}")
+    shape = tuple(int(d) for d in params.pop("shape"))
+    return lambda key, train, device: draw(key, shape, device, **params)
+
+
+def _dims(axis):
+    return None if axis is None else tuple(axis) \
+        if isinstance(axis, (tuple, list)) else (int(axis),)
+
+
+def _make_std_fn(attrs):
+    return lambda v, axis=None: torch.std(v, dim=_dims(axis), correction=1)
+
+
+def _make_variance_fn(attrs):
+    return lambda v, axis=None: torch.var(v, dim=_dims(axis), correction=1)
+
+
+def _make_mha_fn(attrs):
+    """The multiHeadDotProductAttention closure; a recorded mask is a
+    graph input, passed positionally after the six weights."""
+    inner = op_registry.get("multi_head_dot_product_attention")
+    if attrs.get("has_mask"):
+        def fn(q, kv, wq, wk, wv, wo, m, num_heads=None, has_mask=True):
+            return inner(q, kv, wq, wk, wv, wo, num_heads=num_heads, mask=m)
+    else:
+        def fn(q, kv, wq, wk, wv, wo, num_heads=None, has_mask=False):
+            return inner(q, kv, wq, wk, wv, wo, num_heads=num_heads)
     return fn
 
 
 # rebuild-key -> closure builder; save() records the key, load() calls it
 # (the TF importer adds "tf")
 _FN_REBUILDERS = {"getitem": _make_getitem_fn,
+                  "std": _make_std_fn,
+                  "variance": _make_variance_fn,
+                  "multi_head_dot_product_attention": _make_mha_fn,
                   "subwhile": _make_subwhile_fn,
                   "subcond": _make_subcond_fn,
                   "subcall": _make_subcall_fn}

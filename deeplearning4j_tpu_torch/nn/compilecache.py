@@ -1,4 +1,4 @@
-"""Captured dispatch and the warmup API — the in-memory tier of
+"""Captured dispatch, its disk tier and the warmup API — the port of
 ``deeplearning4j_tpu/nn/compilecache.py``.
 
 On the card the counterpart of a compiled XLA program is a captured CUDA
@@ -23,31 +23,53 @@ per kernel.
   AOT fallback does; ``cache_stats()["capture_failures"]`` counts it. On
   the CPU a dispatch calls the function eagerly: the caller asked for
   the CPU.
+- The disk tier. A CUDA graph cannot be serialized, so what persists is
+  a **warm-signature manifest**: for each model (its configuration's
+  fingerprint, compute layout, epilogue fusion and precision policy) and
+  scope, the signatures its dispatches captured — the batch signature,
+  K, layout, fusion, policy and scope. :class:`DiskCompileCache` stores
+  one manifest a file, in the JAX package's entry format: magic line,
+  JSON header (format, :func:`runtime_fingerprint`, payload SHA-256,
+  scope), payload; atomic writes by temp file and ``os.replace``;
+  corrupt entries quarantined, entries of another runtime ignored and
+  rewritten; LRU eviction past ``max_entries``. At start-up ``fit`` and
+  :func:`warmup` replay a model's manifest through
+  :func:`warm_from_batch_signature`, so every signature it names is
+  captured before the first batch; a served model's warmup adds its
+  manifest's shapes. With the tier configured, a dispatch also captures
+  at its first call (the reference goes AOT once the cache is on).
+  Enable it with :func:`configure` or ``DL4J_TPU_COMPILE_CACHE_DIR``.
 - :func:`warmup` is the one entry point: ``warmup(net, [((64, 3, 224,
   224), (64, 1000))], steps_per_dispatch=K)`` captures the train step (K
   steps with K > 1) for that batch signature; ``warmup(server, shapes)``
   delegates to the serving bucket-ladder warmup, which captures the
   served forward and head of every bucket x shape (scope
-  ``"serving:forward"``).
+  ``"serving:forward"``). ``tuned=True`` applies the model's tuning
+  record first (``tune.records``).
 
 Kernel launch counts (``ops.cuda_kernels.LAUNCHES``) are bumped in
 Python, so a graph's launches count once, while it is captured; each
 entry keeps that count and every replay adds it to
 ``cuda_kernels.REPLAYS``.
 
-Metrics: ``dl4j_compile_cache_{hits,misses}_total{scope=memory}``,
-``dl4j_compile_seconds{state=cold}`` (warm-up runs and capture) and
-``dl4j_capture_failures_total``.
-
-Waits for a later PR (ROADMAP): the disk tier (``DiskCompileCache``,
-``configure``, ``content_key``, ``runtime_fingerprint``): a CUDA graph
-cannot be serialized.
+Metrics: ``dl4j_compile_cache_{hits,misses}_total{scope=memory|disk}``,
+``dl4j_compile_cache_evictions_total{scope=disk}``,
+``dl4j_compile_cache_quarantined_total``, ``dl4j_compile_seconds{state=
+cold|warm}`` and ``dl4j_capture_failures_total``. A disk hit is a
+capture the manifest named, made at warm start: its seconds are
+``warm`` (the capture is still paid, before traffic); a disk miss is a
+signature the manifest did not name, captured ``cold`` and added.
 """
 
 from __future__ import annotations
 
 import contextlib
 import gc
+import glob
+import hashlib
+import json
+import os
+import threading
 import time
 import warnings
 from typing import Callable, Dict, List, Optional
@@ -59,29 +81,60 @@ from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
 from deeplearning4j_tpu_torch.profiler.metrics import get_registry
 
 _REG = get_registry()
-_HITS_MEM = _REG.counter(
+CACHE_HITS = _REG.counter(
     "dl4j_compile_cache_hits_total",
     "Compile-cache hits by tier: memory = an already-captured graph "
-    "served a dispatch", labelnames=("scope",)).labels(scope="memory")
-_MISS_MEM = _REG.counter(
+    "served a dispatch, disk = a signature the persistent manifest named "
+    "was captured at warm start, before traffic", labelnames=("scope",))
+CACHE_MISSES = _REG.counter(
     "dl4j_compile_cache_misses_total",
     "Compile-cache misses by tier: memory = first sight of a dispatch "
-    "signature in this process", labelnames=("scope",)).labels(
-        scope="memory")
-_COLD = _REG.histogram(
+    "signature in this process, disk = a captured signature the "
+    "persistent manifest did not name (it is added)",
+    labelnames=("scope",))
+COMPILE_SECONDS = _REG.histogram(
     "dl4j_compile_seconds",
     "Program acquisition latency: cold = eager warm-up runs plus the "
-    "CUDA-graph capture", labelnames=("state",),
+    "CUDA-graph capture of a signature no manifest named, warm = the same "
+    "for a manifest signature at warm start", labelnames=("state",),
     buckets=(0.001, 0.005, 0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
-             10.0, 30.0, 60.0)).labels(state="cold")
+             10.0, 30.0, 60.0))
+_HITS_MEM = CACHE_HITS.labels(scope="memory")
+_MISS_MEM = CACHE_MISSES.labels(scope="memory")
+_HITS_DISK = CACHE_HITS.labels(scope="disk")
+_MISS_DISK = CACHE_MISSES.labels(scope="disk")
+_COLD = COMPILE_SECONDS.labels(state="cold")
+_WARM = COMPILE_SECONDS.labels(state="warm")
 _FAILURES = _REG.counter(
     "dl4j_capture_failures_total",
     "Signatures whose CUDA-graph capture failed and that run eagerly")
+CACHE_EVICTIONS = _REG.counter(
+    "dl4j_compile_cache_evictions_total",
+    "Entries evicted from a compile-cache tier (disk: LRU past "
+    "max_entries; memory: never — graphs live with their model)",
+    labelnames=("scope",))
+_EVICT_DISK = CACHE_EVICTIONS.labels(scope="disk")
+CACHE_EVICTIONS.labels(scope="memory")
+CACHE_QUARANTINED = _REG.counter(
+    "dl4j_compile_cache_quarantined_total",
+    "Corrupt persistent-cache entries (bad magic/header/checksum) "
+    "renamed aside at read time instead of trusted")
+
+ENV_DIR = "DL4J_TPU_COMPILE_CACHE_DIR"
+ENV_MAX_ENTRIES = "DL4J_TPU_COMPILE_CACHE_MAX_ENTRIES"
+
+_UNSET = object()
+_LOCK = threading.RLock()
+_CONFIGURED_DIR = _UNSET            # explicit configure() overrides the env
+_CONFIGURED_MAX: Optional[int] = None
+_DISK: Optional["DiskCompileCache"] = None
 
 #: per-process aggregates for cache_stats() (plain ints under the GIL)
 _STATS = {"memory_hits": 0, "memory_misses": 0, "cold_seconds": 0.0,
           "cold_compiles": 0, "capture_failures": 0, "warmup_seconds": 0.0,
-          "enter_seconds": 0.0, "capture_seconds": 0.0}
+          "enter_seconds": 0.0, "capture_seconds": 0.0,
+          "disk_hits": 0, "disk_misses": 0, "warm_seconds": 0.0,
+          "warm_loads": 0, "eager_by_design": 0}
 
 #: eager runs before a capture: cuBLAS/cuDNN handles and workspaces and
 #: the allocator's blocks come into being outside the graph
@@ -91,25 +144,454 @@ WARMUP_RUNS = 2
 _CAPTURE_FAILED = object()
 
 
+def configure(directory: Optional[str], max_entries: Optional[int] = None
+              ) -> None:
+    """Set (or clear, with ``None``) the persistent cache directory for
+    this process, overriding ``DL4J_TPU_COMPILE_CACHE_DIR``."""
+    global _CONFIGURED_DIR, _CONFIGURED_MAX, _DISK
+    with _LOCK:
+        _CONFIGURED_DIR = directory
+        _CONFIGURED_MAX = max_entries
+        _DISK = None                     # rebuilt lazily at the new path
+
+
+def reset_configuration() -> None:
+    """Drop the explicit configure() override (env resolution returns)."""
+    global _CONFIGURED_DIR, _CONFIGURED_MAX, _DISK
+    with _LOCK:
+        _CONFIGURED_DIR = _UNSET
+        _CONFIGURED_MAX = None
+        _DISK = None
+
+
+def cache_dir() -> Optional[str]:
+    """The resolved persistent-cache directory (explicit configure()
+    wins, else the env var), or None when the disk tier is disabled."""
+    with _LOCK:
+        if _CONFIGURED_DIR is not _UNSET:
+            return _CONFIGURED_DIR
+    return os.environ.get(ENV_DIR) or None
+
+
+def cache_dir_status():
+    """(directory, writable) — what the DL4J-W112 serving lint checks:
+    ``(None, False)`` means no persistent cache is configured."""
+    d = cache_dir()
+    if d is None:
+        return None, False
+    try:
+        os.makedirs(d, exist_ok=True)
+        probe = os.path.join(
+            d, f".wprobe_{os.getpid()}_{threading.get_ident()}")
+        with open(probe, "w") as f:
+            f.write("w")
+        os.remove(probe)
+        return d, True
+    except OSError:
+        return d, False
+
+
+_DISK_WARNED: set = set()
+
+
+def disk_cache() -> Optional["DiskCompileCache"]:
+    """The process-wide disk tier at the resolved directory (None when
+    disabled or when the directory cannot be created: an unusable cache
+    degrades to no cache, never to a failed dispatch; W112 names it)."""
+    global _DISK
+    d = cache_dir()
+    if d is None:
+        return None
+    with _LOCK:
+        if _DISK is None or _DISK.dir != d:
+            max_entries = _CONFIGURED_MAX
+            if max_entries is None:
+                max_entries = int(os.environ.get(ENV_MAX_ENTRIES, "512"))
+            try:
+                _DISK = DiskCompileCache(d, max_entries=max_entries)
+            except OSError as e:
+                if d not in _DISK_WARNED:
+                    _DISK_WARNED.add(d)
+                    warnings.warn(
+                        f"persistent compile cache at {d!r} unusable "
+                        f"({e}) — running without the disk tier "
+                        "(DL4J-W112 territory)", stacklevel=2)
+                return None
+        return _DISK
+
+
 def cache_stats() -> dict:
-    """Per-process snapshot: memory-tier hits and misses, captures ("cold
-    compiles") and their seconds, and failed captures. The cold seconds
-    split into the eager warm-up runs (``warmup``), the capture's set-up
-    before its first recorded launch (``enter``) and the recording itself
-    (``capture``)."""
+    """Per-process snapshot: memory-tier hits and misses, the disk tier's
+    hits (manifest signatures captured at warm start), misses and
+    entries, captures ("cold compiles") and their seconds, warm-start
+    captures (``warm``), failed captures, and the steps run eagerly by
+    design (``eager_by_design``: a SameDiff graph with host control
+    flow). The cold seconds split into the eager warm-up runs
+    (``warmup``), the capture's set-up before its first recorded launch
+    (``enter``) and the recording itself (``capture``)."""
+    disk = None
+    d = cache_dir()
+    if d is not None and os.path.isdir(d):
+        disk = disk_cache()
     return {"memory": {"hits": _STATS["memory_hits"],
                        "misses": _STATS["memory_misses"]},
+            "disk": {"enabled": d is not None, "dir": d,
+                     "hits": _STATS["disk_hits"],
+                     "misses": _STATS["disk_misses"],
+                     "entries": disk.entry_count() if disk is not None
+                     else 0},
             "compile_seconds": {"cold": _STATS["cold_seconds"],
+                                "warm": _STATS["warm_seconds"],
                                 "cold_compiles": _STATS["cold_compiles"],
+                                "warm_loads": _STATS["warm_loads"],
                                 "warmup": _STATS["warmup_seconds"],
                                 "enter": _STATS["enter_seconds"],
                                 "capture": _STATS["capture_seconds"]},
-            "capture_failures": _STATS["capture_failures"]}
+            "capture_failures": _STATS["capture_failures"],
+            "eager_by_design": _STATS["eager_by_design"]}
 
 
 def reset_stats() -> None:
     for k in _STATS:
         _STATS[k] = 0.0 if k.endswith("seconds") else 0
+
+
+# ------------------------------------------------ shared event accounting
+def note_disk_hit(seconds: float) -> None:
+    _STATS["disk_hits"] += 1
+    _STATS["warm_seconds"] += seconds
+    _STATS["warm_loads"] += 1
+    _HITS_DISK.inc()
+    _WARM.observe(seconds)
+
+
+def note_disk_miss() -> None:
+    _STATS["disk_misses"] += 1
+    _MISS_DISK.inc()
+
+
+def note_cold_compile(seconds: float) -> None:
+    _STATS["cold_seconds"] += seconds
+    _STATS["cold_compiles"] += 1
+    _COLD.observe(seconds)
+
+
+def note_eager_by_design() -> None:
+    """One step run eagerly on purpose (it reads a value on the host)."""
+    _STATS["eager_by_design"] += 1
+
+
+# ------------------------------------------------------------------- keys
+_RUNTIME_FP = None
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "ops", "csrc")
+
+
+def kernel_sources_digest() -> str:
+    """SHA-256 (16 hex) over the hand-written kernels' ``.cu`` sources."""
+    h = hashlib.sha256()
+    for path in sorted(glob.glob(os.path.join(_CSRC, "*.cu"))):
+        h.update(os.path.basename(path).encode() + b"\x00")
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def runtime_fingerprint() -> str:
+    """The runtime identity baked into every key and entry: torch and
+    CUDA versions, the card's name and compute capability, and the
+    kernel sources' digest. A manifest written under one runtime is
+    never replayed under another."""
+    global _RUNTIME_FP
+    if _RUNTIME_FP is None:
+        name, cap = "cpu", "-"
+        if torch.cuda.is_available():
+            name = torch.cuda.get_device_name(0)
+            cap = "%d.%d" % torch.cuda.get_device_capability(0)
+        _RUNTIME_FP = (f"torch={torch.__version__};"
+                       f"cuda={torch.version.cuda};device={name};cc={cap};"
+                       f"kernels={kernel_sources_digest()}")
+    return _RUNTIME_FP
+
+
+def content_key(scope: str, content: bytes, key_parts=()) -> str:
+    """SHA-256 hex over (runtime fingerprint, scope, explicit key parts,
+    content)."""
+    h = hashlib.sha256()
+    h.update(runtime_fingerprint().encode())
+    h.update(b"\x00" + scope.encode() + b"\x00")
+    h.update(repr(tuple(key_parts)).encode())
+    h.update(b"\x00")
+    h.update(content)
+    return h.hexdigest()
+
+
+# -------------------------------------------------------------- disk tier
+_MAGIC = b"DL4JCC1\n"
+_FORMAT = 1
+
+
+class DiskCompileCache:
+    """Content-addressed store of manifests (module doc).
+
+    One entry = one file ``cc_<sha256>.bin``: magic line, one JSON
+    header line (format, runtime fingerprint, payload SHA-256, scope,
+    creation time), then the payload. Readers validate magic, header
+    and checksum; corrupt entries are quarantined (renamed
+    ``quarantine_cc_...``), entries of another runtime ignored (the
+    caller rewrites them). Writes are atomic: temp file +
+    ``os.replace``."""
+
+    def __init__(self, directory: str, max_entries: int = 512):
+        self.dir = directory
+        self.max_entries = int(max_entries)
+        os.makedirs(directory, exist_ok=True)
+
+    def _path(self, key: str) -> str:
+        return os.path.join(self.dir, f"cc_{key}.bin")
+
+    def entry_count(self) -> int:
+        try:
+            return sum(1 for n in os.listdir(self.dir)
+                       if n.startswith("cc_") and n.endswith(".bin"))
+        except OSError:
+            return 0
+
+    def get(self, key: str) -> Optional[bytes]:
+        """Payload bytes for ``key``, or None (absent, of another
+        runtime, transiently unreadable, or quarantined-corrupt)."""
+        path = self._path(key)
+        try:
+            with open(path, "rb") as f:
+                magic = f.read(len(_MAGIC))
+                if magic != _MAGIC:
+                    raise ValueError(f"bad magic {magic!r}")
+                header = json.loads(f.readline().decode())
+                payload = f.read()
+        except FileNotFoundError:
+            return None
+        except OSError:
+            # an I/O error is not evidence of corruption: miss, retry later
+            return None
+        except (ValueError, UnicodeDecodeError) as e:
+            self._quarantine(path, str(e))
+            return None
+        if header.get("format") != _FORMAT \
+                or header.get("runtime") != runtime_fingerprint():
+            return None
+        digest = hashlib.sha256(payload).hexdigest()
+        if digest != header.get("sha256"):
+            self._quarantine(
+                path, f"payload checksum mismatch (header "
+                      f"{str(header.get('sha256'))[:12]}..., actual "
+                      f"{digest[:12]}...)")
+            return None
+        try:                # LRU clock for eviction ordering
+            os.utime(path, None)
+        except OSError:
+            pass
+        return payload
+
+    def put(self, key: str, payload: bytes, scope: str = "") -> str:
+        """Atomic write (temp + ``os.replace``): a crash mid-write never
+        leaves a half-entry under the real name, and concurrent writers
+        of one key land whole either way."""
+        path = self._path(key)
+        header = {"format": _FORMAT, "runtime": runtime_fingerprint(),
+                  "sha256": hashlib.sha256(payload).hexdigest(),
+                  "scope": scope, "created": time.time()}
+        tmp = os.path.join(
+            self.dir, f".tmp_cc_{key[:16]}_{os.getpid()}_"
+                      f"{threading.get_ident()}")
+        try:
+            with open(tmp, "wb") as f:
+                f.write(_MAGIC)
+                f.write(json.dumps(header).encode() + b"\n")
+                f.write(payload)
+            os.replace(tmp, path)
+        except BaseException:
+            try:
+                os.remove(tmp)
+            except OSError:
+                pass
+            raise
+        self._evict()
+        return path
+
+    #: temp files older than this were abandoned by a killed writer
+    _TMP_MAX_AGE_S = 3600.0
+
+    #: entries younger than this are never evicted, whatever the count:
+    #: another process on a shared directory may not have read its own
+    #: fresh entry yet
+    _EVICT_GRACE_S = 300.0
+
+    def _evict(self) -> None:
+        """Best-effort LRU (mtime: ``get`` touches entries) over the
+        directory, tolerant of concurrent evictors: a file that vanished
+        is skipped, entries inside the grace window are kept."""
+        try:
+            names = os.listdir(self.dir)
+        except OSError:
+            return
+        now = time.time()       # compared with file mtimes (wall clock)
+        entries = []
+        for n in names:
+            p = os.path.join(self.dir, n)
+            if n.startswith(".tmp_cc_"):
+                try:
+                    age = now - os.path.getmtime(p)  # dl4j: noqa=W210
+                    if age > self._TMP_MAX_AGE_S:
+                        os.remove(p)
+                except OSError:
+                    pass
+                continue
+            if n.startswith("cc_") and n.endswith(".bin"):
+                try:
+                    entries.append((os.path.getmtime(p), n))
+                except OSError:
+                    continue
+        entries.sort()
+        excess = len(entries) - max(1, self.max_entries)
+        for mtime, name in entries:
+            if excess <= 0:
+                break
+            if now - mtime < self._EVICT_GRACE_S:  # dl4j: noqa=W210
+                break       # sorted: everything after is younger still
+            try:
+                os.remove(os.path.join(self.dir, name))
+                _EVICT_DISK.inc()
+            except OSError:
+                pass        # a concurrent evictor got it first
+            excess -= 1
+
+    def _quarantine(self, path: str, reason: str) -> None:
+        dst = os.path.join(os.path.dirname(path),
+                           "quarantine_" + os.path.basename(path))
+        try:
+            os.replace(path, dst)
+        except OSError:
+            return
+        CACHE_QUARANTINED.inc()
+        warnings.warn(
+            f"compile cache: quarantined corrupt entry {path}: {reason}",
+            stacklevel=3)
+
+
+def model_fingerprint(model) -> str:
+    """Stable cross-process identity of a model's architecture: SHA-256
+    of the configuration JSON when the config serializes, else a
+    process-local id (no cross-process sharing for that model)."""
+    conf = getattr(model, "conf", model)
+    try:
+        return hashlib.sha256(conf.to_json().encode()).hexdigest()[:16]
+    except Exception:
+        return f"pid{os.getpid()}-id{id(conf):x}"
+
+
+# --------------------------------------------------------------- manifests
+def _policy_signature(model) -> str:
+    pol = getattr(model, "_precision", None)
+    return pol.signature() if pol is not None else "fp32"
+
+
+def _manifest_fingerprint(model) -> str:
+    """The model's fingerprint with the layout stamps scrubbed (the
+    tuning records' identity): the layout is a key part of its own, so a
+    net that went NHWC and back keys as a fresh NCHW one."""
+    from deeplearning4j_tpu_torch.tune.records import model_fingerprint
+    return model_fingerprint(model)
+
+
+def manifest_key(model, scope: str) -> str:
+    """The key of ``model``'s manifest for ``scope`` (``"train"`` or
+    ``"serving:forward"``): its fingerprint, compute layout, epilogue
+    fusion and precision policy."""
+    parts = (getattr(model, "_compute_layout", "NCHW"),
+             bool(getattr(model, "_fuse_epilogues", False)),
+             _policy_signature(model))
+    return content_key("manifest:" + scope,
+                       _manifest_fingerprint(model).encode(), parts)
+
+
+def read_manifest(model, scope: str = "train",
+                  key: Optional[str] = None) -> Optional[List[dict]]:
+    """The entries of ``model``'s manifest (under ``key`` when the caller
+    has it), or None (no disk tier, no manifest, or a quarantined one)."""
+    disk = disk_cache()
+    if disk is None:
+        return None
+    blob = disk.get(key or manifest_key(model, scope))
+    if blob is None:
+        return None
+    try:
+        return list(json.loads(blob.decode())["entries"])
+    except (ValueError, KeyError, TypeError, UnicodeDecodeError):
+        return None
+
+
+def _manifest_record(model, scope: str, entry: dict) -> bool:
+    """Add ``entry`` to the manifest; True when the manifest named it
+    already (a disk hit)."""
+    disk = disk_cache()
+    if disk is None:
+        return False
+    key = manifest_key(model, scope)
+    with _LOCK:
+        entries = read_manifest(model, scope, key) or []
+        if entry in entries:
+            return True
+        entries.append(entry)
+        payload = json.dumps({
+            "model": _manifest_fingerprint(model), "scope": scope,
+            "layout": getattr(model, "_compute_layout", "NCHW"),
+            "fusion": bool(getattr(model, "_fuse_epilogues", False)),
+            "policy": _policy_signature(model),
+            "entries": entries}, sort_keys=True).encode()
+        try:
+            disk.put(key, payload, scope=scope)
+        except OSError as e:
+            warnings.warn(f"compile cache: manifest write failed ({e})",
+                          stacklevel=3)
+    return False
+
+
+def warm_from_manifest(model) -> int:
+    """Capture every train-step signature ``model``'s manifest names
+    (once a model, directory, layout, fusion and policy; a no-op without
+    the disk tier). Returns the signatures warmed. The once-check comes
+    first and reads only attributes, so a ``fit`` per batch pays no
+    serialization, hashing or disk read after its first."""
+    d = cache_dir()
+    if d is None:
+        return 0
+    seen = (d, getattr(model, "_compute_layout", "NCHW"),
+            bool(getattr(model, "_fuse_epilogues", False)),
+            _policy_signature(model))
+    done = model.__dict__.setdefault("_manifest_warmed", set())
+    if seen in done:
+        return 0
+    done.add(seen)
+    entries = read_manifest(model, "train", manifest_key(model, "train"))
+    if not entries:
+        return 0
+    n = 0
+    for e in entries:
+        if warm_from_batch_signature(model, e.get("batch"),
+                                     steps_per_dispatch=e.get("steps", 1)):
+            n += 1
+    return n
+
+
+def served_manifest_shapes(model) -> List[tuple]:
+    """The per-request feature shapes a served ``model``'s manifest
+    names (what a fresh server adds to its warmup)."""
+    out = []
+    for e in read_manifest(model, "serving:forward") or []:
+        s = tuple(int(d) for d in e.get("shape", ()))
+        if s not in out:
+            out.append(s)
+    return out
 
 
 def state_tensors(*trees) -> List[torch.Tensor]:
@@ -260,10 +742,16 @@ class CachedDispatch:
     capturing leaves as it found it. With ``always_capture`` a new
     signature on the card is captured at its first call; without it the
     dispatch calls ``fn`` eagerly until :meth:`warm` has captured some
-    signature (the reference's "plain jit until warmed"). On the CPU it
+    signature (the reference's "plain jit until warmed"), or until the
+    disk tier is configured. On the CPU it
     always calls ``fn`` eagerly, and so does a call made while this thread
     captures another graph (a dispatch inside a captured function is
     recorded into that graph: captures do not nest).
+
+    ``manifest(args)`` (optional) names a capture for the disk tier:
+    ``(model, scope, entry)`` or None. With the tier configured, a
+    capture whose entry the model's manifest names counts as a disk hit
+    (``warm``); any other is a disk miss (``cold``) and is added.
 
     Each dispatch captures on a stream of its own, and its graphs share
     one memory pool (``torch.cuda.graph_pool_handle()``): a graph's
@@ -272,16 +760,18 @@ class CachedDispatch:
     it returns; each entry keeps its own static inputs and outputs alive.
     """
 
-    __slots__ = ("fn", "scope", "state", "always_capture", "_graphs",
-                 "_warned", "_pool", "_stream")
+    __slots__ = ("fn", "scope", "state", "always_capture", "manifest",
+                 "_graphs", "_warned", "_pool", "_stream")
 
     def __init__(self, fn: Callable, scope: str,
                  state: Optional[Callable[[], List[torch.Tensor]]] = None,
-                 always_capture: bool = False):
+                 always_capture: bool = False,
+                 manifest: Optional[Callable] = None):
         self.fn = fn
         self.scope = scope
         self.state = state if state is not None else list
         self.always_capture = always_capture
+        self.manifest = manifest
         self._graphs: Dict[tuple, object] = {}
         self._warned = False
         self._pool = None
@@ -291,9 +781,9 @@ class CachedDispatch:
         return tuple(_leaf_signature(a) for a in args)
 
     def __call__(self, *args):
-        if not _on_card(args) or (not self._graphs
-                                  and not self.always_capture) \
-                or _capturing(args):
+        if not _on_card(args) or _capturing(args) or (
+                not self._graphs and not self.always_capture
+                and cache_dir() is None):
             return self.fn(*args)
         sig = self._signature(args)
         entry = self._graphs.get(sig)
@@ -375,9 +865,15 @@ class CachedDispatch:
         launches = {k: v - before.get(k, 0) for k, v in ck.LAUNCHES.items()
                     if v != before.get(k, 0)}
         dt = time.perf_counter() - t0
-        _STATS["cold_seconds"] += dt
-        _STATS["cold_compiles"] += 1
-        _COLD.observe(dt)
+        named = self.manifest(args) if self.manifest is not None \
+            and disk_cache() is not None else None
+        if named is None:
+            note_cold_compile(dt)
+        elif _manifest_record(*named):
+            note_disk_hit(dt)
+        else:
+            note_disk_miss()
+            note_cold_compile(dt)
         entry = _Captured(graph, static, out, launches)
         self._graphs[sig] = entry
         return entry
@@ -390,11 +886,13 @@ def _is_shape(spec) -> bool:
 
 
 def warmup(target, shapes, *, steps_per_dispatch: int = 1, dtype=None,
-           label_dtype=None, tbptt_length: int = None):
+           label_dtype=None, tbptt_length: int = None,
+           strict: bool = False, cost=None, tuned: bool = False):
     """Capture ahead of the first dispatch.
 
     ``target`` is a ``ModelServer`` (delegates to its bucket-ladder
-    ``warmup``) or a network (``MultiLayerNetwork``/``ComputationGraph``).
+    ``warmup(shapes, strict=, cost=)``) or a network
+    (``MultiLayerNetwork``/``ComputationGraph``).
     Each ``shapes`` entry is a ``(features_shape, labels_shape)`` pair:
     the train step for that per-batch signature is captured (K steps on
     ``[K, B, ...]`` buffers with ``steps_per_dispatch=K`` > 1), on zeros
@@ -403,10 +901,31 @@ def warmup(target, shapes, *, steps_per_dispatch: int = 1, dtype=None,
     they went in. A bare feature shape warms a served forward: pass the
     ``ModelServer`` (a network's own ``output()`` is not captured yet).
     A ``MultiLayerNetwork`` under truncated BPTT (configured, or
-    ``tbptt_length``) warms its window step for 3-D features instead."""
+    ``tbptt_length``) warms its window step for 3-D features instead.
+
+    With the disk tier configured, a network's manifest is replayed
+    first (every signature an earlier process captured). ``tuned=True``
+    applies the tuning record for the model first (``tune.records``), so
+    the captured steps are those the tuned fit dispatches; the plan's K
+    takes over where the caller left the default."""
     if hasattr(target, "buckets") and hasattr(target, "submit"):
-        return target.warmup(shapes)
+        if tuned:
+            from deeplearning4j_tpu_torch.tune import records as _trecords
+            m = getattr(target, "model", None)
+            if m is not None:
+                _trecords.auto_apply(m, context="warmup")
+        kw = {}
+        if strict:
+            kw["strict"] = True
+        if cost is not None:
+            kw["cost"] = cost
+        return target.warmup(shapes, **kw)
     model = target
+    if tuned:
+        from deeplearning4j_tpu_torch.tune import records as _trecords
+        plan = _trecords.auto_apply(model, context="warmup")
+        if plan is not None and steps_per_dispatch == 1:
+            steps_per_dispatch = plan.steps_per_dispatch
     fdt = np.dtype(dtype) if dtype is not None else np.float32
     ldt = np.dtype(label_dtype) if label_dtype is not None else np.float32
     k = max(int(steps_per_dispatch), 1)
@@ -421,7 +940,9 @@ def warmup(target, shapes, *, steps_per_dispatch: int = 1, dtype=None,
             raise ValueError(
                 f"warmup shape spec {spec!r}: expected a (features_shape, "
                 "labels_shape) pair (train step)")
-        fshape, lshape = spec
+    if hasattr(model, "_warm_dispatch"):
+        warm_from_manifest(model)
+    for fshape, lshape in shapes:
         extra = {} if tbptt_length is None else {"tbptt_length": tbptt_length}
         model._warm_dispatch(np.zeros(lead + tuple(fshape), fdt),
                              np.zeros(lead + tuple(lshape), ldt), steps=k,

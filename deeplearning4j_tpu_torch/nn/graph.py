@@ -36,7 +36,7 @@ augmentation, which runs on every 4-D graph input (others pass through,
 as in the JAX graph) and hands the forward fp32, so the uint8 cast above
 does not run again.
 
-Not ported yet (ROADMAP.md): sharding, the compile cache's disk tier.
+Not ported yet (ROADMAP.md): sharding.
 """
 
 from __future__ import annotations

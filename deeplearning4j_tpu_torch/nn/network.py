@@ -431,7 +431,7 @@ class BaseNetwork:
     def fit(self, data, labels=None, epochs: int = 1,
             steps_per_dispatch: int = 1, prefetch: int = 2,
             checkpoint=None, nan_policy=None, faults=None, augment=None,
-            precision=None):
+            precision=None, tune=None):
         """Train on a DataSet (a MultiDataSet in the graph), a list of
         them, a DataSetIterator-style object, or (features, labels)
         arrays: one update step per batch, ``epochs`` times.
@@ -453,9 +453,20 @@ class BaseNetwork:
         ``train.resilience`` session: periodic atomic checkpoints and
         resume, recovery from a non-finite loss, preemption at dispatch
         boundaries (a ``"preempted"`` checkpoint, then a clean return),
-        injected faults."""
+        injected faults.
+
+        ``tune="auto"`` applies the tuning record for this model
+        (``tune.records``): its layout, fusion and precision, and its K
+        and prefetch where the caller left the defaults (one warning when
+        there is none); a ``TuningPlan`` applies directly. With the disk
+        tier configured (``compilecache.configure``), the model's manifest
+        is replayed before the first batch, and a resumed session warms
+        the batch signature its checkpoint recorded."""
         if not self._initialized:
             self.init()
+        if tune is not None:
+            steps_per_dispatch, prefetch = stepping.apply_tuned_plan(
+                self, tune, steps_per_dispatch, prefetch)
         k = int(steps_per_dispatch)
         if k < 1:
             raise ValueError(f"steps_per_dispatch must be >= 1, got {k}")
@@ -463,11 +474,13 @@ class BaseNetwork:
             self.setDeviceAugmentation(augment)
         if precision is not None:
             self.setPrecisionPolicy(precision)
+        cc.warm_from_manifest(self)
         session = None
         if checkpoint is not None or nan_policy is not None \
                 or faults is not None:
             session, data = resilience.begin_session(
                 self, data, checkpoint, nan_policy, faults)
+            session.warm_after_resume(k)
         with resilience.fit_scope(session, self, epochs) as n_epochs:
             for _ in range(n_epochs):
                 self._fit_epoch(data, labels, k, prefetch, session)
@@ -531,15 +544,35 @@ class BaseNetwork:
             name = type(self).__name__
             fn = self._multi_step(*sig[1:]) if sig[0] == "multi" \
                 else self._train_step
+            named = None if sig[0] == "multi" \
+                else self._manifest_namer(steps)
             if steps == 1:
                 d = cc.CachedDispatch(fn, f"{name}.fit",
-                                      state=self._dispatch_state)
+                                      state=self._dispatch_state,
+                                      manifest=named)
             else:
                 d = cc.CachedDispatch(
                     stepping.scan_megastep(fn), f"{name}.megastep",
-                    state=self._dispatch_state, always_capture=True)
+                    state=self._dispatch_state, always_capture=True,
+                    manifest=named)
             self._step_cache[key] = d
         return d
+
+    def _manifest_namer(self, steps: int):
+        """The disk tier's name of a DataSet step capture: the per-batch
+        signature and K (``compilecache.warm_from_manifest`` replays it);
+        None for a masked batch, which a manifest does not replay."""
+        def named(args):
+            x, y, lmask, fmask = args
+            if lmask is not None or fmask is not None:
+                return None
+            lead = 1 if steps > 1 else 0
+            batch = {"features": [list(x.shape[lead:]),
+                                  cc._dtype_name(x.dtype)],
+                     "labels": [list(y.shape[lead:]),
+                                cc._dtype_name(y.dtype)]}
+            return self, "train", {"batch": batch, "steps": steps}
+        return named
 
     def _multi_step(self, n_in: int, n_out: int, masked: bool):
         raise TypeError(f"{type(self).__name__} trains on DataSets, not "

@@ -49,8 +49,11 @@ Metrics: ``dl4j_registry_rolls_total{model=}``,
 ``dl4j_registry_canary_version{model=}`` /
 ``dl4j_registry_canary_fraction{model=}`` (0 when no canary).
 
-Not ported yet (ROADMAP.md): sharded staging (``plan=``) and
-``tuned=``.
+``load(..., tuned=True)`` applies the model's tuning record
+(``tune.records``) before its server is built, so the bucket ladder
+captures the tuned forward.
+
+Not ported yet (ROADMAP.md): sharded staging (``plan=``).
 """
 
 from __future__ import annotations
@@ -209,7 +212,8 @@ class ModelRegistry:
     # ------------------------------------------------------------- loading
     def load(self, name: str, model, version: Optional[int] = None,
              shapes=None, decode=None, warm: bool = True,
-             roll: Optional[bool] = None, **server_kw) -> int:
+             roll: Optional[bool] = None, tuned: bool = False,
+             **server_kw) -> int:
         """Load ``model`` as a new version of ``name`` and capture its
         bucket ladder while any active version keeps taking traffic.
 
@@ -219,7 +223,8 @@ class ModelRegistry:
         the route's raw-image decode preset (ingress); ``warm=False``
         skips warmup (``roll`` will then lint DL4J-W111). ``roll``
         defaults to "only when this is the first version" — an upgrade
-        stays staged until an explicit :meth:`roll`. Returns the version
+        stays staged until an explicit :meth:`roll`. ``tuned=True``
+        applies the model's tuning record first. Returns the version
         number."""
         with self._lock:
             if self._closed:
@@ -247,6 +252,11 @@ class ModelRegistry:
             kw = dict(self._defaults)
             kw.update(server_kw)
             kw.setdefault("device", self.device)
+            if tuned:
+                # before the server builds, outside the registry lock:
+                # the ladder captures the tuned forward
+                from deeplearning4j_tpu_torch.tune import records as _trec
+                _trec.auto_apply(model, context="registry.load")
             server = ModelServer(model, name=f"{name}:v{version}", **kw)
             if warm and shapes:
                 # the expensive step, deliberately OUTSIDE the registry

@@ -48,13 +48,16 @@ The forward of a batch is: numpy -> tensor on ``device`` (outside the
 graph) -> the captured forward + head under ``torch.inference_mode()``
 -> one copy to the host.
 
-``validate(shapes=, hbm_gb=, cost=)`` lints the bucket ladder statically
-(``analysis.serving.lint_serving`` and, with ``cost=``, the E121/E122
-cost-model codes).
+``validate(shapes=, hbm_gb=, check_cache=, cost=)`` lints the bucket
+ladder statically (``analysis.serving.lint_serving``, with
+``check_cache=True`` the DL4J-W112 disk-tier check and, with ``cost=``,
+the E121/E122 cost-model codes). ``warmup(shapes, strict=, cost=)`` runs
+that lint with ``check_cache=True`` first (``strict=True`` raises on an
+E-code, else each finding warns), then captures; with the compile cache's
+disk tier configured it adds the shapes the model's manifest names.
 
 Not ported yet (ROADMAP.md): meshes, sharding and mesh shrink (on one
-card a failed dispatch retries on the same card), ``warmup(strict=,
-cost=)``, tuned plans and traffic capture.
+card a failed dispatch retries on the same card) and traffic capture.
 """
 
 from __future__ import annotations
@@ -175,6 +178,8 @@ def samediff_forward(sd, outputs, input_name=None):
         if len(names) == 1:
             return out[names[0]]
         return tuple(out[n] for n in names)
+    # the serving lint and the cost model read the graph through this
+    forward._samediff = sd
     return forward
 
 
@@ -485,8 +490,9 @@ class ModelServer:
         self._head_fn = _make_head(head)
         # forward + head as one captured graph per signature, the graphs
         # of this server in one pool
-        self._dispatch = _cc.CachedDispatch(self._device_forward,
-                                            "serving:forward")
+        self._dispatch = _cc.CachedDispatch(
+            self._device_forward, "serving:forward",
+            manifest=self._manifest_name)
         self.name = name if name is not None else f"server{next(_SERVER_SEQ)}"
         self.batch_limit = int(batch_limit)
         self.max_queue = int(max_queue)
@@ -636,15 +642,33 @@ class ModelServer:
         REQUESTS.labels(outcome=outcome).inc()
 
     # ------------------------------------------------------------- warmup
-    def warmup(self, shapes: Iterable[Sequence[int]]) -> "ModelServer":
+    def warmup(self, shapes: Iterable[Sequence[int]], strict: bool = False,
+               cost=None) -> "ModelServer":
         """Capture every bucket x feature shape BEFORE taking traffic:
         ``shapes`` are per-request feature shapes WITHOUT the leading
         batch dim, e.g. ``[(128,), (512,)]`` for token rows. On the card
         each becomes one CUDA graph of the forward and head; on the CPU
         each runs once. Each signature is reported to the churn detector;
         :meth:`recompiles_after_warmup` counts new ones since. Then flips
-        ``ready`` true."""
+        ``ready`` true.
+
+        First the serving lint runs with ``check_cache=True`` (the
+        DL4J-W112 disk-tier check) and ``cost`` (a CostSpec, chip name or
+        dict: the E121 bucket-peak and E122 capacity checks):
+        ``strict=True`` raises on an E-code, otherwise each finding warns.
+        With the disk tier configured, the shapes the model's manifest
+        names are warmed too."""
         shapes = [tuple(int(d) for d in s) for s in shapes]
+        report = self.validate(shapes=shapes, check_cache=True, cost=cost)
+        if strict:
+            report.raise_if_errors()
+        for d in report.diagnostics:
+            warnings.warn(f"serving config: {d.code}: {d.message}",
+                          stacklevel=2)
+        if _cc.cache_dir() is not None:
+            for s in _cc.served_manifest_shapes(self.model):
+                if s not in shapes:
+                    shapes.append(s)
         elapsed = self._compile_buckets(shapes)
         WARMUP_SECONDS.set(elapsed)
         with self._cond:    # the serve thread reads both fields
@@ -680,19 +704,27 @@ class ModelServer:
         return self._churn.signature_count("serving:forward",
                                            owner=self) - self._warm_sig_count
 
-    def validate(self, shapes=None, hbm_gb=None, cost=None):
+    def validate(self, shapes=None, hbm_gb=None, check_cache: bool = False,
+                 cost=None):
         """Static serving-config lint: the bucket ladder x HBM
         (``analysis.serving``: E110, E111, W110) plus any W201 churn
-        findings recorded for this server. ``cost`` (CostSpec / chip
-        name / dict) adds the liveness-based E121 bucket-peak and E122
-        capacity checks over this server's bucket ladder — declare
-        ``qps=``/``p99_ms=`` on the CostSpec to size the fleet. One card
-        serves, so no mesh is declared. Makes no tensor."""
+        findings recorded for this server. ``check_cache=True`` (what
+        ``warmup`` passes) adds the DL4J-W112 disk-tier check. ``cost``
+        (CostSpec / chip name / dict) adds the liveness-based E121
+        bucket-peak and E122 capacity checks over this server's bucket
+        ladder — declare ``qps=``/``p99_ms=`` on the CostSpec to size the
+        fleet. One card serves, so no mesh is declared. Makes no
+        tensor."""
         from deeplearning4j_tpu_torch.analysis import cost as _cost
         from deeplearning4j_tpu_torch.analysis.serving import lint_serving
         report = lint_serving(self.model, self.buckets(), shapes=shapes,
                               hbm_gb=hbm_gb, input_dtype=self.input_dtype,
+                              check_cache=check_cache,
                               extra=self._churn.diagnostics_for(owner=self))
+        sd = getattr(self.model, "_samediff", None)
+        if sd is not None:      # samediff_forward's stamp: the graph lints
+            from deeplearning4j_tpu_torch.analysis import analyze
+            report.extend(analyze(sd).diagnostics)
         if cost is not None:
             spec = _cost.CostSpec.coerce(cost)
             spec = _cost.CostSpec(
@@ -704,7 +736,8 @@ class ModelServer:
             # serving surface: only the serving-relevant codes — the
             # training-step E120/W120/W121 family belongs to fit-side
             # validate(), not a replica's bucket ladder
-            report.extend(d for d in _cost.lint_cost(self.model, spec)
+            target = sd if sd is not None else self.model
+            report.extend(d for d in _cost.lint_cost(target, spec)
                           if d.code in ("DL4J-E121", "DL4J-E122"))
         return report
 
@@ -1022,6 +1055,13 @@ class ModelServer:
             self._faults.serving_forward(self._batches + 1,
                                          [self.device.index or 0])
         return self._forward_raw(feats)
+
+    def _manifest_name(self, args):
+        """The disk tier's name of a forward capture: the per-request
+        feature shape and dtype (the bucket is the leading dim)."""
+        x = args[0]
+        return self.model, "serving:forward", {
+            "shape": list(x.shape[1:]), "dtype": _cc._dtype_name(x.dtype)}
 
     def _device_forward(self, x):
         """What one graph holds: the forward and the head."""

@@ -52,9 +52,12 @@ planned layer poison (``FaultPlan(nan_layer_params_at=)``, applied in
 window (``profiler.sanitizer.invalidate``): the next dispatch takes a
 fresh snapshot.
 
+A resumed session warms the batch signature its checkpoint recorded
+(:meth:`TrainingSession.warm_after_resume`) when the compile cache's disk
+tier is configured.
+
 Not ported yet (ROADMAP.md): ``DriverStateStore`` (with ``lifecycle/``),
-the persistent compile cache's resume warmup, the flight-recorder dump
-of a crashing fit.
+the flight-recorder dump of a crashing fit.
 """
 
 from __future__ import annotations
@@ -822,6 +825,19 @@ class TrainingSession:
                     m._iteration, info["manifest"].get("status"))
         self._arm_next_save()
         return True
+
+    def warm_after_resume(self, steps_per_dispatch: int = 1) -> bool:
+        """With the compile cache's disk tier configured, capture the train
+        step for the batch signature the restored checkpoint recorded
+        before the first batch (a no-op otherwise, and without a
+        resume)."""
+        from deeplearning4j_tpu_torch.nn import compilecache as cc
+        if not self.resumed or cc.cache_dir() is None:
+            return False
+        sig = ((self.restored.get("extra") or {}).get("resilience")
+               or {}).get("batch_signature")
+        return cc.warm_from_batch_signature(
+            self.model, sig, steps_per_dispatch=steps_per_dispatch)
 
     def _arm_next_save(self):
         if self.manager is not None and self.config.every_steps:

@@ -30,10 +30,14 @@ per step.
   the iteration count, the listeners (once a step, each step's loss a
   lazy device slice) and the resilience session's ``after_dispatch``.
 
+- :func:`apply_tuned_plan` — ``fit(tune=...)``: a tuning record's (or a
+  ``TuningPlan``'s) seams applied to the model, its K and prefetch where
+  the caller left the defaults.
+
 MultiDataSet batches group and stack as DataSets do (``MegaBatch.multi``).
 Not ported: sharded staging (``stage_batch``,
-``batch_placement``), the elastic fence (``dispatch_commit``) and
-``apply_tuned_plan`` (``tune/``).
+``batch_placement``) and the elastic fence (``dispatch_commit``), which
+wait for the mesh.
 """
 
 from __future__ import annotations
@@ -246,3 +250,30 @@ def fit_epoch_multistep(model, batches: Iterable, steps: int,
     else:
         drive(stage_item(item, model._device)
               for item in group_into_megabatches(batches, steps))
+
+
+def apply_tuned_plan(model, tune, steps_per_dispatch: int, prefetch: int):
+    """Resolve ``fit(tune=...)``: ``"auto"`` consults the tuning-record
+    store for this (model, mesh, backend, runtime) key; a
+    :class:`~deeplearning4j_tpu_torch.tune.space.TuningPlan` applies
+    directly. The plan's model-level seams (layout, fusion, precision)
+    apply through the model's own setters, which keep every captured
+    step when the value is unchanged; its K and prefetch take over only
+    where the caller left the defaults. Returns the effective
+    ``(steps_per_dispatch, prefetch)``."""
+    from deeplearning4j_tpu_torch.tune import records as _trecords
+    from deeplearning4j_tpu_torch.tune.space import TuningPlan
+    if isinstance(tune, TuningPlan):
+        plan = tune
+        plan.apply(model)
+    elif tune == "auto":
+        plan = _trecords.auto_apply(model, context="fit")
+    else:
+        raise ValueError(
+            f'tune= expects "auto" or a TuningPlan, got {tune!r}')
+    if plan is not None:
+        if steps_per_dispatch == 1:
+            steps_per_dispatch = plan.steps_per_dispatch
+        if prefetch == 2:
+            prefetch = plan.prefetch
+    return steps_per_dispatch, prefetch

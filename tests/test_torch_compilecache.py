@@ -168,10 +168,13 @@ class TestCachedDispatch:
         assert len(calls) == 2
         assert cc.cache_stats() == {
             "memory": {"hits": 0, "misses": 0},
-            "compile_seconds": {"cold": 0.0, "cold_compiles": 0,
+            "disk": {"enabled": False, "dir": None, "hits": 0,
+                     "misses": 0, "entries": 0},
+            "compile_seconds": {"cold": 0.0, "warm": 0.0,
+                                "cold_compiles": 0, "warm_loads": 0,
                                 "warmup": 0.0, "enter": 0.0,
                                 "capture": 0.0},
-            "capture_failures": 0}
+            "capture_failures": 0, "eager_by_design": 0}
 
     def test_cpu_dispatch_equals_eager_and_keeps_its_state(self):
         """On the CPU a dispatch, whatever its options, is the eager

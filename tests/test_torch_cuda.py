@@ -1128,3 +1128,115 @@ def test_nd_factory_defaults_to_the_card(dev):
     assert nd.rand(2, 2, rng=nd.Random(1)).device.type == "cuda"
     a = nd.create([1.0, 2.0])
     assert a.mmul(a.reshape(2, 1)).device.type == "cuda"
+
+
+def _sd_mlp(rate=0.0, seed=0, lr=1e-2, width=1024):
+    """A SameDiff MLP on the card: x [N, 32] -> width -> 4 (dropout at
+    ``rate`` after the hidden relu), softmax cross-entropy, Adam."""
+    from deeplearning4j_tpu_torch.autodiff import SameDiff, TrainingConfig
+    from deeplearning4j_tpu_torch.train import updaters as tupd
+    rng = np.random.default_rng(seed)
+    sd = SameDiff.create()
+    x = sd.placeHolder("x", shape=(None, 32))
+    y = sd.placeHolder("y", shape=(None, 4))
+    w1 = sd.var("w1", (rng.standard_normal((32, width)) * 0.1)
+                .astype(np.float32))
+    b1 = sd.var("b1", np.zeros(width, np.float32))
+    w2 = sd.var("w2", (rng.standard_normal((width, 4)) * 0.1)
+                .astype(np.float32))
+    b2 = sd.var("b2", np.zeros(4, np.float32))
+    h = sd.nn.relu(sd.nn.linear(x, w1, b1))
+    if rate:
+        h = sd.nn.dropout(h, rate)
+    loss = sd.loss.softmaxCrossEntropy(y, sd.nn.linear(h, w2, b2),
+                                       name="loss")
+    sd.setLossVariables(loss)
+    updater = tupd.Adam(lr) if lr else tupd.Sgd(0.0)
+    sd.setTrainingConfig(TrainingConfig(updater=updater,
+                                        data_set_feature_mapping=["x"],
+                                        data_set_label_mapping=["y"]))
+    return sd
+
+
+def _sd_batches(n=4, b=64):
+    rng = np.random.default_rng(7)
+    return [{"x": rng.standard_normal((b, 32)).astype(np.float32),
+             "y": np.eye(4, dtype=np.float32)[rng.integers(0, 4, b)]}
+            for _ in range(n)]
+
+
+def test_samediff_captured_fit_equals_eager_to_the_bit(dev):
+    """One captured step replayed 4 times equals 4 eager steps from the
+    same state: losses, variables, Adam moments and the clock."""
+    batches = _sd_batches()
+    eager = _sd_mlp(rate=0.5)
+    eager._prepare_fit()
+    e_losses = []
+    for b in batches:
+        e_losses.append(eager._train_step(eager._feed(b)))
+        eager._step += 1
+    cap = _sd_mlp(rate=0.5)
+    cc.reset_stats()
+    hist = cap.fit(batches)
+    st = cc.cache_stats()
+    assert st["capture_failures"] == 0 and st["eager_by_design"] == 0
+    assert [d.captures() for d in cap.fit_dispatches()] == [1]
+    assert st["memory"] == {"hits": 3, "misses": 1}
+    assert hist.lossCurve() == torch.stack(e_losses).cpu().tolist()
+    for k, v in eager._variables.items():
+        assert torch.equal(cap._variables[k], v), k
+        for m, s in eager._updater_state[k].items():
+            assert torch.equal(cap._updater_state[k][m], s), (k, m)
+    assert int(cap._t_dev) == int(eager._t_dev) == 4
+
+
+def test_samediff_dropout_masks_differ_between_replays(dev):
+    """With lr 0 the loss is a function of the step's mask alone: each
+    replay draws a new mask (keep 0.5), and a replay from the same clock
+    draws the same one."""
+    sd = _sd_mlp(rate=0.5, lr=0.0, width=4096)
+    x = sd.placeHolder("ones", shape=(None, 4096))
+    kept = sd.nn.dropout(x, 0.5, name="kept").sum()
+    sd.setLossVariables("loss", kept)
+    b = _sd_batches(1)[0]
+    batch = {**b, "ones": np.ones((64, 4096), np.float32)}
+    first = sd.fit([batch] * 4).lossCurve()
+    assert len(set(first)) == 4
+    sd._step = 0
+    replay = sd.fit([batch] * 4).lossCurve()
+    assert replay == first
+    assert [d.captures() for d in sd.fit_dispatches()] == [1]
+    total = 64 * 4096
+    for loss in first:
+        # the kept sum is 2 x (kept count); the CE term is below 10
+        keep = (loss - 10) / (2 * total)
+        assert 0.49 < keep < 0.51 + 10 / (2 * total)
+
+
+def test_a_manifest_written_and_replayed_in_process(dev, tmp_path):
+    """A K=2 fit writes its signature; a fresh net captures it at warm
+    start (a disk hit), its fit misses nothing in memory, and both nets
+    train to the same bits."""
+    rng = np.random.default_rng(1)
+    batches = [DataSet(rng.standard_normal((16, 8)).astype(np.float32),
+                       np.eye(3, dtype=np.float32)[rng.integers(0, 3, 16)])
+               for _ in range(4)]
+    cc.configure(str(tmp_path))
+    try:
+        cc.reset_stats()
+        a = _small_mlp()
+        a.fit(batches, steps_per_dispatch=2)
+        s = cc.cache_stats()
+        assert s["disk"]["misses"] == 1 and s["disk"]["entries"] == 1
+        assert cc.read_manifest(a)[0]["steps"] == 2
+        cc.reset_stats()
+        b = _small_mlp()
+        b.fit(batches, steps_per_dispatch=2)
+        s = cc.cache_stats()
+        assert s["disk"]["hits"] == 1 and s["disk"]["misses"] == 0
+        assert s["memory"]["misses"] == 0
+        assert s["compile_seconds"]["cold_compiles"] == 0
+        for p, q in zip(a._dispatch_state(), b._dispatch_state()):
+            assert torch.equal(p, q)
+    finally:
+        cc.reset_configuration()
