@@ -507,7 +507,11 @@ Phases (each one fails the run with a non-zero exit):
    boundary: steps 1, 5, 9), and a NaN batch at step 7, mid-dispatch,
    ``<input>``, ``batch``, step 7 (the replay rolls the step-0 snapshot 6
    steps); after each raise every state tensor equals, to the bit, a
-   twin's that ran the same dispatches with the mode OFF; the replay's
+   twin's that ran the same dispatches with the mode OFF; each raise
+   leaves exactly one flight-recorder bundle, ``fit:NonfiniteAttribution
+   Error``, whose trace (tracing on for the fit) holds the ``train:run``
+   span with the run's ``run_id`` and the fit's spans stamped with it;
+   the replay's
    seconds and ``scale_shift_act`` launches are printed. (b) ResNet-50
    B=64 K=4 captured, ms a step over ``OBS_DISPATCHES`` dispatches in
    turns OFF, NAN_PANIC, NAN_PANIC, OFF from one state; the losses of all
@@ -591,6 +595,32 @@ Phases (each one fails the run with a non-zero exit):
    plan (a fused NHWC winner's ``scale_shift_act`` launches counted). (d)
    ``ModelServer.warmup(strict=True, cost="h100-sxm")`` on phase 6's
    SameDiff BERT-base passes; on a chip of 1 MB it raises E121 or E122.
+37. Continuous training (``lifecycle/``): BERT-base (pre-LN, bf16,
+   flash) v1 served captured by ``ModelRegistry(batch_limit=32,
+   head="argmax")`` whose servers record every request into a
+   ``TrafficCapture``; what the capture costs a submit (200 each way,
+   one server); one thread submits ``ServingLoad.seeded(0, "steady",
+   rps=150, max_rows=8)`` for the whole phase; a BertBench-shaped step
+   (B=64, T=128, Adam at ``LC_LR``) from v1's parameters, captured once
+   before the traffic, trains 4 steps a round and hands over a snapshot
+   (``transformer.copy_params``); ``EvalGate()`` in parity mode on 64
+   captured rows; ``FaultPlan(trainer_death_at_roll=2,
+   bad_candidate_at={3: "nan"}, slo_regression_during_canary=4)`` over 5
+   rounds from a state naming v1 the incumbent, the trainer a
+   ``spawn_trainer_process()`` SIGKILLed at roll 2 and a second driver
+   over the same state directory resuming. Checks: v5 served at the end,
+   the resumed driver ``resumed``, quarantines ``gate:non_finite_outputs``
+   (never loaded) then ``slo_regression``, one rollback whose served ids,
+   restored logits and parameters equal the pre-roll ones to the bit,
+   every request resolved once (errors ``ServingError`` kinds), no
+   capture or recompile after warmup in any version and one capture of
+   the train step, 12 flash and 25 layer-norm launches in every replay,
+   the state file idle at round 5, memory after round 5 within a
+   version's footprint of round 2's (spent versions retired, their
+   graphs dropped). Printed: each round's seconds (train, gate, load and
+   capture, canary and confirm) and memory, the gate and roll histograms,
+   each verdict's ``parity_rel``, request latency p50/p99, the
+   incumbent's longest gap between batches during each load.
 
 The captured-against-eager rule: where the two eager runs agree to the
 bit on a tensor (and on the params' group: the param and its Adam
@@ -630,8 +660,11 @@ layer norm's served at T=128 and at T=1024, flash's at T=1024;
 ``sanitizer_launches`` phase 34 (a)'s replays and walks;
 ``ndarray_launches`` and ``exec_op_launches`` phase 35 (c)'s;
 ``samediff_capture_launches`` phase 7's capture (softmax and layer
-norm); ``disk_warm_launches`` phase 36 (b)'s warm start and
-``tune_launches`` phase 36 (c)'s tuned fit (``scale_shift_act``)), the
+norm); ``disk_warm_launches`` phase 36 (b)'s warm start;
+``tune_launches`` phase 36 (c)'s tuned fit (``scale_shift_act``);
+``lifecycle_launches`` and ``lifecycle_replays`` phase 37's flash and
+layer norm, launched (the gate's forwards, the candidates' warm-up runs
+and captures) and replayed (served batches and train steps)), the
 ``nvidia-smi`` name/power-limit line, and as the last line
 ``{"ok": true, "device": {...}}``. Without a card, or outside a
 checkout, it exits non-zero and prints no result.
@@ -783,6 +816,15 @@ LAYOUT_NS = (296, 300, 304, 384, 424, 425, 512)
 HEAD_CONV_CIN, HEAD_CONV_NS = 1024, (424, 425, 432)
 #: phase 33 (e): LeNet's 500-wide dense at B=64 (800 in) and neighbours
 LENET_DENSE_M, LENET_DENSE_K, LENET_DENSE_NS = 64, 800, (496, 500, 504)
+#: phase 37: tokens a request row, train steps a round, the steady
+#: schedule's length (150/s; the phase stops it when its rounds are done),
+#: submits timed each way, seconds between the judge's ticks
+LC_SEQ, LC_STEPS, LC_REQUESTS, LC_SUBMIT_SAMPLES, LC_TICK_S = \
+    128, 4, 150 * 240, 200, 0.5
+#: phase 37's fine-tuning rate: 4 Adam steps of 1e-4 (BertBench's) from
+#: v1 put a healthy candidate at parity_rel 1.29, over the gate's 0.25
+#: (PERF.md §6); 1e-5, a BERT fine-tuning rate, keeps 0.02-0.03
+LC_LR = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -1865,6 +1907,10 @@ def main() -> None:
     p36 = rng_disk_tune(smi)
     torch.cuda.empty_cache()
 
+    # -------------------- 37. continuous training: the lifecycle storm
+    lc = lifecycle_storm(smi)
+    torch.cuda.empty_cache()
+
     ln.update(served["layer_norm"])
     fa.update(served["flash_attention"])
     for kr in (ln, fa):
@@ -1891,6 +1937,9 @@ def main() -> None:
     sm["ndarray_launches"] = surf["softmax"]
     for kr in (ln, ssa, fa):
         kr["exec_op_launches"] = surf[kr["name"]]
+    for kr in (ln, fa):
+        kr["lifecycle_launches"] = lc["launches"][kr["name"]]
+        kr["lifecycle_replays"] = lc["replays"][kr["name"]]
     bn_st["launches"] = probe_launches["bn_stats"]
     bn_ap["launches"] = probe_launches["bn_apply_leaky"]
     keys = ("name", "route", "source", "replaces", "launches", "replays",
@@ -1901,7 +1950,7 @@ def main() -> None:
             "long_run_launches", "keras_launches", "transfer_launches",
             "sanitizer_launches", "ndarray_launches", "exec_op_launches",
             "samediff_capture_launches", "disk_warm_launches",
-            "tune_launches")
+            "tune_launches", "lifecycle_launches", "lifecycle_replays")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{k: kr[k] for k in keys if k in kr}
                                   for kr in (ln, fa, ssa, sm, bn_st, bn_ap)]}))
@@ -2156,12 +2205,12 @@ def front_door(smi: str) -> None:
         # the replay lasts as long as the phase needs it: v2's load,
         # then SWAP_S s in which the route rolls, rolls back and rolls
         # again, and then it stops. v2's load took 0.6-2.5 s on a quiet
-        # host and 4.2, 10.6 and 13.0 s on contended ones, whose GIL
-        # v2's eager warm-up forwards share with v1's server and the
-        # HTTP threads, so the schedule holds 4096 requests (27.4 s at
+        # host and 4.2, 10.6, 13.0 and 22.1 s on contended ones, whose
+        # GIL v2's eager warm-up forwards share with v1's server and the
+        # HTTP threads, so the schedule holds 8192 requests (54.6 s at
         # 150 requests/s) and is cut when the swaps are done
         SWAP_S = 5.0
-        load = ServingLoad.seeded(seed=0, mix="steady", n=4096, rps=150,
+        load = ServingLoad.seeded(seed=0, mix="steady", n=8192, rps=150,
                                   max_rows=8)
         for spec in load.specs:
             spec.deadline = 5.0
@@ -5794,6 +5843,8 @@ def obs_attribution(smi: str) -> int:
             timed.append((time.perf_counter() - t0,
                           ck.LAUNCHES["scale_shift_act"] - a, token.step0,
                           j, token.state.snap_step))
+    from deeplearning4j_tpu_torch.profiler import flightrec
+    recorder = flightrec.get_flight_recorder()
     total = 0
     for what, batches, kw, want in cases:
         net, twin = tiny_yolo_bf16(), tiny_yolo_bf16()
@@ -5802,6 +5853,13 @@ def obs_attribution(smi: str) -> int:
             fail("phase 34 (a): two TinyYOLO inits from one seed differ")
         timed.clear()
         san._attribute = attribute_timed
+        # the crash bundle: a directory of its own, the rate limit reset,
+        # the fit's spans traced
+        bundle_dir = tempfile.mkdtemp(prefix="dl4j-flightrec-")
+        recorder.directory = bundle_dir
+        recorder._last_dump.pop("fit:NonfiniteAttributionError", None)
+        prof.get_tracer().clear()
+        prof.enable_tracing()
         prof.set_profiling_mode(prof.ProfilingMode.NAN_PANIC)
         try:
             net.fit(batches, steps_per_dispatch=MEGA_K, **kw())
@@ -5811,9 +5869,14 @@ def obs_attribution(smi: str) -> int:
             fail(f"phase 34 (a) {what}: NAN_PANIC raised nothing")
         finally:
             prof.set_profiling_mode(None)
+            prof.disable_tracing()
+            recorder.directory = None
             san._attribute = attribute
         if site != want:
             fail(f"phase 34 (a) {what}: named {site}, want {want}")
+        bundle_check(what, bundle_dir, "fit:NonfiniteAttributionError",
+                     "MultiLayerNetwork", smi)
+        prof.get_tracer().clear()
         twin.fit(batches[:2 * MEGA_K], steps_per_dispatch=MEGA_K, **kw())
         a, b = net._dispatch_state(), twin._dispatch_state()
         same = sum(bits_equal(u, v) for u, v in zip(a, b))
@@ -5831,6 +5894,41 @@ def obs_attribution(smi: str) -> int:
         del net, twin
         torch.cuda.empty_cache()
     return total
+
+
+def bundle_check(what: str, bundle_dir: str, reason: str, model: str,
+                 smi: str) -> None:
+    """Phase 34 (a): the crashed fit left exactly one flight-recorder
+    bundle, named ``reason``, whose trace holds the fit's ``train:run``
+    span (its ``run_id`` the trace's id) and steps stamped with it."""
+    import shutil
+    try:
+        bundles = sorted(os.listdir(bundle_dir))
+        safe = reason.replace(":", "-")
+        if len(bundles) != 1 or not bundles[0].endswith("-" + safe):
+            fail(f"phase 34 (a) {what}: bundles {bundles}, want one "
+                 f"{reason}")
+        path = os.path.join(bundle_dir, bundles[0])
+        with open(os.path.join(path, "reason.txt")) as f:
+            head = f.readline().strip()
+        with open(os.path.join(path, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+        runs = [e for e in events if e.get("name") == "train:run"]
+        run_id = runs[0]["args"].get("run_id") if len(runs) == 1 else None
+        stamped = [e for e in events if e.get("name") != "train:run"
+                   and e.get("args", {}).get("trace_id") == run_id]
+        if head != f"reason: {reason}" or run_id is None \
+                or runs[0]["args"].get("trace_id") != run_id \
+                or runs[0]["args"].get("model") != model or not stamped:
+            fail(f"phase 34 (a) {what}: bundle {bundles[0]} says {head!r}, "
+                 f"train:run spans {runs}, {len(stamped)} spans stamped "
+                 "with the run id")
+        log(f"phase 34 (a) {what}: one flight-recorder bundle "
+            f"{bundles[0]} ({head}); its trace holds train:run (run_id "
+            f"{run_id}) and {len(stamped)} spans of that run "
+            f"({sorted({e['name'] for e in stamped})}) [{smi}]")
+    finally:
+        shutil.rmtree(bundle_dir, ignore_errors=True)
 
 
 def obs_tbptt(smi: str) -> None:
@@ -7200,6 +7298,420 @@ def conv_contract_cost(smi: str) -> None:
         f"{d_step:+.3f} ms; a "
         f"check {cached_us:.2f} us cached, {uncached_us:.2f} us uncached, "
         f"{stub_us:.2f} us stubbed (host clock) [{smi}]")
+
+
+def lifecycle_storm(smi: str) -> dict:
+    """Phase 37: continuous training on the card. BERT-base (pre-LN,
+    bf16, flash) v1 served captured from a ``ModelRegistry`` whose
+    servers record every request into a ``TrafficCapture``; one thread
+    submits a steady 150 requests/s (1-8 rows of 128 tokens) for the
+    whole phase; a BertBench-shaped step (B=64, T=128, Adam at LC_LR) from
+    v1's parameters, captured once before the traffic, trains 4 steps a
+    round and hands the driver a snapshot; the eval gate scores each
+    candidate in parity mode on 64 captured rows. The plan kills the
+    trainer (a sleep subprocess, SIGKILLed) at roll 2, poisons round 3's
+    candidate with NaN and reads roll 4's confirmation as an SLO
+    regression; a second driver over the same state directory resumes.
+    Returns the flash and layer-norm launches and replays of the phase
+    (``lifecycle_launches``, ``lifecycle_replays``)."""
+    import collections
+    import shutil
+    import weakref
+
+    import torch
+
+    from deeplearning4j_tpu_torch import profiler as prof
+    from deeplearning4j_tpu_torch.faults import FaultPlan, ServingLoad
+    from deeplearning4j_tpu_torch.lifecycle import (EvalGate,
+                                                    LifecycleDriver,
+                                                    TrafficCapture,
+                                                    TrainerKilledError,
+                                                    spawn_trainer_process)
+    from deeplearning4j_tpu_torch.models import transformer as tfm
+    from deeplearning4j_tpu_torch.nn import compilecache as cc
+    from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+    from deeplearning4j_tpu_torch.profile_fit import BertBench
+    from deeplearning4j_tpu_torch.serving import ModelRegistry, ServingError
+    from deeplearning4j_tpu_torch.serving.server import ModelServer
+    from deeplearning4j_tpu_torch.train.resilience import DriverStateStore
+    from deeplearning4j_tpu_torch.train.updaters import Adam
+    ck.install_platform_overrides()
+    t_phase = time.perf_counter()
+    T, dev = LC_SEQ, torch.device("cuda")
+    per_fwd = {"flash_attention": 12, "layer_norm": 25}
+    cfg = tfm.TransformerConfig.bert_base(dtype=torch.bfloat16,
+                                          use_flash_attention=True)
+    gc.collect()
+    torch.cuda.synchronize()
+    tmp = tempfile.mkdtemp(prefix="dl4j-lifecycle-")
+    cap_path = os.path.join(tmp, "traffic.jsonl")
+    state_dir = os.path.join(tmp, "driver")
+    traffic_capture = TrafficCapture(cap_path, sample_rate=1.0,
+                                     max_records=LC_REQUESTS)
+    reg = ModelRegistry(batch_limit=32, head="argmax", input_dtype=np.int32,
+                        capture=traffic_capture)
+    proc = spawn_trainer_process()
+    stop = threading.Event()
+    ends = collections.defaultdict(list)    # server -> its batch ends
+    dispatch_batch = ModelServer._dispatch_batch
+
+    def dispatch_timed(self, batch):
+        try:
+            return dispatch_batch(self, batch)
+        finally:
+            ends[self.name].append(time.perf_counter())
+    ModelServer._dispatch_batch = dispatch_timed
+    try:
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        v1 = tfm.TransformerLM(cfg, seed=0)
+        torch.cuda.synchronize()
+        weights_b = torch.cuda.memory_allocated() - mem0
+        t0 = time.perf_counter()
+        reg.load("bert", v1, shapes=[(T,)])
+        torch.cuda.synchronize()
+        footprint = torch.cuda.memory_allocated() - mem0
+        log(f"lifecycle: v1 BERT-base bf16 loaded and captured in "
+            f"{time.perf_counter() - t0:.2f} s; a version holds "
+            f"{footprint / 1e9:.3f} GB allocated: weights "
+            f"{weights_b / 1e9:.3f}, its load {(footprint - weights_b) / 1e9:.3f}")
+
+        # what the traffic capture costs a submit, on v1's server: 200
+        # submits with it and 200 without, in turns, each answered (into a
+        # file of their own: the eval set comes from the steady traffic)
+        srv = reg.server("bert", 1)
+        timed_capture = TrafficCapture(os.path.join(tmp, "submit.jsonl"))
+        rng = np.random.RandomState(1)
+        us = {True: [], False: []}
+        for i in range(2 * LC_SUBMIT_SAMPLES):
+            on = i % 2 == 0
+            srv._traffic_capture = timed_capture if on else None
+            x = rng.randint(0, cfg.vocab_size, (1, T)).astype(np.int32)
+            t0 = time.perf_counter_ns()
+            h = srv.submit(x)
+            us[on].append((time.perf_counter_ns() - t0) / 1e3)
+            h.get(60)
+        srv._traffic_capture = traffic_capture
+        sub_on, sub_off = (float(np.median(us[k])) for k in (True, False))
+        log(f"lifecycle: submit {sub_on:.1f} us with the traffic capture "
+            f"on, {sub_off:.1f} us off (median of {LC_SUBMIT_SAMPLES} "
+            f"each, one server, 1 x {T} tokens, host clock) [{smi}]")
+
+        # the record alone, on the same file system
+        rec_us = []
+        for i in range(LC_SUBMIT_SAMPLES):
+            x = rng.randint(0, cfg.vocab_size, (1, T)).astype(np.int32)
+            t0 = time.perf_counter_ns()
+            timed_capture.record(x)
+            rec_us.append((time.perf_counter_ns() - t0) / 1e3)
+        log(f"lifecycle: TrafficCapture.record of 1 x {T} tokens "
+            f"{float(np.median(rec_us)):.1f} us alone (median of "
+            f"{LC_SUBMIT_SAMPLES}, host clock) [{smi}]")
+
+        # the trainer: BertBench's step shape (B=64, T=128) from v1's
+        # parameters at the fine-tuning rate, captured once
+        bench = BertBench()
+        bench.train_step = tfm.make_train_step(cfg, Adam(LC_LR))
+        bench.opt = tfm.init_opt_state(bench.params, Adam(LC_LR))
+        with torch.no_grad():
+            for a, b in zip(cc.state_tensors(bench.params),
+                            cc.state_tensors(v1.params)):
+                a.copy_(b)
+        del v1          # the registry holds it until v1 is retired
+        disp = bench.captured()
+        args = (bench.tokens, bench.targets, bench.mask)
+        disp.warm(*args)
+        train_losses = []
+
+        def trainer(r):
+            t0 = time.perf_counter()
+            for _ in range(LC_STEPS):
+                loss = disp(*args)
+            train_losses.append(float(loss))
+            snap = tfm.TransformerLM(cfg, params=tfm.copy_params(
+                bench.params))
+            split[r]["train"] += time.perf_counter() - t0
+            return snap
+
+        # the traffic: one thread, the whole phase
+        load = ServingLoad.seeded(seed=0, mix="steady", n=LC_REQUESTS,
+                                  rps=150, max_rows=8)
+        for spec in load.specs:
+            spec.deadline = 10.0
+
+        def tokens(rng, spec):
+            return rng.randint(0, cfg.vocab_size, (spec.rows, T)).astype(
+                np.int32)
+        out = {}
+        replay = threading.Thread(target=lambda: out.setdefault(
+            "res", load.replay(lambda x, deadline=None: reg.submit(
+                "bert", x, deadline=deadline), (T,), make=tokens,
+                stop=stop)))
+        hits0 = cc.cache_stats()["memory"]["hits"]
+        ck.reset_counts()
+        replay.start()
+        while traffic_capture.captured < 32 and replay.is_alive():
+            time.sleep(0.05)
+        eval_x = TrafficCapture.eval_features(cap_path, max_rows=64)
+        log(f"lifecycle: eval set {eval_x.shape} from the captured traffic")
+
+        weights = {1: weakref.ref(reg.server("bert", 1).model)}
+        # v1 is the incumbent the driver starts from
+        DriverStateStore(state_dir).save({
+            "round": 0, "phase": "idle", "in_round": None, "roll_index": 0,
+            "incumbent": 1, "candidate_version": None, "quarantined": [],
+            "promotions": 0, "rollbacks": 0})
+        plan = FaultPlan(trainer_death_at_roll=2, bad_candidate_at={3: "nan"},
+                         slo_regression_during_canary=4)
+        split = collections.defaultdict(collections.Counter)
+        loads, verdicts = [], {}
+
+        def driver():
+            d = LifecycleDriver(reg, "bert", trainer, state_dir,
+                                eval_x=eval_x, shapes=[(T,)], gate=EvalGate(),
+                                observe_ticks=2, confirm_ticks=2,
+                                tick_interval=LC_TICK_S, faults=plan,
+                                trainer_process=proc)
+            gate, load_v, evaluate = d._gate, d._load, d.gate.evaluate
+
+            def gate_timed(r, cand):
+                t0 = time.perf_counter()
+                try:
+                    return gate(r, cand)
+                finally:
+                    split[r]["gate"] += time.perf_counter() - t0
+
+            def evaluate_kept(cand, inc, x, y=None):
+                v = evaluate(cand, inc, x, y)
+                verdicts[len(verdicts) + 1] = v
+                log(f"lifecycle gate {len(verdicts)}: {v!r}, parity_rel "
+                    f"{v.detail.get('parity_rel')}, rows "
+                    f"{v.detail.get('rows')}")
+                return v
+
+            def load_timed(r, cand):
+                inc = reg.active_version("bert")
+                t0 = time.perf_counter()
+                try:
+                    v = load_v(r, cand)
+                    weights[v] = weakref.ref(cand)
+                    return v
+                finally:
+                    t1 = time.perf_counter()
+                    split[r]["load"] += t1 - t0
+                    loads.append((r, inc, t0, t1))
+            d._gate, d._load, d.gate.evaluate = (gate_timed, load_timed,
+                                                 evaluate_kept)
+            return d
+
+        spent = {}      # a retired version's counts, read before it goes
+
+        def retire_spent():
+            """Retire what is neither served, nor the rollback target,
+            nor the canary: its graphs and weights are freed."""
+            m = reg.models()["bert"]
+            keep = {m["active"], m["previous"], m["canary"]}
+            for v, info in m["versions"].items():
+                if v not in keep and not info["retired"]:
+                    sv = reg.server("bert", v)
+                    spent[v] = (sv.recompiles_after_warmup(),
+                                sv.captures_after_warmup())
+                    reg.retire("bert", v, timeout=60)
+
+        mem, reserved, round_s, summary = {}, {}, {}, None
+        alive = {}
+
+        def run_round(d, r):
+            t0 = time.perf_counter()
+            try:
+                return d.run(r)
+            finally:
+                round_s[r] = round_s.get(r, 0.0) + time.perf_counter() - t0
+                retire_spent()
+                gc.collect()
+                alive[r] = sorted(v for v, w in weights.items()
+                                  if w() is not None)
+                torch.cuda.synchronize()
+                mem[r] = torch.cuda.memory_allocated()
+                reserved[r] = torch.cuda.memory_reserved()
+
+        drv = driver()
+        run_round(drv, 1)
+        try:
+            run_round(drv, 2)
+        except TrainerKilledError as e:
+            killed = e
+        else:
+            fail("phase 37: the trainer did not die at roll 2")
+        if proc.poll() is None or proc.returncode != -9:
+            fail(f"phase 37: the trainer process is not SIGKILLed "
+                 f"({proc.returncode})")
+        active_at_death = reg.active_version("bert")
+        drv2 = driver()
+        if not drv2.resumed:
+            fail("phase 37: the second driver did not resume")
+        run_round(drv2, 2)
+        run_round(drv2, 3)
+        probe = np.random.RandomState(99).randint(
+            0, cfg.vocab_size, (8, T)).astype(np.int32)
+        probe_t = torch.from_numpy(probe).to(dev)
+        pre_ids = reg.output("bert", probe)
+        pre_v = reg.active_version("bert")
+        v3 = reg.server("bert", pre_v).model
+        # host copies: the evidence must not weigh on the card's memory
+        pre_logits = v3.logits(probe_t).cpu()
+        pre_params = [p.detach().cpu() for p in v3.parameters()]
+        run_round(drv2, 4)
+        post_v = reg.active_version("bert")
+        post_ids = reg.output("bert", probe)
+        post_logits = reg.server("bert", post_v).model.logits(probe_t).cpu()
+        same_params = all(bits_equal(a, b.detach().cpu()) for a, b in zip(
+            pre_params, v3.parameters()))
+        del v3, pre_params
+        summary = run_round(drv2, 5)
+        stop.set()
+        replay.join(120)
+        if replay.is_alive():
+            fail("phase 37: the traffic thread did not stop")
+        res = out["res"]
+        lat, errors, resolved = [], [], True
+        for _spec, h in res:
+            if isinstance(h, Exception):
+                errors.append(h)
+                continue
+            try:
+                h.get(60)
+                lat.append(h.resolved_at - h.enqueued_at)
+            except Exception as e:
+                errors.append(e)
+            resolved &= h.resolutions == 1
+        torch.cuda.synchronize()
+        hits = cc.cache_stats()["memory"]["hits"] - hits0
+        launches = {k: ck.LAUNCHES[k] for k in per_fwd}
+        replays = {k: ck.REPLAYS[k] for k in per_fwd}
+        plain = dict(ck.PLAIN_CALLS)
+        ModelServer._dispatch_batch = dispatch_batch
+
+        # ------------------------------------------------- printed first
+        for r in sorted(round_s):
+            s = split[r]
+            log(f"lifecycle round {r}: {round_s[r]:.2f} s = train "
+                f"{s['train']:.2f} + gate {s['gate']:.2f} + load and "
+                f"capture {s['load']:.2f} + canary and confirm "
+                f"{round_s[r] - s['train'] - s['gate'] - s['load']:.2f}; "
+                f"after it (spent versions retired; models alive "
+                f"{alive[r]}) memory_allocated "
+                f"{mem[r] / 1e9:.3f} GB, memory_reserved "
+                f"{reserved[r] / 1e9:.3f} GB [{smi}]")
+        reg_m = prof.get_registry()
+        for name in ("dl4j_lifecycle_gate_seconds",
+                     "dl4j_lifecycle_roll_seconds"):
+            h = reg_m.get(name)
+            log(f"{name}: count {h.count}, sum {h.sum:.4f} s, mean "
+                f"{h.sum / max(h.count, 1) * 1e3:.2f} ms")
+        lat_ms = np.asarray(lat) * 1e3
+        log(f"lifecycle: {len(res)} requests over {load.specs[len(res) - 1].at:.1f} s "
+            f"offered at 150/s, latency p50 {np.percentile(lat_ms, 50):.2f} "
+            f"ms, p99 {np.percentile(lat_ms, 99):.2f} ms, {len(errors)} "
+            f"structured errors {sorted({type(e).__name__ for e in errors})}"
+            f" [{smi}]")
+        for r, inc, t0, t1 in loads:
+            e = np.asarray(ends[f"bert:v{inc}"])
+            during = np.concatenate([e[e < t0][-1:],
+                                     e[(e >= t0) & (e <= t1)],
+                                     e[e > t1][:1]])
+            gaps = np.diff(during)
+            log(f"lifecycle round {r}: the incumbent v{inc}'s longest gap "
+                f"between batches while the candidate loads "
+                f"({t1 - t0:.2f} s) {1e3 * gaps.max(initial=0.0):.2f} ms "
+                f"over {len(gaps)} gaps")
+        log(f"lifecycle: flash launches {launches['flash_attention']}, "
+            f"replays {replays['flash_attention']}; layer_norm launches "
+            f"{launches['layer_norm']}, replays {replays['layer_norm']}; "
+            f"{hits} graph replays; train losses "
+            f"{[round(v, 5) for v in train_losses]}; traffic capture "
+            f"{traffic_capture.captured} records, {traffic_capture.dropped} "
+            f"dropped")
+
+        # ------------------------------------------------------- checks
+        versions = sorted(reg.models()["bert"]["versions"])
+        final_v = reg.active_version("bert")
+        if active_at_death != 2:
+            fail(f"phase 37: v{active_at_death} served after the death, "
+                 "want v2")
+        if final_v != 5 or drv2.incumbent_version != 5:
+            fail(f"phase 37: the registry ends on v{final_v} (driver "
+                 f"{drv2.incumbent_version}), want the last good v5")
+        q = drv2.quarantined
+        if [x["reason"] for x in q] != ["gate:non_finite_outputs",
+                                        "slo_regression"] \
+                or q[0]["version"] is not None or versions != [1, 2, 3, 4, 5]:
+            fail(f"phase 37: quarantined {q}, versions {versions}: want the "
+                 "NaN candidate quarantined by the gate and never loaded, "
+                 "then one SLO regression")
+        if drv2.rollbacks != 1 or summary["rollbacks"] != 1:
+            fail(f"phase 37: {drv2.rollbacks} rollbacks, want 1")
+        if pre_v != 3 or post_v != 3 \
+                or not np.array_equal(pre_ids, post_ids) \
+                or not bits_equal(pre_logits, post_logits) \
+                or not same_params:
+            fail(f"phase 37: before the roll v{pre_v}, after the rollback "
+                 f"v{post_v}: the served ids, the restored model's logits "
+                 "or its parameters are not bit-equal")
+        if not resolved or not all(isinstance(e, ServingError)
+                                   for e in errors):
+            fail(f"phase 37: requests not resolved exactly once, or errors "
+                 f"that are no ServingError: "
+                 f"{sorted({type(e).__name__ for e in errors})}")
+        for v in versions:
+            if v in spent:
+                counts = spent[v]
+            else:
+                sv = reg.server("bert", v)
+                counts = (sv.recompiles_after_warmup(),
+                          sv.captures_after_warmup())
+            if any(counts):
+                fail(f"phase 37: bert:v{v} recompiles {counts[0]}, "
+                     f"captures {counts[1]} after warmup")
+        stats = cc.cache_stats()
+        if disp.captures() != 1 or stats["capture_failures"]:
+            fail(f"phase 37: the trainer captured {disp.captures()} "
+                 f"graphs; cache stats {stats}")
+        if replays != {k: n * hits for k, n in per_fwd.items()} \
+                or any(plain.values()):
+            fail(f"phase 37: replays {replays} over {hits} graph replays "
+                 f"(plain calls {plain}): want 12 flash and 25 layer_norm "
+                 "a replay")
+        st = DriverStateStore(state_dir).load()
+        if st is None or st["phase"] != "idle" or st["in_round"] is not None \
+                or st["round"] != 5:
+            fail(f"phase 37: the driver's state ends {st}")
+        held = [v for v in alive[5] if v in spent]
+        if held:
+            fail(f"phase 37: retired versions {held} still hold their "
+                 "models")
+        if mem[5] > mem[2] + footprint:
+            fail(f"phase 37: memory after round 5 {mem[5] / 1e9:.3f} GB "
+                 f"exceeds round 2's {mem[2] / 1e9:.3f} GB by more than a "
+                 f"version ({footprint / 1e9:.3f} GB)")
+        bad = [i for i, v in verdicts.items() if v.passing
+               and v.detail.get("parity_rel") is None]
+        if bad:
+            fail(f"phase 37: passing verdicts {bad} report no parity_rel")
+        log(f"phase 37: the lifecycle storm on BERT-base: trainer killed at "
+            f"roll {killed.roll_index} (round {killed.round_index}) and "
+            f"resumed, the NaN candidate quarantined unloaded, one rollback "
+            f"bit-equal, v5 served; {len(res)} requests each resolved once; "
+            f"phase {time.perf_counter() - t_phase:.1f} s [{smi}]")
+        return {"launches": launches, "replays": replays}
+    finally:
+        ModelServer._dispatch_batch = dispatch_batch
+        stop.set()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(10)
+        reg.close()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def bound(nbytes: int, ops: int, peak: float) -> dict:

@@ -49,20 +49,60 @@ Wire-level chaos (the HTTP ingress front door):
   a replay is in flight: every request must resolve exactly once against
   exactly one version.
 
+Lifecycle fault kinds (the continuous-training loop's chaos pins,
+consumed by :class:`~deeplearning4j_tpu_torch.lifecycle.driver.
+LifecycleDriver`):
+
+- **Trainer death mid-roll** (``trainer_death_at_roll=k``) — as the
+  driver's k-th roll (1-based) is in flight (candidate loaded and
+  canarying, not yet promoted), the trainer is killed: a subprocess
+  trainer gets a real SIGKILL and the driver unwinds through
+  :class:`~deeplearning4j_tpu_torch.lifecycle.driver.TrainerKilledError`.
+  The registry keeps serving a consistent version and a new driver over
+  the same state dir resumes from its persisted state machine.
+- **Bad candidate at round k** (``bad_candidate_at={k: "nan" |
+  "regressed"}``) — the k-th round's candidate is poisoned: ``"nan"``
+  makes its outputs non-finite, ``"regressed"`` shifts them past the
+  gate's parity bound. The eval gate must quarantine it; it is never
+  loaded.
+- **SLO regression during canary** (``slo_regression_during_canary=k``)
+  — the k-th roll's post-promote confirmation reads as an SLO
+  regression; the driver must ``rollback()`` (bit-identical to the
+  pre-roll incumbent).
+- :meth:`FaultPlan.seeded_lifecycle` draws a whole lifecycle plan from
+  one seed.
+
+Race kinds (``pytest -m races``):
+
+- **Seeded deterministic interleavings** — :class:`InterleavingHarness`
+  runs N thread bodies under a cooperative scheduler: exactly one
+  thread executes at a time, and at every traced line/opcode boundary a
+  seeded RNG decides whether to context-switch. The schedule is a pure
+  function of the seed (the same decisions as the JAX package's harness
+  for the same bodies), so a racy interleaving that loses an increment
+  reproduces instead of flaking.
+- **Preemptive stress** — :func:`preemptive_stress` drops
+  ``sys.setswitchinterval`` to microseconds so real thread pools
+  (serving, prefetch, async checkpoint writes) interleave far more
+  often while a seeded workload hammers them.
+
 Every fault fires exactly once per planned index (so a retried pull or
 forward succeeds, like a real transient).
 
-Not ported yet (ROADMAP.md): device loss in training
-(``device_loss_at_step``), the coordinator and lifecycle kinds and the
-interleaving harness.
+Not ported yet (ROADMAP.md): the multi-device kinds — device loss in
+training (``device_loss_at_step``) and the coordinator's peer death
+(``coord_peer_death``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+import random
+import sys
 import threading
 import time
-from typing import Callable, Iterable, Optional, Set
+from typing import Callable, Iterable, List, Optional, Sequence, Set
 
 import numpy as np
 import torch
@@ -103,7 +143,10 @@ class FaultPlan:
                  slow_seconds: float = 0.1,
                  serve_fail_at: Iterable[int] = (),
                  serve_device_loss_at_batch: Optional[int] = None,
-                 nan_layer_params_at: Optional[dict] = None):
+                 nan_layer_params_at: Optional[dict] = None,
+                 trainer_death_at_roll: Optional[int] = None,
+                 bad_candidate_at: Optional[dict] = None,
+                 slo_regression_during_canary: Optional[int] = None):
         self.seed = seed
         self.nan_grads_at = _as_step_set(nan_grads_at)
         self.data_error_at = _as_step_set(data_error_at)
@@ -122,6 +165,19 @@ class FaultPlan:
         #: graph): NaN planted in that layer's params before step ``step``
         self.nan_layer_params_at = {int(k): v for k, v in
                                     (nan_layer_params_at or {}).items()}
+        #: lifecycle kinds: the 1-based roll index at which the trainer
+        #: dies mid-roll; {round: "nan"|"regressed"} candidate poisons;
+        #: the 1-based roll index whose post-promote confirmation reads as
+        #: an SLO regression
+        self.trainer_death_at_roll = trainer_death_at_roll
+        self.bad_candidate_at = {int(k): str(v) for k, v in
+                                 (bad_candidate_at or {}).items()}
+        for k, v in self.bad_candidate_at.items():
+            if v not in ("nan", "regressed"):
+                raise ValueError(
+                    f"bad_candidate_at[{k}]={v!r}: kind must be "
+                    "'nan' or 'regressed'")
+        self.slo_regression_during_canary = slo_regression_during_canary
         # consumed-state: each fault fires once
         self._nan_pending = set(self.nan_grads_at)
         self._data_pending = set(self.data_error_at)
@@ -132,6 +188,10 @@ class FaultPlan:
         self._slow_pending = set(self.slow_replica_at)
         self._serve_fail_pending = set(self.serve_fail_at)
         self._layer_poison_pending = set(self.nan_layer_params_at)
+        self._trainer_death_pending = trainer_death_at_roll is not None
+        self._bad_candidate_pending = set(self.bad_candidate_at)
+        self._slo_regression_pending = \
+            slo_regression_during_canary is not None
         self._hang_release = threading.Event()
 
     @classmethod
@@ -277,6 +337,39 @@ class FaultPlan:
                    hung_dispatch_at=hang_at, hang_seconds=hang_seconds,
                    serve_device_loss_at_batch=loss_at, lose_devices=lose)
 
+    @classmethod
+    def seeded_lifecycle(cls, seed: int, rounds: int, n_bad: int = 1,
+                         bad_kind: Optional[str] = None,
+                         trainer_death: bool = False,
+                         slo_regression: bool = False) -> "FaultPlan":
+        """A lifecycle plan from one seed: fault *round indices* are
+        drawn without replacement from ``[2, rounds]`` (round 1 is left
+        clean so every storm promotes at least one good candidate
+        first). ``n_bad`` poisons that many candidates (``bad_kind``
+        fixes the kind; default alternates nan/regressed per draw),
+        ``trainer_death`` SIGKILLs the trainer mid-roll at a drawn roll
+        index, and ``slo_regression`` plants one genuine SLO regression
+        in a drawn roll's confirmation window. The same seed draws the
+        same rounds as the JAX package's."""
+        rng = np.random.RandomState(seed)
+        n_faults = n_bad + (1 if trainer_death else 0) \
+            + (1 if slo_regression else 0)
+        lo = 2
+        pool = rng.permutation(np.arange(lo, max(rounds + 1, lo + n_faults)))
+        picks = [int(p) for p in pool[:n_faults]]
+        kinds = ("nan", "regressed")
+        bad = {picks[i]: (bad_kind if bad_kind is not None
+                          else kinds[i % 2]) for i in range(n_bad)}
+        pos = n_bad
+        death = None
+        if trainer_death:
+            death = picks[pos]
+            pos += 1
+        regression = picks[pos] if slo_regression else None
+        return cls(seed=seed, bad_candidate_at=bad,
+                   trainer_death_at_roll=death,
+                   slo_regression_during_canary=regression)
+
     # -------------------------------------------------------- serving seams
     def serving_forward(self, batch_index: int, device_ids) -> None:
         """Called by the model server as serving batch ``batch_index``
@@ -321,6 +414,41 @@ class FaultPlan:
         watchdog abandoned that never reaches the device."""
         self._hang_release.set()
 
+    # ------------------------------------------------------ lifecycle seams
+    def trainer_dies_at_roll(self, roll_index: int) -> bool:
+        """True exactly once, when the driver's ``roll_index``-th roll
+        (1-based) is the planned trainer-death point — the driver kills
+        its trainer (SIGKILL for a subprocess) and unwinds; a later
+        driver over the same state dir must resume."""
+        if self._trainer_death_pending \
+                and self.trainer_death_at_roll is not None \
+                and int(roll_index) >= int(self.trainer_death_at_roll):
+            self._trainer_death_pending = False
+            return True
+        return False
+
+    def candidate_fault(self, round_index: int) -> Optional[str]:
+        """The planned candidate poison for training round
+        ``round_index`` (1-based): ``"nan"`` (non-finite outputs),
+        ``"regressed"`` (outputs shifted past the gate's parity bound),
+        or None. Fires once per planned round."""
+        k = int(round_index)
+        if k in self._bad_candidate_pending:
+            self._bad_candidate_pending.discard(k)
+            return self.bad_candidate_at[k]
+        return None
+
+    def canary_regression(self, roll_index: int) -> bool:
+        """True exactly once, when roll ``roll_index``'s post-promote
+        confirmation window is the planned SLO-regression point — the
+        driver must roll back automatically."""
+        if self._slo_regression_pending \
+                and self.slo_regression_during_canary is not None \
+                and int(roll_index) >= int(self.slo_regression_during_canary):
+            self._slo_regression_pending = False
+            return True
+        return False
+
     def __repr__(self):
         return (f"FaultPlan(seed={self.seed}, "
                 f"nan={sorted(self.nan_grads_at)}, "
@@ -333,7 +461,10 @@ class FaultPlan:
                 f"slow={sorted(self.slow_replica_at)}, "
                 f"serve_fail={sorted(self.serve_fail_at)}, "
                 f"serve_loss={self.serve_device_loss_at_batch}:"
-                f"{sorted(self.lose_devices)})")
+                f"{sorted(self.lose_devices)}, "
+                f"trainer_death_at_roll={self.trainer_death_at_roll}, "
+                f"bad_candidate={sorted(self.bad_candidate_at.items())}, "
+                f"slo_regression={self.slo_regression_during_canary})")
 
 
 def _nan_like(a):
@@ -525,19 +656,25 @@ class ServingLoad:
 
     def replay(self, submit, feature_shape, dtype=np.float32,
                time_scale: float = 1.0, rng_seed: int = 0,
-               make: Optional[Callable] = None):
+               make: Optional[Callable] = None,
+               stop: Optional[threading.Event] = None):
         """Drive ``submit(x, deadline=...)`` honoring the arrival
         offsets (scaled by ``time_scale``). Returns the list of
         ``(spec, handle_or_exception)`` pairs — admission rejections are
         captured, not raised, so callers can assert on the outcome
         partition. Feature values are seeded for reproducibility
-        (:meth:`features`)."""
+        (:meth:`features`). ``stop``, when set, ends the schedule early:
+        nothing is submitted after it, and the submitted prefix is
+        returned."""
         feats = self.features(feature_shape, dtype, rng_seed, make)
         t0 = time.monotonic()
         out = []
         for spec, x in zip(self.specs, feats):
             delay = spec.at * time_scale - (time.monotonic() - t0)
-            if delay > 0:
+            if stop is not None:
+                if stop.wait(max(delay, 0.0)):
+                    break
+            elif delay > 0:
                 time.sleep(delay)
             try:
                 out.append((spec, submit(x, deadline=spec.deadline)))
@@ -696,3 +833,228 @@ class SwapSchedule:
         if self._thread is not None:
             self._thread.join(timeout)
         return self.performed
+
+
+# ------------------------------------------------- deterministic interleaving
+class InterleavingHarness:
+    """Seeded deterministic thread-interleaving executor.
+
+    ``run(fn_a, fn_b, ...)`` executes the callables on real threads,
+    but under a cooperative scheduler: exactly ONE thread holds the
+    execution token at any time, and at every traced line (or, with
+    ``opcode_level=True``, every bytecode opcode — fine enough to split
+    ``self.x += 1`` between its LOAD and STORE) the running thread asks
+    a seeded RNG whether to hand the token to another runnable thread.
+    Because every switch decision is drawn from the seed and switch
+    points execute in a total order, the interleaving — and therefore
+    the outcome of any data race in the bodies — is a deterministic
+    function of ``(seed, switch_prob, bodies)``.
+
+    This is what makes the E201/E202 bug class *testable*: the
+    lost-increment fixture loses the same increments on every run with
+    the same seed, and the locked fix can be pinned to never lose any
+    across a seed sweep (``pytest -m races``).
+
+    Escape hatch for real blocking: if the token holder blocks in C
+    (e.g. on a ``threading.Lock`` another thread holds), it cannot
+    reach a switch point — a waiter that observes no scheduler progress
+    for ``stall_timeout`` seconds steals the token so the run cannot
+    deadlock. Bodies built purely from traced Python (the bad fixtures)
+    never stall, so their schedules stay exactly deterministic; bodies
+    taking real locks stay correct but may interleave through the
+    (timing-based) steal path.
+
+    Only code in the submitted bodies (their module, transitively
+    called functions included) is traced; scheduler internals and the
+    interpreter's ``threading`` machinery are exempt so the RNG stream
+    is consumed by user code only.
+    """
+
+    def __init__(self, seed: int = 0, switch_prob: float = 0.35,
+                 opcode_level: bool = True, stall_timeout: float = 0.01,
+                 timeout: float = 30.0):
+        self.seed = int(seed)
+        self.switch_prob = float(switch_prob)
+        self.opcode_level = bool(opcode_level)
+        self.stall_timeout = float(stall_timeout)
+        self.timeout = float(timeout)
+        self._rng = random.Random(self.seed)
+        self._cond = threading.Condition()
+        self._active: Optional[int] = None
+        self._runnable: List[int] = []
+        self._progress = 0
+        self._started = 0
+        self._total = 0
+        self._abort = False
+        self._results: dict = {}
+        self._errors: dict = {}
+        self._tls = threading.local()
+
+    # ------------------------------------------------------------ scheduling
+    def _switch_point(self, idx: int) -> None:
+        if self._abort or getattr(self._tls, "in_scheduler", False):
+            return
+        self._tls.in_scheduler = True
+        try:
+            with self._cond:
+                self._progress += 1
+                if self._active == idx and len(self._runnable) > 1 \
+                        and self._rng.random() < self.switch_prob:
+                    others = [i for i in self._runnable if i != idx]
+                    self._active = self._rng.choice(others)
+                    self._cond.notify_all()
+                self._wait_for_token(idx)
+        finally:
+            self._tls.in_scheduler = False
+
+    def _wait_for_token(self, idx: int) -> None:
+        """Block (cond held) until this thread owns the token; steal it
+        if the current owner is blocked outside traced code. A steal
+        needs THREE consecutive empty stall windows: an owner that is
+        merely descheduled (startup, a loaded box) usually progresses
+        within one window, while one blocked in C on a real lock never
+        does — a premature steal would diverge the seeded schedule."""
+        stalls = 0
+        while self._active != idx:
+            if self._abort:
+                return      # run() gave up: free-run to completion
+            seen = self._progress
+            if self._cond.wait(self.stall_timeout) \
+                    or self._progress != seen:
+                stalls = 0
+                continue
+            if idx not in self._runnable:
+                stalls = 0
+                continue
+            stalls += 1
+            if stalls >= 3:
+                # owner is stuck in C (a real lock): take over.
+                # every caller holds _cond around this method
+                self._active = idx      # dl4j: noqa=E201
+                self._cond.notify_all()
+                return
+
+    def _finish(self, idx: int) -> None:
+        with self._cond:
+            if idx in self._runnable:
+                self._runnable.remove(idx)
+            if self._runnable:
+                self._active = (self._rng.choice(self._runnable)
+                                if self._active == idx
+                                else self._active)
+            else:
+                self._active = None
+            self._cond.notify_all()
+
+    # --------------------------------------------------------------- tracing
+    #: exact source files never traced: the harness itself plus the
+    #: stdlib modules its scheduler leans on — matched by identity, not
+    #: substring, so a user file named e.g. random_search.py still gets
+    #: its switch points
+    _TRACE_EXCLUDED = frozenset({__file__, threading.__file__,
+                                 random.__file__})
+
+    def _tracer(self, idx: int):
+        excluded = self._TRACE_EXCLUDED
+        opcode_level = self.opcode_level
+
+        def trace(frame, event, arg):
+            code_file = frame.f_code.co_filename
+            if code_file in excluded:
+                return None
+            if event == "call":
+                if opcode_level:
+                    frame.f_trace_opcodes = True
+                return trace
+            if event in ("line", "opcode"):
+                self._switch_point(idx)
+            return trace
+        return trace
+
+    def _body(self, idx: int, fn: Callable) -> None:
+        # rendezvous: no body runs a user opcode until EVERY thread has
+        # started, so a slow-to-schedule initial token owner can never
+        # be stolen from before it has run at all
+        with self._cond:
+            self._started += 1
+            self._cond.notify_all()
+            while self._started < self._total:
+                self._cond.wait()
+            self._wait_for_token(idx)
+        sys.settrace(self._tracer(idx))
+        try:
+            result = fn()
+        except BaseException as e:
+            sys.settrace(None)
+            with self._cond:
+                self._errors[idx] = e
+            self._finish(idx)
+        else:
+            sys.settrace(None)
+            with self._cond:
+                self._results[idx] = result
+            self._finish(idx)
+
+    # ------------------------------------------------------------------- run
+    def run(self, *fns: Callable) -> List:
+        """Execute ``fns`` to completion under the seeded schedule;
+        returns their results in order (re-raising the first body
+        error). A harness instance is single-use — the RNG stream is
+        part of the schedule."""
+        if not fns:
+            return []
+        with self._cond:
+            self._runnable = list(range(len(fns)))
+            self._active = 0
+            self._started = 0
+            self._total = len(fns)
+        threads = [threading.Thread(target=self._body, args=(i, fn),
+                                    name=f"interleave-{i}", daemon=True)
+                   for i, fn in enumerate(fns)]
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + self.timeout
+        for t in threads:
+            t.join(max(deadline - time.monotonic(), 0.0))
+        alive = [t.name for t in threads if t.is_alive()]
+        if alive:
+            with self._cond:        # unwedge before reporting: parked
+                self._abort = True  # threads return from _wait_for_token
+                self._runnable = []  # and free-run (untraced switch
+                self._active = None  # points) instead of spinning
+                self._cond.notify_all()
+            raise TimeoutError(
+                f"interleaving harness: {alive} still running after "
+                f"{self.timeout}s (seed={self.seed})")
+        for i in range(len(fns)):
+            if i in self._errors:
+                raise self._errors[i]
+        return [self._results.get(i) for i in range(len(fns))]
+
+    @classmethod
+    def sweep(cls, fns_factory: Callable[[], Sequence[Callable]],
+              seeds: Iterable[int], **kw) -> List:
+        """Run a fresh body set under each seed; returns the per-seed
+        results list — the shape the ``-m races`` sweeps assert over."""
+        out = []
+        for s in seeds:
+            out.append(cls(seed=s, **kw).run(*fns_factory()))
+        return out
+
+
+@contextlib.contextmanager
+def preemptive_stress(seed: int = 0, switch_interval: float = 1e-5):
+    """Maximize REAL thread preemption for the duration of the block:
+    drops ``sys.setswitchinterval`` to ``switch_interval`` (the GIL
+    hands off between bytecodes orders of magnitude more often) and
+    yields a seeded ``random.Random`` for the workload so the request
+    pattern is reproducible even though the schedule is not. The sweep
+    mode for racing the *real* serving / elastic / async-checkpoint
+    stacks (``pytest -m races``); :class:`InterleavingHarness` is the
+    deterministic single-schedule mode."""
+    prev = sys.getswitchinterval()
+    sys.setswitchinterval(switch_interval)
+    try:
+        yield random.Random(seed)
+    finally:
+        sys.setswitchinterval(prev)

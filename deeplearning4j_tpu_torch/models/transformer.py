@@ -321,6 +321,18 @@ def init_opt_state(params, updater):
     return updater.init_state(params.detach().float())
 
 
+def copy_params(tree):
+    """Detached copies of every tensor of a parameter tree: the snapshot a
+    trainer hands over (a served ``TransformerLM(cfg, params=
+    copy_params(params))``), which the trainer's in-place updates (a
+    captured step's) do not reach."""
+    if isinstance(tree, dict):
+        return {k: copy_params(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [copy_params(v) for v in tree]
+    return tree.detach().clone()
+
+
 def _as_module(tree) -> nn.Module:
     """Register a parameter tree's leaves (same tensor objects) on a
     module tree, so ``state_dict``/``parameters`` see them."""

@@ -142,6 +142,8 @@ WARMUP_RUNS = 2
 
 #: sentinel parked for signatures whose capture failed: eager for good
 _CAPTURE_FAILED = object()
+#: the warm-up runs' side stream, one a device (``_side_stream``)
+_WARMUP_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
 
 
 def configure(directory: Optional[str], max_entries: Optional[int] = None
@@ -643,14 +645,22 @@ def _side_stream(args):
     (kept off the capture's), which the caller's stream waits for on the
     way out, so the state restored after the runs is written after them.
     That is an order on the card, not a wait of the host: a server on the
-    same card replays meanwhile. Nothing on the CPU."""
+    same card replays meanwhile. Nothing on the CPU.
+
+    Every dispatch's warm-up runs share one side stream a device: cuBLAS
+    gives each stream its own workspace, which PyTorch keeps for the life
+    of the process, so a fresh stream a capture left one workspace a
+    bucket behind every served version a registry loaded, after the
+    version was retired."""
     if not _on_card(args):
         yield
         return
     dev = next(a.device for a in args
                if isinstance(a, torch.Tensor) and a.is_cuda)
     current = torch.cuda.current_stream(dev)
-    side = torch.cuda.Stream(dev)
+    side = _WARMUP_STREAMS.get(dev)
+    if side is None:
+        side = _WARMUP_STREAMS.setdefault(dev, torch.cuda.Stream(dev))
     side.wait_stream(current)
     try:
         with torch.cuda.stream(side):
@@ -812,6 +822,17 @@ class CachedDispatch:
     def captures(self) -> int:
         """Captures attempted (successful or not): one per signature."""
         return len(self._graphs)
+
+    def release(self) -> int:
+        """Drop every captured graph, with its static buffers and the
+        pool they share, so their memory goes back to the allocator (a
+        pool lives until its graphs are dropped). Returns how many
+        signatures were held; a later call captures again."""
+        n = len(self._graphs)
+        self._graphs.clear()
+        self._pool = None
+        self._stream = None
+        return n
 
     def _capture_options(self, args) -> dict:
         """The stream and the pool of this dispatch's captures on the

@@ -41,8 +41,8 @@ from deeplearning4j_tpu_torch.profiler.aggregate import (
 from deeplearning4j_tpu_torch.profiler.slo import (SLOEngine, SLOGate,
                                                    SLOSpec, SLOVerdict)
 from deeplearning4j_tpu_torch.profiler.tracecontext import (
-    TraceContext, current as current_trace, record_span, span,
-    spans_for_trace)
+    TraceContext, current as current_trace, merge_chrome_traces,
+    record_span, run_span, span, spans_for_trace)
 from deeplearning4j_tpu_torch.profiler.tracer import (SpanTracer,
                                                       disable_tracing,
                                                       enable_tracing,

@@ -15,9 +15,10 @@ port of ``deeplearning4j_tpu/profiler/flightrec.py``.
   and never raise — a recorder failure must not mask the crash it is
   documenting.
 
-Triggers wired in the port: the serving loop's death path and
+Triggers wired in the port: the serving loop's death path,
 :class:`~deeplearning4j_tpu_torch.parallel.elastic.DispatchTimeoutError`
-retries. The bundle directory defaults to ``$DL4J_FLIGHTREC_DIR`` or
+retries and a crashing fit (``fit:<ErrorName>``, from
+``train.resilience.fit_scope``). The bundle directory defaults to ``$DL4J_FLIGHTREC_DIR`` or
 ``<tempdir>/dl4j-flightrec``.
 """
 

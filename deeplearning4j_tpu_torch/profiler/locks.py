@@ -370,3 +370,12 @@ class InstrumentedQueue(_queue.Queue):
         self.not_empty = threading.Condition(lock)
         self.not_full = threading.Condition(lock)
         self.all_tasks_done = threading.Condition(lock)
+
+
+# the metrics registry's get-or-create lock is a hot path (observe_region
+# resolves its histogram through it every train step): an instrumented
+# lock, as in the JAX package. Safe against recursion: the dl4j_lock_*
+# families above were registered BEFORE the swap, so recording a lock
+# metric takes only per-family/child locks (plain threading.Lock), never
+# the registry lock.
+_REG._lock = InstrumentedLock("metrics_registry")

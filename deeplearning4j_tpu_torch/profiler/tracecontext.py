@@ -15,6 +15,10 @@ copy of the JAX package's jax-free ``profiler/tracecontext.py``.
 - an ambient *current context* (contextvar): :func:`use` installs one
   for a code region and every span recorded meanwhile is stamped with
   its ``trace_id``.
+- :func:`run_span` — the root span of a training run (``fit_scope``
+  opens ``train:run``): its ``trace_id`` is the ``run_id`` every span of
+  the fit carries; :func:`merge_chrome_traces` folds several processes'
+  Chrome traces into one document.
 
 Span vocabulary::
 
@@ -178,6 +182,45 @@ def span(name: str, parent: Optional[TraceContext] = None,
             a["error"] = err
         record_span(name, ctx, t0, _tracer.now_us() - t0, args=a,
                     links=links)
+
+
+@contextmanager
+def run_span(name: str = "train:run", **args):
+    """Root span for a training run: mints a fresh trace whose
+    ``trace_id`` doubles as the ``run_id``, installs it as the ambient
+    context (so every step/op span recorded during the fit carries it),
+    and records the root span at exit. Yields the run's
+    :class:`TraceContext`."""
+    ctx = TraceContext.new()
+    t0 = _tracer.now_us()
+    token = _CURRENT.set(ctx)
+    try:
+        yield ctx
+    finally:
+        _CURRENT.reset(token)
+        record_span(name, ctx, t0, _tracer.now_us() - t0,
+                    args=dict(args, run_id=ctx.trace_id))
+
+
+# ------------------------------------------------------------- merging
+def merge_chrome_traces(docs: Iterable) -> dict:
+    """Fold several Chrome-trace documents (dicts with ``traceEvents``,
+    or bare event lists — e.g. one per process of a multi-host job)
+    into ONE Perfetto-loadable document: spans sharing a ``trace_id``
+    across processes render as a single stitched flow. Duplicate
+    thread-name metadata collapses to one entry per (pid, tid)."""
+    events: List[dict] = []
+    seen_meta = set()
+    for doc in docs:
+        evs = doc.get("traceEvents", []) if isinstance(doc, dict) else doc
+        for ev in evs:
+            if ev.get("ph") == "M":
+                key = (ev.get("name"), ev.get("pid"), ev.get("tid"))
+                if key in seen_meta:
+                    continue
+                seen_meta.add(key)
+            events.append(ev)
+    return {"traceEvents": events, "displayTimeUnit": "ms"}
 
 
 def spans_for_trace(trace_id: str, events: Optional[Iterable[dict]] = None

@@ -131,6 +131,25 @@ class DecodePreset:
         self.scale = scale
         self.dtype = np.dtype(dtype)
 
+    @classmethod
+    def from_pipeline(cls, pipeline, scale: Optional[float] = None
+                      ) -> "DecodePreset":
+        """Wire an :class:`~deeplearning4j_tpu_torch.data.pipeline.
+        ImagePipeline`'s declared decode stage (or a built
+        ``StagedImageIterator``) into the request path: the serving
+        decode is exactly the training decode — same geometry, same
+        channel order."""
+        decode = getattr(pipeline, "_decode", None)
+        if decode is not None:       # an ImagePipeline builder
+            p = decode.params
+            return cls(p["height"], p["width"], p["channels"], scale=scale)
+        if hasattr(pipeline, "height") and hasattr(pipeline, "width"):
+            return cls(pipeline.height, pipeline.width,
+                       getattr(pipeline, "channels", 3), scale=scale)
+        raise TypeError(
+            "from_pipeline wants an ImagePipeline with a decode stage "
+            "(or a built StagedImageIterator)")
+
     def decode(self, data: bytes) -> np.ndarray:
         """Encoded image bytes -> ``[1, C, H, W]`` feature tensor."""
         try:

@@ -56,8 +56,11 @@ that lint with ``check_cache=True`` first (``strict=True`` raises on an
 E-code, else each finding warns), then captures; with the compile cache's
 disk tier configured it adds the shapes the model's manifest names.
 
+``capture=`` (a :class:`~deeplearning4j_tpu_torch.lifecycle.capture.
+TrafficCapture`) records each validated request before admission.
+
 Not ported yet (ROADMAP.md): meshes, sharding and mesh shrink (on one
-card a failed dispatch retries on the same card) and traffic capture.
+card a failed dispatch retries on the same card).
 """
 
 from __future__ import annotations
@@ -472,6 +475,12 @@ class ModelServer:
     head : results-only post-processing on the device: ``"argmax"``,
         ``"softmax"``, ``"top_k"``/``"top_k:k"`` (-> ``(values,
         indices)``), or any callable on the logits.
+    capture : a :class:`~deeplearning4j_tpu_torch.lifecycle.capture.
+        TrafficCapture` (or any ``.record(features, deadline=)``)
+        sampling live requests at admission into the ServingLoad replay
+        format: the recorded stream is the lifecycle gate's eval set and
+        deterministic chaos input. (It records traffic; it is not the
+        CUDA-graph capture of the forward.)
     """
 
     def __init__(self, model, device=None, batch_limit: int = 32,
@@ -482,7 +491,8 @@ class ModelServer:
                  breaker_threshold: int = 5, breaker_cooldown: float = 5.0,
                  drain_timeout: float = 30.0, input_dtype=np.float32,
                  preemption=None, faults=None,
-                 name: Optional[str] = None, forward=None, head=None):
+                 name: Optional[str] = None, forward=None, head=None,
+                 capture=None):
         self.model = model
         self.device = resolve_device(device)
         self._fwd = forward if forward is not None else resolve_forward(model)
@@ -503,6 +513,7 @@ class ModelServer:
         self.drain_timeout = float(drain_timeout)
         self.input_dtype = np.dtype(input_dtype)
         self._faults = faults
+        self._traffic_capture = capture
         self.breaker = CircuitBreaker(breaker_threshold, breaker_cooldown,
                                       name=self.name)
         self._queue_gauge = QUEUE_DEPTH.labels(server=self.name)
@@ -589,6 +600,11 @@ class ModelServer:
                     "warmup([shape]) before serving it")
         now = time.monotonic()
         dl = self.default_deadline if deadline is None else deadline
+        if self._traffic_capture is not None:
+            # after validation (only servable traffic is worth replaying)
+            # but BEFORE admission: a request shed under overload is
+            # exactly the traffic a chaos replay wants to reproduce
+            self._traffic_capture.record(x, deadline=dl)
         req = ServingRequest(x, now + dl if dl is not None else None, now,
                              trace=trace)
         req.server = self.name
@@ -1120,14 +1136,24 @@ class ModelServer:
             self._drained = True
 
     def close(self):
-        """Drain, then refuse every later submit and release the
-        preemption handlers. Idempotent; also the context-manager
-        exit."""
+        """Drain, then refuse every later submit, drop the captured
+        graphs (their pool's memory goes back to the allocator) and the
+        references to the model and its forward, and release the
+        preemption handlers: a retired registry version closes so, and
+        frees its graphs and weights. Idempotent; also the
+        context-manager exit."""
         if self._closed:
             return
         self.drain()
         with self._cond:
             self._closed = True
+        if not self._worker.is_alive():
+            # a serve loop stuck past the drain timeout may still run the
+            # forward: then it all stays. captures_after_warmup() keeps
+            # its value
+            with self._cond:
+                self._warm_captures -= self._dispatch.release()
+                self.model = self._fwd = None
         if self._preemption_installed:
             uninstall = getattr(self._preemption, "uninstall", None)
             if uninstall is not None:

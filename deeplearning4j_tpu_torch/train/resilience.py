@@ -56,8 +56,11 @@ A resumed session warms the batch signature its checkpoint recorded
 (:meth:`TrainingSession.warm_after_resume`) when the compile cache's disk
 tier is configured.
 
-Not ported yet (ROADMAP.md): ``DriverStateStore`` (with ``lifecycle/``),
-the flight-recorder dump of a crashing fit.
+:func:`fit_scope` runs every fit under the root span ``train:run`` and
+dumps the flight recorder as ``fit:<ErrorName>`` when a fit crashes.
+:class:`DriverStateStore` persists the lifecycle driver's state machine
+(``lifecycle/``) with the same atomic, checksummed, quarantining
+contract, in the JAX package's file format.
 """
 
 from __future__ import annotations
@@ -1056,14 +1059,28 @@ def fit_scope(session: Optional[TrainingSession], model, epochs: int):
     """The resilience envelope around a fit's epoch loop: yields the
     number of epochs left to run, turns a PreemptionRequested unwind into
     the ``"preempted"`` checkpoint and a clean return, and closes the
-    session (restoring signal handlers) on every exit path."""
+    session (restoring signal handlers) on every exit path.
+
+    The loop runs under the run's root span ``train:run``, whose
+    ``trace_id`` is the ``run_id`` every span of the fit carries. Any
+    other exception (a NonfiniteAttributionError, an out-of-memory error,
+    a dead dispatch) dumps the flight recorder as ``fit:<ErrorName>``
+    before it propagates, while the evidence is still in the ring."""
+    from deeplearning4j_tpu_torch.profiler import flightrec as _flightrec
+    from deeplearning4j_tpu_torch.profiler import tracecontext as _tracectx
     n_epochs = max(epoch_target(session, model, epochs) - model._epoch, 0)
     try:
-        yield n_epochs
+        with _tracectx.run_span("train:run", model=type(model).__name__,
+                                epochs=n_epochs):
+            yield n_epochs
     except PreemptionRequested:
         if session is None:
             raise
         session.on_preempt()
+    except BaseException as e:
+        _flightrec.get_flight_recorder().dump(
+            f"fit:{type(e).__name__}", exc=e)
+        raise
     finally:
         if session is not None:
             # surface a failed async write at fit exit, unless another
@@ -1111,3 +1128,86 @@ def begin_session(model, data, checkpoint=None, nan_policy=None, faults=None):
         session.close()
         raise
     return session, wrapped
+
+
+# ------------------------------------------------- lifecycle driver state
+class DriverStateStore:
+    """Atomic, checksummed persistence for the lifecycle driver's state
+    machine — the durability contract of a training checkpoint, scaled
+    down to one JSON document: a crash mid-write never leaves half a
+    state under the real name (a temporary file and one ``os.replace``),
+    every load checks a SHA-256 over the canonical payload, and a corrupt
+    file is QUARANTINED (renamed aside) rather than trusted, so a resumed
+    driver starts from "no state" instead of from garbage. Writes go
+    through :func:`retry_io`.
+
+    The file is the JAX package's (``{"state": ..., "sha256": ...}``
+    under :attr:`FILENAME`), so a state written by either package loads
+    in the other. The driver persists at every phase transition, so
+    after a SIGKILL its successor knows which round, phase and candidate
+    were in flight and whether a canary must be aborted first.
+    """
+
+    FILENAME = "lifecycle_driver_state.json"
+
+    def __init__(self, state_dir: str, io_retries: int = 3,
+                 io_backoff: float = 0.05):
+        self.dir = state_dir
+        self.path = os.path.join(state_dir, self.FILENAME)
+        self._retries = int(io_retries)
+        self._backoff = float(io_backoff)
+        os.makedirs(state_dir, exist_ok=True)
+
+    @staticmethod
+    def _digest(state: dict) -> str:
+        canon = json.dumps(state, sort_keys=True,
+                           separators=(",", ":")).encode()
+        return hashlib.sha256(canon).hexdigest()
+
+    def save(self, state: dict) -> None:
+        """Persist ``state`` atomically (JSON-serializable values only)."""
+        doc = {"state": state, "sha256": self._digest(state)}
+        tmp = self.path + ".tmp"
+
+        def write():
+            with open(tmp, "w") as f:
+                json.dump(doc, f)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, self.path)
+
+        retry_io(write, retries=self._retries, backoff=self._backoff)
+
+    def load(self) -> Optional[dict]:
+        """The last saved state, or None (no state yet, or the file was
+        corrupt: then it has been quarantined and counted in
+        ``dl4j_checkpoint_quarantined_total``)."""
+        if not os.path.exists(self.path):
+            return None
+        try:
+            with open(self.path) as f:
+                doc = json.load(f)
+            state = doc["state"]
+            if self._digest(state) != doc["sha256"]:
+                raise CorruptCheckpointError(
+                    f"driver state {self.path}: checksum mismatch")
+            return state
+        except (OSError, ValueError, KeyError, TypeError,
+                CorruptCheckpointError) as e:
+            quarantine = os.path.join(
+                self.dir, "quarantine_" + self.FILENAME)
+            try:
+                os.replace(self.path, quarantine)
+            except OSError:
+                pass
+            QUARANTINED.inc()
+            logger.warning(
+                "driver state %s failed validation (%s) — quarantined to "
+                "%s; the driver resumes stateless", self.path, e, quarantine)
+            return None
+
+    def clear(self) -> None:
+        try:
+            os.remove(self.path)
+        except OSError:
+            pass

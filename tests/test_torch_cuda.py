@@ -833,6 +833,13 @@ def test_a_dynamic_scale_megastep_captures(dev):
 
 
 def test_the_crop_launches_a_fixed_number_of_kernels(dev):
+    """The kernel launches of one crop + flip call, counted where the CUDA
+    runtime reports them on the launching thread (``cudaLaunchKernel``
+    events of the CPU activity). The device activity records lose some of
+    a call's kernels in a few calls of 300 (23 to all 122 of them, at
+    either batch: ``benchmarks/probe_crop_events.py``), while the runtime
+    reports 122 launches in every call; counting those keeps the
+    equality and drops the profiler's losses."""
     from deeplearning4j_tpu_torch.nn.augment import DeviceAugmentation
     a = DeviceAugmentation(7).crop(32).random_flip()
     t = torch.tensor(3, dtype=torch.int32, device=dev)
@@ -843,12 +850,15 @@ def test_the_crop_launches_a_fixed_number_of_kernels(dev):
         a.apply(x, a.step_key(t))
         torch.cuda.synchronize()
         with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                activities=[torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA]) as prof:
             out = a.apply(x, a.step_key(t))
             torch.cuda.synchronize()
         assert out.shape == (b, 3, 224, 224) and out.dtype == torch.float32
-        counts.append(sum(e.device_type == torch.autograd.DeviceType.CUDA
-                          for e in prof.events()))
+        counts.append(sum(
+            e.device_type == torch.autograd.DeviceType.CPU
+            and e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel"))
+            for e in prof.events()))
     assert 0 < counts[0] == counts[1], counts
 
 

@@ -284,3 +284,170 @@ def test_an_engine_attaches_as_a_gate():
     ing.attach_slo(prof.SLOEngine([prof.SLOSpec("s", latency_bound=1.0)],
                                   registry=MetricsRegistry()))
     assert isinstance(ing.slo, prof.SLOGate)
+
+
+# ====================================== run spans, merging, crash bundles
+@pytest.fixture()
+def traced_both():
+    """Tracing on in both packages with clean rings; restored after."""
+    tracers = (prof.get_tracer(), jprof.get_tracer())
+    for t in tracers:
+        t.clear()
+    prof.enable_tracing()
+    jprof.enable_tracing()
+    try:
+        yield tracers
+    finally:
+        prof.disable_tracing()
+        jprof.disable_tracing()
+        for t in tracers:
+            t.clear()
+
+
+def test_run_span_stamps_ambient_spans(traced_both):
+    shapes = []
+    for p in (prof, jprof):
+        with p.run_span("train:run", model="T") as ctx:
+            with p.trace_span("train:step"):
+                pass
+        spans = p.spans_for_trace(ctx.trace_id)
+        names = [s["name"] for s in spans]
+        assert "train:run" in names and "train:step" in names
+        root = next(s for s in spans if s["name"] == "train:run")
+        assert root["args"]["run_id"] == ctx.trace_id
+        assert root["args"]["model"] == "T"
+        shapes.append(sorted((s["name"], sorted(s["args"]))
+                             for s in spans))
+    assert shapes[0] == shapes[1]
+
+
+def test_merge_chrome_traces_equals_jax():
+    meta = {"name": "thread_name", "ph": "M", "pid": 1, "tid": 2,
+            "args": {"name": "w"}}
+    meta2 = dict(meta, tid=3)
+    ev = {"name": "x", "ph": "X", "pid": 1, "tid": 2, "ts": 0, "dur": 1,
+          "args": {"trace_id": "ab" * 16}}
+    docs = [{"traceEvents": [meta, ev]}, [dict(meta), dict(ev), meta2],
+            {"traceEvents": []}]
+    merged = prof.merge_chrome_traces(docs)
+    assert merged == jprof.merge_chrome_traces(docs)
+    metas = [e for e in merged["traceEvents"] if e.get("ph") == "M"]
+    assert len(metas) == 2
+    assert len(merged["traceEvents"]) == 4
+    json.dumps(merged)    # Perfetto-loadable = valid JSON document
+
+
+def _reset_recorders():
+    from deeplearning4j_tpu.profiler import flightrec as jflightrec
+    from deeplearning4j_tpu_torch.profiler import flightrec
+    for rec in (flightrec.get_flight_recorder(),
+                jflightrec.get_flight_recorder()):
+        rec._last_dump = {}              # reset the rate limit
+
+
+def _bundles(root):
+    out = {}
+    for b in sorted(root.glob("flightrec-*")):
+        out[(b / "reason.txt").read_text().splitlines()[0]] = b
+    return out
+
+
+def test_fit_crash_dumps_a_bundle(tmp_path, monkeypatch):
+    from deeplearning4j_tpu.train.resilience import fit_scope as jfit_scope
+    from deeplearning4j_tpu_torch.train.resilience import fit_scope
+
+    class Model:
+        _epoch = 0
+
+    for side, scope in (("torch", fit_scope), ("jax", jfit_scope)):
+        d = tmp_path / side
+        monkeypatch.setenv("DL4J_FLIGHTREC_DIR", str(d))
+        _reset_recorders()
+        with pytest.raises(RuntimeError, match="boom"):
+            with scope(None, Model(), epochs=1):
+                raise RuntimeError("boom")
+        bundles = list(d.glob("flightrec-*"))
+        assert len(bundles) == 1, f"{side}: {bundles}"
+        reason = (bundles[0] / "reason.txt").read_text()
+        assert "fit:RuntimeError" in reason and "boom" in reason
+        assert bundles[0].name.endswith("-fit-RuntimeError")
+
+
+def _crashing_net(kind, jax_side):
+    if jax_side:
+        from deeplearning4j_tpu.nn import NeuralNetConfiguration
+        from deeplearning4j_tpu.nn import layers as L
+        from deeplearning4j_tpu.nn.graph import ComputationGraph
+        from deeplearning4j_tpu.nn.config import InputType as It
+        from deeplearning4j_tpu.nn.multilayer import MultiLayerNetwork as M
+        from deeplearning4j_tpu.train import updaters as U
+        init = {}
+    else:
+        from deeplearning4j_tpu_torch.nn import layers as L
+        from deeplearning4j_tpu_torch.nn.config import InputType as It
+        from deeplearning4j_tpu_torch.nn.config import \
+            NeuralNetConfiguration
+        from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+        from deeplearning4j_tpu_torch.nn.multilayer import \
+            MultiLayerNetwork as M
+        from deeplearning4j_tpu_torch.train import updaters as U
+        init = {"device": "cpu"}
+    base = NeuralNetConfiguration.Builder().seed(3).updater(U.Sgd(0.1))
+    if kind == "MultiLayerNetwork":
+        conf = (base.list().layer(L.DenseLayer(nOut=5, activation="relu"))
+                .layer(L.OutputLayer(nOut=NOUT, lossFunction="mcxent",
+                                     activation="softmax"))
+                .setInputType(It.feedForward(NIN)).build())
+        return M(conf).init(**init)
+    b = base.graphBuilder()
+    b.addInputs("in").setInputTypes(It.feedForward(NIN))
+    b.addLayer("d", L.DenseLayer(nOut=5, activation="relu"), "in")
+    b.addLayer("out", L.OutputLayer(nOut=NOUT, lossFunction="mcxent",
+                                    activation="softmax"), "d")
+    b.setOutputs("out")
+    return ComputationGraph(b.build()).init(**init)
+
+
+@pytest.mark.parametrize("kind", ["MultiLayerNetwork", "ComputationGraph"])
+def test_a_crashing_fit_dumps_one_bundle_with_its_run(tmp_path, monkeypatch,
+                                                      traced_both, kind):
+    """A real fit of either engine dies on a permanent data error at its
+    third pull: one ``fit:OSError`` bundle, as the JAX fit leaves, whose
+    trace holds the run's ``train:run`` span and the steps stamped with
+    its run id."""
+    from deeplearning4j_tpu import faults as jfaults
+    from deeplearning4j_tpu.data import dataset as jds
+    from deeplearning4j_tpu_torch.data import dataset as tds
+    from deeplearning4j_tpu_torch.faults import FaultPlan
+    rng = np.random.RandomState(0)
+    x = rng.randn(16, NIN).astype(np.float32)
+    y = np.eye(NOUT, dtype=np.float32)[rng.randint(0, NOUT, 16)]
+    names = {}
+    for side in ("torch", "jax"):
+        jax_side = side == "jax"
+        ds_mod = jds if jax_side else tds
+        plan = (jfaults.FaultPlan if jax_side else FaultPlan)(
+            data_error_at=[3], data_error_transient=False)
+        it = ds_mod.ListDataSetIterator(ds_mod.DataSet(x, y), 4)
+        net = _crashing_net(kind, jax_side)
+        d = tmp_path / side
+        monkeypatch.setenv("DL4J_FLIGHTREC_DIR", str(d))
+        _reset_recorders()
+        with pytest.raises(OSError, match="permanent data error"):
+            net.fit(it, faults=plan)
+        bundles = _bundles(d)
+        assert list(bundles) == ["reason: fit:OSError"], bundles
+        names[side] = list(bundles)
+        if jax_side:
+            continue
+        trace = json.loads((bundles["reason: fit:OSError"]
+                            / "trace.json").read_text())["traceEvents"]
+        runs = [e for e in trace if e.get("name") == "train:run"]
+        assert len(runs) == 1
+        run_id = runs[0]["args"]["run_id"]
+        assert runs[0]["args"]["trace_id"] == run_id
+        assert runs[0]["args"]["model"] == kind
+        steps = [e for e in trace if e.get("name") == "train:step"]
+        assert len(steps) == 2
+        assert all(e["args"]["trace_id"] == run_id for e in steps)
+    assert names["torch"] == names["jax"]

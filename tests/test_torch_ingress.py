@@ -340,6 +340,58 @@ class TestWireTaxonomy:
             assert 0 < float(g["breaker"][2]["Retry-After"]) <= 30.0
 
 
+class TestDecodePreset:
+    H = W = 16
+
+    @staticmethod
+    def _jpeg_bytes(side, seed=0):
+        pil = pytest.importorskip("PIL.Image")
+        import io
+        rng = np.random.RandomState(seed)
+        arr = rng.randint(0, 255, (side, side, 3), dtype=np.uint8)
+        buf = io.BytesIO()
+        pil.fromarray(arr).save(buf, format="JPEG", quality=90)
+        return buf.getvalue()
+
+    def test_decode_preset_from_pipeline(self):
+        """The twin of the JAX case: a pipeline's decode stage becomes the
+        route's preset, and both packages decode one body alike."""
+        from deeplearning4j_tpu.data.pipeline import ImagePipeline as JPipe
+        from deeplearning4j_tpu.serving.ingress import \
+            DecodePreset as JPreset
+        from deeplearning4j_tpu_torch.data.pipeline import ImagePipeline
+        pipe = (ImagePipeline.list(files=["unused.jpg"])
+                .decode(height=self.H, width=self.W, channels=3)
+                .batch(1))
+        jpipe = (JPipe.list(files=["unused.jpg"])
+                 .decode(height=self.H, width=self.W, channels=3)
+                 .batch(1))
+        preset = DecodePreset.from_pipeline(pipe, scale=0.5)
+        jpreset = JPreset.from_pipeline(jpipe, scale=0.5)
+        assert (preset.height, preset.width, preset.channels,
+                preset.scale) == (jpreset.height, jpreset.width,
+                                  jpreset.channels, jpreset.scale) \
+            == (self.H, self.W, 3, 0.5)
+        body = self._jpeg_bytes(self.H)
+        arr = DecodePreset.from_pipeline(pipe).decode(body)
+        assert arr.shape == (1, 3, self.H, self.W)
+        assert arr.dtype == np.float32
+        assert 0.0 <= arr.min() and arr.max() <= 255.0
+        np.testing.assert_array_equal(
+            arr, np.asarray(JPreset.from_pipeline(jpipe).decode(body)))
+
+    def test_from_a_built_iterator_and_the_refusal(self):
+        from types import SimpleNamespace
+        from deeplearning4j_tpu.serving.ingress import \
+            DecodePreset as JPreset
+        built = SimpleNamespace(height=12, width=20, channels=1)
+        for P in (DecodePreset, JPreset):
+            p = P.from_pipeline(built)
+            assert (p.height, p.width, p.channels) == (12, 20, 1)
+            with pytest.raises(TypeError, match="decode stage"):
+                P.from_pipeline(object())
+
+
 class TestPortOnly:
     def test_decode_preset_scales_a_png(self):
         pil = pytest.importorskip("PIL.Image")
