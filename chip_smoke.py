@@ -525,7 +525,10 @@ Phases (each one fails the run with a non-zero exit):
    conv and BN (attention and LN) layer has a row with seconds > 0; the
    kernels in BN scopes count exactly 33 ``scale_shift_act`` a forward
    (12 flash in attention scopes and 25 LN in LN scopes on BERT) and
-   none elsewhere; the rows sum to no more than the eager forward's
+   none elsewhere (a trace is taken again, at most ``TRACE_ATTEMPTS`` in
+   all, only when each kernel it shows short was launched exactly that
+   many times a forward by its own wrapper and shows none elsewhere: the
+   profiler dropped records); the rows sum to no more than the eager forward's
    CUDA-event time; ``top_offenders`` with MFU against 989 TFLOP/s and
    sync mode beside trace mode. (f) ``ProfilingListener`` over three
    captured ResNet-50 steps (one step a dispatch) writes a Chrome trace
@@ -621,6 +624,43 @@ Phases (each one fails the run with a non-zero exit):
    capture, canary and confirm) and memory, the gate and roll histograms,
    each verdict's ``parity_rel``, request latency p50/p99, the
    incumbent's longest gap between batches during each load.
+38. The native runtime (``native/``, C++ over the CUDA driver, built
+   with ``g++`` in phase 1 beside the kernels): (a) tests/test_native.py's
+   two graphs (an MLP with a softmax node; conv -> relu -> maxpool ->
+   mean) through ``setExecBackend("native")`` against their eager
+   ``output()`` (1e-5); (b) phase 6's SameDiff BERT-base at B=32 (fp32,
+   TF32 off, overrides installed before recording): its capture records
+   13 ``softmax`` and 25 ``layer_norm`` launches (``native_launches``),
+   ``probs`` within 1e-5 of eager (printed: bit-equal or not), the second
+   compile a C++ cache hit, a second graph of the same structure from
+   seed 1 sharing the executable and matching its own eager output, an
+   execute's 16,384 host bytes in; printed: compile s, execute ms
+   (median of 30) against eager ``output()`` and phase 6's forward
+   captured and replayed at the same batch (each host in, host out), the
+   bytes each way, memory after ``release()`` against before the compile
+   (within 32 MiB); (c) every ``dl4j_native_*`` series moved, the
+   ``native:compile`` and ``native:execute`` spans traced, a
+   ``while_loop`` graph refused by name.
+39. ``nlp/``: Word2Vec on ``w2v_corpus`` (100,000 seeded sentences of
+   12 words, 20 topics of 500 words + 200 shared) at DL4J's defaults
+   (layer 100, window 5, negative 5, batch 512, min frequency 5, one
+   epoch, 0.025 -> 1e-4 a pair: the JAX step's loss is a batch mean, so
+   ``learningRate(0.025 * 512)``), the step captured once and replayed a
+   batch; the same-topic mean similarity of each topic's 20 most frequent
+   words must exceed the cross-topic mean (printed: the margin, pairs/s,
+   the step's ms eager and replayed, captures and replays; the margin at
+   the literal ``learningRate(0.025)``); the serializer writes the
+   card-trained model and reads it back (similarities within 1e-4);
+   ParagraphVectors on 2,000 of the sentences as labelled docs
+   (``PV_CONF``), the mean-centered docs' same-topic similarity above the
+   cross-topic (the raw docs' margin printed beside it).
+40. ``rl/`` and ``arbiter/``, each gated as the JAX test gates it: DQN on
+   CartPole (hidden 48 x 48, 6,000 steps, ``evaluate(10)`` > 80), A3C (2
+   threads, hidden 64, the "solved" rule), the arbiter's search over port
+   networks (lr 3e-2 beats 1e-5), and a grid over LeNet-5's Adam rate
+   (1e-4, 1e-3, 1e-2) on phase 16's 2,048 digits, one epoch each,
+   scored by ``evaluate`` (printed: each run's s, steps/s, captures and
+   replays).
 
 The captured-against-eager rule: where the two eager runs agree to the
 bit on a tensor (and on the params' group: the param and its Adam
@@ -664,7 +704,9 @@ norm); ``disk_warm_launches`` phase 36 (b)'s warm start;
 ``tune_launches`` phase 36 (c)'s tuned fit (``scale_shift_act``);
 ``lifecycle_launches`` and ``lifecycle_replays`` phase 37's flash and
 layer norm, launched (the gate's forwards, the candidates' warm-up runs
-and captures) and replayed (served batches and train steps)), the
+and captures) and replayed (served batches and train steps);
+``native_launches`` phase 38's native executable of the SameDiff
+BERT-base (softmax and layer norm)), the
 ``nvidia-smi`` name/power-limit line, and as the last line
 ``{"ok": true, "device": {...}}``. Without a card, or outside a
 checkout, it exits non-zero and prints no result.
@@ -797,6 +839,9 @@ DV_CLIP_EPOCHS = 2
 DV_CPU_TOL = 1e-4
 #: phase 34 (b): K=4 dispatches in each of the four timed runs
 OBS_DISPATCHES = 8
+#: phase 34 (e): traces a model at most, while the profiler loses the
+#: records of launches the wrappers counted in full
+TRACE_ATTEMPTS = 3
 #: phase 33: (phase name, zoo class, its kwargs, batch, policy) of the nets
 #: whose captured K=4 steps the cost model is held against
 ANALYZER_NETS = (
@@ -882,9 +927,20 @@ def main() -> None:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
+    # the native runtime's library (g++, plain C++) builds beside the
+    # kernels (nvcc, one process a source)
+    native_build = {}
+    native_thread = threading.Thread(target=native_lib_build,
+                                     args=(native_build,))
+    native_thread.start()
     paths = ck.build()
     log(f"kernel build: {time.perf_counter() - t0:.2f} s for "
         f"{', '.join(p.name for p in paths.values())}")
+    native_thread.join()
+    if "error" in native_build:
+        fail(f"the native runtime did not build: {native_build['error']}")
+    log(f"native runtime build: {native_build['seconds']:.2f} s for "
+        f"{os.path.basename(native_build['path'])}")
     for name in ("flash_attention", "layer_norm", "bn_leaky"):
         for fn, regs, st, ld in ck.ptxas_report(name):
             log(f"ptxas {name}: {fn}: {regs} registers, spill stores {st} B, "
@@ -1911,6 +1967,19 @@ def main() -> None:
     lc = lifecycle_storm(smi)
     torch.cuda.empty_cache()
 
+    # --------------- 38. SameDiff through the native runtime (C++ over CUDA)
+    nat = native_backend(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ------------------------------------- 39. nlp/ on a corpus of users' size
+    word2vec_phase(smi)
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ 40. rl/ and arbiter/
+    rl_arbiter(smi)
+    torch.cuda.empty_cache()
+
     ln.update(served["layer_norm"])
     fa.update(served["flash_attention"])
     for kr in (ln, fa):
@@ -1940,6 +2009,8 @@ def main() -> None:
     for kr in (ln, fa):
         kr["lifecycle_launches"] = lc["launches"][kr["name"]]
         kr["lifecycle_replays"] = lc["replays"][kr["name"]]
+    for kr in (sm, ln):
+        kr["native_launches"] = nat["native_launches"][kr["name"]]
     bn_st["launches"] = probe_launches["bn_stats"]
     bn_ap["launches"] = probe_launches["bn_apply_leaky"]
     keys = ("name", "route", "source", "replaces", "launches", "replays",
@@ -1950,7 +2021,8 @@ def main() -> None:
             "long_run_launches", "keras_launches", "transfer_launches",
             "sanitizer_launches", "ndarray_launches", "exec_op_launches",
             "samediff_capture_launches", "disk_warm_launches",
-            "tune_launches", "lifecycle_launches", "lifecycle_replays")
+            "tune_launches", "lifecycle_launches", "lifecycle_replays",
+            "native_launches")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{k: kr[k] for k in keys if k in kr}
                                   for kr in (ln, fa, ssa, sm, bn_st, bn_ap)]}))
@@ -6127,19 +6199,37 @@ def obs_devicetime(smi: str, net, ds) -> None:
     for name, model, feats, fwd, want_ops, counts in (
             ("ResNet-50 B=64 bf16 NHWC fused", net, x,
              lambda: net.output(x), {"conv2d", "batch_norm"},
-             ((("batch_norm",), "scale_shift_act", 33),)),
+             ((("batch_norm",), "scale_shift_act", "scale_shift_act", 33),)),
             ("BERT-base B=32 T=128 bf16 flash", lm, tokens,
              lambda: lm.logits(tokens), {"attention", "layer_norm"},
-             ((("attention",), "flash_fwd_kernel", 12),
-              (("layer_norm",), "layer_norm_fwd_kernel", 25)))):
+             ((("attention",), "flash_fwd_kernel", "flash_attention", 12),
+              (("layer_norm",), "layer_norm_fwd_kernel", "layer_norm",
+               25)))):
         fwd_ms = event_ms(fwd)
-        ck.reset_counts()
-        t0 = time.perf_counter()
-        tr = devicetime.measure(model, feats, reps=3, mode="trace")
-        trace_s = time.perf_counter() - t0
-        # the wrappers' own count over the traced step's 3 forwards and
-        # the profiler's warm-up step's one
-        counted = {k: v / 4 for k, v in ck.LAUNCHES.items() if v}
+        for attempt in range(TRACE_ATTEMPTS):
+            ck.reset_counts()
+            t0 = time.perf_counter()
+            tr = devicetime.measure(model, feats, reps=3, mode="trace")
+            trace_s = time.perf_counter() - t0
+            # the wrappers' own count over the traced step's 3 forwards
+            # and the profiler's warm-up step's one
+            counted = {k: v / 4 for k, v in ck.LAUNCHES.items() if v}
+            # CUPTI can drop a kernel's record. A trace is taken again
+            # only when every kernel it shows short was launched exactly
+            # n times a forward by its own wrapper and shows nothing
+            # outside its scopes, so that only the profiler can be short;
+            # any other shortfall, and a shortfall on the last trace,
+            # fails below
+            short = [(frag, kern) for ops, frag, kern, n in counts
+                     if launches_in(tr, ops, frag) < n]
+            if not short or any(
+                    counted.get(kern) != n or launches_out(tr, ops, frag)
+                    for ops, frag, kern, n in counts
+                    if (frag, kern) in short):
+                break
+            log(f"phase 34 (e) {name}: trace {attempt + 1} lost records of "
+                f"{[f for f, _ in short]} (the wrappers counted {counted} a "
+                f"forward)")
         sy = devicetime.measure(model, feats, reps=3, mode="sync")
         missing = [r.layer for r in tr.rows if r.op in want_ops
                    and not r.seconds > 0]
@@ -6150,7 +6240,7 @@ def obs_devicetime(smi: str, net, ds) -> None:
             fail(f"phase 34 (e) {name}: no device time for "
                  f"{sorted(set(missing) | (want_rows - have))[:8]}")
         seen = []
-        for ops, frag, n in counts:
+        for ops, frag, _kern, n in counts:
             got_in = launches_in(tr, ops, frag)
             got_out = launches_out(tr, ops, frag)
             seen.append(f"{got_in:g} {frag} in {'/'.join(ops)} scopes")
@@ -6173,7 +6263,8 @@ def obs_devicetime(smi: str, net, ds) -> None:
         log(f"phase 34 (e) {name}: {len(tr.rows)} rows, device {total_ms:.3f} "
             f"ms of an eager forward of {fwd_ms:.3f} ms (CUDA events; the "
             f"trace took {trace_s:.2f} s); by op "
-            f"{by_op}; a forward: {', '.join(seen)} [{smi}]")
+            f"{by_op}; a forward: {', '.join(seen)} (the wrappers counted "
+            f"{counted}) [{smi}]")
         log(f"phase 34 (e) {name} top offenders (MFU against "
             f"{tr.peak_flops / 1e12:.0f} TFLOP/s): " + "; ".join(
                 f"{o['layer']} ({o['op']}) {o['device_ms']} ms trace / "
@@ -7712,6 +7803,553 @@ def lifecycle_storm(smi: str) -> dict:
             proc.wait(10)
         reg.close()
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def native_lib_build(out: dict) -> None:
+    """Phase 1's build of the native runtime (``g++``), run on a thread
+    beside the kernels' ``nvcc`` builds: ``out`` gets its path and
+    seconds, or the error."""
+    from deeplearning4j_tpu_torch.native import build_native_lib
+    t0 = time.perf_counter()
+    try:
+        out["path"] = build_native_lib()
+    except Exception as e:       # reported by main(), which fails the run
+        out["error"] = f"{type(e).__name__}: {e}"
+    out["seconds"] = time.perf_counter() - t0
+
+
+#: phase 38: executes timed a path (median)
+NATIVE_RUNS = 30
+#: phase 38 (b): memory a released executable may leave behind (the
+#: allocator's block rounding; the capture's static inputs alone are
+#: the graph's 110M fp32 parameters, 440 MB)
+NATIVE_MEM_SLACK = 32 << 20
+
+
+def _native_test_graphs(SameDiff):
+    """Phase 38 (a): tests/test_native.py's two graphs, on the card."""
+    rng = np.random.RandomState(0)
+    sd = SameDiff.create()
+    x = sd.placeHolder("x", shape=(None, 6), dtype=np.float32)
+    w1 = sd.var("w1", rng.randn(6, 8).astype(np.float32))
+    b1 = sd.var("b1", np.zeros(8, np.float32))
+    w2 = sd.var("w2", rng.randn(8, 3).astype(np.float32))
+    h = sd.nn.relu(x.mmul(w1).add(b1))
+    sd.nn.softmax(h.mmul(w2), name="probs")
+    mlp = (sd, {"x": rng.randn(4, 6).astype(np.float32)}, "probs")
+    rng = np.random.RandomState(1)
+    sd = SameDiff.create()
+    x = sd.placeHolder("x", shape=(2, 1, 12, 12), dtype=np.float32)
+    w = sd.var("w", (rng.randn(4, 1, 3, 3) * 0.3).astype(np.float32))
+    r = sd.nn.relu(sd.cnn.conv2d(x, w, stride=(1, 1), pad=(0, 0)))
+    p = sd.cnn.maxPooling2d(r, kernel=(2, 2), stride=(2, 2))
+    sd.math.reduce_mean(p, name="m")
+    conv = (sd, {"x": rng.randn(2, 1, 12, 12).astype(np.float32)}, "m")
+    return (("MLP + softmax", mlp), ("conv -> relu -> maxpool -> mean", conv))
+
+
+def _host_ms(fn, runs: int = NATIVE_RUNS) -> float:
+    """Median wall ms of ``fn`` (host in, host out: it waits for the
+    card), after one untimed call."""
+    import torch
+    fn()
+    ts = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts))
+
+
+def native_backend(smi: str) -> dict:
+    """Phase 38: SameDiff through ``setExecBackend("native")``, the C++
+    runtime over the CUDA driver. (a) tests/test_native.py's two graphs
+    against their eager ``output()``; (b) phase 6's SameDiff BERT-base at
+    B=32 (overrides installed before recording): the capture's launches,
+    ``probs`` against eager (1e-5, TF32 off), the second compile and a
+    second graph of the same structure (another seed) as C++ cache hits,
+    execute ms against eager ``output()`` and against phase 6's captured
+    forward replayed at the same batch (each host in, host out), the bytes
+    an execute moves, and the memory after ``release()`` against before
+    the compile; (c) the ``dl4j_native_*`` series, the ``native:compile``
+    span, and a ``while_loop`` graph refused by name. Returns the
+    capture's kernel launches (``native_launches``)."""
+    import torch
+
+    from deeplearning4j_tpu_torch import profiler as prof
+    from deeplearning4j_tpu_torch.autodiff import SameDiff
+    from deeplearning4j_tpu_torch.native import (NativeRuntimeError,
+                                                 get_runtime)
+    from deeplearning4j_tpu_torch.nn import compilecache as cc
+    from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+    from deeplearning4j_tpu_torch.serving import samediff_forward
+    ck.install_platform_overrides()     # before recording: nodes bind ops
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    rt = get_runtime()
+    log(f"phase 38: native runtime over {rt.driver_path}: platform "
+        f"{rt.platform_name}, driver {rt.api_version}, "
+        f"{rt.device_count} device(s)")
+
+    # (a) the JAX test's graphs
+    for name, (sd, feeds, out) in _native_test_graphs(SameDiff):
+        want = sd.output(feeds, [out])[out].cpu().numpy()
+        sd.setExecBackend("native")
+        got = sd.output(feeds, [out])[out]
+        err = float(np.abs(got - want).max())
+        if not isinstance(got, np.ndarray) or got.shape != want.shape \
+                or err > 1e-5:
+            fail(f"phase 38 (a) {name}: native {type(got).__name__} "
+                 f"{getattr(got, 'shape', None)} against eager {want.shape}, "
+                 f"max|diff| {err:.3g} (bound 1e-5)")
+        log(f"phase 38 (a) {name}: native against eager output() max|diff| "
+            f"{err:.3g}, bit-equal {np.array_equal(got, want)}")
+        for exe in sd.native_executables():
+            exe.release()
+
+    # (b) SameDiff BERT-base at B=32, and a second graph from another seed
+    T = BERT_SD["T"]
+    sd = build_bert(SameDiff.create(), **BERT_SD)
+    sd2 = build_bert(SameDiff.create(), seed=1, **BERT_SD)
+    ids = np.random.default_rng(3).integers(0, BERT_SD["V"], (SD_BATCH, T),
+                                            dtype=np.int32)
+    feeds = {"input_ids": ids}
+    want = sd.output(feeds, ["probs"])["probs"].cpu().numpy()
+    want2 = sd2.output(feeds, ["probs"])["probs"].cpu().numpy()
+    # the two yardsticks first: eager output(), and phase 6's forward
+    # captured and replayed at B=32 (its dispatch's stream keeps a cuBLAS
+    # workspace, so it goes before the memory baseline)
+    eager_ms = _host_ms(lambda: sd.output(feeds, ["probs"])["probs"].cpu())
+    disp = cc.CachedDispatch(samediff_forward(sd, ["probs"],
+                                              input_name="input_ids"),
+                             "serving:forward", always_capture=True)
+    replay_ms = _host_ms(lambda: disp(torch.from_numpy(ids).to(dev)).cpu())
+    if disp.captures() != 1:
+        fail(f"phase 38 (b): the serving replay captured {disp.captures()} "
+             "graphs")
+    disp.release()
+    del disp
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    stats0 = rt.cache_stats()
+    reg = prof.get_registry()
+    series = ("dl4j_native_compile_cache_hits_total",
+              "dl4j_native_compile_cache_misses_total",
+              "dl4j_native_h2d_bytes_total", "dl4j_native_d2h_bytes_total")
+    hists = ("dl4j_native_compile_seconds", "dl4j_native_execute_seconds")
+    before = {n: reg.get(n).value for n in series}
+    before.update({n: reg.get(n).count for n in hists})
+    phs = {"input_ids": sd._native_feed(ids)}
+    inputs = [*sd._variables.values(), *sd._constants.values(), phs[
+        "input_ids"], torch.zeros((), dtype=torch.int32, device=dev)]
+    prof.enable_tracing()
+    n_events = len(prof.get_tracer())
+    try:
+        t0 = time.perf_counter()
+        exe = rt.compile(sd._native_program(["probs"], phs, False),
+                         inputs=inputs)
+        compile_s = time.perf_counter() - t0
+        sd.setExecBackend("native")
+        got = sd.output(feeds, ["probs"])["probs"]    # the second compile
+    finally:
+        prof.disable_tracing()
+    names = {e["name"] for e in prof.get_tracer().events()[n_events:]}
+    stats = rt.cache_stats()
+    launches = exe.launches
+    if launches != {"softmax": 13, "layer_norm": 25}:
+        fail(f"phase 38 (b): the native executable's capture launched "
+             f"{launches}: want 13 softmax and 25 layer_norm")
+    if exe.cache_hit or stats["size"] != stats0["size"] + 1 \
+            or stats["misses"] != stats0["misses"] + 1 \
+            or stats["hits"] < stats0["hits"] + 1:
+        fail(f"phase 38 (b): cache_stats {stats0} -> {stats}: want one "
+             "miss, then a C++ cache hit for the second compile")
+    err = float(np.abs(got - want).max())
+    if got.shape != (SD_BATCH, BERT_SD["n_labels"]) \
+            or not np.isfinite(got).all() or err > 1e-5:
+        fail(f"phase 38 (b): native probs {got.shape} max|diff| {err:.3g} "
+             "against eager output() (bound 1e-5)")
+    log(f"phase 38 (b) SameDiff BERT-base B={SD_BATCH} T={T} fp32: compile "
+        f"{compile_s:.2f} s (capture and instantiate), launches {launches}; "
+        f"probs against eager max|diff| {err:.3g}, bit-equal "
+        f"{np.array_equal(got, want)}; cache_stats {stats}")
+    sd2.setExecBackend("native")
+    got2 = sd2.output(feeds, ["probs"])["probs"]
+    stats2 = rt.cache_stats()
+    err2 = float(np.abs(got2 - want2).max())
+    if stats2["size"] != stats["size"] or stats2["hits"] != stats["hits"] + 1 \
+            or err2 > 1e-5 or float(np.abs(want2 - want).max()) == 0.0:
+        fail(f"phase 38 (b): the seed-1 graph: cache_stats {stats} -> "
+             f"{stats2}, max|diff| {err2:.3g} against its own eager output: "
+             "want the same executable (one hit) and 1e-5")
+    log(f"phase 38 (b) a second BERT-base (seed 1) shares the executable: "
+        f"cache_stats {stats2}; its probs against its own eager output() "
+        f"max|diff| {err2:.3g}")
+    exec_ms = _host_ms(lambda: sd.output(feeds, ["probs"]))
+    mine = sd.native_executables()[0]
+    per = {k: v // mine.calls for k, v in mine.bytes.items()}
+    if per["h2d"] != SD_BATCH * T * 4:
+        fail(f"phase 38 (b): an execute copied {per['h2d']} host bytes, "
+             f"want the ids' {SD_BATCH * T * 4}")
+    log(f"phase 38 (b) execute {exec_ms:.2f} ms (median of {NATIVE_RUNS}) "
+        f"against eager output() {eager_ms:.2f} ms and phase 6's captured "
+        f"forward replayed at B={SD_BATCH} {replay_ms:.2f} ms, each host in, "
+        f"host out; an execute moves {per['h2d']} bytes host->device, "
+        f"{per['d2d']} device->device (the variables, constants and step) "
+        f"and {per['d2h']} device->host [{smi}]")
+    for e in [exe, *sd.native_executables(), *sd2.native_executables()]:
+        e.release()
+    gc.collect()
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    log(f"phase 38 (b) memory allocated before the compile "
+        f"{mem0 / 1e6:.1f} MB, after release() {mem1 / 1e6:.1f} MB "
+        f"(cache size {rt.cache_stats()['size']})")
+    if mem1 - mem0 > NATIVE_MEM_SLACK or rt.cache_stats()["size"] != \
+            stats0["size"]:
+        fail("phase 38 (b): release() left the executable's memory or its "
+             "cache entry behind")
+
+    # (c) the metric series, the span, a host-control graph refused
+    after = {n: reg.get(n).value for n in series}
+    after.update({n: reg.get(n).count for n in hists})
+    moved = {n: after[n] - before[n] for n in after}
+    if not all(v > 0 for v in moved.values()) \
+            or not {"native:compile", "native:execute"} <= names:
+        fail(f"phase 38 (c): dl4j_native_* moved {moved}; traced {names}")
+    g = SameDiff.create()
+    cond, body = SameDiff.create(), SameDiff.create()
+    ci = cond.placeHolder("i", shape=(), dtype=np.int32)
+    cond.placeHolder("a", shape=(2,), dtype=np.float32)
+    ci.lt(5.0)
+    bi = body.placeHolder("i", shape=(), dtype=np.int32)
+    ba = body.placeHolder("a", shape=(2,), dtype=np.float32)
+    body.setOutputs(bi.add(1), ba.mul(1.5))
+    x = g.placeHolder("x", shape=(2,), dtype=np.float32)
+    out = g.while_loop(cond, body, [g.constant(np.int32(0), name="i0"), x],
+                       name="loop")[1]
+    g.setExecBackend("native")
+    try:
+        g.output({"x": np.ones(2, np.float32)}, [out.name])
+        fail("phase 38 (c): the native backend ran a while_loop graph")
+    except NativeRuntimeError as e:
+        if "'loop:0' (while_loop)" not in str(e):
+            fail(f"phase 38 (c): the refusal does not name the node: {e}")
+        log(f"phase 38 (c) dl4j_native_* moved {moved}; traced "
+            f"{sorted(names)}; a while_loop graph refused: {e}")
+    log(f"phase 38: {time.perf_counter() - t_phase:.1f} s")
+    return {"native_launches": launches}
+
+
+#: phase 39: a seeded corpus of the order of DL4J's Word2Vec example's
+#: raw_sentences.txt (97k sentences; not in the repo, not fetched)
+W2V_SENTENCES = 100_000
+W2V_TOKENS = 12
+W2V_TOPICS = 20
+W2V_TOPIC_WORDS = 500
+W2V_SHARED_WORDS = 200
+W2V_SHARED_P = 0.3
+W2V_BATCH = 512
+#: DL4J's per-pair learning rate; the JAX step's loss is a batch mean, so
+#: its learningRate takes it times the batch
+W2V_PAIR_LR = 0.025
+PV_DOCS = 2000
+#: ParagraphVectors at the JAX test's rate, epochs, batch and minimum
+#: frequency (tests/test_nlp.py:147-150), DL4J's widths otherwise: at
+#: 0.025 a pair and one epoch (four passes over the docs) the docs do
+#: not separate by topic on this corpus
+PV_CONF = dict(learning_rate=0.3, epochs=10, batch_size=64,
+               min_word_frequency=1)
+#: phase 39's step timing: steps timed each way on one batch
+W2V_TIMED_STEPS = 200
+
+
+def w2v_corpus(seed: int = 0):
+    """``W2V_SENTENCES`` sentences of ``W2V_TOKENS`` words: each sentence
+    belongs to one of ``W2V_TOPICS`` topics; a word is one of the 200
+    shared words with probability 0.3, else one of its topic's 500, each
+    drawn Zipf-like (probability ~ 1/rank). Returns the sentences and
+    their topics."""
+    rng = np.random.RandomState(seed)
+    zt = 1.0 / np.arange(1, W2V_TOPIC_WORDS + 1)
+    zs = 1.0 / np.arange(1, W2V_SHARED_WORDS + 1)
+    n, t = W2V_SENTENCES, W2V_TOKENS
+    top = rng.randint(W2V_TOPICS, size=n)
+    tw = rng.choice(W2V_TOPIC_WORDS, size=(n, t), p=zt / zt.sum())
+    sw = rng.choice(W2V_SHARED_WORDS, size=(n, t), p=zs / zs.sum())
+    shared = rng.rand(n, t) < W2V_SHARED_P
+    topic_words = np.char.add(np.char.add(np.char.add(
+        "t", top[:, None].astype(str)), "_"), tw.astype(str))
+    words = np.where(shared, np.char.add("s", sw.astype(str)), topic_words)
+    return [" ".join(r) for r in words], top
+
+
+def _topic_margin(vectors, groups):
+    """(mean same-group cosine, mean cross-group cosine) over rows of
+    ``vectors`` (a tensor) split into ``groups`` (lists of row ids)."""
+    import torch
+    v = vectors / vectors.norm(dim=1, keepdim=True).clamp_min(1e-12)
+    ids = torch.tensor([i for g in groups for i in g], device=v.device)
+    lab = torch.tensor([k for k, g in enumerate(groups) for _ in g],
+                       device=v.device)
+    sim = v[ids] @ v[ids].T
+    same = (lab[:, None] == lab[None, :]) & ~torch.eye(
+        len(ids), dtype=torch.bool, device=v.device)
+    return float(sim[same].mean()), float(sim[lab[:, None] != lab[None, :]]
+                                          .mean())
+
+
+def word2vec_phase(smi: str) -> None:
+    """Phase 39: ``nlp/`` on a corpus of users' size (``w2v_corpus``):
+    Word2Vec at the DL4J defaults (layer 100, window 5, negative 5, batch
+    512, min frequency 5, one epoch, lr 0.025 -> 1e-4 a pair), the step
+    captured once and replayed a batch; the same-topic mean similarity of
+    each topic's 20 most frequent words must exceed the cross-topic mean.
+    Printed: the margin, the fit's pairs a second, each step's ms and
+    pairs a second eager and replayed, the captures and replays, the same
+    fit at learningRate(0.025) in the JAX step's batch-mean units (the
+    margin it reaches), ParagraphVectors on 2,000 of the sentences as
+    labelled docs (``PV_CONF``; the mean-centered docs' topic margin must
+    be positive, the raw docs' is printed), and the serializer's round trip of the card-trained
+    model (similarities equal to the text's precision, 1e-4)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nlp import (ParagraphVectors, Word2Vec,
+                                              WordVectorSerializer)
+    from deeplearning4j_tpu_torch.nn import compilecache as cc
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    sents, top = w2v_corpus()
+    log(f"phase 39: corpus of {len(sents)} sentences x {W2V_TOKENS} words "
+        f"({W2V_TOPICS} topics of {W2V_TOPIC_WORDS} words + "
+        f"{W2V_SHARED_WORDS} shared) made in {time.perf_counter() - t0:.1f} s")
+    lr = W2V_PAIR_LR * W2V_BATCH
+
+    def groups(m):
+        return [[m.vocab.indexOf(f"t{k}_{i}") for i in range(20)]
+                for k in range(W2V_TOPICS)]
+
+    cc.reset_stats()
+    t0 = time.perf_counter()
+    m = Word2Vec(sentence_iter=sents, learning_rate=lr,
+                 min_learning_rate=1e-4 * W2V_BATCH).fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    stats = cc.cache_stats()
+    steps = stats["memory"]["hits"] + stats["memory"]["misses"]
+    if m._dispatch.captures() != 1 or stats["capture_failures"]:
+        fail(f"phase 39: the Word2Vec step captured "
+             f"{m._dispatch.captures()} graphs, cache_stats {stats}")
+    same, cross = _topic_margin(m.syn0, groups(m))
+    log(f"phase 39 Word2Vec: {m.vocab.numWords()} words, {steps} steps of "
+        f"{W2V_BATCH} pairs in {fit_s:.1f} s ({steps * W2V_BATCH / fit_s:.0f} "
+        f"pairs/s with the host's pair making), 1 capture and "
+        f"{stats['memory']['hits']} replays; same-topic mean similarity "
+        f"{same:.4f}, cross-topic {cross:.4f}, margin {same - cross:.4f}")
+    if not same > cross:
+        fail("phase 39: same-topic similarity does not exceed cross-topic")
+    # the step alone, eager and replayed, on one batch (state restored)
+    saved = [t.clone() for t in (m.syn0, m.syn1, m._t)]
+    dev = m.syn0.device
+    g = torch.Generator(device="cpu").manual_seed(0)
+    c = torch.randint(m.vocab.numWords(), (W2V_BATCH,), generator=g).to(dev)
+    x = torch.randint(m.vocab.numWords(), (W2V_BATCH,), generator=g).to(dev)
+    step_lr = torch.full((), lr, device=dev)
+    eager_ms = _host_ms(lambda: m._dispatch.fn(c, x, step_lr),
+                        W2V_TIMED_STEPS)
+    replay_ms = _host_ms(lambda: m._dispatch(c, x, step_lr), W2V_TIMED_STEPS)
+    with torch.no_grad():
+        for t, s in zip((m.syn0, m.syn1, m._t), saved):
+            t.copy_(s)
+    log(f"phase 39 step of {W2V_BATCH} pairs (negative {m.negative}, D "
+        f"{m.layer_size}): eager {eager_ms:.3f} ms ({W2V_BATCH / eager_ms * 1e3:.0f} "
+        f"pairs/s), replayed {replay_ms:.3f} ms ({W2V_BATCH / replay_ms * 1e3:.0f} "
+        f"pairs/s) [{smi}]")
+    # the serializer's round trip of the card-trained model
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "vectors.txt")
+        WordVectorSerializer.writeWord2VecModel(m, path)
+        back = WordVectorSerializer.readWord2VecModel(path)
+        size = os.path.getsize(path)
+    pairs = [(f"t{k}_{i}", f"t{(k + j) % W2V_TOPICS}_{i + 1}")
+             for k in range(W2V_TOPICS) for i, j in ((0, 0), (2, 1))]
+    dsim = max(abs(back.similarity(a, b) - m.similarity(a, b))
+               for a, b in pairs)
+    if back.vocab.idx2word != m.vocab.idx2word or dsim > 1e-4:
+        fail(f"phase 39: the serializer's round trip: similarities differ "
+             f"by {dsim:.3g}")
+    log(f"phase 39 WordVectorSerializer: {size / 1e6:.1f} MB written and "
+        f"read back, {len(pairs)} similarities within {dsim:.2g}")
+    # the literal learningRate(0.025): a pair moves by 0.025 / 512
+    m0 = Word2Vec(sentence_iter=sents).fit()
+    same0, cross0 = _topic_margin(m0.syn0, groups(m0))
+    log(f"phase 39 at learningRate(0.025) in the JAX step's batch-mean "
+        f"units: margin {same0 - cross0:.4f} (same {same0:.4f}, cross "
+        f"{cross0:.4f})")
+    del m, m0, back, saved
+    # ParagraphVectors: 2,000 sentences as labelled docs, at the JAX
+    # test's rate, epochs and batch (PV_CONF)
+    t0 = time.perf_counter()
+    pv = ParagraphVectors(labels=[f"DOC_{i}" for i in range(PV_DOCS)],
+                          sentence_iter=sents[:PV_DOCS], **PV_CONF).fit()
+    torch.cuda.synchronize()
+    pv_s = time.perf_counter() - t0
+    docs = [np.flatnonzero(top[:PV_DOCS] == k).tolist()
+            for k in range(W2V_TOPICS)]
+    raw = _topic_margin(pv.doc_vectors, docs)
+    dsame, dcross = _topic_margin(
+        pv.doc_vectors - pv.doc_vectors.mean(0), docs)
+    log(f"phase 39 ParagraphVectors: {PV_DOCS} docs in {pv_s:.1f} s "
+        f"({pv._pv_dispatch.captures()} capture of the doc step, "
+        f"{pv._dispatch.captures()} of the word step); mean-centered docs: same-topic "
+        f"similarity {dsame:.4f}, cross-topic {dcross:.4f}, margin "
+        f"{dsame - dcross:.4f}; raw docs: same-topic {raw[0]:.4f}, "
+        f"cross-topic {raw[1]:.4f}, margin {raw[0] - raw[1]:.4f} (printed, "
+        f"not gated: tests/test_torch_nlp.py holds both to the JAX "
+        f"ParagraphVectors' geometry)")
+    if not dsame > dcross:
+        fail("phase 39: ParagraphVectors' docs do not cluster by topic")
+    log(f"phase 39: {time.perf_counter() - t_phase:.1f} s")
+
+
+#: phase 40: LeNet-5's Adam rates searched, one epoch each
+LENET_GRID = (1e-4, 1e-3, 1e-2)
+
+
+def rl_arbiter(smi: str) -> None:
+    """Phase 40: ``rl/`` and ``arbiter/`` on the card, each gated as the
+    JAX test gates it: DQN on CartPole at tests/test_rl_arbiter.py:58-66's
+    configuration (``evaluate(10)`` > 80); A3C at :179-211's (2 threads,
+    hidden 64; "solved"); the arbiter's search at :113-147 over the port's
+    networks (lr 3e-2 beats 1e-5); a 3-candidate grid over LeNet-5's Adam
+    rate on phase 16's 2,048 digits, one epoch each, scored by
+    ``evaluate``. Printed: each run's wall seconds, steps a second,
+    captures and replays."""
+    import torch
+
+    from deeplearning4j_tpu_torch import arbiter
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.data.iterators import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn import compilecache as cc
+    from deeplearning4j_tpu_torch.nn.config import (InputType,
+                                                    NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.rl import (CartPole, QLearningConfiguration,
+                                             QLearningDiscreteDense)
+    from deeplearning4j_tpu_torch.rl.a3c import (A3CConfiguration,
+                                                 A3CDiscreteDense)
+    from deeplearning4j_tpu_torch.train import updaters
+    t_phase = time.perf_counter()
+
+    def replays():
+        return cc.cache_stats()["memory"]["hits"]
+
+    conf = QLearningConfiguration(
+        seed=1, max_step=6000, epsilon_nb_step=2500, update_start=300,
+        target_dqn_update_freq=250, learning_rate=1e-3, batch_size=64)
+    r0, t0 = replays(), time.perf_counter()
+    dqn = QLearningDiscreteDense(CartPole(seed=0), conf,
+                                 hidden=(48, 48)).train()
+    wall = time.perf_counter() - t0
+    avg = dqn.evaluate(10)
+    log(f"phase 40 DQN CartPole (48x48, {conf.max_step} steps, "
+        f"{dqn.updates} TD updates): {wall:.1f} s, "
+        f"{conf.max_step / wall:.0f} env steps/s, "
+        f"{dqn._dispatch.captures()} capture, {replays() - r0} replays; "
+        f"evaluate(10) {avg:.1f} [{smi}]")
+    if not avg > 80.0 or dqn._dispatch.captures() != 1:
+        fail(f"phase 40: DQN evaluate(10) {avg:.1f} (want > 80), "
+             f"{dqn._dispatch.captures()} captures")
+
+    a3c = A3CDiscreteDense(CartPole, A3CConfiguration(
+        seed=7, num_threads=2, max_steps=5000, learning_rate=7e-3, n_step=32,
+        max_episode_steps=200), hidden=(64,))
+
+    def best_window(rs, w=10):
+        return max((float(np.mean(rs[i:i + w]))
+                    for i in range(len(rs) - w + 1)), default=0.0)
+    mdp = CartPole(seed=3)
+    r0, t0 = replays(), time.perf_counter()
+    solved, chunks = False, 0
+    for chunks in range(1, 13):
+        a3c.train()
+        if best_window(a3c.episode_rewards) <= 150.0:
+            continue
+        plays = [a3c.getPolicy(deterministic=False).play(mdp, max_steps=200)
+                 for _ in range(5)]
+        if np.mean(plays) > 80.0:
+            solved = True
+            break
+    wall = time.perf_counter() - t0
+    log(f"phase 40 A3C CartPole (2 threads, hidden 64): solved {solved} "
+        f"after {chunks} chunks of 5000 steps in {wall:.1f} s "
+        f"({chunks * 5000 / wall:.0f} env steps/s), "
+        f"{a3c._dispatch.captures()} capture, {replays() - r0} replays, best "
+        f"10-episode window {best_window(a3c.episode_rewards):.1f} [{smi}]")
+    if not solved:
+        fail(f"phase 40: A3C did not solve CartPole: "
+             f"{a3c.episode_rewards[-12:]}")
+
+    rng = np.random.RandomState(0)
+    x = rng.randn(64, 4).astype(np.float32)
+    y = np.eye(2, dtype=np.float32)[(x.sum(1) > 0).astype(int)]
+    ds = DataSet(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+
+    def mlp_score(cand):
+        net = MultiLayerNetwork(
+            NeuralNetConfiguration.Builder().seed(7)
+            .updater(updaters.Adam(cand["lr"])).list()
+            .layer(DenseLayer(nOut=8, activation="relu"))
+            .layer(OutputLayer(nOut=2, lossFunction="mcxent",
+                               activation="softmax"))
+            .setInputType(InputType.feedForward(4)).build()).init()
+        for _ in range(15):
+            net.fit(ds)
+        return float(net.score()), net
+    t0 = time.perf_counter()
+    best = arbiter.OptimizationRunner(arbiter.OptimizationConfiguration(
+        candidate_generator=arbiter.GridSearchCandidateGenerator(
+            {"lr": arbiter.DiscreteSpace([1e-5, 3e-2])},
+            discretization_count=2),
+        score_function=mlp_score, max_candidates=2, minimize=True,
+        keep_models=True)).execute()
+    log(f"phase 40 arbiter over port MLPs: best lr {best.candidate['lr']} "
+        f"(score {best.score:.4f}) in {time.perf_counter() - t0:.1f} s")
+    if best.candidate["lr"] != 3e-2 or best.model is None:
+        fail(f"phase 40: the arbiter picked {best.candidate}")
+
+    train = MnistDataSetIterator(64, True, num_examples=2048)
+    test = MnistDataSetIterator(256, False, num_examples=512)
+
+    def lenet_score(cand):
+        net = zoo.LeNet(num_classes=10,
+                        updater=updaters.Adam(cand["lr"])).init()
+        t1 = time.perf_counter()
+        net.fit(train, epochs=1)
+        acc = net.evaluate(test).accuracy()
+        log(f"phase 40 LeNet-5 Adam({cand['lr']:g}): one epoch of "
+            f"{train.data.numExamples()} digits in "
+            f"{time.perf_counter() - t1:.2f} s, accuracy {acc:.4f}")
+        return acc
+    runner = arbiter.OptimizationRunner(arbiter.OptimizationConfiguration(
+        candidate_generator=arbiter.GridSearchCandidateGenerator(
+            {"lr": arbiter.DiscreteSpace(list(LENET_GRID))}),
+        score_function=lenet_score, max_candidates=len(LENET_GRID),
+        minimize=False))
+    best = runner.execute()
+    scores = [r.score for r in runner.results]
+    log(f"phase 40 arbiter grid over LeNet-5's Adam rate: scores {scores}, "
+        f"best lr {best.candidate['lr']:g} [{smi}]")
+    if len(scores) != len(LENET_GRID) or not all(0.0 <= s <= 1.0
+                                                 for s in scores) \
+            or best.score != max(scores) or best.score < 0.5:
+        fail(f"phase 40: the LeNet-5 grid scored {scores}")
+    log(f"phase 40: {time.perf_counter() - t_phase:.1f} s")
 
 
 def bound(nbytes: int, ops: int, peak: float) -> dict:

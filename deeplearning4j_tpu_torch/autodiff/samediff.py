@@ -52,8 +52,15 @@ cannot read a value on the host.
 Static analysis: ``infer_shapes`` (on ``meta`` tensors), ``validate``
 (the ``analysis`` package's SameDiff lints) and ``summary``.
 
-Not ported (ROADMAP.md queue 1 item 11): the native backend
-(``setExecBackend("native")``).
+The native backend: ``setExecBackend("native")`` runs ``output()`` /
+``batchOutput()`` through the C++ runtime over the CUDA driver
+(:mod:`..native`): each (outputs, placeholder signature, train) key is
+compiled once (the graph's spec with its variables, constants,
+placeholders and step clock as inputs, captured on the card and
+instantiated by the library), then every call executes it with the
+graph's own arrays and returns host arrays, as the JAX native path does.
+A graph on the CPU, or one whose outputs need a node that reads the host,
+raises ``NativeRuntimeError``: nothing falls back to the eager path.
 """
 
 from __future__ import annotations
@@ -62,6 +69,7 @@ import base64
 import io
 import json
 import os
+import weakref
 import zipfile
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -78,6 +86,16 @@ from deeplearning4j_tpu_torch.train.updaters import IUpdater
 #: the 64-bit dtypes jnp.asarray narrows without x64 (Python and numpy
 #: defaults): the port feeds the graph the dtypes the JAX package does
 _NARROW = {torch.float64: torch.float32, torch.int64: torch.int32}
+
+
+def _narrowed(value) -> torch.Tensor:
+    """``value`` as a tensor where it lies (anything not a tensor on the
+    host), with the dtypes jnp.asarray gives without x64 (float64 ->
+    float32, int64 -> int32)."""
+    if not isinstance(value, torch.Tensor):
+        a = np.asarray(value)
+        value = torch.from_numpy(np.array(a, copy=not a.flags.writeable))
+    return value.to(dtype=_NARROW.get(value.dtype, value.dtype))
 
 
 #: nodes that read a value on the host (a loop predicate, a branch): the
@@ -563,6 +581,12 @@ class SameDiff:
         self._fit_dispatch: Dict[tuple, cc.CachedDispatch] = {}
         self._fit_owned: Optional[List[torch.Tensor]] = None
         self._fit_eager = False     # the loss needs a host-control node
+        self._exec_backend = "torch"
+        #: the native backend's executables by (outputs, placeholder
+        #: signature, train), released with the graph
+        self._native_cache: Dict[tuple, Any] = {}
+        self._native_t: Optional[torch.Tensor] = None
+        weakref.finalize(self, _release_native, self._native_cache)
         self.math = SDMath(self)
         self.nn = SDNN(self)
         self.cnn = SDCNN(self)
@@ -590,12 +614,9 @@ class SameDiff:
                 return cand
 
     def _as_tensor(self, value) -> torch.Tensor:
-        """A tensor on the graph's device, with the dtypes jnp.asarray
-        gives without x64 (float64 -> float32, int64 -> int32)."""
-        if not isinstance(value, torch.Tensor):
-            a = np.asarray(value)
-            value = torch.from_numpy(np.array(a, copy=not a.flags.writeable))
-        return value.to(self.device, _NARROW.get(value.dtype, value.dtype))
+        """A tensor on the graph's device, narrowed as :func:`_narrowed`
+        narrows it."""
+        return _narrowed(value).to(self.device)
 
     def placeHolder(self, name: str, shape=None,
                     dtype=torch.float32) -> SDVariable:
@@ -678,6 +699,7 @@ class SameDiff:
         training configuration changed."""
         self._fit_dispatch = {}
         self._fit_owned = None
+        _release_native(self._native_cache)
 
     def _rename(self, old: str, new: str):
         """Rename a variable everywhere it appears (``SDVariable.rename``;
@@ -752,9 +774,84 @@ class SameDiff:
         in training mode."""
         outputs = [o.name if isinstance(o, SDVariable) else o
                    for o in outputs]
+        if self._exec_backend == "native":
+            return self._exec_native(placeholders or {}, outputs, train)
         with torch.no_grad():
             return self._exec(self._variables, self._feed(placeholders),
                               outputs, train=train)
+
+    # ------------------------------------------------------ native backend
+    def setExecBackend(self, backend: str):
+        """Execution backend for ``output()``/``batchOutput()``: ``"torch"``
+        (the default, eager on the graph's device, where the JAX package's
+        default is ``"jax"``) or ``"native"``, the C++ runtime over the
+        CUDA driver (module doc)."""
+        if backend not in ("torch", "native"):
+            raise ValueError(f"unknown backend '{backend}'")
+        self._exec_backend = backend
+        return self
+
+    def native_executables(self) -> list:
+        """The native backend's executables (one a compiled key)."""
+        return list(self._native_cache.values())
+
+    def _native_feed(self, value) -> torch.Tensor:
+        """A placeholder value as the native program takes it, narrowed
+        as :func:`_narrowed` narrows it: a tensor stays where it is (on
+        the card: copied device to device), anything else becomes a host
+        tensor (copied host to device)."""
+        return _narrowed(value).detach()
+
+    def _native_device(self) -> torch.device:
+        """The card the native programs of this graph capture and run
+        on (``cuda`` without an index: the current one)."""
+        if self.device.type == "cuda" and self.device.index is None:
+            return torch.device("cuda", torch.cuda.current_device())
+        return self.device
+
+    def _native_program(self, outputs: Sequence[str], phs: Dict[str, Any],
+                        train: bool) -> bytes:
+        """The ``fmt="samediff"`` program of one key: every node, with the
+        variables, the constants, the placeholders (at this call's shapes
+        and dtypes) and the step clock as its inputs, in that order, and
+        the device it captures on. Two graphs of one structure, signature
+        and device give the same bytes."""
+        def sig(t):
+            return [list(t.shape), op_registry.dtype_name(t.dtype)]
+        inputs = {**{k: sig(v) for k, v in self._variables.items()},
+                  **{k: sig(v) for k, v in self._constants.items()},
+                  **{k: sig(v) for k, v in phs.items()},
+                  _NATIVE_STEP: [[], "int32"]}
+        spec = {"ph_order": list(inputs), "placeholders": inputs,
+                "consts": {}, "nodes": [_node_to_spec(n) for n in self._nodes],
+                "outputs": list(outputs), "train": bool(train),
+                "seed": self._seed, "device": str(self._native_device())}
+        return json.dumps(spec, sort_keys=True).encode()
+
+    def _exec_native(self, placeholders, outputs: List[str], train: bool):
+        from deeplearning4j_tpu_torch.native import runtime as native_rt
+        if self.device.type != "cuda":
+            raise native_rt.NativeRuntimeError(
+                f"the native backend runs on the card: this graph is on "
+                f"{self.device} (SameDiff.create(device='cuda'), or the "
+                "default eager backend)")
+        phs = {k: self._native_feed(placeholders[k])
+               for k in sorted(placeholders)}
+        dev = self._native_device()
+        key = (tuple(outputs), tuple((k, tuple(v.shape), str(v.dtype))
+                                     for k, v in phs.items()), bool(train),
+               dev)
+        if self._native_t is None or self._native_t.device != dev:
+            self._native_t = torch.zeros((), dtype=torch.int32, device=dev)
+        self._native_t.fill_(self._step)
+        inputs = [*self._variables.values(), *self._constants.values(),
+                  *phs.values(), self._native_t]
+        exe = self._native_cache.get(key)
+        if exe is None or exe.released:
+            exe = self._native_cache[key] = native_rt.get_runtime().compile(
+                self._native_program(outputs, phs, train), "samediff",
+                inputs=inputs)
+        return dict(zip(outputs, exe(*inputs)))
 
     def batchOutput(self):
         sd = self
@@ -1269,6 +1366,18 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+#: the native program's last input: the step clock its RNG nodes draw from
+_NATIVE_STEP = "__native_step__"
+
+
+def _release_native(cache: Dict[tuple, Any]) -> None:
+    """Release a graph's native executables (its captures' memory goes
+    with the last handle on each)."""
+    for exe in cache.values():
+        exe.release()
+    cache.clear()
+
+
 def _node_to_spec(node: _Node) -> dict:
     """JSON-able spec of one node."""
     spec = {"op": node.op, "inputs": node.inputs, "outputs": node.outputs,
@@ -1387,7 +1496,9 @@ def subgraph_spec(sub: "SameDiff", outputs: Sequence[str]) -> dict:
     }
 
 
-def subgraph_from_spec(spec: dict, device="cpu") -> "SameDiff":
+def subgraph_from_spec(spec: dict, device=None) -> "SameDiff":
+    """The graph of a :func:`subgraph_spec` on ``device`` (``cuda``
+    unless the caller names another)."""
     sub = SameDiff(device)
     for name in spec["ph_order"]:
         shp, dt = spec["placeholders"][name]
@@ -1409,14 +1520,14 @@ def subgraph_fn(spec: dict) -> Callable:
     tuple(outputs)``, the args bound to the placeholders in declared
     order; RNG nodes inside draw from ``key`` folded with their index.
     The subgraph is built on the device of the first tensor argument
-    when first called there."""
+    when first called there (``cuda`` when no argument is a tensor)."""
     outputs = tuple(spec["outputs"])
     ph_names = spec["ph_order"]
     subs: Dict[torch.device, SameDiff] = {}
 
     def call(*args, key=None, train=False):
         dev = next((a.device for a in args if isinstance(a, torch.Tensor)),
-                   torch.device("cpu"))
+                   None) or resolve_device(None)
         sub = subs.get(dev)
         if sub is None:
             sub = subs[dev] = subgraph_from_spec(spec, dev)

@@ -778,8 +778,8 @@ class NASNet(ZooModel):
         return ComputationGraph(g.build())
 
 
-#: Name -> class of every ported architecture (ref: the zoo's selection by
-#: name); the JAX zoo's TextGenerationLSTM is not ported yet
+#: Name -> class of every architecture of the JAX zoo (ref: the zoo's
+#: selection by name)
 ZOO_MODELS = {cls.__name__: cls for cls in
               (LeNet, SimpleCNN, AlexNet, VGG16, VGG19, ResNet50, Darknet19,
                SqueezeNet, UNet, Xception, FaceNetNN4Small2,

@@ -669,11 +669,15 @@ def _side_stream(args):
         current.wait_stream(side)
 
 
-def _record(fn, static_args, *, pool, stream):
+def _record(fn, static_args, *, pool, stream, keep_graph=False):
     """Capture ``fn(*static_args)`` into a new CUDA graph on ``stream``
     (which first waits for the caller's stream) into the memory ``pool``
     of :meth:`CachedDispatch._capture_options`; returns ``(graph, static
-    outputs)``. The capture is thread-local: another thread's calls
+    outputs)``. With ``keep_graph`` the graph is left un-instantiated and
+    its ``cudaGraph_t`` kept (``graph.raw_cuda_graph()``) for a caller
+    that instantiates it itself (the native runtime); a torch whose
+    ``CUDAGraph`` has no ``keep_graph`` raises TypeError. The capture is
+    thread-local: another thread's calls
     meanwhile (a server replaying its own graphs, its synchronous copies
     to and from the card) neither invalidate it nor raise there.
 
@@ -688,7 +692,8 @@ def _record(fn, static_args, *, pool, stream):
     graphs are freed by a collection, and a collection that an allocation
     set off inside the capture would free them on this thread mid-capture,
     which invalidates the capture."""
-    graph = torch.cuda.CUDAGraph()
+    graph = torch.cuda.CUDAGraph(keep_graph=True) if keep_graph \
+        else torch.cuda.CUDAGraph()
     collecting = gc.isenabled()
     gc.disable()
     try:

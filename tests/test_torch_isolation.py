@@ -199,7 +199,12 @@ def test_import_leaves_jax_unloaded():
              "deeplearning4j_tpu_torch.ops.validation, "
              "deeplearning4j_tpu_torch.ops.validation_ext, "
              "deeplearning4j_tpu_torch.ops.validation_r5, "
-             "deeplearning4j_tpu_torch.utils.environment; "
+             "deeplearning4j_tpu_torch.utils.environment, "
+             "deeplearning4j_tpu_torch.native, "
+             "deeplearning4j_tpu_torch.nlp, "
+             "deeplearning4j_tpu_torch.rl, "
+             "deeplearning4j_tpu_torch.rl.a3c, "
+             "deeplearning4j_tpu_torch.arbiter; "
              "print(sorted(m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'jaxlib', 'deeplearning4j_tpu', 'tensorflow', "
              "'ml_dtypes', 'safetensors', 'transformers', 'h5py', "
