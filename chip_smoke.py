@@ -661,6 +661,53 @@ Phases (each one fails the run with a non-zero exit):
    (1e-4, 1e-3, 1e-2) on phase 16's 2,048 digits, one epoch each,
    scored by ``evaluate`` (printed: each run's s, steps/s, captures and
    replays).
+41. Data parallelism at world size 1 over NCCL, in this process
+   (``parallel.initializeDistributed`` over a file store in a temporary
+   directory, rank 0 of 1 on the card): ResNet-50 at B=64 in phase 14's
+   bf16 / NHWC / fused configuration, cuDNN held to deterministic
+   algorithms, 8 steps from one seeded state four ways: the unsharded
+   ``fit(steps_per_dispatch=4)`` (phase 14's captured fit, the
+   reference), ``ParallelWrapper.fit`` eagerly and at
+   ``steps_per_dispatch=4``, and ``GSPMDTrainer.fit`` with
+   ``ShardedTrainingPlan(mesh, zero=True)`` at K=4. Each data-parallel
+   run's losses and state (params, BN statistics, Adam moments, the
+   clock) must be bit-equal to the reference's (the all-reduces of one
+   rank add nothing and the loss weights are exactly 1); each K=4 capture
+   records 4 x 33 ``scale_shift_act`` launches with no capture failure
+   and one capture a run. It prints the bytes of one step's collectives
+   by kind (``parallel.collectives.record`` over one eager step), the
+   updater bytes under ZeRO at world 1, and ms a step of the wrapper's
+   captured fit beside phase 14's captured step.
+42. Two rank processes sharing the card over gloo (``parallel.launch.
+   RankPool(2, device="cuda", backend="gloo")``, spawned after the kernel
+   build: the ranks load the libraries this process built; NCCL refuses
+   two ranks on one card, and gloo takes no card tensor, so every
+   collective is staged through pinned host memory and the phase prints
+   how many were): ResNet-50 at a global B=64 (32 a rank) from phase 41's
+   seeded state through ``GSPMDTrainer`` with ZeRO, 4 eager steps whose
+   losses must fall and be within a relative 8e-4 (the first: the same
+   params) and 1e-1 (the others, a check for gross faults) of phase 41's
+   world-1 ZeRO losses (sync BN makes them the same problem; the cut of
+   the batch changes only the rounding, which Adam's first steps on one
+   repeated batch amplify), whose BN running statistics must end
+   bit-equal on the two ranks, and the same fit with each rank's BN on
+   its own rows as the negative control, which must break the first
+   step's bound and end with the ranks' statistics apart (``DP_LOSS_RTOL``
+   says why), 33 ``scale_shift_act`` launches a step on each
+   rank, each rank's ``updater_hbm_bytes`` between 0.45 and 0.6 of world
+   1's; ``save_sharded`` from both ranks, then ``load_sharded`` here at
+   world 1: every parameter and updater-state tensor bit-equal to the
+   ranks' gathered values (SHA-256 of each). Then
+   ``ParallelWrapper.fit(elastic=ElasticConfig(coordinator=
+   SocketCoordinator(...), lr_policy="linear"))`` over 8 batches of 64
+   with a ``SocketCoordinatorServer`` in this process: rank 1 holds
+   ``FaultPlan(device_loss_at_step=3, lose_devices=[1])`` and its
+   process exits at step 3; rank 0's next collective fails, the
+   coordinator names ``rank1`` dead, rank 0 shrinks to world 1, agrees on
+   step 3 and restores it, halves its learning-rate scale and trains
+   steps 4-8 with finite losses, one a step: each of these is read back
+   from the shrink's record (``model._last_shrink``) and checked. It
+   prints the shrink's seconds.
 
 The captured-against-eager rule: where the two eager runs agree to the
 bit on a tensor (and on the params' group: the param and its Adam
@@ -706,7 +753,9 @@ norm); ``disk_warm_launches`` phase 36 (b)'s warm start;
 layer norm, launched (the gate's forwards, the candidates' warm-up runs
 and captures) and replayed (served batches and train steps);
 ``native_launches`` phase 38's native executable of the SameDiff
-BERT-base (softmax and layer norm)), the
+BERT-base (softmax and layer norm); ``dp_launches`` and ``dp_replays``
+phase 41's ``scale_shift_act`` over its data-parallel fits: eager steps
+and K=4 captures, and replays), the
 ``nvidia-smi`` name/power-limit line, and as the last line
 ``{"ok": true, "device": {...}}``. Without a card, or outside a
 checkout, it exits non-zero and prints no result.
@@ -1980,6 +2029,12 @@ def main() -> None:
     rl_arbiter(smi)
     torch.cuda.empty_cache()
 
+    # ---------------------- 41-42. data parallelism: world 1, two ranks
+    dp = dp_world1(smi, r14["ResNet-50"]["captured_ms"])
+    torch.cuda.empty_cache()
+    dp_two_ranks(smi, dp)
+    torch.cuda.empty_cache()
+
     ln.update(served["layer_norm"])
     fa.update(served["flash_attention"])
     for kr in (ln, fa):
@@ -2011,6 +2066,8 @@ def main() -> None:
         kr["lifecycle_replays"] = lc["replays"][kr["name"]]
     for kr in (sm, ln):
         kr["native_launches"] = nat["native_launches"][kr["name"]]
+    ssa["dp_launches"] = dp["launches"]
+    ssa["dp_replays"] = dp["replays"]
     bn_st["launches"] = probe_launches["bn_stats"]
     bn_ap["launches"] = probe_launches["bn_apply_leaky"]
     keys = ("name", "route", "source", "replaces", "launches", "replays",
@@ -2022,7 +2079,7 @@ def main() -> None:
             "sanitizer_launches", "ndarray_launches", "exec_op_launches",
             "samediff_capture_launches", "disk_warm_launches",
             "tune_launches", "lifecycle_launches", "lifecycle_replays",
-            "native_launches")
+            "native_launches", "dp_launches", "dp_replays")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{k: kr[k] for k in keys if k in kr}
                                   for kr in (ln, fa, ssa, sm, bn_st, bn_ap)]}))
@@ -8350,6 +8407,415 @@ def rl_arbiter(smi: str) -> None:
             or best.score != max(scores) or best.score < 0.5:
         fail(f"phase 40: the LeNet-5 grid scored {scores}")
     log(f"phase 40: {time.perf_counter() - t_phase:.1f} s")
+
+
+#: phases 41-42: ResNet-50's global batch and steps (two K=4 dispatches)
+DP_BATCH = 64
+DP_STEPS = 8
+#: phase 42: the relative bounds of the two-rank losses against world
+#: 1's. The first step's (the same params; only the rounding of a batch
+#: cut in two differs) lies between sync BN's reading, 3.36e-4, and the
+#: per-rank BN control's, 1.62e-3 (deterministic: cudnn.deterministic,
+#: one seeded batch). The later ones' catches gross faults only (a loss
+#: not weighed by the rows, a gradient not summed): in bf16 on one
+#: repeated batch, Adam's first steps amplify rounding to 4.3e-2 by step
+#: 4 with sync BN and to 3.0e-2 with per-rank BN, so from step 2 on the
+#: loss cannot tell them apart. What tells them apart there is the BN
+#: running statistics, bit-equal across the ranks under sync BN only;
+#: the fp32 MLP+BN card test (tests/test_torch_cuda.py) holds the same
+#: code to world 1 at 1e-5. Readings: PERF.md, PR 23.
+DP_LOSS_RTOL = (8e-4, 1e-1)
+#: phase 42: the step at which rank 1's device is lost
+DP_LOSE_AT = 3
+
+
+def dp_data(steps: int = 1):
+    """Phase 41-42's seeded ResNet-50 batches: ``steps`` x B=64 images
+    (host arrays; phase 14's draw for the first)."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((DP_BATCH * steps, 3, 224, 224),
+                            dtype=np.float32)
+    y = np.eye(1000, dtype=np.float32)[
+        rng.integers(0, 1000, DP_BATCH * steps)]
+    return x, y
+
+
+class _Losses:
+    """A listener keeping every step's loss (a host read a step) and the
+    host clock at it."""
+
+    def __init__(self):
+        self.values, self.times = [], []
+
+    def iterationDone(self, model, iteration, epoch):
+        self.values.append(model.score())
+        self.times.append(time.perf_counter())
+
+    def step_ms(self) -> float:
+        """Median ms between consecutive steps after the first."""
+        gaps = np.diff(self.times[1:]) * 1e3
+        return float(np.median(gaps)) if len(gaps) else float("nan")
+
+
+def _digests(tree) -> dict:
+    import hashlib
+    from deeplearning4j_tpu_torch.parallel.checkpoint import _flatten
+    return {name: hashlib.sha256(np.ascontiguousarray(
+        np.asarray(v)).tobytes()).hexdigest() for name, v in _flatten(tree)}
+
+
+def dp_world1(smi: str, phase14_ms: float) -> dict:
+    """Phase 41 (see the module note). Returns the ``scale_shift_act``
+    launches and replays of its data-parallel fits, the world-1 ZeRO
+    losses and updater bytes (phase 42's references)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.distributed import (GSPMDTrainer,
+                                                      ShardedTrainingPlan,
+                                                      updater_hbm_bytes)
+    from deeplearning4j_tpu_torch.distributed.gspmd import (
+        hlo_collective_bytes, step_collective_bytes)
+    from deeplearning4j_tpu_torch.nn import compilecache as cc
+    from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+    from deeplearning4j_tpu_torch.parallel import (DeviceMesh,
+                                                   ParallelWrapper,
+                                                   initializeDistributed)
+    t_phase = time.perf_counter()
+    store = tempfile.mkdtemp(prefix="dl4j_dp_")
+    info = initializeDistributed("file://" + os.path.join(store, "store"),
+                                 1, 0)
+    if info.backend != "nccl" or info.device != "cuda:0":
+        fail(f"phase 41: initializeDistributed gave {info}: want NCCL on "
+             "cuda:0")
+    x, y = dp_data()
+    ds = DataSet(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+    batches = [ds] * DP_STEPS
+    k = MEGA_K
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    runs, launches, replays = {}, 0, 0
+    try:
+        for name in ("unsharded K=4", "ParallelWrapper eager",
+                     "ParallelWrapper K=4", "GSPMDTrainer ZeRO K=4"):
+            net = resnet50_bf16()
+            lst = _Losses()
+            net.setListeners(lst)
+            cc.reset_stats()
+            ck.reset_counts()
+            if name.startswith("unsharded"):
+                net.fit(batches, steps_per_dispatch=k)
+            elif name.startswith("ParallelWrapper"):
+                ParallelWrapper(net).fit(
+                    batches, steps_per_dispatch=1 if "eager" in name else k)
+            else:
+                GSPMDTrainer(net, ShardedTrainingPlan(
+                    DeviceMesh.data_parallel(), zero=True)).fit(
+                    batches, steps_per_dispatch=k)
+            torch.cuda.synchronize()
+            stats = cc.cache_stats()
+            if "eager" not in name:
+                at = net._step_for(False, k).launches_at_capture()
+                if at != [{"scale_shift_act": k * 33}] \
+                        or stats["capture_failures"] \
+                        or stats["compile_seconds"]["cold_compiles"] != 1:
+                    fail(f"phase 41 {name}: the capture recorded {at}, "
+                         f"cache stats {stats}: want one capture of "
+                         f"{k} x 33 scale_shift_act launches, no failure")
+            elif ck.LAUNCHES["scale_shift_act"] != DP_STEPS * 33:
+                fail(f"phase 41 {name}: {dict(ck.LAUNCHES)} launches over "
+                     f"{DP_STEPS} steps: want 33 scale_shift_act a step")
+            if not name.startswith("unsharded"):
+                launches += ck.LAUNCHES["scale_shift_act"]
+                replays += ck.REPLAYS["scale_shift_act"]
+            runs[name] = (lst.values, snapshot(net._dispatch_state()), net)
+            if not all(np.isfinite(lst.values)):
+                fail(f"phase 41 {name}: losses {lst.values}")
+        ref_losses, ref_state, _ = runs["unsharded K=4"]
+        for name, (losses, state, _) in runs.items():
+            same = losses == ref_losses and all(
+                torch.equal(a, b) for a, b in zip(state, ref_state))
+            if not same:
+                worst = max(float((a.float() - b.float()).abs().max())
+                            for a, b in zip(state, ref_state))
+                fail(f"phase 41 {name}: not bit-equal to the unsharded K=4 "
+                     f"fit (losses {losses} vs {ref_losses}; max |state "
+                     f"diff| {worst:.3g})")
+        log(f"phase 41: ParallelWrapper eager and K=4, GSPMDTrainer ZeRO "
+            f"K=4 at world 1 over NCCL: losses and state bit-equal to the "
+            f"unsharded K=4 fit over {DP_STEPS} steps (losses "
+            f"{[round(v, 5) for v in ref_losses]}) [{smi}]")
+        zero_net = runs["GSPMDTrainer ZeRO K=4"][2]
+        zero_bytes = sum(updater_hbm_bytes(zero_net._opt_state).values())
+        zero_losses = runs["GSPMDTrainer ZeRO K=4"][0]
+        eager_net = runs["ParallelWrapper eager"][2]
+        coll = hlo_collective_bytes(step_collective_bytes(
+            eager_net, ds.features, ds.labels))
+        wrap_net = runs["ParallelWrapper K=4"][2]
+        del runs
+        pw = ParallelWrapper(wrap_net)
+        ms = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pw.fit(batches, steps_per_dispatch=k)
+            wrap_net.score()
+            ms.append((time.perf_counter() - t0) * 1e3 / DP_STEPS)
+        log(f"phase 41: one step's collectives at world 1 (bytes by kind) "
+            f"{coll}; ZeRO updater bytes at world 1 {zero_bytes}; "
+            f"ParallelWrapper K=4 ms a step {', '.join(f'{v:.2f}' for v in ms)}"
+            f" against phase 14's captured {phase14_ms:.2f}; "
+            f"{time.perf_counter() - t_phase:.1f} s [{smi}]")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = det
+    return {"launches": launches, "replays": replays, "store": store,
+            "zero_losses": zero_losses[:4], "zero_bytes": zero_bytes,
+            "ms": float(np.median(ms)), "collective_bytes": coll}
+
+
+def dp_rank_zero(ckpt_dir, steps: int, control: bool = False) -> dict:
+    """Phase 42, in each rank: ResNet-50 through ``GSPMDTrainer`` with
+    ZeRO at a global B=64, then ``save_sharded``; with ``control``, the
+    same fit with each rank's BN on its own 32 rows (the negative
+    control of the loss bound: what unsynced BN gives), nothing saved."""
+    import torch
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.distributed import (GSPMDTrainer,
+                                                      ShardedTrainingPlan,
+                                                      gather_opt_state,
+                                                      updater_hbm_bytes)
+    from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+    from deeplearning4j_tpu_torch.parallel import DeviceMesh, save_sharded
+    from deeplearning4j_tpu_torch.parallel.collectives import HOST_STAGED
+    ck.install_platform_overrides()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    x, y = dp_data()
+    ds = DataSet(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+    net = resnet50_bf16()
+    lst = _Losses()
+    net.setListeners(lst)
+    plan = (_per_rank_bn_plan() if control else ShardedTrainingPlan)(
+        DeviceMesh.data_parallel(), zero=True)
+    ck.reset_counts()
+    staged0 = HOST_STAGED.value
+    GSPMDTrainer(net, plan).fit([ds] * steps)
+    torch.cuda.synchronize()
+    out = {"losses": lst.values, "step_ms": lst.step_ms(),
+           "launches": ck.LAUNCHES["scale_shift_act"],
+           "plain": ck.PLAIN_CALLS["scale_shift_act"],
+           "hbm": sum(updater_hbm_bytes(net._opt_state).values()),
+           "staged": HOST_STAGED.value - staged0,
+           # BN's running statistics: the same on both ranks under sync
+           # BN (each rank's own rows' otherwise)
+           "bn_states": _digests({n: {k: v.detach().cpu().numpy()
+                                      for k, v in (st or {}).items()}
+                                  for n, st in net._items(net._states)})}
+    if control:
+        return out
+    save_sharded(ckpt_dir, {"params": net._params, "opt": net._opt_state},
+                 step=net._iteration)
+    full = {"params": {n: {k: v.detach().cpu().numpy()
+                           for k, v in p.items()}
+                       for n, p in net._items(net._params)},
+            "opt": gather_opt_state(net._opt_state, plan.group)}
+    if dist.get_rank() == 0:
+        out["digests"] = _digests(full)
+    return out
+
+
+def _per_rank_bn_plan():
+    """A ShardedTrainingPlan whose steps leave BN unsynced (each rank
+    normalizes by its own rows' moments): phase 42's negative control."""
+    from deeplearning4j_tpu_torch.distributed import ShardedTrainingPlan
+    from deeplearning4j_tpu_torch.parallel.collectives import \
+        DataParallelStep
+
+    class _Step(DataParallelStep):
+        __slots__ = ()
+
+        def key(self, seed, t):
+            k = super().key(seed, t)
+            k.sync = None
+            return k
+
+    class Plan(ShardedTrainingPlan):
+        def step_context(self, rows):
+            return _Step(self.group, rows)
+    return Plan
+
+
+def dp_rank_elastic(ckpt_dir: str, coord_addr: str, steps: int) -> dict:
+    """Phase 42, in each rank: the elastic wrapper fit; rank 1's device
+    is lost at ``DP_LOSE_AT`` and its process exits."""
+    import torch
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.data.dataset import (DataSet,
+                                                       ListDataSetIterator)
+    from deeplearning4j_tpu_torch.distributed import SocketCoordinator
+    from deeplearning4j_tpu_torch.faults import FaultPlan
+    from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+    from deeplearning4j_tpu_torch.parallel import (ElasticConfig,
+                                                   ParallelWrapper,
+                                                   RankLostError)
+    from deeplearning4j_tpu_torch.train.resilience import CheckpointConfig
+    ck.install_platform_overrides()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    r = dist.get_rank()
+    x, y = dp_data(steps)
+    net = resnet50_bf16()
+    lst = _Losses()
+    net.setListeners(lst)
+    coord = SocketCoordinator(coord_addr, participant=f"rank{r}",
+                              heartbeat_interval=0.2)
+    coord.hello()
+    faults = FaultPlan(device_loss_at_step=DP_LOSE_AT, lose_devices=[1]) \
+        if r == 1 else None
+    w = ParallelWrapper(net)
+    try:
+        w.fit(ListDataSetIterator(DataSet(x, y), DP_BATCH), epochs=1,
+              checkpoint=CheckpointConfig(ckpt_dir),
+              elastic=ElasticConfig(coordinator=coord, lr_policy="linear",
+                                    participant=f"rank{r}"),
+              faults=faults)
+    except RankLostError:
+        os._exit(0)     # the lost card's process ends, heartbeats stop
+    coord.close()
+    return {"losses": lst.values, "iteration": net._iteration,
+            "data": w.mesh.size("data"), "lr_scale": net.lr_scale(),
+            "shrink": getattr(net, "_last_shrink", None)}
+
+
+def dp_two_ranks(smi: str, w1: dict) -> None:
+    """Phase 42 (see the module note)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.distributed import SocketCoordinatorServer
+    from deeplearning4j_tpu_torch.parallel import (load_sharded,
+                                                   shutdownDistributed)
+    from deeplearning4j_tpu_torch.parallel.launch import RankPool
+    t_phase = time.perf_counter()
+    store = w1["store"]
+    ck_dir = os.path.join(store, "sharded")
+    el_dir = os.path.join(store, "elastic")
+    steps = 4
+    with RankPool(2, os.path.join(store, "pool"), device="cuda",
+                  backend="gloo", timeout=60.0, threads=2) as pool:
+        t0 = time.perf_counter()
+        res = pool.run(dp_rank_zero, ck_dir, steps)
+        train_s = time.perf_counter() - t0
+        ctl = pool.run(dp_rank_zero, None, steps, True)
+
+        def rel(losses):
+            return [abs(a - b) / abs(b) for a, b in
+                    zip(losses, w1["zero_losses"])]
+        rel_ctl = rel(ctl[0]["losses"])
+        log(f"phase 42: relative loss against world 1's, step by step: "
+            f"sync BN {[f'{v:.3g}' for v in rel(res[0]['losses'])]}, the "
+            f"per-rank BN control {[f'{v:.3g}' for v in rel_ctl]}; bounds "
+            f"{DP_LOSS_RTOL} [{smi}]")
+        if len(rel_ctl) != steps or rel_ctl[0] <= DP_LOSS_RTOL[0] \
+                or ctl[0]["bn_states"] == ctl[1]["bn_states"]:
+            fail(f"phase 42: the per-rank BN control passes the first "
+                 f"step's bound {DP_LOSS_RTOL[0]} (losses "
+                 f"{ctl[0]['losses']}) or ends with BN statistics equal "
+                 "on both ranks: the checks cannot tell sync BN from "
+                 "per-rank BN")
+        if res[0]["bn_states"] != res[1]["bn_states"]:
+            bad = [n for n, d in res[0]["bn_states"].items()
+                   if res[1]["bn_states"].get(n) != d]
+            fail(f"phase 42: the ranks' BN running statistics differ in "
+                 f"{len(bad)} tensor(s), e.g. {bad[:3]}: BN was not synced")
+        for r, out in enumerate(res):
+            rr = rel(out["losses"])
+            if len(out["losses"]) != steps or rr[0] > DP_LOSS_RTOL[0] \
+                    or max(rr) > DP_LOSS_RTOL[1] \
+                    or out["losses"][-1] >= out["losses"][0]:
+                fail(f"phase 42 rank {r}: losses {out['losses']} against "
+                     f"world 1's {w1['zero_losses']} (relative "
+                     f"{[round(v, 5) for v in rr]}; bounds {DP_LOSS_RTOL})")
+            if out["launches"] != steps * 33 or out["plain"]:
+                fail(f"phase 42 rank {r}: {out['launches']} scale_shift_act "
+                     f"launches ({out['plain']} plain) over {steps} steps")
+            ratio = out["hbm"] / w1["zero_bytes"]
+            if not 0.45 <= ratio <= 0.6:
+                fail(f"phase 42 rank {r}: updater bytes {out['hbm']} are "
+                     f"{ratio:.3f} of world 1's {w1['zero_bytes']}")
+        log(f"phase 42: two ranks over gloo on one card (every collective "
+            f"staged through pinned host memory: {res[0]['staged']} on rank "
+            f"0, not NCCL), ResNet-50 B=64 (32 a rank) ZeRO: losses "
+            f"{[round(v, 5) for v in res[0]['losses']]} vs world 1 "
+            f"{[round(v, 5) for v in w1['zero_losses']]}, relative "
+            f"{[round(abs(a - b) / abs(b), 5) for a, b in zip(res[0]['losses'], w1['zero_losses'])]}; "
+            f"BN running statistics bit-equal on both ranks "
+            f"({len(res[0]['bn_states'])} tensors; the control's differ); "
+            f"updater bytes a rank {res[0]['hbm']} = "
+            f"{res[0]['hbm'] / w1['zero_bytes']:.3f} of world 1's; ms a "
+            f"step (steps 3-4) {res[0]['step_ms']:.1f} and "
+            f"{res[1]['step_ms']:.1f}; the call with start-up "
+            f"{train_s:.1f} s [{smi}]")
+        net = resnet50_bf16()
+        net._ensure_opt_state()
+        target = {"params": {n: {k: v.detach().cpu().numpy()
+                                 for k, v in p.items()}
+                             for n, p in net._items(net._params)},
+                  "opt": {n: {k: {sk: sv.detach().cpu().numpy()
+                                  for sk, sv in sd.items()}
+                              for k, sd in st.items()}
+                          for n, st in net._items(net._opt_state)}}
+        del net
+        loaded, step = load_sharded(ck_dir, target)
+        if step != steps or _digests(loaded) != res[0]["digests"]:
+            bad = [n for n, d in _digests(loaded).items()
+                   if res[0]["digests"].get(n) != d]
+            fail(f"phase 42: load_sharded at world 1 (step {step}) differs "
+                 f"from the ranks' gathered state in {len(bad)} tensor(s), "
+                 f"e.g. {bad[:3]}")
+        log(f"phase 42: save_sharded on 2 ranks -> load_sharded at world 1: "
+            f"{len(res[0]['digests'])} tensors bit-equal (params and ZeRO "
+            f"moments) [{smi}]")
+        with SocketCoordinatorServer(participants=2,
+                                     heartbeat_timeout=2.0) as srv:
+            res = pool.run(dp_rank_elastic, el_dir, srv.address, DP_STEPS,
+                           allow_exit=[1])
+        out = res[0]
+        sh = out["shrink"] or {}
+        # rank 0 sees the loss at DP_LOSE_AT through the failed collective
+        # and the coordinator's barrier; alone, it agrees on its own step
+        # and restores it: one loss a step, none replayed
+        if res[1] is not None or out["iteration"] != DP_STEPS \
+                or out["data"] != 1 or out["lr_scale"] != 0.5 \
+                or not all(np.isfinite(out["losses"])) \
+                or sh.get("dead") != ["rank1"] \
+                or sh.get("named_by_coordinator") != "rank1" \
+                or not sh.get("at") == sh.get("agreed") == \
+                sh.get("restored") == DP_LOSE_AT \
+                or len(out["losses"]) != DP_STEPS:
+            fail(f"phase 42 elastic: rank 0 {out}, rank 1 {res[1]}: want "
+                 f"rank 1 gone and named dead by the socket coordinator, "
+                 f"step {DP_LOSE_AT} agreed and restored, rank 0 at step "
+                 f"{DP_STEPS} on one rank with lr scale 0.5 and "
+                 f"{DP_STEPS} finite losses")
+        log(f"phase 42 elastic: rank 1's device lost at step {DP_LOSE_AT}, "
+            f"its process exited; rank 0 saw the loss at step {sh['at']}, "
+            f"the socket coordinator named {sh['named_by_coordinator']} "
+            f"dead, rank 0 shrank to world 1 in {sh['seconds']:.2f} s, "
+            f"agreed on step {sh['agreed']} and restored step "
+            f"{sh['restored']}, lr scale {out['lr_scale']}, trained to step "
+            f"{out['iteration']}: {len(out['losses'])} losses "
+            f"{[round(v, 4) for v in out['losses']]} [{smi}]")
+    shutdownDistributed()
+    import shutil
+    shutil.rmtree(store, ignore_errors=True)
+    log(f"phase 42: {time.perf_counter() - t_phase:.1f} s")
 
 
 def bound(nbytes: int, ops: int, peak: float) -> dict:

@@ -89,9 +89,17 @@ Race kinds (``pytest -m races``):
 Every fault fires exactly once per planned index (so a retried pull or
 forward succeeds, like a real transient).
 
-Not ported yet (ROADMAP.md): the multi-device kinds — device loss in
-training (``device_loss_at_step``) and the coordinator's peer death
-(``coord_peer_death``).
+Multi-rank kinds (``parallel.elastic`` and ``distributed.coordinator``):
+
+- **Device loss at step k** (``device_loss_at_step`` with
+  ``lose_devices``) — from update step k on, the planned ranks read as
+  dead to the elastic layer's health probe (:meth:`FaultPlan.
+  dead_devices`); a rank that finds itself among them stops, as a rank
+  whose card died does, and the survivors shrink.
+- **Coordinator peer death** (``coord_peer_death={"participant": p,
+  "generation": g}``) — the socket coordinator ignores p's heartbeats
+  from barrier generation g on, so the dead-peer path runs while p's
+  process lives.
 """
 
 from __future__ import annotations
@@ -136,6 +144,7 @@ class FaultPlan:
                  checkpoint_write_fail_at: Iterable[int] = (),
                  checkpoint_corrupt_at: Iterable[int] = (),
                  preempt_at_step: Optional[int] = None,
+                 device_loss_at_step: Optional[int] = None,
                  lose_devices: Iterable[int] = (),
                  hung_dispatch_at: Iterable[int] = (),
                  hang_seconds: Optional[float] = 0.2,
@@ -146,7 +155,8 @@ class FaultPlan:
                  nan_layer_params_at: Optional[dict] = None,
                  trainer_death_at_roll: Optional[int] = None,
                  bad_candidate_at: Optional[dict] = None,
-                 slo_regression_during_canary: Optional[int] = None):
+                 slo_regression_during_canary: Optional[int] = None,
+                 coord_peer_death: Optional[dict] = None):
         self.seed = seed
         self.nan_grads_at = _as_step_set(nan_grads_at)
         self.data_error_at = _as_step_set(data_error_at)
@@ -154,7 +164,13 @@ class FaultPlan:
         self.checkpoint_write_fail_at = _as_step_set(checkpoint_write_fail_at)
         self.checkpoint_corrupt_at = _as_step_set(checkpoint_corrupt_at)
         self.preempt_at_step = preempt_at_step
+        self.device_loss_at_step = device_loss_at_step
         self.lose_devices = frozenset(int(d) for d in lose_devices)
+        #: {"participant": name, "generation": g}: the coordinator peer
+        #: whose heartbeats stop counting from barrier generation g on
+        self.coord_peer_death = dict(coord_peer_death) \
+            if coord_peer_death else None
+        self._serve_loss_active = False
         self.hung_dispatch_at = _as_step_set(hung_dispatch_at)
         self.hang_seconds = hang_seconds
         self.slow_replica_at = _as_step_set(slow_replica_at)
@@ -197,20 +213,35 @@ class FaultPlan:
     @classmethod
     def seeded(cls, seed: int, horizon: int, n_nan: int = 1,
                n_data_errors: int = 1, preempt: bool = False,
-               corrupt_checkpoint: bool = False) -> "FaultPlan":
+               corrupt_checkpoint: bool = False, device_loss: int = 0,
+               device_pool: Iterable[int] = ()) -> "FaultPlan":
         """A training plan from one seed: fault steps drawn without
         replacement from ``[2, horizon]`` (step 1 is left clean, so every
-        run makes one good update first), as the JAX package draws them
-        (without its device-loss kind)."""
+        run makes one good update first), as the JAX package draws them.
+        ``device_loss=n`` also kills n ranks drawn from ``device_pool``
+        at a drawn step (the elastic-shrink sweeps)."""
         rng = np.random.RandomState(seed)
-        n_faults = n_nan + n_data_errors + (1 if preempt else 0)
+        n_faults = n_nan + n_data_errors + (1 if preempt else 0) \
+            + (1 if device_loss else 0)
         lo = 2
         pool = rng.permutation(np.arange(lo, max(horizon + 1, lo + n_faults)))
         picks = [int(p) for p in pool[:n_faults]]
         pos = n_nan + n_data_errors
+        loss_at, lose = None, ()
+        if device_loss:
+            loss_at = picks[pos]
+            pos += 1
+            ids = sorted(int(d) for d in device_pool)
+            if device_loss >= len(ids):
+                raise ValueError(
+                    f"device_loss={device_loss} would kill the whole "
+                    f"device_pool ({len(ids)} devices)")
+            lose = [ids[int(i)] for i in
+                    rng.choice(len(ids), size=device_loss, replace=False)]
         return cls(seed=seed, nan_grads_at=picks[:n_nan],
-                   data_error_at=picks[n_nan:pos],
+                   data_error_at=picks[n_nan:n_nan + n_data_errors],
                    preempt_at_step=picks[pos] if preempt else None,
+                   device_loss_at_step=loss_at, lose_devices=lose,
                    checkpoint_corrupt_at=(
                        [int(rng.randint(lo, horizon + 1))]
                        if corrupt_checkpoint else ()))
@@ -384,12 +415,38 @@ class FaultPlan:
                 f"(FaultPlan seed={self.seed})")
         if self.serve_device_loss_at_batch is not None \
                 and batch_index >= self.serve_device_loss_at_batch:
+            self._serve_loss_active = True
             dead = set(self.lose_devices) & {int(d) for d in device_ids}
             if dead:
                 raise RuntimeError(
                     f"injected device loss at serving batch {batch_index}: "
                     f"device(s) {sorted(dead)} are dead "
                     f"(FaultPlan seed={self.seed})")
+
+    def dead_devices(self, step: Optional[int] = None) -> Set[int]:
+        """Device (rank) ids reading as DEAD at update step ``step`` —
+        persistent from ``device_loss_at_step`` on (a lost card stays
+        lost). ``step=None`` asks "as of now": the loss applies whenever a
+        training loss is planned at all, or once a planned serving loss
+        has fired."""
+        if self.device_loss_at_step is None:
+            if self._serve_loss_active:
+                return set(self.lose_devices)
+            return set()
+        if step is not None and step < self.device_loss_at_step:
+            return set()
+        return set(self.lose_devices)
+
+    def coord_peer_dead(self, participant: str, generation: int) -> bool:
+        """Coordinator-peer-death fault kind: True when the planned
+        participant reads as dead (heartbeats ignored) at barrier
+        generation ``generation``; persistent from the planned generation
+        on."""
+        plan = self.coord_peer_death
+        if not plan:
+            return False
+        return (str(participant) == str(plan.get("participant"))
+                and int(generation) >= int(plan.get("generation", 0)))
 
     def dispatch_hold(self, step: int) -> bool:
         """Called (in the dispatch thread) as update step ``step`` is
@@ -462,6 +519,7 @@ class FaultPlan:
                 f"serve_fail={sorted(self.serve_fail_at)}, "
                 f"serve_loss={self.serve_device_loss_at_batch}:"
                 f"{sorted(self.lose_devices)}, "
+                f"device_loss={self.device_loss_at_step}, "
                 f"trainer_death_at_roll={self.trainer_death_at_roll}, "
                 f"bad_candidate={sorted(self.bad_candidate_at.items())}, "
                 f"slo_regression={self.slo_regression_during_canary})")

@@ -36,7 +36,10 @@ augmentation, which runs on every 4-D graph input (others pass through,
 as in the JAX graph) and hands the forward fp32, so the uint8 cast above
 does not run again.
 
-Not ported yet (ROADMAP.md): sharding.
+Sharding: ``setShardingPlan`` (``nn.network``) attaches a
+``distributed.gspmd.ShardedTrainingPlan``; each output's loss is weighed
+by this rank's share of the global batch's real rows
+(``parallel.collectives.DataParallelStep``).
 """
 
 from __future__ import annotations
@@ -534,7 +537,8 @@ class ComputationGraph(BaseNetwork):
                         _act, conv_name, alpha = plan[node.name]
                         out, ns = L.fused_bn_act(
                             node.obj, p, states[node.name], x, train, alpha,
-                            bias=pending_bias.pop(conv_name, None))
+                            bias=pending_bias.pop(conv_name, None),
+                            sync=None if key is None else key.sync)
                     elif node.name in fused_conv:  # bias folds into the BN
                         out, ns = node.obj.apply(p, states[node.name], x,
                                                  train, sub, skip_bias=True)
@@ -588,6 +592,7 @@ class ComputationGraph(BaseNetwork):
         fmt = {k: False for k in env}
         key, ordinal = StepKey(0, 0), self._layer_ordinals()
         acts: Dict[str, torch.Tensor] = {}
+        params = self._whole_params()
         with torch.no_grad():
             for node in self.conf.topo:
                 if node.kind == "layer":
@@ -598,7 +603,7 @@ class ComputationGraph(BaseNetwork):
                         x = self.conf.preprocessors[node.name](x)
                     x, cur_nhwc = L.layout_step(node.obj, x, cur_nhwc, nhwc)
                     out, _ = node.obj.apply(
-                        self._params[node.name], self._states[node.name], x,
+                        params[node.name], self._states[node.name], x,
                         train, key.fold(ordinal[node.name]))
                     fmt[node.name] = cur_nhwc and out.dim() == 4
                 else:
@@ -630,8 +635,8 @@ class ComputationGraph(BaseNetwork):
         ins = self._as_input_dict(inputs[0] if len(inputs) == 1
                                   else list(inputs))
         with torch.no_grad():
-            outs, _ = self._forward(self._params, self._states, ins, train,
-                                    StepKey(0, 0))
+            outs, _ = self._forward(self._whole_params(), self._states, ins,
+                                    train, StepKey(0, 0))
         return outs[0] if len(outs) == 1 else outs
 
     # ------------------------------------------------------------------ loss
@@ -647,15 +652,20 @@ class ComputationGraph(BaseNetwork):
         return outs
 
     def _loss_and_reg(self, params, states, ins, labels: List, train,
-                      lmasks: Optional[List], key=None, fmask=None):
+                      lmasks: Optional[List], key=None, fmask=None,
+                      dp=None):
         outs, new_states = self._forward(params, states, ins, train, key,
                                          fmask)
         loss = 0.0
         for i, (ol, out) in enumerate(zip(self._output_layers(), outs)):
             lm = lmasks[i] if lmasks is not None else None
-            loss = loss + ol.compute_loss(labels[i], out, mask=lm)
+            li = ol.compute_loss(labels[i], out, mask=lm)
+            if dp is not None:
+                li = dp.scale_loss(ol, li, labels[i], lm)
+            loss = loss + li
         reg = self._regularization(
-            (layer, params.get(name) or {}) for name, layer in self._layers())
+            ((layer, params.get(name) or {})
+             for name, layer in self._layers()), dp)
         return loss + reg, new_states
 
     def _pack(self, x, y, lmask, train: bool):
@@ -684,8 +694,8 @@ class ComputationGraph(BaseNetwork):
         ins = self._as_input_dict(list(ds.features))
         labels = [self._to_device(a) for a in ds.labels]
         with torch.no_grad():
-            loss, _ = self._loss_and_reg(self._params, self._states, ins,
-                                         labels, False, None)
+            loss, _ = self._loss_and_reg(self._whole_params(), self._states,
+                                         ins, labels, False, None)
         return float(loss)
 
     def getLayer(self, name: str):

@@ -471,7 +471,8 @@ class BatchNormalization(Layer):
         if train:
             out, new_mean, new_var = norm_ops.batch_norm_train(
                 x, params["gamma"], params["beta"], state["mean"],
-                state["var"], eps=self.eps, decay=self.decay, axis=axis)
+                state["var"], eps=self.eps, decay=self.decay, axis=axis,
+                sync=None if key is None else key.sync)
             return out, {"mean": new_mean, "var": new_var}
         out = norm_ops.batch_norm(x, params["gamma"], params["beta"],
                                   state["mean"], state["var"], eps=self.eps,
@@ -2275,18 +2276,20 @@ def fusable_bn(layer) -> bool:
     return type(layer) is BatchNormalization
 
 
-def fused_bn_act(bn, params, state, x, train, alpha: float, bias=None):
+def fused_bn_act(bn, params, state, x, train, alpha: float, bias=None,
+                 sync=None):
     """BatchNorm + relu/leaky (+ an optional folded conv bias) as one
     ``scale_shift_act`` dispatch. Returns ``(out, new_bn_state)``. With
     ``bias``, x is the bias-less conv output: the variance does not see
     the bias, the recorded running mean adds it back, and inference
-    subtracts it from the running mean."""
+    subtracts it from the running mean. ``sync`` is sync BN's moment
+    reducer (``StepKey.sync``)."""
     axis = bn._channel_axis(x)
     gamma, beta = params["gamma"], params["beta"]
     b32 = bias.float() if bias is not None else None
     if train:
         axes = tuple(i for i in range(x.dim()) if i != axis)
-        m, m2 = norm_ops.channel_moments(x, axes)
+        m, m2 = norm_ops.channel_moments(x, axes, sync)
         v = torch.clamp_min(m2 - m.square(), 0.0)
         m_rec = (m + b32 if b32 is not None else m).detach()
         new_state = {

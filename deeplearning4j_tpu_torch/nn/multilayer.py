@@ -48,7 +48,11 @@ Under ``NAN_PANIC``/``INF_PANIC`` each TBPTT window goes through the
 provenance sanitizer (``profiler.sanitizer``, kind ``"tbptt"``) with the
 carried state it was handed.
 
-Not ported yet (ROADMAP.md): sharding.
+Sharding: ``setShardingPlan`` (``nn.network``) attaches a
+``distributed.gspmd.ShardedTrainingPlan``; the loss of the output layer
+is weighed by this rank's share of the global batch's real rows
+(``parallel.collectives.DataParallelStep``). Truncated BPTT does not run
+data-parallel (it raises under a plan of more than one data rank).
 """
 
 from __future__ import annotations
@@ -193,7 +197,8 @@ class MultiLayerNetwork(BaseNetwork):
                     if cdt is not None:
                         pbn, x = L.policy_cast(bn, pbn, x, cdt)
                     x, new_states[bn_idx] = L.fused_bn_act(
-                        bn, pbn, states[bn_idx], x, train, alpha, bias=bias)
+                        bn, pbn, states[bn_idx], x, train, alpha, bias=bias,
+                        sync=None if key is None else key.sync)
                 if visit is not None:
                     visit(f"{bn_idx}:{bn.name}", bn, pbn, x)
                 for j in range(bn_idx + 1, i + n_used):
@@ -229,6 +234,7 @@ class MultiLayerNetwork(BaseNetwork):
         nhwc = self._compute_layout == "NHWC"
         cur_nhwc = False
         key = StepKey(0, 0)
+        params = self._whole_params()
         with torch.no_grad():
             for i, layer in enumerate(self.layers):
                 if i in self.conf.preprocessors:
@@ -236,7 +242,7 @@ class MultiLayerNetwork(BaseNetwork):
                         cur, cur_nhwc = L.to_nchw(cur), False
                     cur = self.conf.preprocessors[i](cur)
                 cur, cur_nhwc = L.layout_step(layer, cur, cur_nhwc, nhwc)
-                cur, _ = layer.apply(self._params[i], self._states[i], cur,
+                cur, _ = layer.apply(params[i], self._states[i], cur,
                                      train, key.fold(i))
                 cur_nhwc = cur_nhwc and cur.dim() == 4
                 acts.append(L.to_nchw(cur) if cur_nhwc else cur)
@@ -248,20 +254,22 @@ class MultiLayerNetwork(BaseNetwork):
         (the JAX package's ``PRNGKey(0)``)."""
         self._require_init()
         with torch.no_grad():
-            out, _ = self._forward(self._params, self._states,
+            out, _ = self._forward(self._whole_params(), self._states,
                                    self._to_device(x), train, StepKey(0, 0))
         return out
 
     # ------------------------------------------------------------------ loss
     def _loss_and_reg(self, params, states, x, y, train, lmask=None,
-                      key=None, fmask=None):
+                      key=None, fmask=None, dp=None):
         out, new_states = self._forward(params, states, x, train, key, fmask)
         out_layer = self.layers[-1]
         if not isinstance(out_layer, L.BaseOutputLayer):
             raise ValueError("last layer must be an output/loss layer for "
                              "fit()")
         loss = out_layer.compute_loss(y, out, mask=lmask)
-        reg = self._regularization(zip(self.layers, params))
+        if dp is not None:
+            loss = dp.scale_loss(out_layer, loss, y, lmask)
+        reg = self._regularization(zip(self.layers, params), dp)
         return loss + reg, new_states
 
     def _pack(self, x, y, lmask, train: bool):
@@ -286,6 +294,11 @@ class MultiLayerNetwork(BaseNetwork):
         length = self._tbptt_length()
         if length is None:
             return super()._fit_epoch(data, labels, k, prefetch, session)
+        plan = self._sharding_plan
+        if plan is not None and plan.data_shards() > 1:
+            raise NotImplementedError(
+                "truncated BPTT does not run data-parallel: fit it on one "
+                "rank (or detach the sharding plan)")
         batches = self._batches(data, labels, 1, session)
         if session is not None:
             batches = session.wrap_batches(batches)
@@ -475,18 +488,19 @@ class MultiLayerNetwork(BaseNetwork):
             self._rnn_states = [None] * len(self.layers)
         key = StepKey(0, 0)
         cur = x
+        params = self._whole_params()
         with torch.no_grad():
             for i, layer in enumerate(self.layers):
                 if i in self.conf.preprocessors:
                     cur = self.conf.preprocessors[i](cur)
                 if hasattr(layer, "apply_with_state"):
                     cur, self._rnn_states[i] = layer.apply_with_state(
-                        self._params[i], cur, self._rnn_states[i])
+                        params[i], cur, self._rnn_states[i])
                 elif isinstance(layer, _MASK_AWARE):
-                    cur, _ = layer.apply(self._params[i], self._states[i],
+                    cur, _ = layer.apply(params[i], self._states[i],
                                          cur, False, key.fold(i), mask=None)
                 else:
-                    cur, _ = layer.apply(self._params[i], self._states[i],
+                    cur, _ = layer.apply(params[i], self._states[i],
                                          cur, False, key.fold(i))
         if single and cur.dim() == 3:
             cur = cur[:, :, -1]
@@ -514,7 +528,7 @@ class MultiLayerNetwork(BaseNetwork):
         return self.layers[i]
 
     def getParam(self, i: int, name: str) -> torch.Tensor:
-        return self._params[i][name]
+        return self._whole_params()[i][name]
 
     # ------------------------------------------------------------ evaluation
     def evaluateRegression(self, iterator,

@@ -92,6 +92,7 @@ from deeplearning4j_tpu_torch.nn import layers as L
 from deeplearning4j_tpu_torch.nn import precision
 from deeplearning4j_tpu_torch.nn.augment import maybe_augment
 from deeplearning4j_tpu_torch.ops import normalization as norm_ops
+from deeplearning4j_tpu_torch.parallel import mesh as mesh_mod
 from deeplearning4j_tpu_torch.profiler import sanitizer as _san
 from deeplearning4j_tpu_torch.train import resilience, stepping
 from deeplearning4j_tpu_torch.train import updaters as upd
@@ -117,6 +118,13 @@ def _epoch_of(iterator, steps: int = 1, session=None):
 
 def _host(a):
     return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else a
+
+
+def _rows_of(labels) -> int:
+    """The batch rows of a step's labels (a tensor, or a list of them)."""
+    while isinstance(labels, (list, tuple)):
+        labels = labels[0]
+    return int(labels.shape[0])
 
 
 def _eval_iterator(iterator, prefetch: bool = True):
@@ -210,6 +218,14 @@ class BaseNetwork:
         #: layer keys whose params and updater state the step keeps
         #: (transfer learning, ref FrozenLayer; ``nn.transfer``)
         self._frozen_layers: set = set()
+        #: the attached ShardedTrainingPlan (``setShardingPlan``), the
+        #: params whose updater state it splits and those it splits at
+        #: rest ({(layer, param): dim} each), and the elastic dispatch
+        #: fence
+        self._sharding_plan = None
+        self._zero_layout: Optional[Dict] = None
+        self._fsdp_layout: Optional[Dict] = None
+        self._dispatch_fence = None
 
     def validate(self, batch_size: int = None, data_devices: int = None,
                  **kw):
@@ -283,10 +299,14 @@ class BaseNetwork:
         return L.compute_dtype_of(self.conf.base.dtype)
 
     @staticmethod
-    def _regularization(pairs):
+    def _regularization(pairs, dp=None):
         """L1/L2 over ``(layer, params)`` pairs, on the weights (``W*``,
-        ``RW*``) only, as the reference regularizes them."""
+        ``RW*``) only, as the reference regularizes them (on data rank 0
+        only in a data-parallel step ``dp``, whose gradients are
+        summed)."""
         reg = 0.0
+        if dp is not None and not dp.regularize:
+            return reg
         for layer, p in pairs:
             l1 = layer.l1 or 0.0
             l2 = layer.l2 or 0.0
@@ -475,6 +495,8 @@ class BaseNetwork:
         if precision is not None:
             self.setPrecisionPolicy(precision)
         cc.warm_from_manifest(self)
+        if self._sharding_plan is not None:
+            self._sharding_plan.ensure_placed(self)
         session = None
         if checkpoint is not None or nan_policy is not None \
                 or faults is not None:
@@ -496,8 +518,12 @@ class BaseNetwork:
                    session=None) -> None:
         """One epoch of ``fit``: the batches (through the session, which
         records the iterator's cursor at each pull), K steps a dispatch
-        for K > 1."""
-        batches = self._batches(data, labels, k, session)
+        for K > 1. With a sharding plan attached each batch is cut to this
+        rank's rows on the host (``plan.localize``) before it is staged."""
+        plan = self._sharding_plan
+        batches = self._batches(data, labels, 1 if plan else k, session)
+        if plan is not None:
+            batches = map(plan.localize, batches)
         if session is not None:
             batches = session.wrap_batches(batches)
         if k > 1:
@@ -630,12 +656,16 @@ class BaseNetwork:
         # after the session's hook, so a planned poison is in the window;
         # one enum read unless a panic mode is on
         tok = _san.snapshot(self, "single", sig, args)
+        gen = stepping.fence_generation(self)
         self._iteration_start()
         with _prof.timed_region(
                 "train:step", "dl4j_train_step_seconds",
                 "Train-step dispatch time per iteration",
                 iteration=self._iteration + 1):
             loss = self._dispatch_for(sig, 1)(*args)
+        with stepping.dispatch_commit(self, gen) as ok:
+            if not ok:
+                return loss     # abandoned dispatch: see dispatch_commit
         stepping.STEPS_PER_DISPATCH.set(1)
         stepping.TRAIN_ITERATIONS.inc()
         # kept on the device; score() converts lazily
@@ -662,11 +692,15 @@ class BaseNetwork:
         if res is not None:
             res.before_dispatch()
         tok = _san.snapshot(self, "mega", sig, args)   # see _fit_one
+        gen = stepping.fence_generation(self)
         with _prof.timed_region(
                 "train:megastep", "dl4j_train_step_seconds",
                 "Train-step dispatch time per iteration",
                 iteration=self._iteration + 1, steps=k):
             losses = self._dispatch_for(sig, k)(*args)
+        with stepping.dispatch_commit(self, gen) as ok:
+            if not ok:
+                return losses   # abandoned dispatch: see dispatch_commit
         stepping.record_megastep(self, losses, k, int(args[0].shape[1]),
                                  san_token=tok)
         return losses
@@ -704,12 +738,18 @@ class BaseNetwork:
         """The step on packed inputs (``_pack``'s form): the augmentation
         prelude, the loss, the update and the layer states (kept only
         where a dynamic policy's gradients were finite), the clock."""
-        key = norm_ops.StepKey(self.conf.base.seed, self._t_dev)
+        plan = self._sharding_plan
+        dp = None if plan is None else plan.step_context(_rows_of(labels))
+        seed = self.conf.base.seed
+        key = norm_ops.StepKey(seed, self._t_dev) if dp is None \
+            else dp.key(seed, self._t_dev)
         ins = self._augment_ins(ins)
+        params = plan.gather_params(self) if self._fsdp_layout \
+            else self._params
         loss, new_states = self._loss_and_reg(
-            self._params, self._states, ins, labels, True, masks, key,
-            fmask=fmask)
-        ok, loss = self._apply_loss(loss)
+            params, self._states, ins, labels, True, masks, key,
+            fmask=fmask, dp=dp)
+        ok, loss = self._apply_loss(loss, params)
         with torch.no_grad():
             for n, s in self._items(new_states):
                 cur = self._states[n]
@@ -720,19 +760,21 @@ class BaseNetwork:
             self._t_dev.add_(1)
         return loss.detach()
 
-    def _apply_loss(self, loss):
-        """The backward of ``loss`` under the policy's loss scale and the
-        update of every param and its updater state, in place. Under a
-        dynamic policy the gradients are unscaled by the live scale, the
-        update is kept only if they are all finite, and the automaton
-        ticks. Returns ``(ok, loss)``: that device flag (None otherwise)
-        and the loss to report, which under a dynamic policy is the
-        scaled loss unscaled (infinite where the scaled loss overflowed),
-        as in the JAX step."""
+    def _apply_loss(self, loss, params=None):
+        """The backward of ``loss`` (over ``params``, the step's whole
+        params: ``_params`` unless a plan splits some at rest) under the
+        policy's loss scale and the update of every param and its updater
+        state, in place. Under a dynamic policy the gradients are
+        unscaled by the live scale, the update is kept only if they are
+        all finite, and the automaton ticks. Returns ``(ok, loss)``: that
+        device flag (None otherwise) and the loss to report, which under
+        a dynamic policy is the scaled loss unscaled (infinite where the
+        scaled loss overflowed), as in the JAX step."""
         pol = self._precision
         dynamic = pol is not None and pol.is_dynamic
-        names = [(n, k) for n, p in self._items(self._params) for k in p]
-        leaves = [self._params[n][k] for n, k in names]
+        params = self._params if params is None else params
+        names = [(n, k) for n, p in self._items(params) for k in p]
+        leaves = [params[n][k] for n, k in names]
         if dynamic:
             scale_state = self._ensure_scale_state()
             loss_scale = scale_state[0]
@@ -749,9 +791,21 @@ class BaseNetwork:
             inv = 1.0 / loss_scale
             grads = [g * inv for g in grads]
         if dynamic:
-            ok = precision.grads_all_finite(grads)
             loss = scaled * inv
-        self._process_and_apply_grads(names, leaves, grads, ok)
+        plan = self._sharding_plan
+        fsdp = self._fsdp_layout or {}
+        if plan is not None:
+            # the data group's sum (a split param's gradient: its piece of
+            # it), before the finite test and the normalization see the
+            # gradients (ParallelWrapper and the GSPMD trainer alike)
+            grads, loss = plan.reduce_gradients(
+                grads, loss.detach(), [fsdp.get(nk) for nk in names])
+        if dynamic:
+            ok = precision.grads_all_finite(grads)
+            if fsdp:
+                ok = plan.all_finite(ok)
+        self._process_and_apply_grads(
+            names, [self._params[n][k] for n, k in names], grads, ok)
         if dynamic:
             with torch.no_grad():
                 scale_state.copy_(precision.dynamic_scale_next(
@@ -771,34 +825,56 @@ class BaseNetwork:
         frozen layers (multilayer.py:124-136, :514-518)."""
         base = self.conf.base
         updater = base.updater
+        fsdp = self._fsdp_layout or {}
+        sq = None       # a split param's gradient is a piece: its norm
+        if fsdp and base.grad_norm in ("clip_l2", "clip_global", "renorm"):
+            sq = self._sharding_plan.grad_sq_norms(
+                grads, [fsdp.get(nk) for nk in names])
         if base.grad_norm == "clip_value":
             grads = upd.clip_by_value(grads, base.grad_norm_threshold)
         elif base.grad_norm == "clip_l2":
-            grads = upd.clip_by_norm(grads, base.grad_norm_threshold)
+            grads = upd.clip_by_norm(grads, base.grad_norm_threshold, sq)
         elif base.grad_norm == "clip_global":
-            grads = upd.clip_by_global_norm(grads, base.grad_norm_threshold)
+            grads = upd.clip_by_global_norm(grads, base.grad_norm_threshold,
+                                            sq)
         elif base.grad_norm == "renorm":
-            grads = upd.renormalize_l2(grads)
+            grads = upd.renormalize_l2(grads, sq)
         t = self._t_dev
         lr = updater.lr_at(t)
         decay = isinstance(updater, upd.AdamW) and updater.weight_decay
         frozen = self._frozen_layers
+        layout = self._zero_layout
+        pieces = []     # ZeRO: (param, dim, its new piece)
         with torch.no_grad():
             for (n, k), p, g in zip(names, leaves, grads):
                 if n in frozen:
                     continue
                 state = self._opt_state[n][k]
+                dim = layout.get((n, k)) \
+                    if layout and (n, k) not in fsdp else None
+                if dim is not None:
+                    # this rank's piece of (param, gradient); its state
+                    # tensors are that piece already
+                    sl = next(mesh_mod.placement_of(v) for v in
+                              state.values()
+                              if mesh_mod.placement_of(v) is not None
+                              ).slices()
+                    p_all, p, g = p, p[sl], g[sl]
                 u, s2 = updater.apply(g, state, lr, t)
                 if decay and k.rsplit("/", 1)[-1].startswith(("W", "RW")):
                     u = u + updater.weight_decay_update(p, lr)
-                if ok is None:
+                if dim is not None:
+                    new = p - u if ok is None else torch.where(ok, p - u, p)
+                    pieces.append((p_all, dim, new))
+                elif ok is None:
                     p.sub_(u)
-                    for sk, sv in s2.items():
-                        state[sk].copy_(sv)
                 else:
                     p.copy_(torch.where(ok, p - u, p))
-                    for sk, sv in s2.items():
-                        state[sk].copy_(torch.where(ok, sv, state[sk]))
+                for sk, sv in s2.items():
+                    state[sk].copy_(sv if ok is None
+                                    else torch.where(ok, sv, state[sk]))
+            if pieces:
+                self._sharding_plan.gather_pieces(pieces)
 
     def score(self, ds: DataSet = None) -> float:
         """The last fit step's loss, or the loss on ``ds`` (inference
@@ -812,8 +888,9 @@ class BaseNetwork:
             ds.features, ds.labels, ds.labels_mask, ds.features_mask)
         ins, labels, masks = self._pack(x, y, lmask, False)
         with torch.no_grad():
-            loss, _ = self._loss_and_reg(self._params, self._states, ins,
-                                         labels, False, masks, fmask=fmask)
+            loss, _ = self._loss_and_reg(self._whole_params(), self._states,
+                                         ins, labels, False, masks,
+                                         fmask=fmask)
         return float(loss)
 
     # ------------------------------------------------------------ evaluation
@@ -842,7 +919,8 @@ class BaseNetwork:
         clone; the updater state and the iteration start afresh)."""
         self._require_init()
         net._device = self._device
-        net._params = self._map(self._params, lambda v: v.detach().clone()
+        net._params = self._map(self._whole_params(),
+                                lambda v: v.detach().clone()
                                 .requires_grad_(True))
         net._states = self._map(self._states, lambda v: v.detach().clone())
         net._reset_training_state()
@@ -910,11 +988,50 @@ class BaseNetwork:
         self._augment = augment
         return self
 
+    def setShardingPlan(self, plan):
+        """Attach (or detach with ``None``) a
+        :class:`~deeplearning4j_tpu_torch.distributed.gspmd.
+        ShardedTrainingPlan`: batches stage as this rank's rows, the step
+        runs data-parallel over the plan's data group (sync BN, the
+        gradient all-reduce, the ZeRO update), and ``plan.apply`` places
+        the state. A plan with another ``signature()`` drops the captured
+        steps; an equal one keeps them. Detaching gathers ZeRO-split
+        updater state back to full tensors (a collective)."""
+        cur = self._sharding_plan
+        same = (plan.signature() if plan is not None else None) == \
+            (cur.signature() if cur is not None else None)
+        if plan is None and cur is not None and self._fsdp_layout:
+            whole = self._whole_params()
+            for n, k in self._fsdp_layout:
+                self._params[n][k] = mesh_mod.set_placement(
+                    whole[n][k].contiguous().requires_grad_(True), None)
+            self._fsdp_layout = None
+        if plan is None and cur is not None and self._zero_layout:
+            from deeplearning4j_tpu_torch.distributed.zero import full_value
+            for _, st in self._items(self._opt_state):
+                for sd in st.values():
+                    for sk, sv in list(sd.items()):
+                        sd[sk] = full_value(sv, cur.group).contiguous()
+            self._zero_layout = None
+        self._sharding_plan = plan
+        if not same:
+            self._step_cache = {}
+        return self
+
     # ------------------------------------------------------------ param views
+    def _whole_params(self):
+        """The params whole: ``_params``, or, under a plan that splits
+        some over the data axis at rest, a copy with those all-gathered
+        (a collective every data rank enters)."""
+        if not self._fsdp_layout:
+            return self._params
+        return self._sharding_plan.gather_params(self, grad=False)
+
     def params(self) -> torch.Tensor:
         """Every parameter flattened and concatenated in the JAX package's
         order (:meth:`_leaf_keys`)."""
-        leaves = [self._params[n][k].detach().reshape(-1)
+        whole = self._whole_params()
+        leaves = [whole[n][k].detach().reshape(-1)
                   for n, k in self._leaf_keys()]
         if not leaves:
             return torch.zeros((0,))
@@ -931,9 +1048,12 @@ class BaseNetwork:
         with torch.no_grad():
             for n, k in self._leaf_keys():
                 p = self._params[n][k]
-                p.copy_(flat[pos:pos + p.numel()].view_as(p))
-                pos += p.numel()
+                shape = mesh_mod.global_shape(p)
+                m = int(np.prod(shape))
+                p.copy_(mesh_mod.local_piece(
+                    flat[pos:pos + m].view(shape), mesh_mod.placement_of(p)))
+                pos += m
 
     def numParams(self) -> int:
-        return sum(v.numel() for _, p in self._items(self._params)
-                   for v in p.values())
+        return sum(int(np.prod(mesh_mod.global_shape(v)))
+                   for _, p in self._items(self._params) for v in p.values())

@@ -89,9 +89,12 @@ class _ChannelMoments(torch.autograd.Function):
         return g.to(x.dtype), None
 
 
-def channel_moments(x, axes) -> Tuple[torch.Tensor, torch.Tensor]:
-    """fp32 ``(E[x], E[x^2])`` over ``axes`` (differentiable)."""
-    return _ChannelMoments.apply(x, tuple(axes))
+def channel_moments(x, axes, sync=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 ``(E[x], E[x^2])`` over ``axes`` (differentiable); ``sync``,
+    when given, maps them to the global batch's (sync BN: a data-parallel
+    step's ``StepKey.sync``)."""
+    m, m2 = _ChannelMoments.apply(x, tuple(axes))
+    return (m, m2) if sync is None else sync(m, m2)
 
 
 def _bshape(x, axis: int):
@@ -115,13 +118,15 @@ def batch_norm(x, gamma, beta, mean, var, *, eps: float = 1e-5,
 
 
 def batch_norm_train(x, gamma, beta, running_mean, running_var, *,
-                     eps: float = 1e-5, decay: float = 0.9, axis: int = 1):
-    """Training-mode batchnorm: normalize by the batch statistics and
+                     eps: float = 1e-5, decay: float = 0.9, axis: int = 1,
+                     sync=None):
+    """Training-mode batchnorm: normalize by the batch statistics (the
+    global batch's through ``sync``, see :func:`channel_moments`) and
     return ``(out, new_running_mean, new_running_var)`` with
     ``new = decay * running + (1 - decay) * batch`` (DL4J's ``decay``).
     The running statistics carry no gradient."""
     axes = tuple(i for i in range(x.dim()) if i != axis)
-    m, m2 = channel_moments(x, axes)
+    m, m2 = channel_moments(x, axes, sync)
     v = torch.clamp_min(m2 - m.square(), 0.0)
     out = batch_norm(x, gamma, beta, m, v, eps=eps, axis=axis)
     new_mean = decay * running_mean + (1.0 - decay) * m.detach()
@@ -156,25 +161,32 @@ def _mix32(x):
 class StepKey:
     """The dropout key of one train step and one layer: the network's
     ``seed``, the step clock ``t`` (a Python int or a 0-d integer tensor)
-    and a ``path`` of ints naming the layer (:meth:`fold`)."""
+    and a ``path`` of ints naming the layer (:meth:`fold`). A data-
+    parallel step's key also carries the rank's first row in the global
+    batch (``rows``: the draws index elements from it, so the ranks'
+    masks together are the single device's) and the batch-moment
+    reducer of sync BN (``sync``, see :func:`channel_moments`)."""
 
-    __slots__ = ("seed", "t", "path")
+    __slots__ = ("seed", "t", "path", "rows", "sync")
 
-    def __init__(self, seed: int, t, path: Tuple[int, ...] = ()):
+    def __init__(self, seed: int, t, path: Tuple[int, ...] = (),
+                 rows: int = 0, sync=None):
         self.seed, self.t, self.path = int(seed), t, tuple(path)
+        self.rows, self.sync = int(rows), sync
 
     def fold(self, i: int) -> "StepKey":
-        return StepKey(self.seed, self.t, self.path + (int(i),))
+        return StepKey(self.seed, self.t, self.path + (int(i),), self.rows,
+                       self.sync)
 
     def __repr__(self):
         return f"StepKey(seed={self.seed}, t={self.t}, path={self.path})"
 
 
-def hash24(key: StepKey, n: int, device) -> torch.Tensor:
+def hash24(key: StepKey, n: int, device, offset: int = 0) -> torch.Tensor:
     """``n`` int64 values in ``[0, 2^24)``, a function of ``key`` alone: two
-    hash rounds over the element index, keyed by words of (seed, path)
-    and of t (the draws behind :func:`dropout_mask` and the device
-    augmentation's)."""
+    hash rounds over the element index (from ``offset``), keyed by words
+    of (seed, path) and of t (the draws behind :func:`dropout_mask` and
+    the device augmentation's)."""
     base = _mix32(key.seed & _M32)
     for p in key.path:
         base = _mix32(base ^ _mix32((p + 0x9E3779B9) & _M32))
@@ -185,8 +197,22 @@ def hash24(key: StepKey, n: int, device) -> torch.Tensor:
         t = torch.full((), int(t), dtype=torch.int64, device=device)
     k1 = _mix32((t & _M32) ^ base)
     k2 = _mix32(k1 ^ 0x5BD1E995)
-    idx = torch.arange(int(n), dtype=torch.int64, device=device)
+    idx = torch.arange(int(offset), int(offset) + int(n),
+                       dtype=torch.int64, device=device)
     return _mix32(_mix32(idx ^ k1) ^ k2) >> 8
+
+
+def _row_offset(key: StepKey, shape) -> int:
+    """The flat index of this rank's first element of a batch-major draw:
+    the key's global row offset times the row size (0 outside a data-
+    parallel step), so the ranks' draws are the single device's."""
+    rows = key.rows
+    if not rows or not shape:
+        return 0
+    per = 1
+    for s in tuple(shape)[1:]:
+        per *= int(s)
+    return rows * per
 
 
 def dropout_mask(key: StepKey, shape, keep: float, device) -> torch.Tensor:
@@ -196,7 +222,7 @@ def dropout_mask(key: StepKey, shape, keep: float, device) -> torch.Tensor:
     n = 1
     for s in shape:
         n *= int(s)
-    h = hash24(key, n, device)
+    h = hash24(key, n, device, _row_offset(key, shape))
     return (h < int(round(keep * (1 << 24)))).reshape(tuple(shape))
 
 
@@ -224,8 +250,9 @@ def normal_draw(key: StepKey, shape, device) -> torch.Tensor:
     for s in shape:
         n *= int(s)
     step = 2.0 ** -24
-    u1 = (hash24(key.fold(0), n, device).float() + 0.5) * step
-    u2 = hash24(key.fold(1), n, device).float() * step
+    off = _row_offset(key, shape)
+    u1 = (hash24(key.fold(0), n, device, off).float() + 0.5) * step
+    u2 = hash24(key.fold(1), n, device, off).float() * step
     z = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * math.pi) * u2)
     return z.reshape(tuple(shape))
 

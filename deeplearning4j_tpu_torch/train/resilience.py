@@ -543,8 +543,19 @@ class CheckpointManager:
             json.dump(manifest, f)
         if os.path.isdir(final):     # a re-save of the same step
             shutil.rmtree(final)     # (preemption right after a save)
-        retry_io(lambda: os.replace(tmp, final), cfg.io_retries,
-                 cfg.io_backoff)
+
+        def land():
+            try:
+                os.replace(tmp, final)
+            except OSError:
+                if not os.path.isdir(final):
+                    raise
+                # another process landed this step in between (the first
+                # survivor of a rank's loss and the old writer both save
+                # the agreed step, whose state every rank holds alike):
+                # its checkpoint stands
+                shutil.rmtree(tmp, ignore_errors=True)
+        retry_io(land, cfg.io_retries, cfg.io_backoff)
         if self.faults is not None:
             self.faults.corrupt_checkpoint(step, final)
         CKPT_SECONDS.observe(time.perf_counter() - t0)
@@ -553,10 +564,16 @@ class CheckpointManager:
 
     def _rotate(self):
         cps = self.checkpoints()
+
+        def drop(path):
+            try:
+                shutil.rmtree(path)
+            except FileNotFoundError:
+                pass    # another writer of the same run rotated it out
         while len(cps) > max(1, self.config.keep_last):
             _, path = cps.pop(0)
-            retry_io(lambda p=path: shutil.rmtree(p, ignore_errors=False),
-                     self.config.io_retries, self.config.io_backoff)
+            retry_io(lambda p=path: drop(p), self.config.io_retries,
+                     self.config.io_backoff)
 
     # ----------------------------------------------------- async lifecycle
     def flush(self):
@@ -660,6 +677,11 @@ class CheckpointManager:
         cfg = self.config
         retry_io(lambda: load_into(model, os.path.join(path, "model.zip")),
                  cfg.io_retries, cfg.io_backoff)
+        plan = getattr(model, "_sharding_plan", None)
+        if plan is not None:
+            # the restored state back onto the plan (each rank keeps its
+            # pieces of the updater state)
+            plan.ensure_placed(model)
         # out of band for the sanitizer's replay window
         from deeplearning4j_tpu_torch.profiler import sanitizer
         sanitizer.invalidate(model)
@@ -945,13 +967,26 @@ class TrainingSession:
             self.checkpoint(status="preempted")
 
     # --------------------------------------------------------- checkpoints
-    def checkpoint(self, status: str = "complete"):
+    def checkpoint(self, status: str = "complete",
+                   writer: Optional[bool] = None):
+        """Write a checkpoint of the model now. Under a sharding plan every
+        rank of the mesh calls it (ZeRO-split updater state is gathered,
+        ``plan.checkpoint_view``) and one rank writes: the mesh's first,
+        unless ``writer`` says whether this one does."""
         if self.manager is None:
             return None
         # the BACKOFF_LR scale and the dynamic loss-scale automaton are
         # training state: a resume at full LR mid-backoff, or at the
         # policy's initial scale, would replay what they suppressed
         m = self.model
+        view = m
+        plan = getattr(m, "_sharding_plan", None)
+        if plan is not None:
+            view = plan.checkpoint_view(m)
+            if not (plan.mesh.is_writer() if writer is None else writer):
+                if self.config.every_steps:
+                    self._next_save = m._iteration + self.config.every_steps
+                return None
         res_extra = {
             "lr_scale": float(m.lr_scale()),
             "good_steps": int(self._good_steps),
@@ -961,7 +996,7 @@ class TrainingSession:
             res_extra["loss_scale_state"] = [
                 float(v) for v in scale_state.detach().cpu().numpy()]
         path = self.manager.save(
-            m, status=status, cursor=self._cursor_at_step,
+            view, status=status, cursor=self._cursor_at_step,
             normalizer=self.normalizer, extra={"resilience": res_extra})
         if self.config.every_steps:
             self._next_save = m._iteration + self.config.every_steps

@@ -44,6 +44,9 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.parallel.mesh import (global_shape, local_piece,
+                                                    placement_of)
+
 
 class CorruptModelError(Exception):
     """A model archive failed to restore: truncated zip, missing entry,
@@ -151,12 +154,22 @@ def archive_arrays(model, params_key, save_updater: bool):
     for kind, tree in (("p", model._params), ("s", model._states)):
         for n, d in model._items(tree):
             for name, t in d.items():
+                if placement_of(t) is not None:
+                    raise ValueError(
+                        "saving a model whose params are split over the "
+                        "data axis: save its plan's checkpoint_view(model) "
+                        "(every rank gathers), or detach the plan first")
                 arrays[params_key(kind, n, name)] = \
                     t.detach().cpu().numpy()
     if meta["save_updater"]:
         for j, (n, k, sk) in enumerate(updater_leaves(model)):
-            arrays[f"u::{j}"] = model._opt_state[n][k][sk].detach().cpu(
-            ).numpy()
+            t = model._opt_state[n][k][sk]
+            if placement_of(t) is not None:
+                raise ValueError(
+                    "saving a model whose updater state is ZeRO-split: "
+                    "save its plan's checkpoint_view(model) (every rank "
+                    "gathers), or detach the plan first")
+            arrays[f"u::{j}"] = t.detach().cpu().numpy()
     return meta, arrays
 
 
@@ -188,7 +201,9 @@ def restore_into(net, path: str, meta, arrays, entries,
         with torch.no_grad():
             for j, (n, k, sk) in enumerate(updater_leaves(net)):
                 a = require_array(arrays, f"u::{j}", path)
-                net._opt_state[n][k][sk].copy_(torch.from_numpy(np.array(a)))
+                dst = net._opt_state[n][k][sk]
+                dst.copy_(local_piece(torch.from_numpy(np.array(a)),
+                                      placement_of(dst)))
 
 
 def _archive_entries(net, arrays):
@@ -226,12 +241,12 @@ def load_into(net, path: str, load_updater: bool = True) -> dict:
                     path, f"arrays.npz::{key}",
                     "names no tensor of this network") from None
             src = torch.from_numpy(np.array(arrays[key]))
-            if tuple(src.shape) != tuple(dst.shape):
+            if tuple(src.shape) != global_shape(dst):
                 raise CorruptModelError(
                     path, f"arrays.npz::{key}",
                     f"shape {tuple(src.shape)}, the network's "
-                    f"{tuple(dst.shape)}")
-            dst.copy_(src)
+                    f"{global_shape(dst)}")
+            dst.copy_(local_piece(src, placement_of(dst)))
             if kind == "p":
                 seen.add((n, name))
     missing = [f"{n}/{k}" for n, k in net._leaf_keys() if (n, k) not in seen]
@@ -248,7 +263,9 @@ def load_into(net, path: str, load_updater: bool = True) -> dict:
         with torch.no_grad():
             for j, (n, k, sk) in enumerate(updater_leaves(net)):
                 a = require_array(arrays, f"u::{j}", path)
-                net._opt_state[n][k][sk].copy_(torch.from_numpy(np.array(a)))
+                dst = net._opt_state[n][k][sk]
+                dst.copy_(local_piece(torch.from_numpy(np.array(a)),
+                                      placement_of(dst)))
     return meta
 
 

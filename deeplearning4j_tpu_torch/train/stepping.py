@@ -35,13 +35,25 @@ per step.
   the caller left the defaults.
 
 MultiDataSet batches group and stack as DataSets do (``MegaBatch.multi``).
-Not ported: sharded staging (``stage_batch``,
-``batch_placement``) and the elastic fence (``dispatch_commit``), which
-wait for the mesh.
+
+The mesh hooks (a :class:`~deeplearning4j_tpu_torch.distributed.gspmd.
+ShardedTrainingPlan` attached with ``setShardingPlan``):
+
+- :func:`stage_batch` — a batch array onto the model's device: under a
+  plan the fit loops have cut each global batch to this rank's rows on
+  the host already (``plan.localize``), so it is staged as it is;
+- :func:`batch_placement` — the plan's ``place`` hook (None without a
+  plan); :func:`constrain_tree` — the identity (the JAX package pins
+  sharded step outputs inside its compiled program; here each tensor
+  keeps its piece in place);
+- :func:`fence_generation` / :func:`dispatch_commit` — the elastic
+  dispatch-commit fence: a dispatch the watchdog abandoned that ends
+  after a mesh shrink commits nothing.
 """
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import Iterable, Iterator, List
 
 import numpy as np
@@ -62,6 +74,50 @@ TRAIN_ITERATIONS = get_registry().counter(
     "dl4j_train_iterations_total",
     "Update steps performed by train dispatches (a K-step megastep "
     "advances this by K)")
+
+
+def stage_batch(model, a):
+    """One batch array on the model's device, as it is: under a sharding
+    plan it holds this rank's rows already (the fit loops cut each global
+    batch on the host, ``plan.localize``)."""
+    return None if a is None else model._to_device(a)
+
+
+def batch_placement(model):
+    """The plan's ``place(array, mega)`` hook, or None without a plan."""
+    plan = getattr(model, "_sharding_plan", None)
+    return None if plan is None else plan.place
+
+
+def constrain_tree(tree, shardings=None):
+    """The identity: each sharded tensor keeps its piece in place through
+    the step (the JAX package's ``with_sharding_constraint`` over the
+    step outputs has nothing to pin here)."""
+    return tree
+
+
+def fence_generation(model):
+    """Entry half of the elastic dispatch-commit fence: the generation
+    observed before dispatching (None when no fence is attached)."""
+    fence = getattr(model, "_dispatch_fence", None)
+    return None if fence is None else fence.generation
+
+
+@contextmanager
+def dispatch_commit(model, gen):
+    """Commit gate for a finished dispatch: yields True when it may run
+    its bookkeeping; False when the elastic layer bumped the fence while
+    it was in flight (a watchdog-abandoned dispatch that ended after a
+    mesh shrink) — the caller then skips the iteration count, the
+    listeners and the session hooks: the recovery owns the state, which
+    it restores from the agreed checkpoint. Held under the fence lock,
+    mutually exclusive with the shrink's bump and restore."""
+    fence = getattr(model, "_dispatch_fence", None)
+    if fence is None:
+        yield True
+        return
+    with fence.lock:
+        yield fence.generation == gen
 
 
 class MegaBatch:

@@ -308,27 +308,39 @@ def clip_by_value(grads: List[torch.Tensor], clip: float):
     return [torch.clamp(g, -clip, clip) for g in grads]
 
 
-def clip_by_norm(grads: List[torch.Tensor], max_norm: float):
-    """Per-tensor L2 clip (ref: ClipL2PerLayer/PerParamType)."""
+def _norms(grads: List[torch.Tensor], sq=None):
+    """Each tensor's L2 norm, or the roots of given squared norms ``sq``
+    (a data-parallel step's, where some gradients are pieces)."""
+    if sq is None:
+        return [torch.sqrt(torch.sum(g.square())) for g in grads]
+    return list(torch.sqrt(sq).unbind(0))
+
+
+def clip_by_norm(grads: List[torch.Tensor], max_norm: float, sq=None):
+    """Per-tensor L2 clip (ref: ClipL2PerLayer/PerParamType); ``sq``: the
+    tensors' squared norms when given (see :func:`_norms`)."""
     out = []
-    for g in grads:
-        n = torch.sqrt(torch.sum(g.square()))
+    for g, n in zip(grads, _norms(grads, sq)):
         out.append(g * torch.clamp(max_norm / torch.clamp_min(n, 1e-12),
                                    max=1.0))
     return out
 
 
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float):
-    """Global-norm clip over every gradient."""
-    gn = torch.sqrt(sum(torch.sum(g.square()) for g in grads))
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        sq=None):
+    """Global-norm clip over every gradient (``sq``: as
+    :func:`clip_by_norm`)."""
+    gn = torch.sqrt(sum(torch.sum(g.square()) for g in grads)) \
+        if sq is None else torch.sqrt(sq.sum())
     scale = torch.clamp(max_norm / torch.clamp_min(gn, 1e-12), max=1.0)
     return [g * scale for g in grads]
 
 
-def renormalize_l2(grads: List[torch.Tensor]):
-    """ref: GradientNormalization.RenormalizeL2PerLayer — divide by norm."""
-    return [g / torch.clamp_min(torch.sqrt(torch.sum(g.square())), 1e-12)
-            for g in grads]
+def renormalize_l2(grads: List[torch.Tensor], sq=None):
+    """ref: GradientNormalization.RenormalizeL2PerLayer — divide by norm
+    (``sq``: as :func:`clip_by_norm`)."""
+    return [g / torch.clamp_min(n, 1e-12)
+            for g, n in zip(grads, _norms(grads, sq))]
 
 
 def apply_regularization(param, grad, l1: float = 0.0, l2: float = 0.0):

@@ -1250,3 +1250,105 @@ def test_a_manifest_written_and_replayed_in_process(dev, tmp_path):
             assert torch.equal(p, q)
     finally:
         cc.reset_configuration()
+
+
+# ------------------------------------------- data parallelism on the card
+def _dp_mlp():
+    conf = (NeuralNetConfiguration.Builder().seed(5).updater(Adam(0.01))
+            .list()
+            .layer(tlayers.DenseLayer(nOut=64, activation="relu"))
+            .layer(tlayers.BatchNormalization())
+            .layer(tlayers.OutputLayer(nOut=4, lossFunction="mcxent",
+                                       activation="softmax"))
+            .setInputType(InputType.feedForward(32)).build())
+    return MultiLayerNetwork(conf).init()
+
+
+def _dp_batches(n=8, b=64):
+    rng = np.random.default_rng(0)
+    return [DataSet(rng.standard_normal((b, 32), dtype=np.float32),
+                    np.eye(4, dtype=np.float32)[rng.integers(0, 4, b)])
+            for _ in range(n)]
+
+
+def rank_dp_world1_card():
+    """In a rank of one over NCCL: the unsharded K=2 fit and
+    ParallelWrapper's K=2 fit (captured, its all-reduces inside) from one
+    state, bit-equal."""
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref, dp = _dp_mlp(), _dp_mlp()
+    ref.fit(_dp_batches(), steps_per_dispatch=2)
+    ParallelWrapper(dp).fit(_dp_batches(), steps_per_dispatch=2)
+    return (torch.equal(ref.params(), dp.params()),
+            dp._step_for(False, 2).captures())
+
+
+class _StepLosses:
+    def __init__(self):
+        self.values = []
+
+    def iterationDone(self, model, iteration, epoch):
+        self.values.append(model.score())
+
+
+def rank_dp_gloo_card(rules=None):
+    """Two ranks sharing the card over gloo (fp32, TF32 off): ZeRO halves
+    each rank's updater bytes (``rules`` may split the weights at rest
+    too), the collectives go through pinned host memory; the initial
+    params, the step losses and the final params."""
+    from deeplearning4j_tpu_torch.distributed import (GSPMDTrainer,
+                                                      ShardedTrainingPlan,
+                                                      updater_hbm_bytes)
+    from deeplearning4j_tpu_torch.parallel import DeviceMesh
+    from deeplearning4j_tpu_torch.parallel.collectives import HOST_STAGED
+    torch.backends.cuda.matmul.allow_tf32 = False
+    net = _dp_mlp()
+    p0 = net.params().cpu().numpy()
+    losses = _StepLosses()
+    net.setListeners(losses)
+    GSPMDTrainer(net, ShardedTrainingPlan(
+        DeviceMesh.data_parallel(), zero={"min_bytes": 0},
+        rules=rules)).fit(_dp_batches(4))
+    return (net.params().cpu().numpy(),
+            sum(updater_hbm_bytes(net._opt_state).values()),
+            HOST_STAGED.value, p0, losses.values)
+
+
+def test_data_parallel_world1_over_nccl_bit_equal(dev, tmp_path):
+    from deeplearning4j_tpu_torch.parallel.launch import RankPool
+    with RankPool(1, str(tmp_path), device="cuda") as pool:
+        [(same, captures)] = pool.run(rank_dp_world1_card)
+    assert same and captures == 1
+
+
+@pytest.mark.parametrize("rules", [None, {r"/W$": ("data", None)}])
+def test_two_ranks_share_the_card_over_gloo(dev, tmp_path, rules):
+    """Two ranks over gloo (sync BN, a global batch of 64 cut in two)
+    against the unsharded fit of the same 4 batches at world 1 in this
+    process, fp32 with TF32 off: the losses and params agree to 1e-5
+    (only the order of the sums differs), with the weights whole or
+    split over the data axis at rest."""
+    from deeplearning4j_tpu_torch.parallel.launch import RankPool
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ref = _dp_mlp()
+        ref_p0 = ref.params().cpu().numpy()
+        ref_losses = _StepLosses()
+        ref.setListeners(ref_losses)
+        ref.fit(_dp_batches(4))
+        ref_p = ref.params().cpu().numpy()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    # Adam's two fp32 moments of every param, whole at world 1
+    full = 2 * 4 * ref.numParams()
+    with RankPool(2, str(tmp_path), device="cuda", backend="gloo") as pool:
+        out = pool.run(rank_dp_gloo_card, rules)
+    np.testing.assert_array_equal(out[0][0], out[1][0])
+    assert out[0][2] > 0 and out[1][2] > 0
+    for params, hbm, _, p0, losses in out:
+        assert 0.45 <= hbm / full <= 0.55
+        np.testing.assert_array_equal(p0, ref_p0)
+        np.testing.assert_allclose(losses, ref_losses.values, rtol=1e-5)
+        np.testing.assert_allclose(params, ref_p, rtol=1e-5, atol=1e-5)

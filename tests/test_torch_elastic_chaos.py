@@ -1,0 +1,72 @@
+"""Seeded elastic sweeps over ranks (the chaos half of the JAX package's
+``tests/test_elastic.py``, split from ``test_torch_elastic_mesh.py`` so
+neither file runs long): whatever step and rank the seed draws for a
+rank's loss, with a NaN batch riding along under each NaN policy, a
+checkpointed elastic ``ParallelWrapper`` fit over 2 spawned gloo ranks
+shrinks, finishes and ends finite; a seeded hung dispatch is a
+straggler. The draws are ``FaultPlan.seeded``'s, the JAX package's. The
+cases share one pool, put back into a whole group before each case."""
+
+import numpy as np
+import pytest
+
+from deeplearning4j_tpu_torch.parallel.launch import RankPool
+
+from test_torch_elastic_mesh import DEADLINE, NBATCH, rank_elastic
+
+
+@pytest.fixture(scope="module")
+def _pool(tmp_path_factory):
+    with RankPool(2, str(tmp_path_factory.mktemp("store"))) as p:
+        yield p
+
+
+@pytest.fixture()
+def pool(_pool):
+    _pool.regroup()
+    return _pool
+
+
+# ===================================================================== chaos
+@pytest.mark.chaos
+class TestElasticChaosSweep:
+    """Seeded sweeps: whatever step and rank the seed draws for the loss,
+    with a NaN batch riding along, a checkpointed elastic fit shrinks,
+    finishes and ends finite."""
+
+    @pytest.mark.parametrize("policy", ["SKIP_STEP", "BACKOFF_LR",
+                                        "ROLLBACK"])
+    @pytest.mark.parametrize("seed", range(2))
+    def test_device_loss_times_nan_policy(self, pool, seed, policy,
+                                          tmp_path):
+        from deeplearning4j_tpu_torch.faults import FaultPlan
+        plan = FaultPlan.seeded(seed, horizon=NBATCH - 1, n_nan=1,
+                                n_data_errors=0, device_loss=1,
+                                device_pool=range(2))
+        lost = sorted(plan.lose_devices)
+        kw = {"nan_grads_at": sorted(plan.nan_grads_at),
+              "device_loss_at_step": plan.device_loss_at_step,
+              "lose_devices": lost}
+        res = pool.run(rank_elastic, str(tmp_path / "c"), kw,
+                       ck_kw={"every_steps": 2, "io_backoff": 0.01},
+                       nan_policy=policy)
+        assert [res[r] for r in lost] == [{"lost": True}]
+        (out,) = [o for o in res if o != {"lost": True}]
+        if policy == "ROLLBACK":
+            assert NBATCH - 3 <= out["iteration"] <= NBATCH
+        else:
+            assert out["iteration"] == NBATCH
+        assert np.isfinite(out["params"]).all() and out["data"] == 1
+
+    @pytest.mark.parametrize("seed", range(2))
+    def test_hung_dispatch_sweep(self, pool, seed, tmp_path):
+        rng = np.random.RandomState(seed)
+        step = int(rng.randint(3, NBATCH))
+        res = pool.run(rank_elastic, str(tmp_path / "c"),
+                       {"hung_dispatch_at": [step],
+                        "hang_seconds": 2 * DEADLINE},
+                       cfg_kw={"watchdog_deadline": DEADLINE,
+                               "watchdog_grace": 30.0})
+        for o in res:
+            assert o["iteration"] == NBATCH and o["timeouts"] == 1
+            assert np.isfinite(o["params"]).all()
