@@ -708,6 +708,45 @@ Phases (each one fails the run with a non-zero exit):
    steps 4-8 with finite losses, one a step: each of these is read back
    from the shrink's record (``model._last_shrink``) and checked. It
    prints the shrink's seconds.
+43-45. The model, seq and pipe axes (``mesh_phases``): world-1
+   references over NCCL in this process (``mesh_world1``: the same mesh
+   code on a mesh of one rank), then two ``RankPool`` ranks sharing the
+   card over gloo as in phase 42; each path runs with the counts set to 0
+   just before it and read just after, in each rank, and no wrapper may
+   take a plain version. 43 (a): ``parallel.sequence.ring_attention`` at
+   q, k, v [1, 8192, 12, 64] over seq=2, bf16 and fp32, causal and not:
+   each rank's rows of the output and of dq, dk, dv (the reverse ring)
+   against the unsplit flash kernel and ``flash_attention_bwd`` on the
+   same inputs (fp32: ``RING_FP32``, the JAX tests' bounds; bf16:
+   ``RING_BF16``); flash launches a call 2 on each rank full, 1 and 2
+   causal; ring ms beside the unsplit kernel's. 43 (b): BERT-base
+   (causal, bf16, flash) at model=2, B=8, T=512: logits against the
+   unsplit forward (``MESH_LOGIT_REL``), 12 flash and 25 layer-norm
+   launches and 25 all-reduces a forward a rank, 3 Adam steps whose
+   losses match world 1's (``MESH_LOSS_REL``), the step's collectives by
+   kind and ms a step; then at seq=2 with the ring, B=1, T=8192: 12 and
+   24 flash launches a forward on ranks 0 and 1, the loss before and
+   after one step against world 1's. 43 (c): the 12 blocks through the
+   GPipe schedule at pipe=2 with 4 microbatches of 4 x 128: the loss and
+   one Adam step against the 1-stage pipeline at world 1 (the blocks
+   within ``PIPE_PARAM_SPACINGS`` of world 1's but for a share
+   ``PIPE_PARAM_SHARE``), 24 flash and 49 layer-norm launches a stage.
+   43 (d): ResNet-50 at B=64 in phase 14's configuration through
+   ``GSPMDTrainer`` with ``{"/W$": (None, "model")}`` on data=1 x
+   model=2: every W split at rest (the stem's 3 channels as 2 + 1), 4
+   eager steps whose losses and params are bit-equal to the unsplit K=4
+   fit, 4 x 33 ``scale_shift_act`` launches a rank. 44:
+   ``ModelRegistry.load(..., plan=)`` of a served BERT-base at model=2
+   (the Megatron layout; eager: its collectives run inside the forward)
+   and ``ModelServer`` on a data=2 mesh (each rank captures its rows'
+   graphs), the leader's answers to 6 requests within
+   ``MESH_LOGIT_REL`` of the world-1 server's; last, ``ParallelInference``
+   over data=2 whose fault plan loses rank 1 at serving batch 3: the
+   batch is retried on the survivor, every request answered, the
+   shrink's seconds printed. 45: Word2Vec at phase 39's settings on the
+   first 20,000 of its sentences with syn0/syn1 split over model=2 (one
+   all-reduce a step): the whole syn0 against the replicated captured fit
+   (``W2V_MESH_TOL``), the topic margin printed.
 
 The captured-against-eager rule: where the two eager runs agree to the
 bit on a tensor (and on the params' group: the param and its Adam
@@ -755,7 +794,11 @@ and captures) and replayed (served batches and train steps);
 ``native_launches`` phase 38's native executable of the SameDiff
 BERT-base (softmax and layer norm); ``dp_launches`` and ``dp_replays``
 phase 41's ``scale_shift_act`` over its data-parallel fits: eager steps
-and K=4 captures, and replays), the
+and K=4 captures, and replays; ``ring_launches`` phase 43 (a)'s flash
+launches of the bf16 ring forwards on both ranks; ``tp_launches`` phase
+43 (b)'s flash and layer-norm launches of one model=2 forward on rank 0;
+``pipe_launches`` phase 43 (c)'s of one pipeline step on stage 0;
+``rule_launches`` phase 43 (d)'s ``scale_shift_act`` on rank 0), the
 ``nvidia-smi`` name/power-limit line, and as the last line
 ``{"ok": true, "device": {...}}``. Without a card, or outside a
 checkout, it exits non-zero and prints no result.
@@ -2035,6 +2078,10 @@ def main() -> None:
     dp_two_ranks(smi, dp)
     torch.cuda.empty_cache()
 
+    # ----- 43-45. the model, seq and pipe axes; serving and Word2Vec on a mesh
+    mesh = mesh_phases(smi)
+    torch.cuda.empty_cache()
+
     ln.update(served["layer_norm"])
     fa.update(served["flash_attention"])
     for kr in (ln, fa):
@@ -2068,6 +2115,11 @@ def main() -> None:
         kr["native_launches"] = nat["native_launches"][kr["name"]]
     ssa["dp_launches"] = dp["launches"]
     ssa["dp_replays"] = dp["replays"]
+    fa["ring_launches"] = mesh["ring_launches"]
+    for kr in (ln, fa):
+        kr["tp_launches"] = mesh["tp_launches"][kr["name"]]
+        kr["pipe_launches"] = mesh["pipe_launches"][kr["name"]]
+    ssa["rule_launches"] = mesh["rule_launches"]
     bn_st["launches"] = probe_launches["bn_stats"]
     bn_ap["launches"] = probe_launches["bn_apply_leaky"]
     keys = ("name", "route", "source", "replaces", "launches", "replays",
@@ -2079,7 +2131,9 @@ def main() -> None:
             "sanitizer_launches", "ndarray_launches", "exec_op_launches",
             "samediff_capture_launches", "disk_warm_launches",
             "tune_launches", "lifecycle_launches", "lifecycle_replays",
-            "native_launches", "dp_launches", "dp_replays")
+            "native_launches", "dp_launches", "dp_replays",
+            "ring_launches", "tp_launches", "pipe_launches",
+            "rule_launches")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{k: kr[k] for k in keys if k in kr}
                                   for kr in (ln, fa, ssa, sm, bn_st, bn_ap)]}))
@@ -8816,6 +8870,746 @@ def dp_two_ranks(smi: str, w1: dict) -> None:
     import shutil
     shutil.rmtree(store, ignore_errors=True)
     log(f"phase 42: {time.perf_counter() - t_phase:.1f} s")
+
+
+# ------------------------------------------------- phases 43-45: the mesh
+#: phase 43 (a): q, k, v [B, T, H, D] of the ring (BERT-base's heads)
+RING_SHAPE = (1, 8192, 12, 64)
+#: phase 43 (a): the JAX ring tests' fp32 bounds (rtol, atol): output and
+#: gradients
+RING_FP32 = ((2e-4, 2e-5), (1e-3, 1e-4))
+#: phase 43 (a): the bf16 bounds (rtol, atol): output and gradients. The
+#: ring rounds each block's output to bf16 before it merges them in fp32;
+#: the unsplit kernel rounds once (PERF.md has the readings)
+RING_BF16 = ((2e-2, 2e-2), (2e-2, 2e-2))
+#: phase 43 (b): BERT-base under tensor parallelism, B x T
+TP_BATCH, TP_T = 8, 512
+TP_STEPS = 3
+#: phase 43 (b): sequence parallelism at T=8192, B=1
+SP_T = 8192
+#: phase 43 (b)/(c)/44: the bf16 bound on logits against world 1, max
+#: |d| over max |ref| (a row-parallel matmul sums two bf16 halves where
+#: the unsplit one sums once), and on a loss, relative
+MESH_LOGIT_REL = 2e-2
+MESH_LOSS_REL = 5e-3
+#: phase 43 (c): the GPipe run, B x T, microbatches
+PIPE_BATCH, PIPE_T, PIPE_MICRO = 16, 128, 4
+#: phase 43 (c): the blocks after the step against world 1's: the share
+#: of elements further apart than 2 bf16 spacings at their magnitude (at
+#: least the step's lr, 1e-4), and that share's bound. Adam's first update
+#: is lr * g / (|g| + eps): where a gradient is within a few eps of zero,
+#: the 4 microbatches' summed gradient flips or shrinks it
+PIPE_PARAM_SPACINGS = 2.0
+PIPE_PARAM_SHARE = 1e-3
+#: phase 43 (d): ResNet-50 steps under the model-axis rule
+RULE_STEPS = 4
+RULE = {r"/W$": (None, "model")}
+#: phase 44: served requests' rows (T=128 tokens each) and the head
+SERVE_ROWS = (1, 3, 4, 2, 8, 1)
+SERVE_T = 128
+SERVE_COLS = 64
+#: phase 44: ParallelInference loses rank 1 at this serving batch
+PI_LOSE_AT = 3
+#: phase 45: the first sentences of phase 39's corpus
+W2V_MESH_SENTENCES = 20_000
+#: phase 45: syn0 over model=2 against replicated training (rtol, atol)
+W2V_MESH_TOL = (1e-3, 1e-5)
+
+
+def _mesh_rank_init():
+    """A rank of phases 43-45: the kernels as platform overrides, TF32
+    off, cuDNN held to deterministic algorithms."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+    ck.install_platform_overrides()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    return ck
+
+
+def _close(a, b, rtol: float, atol: float) -> tuple:
+    """(ok, max |a - b|, max |b|): ``|a - b| <= atol + rtol |b|``
+    everywhere."""
+    d = (a.float() - b.float()).abs()
+    lim = atol + rtol * b.float().abs()
+    return bool((d <= lim).all()), float(d.max()), float(b.float().abs().max())
+
+
+def _timed(fn, runs: int = 3) -> float:
+    """Median host ms of ``fn`` between synchronizations."""
+    import torch
+    out = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
+def mesh_rank_ring() -> dict:
+    """Phase 43 (a) in a rank: ring attention over seq=2 against the
+    unsplit flash kernel and ``flash_attention_bwd`` (world 1, on this
+    rank's card), bf16 and fp32, causal and not."""
+    import torch
+    from deeplearning4j_tpu_torch.parallel import DeviceMesh
+    from deeplearning4j_tpu_torch.parallel.sequence import ring_attention
+    ck = _mesh_rank_init()
+    mesh = DeviceMesh.create(data=1, model=1, seq=2)
+    r = mesh.coordinate("seq")
+    B, T, H, D = RING_SHAPE
+    t = T // 2
+    rows = slice(r * t, (r + 1) * t)
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        g = torch.Generator(device="cuda").manual_seed(43)
+        q, k, v, ct = (torch.randn(RING_SHAPE, generator=g, device="cuda")
+                       .to(dt) for _ in range(4))
+        bounds = RING_BF16 if dt == torch.bfloat16 else RING_FP32
+        for causal in (False, True):
+            o_ref, lse = ck.flash_attention_fwd(q, k, v, causal)
+            grads_ref = ck.flash_attention_bwd(q, k, v, o_ref, lse, ct,
+                                               causal)
+            pieces = [a[:, rows].contiguous().requires_grad_(True)
+                      for a in (q, k, v)]
+            ck.reset_counts()
+            o = ring_attention(*pieces, mesh, is_causal=causal)
+            torch.cuda.synchronize()
+            launches = ck.LAUNCHES["flash_attention"]
+            plain = ck.PLAIN_CALLS["flash_attention"]
+            o.backward(ct[:, rows])
+            res = {"launches": launches, "plain": plain,
+                   "o": _close(o.detach(), o_ref[:, rows], *bounds[0])}
+            for name, p, ref in zip("qkv", pieces, grads_ref):
+                res["d" + name] = _close(p.grad, ref[:, rows], *bounds[1])
+            with torch.no_grad():
+                res["ms"] = _timed(lambda: ring_attention(
+                    *pieces, mesh, is_causal=causal))
+                res["w1_ms"] = _timed(lambda: ck.flash_attention_fwd(
+                    q, k, v, causal))
+            out[(str(dt).split(".")[-1], causal)] = res
+            del o, pieces, grads_ref, o_ref, lse
+    return out
+
+
+def _bert(**kw):
+    from deeplearning4j_tpu_torch.models import transformer as tfm
+    return tfm.TransformerConfig.bert_base(causal=True,
+                                           use_flash_attention=True, **kw)
+
+
+def _tokens(seed: int, B: int, T: int, V: int = 30522):
+    import torch
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.integers(0, V, (B, T))).cuda(),
+            torch.from_numpy(rng.integers(0, V, (B, T))).cuda())
+
+
+def _lm_steps(cfg, params, mesh, tok, tgt, steps: int) -> dict:
+    """``steps`` Adam(1e-4) steps of ``make_train_step(cfg, mesh=)``:
+    the losses, ms a step after the first, and the first step's
+    collectives (bytes and calls by kind)."""
+    import torch
+    from deeplearning4j_tpu_torch.models import transformer as tfm
+    from deeplearning4j_tpu_torch.parallel import collectives
+    from deeplearning4j_tpu_torch.train.updaters import Adam
+    up = Adam(1e-4)
+    opt = tfm.init_opt_state(params, up)
+    t = torch.zeros((), dtype=torch.int32, device="cuda")
+    step = tfm.make_train_step(cfg, up, mesh)
+    losses, times, rec = [], [], None
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with collectives.record() as r:
+            losses.append(float(step(params, opt, t, tok, tgt)))
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            rec = (dict(r.bytes), dict(r.calls))
+    return {"losses": losses, "ms": float(np.median(times[1:] or times)),
+            "coll": rec}
+
+
+def mesh_rank_lm() -> dict:
+    """Phase 43 (b) in a rank: BERT-base (causal, bf16, flash) at
+    model=2 (logits against this rank's unsplit forward, then
+    ``TP_STEPS`` steps), then at seq=2 with the ring at T=8192 (the loss,
+    one step, the loss after it)."""
+    import torch
+    from deeplearning4j_tpu_torch.models import transformer as tfm
+    from deeplearning4j_tpu_torch.parallel import DeviceMesh, collectives
+    ck = _mesh_rank_init()
+    out = {}
+    cfg = _bert()
+    mesh = DeviceMesh.create(data=1, model=2)
+    whole = tfm.init_params(cfg, seed=43, device="cuda")
+    tok, tgt = _tokens(43, TP_BATCH, TP_T)
+    with torch.no_grad():
+        ref = tfm.forward(whole, tok, cfg)
+    params = tfm.shard_params(whole, cfg, mesh)
+    del whole
+    ck.reset_counts()
+    with torch.no_grad(), collectives.record() as rec:
+        logits = tfm.forward(params, tok, cfg, mesh)
+    torch.cuda.synchronize()
+    d = float((logits - ref).abs().max())
+    out["tp"] = {"logit_err": d, "logit_max": float(ref.abs().max()),
+                 "flash": ck.LAUNCHES["flash_attention"],
+                 "ln": ck.LAUNCHES["layer_norm"],
+                 "plain": sum(ck.PLAIN_CALLS.values()),
+                 "fwd_coll": (dict(rec.bytes), dict(rec.calls)),
+                 "local_wqkv": tuple(params["layers"][0]["wqkv"].shape)}
+    del logits, ref
+    out["tp"].update(_lm_steps(cfg, params, mesh, tok, tgt, TP_STEPS))
+    del params
+    torch.cuda.empty_cache()
+    cfg = _bert(use_ring_attention=True, max_len=SP_T)
+    mesh = DeviceMesh.create(data=1, model=1, seq=2)
+    params = tfm.init_params(cfg, seed=44, device="cuda")
+    tok, tgt = _tokens(44, 1, SP_T)
+    ck.reset_counts()
+    with torch.no_grad():
+        tfm.loss_fn(params, tok, tgt, cfg, mesh)
+    torch.cuda.synchronize()
+    sp = {"flash": ck.LAUNCHES["flash_attention"],
+          "ln": ck.LAUNCHES["layer_norm"],
+          "plain": sum(ck.PLAIN_CALLS.values())}
+    sp.update(_sp_steps(cfg, params, mesh, tok, tgt))
+    out["sp"] = sp
+    return out
+
+
+def _sp_steps(cfg, params, mesh, tok, tgt) -> dict:
+    """Two steps: the loss before the first and after it (the second
+    step's loss), the second step's ms."""
+    r = _lm_steps(cfg, params, mesh, tok, tgt, 2)
+    r["before"], r["after"] = r["losses"]
+    return r
+
+
+def mesh_rank_pipe(ref_path: str) -> dict:
+    """Phase 43 (c) in a rank: BERT-base's 12 blocks at pipe=2, 4
+    microbatches: the loss and one Adam(1e-4) step, this stage's blocks
+    against world 1's after it (``ref_path``)."""
+    import torch
+    from deeplearning4j_tpu_torch.models import transformer as tfm
+    from deeplearning4j_tpu_torch.parallel import DeviceMesh
+    from deeplearning4j_tpu_torch.parallel import pipeline as pp
+    from deeplearning4j_tpu_torch.parallel.mesh import (local_piece,
+                                                        placement_of)
+    from deeplearning4j_tpu_torch.train.updaters import Adam
+    ck = _mesh_rank_init()
+    cfg = _bert()
+    mesh = DeviceMesh.from_axes({"data": 1, "pipe": 2})
+    params = pp.shard_pipeline_params(
+        pp.to_pipeline_params(tfm.init_params(cfg, seed=45, device="cuda")),
+        cfg, mesh)
+    tok, tgt = _tokens(45, PIPE_BATCH, PIPE_T)
+    up = Adam(1e-4)
+    opt = tfm.init_opt_state(params, up)
+    t = torch.zeros((), dtype=torch.int32, device="cuda")
+    step = pp.make_pipeline_train_step(cfg, up, mesh, PIPE_MICRO)
+    ck.reset_counts()
+    loss = float(step(params, opt, t, tok, tgt))
+    res = {"loss": loss, "flash": ck.LAUNCHES["flash_attention"],
+           "ln": ck.LAUNCHES["layer_norm"],
+           "plain": sum(ck.PLAIN_CALLS.values())}
+    ref = torch.load(ref_path, map_location="cuda")
+    far, n, worst = 0, 0, 0.0
+    for name, piece in params["blocks"].items():
+        leaves = piece.items() if isinstance(piece, dict) else [("", piece)]
+        for sub, p in leaves:
+            w = ref[name][sub] if sub else ref[name]
+            w = local_piece(w, placement_of(p)).float()
+            d = (p.detach().float() - w).abs()
+            spacing = torch.clamp_min(w.abs(), 1e-4) * 2.0 ** -7
+            far += int((d > PIPE_PARAM_SPACINGS * spacing).sum())
+            n += d.numel()
+            worst = max(worst, float(d.max()))
+    res["param_share"] = far / n
+    res["param_max"] = worst
+    # a second step, warm, for its time
+    res["ms"] = _timed(lambda: step(params, opt, t, tok, tgt), runs=1)
+    return res
+
+
+def mesh_rank_rule(steps: int) -> dict:
+    """Phase 43 (d) in a rank: ResNet-50 at B=64 in phase 14's
+    configuration through ``GSPMDTrainer`` with ``RULE`` on data=1 x
+    model=2, ``steps`` eager steps: losses, launches, the pieces held
+    and the whole params' digests."""
+    import torch
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.distributed import (GSPMDTrainer,
+                                                      ShardedTrainingPlan)
+    from deeplearning4j_tpu_torch.parallel import DeviceMesh
+    from deeplearning4j_tpu_torch.parallel.mesh import (global_shape,
+                                                        placement_of)
+    ck = _mesh_rank_init()
+    x, y = dp_data()
+    ds = DataSet(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+    net = resnet50_bf16()
+    lst = _Losses()
+    net.setListeners(lst)
+    plan = ShardedTrainingPlan(DeviceMesh.create(data=1, model=2),
+                               rules=RULE)
+    ck.reset_counts()
+    GSPMDTrainer(net, plan).fit([ds] * steps)
+    torch.cuda.synchronize()
+    ws = [v for _, p in net._items(net._params) for k, v in p.items()
+          if k == "W"]
+
+    def half(v):
+        """This rank's piece of dim 1 (the 3 stem channels: 2 and 1)."""
+        p = placement_of(v)
+        sl = p.slices()[1] if p is not None else None
+        return p is not None and p.axes == ("model",) and \
+            v.shape[1] == sl.stop - sl.start < global_shape(v)[1]
+    split = all(half(v) for v in ws)
+    whole = net._whole_params()
+    return {"losses": lst.values, "ms": lst.step_ms(),
+            "launches": ck.LAUNCHES["scale_shift_act"],
+            "plain": ck.PLAIN_CALLS["scale_shift_act"],
+            "split": split, "n_w": len(ws),
+            "digests": _digests({n: {k: v.detach().float().cpu().numpy()
+                                     for k, v in p.items()}
+                                 for n, p in net._items(whole)})}
+
+
+class _Served:
+    """A TransformerLM behind ``output(tokens)`` (what ParallelInference
+    calls): the first ``SERVE_COLS`` logits of each position."""
+
+    def __init__(self, lm):
+        self.lm = lm
+
+    def output(self, x):
+        return self.lm.logits(x)[:, :, :SERVE_COLS]
+
+
+def _serve_head(y):
+    return y[:, :, :SERVE_COLS]
+
+
+def _serve_requests():
+    rng = np.random.default_rng(46)
+    return [rng.integers(0, 30522, (n, SERVE_T)).astype(np.float32)
+            for n in SERVE_ROWS]
+
+
+def mesh_rank_serve() -> dict:
+    """Phase 44 (i)-(ii) in a rank: ``ModelRegistry.load(..., plan=)`` of
+    the served BERT-base at model=2, then ``ModelServer`` on a data=2
+    mesh; the leader's answers (the follower follows)."""
+    from deeplearning4j_tpu_torch.distributed import ShardedTrainingPlan
+    from deeplearning4j_tpu_torch.models import transformer as tfm
+    from deeplearning4j_tpu_torch.parallel import DeviceMesh
+    from deeplearning4j_tpu_torch.serving import ModelServer
+    from deeplearning4j_tpu_torch.serving.registry import ModelRegistry
+    ck = _mesh_rank_init()
+    reqs = _serve_requests()
+    out = {}
+    lm = tfm.TransformerLM(_bert(), seed=46, device="cuda")
+    reg = ModelRegistry(batch_limit=8, coalesce_ms=1.0, head=_serve_head)
+    t0 = time.perf_counter()
+    reg.load("bert", lm, shapes=[(SERVE_T,)],
+             plan=ShardedTrainingPlan(DeviceMesh.create(data=1, model=2)))
+    server = reg._version("bert").server
+    if server.is_leader:
+        ck.reset_counts()
+        t1 = time.perf_counter()
+        out["tp"] = [reg.output("bert", x, timeout=120) for x in reqs]
+        out["tp_s"] = time.perf_counter() - t1
+        out["tp_flash"] = ck.LAUNCHES["flash_attention"]
+        out["tp_plain"] = ck.PLAIN_CALLS["flash_attention"]
+        out["tp_warm_s"] = t1 - t0
+        reg.close()
+    else:
+        out["follow"] = reg.follow()
+        reg.close()
+    del lm, reg, server
+    lm = tfm.TransformerLM(_bert(), seed=46, device="cuda")
+    server = ModelServer(lm, mesh=DeviceMesh.data_parallel(), batch_limit=8,
+                         coalesce_ms=1.0, head=_serve_head,
+                         name="bert-data2")
+    server.warmup([(SERVE_T,)])
+    if server.is_leader:
+        t1 = time.perf_counter()
+        out["dp"] = [server.output(x, timeout=120) for x in reqs]
+        out["dp_s"] = time.perf_counter() - t1
+        out["buckets"] = server.buckets()
+        out["captures"] = server._dispatch.captures()
+        server.close()
+    else:
+        out["dp_follow"] = server.follow()
+        out["captures"] = server._dispatch.captures()
+    return out
+
+
+def mesh_rank_pi() -> dict:
+    """Phase 44 (iii) in a rank: ``ParallelInference`` over data=2 whose
+    fault plan loses rank 1 at serving batch ``PI_LOSE_AT``: the leader
+    submits every request (one batch each) and times the shrink."""
+    from deeplearning4j_tpu_torch.faults import FaultPlan
+    from deeplearning4j_tpu_torch.models import transformer as tfm
+    from deeplearning4j_tpu_torch.parallel import (DeviceMesh,
+                                                   ParallelInference)
+    from deeplearning4j_tpu_torch.parallel import wrapper
+    _mesh_rank_init()
+    lm = tfm.TransformerLM(_bert(), seed=46, device="cuda")
+    pi = ParallelInference(_Served(lm), DeviceMesh.data_parallel(),
+                           batch_limit=8, faults=FaultPlan(
+                               serve_device_loss_at_batch=PI_LOSE_AT,
+                               lose_devices=[1]))
+    if not pi.is_leader:
+        return {"follow": pi.follow()}
+    before = wrapper._INFERENCE_REPLICA_FAILURES.value
+    import warnings
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        answers = [pi.output(x, timeout=120) for x in _serve_requests()]
+    pi.shutdown()
+    return {"answers": answers,
+            "failures": wrapper._INFERENCE_REPLICA_FAILURES.value - before,
+            "data": pi.mesh.size("data"),
+            "members": [d.id for d in pi.mesh.devices],
+            "shrink_s": pi.last_shrink_seconds,
+            "warnings": [str(w.message)[:120] for w in seen]}
+
+
+def mesh_rank_w2v(sents, lr: float, ref_path: str) -> dict:
+    """Phase 45 in a rank: Word2Vec at phase 39's settings on ``sents``
+    with its tables split over model=2: the whole syn0 against the
+    replicated fit's (``ref_path``), the topic margin, the fit's s."""
+    import torch
+    from deeplearning4j_tpu_torch.nlp import Word2Vec
+    from deeplearning4j_tpu_torch.parallel import DeviceMesh, collectives
+    _mesh_rank_init()
+    t0 = time.perf_counter()
+    with collectives.record() as rec:
+        m = Word2Vec(sentence_iter=sents, learning_rate=lr,
+                     min_learning_rate=1e-4 * W2V_BATCH,
+                     mesh=DeviceMesh.create(data=1, model=2)).fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    syn0 = m.getWordVectorMatrix()
+    ref = torch.from_numpy(np.load(ref_path)).cuda()
+    ok, d, mx = _close(syn0, ref, *W2V_MESH_TOL)
+    groups = [[m.vocab.indexOf(f"t{k}_{i}") for i in range(20)]
+              for k in range(W2V_TOPICS)]
+    same, cross = _topic_margin(syn0, groups)
+    return {"ok": ok, "max_diff": d, "max_ref": mx, "fit_s": fit_s,
+            "margin": same - cross, "local": tuple(m.syn0.shape),
+            "calls": dict(rec.calls), "bytes": dict(rec.bytes)}
+
+
+def mesh_world1(smi: str, store: str) -> dict:
+    """Phases 43-45's world-1 references, over NCCL in this process: the
+    TP and SP steps' losses, the 1-stage pipeline step (its blocks saved
+    for the ranks), ResNet-50's unsplit K=4 fit, the world-1 server's
+    answers, and the replicated Word2Vec (its syn0 saved)."""
+    import torch
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.models import transformer as tfm
+    from deeplearning4j_tpu_torch.nlp import Word2Vec
+    from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+    from deeplearning4j_tpu_torch.parallel import (DeviceMesh,
+                                                   initializeDistributed,
+                                                   shutdownDistributed)
+    from deeplearning4j_tpu_torch.parallel import pipeline as pp
+    from deeplearning4j_tpu_torch.serving import ModelServer
+    from deeplearning4j_tpu_torch.train.updaters import Adam
+    t_phase = time.perf_counter()
+    info = initializeDistributed("file://" + os.path.join(store, "w1"), 1, 0)
+    if info.backend != "nccl":
+        fail(f"phases 43-45: the world-1 references want NCCL, got {info}")
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    ref = {}
+    try:
+        mesh = DeviceMesh.create(data=1, model=1, seq=1)
+        cfg = _bert()
+        params = tfm.init_params(cfg, seed=43, device="cuda")
+        tok, tgt = _tokens(43, TP_BATCH, TP_T)
+        ck.reset_counts()
+        ref["tp"] = _lm_steps(cfg, params, mesh, tok, tgt, TP_STEPS)
+        ref["tp"]["flash"] = ck.LAUNCHES["flash_attention"]
+        del params
+        cfg = _bert(use_ring_attention=True, max_len=SP_T)
+        params = tfm.init_params(cfg, seed=44, device="cuda")
+        tok, tgt = _tokens(44, 1, SP_T)
+        ref["sp"] = _sp_steps(cfg, params, mesh, tok, tgt)
+        del params
+        cfg = _bert()
+        pmesh = DeviceMesh.from_axes({"data": 1, "pipe": 1})
+        params = pp.to_pipeline_params(tfm.init_params(cfg, seed=45,
+                                                       device="cuda"))
+        tok, tgt = _tokens(45, PIPE_BATCH, PIPE_T)
+        up = Adam(1e-4)
+        opt = tfm.init_opt_state(params, up)
+        t = torch.zeros((), dtype=torch.int32, device="cuda")
+        step = pp.make_pipeline_train_step(cfg, up, pmesh, 1)
+        ref["pipe"] = {"loss": float(step(params, opt, t, tok, tgt)),
+                       "path": os.path.join(store, "pipe_blocks.pt")}
+        torch.save({k: ({s: w.detach() for s, w in v.items()}
+                        if isinstance(v, dict) else v.detach())
+                    for k, v in params["blocks"].items()},
+                   ref["pipe"]["path"])
+        ref["pipe"]["ms"] = _timed(lambda: step(params, opt, t, tok, tgt),
+                                   runs=1)
+        del params, opt
+        x, y = dp_data()
+        ds = DataSet(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+        net = resnet50_bf16()
+        lst = _Losses()
+        net.setListeners(lst)
+        net.fit([ds] * RULE_STEPS, steps_per_dispatch=RULE_STEPS)
+        torch.cuda.synchronize()
+        ref["rule"] = {"losses": lst.values, "digests": _digests(
+            {n: {k: v.detach().float().cpu().numpy() for k, v in p.items()}
+             for n, p in net._items(net._params)})}
+        del net, ds
+        lm = tfm.TransformerLM(_bert(), seed=46, device="cuda")
+        with ModelServer(lm, batch_limit=8, coalesce_ms=1.0,
+                         head=_serve_head, name="bert-world1") as server:
+            server.warmup([(SERVE_T,)])
+            ref["serve"] = [server.output(x, timeout=120)
+                            for x in _serve_requests()]
+        del lm
+        sents = w2v_corpus()[0][:W2V_MESH_SENTENCES]
+        lr = W2V_PAIR_LR * W2V_BATCH
+        t0 = time.perf_counter()
+        m = Word2Vec(sentence_iter=sents, learning_rate=lr,
+                     min_learning_rate=1e-4 * W2V_BATCH).fit()
+        torch.cuda.synchronize()
+        ref["w2v"] = {"fit_s": time.perf_counter() - t0, "sents": sents,
+                      "lr": lr, "path": os.path.join(store, "syn0.npy")}
+        np.save(ref["w2v"]["path"], m.syn0.cpu().numpy())
+        del m
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = det
+        shutdownDistributed()
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phases 43-45: world-1 references over NCCL in "
+        f"{time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return ref
+
+
+def mesh_phases(smi: str) -> dict:
+    """Phases 43-45 (see the module note): world-1 references here, then
+    two ranks sharing the card over gloo. Returns the launch fields of
+    the kernels line."""
+    import torch
+    from deeplearning4j_tpu_torch.parallel.launch import RankPool
+    t_all = time.perf_counter()
+    store = tempfile.mkdtemp(prefix="dl4j_mesh_")
+    w1 = mesh_world1(smi, store)
+    kernels = {}
+    with RankPool(2, os.path.join(store, "pool"), device="cuda",
+                  backend="gloo", timeout=300.0, threads=2) as pool:
+        # ------------------------------------------------ 43 (a) the ring
+        t_phase = time.perf_counter()
+        res = pool.run(mesh_rank_ring, timeout=600)
+        ring = 0
+        for r, out in enumerate(res):
+            for (dt, causal), v in out.items():
+                want = (r + 1) if causal else 2
+                bad = [n for n in ("o", "dq", "dk", "dv") if not v[n][0]]
+                if v["launches"] != want or v["plain"] or bad:
+                    fail(f"phase 43 (a) rank {r} {dt} causal={causal}: "
+                         f"{v['launches']} flash launches (want {want}), "
+                         f"{v['plain']} plain calls, out of bounds: "
+                         f"{[(n, v[n]) for n in bad]}")
+                if dt == "bfloat16":
+                    ring += v["launches"]
+        for (dt, causal), v in res[0].items():
+            log(f"phase 43 (a) ring attention {dt} {list(RING_SHAPE)} "
+                f"seq=2 causal={causal}: launches {res[0][(dt, causal)]['launches']}"
+                f" and {res[1][(dt, causal)]['launches']} on ranks 0 and 1; "
+                f"max |err| o {v['o'][1]:.3g} (of {v['o'][2]:.3g}), dq "
+                f"{v['dq'][1]:.3g}, dk {v['dk'][1]:.3g}, dv {v['dv'][1]:.3g};"
+                f" ring forward {v['ms']:.2f} / {res[1][(dt, causal)]['ms']:.2f}"
+                f" ms on ranks 0/1 (two ranks sharing one card over gloo), "
+                f"the unsplit kernel at world 1 {v['w1_ms']:.2f} ms [{smi}]")
+        kernels["ring_launches"] = ring
+        log(f"phase 43 (a): {time.perf_counter() - t_phase:.1f} s")
+        # ------------------------------------------ 43 (b) TP and SP LMs
+        t_phase = time.perf_counter()
+        res = pool.run(mesh_rank_lm, timeout=600)
+        for r, out in enumerate(res):
+            tp, sp = out["tp"], out["sp"]
+            rel = [abs(a - b) / abs(b) for a, b in
+                   zip(tp["losses"], w1["tp"]["losses"])]
+            if tp["logit_err"] > MESH_LOGIT_REL * tp["logit_max"] \
+                    or max(rel) > MESH_LOSS_REL or tp["flash"] != 12 \
+                    or tp["ln"] != 25 or tp["plain"] \
+                    or tp["fwd_coll"][1].get("all-reduce") != 25:
+                fail(f"phase 43 (b) rank {r} TP: {tp} against world 1 "
+                     f"{w1['tp']}")
+            want = 12 * (r + 1)
+            sp_rel = [abs(sp[k] - w1["sp"][k]) / abs(w1["sp"][k])
+                      for k in ("before", "after")]
+            if max(sp_rel) > MESH_LOSS_REL or sp["flash"] != want \
+                    or sp["plain"]:
+                fail(f"phase 43 (b) rank {r} SP: {sp} against world 1 "
+                     f"{w1['sp']} (want {want} flash launches a forward)")
+        tp, sp = res[0]["tp"], res[0]["sp"]
+        kernels["tp_launches"] = {"flash_attention": tp["flash"],
+                                  "layer_norm": tp["ln"]}
+        log(f"phase 43 (b) BERT-base causal bf16 at model=2, B={TP_BATCH} "
+            f"T={TP_T}: wqkv piece {tp['local_wqkv']}; logits max |d| "
+            f"{tp['logit_err']:.3g} against the unsplit forward (max "
+            f"{tp['logit_max']:.3g}); a forward a rank: {tp['flash']} flash "
+            f"and {tp['ln']} layer-norm launches, collectives "
+            f"{tp['fwd_coll'][1]} ({tp['fwd_coll'][0]} bytes); a step's "
+            f"collectives {tp['coll'][1]} ({tp['coll'][0]} bytes); losses "
+            f"{[round(v, 5) for v in tp['losses']]} vs world 1 "
+            f"{[round(v, 5) for v in w1['tp']['losses']]}; ms a step "
+            f"{tp['ms']:.1f} / {res[1]['tp']['ms']:.1f} on ranks 0/1 (two "
+            f"ranks sharing one card over gloo) vs world 1 over NCCL "
+            f"{w1['tp']['ms']:.1f} [{smi}]")
+        log(f"phase 43 (b) BERT-base causal bf16 at seq=2 (ring), B=1 "
+            f"T={SP_T}: flash launches a forward {sp['flash']} and "
+            f"{res[1]['sp']['flash']} on ranks 0/1; loss {sp['before']:.5f}"
+            f" -> {sp['after']:.5f} after one step vs world 1 "
+            f"{w1['sp']['before']:.5f} -> {w1['sp']['after']:.5f}; the "
+            f"step's collectives {sp['coll'][1]} ({sp['coll'][0]} bytes); "
+            f"ms of the second step {sp['ms']:.1f} / "
+            f"{res[1]['sp']['ms']:.1f} (two ranks over gloo) vs world 1 "
+            f"{w1['sp']['ms']:.1f} [{smi}]")
+        log(f"phase 43 (b): {time.perf_counter() - t_phase:.1f} s")
+        # ----------------------------------------------- 43 (c) pipeline
+        t_phase = time.perf_counter()
+        res = pool.run(mesh_rank_pipe, w1["pipe"]["path"], timeout=600)
+        for r, out in enumerate(res):
+            rel = abs(out["loss"] - w1["pipe"]["loss"]) / w1["pipe"]["loss"]
+            # a stage runs its 6 blocks on 4 microbatches; the final norm
+            # runs on every stage
+            if rel > MESH_LOSS_REL or out["flash"] != 24 \
+                    or out["ln"] != 49 or out["plain"] \
+                    or out["param_share"] > PIPE_PARAM_SHARE:
+                fail(f"phase 43 (c) rank {r}: {out} against world 1 "
+                     f"{w1['pipe']}")
+        kernels["pipe_launches"] = {"flash_attention": res[0]["flash"],
+                                    "layer_norm": res[0]["ln"]}
+        log(f"phase 43 (c) GPipe: BERT-base's 12 blocks at pipe=2, "
+            f"{PIPE_MICRO} microbatches of {PIPE_BATCH // PIPE_MICRO} x "
+            f"{PIPE_T}: loss {res[0]['loss']:.5f} vs the 1-stage pipeline "
+            f"at world 1 {w1['pipe']['loss']:.5f}; after one Adam step a "
+            f"share {max(o['param_share'] for o in res):.3g} of the blocks' "
+            f"elements lie over {PIPE_PARAM_SPACINGS:g} bf16 spacings from "
+            f"world 1's (max |d| {max(o['param_max'] for o in res):.3g}); "
+            f"a stage's step {res[0]['flash']} flash "
+            f"and {res[0]['ln']} layer-norm launches; ms of a second step "
+            f"{res[0]['ms']:.1f} / {res[1]['ms']:.1f} (two ranks over gloo)"
+            f" vs world 1 {w1['pipe']['ms']:.1f} [{smi}]")
+        log(f"phase 43 (c): {time.perf_counter() - t_phase:.1f} s")
+        # --------------------------------- 43 (d) ShardingRule on engines
+        t_phase = time.perf_counter()
+        res = pool.run(mesh_rank_rule, RULE_STEPS, timeout=600)
+        for r, out in enumerate(res):
+            if out["losses"] != w1["rule"]["losses"] \
+                    or out["digests"] != w1["rule"]["digests"] \
+                    or out["launches"] != RULE_STEPS * 33 or out["plain"] \
+                    or not out["split"]:
+                bad = [n for n, d in out["digests"].items()
+                       if w1["rule"]["digests"].get(n) != d]
+                fail(f"phase 43 (d) rank {r}: losses {out['losses']} vs "
+                     f"{w1['rule']['losses']}, {len(bad)} param tensor(s) "
+                     f"differ (e.g. {bad[:3]}), {out['launches']} launches "
+                     f"({out['plain']} plain), every W split: {out['split']}")
+        kernels["rule_launches"] = res[0]["launches"]
+        log(f"phase 43 (d) ResNet-50 B={DP_BATCH} bf16/NHWC/fused with "
+            f"rules {RULE} on data=1 x model=2: {res[0]['n_w']} W split at "
+            f"rest on each rank (the stem's 3 input channels as 2 + 1); "
+            f"{RULE_STEPS} steps' losses and params bit-equal to the "
+            f"unsplit K={RULE_STEPS} fit on both ranks "
+            f"({[round(v, 5) for v in res[0]['losses']]}); "
+            f"{res[0]['launches']} scale_shift_act launches a rank; ms a "
+            f"step {res[0]['ms']:.1f} / {res[1]['ms']:.1f} (two ranks over "
+            f"gloo) [{smi}]")
+        log(f"phase 43 (d): {time.perf_counter() - t_phase:.1f} s")
+        # -------------------------------------- 44 (i)-(ii) serving on a mesh
+        t44 = time.perf_counter()
+        res = pool.run(mesh_rank_serve, timeout=600)
+        lead, follow = res
+        if follow.get("follow") != "stopped" \
+                or follow.get("dp_follow") != "stopped":
+            fail(f"phase 44: the follower left with {follow}")
+        worst = {}
+        for key in ("tp", "dp"):
+            errs = [float(np.abs(a - b).max()) / float(np.abs(b).max())
+                    for a, b in zip(lead[key], w1["serve"])]
+            worst[key] = max(errs)
+            if worst[key] > MESH_LOGIT_REL or len(lead[key]) != \
+                    len(SERVE_ROWS):
+                fail(f"phase 44 {key}: answers off the world-1 server's by "
+                     f"{errs} (relative to the largest logit)")
+        if lead["tp_flash"] == 0 or lead["tp_plain"]:
+            fail(f"phase 44: the model=2 server launched "
+                 f"{lead['tp_flash']} flash kernels ({lead['tp_plain']} "
+                 f"plain)")
+        log(f"phase 44: ModelRegistry.load(plan=) of the served BERT-base "
+            f"at model=2 (Megatron layout, {lead['tp_flash']} flash launches "
+            f"on the leader over {len(SERVE_ROWS)} requests, eager) and "
+            f"ModelServer on data=2 (buckets {lead['buckets']}, "
+            f"{lead['captures']} and {follow['captures']} captured graphs "
+            f"on ranks 0/1): answers within {worst['tp']:.3g} and "
+            f"{worst['dp']:.3g} of the world-1 server's (relative to the "
+            f"largest logit); {lead['tp_s']:.2f} s and {lead['dp_s']:.2f} s "
+            f"for the requests [{smi}]")
+        t44 = time.perf_counter() - t44
+        # ---------------------------------------------- 45 Word2Vec on mesh
+        t45 = time.perf_counter()
+        res = pool.run(mesh_rank_w2v, w1["w2v"]["sents"], w1["w2v"]["lr"],
+                       w1["w2v"]["path"], timeout=600)
+        for r, out in enumerate(res):
+            if not out["ok"] or out["margin"] <= 0:
+                fail(f"phase 45 rank {r}: syn0 off the replicated fit's by "
+                     f"{out['max_diff']:.3g} (bounds {W2V_MESH_TOL}), margin "
+                     f"{out['margin']:.4f}")
+        log(f"phase 45 Word2Vec over model=2 on phase 39's first "
+            f"{W2V_MESH_SENTENCES} sentences: syn0 piece "
+            f"{res[0]['local']}, whole syn0 within {res[0]['max_diff']:.3g} "
+            f"of the replicated fit's (bounds {W2V_MESH_TOL}); topic margin "
+            f"{res[0]['margin']:.4f}; all-reduces {res[0]['calls']} "
+            f"({res[0]['bytes']} bytes); fit {res[0]['fit_s']:.1f} s (two "
+            f"ranks over gloo, eager) vs the replicated captured fit "
+            f"{w1['w2v']['fit_s']:.1f} s [{smi}]")
+        log(f"phase 45: {time.perf_counter() - t45:.1f} s")
+        # ------------------------------ 44 (iii) ParallelInference shrinks
+        t_phase = time.perf_counter()
+        res = pool.run(mesh_rank_pi, timeout=600)
+        lead, follow = res
+        if follow != {"follow": "lost"} or lead["data"] != 1 \
+                or lead["members"] != [0] or lead["failures"] < 1 \
+                or len(lead["answers"]) != len(SERVE_ROWS) \
+                or lead["shrink_s"] is None:
+            fail(f"phase 44 ParallelInference: leader {lead}, follower "
+                 f"{follow}")
+        errs = [float(np.abs(a - b).max()) / float(np.abs(b).max())
+                for a, b in zip(lead["answers"], w1["serve"])]
+        if max(errs) > MESH_LOGIT_REL:
+            fail(f"phase 44 ParallelInference: answers off the world-1 "
+                 f"server's by {errs}")
+        log(f"phase 44 ParallelInference over data=2: rank 1 lost at "
+            f"serving batch {PI_LOSE_AT}, its batch retried on the survivor "
+            f"({lead['failures']} replica failure), all {len(SERVE_ROWS)} "
+            f"requests answered within {max(errs):.3g} of the world-1 "
+            f"server's; the shrink to world 1 took {lead['shrink_s']:.3f} s"
+            f" [{smi}]")
+        log(f"phase 44: {t44 + time.perf_counter() - t_phase:.1f} s")
+    import shutil
+    shutil.rmtree(store, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"phases 43-45: {time.perf_counter() - t_all:.1f} s")
+    return kernels
 
 
 def bound(nbytes: int, ops: int, peak: float) -> dict:

@@ -3,9 +3,9 @@
 
 A :class:`ShardedTrainingPlan` declares how a model trains over a
 :class:`~deeplearning4j_tpu_torch.parallel.mesh.DeviceMesh`: the batch
-splits over ``batch_axes`` (the data axis); a parameter that a rule
-shards over ``data`` is split at rest (FSDP style: each rank holds 1/n
-of it), the others replicate; a
+splits over ``batch_axes`` (the data axis by default, or the product of
+several); a parameter that a rule shards over any mesh axes is split at
+rest (each rank holds its piece), the others replicate; a
 :class:`~deeplearning4j_tpu_torch.distributed.zero.ZeroPlan` shards the
 updater state over the data axis. Attached to a network
 (``setShardingPlan``), it changes the network's own step, eager or
@@ -18,13 +18,19 @@ captured (``nn.network``):
   collectives.DataParallelStep`: sync BN, each rank's loss weighed by its
   share of the real rows, dropout at the rank's global row offset;
 - split parameters are all-gathered whole before the forward
-  (:meth:`gather_params`, one flat all-gather a dtype);
-- the gradients: a split parameter's are reduce-scattered to this
-  rank's piece, the others' and the loss summed in one flat all-reduce,
-  before gradient normalization (whose norms then sum the pieces'
-  squares over the group); a split parameter is updated on its piece
-  and stays split, and under ZeRO a replicated parameter is updated on
-  its piece and the pieces are all-gathered.
+  (:meth:`gather_params`, one flat all-gather a dtype over the data
+  axis; a piece over other axes is gathered over them);
+- the gradients: a parameter split over the data axis alone has its
+  gradient reduce-scattered to this rank's piece, the others' and the
+  loss summed in one flat all-reduce over the batch axes, before
+  gradient normalization (whose norms then sum the pieces' squares over
+  their axes); a parameter split over a ``model`` or ``seq`` axis keeps
+  its slice of the summed gradient: every rank of that axis ran the same
+  rows on the same gathered weights, so there is no reduction over it.
+  A split parameter is updated on its piece and stays split, and under
+  ZeRO a replicated parameter is updated on its piece and the pieces
+  are all-gathered. The updater state of a parameter split over a
+  non-data axis is split with it (ZeRO splits the rest over data).
 
 There is no compiler to partition a global program here, so the
 collectives are explicit (``parallel.collectives``), over the mesh's
@@ -32,11 +38,10 @@ process groups; DTensor and FSDP2 are not used: the step is functional
 over dicts of tensors updated in place, its kernels are bound through
 ctypes and it is captured into CUDA graphs. A plan with no rules and no
 ZeRO runs exactly the step ``ParallelWrapper`` runs (the same
-reduction, in the same order).
-
-What the next slice brings (ROADMAP.md): rules and batch axes over a
-``model`` or ``seq`` axis of size above 1; each raises
-``NotImplementedError``.
+reduction, in the same order). Rules over ``model`` are this gather at
+the step, not Megatron's split matmuls: a network's layers are opaque to
+the plan, so each rank runs them whole; the Megatron layout is
+``models.transformer``'s, whose forward is written for it.
 
 :func:`hlo_collective_bytes` is the counterpart of the JAX function of
 that name: the ``{kind: bytes}`` of the collectives one recorded step
@@ -55,11 +60,12 @@ from deeplearning4j_tpu_torch.data.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.distributed.zero import (ZeroPlan, full_value,
                                                        updater_hbm_bytes)
 from deeplearning4j_tpu_torch.parallel import collectives
-from deeplearning4j_tpu_torch.parallel.mesh import (SLICE_24, DeviceMesh,
-                                                    Placement, ShardingRule,
-                                                    check_spec, global_shape,
+from deeplearning4j_tpu_torch.parallel.mesh import (DeviceMesh, Placement,
+                                                    ShardingRule,
+                                                    global_shape,
+                                                    local_piece,
                                                     placement_of,
-                                                    set_placement)
+                                                    set_placement, split_of)
 
 
 def _coerce_rules(rules) -> Optional[ShardingRule]:
@@ -84,12 +90,13 @@ class ShardedTrainingPlan:
     - ``rules``: {param-name-regex: spec-tuple} (or a
       :class:`ShardingRule`) matched against ``"<layer-or-node-name>/
       <param>"``. A dim ruled over ``data`` splits the parameter at rest
-      over the data ranks (FSDP style); a ``model``/``seq`` axis of size
-      above 1 is tensor parallelism, which waits for the next slice and
-      raises ``NotImplementedError``. Rules naming size-1 axes
+      over the data ranks (FSDP style); over ``model``, ``seq`` or any
+      other axis it splits it over that axis's ranks, gathered whole for
+      each step (see the module note). Rules naming size-1 axes
       replicate.
     - ``batch_axes``: mesh axes the batch dim shards over (default
-      ``("data",)``).
+      ``("data",)``; several split it over their product, and the
+      gradients sum over all of them).
     - ``zero``: a :class:`ZeroPlan` (or ``True``) sharding updater state
       across the data axis.
     """
@@ -103,12 +110,12 @@ class ShardedTrainingPlan:
             if a not in mesh.axis_names:
                 raise ValueError(f"batch axis {a!r} is not a mesh axis "
                                  f"{tuple(mesh.axis_names)}")
-            if a != "data" and mesh.size(a) > 1:
-                raise NotImplementedError(f"batch axis {a!r}: {SLICE_24}")
         if self.rules is not None:
             for pat, spec in self.rules.rules:
-                check_spec(mesh, spec, f"rule {pat.pattern!r}")
+                split_of(mesh, spec, f"rule {pat.pattern!r}")
         self.zero = ZeroPlan.coerce(zero)
+        # a product group is formed collectively: now, on every rank alike
+        self.batch_group = mesh.group_over(self.batch_axes)
 
     # ------------------------------------------------------------ identity
     def signature(self):
@@ -131,8 +138,17 @@ class ShardedTrainingPlan:
 
     @property
     def group(self):
-        """The data axis's process group (None on one rank)."""
+        """The data axis's process group (None on one rank): the one
+        ZeRO and the data-axis split of a parameter work over."""
         return self.mesh.group("data")
+
+    def full(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole value of a piece this plan placed (a collective over
+        its axes); an untagged tensor as it is."""
+        p = placement_of(t)
+        if p is None or (p.axes == ("data",) and p.groups == 1):
+            return full_value(t, self.group)
+        return self.mesh.gather(t)
 
     def mesh_spec(self, **kw):
         """The declaration for the static analyzer: the mesh with this
@@ -169,7 +185,8 @@ class ShardedTrainingPlan:
     def opt_specs(self, model) -> Dict:
         """``{(layer, param, state key): spec}``: each param-shaped state
         tensor's ZeRO spec (its param's spec without ZeRO; a split
-        param's state is split with it)."""
+        param's state is split with it, and so is a param's split over a
+        non-data axis under ZeRO)."""
         n_axis = self.mesh.size(self.zero.axis) \
             if self.zero is not None else 1
         out = {}
@@ -180,35 +197,41 @@ class ShardedTrainingPlan:
                     shape = global_shape(s)
                     if shape != global_shape(v):
                         out[(n, k, sk)] = ()
-                    elif self.zero is not None:
+                    elif self.zero is not None and not self._split_beyond(
+                            pspec):
                         out[(n, k, sk)] = self.zero.state_spec(
                             pspec, shape, s.element_size(), n_axis)
                     else:
                         out[(n, k, sk)] = pspec
         return out
 
+    def _split_beyond(self, spec) -> bool:
+        """Whether ``spec`` splits over an axis other than ``data``."""
+        sp = split_of(self.mesh, spec, "rule")
+        return sp is not None and sp[1] != ("data",)
+
     def param_layout(self, model) -> Dict:
-        """``{(layer, param): dim}`` of the params split over the data
-        axis at rest (FSDP style: a rule shards them over ``data``, whose
-        size is above 1), with the dim each is split along."""
-        if self.rules is None or self.mesh.size("data") == 1:
+        """``{(layer, param): (dim, axes)}`` of the params split at rest:
+        a rule shards them over mesh axes of size above 1 (``("data",)``
+        alone is FSDP style), with the dim each is split along."""
+        if self.rules is None:
             return {}
         out = {}
         for (n, k), spec in self.param_specs(model).items():
-            d = check_spec(self.mesh, spec, f"rule for {n}/{k}")
-            if d is not None:
-                out[(n, k)] = d
+            sp = split_of(self.mesh, spec, f"rule for {n}/{k}")
+            if sp is not None:
+                out[(n, k)] = sp
         return out
 
     def zero_layout(self, model) -> Dict:
         """``{(layer, param): dim}`` of the params whose updater state is
-        split over the data axis (the dim it is split along): ZeRO's, and
-        a split parameter's, whose state follows it."""
+        split over the data axis alone (the dim it is split along):
+        ZeRO's, and a data-split parameter's, whose state follows it."""
         layout = {}
         for (n, k, _sk), spec in self.opt_specs(model).items():
-            for d, e in enumerate(spec):
-                if e == "data":
-                    layout[(n, k)] = d
+            sp = split_of(self.mesh, spec, f"state of {n}/{k}")
+            if sp is not None and sp[1] == ("data",):
+                layout[(n, k)] = sp[0]
         return layout
 
     # ----------------------------------------------------- batch placement
@@ -233,7 +256,8 @@ class ShardedTrainingPlan:
             return None
         if mega and np.ndim(a) == 1:
             return self.mesh.replicate(a)
-        return self.mesh.shard_rows(a, dim=1 if mega else 0)
+        return self.mesh.shard_rows(a, dim=1 if mega else 0,
+                                    axes=self.batch_axes)
 
     def localize(self, item):
         """A global DataSet, MultiDataSet or MegaBatch -> this rank's rows
@@ -243,7 +267,7 @@ class ShardedTrainingPlan:
                                                             pad_to_data_axis)
         from deeplearning4j_tpu_torch.train.stepping import MegaBatch
         n = self.data_shards()
-        r = self.mesh.coordinate("data")
+        r = self.mesh.index_over(self.batch_axes)
         mega = isinstance(item, MegaBatch)
         if not mega:
             item = pad_to_data_axis(item, n)
@@ -253,7 +277,7 @@ class ShardedTrainingPlan:
         b = int(first.shape[dim])
         if b % n:
             raise ValueError(f"a megabatch of {b} rows does not split over "
-                             f"a data axis of {n}")
+                             f"the batch axes' {n} ranks")
         c = b // n
         lo, hi = r * c, (r + 1) * c
 
@@ -282,63 +306,89 @@ class ShardedTrainingPlan:
                        cut(item.features_mask), cut(item.labels_mask))
 
     def step_context(self, rows: int) -> collectives.DataParallelStep:
-        """The data-parallel facts of one step over ``rows`` local rows."""
-        return collectives.DataParallelStep(self.group, rows)
+        """The data-parallel facts of one step over ``rows`` local rows
+        (over the batch axes' group)."""
+        return collectives.DataParallelStep(self.batch_group, rows)
 
     # ------------------------------------------------------ the step's seams
     def gather_params(self, model, grad: bool = True):
         """The model's params whole, for one step (``grad``: the gathered
         tensors are fresh autograd leaves) or one read: a copy of the
-        params tree with each split param all-gathered (one flat
-        all-gather a dtype; a collective every data rank enters), the
-        others the model's own tensors."""
+        params tree with each split param all-gathered (over the data
+        axis one flat all-gather a dtype; a collective every rank of the
+        split axes enters), the others the model's own tensors."""
         layout = model._fsdp_layout
         params = model._map(model._params, lambda v: v)
-        keys = list(layout)
+        keys = [nk for nk in layout if layout[nk][1] == ("data",)]
         wholes = collectives.flat_all_gather(
-            [(model._params[n][k], layout[(n, k)]) for n, k in keys],
+            [(model._params[n][k], layout[(n, k)][0]) for n, k in keys],
             self.group)
+        for nk in layout:
+            if nk not in keys:
+                keys.append(nk)
+                wholes.append(self.mesh.gather(model._params[nk[0]][nk[1]]))
         for (n, k), w in zip(keys, wholes):
             params[n][k] = w.requires_grad_(True) if grad else w
         return params
 
-    def reduce_gradients(self, grads, loss, dims=None):
-        """Reduce one step's gradients and (scaled) loss over the data
-        group: a gradient whose ``dims`` entry is a dim (a split param's)
-        is reduce-scattered to this rank's piece along it, the others and
-        the loss are summed in one flat all-reduce a dtype; returns
-        ``(grads, loss)``."""
-        dims = dims or [None] * len(grads)
-        whole = [i for i, d in enumerate(dims) if d is None]
-        split = [i for i, d in enumerate(dims) if d is not None]
+    def _scatters(self, split) -> bool:
+        """Whether a split param's gradient is reduce-scattered (split
+        over the data axis alone, the batch over it alone) rather than
+        summed whole and sliced."""
+        return split is not None and split[1] == ("data",) and \
+            self.batch_axes == ("data",)
+
+    def reduce_gradients(self, grads, loss, splits=None):
+        """Reduce one step's gradients and (scaled) loss over the batch
+        axes: a gradient whose ``splits`` entry is ``(dim, ("data",))`` (a
+        data-split param's) is reduce-scattered to this rank's piece
+        along it; the others and the loss are summed in one flat
+        all-reduce a dtype, and a param split over other axes keeps its
+        slice of the sum; returns ``(grads, loss)``."""
+        splits = splits or [None] * len(grads)
+        whole = [i for i, d in enumerate(splits) if not self._scatters(d)]
+        scat = [i for i, d in enumerate(splits) if self._scatters(d)]
         out = list(grads)
         summed = collectives.flat_all_reduce(
-            [grads[i] for i in whole] + [loss.reshape(1)], self.group)
+            [grads[i] for i in whole] + [loss.reshape(1)], self.batch_group)
         for i, g in zip(whole, summed):
             out[i] = g
-        if split:
+        if scat:
             pieces = collectives.flat_reduce_scatter(
-                [(grads[i], dims[i]) for i in split], self.group)
-            for i, g in zip(split, pieces):
+                [(grads[i], splits[i][0]) for i in scat], self.group)
+            for i, g in zip(scat, pieces):
                 out[i] = g
+        for i in whole:
+            if splits[i] is not None:
+                dim, axes = splits[i]
+                p = Placement(out[i].shape, dim, self.mesh.size(axes),
+                              self.mesh.index_over(axes), axes)
+                out[i] = local_piece(out[i], p)
         return out, summed[-1].reshape(loss.shape)
 
-    def grad_sq_norms(self, grads, dims) -> torch.Tensor:
+    def grad_sq_norms(self, grads, splits) -> torch.Tensor:
         """Each gradient's squared L2 norm (fp32), a piece's summed over
-        the data group: what gradient normalization divides by when some
-        gradients are pieces."""
+        the ranks of its split axes: what gradient normalization divides
+        by when some gradients are pieces."""
         sq = torch.stack([g.float().square().sum() for g in grads])
-        split = torch.tensor([d is not None for d in dims],
-                             device=sq.device)
-        total = collectives.all_reduce(torch.where(split, sq, 0.0),
-                                       self.group)
-        return torch.where(split, total, sq)
+        out = sq
+        for axes in sorted({s[1] for s in splits if s is not None}):
+            mine = torch.tensor([s is not None and s[1] == axes
+                                 for s in splits], device=sq.device)
+            total = collectives.all_reduce(torch.where(mine, sq, 0.0),
+                                           self.mesh.group_over(axes))
+            out = torch.where(mine, total, out)
+        return out
 
-    def all_finite(self, ok: torch.Tensor) -> torch.Tensor:
+    def all_finite(self, ok: torch.Tensor, splits=()) -> torch.Tensor:
         """A rank's all-finite flag over its gradient pieces -> the whole
-        gradient's (every rank's flag)."""
-        bad = collectives.all_reduce((~ok).to(torch.float32).reshape(1),
-                                     self.group)
+        gradient's: every rank's flag over each axis a param splits along
+        (``splits``: the split params' ``(dim, axes)``; the data axis
+        without them)."""
+        axes = {a for s in splits for a in s[1]} or {"data"}
+        bad = (~ok).to(torch.float32).reshape(1)
+        for a in [a for a in self.mesh.axis_names if a in axes]:
+            bad = collectives.all_reduce(bad, self.mesh.group(a))
         return (bad == 0).reshape(())
 
     def gather_pieces(self, pieces) -> None:
@@ -354,8 +404,8 @@ class ShardedTrainingPlan:
     def apply(self, model):
         """Place the model per this plan: params and layer states made
         equal on every rank (broadcast from data rank 0), the params a
-        rule splits over the data axis cut to this rank's piece, the
-        updater state split per the ZeRO layout (this rank keeps its
+        rule splits cut to this rank's piece, the updater state split per
+        the ZeRO layout or with its split param (this rank keeps its
         pieces), the ``dl4j_updater_hbm_bytes`` gauge refreshed. A layout
         change drops the captured steps (they hold the old tensors).
         Idempotent."""
@@ -366,10 +416,14 @@ class ShardedTrainingPlan:
                               devices=self.mesh.size()):
             changed = self.place_params(model)
             layout = self.zero_layout(model)
+            beyond = {nk: sp for nk, sp in self.param_layout(model).items()
+                      if sp[1] != ("data",)}
             for n_, p in model._items(model._params):
                 for k, v in p.items():
                     st = model._opt_state[n_][k]
-                    d = layout.get((n_, k))
+                    d = beyond.get((n_, k))
+                    if d is None and (n_, k) in layout:
+                        d = (layout[(n_, k)], ("data",))
                     for sk, s in list(st.items()):
                         shaped = global_shape(s) == global_shape(v)
                         new = self._placed(s, d if shaped else None)
@@ -382,32 +436,35 @@ class ShardedTrainingPlan:
         updater_hbm_bytes(model._opt_state)
         return model
 
-    def _placed(self, t: torch.Tensor, dim: Optional[int]):
+    def _placed(self, t: torch.Tensor, split):
         """``t`` (whole, or a piece) as this plan places it: this rank's
-        piece along ``dim``, or whole for None; ``t`` itself when it is
-        placed so already."""
-        n = self.mesh.size("data")
+        piece of ``split`` (``(dim, axes)``), or whole for None; ``t``
+        itself when it is placed so already."""
         cur = placement_of(t)
         want = None
-        if dim is not None:
+        if split is not None:
+            dim, axes = split
+            n = self.mesh.size(axes)
             shape = global_shape(t)
-            if shape[dim] % n:
+            # the data axis's collectives take equal pieces; the others
+            # split unevenly where they must (``Placement``)
+            if shape[dim] < n or (axes == ("data",) and shape[dim] % n):
                 raise ValueError(f"dim {dim} ({shape[dim]}) does not split "
-                                 f"over a data axis of {n}")
-            want = Placement(shape, dim, n, self.mesh.coordinate("data"))
+                                 f"over {'x'.join(axes)} of {n}")
+            want = Placement(shape, dim, n, self.mesh.index_over(axes), axes)
         if _same(cur, want):
             return t
-        full = full_value(t, self.group) if cur is not None else t.detach()
+        full = self.full(t) if cur is not None else t.detach()
         if want is None:
             return set_placement(full.contiguous(), None)
         return set_placement(full[want.slices()].contiguous().clone(), want)
 
     def place_params(self, model) -> bool:
         """Params and layer states (not updater state): each whole one
-        equal on every rank of the data axis (broadcast from its rank 0,
-        in place), then the params a rule splits over the data axis cut
-        to this rank's piece (FSDP style; a split param is a fresh
-        tensor). Returns whether any param changed its placement."""
+        equal on every rank (broadcast from rank 0 of the data axis, in
+        place, then along each other axis of size above 1), then the
+        params a rule splits cut to this rank's piece (a split param is a
+        fresh tensor). Returns whether any param changed its placement."""
         layout = self.param_layout(model)
         tensors = [v for _, p in model._items(model._params)
                    for v in p.values() if placement_of(v) is None]
@@ -420,6 +477,10 @@ class ShardedTrainingPlan:
             # collective, which must not be inside a capture
             for t in tensors:
                 collectives.broadcast(t.data, group)
+            for a in self.mesh.axis_names:
+                if a != "data" and self.mesh.size(a) > 1:
+                    for t in tensors:
+                        collectives.broadcast(t.data, self.mesh.group(a))
             for n, p in model._items(model._params):
                 for k, v in list(p.items()):
                     new = self._placed(v, layout.get((n, k)))
@@ -443,7 +504,7 @@ class ShardedTrainingPlan:
             view._params = self.gather_params(model, grad=False)
             view._fsdp_layout = None
         view._opt_state = model._map(model._opt_state, lambda sd: {
-            sk: full_value(sv, self.group) for sk, sv in sd.items()})
+            sk: self.full(sv) for sk, sv in sd.items()})
         return view
 
     def ensure_placed(self, model) -> None:
@@ -468,8 +529,8 @@ class ShardedTrainingPlan:
 def _same(a: Optional[Placement], b: Optional[Placement]) -> bool:
     if a is None or b is None:
         return a is b
-    return (a.global_shape, a.dim, a.parts, a.index) == \
-        (b.global_shape, b.dim, b.parts, b.index)
+    return (a.global_shape, a.dim, a.parts, a.index, a.axes, a.groups) == \
+        (b.global_shape, b.dim, b.parts, b.index, b.axes, b.groups)
 
 
 # --------------------------------------------------------------- trainer

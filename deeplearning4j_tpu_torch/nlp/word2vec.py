@@ -29,9 +29,17 @@ call, so parity tests inject the JAX draws). No ``torch.Generator`` is
 involved, so a captured step needs none; the streams differ from
 threefry's, so parity is by injected negatives and by a chi-square bound.
 
-Not ported (ROADMAP.md queue 1 item 1, the multi-device work): the
-``mesh=`` option and :meth:`Word2Vec.shard_over_mesh` raise
-``NotImplementedError``.
+Over a mesh (``Word2Vec(mesh=)`` / ``Builder().mesh(m)``): ``syn0`` and
+``syn1`` are split along the layer dim over the ``model`` axis (JAX
+word2vec.py:91-97, :161-163), each rank holding ``D/model`` columns of
+both. A pair's dot products are partial sums over the rank's columns,
+joined by one small all-reduce a step (every score of the batch in one
+message; the JAX step's psum); the negatives are the same on every rank
+(one key), and each rank updates its own columns. The step runs eagerly
+there: gloo's host-staged all-reduce cannot be captured.
+:meth:`Word2Vec.shard_over_mesh` splits both tables along the
+vocabulary instead (JAX :274-295), zero-padded to the axis's multiple;
+queries gather them back.
 """
 
 from __future__ import annotations
@@ -48,10 +56,6 @@ from deeplearning4j_tpu_torch.nlp.tokenization import (DefaultTokenizerFactory,
                                                        TokenizerFactory)
 from deeplearning4j_tpu_torch.nn import compilecache as cc
 from deeplearning4j_tpu_torch.ops.normalization import StepKey, hash24
-
-_MESH = ("sharding Word2Vec's tables over a mesh is not ported yet "
-         "(ROADMAP.md queue 1 item 1, the multi-device work)")
-
 
 class VocabCache:
     """ref: org.deeplearning4j.models.word2vec.wordstore.VocabCache."""
@@ -121,12 +125,19 @@ def draw_negatives(key: StepKey, cdf: torch.Tensor, shape) -> torch.Tensor:
     return idx.clamp_(max=cdf.shape[0] - 1).reshape(tuple(shape))
 
 
-def _sgns_grads(v, u_pos, u_neg):
+def _sgns_grads(v, u_pos, u_neg, group=None):
     """Gradients of ``-(mean log s(v.u_pos) + mean sum_k log s(-v.u_neg))``
-    (the JAX step's loss) with respect to ``v``, ``u_pos`` and ``u_neg``."""
+    (the JAX step's loss) with respect to ``v``, ``u_pos`` and ``u_neg``.
+    With ``group`` the rows hold this rank's columns: the scores are
+    summed over the group (one all-reduce) before the gradients."""
     B = v.shape[0]
     sp = (v * u_pos).sum(-1)
     sn = torch.einsum("bd,bkd->bk", v, u_neg)
+    if group is not None:
+        from deeplearning4j_tpu_torch.parallel import collectives
+        both = collectives.all_reduce(torch.cat([sp[:, None], sn], 1),
+                                      group)
+        sp, sn = both[:, 0], both[:, 1:]
     gsp = -torch.sigmoid(-sp) / B
     gsn = torch.sigmoid(sn) / B
     g_v = gsp[:, None] * u_pos + torch.einsum("bk,bkd->bd", gsn, u_neg)
@@ -134,15 +145,16 @@ def _sgns_grads(v, u_pos, u_neg):
 
 
 def _w2v_step(syn0, syn1, centers, contexts, lr, t, *, cdf, negative,
-              cbow, seed):
+              cbow, seed, group=None):
     """One skip-gram step (CBOW: pairwise context -> center, the
     pair-sampled equivalent the reference's CBOW batches reduce to) with
-    negative sampling: both tables and the clock updated in place."""
+    negative sampling: both tables and the clock updated in place (with
+    ``group``, this rank's columns of them)."""
     inp = contexts if cbow else centers
     out = centers if cbow else contexts
     neg = draw_negatives(StepKey(seed, t), cdf, (inp.shape[0], negative))
     v, u_pos, u_neg = syn0[inp], syn1[out], syn1[neg]
-    g_v, g_pos, g_neg = _sgns_grads(v, u_pos, u_neg)
+    g_v, g_pos, g_neg = _sgns_grads(v, u_pos, u_neg, group)
     step = -lr
     syn0.index_add_(0, inp, g_v * step)
     syn1.index_add_(0, out, g_pos * step)
@@ -169,9 +181,10 @@ class Word2Vec:
                  iterations=1, epochs=1, batch_size=512, seed=42,
                  elements_algo="skipgram", tokenizer: TokenizerFactory = None,
                  sentence_iter=None, mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(_MESH)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None \
+            else mesh.device
+        self._table_mesh = None     # the mesh the tables are split over
         self.layer_size = layer_size
         self.window = window_size
         self.min_word_frequency = min_word_frequency
@@ -246,8 +259,10 @@ class Word2Vec:
     def _step_fn(self, cdf):
         """The training step as the dispatch calls it: the tables and the
         clock are its state, read and written in place."""
+        group = self.mesh.group("model") \
+            if self._table_mesh is not None else None
         kw = dict(cdf=cdf, negative=self.negative, cbow=self.algo == "cbow",
-                  seed=self.seed)
+                  seed=self.seed, group=group)
 
         def step(centers, contexts, lr):
             _w2v_step(self.syn0, self.syn1, centers, contexts, lr, self._t,
@@ -265,16 +280,23 @@ class Word2Vec:
         self.syn0 = torch.from_numpy(
             (rng.rand(V, D).astype(np.float32) - 0.5) / D).to(dev)
         self.syn1 = torch.zeros((V, D), dtype=torch.float32, device=dev)
+        self._table_mesh = None
+        if self.mesh is not None and self.mesh.size("model") > 1:
+            from deeplearning4j_tpu_torch.parallel.mesh import place_by_spec
+            self.syn0 = place_by_spec(self.mesh, self.syn0, (None, "model"))
+            self.syn1 = place_by_spec(self.mesh, self.syn1, (None, "model"))
+            self._table_mesh = self.mesh
         self._t = torch.zeros((), dtype=torch.int64, device=dev)
         cdf = unigram_cdf(self.vocab.counts, dev)
 
         ids_per_sent = [np.asarray([self.vocab.indexOf(t) for t in toks
                                     if self.vocab.containsWord(t)], np.int32)
                         for toks in token_lists]
-        self._dispatch = cc.CachedDispatch(
-            self._step_fn(cdf), "nlp:word2vec",
-            state=lambda: [self.syn0, self.syn1, self._t],
-            always_capture=True)
+        step = self._step_fn(cdf)
+        self._dispatch = step if self._table_mesh is not None else \
+            cc.CachedDispatch(step, "nlp:word2vec",
+                              state=lambda: [self.syn0, self.syn1, self._t],
+                              always_capture=True)
         total_updates = 0
         n_steps_est = max(1, self.epochs * self.iterations * sum(
             max(len(s) - 1, 0) for s in ids_per_sent) * 2 * (
@@ -322,15 +344,20 @@ class Word2Vec:
 
     # ------------------------------------------------------------- querying
     def getWordVectorMatrix(self) -> torch.Tensor:
+        """``syn0`` whole (gathered when it is split over a mesh)."""
+        if self._table_mesh is not None:
+            return self._table_mesh.gather(self.syn0)
         return self.syn0
 
     def _host_table(self) -> np.ndarray:
-        return self.syn0.detach().cpu().numpy()
+        return self.getWordVectorMatrix().detach().cpu().numpy()
 
     def getWordVector(self, word: str) -> np.ndarray:
         i = self.vocab.indexOf(word)
         if i < 0:
             raise KeyError(word)
+        if self._table_mesh is not None:
+            return self._host_table()[i]
         return self.syn0[i].detach().cpu().numpy()
 
     def hasWord(self, word: str) -> bool:
@@ -353,7 +380,26 @@ class Word2Vec:
                 if j != i][:n]
 
     def shard_over_mesh(self, mesh):
-        raise NotImplementedError(_MESH)
+        """Split both tables over the mesh's ``model`` axis along the
+        VOCAB dim (ref: the 'sharded parameter server' row: a vocabulary
+        past one card's memory), the vocab dim zero-padded up to a
+        multiple of the axis size (padding rows are never indexed: ids <
+        numWords). Queries gather the tables back."""
+        from deeplearning4j_tpu_torch.parallel.mesh import place_by_spec
+        axis = mesh.size("model")
+        t0 = self.getWordVectorMatrix()
+        t1 = self.syn1 if self._table_mesh is None \
+            else self._table_mesh.gather(self.syn1)
+        V = int(t0.shape[0])
+        padded = -(-V // axis) * axis
+        if padded != V:
+            pad = torch.zeros((padded - V, t0.shape[1]), dtype=t0.dtype,
+                              device=t0.device)
+            t0, t1 = torch.cat([t0, pad]), torch.cat([t1, pad])
+        self.syn0 = place_by_spec(mesh, t0, ("model", None))
+        self.syn1 = place_by_spec(mesh, t1, ("model", None))
+        self._table_mesh = mesh if axis > 1 else None
+        return self
 
 
 class SequenceVectors(Word2Vec):

@@ -803,7 +803,7 @@ class BaseNetwork:
         if dynamic:
             ok = precision.grads_all_finite(grads)
             if fsdp:
-                ok = plan.all_finite(ok)
+                ok = plan.all_finite(ok, fsdp.values())
         self._process_and_apply_grads(
             names, [self._params[n][k] for n, k in names], grads, ok)
         if dynamic:
@@ -1006,12 +1006,12 @@ class BaseNetwork:
                 self._params[n][k] = mesh_mod.set_placement(
                     whole[n][k].contiguous().requires_grad_(True), None)
             self._fsdp_layout = None
-        if plan is None and cur is not None and self._zero_layout:
-            from deeplearning4j_tpu_torch.distributed.zero import full_value
+        if plan is None and cur is not None and self._opt_state is not None:
             for _, st in self._items(self._opt_state):
                 for sd in st.values():
                     for sk, sv in list(sd.items()):
-                        sd[sk] = full_value(sv, cur.group).contiguous()
+                        if mesh_mod.placement_of(sv) is not None:
+                            sd[sk] = cur.full(sv).contiguous()
             self._zero_layout = None
         self._sharding_plan = plan
         if not same:

@@ -1,13 +1,12 @@
 """Parallelism over ranks — the port of ``deeplearning4j_tpu/parallel``:
 multi-process initialization (:mod:`.init`), the rank mesh and sharding
 declarations (:mod:`.mesh`), the collectives (:mod:`.collectives`),
-per-rank data sharding (:mod:`.data`), ``ParallelWrapper``
-(:mod:`.wrapper`), sharded checkpoints (:mod:`.checkpoint`) and elastic
-training with the dispatch watchdog (:mod:`.elastic`).
-
-Not ported yet (ROADMAP.md, the next slice): ``ring_attention``
-(``parallel/sequence.py``), the pipeline (``parallel/pipeline.py``) and
-``ParallelInference``."""
+per-rank data sharding (:mod:`.data`), ``ParallelWrapper`` and
+``ParallelInference`` (:mod:`.wrapper`, the latter over the
+leader/follower dispatch of :mod:`.leader`), sharded checkpoints
+(:mod:`.checkpoint`), elastic training with the dispatch watchdog
+(:mod:`.elastic`), ring attention over a ``seq`` axis (:mod:`.sequence`)
+and the GPipe schedule over a ``pipe`` axis (:mod:`.pipeline`)."""
 
 from deeplearning4j_tpu_torch.parallel.checkpoint import (load_sharded,
                                                           save_sharded)
@@ -22,4 +21,9 @@ from deeplearning4j_tpu_torch.parallel.init import (distributed_info,
                                                     initializeDistributed,
                                                     shutdownDistributed)
 from deeplearning4j_tpu_torch.parallel.mesh import DeviceMesh, ShardingRule
-from deeplearning4j_tpu_torch.parallel.wrapper import ParallelWrapper
+from deeplearning4j_tpu_torch.parallel.sequence import ring_attention
+from deeplearning4j_tpu_torch.parallel.wrapper import (InferenceFailedError,
+                                                       InferenceObservable,
+                                                       InferenceShutdownError,
+                                                       ParallelInference,
+                                                       ParallelWrapper)

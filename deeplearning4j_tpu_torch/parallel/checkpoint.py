@@ -31,7 +31,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from deeplearning4j_tpu_torch.parallel.mesh import (Placement, check_spec,
+from deeplearning4j_tpu_torch.parallel.mesh import (Placement,
+                                                    placement_for,
                                                     placement_of,
                                                     set_placement)
 from deeplearning4j_tpu_torch.train.resilience import CorruptCheckpointError
@@ -244,13 +245,9 @@ def _target_placement(leaf, mesh, spec) -> Optional[Placement]:
     if spec is None:
         return placement_of(leaf) if isinstance(leaf, torch.Tensor) \
             else None
-    dim = check_spec(mesh, spec, "load_sharded")
-    n = mesh.size("data")
-    if dim is None or n == 1:
-        return None
     shape = tuple(placement_of(leaf).global_shape) \
         if placement_of(leaf) is not None else tuple(leaf.shape)
-    return Placement(shape, dim, n, mesh.coordinate("data"))
+    return placement_for(mesh, shape, spec, "load_sharded")
 
 
 def load_sharded(directory: str, target_tree, mesh=None, specs=None):

@@ -3,7 +3,8 @@ parallel path goes through this module, over one mesh axis's process
 group (``DeviceMesh.group(axis)``).
 
 - :func:`all_reduce`, :func:`all_gather`, :func:`reduce_scatter`,
-  :func:`broadcast`:
+  :func:`broadcast`, :func:`ppermute` (the neighbour exchange of JAX's
+  ``lax.ppermute``):
   ``torch.distributed`` calls on a group; without a group they are the
   identity and issue nothing (a group of one rank still issues them:
   NCCL makes its communicator, a capture records them). Each call
@@ -21,6 +22,13 @@ group (``DeviceMesh.group(axis)``).
   ``StepKey``; :meth:`~DataParallelStep.scale_loss` weighs a rank's loss
   by its share of the global count of real rows; ``regularize`` adds
   the L1/L2 term on data rank 0 only (the gradients are summed).
+- Differentiable forms for the tensor, sequence and pipeline axes:
+  :func:`all_reduce_sum_grad` (backward: the sum of the gradients),
+  :func:`ppermute_grad` (backward: the reverse shift) and
+  :func:`all_gather_grad` along a dim (backward: a reduce-scatter). They
+  follow one convention: the objective is the sum of the ranks' own
+  objectives, so a rank whose loss every rank of a group computes alike
+  divides it by the group's size.
 """
 
 from __future__ import annotations
@@ -172,6 +180,98 @@ def broadcast(t: torch.Tensor, group, src_rank: int = 0) -> torch.Tensor:
     else:
         dist.broadcast(t, src, group=group)
     return t
+
+
+def _peers(group, shift: int, wrap: bool):
+    """``(dst, src)``: the global ranks this rank sends to and receives
+    from under a shift of ``shift`` along ``group`` (None where a rank
+    has no partner: the ends of an unwrapped line)."""
+    n, r = group_size(group), group_rank(group)
+    d, s = r + shift, r - shift
+    if wrap:
+        d, s = d % n, s % n
+    dst = dist.get_global_rank(group, d) if 0 <= d < n else None
+    src = dist.get_global_rank(group, s) if 0 <= s < n else None
+    return dst, src
+
+
+def ppermute(t: torch.Tensor, group, shift: int = 1,
+             wrap: bool = True) -> torch.Tensor:
+    """JAX's ``lax.ppermute`` along ``group``: group rank ``r`` sends
+    ``t`` to rank ``r + shift`` and returns what rank ``r - shift`` sent
+    (modulo the group's size under ``wrap``, the ring; without it a rank
+    with no source receives zeros, as in JAX). Built from ``isend`` and
+    ``irecv``; under gloo a card tensor is staged through pinned host
+    memory. Recorded as ``collective-permute``."""
+    n = group_size(group)
+    if n == 1 or _skip(group):
+        return t.clone() if wrap or shift == 0 else torch.zeros_like(t)
+    dst, src = _peers(group, shift, wrap)
+    src_t = t.contiguous()
+    staged = _staged(group, src_t)
+    if staged:
+        src_t = _host(src_t)
+    out = torch.empty(src_t.shape, dtype=t.dtype, device=src_t.device,
+                      pin_memory=staged)
+    ops = []
+    if dst is not None:
+        _note("collective-permute", _nbytes(t))
+        ops.append(dist.P2POp(dist.isend, src_t, dst, group))
+    if src is not None:
+        ops.append(dist.P2POp(dist.irecv, out, src, group))
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    if src is None:
+        return torch.zeros_like(t)
+    return out.to(t.device, non_blocking=False) if staged else out
+
+
+class _PPermute(torch.autograd.Function):
+    """:func:`ppermute` whose backward sends each gradient back the way
+    its value came: the same exchange with ``-shift``."""
+
+    @staticmethod
+    def forward(ctx, x, group, shift, wrap):
+        ctx.group, ctx.shift, ctx.wrap = group, shift, wrap
+        return ppermute(x, group, shift, wrap)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ppermute(g.contiguous(), ctx.group, -ctx.shift,
+                        ctx.wrap), None, None, None
+
+
+def ppermute_grad(x: torch.Tensor, group, shift: int = 1,
+                  wrap: bool = True) -> torch.Tensor:
+    """Differentiable :func:`ppermute` (backward: the reverse shift)."""
+    return _PPermute.apply(x, group, int(shift), bool(wrap))
+
+
+class _AllGatherDim(torch.autograd.Function):
+    """Every rank's ``x`` joined along ``dim`` in group-rank order; the
+    backward sums the incoming gradients over the group and hands each
+    rank its own piece (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        parts = all_gather(x.contiguous(), group)
+        return torch.cat(list(parts.unbind(0)), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = group_size(ctx.group)
+        rows = torch.stack([c.contiguous()
+                            for c in g.chunk(n, dim=ctx.dim)])
+        return reduce_scatter(rows, ctx.group), None, None
+
+
+def all_gather_grad(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Differentiable all-gather of ``x`` along ``dim`` (backward: a
+    reduce-scatter of the gradient)."""
+    if _skip(group):
+        return x
+    return _AllGatherDim.apply(x, group, dim % x.dim())
 
 
 class _AllReduceSum(torch.autograd.Function):

@@ -198,7 +198,7 @@ def shrink_mesh_on_dead(mesh, plan=None, context: str = "serving"):
     health = DeviceMonitor(plan=plan).probe(devices)
     if not health.dead:
         return None
-    if mesh.size("model") * mesh.size("seq") > 1:
+    if mesh.size() != mesh.size("data"):
         warnings.warn(
             f"{context}: rank(s) {sorted(health.dead)} are dead but the "
             "mesh has model/seq axes — cannot shrink a tensor-parallel "
@@ -489,7 +489,6 @@ def fit_elastic(wrapper, iterator, epochs: int = 1,
     if cfg.lr_policy not in ("none", "linear", "sqrt"):
         raise ValueError(f"unknown lr_policy {cfg.lr_policy!r} (expected "
                          "none|linear|sqrt)")
-    wrapper.mesh.require_data_only("elastic training")
     model = wrapper.model
     wrapper._attach()
     ranks = [d.id for d in wrapper.mesh.devices]
@@ -663,6 +662,13 @@ def _shrink_and_resume(wrapper, model, session, iterator,
                    "starting coordinated mesh shrink", loss.step,
                    sorted(loss.dead), len(loss.surviving))
     mesh = wrapper.mesh
+    if mesh.size() != mesh.size("data"):
+        # each rank of a model/seq/pipe line holds a piece nobody else
+        # does: dropping one loses it (the shrink guard of
+        # shrink_mesh_on_dead, for training)
+        raise ElasticShrinkError(
+            f"cannot shrink a mesh with axes {mesh.shape} beyond data: a "
+            "tensor/sequence/pipeline-parallel piece would be lost") from loss
     if len(loss.surviving) < max(cfg.min_devices, 1):
         raise ElasticShrinkError(
             f"only {len(loss.surviving)} devices survive (< min_devices="

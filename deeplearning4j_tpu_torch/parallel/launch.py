@@ -4,8 +4,12 @@ a parent that holds a CUDA context), wires them into one process group
 (``initializeDistributed`` over a shared-file store, so no port is
 fixed) and runs functions on them.
 
-    with RankPool(2, device="cpu", store_dir=tmp) as pool:
+    with RankPool(2, tmp, device="cpu") as pool:  # the CPU: gloo
         results = pool.run(train_fn, cfg)    # [rank 0's, rank 1's]
+
+Without ``device=`` the ranks take the card (rank r on card ``r %
+cards``), as every entry point of the port does; without a card that
+raises unless ``device="cpu"`` is passed.
 
 ``fn(*args)`` must be importable by name (a module-level function of an
 importable module: the children import it); it runs in every rank (or
@@ -116,14 +120,18 @@ def _module_dir(fn) -> Optional[str]:
 
 class RankPool:
     """``world`` spawned rank processes in one group (see the module
-    note). ``device``: ``"cpu"`` (gloo) or ``"cuda"`` (rank r on card
-    ``r % cards``; NCCL unless ``backend=`` says otherwise — two ranks on
-    one card need ``backend="gloo"``)."""
+    note). ``device``: ``"cuda"`` (the default: rank r on card ``r %
+    cards``; NCCL unless ``backend=`` says otherwise — two ranks on one
+    card need ``backend="gloo"``) or ``"cpu"`` (gloo). Without a card
+    the default raises before any rank starts."""
 
-    def __init__(self, world: int, store_dir: str, device: str = "cpu",
+    def __init__(self, world: int, store_dir: str, device: str = None,
                  backend: Optional[str] = None, timeout: float = 120.0,
                  threads: int = 1, env: Optional[dict] = None,
                  start_timeout: float = 120.0):
+        if device is None:
+            from deeplearning4j_tpu_torch.device import resolve_device
+            device = str(resolve_device(None))   # the card, or raise
         self.world = int(world)
         os.makedirs(store_dir, exist_ok=True)
         self._store_dir = store_dir

@@ -1,8 +1,8 @@
 """Device mesh + sharding declarations — the port of
 ``deeplearning4j_tpu/parallel/mesh.py``.
 
-A :class:`DeviceMesh` is a ``(data, model, seq)`` grid of ranks, one
-device a rank: a ``torch.distributed.device_mesh.DeviceMesh`` (what
+A :class:`DeviceMesh` is a grid of ranks with named axes, one device a
+rank: a ``torch.distributed.device_mesh.DeviceMesh`` (what
 ``init_device_mesh`` builds over every rank) in the default process
 group (``parallel.init.initializeDistributed``), whose per-axis groups
 carry the collectives (``parallel.collectives``). A process with no
@@ -12,15 +12,21 @@ identity.
 Axes convention (the JAX package's):
 
 - ``data``  — the batch dim (data parallelism: gradients all-reduced)
-- ``model`` — tensor parallelism, and ``seq`` — sequence parallelism;
-  their rules wait for the next slice (ROADMAP.md): a mesh may name
-  them, a rule or a plan that shards over one of size above 1 raises.
+- ``model`` — tensor parallelism (Megatron: activations all-reduced)
+- ``seq``   — sequence parallelism (ring attention over the axis)
+
+:meth:`DeviceMesh.create` builds the ``(data, model, seq)`` grid;
+:meth:`DeviceMesh.from_axes` any other, e.g. ``{"data": 2, "pipe": 4}``
+for the pipeline (``parallel.pipeline``), as the JAX tests build
+``Mesh(devices.reshape(2, 4), ("data", "pipe"))``. An axis a mesh does
+not name has size 1 there.
 
 A sharded tensor is a rank's local piece of a global array, tagged with
 its :class:`Placement` (global shape, the dim it is split along, the
-number of pieces and this rank's piece); an untagged tensor is
-replicated. A spec is a tuple of axis names (or None) a dim — the
-port has no ``PartitionSpec``.
+mesh axes that split it, the number of pieces and this rank's piece); an
+untagged tensor is replicated. A spec is a tuple of axis names (or None,
+or a tuple of names) a dim — the port has no ``PartitionSpec``. A dim
+named by two axes splits over their product, the first one major.
 """
 
 from __future__ import annotations
@@ -41,35 +47,53 @@ AXES = ("data", "model", "seq")
 #: its first rank, stable across a shrink — the JAX device id's role)
 RankDevice = namedtuple("RankDevice", ["id", "device"])
 
-SLICE_24 = ("tensor and sequence parallelism (a 'model' or 'seq' axis "
-            "of size above 1) are not ported yet; they come with the "
-            "next slice of the port (ROADMAP.md queue 1)")
-
 
 class Placement:
     """Where a tensor's values sit in its global array: piece ``index`` of
-    ``parts`` equal pieces along ``dim`` of ``global_shape``."""
+    ``parts`` pieces along ``dim`` of ``global_shape``, split over the
+    mesh ``axes`` (major first). A dim the parts do not divide splits as
+    ``torch.chunk`` does (pieces of ``ceil(n / parts)``, the last ones
+    shorter), as GSPMD pads an uneven split. With ``groups`` above 1 the
+    dim is ``groups`` equal blocks, each split alike (evenly), and the
+    piece is the blocks' pieces joined (a fused ``[q | k | v]``
+    projection split by heads)."""
 
-    __slots__ = ("global_shape", "dim", "parts", "index")
+    __slots__ = ("global_shape", "dim", "parts", "index", "axes", "groups")
 
-    def __init__(self, global_shape, dim: int, parts: int, index: int):
+    def __init__(self, global_shape, dim: int, parts: int, index: int,
+                 axes: Tuple[str, ...] = ("data",), groups: int = 1):
         self.global_shape = tuple(int(s) for s in global_shape)
         self.dim, self.parts, self.index = int(dim), int(parts), int(index)
+        self.axes = tuple(axes)
+        self.groups = int(groups)
 
     def slices(self) -> Tuple[slice, ...]:
-        """This piece's global index, one slice a dim."""
-        c = self.global_shape[self.dim] // self.parts
-        return tuple(slice(self.index * c, (self.index + 1) * c)
-                     if d == self.dim else slice(0, s)
+        """This piece's global index, one slice a dim (one block: a
+        grouped placement has no single index)."""
+        if self.groups != 1:
+            raise ValueError(f"{self!r}: a grouped piece is not one slice")
+        n = self.global_shape[self.dim]
+        c = self.chunk()
+        lo = min(self.index * c, n)
+        return tuple(slice(lo, min(lo + c, n)) if d == self.dim
+                     else slice(0, s)
                      for d, s in enumerate(self.global_shape))
 
-    def spec(self, axis: str = "data") -> Tuple:
-        return tuple(axis if d == self.dim else None
+    def chunk(self) -> int:
+        """The length of a whole piece along ``dim`` (the last ones of an
+        uneven split are shorter)."""
+        return -(-self.global_shape[self.dim] // self.parts)
+
+    def spec(self, axis: str = None) -> Tuple:
+        entry = axis if axis is not None else (
+            self.axes[0] if len(self.axes) == 1 else self.axes)
+        return tuple(entry if d == self.dim else None
                      for d in range(len(self.global_shape)))
 
     def __repr__(self):
+        g = f", groups={self.groups}" if self.groups != 1 else ""
         return (f"Placement({self.global_shape}, dim={self.dim}, "
-                f"{self.index}/{self.parts})")
+                f"{self.index}/{self.parts} over {self.axes}{g})")
 
 
 def placement_of(t) -> Optional[Placement]:
@@ -92,11 +116,38 @@ def local_piece(full, placement: Optional[Placement]):
     """This rank's piece of a full (host or device) array."""
     if placement is None:
         return full
-    return full[placement.slices()]
+    if placement.groups == 1:
+        return full[placement.slices()]
+    p = placement
+    n = p.global_shape[p.dim] // p.groups
+    c = n // p.parts
+    idx = [slice(None)] * len(p.global_shape)
+    blocks = []
+    for g in range(p.groups):
+        idx[p.dim] = slice(g * n + p.index * c, g * n + (p.index + 1) * c)
+        blocks.append(full[tuple(idx)])
+    if isinstance(full, torch.Tensor):
+        return torch.cat(blocks, dim=p.dim)
+    return np.concatenate(blocks, axis=p.dim)
+
+
+def assemble(pieces, placement: Placement):
+    """The whole array from every rank's piece (``pieces``: a list in
+    piece order, or a tensor whose dim 0 runs over them): the inverse of
+    :func:`local_piece`."""
+    pieces = list(pieces.unbind(0)) if isinstance(pieces, torch.Tensor) \
+        else list(pieces)
+    d, g = placement.dim, placement.groups
+    if g == 1:
+        whole = torch.cat(pieces, dim=d)
+        return whole.narrow(d, 0, placement.global_shape[d])
+    chunks = [pc.chunk(g, dim=d) for pc in pieces]
+    return torch.cat([chunks[r][b] for b in range(g)
+                      for r in range(len(pieces))], dim=d)
 
 
 def spec_of(t) -> Tuple:
-    """The tensor's spec: the data axis on its split dim, else all None
+    """The tensor's spec: its split axes on its split dim, else all None
     (replicated)."""
     p = placement_of(t)
     if p is None:
@@ -110,7 +161,7 @@ class DeviceMesh:
     def __init__(self, mesh, shape: Dict[str, int], ranks: Sequence[int],
                  device_type: str):
         self.mesh = mesh                    # torch DeviceMesh or None
-        self.shape = dict(shape)
+        self.shape = dict(shape)            # axis -> size, in mesh order
         self.ranks = [int(r) for r in ranks]
         self.device_type = device_type
 
@@ -120,19 +171,36 @@ class DeviceMesh:
         """Build a (data, model, seq) mesh over ``devices`` (ranks or
         :data:`RankDevice` s; default every rank of the default group).
         ``data=-1`` takes all remaining."""
+        return DeviceMesh.from_axes({"data": data, "model": model,
+                                     "seq": seq}, devices)
+
+    @staticmethod
+    def from_axes(axes: Dict[str, int],
+                  devices: Sequence = None) -> "DeviceMesh":
+        """A mesh of any named axes, ``{axis: size}`` in major-to-minor
+        order (one size may be -1: all remaining), e.g. ``{"data": 2,
+        "pipe": 4}``. Every rank of the default group calls it alike: it
+        forms a process group a line of each axis."""
         world = dist.get_world_size() if dist.is_initialized() else 1
         from deeplearning4j_tpu_torch.parallel.init import rank_of_member
         ranks = [rank_of_member(d.id) if isinstance(d, RankDevice)
                  else int(d) for d in devices] \
             if devices is not None else list(range(world))
         n = len(ranks)
-        if data == -1:
-            if n % (model * seq):
-                raise ValueError(f"{n} devices not divisible by model*seq")
-            data = n // (model * seq)
-        if data * model * seq != n:
-            raise ValueError(f"mesh {data}x{model}x{seq} != {n} devices")
-        shape = {"data": data, "model": model, "seq": seq}
+        shape = {str(a): int(v) for a, v in axes.items()}
+        free = [a for a, v in shape.items() if v == -1]
+        if len(free) > 1:
+            raise ValueError(f"mesh {shape}: at most one axis may be -1")
+        known = int(np.prod([v for v in shape.values() if v != -1]))
+        if free:
+            if n % known:
+                names = "*".join(a for a in shape if a not in free)
+                raise ValueError(f"{n} devices not divisible by {names}")
+            shape[free[0]] = n // known
+        if int(np.prod(list(shape.values()))) != n:
+            raise ValueError("mesh " + "x".join(str(v) for v in
+                                                shape.values())
+                             + f" != {n} devices")
         dev = rank_device()
         if not dist.is_initialized():
             if n != 1:
@@ -142,7 +210,7 @@ class DeviceMesh:
             return DeviceMesh(None, shape, ranks, dev.type)
         from torch.distributed.device_mesh import DeviceMesh as _TorchMesh
         mesh = _TorchMesh(dev.type, torch.tensor(ranks).reshape(
-            data, model, seq), mesh_dim_names=AXES)
+            tuple(shape.values())), mesh_dim_names=tuple(shape))
         return DeviceMesh(mesh, shape, ranks, dev.type)
 
     @staticmethod
@@ -151,7 +219,7 @@ class DeviceMesh:
 
     @property
     def axis_names(self):
-        return AXES
+        return tuple(self.shape)
 
     @property
     def devices(self) -> list:
@@ -168,17 +236,56 @@ class DeviceMesh:
 
     def group(self, axis: str = "data"):
         """The process group of this rank's line along ``axis`` (None on
-        a mesh without torch.distributed: collectives over it are the
-        identity)."""
-        if self.mesh is None:
+        a mesh without torch.distributed, or for an axis it does not
+        name: collectives over it are the identity)."""
+        if self.mesh is None or axis not in self.shape:
             return None
         return self.mesh.get_group(axis)
 
     def coordinate(self, axis: str = "data") -> int:
-        """This rank's index along ``axis``."""
-        if self.mesh is None:
+        """This rank's index along ``axis`` (0 for an axis the mesh does
+        not name)."""
+        if self.mesh is None or axis not in self.shape:
             return 0
         return int(self.mesh.get_local_rank(axis))
+
+    def group_over(self, axes: Sequence[str]):
+        """The process group of this rank's line over the product of
+        ``axes`` (the first one major, so its group rank is
+        :meth:`index_over`); one axis's own group for a single axis.
+        A product group is formed at its first request, by every rank of
+        the default group alike (``new_group`` is collective), and kept."""
+        axes = tuple(axes)
+        big = tuple(a for a in axes if self.size(a) > 1)
+        if len(big) <= 1:
+            return self.group(big[0] if big else axes[0])
+        if self.mesh is None:
+            return None
+        cache = self.__dict__.setdefault("_product_groups", {})
+        if big not in cache:
+            names = self.axis_names
+            grid = np.asarray(self.ranks).reshape(tuple(self.shape.values()))
+            rest = [i for i, a in enumerate(names) if a not in big]
+            order = rest + [names.index(a) for a in big]
+            lines = grid.transpose(order).reshape(-1, self.size(big))
+            me = dist.get_rank()
+            for line in lines.tolist():
+                g = dist.new_group(ranks=line)
+                if me in line:
+                    cache[big] = g
+        return cache[big]
+
+    def index_over(self, axes: Sequence[str]) -> int:
+        """This rank's index over the product of ``axes``, the first one
+        major."""
+        i = 0
+        for a in axes:
+            i = i * self.size(a) + self.coordinate(a)
+        return i
+
+    def leader(self) -> int:
+        """The global rank of the mesh's first member."""
+        return self.ranks[0]
 
     def is_writer(self) -> bool:
         """True on the mesh's first rank (the one that writes what every
@@ -198,28 +305,28 @@ class DeviceMesh:
 
     def size(self, axis: str = None) -> int:
         if axis is None:
-            return int(np.prod([self.shape[a] for a in AXES]))
-        return self.shape[axis]
-
-    def require_data_only(self, what: str) -> None:
-        if self.size("model") * self.size("seq") > 1:
-            raise NotImplementedError(f"{what}: {SLICE_24}")
+            return int(np.prod(list(self.shape.values())))
+        if isinstance(axis, (tuple, list)):
+            return int(np.prod([self.size(a) for a in axis]))
+        return self.shape.get(axis, 1)
 
     # ------------------------------------------------------------ staging
-    def shard_rows(self, a, dim: int = 0):
+    def shard_rows(self, a, dim: int = 0, axes: Sequence[str] = ("data",)):
         """This rank's rows of a global host or device array (``dim`` is
-        the batch dim), on this rank's device, tagged with its
-        :class:`Placement`; an array already tagged passes through."""
+        the batch dim, split over ``axes``), on this rank's device,
+        tagged with its :class:`Placement`; an array already tagged
+        passes through."""
         if a is None:
             return None
         if isinstance(a, torch.Tensor) and placement_of(a) is not None:
             return a
-        n = self.size("data")
+        axes = tuple(axes)
+        n = self.size(axes)
         b = int(a.shape[dim])
         if b % n:
-            raise ValueError(f"batch of {b} rows does not split over a "
-                             f"data axis of {n} (pad it first)")
-        r = self.coordinate("data")
+            raise ValueError(f"batch of {b} rows does not split over "
+                             f"{'x'.join(axes)} of {n} (pad it first)")
+        r = self.index_over(axes)
         c = b // n
         idx = tuple(slice(r * c, (r + 1) * c) if d == dim else slice(None)
                     for d in range(np.ndim(a)))
@@ -227,7 +334,7 @@ class DeviceMesh:
         if not isinstance(piece, torch.Tensor):
             piece = torch.from_numpy(np.ascontiguousarray(piece))
         t = piece.to(self.device)
-        return set_placement(t, Placement(a.shape, dim, n, r))
+        return set_placement(t, Placement(a.shape, dim, n, r, axes))
 
     def shard_batch(self, tree):
         """A host batch onto the mesh: each leaf's dim 0 split over the
@@ -244,6 +351,26 @@ class DeviceMesh:
                 return a.to(dev)
             return torch.as_tensor(np.asarray(a)).to(dev)
         return _tree_map(put, tree)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole array of a placed tensor: its pieces all-gathered
+        over its split axes (the minor axis first; a collective every
+        rank of those lines enters); an untagged tensor as it is."""
+        from deeplearning4j_tpu_torch.parallel import collectives
+        p = placement_of(t)
+        if p is None:
+            return t
+        piece = t.detach()
+        short = p.chunk() - piece.shape[p.dim] if p.groups == 1 else 0
+        if short:       # an uneven split: every rank gathers a whole chunk
+            pad = list(piece.shape)
+            pad[p.dim] = short
+            piece = torch.cat([piece, piece.new_zeros(pad)], dim=p.dim)
+        pieces = piece.contiguous().unsqueeze(0)
+        for a in reversed(p.axes):
+            g = collectives.all_gather(pieces, self.group(a))
+            pieces = g.reshape((-1,) + tuple(pieces.shape[1:]))
+        return assemble(pieces, p)
 
     def __enter__(self):
         # the JAX mesh's context scopes its jit; the port's collectives
@@ -279,9 +406,10 @@ class ShardingRule:
         return ()
 
     def shard_params(self, mesh: DeviceMesh, named_params: Dict):
-        """Apply the rules to a flat ``{name: array}`` dict: a dim ruled
-        over ``data`` keeps this rank's piece (tagged); a ``model`` or
-        ``seq`` axis of size above 1 raises (next slice)."""
+        """Apply the rules to a flat ``{name: array}`` dict: each value
+        placed per its spec (:func:`place_by_spec`): this rank's piece of
+        a dim a rule splits over any mesh axes, tagged; whole where no
+        rule splits it."""
         out = {}
         for name, arr in named_params.items():
             t = arr if isinstance(arr, torch.Tensor) \
@@ -290,35 +418,59 @@ class ShardingRule:
         return out
 
 
-def check_spec(mesh: DeviceMesh, spec: Tuple, what: str) -> Optional[int]:
-    """The dim a spec shards over ``data`` (None if none); raises for a
-    model/seq axis of size above 1 (next slice) or an unknown axis."""
-    dim = None
+def _entry_axes(e) -> Tuple[str, ...]:
+    if e is None:
+        return ()
+    return tuple(e) if isinstance(e, (tuple, list)) else (e,)
+
+
+def split_of(mesh: DeviceMesh, spec: Tuple, what: str
+             ) -> Optional[Tuple[int, Tuple[str, ...]]]:
+    """``(dim, axes)``: the dim a spec splits and the mesh axes of size
+    above 1 that split it (None when it splits nothing here). An axis the
+    mesh does not name raises; so does a spec splitting two dims."""
+    found = None
     for d, e in enumerate(spec or ()):
-        for a in (e if isinstance(e, (tuple, list)) else (e,)):
-            if a is None:
-                continue
-            if a not in AXES:
-                raise ValueError(f"{what}: {a!r} is not a mesh axis {AXES}")
-            if a != "data":
-                if mesh.size(a) > 1:
-                    raise NotImplementedError(f"{what}: {SLICE_24}")
-                continue
-            dim = d
-    return dim
+        axes = []
+        for a in _entry_axes(e):
+            if a not in mesh.shape:
+                raise ValueError(f"{what}: {a!r} is not a mesh axis "
+                                 f"{mesh.axis_names}")
+            if mesh.size(a) > 1:
+                axes.append(a)
+        if not axes:
+            continue
+        if found is not None:
+            raise ValueError(f"{what}: spec {tuple(spec)} splits dims "
+                             f"{found[0]} and {d}; a tensor splits along "
+                             "one dim (name both axes on it instead)")
+        found = (d, tuple(axes))
+    return found
 
 
-def place_by_spec(mesh: DeviceMesh, t: torch.Tensor, spec: Tuple):
+def placement_for(mesh: DeviceMesh, shape, spec: Tuple,
+                  what: str = "sharding rule", groups: int = 1
+                  ) -> Optional[Placement]:
+    """This rank's :class:`Placement` of an array of ``shape`` under
+    ``spec`` (None: whole)."""
+    sp = split_of(mesh, spec, what)
+    if sp is None:
+        return None
+    dim, axes = sp
+    n = mesh.size(axes)
+    even = groups > 1 or axes == ("data",)
+    if shape[dim] < n or (even and shape[dim] % (n * groups)):
+        raise ValueError(f"{what}: dim {dim} ({shape[dim]}) does not split "
+                         f"over {'x'.join(axes)} of {n}")
+    return Placement(shape, dim, n, mesh.index_over(axes), axes, groups)
+
+
+def place_by_spec(mesh: DeviceMesh, t: torch.Tensor, spec: Tuple,
+                  groups: int = 1):
     """``t`` (a global value, the same on every rank) placed per
     ``spec``: whole on this rank's device, or this rank's piece of the
-    dim ``spec`` splits over ``data``."""
-    dim = check_spec(mesh, spec, "sharding rule")
-    n = mesh.size("data")
-    if dim is None or n == 1:
+    dim ``spec`` splits (over one axis or the product of several)."""
+    p = placement_for(mesh, tuple(t.shape), spec, groups=groups)
+    if p is None:
         return t.to(mesh.device)
-    if t.shape[dim] % n:
-        raise ValueError(f"dim {dim} ({t.shape[dim]}) does not split over "
-                         f"a data axis of {n}")
-    r = mesh.coordinate("data")
-    p = Placement(t.shape, dim, n, r)
     return set_placement(local_piece(t, p).contiguous().to(mesh.device), p)

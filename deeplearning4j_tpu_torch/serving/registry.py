@@ -53,7 +53,13 @@ Metrics: ``dl4j_registry_rolls_total{model=}``,
 (``tune.records``) before its server is built, so the bucket ladder
 captures the tuned forward.
 
-Not ported yet (ROADMAP.md): sharded staging (``plan=``).
+Sharded staging: ``ModelRegistry(mesh=)`` serves every version over a
+mesh, and ``load(..., plan=)`` places the version's params (not its
+updater state) per a ``ShardedTrainingPlan`` first, its mesh overriding
+the registry's (a ``TransformerLM`` takes the Megatron layout over the
+plan's mesh). Over more than one rank every rank builds the registry and
+loads the same versions; the mesh's first rank serves and routes, and
+the others call :meth:`ModelRegistry.follow`.
 """
 
 from __future__ import annotations
@@ -197,13 +203,17 @@ class ModelRegistry:
     ----------
     device : the card every version's server dispatches on (default
         ``cuda``; raises without a card unless ``device="cpu"``).
+    mesh : the serving mesh every version's server dispatches on
+        (default: this rank's device alone).
     **server_defaults : forwarded to every :class:`ModelServer` built by
         :meth:`load` (``batch_limit``, ``max_queue``, ``coalesce_ms``,
         ``default_deadline``, ``head``, ...); per-load kwargs override.
     """
 
-    def __init__(self, device=None, **server_defaults):
-        self.device = resolve_device(device)
+    def __init__(self, device=None, mesh=None, **server_defaults):
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None \
+            else mesh.device
         self._defaults = dict(server_defaults)
         self._lock = _prof.InstrumentedRLock("serving:registry")
         self._routes: Dict[str, _Route] = {}
@@ -212,7 +222,7 @@ class ModelRegistry:
     # ------------------------------------------------------------- loading
     def load(self, name: str, model, version: Optional[int] = None,
              shapes=None, decode=None, warm: bool = True,
-             roll: Optional[bool] = None, tuned: bool = False,
+             roll: Optional[bool] = None, plan=None, tuned: bool = False,
              **server_kw) -> int:
         """Load ``model`` as a new version of ``name`` and capture its
         bucket ladder while any active version keeps taking traffic.
@@ -223,7 +233,11 @@ class ModelRegistry:
         the route's raw-image decode preset (ingress); ``warm=False``
         skips warmup (``roll`` will then lint DL4J-W111). ``roll``
         defaults to "only when this is the first version" — an upgrade
-        stays staged until an explicit :meth:`roll`. ``tuned=True``
+        stays staged until an explicit :meth:`roll`. ``plan`` (a
+        ``ShardedTrainingPlan``) stages the version on a sharded mesh:
+        params are placed per the plan (not the updater state: an
+        inference load allocates no moments) before the server builds,
+        and the plan's mesh overrides the registry's. ``tuned=True``
         applies the model's tuning record first. Returns the version
         number."""
         with self._lock:
@@ -251,6 +265,13 @@ class ModelRegistry:
         try:
             kw = dict(self._defaults)
             kw.update(server_kw)
+            if plan is not None:
+                model.setShardingPlan(plan)
+                if hasattr(model, "_items"):
+                    plan.place_params(model)
+                kw.setdefault("mesh", plan.mesh)
+            if self.mesh is not None:
+                kw.setdefault("mesh", self.mesh)
             kw.setdefault("device", self.device)
             if tuned:
                 # before the server builds, outside the registry lock:
@@ -282,6 +303,25 @@ class ModelRegistry:
                     " [active]" if self.active_version(name) == version
                     else "")
         return version
+
+    def follow(self) -> str:
+        """A follower rank's part of serving over a mesh: join the
+        dispatches of every version loaded here (load the same versions
+        as the leader first) until the leader has closed them all
+        (``"stopped"``) or the fault plan takes this rank (``"lost"``)."""
+        from deeplearning4j_tpu_torch.parallel.leader import follow_all
+        with self._lock:
+            servers = [v.server for r in self._routes.values()
+                       for v in r.versions.values()
+                       if v.server._mesh_dispatch is not None]
+        if not servers:
+            raise RuntimeError("follow(): no version here serves over a "
+                               "mesh of more than one rank")
+        if servers[0].is_leader:
+            raise RuntimeError("follow(): this rank leads the mesh")
+        return follow_all(servers[0]._mesh_dispatch.mesh,
+                          {s._mesh_dispatch.key: s._mesh_dispatch
+                           for s in servers})
 
     # ------------------------------------------------------------- routing
     def _route(self, name: str) -> _Route:

@@ -11,8 +11,9 @@ request queue with the operational properties of the JAX server:
   dispatch and its batch slot reclaimed. Requests are resolved exactly
   once (shed XOR completed), enforced by a lock in
   :class:`ServingRequest`.
-- **Bucketed, captured warmup.** Coalesced batches pad to power-of-two
-  buckets (data width 1 on one device). On the card the forward and its
+- **Bucketed, captured warmup.** Coalesced batches pad to buckets: the
+  mesh's data width doubling up to ``batch_limit`` (1, 2, 4, ... on one
+  device). On the card the forward and its
   head run as one CUDA graph per bucket x feature shape
   (:class:`~deeplearning4j_tpu_torch.nn.compilecache.CachedDispatch`,
   scope ``"serving:forward"``, one memory pool per server):
@@ -59,8 +60,22 @@ disk tier configured it adds the shapes the model's manifest names.
 ``capture=`` (a :class:`~deeplearning4j_tpu_torch.lifecycle.capture.
 TrafficCapture`) records each validated request before admission.
 
-Not ported yet (ROADMAP.md): meshes, sharding and mesh shrink (on one
-card a failed dispatch retries on the same card).
+**On a mesh** (``mesh=`` a ``DeviceMesh`` of more than one rank) every
+rank builds the server alike. The mesh's first rank is the leader: it
+admits, batches and replies, and each dispatch goes through the
+leader/follower dispatch of ``parallel.leader``: the bucket and its
+features reach every rank by broadcast, each runs its rows (split over
+``data``; a ``model`` or ``seq`` line runs its rows together, the
+model's collectives inside), and the results are gathered to the
+leader. Every other rank calls :meth:`ModelServer.follow`, which returns
+when the leader closes. A forward without collectives is captured on
+each rank as on one card; one with collectives (a tensor-parallel
+model, a plan that splits params) runs eagerly. After a failed dispatch
+the ranks probe the mesh together: dead ranks are dropped (a mesh with
+model or seq axes stays whole), the buckets are re-warmed on the
+survivors (``rewarm_on_shrink``) and the batch is retried there. With
+no mesh, or a mesh of one rank, the server runs on its one device
+exactly as before.
 """
 
 from __future__ import annotations
@@ -445,7 +460,12 @@ class ModelServer:
     ----------
     model : a model exposing ``output(x)``, or any callable forward.
     device : where batches run (default ``cuda``; raises without a card
-        unless ``device="cpu"`` is passed).
+        unless ``device="cpu"`` is passed); with ``mesh``, the rank's
+        device.
+    mesh : a ``parallel.DeviceMesh``: serve over its ranks (module
+        note); buckets are multiples of its data width.
+    rewarm_on_shrink : after a shrink onto the survivors, capture the
+        buckets again there before the retry (default True).
     batch_limit : max live rows per coalesced batch (= largest bucket).
     max_queue : bound on queued requests; admission control beyond it.
     coalesce_ms : how long the batcher waits for more arrivals once it
@@ -492,9 +512,12 @@ class ModelServer:
                  drain_timeout: float = 30.0, input_dtype=np.float32,
                  preemption=None, faults=None,
                  name: Optional[str] = None, forward=None, head=None,
-                 capture=None):
+                 capture=None, mesh=None, rewarm_on_shrink: bool = True):
         self.model = model
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None \
+            else mesh.device
+        self.rewarm_on_shrink = bool(rewarm_on_shrink)
         self._fwd = forward if forward is not None else resolve_forward(model)
         self.head = head
         self._head_fn = _make_head(head)
@@ -542,7 +565,20 @@ class ModelServer:
         self.counts: "collections.Counter[str]" = collections.Counter()
         self._preemption = None
         self._preemption_installed = False
-        if preemption is not None and preemption is not False:
+        self._mesh_dispatch = None
+        self._eager = False
+        if mesh is not None and mesh.size() > 1:
+            from deeplearning4j_tpu_torch.parallel.leader import MeshDispatch
+            self._mesh_dispatch = MeshDispatch(
+                mesh, self._run_local, self.name,
+                faults=faults, context="serving",
+                on_shrink=self._on_shrink)
+            # collectives inside the forward cannot be captured over gloo
+            collective = getattr(model, "collective", None)
+            self._eager = bool(collective()) if callable(collective) \
+                else bool(getattr(model, "_fsdp_layout", None))
+        if preemption is not None and preemption is not False \
+                and self.is_leader:
             from deeplearning4j_tpu_torch.train import resilience as _res
             self._preemption = _res.SignalPreemption(
                 on_request=self._drain_requested.set) \
@@ -552,13 +588,46 @@ class ModelServer:
                 self._preemption_installed = bool(install())
         self._worker = threading.Thread(target=self._serve, daemon=True,
                                         name="dl4j-serving")
-        self._worker.start()
+        if self.is_leader:
+            self._worker.start()
+
+    # ---------------------------------------------------------- the mesh
+    @property
+    def is_leader(self) -> bool:
+        """True on the rank that admits and replies (the mesh's first;
+        always without a mesh)."""
+        return self._mesh_dispatch is None or self._mesh_dispatch.is_leader
+
+    def follow(self) -> str:
+        """A follower rank's part of serving on a mesh: join every
+        dispatch (warmups included) until the leader closes
+        (``"stopped"``) or the fault plan takes this rank (``"lost"``)."""
+        if self.is_leader:
+            raise RuntimeError("follow(): this rank leads the mesh")
+        with self._cond:
+            self._warmed = True
+        try:
+            return self._mesh_dispatch.follow()
+        finally:
+            with self._cond:
+                self._closed = True
+
+    def data_width(self) -> int:
+        """How many ways a bucket's rows split: the mesh's data axis."""
+        return self.mesh.size("data") if self.mesh is not None else 1
+
+    @property
+    def last_shrink_seconds(self):
+        """Seconds of the last shrink and re-warm (None: none yet)."""
+        md = self._mesh_dispatch
+        return None if md is None else md.last_shrink_seconds
 
     # ------------------------------------------------------------- buckets
     def buckets(self) -> list:
-        """Padded batch sizes this server captures: powers of two from 1
-        up to (at least) ``batch_limit``."""
-        out = [1]
+        """Padded batch sizes this server captures: the mesh's data width
+        doubling up to (at least) ``batch_limit`` (1, 2, 4, ... without
+        a mesh): every bucket splits evenly over the data axis."""
+        out = [self.data_width()]
         while out[-1] < self.batch_limit:
             out.append(out[-1] * 2)
         return out
@@ -581,6 +650,9 @@ class ModelServer:
         when absent). Raises the structured admission errors instead of
         ever blocking the caller; rejections carry a ``trace_id``
         attribute and a terminal span."""
+        if not self.is_leader:
+            raise RuntimeError("submit(): requests go to the mesh's "
+                               "leader; this rank follows")
         x = np.asarray(x, dtype=self.input_dtype)
         if x.ndim < 1:
             raise ValueError("request features need a leading batch dim")
@@ -673,8 +745,15 @@ class ModelServer:
         dict: the E121 bucket-peak and E122 capacity checks):
         ``strict=True`` raises on an E-code, otherwise each finding warns.
         With the disk tier configured, the shapes the model's manifest
-        names are warmed too."""
+        names are warmed too. On a follower rank it only returns: the
+        leader's warmup reaches it through :meth:`follow`."""
         shapes = [tuple(int(d) for d in s) for s in shapes]
+        if not self.is_leader:
+            with self._cond:
+                self._warm_shapes += [s for s in shapes
+                                      if s not in self._warm_shapes]
+                self._warmed = True
+            return self
         report = self.validate(shapes=shapes, check_cache=True, cost=cost)
         if strict:
             report.raise_if_errors()
@@ -1034,6 +1113,10 @@ class ModelServer:
         for _ in range(self.max_retries + 1):
             attempts += 1
             t_attempt = _prof.now_us()
+            if self._mesh_dispatch is not None:
+                # a dispatch the watchdog abandoned finishes first,
+                # outside this attempt's deadline
+                self._mesh_dispatch.wait_idle()
             if not self._warmed:
                 # pre-warmup traffic legitimately runs cold; the
                 # zero-leniency steady-state watchdog must not read it as
@@ -1061,16 +1144,47 @@ class ModelServer:
                     t_attempt, _prof.now_us() - t_attempt,
                     args={"attempt": attempts,
                           "error": type(e).__name__})
+                if self._mesh_dispatch is None:
+                    warnings.warn(
+                        f"serving dispatch failure (attempt {attempts}): "
+                        f"{type(e).__name__}: {e} — retrying", stacklevel=2)
+                    continue
                 warnings.warn(
                     f"serving dispatch failure (attempt {attempts}): "
-                    f"{type(e).__name__}: {e} — retrying", stacklevel=2)
+                    f"{type(e).__name__}: {e} — probing the mesh and "
+                    "retrying on the survivors", stacklevel=2)
+                self._drop_dead_replicas(e)
         raise InferenceFailedError(attempts, last)
 
     def _forward_once(self, feats: np.ndarray):
-        if self._faults is not None:
+        if self._faults is not None and self._mesh_dispatch is None:
             self._faults.serving_forward(self._batches + 1,
                                          [self.device.index or 0])
         return self._forward_raw(feats)
+
+    def _drop_dead_replicas(self, error):
+        """After a dispatch that failed on some rank, every rank probes
+        the mesh together (``MeshDispatch.recover``): dead ranks are
+        dropped and :meth:`_on_shrink` runs on the survivors. A timeout
+        the leader alone saw leaves the mesh as it is."""
+        from deeplearning4j_tpu_torch.parallel.leader import DispatchFailed
+        if isinstance(error, DispatchFailed):
+            self._mesh_dispatch.recover()
+
+    def _on_shrink(self, mesh) -> None:
+        """The survivors' mesh: the leader re-warms the buckets there
+        (its dispatches reach the followers), so the retry and the
+        traffic after it capture nothing new."""
+        with self._cond:    # validate()/stats() read the mesh
+            self.mesh = mesh
+        if not self.is_leader:
+            return
+        if self._warmed and self.rewarm_on_shrink:
+            elapsed = self._compile_buckets(self._warm_shapes)
+            logger.info("serving: re-warmed %d bucket(s) on the survivor "
+                        "mesh in %.3fs", len(self.buckets()), elapsed)
+        else:
+            self._watchdog.begin_attempt(1)
 
     def _manifest_name(self, args):
         """The disk tier's name of a forward capture: the per-request
@@ -1087,20 +1201,35 @@ class ModelServer:
         return out
 
     def _forward_raw(self, feats: np.ndarray, capture: bool = False):
-        fp = (str(self.device), _churn.array_fingerprint(feats))
+        # the signature holds the mesh's members: a shrunk mesh is a new
+        # program even at identical shapes
+        where = str(self.device) if self.mesh is None \
+            else tuple(d.id for d in self.mesh.devices)
+        fp = (where, _churn.array_fingerprint(feats))
         self._churn.record("serving:forward", fp, owner=self)
         _flightrec.get_flight_recorder().record(
-            "serving:forward", server=self.name, device=fp[0],
+            "serving:forward", server=self.name, device=str(fp[0]),
             signature=str(fp[1]))
+        if self._mesh_dispatch is not None:
+            host = self._mesh_dispatch.run(feats, self._batches + 1,
+                                           capture)
+        else:
+            host = self._run_local(feats, capture)
+        D2H_BYTES.inc(_nbytes(host))
+        return host
+
+    def _run_local(self, feats: np.ndarray, capture: bool = False):
+        """This rank's rows through the forward and head: captured per
+        signature, or eagerly when the forward runs collectives."""
         # the H2D copy stays outside the graph: the dispatch copies the
         # tensor into the graph's static input
         x = torch.from_numpy(np.ascontiguousarray(feats)).to(self.device)
         with torch.inference_mode():
+            if self._eager:
+                return _to_host(self._device_forward(x))
             if capture:
                 self._dispatch.warm(x)
-            host = _to_host(self._dispatch(x))   # THE per-batch D2H copy
-        D2H_BYTES.inc(_nbytes(host))
-        return host
+            return _to_host(self._dispatch(x))   # THE per-batch D2H copy
 
     # --------------------------------------------------------------- drain
     def drain(self, timeout: float = None) -> "ModelServer":
@@ -1112,6 +1241,8 @@ class ModelServer:
         self._drain_requested.set()
         with self._cond:
             self._cond.notify_all()
+        if not self.is_leader:
+            return self         # a follower has no queue to drain
         if threading.current_thread() is not self._worker:
             self._worker.join(timeout if timeout is not None
                               else self.drain_timeout)
@@ -1144,9 +1275,15 @@ class ModelServer:
         context-manager exit."""
         if self._closed:
             return
+        if not self.is_leader:
+            with self._cond:
+                self._closed = True
+            return
         self.drain()
         with self._cond:
             self._closed = True
+        if self._mesh_dispatch is not None:
+            self._mesh_dispatch.stop()      # release the followers
         if not self._worker.is_alive():
             # a serve loop stuck past the drain timeout may still run the
             # forward: then it all stays. captures_after_warmup() keeps

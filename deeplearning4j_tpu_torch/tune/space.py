@@ -12,8 +12,10 @@ enumerates the points deterministically so a search driver
 (``tune.driver``) can walk them and a record store (``tune.records``)
 can persist the winner under a stable :meth:`TuningPlan.signature`.
 
-On one card the sharding axis stays at ``None`` (no
-``sharding_variants``).
+The sharding axis takes live ``ShardedTrainingPlan`` objects
+(``TuningSpace.for_model(sharding_variants=[...])``) over a mesh of
+ranks; :meth:`TuningPlan.apply` attaches the plan's variant to the
+model, and a record keeps its signature string.
 """
 
 from __future__ import annotations

@@ -1352,3 +1352,103 @@ def test_two_ranks_share_the_card_over_gloo(dev, tmp_path, rules):
         np.testing.assert_array_equal(p0, ref_p0)
         np.testing.assert_allclose(losses, ref_losses.values, rtol=1e-5)
         np.testing.assert_allclose(params, ref_p, rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------- the seq and model axes over gloo
+def rank_ring_card(dtype_name, causal):
+    """A rank of two sharing the card: ring attention of its 256 rows of
+    q, k, v [1, 512, 4, 64] over seq=2, its flash launches and plain
+    calls, and its rows of the output."""
+    from deeplearning4j_tpu_torch.parallel import DeviceMesh
+    from deeplearning4j_tpu_torch.parallel.sequence import ring_attention
+    ck.install_platform_overrides()
+    dt = getattr(torch, dtype_name)
+    mesh = DeviceMesh.create(data=1, model=1, seq=2)
+    r = mesh.coordinate("seq")
+    q, k, v = (_randn("cuda", 1, 512, 4, 64, dtype=dt, seed=s)
+               for s in (1, 2, 3))
+    rows = slice(256 * r, 256 * (r + 1))
+    ck.reset_counts()
+    with torch.no_grad():
+        o = ring_attention(q[:, rows], k[:, rows], v[:, rows], mesh,
+                           is_causal=causal)
+    torch.cuda.synchronize()
+    return (ck.LAUNCHES["flash_attention"], ck.PLAIN_CALLS["flash_attention"],
+            o.float().cpu().numpy())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_attention_launches_the_flash_kernel(dev, tmp_path, dtype,
+                                                  causal):
+    """Two ranks over gloo on the card: rank r runs the flash kernel on
+    each block it attends (2 full; 1 and 2 causal), never its plain
+    version, and the rows join to the unsplit kernel's output."""
+    from deeplearning4j_tpu_torch.parallel.launch import RankPool
+    q, k, v = (_randn(dev, 1, 512, 4, 64, dtype=dtype, seed=s)
+               for s in (1, 2, 3))
+    ref, _ = ck.flash_attention_fwd(q, k, v, causal)
+    name = str(dtype).split(".")[-1]
+    with RankPool(2, str(tmp_path), device="cuda", backend="gloo") as pool:
+        out = pool.run(rank_ring_card, name, causal)
+    for r, (launches, plain, _) in enumerate(out):
+        assert launches == ((r + 1) if causal else 2) and plain == 0
+    got = np.concatenate([o for _, _, o in out], axis=1)
+    np.testing.assert_allclose(got, ref.float().cpu().numpy(),
+                               rtol=_tol(dtype), atol=_tol(dtype))
+
+
+def _tp_cfg():
+    """A small width whose heads take the kernel (D=64), fp32."""
+    return ttr.TransformerConfig.tiny(dtype=torch.float32, d_model=256,
+                                      n_heads=4, d_ff=512, n_layers=2,
+                                      use_flash_attention=True, causal=True)
+
+
+def _tp_tokens():
+    return torch.from_numpy(np.random.default_rng(7).integers(
+        0, 1024, (4, 64)))
+
+
+def rank_tp_card():
+    """A rank of two sharing the card: the logits of ``forward(...,
+    mesh)`` at model=2 from this rank's Megatron pieces, and its flash
+    and layer-norm launches."""
+    from deeplearning4j_tpu_torch.parallel import DeviceMesh
+    ck.install_platform_overrides()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _tp_cfg()
+    mesh = DeviceMesh.create(data=1, model=2)
+    params = ttr.shard_params(ttr.init_params(cfg, seed=3, device="cuda"),
+                              cfg, mesh)
+    ck.reset_counts()
+    with torch.no_grad():
+        out = ttr.forward(params, _tp_tokens().cuda(), cfg, mesh)
+    torch.cuda.synchronize()
+    return (out.cpu().numpy(), ck.LAUNCHES["flash_attention"],
+            ck.LAUNCHES["layer_norm"], sum(ck.PLAIN_CALLS.values()))
+
+
+def test_tensor_parallel_logits_match_world1_over_gloo(dev, tmp_path):
+    """Megatron at model=2 over two gloo ranks on the card against the
+    unsplit forward in this process, fp32 with TF32 off: each rank runs
+    its 2 heads a layer through the kernel (2 launches) and 5 layer norms,
+    and the logits agree to 2e-5 (only the row-parallel sums' order
+    differs)."""
+    from deeplearning4j_tpu_torch.parallel.launch import RankPool
+    ck.install_platform_overrides()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = _tp_cfg()
+        with torch.no_grad():
+            ref = ttr.forward(ttr.init_params(cfg, seed=3, device=dev),
+                              _tp_tokens().to(dev), cfg).cpu().numpy()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    with RankPool(2, str(tmp_path), device="cuda", backend="gloo") as pool:
+        out = pool.run(rank_tp_card)
+    for logits, flash, ln, plain in out:
+        assert (flash, ln, plain) == (2, 5, 0)
+        np.testing.assert_allclose(logits, ref, rtol=FP32_TOL,
+                                   atol=FP32_TOL)

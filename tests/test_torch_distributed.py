@@ -15,8 +15,13 @@ one); ``atol=2e-6`` against the single-device fit (the JAX test's);
 The port's dropout masks are its own counter hash, not JAX's threefry,
 so runs with dropout are held within the port (data-parallel against its
 own single device) and the cross-package comparison runs without it.
-The next slice keeps ``test_model_axis_mesh_one_code_path`` and
-``TestServingOnShardedMesh`` (ROADMAP.md).
+The model-axis cases (``TestModelAxis``, ``TestServingOnShardedMesh``)
+cut the JAX tests' ``data=2 x model=4`` mesh to ``data=1 x model=2`` (2
+ranks) and, for the graph with ZeRO, ``data=2 x model=2`` (4 ranks):
+each rank holds its slice of every matched weight at rest, gathers it
+whole for the step and keeps its slice of the summed gradient; the JAX
+tests' ``atol=2e-6`` against the single-device fit, and serving
+``rtol=1e-4, atol=1e-5``.
 """
 
 import numpy as np
@@ -31,7 +36,8 @@ RTOL, ATOL = 2e-3, 1e-4
 
 @pytest.fixture(scope="module")
 def pool(tmp_path_factory):
-    with RankPool(WORLD, str(tmp_path_factory.mktemp("store"))) as p:
+    with RankPool(WORLD, str(tmp_path_factory.mktemp("store")),
+                  device="cpu") as p:
         yield p
 
 
@@ -160,15 +166,13 @@ def rank_model_axis(x):
     from deeplearning4j_tpu_torch.parallel import DeviceMesh
     from deeplearning4j_tpu_torch.parallel.mesh import placement_of
     mesh = DeviceMesh.create(data=2, model=2)
-    try:
-        ShardedTrainingPlan(mesh, batch_axes=("model",))
-        raised = None
-    except NotImplementedError as e:
-        raised = str(e)
+    wide = ShardedTrainingPlan(mesh, batch_axes=("data", "model"))
+    wx = wide.place(x)
+    wide_rows = (wx.numpy(), placement_of(wx).index, wide.data_shards())
     plan = ShardedTrainingPlan(mesh)
     px = plan.place(x)
     mx = plan.place(np.stack([x, x, x]), mega=True)
-    return (raised, px.numpy(), placement_of(px).index, mx.numpy(),
+    return (wide_rows, px.numpy(), placement_of(px).index, mx.numpy(),
             mesh.coordinate("data"))
 
 
@@ -314,6 +318,55 @@ def rank_collectives(p0, s0):
     return hlo_collective_bytes(step_collective_bytes(net, x, y))
 
 
+def rank_model_axis_fit(p0, s0, axes, rules, graph=False, zero_min=None,
+                        k=2):
+    """A fit over ``axes`` with ``rules`` splitting weights over
+    ``model``: the whole params, what this rank holds of the first
+    matched W and its spec, and the moment's spec."""
+    from deeplearning4j_tpu_torch.distributed import (GSPMDTrainer,
+                                                      ShardedTrainingPlan,
+                                                      ZeroPlan)
+    from deeplearning4j_tpu_torch.parallel import DeviceMesh
+    from deeplearning4j_tpu_torch.parallel.mesh import spec_of
+    net = _pnet(p0, s0, graph=graph)
+    zero = None if zero_min is None else ZeroPlan(min_bytes=zero_min)
+    plan = ShardedTrainingPlan(DeviceMesh.create(**axes), rules=rules,
+                               zero=zero)
+    GSPMDTrainer(net, plan).fit(_pit(64, 16), epochs=2,
+                                steps_per_dispatch=k)
+    first = "fc" if graph else 0
+    w = net._params[first]["W"]
+    return {"params": net.params().numpy(), "w_local": tuple(w.shape),
+            "w_spec": spec_of(w),
+            "m_spec": spec_of(net._opt_state[first]["W"]["m"]),
+            "score": float(net.score())}
+
+
+def rank_serve_on_plan(p0, s0, x):
+    """``ModelRegistry.load(..., plan=)`` over data=1 x model=2: the
+    leader's answer (None on the follower) and the spec of the first W
+    on this rank."""
+    from deeplearning4j_tpu_torch.distributed import ShardedTrainingPlan
+    from deeplearning4j_tpu_torch.parallel import DeviceMesh
+    from deeplearning4j_tpu_torch.parallel.mesh import spec_of
+    from deeplearning4j_tpu_torch.serving.registry import ModelRegistry
+    net = _pnet(p0, s0)
+    plan = ShardedTrainingPlan(DeviceMesh.create(data=1, model=2),
+                               rules={r"/W$": (None, "model")})
+    reg = ModelRegistry(device="cpu", batch_limit=8, coalesce_ms=0.5)
+    reg.load("m", net, shapes=[(16,)], plan=plan)
+    spec = spec_of(net._params[0]["W"])
+    out = None
+    server = reg._version("m").server
+    if server.is_leader:
+        out = reg.output("m", x, timeout=30)
+        reg.close()
+    else:
+        assert reg.follow() == "stopped"
+        reg.close()
+    return out, spec, server.buckets()
+
+
 # ===================================================== ShardedTrainingPlan
 class TestShardedTrainingPlan:
     def test_batch_spec_shards_dim0_and_mega_dim1(self, devices):
@@ -332,20 +385,25 @@ class TestShardedTrainingPlan:
         """On data=2 x model=2 ranks the batch splits 2 ways and
         replicates over the model axis: each rank holds the rows the JAX
         sharding puts on the device at its coordinate (a megabatch's dim
-        1 likewise); a batch axis over the model axis raises, naming the
-        next slice."""
+        1 likewise); batch axes ``("data", "model")`` split it over
+        their product, 4 ways, as the JAX plan's placement does."""
         from deeplearning4j_tpu.distributed import ShardedTrainingPlan as JP
         from deeplearning4j_tpu.parallel import DeviceMesh as JMesh
         x = np.arange(8 * 16, dtype=np.float32).reshape(8, 16)
-        jplan = JP(JMesh.create(data=2, model=2, devices=devices[:4]))
-        jx = jplan.place(x)
+        jmesh = JMesh.create(data=2, model=2, devices=devices[:4])
+        jx = JP(jmesh).place(x)
         assert len(jx.sharding.device_set) == 4
         rows = {sh.device.id: np.asarray(sh.data)
                 for sh in jx.addressable_shards}
-        with RankPool(4, str(tmp_path)) as pool4:
+        jw = JP(jmesh, batch_axes=("data", "model")).place(x)
+        wide = {sh.device.id: np.asarray(sh.data)
+                for sh in jw.addressable_shards}
+        with RankPool(4, str(tmp_path), device="cpu") as pool4:
             out = pool4.run(rank_model_axis, x)
-        for r, (raised, px, index, mx, coord) in enumerate(out):
-            assert raised and "next slice" in raised
+        for r, ((wx, windex, shards), px, index, mx, coord) in \
+                enumerate(out):
+            assert shards == 4 and windex == r
+            np.testing.assert_array_equal(wx, wide[devices[r].id])
             np.testing.assert_array_equal(px, rows[devices[r].id])
             assert index == coord
             np.testing.assert_array_equal(mx[1], px)
@@ -606,6 +664,92 @@ class TestGSPMDParity:
         pr = PT(_pnet(), _plan(PZ())).validate(batch_size=16)
         assert "DL4J-E102" not in jr.codes()
         assert "DL4J-E102" not in pr.codes()
+
+
+class TestModelAxis:
+    def test_model_axis_mesh_one_code_path(self, pool, devices):
+        """data=1 x model=2 with a W rule: the same fit() (K=2 a
+        dispatch), within 2e-6 of the single-device fit (the JAX test's
+        data=2 x model=4); each rank holds half of every W's columns."""
+        from deeplearning4j_tpu.distributed import (GSPMDTrainer,
+                                                    ShardedTrainingPlan)
+        from deeplearning4j_tpu.parallel import DeviceMesh as JMesh
+        p0, s0 = _jstate(_jnet())
+        single = pool.run(rank_train, "single", p0, s0)[0]
+        out = pool.run(rank_model_axis_fit, p0, s0,
+                       {"data": 1, "model": 2}, {r"/W$": (None, "model")})
+        for o in out:
+            np.testing.assert_allclose(o["params"], single["params"],
+                                       rtol=0, atol=2e-6)
+            assert o["w_spec"] == (None, "model")
+            assert o["w_local"] == (16, 16)
+        jt = _jnet()
+        GSPMDTrainer(jt, ShardedTrainingPlan(
+            JMesh.create(data=2, model=4),
+            rules={r"/W$": (None, "model")})).fit(_jit(), epochs=2,
+                                                  steps_per_dispatch=2)
+        assert tuple(jt._params[0]["W"].sharding.spec) == (None, "model")
+        np.testing.assert_allclose(out[0]["params"],
+                                   np.asarray(jt.params()),
+                                   rtol=RTOL, atol=ATOL)
+
+    def test_computation_graph_model_axis_same_hooks(self, pool, devices,
+                                                     tmp_path):
+        """The graph on data=2 x model=2 (4 ranks; JAX: 2 x 4) with the
+        fc rule, ZeRO and K=2: within 2e-6 of the plain graph fit; fc/W
+        split over model at rest, its moments with it."""
+        from deeplearning4j_tpu.distributed import (GSPMDTrainer,
+                                                    ShardedTrainingPlan,
+                                                    ZeroPlan)
+        from deeplearning4j_tpu.parallel import DeviceMesh as JMesh
+        p0, s0 = _jstate(_jnet(graph=True))
+        plain = pool.run(rank_train, "single", p0, s0, graph=True)[0]
+        with RankPool(4, str(tmp_path), device="cpu") as pool4:
+            out = pool4.run(rank_model_axis_fit, p0, s0,
+                            {"data": 2, "model": 2},
+                            {r"fc/W$": (None, "model")}, graph=True,
+                            zero_min=0)
+        for o in out:
+            np.testing.assert_allclose(o["params"], plain["params"],
+                                       rtol=0, atol=2e-6)
+            assert o["w_spec"] == (None, "model")
+            assert o["m_spec"] == (None, "model")
+            assert o["w_local"] == (16, 16)
+        jg = _jnet(graph=True)
+        GSPMDTrainer(jg, ShardedTrainingPlan(
+            JMesh.create(data=2, model=4), rules={r"fc/W$": (None, "model")},
+            zero=ZeroPlan(min_bytes=0))).fit(_jit(), epochs=2,
+                                             steps_per_dispatch=2)
+        assert tuple(jg._params["fc"]["W"].sharding.spec) == \
+            (None, "model")
+        np.testing.assert_allclose(out[0]["params"],
+                                   np.asarray(jg.params()),
+                                   rtol=RTOL, atol=ATOL)
+
+
+class TestServingOnShardedMesh:
+    def test_registry_stages_version_on_plan_mesh(self, pool, devices):
+        """The registry stages the version on the plan's data=1 x
+        model=2 mesh (the JAX test's data=2 x model=4): W split over
+        model on each rank; the leader answers as the unsharded net."""
+        from deeplearning4j_tpu.distributed import ShardedTrainingPlan as JP
+        from deeplearning4j_tpu.parallel import DeviceMesh as JMesh
+        from deeplearning4j_tpu.serving.registry import ModelRegistry as JR
+        jnet = _jnet()
+        x = _data(8)[0]
+        ref = np.asarray(jnet.output(x))
+        out = pool.run(rank_serve_on_plan, *_jstate(jnet), x)
+        np.testing.assert_allclose(out[0][0], ref, rtol=1e-4, atol=1e-5)
+        assert out[1][0] is None
+        for _, spec, buckets in out:
+            assert spec == (None, "model") and buckets == [1, 2, 4, 8]
+        plan = JP(JMesh.create(data=2, model=4),
+                  rules={r"/W$": (None, "model")})
+        with JR(batch_limit=8, coalesce_ms=0.5) as reg:
+            reg.load("m", jnet, shapes=[(16,)], plan=plan)
+            np.testing.assert_allclose(
+                np.asarray(reg.output("m", x, timeout=30)), out[0][0],
+                rtol=1e-4, atol=1e-5)
 
 
 # ================================================================== ZeRO

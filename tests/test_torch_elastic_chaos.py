@@ -17,7 +17,8 @@ from test_torch_elastic_mesh import DEADLINE, NBATCH, rank_elastic
 
 @pytest.fixture(scope="module")
 def _pool(tmp_path_factory):
-    with RankPool(2, str(tmp_path_factory.mktemp("store"))) as p:
+    with RankPool(2, str(tmp_path_factory.mktemp("store")),
+                  device="cpu") as p:
         yield p
 
 

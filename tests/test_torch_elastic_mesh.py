@@ -15,7 +15,12 @@ coordinated checkpoint, the port's reference runs on the survivors' new
 group (or, at one rank, in this process). Bit-equal where the JAX test
 pins it. The watchdog and coordinator cases run in this process against
 the JAX classes on the same inputs. ``TestParallelInferenceRobustness``
-waits for the next slice (ROADMAP.md).
+serves over the 2 ranks through the leader/follower dispatch (rank 0
+serves, rank 1 follows; each rank wraps its own copy of the net in the
+JAX test's flaky model, so a fault is every rank's): the JAX tests' 8
+devices become 2 ranks, the dead devices 4-7 rank 1, and the tensor-
+parallel ``data=4 x model=2`` mesh ``data=1 x model=2``; outputs within
+the JAX tests' ``rtol=1e-4, atol=1e-5`` of the JAX net's.
 """
 
 import threading
@@ -45,7 +50,8 @@ def _regrouped(pools_factory, world):
     pools, factory = pools_factory
     p = pools.get(world)
     if p is None:
-        p = pools[world] = RankPool(world, str(factory.mktemp("store")))
+        p = pools[world] = RankPool(world, str(factory.mktemp("store")),
+                                   device="cpu")
     else:
         p.regroup()
     return p
@@ -121,6 +127,81 @@ class Lagging:
 
     def resume_barrier(self, participant, step, timeout=60.0):
         return step - 2
+
+
+class _FlakyOutputModel:
+    """model.output raises for the first ``fail`` calls (or, with
+    ``sleep``, stalls that long and answers), then delegates: the JAX
+    test's."""
+
+    def __init__(self, base, fail=1, sleep=0.0):
+        self.base = base
+        self._fail = fail
+        self._sleep = sleep
+
+    def output(self, x):
+        if self._fail > 0:
+            self._fail -= 1
+            if self._sleep:
+                time.sleep(self._sleep)
+                return self.base.output(x)
+            raise RuntimeError("injected replica failure")
+        return self.base.output(x)
+
+
+def _pi_conf(pkg):
+    import importlib
+    base = "deeplearning4j_tpu" if pkg == "jax" else "deeplearning4j_tpu_torch"
+    cfg = importlib.import_module(f"{base}.nn.config")
+    L = importlib.import_module(f"{base}.nn.layers")
+    U = importlib.import_module(f"{base}.train.updaters")
+    return (cfg.NeuralNetConfiguration.Builder().seed(1)
+            .updater(U.Sgd(0.1)).list()
+            .layer(L.DenseLayer(nOut=8, activation="relu"))
+            .layer(L.OutputLayer(nOut=3, lossFunction="mcxent",
+                                 activation="softmax"))
+            .setInputType(cfg.InputType.feedForward(4)).build())
+
+
+def rank_inference(p0, s0, x, axes=None, fail=1, sleep=0.0, retries=2,
+                   replica_timeout=None, plan_kw=None):
+    """``ParallelInference`` over the ranks (``axes``: the mesh, else
+    data-parallel): the leader submits ``x`` and reports its answer or
+    error, the warnings it saw, the failure count and the mesh after;
+    the follower follows and reports how it left."""
+    import warnings
+    from deeplearning4j_tpu_torch.faults import FaultPlan
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel import (DeviceMesh,
+                                                   ParallelInference)
+    from deeplearning4j_tpu_torch.parallel import wrapper
+    net = MultiLayerNetwork(_pi_conf("torch")).params_from_jax(
+        p0, s0, device="cpu")
+    mesh = DeviceMesh.create(**axes) if axes else DeviceMesh.data_parallel()
+    before = wrapper._INFERENCE_REPLICA_FAILURES.value
+    pi = ParallelInference(_FlakyOutputModel(net, fail=fail, sleep=sleep),
+                           mesh, max_retries=retries,
+                           replica_timeout=replica_timeout,
+                           faults=FaultPlan(**plan_kw) if plan_kw else None)
+    if replica_timeout:
+        pi._watchdog._lenient = 0       # nothing to build on the CPU
+    if not pi.is_leader:
+        return {"follower": pi.follow()}
+    out, err = None, None
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        try:
+            out = pi.output(x, timeout=30)
+        except Exception as e:
+            err = f"{type(e).__name__}: {e}"
+    if sleep:
+        time.sleep(2 * sleep)   # the abandoned forward finishes cleanly
+    pi.shutdown()
+    return {"out": out, "err": err,
+            "warnings": [str(w.message) for w in seen],
+            "failures": wrapper._INFERENCE_REPLICA_FAILURES.value - before,
+            "data": pi.mesh.size("data"), "model": pi.mesh.size("model"),
+            "members": sorted(d.id for d in pi.mesh.devices)}
 
 
 # ------------------------------------------------------- rank functions
@@ -589,3 +670,145 @@ class TestPrefetcherRebindAfterShrink:
         np.testing.assert_array_equal(it2.next().features, nxt.features)
         it.hasNext()
         assert it.cursor() is None
+
+
+def _pi_net():
+    """The JAX test's net, and its params and states as numpy."""
+    import jax
+    from deeplearning4j_tpu.nn.multilayer import MultiLayerNetwork
+    net = MultiLayerNetwork(_pi_conf("jax")).init()
+    state = jax.tree_util.tree_map(lambda a: np.array(np.asarray(a)),
+                                   (net._params, net._states))
+    return net, state
+
+
+class TestParallelInferenceRobustness:
+    def _net(self):
+        return _pi_net()
+
+    @staticmethod
+    def _warned(res, text):
+        return any(text in w for w in res["warnings"])
+
+    def test_flaky_replica_retried(self, pool):
+        net, (p0, s0) = self._net()
+        x = np.random.RandomState(0).randn(4, 4).astype(np.float32)
+        lead, follow = pool.run(rank_inference, p0, s0, x)
+        assert follow == {"follower": "stopped"}
+        assert lead["err"] is None and self._warned(lead, "replica failure")
+        np.testing.assert_allclose(lead["out"], np.asarray(net.output(x)),
+                                   rtol=1e-4, atol=1e-5)
+        assert lead["failures"] == 1
+
+    def test_exhausted_retries_structured_error(self, pool):
+        net, (p0, s0) = self._net()
+        x = np.zeros((2, 4), np.float32)
+        lead, follow = pool.run(rank_inference, p0, s0, x, fail=99,
+                                retries=1)
+        assert follow == {"follower": "stopped"}
+        assert self._warned(lead, "replica failure")
+        assert lead["err"].startswith("InferenceFailedError") and \
+            "after 2 attempt" in lead["err"]
+
+    def test_timed_out_replica_retried(self, pool):
+        """The leader's watchdog abandons the first forward after 0.2 s
+        (every rank stalls 0.6 s in it, then answers); the retry waits for
+        it outside its own deadline and answers."""
+        net, (p0, s0) = self._net()
+        x = np.random.RandomState(1).randn(2, 4).astype(np.float32)
+        lead, follow = pool.run(rank_inference, p0, s0, x, sleep=0.6,
+                                replica_timeout=0.2)
+        assert follow == {"follower": "stopped"}
+        assert lead["err"] is None and self._warned(lead, "replica failure")
+        np.testing.assert_allclose(lead["out"], np.asarray(net.output(x)),
+                                   rtol=1e-4, atol=1e-5)
+        assert lead["failures"] >= 1
+
+    def test_tensor_parallel_mesh_not_flattened(self, pool):
+        """A tensor-parallel serving mesh cannot drop a rank (each holds a
+        shard): the failure retries on the FULL mesh, rank 1 (the "lost"
+        one) included."""
+        net, (p0, s0) = self._net()
+        x = np.random.RandomState(3).randn(4, 4).astype(np.float32)
+        lead, follow = pool.run(
+            rank_inference, p0, s0, x, axes={"data": 1, "model": 2},
+            plan_kw={"device_loss_at_step": 1, "lose_devices": [1]})
+        assert follow == {"follower": "stopped"}
+        assert self._warned(lead, "cannot shrink a tensor-parallel")
+        np.testing.assert_allclose(lead["out"], np.asarray(net.output(x)),
+                                   rtol=1e-4, atol=1e-5)
+        assert lead["model"] == 2           # mesh untouched
+
+    def test_dead_devices_dropped_from_serving_mesh(self, pool):
+        net, (p0, s0) = self._net()
+        x = np.random.RandomState(2).randn(4, 4).astype(np.float32)
+        lead, follow = pool.run(
+            rank_inference, p0, s0, x,
+            plan_kw={"device_loss_at_step": 1, "lose_devices": [1]})
+        assert follow == {"follower": "lost"}
+        assert self._warned(lead, "dropping dead rank")
+        np.testing.assert_allclose(lead["out"], np.asarray(net.output(x)),
+                                   rtol=1e-4, atol=1e-5)
+        assert lead["data"] == 1 and lead["members"] == [0]
+
+
+def rank_serve_mesh(p0, s0, xs, plan_kw=None):
+    """``ModelServer`` over a data=2 mesh: the leader warms, answers
+    ``xs`` one request each and reports the answers, the buckets before
+    and after, the mesh after and the shrink's seconds; the follower
+    follows and reports how it left."""
+    from deeplearning4j_tpu_torch.faults import FaultPlan
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel import DeviceMesh
+    from deeplearning4j_tpu_torch.serving.server import ModelServer
+    net = MultiLayerNetwork(_pi_conf("torch")).params_from_jax(
+        p0, s0, device="cpu")
+    server = ModelServer(net, mesh=DeviceMesh.data_parallel(), batch_limit=4,
+                         coalesce_ms=0.5, name="mesh-server",
+                         faults=FaultPlan(**plan_kw) if plan_kw else None)
+    server.warmup([(4,)])
+    if not server.is_leader:
+        return {"follower": server.follow()}
+    buckets = server.buckets()
+    outs = [server.output(x, timeout=60) for x in xs]
+    server.close()
+    return {"outs": outs, "buckets": (buckets, server.buckets()),
+            "data": server.mesh.size("data"),
+            "shrink_s": server.last_shrink_seconds,
+            "recompiles": server.recompiles_after_warmup()}
+
+
+class TestServingOnMesh:
+    """``ModelServer(mesh=)`` over 2 ranks (rank 0 leads): answers equal
+    to the unsharded net's (``rtol=1e-4, atol=1e-5``), buckets multiples
+    of the data width, and a rank lost mid-stream shrinks the mesh, the
+    buckets re-warm on the survivor and the batch is retried there."""
+
+    def _net(self):
+        return _pi_net()
+
+    def test_data_mesh_answers_as_one_device(self, pool):
+        net, (p0, s0) = self._net()
+        rng = np.random.RandomState(4)
+        xs = [rng.randn(n, 4).astype(np.float32) for n in (1, 3, 4)]
+        lead, follow = pool.run(rank_serve_mesh, p0, s0, xs)
+        assert follow == {"follower": "stopped"}
+        assert lead["buckets"] == ([2, 4], [2, 4]) and lead["data"] == 2
+        for x, out in zip(xs, lead["outs"]):
+            np.testing.assert_allclose(out, np.asarray(net.output(x)),
+                                       rtol=1e-4, atol=1e-5)
+        assert lead["shrink_s"] is None and lead["recompiles"] == 0
+
+    def test_lost_rank_shrinks_rewarms_and_retries(self, pool):
+        net, (p0, s0) = self._net()
+        rng = np.random.RandomState(5)
+        xs = [rng.randn(2, 4).astype(np.float32) for _ in range(3)]
+        lead, follow = pool.run(
+            rank_serve_mesh, p0, s0, xs,
+            plan_kw={"serve_device_loss_at_batch": 2, "lose_devices": [1]})
+        assert follow == {"follower": "lost"}
+        assert lead["buckets"] == ([2, 4], [1, 2, 4]) and lead["data"] == 1
+        assert lead["shrink_s"] is not None and lead["shrink_s"] > 0
+        for x, out in zip(xs, lead["outs"]):
+            np.testing.assert_allclose(out, np.asarray(net.output(x)),
+                                       rtol=1e-4, atol=1e-5)

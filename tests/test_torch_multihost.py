@@ -31,7 +31,8 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 @pytest.fixture(scope="module")
 def pool(tmp_path_factory):
-    with RankPool(2, str(tmp_path_factory.mktemp("store"))) as p:
+    with RankPool(2, str(tmp_path_factory.mktemp("store")),
+                  device="cpu") as p:
         yield p
 
 
@@ -611,7 +612,8 @@ class TestElasticOverSocketCoordinator:
         from deeplearning4j_tpu_torch.distributed import \
             SocketCoordinatorServer
         with SocketCoordinatorServer(participants=4) as srv, \
-                RankPool(4, str(tmp_path / "store")) as pool4:
+                RankPool(4, str(tmp_path / "store"),
+                         device="cpu") as pool4:
             res = pool4.run(rank_elastic_socket, str(tmp_path / "ck"),
                             srv.address, allow_exit=[3])
         assert res[3] is None

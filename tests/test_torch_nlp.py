@@ -12,9 +12,13 @@ package's (``tests/test_nlp.py``), on the CPU.
   against the unigram^0.75 table by a chi-square bound.
 - The serializer both ways across packages, byte for byte.
 - The JAX test's cluster and nearest-word checks at its own config.
-- The mesh seams raise. The twins of ``tests/test_nlp.py``'s mesh tests
-  (sharded tables and sharded training, :99-140) wait for the
-  multi-device work (ROADMAP.md queue 1 item 1).
+- The mesh: the twins of ``tests/test_nlp.py``'s mesh tests (sharded
+  tables and sharded training, :99-140) run on 2 spawned gloo ranks on
+  the CPU (the JAX tests' ``data=2 x model=4`` and ``model=8`` meshes
+  become ``model=2``), at the JAX tests' tolerances: the tables split
+  over ``model`` train to the replicated tables within ``rtol=2e-4,
+  atol=1e-5``, their similarities within ``rtol=1e-3``. The ranks import
+  this module, JAX with it, and call none of it.
 """
 
 import os
@@ -406,13 +410,93 @@ def test_sequence_vectors_is_word2vec():
 
 
 def test_the_mesh_seams_raise(model):
+    """The mesh seams take a mesh now: on a one-rank mesh the tables stay
+    whole (nothing splits over a model axis of 1) and every query
+    answers as before."""
+    from deeplearning4j_tpu_torch.parallel import DeviceMesh
+    from deeplearning4j_tpu_torch.parallel import init
     m, _, _ = model
-    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
-        Word2Vec(mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        Word2Vec.Builder().mesh(object()).device("cpu").build()
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        m.shard_over_mesh(object())
+    prev = init._initialized
+    if prev is None:
+        init.initializeDistributed(device="cpu")
+    try:
+        mesh = DeviceMesh.create(data=1, model=1)
+        assert Word2Vec(mesh=mesh, device="cpu").mesh is mesh
+        assert Word2Vec.Builder().mesh(mesh).device("cpu").build().mesh \
+            is mesh
+        sim = m.similarity("cat", "dog")
+        table = m.getWordVectorMatrix().clone()
+        assert m.shard_over_mesh(mesh) is m
+        assert m.similarity("cat", "dog") == sim
+        assert torch.equal(m.getWordVectorMatrix(), table)
+    finally:
+        if prev is None:
+            init._initialized = None
+
+
+def rank_w2v(sents, sharded):
+    """The JAX mesh test's Word2Vec fit on this rank: tables split over
+    ``model`` (``sharded``) or replicated; the whole ``syn0``, the
+    similarity of cat and dog and what this rank holds of syn0."""
+    from deeplearning4j_tpu_torch.parallel import DeviceMesh
+    mesh = DeviceMesh.create(data=1, model=2) if sharded else None
+    m = (Word2Vec.Builder()
+         .minWordFrequency(2).layerSize(32).windowSize(3)
+         .negativeSample(4).learningRate(0.3).epochs(4)
+         .batchSize(128).seed(11)
+         .iterate(sents).mesh(mesh).device("cpu")
+         .build())
+    m.fit()
+    return (m.getWordVectorMatrix().numpy(), m.similarity("cat", "dog"),
+            tuple(m.syn0.shape))
+
+
+def rank_w2v_shard_vocab(sents):
+    """A replicated fit, then its tables split over ``model`` along the
+    vocabulary: what this rank holds, and the queries before and
+    after."""
+    from deeplearning4j_tpu_torch.parallel import DeviceMesh
+    m = (Word2Vec.Builder()
+         .minWordFrequency(2).layerSize(24).windowSize(3)
+         .negativeSample(4).learningRate(0.3).epochs(2)
+         .batchSize(256).seed(7)
+         .iterate(sents).device("cpu")
+         .build())
+    m.fit()
+    before = (m.similarity("cat", "dog"), m.wordsNearest("cat", 3))
+    m.shard_over_mesh(DeviceMesh.create(data=1, model=2))
+    after = (m.similarity("cat", "dog"), m.wordsNearest("cat", 3))
+    return before, after, tuple(m.syn0.shape), m.vocab.numWords()
+
+
+class TestWord2VecOnMesh:
+    @pytest.fixture(scope="class")
+    def pool(self, tmp_path_factory):
+        from deeplearning4j_tpu_torch.parallel.launch import RankPool
+        with RankPool(2, str(tmp_path_factory.mktemp("store")),
+                      device="cpu") as p:
+            yield p
+
+    def test_sharded_embeddings_on_mesh(self, pool):
+        """The vocabulary split over model=2 (zero-padded to even): each
+        rank holds half the rows; the queries answer as before."""
+        sents, _, _ = _corpus()
+        for before, after, shape, V in pool.run(rank_w2v_shard_vocab,
+                                                sents):
+            assert before[0] == pytest.approx(after[0], rel=1e-6)
+            assert before[1] == after[1]
+            assert shape[0] == -(-V // 2)
+
+    def test_mesh_sharded_TRAINING_matches_replicated(self, pool):
+        """The JAX test: the same seed gives the same vectors as
+        replicated training, the tables split through every step (JAX:
+        model=8 over 8 devices; here model=2 over 2 ranks)."""
+        sents, _, _ = _corpus()
+        rep = pool.run(rank_w2v, sents, False, ranks=[0])[0]
+        for syn0, sim, local in pool.run(rank_w2v, sents, True):
+            assert local == (rep[0].shape[0], 16)
+            np.testing.assert_allclose(syn0, rep[0], rtol=2e-4, atol=1e-5)
+            np.testing.assert_allclose(sim, rep[1], rtol=1e-3)
 
 
 def test_word2vec_runs_on_the_card_unless_told(monkeypatch):

@@ -13,8 +13,8 @@ two packages' initial draws differ. Tolerances: the JAX tests' own
 
 The rank functions are module-level so the ranks import them; JAX is
 imported only inside the tests (the ranks never import it). The twins
-of the ring-attention and sharded-transformer cases wait for the next
-slice (ROADMAP.md).
+of the ring-attention and sharded-transformer cases are in
+``test_torch_sequence.py`` and ``test_torch_tensor_parallel.py``.
 """
 
 import numpy as np
@@ -28,7 +28,8 @@ RTOL, ATOL = 2e-3, 1e-4
 
 @pytest.fixture(scope="module")
 def pool(tmp_path_factory):
-    with RankPool(WORLD, str(tmp_path_factory.mktemp("store"))) as p:
+    with RankPool(WORLD, str(tmp_path_factory.mktemp("store")),
+                  device="cpu") as p:
         yield p
 
 
@@ -99,14 +100,12 @@ def rank_sharding_rule(params):
     from deeplearning4j_tpu_torch.parallel import DeviceMesh, ShardingRule
     from deeplearning4j_tpu_torch.parallel.mesh import spec_of
     m = DeviceMesh.create(data=2, model=2)
-    try:
-        ShardingRule({r"w1": (None, "model")}).shard_params(m, params)
-        raised = None
-    except NotImplementedError as e:
-        raised = str(e)
+    tp = ShardingRule({r"w1": (None, "model"),
+                       r"w2": ("model", None)}).shard_params(m, params)
+    tp = {k: (v.numpy(), spec_of(v)) for k, v in tp.items()}
     dm = DeviceMesh.data_parallel()
     out = ShardingRule({r"w2": ("data", None)}).shard_params(dm, params)
-    return raised, {k: (v.numpy(), spec_of(v)) for k, v in out.items()}
+    return tp, {k: (v.numpy(), spec_of(v)) for k, v in out.items()}
 
 
 def rank_dp_fit(conf_name, params, states, x, y, batch, epochs, probe):
@@ -151,10 +150,9 @@ class TestMesh:
             np.testing.assert_array_equal(piece, by_dev[devices[r].id])
 
     def test_sharding_rule(self, pool, devices):
-        """A rule over a model axis of size 2 raises, naming the next
-        slice; a rule over the data axis keeps each rank's piece of the
-        dim, the JAX sharding's shard on that device; unmatched params
-        replicate."""
+        """A rule over the model axis of a data=2 x model=2 mesh and one
+        over the data axis keep each rank's piece of the dim, the JAX
+        sharding's shard on that device; unmatched params replicate."""
         from deeplearning4j_tpu.parallel import DeviceMesh as JMesh
         from deeplearning4j_tpu.parallel import ShardingRule as JRule
         params = {"w1": np.arange(32, dtype=np.float32).reshape(4, 8),
@@ -164,9 +162,18 @@ class TestMesh:
         jout = JRule({r"w2": ("data", None)}).shard_params(jm, params)
         shards = {sh.device.id: np.asarray(sh.data)
                   for sh in jout["w2"].addressable_shards}
-        for r, (raised, out) in enumerate(pool.run(rank_sharding_rule,
-                                                   params)):
-            assert raised is not None and "next slice" in raised
+        jtp = JRule({r"w1": (None, "model"), r"w2": ("model", None)}
+                    ).shard_params(JMesh.create(data=2, model=2,
+                                                devices=devices[:4]),
+                                   params)
+        for r, (tp, out) in enumerate(pool.run(rank_sharding_rule,
+                                               params)):
+            for k in ("w1", "w2"):
+                want = {sh.device.id: np.asarray(sh.data)
+                        for sh in jtp[k].addressable_shards}
+                assert tp[k][1] == tuple(jtp[k].sharding.spec)
+                np.testing.assert_array_equal(tp[k][0], want[devices[r].id])
+            assert tp["b"][1] == (None,)
             piece, spec = out["w2"]
             assert spec == ("data", None)
             assert tuple(jout["w2"].sharding.spec) == ("data", None)
@@ -264,3 +271,14 @@ class TestSyncBatchNorm:
                     states[i][k], np.asarray(net._states[i][k]),
                     rtol=1e-4, atol=1e-5)
         np.testing.assert_allclose(score, float(net.score()), rtol=1e-4)
+
+
+def test_rank_pool_defaults_to_the_card(tmp_path, monkeypatch):
+    """``RankPool`` without ``device=`` takes the card, as every entry
+    point does: without one it raises before any rank starts, and the
+    CPU is used only when asked for."""
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RankPool(2, str(tmp_path))
+    assert not any(tmp_path.iterdir())

@@ -890,3 +890,36 @@ def test_cli_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["lenet", "--budget", "2", "--no-persist", "--no-parity"])
+
+
+# ------------------------------------------------ the sharding axis
+class TestShardingAxis:
+    """The sharding axis with live plans (JAX space.py:142-144,
+    :175-194): ``for_model(sharding_variants=)`` enumerates them beside
+    ``None`` as the JAX space does, and ``TuningPlan.apply`` attaches the
+    variant. A one-rank mesh in this process (the plans only declare)."""
+
+    def test_sharding_variants_enumerate_and_apply(self):
+        from deeplearning4j_tpu.distributed import ShardedTrainingPlan as JP
+        from deeplearning4j_tpu.parallel import DeviceMesh as JMesh
+        from deeplearning4j_tpu_torch.distributed import (ShardedTrainingPlan,
+                                                          ZeroPlan)
+        from deeplearning4j_tpu_torch.parallel import DeviceMesh
+        mesh = DeviceMesh.create(data=1, model=1)
+        rules = {r"/W$": (None, "model")}
+        variants = [ShardedTrainingPlan(mesh, rules=rules),
+                    ShardedTrainingPlan(mesh, zero=ZeroPlan(min_bytes=0))]
+        jmesh = JMesh.create(data=2, model=4)
+        jvariants = [JP(jmesh, rules=rules), JP(jmesh, zero=True)]
+        space = TuningSpace.for_model(None, sharding_variants=variants)
+        jsp = jspace.TuningSpace.for_model(None, sharding_variants=jvariants)
+        assert space.size == jsp.size
+        assert len(space.axes["sharding"]) == len(jsp.axes["sharding"]) == 3
+        assert space.axes["sharding"][0] is None
+        net = tiny_net()
+        plan = TuningPlan(sharding=variants[0])
+        plan.apply(net)
+        assert net._sharding_plan is variants[0]
+        assert str(variants[0].signature()) in plan.signature()
+        assert TuningPlan.from_config(plan.to_config()).signature() == \
+            plan.signature()
