@@ -11,15 +11,16 @@ Phases (each one fails the run with a non-zero exit):
    build of every CUDA kernel from ``deeplearning4j_tpu_torch/ops/csrc``
    (one ``nvcc`` per source, all started together), with the registers and
    spills ``ptxas`` reports for the flash-attention, layer-norm and
-   BN+leaky kernels.
+   BN+leaky kernels (a spill of the 3xTF32 flash kernel at D=64 fails).
 2. Each kernel against its plain PyTorch version on the card, at the
    listed shapes, with the tolerances below: layer norm on both routes
    (a warp per row up to D=1024, a block above; 16-byte and scalar loads;
-   row counts off the block's 8), flash attention on both routes (the
-   tensor-core route for bf16 at every D, causal or not, T in 1, 63, 64,
-   65, 200, 512, Tq != Tk, the strided thirds of a QKV product; the
-   CUDA-core route for fp32 and an unaligned bf16 view), each call's route
-   read from ``FLASH_ROUTES``; then each one timed (CUDA
+   row counts off the block's 8), flash attention on its three routes
+   (the tensor-core route for bf16 and the 3xTF32 route for fp32, each at
+   every D, causal or not, T in 1, 63, 64, 65, 200, 512, Tq != Tk, the
+   strided thirds of a QKV product; the CUDA-core route for an unaligned
+   bf16 and an unaligned fp32 view), each call's route read from
+   ``FLASH_ROUTES``; then each one timed (CUDA
    events, median of 30 launches, L2 flushed before each and each queued
    behind a short device spin, so the host's launch time is not counted)
    beside its
@@ -28,8 +29,10 @@ Phases (each one fails the run with a non-zero exit):
    layer norm and flash attention at T=128 and T=512 (B=32) and at the
    BertBench train step's B=64, T=128, then both at phase 23's shapes: LN
    on [4096, 768] fp32 with BERT's eps 1e-12 (phase 28's rows too) and
-   flash on q, k, v [32, 128, 12, 64] fp32 (the CUDA-core route, beside
-   fp32 SDPA), and flash at phase 28's [4, 1024, 12, 64] fp32. The BN+leaky
+   flash on q, k, v [32, 128, 12, 64] fp32 and at phase 28's [4, 1024,
+   12, 64] fp32 (the 3xTF32 route, beside fp32 SDPA, bound by three TF32
+   products at 495 TFLOP/s with the fp32-FMA bound beside it), and the
+   CUDA-core route on unaligned views at [32, 128, 12, 64] fp32. The BN+leaky
    probe's kernels (``bn_stats``, ``bn_apply_leaky``) at C in {1, 16,
    1024} x M in {1, 7, 4099, 1,000,003, 5,537,792}, fp32 and bf16, and
    with a NaN, then timed at the probe's [16, 5,537,792] bf16 beside
@@ -299,7 +302,7 @@ Phases (each one fails the run with a non-zero exit):
    pooler and head applied to the [CLS] row) is served through
    ``ModelServer`` captured a bucket x shape: each capture records 25
    ``layer_norm`` launches (the [B*T, 768] fp32 view) and 12 flash
-   launches, all on the fp32 CUDA-core route (``FLASH_ROUTES``); then 64
+   launches, all on the fp32 3xTF32 route (``FLASH_ROUTES``); then 64
    requests of 1-8 rows at T=128, each resolved once, replaying 12 + 25 a
    forward and launching nothing eagerly, and equal to a direct call
    within 1e-4. One forward with the kernels against the same forward on
@@ -392,8 +395,9 @@ Phases (each one fails the run with a non-zero exit):
    direct ``output()`` within 1e-4, with ``recompiles_after_warmup()``
    0; one forward against the plain versions within 1e-4. Then a depth-2
    copy with 1024 positions, served one unmasked [4, 1024] batch: 2 fp32
-   flash launches on the CUDA-core route and 5 ``layer_norm`` a forward,
-   captured and direct, kernels against plain versions within 1e-4. It
+   flash launches on the 3xTF32 route and 5 ``layer_norm`` a forward,
+   captured and direct, kernels against plain versions within 1e-4, and
+   its captured replay timed (host batch to host answer, median of 10). It
    prints the file's MB, the parse and import seconds, tokens/s, p50/p99
    and the captured B=32 replay beside phase 23's path A.
 29. ResNet-50 v1 from an ONNX file: ``zoo.ResNet50`` (1000 classes,
@@ -719,7 +723,8 @@ Phases (each one fails the run with a non-zero exit):
    against the unsplit flash kernel and ``flash_attention_bwd`` on the
    same inputs (fp32: ``RING_FP32``, the JAX tests' bounds; bf16:
    ``RING_BF16``); flash launches a call 2 on each rank full, 1 and 2
-   causal; ring ms beside the unsplit kernel's. 43 (b): BERT-base
+   causal, all on the tensor-core route in bf16 and the 3xTF32 route in
+   fp32; ring ms beside the unsplit kernel's. 43 (b): BERT-base
    (causal, bf16, flash) at model=2, B=8, T=512: logits against the
    unsplit forward (``MESH_LOGIT_REL``), 12 flash and 25 layer-norm
    launches and 25 all-reduces a forward a rank, 3 Adam steps whose
@@ -798,7 +803,13 @@ and K=4 captures, and replays; ``ring_launches`` phase 43 (a)'s flash
 launches of the bf16 ring forwards on both ranks; ``tp_launches`` phase
 43 (b)'s flash and layer-norm launches of one model=2 forward on rank 0;
 ``pipe_launches`` phase 43 (c)'s of one pipeline step on stage 0;
-``rule_launches`` phase 43 (d)'s ``scale_shift_act`` on rank 0), the
+``rule_launches`` phase 43 (d)'s ``scale_shift_act`` on rank 0;
+flash's ``launches_by_route`` its launches by route, read from
+``FLASH_ROUTES`` in each phase that launches it on purpose: phase 2's
+checks and timed runs (the CUDA-core ones among them), phase 3's
+``launches``, phase 23's ``import_*``, phase 28's ``keras_launches`` and
+every launch of phase 43 (a)'s ring on both ranks, fp32 and bf16 (a
+replay counted under the route its capture took)), the
 ``nvidia-smi`` name/power-limit line, and as the last line
 ``{"ok": true, "device": {...}}``. Without a card, or outside a
 checkout, it exits non-zero and prints no result.
@@ -820,6 +831,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 BF16_FLOPS = 989e12            # dense bf16 tensor-core peak
 FP32_FLOPS = 67e12             # fp32 outside the tensor cores
+TF32_FLOPS = 495e12            # dense TF32 tensor-core peak
 TIMED_RUNS = 30
 #: device spin before each timed launch (~0.5 ms at 1.98 GHz): the card is
 #: still busy when the host has queued the events and the launch, so the
@@ -1037,10 +1049,21 @@ def main() -> None:
         for fn, regs, st, ld in ck.ptxas_report(name):
             log(f"ptxas {name}: {fn}: {regs} registers, spill stores {st} B, "
                 f"spill loads {ld} B")
+            # the 3xTF32 flash kernel at D=64 (the served fp32 paths')
+            if "flash_fwd_kernel_x3ILi64E" in fn and (st or ld):
+                fail(f"the 3xTF32 flash kernel spills at D=64: {fn}")
 
     # ------------------------------------------- 2. kernels against plain
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    # every flash launch of this phase (checks and timed runs) by route,
+    # for the kernels line: each reset of the counts adds them here first
+    phase2_routes = dict.fromkeys(ck.FLASH_ROUTES, 0)
+
+    def reset_counts():
+        for r, n in ck.FLASH_ROUTES.items():
+            phase2_routes[r] += n
+        ck.reset_counts()
 
     def rand(*shape, dtype=torch.float32, scale=1.0, shift=0.0):
         x = torch.randn(shape, generator=gen, device=dev) * scale + shift
@@ -1096,14 +1119,16 @@ def main() -> None:
     flash_cases.append((32, 512, 12, 64, torch.bfloat16, False))
     flash_cases.append((2, 256, 6, 128, torch.bfloat16, False))
     flash_cases.append((2, 256, 6, 128, torch.float32, True))
-    # the tensor-core route's edges: every D, causal or not, ragged T
-    flash_cases += [(2, T, 3, D, torch.bfloat16, c) for D in (64, 128, 192, 256)
+    # both tensor-core routes' edges: every D, causal or not, ragged T
+    flash_cases += [(2, T, 3, D, dt, c) for D in (64, 128, 192, 256)
+                    for dt in (torch.bfloat16, torch.float32)
                     for c in (False, True) for T in (1, 63, 64, 65, 200, 512)]
+    flash_route_of = {torch.bfloat16: "tensor_core", torch.float32: "tf32x3"}
 
     def check_flash(name, q, k, v, causal, route):
         """The wrapper's call, which must take ``route``, against the plain
         version."""
-        ck.reset_counts()
+        reset_counts()
         o, lse = ck.flash_attention_fwd(q, k, v, causal)
         if ck.FLASH_ROUTES[route] != 1:
             fail(f"{name}: took {ck.FLASH_ROUTES}, want the {route} route")
@@ -1118,23 +1143,26 @@ def main() -> None:
     for B, T, H, D, dt, causal in flash_cases:
         q, k, v = (rand(B, T, H, D, dtype=dt) for _ in range(3))
         check_flash(f"flash_attention B={B} T={T} H={H} D={D} {dt} "
-                    f"causal={causal}", q, k, v, causal,
-                    "tensor_core" if dt == torch.bfloat16 else "cuda_core")
-    for tq, tk in ((100, 300), (300, 100)):
-        for causal in (False, True):
-            q = rand(2, tq, 3, 64, dtype=torch.bfloat16)
-            k, v = (rand(2, tk, 3, 64, dtype=torch.bfloat16) for _ in range(2))
-            check_flash(f"flash_attention Tq={tq} Tk={tk} causal={causal}",
-                        q, k, v, causal, "tensor_core")
-    # q, k, v as the QKV projection leaves them: thirds of one [B, T, 3E]
-    qkv = rand(2, 200, 3 * 12 * 64, dtype=torch.bfloat16)
-    q, k, v = (t.reshape(2, 200, 12, 64) for t in qkv.split(768, dim=-1))
-    check_flash("flash_attention strided thirds", q, k, v, False,
-                "tensor_core")
-    # an unaligned bf16 view (2-byte offset, odd t stride): the CUDA cores
-    buf = rand(2, 200, 3 * 64 + 1, dtype=torch.bfloat16)
-    q = buf[..., 1:].reshape(2, 200, 3, 64)
-    check_flash("flash_attention unaligned view", q, q, q, True, "cuda_core")
+                    f"causal={causal}", q, k, v, causal, flash_route_of[dt])
+    for dt in (torch.bfloat16, torch.float32):
+        for tq, tk in ((100, 300), (300, 100)):
+            for causal in (False, True):
+                q = rand(2, tq, 3, 64, dtype=dt)
+                k, v = (rand(2, tk, 3, 64, dtype=dt) for _ in range(2))
+                check_flash(f"flash_attention Tq={tq} Tk={tk} {dt} "
+                            f"causal={causal}", q, k, v, causal,
+                            flash_route_of[dt])
+        # q, k, v as the QKV projection leaves them: thirds of one [B, T, 3E]
+        qkv = rand(2, 200, 3 * 12 * 64, dtype=dt)
+        q, k, v = (t.reshape(2, 200, 12, 64) for t in qkv.split(768, dim=-1))
+        check_flash(f"flash_attention strided thirds {dt}", q, k, v, False,
+                    flash_route_of[dt])
+        # an unaligned view (an offset of one element, odd t stride): the
+        # CUDA cores
+        buf = rand(2, 200, 3 * 64 + 1, dtype=dt)
+        q = buf[..., 1:].reshape(2, 200, 3, 64)
+        check_flash(f"flash_attention unaligned view {dt}", q, q, q, True,
+                    "cuda_core")
 
     def timed_row(shape, err, kernel, plain, library, nbytes, ops, peak):
         row = {"shape": shape, "max_abs_err": err, "ms": time_ms(kernel),
@@ -1184,7 +1212,7 @@ def main() -> None:
     for B, T in ((32, 128), (32, 512), (64, 128)):
         H, D = 12, 64
         q, k, v = (rand(B, T, H, D, dtype=torch.bfloat16) for _ in range(3))
-        ck.reset_counts()
+        reset_counts()
         err = check(f"flash_attention [{B}, {T}, {H}, {D}]",
                     ck.flash_attention_fwd(q, k, v, False)[0],
                     ck.flash_attention_plain(q, k, v, False)[0],
@@ -1200,54 +1228,64 @@ def main() -> None:
             4 * B * T * H * D * 2 + B * H * T * 4, 4 * B * H * T * T * D,
             BF16_FLOPS))
         del q, k, v, qh, kh, vh
-    # phase 23's flash: fp32 on the CUDA-core route, against fp32 SDPA
-    B, T, H, D = IMPORT_BATCH, IMPORT_T, 12, 64
-    q, k, v = (rand(B, T, H, D) for _ in range(3))
-    ck.reset_counts()
-    err = check(f"flash_attention [{B}, {T}, {H}, {D}] float32",
-                ck.flash_attention_fwd(q, k, v, False)[0],
-                ck.flash_attention_plain(q, k, v, False)[0], torch.float32)
-    if ck.FLASH_ROUTES["cuda_core"] != 1:
-        fail(f"fp32 flash at phase 23's shape took {ck.FLASH_ROUTES}")
-    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-    fa_rows.append(timed_row(
-        f"q, k, v [{B}, {T}, {H}, {D}] float32, non-causal (phase 23's "
-        "imported BERT-base, the CUDA-core route)", err,
-        lambda: ck.flash_attention_fwd(q, k, v, False),
-        lambda: ck.flash_attention_plain(q, k, v, False),
-        lambda: F.scaled_dot_product_attention(qh, kh, vh),
-        4 * B * T * H * D * 4 + B * H * T * 4, 4 * B * H * T * T * D,
-        FP32_FLOPS))
-    del q, k, v, qh, kh, vh
-    # phase 28's flash: the Keras encoder's depth-2 copy at T=1024, fp32
-    B, T, H, D = KERAS_LONG_B, KERAS_LONG_T, 12, 64
-    q, k, v = (rand(B, T, H, D) for _ in range(3))
-    ck.reset_counts()
-    err = check(f"flash_attention [{B}, {T}, {H}, {D}] float32",
-                ck.flash_attention_fwd(q, k, v, False)[0],
-                ck.flash_attention_plain(q, k, v, False)[0], torch.float32)
-    if ck.FLASH_ROUTES["cuda_core"] != 1:
-        fail(f"fp32 flash at phase 28's shape took {ck.FLASH_ROUTES}")
-    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-    fa_rows.append(timed_row(
-        f"q, k, v [{B}, {T}, {H}, {D}] float32, non-causal (phase 28's "
-        "imported Keras encoder at T=1024, the CUDA-core route)", err,
-        lambda: ck.flash_attention_fwd(q, k, v, False),
-        lambda: ck.flash_attention_plain(q, k, v, False),
-        lambda: F.scaled_dot_product_attention(qh, kh, vh),
-        4 * B * T * H * D * 4 + B * H * T * 4, 4 * B * H * T * T * D,
-        FP32_FLOPS))
-    del q, k, v, qh, kh, vh
+    # the fp32 rows: phase 23's imported BERT-base and phase 28's Keras
+    # encoder at T=1024 on the 3xTF32 route, beside fp32 SDPA (CUTLASS's
+    # 3xTF32, the same arithmetic); the bound is three TF32 products at the
+    # TF32 peak, with fp32 FMAs at 67 TFLOP/s beside it; then the CUDA-core
+    # kernel at phase 23's shape, through the gate on views 4 bytes off a
+    # 16-byte boundary, so its time stays comparable
+    def unaligned(x):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        return buf[1:].view(x.shape).copy_(x)
+
+    for B, T, route, what in (
+            (IMPORT_BATCH, IMPORT_T, "tf32x3", "phase 23's imported "
+             "BERT-base, the 3xTF32 route"),
+            (KERAS_LONG_B, KERAS_LONG_T, "tf32x3", "phase 28's imported "
+             "Keras encoder at T=1024, the 3xTF32 route"),
+            (IMPORT_BATCH, IMPORT_T, "cuda_core", "phase 23's shape on the "
+             "CUDA-core route, unaligned views")):
+        H, D = 12, 64
+        q, k, v = (rand(B, T, H, D) for _ in range(3))
+        qk, kk, vk = (q, k, v) if route == "tf32x3" else \
+            (unaligned(t) for t in (q, k, v))
+        reset_counts()
+        err = check(f"flash_attention [{B}, {T}, {H}, {D}] float32 {route}",
+                    ck.flash_attention_fwd(qk, kk, vk, False)[0],
+                    ck.flash_attention_plain(q, k, v, False)[0],
+                    torch.float32)
+        if ck.FLASH_ROUTES[route] != 1 or ck.LAUNCHES["flash_attention"] != 1:
+            fail(f"fp32 flash at [{B}, {T}, {H}, {D}] took "
+                 f"{ck.FLASH_ROUTES}, want the {route} route")
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        nbytes = 4 * B * T * H * D * 4 + B * H * T * 4
+        flops = 4 * B * H * T * T * D
+        row = timed_row(
+            f"q, k, v [{B}, {T}, {H}, {D}] float32, non-causal ({what})", err,
+            lambda: ck.flash_attention_fwd(qk, kk, vk, False),
+            lambda: ck.flash_attention_plain(q, k, v, False),
+            lambda: F.scaled_dot_product_attention(qh, kh, vh),
+            nbytes, 3 * flops if route == "tf32x3" else flops,
+            TF32_FLOPS if route == "tf32x3" else FP32_FLOPS)
+        row["flash_route"] = route
+        if route == "tf32x3":
+            row["fp32_fma_bound_ms"] = bound(nbytes, flops,
+                                             FP32_FLOPS)["bound_ms"]
+        fa_rows.append(row)
+        del q, k, v, qk, kk, vk, qh, kh, vh
     fa = {"name": "flash_attention", "route": "cuda",
           "source": "deeplearning4j_tpu_torch/ops/csrc/flash_attention.cu",
           "replaces": "deeplearning4j_tpu/ops/pallas_kernels.py:341",
           **fa_rows[0], "other_shapes": fa_rows[1:]}
     for kr in (ln, fa):
         for row in [kr] + kr["other_shapes"]:
+            fma = row.get("fp32_fma_bound_ms")
             log(f"{kr['name']} at {row['shape']}: kernel {row['ms']:.4f} ms, "
                 f"plain {row['plain_ms']:.4f} ms, library "
                 f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-                f"({row['bound_by']}) [{smi}]")
+                f"({row['bound_by']})"
+                + ("" if fma is None else
+                   f", fp32-FMA bound {fma:.4f} ms") + f" [{smi}]")
 
     # scale_shift_act at ResNet-50's epilogue shapes at B=64 (stem, then
     # the fused BNs of stages 0-3), a ragged row count, and C % 8 != 0
@@ -1614,6 +1652,7 @@ def main() -> None:
     log("scale_shift_act library = torch.relu_(torch.addcmul(shift, x, "
         "scale)): two calls")
     del flush
+    reset_counts()
 
     # ------------------------------------------------- 3. serve BERT-base
     served = serve_bert(smi)
@@ -2083,13 +2122,21 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     ln.update(served["layer_norm"])
-    fa.update(served["flash_attention"])
+    fa.update({k: v for k, v in served["flash_attention"].items()
+               if k != "routes"})
     for kr in (ln, fa):
         kr["import_launches"] = imported["served"][kr["name"]]
         kr["import_train_launches"] = imported["train"][kr["name"]]
     ln["keras_launches"] = keras["served_layer_norm"] \
         + keras["long_layer_norm"]
     fa["keras_launches"] = keras["long_flash"]
+    # by route, read from FLASH_ROUTES in each phase that launches flash
+    # on purpose (a replay under the route its capture took)
+    fa["launches_by_route"] = {
+        "phase 2": phase2_routes, "phase 3": served["flash_attention"][
+            "routes"], "phase 23": imported["flash_routes"],
+        "phase 28": keras["long_flash_routes"],
+        "phase 43 (a)": mesh["ring_routes"]}
     ssa["launches"] = fit_launches["scale_shift_act"]
     ssa["other_shapes"][0]["launches"] = yolo_launches["scale_shift_act"]
     ssa["other_shapes"][1]["launches"] = dk_launches
@@ -2133,7 +2180,7 @@ def main() -> None:
             "tune_launches", "lifecycle_launches", "lifecycle_replays",
             "native_launches", "dp_launches", "dp_replays",
             "ring_launches", "tp_launches", "pipe_launches",
-            "rule_launches")
+            "rule_launches", "launches_by_route")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{k: kr[k] for k in keys if k in kr}
                                   for kr in (ln, fa, ssa, sm, bn_st, bn_ap)]}))
@@ -2141,6 +2188,24 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def routes_with_replays(at_capture: dict, replays: int) -> dict:
+    """Flash launches by route over captured graphs: those counted by route
+    while the graphs were captured, and the replays' under the one route
+    that took every captured launch (the phases check that one did)."""
+    out = dict(at_capture)
+    if replays:
+        taken = [r for r, n in at_capture.items() if n]
+        if len(taken) != 1:
+            fail(f"captured flash launches {at_capture} on more than one "
+                 "route: the replays cannot be given a route")
+        out[taken[0]] += replays
+    return out
+
+
+def add_routes(a: dict, b: dict) -> dict:
+    return {r: a.get(r, 0) + b.get(r, 0) for r in {**a, **b}}
 
 
 def serve_bert(smi: str) -> dict:
@@ -2189,7 +2254,8 @@ def serve_bert(smi: str) -> dict:
         if warm_stats["capture_failures"] or len(at_capture) != n_caps \
                 or any(a != {"flash_attention": 12, "layer_norm": 25}
                        for a in at_capture) \
-                or warm_routes["cuda_core"]:
+                or warm_routes != {"tensor_core": warm_launches[
+                    "flash_attention"], "tf32x3": 0, "cuda_core": 0}:
             fail(f"served BERT-base captures: {at_capture}, routes "
                  f"{warm_routes}, cache_stats {warm_stats}: want {n_caps} "
                  "graphs of 12 tensor-core flash and 25 layer_norm launches "
@@ -2281,7 +2347,8 @@ def serve_bert(smi: str) -> dict:
         ck.reset_counts()
         with torch.inference_mode():
             lm.logits(rng.integers(0, cfg.vocab_size, (2, T), dtype=np.int32))
-        if ck.FLASH_ROUTES != {"tensor_core": 12, "cuda_core": 0}:
+        if ck.FLASH_ROUTES != {"tensor_core": 12, "tf32x3": 0,
+                               "cuda_core": 0}:
             fail(f"a direct forward at T={T} took flash routes "
                  f"{ck.FLASH_ROUTES}: want 12 on the tensor cores")
     log("direct forwards at T=128 and T=512: 12 flash launches each, all "
@@ -2314,9 +2381,12 @@ def serve_bert(smi: str) -> dict:
              "(max 5%, mean 0.2% of max|logit|)")
     del server, lm, kern, plain_logits
     torch.cuda.empty_cache()
-    return {k: {"launches": warm_launches[k] + replays[k],
-                "replays": replays[k]}
-            for k in ("flash_attention", "layer_norm")}
+    out = {k: {"launches": warm_launches[k] + replays[k],
+               "replays": replays[k]}
+           for k in ("flash_attention", "layer_norm")}
+    out["flash_attention"]["routes"] = routes_with_replays(
+        warm_routes, replays["flash_attention"])
+    return out
 
 
 def front_door(smi: str) -> None:
@@ -2643,7 +2713,8 @@ def bert_train(smi: str) -> None:
     want = {k: 0 for k in ck.KERNELS}
     want.update(flash_attention=12 * BERT_STEPS, layer_norm=25 * BERT_STEPS)
     if b_launches != want or any(ck.PLAIN_CALLS.values()) \
-            or b_routes != {"tensor_core": 12 * BERT_STEPS, "cuda_core": 0}:
+            or b_routes != {"tensor_core": 12 * BERT_STEPS, "tf32x3": 0,
+                            "cuda_core": 0}:
         fail(f"BertBench launch counts {b_launches}, routes {b_routes} "
              f"(plain {dict(ck.PLAIN_CALLS)}) over {BERT_STEPS} steps: want "
              "12 tensor-core flash and 25 layer_norm launches a step")
@@ -4829,14 +4900,16 @@ def import_bert(smi: str) -> dict:
             if cc.cache_stats()["capture_failures"] or \
                     len(at_capture) != len(server.buckets()) or \
                     any(a != {"flash_attention": 12, "layer_norm": 25}
-                        for a in at_capture) or routes["tensor_core"]:
+                        for a in at_capture) or \
+                    routes != {"tensor_core": 0, "cuda_core": 0,
+                               "tf32x3": warm["flash_attention"]}:
                 fail(f"imported BERT-base captures {at_capture}, routes "
                      f"{routes}, cache_stats {cc.cache_stats()}: want "
-                     f"{len(server.buckets())} graphs of 12 fp32 CUDA-core "
+                     f"{len(server.buckets())} graphs of 12 fp32 3xTF32 "
                      "flash and 25 layer_norm launches and no failure")
             log(f"path A warmup: {len(at_capture)} graphs (buckets "
                 f"{server.buckets()} x T={T}) captured in {warm_s:.2f} s, "
-                f"each 12 flash (fp32, CUDA-core route) + 25 layer_norm")
+                f"each 12 flash (fp32, 3xTF32 route) + 25 layer_norm")
             reqs = [rng.integers(0, cfg.vocab_size, (int(rng.integers(1, 9)), T),
                                  dtype=np.int32) for _ in range(64)]
             handles, got, wall, launches, plain, n_fwd = serve_burst(
@@ -4874,6 +4947,8 @@ def import_bert(smi: str) -> dict:
             server.close()
         served = {k: warm[k] + replays[k]
                   for k in ("flash_attention", "layer_norm")}
+        served_routes = routes_with_replays(routes,
+                                            replays["flash_attention"])
 
         # the same forward on the plain versions of both kernels
         plain_overrides(registry, ck)
@@ -4901,18 +4976,21 @@ def import_bert(smi: str) -> dict:
             losses.append(float(step(params, opt, t_dev, tok, tgt)))
             step_ms.append((time.perf_counter() - t0) * 1e3)
         train = dict(ck.LAUNCHES)
+        train_routes = dict(ck.FLASH_ROUTES)
         if not all(np.isfinite(losses)) or not losses[-1] < losses[0] or \
                 train["flash_attention"] != 12 * IMPORT_STEPS or \
+                ck.FLASH_ROUTES["tf32x3"] != 12 * IMPORT_STEPS or \
                 train["layer_norm"] != 25 * IMPORT_STEPS or \
                 any(ck.PLAIN_CALLS.values()):
             fail(f"path A training: losses {losses}, launches {train} "
-                 f"(plain {dict(ck.PLAIN_CALLS)}) over {IMPORT_STEPS} steps")
+                 f"(routes {dict(ck.FLASH_ROUTES)}, plain "
+                 f"{dict(ck.PLAIN_CALLS)}) over {IMPORT_STEPS} steps")
         med = float(np.median(step_ms))
         log(f"path A make_train_step B={B}, T={T}, Adam 1e-4: losses "
             f"{', '.join(f'{v:.5f}' for v in losses)}; step ms median "
             f"{med:.2f} (min {min(step_ms):.2f}, max {max(step_ms):.2f}), "
-            f"{B * T / (med / 1e3):.0f} tokens/s; 12 flash + 25 LN launches "
-            f"a step [{smi}]")
+            f"{B * T / (med / 1e3):.0f} tokens/s; 12 flash (3xTF32) + 25 LN "
+            f"launches a step [{smi}]")
         del params, opt, head
         torch.cuda.empty_cache()
 
@@ -5028,7 +5106,8 @@ def import_bert(smi: str) -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return {"served": served, "path_a": path_a,
-            "train": {k: train[k] for k in ("flash_attention", "layer_norm")}}
+            "train": {k: train[k] for k in ("flash_attention", "layer_norm")},
+            "flash_routes": add_routes(served_routes, train_routes)}
 
 
 def keras_encoder(smi: str, path_a: dict = None) -> dict:
@@ -5202,14 +5281,22 @@ def keras_encoder(smi: str, path_a: dict = None) -> dict:
             long_replays = dict(ck.REPLAYS)
             if cc.cache_stats()["capture_failures"] or any(
                     a != {"flash_attention": 2, "layer_norm": 5}
-                    for a in at_capture) or routes["tensor_core"] or \
+                    for a in at_capture) or \
+                    routes != {"tensor_core": 0, "cuda_core": 0,
+                               "tf32x3": long_warm["flash_attention"]} or \
                     long_replays["flash_attention"] != 2 or \
                     long_replays["layer_norm"] != 5 or \
                     any(ck.LAUNCHES.values()):
                 fail(f"T={KERAS_LONG_T}: captures {at_capture}, routes "
                      f"{routes}, replays {long_replays}, eager "
-                     f"{dict(ck.LAUNCHES)}: want 2 fp32 CUDA-core flash + 5 "
+                     f"{dict(ck.LAUNCHES)}: want 2 fp32 3xTF32 flash + 5 "
                      "layer_norm a forward")
+            ts = []
+            for _ in range(11):
+                t0 = time.perf_counter()
+                server._forward_raw(xl)
+                ts.append((time.perf_counter() - t0) * 1e3)
+            long_ms = float(np.median(ts[1:]))
         finally:
             server.close()
         xt = torch.from_numpy(xl).to(dev)
@@ -5223,20 +5310,27 @@ def keras_encoder(smi: str, path_a: dict = None) -> dict:
         dk2 = max(float((ref - plain).abs().max()),
                   float(np.abs(got - ref.cpu().numpy()).max()))
         if direct["flash_attention"] != 2 or direct["layer_norm"] != 5 or \
-                direct_routes["cuda_core"] != 2 or dk2 > 1e-4:
+                direct_routes != {"tensor_core": 0, "tf32x3": 2,
+                                  "cuda_core": 0} or dk2 > 1e-4:
             fail(f"T={KERAS_LONG_T} direct forward: launches {direct}, "
                  f"routes {direct_routes}; kernels vs plain and served vs "
-                 f"direct {dk2:.3g} (want 2 CUDA-core flash, 5 LN, 1e-4)")
+                 f"direct {dk2:.3g} (want 2 3xTF32 flash, 5 LN, 1e-4)")
         log(f"phase 28 depth-2 copy at [{KERAS_LONG_B}, {KERAS_LONG_T}]: "
             f"served (captures of {at_capture[0]}), a direct forward "
-            f"{direct['flash_attention']} fp32 flash on the CUDA-core route "
+            f"{direct['flash_attention']} fp32 flash on the 3xTF32 route "
             f"+ {direct['layer_norm']} LN; kernels vs plain and served vs "
-            f"direct max|diff| {dk2:.3g}; phase 28 "
+            f"direct max|diff| {dk2:.3g}; host batch to host answer, "
+            f"captured replay (median of 10) {long_ms:.3f} ms, "
+            f"{KERAS_LONG_B * KERAS_LONG_T / (long_ms / 1e3):.0f} tokens/s; "
+            f"phase 28 "
             f"{time.perf_counter() - t_phase:.1f} s [{smi}]")
         del net2
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return {"served_layer_norm": served,
+            "long_flash_routes": add_routes(
+                routes_with_replays(routes, long_replays["flash_attention"]),
+                direct_routes),
             "long_flash": long_warm["flash_attention"]
             + long_replays["flash_attention"] + direct["flash_attention"],
             "long_layer_norm": long_warm["layer_norm"]
@@ -8980,8 +9074,9 @@ def mesh_rank_ring() -> dict:
             torch.cuda.synchronize()
             launches = ck.LAUNCHES["flash_attention"]
             plain = ck.PLAIN_CALLS["flash_attention"]
+            routes = dict(ck.FLASH_ROUTES)
             o.backward(ct[:, rows])
-            res = {"launches": launches, "plain": plain,
+            res = {"launches": launches, "plain": plain, "routes": routes,
                    "o": _close(o.detach(), o_ref[:, rows], *bounds[0])}
             for name, p, ref in zip("qkv", pieces, grads_ref):
                 res["d" + name] = _close(p.grad, ref[:, rows], *bounds[1])
@@ -9416,18 +9511,23 @@ def mesh_phases(smi: str) -> dict:
         # ------------------------------------------------ 43 (a) the ring
         t_phase = time.perf_counter()
         res = pool.run(mesh_rank_ring, timeout=600)
-        ring = 0
+        ring, ring_routes = 0, {}
         for r, out in enumerate(res):
             for (dt, causal), v in out.items():
                 want = (r + 1) if causal else 2
+                route = "tensor_core" if dt == "bfloat16" else "tf32x3"
                 bad = [n for n in ("o", "dq", "dk", "dv") if not v[n][0]]
-                if v["launches"] != want or v["plain"] or bad:
+                if v["launches"] != want or v["plain"] or bad or \
+                        v["routes"] != {k: want * (k == route)
+                                        for k in v["routes"]}:
                     fail(f"phase 43 (a) rank {r} {dt} causal={causal}: "
-                         f"{v['launches']} flash launches (want {want}), "
+                         f"{v['launches']} flash launches (want {want}, "
+                         f"all {route}; routes {v['routes']}), "
                          f"{v['plain']} plain calls, out of bounds: "
                          f"{[(n, v[n]) for n in bad]}")
                 if dt == "bfloat16":
                     ring += v["launches"]
+                ring_routes = add_routes(ring_routes, v["routes"])
         for (dt, causal), v in res[0].items():
             log(f"phase 43 (a) ring attention {dt} {list(RING_SHAPE)} "
                 f"seq=2 causal={causal}: launches {res[0][(dt, causal)]['launches']}"
@@ -9438,6 +9538,7 @@ def mesh_phases(smi: str) -> dict:
                 f" ms on ranks 0/1 (two ranks sharing one card over gloo), "
                 f"the unsplit kernel at world 1 {v['w1_ms']:.2f} ms [{smi}]")
         kernels["ring_launches"] = ring
+        kernels["ring_routes"] = ring_routes
         log(f"phase 43 (a): {time.perf_counter() - t_phase:.1f} s")
         # ------------------------------------------ 43 (b) TP and SP LMs
         t_phase = time.perf_counter()

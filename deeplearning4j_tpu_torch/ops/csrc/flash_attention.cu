@@ -1,5 +1,6 @@
-// FlashAttention forward for Hopper (sm_90a): a tensor-core route for bf16
-// and a CUDA-core route for everything else the gate takes.
+// FlashAttention forward for Hopper (sm_90a): a tensor-core route for bf16,
+// a 3xTF32 tensor-core route for fp32, and a CUDA-core route for the calls
+// whose 16-byte copies would not align.
 //
 // Replaces: deeplearning4j_tpu/ops/pallas_kernels.py `_flash_fwd_kernel`
 // (:284), launched by `_flash_fwd_pallas` (pallas_call at :341) and
@@ -14,10 +15,10 @@
 //   P is rounded to v's type before the P.V product, as the reference does
 //   o = acc / max(l, 1e-30)  -> [B, Tq, H, D] in q's type
 //   lse = m + log(max(l, 1e-30)) -> fp32 [B, H, Tq]
-// Both routes use the same k tile per D (k_tile<D>: 64 for D <= 128, 32
-// above), so P rounds at the same running max in both and in the plain
+// Every route uses the same k tile per D (k_tile<D>: 64 for D <= 128, 32
+// above), so P rounds at the same running max in all and in the plain
 // version (`flash_k_tile`). The CUDA-core route takes p = expf(s - m); the
-// tensor-core route folds log2e into the scale, p = 2^(dot * scale * log2e
+// tensor-core routes fold log2e into the scale, p = 2^(dot * scale * log2e
 // - m * log2e) (one FMA and one MUFU.EX2), which moves lse by about
 // |m| * 1e-7, inside the 1e-5 that chip_smoke.py holds it to on every case.
 //
@@ -82,9 +83,65 @@
 //   strides multiples of 8 elements (each 16-byte chunk aligned); the
 //   wrapper's gate checks that and never copies.
 //
-// CUDA-core route (`flash_fwd_kernel`, fp32, and bf16 the tensor-core route
-// does not take): one block of 256 threads per (b*h, 64-row q tile). The q
-// tile and each k/v tile are staged in shared memory as fp32, rows padded
+// 3xTF32 route (`flash_fwd_kernel_x3<D>`, fp32): replaces the CUDA-core
+// kernel below for every aligned fp32 call (the served fp32 BERT-base's
+// QKV thirds, the Keras encoder, the fp32 ring).
+// - What bounds it: at [32, 128, 12, 64] fp32 it must move 50.5 MB (15 us
+//   at 3.35 TB/s) for 1.61 GFLOP; fp32 FMAs on the CUDA cores take 24 us
+//   at 67 TFLOP/s, so the CUDA-core kernel was compute bound and 1.3-1.5x
+//   slower than fp32 SDPA, which runs CUTLASS's 3xTF32 on the tensor
+//   cores. Three TF32 products (3 x 1.61 GFLOP at 495 TFLOP/s: 10 us) put
+//   the bound back on memory at T=128; at T=1024 the products bound it.
+// - Why three products: one TF32 product keeps 11 significant bits of each
+//   operand (a score off by ~5e-4, far outside the fp32 route's 2e-5 on o
+//   and 1e-5 on lse). Each operand x is split into big = tf32(x) (round to
+//   nearest, ties away, as `cvt.rna.tf32.f32`) and small = x - big, whose
+//   low 13 bits the tensor core drops, so x = big + small to 2^-21 |x|,
+//   and a.b = a_small.b_big + a_big.b_small + a_big.b_big (the small.small
+//   term, ~2^-22, dropped), each an `mma.sync.m16n8k8` TF32 product
+//   accumulated in fp32, the small terms first (CUTLASS's
+//   OpMultiplyAddFastF32). The split runs in registers after each load
+//   (Q, K, P and V, per warp) and costs more instructions than the
+//   products: it, not the tensor cores, sets the pace.
+// - The tensor core's fp32 accumulation truncates, so a score chained
+//   over all D/8 d steps drifts with D: for D > 128 the scores are chained
+//   4 d steps at a time and the chains summed in fp32 (x3_score_chain).
+// - Shape: at D=64 4 warps of 32 q rows (two m-tiles, so each K and V
+//   fragment's split serves two products), two blocks an SM; 8 warps of
+//   16 rows at D=128, 4 warps of 16 above, one block an SM. Each block
+//   holds 128 (64 above D=128) q rows, and fp32 Q and double-buffered K
+//   and V fit in shared memory (96, 192, 144, 192 KB for D = 64, 128, 192,
+//   256). The k tile is k_tile<D>. The grid and the causal skips are the
+//   bf16 route's.
+// - Copies: `cp.async.cg` 16-byte chunks (4 floats), rows of D/4 chunks,
+//   chunk c of row r stored at c ^ (r & 7); K and V double-buffered with
+//   one barrier a tile, Q copied once.
+// - S = Q K^T: Q's and K's fragments from `ldmatrix.x4` (a tf32 word read
+//   as a pair of 16-bit halves: lane l gets row l/4, word l%4, the m16n8k8
+//   A and B layout), split in registers after each load. Q is re-read
+//   from shared memory each tile: its split fragments would not fit
+//   beside the score and output accumulators.
+// - P.V with no shuffle: the m16n8 accumulator gives a lane keys 2c and
+//   2c+1 of each 8-key step, and P's A operand wants k slots c and c+4, so
+//   key 2c takes slot c and key 2c+1 slot c+4; V's B fragments follow:
+//   b0 = V[2c][n], b1 = V[2c+1][n]. The accumulator registers are then the
+//   A operand as they stand. The output columns are permuted too: n-tile
+//   j's column n is d = 4 (n + 8 (j / 4)) + j % 4, so a lane reads V a
+//   row at a time with 16-byte shared loads (4 n-tiles each) and holds 8
+//   contiguous d of each of its two rows at the end, stored as two 16-byte
+//   writes.
+// - Registers: every shared load is a lane's offset plus an immediate, and
+//   the epilogue recomputes its indices from blockIdx, so little stays
+//   live across the k loop; no D spills (`ptxas -v`, printed by
+//   chip_smoke.py, which fails on a spill at D=64).
+// - Softmax and epilogue as on the bf16 route, with P kept in fp32.
+// - Takes: fp32, every base pointer 16-byte aligned, the b, t, h strides
+//   multiples of 4 elements; the wrapper's gate checks that and never
+//   copies.
+//
+// CUDA-core route (`flash_fwd_kernel`, fp32 and bf16 that the tensor-core
+// routes do not take): one block of 256 threads per (b*h, 64-row q tile).
+// The q tile and each k/v tile are staged in shared memory as fp32, rows padded
 // by one float so that the strided reads below hit distinct banks. Each
 // thread owns a 4 x (BK/16) piece of the score tile and a 4 x (D/16) piece
 // of the output accumulator over the SAME four rows, so the running max,
@@ -498,23 +555,437 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, void* lse,
   return static_cast<int>(cudaGetLastError());
 }
 
-// what the tensor-core route takes: 16-byte-aligned bases, and b, t, h
-// strides (of the dims longer than 1) multiples of 8 elements
-bool tc_aligned(const void* const* ptrs, int B, int H, int Tq, int Tk,
-                const long long* st) {
+// what the tensor-core routes take: 16-byte-aligned bases, and b, t, h
+// strides (of the dims longer than 1) multiples of `per_chunk` elements
+// (8 bf16 or 4 fp32: one 16-byte chunk)
+bool chunks_aligned(const void* const* ptrs, int B, int H, int Tq, int Tk,
+                    const long long* st, int per_chunk) {
   for (int i = 0; i < 4; ++i)
     if (reinterpret_cast<uintptr_t>(ptrs[i]) & 15u) return false;
   for (int i = 0; i < 4; ++i) {
     const int T = i == 0 || i == 3 ? Tq : Tk;
-    if ((B > 1 && st[3 * i] % 8) || (T > 1 && st[3 * i + 1] % 8) ||
-        (H > 1 && st[3 * i + 2] % 8))
+    if ((B > 1 && st[3 * i] % per_chunk) ||
+        (T > 1 && st[3 * i + 1] % per_chunk) ||
+        (H > 1 && st[3 * i + 2] % per_chunk))
       return false;
   }
   return true;
 }
 
 // ---------------------------------------------------------------------------
-// CUDA-core route (fp32, and bf16 the tensor-core route does not take)
+// 3xTF32 route (fp32)
+
+// warps of a block and m-tiles (16 q rows each) a warp: at D=64 4 warps
+// of 32 rows, two blocks an SM; 8 warps of 16 rows at D=128, 4 above
+template <int D>
+__host__ __device__ constexpr int x3_warps() { return D == 128 ? 8 : 4; }
+template <int D>
+__host__ __device__ constexpr int x3_mtiles() { return D == 64 ? 2 : 1; }
+template <int D>
+__host__ __device__ constexpr int x3_rows() {
+  return 16 * x3_mtiles<D>() * x3_warps<D>();
+}
+template <int D>
+__host__ __device__ constexpr int x3_min_blocks() { return D == 64 ? 2 : 1; }
+
+// d steps of Q.K^T accumulated in one tensor-core chain
+template <int D>
+__host__ __device__ constexpr int x3_score_chain() {
+  return D <= 128 ? D / 8 : 4;
+}
+
+template <int D>
+constexpr size_t x3_smem_bytes() {
+  // Q, then two K buffers, then two V buffers, all fp32
+  return 4 * (static_cast<size_t>(x3_rows<D>()) * D +
+              4 * static_cast<size_t>(k_tile<D>()) * D);
+}
+
+// byte offset of 16-byte chunk c of row r in an fp32 tile of D/4 chunks a
+// row, chunk index XOR-swizzled with the row's low three bits
+template <int D>
+__device__ __forceinline__ uint32_t swz_f32(int r, int c) {
+  return static_cast<uint32_t>((r * (D / 4) + (c ^ (r & 7))) * 16);
+}
+
+// cp.async ROWS rows of D floats (row t at base + t * st) into a swizzled
+// tile; rows at or past tmax are zero-filled and read nothing
+template <int D, int ROWS, int THREADS>
+__device__ __forceinline__ void load_tile_f32(uint32_t tile, const float* base,
+                                              int64_t st, int t0, int tmax) {
+  constexpr int kChunks = D / 4;
+  static_assert((ROWS * kChunks) % THREADS == 0, "whole copies a thread");
+#pragma unroll
+  for (int i = 0; i < ROWS * kChunks / THREADS; ++i) {
+    const int idx = threadIdx.x + i * THREADS;
+    const int r = idx / kChunks;
+    const int c = idx - r * kChunks;
+    const int t = t0 + r;
+    const bool ok = t < tmax;
+    cp_async_16(tile + swz_f32<D>(r, c), ok ? base + t * st + c * 4 : base,
+                ok);
+  }
+}
+
+// blockIdx.x read afresh: the epilogue's indices are recomputed from it,
+// so none is carried (and, at D=64, spilled) across the k loop
+__device__ __forceinline__ int block_index() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%ctaid.x;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+// four floats from shared memory (16-byte aligned)
+__device__ __forceinline__ void lds_x4(uint32_t addr, float (&r)[4]) {
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(r[0]), "=f"(r[1]), "=f"(r[2]), "=f"(r[3])
+               : "r"(addr));
+}
+
+// x split as big + small: big = x rounded to TF32 (10 mantissa bits) to
+// nearest, ties away from zero (what `cvt.rna.tf32.f32` gives, in two
+// integer operations where the cvt compiles to four); small = x - big,
+// exact in fp32, whose low 13 bits the tensor core drops (round toward
+// zero), so x = big + small to 2^-21 |x|
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// c += a (16x8, row) * b (8x8, col), TF32 in, fp32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a * b to fp32 accuracy from the split operands: the two small
+// terms first, then big * big
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4],
+                                           const uint32_t (&bb)[2],
+                                           const uint32_t (&bs)[2]) {
+  mma_tf32(c, as, bb[0], bb[1]);
+  mma_tf32(c, ab, bs[0], bs[1]);
+  mma_tf32(c, ab, bb[0], bb[1]);
+}
+
+template <int D>
+__global__ void __launch_bounds__(32 * x3_warps<D>(), x3_min_blocks<D>())
+flash_fwd_kernel_x3(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ o,
+                    float* __restrict__ lse, int H, int Tq, int Tk, int nq,
+                    int64_t qsb, int64_t qst, int64_t qsh,
+                    int64_t ksb, int64_t kst, int64_t ksh,
+                    int64_t vsb, int64_t vst, int64_t vsh,
+                    int64_t osb, int64_t ost, int64_t osh,
+                    float scale, int causal) {
+  constexpr int MT = x3_mtiles<D>();
+  constexpr int BQ = x3_rows<D>();
+  constexpr int NT = 32 * x3_warps<D>();
+  constexpr int BK = k_tile<D>();
+  constexpr int KT = BK / 8;   // n-tiles of the score tile, k steps of P.V
+  constexpr int DT = D / 8;    // k steps of Q.K^T, n-tiles of the output
+  constexpr int SG = x3_score_chain<D>();
+  constexpr uint32_t kRow = D / 4 * 16;   // bytes of a row
+  constexpr uint32_t kTileBytes = BK * kRow;
+
+  extern __shared__ __align__(128) unsigned char x3_smem[];
+  const uint32_t sQ = smem_addr(x3_smem);
+  const uint32_t sK = sQ + BQ * kRow;
+  const uint32_t sV = sK + 2 * kTileBytes;
+
+  const int qt = static_cast<int>(blockIdx.x % nq);
+  const int bh = static_cast<int>(blockIdx.x / nq);
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = qt * BQ;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;   // rows g and g + 8 of each m-tile
+  const int t4 = lane & 3;   // k slots t4 and t4 + 4; keys 2 t4, 2 t4 + 1
+  const int wrow0 = q0 + 16 * MT * warp;   // m-tile mt: rows + 16 mt
+
+  const float* qb = q + b * qsb + h * qsh;
+  const float* kb = k + b * ksb + h * ksh;
+  const float* vb = v + b * vsb + h * vsh;
+
+  const int kend = causal ? min(Tk, q0 + BQ) : Tk;
+  const int ntiles = (kend + BK - 1) / BK;
+
+  // Shared-memory offsets, so that every load below is a lane's register
+  // plus an immediate (and, for Q and K, one XOR): few registers live
+  // across the k loop. Each row a lane hands ldmatrix has r & 7 == lane & 7,
+  // so its swizzled chunk for d step kk, (2 kk + hi) ^ (lane & 7), is
+  // 8 (kk / 4) + 2 ((kk % 4) ^ sw) + (hi ^ (lane & 1)) with sw = (lane >> 1)
+  // & 3. V's rows for key step kp are 8 kp + 2 t4 (+1), chunk (g + 8 i) ^
+  // (2 t4 (+1)) = (g ^ (2 t4 (+1))) + 8 i.
+  const uint32_t sw = (lane >> 1) & 3;
+  const uint32_t q_base = sQ + (16 * MT * warp + (lane & 15)) * kRow +
+                          (((lane >> 4) ^ lane) & 1) * 16;
+  const uint32_t k_row = ((lane & 7) + ((lane >> 4) << 3)) * kRow +
+                         (((lane >> 3) ^ lane) & 1) * 16;
+  const uint32_t v_off0 = 2 * t4 * kRow + (g ^ (2 * t4)) * 16;
+
+  load_tile_f32<D, BQ, NT>(sQ, qb, qst, q0, Tq);
+  load_tile_f32<D, BK, NT>(sK, kb, kst, 0, Tk);
+  load_tile_f32<D, BK, NT>(sV, vb, vst, 0, Tk);
+  cp_async_commit();
+
+  float acc[MT][DT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][n][e] = 0.f;
+  float m[MT][2], l[MT][2];  // l: this thread's share of the row sums
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      m[mt][i] = -INFINITY;
+      l[mt][i] = 0.f;
+    }
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int k0 = j * BK;
+    const uint32_t kt = sK + (j & 1) * kTileBytes;
+    const uint32_t vt = sV + (j & 1) * kTileBytes;
+    cp_async_wait<0>();  // tile j, this thread's copies
+    // tile j visible to every warp; every warp is done with tile j - 1,
+    // whose buffer the next copy refills
+    __syncthreads();
+    if (j + 1 < ntiles) {
+      const uint32_t nb = ((j + 1) & 1) * kTileBytes;
+      load_tile_f32<D, BK, NT>(sK + nb, kb, kst, k0 + BK, Tk);
+      load_tile_f32<D, BK, NT>(sV + nb, vb, vst, k0 + BK, Tk);
+      cp_async_commit();
+    }
+
+    // wholly above the diagonal
+    if (causal && k0 > wrow0 + 16 * MT - 1) continue;
+
+    // the scores, chained in the tensor cores SG d steps at a time and
+    // summed in fp32 between chains (the accumulator's rounding drifts
+    // along a chain); each K fragment's split serves the warp's MT m-tiles
+    float s[MT][KT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int n = 0; n < KT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[mt][n][e] = 0.f;
+#pragma unroll
+    for (int kg = 0; kg < DT / SG; ++kg) {
+      float c[MT][KT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int n = 0; n < KT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) c[mt][n][e] = 0.f;
+#pragma unroll
+      for (int kk = kg * SG; kk < (kg + 1) * SG; ++kk) {
+        // Q rows of each m-tile x d 8kk..8kk+7, then keys 16np..16np+15 x
+        // the same d (n-tiles 2np and 2np+1), loaded as they are used
+        const uint32_t dq = (((kk & 3) ^ sw) << 5) + (kk >> 2) * 128;
+        uint32_t ab[MT][4], as[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          uint32_t a[4];
+          ldsm_x4(q_base + mt * 16 * kRow + dq, a);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            split_tf32(__uint_as_float(a[e]), ab[mt][e], as[mt][e]);
+        }
+#pragma unroll
+        for (int np = 0; np < KT / 2; ++np) {
+          uint32_t bf[4];
+          ldsm_x4(kt + k_row + dq + np * 16 * kRow, bf);
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            uint32_t bb[2], bs[2];
+            split_tf32(__uint_as_float(bf[2 * half]), bb[0], bs[0]);
+            split_tf32(__uint_as_float(bf[2 * half + 1]), bb[1], bs[1]);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+              mma_3xtf32(c[mt][2 * np + half], ab[mt], as[mt], bb, bs);
+          }
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int n = 0; n < KT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[mt][n][e] += c[mt][n][e];
+    }
+
+    if (k0 + BK > Tk || (causal && k0 + BK - 1 > wrow0)) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int n = 0; n < KT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = k0 + 8 * n + 2 * t4 + (e & 1);
+            const int row = wrow0 + 16 * mt + g + 8 * (e >> 1);
+            if (col >= Tk || (causal && col > row)) s[mt][n][e] = -INFINITY;
+          }
+    }
+
+    const float scale_log2 = scale * kLog2e;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int n = 0; n < KT; ++n) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[mt][n][0], s[mt][n][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[mt][n][2], s[mt][n][3]));
+      }
+      float mb[2], alpha[2];  // mb: the max in log2 units
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[mt][i], mx[i] * scale);
+        // a row with nothing valid yet keeps p = 0 instead of exp(nan)
+        const float m_use = m_new == -INFINITY ? 0.f : m_new;
+        alpha[i] = expf(m[mt][i] - m_use);
+        mb[i] = m_use * kLog2e;
+        m[mt][i] = m_new;
+      }
+      float ps[2] = {0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < KT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = ex2(fmaf(s[mt][n][e], scale_log2, -mb[e >> 1]));
+          s[mt][n][e] = p;
+          ps[e >> 1] += p;
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l[mt][i] = l[mt][i] * alpha[i] + ps[i];
+#pragma unroll
+      for (int n = 0; n < DT; ++n) {
+        acc[mt][n][0] *= alpha[0];
+        acc[mt][n][1] *= alpha[0];
+        acc[mt][n][2] *= alpha[1];
+        acc[mt][n][3] *= alpha[1];
+      }
+    }
+
+#pragma unroll
+    for (int kp = 0; kp < KT; ++kp) {
+      // P's A operand from the accumulator as it stands: key 2 t4 in slot
+      // t4 (registers 0 and 2: rows g, g + 8), key 2 t4 + 1 in slot t4 + 4
+      uint32_t pb[MT][4], pq[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        split_tf32(s[mt][kp][0], pb[mt][0], pq[mt][0]);
+        split_tf32(s[mt][kp][2], pb[mt][1], pq[mt][1]);
+        split_tf32(s[mt][kp][1], pb[mt][2], pq[mt][2]);
+        split_tf32(s[mt][kp][3], pb[mt][3], pq[mt][3]);
+      }
+#pragma unroll
+      for (int i = 0; i < DT / 4; ++i) {
+        // keys 8 kp + 2 t4 and + 1 at d 4 (g + 8i) .. +3: column g of
+        // n-tiles 4i .. 4i+3
+        const uint32_t vrow = vt + kp * 8 * kRow + i * 128;
+        float x0[4], x1[4];
+        lds_x4(vrow + v_off0, x0);
+        // key 2 t4 + 1: the next row at chunk (g ^ 2 t4) ^ 1, one chunk
+        // up or down as bit 4 of v_off0 (that chunk's parity) says
+        lds_x4(vrow + v_off0 + kRow + 16 - ((v_off0 >> 3) & 2) * 16, x1);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          uint32_t bb[2], bs[2];
+          split_tf32(x0[jj], bb[0], bs[0]);
+          split_tf32(x1[jj], bb[1], bs[1]);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            mma_3xtf32(acc[mt][4 * i + jj], pb[mt], pq[mt], bb, bs);
+        }
+      }
+    }
+  }
+
+  const int bh_e = block_index() / nq;
+  const int b_e = bh_e / H;
+  float* ob = o + b_e * osb + (bh_e - b_e * H) * osh;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    float lc[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float li = l[mt][i];
+      li += __shfl_xor_sync(0xffffffffu, li, 1);
+      li += __shfl_xor_sync(0xffffffffu, li, 2);
+      lc[i] = fmaxf(li, 1e-30f);
+    }
+    if (t4 == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = wrow0 + 16 * mt + g + 8 * i;
+        if (row < Tq)
+          lse[static_cast<int64_t>(bh_e) * Tq + row] = m[mt][i] + logf(lc[i]);
+      }
+    }
+    // a lane holds, of rows g and g + 8, d 8 t4 + 32 i .. +7 for each i:
+    // n-tiles 4i .. 4i+3, columns 2 t4 (d +0..3) and 2 t4 + 1 (d +4..7)
+#pragma unroll
+    for (int i2 = 0; i2 < 2; ++i2) {
+      const int row = wrow0 + 16 * mt + g + 8 * i2;
+      if (row >= Tq) continue;
+      float* orow = ob + row * ost;
+#pragma unroll
+      for (int i = 0; i < DT / 4; ++i) {
+        const float4 lo = {acc[mt][4 * i][2 * i2] / lc[i2],
+                           acc[mt][4 * i + 1][2 * i2] / lc[i2],
+                           acc[mt][4 * i + 2][2 * i2] / lc[i2],
+                           acc[mt][4 * i + 3][2 * i2] / lc[i2]};
+        const float4 hi = {acc[mt][4 * i][2 * i2 + 1] / lc[i2],
+                           acc[mt][4 * i + 1][2 * i2 + 1] / lc[i2],
+                           acc[mt][4 * i + 2][2 * i2 + 1] / lc[i2],
+                           acc[mt][4 * i + 3][2 * i2 + 1] / lc[i2]};
+        float4* dst = reinterpret_cast<float4*>(orow + 8 * t4 + 32 * i);
+        dst[0] = lo;
+        dst[1] = hi;
+      }
+    }
+  }
+}
+
+template <int D>
+int launch_x3(const void* q, const void* k, const void* v, void* o, void* lse,
+              int B, int H, int Tq, int Tk, const long long* st, float scale,
+              int causal, cudaStream_t stream) {
+  constexpr int BQ = x3_rows<D>();
+  constexpr size_t smem = x3_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel_x3<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nq = (Tq + BQ - 1) / BQ;
+  const long long blocks = static_cast<long long>(nq) * B * H;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  flash_fwd_kernel_x3<D><<<static_cast<unsigned>(blocks), 32 * x3_warps<D>(),
+                           smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), H, Tq, Tk, nq, st[0], st[1], st[2], st[3],
+      st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale,
+      causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// CUDA-core route (fp32 and bf16 that the tensor-core routes do not take)
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -722,14 +1193,37 @@ int launch_tc_d(const void* q, const void* k, const void* v, void* o,
   }
 }
 
+int launch_x3_d(const void* q, const void* k, const void* v, void* o,
+                void* lse, int B, int H, int Tq, int Tk, int D,
+                const long long* st, float scale, int causal,
+                cudaStream_t stream) {
+  switch (D) {
+    case 64:
+      return launch_x3<64>(q, k, v, o, lse, B, H, Tq, Tk, st, scale, causal,
+                           stream);
+    case 128:
+      return launch_x3<128>(q, k, v, o, lse, B, H, Tq, Tk, st, scale, causal,
+                            stream);
+    case 192:
+      return launch_x3<192>(q, k, v, o, lse, B, H, Tq, Tk, st, scale, causal,
+                            stream);
+    case 256:
+      return launch_x3<256>(q, k, v, o, lse, B, H, Tq, Tk, st, scale, causal,
+                            stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // q [B, Tq, H, D], k/v [B, Tk, H, D], o [B, Tq, H, D]: element strides over
 // (b, t, h) in `strides` as q, k, v, o triples; the last dim is contiguous.
 // lse: fp32 [B, H, Tq] contiguous. dtype 0 = fp32, 1 = bf16. route 1 = the
-// tensor-core kernel (bf16, aligned as tc_aligned says; anything else is
-// refused, never rerouted), 0 = the CUDA-core kernel. Returns the
-// cudaError_t of the launch (0 = launched).
+// bf16 tensor-core kernel, 2 = the 3xTF32 kernel (fp32), each taking only
+// its dtype, aligned as chunks_aligned says (anything else is refused,
+// never rerouted); 0 = the CUDA-core kernel. Returns the cudaError_t of
+// the launch (0 = launched).
 extern "C" int dl4j_flash_attention_fwd(const void* q, const void* k,
                                         const void* v, void* o, void* lse,
                                         int B, int H, int Tq, int Tk, int D,
@@ -739,11 +1233,17 @@ extern "C" int dl4j_flash_attention_fwd(const void* q, const void* k,
   if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const void* ptrs[4] = {q, k, v, o};
   if (route == 1) {
-    const void* ptrs[4] = {q, k, v, o};
-    if (dtype != 1 || !tc_aligned(ptrs, B, H, Tq, Tk, strides))
+    if (dtype != 1 || !chunks_aligned(ptrs, B, H, Tq, Tk, strides, 8))
       return static_cast<int>(cudaErrorInvalidValue);
     return launch_tc_d(q, k, v, o, lse, B, H, Tq, Tk, D, strides, scale,
+                       causal, s);
+  }
+  if (route == 2) {
+    if (dtype != 0 || !chunks_aligned(ptrs, B, H, Tq, Tk, strides, 4))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_x3_d(q, k, v, o, lse, B, H, Tq, Tk, D, strides, scale,
                        causal, s);
   }
   if (route != 0)

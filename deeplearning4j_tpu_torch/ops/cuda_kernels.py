@@ -38,9 +38,10 @@ each Pallas kernel on the path becomes a CUDA C++ kernel for Hopper
   ``scale_shift_act_supported`` / ``softmax_supported`` decide, as in the
   JAX package, which calls the kernels take; masked attention and
   shapes/dtypes outside the gates go to the generic ops. Inside the flash
-  gate, :func:`flash_route` picks the tensor-core kernel (bf16 whose
-  16-byte copies align) or the CUDA-core kernel (the rest) before launch;
-  a launch that fails raises and is never retried on the other route.
+  gate, :func:`flash_route` picks the bf16 tensor-core kernel, the 3xTF32
+  tensor-core kernel (fp32; each where its 16-byte copies align) or the
+  CUDA-core kernel (the rest) before launch; a launch that fails raises
+  and is never retried on another route.
 
 The BN+leaky probe's two kernels (``csrc/bn_leaky.cu``: ``bn_stats``
 and ``bn_apply_leaky``, the port of ``benchmarks/probe_bn_leaky.py``'s
@@ -90,7 +91,10 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 #: plain-version calls made by the wrappers (CPU tensors only)
 PLAIN_CALLS: Dict[str, int] = {name: 0 for name in KERNELS}
 #: flash-attention launches by route (``LAUNCHES`` counts them all)
-FLASH_ROUTES: Dict[str, int] = {"tensor_core": 0, "cuda_core": 0}
+FLASH_ROUTES: Dict[str, int] = {"tensor_core": 0, "tf32x3": 0,
+                                "cuda_core": 0}
+#: the ``route`` argument of ``dl4j_flash_attention_fwd``
+_FLASH_ROUTE_CODE = {"cuda_core": 0, "tensor_core": 1, "tf32x3": 2}
 #: kernel launches run by replaying captured CUDA graphs (a wrapper
 #: counts its launch in ``LAUNCHES`` once, while the graph is captured;
 #: ``nn.compilecache`` adds the graph's count here at each replay)
@@ -370,20 +374,21 @@ def flash_k_tile(D: int, dtype: torch.dtype) -> int:
 
 def flash_route(q, k, v) -> str:
     """The kernel a call takes, chosen before launch: ``"tensor_core"``
-    for bf16 with every base pointer 16-byte aligned and the b, t, h
-    strides (of dims longer than 1) multiples of 8 elements, so every
-    16-byte ``cp.async`` chunk is aligned; ``"cuda_core"`` (the fp32-FMA
-    kernel) for fp32 and every other bf16 call. The output is allocated
-    contiguous by the wrapper and always qualifies."""
-    if q.dtype != torch.bfloat16:
-        return "cuda_core"
+    for bf16 and ``"tf32x3"`` (three TF32 tensor-core products a product,
+    fp32-accurate) for fp32, each when every base pointer is 16-byte
+    aligned and the b, t, h strides (of dims longer than 1) are multiples
+    of a 16-byte chunk (8 bf16, 4 fp32 elements), so every ``cp.async``
+    chunk is aligned; ``"cuda_core"`` (the FMA kernel) for every other
+    call. The output is allocated contiguous by the wrapper and always
+    qualifies."""
+    per_chunk = 16 // q.element_size()
     for t in (q, k, v):
         if t.data_ptr() % 16:
             return "cuda_core"
         for dim in (0, 1, 2):
-            if t.shape[dim] > 1 and t.stride(dim) % 8:
+            if t.shape[dim] > 1 and t.stride(dim) % per_chunk:
                 return "cuda_core"
-    return "tensor_core"
+    return "tensor_core" if q.dtype == torch.bfloat16 else "tf32x3"
 
 
 def flash_attention_plain(q, k, v, causal: bool = False
@@ -465,7 +470,7 @@ def flash_attention_fwd(q, k, v, causal: bool = False
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), B, H, Tq, Tk, D, strides, scale,
             int(bool(causal)), _DTYPE_CODE[q.dtype],
-            int(route == "tensor_core"), _stream(q.device))
+            _FLASH_ROUTE_CODE[route], _stream(q.device))
     _check_launch("flash_attention", rc)
     _bump(LAUNCHES, "flash_attention")
     _bump(FLASH_ROUTES, route)

@@ -502,6 +502,7 @@ def fit_elastic(wrapper, iterator, epochs: int = 1,
             if len(ranks) > 1 else InProcessCoordinator(1)
     session, stream_iter = _res.begin_session(model, iterator, checkpoint,
                                               nan_policy, faults)
+    session.manager.job = _job_id(len(ranks))
     monitor = DeviceMonitor(degraded_after=cfg.degraded_after, plan=faults)
     watchdog = DispatchWatchdog(cfg.watchdog_deadline, cfg.watchdog_grace,
                                 plan=faults, warmup=cfg.watchdog_warmup)
@@ -533,6 +534,17 @@ def fit_elastic(wrapper, iterator, epochs: int = 1,
     finally:
         model._dispatch_fence = None
         session.close(raise_errors=sys.exc_info()[1] is None)
+
+
+def _job_id(n_ranks: int) -> str:
+    """One id for this fit's checkpoints on every rank (rank 0's, sent to
+    the others): a save keeps another writer's checkpoint of its step
+    only when it carries this id."""
+    import uuid
+    ids = [uuid.uuid4().hex]
+    if n_ranks > 1 and torch.distributed.is_initialized():
+        torch.distributed.broadcast_object_list(ids, src=0)
+    return ids[0]
 
 
 def _run_epochs(wrapper, model, session, iterator, epochs, k, monitor,

@@ -75,6 +75,7 @@ import signal as _signal
 import sys
 import threading
 import time
+import uuid
 import warnings
 from collections import deque
 from contextlib import contextmanager
@@ -457,7 +458,15 @@ class CheckpointManager:
                                                file's SHA-256
         <dir>/quarantine_ckpt_.../             failed validation at resume
 
-    ``status`` in the manifest is ``"complete"`` or ``"preempted"``.
+    ``status`` in the manifest is ``"complete"`` or ``"preempted"``;
+    ``job`` is the writing run's id (the manager's :attr:`job`: its own,
+    unless the run gives every rank's manager one). A save replaces an
+    existing checkpoint of its step when this manager landed it (a re-save
+    after preemption) or another run wrote it, as the JAX package does;
+    one that another writer of the same run landed stands (the old writer
+    and the first survivor of a rank's loss both save the agreed step,
+    whose state every rank holds alike), so it is never deleted under the
+    survivors' restore.
     """
 
     PREFIX = "ckpt_"
@@ -467,6 +476,8 @@ class CheckpointManager:
         self.faults = fault_plan
         self._writer: Optional[_AsyncWriter] = None
         self._pool: Optional[_SnapshotPool] = None
+        self._landed: set = set()   # steps this manager landed
+        self.job = uuid.uuid4().hex
         os.makedirs(config.dir, exist_ok=True)
 
     # ------------------------------------------------------------- naming
@@ -538,22 +549,27 @@ class CheckpointManager:
                  for fn in sorted(os.listdir(tmp))}
         manifest = {"format": 1, "step": step, "epoch": epoch,
                     "status": status, "files": files,
-                    "unix_time": time.time()}
+                    "unix_time": time.time(), "job": self.job}
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
-        if os.path.isdir(final):     # a re-save of the same step
-            shutil.rmtree(final)     # (preemption right after a save)
+        if os.path.isdir(final) and (step in self._landed
+                                     or self._job_of(final) != self.job):
+            try:    # this manager's re-save of a step (preemption right
+                shutil.rmtree(final)    # after a save), or another run's
+            except FileNotFoundError:
+                pass    # another writer of this run replaced it as well
 
         def land():
             try:
                 os.replace(tmp, final)
+                self._landed.add(step)
             except OSError:
                 if not os.path.isdir(final):
                     raise
-                # another process landed this step in between (the first
-                # survivor of a rank's loss and the old writer both save
-                # the agreed step, whose state every rank holds alike):
-                # its checkpoint stands
+                # another process landed this step (the first survivor of
+                # a rank's loss and the old writer both save the agreed
+                # step, whose state every rank holds alike): its
+                # checkpoint stands
                 shutil.rmtree(tmp, ignore_errors=True)
         retry_io(land, cfg.io_retries, cfg.io_backoff)
         if self.faults is not None:
@@ -561,6 +577,14 @@ class CheckpointManager:
         CKPT_SECONDS.observe(time.perf_counter() - t0)
         self._rotate()
         return final
+
+    @staticmethod
+    def _job_of(path: str) -> Optional[str]:
+        try:
+            with open(os.path.join(path, "manifest.json")) as f:
+                return json.load(f).get("job")
+        except (OSError, ValueError):
+            return None
 
     def _rotate(self):
         cps = self.checkpoints()

@@ -12,6 +12,8 @@ scale_shift_act 1e-6 relative in fp32 and one ulp in bf16 (both sides
 round the exact value once).
 """
 
+import ctypes
+import math
 import threading
 
 import numpy as np
@@ -78,7 +80,10 @@ def test_layer_norm_kernel_matches_plain(dev, dtype, shape):
 def test_flash_kernel_matches_plain(dev, causal, dtype, T, D):
     q, k, v = (_randn(dev, 2, T, 3, D, dtype=dtype, seed=s)
                for s in (4, 5, 6))
+    ck.reset_counts()
     o, lse = ck.flash_attention_fwd(q, k, v, causal)
+    assert ck.FLASH_ROUTES["tensor_core" if dtype == torch.bfloat16
+                           else "tf32x3"] == 1
     po, plse = ck.flash_attention_plain(q, k, v, causal)
     torch.testing.assert_close(o, po, rtol=_tol(dtype), atol=_tol(dtype))
     torch.testing.assert_close(lse, plse, rtol=0, atol=1e-5)
@@ -88,8 +93,8 @@ def _flash_against_plain(q, k, v, causal, route):
     """The wrapper's call takes ``route`` and matches the plain version."""
     ck.reset_counts()
     o, lse = ck.flash_attention_fwd(q, k, v, causal)
-    assert ck.FLASH_ROUTES == {"tensor_core": int(route == "tensor_core"),
-                               "cuda_core": int(route == "cuda_core")}
+    assert ck.FLASH_ROUTES == {name: int(name == route)
+                               for name in ck.FLASH_ROUTES}
     po, plse = ck.flash_attention_plain(q.contiguous(), k.contiguous(),
                                         v.contiguous(), causal)
     torch.testing.assert_close(o, po, rtol=_tol(q.dtype), atol=_tol(q.dtype))
@@ -112,6 +117,76 @@ def test_flash_tensor_core_route_tq_ne_tk(dev, tq, tk, causal):
     k, v = (_randn(dev, 2, tk, 3, 64, dtype=torch.bfloat16, seed=s)
             for s in (28, 29))
     _flash_against_plain(q, k, v, causal, "tensor_core")
+
+
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 200, 512])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [64, 128, 192, 256])
+def test_flash_tf32x3_route_matches_plain(dev, D, causal, T):
+    q, k, v = (_randn(dev, 2, T, 3, D, seed=s) for s in (31, 32, 33))
+    _flash_against_plain(q, k, v, causal, "tf32x3")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("tq,tk", [(100, 300), (300, 100)])
+def test_flash_tf32x3_route_tq_ne_tk(dev, tq, tk, causal):
+    q = _randn(dev, 2, tq, 3, 64, seed=34)
+    k, v = (_randn(dev, 2, tk, 3, 64, seed=s) for s in (35, 36))
+    _flash_against_plain(q, k, v, causal, "tf32x3")
+
+
+def test_flash_tf32x3_route_reads_qkv_thirds(dev):
+    # the served fp32 path's q, k, v: thirds of one [B, T, 3E]
+    B, T, H, D = 2, 96, 4, 64
+    qkv = _randn(dev, B, T, 3 * H * D, seed=37)
+    q, k, v = (t.reshape(B, T, H, D) for t in qkv.split(H * D, dim=-1))
+    for causal in (False, True):
+        _flash_against_plain(q, k, v, causal, "tf32x3")
+
+
+def test_flash_unaligned_fp32_takes_the_cuda_cores(dev):
+    # a 4-byte offset and an odd t stride: the 16-byte copies cannot take
+    # it, so the gate sends it to the FMA kernel; asked for, the 3xTF32
+    # kernel refuses it
+    B, T, H, D = 2, 150, 3, 64
+    buf = _randn(dev, B, T, H * D + 1, seed=38)
+    q = buf[..., 1:].reshape(B, T, H, D)
+    for causal in (False, True):
+        _flash_against_plain(q, q, q, causal, "cuda_core")
+    rc, _, _ = _flash_c_entry(q, q, q, False, "tf32x3")
+    assert rc != 0
+
+
+def _flash_c_entry(q, k, v, causal, route):
+    """``dl4j_flash_attention_fwd`` called with ``route``'s code, past the
+    wrapper's gate: (its cudaError code, o, lse)."""
+    B, Tq, H, D = q.shape
+    o = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 12)(
+        *(int(t.stride(i)) for t in (q, k, v, o) for i in (0, 1, 2)))
+    rc = ck._lib("flash_attention").dl4j_flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), B, H, Tq, k.shape[1], D, strides,
+        1.0 / math.sqrt(D), int(causal), ck._DTYPE_CODE[q.dtype],
+        ck._FLASH_ROUTE_CODE[route], ck._stream(q.device))
+    torch.cuda.synchronize()
+    return rc, o, lse
+
+
+def test_flash_cuda_core_route_still_matches_plain_on_aligned_calls(dev):
+    # the FMA kernel, kept for unaligned views, takes an aligned fp32 and
+    # bf16 call too when its route code is given to the C entry
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (_randn(dev, 2, 200, 3, 64, dtype=dtype, seed=s)
+                   for s in (39, 40, 41))
+        for causal in (False, True):
+            rc, o, lse = _flash_c_entry(q, k, v, causal, "cuda_core")
+            assert rc == 0
+            po, plse = ck.flash_attention_plain(q, k, v, causal)
+            torch.testing.assert_close(o, po, rtol=_tol(dtype),
+                                       atol=_tol(dtype))
+            torch.testing.assert_close(lse, plse, rtol=0, atol=1e-5)
 
 
 def test_flash_kernel_reads_strided_views(dev):
@@ -687,7 +762,7 @@ def _small_bert_files(tmp_path):
 
 def test_imported_bert_runs_the_fp32_kernels_on_the_card(dev, tmp_path):
     """Path A: a checkpoint import's encode launches 2L+1 layer norms and
-    L fp32 flash kernels (the CUDA-core route), and agrees with the plain
+    L fp32 flash kernels (the 3xTF32 route), and agrees with the plain
     versions and with the same import on the CPU."""
     from deeplearning4j_tpu_torch.modelimport.bert import (
         importBertModelAndWeights)
@@ -705,7 +780,7 @@ def test_imported_bert_runs_the_fp32_kernels_on_the_card(dev, tmp_path):
     with torch.no_grad():
         x = ttr.encode(params, tok, cfg)
     assert ck.LAUNCHES["layer_norm"] == 5 and \
-        ck.FLASH_ROUTES == {"tensor_core": 0, "cuda_core": 2}
+        ck.FLASH_ROUTES == {"tensor_core": 0, "tf32x3": 2, "cuda_core": 0}
     cfg_c, params_c = importBertModelAndWeights(paths["tf"], device="cpu",
                                                 n_heads=2)
     with torch.no_grad():

@@ -59,6 +59,24 @@ class TestElasticChaosSweep:
             assert out["iteration"] == NBATCH
         assert np.isfinite(out["params"]).all() and out["data"] == 1
 
+    def test_the_writers_of_one_fit_share_its_job_id(self, pool, tmp_path):
+        # rank 0 writes every step until its loss, the survivor the shrink's
+        # checkpoint and the rest: one job id over both, so neither's save
+        # of the agreed step deletes the other's
+        from deeplearning4j_tpu_torch.train.resilience import (
+            CheckpointConfig, CheckpointManager)
+        d = str(tmp_path / "c")
+        res = pool.run(rank_elastic, d, {"device_loss_at_step": 5,
+                                         "lose_devices": [0]},
+                       ck_kw={"every_steps": 1, "keep_last": 2 * NBATCH,
+                              "io_backoff": 0.01})
+        assert res[0] == {"lost": True} and res[1]["iteration"] == NBATCH
+        mgr = CheckpointManager(CheckpointConfig(d))
+        steps = [s for s, _ in mgr.checkpoints()]
+        assert steps[0] < 5 and steps[-1] == NBATCH
+        assert len({mgr.validate(p)["job"]
+                    for _, p in mgr.checkpoints()}) == 1
+
     @pytest.mark.parametrize("seed", range(2))
     def test_hung_dispatch_sweep(self, pool, seed, tmp_path):
         rng = np.random.RandomState(seed)

@@ -141,7 +141,102 @@ def _pallas_flash(q, k, v, causal, dtype):
     return o, np.asarray(lse).reshape(B, H, T)
 
 
+def _tf32(a):
+    """a rounded to TF32 (10 mantissa bits): to nearest on the low 13
+    bits, ties away from zero, as ``cvt.rna.tf32.f32``."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_rz(a):
+    """a cut to TF32 (its low 13 bits dropped), as the tensor core reads
+    an fp32 operand."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return (u & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_matmul(a, b, products):
+    """a @ b as the 3xTF32 route's ``mma.sync`` products give it: each
+    operand split into big = tf32(x) and small = x - big (which the
+    tensor core cuts to TF32), then a_small.b_big + a_big.b_small +
+    a_big.b_big summed in fp32, the small terms first (``products=3``);
+    ``products=1`` keeps a_big.b_big."""
+    ab, bb = _tf32(a), _tf32(b)
+    if products == 1:
+        return ab @ bb
+    a_s, b_s = _tf32_rz(a - ab), _tf32_rz(b - bb)
+    return (a_s @ bb + ab @ b_s) + ab @ bb
+
+
+def _tf32x3_flash(q, k, v, causal, products=3):
+    """The 3xTF32 route's arithmetic in numpy fp32 (k tiles of
+    ``flash_k_tile``, the kernel's online softmax, both products through
+    :func:`_tf32_matmul`) over q, k, v [B, T, H, D] -> (o [B, T, H, D],
+    lse [B, H, T])."""
+    B, T, H, D = q.shape
+    bk = ck.flash_k_tile(D, torch.float32)
+    scale = np.float32(1.0 / np.sqrt(D))
+    qf, kf, vf = (np.ascontiguousarray(a.transpose(0, 2, 1, 3), np.float32)
+                  for a in (q, k, v))
+    rows = np.arange(T)[:, None]
+    m = np.full((B, H, T), -np.inf, np.float32)
+    l = np.zeros((B, H, T), np.float32)
+    acc = np.zeros((B, H, T, D), np.float32)
+    with np.errstate(invalid="ignore"):
+        for k0 in range(0, T, bk):
+            kb, vb = kf[:, :, k0:k0 + bk], vf[:, :, k0:k0 + bk]
+            s = _tf32_matmul(qf, kb.transpose(0, 1, 3, 2), products) * scale
+            if causal:
+                s = np.where(k0 + np.arange(kb.shape[2])[None, :] > rows,
+                             np.float32(-np.inf), s)
+            m_new = np.maximum(m, s.max(axis=-1))
+            m_use = np.where(m_new == -np.inf, np.float32(0), m_new)
+            alpha = np.exp(m - m_use)
+            p = np.exp(s - m_use[..., None])
+            l = l * alpha + p.sum(axis=-1)
+            acc = acc * alpha[..., None] + _tf32_matmul(p, vb, products)
+            m = m_new
+    lc = np.maximum(l, np.float32(1e-30))
+    return (acc / lc[..., None]).transpose(0, 2, 1, 3), m + np.log(lc)
+
+
 class TestFlashAttention:
+    @pytest.mark.parametrize("causal", [False, True])
+    @pytest.mark.parametrize("D", [64, 128, 192, 256])
+    def test_tf32x3_route_matches_pallas_fp32(self, causal, D):
+        # the route's three TF32 products a product meet the fp32 route's
+        # tolerance against the Pallas kernel at every D
+        q, k, v = _qkv(16, 2, 256, 2, D)
+        o, lse = _tf32x3_flash(q, k, v, causal)
+        want_o, want_lse = _pallas_flash(q, k, v, causal, jnp.float32)
+        np.testing.assert_allclose(o, want_o, rtol=FLASH_TOL, atol=FLASH_TOL)
+        np.testing.assert_allclose(lse, want_lse, rtol=FLASH_TOL,
+                                   atol=FLASH_TOL)
+
+    @pytest.mark.parametrize("causal", [False, True])
+    def test_one_tf32_product_misses_the_fp32_tolerance(self, causal):
+        # why the route takes three products: one keeps 11 bits of each
+        # operand, and both o and lse leave the fp32 tolerance
+        q, k, v = _qkv(16, 2, 256, 2, 64)
+        o, lse = _tf32x3_flash(q, k, v, causal, products=1)
+        want_o, want_lse = _pallas_flash(q, k, v, causal, jnp.float32)
+        assert np.abs(o - want_o).max() > 10 * FLASH_TOL
+        assert np.abs(lse - want_lse).max() > 10 * FLASH_TOL
+
+    def test_tf32_rounding_is_to_nearest_ties_away(self):
+        one = np.float32(1.0)
+        ulp = np.float32(2.0 ** -10)     # TF32's spacing at 1
+        x = np.array([one + ulp / 4, one + ulp / 2, one + 3 * ulp / 4,
+                      -(one + ulp / 2), one + ulp + ulp / 2], np.float32)
+        np.testing.assert_array_equal(
+            _tf32(x), np.array([one, one + ulp, one + ulp, -(one + ulp),
+                                one + 2 * ulp], np.float32))
+        r = _rng(17).standard_normal(1000).astype(np.float32)
+        big = _tf32(r)
+        assert not (big.view(np.uint32) & 0x1FFF).any()
+        np.testing.assert_array_less(np.abs(r - big - _tf32_rz(r - big)),
+                                     np.abs(r) * 2.0 ** -20)
+
     @pytest.mark.parametrize("causal", [False, True])
     @pytest.mark.parametrize("D", [64, 128])
     def test_plain_matches_pallas_fp32(self, causal, D):
@@ -181,9 +276,12 @@ class TestFlashAttention:
                                    atol=BF16_TOL)
 
     @pytest.mark.parametrize("case,route", [
-        ("contiguous", "tensor_core"), ("fp32", "cuda_core"),
+        ("contiguous", "tensor_core"), ("fp32", "tf32x3"),
         ("qkv_thirds", "tensor_core"), ("two_byte_offset", "cuda_core"),
-        ("odd_t_stride", "cuda_core"), ("size_one_dims", "tensor_core")])
+        ("odd_t_stride", "cuda_core"), ("size_one_dims", "tensor_core"),
+        ("fp32_qkv_thirds", "tf32x3"), ("fp32_odd_t_stride", "cuda_core"),
+        ("fp32_unaligned_base", "cuda_core"),
+        ("fp32_t_stride_of_two_chunks", "tf32x3")])
     def test_route_gate(self, case, route):
         # decided on strides and addresses alone, which CPU tensors have
         B, T, H, D = 2, 40, 3, 64
@@ -196,6 +294,22 @@ class TestFlashAttention:
             qkv = torch.zeros((B, T, 3 * H * D), dtype=torch.bfloat16)
             q, k, v = (t.reshape(B, T, H, D)
                        for t in qkv.split(H * D, dim=-1))
+        elif case == "fp32_qkv_thirds":   # the served fp32 path's views
+            qkv = torch.zeros((B, T, 3 * H * D))
+            q, k, v = (t.reshape(B, T, H, D)
+                       for t in qkv.split(H * D, dim=-1))
+        elif case == "fp32_odd_t_stride":   # aligned base, t stride H*D + 1
+            buf = torch.zeros((B, T, H * D + 1))
+            q = buf[..., :H * D].reshape(B, T, H, D)
+            k = v = torch.zeros((B, T, H, D))
+        elif case == "fp32_unaligned_base":   # a 4-byte offset
+            buf = torch.zeros((B, T, H * D + 4))
+            k = buf[..., 1:H * D + 1].reshape(B, T, H, D)
+            q = v = torch.zeros((B, T, H, D))
+        elif case == "fp32_t_stride_of_two_chunks":   # t stride H*D + 8
+            buf = torch.zeros((B, T, H * D + 8))
+            v = buf[..., :H * D].reshape(B, T, H, D)
+            q = k = torch.zeros((B, T, H, D))
         elif case == "two_byte_offset":
             buf = torch.zeros((B, T, H * D + 8), dtype=torch.bfloat16)
             q = buf[..., 1:H * D + 1].reshape(B, T, H, D)
@@ -208,6 +322,7 @@ class TestFlashAttention:
             buf = torch.zeros((1, 1, D + 3), dtype=torch.bfloat16)
             q = k = v = buf[..., :D].reshape(1, 1, 1, D)
         assert q.data_ptr() % 16 == 0 or case == "two_byte_offset"
+        assert k.data_ptr() % 16 == 0 or case == "fp32_unaligned_base"
         assert ck.flash_route(q, k, v) == route
 
     def test_k_tile_is_the_same_on_both_routes(self):
@@ -336,8 +451,10 @@ class TestWrappersAndBuild:
 
     def test_reset_counts_clears_the_flash_routes(self):
         ck.FLASH_ROUTES["tensor_core"] += 3
+        ck.FLASH_ROUTES["tf32x3"] += 2
         ck.reset_counts()
-        assert ck.FLASH_ROUTES == {"tensor_core": 0, "cuda_core": 0}
+        assert ck.FLASH_ROUTES == {"tensor_core": 0, "tf32x3": 0,
+                                   "cuda_core": 0}
 
     def test_registry_semantics(self):
         assert treg.has("layer_norm") and treg.has("flash_attention")

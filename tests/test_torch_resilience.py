@@ -445,6 +445,44 @@ class TestCheckpointManager:
                    for e in os.listdir(d))
         assert_training_state_equal(a, b)      # resumed from step 4
 
+    def test_another_writer_of_the_job_keeps_its_checkpoint(self, tmp_path):
+        # the old writer and the first survivor of a rank's loss both save
+        # the agreed step: the one landed first stands and stays readable
+        d = str(tmp_path / "c")
+        a, b = mlp(seed=1), mlp(seed=2)
+        a.fit(iterator())
+        b.fit(iterator())
+        first = CheckpointManager(CheckpointConfig(d))
+        second = CheckpointManager(CheckpointConfig(d))
+        second.job = first.job
+        path = first.save(a)
+        assert second.save(b) == path
+        back = mlp(seed=3)
+        got = second.restore(back, count_resume=False, step=NBATCH)
+        assert got["manifest"]["job"] == first.job
+        assert_training_state_equal(a, back)
+        assert not [e for e in os.listdir(d) if e.startswith(".tmp_")]
+        # the writer's own re-save of the step (preemption right after a
+        # save) replaces its checkpoint
+        first.save(a, status="preempted")
+        assert first.validate(path)["status"] == "preempted"
+
+    def test_a_fresh_run_replaces_an_old_runs_checkpoints(self, tmp_path):
+        # a second fit into the same directory saves the same steps: its
+        # own state lands, as in the JAX package, and a resume reads it
+        d = str(tmp_path / "c")
+        mlp(seed=1).fit(iterator(seed=1),
+                        checkpoint=CheckpointConfig(d, every_steps=2))
+        fresh = mlp()
+        fresh.fit(iterator(), checkpoint=CheckpointConfig(d, every_steps=2))
+        mgr = CheckpointManager(CheckpointConfig(d))
+        assert [s for s, _ in mgr.checkpoints()] == [6, 8, 10]
+        assert len({mgr.validate(p)["job"]
+                    for _, p in mgr.checkpoints()}) == 1
+        back = mlp(seed=3)
+        mgr.restore(back, count_resume=False)
+        assert_training_state_equal(fresh, back)
+
     def test_write_failure_retried_and_retry_io(self, tmp_path):
         d = str(tmp_path / "c")
         mlp().fit(iterator(), checkpoint=CheckpointConfig(
