@@ -681,7 +681,22 @@ Phases (each one fails the run with a non-zero exit):
    and one capture a run. It prints the bytes of one step's collectives
    by kind (``parallel.collectives.record`` over one eager step), the
    updater bytes under ZeRO at world 1, and ms a step of the wrapper's
-   captured fit beside phase 14's captured step.
+   captured fit beside phase 14's captured step. Then truncated BPTT
+   under the plan (``dp_tbptt_world1``): TextGenerationLSTM configured
+   for ``backpropType("tbptt", 50)``, fp32 with TF32 off, phase 21's
+   first 2 batches (B=32 x T=1000, 20 windows a batch) from one initial
+   state three ways: the plain ``fitTBPTT`` (the reference),
+   ``GSPMDTrainer.fit`` with ``ShardedTrainingPlan(mesh, zero=True)``
+   eagerly, and the same after ``GSPMDTrainer.warmup`` (the window step
+   captured with its collectives inside the graph). Both plan runs must
+   be bit-equal to the reference in every window loss, and after each
+   batch in the params, Adam moments, clock and carried (h, c); the
+   captured run takes one capture and 40 hits, and no kernel launches.
+   The control for phase 42 is measured here: the plain fit of the first
+   batch with its two halves swapped (rank 1's rows first), whose
+   distance from the reference (the window losses' largest relative
+   difference, the params' largest absolute one) is printed. It prints
+   ms a window of each run.
 42. Two rank processes sharing the card over gloo (``parallel.launch.
    RankPool(2, device="cuda", backend="gloo")``, spawned after the kernel
    build: the ranks load the libraries this process built; NCCL refuses
@@ -701,8 +716,17 @@ Phases (each one fails the run with a non-zero exit):
    rank, each rank's ``updater_hbm_bytes`` between 0.45 and 0.6 of world
    1's; ``save_sharded`` from both ranks, then ``load_sharded`` here at
    world 1: every parameter and updater-state tensor bit-equal to the
-   ranks' gathered values (SHA-256 of each). Then
-   ``ParallelWrapper.fit(elastic=ElasticConfig(coordinator=
+   ranks' gathered values (SHA-256 of each). Then truncated BPTT on the
+   two ranks (``dp_tbptt_two_ranks``): phase 41's initial state through
+   ``GSPMDTrainer`` with ZeRO on the first batch, 16 rows a rank, 20
+   windows: each rank's window losses and params within
+   ``DP_TBPTT_CONTROL_X`` times the control's distance from world 1 (the
+   control and the bound printed beside the reading), the params
+   bit-equal on the two ranks, every window's collectives (the loss
+   weights' and the gradients' all-reduce, ZeRO's all-gather) staged
+   through host memory, each rank's updater bytes between 0.45 and 0.6
+   of world 1's, no kernel launched; it prints ms a window on each rank.
+   Then ``ParallelWrapper.fit(elastic=ElasticConfig(coordinator=
    SocketCoordinator(...), lr_policy="linear"))`` over 8 batches of 64
    with a ``SocketCoordinatorServer`` in this process: rank 1 holds
    ``FaultPlan(device_loss_at_step=3, lose_devices=[1])`` and its
@@ -8575,6 +8599,17 @@ DP_STEPS = 8
 DP_LOSS_RTOL = (8e-4, 1e-1)
 #: phase 42: the step at which rank 1's device is lost
 DP_LOSE_AT = 3
+#: phases 41-42: TextGenerationLSTM under truncated BPTT and a sharding
+#: plan, on phase 21's batches (B=32 x T=1000, windows of 50): the world-1
+#: runs take this many batches, the two ranks the first
+DP_TBPTT_BATCHES = 2
+#: phase 42: the two ranks' distance from world 1 after the first batch
+#: (the window losses' largest relative difference, the params' largest
+#: absolute one) may be this many times the control's: world 1 on the
+#: batch with the two ranks' halves swapped, the same sums in another
+#: order. Two ranks also cut cuBLAS's products in two, so the factor
+#: leaves room above the control's reordering alone.
+DP_TBPTT_CONTROL_X = 10
 
 
 def dp_data(steps: int = 1):
@@ -8715,12 +8750,285 @@ def dp_world1(smi: str, phase14_ms: float) -> dict:
             f"ParallelWrapper K=4 ms a step {', '.join(f'{v:.2f}' for v in ms)}"
             f" against phase 14's captured {phase14_ms:.2f}; "
             f"{time.perf_counter() - t_phase:.1f} s [{smi}]")
+        tbptt = dp_tbptt_world1(smi)
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
             = det
     return {"launches": launches, "replays": replays, "store": store,
             "zero_losses": zero_losses[:4], "zero_bytes": zero_bytes,
-            "ms": float(np.median(ms)), "collective_bytes": coll}
+            "ms": float(np.median(ms)), "collective_bytes": coll,
+            "tbptt": tbptt}
+
+
+def textgen_tbptt_net():
+    """TextGenerationLSTM configured for truncated BPTT at phase 21's
+    window (``backpropType("tbptt", 50)`` through its configuration's
+    JSON), not initialized: ``fit`` sends each batch through the
+    windows."""
+    from deeplearning4j_tpu_torch import profile_fit as pf
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.nn.config import MultiLayerConfiguration
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    d = json.loads(zoo.TextGenerationLSTM().conf_builder().conf.to_json())
+    d["backprop_type"], d["tbptt_length"] = "tbptt", pf.TEXT_WINDOW
+    return MultiLayerNetwork(MultiLayerConfiguration.from_json(json.dumps(d)))
+
+
+def textgen_batches(n: int, rows=None):
+    """Phase 21's first ``n`` batches (B=32 x T=1000 one-hot characters of
+    ``profile_fit.markov_chars``, made on the card); ``rows`` reorders
+    each batch's rows."""
+    from deeplearning4j_tpu_torch import profile_fit as pf
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    B = TEXT_BATCH
+    idx = pf.markov_chars(TEXT_SEED, TEXT_BATCHES * B, pf.TEXT_LEN)
+    out = []
+    for b in range(n):
+        part = idx[b * B:(b + 1) * B]
+        if rows is not None:
+            part = part[rows]
+        out.append(DataSet(pf.one_hot_ncw(part[:, :-1]),
+                           pf.one_hot_ncw(part[:, 1:])))
+    return out
+
+
+def record_windows(net, staged=None):
+    """Keep each window's ``(loss, *carry)`` that ``net``'s window step
+    hands on; with ``staged`` (a list) also each window's host-staged
+    collectives and collective calls, as pairs."""
+    from deeplearning4j_tpu_torch.parallel import collectives
+    windows = []
+    inner = net._fit_window
+
+    def recording(*args):
+        s0 = collectives.HOST_STAGED.value
+        with collectives.record() as rec:
+            out = inner(*args)
+        windows.append(out)
+        if staged is not None:
+            staged.append((collectives.HOST_STAGED.value - s0,
+                           sum(rec.calls.values())))
+        return out
+    net._fit_window = recording
+    return windows
+
+
+def dp_tbptt_world1(smi: str) -> dict:
+    """Phase 41's truncated BPTT (see the module note), in
+    :func:`dp_world1`'s world-1 NCCL group. Returns phase 42's
+    references: the initial params, the first batch's window losses and
+    params, the control's distance from them, the updater bytes under
+    ZeRO and the collective calls a window."""
+    import torch
+
+    from deeplearning4j_tpu_torch import profile_fit as pf
+    from deeplearning4j_tpu_torch.distributed import (GSPMDTrainer,
+                                                      ShardedTrainingPlan,
+                                                      updater_hbm_bytes)
+    from deeplearning4j_tpu_torch.nn import compilecache as cc
+    from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+    from deeplearning4j_tpu_torch.parallel import DeviceMesh
+    t_part = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    W = pf.TEXT_WINDOW
+    n_win = pf.TEXT_LEN // W
+    batches = textgen_batches(DP_TBPTT_BATCHES)
+    ref = textgen_tbptt_net().init()
+    p0 = ref.params().detach().clone()
+
+    def run(how, data=batches):
+        """``data`` from the initial params through ``how``: ``plain``
+        (``fitTBPTT`` a batch), ``eager`` (GSPMDTrainer with ZeRO) or
+        ``captured`` (the same after ``warmup``). Returns the net, the
+        window losses, every batch's state and carry, the params after
+        each batch, ms a window each batch, the collective calls a window
+        and the compile cache's stats."""
+        net = textgen_tbptt_net().init()
+        net.setParams(p0)
+        net._ensure_opt_state()
+        net._ensure_clock()
+        staged = []
+        windows = record_windows(net, staged)
+        trainer = None if how == "plain" else GSPMDTrainer(
+            net, ShardedTrainingPlan(DeviceMesh.data_parallel(), zero=True))
+        cc.reset_stats()
+        ck.reset_counts()
+        if how == "captured":
+            f, lab = data[0].features, data[0].labels
+            trainer.warmup([(tuple(f.shape), tuple(lab.shape))])
+        held, flat, ms = [], [], []
+        for ds in data:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if how == "plain":
+                net.fitTBPTT(ds, W)
+            else:
+                trainer.fit([ds])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3 / n_win)
+            held += snapshot(net._dispatch_state()) + \
+                snapshot(list(windows[-1][1:]))
+            flat.append(net.params().detach().clone())
+        if any(ck.LAUNCHES.values()) or any(ck.PLAIN_CALLS.values()):
+            fail(f"phase 41 TBPTT {how}: a kernel ran: {dict(ck.LAUNCHES)} "
+                 f"(plain {dict(ck.PLAIN_CALLS)})")
+        return {"net": net, "losses": [float(w[0]) for w in windows],
+                "held": held, "flat": flat, "ms": ms,
+                "calls": [c for _, c in staged],
+                "stats": dict(cc.cache_stats())}
+
+    runs = {how: run(how) for how in ("plain", "eager", "captured")}
+    ref_losses, ref_held = runs["plain"]["losses"], runs["plain"]["held"]
+    ref_flat = runs["plain"]["flat"]
+    if len(ref_losses) != DP_TBPTT_BATCHES * n_win \
+            or not all(np.isfinite(ref_losses)):
+        fail(f"phase 41 TBPTT: window losses {ref_losses}")
+    for how in ("eager", "captured"):
+        losses, held = runs[how]["losses"], runs[how]["held"]
+        if losses != ref_losses or len(held) != len(ref_held) or not all(
+                torch.equal(a, b) for a, b in zip(held, ref_held)):
+            worst = max((float((a.float() - b.float()).abs().max())
+                         for a, b in zip(held, ref_held)), default=-1.0)
+            fail(f"phase 41 TBPTT {how}: GSPMDTrainer with ZeRO not "
+                 f"bit-equal to the plain fitTBPTT (window losses equal: "
+                 f"{losses == ref_losses}; max |diff| over params, Adam "
+                 f"moments, clock and carry {worst:.3g})")
+    stats = runs["captured"]["stats"]
+    if stats["capture_failures"] or stats["compile_seconds"][
+            "cold_compiles"] != 1 or stats["memory"]["hits"] != \
+            DP_TBPTT_BATCHES * n_win:
+        fail(f"phase 41 TBPTT captured: cache stats {stats}: want one "
+             f"capture, no failure, {DP_TBPTT_BATCHES * n_win} hits")
+    calls = runs["eager"]["calls"]
+    if len(set(calls)) != 1 or not calls[0]:
+        fail(f"phase 41 TBPTT: collective calls a window {calls}")
+    zero_bytes = sum(updater_hbm_bytes(
+        runs["eager"]["net"]._opt_state).values())
+    # the control: the first batch with the ranks' halves swapped
+    half = TEXT_BATCH // 2
+    swap = np.r_[half:TEXT_BATCH, 0:half]
+    control = run("plain", textgen_batches(1, swap))
+    ctl = _tbptt_distance(control["losses"], control["flat"][0],
+                          ref_losses[:n_win], ref_flat[0])
+    ms = {how: float(np.median(r["ms"])) for how, r in runs.items()}
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    secs = time.perf_counter() - t_part
+    log(f"phase 41 TBPTT: TextGenerationLSTM B={TEXT_BATCH} x "
+        f"T={pf.TEXT_LEN}, windows of {W}, {DP_TBPTT_BATCHES} batches "
+        f"({DP_TBPTT_BATCHES * n_win} windows): GSPMDTrainer with ZeRO at "
+        f"world 1 over NCCL, eager and captured (one capture, "
+        f"{stats['memory']['hits']} hits, {calls[0]} collectives a window "
+        f"inside the graph), bit-equal to the plain fitTBPTT in window "
+        f"losses, params, Adam moments, clock and carried (h, c); ms a "
+        f"window plain {ms['plain']:.2f}, eager {ms['eager']:.2f}, "
+        f"captured {ms['captured']:.2f}; no kernel launched; the control "
+        f"(the halves swapped) off the first batch by {ctl[0]:.3g} in a "
+        f"window loss (relative) and {ctl[1]:.3g} in a param; "
+        f"{secs:.1f} s [{smi}]")
+    return {"p0": p0.cpu().numpy(), "losses": ref_losses[:n_win],
+            "params": ref_flat[0].cpu().numpy(), "control": ctl,
+            "zero_bytes": zero_bytes, "calls": calls[0],
+            "ms": ms["eager"], "seconds": secs}
+
+
+def _tbptt_distance(losses, flat, ref_losses, ref_flat) -> tuple:
+    """(largest relative window-loss difference, largest absolute param
+    difference) of a TBPTT batch against the world-1 reference."""
+    import torch
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    flat = torch.as_tensor(flat, device="cpu")
+    ref_flat = torch.as_tensor(ref_flat, device="cpu")
+    return float(rel), float((flat - ref_flat).abs().max())
+
+
+def dp_rank_tbptt(p0) -> dict:
+    """Phase 42, in each rank: TextGenerationLSTM from phase 41's initial
+    params through ``GSPMDTrainer`` with ZeRO on the first batch, 16 of
+    its rows a rank."""
+    import torch
+
+    from deeplearning4j_tpu_torch import profile_fit as pf
+    from deeplearning4j_tpu_torch.distributed import (GSPMDTrainer,
+                                                      ShardedTrainingPlan,
+                                                      updater_hbm_bytes)
+    from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+    from deeplearning4j_tpu_torch.parallel import DeviceMesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    net = textgen_tbptt_net().init()
+    net.setParams(torch.from_numpy(p0))
+    staged = []
+    windows = record_windows(net, staged)
+    ds = textgen_batches(1)[0]
+    trainer = GSPMDTrainer(net, ShardedTrainingPlan(
+        DeviceMesh.data_parallel(), zero=True))
+    ck.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.fit([ds])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (pf.TEXT_LEN // pf.TEXT_WINDOW)
+    return {"losses": [float(w[0]) for w in windows],
+            "rows": int(windows[0][1].shape[0]),
+            "params": net.params().detach().cpu().numpy(),
+            "staged": staged, "ms": ms,
+            "hbm": sum(updater_hbm_bytes(net._opt_state).values()),
+            "launches": dict(ck.LAUNCHES), "plain": dict(ck.PLAIN_CALLS)}
+
+
+def dp_tbptt_two_ranks(pool, smi: str, w1: dict) -> None:
+    """Phase 42's truncated BPTT on the pool's two ranks (see the module
+    note), held against phase 41's world-1 references."""
+    from deeplearning4j_tpu_torch import profile_fit as pf
+    t_part = time.perf_counter()
+    n_win = pf.TEXT_LEN // pf.TEXT_WINDOW
+    res = pool.run(dp_rank_tbptt, w1["p0"])
+    ctl = w1["control"]
+    bound = (DP_TBPTT_CONTROL_X * ctl[0], DP_TBPTT_CONTROL_X * ctl[1])
+    dist = [_tbptt_distance(out["losses"], out["params"], w1["losses"],
+                            w1["params"]) for out in res]
+    log(f"phase 42 TBPTT: two ranks off world 1 after the first batch by "
+        f"{[f'{d[0]:.3g}' for d in dist]} in a window loss (relative) and "
+        f"{[f'{d[1]:.3g}' for d in dist]} in a param; the control (world "
+        f"1, the halves swapped) {ctl[0]:.3g} and {ctl[1]:.3g}; bounds "
+        f"{DP_TBPTT_CONTROL_X} x the control: {bound[0]:.3g} and "
+        f"{bound[1]:.3g} [{smi}]")
+    if not ctl[0] > 0 or not ctl[1] > 0:
+        fail(f"phase 42 TBPTT: the control sits at {ctl} from world 1: "
+             "no bound can be taken from it")
+    for r, out in enumerate(res):
+        d = dist[r]
+        if len(out["losses"]) != n_win or out["rows"] != TEXT_BATCH // 2 \
+                or not all(np.isfinite(out["losses"])) \
+                or not d[0] <= bound[0] or not d[1] <= bound[1]:
+            fail(f"phase 42 TBPTT rank {r}: {len(out['losses'])} windows "
+                 f"on {out['rows']} rows, losses {out['losses']} against "
+                 f"world 1's {w1['losses']}: off by {d}, bounds {bound}")
+        # world 1's (the loss weights' and the gradients' all-reduce) and
+        # ZeRO's all-gather of the updated pieces, which one rank skips
+        want = [(w1["calls"] + 1, w1["calls"] + 1)] * n_win
+        if out["staged"] != want:
+            fail(f"phase 42 TBPTT rank {r}: (host-staged, collective calls) "
+                 f"a window {out['staged']}: want {want[0]} each, "
+                 f"{n_win * want[0][0]} staged in all")
+        ratio = out["hbm"] / w1["zero_bytes"]
+        if not 0.45 <= ratio <= 0.6:
+            fail(f"phase 42 TBPTT rank {r}: updater bytes {out['hbm']} are "
+                 f"{ratio:.3f} of world 1's {w1['zero_bytes']}")
+        if any(out["launches"].values()) or any(out["plain"].values()):
+            fail(f"phase 42 TBPTT rank {r}: a kernel ran: {out['launches']}"
+                 f" (plain {out['plain']})")
+    if not np.array_equal(res[0]["params"], res[1]["params"]):
+        fail("phase 42 TBPTT: the two ranks' params differ after the batch")
+    staged = sum(s for s, _ in res[0]["staged"])
+    log(f"phase 42 TBPTT: two ranks over gloo on one card, "
+        f"{TEXT_BATCH // 2} rows each, {n_win} windows: {staged} "
+        f"host-staged collectives a rank ({n_win} windows x "
+        f"{w1['calls'] + 1}), params bit-equal across the ranks, updater bytes "
+        f"a rank {res[0]['hbm']} = {res[0]['hbm'] / w1['zero_bytes']:.3f} "
+        f"of world 1's, no kernel launched; ms a window "
+        f"{res[0]['ms']:.2f} and {res[1]['ms']:.2f} (world 1 eager "
+        f"{w1['ms']:.2f}); {time.perf_counter() - t_part:.1f} s [{smi}]")
 
 
 def dp_rank_zero(ckpt_dir, steps: int, control: bool = False) -> dict:
@@ -8930,6 +9238,7 @@ def dp_two_ranks(smi: str, w1: dict) -> None:
         log(f"phase 42: save_sharded on 2 ranks -> load_sharded at world 1: "
             f"{len(res[0]['digests'])} tensors bit-equal (params and ZeRO "
             f"moments) [{smi}]")
+        dp_tbptt_two_ranks(pool, smi, w1["tbptt"])
         with SocketCoordinatorServer(participants=2,
                                      heartbeat_timeout=2.0) as srv:
             res = pool.run(dp_rank_elastic, el_dir, srv.address, DP_STEPS,

@@ -305,6 +305,11 @@ class ShardedTrainingPlan:
         return DataSet(cut(item.features), cut(item.labels),
                        cut(item.features_mask), cut(item.labels_mask))
 
+    def stages_on_host(self, t: torch.Tensor) -> bool:
+        """Whether the step's collectives on ``t``'s device stage through
+        pinned host memory (gloo on the card): such a step stays eager."""
+        return collectives.stages_on_host(self.batch_group, t)
+
     def step_context(self, rows: int) -> collectives.DataParallelStep:
         """The data-parallel facts of one step over ``rows`` local rows
         (over the batch axes' group)."""
@@ -560,19 +565,17 @@ class GSPMDTrainer:
                label_dtype=None, policy=None):
         """Warm the model's steps under this plan (the compile cache's
         seam): batch dims pad up to the plan's data multiple, as ``fit``
-        pads real batches, and each rank warms its rows' step."""
-        from deeplearning4j_tpu_torch.nn import compilecache as _cc
+        pads real batches, and each rank warms its rows' step (a batch
+        that pads, the masked step its zero-weight rows make)."""
         model = self.model
         model.setShardingPlan(self.plan)
         if not model._initialized:
             model.init()
         self.plan.apply(model)
-        k = max(int(steps_per_dispatch), 1)
-        local = local_shapes(shapes, self.plan.data_shards(), k)
         if policy is not None:
             model.setPrecisionPolicy(policy)
-        _cc.warmup(model, local, steps_per_dispatch=k, dtype=dtype,
-                   label_dtype=label_dtype)
+        warm_rows(model, shapes, self.plan.data_shards(),
+                  max(int(steps_per_dispatch), 1), dtype, label_dtype)
         return model
 
     def fit(self, data, epochs: int = 1, steps_per_dispatch: int = 1,
@@ -616,6 +619,29 @@ def local_shapes(shapes, n: int, k: int = 1):
             "(features, labels) pairs; bare forward shapes cannot "
             "be megabatched — warm them in a separate call")
     return out
+
+
+def warm_rows(model, shapes, n: int, k: int = 1, dtype=None,
+              label_dtype=None) -> None:
+    """Warm one rank's steps for global ``shapes`` over ``n`` data ranks
+    through the compile cache's seam: :func:`local_shapes`' rows, and
+    for a ``(features, labels)`` pair whose batch pads, the masked step
+    too (``fit`` gives the zero-weight rows a labels mask, per example,
+    or per time step for ``[N, C, T]`` labels)."""
+    from deeplearning4j_tpu_torch.nn import compilecache as _cc
+    local = local_shapes(shapes, n, k)
+    _cc.warmup(model, local, steps_per_dispatch=k, dtype=dtype,
+               label_dtype=label_dtype)
+    fdt = np.dtype(dtype) if dtype is not None else np.float32
+    ldt = np.dtype(label_dtype) if label_dtype is not None else np.float32
+    lead = (k,) if k > 1 else ()
+    for spec, (fshape, lshape) in zip(shapes, local):
+        if int(spec[0][0]) % n == 0:
+            continue
+        mask = lshape[:1] + (lshape[2:3] if len(lshape) == 3 else ())
+        model._warm_dispatch(np.zeros(lead + fshape, fdt),
+                             np.zeros(lead + lshape, ldt),
+                             np.ones(lead + mask, np.float32), steps=k)
 
 
 # ------------------------------------------------- collective accounting

@@ -51,8 +51,13 @@ carried state it was handed.
 Sharding: ``setShardingPlan`` (``nn.network``) attaches a
 ``distributed.gspmd.ShardedTrainingPlan``; the loss of the output layer
 is weighed by this rank's share of the global batch's real rows
-(``parallel.collectives.DataParallelStep``). Truncated BPTT does not run
-data-parallel (it raises under a plan of more than one data rank).
+(``parallel.collectives.DataParallelStep``). Truncated BPTT runs under
+it as the plain step does: ``fit`` cuts each batch to this rank's rows
+(padded first with zero-weight rows, which makes an odd batch's windows
+masked ones), each window's step weighs its loss by the rank's share and
+sums the gradients over the data group, and the carried state, sized by
+the rank's rows, stays on its rank. The result is the JAX package's on
+the whole padded batch.
 """
 
 from __future__ import annotations
@@ -290,16 +295,15 @@ class MultiLayerNetwork(BaseNetwork):
         configuration each batch of 3-D features goes through
         :meth:`fitTBPTT` (any other batch through the plain step), one
         window a dispatch, and ``steps_per_dispatch`` and ``prefetch`` do
-        not apply (JAX multilayer.py:907-913)."""
+        not apply (JAX multilayer.py:907-913). Under a sharding plan each
+        batch is first cut to this rank's rows (``plan.localize``)."""
         length = self._tbptt_length()
         if length is None:
             return super()._fit_epoch(data, labels, k, prefetch, session)
         plan = self._sharding_plan
-        if plan is not None and plan.data_shards() > 1:
-            raise NotImplementedError(
-                "truncated BPTT does not run data-parallel: fit it on one "
-                "rank (or detach the sharding plan)")
         batches = self._batches(data, labels, 1, session)
+        if plan is not None:
+            batches = map(plan.localize, batches)
         if session is not None:
             batches = session.wrap_batches(batches)
         for ds in _prof.iter_with_data_wait(batches):
@@ -316,7 +320,9 @@ class MultiLayerNetwork(BaseNetwork):
         window; the feature mask is not used (the JAX package's window
         step passes ``mask=None``), the label mask is sliced. Under a
         session the batch's windows are one dispatch for its hooks (one
-        pull, ``ceil(T/L)`` steps)."""
+        pull, ``ceil(T/L)`` steps). Under a sharding plan ``ds`` is this
+        rank's rows (``fit`` cuts them) and each window's step reduces
+        over the data group."""
         if not self._initialized:
             self.init()
         length = int(tbptt_length)
@@ -393,12 +399,20 @@ class MultiLayerNetwork(BaseNetwork):
     def _tbptt_step(self, x, y, lmask, *carry):
         """One window: :meth:`_tbptt_forward` from the carried state, the
         output layer's loss (no L1/L2, as the JAX window step), the
-        update in place and the clock. Returns ``(loss, *new carry)``,
-        all detached."""
-        key = StepKey(self.conf.base.seed, self._t_dev)
-        cur, new_carry = self._tbptt_forward(x, carry, key)
-        loss = self.layers[-1].compute_loss(y, cur, mask=lmask)
-        _, loss = self._apply_loss(loss)  # the dynamic policy's drop too
+        update in place and the clock. Under a sharding plan as
+        :meth:`_step_on` (:meth:`_step_setup`): the loss weighed by this rank's share of the
+        global rows, the rank's key, the params gathered whole where the
+        plan splits them, the gradients (and the reported loss) summed
+        over the data group. Returns ``(loss, *new carry)``, all
+        detached."""
+        dp, key, params = self._step_setup(int(y.shape[0]))
+        cur, new_carry = self._tbptt_forward(x, carry, key, params)
+        out_layer = self.layers[-1]
+        loss = out_layer.compute_loss(y, cur, mask=lmask)
+        if dp is not None:
+            loss = dp.scale_loss(out_layer, loss, y, lmask)
+        # the dynamic policy's drop too
+        _, loss = self._apply_loss(loss, params)
         with torch.no_grad():
             self._t_dev.add_(1)
         return (loss.detach(),) + tuple(c.detach() for c in new_carry)
@@ -444,12 +458,17 @@ class MultiLayerNetwork(BaseNetwork):
     def _warm_tbptt(self, x, y, lmask=None, tbptt_length: int = None):
         """Capture the window step for the windows of a ``[N, C, T]``
         batch (the full window and a shorter last one) without changing
-        any state."""
+        any state. Under a sharding plan the batch is this rank's rows;
+        a plan whose collectives stage through host memory (gloo on the
+        card) leaves the step eager."""
         if not self._initialized:
             self.init()
         length = int(tbptt_length or self._tbptt_length())
         self._ensure_step_state()
         x, y, lmask, _ = self._batch_tensors(x, y, lmask)
+        plan = self._sharding_plan
+        if plan is not None and plan.stages_on_host(x):
+            return self
         carry = self._zero_carry(x)
         T = x.shape[2]
         for start in sorted({0, T - T % length} - {T}):

@@ -734,18 +734,26 @@ class BaseNetwork:
                     for k, v in ins.items()}
         return maybe_augment(aug, ins, self._t_dev)
 
+    def _step_setup(self, rows: int):
+        """A train step's ``(dp, key, params)`` over ``rows`` local rows:
+        under a sharding plan its ``DataParallelStep`` (None without one),
+        the step's key (the rank's, under a plan) and the params, gathered
+        whole where the plan splits them at rest."""
+        plan = self._sharding_plan
+        dp = None if plan is None else plan.step_context(rows)
+        seed = self.conf.base.seed
+        key = norm_ops.StepKey(seed, self._t_dev) if dp is None \
+            else dp.key(seed, self._t_dev)
+        params = plan.gather_params(self) if self._fsdp_layout \
+            else self._params
+        return dp, key, params
+
     def _step_on(self, ins, labels, masks, fmask=None):
         """The step on packed inputs (``_pack``'s form): the augmentation
         prelude, the loss, the update and the layer states (kept only
         where a dynamic policy's gradients were finite), the clock."""
-        plan = self._sharding_plan
-        dp = None if plan is None else plan.step_context(_rows_of(labels))
-        seed = self.conf.base.seed
-        key = norm_ops.StepKey(seed, self._t_dev) if dp is None \
-            else dp.key(seed, self._t_dev)
+        dp, key, params = self._step_setup(_rows_of(labels))
         ins = self._augment_ins(ins)
-        params = plan.gather_params(self) if self._fsdp_layout \
-            else self._params
         loss, new_states = self._loss_and_reg(
             params, self._states, ins, labels, True, masks, key,
             fmask=fmask, dp=dp)

@@ -113,6 +113,13 @@ def _staged(group, t: torch.Tensor) -> bool:
     return t.is_cuda and dist.get_backend(group) == "gloo"
 
 
+def stages_on_host(group, t: torch.Tensor) -> bool:
+    """Whether a collective over ``group`` on ``t`` goes through pinned
+    host memory (gloo with a card tensor): a step that issues one is not
+    captured."""
+    return not _skip(group) and _staged(group, t)
+
+
 def _host(t: torch.Tensor) -> torch.Tensor:
     h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     h.copy_(t)

@@ -490,6 +490,12 @@ def fit_elastic(wrapper, iterator, epochs: int = 1,
         raise ValueError(f"unknown lr_policy {cfg.lr_policy!r} (expected "
                          "none|linear|sqrt)")
     model = wrapper.model
+    if getattr(model, "_tbptt_length", lambda: None)() is not None:
+        # its loop steps each batch whole (``_fit_one``): it would train a
+        # truncated-BPTT net on whole sequences, unlike every other fit
+        raise NotImplementedError(
+            "elastic training does not run truncated BPTT yet: fit the net "
+            "through ParallelWrapper.fit without elastic= or GSPMDTrainer")
     wrapper._attach()
     ranks = [d.id for d in wrapper.mesh.devices]
     names = {r: f"rank{r}" for r in ranks}

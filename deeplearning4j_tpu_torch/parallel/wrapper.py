@@ -16,6 +16,11 @@ On a mesh with a ``model`` axis each rank of a model line runs the same
 rows on the same replicated params; the gradients sum over the data
 axis only.
 
+A network under truncated BPTT trains through its windows, as DL4J's
+ParallelWrapper and both packages' GSPMD trainer do; the JAX wrapper
+instead steps a 3-D batch whole at one step a dispatch
+(``_fit_one``). The elastic fit refuses such a network.
+
 ``ParallelInference`` (ref: DL4J's ParallelInference, BATCHED mode)
 queues requests, coalesces them up to ``batch_limit`` rows, pads the
 batch to its bucket and runs one forward over the mesh through the
@@ -80,16 +85,13 @@ class ParallelWrapper:
         ``steps_per_dispatch`` > 1), bare feature shapes the forward. The
         batch dims pad up to the data-axis multiple as ``fit`` pads real
         batches, and each rank warms its rows' step — the step ``fit``
-        dispatches."""
-        from deeplearning4j_tpu_torch.distributed.gspmd import local_shapes
-        from deeplearning4j_tpu_torch.nn import compilecache as _cc
-        k = max(int(steps_per_dispatch), 1)
-        local = local_shapes(shapes, self.mesh.size("data"), k)
+        dispatches (a batch that pads, the masked step)."""
+        from deeplearning4j_tpu_torch.distributed.gspmd import warm_rows
         self._attach()
         if policy is not None:
             self.model.setPrecisionPolicy(policy)
-        _cc.warmup(self.model, local, steps_per_dispatch=k, dtype=dtype,
-                   label_dtype=label_dtype)
+        warm_rows(self.model, shapes, self.mesh.size("data"),
+                  max(int(steps_per_dispatch), 1), dtype, label_dtype)
         return self.model
 
     def fit(self, iterator, epochs: int = 1, steps_per_dispatch: int = 1,

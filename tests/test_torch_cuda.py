@@ -1429,6 +1429,103 @@ def test_two_ranks_share_the_card_over_gloo(dev, tmp_path, rules):
         np.testing.assert_allclose(params, ref_p, rtol=1e-5, atol=1e-5)
 
 
+def _tbptt_net():
+    """Two LSTM(16) and an RnnOutputLayer over 11 symbols, T=24 in windows
+    of 8 (``tests/test_torch_tbptt_sharded.py``'s net), on the card."""
+    conf = (NeuralNetConfiguration.Builder().seed(5).updater(Adam(1e-3))
+            .weightInit("xavier").gradientNormalization("clip_value", 5.0)
+            .list()
+            .layer(tlayers.LSTM(nOut=16))
+            .layer(tlayers.LSTM(nOut=16))
+            .layer(tlayers.RnnOutputLayer(nOut=11, lossFunction="mcxent",
+                                          activation="softmax"))
+            .setInputType(InputType.recurrent(11, 24))
+            .backpropType("tbptt", 8).build())
+    return MultiLayerNetwork(conf).init()
+
+
+def _tbptt_batches(n=2, b=6):
+    rng = np.random.default_rng(0)
+    eye = np.eye(11, dtype=np.float32)
+    out = []
+    for _ in range(n):
+        idx = rng.integers(0, 11, (b, 25))
+        out.append(DataSet(eye[idx[:, :-1]].transpose(0, 2, 1),
+                           eye[idx[:, 1:]].transpose(0, 2, 1)))
+    return out
+
+
+def _window_losses(net, staged=None):
+    """Keep each window's loss off ``net``'s window step; with ``staged``
+    (a list) also each window's host-staged collectives."""
+    from deeplearning4j_tpu_torch.parallel.collectives import HOST_STAGED
+    losses = []
+    inner = net._fit_window
+
+    def recording(*args):
+        s0 = HOST_STAGED.value
+        out = inner(*args)
+        losses.append(float(out[0]))
+        if staged is not None:
+            staged.append(HOST_STAGED.value - s0)
+        return out
+    net._fit_window = recording
+    return losses
+
+
+def rank_tbptt_gloo_card(p0):
+    """A rank of two sharing the card over gloo (fp32, TF32 off): the
+    narrow TBPTT net from ``p0`` through GSPMDTrainer with ZeRO; its
+    window losses, final params, updater bytes and host-staged
+    collectives a window."""
+    from deeplearning4j_tpu_torch.distributed import (GSPMDTrainer,
+                                                      ShardedTrainingPlan,
+                                                      updater_hbm_bytes)
+    from deeplearning4j_tpu_torch.parallel import DeviceMesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    net = _tbptt_net()
+    net.setParams(torch.from_numpy(p0))
+    staged = []
+    losses = _window_losses(net, staged)
+    GSPMDTrainer(net, ShardedTrainingPlan(
+        DeviceMesh.data_parallel(), zero={"min_bytes": 0})).fit(
+        _tbptt_batches())
+    return (losses, net.params().cpu().numpy(),
+            sum(updater_hbm_bytes(net._opt_state).values()), staged)
+
+
+def test_tbptt_two_ranks_share_the_card_over_gloo(dev, tmp_path):
+    """Truncated BPTT under a data=2 plan: two gloo ranks on the card (3
+    rows each) against the plain ``fitTBPTT`` of the same 2 batches at
+    world 1 in this process, fp32 with TF32 off: window losses and params
+    within 1e-5 (only the order of the sums differs), each window's 3
+    collectives (the loss weights', the gradients', ZeRO's gather)
+    staged through host memory, about half the updater bytes a rank.
+    The tight twin of phase 42's TBPTT check."""
+    from deeplearning4j_tpu_torch.parallel.launch import RankPool
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ref = _tbptt_net()
+        p0 = ref.params().cpu().numpy()
+        ref_losses = _window_losses(ref)
+        for ds in _tbptt_batches():
+            ref.fitTBPTT(ds, 8)
+        ref_p = ref.params().cpu().numpy()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    full = 2 * 4 * ref.numParams()
+    with RankPool(2, str(tmp_path), device="cuda", backend="gloo") as pool:
+        out = pool.run(rank_tbptt_gloo_card, p0)
+    assert len(ref_losses) == 6
+    np.testing.assert_array_equal(out[0][1], out[1][1])
+    for losses, params, hbm, staged in out:
+        assert staged == [3] * 6
+        assert 0.45 <= hbm / full <= 0.6
+        np.testing.assert_allclose(losses, ref_losses, rtol=1e-5)
+        np.testing.assert_allclose(params, ref_p, rtol=1e-5, atol=1e-5)
+
+
 # ------------------------------------- the seq and model axes over gloo
 def rank_ring_card(dtype_name, causal):
     """A rank of two sharing the card: ring attention of its 256 rows of
